@@ -10,16 +10,23 @@ the script exits non-zero (there is no CPU fallback):
    build time.
 2. Each kernel against its plain PyTorch version at GAR-1B shapes, on
    seeded bf16 inputs (the plain version in fp32 from the same inputs),
-   atol = rtol = 2e-2 (bf16 p before PV, bf16 output); median times of
-   kernel and plain version from CUDA events.
+   atol = rtol = 2e-2 (bf16 p before PV, bf16 LayerNorm and GELU outputs
+   before their products, bf16 output); median times of kernel and plain
+   version from CUDA events. E also at a ragged S = 200.
 3. End-to-end cross-check on a narrow gar_1b (ViT width 256, decoder
    hidden 256, 2 layers each, head dim 64): the same seeded bf16 params on
-   the card (kernel path) and on the CPU (plain path); prefill logits and
-   the first 4 decode-step logits must agree.
-4. Main path: gar_1b with seeded random weights, one 17-tile image, one
+   the card (kernel path: the fused ViT) and on the CPU (plain path: the
+   unfused ViT); prefill logits and the first 4 decode-step logits must
+   agree.
+4. Vision forms: the gar_1b tower over 17 tiles in the fused form (kernels
+   D, E, F, G) and the unfused form (kernel A) on the same params and
+   inputs; their outputs must agree to 5e-2 of the output range, and each
+   form must launch its kernels once per layer.
+5. Main path: gar_1b with seeded random weights, one 17-tile image, one
    region, a 4662-token prompt and 256 greedy tokens through `generate`;
    ms per caption split into vision, prefill and decode, and the kernel
-   launch counts of one caption, which must be A = 23, B = 16, C = 16 * 255.
+   launch counts of one caption, which must be D = E = F = G = 23 (the
+   fused ViT), A = 0, B = 16, C = 16 * 255.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
@@ -159,10 +166,61 @@ def phase_kernels():
         plain_ms=cuda_ms(lambda: dec.decode_attention_fused_plain(
             q, k_all, v_all, k_new, v_new, layer, **kw)))
     del k_all, v_all, k_ref, v_ref
+    results.update(vit_block_kernels(rnd, gen))
     for name, r in results.items():
         log(f"[kernels] {name}: max |kernel - plain| {r['max_abs_err']:.3e}, "
             f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms")
     torch.cuda.empty_cache()
+    return results
+
+
+def vit_block_kernels(rnd, gen):
+    """Kernels D-G at one gar_1b ViT layer: 17 tiles x 1025 tokens, width
+    1024, 16 heads of 64, MLP 4096, tanh GELU, LayerScale."""
+    from grasp_any_region_tpu_torch.ops import vit_attention as va
+    from grasp_any_region_tpu_torch.ops import vit_block as vb
+    from grasp_any_region_tpu_torch.ops.rope import rope_head_tables
+
+    t, s, d, m, h = 17, 1025, 1024, 4096, 16
+
+    def w(*shape, scale):
+        return (rnd(*shape).float() * scale).to(torch.bfloat16)
+
+    results = {}
+    # E: mixed (per-head) rope angles of the 32 x 32 grid's magnitude
+    for seq in (200, s):  # a ragged S first, then the gar_1b shape
+        qkv = rnd(t if seq == s else 2, seq, 3 * d)
+        ang = torch.rand((h, seq - 1, 32), generator=gen, device="cuda") * 40.0
+        cos, sin = rope_head_tables(ang, h, 1)
+        out = va.vit_attention_fused_qkv(qkv, cos, sin, h, 64)
+        torch.cuda.synchronize()
+        err = max_err(out, va.vit_attention_fused_qkv_plain(qkv.float(), cos, sin, h, 64),
+                      f"E (S = {seq})")
+    results["E"] = dict(
+        max_abs_err=err, ms=cuda_ms(lambda: va.vit_attention_fused_qkv(qkv, cos, sin, h, 64)),
+        plain_ms=cuda_ms(lambda: va.vit_attention_fused_qkv_plain(qkv, cos, sin, h, 64),
+                         iters=5))
+    del qkv, cos, sin, out
+
+    x, attn = rnd(t, s, d), rnd(t, s, d)
+    ln = (1.0 + w(d, scale=0.2), w(d, scale=0.2))
+    wqkv, bqkv = w(d, 3 * d, scale=d ** -0.5), w(3 * d, scale=0.1)
+    wo, bo, ls1 = w(d, d, scale=d ** -0.5), w(d, scale=0.1), w(d, scale=0.5)
+    fc1, b1 = w(d, m, scale=d ** -0.5), w(m, scale=0.1)
+    fc2, b2, ls2 = w(m, d, scale=m ** -0.5), w(d, scale=0.1), w(d, scale=0.5)
+    cases = {
+        "D": (vb.vit_ln_qkv, vb.vit_ln_qkv_plain, (x, *ln, wqkv, bqkv), {}),
+        "F": (vb.vit_wo_residual, vb.vit_wo_residual_plain, (attn, x, wo, bo, ls1), {}),
+        "G": (vb.vit_mlp_residual, vb.vit_mlp_residual_plain,
+              (x, *ln, fc1, b1, fc2, b2, ls2), dict(fast_gelu=True)),
+    }
+    for name, (kernel, plain, args, kw) in cases.items():
+        out = kernel(*args, **kw)
+        torch.cuda.synchronize()
+        err = max_err(out, plain(*(a.float() for a in args), **kw), name)
+        results[name] = dict(max_abs_err=err, ms=cuda_ms(lambda: kernel(*args, **kw)),
+                             plain_ms=cuda_ms(lambda: plain(*args, **kw), iters=5))
+        del out
     return results
 
 
@@ -240,34 +298,88 @@ def phase_cross_check(cfg):
         f"<= {E2E_TOL}")
 
 
-def phase_main_path(cfg):
+def counter_modules():
+    """The wrapper modules whose launch counters the phases read."""
+    from grasp_any_region_tpu_torch.ops import decode_attention, flash_attention
+    from grasp_any_region_tpu_torch.ops import vit_attention, vit_block
+
+    return decode_attention, flash_attention, vit_attention, vit_block
+
+
+def reset_counts():
+    dec, fa, va, vb = counter_modules()
+    va.launches = va.launches_fused = fa.launches = dec.launches = 0
+    vb.launches.update(D=0, F=0, G=0)
+
+
+def read_counts():
+    dec, fa, va, vb = counter_modules()
+    return dict(A=va.launches, B=fa.launches, C=dec.launches, D=vb.launches["D"],
+                E=va.launches_fused, F=vb.launches["F"], G=vb.launches["G"])
+
+
+@torch.inference_mode()
+def phase_vision_forms(cfg, params):
+    """The gar_1b tower in both forms on the same params and inputs."""
+    from grasp_any_region_tpu_torch.models.gar import decode_mask_values, mask_patch_embed
+    from grasp_any_region_tpu_torch.models.vision import vision_forward
+
+    batch, _ = bench_batch(cfg, "cuda")
+    pix = batch.pixel_values.reshape((-1,) + batch.pixel_values.shape[2:])
+    msk = batch.mask_values.reshape((-1,) + batch.mask_values.shape[2:])
+    me = mask_patch_embed(params, cfg, decode_mask_values(cfg, msk, compat=False)
+                          .to(torch.bfloat16))
+    outs, ms, counts = {}, {}, {}
+    for form, fused in (("fused", True), ("unfused", False)):
+        def run():
+            return vision_forward(params.vision, cfg.vision, pix, me, fused_blocks=fused)
+
+        reset_counts()
+        outs[form] = run()
+        torch.cuda.synchronize()
+        counts[form] = read_counts()
+        ms[form] = cuda_ms(run, iters=3, warmup=1)
+    depth = cfg.vision.depth
+    expected = dict(fused=dict(A=0, B=0, C=0, D=depth, E=depth, F=depth, G=depth),
+                    unfused=dict(A=depth, B=0, C=0, D=0, E=0, F=0, G=0))
+    if counts != expected:
+        raise AssertionError(f"vision forms: launch counts {counts}, expected {expected}")
+    fused, plain = outs["fused"].float(), outs["unfused"].float()
+    if fused.shape != (pix.shape[0], cfg.vision.seq_len, cfg.vision.width) \
+            or not torch.isfinite(fused).all():
+        raise AssertionError(f"vision forms: fused output {tuple(fused.shape)} or non-finite")
+    rel = ((fused - plain).abs().max() / plain.abs().max()).item()
+    log(f"[vision] {pix.shape[0]} tiles: fused {ms['fused']:.2f} ms, unfused "
+        f"{ms['unfused']:.2f} ms; max |fused - unfused| / max |unfused| = {rel:.3e}")
+    if rel > E2E_TOL:
+        raise AssertionError(f"vision forms differ by {rel:.3e} > {E2E_TOL} of the range")
+    return counts["unfused"]
+
+
+def phase_main_path(cfg, params):
     from grasp_any_region_tpu_torch.models.gar import encode_images, gar_prefill
     from grasp_any_region_tpu_torch.models.generate import generate
     from grasp_any_region_tpu_torch.models.llama import lm_logits
-    from grasp_any_region_tpu_torch.ops import decode_attention as dec
-    from grasp_any_region_tpu_torch.ops import flash_attention as fa
-    from grasp_any_region_tpu_torch.ops import vit_attention as va
 
     new_tokens = 256
-    params = random_params(cfg, "cuda")
     batch, plens = bench_batch(cfg, "cuda")
     b, s = batch.input_ids.shape
     log(f"[main] B={b}, {batch.pixel_values.shape[1]} tiles, prompt {s} tokens, "
         f"{new_tokens} new tokens")
 
     def run():
-        va.launches = fa.launches = dec.launches = 0
+        reset_counts()
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         out = generate(params, cfg, batch, plens, max_new_tokens=new_tokens, eot_id=-1,
                        mask_compat=False)
         end.record()
         torch.cuda.synchronize()
-        counts = dict(A=va.launches, B=fa.launches, C=dec.launches)
-        return out, start.elapsed_time(end), counts
+        return out, start.elapsed_time(end), read_counts()
 
-    expected = dict(A=cfg.vision.depth, B=cfg.text.num_layers,
-                    C=cfg.text.num_layers * (new_tokens - 1))
+    depth = cfg.vision.depth
+    expected = dict(A=0, B=cfg.text.num_layers, C=cfg.text.num_layers * (new_tokens - 1),
+                    D=depth, E=depth, F=depth, G=depth)
     run()  # warm-up
     times, counts, out = [], None, None
     for _ in range(3):
@@ -314,6 +426,14 @@ KERNELS = {
           "grasp_any_region_tpu/ops/flash_attention.py:247"),
     "C": ("decode_attention_fused", "grasp_any_region_tpu_torch/csrc/decode_attention.cu",
           "grasp_any_region_tpu/ops/decode_attention.py:373"),
+    "D": ("vit_ln_qkv", "grasp_any_region_tpu_torch/csrc/vit_block.cu",
+          "grasp_any_region_tpu/ops/vit_block.py:122"),
+    "E": ("vit_attention_fused_qkv", "grasp_any_region_tpu_torch/csrc/vit_attention.cu",
+          "grasp_any_region_tpu/ops/vit_attention.py:301"),
+    "F": ("vit_wo_residual", "grasp_any_region_tpu_torch/csrc/vit_block.cu",
+          "grasp_any_region_tpu/ops/vit_block.py:172"),
+    "G": ("vit_mlp_residual", "grasp_any_region_tpu_torch/csrc/vit_block.cu",
+          "grasp_any_region_tpu/ops/vit_block.py:245"),
 }
 
 
@@ -324,11 +444,17 @@ def main() -> int:
 
     kernels = phase_kernels()
     phase_cross_check(narrow_config())
-    counts = phase_main_path(gar_1b())
+    cfg = gar_1b()
+    params = random_params(cfg, "cuda")
+    unfused_counts = phase_vision_forms(cfg, params)
+    main_counts = phase_main_path(cfg, params)
+    # kernel A runs on the unfused tower's path, the others on generate's
+    paths = {key: ("vision_forward(fused_blocks=False)", unfused_counts) if key == "A"
+             else ("generate", main_counts) for key in KERNELS}
     table = [
-        dict(name=name, route="cuda", source=src, replaces=rep, launches=counts[key],
-             max_abs_err=kernels[key]["max_abs_err"], ms=kernels[key]["ms"],
-             plain_ms=kernels[key]["plain_ms"])
+        dict(name=name, route="cuda", source=src, replaces=rep, path=paths[key][0],
+             launches=paths[key][1][key], max_abs_err=kernels[key]["max_abs_err"],
+             ms=kernels[key]["ms"], plain_ms=kernels[key]["plain_ms"])
         for key, (name, src, rep) in KERNELS.items()
     ]
     print(smi)

@@ -1,4 +1,4 @@
-// Shared device helpers for the attention kernels (sm_90a).
+// Shared device helpers for the kernels (sm_90a).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -35,6 +35,25 @@ __device__ __forceinline__ void mma_bf16_16816(float d[4], const uint32_t a[4],
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// ldmatrix: each of the 4 (x4) 8x8 b16 matrices takes its 8 row addresses
+// from lanes 8i..8i+7, and register i holds matrix i in mma fragment order;
+// .trans delivers each matrix transposed (for B operands stored k-major).
+__device__ __forceinline__ void ldmatrix_x4(uint32_t r[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t r[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
 }
 
 __device__ __forceinline__ float warp_max(float v) {

@@ -2,12 +2,15 @@
 // kernel A (ViT attention, vit_attention.cu) and kernel B (prefill flash
 // attention, flash_attention.cu).
 //
-// One block of 4 warps owns 64 query rows of one (batch, head); each warp
-// owns 16 rows. K/V stream through shared memory in 64-key tiles. Both
-// products run on the tensor cores with mma.sync m16n8k16 (bf16 in, fp32
-// sum): S = Q K^T from register-resident Q fragments, then P V with the
-// fp32 probabilities rounded to bf16, as the TPU kernels round p before
-// their PV dot. Max, sum and the output accumulator stay fp32 in registers.
+// One block owns BM query rows of one (batch, head), one warp per 16 rows:
+// 64 rows (4 warps) for A and B, 128 (8 warps) for E, whose K/V staging
+// with rope costs more and is then shared by twice the query rows. K/V stream through shared memory in 64-key tiles, both
+// key-major as they lie in memory. Both products run on the tensor cores
+// with mma.sync m16n8k16 (bf16 in, fp32 sum): S = Q K^T from
+// register-resident Q fragments, then P V with the fp32 probabilities
+// rounded to bf16, as the TPU kernels round p before their PV dot; V's B
+// fragments come from ldmatrix.trans, so V is never transposed in shared
+// memory. Max, sum and the output accumulator stay fp32 in registers.
 //
 // Tensors are read through element strides for (batch, seq, head); the
 // head dim is contiguous. So the JAX (B, S, H, D) layout, and views such as
@@ -15,6 +18,13 @@
 // Keys past Sk are masked by bounds (nothing is padded); causal masks are
 // right-aligned by q_offset = Sk - Sq, and K tiles wholly above the
 // diagonal are never loaded.
+//
+// With ROPE (kernel E), Q and K rows are rotated while they are staged into
+// shared memory: rotate_half pairs element i with i +- D/2 of the same head,
+// which no mma fragment holds together, so each thread takes the 8-element
+// chunks at c and c + D/2 of one row, rotates them in fp32 with the row's
+// cos/sin (fp32 tables (head, seq, D), element strides rope_sh and D) and
+// rounds to bf16, as the TPU kernel rounds roped q/k before its products.
 #pragma once
 
 #include "common.cuh"
@@ -26,6 +36,9 @@ struct FlashParams {
   const bf16* k;
   const bf16* v;
   bf16* o;
+  const float* cos;  // ROPE only: (head, seq, D) fp32 tables
+  const float* sin;
+  long long rope_sh;
   long long q_sb, q_ss, q_sh;  // element strides: batch, sequence, head
   long long k_sb, k_ss, k_sh;
   long long v_sb, v_ss, v_sh;
@@ -36,22 +49,71 @@ struct FlashParams {
   float scale;
 };
 
-constexpr int kFlashBM = 64;       // query rows per block
 constexpr int kFlashBN = 64;       // keys per tile
-constexpr int kFlashThreads = 128; // 4 warps x 16 query rows
 constexpr int kSmemPad = 8;        // bf16 pad per smem row: conflict-free fragment loads
 
-template <int D, bool CAUSAL>
-__global__ void __launch_bounds__(kFlashThreads)
+// Stage rows [r0, r0 + rows) of a (seq, D) operand into dst (row stride LD),
+// zeros past `limit`. With ROPE, rotate each row by its cos/sin table row
+// (x * cos + rotate_half(x) * sin, fp32) before the bf16 store.
+template <int D, int LD, bool ROPE, int NT>
+__device__ __forceinline__ void stage_rows(bf16* dst, const bf16* src, long long ss, int r0,
+                                           int rows, int limit, const float* cos,
+                                           const float* sin, int tid) {
+  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+  if constexpr (!ROPE) {
+    constexpr int CPR = D / 8;  // 16-byte chunks per row
+    for (int c = tid; c < rows * CPR; c += NT) {
+      const int r = c / CPR, cc = (c % CPR) * 8;
+      uint4 val = zero;
+      if (r0 + r < limit) val = *reinterpret_cast<const uint4*>(src + (r0 + r) * ss + cc);
+      *reinterpret_cast<uint4*>(&dst[r * LD + cc]) = val;
+    }
+  } else {
+    constexpr int HALF = D / 2, CPH = HALF / 8;  // chunk pairs (c, c + D/2) per row
+    for (int c = tid; c < rows * CPH; c += NT) {
+      const int r = c / CPH, cc = (c % CPH) * 8;
+      uint4 out1 = zero, out2 = zero;
+      if (r0 + r < limit) {
+        const bf16* row = src + (r0 + r) * ss;
+        const uint4 in1 = *reinterpret_cast<const uint4*>(row + cc);
+        const uint4 in2 = *reinterpret_cast<const uint4*>(row + HALF + cc);
+        const bf16* x1 = reinterpret_cast<const bf16*>(&in1);
+        const bf16* x2 = reinterpret_cast<const bf16*>(&in2);
+        const float4* c4 = reinterpret_cast<const float4*>(cos + (long long)(r0 + r) * D + cc);
+        const float4* s4 = reinterpret_cast<const float4*>(sin + (long long)(r0 + r) * D + cc);
+        const float4 cl[2] = {c4[0], c4[1]}, ch[2] = {c4[HALF / 4], c4[HALF / 4 + 1]};
+        const float4 sl[2] = {s4[0], s4[1]}, sh[2] = {s4[HALF / 4], s4[HALF / 4 + 1]};
+        const float* cosl = reinterpret_cast<const float*>(cl);
+        const float* cosh_ = reinterpret_cast<const float*>(ch);
+        const float* sinl = reinterpret_cast<const float*>(sl);
+        const float* sinh_ = reinterpret_cast<const float*>(sh);
+        uint32_t* w1 = reinterpret_cast<uint32_t*>(&out1);
+        uint32_t* w2 = reinterpret_cast<uint32_t*>(&out2);
+#pragma unroll
+        for (int e = 0; e < 8; e += 2) {
+          const float a0 = __bfloat162float(x1[e]), a1 = __bfloat162float(x1[e + 1]);
+          const float b0 = __bfloat162float(x2[e]), b1 = __bfloat162float(x2[e + 1]);
+          // first half: x1 cos - x2 sin; second half: x2 cos + x1 sin
+          w1[e / 2] = pack_bf16x2(a0 * cosl[e] - b0 * sinl[e], a1 * cosl[e + 1] - b1 * sinl[e + 1]);
+          w2[e / 2] = pack_bf16x2(b0 * cosh_[e] + a0 * sinh_[e], b1 * cosh_[e + 1] + a1 * sinh_[e + 1]);
+        }
+      }
+      *reinterpret_cast<uint4*>(&dst[r * LD + cc]) = out1;
+      *reinterpret_cast<uint4*>(&dst[r * LD + HALF + cc]) = out2;
+    }
+  }
+}
+
+// BM query rows per block, one warp per 16 of them.
+template <int D, bool CAUSAL, bool ROPE, int BM>
+__global__ void __launch_bounds__(BM * 2)
 flash_fwd_kernel(const FlashParams p) {
   static_assert(D % 16 == 0, "head dim must be a multiple of 16");
-  constexpr int BM = kFlashBM, BN = kFlashBN;
-  constexpr int LDQ = D + kSmemPad;   // sQ, sK: [row][d]
-  constexpr int LDV = BN + kSmemPad;  // sVt: [d][key] (V transposed)
-  constexpr int CPR = D / 8;          // 16-byte chunks per row
+  constexpr int BN = kFlashBN, NT = BM * 2;
+  constexpr int LDQ = D + kSmemPad;   // sQ, sK, sV: [row][d]
   __shared__ __align__(16) bf16 sQ[BM * LDQ];
   __shared__ __align__(16) bf16 sK[BN * LDQ];
-  __shared__ __align__(16) bf16 sVt[D * LDV];
+  __shared__ __align__(16) bf16 sV[BN * LDQ];
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
@@ -61,14 +123,10 @@ flash_fwd_kernel(const FlashParams p) {
   const bf16* qb = p.q + b * p.q_sb + h * p.q_sh;
   const bf16* kb = p.k + b * p.k_sb + kvh * p.k_sh;
   const bf16* vb = p.v + b * p.v_sb + kvh * p.v_sh;
-  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+  const float* cos_h = ROPE ? p.cos + h * p.rope_sh : nullptr;
+  const float* sin_h = ROPE ? p.sin + h * p.rope_sh : nullptr;
 
-  for (int c = tid; c < BM * CPR; c += kFlashThreads) {
-    const int r = c / CPR, cc = (c % CPR) * 8;
-    uint4 val = zero;
-    if (q0 + r < p.sq) val = *reinterpret_cast<const uint4*>(qb + (q0 + r) * p.q_ss + cc);
-    *reinterpret_cast<uint4*>(&sQ[r * LDQ + cc]) = val;
-  }
+  stage_rows<D, LDQ, ROPE, NT>(sQ, qb, p.q_ss, q0, BM, p.sq, cos_h, sin_h, tid);
   __syncthreads();
 
   uint32_t qf[D / 16][4];
@@ -96,18 +154,8 @@ flash_fwd_kernel(const FlashParams p) {
   for (int j = 0; j < n_tiles; ++j) {
     const int k0 = j * BN;
     __syncthreads();  // every warp is done with the previous tile
-    for (int c = tid; c < BN * CPR; c += kFlashThreads) {
-      const int r = c / CPR, cc = (c % CPR) * 8;
-      uint4 kv = zero, vv = zero;
-      if (k0 + r < p.sk) {
-        kv = *reinterpret_cast<const uint4*>(kb + (k0 + r) * p.k_ss + cc);
-        vv = *reinterpret_cast<const uint4*>(vb + (k0 + r) * p.v_ss + cc);
-      }
-      *reinterpret_cast<uint4*>(&sK[r * LDQ + cc]) = kv;
-      const bf16* ve = reinterpret_cast<const bf16*>(&vv);
-#pragma unroll
-      for (int e = 0; e < 8; ++e) sVt[(cc + e) * LDV + r] = ve[e];
-    }
+    stage_rows<D, LDQ, ROPE, NT>(sK, kb, p.k_ss, k0, BN, p.sk, cos_h, sin_h, tid);
+    stage_rows<D, LDQ, false, NT>(sV, vb, p.v_ss, k0, BN, p.sk, nullptr, nullptr, tid);
     __syncthreads();
 
     // S = Q K^T for this warp's 16 rows x 64 keys
@@ -165,17 +213,24 @@ flash_fwd_kernel(const FlashParams p) {
     l_run[0] = l_run[0] * alpha0 + rs0;
     l_run[1] = l_run[1] * alpha1 + rs1;
 
-    // O = O * alpha + P V
+    // O = O * alpha + P V; the B fragments of V (key-major in shared
+    // memory) come from ldmatrix.trans, two 8-wide d tiles at a time
 #pragma unroll
     for (int dt = 0; dt < D / 8; ++dt) {
       acc[dt][0] *= alpha0;
       acc[dt][1] *= alpha0;
       acc[dt][2] *= alpha1;
       acc[dt][3] *= alpha1;
-      const bf16* vrow = &sVt[(dt * 8 + g) * LDV + 2 * t];
+    }
 #pragma unroll
-      for (int kk = 0; kk < BN / 16; ++kk)
-        mma_bf16_16816(acc[dt], pa[kk], ld_u32(vrow + kk * 16), ld_u32(vrow + kk * 16 + 8));
+    for (int j = 0; j < D / 16; ++j) {
+#pragma unroll
+      for (int kk = 0; kk < BN / 16; ++kk) {
+        uint32_t bf[4];
+        ldmatrix_x4_trans(bf, &sV[(kk * 16 + (lane & 15)) * LDQ + j * 16 + (lane >> 4) * 8]);
+        mma_bf16_16816(acc[2 * j], pa[kk], bf[0], bf[1]);
+        mma_bf16_16816(acc[2 * j + 1], pa[kk], bf[2], bf[3]);
+      }
     }
   }
 
@@ -193,14 +248,14 @@ flash_fwd_kernel(const FlashParams p) {
 }
 
 // Launch on the caller's stream; returns the launch's error code.
-template <int D>
+template <int D, bool ROPE = false, int BM = 64>
 inline int launch_flash_fwd(const FlashParams& p, int batch, int heads, bool causal,
                             cudaStream_t stream) {
-  const dim3 grid((p.sq + kFlashBM - 1) / kFlashBM, heads, batch);
+  const dim3 grid((p.sq + BM - 1) / BM, heads, batch);
   if (causal)
-    flash_fwd_kernel<D, true><<<grid, kFlashThreads, 0, stream>>>(p);
+    flash_fwd_kernel<D, true, ROPE, BM><<<grid, BM * 2, 0, stream>>>(p);
   else
-    flash_fwd_kernel<D, false><<<grid, kFlashThreads, 0, stream>>>(p);
+    flash_fwd_kernel<D, false, ROPE, BM><<<grid, BM * 2, 0, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 

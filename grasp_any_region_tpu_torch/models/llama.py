@@ -9,10 +9,9 @@
     one write column per step, `write_pos`, a device scalar. The cache and
     `write_pos` are updated in place, so no step copies the cache or waits
     for the host.
-  * Logits: the tied (or untied) head in the working dtype, padded vocab
-    rows masked to NEG_INF. With bf16 weights torch.matmul rounds the
-    logits to bf16 before they are widened to fp32, where the JAX package
-    keeps fp32 sums (preferred_element_type). In fp32 the two agree.
+  * Logits: the tied (or untied) head with operands in the working dtype
+    and fp32 sums and output, as the JAX package contracts them
+    (preferred_element_type=float32); padded vocab rows masked to NEG_INF.
 """
 
 from __future__ import annotations
@@ -151,8 +150,14 @@ def lm_logits(
 ) -> torch.Tensor:
     """hidden (..., D) -> fp32 logits (..., V_rows), padded rows masked."""
     x = rms_norm(hidden, params.final_norm, cfg.rms_norm_eps)
-    w = params.embed.t() if cfg.tie_word_embeddings else params.lm_head
-    logits = (x @ w.to(x.dtype)).float()
+    w = (params.embed.t() if cfg.tie_word_embeddings else params.lm_head).to(x.dtype)
+    if x.device.type == "cuda":
+        # cuBLAS with an fp32 C (aten::mm.dtype): bf16 operands, fp32 sums, no
+        # bf16 rounding of the logits; w stays the (D, V) view of the embedding
+        logits = torch.mm(x.reshape(-1, x.shape[-1]), w, out_dtype=torch.float32)
+        logits = logits.reshape(*x.shape[:-1], w.shape[-1])
+    else:  # mm.dtype has no CPU kernel; bf16 products are exact in fp32
+        logits = x.float() @ w.float()
     v_rows = logits.shape[-1]
     if valid_vocab is not None and valid_vocab < v_rows:
         logits[..., valid_vocab:] = NEG_INF

@@ -1,11 +1,17 @@
-"""Perception-Encoder ViT tower: the unfused-block form of
-`grasp_any_region_tpu/models/vision.py` (`vision_forward(fused_blocks=False)`).
+"""Perception-Encoder ViT tower (`grasp_any_region_tpu/models/vision.py`).
 
   patch_embed -> (+ mask_embeds) -> CLS + abs pos -> ln_pre ->
   blocks (2D rope per layer and head, CLS unroped) -> ln_post
 
-LayerNorm, the qkv, wo and MLP products stay plain torch, as XLA runs them
-outside any Pallas kernel; attention is kernel A (ops/vit_attention.py).
+Each block runs in one of the JAX package's two forms:
+
+  * fused (`_fused_block`, the TPU default): four kernels per layer, D
+    LayerNorm + qkv (ops/vit_block.py), E rope + attention read from the
+    fused qkv buffer (ops/vit_attention.py), F wo + LayerScale + residual,
+    G LayerNorm + fc1 + GELU + fc2 + LayerScale + residual (ops/vit_block.py);
+  * unfused (`_block`): LayerNorm, rope, GELU and the qkv, wo and MLP
+    products in plain torch, as XLA runs them, around kernel A.
+
 All tiles of the batch are one leading dim (T, S, D).
 """
 
@@ -20,8 +26,10 @@ from torch import nn
 from ..core.config import VisionConfig
 from ..core.weights import ParamGroup, add_param
 from ..ops.norms import layer_norm
-from ..ops.rope import apply_rope_2d_tshd, axial_rope_angles, mixed_rope_angles
-from ..ops.vit_attention import vit_attention
+from ..ops.rope import (apply_rope_2d_tshd, axial_rope_angles, mixed_rope_angles,
+                        rope_head_tables)
+from ..ops.vit_attention import vit_attention, vit_attention_fused_qkv
+from ..ops.vit_block import vit_ln_qkv, vit_mlp_residual, vit_wo_residual
 
 
 class VisionParams(nn.Module):
@@ -96,6 +104,20 @@ def _block(cfg: VisionConfig, x: torch.Tensor, bp: dict,
     return x + y
 
 
+def _fused_block(cfg: VisionConfig, x: torch.Tensor, bp: dict,
+                 angles: torch.Tensor) -> torch.Tensor:
+    """One block as the four fused kernels D, E, F, G (the JAX package's
+    `vision_forward(fused_blocks=True)` body). x: (T, S, D); angles:
+    (H|1, N, d/2). S is not padded: the kernels mask the ragged rows."""
+    n_prefix = 1 if cfg.class_token else 0
+    cos, sin = rope_head_tables(angles, cfg.num_heads, n_prefix)
+    qkv = vit_ln_qkv(x, bp["ln1_scale"], bp["ln1_bias"], bp["wqkv"], bp["bqkv"])
+    attn = vit_attention_fused_qkv(qkv, cos, sin, cfg.num_heads, cfg.head_dim)
+    x = vit_wo_residual(attn, x, bp["wo"], bp["bo"], bp.get("ls1"))
+    return vit_mlp_residual(x, bp["ln2_scale"], bp["ln2_bias"], bp["fc1"], bp["b1"],
+                            bp["fc2"], bp["b2"], bp.get("ls2"), fast_gelu=cfg.fast_gelu)
+
+
 def vision_embed(
     params: VisionParams,
     cfg: VisionConfig,
@@ -138,14 +160,27 @@ def vision_forward(
     mask_embeds: Optional[torch.Tensor] = None,
     *,
     compute_dtype=torch.bfloat16,
+    fused_blocks: Optional[bool] = None,
 ) -> torch.Tensor:
     """pixel_values: (T, 3, H, W), all tiles of the batch; mask_embeds:
     (T, N, D) added right after the patch embed. Returns (T, S, D) final
-    hidden states, CLS still at index 0."""
+    hidden states, CLS still at index 0.
+
+    fused_blocks: run each layer as the four fused kernels. None = auto, as
+    the JAX package decides it with "on the TPU" read as "on a CUDA tensor":
+    on for head_dim 64, an even head count and rope (so gar_1b on the card
+    is fused and gar_8b, head_dim 96, is not). True on a CPU tensor runs the
+    kernels' plain versions."""
     x, angles = vision_embed(params, cfg, pixel_values, mask_embeds,
                              compute_dtype=compute_dtype)
+    if fused_blocks is None:
+        fused_blocks = (x.device.type == "cuda" and cfg.head_dim == 64
+                        and cfg.num_heads % 2 == 0 and cfg.use_rope)
+    if fused_blocks and angles is None:
+        raise ValueError("the fused ViT block needs rope (use_rope=True)")
+    block = _fused_block if fused_blocks else _block
     for i in range(cfg.depth):
-        x = _block(cfg, x, params.blocks.layer(i), None if angles is None else angles[i])
+        x = block(cfg, x, params.blocks.layer(i), None if angles is None else angles[i])
     if cfg.use_ln_post:
         x = layer_norm(x, params.ln_post.scale, params.ln_post.bias)
     return x

@@ -1,7 +1,8 @@
 """Build the CUDA kernels in ../csrc at first use and bind them with ctypes.
 
-All `.cu` files are compiled by nvcc, for sm_90a, into one shared library
-with a plain C interface: no PyTorch headers, so the build takes seconds.
+Each `.cu` file is compiled by its own nvcc, for sm_90a, all of them at
+once, and the objects are linked into one shared library with a plain C
+interface: no PyTorch headers, so the build takes seconds.
 The library lands in `build/torch_kernels/<hash>/` at the repository root
 (git ignores it). The hash covers the sources, the flags and the nvcc path,
 so an edited source is rebuilt and a stale library is never loaded.
@@ -25,10 +26,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -38,6 +37,10 @@ _SIGNATURES = {
     "gar_vit_attention": [_P] * 4 + [_I] * 4 + [_L] * 12 + [_F, _P],
     "gar_flash_attention": [_P] * 4 + [_I] * 7 + [_L] * 12 + [_F, _P],
     "gar_decode_attention_fused": [_P] * 8 + [_I] * 7 + [_F, _P],
+    "gar_vit_attention_fused_qkv": [_P] * 4 + [_I] * 4 + [_F, _P],
+    "gar_vit_ln_qkv": [_P] * 6 + [_I] * 3 + [_F, _P],
+    "gar_vit_wo_residual": [_P] * 6 + [_I] * 2 + [_P],
+    "gar_vit_mlp_residual": [_P] * 9 + [_I] * 3 + [_F, _I, _P],
 }
 
 
@@ -77,14 +80,29 @@ def build() -> tuple[Path, float]:
     if lib.is_file():
         return lib, 0.0
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f"libgar_kernels.{os.getpid()}.tmp.so"
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *map(str, sorted(CSRC.glob("*.cu")))]
+    tag = f"{os.getpid()}.tmp"
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
+    objs, procs = [], []
+    for src in sorted(CSRC.glob("*.cu")):
+        obj = out_dir / f"{src.stem}.{tag}.o"
+        objs.append(obj)
+        procs.append(subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                                      stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                      text=True))
+    logs = [(p.args[-1], p.communicate()[0], p.returncode) for p in procs]
+    tmp = out_dir / f"libgar_kernels.{tag}.so"
+    if all(rc == 0 for _, _, rc in logs):
+        res = subprocess.run([nvcc, *ARCH, "-shared", "-o", str(tmp), *map(str, objs)],
+                             capture_output=True, text=True)
+        logs.append(("link", res.stdout + res.stderr, res.returncode))
     seconds = time.perf_counter() - t0
-    (out_dir / "build.log").write_text(res.stdout + res.stderr)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr[-8000:]}")
+    (out_dir / "build.log").write_text("".join(f"== {name}\n{out}" for name, out, _ in logs))
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    failed = [(name, out, rc) for name, out, rc in logs if rc != 0]
+    if failed:
+        name, out, rc = failed[0]
+        raise RuntimeError(f"nvcc failed on {name} ({rc}):\n{out[-8000:]}")
     os.replace(tmp, lib)  # atomic: a concurrent loader sees all or nothing
     return lib, seconds
 

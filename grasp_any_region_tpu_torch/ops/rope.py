@@ -101,3 +101,22 @@ def apply_rope_2d_tshd(
     pf = patches.to(cos.dtype)
     rotated = pf * cos + rotate_half(pf) * sin
     return torch.cat([prefix, rotated.to(x.dtype)], dim=1)
+
+
+def rope_head_tables(
+    angles: torch.Tensor, num_heads: int, num_prefix: int = 1
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-layer cos/sin tables for the fused-qkv ViT attention (kernel E,
+    ops/vit_attention.vit_attention_fused_qkv).
+
+    angles: (H|1, N, D/2), axial angles broadcast to H -> cos, sin (H, S, D)
+    fp32 with duplicated halves, S = num_prefix + N; the prefix (CLS) rows
+    are the identity rotation (cos 1, sin 0). The JAX package's
+    `rope_pair_tables` holds the same values in a head-pair
+    (H/2, S_pad, 2D) layout for the TPU's 128 lanes; the kernel here reads
+    per head and needs no pad rows."""
+    angles = angles.float().expand(num_heads, *angles.shape[-2:])
+    prefix = (0, 0, num_prefix, 0)
+    cos = torch.nn.functional.pad(torch.cos(angles).repeat(1, 1, 2), prefix, value=1.0)
+    sin = torch.nn.functional.pad(torch.sin(angles).repeat(1, 1, 2), prefix)
+    return cos, sin

@@ -1,4 +1,4 @@
-"""CUDA kernels A, B and C against their plain PyTorch versions, on the card.
+"""CUDA kernels A-G against their plain PyTorch versions, on the card.
 
 Skips without a CUDA device. Imports no jax, so it runs on a machine that
 has none; there, skip the repository's conftest (which sets up jax):
@@ -6,8 +6,9 @@ has none; there, skip the repository's conftest (which sets up jax):
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_gpu.py
 
 Tolerance atol = rtol = 2e-2: the kernels round p to bf16 before the PV
-product and write bf16; the plain versions run in fp32 from the same bf16
-inputs.
+product (A, B, C, E), round LayerNorm and GELU outputs to bf16 before their
+products (D, G), and write bf16; the plain versions run in fp32 from the
+same bf16 inputs.
 """
 
 import pytest
@@ -16,6 +17,7 @@ import torch
 from grasp_any_region_tpu_torch.ops import decode_attention as dec
 from grasp_any_region_tpu_torch.ops import flash_attention as fa
 from grasp_any_region_tpu_torch.ops import vit_attention as va
+from grasp_any_region_tpu_torch.ops import vit_block as vb
 
 pytestmark = pytest.mark.gpu
 TOL = dict(atol=2e-2, rtol=2e-2)
@@ -97,3 +99,109 @@ def test_wrappers_reject_what_the_kernels_do_not_take(rnd):
             rnd(1, 4, 64), k_all, k_all.clone(), rnd(1, 2, 64), rnd(1, 2, 64), 0,
             prompt_lens=torch.tensor([3], dtype=torch.int32, device="cuda"),
             write_pos=torch.tensor(10), prompt_pad=8)
+
+
+def _angles(t_gen, h, n):
+    """(H, N, 32) per-head angles of the size mixed rope gives."""
+    return torch.rand((h, n, 32), generator=t_gen, device="cuda") * 40.0
+
+
+@pytest.mark.parametrize("t,s,h", [(2, 200, 2), (1, 65, 4), (3, 1025, 16)])
+def test_vit_attention_fused_qkv_kernel(rnd, t, s, h):
+    from grasp_any_region_tpu_torch.ops.rope import rope_head_tables
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    qkv = rnd(t, s, 3 * h * 64)
+    cos, sin = rope_head_tables(_angles(gen, h, s - 1), h, 1)
+    before = va.launches_fused
+    out = va.vit_attention_fused_qkv(qkv, cos, sin, h, 64)
+    torch.cuda.synchronize()
+    assert va.launches_fused == before + 1
+    ref = va.vit_attention_fused_qkv_plain(qkv.float(), cos, sin, h, 64)
+    torch.testing.assert_close(out.float(), ref, **TOL)
+
+
+def _block_args(rnd, d, m, layer_scale=True):
+    """Seeded bf16 weights of one ViT layer at width d, hidden m."""
+    def w(*shape, scale):
+        return (rnd(*shape).float() * scale).to(torch.bfloat16)
+
+    return dict(
+        ln=(1.0 + w(d, scale=0.2), w(d, scale=0.2)),
+        wqkv=w(d, 3 * d, scale=d ** -0.5), bqkv=w(3 * d, scale=0.1),
+        wo=w(d, d, scale=d ** -0.5), bo=w(d, scale=0.1),
+        fc1=w(d, m, scale=d ** -0.5), b1=w(m, scale=0.1),
+        fc2=w(m, d, scale=m ** -0.5), b2=w(d, scale=0.1),
+        ls=w(d, scale=0.5) if layer_scale else None)
+
+
+@pytest.mark.parametrize("t,s,d,m,layer_scale,fast_gelu", [
+    (2, 65, 128, 256, True, True),     # ragged rows (130 = 2 x 64 + 2)
+    (1, 200, 256, 1024, False, False),  # no LayerScale, erf GELU
+    (17, 1025, 1024, 4096, True, True),  # one gar_1b layer
+])
+def test_vit_block_kernels(rnd, t, s, d, m, layer_scale, fast_gelu):
+    a = _block_args(rnd, d, m, layer_scale)
+    x, attn = rnd(t, s, d), rnd(t, s, d)
+    f32 = {k: (tuple(v.float() for v in a[k]) if k == "ln" else
+               None if a[k] is None else a[k].float()) for k in a}
+    before = dict(vb.launches)
+    qkv = vb.vit_ln_qkv(x, *a["ln"], a["wqkv"], a["bqkv"])
+    wo = vb.vit_wo_residual(attn, x, a["wo"], a["bo"], a["ls"])
+    mlp = vb.vit_mlp_residual(x, *a["ln"], a["fc1"], a["b1"], a["fc2"], a["b2"], a["ls"],
+                              fast_gelu=fast_gelu)
+    torch.cuda.synchronize()
+    assert vb.launches == {k: v + 1 for k, v in before.items()}
+    xf = x.float()
+    torch.testing.assert_close(
+        qkv.float(), vb.vit_ln_qkv_plain(xf, *f32["ln"], f32["wqkv"], f32["bqkv"]), **TOL)
+    torch.testing.assert_close(
+        wo.float(), vb.vit_wo_residual_plain(attn.float(), xf, f32["wo"], f32["bo"], f32["ls"]),
+        **TOL)
+    ref = vb.vit_mlp_residual_plain(xf, *f32["ln"], f32["fc1"], f32["b1"], f32["fc2"],
+                                    f32["b2"], f32["ls"], fast_gelu=fast_gelu)
+    torch.testing.assert_close(mlp.float(), ref, **TOL)
+
+
+def test_vision_forward_auto_form_on_the_card(rnd):
+    """fused_blocks=None on a CUDA tensor takes the fused form at head_dim
+    64 and an even head count (kernels D-G, no A), and the unfused form
+    (A only) at an odd head count, as the JAX package's rule does."""
+    from grasp_any_region_tpu_torch.core.config import VisionConfig
+    from grasp_any_region_tpu_torch.models.vision import VisionParams, vision_forward
+
+    for width, heads, fused in ((256, 4, True), (192, 3, False)):
+        cfg = VisionConfig(width=width, depth=2, num_heads=heads, img_size=(112, 112),
+                           fast_gelu=True)
+        params = VisionParams(cfg, device="cuda", dtype=torch.bfloat16)
+        with torch.no_grad():
+            for p in params.parameters():
+                p.copy_(rnd(*p.shape).float() * 0.02)
+        va.launches = va.launches_fused = 0
+        vb.launches.update(D=0, F=0, G=0)
+        out = vision_forward(params, cfg, rnd(2, 3, 112, 112))
+        torch.cuda.synchronize()
+        assert out.shape == (2, cfg.seq_len, width) and torch.isfinite(out.float()).all()
+        n = cfg.depth if fused else 0
+        assert (va.launches_fused, vb.launches["D"], vb.launches["G"]) == (n, n, n)
+        assert va.launches == cfg.depth - n
+
+
+def test_lm_logits_keeps_fp32_sums_on_the_card(rnd):
+    from grasp_any_region_tpu_torch.core.config import gar_tiny
+    from grasp_any_region_tpu_torch.models.llama import LlamaParams, lm_logits
+
+    cfg = gar_tiny().text
+    params = LlamaParams(cfg, device="cuda", dtype=torch.bfloat16)
+    with torch.no_grad():
+        for p in params.parameters():
+            p.copy_(rnd(*p.shape))
+    hidden = rnd(3, cfg.hidden_size) * 4
+    out = lm_logits(params, cfg, hidden)
+    assert out.dtype == torch.float32
+    from grasp_any_region_tpu_torch.ops.norms import rms_norm
+
+    x = rms_norm(hidden, params.final_norm, cfg.rms_norm_eps)
+    ref = x.float() @ params.embed.float().t()
+    scale = ref.abs().max()
+    torch.testing.assert_close(out / scale, ref / scale, rtol=1e-5, atol=1e-5)

@@ -274,3 +274,26 @@ def test_init_gar_params_follows_jax_rules(tiny_flat):
         elif key != "vision/rope_freqs":  # truncated normal, std 0.02, cut at 2 std
             assert np.abs(p).max() <= 0.04 + 1e-7, key
             assert abs(p.std() - ref.std()) < 0.25 * ref.std(), key
+
+
+def test_lm_logits_bf16_keeps_fp32_sums(tiny_flat, rng):
+    """bf16 hidden and bf16 tied embedding: the logits are fp32 sums of the
+    bf16 operands, as JAX contracts them (preferred_element_type=float32),
+    not bf16-rounded products widened afterwards (a 2^-9 relative error)."""
+    from grasp_any_region_tpu.models.llama import lm_logits as jlogits
+    from grasp_any_region_tpu_torch.core.weights import load_flat_params
+    from grasp_any_region_tpu_torch.models.llama import lm_logits as tlogits
+
+    cfg_j, cfg_t = jcfg.gar_tiny(), tcfg.gar_tiny()
+    jparams = {k: jnp.asarray(tiny_flat[f"llm/{k}"], jnp.bfloat16)
+               for k in ("embed", "final_norm")}
+    tparams = load_flat_params(tiny_flat, cfg_t, dtype=torch.bfloat16).llm
+    hidden = rng.standard_normal((3, cfg_t.text.hidden_size)).astype(np.float32) * 4
+    vocab = cfg_t.extended_vocab_size
+    ref = np.asarray(jlogits(jparams, cfg_j.text, jnp.asarray(hidden, jnp.bfloat16),
+                             valid_vocab=vocab))
+    out = tlogits(tparams, cfg_t.text, _t(hidden).to(torch.bfloat16), valid_vocab=vocab)
+    assert out.dtype == torch.float32 and out.shape == ref.shape
+    scale = np.abs(ref[:, :vocab]).max()
+    np.testing.assert_allclose(out[:, :vocab].numpy() / scale, ref[:, :vocab] / scale, **TOL)
+    np.testing.assert_array_equal(out[:, vocab:].numpy(), ref[:, vocab:])

@@ -1,0 +1,204 @@
+"""The fused ViT block of the PyTorch port (kernels D, E, F, G: plain
+versions, rope tables, the fused form of `vision_forward`) against the JAX
+package's Pallas kernels, run in interpret mode on the CPU.
+
+Tolerance 1e-5 per op and 1e-4 per tower in fp32: the frameworks take the
+same sums in another order, and a tower compounds the fp32 rounding over
+its layers. The TPU kernels need S % 8 == 0, so their inputs are padded and
+their outputs cut back to S; the port takes S as it is. The CUDA kernels
+themselves are checked against these plain versions on the card
+(tests/test_torch_gpu.py, chip_smoke.py).
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from grasp_any_region_tpu.core import config as jcfg
+from grasp_any_region_tpu_torch.core import config as tcfg
+from grasp_any_region_tpu_torch.ops import vit_attention as tva
+from grasp_any_region_tpu_torch.ops import vit_block as tvb
+
+TOL = dict(rtol=1e-5, atol=1e-5)
+TOWER = dict(rtol=1e-4, atol=1e-4)
+T, S, D, H = 2, 65, 128, 2  # S = 1 + 8 * 8 at the 112-pixel tile: not a multiple of 8
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a, np.float32))
+
+
+def _pad(a, s_pad):
+    return jnp.pad(jnp.asarray(a), ((0, 0), (0, s_pad - a.shape[1]), (0, 0)))
+
+
+def _no_launches():
+    return tvb.launches == dict(D=0, F=0, G=0) and tva.launches == tva.launches_fused == 0
+
+
+def _vision_cfg(mod, rope_mixed, fast_gelu):
+    """The config of tests/test_vit_fused.py: width 128, 2 heads of 64, 112²."""
+    return mod.VisionConfig(width=D, depth=2, num_heads=H, mlp_ratio=2.0,
+                            img_size=(112, 112), patch_size=14, rope_mixed=rope_mixed,
+                            fast_gelu=fast_gelu)
+
+
+@pytest.mark.parametrize("op,layer_scale,fast_gelu", [
+    ("ln_qkv", None, None),
+    ("wo", True, None),
+    ("wo", False, None),
+    ("mlp", True, True),
+    ("mlp", True, False),
+    ("mlp", False, True),
+])
+def test_block_kernel_plain_matches_pallas(rng, op, layer_scale, fast_gelu):
+    from grasp_any_region_tpu.ops import vit_block as jvb
+
+    m = 2 * D
+    s_pad = S + (-S) % 8
+
+    def w(*shape, scale=0.05):
+        return (rng.standard_normal(shape) * scale).astype(np.float32)
+
+    x = w(T, S, D, scale=1.0) + 0.5
+    ln = (1.0 + w(D, scale=0.2), w(D, scale=0.2))
+    ls = w(D, scale=0.5) if layer_scale else None
+    jls = None if ls is None else jnp.asarray(ls)
+    tls = None if ls is None else _t(ls)
+    if op == "ln_qkv":
+        args = (ln[0], ln[1], w(D, 3 * D), w(3 * D))
+        ref = jvb.vit_ln_qkv(_pad(x, s_pad), *map(jnp.asarray, args), interpret=True)
+        out = tvb.vit_ln_qkv(_t(x), *map(_t, args))
+    elif op == "wo":
+        attn, args = w(T, S, D, scale=1.0), (w(D, D), w(D))
+        ref = jvb.vit_wo_residual(_pad(attn, s_pad), _pad(x, s_pad), *map(jnp.asarray, args),
+                                  jls, interpret=True)
+        out = tvb.vit_wo_residual(_t(attn), _t(x), *map(_t, args), tls)
+    else:
+        args = (ln[0], ln[1], w(D, m), w(m), w(m, D), w(D))
+        ref = jvb.vit_mlp_residual(_pad(x, s_pad), *map(jnp.asarray, args), jls,
+                                   fast_gelu=fast_gelu, interpret=True)
+        out = tvb.vit_mlp_residual(_t(x), *map(_t, args), tls, fast_gelu=fast_gelu)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref)[:, :S], **TOL)
+    assert _no_launches()  # a CPU tensor never launches a kernel
+
+
+def _angles(rng, mixed):
+    """(H|1, N, d/2) rope angles of the 8 x 8 patch grid: per head (mixed,
+    random learned frequencies) or one table for all heads (axial)."""
+    from grasp_any_region_tpu_torch.ops.rope import axial_rope_angles, mixed_rope_angles
+
+    cfg = _vision_cfg(tcfg, mixed, False)
+    if not mixed:
+        return axial_rope_angles(cfg)[None].numpy()
+    freqs = rng.uniform(-1.0, 1.0, (1, H, 32, 2)).astype(np.float32)
+    return mixed_rope_angles(torch.from_numpy(freqs), cfg)[0].numpy()
+
+
+@pytest.mark.parametrize("mixed", [True, False], ids=["mixed", "axial"])
+def test_rope_head_tables_match_pair_tables(rng, mixed):
+    from grasp_any_region_tpu.ops.rope import rope_pair_tables
+    from grasp_any_region_tpu_torch.ops.rope import rope_head_tables
+
+    ang = _angles(rng, mixed)
+    s_pad = S + (-S) % 8
+    cos2, sin2 = rope_pair_tables(jnp.broadcast_to(ang, (H,) + ang.shape[1:]), s_pad, 1)
+    cos, sin = rope_head_tables(torch.from_numpy(ang), H, 1)
+    assert cos.shape == sin.shape == (H, S, 64) and cos.dtype == torch.float32
+    for port, pair in ((cos, cos2), (sin, sin2)):
+        per_head = np.asarray(pair).reshape(H // 2, s_pad, 2, 64).transpose(0, 2, 1, 3)
+        np.testing.assert_allclose(port.numpy(), per_head.reshape(H, s_pad, 64)[:, :S],
+                                   rtol=1e-6, atol=1e-6)
+    assert (cos[:, 0] == 1).all() and (sin[:, 0] == 0).all()  # CLS: identity
+
+
+@pytest.mark.parametrize("mixed", [True, False], ids=["mixed", "axial"])
+def test_vit_attention_fused_qkv_plain_matches_pallas(rng, mixed):
+    from grasp_any_region_tpu.ops.rope import rope_pair_tables
+    from grasp_any_region_tpu.ops.vit_attention import vit_attention_fused_qkv as jfused
+    from grasp_any_region_tpu_torch.ops.rope import rope_head_tables
+
+    ang = _angles(rng, mixed)
+    qkv = rng.standard_normal((T, S, 3 * D)).astype(np.float32)
+    s_pad = S + (-S) % 8
+    cos2, sin2 = rope_pair_tables(jnp.broadcast_to(ang, (H,) + ang.shape[1:]), s_pad, 1)
+    ref = jfused(_pad(qkv, s_pad), cos2, sin2, H, 64, kv_valid=S, interpret=True)
+    cos, sin = rope_head_tables(torch.from_numpy(ang), H, 1)
+    out = tva.vit_attention_fused_qkv(_t(qkv), cos, sin, H, 64)
+    assert out.shape == (T, S, D)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref)[:, :S], **TOL)
+    assert _no_launches()
+
+
+def _vision_pair(rope_mixed, fast_gelu, seed):
+    """JAX vision params at the fused test config and the port's copy."""
+    from grasp_any_region_tpu.models.vision import init_vision_params
+    from grasp_any_region_tpu_torch.models.vision import VisionParams
+
+    cfg_j = _vision_cfg(jcfg, rope_mixed, fast_gelu)
+    cfg_t = _vision_cfg(tcfg, rope_mixed, fast_gelu)
+    params = init_vision_params(jax.random.PRNGKey(seed), cfg_j, jnp.float32)
+    tparams = VisionParams(cfg_t, dtype=torch.float32)
+    with torch.no_grad():
+        for name, p in tparams.named_parameters():
+            node = params
+            for key in name.split("."):
+                node = node[key]
+            p.copy_(_t(node))
+    return cfg_j, cfg_t, params, tparams
+
+
+@pytest.mark.parametrize("rope_mixed,fast_gelu", [(True, False), (False, True)],
+                         ids=["mixed_erf", "axial_tanh"])
+def test_vision_forward_fused_matches_jax(rng, rope_mixed, fast_gelu):
+    from grasp_any_region_tpu.models.vision import vision_forward as jforward
+    from grasp_any_region_tpu_torch.models.vision import vision_forward as tforward
+
+    cfg_j, cfg_t, params, tparams = _vision_pair(rope_mixed, fast_gelu, seed=1)
+    pix = rng.standard_normal((T, 3, 112, 112)).astype(np.float32)
+    me = (rng.standard_normal((T, cfg_t.num_patches, D)) * 0.1).astype(np.float32)
+    ref = jforward(params, cfg_j, jnp.asarray(pix), mask_embeds=jnp.asarray(me),
+                   compute_dtype=jnp.float32, fused_blocks=True)
+    out = tforward(tparams, cfg_t, _t(pix), _t(me), compute_dtype=torch.float32,
+                   fused_blocks=True)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOWER)
+    assert _no_launches()
+
+
+@pytest.mark.parametrize("rope_mixed", [True, False], ids=["mixed", "axial"])
+def test_vision_forward_fused_matches_unfused(rng, rope_mixed):
+    """The port's two forms of the tower agree at the JAX package's
+    tolerance for the same check (tests/test_vit_fused.py)."""
+    from grasp_any_region_tpu_torch.models.vision import vision_forward
+
+    _, cfg, _, tparams = _vision_pair(rope_mixed, True, seed=0)
+    pix = _t(rng.standard_normal((T, 3, 112, 112)))
+    fused = vision_forward(tparams, cfg, pix, compute_dtype=torch.float32, fused_blocks=True)
+    plain = vision_forward(tparams, cfg, pix, compute_dtype=torch.float32, fused_blocks=False)
+    np.testing.assert_allclose(fused.numpy(), plain.numpy(), rtol=2e-3, atol=2e-4)
+
+
+def test_vision_forward_auto_form_on_cpu_is_unfused(rng, monkeypatch):
+    """fused_blocks=None takes the fused form only on a CUDA tensor: on a
+    CPU tensor the unfused form runs and no kernel is counted."""
+    from grasp_any_region_tpu_torch.models import vision as tv
+
+    _, cfg, _, tparams = _vision_pair(True, True, seed=0)
+    assert cfg.head_dim == 64 and cfg.num_heads % 2 == 0 and cfg.use_rope
+    pix = _t(rng.standard_normal((T, 3, 112, 112)))
+    ref = tv.vision_forward(tparams, cfg, pix, compute_dtype=torch.float32, fused_blocks=False)
+
+    def fail(*args):
+        raise AssertionError("the fused form ran on a CPU tensor")
+
+    monkeypatch.setattr(tv, "_fused_block", fail)
+    out = tv.vision_forward(tparams, cfg, pix, compute_dtype=torch.float32)
+    assert torch.equal(out, ref)
+    assert _no_launches()
+    no_rope = dataclasses.replace(cfg, use_rope=False)
+    with pytest.raises(ValueError, match="rope"):
+        tv.vision_forward(tparams, no_rope, pix, fused_blocks=True)
