@@ -12,21 +12,30 @@ the script exits non-zero (there is no CPU fallback):
    seeded bf16 inputs (the plain version in fp32 from the same inputs),
    atol = rtol = 2e-2 (bf16 p before PV, bf16 LayerNorm and GELU outputs
    before their products, bf16 output); median times of kernel and plain
-   version from CUDA events. E also at a ragged S = 200.
+   version from CUDA events. E also at a ragged S = 200. The decode
+   matmuls H, I, J also at B = 24 (with their GB/s, cuBLAS's bf16 product
+   and the card's copy rate on the same bytes) and at the narrow config's
+   ragged widths.
 3. End-to-end cross-check on a narrow gar_1b (ViT width 256, decoder
    hidden 256, 2 layers each, head dim 64): the same seeded bf16 params on
-   the card (kernel path: the fused ViT) and on the CPU (plain path: the
-   unfused ViT); prefill logits and the first 4 decode-step logits must
-   agree.
+   the card (kernel path: the fused ViT and the fused decode step) and on
+   the CPU (plain path: the unfused ViT, the XLA-form decode step);
+   prefill logits and the first 4 decode-step logits must agree.
 4. Vision forms: the gar_1b tower over 17 tiles in the fused form (kernels
    D, E, F, G) and the unfused form (kernel A) on the same params and
    inputs; their outputs must agree to 5e-2 of the output range, and each
    form must launch its kernels once per layer.
-5. Main path: gar_1b with seeded random weights, one 17-tile image, one
+5. Decode forms: one gar_1b decode step over the main path's seeded cache
+   in the fused form (kernels J, C, H, I, H a layer) and in the XLA form
+   (cuBLAS products around C), from the same input embedding; hidden and
+   written K/V must agree to 5e-2 of their range; device and host ms per
+   step of each form.
+6. Main path: gar_1b with seeded random weights, one 17-tile image, one
    region, a 4662-token prompt and 256 greedy tokens through `generate`;
    ms per caption split into vision, prefill and decode, and the kernel
    launch counts of one caption, which must be D = E = F = G = 23 (the
-   fused ViT), A = 0, B = 16, C = 16 * 255.
+   fused ViT), A = 0, B = 16, C = I = J = 16 * 255, H = 2 * 16 * 255 (the
+   fused decode step).
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
@@ -57,7 +66,10 @@ def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     """Median of per-call device times (CUDA events) after warm-up. The L2
     cache (50 MB on an H100) is flushed before each timed call: on the main
     path every decode layer reads its own cache slab, so the kernels find
-    their inputs cold, and a warm repeat would flatter them."""
+    their inputs cold, and a warm repeat would flatter them. The card then
+    sleeps for ~0.5 ms, so the host has queued the call before the card
+    reaches it: a call of a few microseconds would otherwise be timed at
+    the host's pace of issuing it."""
     flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
     for _ in range(warmup):
         fn()
@@ -66,6 +78,7 @@ def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     for _ in range(iters):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         flush.zero_()
+        torch.cuda._sleep(1_000_000)
         start.record()
         fn()
         end.record()
@@ -167,6 +180,7 @@ def phase_kernels():
             q, k_all, v_all, k_new, v_new, layer, **kw)))
     del k_all, v_all, k_ref, v_ref
     results.update(vit_block_kernels(rnd, gen))
+    results.update(decode_matmul_kernels(rnd))
     for name, r in results.items():
         log(f"[kernels] {name}: max |kernel - plain| {r['max_abs_err']:.3e}, "
             f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms")
@@ -221,6 +235,69 @@ def vit_block_kernels(rnd, gen):
         results[name] = dict(max_abs_err=err, ms=cuda_ms(lambda: kernel(*args, **kw)),
                              plain_ms=cuda_ms(lambda: plain(*args, **kw), iters=5))
         del out
+    return results
+
+
+def decode_matmul_kernels(rnd):
+    """Kernels H, I, J at the gar_1b decode shapes (hidden 2048, q 2048, kv
+    512, MLP 8192), the weights stacked (16, Din, Dout) and read at layer 7.
+    H runs at both the wo and the w_down width; its entry carries w_down.
+    Checked against the plain version at B = 24 and B = 1 (the kernels
+    line carries B = 1), and at the narrow config's ragged widths (hidden
+    256, q 256, kv 64, MLP 1024) at B = 1 and 5. Beside each time: the
+    weight bytes over it, cuBLAS's bf16 product of the same layer (the
+    XLA form's ops), and a device-to-device copy of the same bytes."""
+    import torch.nn.functional as F
+    from grasp_any_region_tpu_torch.ops import layer_matmul as lm
+
+    def calls(d, m, hq, hk, n_layers):
+        def stack(din, n):
+            return (rnd(n_layers, din, n).float() * din ** -0.5).to(torch.bfloat16)
+
+        wq, wk, wv, wo = stack(d, hq), stack(d, hk), stack(d, hk), stack(hq, d)
+        wg, wu, wd = stack(d, m), stack(d, m), stack(m, d)
+        return {  # label: (key, kernel, plain, cuBLAS form, weights, Din)
+            "H wo": ("H", lm.layer_matmul, lm.layer_matmul_plain,
+                     lambda x, w, i: x @ w[i], (wo,), hq),
+            "I": ("I", lm.layer_swiglu, lm.layer_swiglu_plain,
+                  lambda x, g, u, i: F.silu(x @ g[i]) * (x @ u[i]), (wg, wu), d),
+            "J": ("J", lm.layer_qkv, lm.layer_qkv_plain,
+                  lambda x, a, b, c, i: (x @ a[i], x @ b[i], x @ c[i]), (wq, wk, wv), d),
+            "H w_down": ("H", lm.layer_matmul, lm.layer_matmul_plain,
+                         lambda x, w, i: x @ w[i], (wd,), m),
+        }
+
+    def check(label, kernel, plain, ws, layer, x):
+        out = kernel(x, *ws, layer)
+        torch.cuda.synchronize()
+        ref = plain(x.float(), *(w[layer:layer + 1].float() for w in ws), 0)
+        outs, refs = (out, ref) if isinstance(out, tuple) else ((out,), (ref,))
+        return max(max_err(o, r, f"{label} (B = {x.shape[0]})") for o, r in zip(outs, refs))
+
+    for label, (_, kernel, plain, _, ws, din) in calls(256, 1024, 256, 64, 2).items():
+        for b in (1, 5):
+            check(f"{label}, narrow", kernel, plain, ws, 1, rnd(b, din))
+
+    layer, results = 7, {}
+    for label, (key, kernel, plain, cublas, ws, din) in calls(2048, 8192, 2048, 512, 16).items():
+        n_bytes = sum(w[layer].numel() * w.element_size() for w in ws)
+        src = torch.empty(n_bytes, dtype=torch.uint8, device="cuda")
+        dst = torch.empty_like(src)
+        copy_ms = cuda_ms(lambda: dst.copy_(src))
+        for b in (24, 1):
+            x = rnd(b, din)
+            err = check(label, kernel, plain, ws, layer, x)
+            ms = cuda_ms(lambda: kernel(x, *ws, layer))
+            blas_ms = cuda_ms(lambda: cublas(x, *ws, layer))
+            plain_ms = cuda_ms(lambda: plain(x, *ws, layer), iters=5)
+            log(f"[kernels] {label}, B = {b}: {ms:.4f} ms = {n_bytes / ms / 1e6:.0f} GB/s of "
+                f"weights ({n_bytes / 1e6:.1f} MB); cuBLAS bf16 {blas_ms:.4f} ms "
+                f"({n_bytes / blas_ms / 1e6:.0f} GB/s); plain fp32 {plain_ms:.4f} ms; copy of "
+                f"the same bytes {copy_ms:.4f} ms (moves 2x: {2 * n_bytes / copy_ms / 1e6:.0f} "
+                f"GB/s); max |kernel - plain| {err:.3e}")
+        if label != "H wo":  # B = 1 at the last width of each kernel goes in the line
+            results[key] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+        del src, dst
     return results
 
 
@@ -300,22 +377,28 @@ def phase_cross_check(cfg):
 
 def counter_modules():
     """The wrapper modules whose launch counters the phases read."""
-    from grasp_any_region_tpu_torch.ops import decode_attention, flash_attention
+    from grasp_any_region_tpu_torch.ops import decode_attention, flash_attention, layer_matmul
     from grasp_any_region_tpu_torch.ops import vit_attention, vit_block
 
-    return decode_attention, flash_attention, vit_attention, vit_block
+    return decode_attention, flash_attention, vit_attention, vit_block, layer_matmul
 
 
 def reset_counts():
-    dec, fa, va, vb = counter_modules()
+    dec, fa, va, vb, lm = counter_modules()
     va.launches = va.launches_fused = fa.launches = dec.launches = 0
     vb.launches.update(D=0, F=0, G=0)
+    lm.launches.update(H=0, I=0, J=0)
 
 
 def read_counts():
-    dec, fa, va, vb = counter_modules()
+    dec, fa, va, vb, lm = counter_modules()
     return dict(A=va.launches, B=fa.launches, C=dec.launches, D=vb.launches["D"],
-                E=va.launches_fused, F=vb.launches["F"], G=vb.launches["G"])
+                E=va.launches_fused, F=vb.launches["F"], G=vb.launches["G"], **lm.launches)
+
+
+def expect(**counts):
+    """Launch counts of kernels A-J: the given ones, 0 for the rest."""
+    return {key: counts.get(key, 0) for key in KERNELS}
 
 
 @torch.inference_mode()
@@ -340,8 +423,7 @@ def phase_vision_forms(cfg, params):
         counts[form] = read_counts()
         ms[form] = cuda_ms(run, iters=3, warmup=1)
     depth = cfg.vision.depth
-    expected = dict(fused=dict(A=0, B=0, C=0, D=depth, E=depth, F=depth, G=depth),
-                    unfused=dict(A=depth, B=0, C=0, D=0, E=0, F=0, G=0))
+    expected = dict(fused=expect(D=depth, E=depth, F=depth, G=depth), unfused=expect(A=depth))
     if counts != expected:
         raise AssertionError(f"vision forms: launch counts {counts}, expected {expected}")
     fused, plain = outs["fused"].float(), outs["unfused"].float()
@@ -354,6 +436,80 @@ def phase_vision_forms(cfg, params):
     if rel > E2E_TOL:
         raise AssertionError(f"vision forms differ by {rel:.3e} > {E2E_TOL} of the range")
     return counts["unfused"]
+
+
+def step_times(step, iters: int = 5):
+    """(device ms, host ms) per call of `step`, medians. Device: CUDA events
+    around the step while the card sleeps first, so the host has queued
+    the whole step before the card reaches it and host dispatch leaves no
+    gaps in the span. Host: wall clock of the step and a sync."""
+    dev, host = [], []
+    for _ in range(iters):
+        torch.cuda.synchronize()
+        torch.cuda._sleep(200_000_000)  # ~0.1 s at the H100's clock
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        step()
+        end.record()
+        torch.cuda.synchronize()
+        dev.append(start.elapsed_time(end))
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        host.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(dev), statistics.median(host)
+
+
+@torch.inference_mode()
+def phase_decode_forms(cfg, params):
+    """One gar_1b decode step in each form from one seeded cache (the main
+    path's: B = 1, the 4662-token prompt, 5120 columns) and the same input
+    embedding, each form on its own copy of the cache."""
+    from grasp_any_region_tpu_torch.models.gar import gar_prefill, seed_cache_from_prefill
+    from grasp_any_region_tpu_torch.models.llama import (
+        KVCache, embed_tokens, llama_decode_step, lm_logits)
+
+    batch, plens = bench_batch(cfg, "cuda")
+    s = batch.input_ids.shape[1]
+    hidden, kv = gar_prefill(params, cfg, batch, mask_compat=False)
+    first = lm_logits(params.llm, cfg.text, hidden[:, -1],
+                      valid_vocab=cfg.extended_vocab_size).argmax(-1)
+    seeded = seed_cache_from_prefill(cfg, kv, plens, ((s + 256 + 511) // 512) * 512)
+    del hidden, kv
+    emb = embed_tokens(params.llm, first[:, None])
+    n_layers = cfg.text.num_layers
+    expected = dict(fused=expect(C=n_layers, H=2 * n_layers, I=n_layers, J=n_layers),
+                    xla=expect(C=n_layers))
+    outs, counts, times = {}, {}, {}
+    for form, use_kernel in (("fused", "fused"), ("xla", False)):
+        cache = KVCache(seeded.k.clone(), seeded.v.clone(), seeded.prompt_lens,
+                        seeded.write_pos.clone())
+
+        def step():
+            return llama_decode_step(params.llm, cfg.text, emb, cache, s, use_kernel=use_kernel)
+
+        reset_counts()
+        hidden, _ = step()
+        torch.cuda.synchronize()
+        counts[form] = read_counts()
+        outs[form] = (hidden.float(), cache.k[:, :, :, s].float(), cache.v[:, :, :, s].float())
+        times[form] = step_times(step)
+    if counts != expected:
+        raise AssertionError(f"decode forms: launch counts per step {counts}, "
+                             f"expected {expected}")
+    worst = 0.0
+    for name, fused, xla in zip(("hidden", "K column", "V column"), outs["fused"], outs["xla"]):
+        if fused.shape != xla.shape or not torch.isfinite(fused).all():
+            raise AssertionError(f"decode forms: fused {name} {tuple(fused.shape)} "
+                                 "or non-finite")
+        rel = ((fused - xla).abs().max() / xla.abs().max()).item()
+        worst = max(worst, rel)
+        log(f"[decode] max |fused - xla| / max |xla| over the {name}: {rel:.3e}")
+    for form, (dev_ms, host_ms) in times.items():
+        log(f"[decode] {form} form: {dev_ms:.3f} ms device, {host_ms:.3f} ms host per step; "
+            f"launches per step {counts[form]}")
+    if worst > E2E_TOL:
+        raise AssertionError(f"decode forms differ by {worst:.3e} > {E2E_TOL} of the range")
 
 
 def phase_main_path(cfg, params):
@@ -377,9 +533,9 @@ def phase_main_path(cfg, params):
         torch.cuda.synchronize()
         return out, start.elapsed_time(end), read_counts()
 
-    depth = cfg.vision.depth
-    expected = dict(A=0, B=cfg.text.num_layers, C=cfg.text.num_layers * (new_tokens - 1),
-                    D=depth, E=depth, F=depth, G=depth)
+    depth, steps = cfg.vision.depth, cfg.text.num_layers * (new_tokens - 1)
+    expected = expect(B=cfg.text.num_layers, C=steps, D=depth, E=depth, F=depth, G=depth,
+                      H=2 * steps, I=steps, J=steps)
     run()  # warm-up
     times, counts, out = [], None, None
     for _ in range(3):
@@ -434,6 +590,12 @@ KERNELS = {
           "grasp_any_region_tpu/ops/vit_block.py:172"),
     "G": ("vit_mlp_residual", "grasp_any_region_tpu_torch/csrc/vit_block.cu",
           "grasp_any_region_tpu/ops/vit_block.py:245"),
+    "H": ("layer_matmul", "grasp_any_region_tpu_torch/csrc/layer_matmul.cu",
+          "grasp_any_region_tpu/ops/layer_matmul.py:58"),
+    "I": ("layer_swiglu", "grasp_any_region_tpu_torch/csrc/layer_matmul.cu",
+          "grasp_any_region_tpu/ops/layer_matmul.py:97"),
+    "J": ("layer_qkv", "grasp_any_region_tpu_torch/csrc/layer_matmul.cu",
+          "grasp_any_region_tpu/ops/layer_matmul.py:142"),
 }
 
 
@@ -447,6 +609,7 @@ def main() -> int:
     cfg = gar_1b()
     params = random_params(cfg, "cuda")
     unfused_counts = phase_vision_forms(cfg, params)
+    phase_decode_forms(cfg, params)
     main_counts = phase_main_path(cfg, params)
     # kernel A runs on the unfused tower's path, the others on generate's
     paths = {key: ("vision_forward(fused_blocks=False)", unfused_counts) if key == "A"

@@ -13,7 +13,7 @@ validity masks make padding inert. Batch is a first-class axis.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import NamedTuple, Optional, Tuple, Union
 
 import torch
 from torch import nn
@@ -176,11 +176,14 @@ def gar_decode_step(
     prompt_pad: int,
     *,
     compute_dtype=torch.bfloat16,
+    use_kernel: Union[bool, str, None] = None,
 ) -> Tuple[torch.Tensor, KVCache]:
     """One decode step. Returns (logits (B, V) fp32, the cache advanced in
-    place)."""
+    place). use_kernel picks the decode form (`llama_decode_step`): None
+    is the fused form on a CUDA tensor and the XLA form on the CPU."""
     embeds = embed_tokens(params.llm, token_ids[:, None], compute_dtype)
-    hidden, cache = llama_decode_step(params.llm, cfg.text, embeds, cache, prompt_pad)
+    hidden, cache = llama_decode_step(params.llm, cfg.text, embeds, cache, prompt_pad,
+                                      use_kernel=use_kernel)
     logits = lm_logits(params.llm, cfg.text, hidden[:, 0],
                        valid_vocab=cfg.extended_vocab_size)
     return logits, cache

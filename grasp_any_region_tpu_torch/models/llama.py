@@ -2,8 +2,12 @@
 
   * Prefill: right-padded causal attention through `mha` (kernel B on the
     card), returning per-layer K/V for the cache.
-  * Decode: the XLA form of `llama_decode_step` (plain projections), whose
-    cache write plus attention is kernel C (ops/decode_attention.py).
+  * Decode: two forms of `llama_decode_step`, as in JAX. The fused form
+    (the default on a CUDA tensor) runs per layer kernel J (q, k, v), rope,
+    kernel C (cache write + attention), kernel H (wo), kernel I (SwiGLU)
+    and H again (w_down), the weights read in place from the stacked
+    arrays (ops/layer_matmul.py). The XLA form (the default on the CPU)
+    runs plain projections around kernel C.
   * KV cache: unpaired (L, B, K, S_max, D). Prompt columns [0, prompt_pad)
     are right-padded (rows masked past prompt_lens); generated tokens share
     one write column per step, `write_pos`, a device scalar. The cache and
@@ -16,7 +20,7 @@
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import NamedTuple, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -26,6 +30,7 @@ from ..core.config import TextConfig
 from ..core.weights import ParamGroup, add_param
 from ..ops.attention import NEG_INF, mha
 from ..ops.decode_attention import decode_attention_fused
+from ..ops.layer_matmul import layer_matmul, layer_qkv, layer_swiglu
 from ..ops.norms import rms_norm
 from ..ops.rope import apply_rope, llama_inv_freq, rope_cos_sin
 
@@ -104,16 +109,41 @@ def llama_prefill(
     return x, (ks, vs)
 
 
+def decode_kernel_choice(cfg: TextConfig, device) -> Union[bool, str]:
+    """The decode form `use_kernel=None` picks: "fused" on a CUDA tensor,
+    False (the XLA form) on the CPU, as the JAX package picks "fused" on
+    the TPU and False elsewhere. JAX also falls back to XLA when one
+    layer's q/k/v weights pass 13 MB: its qkv kernel holds them whole in
+    the TPU's scoped VMEM. Kernels H-J stream column blocks and hold no
+    whole weight, so the port has no such bound (GAR-8B takes the fused
+    form too), and the rule reads the device alone; cfg stays for JAX's
+    signature."""
+    return "fused" if torch.device(device).type == "cuda" else False
+
+
 def llama_decode_step(
     params: LlamaParams,
     cfg: TextConfig,
     inputs_embeds: torch.Tensor,  # (B, 1, D)
     cache: KVCache,
     prompt_pad: int,
+    *,
+    use_kernel: Union[bool, str, None] = None,
 ) -> Tuple[torch.Tensor, KVCache]:
     """One token step. Writes the token's K/V at column write_pos of every
     layer and advances write_pos, both in place; returns (hidden (B, 1, D),
-    the same cache)."""
+    the same cache).
+
+    use_kernel: False = the XLA form (below); "fused" = kernels J, C, H, I,
+    H a layer (`llama_decode_step_fused`); "mega" raises until the mega
+    path is ported; None or True = `decode_kernel_choice`."""
+    if use_kernel is None or use_kernel is True:
+        use_kernel = decode_kernel_choice(cfg, inputs_embeds.device)
+    if use_kernel == "mega":
+        raise NotImplementedError("the mega decode path (three megakernels a layer) is not "
+                                  "ported yet: ROADMAP section 2, item 5")
+    if use_kernel:
+        return llama_decode_step_fused(params, cfg, inputs_embeds, cache, prompt_pad)
     b = inputs_embeds.shape[0]
     wp = cache.write_pos
     # rope position of the new token per row: prompt_len + tokens generated
@@ -134,6 +164,42 @@ def llama_decode_step(
         x = x + _mlp(bp, y)
     wp.add_(1)
     return x, cache
+
+
+def llama_decode_step_fused(
+    params: LlamaParams,
+    cfg: TextConfig,
+    inputs_embeds: torch.Tensor,  # (B, 1, D)
+    cache: KVCache,
+    prompt_pad: int,
+) -> Tuple[torch.Tensor, KVCache]:
+    """The decode step with the layer-indexed kernels
+    (`grasp_any_region_tpu/models/llama.py:llama_decode_step_fused`): every
+    weight is read once, in place, from its stacked (L, Din, Dout) array.
+    Its rounding points are JAX's fused ones: q, k, v rounded by J before
+    rope; SiLU * up from fp32 sums with one rounding; the residual adds
+    outside the kernels. The cache contract is `llama_decode_step`'s."""
+    b = inputs_embeds.shape[0]
+    h, kh, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    wp = cache.write_pos
+    pos = cache.prompt_lens + (wp - prompt_pad)
+    cos, sin = rope_cos_sin(pos[:, None], llama_inv_freq(cfg, inputs_embeds.device))
+    eps = cfg.rms_norm_eps
+    blk = params.blocks
+    x = inputs_embeds[:, 0]  # (B, D)
+    for i in range(cfg.num_layers):
+        y = rms_norm(x, blk.attn_norm[i], eps)
+        qf, kf, vf = layer_qkv(y, blk.wq, blk.wk, blk.wv, i)
+        q = apply_rope(qf.reshape(b, 1, h, dh), cos, sin)[:, 0]
+        k = apply_rope(kf.reshape(b, 1, kh, dh), cos, sin)[:, 0]
+        a = decode_attention_fused(
+            q, cache.k, cache.v, k.to(cache.k.dtype), vf.reshape(b, kh, dh).to(cache.v.dtype),
+            i, prompt_lens=cache.prompt_lens, write_pos=wp, prompt_pad=prompt_pad)
+        x = x + layer_matmul(a.reshape(b, h * dh), blk.wo, i)
+        y = rms_norm(x, blk.mlp_norm[i], eps)
+        x = x + layer_matmul(layer_swiglu(y, blk.w_gate, blk.w_up, i), blk.w_down, i)
+    wp.add_(1)
+    return x[:, None], cache
 
 
 def embed_tokens(params: LlamaParams, input_ids: torch.Tensor,

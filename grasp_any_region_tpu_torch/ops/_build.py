@@ -41,6 +41,9 @@ _SIGNATURES = {
     "gar_vit_ln_qkv": [_P] * 6 + [_I] * 3 + [_F, _P],
     "gar_vit_wo_residual": [_P] * 6 + [_I] * 2 + [_P],
     "gar_vit_mlp_residual": [_P] * 9 + [_I] * 3 + [_F, _I, _P],
+    "gar_layer_matmul": [_P] * 3 + [_I] * 4 + [_P],
+    "gar_layer_swiglu": [_P] * 4 + [_I] * 4 + [_P],
+    "gar_layer_qkv": [_P] * 7 + [_I] * 5 + [_P],
 }
 
 
@@ -136,5 +139,8 @@ def check_operand(x: torch.Tensor, name: str) -> None:
         raise ValueError(f"{name}: data must be 16-byte aligned")
 
 
-def stream_handle(device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
+def stream_handle(device: torch.device) -> int:
+    """The current stream of a CUDA device, as the raw handle. Read the way
+    torch's compiled kernels read it: `torch.cuda.current_stream` builds a
+    Stream object per call, which the decode step would pay 80 times."""
+    return torch._C._cuda_getCurrentRawStream(device.index)

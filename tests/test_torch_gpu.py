@@ -1,4 +1,4 @@
-"""CUDA kernels A-G against their plain PyTorch versions, on the card.
+"""CUDA kernels A-J against their plain PyTorch versions, on the card.
 
 Skips without a CUDA device. Imports no jax, so it runs on a machine that
 has none; there, skip the repository's conftest (which sets up jax):
@@ -11,11 +11,14 @@ products (D, G), and write bf16; the plain versions run in fp32 from the
 same bf16 inputs.
 """
 
+import dataclasses
+
 import pytest
 import torch
 
 from grasp_any_region_tpu_torch.ops import decode_attention as dec
 from grasp_any_region_tpu_torch.ops import flash_attention as fa
+from grasp_any_region_tpu_torch.ops import layer_matmul as lm
 from grasp_any_region_tpu_torch.ops import vit_attention as va
 from grasp_any_region_tpu_torch.ops import vit_block as vb
 
@@ -205,3 +208,86 @@ def test_lm_logits_keeps_fp32_sums_on_the_card(rnd):
     ref = x.float() @ params.embed.float().t()
     scale = ref.abs().max()
     torch.testing.assert_close(out / scale, ref / scale, rtol=1e-5, atol=1e-5)
+
+
+def _decode_weights(rnd, n_layers, d, m, hq, hk):
+    """Seeded bf16 decoder weights, stacked (L, Din, Dout), scaled by
+    Din^-0.5 so the products stay near unit size."""
+    def stack(din, n):
+        return (rnd(n_layers, din, n).float() * din ** -0.5).to(torch.bfloat16)
+
+    return dict(wq=stack(d, hq), wk=stack(d, hk), wv=stack(d, hk), wo=stack(hq, d),
+                w_gate=stack(d, m), w_up=stack(d, m), w_down=stack(m, d))
+
+
+@pytest.mark.parametrize("b", [1, 5, 24])
+@pytest.mark.parametrize("d,m,hq,hk", [
+    (384, 1024, 384, 64),     # ragged: 6 column tiles of 64, one tile of kv
+    (200, 520, 136, 40),      # multiples of 8 only: partial tiles and K slabs
+    (2048, 8192, 2048, 512),  # gar_1b
+])
+def test_layer_matmul_kernels(rnd, b, d, m, hq, hk):
+    layer = 1
+    w = _decode_weights(rnd, 3, d, m, hq, hk)
+    x_d, x_q, x_m = rnd(b, d), rnd(b, hq), rnd(b, m)
+    before = dict(lm.launches)
+    wo = lm.layer_matmul(x_q, w["wo"], layer)
+    down = lm.layer_matmul(x_m, w["w_down"], layer)
+    act = lm.layer_swiglu(x_d, w["w_gate"], w["w_up"], layer)
+    qkv = lm.layer_qkv(x_d, w["wq"], w["wk"], w["wv"], layer)
+    torch.cuda.synchronize()
+    assert lm.launches == dict(H=before["H"] + 2, I=before["I"] + 1, J=before["J"] + 1)
+    f = {k: v[layer:layer + 1].float() for k, v in w.items()}
+    torch.testing.assert_close(wo.float(), lm.layer_matmul_plain(x_q.float(), f["wo"], 0),
+                               **TOL)
+    torch.testing.assert_close(down.float(), lm.layer_matmul_plain(x_m.float(), f["w_down"], 0),
+                               **TOL)
+    ref = lm.layer_swiglu_plain(x_d.float(), f["w_gate"], f["w_up"], 0)
+    torch.testing.assert_close(act.float(), ref, **TOL)
+    refs = lm.layer_qkv_plain(x_d.float(), f["wq"], f["wk"], f["wv"], 0)
+    assert [tuple(o.shape) for o in qkv] == [(b, hq), (b, hk), (b, hk)]
+    for out, ref in zip(qkv, refs):
+        torch.testing.assert_close(out.float(), ref, **TOL)
+
+
+def test_layer_matmul_wrappers_reject_what_the_kernels_do_not_take(rnd):
+    w, x = rnd(2, 64, 128), rnd(3, 64)
+    with pytest.raises(TypeError):  # a non-bf16 weight
+        lm.layer_matmul(x, w.float(), 0)
+    with pytest.raises(IndexError):  # a layer out of range
+        lm.layer_swiglu(x, w, w, 2)
+    with pytest.raises(ValueError):  # a non-contiguous x
+        lm.layer_qkv(rnd(64, 3).t(), w, w, w, 0)
+    with pytest.raises(ValueError):  # more rows than the kernels take
+        lm.layer_matmul(rnd(lm.MAX_ROWS + 1, 64), w, 0)
+
+
+def test_gar_decode_step_takes_the_fused_form_on_the_card(rnd):
+    """use_kernel=None on a CUDA tensor runs kernels J, C, H, I, H a layer,
+    and agrees with the XLA form on the same cache."""
+    from grasp_any_region_tpu_torch.core.config import gar_tiny
+    from grasp_any_region_tpu_torch.core.weights import init_gar_params
+    from grasp_any_region_tpu_torch.models.gar import gar_decode_step, seed_cache_from_prefill
+
+    base = gar_tiny()
+    cfg = dataclasses.replace(base, text=dataclasses.replace(
+        base.text, hidden_size=256, num_heads=4, num_kv_heads=1, head_dim=64, num_layers=2,
+        intermediate_size=1024))
+    tc = cfg.text
+    params = init_gar_params(cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda",
+                             dtype=torch.bfloat16)
+    b, s = 2, 100
+    kv = tuple(rnd(tc.num_layers, b, s, tc.num_kv_heads, tc.head_dim) for _ in range(2))
+    plens = torch.tensor([s, 61], dtype=torch.int32, device="cuda")
+    tok = torch.tensor([5, 7], dtype=torch.int32, device="cuda")
+    lm.launches.update(H=0, I=0, J=0)
+    dec.launches = 0
+    logits, cache = gar_decode_step(params, cfg, tok, seed_cache_from_prefill(cfg, kv, plens, 512),
+                                    s)
+    torch.cuda.synchronize()
+    assert lm.launches == dict(H=2 * tc.num_layers, I=tc.num_layers, J=tc.num_layers)
+    assert dec.launches == tc.num_layers and int(cache.write_pos) == s + 1
+    ref, _ = gar_decode_step(params, cfg, tok, seed_cache_from_prefill(cfg, kv, plens, 512), s,
+                             use_kernel=False)
+    assert torch.isfinite(logits).all()
+    assert ((logits - ref).abs().max() / ref.abs().max()).item() < 5e-2
