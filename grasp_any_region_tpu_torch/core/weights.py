@@ -7,6 +7,17 @@ The JAX package flattens its parameter tree to numpy with
 names ('.'-joined) and layouts: (Din, Dout) kernels used as x @ W, blocks
 stacked on a leading L axis, the channel-major patch kernel. So loading is
 a name-for-name copy.
+
+The int8 trees of `grasp_any_region_tpu/models/quantize.py` load the same
+way: their `*_q8` leaves are int8 and their `*_scale` leaves fp32 whatever
+the working dtype, held as `nn.Parameter(..., requires_grad=False)` like
+every other leaf (so `named_parameters`, `.to(device)` and the loader's
+name check treat them alike).
+
+The entry points that make the port's tensors (`load_flat_params`,
+`init_gar_params`, and `data/synthetic.synthetic_batch`,
+`models/quantize.init_gar_serving_int8`) build on the card unless the
+caller asks for the CPU, and raise where there is no card.
 """
 
 from __future__ import annotations
@@ -21,8 +32,19 @@ from torch import nn
 from .config import GARConfig
 
 
+def require_device(device) -> torch.device:
+    """The device an entry point builds on. A CUDA device without a card
+    raises: the port never moves to the CPU unless asked to."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {dev} asked for (the default) but torch.cuda.is_available() "
+                           "is false; pass device='cpu' to build on the CPU")
+    return dev
+
+
 def add_param(module: nn.Module, name: str, shape, device=None, dtype=None) -> None:
-    """Register an uninitialised, non-trainable tensor on `module`."""
+    """Register an uninitialised, non-trainable tensor on `module` (an int8
+    one too: a Parameter that needs no gradient may hold any dtype)."""
     module.register_parameter(
         name, nn.Parameter(torch.empty(shape, device=device, dtype=dtype),
                            requires_grad=False))
@@ -41,16 +63,34 @@ class ParamGroup(nn.Module):
         return {name: p[i] for name, p in self.named_parameters()}
 
 
-def load_flat_params(flat: Mapping[str, np.ndarray], cfg: GARConfig,
-                     device=None, dtype=torch.float32):
-    """Build `GARParams` from a flat {'a/b/c': array} dict.
+def _int8_layout(flat: Mapping[str, np.ndarray], cfg: GARConfig) -> dict:
+    """The `GARParams` int8 arguments a flat tree's names call for: `q8`,
+    the decoder matmuls with `*_q8` leaves (None for a tree without the
+    int8 head, i.e. not quantized), and `drop_bf16`, whether the bf16
+    head (the tied embedding or `lm_head`) was dropped."""
+    from ..models.llama import DECODE_MATMULS
 
-    Raises KeyError on a missing or unused name and ValueError on a shape
-    mismatch. The learned rope frequencies stay fp32, as in the JAX tree.
+    if "llm/lm_head_q8" not in flat:
+        return dict(q8=None, drop_bf16=False)
+    head = "llm/embed" if cfg.text.tie_word_embeddings else "llm/lm_head"
+    return dict(q8=tuple(n for n in DECODE_MATMULS if f"llm/blocks/{n}_q8" in flat),
+                drop_bf16=head not in flat)
+
+
+def load_flat_params(flat: Mapping[str, np.ndarray], cfg: GARConfig,
+                     device="cuda", dtype=torch.float32):
+    """Build `GARParams` from a flat {'a/b/c': array} dict, bf16 or int8
+    (`_int8_layout` reads which from the names).
+
+    Raises KeyError on a missing or unused name, ValueError on a shape
+    mismatch and TypeError on a float array for an int8 leaf. The learned
+    rope frequencies and the int8 scales stay fp32 and the `*_q8` leaves
+    int8, as in the JAX tree.
     """
     from ..models.gar import GARParams
 
-    params = GARParams(cfg, device=device, dtype=dtype)
+    params = GARParams(cfg, device=require_device(device), dtype=dtype,
+                       **_int8_layout(flat, cfg))
     expected = {name.replace(".", "/"): p for name, p in params.named_parameters()}
     missing = sorted(set(expected) - set(flat))
     unused = sorted(set(flat) - set(expected))
@@ -60,8 +100,14 @@ def load_flat_params(flat: Mapping[str, np.ndarray], cfg: GARConfig,
         arr = np.asarray(flat[key])
         if tuple(arr.shape) != tuple(p.shape):
             raise ValueError(f"{key}: shape {tuple(arr.shape)}, expected {tuple(p.shape)}")
+        if p.dtype == torch.int8:
+            if arr.dtype != np.int8:
+                raise TypeError(f"{key}: an int8 leaf, got {arr.dtype}")
+            arr = arr.copy()  # writable, as torch.from_numpy wants
+        else:
+            arr = arr.astype(np.float32)
         with torch.no_grad():
-            p.copy_(torch.from_numpy(arr.astype(np.float32)))
+            p.copy_(torch.from_numpy(arr))
     return params
 
 
@@ -82,8 +128,26 @@ def _mixed_rope_freqs(cfg, generator, device) -> torch.Tensor:
     return torch.stack([fx, fy], dim=-1)
 
 
+def init_leaf(name: str, p: torch.Tensor, cfg: GARConfig, generator: torch.Generator) -> None:
+    """Fill one bf16/fp32 leaf of `GARParams` (dotted name) by the JAX
+    package's init rules."""
+    leaf = name.rsplit(".", 1)[-1]
+    if name == "mask_embed.kernel" or leaf in _ZEROS:
+        p.zero_()
+    elif leaf in _ONES:
+        p.fill_(1.0)
+    elif leaf in ("ls1", "ls2"):
+        p.fill_(cfg.vision.init_values)
+    elif leaf == "rope_freqs":
+        p.copy_(_mixed_rope_freqs(cfg.vision, generator, p.device))
+    else:
+        w = torch.empty(p.shape, dtype=torch.float32, device=p.device)
+        nn.init.trunc_normal_(w, std=0.02, a=-0.04, b=0.04, generator=generator)
+        p.copy_(w)
+
+
 @torch.no_grad()
-def init_gar_params(cfg: GARConfig, generator: torch.Generator, device=None,
+def init_gar_params(cfg: GARConfig, generator: torch.Generator, device="cuda",
                     dtype=torch.float32):
     """Random `GARParams` by the JAX package's init rules: truncated normal
     (std 0.02, cut at 2 std) for kernels and embeddings, ones for norm
@@ -91,19 +155,7 @@ def init_gar_params(cfg: GARConfig, generator: torch.Generator, device=None,
     The numbers differ from jax.random's; tests load JAX params instead."""
     from ..models.gar import GARParams
 
-    params = GARParams(cfg, device=device, dtype=dtype)
+    params = GARParams(cfg, device=require_device(device), dtype=dtype)
     for name, p in params.named_parameters():
-        leaf = name.rsplit(".", 1)[-1]
-        if name == "mask_embed.kernel" or leaf in _ZEROS:
-            p.zero_()
-        elif leaf in _ONES:
-            p.fill_(1.0)
-        elif leaf in ("ls1", "ls2"):
-            p.fill_(cfg.vision.init_values)
-        elif leaf == "rope_freqs":
-            p.copy_(_mixed_rope_freqs(cfg.vision, generator, p.device))
-        else:
-            w = torch.empty(p.shape, dtype=torch.float32, device=p.device)
-            nn.init.trunc_normal_(w, std=0.02, a=-0.04, b=0.04, generator=generator)
-            p.copy_(w)
+        init_leaf(name, p, cfg, generator)
     return params

@@ -16,23 +16,58 @@
 // aligned write window of the TPU kernel (a tiling artifact) is one row.
 // prompt_lens and write_pos are device tensors read here: the decode loop
 // never waits for the host.
+//
+// Kernel C8, the second instantiation (T = int8_t), replaces the int8-KV
+// branch of the same JAX function (_fused_kernel_paired with kv_q8) on the
+// unpaired layout: K/V rows are 64 int8 bytes, dequantized on load as the
+// TPU kernel does, bf16(q * scale), with one fp32 scale per (layer, batch
+// row, kv-head pair) loaded once per block. The new K/V arrive in bf16 and
+// are quantized here, clip(rint(x / scale), -127, 127) (rint rounds half to
+// even, as jnp.round), written at write_pos, and folded in as their
+// dequantized fp32 values, so this step sees what later steps read back.
+// Half of C's bytes, the same grid: at B = 1 both are held by having one
+// block per (kv head, batch row), not by the bytes (split-KV is later work).
 #include "common.cuh"
 
 namespace gar {
 
 constexpr int kDecodeWarps = 16;
 
-template <int D, int G>
+// One cache element to fp32 as the attention uses it: bf16 as stored, int8
+// as bf16(q * scale).
+__device__ __forceinline__ float cache_value(bf16 x, float) { return __bfloat162float(x); }
+__device__ __forceinline__ float cache_value(int8_t x, float s) {
+  return __bfloat162float(__float2bfloat16(static_cast<float>(x) * s));
+}
+
+// Two adjacent elements in one load (4 bytes of bf16, 2 of int8).
+__device__ __forceinline__ void cache_pair(const bf16* p, float, float& a, float& b) {
+  const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+  a = f.x;
+  b = f.y;
+}
+__device__ __forceinline__ void cache_pair(const int8_t* p, float s, float& a, float& b) {
+  const char2 c = *reinterpret_cast<const char2*>(p);
+  a = cache_value(static_cast<int8_t>(c.x), s);
+  b = cache_value(static_cast<int8_t>(c.y), s);
+}
+
+template <typename T, int D, int G>
 __global__ void __launch_bounds__(kDecodeWarps * 32)
-decode_attention_fused_kernel(const bf16* __restrict__ q, bf16* k_all, bf16* v_all,
+decode_attention_fused_kernel(const bf16* __restrict__ q, T* k_all, T* v_all,
                               const bf16* __restrict__ k_new, const bf16* __restrict__ v_new,
                               bf16* __restrict__ out, const int* __restrict__ prompt_lens,
-                              const int* __restrict__ write_pos, int layer, int batch,
+                              const int* __restrict__ write_pos,
+                              const float* __restrict__ k_scale,
+                              const float* __restrict__ v_scale, int layer, int batch,
                               int kv_heads, int seq, int prompt_pad, float scale) {
-  static_assert(D % 32 == 0 && D % 8 == 0, "head dim must be a multiple of 32");
+  constexpr bool Q8 = sizeof(T) == 1;
+  static_assert(D % 32 == 0, "head dim must be a multiple of 32");
   constexpr int NW = kDecodeWarps;
-  constexpr int DPL = D / 32;  // output dims per lane
+  constexpr int DPL = D / 32;   // output dims per lane
+  constexpr int VEC = 16 / sizeof(T);  // cache elements per 16-byte load
   __shared__ __align__(16) float sq[G][D];
+  __shared__ float skn[D], svn[D];  // the current token's K and V as the attention uses them
   __shared__ float sm[NW][G];
   __shared__ float sl[NW][G];
   __shared__ float sacc[NW][G][D];
@@ -43,17 +78,40 @@ decode_attention_fused_kernel(const bf16* __restrict__ q, bf16* k_all, bf16* v_a
   const int wpos = write_pos[0];
   const size_t slab = ((static_cast<size_t>(layer) * batch + b) * kv_heads + kh) *
                       static_cast<size_t>(seq) * D;
-  bf16* kc = k_all + slab;
-  bf16* vc = v_all + slab;
+  T* kc = k_all + slab;
+  T* vc = v_all + slab;
   const size_t head0 = static_cast<size_t>(b) * kv_heads * G + static_cast<size_t>(kh) * G;
   const bf16* qp = q + head0 * D;
   const bf16* kn = k_new + (static_cast<size_t>(b) * kv_heads + kh) * D;
   const bf16* vn = v_new + (static_cast<size_t>(b) * kv_heads + kh) * D;
+  float ksc = 1.f, vsc = 1.f;
+  if (Q8) {  // pair kh / 2 of (layer, b)
+    const size_t si = (static_cast<size_t>(layer) * batch + b) * (kv_heads / 2) + kh / 2;
+    ksc = k_scale[si];
+    vsc = v_scale[si];
+  }
 
   for (int i = tid; i < G * D; i += NW * 32) sq[i / D][i % D] = __bfloat162float(qp[i]);
-  if (tid < D && wpos >= 0 && wpos < seq) {
-    kc[static_cast<size_t>(wpos) * D + tid] = kn[tid];
-    vc[static_cast<size_t>(wpos) * D + tid] = vn[tid];
+  if (tid < D) {
+    float kf = __bfloat162float(kn[tid]), vf = __bfloat162float(vn[tid]);
+    T kw, vw;
+    if constexpr (Q8) {
+      const float kq = fminf(fmaxf(rintf(kf / ksc), -127.f), 127.f);
+      const float vq = fminf(fmaxf(rintf(vf / vsc), -127.f), 127.f);
+      kw = static_cast<int8_t>(kq);
+      vw = static_cast<int8_t>(vq);
+      kf = kq * ksc;
+      vf = vq * vsc;
+    } else {
+      kw = kn[tid];
+      vw = vn[tid];
+    }
+    if (wpos >= 0 && wpos < seq) {
+      kc[static_cast<size_t>(wpos) * D + tid] = kw;
+      vc[static_cast<size_t>(wpos) * D + tid] = vw;
+    }
+    skn[tid] = kf;
+    svn[tid] = vf;
   }
   __syncthreads();
 
@@ -81,22 +139,21 @@ decode_attention_fused_kernel(const bf16* __restrict__ q, bf16* k_all, bf16* v_a
     if (valid) {
       const uint4* krow = reinterpret_cast<const uint4*>(kc + static_cast<size_t>(col) * D);
 #pragma unroll
-      for (int c = 0; c < D / 8; ++c) {
+      for (int c = 0; c < D / VEC; ++c) {
         const uint4 raw = krow[c];
-        const __nv_bfloat162* kp = reinterpret_cast<const __nv_bfloat162*>(&raw);
-        float kf[8];
+        const T* kp = reinterpret_cast<const T*>(&raw);
+        float kf[VEC];
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float2 f = __bfloat1622float2(kp[e]);
-          kf[2 * e] = f.x;
-          kf[2 * e + 1] = f.y;
-        }
+        for (int e = 0; e < VEC; ++e) kf[e] = cache_value(kp[e], ksc);
 #pragma unroll
         for (int gg = 0; gg < G; ++gg) {
-          const float4 qa = *reinterpret_cast<const float4*>(&sq[gg][c * 8]);
-          const float4 qb = *reinterpret_cast<const float4*>(&sq[gg][c * 8 + 4]);
-          sc[gg] += qa.x * kf[0] + qa.y * kf[1] + qa.z * kf[2] + qa.w * kf[3] +
-                    qb.x * kf[4] + qb.y * kf[5] + qb.z * kf[6] + qb.w * kf[7];
+#pragma unroll
+          for (int e = 0; e < VEC; e += 8) {
+            const float4 qa = *reinterpret_cast<const float4*>(&sq[gg][c * VEC + e]);
+            const float4 qb = *reinterpret_cast<const float4*>(&sq[gg][c * VEC + e + 4]);
+            sc[gg] += qa.x * kf[e] + qa.y * kf[e + 1] + qa.z * kf[e + 2] + qa.w * kf[e + 3] +
+                      qb.x * kf[e + 4] + qb.y * kf[e + 5] + qb.z * kf[e + 6] + qb.w * kf[e + 7];
+          }
         }
       }
     }
@@ -118,14 +175,10 @@ decode_attention_fused_kernel(const bf16* __restrict__ q, bf16* k_all, bf16* v_a
 #pragma unroll
     for (int jj = 0; jj < 32; ++jj) {
       const int cj = __shfl_sync(0xffffffffu, col, jj);
-      const bf16* vrow = vc + static_cast<size_t>(cj) * D + lane * DPL;
+      const T* vrow = vc + static_cast<size_t>(cj) * D + lane * DPL;
       float vf[DPL];
 #pragma unroll
-      for (int e = 0; e < DPL; e += 2) {
-        const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(vrow + e));
-        vf[e] = f.x;
-        vf[e + 1] = f.y;
-      }
+      for (int e = 0; e < DPL; e += 2) cache_pair(vrow + e, vsc, vf[e], vf[e + 1]);
 #pragma unroll
       for (int gg = 0; gg < G; ++gg) {
         const float pj = __shfl_sync(0xffffffffu, pb[gg], jj);
@@ -150,14 +203,14 @@ decode_attention_fused_kernel(const bf16* __restrict__ q, bf16* k_all, bf16* v_a
   for (int idx = tid; idx < G * D; idx += NW * 32) {
     const int gg = idx / D, d = idx % D;
     float s_cur = 0.f;
-    for (int e = 0; e < D; ++e) s_cur += sq[gg][e] * __bfloat162float(kn[e]);
+    for (int e = 0; e < D; ++e) s_cur += sq[gg][e] * skn[e];
     s_cur *= scale;
     float m_all = s_cur;
 #pragma unroll
     for (int w = 0; w < NW; ++w) m_all = fmaxf(m_all, sm[w][gg]);
     const float p_cur = expf(s_cur - m_all);
     float l_all = p_cur;
-    float a_all = p_cur * __bfloat162float(vn[d]);
+    float a_all = p_cur * svn[d];
 #pragma unroll
     for (int w = 0; w < NW; ++w) {
       const float f = expf(sm[w][gg] - m_all);
@@ -168,18 +221,45 @@ decode_attention_fused_kernel(const bf16* __restrict__ q, bf16* k_all, bf16* v_a
   }
 }
 
-template <int D, int G>
-int launch_decode(const void* q, void* k_all, void* v_all, const void* k_new,
-                  const void* v_new, void* out, const void* prompt_lens,
-                  const void* write_pos, int layer, int batch, int kv_heads, int seq,
-                  int prompt_pad, float scale, cudaStream_t stream) {
-  const dim3 grid(kv_heads, batch);
-  decode_attention_fused_kernel<D, G><<<grid, kDecodeWarps * 32, 0, stream>>>(
-      static_cast<const bf16*>(q), static_cast<bf16*>(k_all), static_cast<bf16*>(v_all),
-      static_cast<const bf16*>(k_new), static_cast<const bf16*>(v_new),
-      static_cast<bf16*>(out), static_cast<const int*>(prompt_lens),
-      static_cast<const int*>(write_pos), layer, batch, kv_heads, seq, prompt_pad, scale);
+struct DecodeArgs {
+  const void* q;
+  void* k_all;
+  void* v_all;
+  const void* k_new;
+  const void* v_new;
+  void* out;
+  const void* prompt_lens;
+  const void* write_pos;
+  const void* k_scale;  // C8 only
+  const void* v_scale;
+  int layer, batch, kv_heads, seq, prompt_pad;
+  float scale;
+};
+
+template <typename T, int D, int G>
+int launch_decode(const DecodeArgs& a, cudaStream_t stream) {
+  const dim3 grid(a.kv_heads, a.batch);
+  decode_attention_fused_kernel<T, D, G><<<grid, kDecodeWarps * 32, 0, stream>>>(
+      static_cast<const bf16*>(a.q), static_cast<T*>(a.k_all), static_cast<T*>(a.v_all),
+      static_cast<const bf16*>(a.k_new), static_cast<const bf16*>(a.v_new),
+      static_cast<bf16*>(a.out), static_cast<const int*>(a.prompt_lens),
+      static_cast<const int*>(a.write_pos), static_cast<const float*>(a.k_scale),
+      static_cast<const float*>(a.v_scale), a.layer, a.batch, a.kv_heads, a.seq, a.prompt_pad,
+      a.scale);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int dispatch_decode(const DecodeArgs& a, int heads, int head_dim, cudaStream_t stream) {
+  if (head_dim != 64 || a.kv_heads <= 0 || heads % a.kv_heads != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  switch (heads / a.kv_heads) {
+    case 1: return launch_decode<T, 64, 1>(a, stream);
+    case 2: return launch_decode<T, 64, 2>(a, stream);
+    case 4: return launch_decode<T, 64, 4>(a, stream);
+    case 8: return launch_decode<T, 64, 8>(a, stream);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace gar
@@ -189,22 +269,18 @@ extern "C" int gar_decode_attention_fused(
     void* out, const void* prompt_lens, const void* write_pos,
     int layer, int batch, int heads, int kv_heads, int seq, int head_dim,
     int prompt_pad, float scale, void* stream) {
-  if (head_dim != 64 || kv_heads <= 0 || heads % kv_heads != 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (heads / kv_heads) {
-    case 1: return gar::launch_decode<64, 1>(q, k_all, v_all, k_new, v_new, out, prompt_lens,
-                                             write_pos, layer, batch, kv_heads, seq,
-                                             prompt_pad, scale, st);
-    case 2: return gar::launch_decode<64, 2>(q, k_all, v_all, k_new, v_new, out, prompt_lens,
-                                             write_pos, layer, batch, kv_heads, seq,
-                                             prompt_pad, scale, st);
-    case 4: return gar::launch_decode<64, 4>(q, k_all, v_all, k_new, v_new, out, prompt_lens,
-                                             write_pos, layer, batch, kv_heads, seq,
-                                             prompt_pad, scale, st);
-    case 8: return gar::launch_decode<64, 8>(q, k_all, v_all, k_new, v_new, out, prompt_lens,
-                                             write_pos, layer, batch, kv_heads, seq,
-                                             prompt_pad, scale, st);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  const gar::DecodeArgs a{q, k_all, v_all, k_new, v_new, out, prompt_lens, write_pos,
+                          nullptr, nullptr, layer, batch, kv_heads, seq, prompt_pad, scale};
+  return gar::dispatch_decode<gar::bf16>(a, heads, head_dim, static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int gar_decode_attention_fused_q8(
+    const void* q, void* k_all, void* v_all, const void* k_new, const void* v_new,
+    void* out, const void* prompt_lens, const void* write_pos, const void* k_scale,
+    const void* v_scale, int layer, int batch, int heads, int kv_heads, int seq, int head_dim,
+    int prompt_pad, float scale, void* stream) {
+  if (kv_heads % 2) return static_cast<int>(cudaErrorInvalidValue);
+  const gar::DecodeArgs a{q, k_all, v_all, k_new, v_new, out, prompt_lens, write_pos,
+                          k_scale, v_scale, layer, batch, kv_heads, seq, prompt_pad, scale};
+  return gar::dispatch_decode<int8_t>(a, heads, head_dim, static_cast<cudaStream_t>(stream));
 }

@@ -41,10 +41,30 @@
 //    multiples of 8 (16-byte rows), not of the tile; rows, columns and K
 //    past the edge are zero-filled by cp.async's src-size operand.
 //
-// The int8 slice (W8A16, one fp32 scale per output column: layer_matmul_q8
-// and friends) reuses this body: the slab loader takes int8 rows and the B
-// fragments widen them to bf16, and the column scale applies in the
-// epilogue, since it commutes with the sum over K.
+// H8, I8 and J8 replace layer_matmul_q8 (_mm_q8_kernel), layer_swiglu_q8
+// (_swiglu_q8_kernel) and layer_qkv_q8 (_qkv_q8_kernel) of the same file:
+// W8A16, int8 weights with one fp32 scale per output column. They are
+// this body instantiated over the weight type W = int8_t, and they stream
+// half the bytes of H, I and J, which is the whole point: GAR-1B at B = 1
+// bounds them at 4.2 MB (wo), 16.8 MB (w_down), 33.6 MB (gate + up) and
+// 6.3 MB (qkv) of int8 weights. What changes with the type:
+//
+//  * A block owns 128 int8 columns, so weight rows stay 128 bytes and a
+//    64-row slab stays 8 KB, as in bf16: the shared-memory layout, the
+//    cp.async loads and the bytes in flight are the same. (64 int8
+//    columns, 64-byte rows, were slower in one call on I8, J8 and w_down,
+//    faster on wo.) Twice-wide
+//    tiles halve the column tiles, so K is split over clusters of up to 16
+//    blocks (Hopper's non-portable size) to keep two blocks per SM.
+//  * One ldmatrix.x4.trans over pairs of bytes gives each thread two
+//    adjacent columns of two adjacent K rows; widen_i8x4 turns them into
+//    bf16 B fragments in registers (exact: an int8 is its own bf16), the
+//    even columns as one n-tile and the odd as another, which the epilogue
+//    puts back in order.
+//  * The column scale multiplies the fp32 sum in the epilogue, after the
+//    split-K reduction, since it is constant along K.
+//
+// Their Dout must be a multiple of 16 (rows of whole 16-byte chunks).
 #include <cooperative_groups.h>
 
 #include "gemm_tile.cuh"
@@ -53,31 +73,36 @@ namespace cg = cooperative_groups;
 
 namespace gar {
 
-constexpr int kLmBN = 64;        // output columns per block: 128-byte weight rows
 constexpr int kLmBK = 64;        // weight rows per slab
 constexpr int kLmStages = 4;     // slabs in the ring: three loads in flight
-constexpr int kLmThreads = 128;  // 4 warps, 16 columns each
-constexpr int kLmMaxSplits = 8;  // the portable cluster size
+constexpr int kLmThreads = 128;  // 4 warps, a quarter of the block's columns each
+constexpr int kLmMaxSplits = 8;  // the portable cluster size (bf16)
+constexpr int kLmMaxSplitsQ8 = 16;  // int8 tiles are twice as wide: half as many to split
 constexpr int kLmMaxRows = 32;
 
+template <typename W>
 struct LmSegment {
-  const bf16* w;   // (Din, n) at layer l
-  const bf16* w2;  // I only: the up weight, (Din, n)
-  bf16* out;       // (rows, n)
+  const W* w;          // (Din, n) at layer l
+  const W* w2;         // I only: the up weight, (Din, n)
+  const float* s;      // int8 only: the column scales of w, (n,) at layer l
+  const float* s2;     // int8 I only: those of w2
+  bf16* out;           // (rows, n)
   int n;
-  int tiles;       // column tiles of kLmBN
+  int tiles;           // column tiles of LmShape::BN
 };
 
+template <typename W>
 struct LmParams {
   const bf16* x;  // (rows, Din)
-  LmSegment seg[3];  // H and I use seg[0]; J q, k, v. Unused segments have 0 tiles.
+  LmSegment<W> seg[3];  // H and I use seg[0]; J q, k, v. Unused segments have 0 tiles.
   int rows, din;
   int k_split;    // rows of K per block of a cluster, a multiple of 16
 };
 
 // The segment that column tile `tile` (the grid's y index) falls in; `tile`
 // becomes the index within that segment.
-__device__ __forceinline__ LmSegment pick_segment(const LmParams& p, int& tile) {
+template <typename W>
+__device__ __forceinline__ LmSegment<W> pick_segment(const LmParams<W>& p, int& tile) {
   if (tile < p.seg[0].tiles) return p.seg[0];
   tile -= p.seg[0].tiles;
   if (tile < p.seg[1].tiles) return p.seg[1];
@@ -85,68 +110,102 @@ __device__ __forceinline__ LmSegment pick_segment(const LmParams& p, int& tile) 
   return p.seg[2];
 }
 
-template <bool SWIGLU, int MT>
+// Output columns per block: 128-byte weight rows in either type.
+template <typename W>
+constexpr int lm_bn() { return 128 / sizeof(W); }
+
+template <typename W, bool SWIGLU, int MT>
 struct LmShape {
+  static constexpr bool Q8 = sizeof(W) == 1;
   static constexpr int NW = SWIGLU ? 2 : 1;      // weights per tile
+  static constexpr int BN = lm_bn<W>();          // 64 bf16 or 128 int8 columns
+  static constexpr int WN = BN / 4;              // columns per warp
+  static constexpr int NT = WN / 8;              // mma n-tiles per warp: 2 bf16, 4 int8
+  static constexpr int BK = kLmBK;
   static constexpr int ROWS = 16 * MT;           // x rows, zero-filled past B
-  static constexpr int LDB = kLmBN + kGemmPad;   // weight slab pitch
-  static constexpr int LDX = kLmBK + kGemmPad;   // x slab pitch
-  static constexpr int W_ELEMS = kLmBK * LDB;
-  static constexpr int STAGE = NW * W_ELEMS + ROWS * LDX;
-  static constexpr int SMEM_BYTES = kLmStages * STAGE * 2;
-  static_assert(NW * ROWS * kLmBN * 4 <= SMEM_BYTES, "the partials reuse the ring");
-  static_assert((STAGE * 2) % 16 == 0 && (W_ELEMS * 2) % 16 == 0, "16-byte aligned slabs");
+  static constexpr int CHUNK = 16 / sizeof(W);   // weight elements per 16-byte chunk
+  static constexpr int LDB = BN + CHUNK;         // weight slab pitch: 144 bytes either way
+  static constexpr int LDX = BK + kGemmPad;      // x slab pitch
+  static constexpr int W_BYTES = BK * LDB * sizeof(W);
+  static constexpr int STAGE = NW * W_BYTES + ROWS * LDX * 2;  // bytes
+  static constexpr int SMEM_BYTES = kLmStages * STAGE;
+  static_assert(NW * ROWS * BN * 4 <= SMEM_BYTES, "the partials reuse the ring");
+  static_assert(STAGE % 16 == 0 && W_BYTES % 16 == 0, "16-byte aligned slabs");
 };
+
+// Four int8 weights, as ldmatrix.trans hands them to a thread: bytes
+// (W[k][n], W[k][n+1], W[k+1][n], W[k+1][n+1]). Returns the bf16 pairs
+// (W[k][n], W[k+1][n]) in `even` and (W[k][n+1], W[k+1][n+1]) in `odd`,
+// each a B-fragment register. Exact: x + 128 as the low byte of the float
+// 2^23 + (x + 128), minus 2^23 + 128, is x; and an integer of at most 8
+// significant bits is its own bf16, the top half of its float.
+__device__ __forceinline__ void widen_i8x4(uint32_t r, uint32_t& even, uint32_t& odd) {
+  const uint32_t u = r ^ 0x80808080u;
+  constexpr float kMagic = 8388736.0f;  // 2^23 + 128
+  const float f0 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7650)) - kMagic;
+  const float f1 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7651)) - kMagic;
+  const float f2 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7652)) - kMagic;
+  const float f3 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7653)) - kMagic;
+  even = __byte_perm(__float_as_uint(f0), __float_as_uint(f2), 0x7632);
+  odd = __byte_perm(__float_as_uint(f1), __float_as_uint(f3), 0x7632);
+}
 
 // Grid (S, tiles), cluster (S, 1, 1): the S blocks of a cluster share one
 // column tile and split its K.
-template <bool SWIGLU, int MT>
-__global__ void __launch_bounds__(kLmThreads) layer_mm_kernel(const LmParams p) {
-  using Sh = LmShape<SWIGLU, MT>;
-  constexpr int NW = Sh::NW, ROWS = Sh::ROWS, LDB = Sh::LDB, LDX = Sh::LDX;
+template <typename W, bool SWIGLU, int MT>
+__global__ void __launch_bounds__(kLmThreads) layer_mm_kernel(const LmParams<W> p) {
+  using Sh = LmShape<W, SWIGLU, MT>;
+  constexpr int NW = Sh::NW, ROWS = Sh::ROWS, LDB = Sh::LDB, LDX = Sh::LDX, BK = Sh::BK;
+  constexpr int BN = Sh::BN, NT = Sh::NT, CHUNK = Sh::CHUNK;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* ring = reinterpret_cast<bf16*>(smem_raw);
   cg::cluster_group cluster = cg::this_cluster();
   const int split = blockIdx.x, splits = gridDim.x;  // the cluster spans the grid's x
   int tile = blockIdx.y;
-  const LmSegment seg = pick_segment(p, tile);
-  const int n0 = tile * kLmBN;
+  const LmSegment<W> seg = pick_segment(p, tile);
+  const int n0 = tile * BN;
   const int k_begin = split * p.k_split;
   const int k_end = min(p.din, k_begin + p.k_split);
-  const int nk = k_end > k_begin ? (k_end - k_begin + kLmBK - 1) / kLmBK : 0;
+  const int nk = k_end > k_begin ? (k_end - k_begin + BK - 1) / BK : 0;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  auto w_slab = [&](int stage, int w) {
+    return reinterpret_cast<W*>(smem_raw + stage * Sh::STAGE + w * Sh::W_BYTES);
+  };
+  auto x_slab = [&](int stage) {
+    return reinterpret_cast<bf16*>(smem_raw + stage * Sh::STAGE + NW * Sh::W_BYTES);
+  };
 
-  // Slab kt: kLmBK weight rows x kLmBN columns of each weight, and the
-  // matching ROWS x kLmBK block of x. Chunks past an edge read nothing and
-  // land as zeros (n and Din are multiples of 8, so a chunk is in or out).
+  // Slab kt: BK weight rows x BN columns of each weight, and the
+  // matching ROWS x BK block of x. Chunks past an edge read nothing and
+  // land as zeros (n is a multiple of CHUNK and Din of 8, so a chunk is in
+  // or out).
   auto load_slab = [&](int kt) {
-    bf16* st = ring + (kt % kLmStages) * Sh::STAGE;
-    const int kb = k_begin + kt * kLmBK;
-    for (int c = tid; c < kLmBK * (kLmBN / 8); c += kLmThreads) {
-      const int r = c / (kLmBN / 8), cc = (c % (kLmBN / 8)) * 8;
+    const int stage = kt % kLmStages;
+    const int kb = k_begin + kt * BK;
+    for (int c = tid; c < BK * (BN / CHUNK); c += kLmThreads) {
+      const int r = c / (BN / CHUNK), cc = (c % (BN / CHUNK)) * CHUNK;
       const bool ok = kb + r < k_end && n0 + cc < seg.n;
       const long long off = ok ? static_cast<long long>(kb + r) * seg.n + n0 + cc : 0;
-      cp_async16(st + r * LDB + cc, seg.w + off, ok ? 16 : 0);
-      if (SWIGLU) cp_async16(st + Sh::W_ELEMS + r * LDB + cc, seg.w2 + off, ok ? 16 : 0);
+      cp_async16(w_slab(stage, 0) + r * LDB + cc, seg.w + off, ok ? 16 : 0);
+      if (SWIGLU) cp_async16(w_slab(stage, 1) + r * LDB + cc, seg.w2 + off, ok ? 16 : 0);
     }
-    bf16* sx = st + NW * Sh::W_ELEMS;
-    for (int c = tid; c < ROWS * (kLmBK / 8); c += kLmThreads) {
-      const int r = c / (kLmBK / 8), cc = (c % (kLmBK / 8)) * 8;
+    bf16* sx = x_slab(stage);
+    for (int c = tid; c < ROWS * (BK / 8); c += kLmThreads) {
+      const int r = c / (BK / 8), cc = (c % (BK / 8)) * 8;
       const bool ok = r < p.rows && kb + cc < k_end;
       const long long off = ok ? static_cast<long long>(r) * p.din + kb + cc : 0;
       cp_async16(sx + r * LDX + cc, p.x + off, ok ? 16 : 0);
     }
   };
 
-  float acc[NW][MT][2][4];
+  float acc[NW][MT][NT][4];
 #pragma unroll
   for (int w = 0; w < NW; ++w)
 #pragma unroll
     for (int i = 0; i < MT; ++i)
 #pragma unroll
-      for (int j = 0; j < 2; ++j) acc[w][i][j][0] = acc[w][i][j][1] = acc[w][i][j][2] = acc[w][i][j][3] = 0.f;
+      for (int j = 0; j < NT; ++j) acc[w][i][j][0] = acc[w][i][j][1] = acc[w][i][j][2] = acc[w][i][j][3] = 0.f;
 
-  const int wn = warp * 16;  // this warp's 16 columns of the tile
+  const int wn = warp * Sh::WN;  // this warp's columns of the tile
 #pragma unroll
   for (int s = 0; s < kLmStages - 1; ++s) {
     if (s < nk) load_slab(s);
@@ -158,49 +217,71 @@ __global__ void __launch_bounds__(kLmThreads) layer_mm_kernel(const LmParams p) 
     if (kt + kLmStages - 1 < nk) load_slab(kt + kLmStages - 1);
     cp_async_commit();
 
-    const bf16* st = ring + (kt % kLmStages) * Sh::STAGE;
-    const bf16* sx = st + NW * Sh::W_ELEMS;
+    const int stage = kt % kLmStages;
+    const bf16* sx = x_slab(stage);
 #pragma unroll
-    for (int kk = 0; kk < kLmBK; kk += 16) {
+    for (int kk = 0; kk < BK; kk += 16) {
       uint32_t af[MT][4];
 #pragma unroll
       for (int i = 0; i < MT; ++i)
         ldmatrix_x4(af[i], sx + (i * 16 + (lane & 15)) * LDX + kk + (lane >> 4) * 8);
 #pragma unroll
       for (int w = 0; w < NW; ++w) {
-        uint32_t bfr[4];  // b0, b1 of columns wn..wn+7, then of wn+8..wn+15
-        ldmatrix_x4_trans(bfr, st + w * Sh::W_ELEMS + (kk + (lane & 15)) * LDB + wn +
-                                   (lane >> 4) * 8);
+        // b0, b1 of the warp's 8-column tiles, from one ldmatrix.x4.trans
+        // of its 32 bytes of rows kk..kk+15. bf16: columns wn..wn+7, then
+        // wn+8..wn+15. int8: the even columns of wn..wn+15, the odd ones,
+        // then the same of wn+16..wn+31 (the epilogue puts them in order).
+        uint32_t raw[4], bfr[NT][2];
+        ldmatrix_x4_trans(raw, reinterpret_cast<const bf16*>(
+                                   w_slab(stage, w) + (kk + (lane & 15)) * LDB + wn +
+                                   (lane >> 4) * CHUNK));
+        if constexpr (Sh::Q8) {
 #pragma unroll
-        for (int i = 0; i < MT; ++i) {
-          mma_bf16_16816(acc[w][i][0], af[i], bfr[0], bfr[1]);
-          mma_bf16_16816(acc[w][i][1], af[i], bfr[2], bfr[3]);
+          for (int h = 0; h < 2; ++h) {
+            widen_i8x4(raw[2 * h], bfr[2 * h][0], bfr[2 * h + 1][0]);
+            widen_i8x4(raw[2 * h + 1], bfr[2 * h][1], bfr[2 * h + 1][1]);
+          }
+        } else {
+#pragma unroll
+          for (int j = 0; j < NT; ++j) bfr[j][0] = raw[2 * j], bfr[j][1] = raw[2 * j + 1];
         }
+#pragma unroll
+        for (int i = 0; i < MT; ++i)
+#pragma unroll
+          for (int j = 0; j < NT; ++j) mma_bf16_16816(acc[w][i][j], af[i], bfr[j][0], bfr[j][1]);
       }
     }
   }
   cp_async_wait<0>();
   __syncthreads();  // the ring is free: it now holds this block's partials
 
-  float* part = reinterpret_cast<float*>(smem_raw);  // [NW][ROWS][kLmBN] fp32
+  float* part = reinterpret_cast<float*>(smem_raw);  // [NW][ROWS][BN] fp32
   const int g = lane >> 2, t = lane & 3;
 #pragma unroll
   for (int w = 0; w < NW; ++w)
 #pragma unroll
     for (int i = 0; i < MT; ++i)
 #pragma unroll
-      for (int j = 0; j < 2; ++j)
+      for (int hf = 0; hf < 2; ++hf) {
+        float* row = part + (w * ROWS + i * 16 + g + hf * 8) * BN;
+        if constexpr (Sh::Q8) {  // tile 2h holds columns wn + 16h + 4t, +2; tile 2h + 1 the odd ones
 #pragma unroll
-        for (int hf = 0; hf < 2; ++hf) {
-          const int row = i * 16 + g + hf * 8, col = wn + j * 8 + 2 * t;
-          *reinterpret_cast<float2*>(part + (w * ROWS + row) * kLmBN + col) =
-              make_float2(acc[w][i][j][2 * hf], acc[w][i][j][2 * hf + 1]);
+          for (int h = 0; h < 2; ++h)
+            *reinterpret_cast<float4*>(row + wn + 16 * h + 4 * t) =
+                make_float4(acc[w][i][2 * h][2 * hf], acc[w][i][2 * h + 1][2 * hf],
+                            acc[w][i][2 * h][2 * hf + 1], acc[w][i][2 * h + 1][2 * hf + 1]);
+        } else {
+#pragma unroll
+          for (int j = 0; j < NT; ++j)
+            *reinterpret_cast<float2*>(row + wn + j * 8 + 2 * t) =
+                make_float2(acc[w][i][j][2 * hf], acc[w][i][j][2 * hf + 1]);
         }
+      }
   cluster.sync();  // every block's partials are in its shared memory
 
   // Block `split` finishes columns [c0, c0 + cols) of the tile: the sum of
-  // the S partials in rank order, then the epilogue.
-  const int cols = kLmBN / splits, c0 = split * cols;
+  // the S partials in rank order, the int8 column scales, then the epilogue.
+  const int cols = BN / splits, c0 = split * cols;
   for (int e = tid; e < p.rows * cols; e += kLmThreads) {
     const int row = e / cols, col = c0 + e % cols;
     if (n0 + col >= seg.n) continue;
@@ -210,7 +291,11 @@ __global__ void __launch_bounds__(kLmThreads) layer_mm_kernel(const LmParams p) 
     for (int r = 0; r < splits; ++r) {
       const float* peer = cluster.map_shared_rank(part, r);
 #pragma unroll
-      for (int w = 0; w < NW; ++w) v[w] += peer[(w * ROWS + row) * kLmBN + col];
+      for (int w = 0; w < NW; ++w) v[w] += peer[(w * ROWS + row) * BN + col];
+    }
+    if constexpr (Sh::Q8) {
+      v[0] *= seg.s[n0 + col];
+      if (SWIGLU) v[NW - 1] *= seg.s2[n0 + col];
     }
     // I: silu(gate) * up in fp32 (silu(g) = g * sigmoid(g)), one rounding
     const float o = SWIGLU ? v[0] / (1.f + expf(-v[0])) * v[NW - 1] : v[0];
@@ -233,25 +318,28 @@ int lm_sm_count() {
 
 // Split K in two until the grid has two blocks per SM, S reaches the
 // cluster limit, or a block would get less than one 64-row slab.
-int lm_splits(int tiles, int din) {
+int lm_splits(int tiles, int din, int max_splits) {
   const int target = 2 * lm_sm_count();
   int s = 1;
-  while (s < kLmMaxSplits && tiles * s < target && din >= 2 * s * kLmBK) s *= 2;
+  while (s < max_splits && tiles * s < target && din >= 2 * s * kLmBK) s *= 2;
   return s;
 }
 
-template <bool SWIGLU, int MT>
-int launch_lm_mt(LmParams p, int tiles, cudaStream_t stream) {
-  constexpr int smem = LmShape<SWIGLU, MT>::SMEM_BYTES;
-  auto kernel = layer_mm_kernel<SWIGLU, MT>;
+template <typename W, bool SWIGLU, int MT>
+int launch_lm_mt(LmParams<W> p, int tiles, cudaStream_t stream) {
+  using Sh = LmShape<W, SWIGLU, MT>;
+  constexpr int smem = Sh::SMEM_BYTES;
+  auto kernel = layer_mm_kernel<W, SWIGLU, MT>;
   static bool opted_in = false;  // the attribute is per kernel: set it once
   if (!opted_in) {
-    const cudaError_t err =
+    cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err == cudaSuccess && Sh::Q8)  // clusters of 16: past the portable 8, Hopper has them
+      err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
     if (err != cudaSuccess) return static_cast<int>(err);
     opted_in = true;
   }
-  const int splits = lm_splits(tiles, p.din);
+  const int splits = lm_splits(tiles, p.din, Sh::Q8 ? kLmMaxSplitsQ8 : kLmMaxSplits);
   p.k_split = ((p.din + splits - 1) / splits + 15) / 16 * 16;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(splits, tiles, 1);
@@ -271,23 +359,73 @@ int launch_lm_mt(LmParams p, int tiles, cudaStream_t stream) {
 }
 
 // Fill in the tiles, check the shapes, pick the row tile (16 or 32 rows).
-template <bool SWIGLU>
-int launch_lm(LmParams p, cudaStream_t stream) {
+template <typename W, bool SWIGLU>
+int launch_lm(LmParams<W> p, cudaStream_t stream) {
+  constexpr int chunk = 16 / sizeof(W);
   if (p.rows < 1 || p.rows > kLmMaxRows || p.din <= 0 || p.din % 8)
     return static_cast<int>(cudaErrorInvalidValue);
   int tiles = 0;
-  for (LmSegment& s : p.seg) {
-    if (s.n < 0 || s.n % 8) return static_cast<int>(cudaErrorInvalidValue);
-    s.tiles = (s.n + kLmBN - 1) / kLmBN;
+  for (LmSegment<W>& s : p.seg) {
+    if (s.n < 0 || s.n % chunk) return static_cast<int>(cudaErrorInvalidValue);
+    s.tiles = (s.n + lm_bn<W>() - 1) / lm_bn<W>();
     tiles += s.tiles;
   }
   if (tiles == 0 || tiles > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  if (p.rows <= 16) return launch_lm_mt<SWIGLU, 1>(p, tiles, stream);
-  return launch_lm_mt<SWIGLU, 2>(p, tiles, stream);
+  if (p.rows <= 16) return launch_lm_mt<W, SWIGLU, 1>(p, tiles, stream);
+  return launch_lm_mt<W, SWIGLU, 2>(p, tiles, stream);
 }
 
-const bf16* at_layer(const void* w_all, int layer, int din, int n) {
-  return static_cast<const bf16*>(w_all) + static_cast<long long>(layer) * din * n;
+template <typename W>
+const W* at_layer(const void* w_all, int layer, int din, int n) {
+  return static_cast<const W*>(w_all) + static_cast<long long>(layer) * din * n;
+}
+
+// A weight's segment at `layer`: (L, din, n) values, (L, 1, n) scales.
+template <typename W>
+LmSegment<W> segment(const void* w_all, const void* s_all, void* out, int layer, int din,
+                     int n) {
+  const float* s = s_all ? static_cast<const float*>(s_all) + static_cast<long long>(layer) * n
+                         : nullptr;
+  return {at_layer<W>(w_all, layer, din, n), nullptr, s, nullptr, static_cast<bf16*>(out), n, 0};
+}
+
+template <typename W>
+int matmul(const void* x, const void* w_all, const void* s_all, void* out, int layer, int rows,
+           int din, int dout, void* stream) {
+  LmParams<W> p{};
+  p.x = static_cast<const bf16*>(x);
+  p.seg[0] = segment<W>(w_all, s_all, out, layer, din, dout);
+  p.rows = rows;
+  p.din = din;
+  return launch_lm<W, false>(p, static_cast<cudaStream_t>(stream));
+}
+
+template <typename W>
+int swiglu(const void* x, const void* wg_all, const void* sg_all, const void* wu_all,
+           const void* su_all, void* out, int layer, int rows, int din, int m, void* stream) {
+  LmParams<W> p{};
+  p.x = static_cast<const bf16*>(x);
+  p.seg[0] = segment<W>(wg_all, sg_all, out, layer, din, m);
+  const LmSegment<W> up = segment<W>(wu_all, su_all, out, layer, din, m);
+  p.seg[0].w2 = up.w;
+  p.seg[0].s2 = up.s;
+  p.rows = rows;
+  p.din = din;
+  return launch_lm<W, true>(p, static_cast<cudaStream_t>(stream));
+}
+
+template <typename W>
+int qkv(const void* x, const void* wq_all, const void* sq_all, const void* wk_all,
+        const void* sk_all, const void* wv_all, const void* sv_all, void* q, void* k, void* v,
+        int layer, int rows, int d, int hq, int hk, void* stream) {
+  LmParams<W> p{};
+  p.x = static_cast<const bf16*>(x);
+  p.seg[0] = segment<W>(wq_all, sq_all, q, layer, d, hq);
+  p.seg[1] = segment<W>(wk_all, sk_all, k, layer, d, hk);
+  p.seg[2] = segment<W>(wv_all, sv_all, v, layer, d, hk);
+  p.rows = rows;
+  p.din = d;
+  return launch_lm<W, false>(p, static_cast<cudaStream_t>(stream));
 }
 
 }  // namespace gar
@@ -296,34 +434,36 @@ using gar::bf16;
 
 extern "C" int gar_layer_matmul(const void* x, const void* w_all, void* out, int layer,
                                 int rows, int din, int dout, void* stream) {
-  gar::LmParams p{};
-  p.x = static_cast<const bf16*>(x);
-  p.seg[0] = {gar::at_layer(w_all, layer, din, dout), nullptr, static_cast<bf16*>(out), dout, 0};
-  p.rows = rows;
-  p.din = din;
-  return gar::launch_lm<false>(p, static_cast<cudaStream_t>(stream));
+  return gar::matmul<bf16>(x, w_all, nullptr, out, layer, rows, din, dout, stream);
 }
 
 extern "C" int gar_layer_swiglu(const void* x, const void* wg_all, const void* wu_all, void* out,
                                 int layer, int rows, int din, int m, void* stream) {
-  gar::LmParams p{};
-  p.x = static_cast<const bf16*>(x);
-  p.seg[0] = {gar::at_layer(wg_all, layer, din, m), gar::at_layer(wu_all, layer, din, m),
-              static_cast<bf16*>(out), m, 0};
-  p.rows = rows;
-  p.din = din;
-  return gar::launch_lm<true>(p, static_cast<cudaStream_t>(stream));
+  return gar::swiglu<bf16>(x, wg_all, nullptr, wu_all, nullptr, out, layer, rows, din, m, stream);
 }
 
 extern "C" int gar_layer_qkv(const void* x, const void* wq_all, const void* wk_all,
                              const void* wv_all, void* q, void* k, void* v, int layer, int rows,
                              int d, int hq, int hk, void* stream) {
-  gar::LmParams p{};
-  p.x = static_cast<const bf16*>(x);
-  p.seg[0] = {gar::at_layer(wq_all, layer, d, hq), nullptr, static_cast<bf16*>(q), hq, 0};
-  p.seg[1] = {gar::at_layer(wk_all, layer, d, hk), nullptr, static_cast<bf16*>(k), hk, 0};
-  p.seg[2] = {gar::at_layer(wv_all, layer, d, hk), nullptr, static_cast<bf16*>(v), hk, 0};
-  p.rows = rows;
-  p.din = d;
-  return gar::launch_lm<false>(p, static_cast<cudaStream_t>(stream));
+  return gar::qkv<bf16>(x, wq_all, nullptr, wk_all, nullptr, wv_all, nullptr, q, k, v, layer,
+                        rows, d, hq, hk, stream);
+}
+
+extern "C" int gar_layer_matmul_q8(const void* x, const void* w_all, const void* s_all, void* out,
+                                   int layer, int rows, int din, int dout, void* stream) {
+  return gar::matmul<int8_t>(x, w_all, s_all, out, layer, rows, din, dout, stream);
+}
+
+extern "C" int gar_layer_swiglu_q8(const void* x, const void* wg_all, const void* sg_all,
+                                   const void* wu_all, const void* su_all, void* out, int layer,
+                                   int rows, int din, int m, void* stream) {
+  return gar::swiglu<int8_t>(x, wg_all, sg_all, wu_all, su_all, out, layer, rows, din, m, stream);
+}
+
+extern "C" int gar_layer_qkv_q8(const void* x, const void* wq_all, const void* sq_all,
+                                const void* wk_all, const void* sk_all, const void* wv_all,
+                                const void* sv_all, void* q, void* k, void* v, int layer, int rows,
+                                int d, int hq, int hk, void* stream) {
+  return gar::qkv<int8_t>(x, wq_all, sq_all, wk_all, sk_all, wv_all, sv_all, q, k, v, layer, rows,
+                          d, hq, hk, stream);
 }

@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from ..core.config import GARConfig
+from ..core.weights import require_device
 from ..models.gar import GARBatch
 
 IGNORE_INDEX = -100
@@ -28,10 +29,12 @@ def synthetic_batch(
     grid: Tuple[int, int] = (2, 1),  # (ncw, nch)
     regions: int = 1,
     seed: int = 0,
-    device=None,
+    device="cuda",
 ) -> Tuple[GARBatch, torch.Tensor, torch.Tensor]:
-    """Returns (batch, labels, prompt_lens) as tensors on `device`. Rows
-    are not padded: every row's prompt length is S."""
+    """Returns (batch, labels, prompt_lens) as tensors on `device` (the
+    card unless the caller asks for the CPU). Rows are not padded: every
+    row's prompt length is S."""
+    device = require_device(device)
     rng = np.random.default_rng(seed)
     ncw, nch = grid
     n_tiles = 1 + ncw * nch  # thumbnail + grid

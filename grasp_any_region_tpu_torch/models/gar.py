@@ -13,7 +13,7 @@ validity masks make padding inert. Batch is a first-class axis.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple, Union
+from typing import NamedTuple, Optional, Sequence, Tuple, Union
 
 import torch
 from torch import nn
@@ -55,14 +55,17 @@ class GARBatch(NamedTuple):
 
 
 class GARParams(nn.Module):
-    """The JAX `init_gar_params` tree: vision, projector, llm, mask_embed."""
+    """The JAX `init_gar_params` tree: vision, projector, llm, mask_embed.
+    q8 / drop_bf16: the int8 decoder tree (`LlamaParams`)."""
 
-    def __init__(self, cfg: GARConfig, device=None, dtype=None):
+    def __init__(self, cfg: GARConfig, device=None, dtype=None, *,
+                 q8: Optional[Sequence[str]] = None, drop_bf16: bool = False):
         super().__init__()
         kh, kw = cfg.mask_patch_kernel
         self.vision = VisionParams(cfg.vision, device, dtype)
         self.projector = ProjectorParams(cfg, device, dtype)
-        self.llm = LlamaParams(cfg.text, cfg.padded_vocab_size, device, dtype)
+        self.llm = LlamaParams(cfg.text, cfg.padded_vocab_size, device, dtype, q8=q8,
+                               drop_bf16=drop_bf16)
         self.mask_embed = ParamGroup(
             {"kernel": (kh * kw * cfg.mask_in_channels, cfg.vision.width)}, device, dtype)
 
@@ -195,11 +198,21 @@ def seed_cache_from_prefill(
     seq_lens: torch.Tensor,  # (B,) true prompt lengths
     max_len: int,
     dtype=torch.bfloat16,
+    quantize_kv: bool = False,
 ) -> KVCache:
     """Place prefill K/V (L, B, S, K, Dh) into an unpaired head-major cache
     of max_len columns: the prompt block fills columns [0, S) and
     write_pos starts at S (== prompt_pad). The cache is bf16 by default,
-    as in the JAX package."""
+    as in the JAX package.
+
+    quantize_kv: store it int8 with one static fp32 scale per (layer,
+    batch row, kv-head pair), the JAX package's granularity on its paired
+    layout (`grasp_any_region_tpu/models/gar.py:seed_cache_from_prefill`):
+    the amax over both heads of the pair and all max_len columns (the
+    right-pad columns of short rows and the zero tail included), taken
+    after the cast to `dtype`, with 1.5x headroom so the columns decode
+    appends (quantized in kernel C8 with the same scale) survive moderate
+    outliers. Heads 2p and 2p + 1 share scale p, so K must be even."""
     ks, vs = kv
     L, b, s, kh, dh = ks.shape
     assert max_len >= s
@@ -207,8 +220,30 @@ def seed_cache_from_prefill(
     v = vs.new_zeros((L, b, kh, max_len, dh), dtype=dtype)
     k[:, :, :, :s] = ks.transpose(2, 3)
     v[:, :, :, :s] = vs.transpose(2, 3)
+    k_scale = v_scale = None
+    if quantize_kv:
+        if kh % 2:
+            raise ValueError(f"an int8 cache pairs kv heads; {kh} kv heads is odd")
+        k, k_scale = _quantize_pairs(k)
+        v, v_scale = _quantize_pairs(v)
     return KVCache(
         k=k, v=v,
         prompt_lens=seq_lens.to(device=ks.device, dtype=torch.int32),
         write_pos=torch.tensor(s, dtype=torch.int32, device=ks.device),
+        k_scale=k_scale, v_scale=v_scale,
     )
+
+
+def _quantize_pairs(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(L, B, K, S, D) -> int8 values and (L, B, K/2, 1, 1) fp32 scales,
+    one layer at a time (the fp32 copy of a whole gar_1b cache at B = 24
+    would take 4 GB)."""
+    L, b, kh, s, d = x.shape
+    q = torch.empty(x.shape, dtype=torch.int8, device=x.device)
+    scale = torch.empty((L, b, kh // 2, 1, 1), dtype=torch.float32, device=x.device)
+    for i in range(L):
+        xf = x[i].float().reshape(b, kh // 2, 2 * s * d)
+        sc = torch.clamp(xf.abs().amax(dim=-1, keepdim=True) * 1.5 / 127.0, min=1e-8)
+        q[i] = torch.clamp(torch.round(xf / sc), -127, 127).to(torch.int8).reshape(b, kh, s, d)
+        scale[i] = sc[..., None]
+    return q, scale

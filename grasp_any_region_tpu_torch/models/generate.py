@@ -48,7 +48,15 @@ def generate(
     mask_compat: bool = True,
     double_scale_compat: bool = True,
     compute_dtype=torch.bfloat16,
+    quantize_kv: bool = False,
 ) -> GenerationResult:
+    """Prefill, seed the cache, then up to max_new_tokens - 1 decode steps.
+
+    quantize_kv: seed an int8 cache (`seed_cache_from_prefill`), which the
+    decode steps run through the fused form and kernel C8 on any device.
+    JAX `generate` honours the flag only where its head-paired cache exists
+    (the TPU); the port keeps no paired layout and honours it everywhere.
+    Int8 decode weights are the params' own (models/quantize.py)."""
     b, s = batch.input_ids.shape
     dev = batch.input_ids.device
     prompt_lens = prompt_lens.to(device=dev, dtype=torch.int32)
@@ -62,7 +70,7 @@ def generate(
 
     # cache columns rounded up to a multiple of 512
     max_len = ((s + max_new_tokens + 511) // 512) * 512
-    cache = seed_cache_from_prefill(cfg, kv, prompt_lens, max_len)
+    cache = seed_cache_from_prefill(cfg, kv, prompt_lens, max_len, quantize_kv=quantize_kv)
     del hidden, kv
 
     out = torch.full((b, max_new_tokens), pad_id, dtype=torch.int32, device=dev)

@@ -6,9 +6,13 @@
     (the default on a CUDA tensor) runs per layer kernel J (q, k, v), rope,
     kernel C (cache write + attention), kernel H (wo), kernel I (SwiGLU)
     and H again (w_down), the weights read in place from the stacked
-    arrays (ops/layer_matmul.py). The XLA form (the default on the CPU)
-    runs plain projections around kernel C.
-  * KV cache: unpaired (L, B, K, S_max, D). Prompt columns [0, prompt_pad)
+    arrays (ops/layer_matmul.py); with int8 decode weights
+    (models/quantize.py) it runs their int8 forms J8, H8, I8, and with an
+    int8 cache kernel C8. The XLA form (the default on the CPU) runs plain
+    projections around kernel C.
+  * KV cache: unpaired (L, B, K, S_max, D), bf16, or int8 with one static
+    fp32 scale per (layer, batch row, kv-head pair), the JAX package's
+    granularity. Prompt columns [0, prompt_pad)
     are right-padded (rows masked past prompt_lens); generated tokens share
     one write column per step, `write_pos`, a device scalar. The cache and
     `write_pos` are updated in place, so no step copies the cache or waits
@@ -16,11 +20,16 @@
   * Logits: the tied (or untied) head with operands in the working dtype
     and fp32 sums and output, as the JAX package contracts them
     (preferred_element_type=float32); padded vocab rows masked to NEG_INF.
+    The int8 head widens int8 to the working dtype and scales the fp32
+    sums per vocab row.
+  * Serving-only int8 trees (the bf16 decoder matmuls dropped) project
+    through the int8 leaves in prefill too (`_proj`), and a tied tree
+    without `embed` gathers its embedding rows from the int8 head.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple, Union
+from typing import NamedTuple, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -30,53 +39,91 @@ from ..core.config import TextConfig
 from ..core.weights import ParamGroup, add_param
 from ..ops.attention import NEG_INF, mha
 from ..ops.decode_attention import decode_attention_fused
-from ..ops.layer_matmul import layer_matmul, layer_qkv, layer_swiglu
+from ..ops.layer_matmul import (layer_matmul, layer_matmul_q8, layer_qkv, layer_qkv_q8,
+                                layer_swiglu, layer_swiglu_q8)
 from ..ops.norms import rms_norm
 from ..ops.rope import apply_rope, llama_inv_freq, rope_cos_sin
 
 
+DECODE_MATMULS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
+
+
 class KVCache(NamedTuple):
-    k: torch.Tensor  # (L, B, K, S_max, D) head-major
+    k: torch.Tensor  # (L, B, K, S_max, D) head-major, bf16 or int8
     v: torch.Tensor
     prompt_lens: torch.Tensor  # (B,) int32 true prompt lengths
     write_pos: torch.Tensor  # () int32 next column to write, on the cache's device
+    # int8 caches (gar.seed_cache_from_prefill(quantize_kv=True)): the static
+    # fp32 dequantization scales, (L, B, K/2, 1, 1), one per kv-head pair;
+    # None for bf16 caches
+    k_scale: Optional[torch.Tensor] = None
+    v_scale: Optional[torch.Tensor] = None
 
 
 class LlamaParams(nn.Module):
-    """Names and layouts of the JAX `params["llm"]` tree."""
+    """Names and layouts of the JAX `params["llm"]` tree.
+
+    q8: None for the bf16 tree; else the tree of JAX
+    `quantize_decode_weights(targets=q8, drop_bf16)`: int8 `{name}_q8`
+    (L, Din, Dout) and fp32 `{name}_scale` (L, 1, Dout) beside each
+    target, and the int8 head `lm_head_q8` with fp32 `lm_head_scale`,
+    (V, D) and (V, 1) when tied, (D, V) and (1, V) when not. drop_bf16
+    leaves out the bf16 copies of the targets and of the head (the tied
+    `embed` or `lm_head`)."""
 
     def __init__(self, cfg: TextConfig, vocab_rows: Optional[int] = None,
-                 device=None, dtype=None):
+                 device=None, dtype=None, *, q8: Optional[Sequence[str]] = None,
+                 drop_bf16: bool = False):
         super().__init__()
         v = vocab_rows or cfg.vocab_size
         d, m, L = cfg.hidden_size, cfg.intermediate_size, cfg.num_layers
         h, k, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-        add_param(self, "embed", (v, d), device, dtype)
+        tied = cfg.tie_word_embeddings
+        drop = set(q8 or ()) if drop_bf16 else set()
+        mats = {"wq": (L, d, h * dh), "wk": (L, d, k * dh), "wv": (L, d, k * dh),
+                "wo": (L, h * dh, d),
+                "w_gate": (L, d, m), "w_up": (L, d, m), "w_down": (L, m, d)}
+        if not set(q8 or ()) <= set(mats):
+            raise KeyError(f"int8 targets {sorted(set(q8) - set(mats))} are not decoder matmuls")
+        if not (drop_bf16 and q8 is not None and tied):
+            add_param(self, "embed", (v, d), device, dtype)
         self.blocks = ParamGroup({
-            "attn_norm": (L, d),
-            "wq": (L, d, h * dh), "wk": (L, d, k * dh), "wv": (L, d, k * dh),
-            "wo": (L, h * dh, d),
-            "mlp_norm": (L, d),
-            "w_gate": (L, d, m), "w_up": (L, d, m), "w_down": (L, m, d),
+            "attn_norm": (L, d), "mlp_norm": (L, d),
+            **{name: shape for name, shape in mats.items() if name not in drop},
         }, device, dtype)
+        for name in q8 or ():
+            add_param(self.blocks, f"{name}_q8", mats[name], device, torch.int8)
+            add_param(self.blocks, f"{name}_scale", (L, 1, mats[name][2]), device, torch.float32)
         add_param(self, "final_norm", (d,), device, dtype)
-        if not cfg.tie_word_embeddings:
+        if not tied and not (drop_bf16 and q8 is not None):
             add_param(self, "lm_head", (d, v), device, dtype)
+        if q8 is not None:
+            add_param(self, "lm_head_q8", (v, d) if tied else (d, v), device, torch.int8)
+            add_param(self, "lm_head_scale", (v, 1) if tied else (1, v), device, torch.float32)
+
+
+def _proj(bp: dict, name: str, x: torch.Tensor) -> torch.Tensor:
+    """x @ the weight `name` of one layer. A serving-only tree (the bf16
+    copy dropped) projects through the int8 copy, widened to x's dtype, and
+    scales the product per output column (the scale commutes with the sum),
+    in x's dtype, as JAX `_proj` does."""
+    w = bp.get(name)
+    if w is None:
+        return (x @ bp[f"{name}_q8"].to(x.dtype)) * bp[f"{name}_scale"].to(x.dtype)
+    return x @ w.to(x.dtype)
 
 
 def _qkv(cfg: TextConfig, bp: dict, x: torch.Tensor, cos, sin):
     b, s, _ = x.shape
     h, k, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    q = (x @ bp["wq"].to(x.dtype)).reshape(b, s, h, dh)
-    kk = (x @ bp["wk"].to(x.dtype)).reshape(b, s, k, dh)
-    vv = (x @ bp["wv"].to(x.dtype)).reshape(b, s, k, dh)
+    q = _proj(bp, "wq", x).reshape(b, s, h, dh)
+    kk = _proj(bp, "wk", x).reshape(b, s, k, dh)
+    vv = _proj(bp, "wv", x).reshape(b, s, k, dh)
     return apply_rope(q, cos, sin), apply_rope(kk, cos, sin), vv
 
 
 def _mlp(bp: dict, x: torch.Tensor) -> torch.Tensor:
-    gate = x @ bp["w_gate"].to(x.dtype)
-    up = x @ bp["w_up"].to(x.dtype)
-    return (F.silu(gate) * up) @ bp["w_down"].to(x.dtype)
+    return _proj(bp, "w_down", F.silu(_proj(bp, "w_gate", x)) * _proj(bp, "w_up", x))
 
 
 def llama_prefill(
@@ -102,7 +149,7 @@ def llama_prefill(
         y = rms_norm(x, bp["attn_norm"], eps)
         q, k, v = _qkv(cfg, bp, y, cos, sin)
         a = mha(q, k, v, causal=True, segment_ids=segment_ids, right_padded=True)
-        x = x + a.reshape(b, s, -1) @ bp["wo"].to(x.dtype)
+        x = x + _proj(bp, "wo", a.reshape(b, s, -1))
         y = rms_norm(x, bp["mlp_norm"], eps)
         x = x + _mlp(bp, y)
         ks[i], vs[i] = k, v
@@ -136,7 +183,12 @@ def llama_decode_step(
 
     use_kernel: False = the XLA form (below); "fused" = kernels J, C, H, I,
     H a layer (`llama_decode_step_fused`); "mega" raises until the mega
-    path is ported; None or True = `decode_kernel_choice`."""
+    path is ported; None or True = `decode_kernel_choice`. An int8 cache
+    takes the fused form whatever use_kernel says, on any device, as JAX
+    sends its (paired) int8 cache there: only kernel C8 reads it (on the
+    CPU through its plain version)."""
+    if cache.k.dtype == torch.int8:
+        return llama_decode_step_fused(params, cfg, inputs_embeds, cache, prompt_pad)
     if use_kernel is None or use_kernel is True:
         use_kernel = decode_kernel_choice(cfg, inputs_embeds.device)
     if use_kernel == "mega":
@@ -159,7 +211,7 @@ def llama_decode_step(
             q[:, 0], cache.k, cache.v, k[:, 0].to(cache.k.dtype),
             v[:, 0].to(cache.v.dtype), i, prompt_lens=cache.prompt_lens,
             write_pos=wp, prompt_pad=prompt_pad)  # (B, H, Dh)
-        x = x + a.reshape(b, 1, -1) @ bp["wo"].to(x.dtype)
+        x = x + _proj(bp, "wo", a.reshape(b, 1, -1))
         y = rms_norm(x, bp["mlp_norm"], eps)
         x = x + _mlp(bp, y)
     wp.add_(1)
@@ -178,7 +230,12 @@ def llama_decode_step_fused(
     weight is read once, in place, from its stacked (L, Din, Dout) array.
     Its rounding points are JAX's fused ones: q, k, v rounded by J before
     rope; SiLU * up from fp32 sums with one rounding; the residual adds
-    outside the kernels. The cache contract is `llama_decode_step`'s."""
+    outside the kernels. The cache contract is `llama_decode_step`'s.
+
+    With int8 decode weights (`wq_q8` present, models/quantize.py) the
+    matmuls are J8, H8, I8, H8; with an int8 cache the attention is C8,
+    which takes the new K/V in bf16 whatever the compute dtype (JAX's
+    kv_io_dtype) and quantizes the appended column itself."""
     b = inputs_embeds.shape[0]
     h, kh, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     wp = cache.write_pos
@@ -186,25 +243,69 @@ def llama_decode_step_fused(
     cos, sin = rope_cos_sin(pos[:, None], llama_inv_freq(cfg, inputs_embeds.device))
     eps = cfg.rms_norm_eps
     blk = params.blocks
+    q8 = hasattr(blk, "wq_q8")
+    kv_io = torch.bfloat16 if cache.k.dtype == torch.int8 else cache.k.dtype
     x = inputs_embeds[:, 0]  # (B, D)
     for i in range(cfg.num_layers):
         y = rms_norm(x, blk.attn_norm[i], eps)
-        qf, kf, vf = layer_qkv(y, blk.wq, blk.wk, blk.wv, i)
+        if q8:
+            qf, kf, vf = layer_qkv_q8(y, blk.wq_q8, blk.wq_scale, blk.wk_q8, blk.wk_scale,
+                                      blk.wv_q8, blk.wv_scale, i)
+        else:
+            qf, kf, vf = layer_qkv(y, blk.wq, blk.wk, blk.wv, i)
         q = apply_rope(qf.reshape(b, 1, h, dh), cos, sin)[:, 0]
         k = apply_rope(kf.reshape(b, 1, kh, dh), cos, sin)[:, 0]
         a = decode_attention_fused(
-            q, cache.k, cache.v, k.to(cache.k.dtype), vf.reshape(b, kh, dh).to(cache.v.dtype),
-            i, prompt_lens=cache.prompt_lens, write_pos=wp, prompt_pad=prompt_pad)
-        x = x + layer_matmul(a.reshape(b, h * dh), blk.wo, i)
-        y = rms_norm(x, blk.mlp_norm[i], eps)
-        x = x + layer_matmul(layer_swiglu(y, blk.w_gate, blk.w_up, i), blk.w_down, i)
+            q, cache.k, cache.v, k.to(kv_io), vf.reshape(b, kh, dh).to(kv_io), i,
+            prompt_lens=cache.prompt_lens, write_pos=wp, prompt_pad=prompt_pad,
+            k_scale=cache.k_scale, v_scale=cache.v_scale).reshape(b, h * dh)
+        if q8:
+            x = x + layer_matmul_q8(a, blk.wo_q8, blk.wo_scale, i)
+            y = rms_norm(x, blk.mlp_norm[i], eps)
+            act = layer_swiglu_q8(y, blk.w_gate_q8, blk.w_gate_scale, blk.w_up_q8,
+                                  blk.w_up_scale, i)
+            x = x + layer_matmul_q8(act, blk.w_down_q8, blk.w_down_scale, i)
+        else:
+            x = x + layer_matmul(a, blk.wo, i)
+            y = rms_norm(x, blk.mlp_norm[i], eps)
+            x = x + layer_matmul(layer_swiglu(y, blk.w_gate, blk.w_up, i), blk.w_down, i)
     wp.add_(1)
     return x[:, None], cache
 
 
 def embed_tokens(params: LlamaParams, input_ids: torch.Tensor,
                  dtype=torch.bfloat16) -> torch.Tensor:
-    return params.embed[input_ids.long()].to(dtype)
+    """Token embedding lookup. A serving-only tied tree has no `embed`: its
+    (V, D) int8 head, with one scale per vocab row, doubles as the table
+    (the int8 rows gathered, widened and scaled in `dtype`, as in JAX)."""
+    ids = input_ids.long()
+    table = getattr(params, "embed", None)
+    if table is None:
+        scale = params.lm_head_scale
+        if scale.shape[-1] != 1:
+            raise ValueError("the int8 embedding lookup needs the tied (V, D) head layout")
+        return params.lm_head_q8[ids].to(dtype) * scale[ids].to(dtype)
+    return table[ids].to(dtype)
+
+
+def _int8_head(x: torch.Tensor, q8: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """fp32 logits of x (N, D) against the int8 head, per-vocab scales on
+    the fp32 sums. The layout comes from the scale's shape, as in JAX: (V, 1)
+    is the tied (V, D) head, (1, V) the untied (D, V) one (the weight's
+    shape cannot tell them apart when V == D). On the card the whole head is
+    widened to x's dtype (exact for int8; a 0.5 GB temporary at gar_1b) and
+    multiplied by cuBLAS with fp32 sums: one widen and one product were
+    faster than any chunking over V. The widening pass sets the time, about
+    4x the bf16 head's on the H100 (PERF.md); a hand W8A16 head kernel is
+    queued (ROADMAP section 2)."""
+    tied = scale.shape[-1] == 1
+    if x.device.type != "cuda":  # fp32 products of the widened operands are exact
+        w = q8.float()
+        logits = x.float() @ (w.t() if tied else w)
+    else:
+        w = q8.to(x.dtype)
+        logits = torch.mm(x, w.t() if tied else w, out_dtype=torch.float32)
+    return logits * scale.reshape(-1)
 
 
 def lm_logits(
@@ -214,15 +315,20 @@ def lm_logits(
     *,
     valid_vocab: Optional[int] = None,
 ) -> torch.Tensor:
-    """hidden (..., D) -> fp32 logits (..., V_rows), padded rows masked."""
+    """hidden (..., D) -> fp32 logits (..., V_rows), padded rows masked.
+    A tree with the int8 head (models/quantize.py) uses it."""
     x = rms_norm(hidden, params.final_norm, cfg.rms_norm_eps)
-    w = (params.embed.t() if cfg.tie_word_embeddings else params.lm_head).to(x.dtype)
-    if x.device.type == "cuda":
+    if hasattr(params, "lm_head_q8"):
+        logits = _int8_head(x.reshape(-1, x.shape[-1]), params.lm_head_q8, params.lm_head_scale)
+        logits = logits.reshape(*x.shape[:-1], logits.shape[-1])
+    elif x.device.type == "cuda":
+        w = (params.embed.t() if cfg.tie_word_embeddings else params.lm_head).to(x.dtype)
         # cuBLAS with an fp32 C (aten::mm.dtype): bf16 operands, fp32 sums, no
         # bf16 rounding of the logits; w stays the (D, V) view of the embedding
         logits = torch.mm(x.reshape(-1, x.shape[-1]), w, out_dtype=torch.float32)
         logits = logits.reshape(*x.shape[:-1], w.shape[-1])
     else:  # mm.dtype has no CPU kernel; bf16 products are exact in fp32
+        w = params.embed.t() if cfg.tie_word_embeddings else params.lm_head
         logits = x.float() @ w.float()
     v_rows = logits.shape[-1]
     if valid_vocab is not None and valid_vocab < v_rows:

@@ -37,6 +37,7 @@ _SIGNATURES = {
     "gar_vit_attention": [_P] * 4 + [_I] * 4 + [_L] * 12 + [_F, _P],
     "gar_flash_attention": [_P] * 4 + [_I] * 7 + [_L] * 12 + [_F, _P],
     "gar_decode_attention_fused": [_P] * 8 + [_I] * 7 + [_F, _P],
+    "gar_decode_attention_fused_q8": [_P] * 10 + [_I] * 7 + [_F, _P],
     "gar_vit_attention_fused_qkv": [_P] * 4 + [_I] * 4 + [_F, _P],
     "gar_vit_ln_qkv": [_P] * 6 + [_I] * 3 + [_F, _P],
     "gar_vit_wo_residual": [_P] * 6 + [_I] * 2 + [_P],
@@ -44,6 +45,9 @@ _SIGNATURES = {
     "gar_layer_matmul": [_P] * 3 + [_I] * 4 + [_P],
     "gar_layer_swiglu": [_P] * 4 + [_I] * 4 + [_P],
     "gar_layer_qkv": [_P] * 7 + [_I] * 5 + [_P],
+    "gar_layer_matmul_q8": [_P] * 4 + [_I] * 4 + [_P],
+    "gar_layer_swiglu_q8": [_P] * 6 + [_I] * 4 + [_P],
+    "gar_layer_qkv_q8": [_P] * 10 + [_I] * 5 + [_P],
 }
 
 

@@ -1,4 +1,5 @@
-"""Kernel C: decode attention with the KV append, on the stacked cache.
+"""Kernels C and C8: decode attention with the KV append, on the stacked
+cache, bf16 (C) or int8 (C8).
 
 Replaces `grasp_any_region_tpu/ops/decode_attention.py:decode_attention_fused`
 (`_fused_kernel`, the unpaired (L, B, K, S, D) layout). One query token per
@@ -16,9 +17,22 @@ at B = 1; splitting the keys over blocks is later work. `prompt_lens` and
 `write_pos` stay on the device, read inside the kernel, so the decode loop
 needs no host sync.
 
-On a CPU tensor the wrapper runs `decode_attention_fused_plain`; on a CUDA
-tensor it launches the kernel or raises. Both update the cache in place and
-return only the attention output.
+C8 replaces the int8-KV branch of the same JAX function
+(`_fused_kernel_paired` with kv_q8, via `_decode_fused_paired_call`) on
+the port's unpaired layout, with the reference's scale granularity: an
+int8 (L, B, K, S, D) cache and fp32 scales (L, B, K/2, 1, 1), one per
+kv-head pair, head k reading scale k // 2. The history is dequantized as
+the TPU kernel does it, bf16(int8 * scale); the new K/V (bf16) are
+quantized with the static scale, clip(round(x / s), -127, 127), written
+at write_pos, and the current token enters the attention as its
+dequantized fp32 value q * s, so this step sees what later steps read
+back. It streams half of C's bytes through the same one-block-per-(kv
+head, batch row) design, so at B = 1 it is held by its grid as C is.
+
+On a CPU tensor the wrapper runs `decode_attention_fused_plain` (or
+`decode_attention_fused_q8_plain`); on a CUDA tensor it launches the
+kernel or raises. Both update the cache in place and return only the
+attention output.
 """
 
 from __future__ import annotations
@@ -26,9 +40,10 @@ from __future__ import annotations
 import torch
 
 from . import _build
-from .attention import decode_attention_reference
+from .attention import NEG_INF, decode_attention_reference
 
-launches = 0  # kernel launches since the last reset (chip_smoke.py reads it)
+launches = 0  # kernel C launches since the last reset (chip_smoke.py reads it)
+launches_q8 = 0  # kernel C8 launches
 
 
 def decode_attention_fused_plain(
@@ -47,9 +62,57 @@ def decode_attention_fused_plain(
         write_pos=write_pos, prompt_pad=prompt_pad)
 
 
+def _pair_scales(scale: torch.Tensor, layer: int) -> torch.Tensor:
+    """(L, B, K/2, 1, 1) -> layer's (B, K, 1, 1): head k takes pair k // 2."""
+    return scale[layer].repeat_interleave(2, dim=1)
+
+
+def decode_attention_fused_q8_plain(
+    q: torch.Tensor, k_all: torch.Tensor, v_all: torch.Tensor,
+    k_new: torch.Tensor, v_new: torch.Tensor, layer: int, *,
+    k_scale: torch.Tensor, v_scale: torch.Tensor,
+    prompt_lens: torch.Tensor, write_pos: torch.Tensor, prompt_pad: int,
+) -> torch.Tensor:
+    """Kernel C8's arithmetic in torch, after the TPU kernel with the
+    history in one block: quantize the new column and write it in place
+    (index_copy_ at the device write_pos); attend over the history
+    [0, prompt_len) and [prompt_pad, write_pos) of the dequantized bf16
+    slab, p = exp(s - the history's max) rounded to bf16 before PV; then
+    fold in the current token from its dequantized fp32 K/V, p unrounded,
+    rescaling the history's sums in fp32."""
+    b, h, d = q.shape
+    kh, s = k_all.shape[2], k_all.shape[3]
+    g = h // kh
+    ks, vs = _pair_scales(k_scale, layer), _pair_scales(v_scale, layer)  # (B, K, 1, 1)
+    kq = torch.clamp(torch.round(k_new.float() / ks[..., 0]), -127, 127)  # (B, K, D)
+    vq = torch.clamp(torch.round(v_new.float() / vs[..., 0]), -127, 127)
+    idx = write_pos.reshape(1).long()
+    k_all[layer].index_copy_(2, idx, kq.to(torch.int8)[:, :, None, :])
+    v_all[layer].index_copy_(2, idx, vq.to(torch.int8)[:, :, None, :])
+    kc = (k_all[layer].float() * ks).to(torch.bfloat16).float()  # (B, K, S, D)
+    vc = (v_all[layer].float() * vs).to(torch.bfloat16).float()
+    scale = d ** -0.5
+    qf = q.float().reshape(b, kh, g, d)
+    logits = torch.einsum("bkgd,bksd->bkgs", qf, kc) * scale
+    ids = torch.arange(s, device=q.device)[None, :]
+    valid = (ids < prompt_lens[:, None]) | ((ids >= prompt_pad) & (ids < write_pos))
+    logits = torch.where(valid[:, None, None, :], logits, NEG_INF)
+    m_hist = logits.amax(-1, keepdim=True)
+    p = torch.exp(logits - m_hist)
+    l_hist = p.sum(-1, keepdim=True)
+    acc = torch.einsum("bkgs,bksd->bkgd", p.to(torch.bfloat16).float(), vc)
+    k_cur, v_cur = (kq * ks[..., 0])[:, :, None, :], (vq * vs[..., 0])[:, :, None, :]
+    s_cur = (qf * k_cur).sum(-1, keepdim=True) * scale  # (B, K, G, 1)
+    m = torch.maximum(m_hist, s_cur)
+    alpha, p_cur = torch.exp(m_hist - m), torch.exp(s_cur - m)
+    denom = l_hist * alpha + p_cur
+    acc = acc * alpha + p_cur * v_cur
+    return (acc / torch.clamp(denom, min=1e-30)).reshape(b, h, d).to(q.dtype)
+
+
 def decode_attention_fused(
     q: torch.Tensor,  # (B, H, D)
-    k_all: torch.Tensor,  # (L, B, K, S, D) stacked cache, updated in place
+    k_all: torch.Tensor,  # (L, B, K, S, D) stacked cache, bf16 or int8, updated in place
     v_all: torch.Tensor,
     k_new: torch.Tensor,  # (B, K, D) current token
     v_new: torch.Tensor,
@@ -58,13 +121,23 @@ def decode_attention_fused(
     prompt_lens: torch.Tensor,  # (B,) int32, on the cache's device
     write_pos: torch.Tensor,  # () int32, on the cache's device
     prompt_pad: int,
+    k_scale: torch.Tensor | None = None,  # int8 caches: (L, B, K/2, 1, 1) fp32
+    v_scale: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Returns (B, H, D). Contract of the cache layout:
-    prompt_lens <= prompt_pad <= write_pos < S."""
+    prompt_lens <= prompt_pad <= write_pos < S. An int8 cache (kernel C8)
+    needs its scales, and an even K."""
+    q8 = k_all.dtype == torch.int8
+    if q8 and (k_scale is None or v_scale is None):
+        raise ValueError("an int8 cache needs its k_scale and v_scale")
+    if q8 and k_all.shape[2] % 2:
+        raise ValueError(f"an int8 cache pairs kv heads; {k_all.shape[2]} kv heads is odd")
+    kw = dict(prompt_lens=prompt_lens, write_pos=write_pos, prompt_pad=prompt_pad)
     if q.device.type == "cpu":
-        return decode_attention_fused_plain(
-            q, k_all, v_all, k_new, v_new, layer, prompt_lens=prompt_lens,
-            write_pos=write_pos, prompt_pad=prompt_pad)
+        if q8:
+            return decode_attention_fused_q8_plain(q, k_all, v_all, k_new, v_new, layer,
+                                                   k_scale=k_scale, v_scale=v_scale, **kw)
+        return decode_attention_fused_plain(q, k_all, v_all, k_new, v_new, layer, **kw)
     b, h, d = q.shape
     n_layers, _, kh, s, _ = k_all.shape
     if (k_all.shape[1] != b or k_all.shape[4] != d or v_all.shape != k_all.shape
@@ -72,18 +145,25 @@ def decode_attention_fused(
         raise ValueError(f"bad shapes: q {q.shape}, cache {k_all.shape}, "
                          f"k_new {k_new.shape}, v_new {v_new.shape}")
     if d != 64 or h // kh not in (1, 2, 4, 8):
-        raise ValueError(f"kernel C is built for head_dim 64 and 1, 2, 4 or 8 "
+        raise ValueError(f"kernels C and C8 are built for head_dim 64 and 1, 2, 4 or 8 "
                          f"query heads per kv head, got {d} and {h // kh}")
     if not 0 <= layer < n_layers:
         raise IndexError(f"layer {layer} out of range for {n_layers} layers")
-    for x, name in ((q, "q"), (k_all, "k_all"), (v_all, "v_all"),
-                    (k_new, "k_new"), (v_new, "v_new")):
-        if x.dtype != torch.bfloat16:
-            raise TypeError(f"{name}: the kernel takes bfloat16, got {x.dtype}")
+    operands = [(q, "q", torch.bfloat16), (k_all, "k_all", k_all.dtype if q8 else torch.bfloat16),
+                (v_all, "v_all", k_all.dtype if q8 else torch.bfloat16),
+                (k_new, "k_new", torch.bfloat16), (v_new, "v_new", torch.bfloat16)]
+    if q8:
+        operands += [(k_scale, "k_scale", torch.float32), (v_scale, "v_scale", torch.float32)]
+    for x, name, dtype in operands:
+        if x.dtype != dtype:
+            raise TypeError(f"{name}: the kernel takes {dtype}, got {x.dtype}")
         if not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
         if x.device != q.device:
             raise ValueError(f"{name} is on {x.device}, q on {q.device}")
+    if q8 and not k_scale.shape == v_scale.shape == (n_layers, b, kh // 2, 1, 1):
+        raise ValueError(f"scales {tuple(k_scale.shape)}, {tuple(v_scale.shape)}: one per "
+                         f"(layer, batch row, kv-head pair), {(n_layers, b, kh // 2, 1, 1)}")
     for x, name, shape in ((prompt_lens, "prompt_lens", (b,)),
                            (write_pos, "write_pos", ())):
         if x.dtype != torch.int32 or tuple(x.shape) != shape or x.device != q.device:
@@ -92,12 +172,17 @@ def decode_attention_fused(
     prompt_lens = prompt_lens.contiguous()
     out = torch.empty_like(q)
     lib = _build.library()
-    err = lib.gar_decode_attention_fused(
-        q.data_ptr(), k_all.data_ptr(), v_all.data_ptr(), k_new.data_ptr(),
-        v_new.data_ptr(), out.data_ptr(), prompt_lens.data_ptr(),
-        write_pos.data_ptr(), layer, b, h, kh, s, d, prompt_pad, d ** -0.5,
-        _build.stream_handle(q.device))
-    _build.check(err, "gar_decode_attention_fused")
-    global launches
-    launches += 1
+    head = (q.data_ptr(), k_all.data_ptr(), v_all.data_ptr(), k_new.data_ptr(),
+            v_new.data_ptr(), out.data_ptr(), prompt_lens.data_ptr(), write_pos.data_ptr())
+    tail = (layer, b, h, kh, s, d, prompt_pad, d ** -0.5, _build.stream_handle(q.device))
+    global launches, launches_q8
+    if q8:
+        err = lib.gar_decode_attention_fused_q8(*head, k_scale.data_ptr(), v_scale.data_ptr(),
+                                                *tail)
+        _build.check(err, "gar_decode_attention_fused_q8")
+        launches_q8 += 1
+    else:
+        err = lib.gar_decode_attention_fused(*head, *tail)
+        _build.check(err, "gar_decode_attention_fused")
+        launches += 1
     return out

@@ -1,4 +1,5 @@
-"""Kernels H, I and J: the layer-indexed matmuls of the fused decode step.
+"""Kernels H, I and J and their int8 forms H8, I8 and J8: the
+layer-indexed matmuls of the fused decode step.
 
 The JAX package's fused decode step (`grasp_any_region_tpu/models/llama.py:
 llama_decode_step_fused`) reads each layer's weights straight out of the
@@ -20,6 +21,17 @@ card, reduce the partials through distributed shared memory in the same
 launch, tensor cores for B up to 32 rows. Din and Dout need only be
 multiples of 8; the TPU kernels' Dout % block_n rule does not apply.
 
+H8, I8 and J8 (`layer_matmul_q8`, `layer_swiglu_q8`, `layer_qkv_q8`,
+`grasp_any_region_tpu/ops/layer_matmul.py:165, 207, 253`, Pallas bodies
+`_mm_q8_kernel`, `_swiglu_q8_kernel`, `_qkv_q8_kernel`) take W8A16
+weights: int8 (L, Din, Dout) with one fp32 scale per output column,
+(L, 1, Dout), from models/quantize.py. The Pallas kernels scale the
+widened weight before the sum; the CUDA kernels and the plain versions
+scale the fp32 sum after it (the scale is constant along the sum), which
+differs only by fp32 rounding. They stream half the bytes of H-J: the
+same CUDA body with int8 weight slabs widened to bf16 on chip. The int8
+weights' Dout must be a multiple of 16 (16-byte rows).
+
 On a CPU tensor each wrapper runs its plain version (below, same rounding
 points in torch); on a CUDA tensor it launches the kernel or raises. The
 decode step calls them 64 times a step at GAR-1B, so their checks are
@@ -35,7 +47,8 @@ import torch.nn.functional as F
 
 from . import _build
 
-launches = dict(H=0, I=0, J=0)  # kernel launches since the last reset (chip_smoke.py reads it)
+# kernel launches since the last reset (chip_smoke.py reads them)
+launches = dict(H=0, I=0, J=0, H8=0, I8=0, J8=0)
 
 MAX_ROWS = 32  # batch rows the kernels take (two 16-row tensor-core tiles)
 
@@ -56,12 +69,35 @@ def layer_qkv_plain(x: torch.Tensor, wq_all: torch.Tensor, wk_all: torch.Tensor,
     return tuple((xf @ w[layer].float()).to(x.dtype) for w in (wq_all, wk_all, wv_all))
 
 
-def _check(x: torch.Tensor, layer: int, *weights: torch.Tensor) -> None:
+def layer_matmul_q8_plain(x: torch.Tensor, w_q8: torch.Tensor, scale: torch.Tensor,
+                          layer: int) -> torch.Tensor:
+    return ((x.float() @ w_q8[layer].float()) * scale[layer]).to(x.dtype)
+
+
+def layer_swiglu_q8_plain(x: torch.Tensor, wg_q8: torch.Tensor, sg: torch.Tensor,
+                          wu_q8: torch.Tensor, su: torch.Tensor, layer: int) -> torch.Tensor:
+    xf = x.float()
+    gate = (xf @ wg_q8[layer].float()) * sg[layer]
+    return (F.silu(gate) * ((xf @ wu_q8[layer].float()) * su[layer])).to(x.dtype)
+
+
+def layer_qkv_q8_plain(x: torch.Tensor, wq_q8: torch.Tensor, sq: torch.Tensor,
+                       wk_q8: torch.Tensor, sk: torch.Tensor, wv_q8: torch.Tensor,
+                       sv: torch.Tensor, layer: int) -> Tuple[torch.Tensor, ...]:
+    xf = x.float()
+    return tuple(((xf @ w[layer].float()) * s[layer]).to(x.dtype)
+                 for w, s in ((wq_q8, sq), (wk_q8, sk), (wv_q8, sv)))
+
+
+def _check(x: torch.Tensor, layer: int, *weights: torch.Tensor,
+           dtype: torch.dtype = torch.bfloat16) -> None:
     """Raise unless the kernels take these operands: x a contiguous bf16
-    (B <= 32, Din) matrix, each weight a contiguous bf16 (L, Din, N) stack
-    on x's device, Din and N multiples of 8, all 16-byte aligned (the
-    kernels load 16-byte chunks), and 0 <= layer < L. A host-bound decode
-    step pays this 64 times, so it reads attributes and nothing more."""
+    (B <= 32, Din) matrix, each weight a contiguous (L, Din, N) stack of
+    `dtype` on x's device, Din a multiple of 8, rows of whole 16-byte
+    chunks (N a multiple of 8 in bf16, of 16 in int8), all 16-byte aligned
+    (the kernels load 16-byte chunks), and 0 <= layer < L. A host-bound
+    decode step pays this 64 times, so it reads attributes and nothing
+    more."""
     shape = x.shape
     if x.dtype != torch.bfloat16:
         raise TypeError(f"x: the kernel takes bfloat16, got {x.dtype}")
@@ -71,16 +107,32 @@ def _check(x: torch.Tensor, layer: int, *weights: torch.Tensor) -> None:
                          f"matrix, Din a multiple of 8; got shape {tuple(shape)}, "
                          f"strides {x.stride()}")
     device = x.get_device()
+    row_chunk = 16 if dtype == torch.int8 else 8  # elements in 16 bytes
     for w in weights:
-        if w.dtype != torch.bfloat16:
-            raise TypeError(f"weights: the kernel takes bfloat16, got {w.dtype}")
+        if w.dtype != dtype:
+            raise TypeError(f"weights: the kernel takes {dtype}, got {w.dtype}")
         w_shape = w.shape
-        if (len(w_shape) != 3 or w_shape[1] != shape[1] or w_shape[2] % 8
+        if (len(w_shape) != 3 or w_shape[1] != shape[1] or w_shape[2] % row_chunk
                 or not w.is_contiguous() or w.data_ptr() % 16 or w.get_device() != device):
             raise ValueError(f"weight {tuple(w_shape)} on {w.device} does not fit x "
-                             f"{tuple(shape)} on {x.device}")
+                             f"{tuple(shape)} on {x.device} (Dout a multiple of {row_chunk})")
         if not 0 <= layer < w_shape[0]:
             raise IndexError(f"layer {layer} out of range for {w_shape[0]} layers")
+
+
+def _check_q8(x: torch.Tensor, layer: int, *pairs: Tuple[torch.Tensor, torch.Tensor]) -> None:
+    """`_check` for int8 weights, and each weight's scale a contiguous fp32
+    (L, 1, N) stack on x's device."""
+    _check(x, layer, *(w for w, _ in pairs), dtype=torch.int8)
+    device = x.get_device()
+    for w, s in pairs:
+        w_shape = w.shape
+        if s.dtype != torch.float32:
+            raise TypeError(f"scales: the kernel takes float32, got {s.dtype}")
+        if (s.shape != (w_shape[0], 1, w_shape[2]) or not s.is_contiguous()
+                or s.get_device() != device):
+            raise ValueError(f"scale {tuple(s.shape)} on {s.device} does not fit weight "
+                             f"{tuple(w_shape)} on {w.device}")
 
 
 def layer_matmul(x: torch.Tensor, w_all: torch.Tensor, layer: int) -> torch.Tensor:
@@ -140,4 +192,69 @@ def layer_qkv(x: torch.Tensor, wq_all: torch.Tensor, wk_all: torch.Tensor,
         k.data_ptr(), v.data_ptr(), layer, b, d, hq, hk, _build.stream_handle(dev))
     _build.check(err, "gar_layer_qkv")
     launches["J"] += 1
+    return q, k, v
+
+
+def layer_matmul_q8(x: torch.Tensor, w_q8: torch.Tensor, scale: torch.Tensor,
+                    layer: int) -> torch.Tensor:
+    """Kernel H8: (x @ w_q8[layer]) * scale[layer] -> (B, Dout), w_q8 int8
+    (L, Din, Dout), scale fp32 (L, 1, Dout)."""
+    dev = x.device
+    if dev.type == "cpu":
+        return layer_matmul_q8_plain(x, w_q8, scale, layer)
+    _check_q8(x, layer, (w_q8, scale))
+    b, din = x.shape
+    dout = w_q8.shape[2]
+    out = torch.empty((b, dout), dtype=x.dtype, device=dev)
+    err = _build.library().gar_layer_matmul_q8(
+        x.data_ptr(), w_q8.data_ptr(), scale.data_ptr(), out.data_ptr(), layer, b, din, dout,
+        _build.stream_handle(dev))
+    _build.check(err, "gar_layer_matmul_q8")
+    launches["H8"] += 1
+    return out
+
+
+def layer_swiglu_q8(x: torch.Tensor, wg_q8: torch.Tensor, sg: torch.Tensor,
+                    wu_q8: torch.Tensor, su: torch.Tensor, layer: int) -> torch.Tensor:
+    """Kernel I8: silu((x @ wg_q8[layer]) * sg[layer]) * ((x @ wu_q8[layer])
+    * su[layer]) -> (B, M), SiLU and the product in fp32, one rounding."""
+    dev = x.device
+    if dev.type == "cpu":
+        return layer_swiglu_q8_plain(x, wg_q8, sg, wu_q8, su, layer)
+    _check_q8(x, layer, (wg_q8, sg), (wu_q8, su))
+    if wu_q8.shape != wg_q8.shape:
+        raise ValueError(f"gate {tuple(wg_q8.shape)} and up {tuple(wu_q8.shape)} differ")
+    b, din = x.shape
+    m = wg_q8.shape[2]
+    out = torch.empty((b, m), dtype=x.dtype, device=dev)
+    err = _build.library().gar_layer_swiglu_q8(
+        x.data_ptr(), wg_q8.data_ptr(), sg.data_ptr(), wu_q8.data_ptr(), su.data_ptr(),
+        out.data_ptr(), layer, b, din, m, _build.stream_handle(dev))
+    _build.check(err, "gar_layer_swiglu_q8")
+    launches["I8"] += 1
+    return out
+
+
+def layer_qkv_q8(x: torch.Tensor, wq_q8: torch.Tensor, sq: torch.Tensor,
+                 wk_q8: torch.Tensor, sk: torch.Tensor, wv_q8: torch.Tensor,
+                 sv: torch.Tensor, layer: int) -> Tuple[torch.Tensor, ...]:
+    """Kernel J8: the int8 q, k and v products of one x in one launch;
+    (B, Hq), (B, Hk), (B, Hk)."""
+    dev = x.device
+    if dev.type == "cpu":
+        return layer_qkv_q8_plain(x, wq_q8, sq, wk_q8, sk, wv_q8, sv, layer)
+    _check_q8(x, layer, (wq_q8, sq), (wk_q8, sk), (wv_q8, sv))
+    if wv_q8.shape != wk_q8.shape:
+        raise ValueError(f"wk {tuple(wk_q8.shape)} and wv {tuple(wv_q8.shape)} differ")
+    b, d = x.shape
+    hq, hk = wq_q8.shape[2], wk_q8.shape[2]
+    q = torch.empty((b, hq), dtype=x.dtype, device=dev)
+    k = torch.empty((b, hk), dtype=x.dtype, device=dev)
+    v = torch.empty((b, hk), dtype=x.dtype, device=dev)
+    err = _build.library().gar_layer_qkv_q8(
+        x.data_ptr(), wq_q8.data_ptr(), sq.data_ptr(), wk_q8.data_ptr(), sk.data_ptr(),
+        wv_q8.data_ptr(), sv.data_ptr(), q.data_ptr(), k.data_ptr(), v.data_ptr(), layer, b, d,
+        hq, hk, _build.stream_handle(dev))
+    _build.check(err, "gar_layer_qkv_q8")
+    launches["J8"] += 1
     return q, k, v

@@ -1,4 +1,5 @@
-"""CUDA kernels A-J against their plain PyTorch versions, on the card.
+"""CUDA kernels A-J and the int8 kernels H8, I8, J8, C8 against their plain
+PyTorch versions, on the card.
 
 Skips without a CUDA device. Imports no jax, so it runs on a machine that
 has none; there, skip the repository's conftest (which sets up jax):
@@ -236,7 +237,7 @@ def test_layer_matmul_kernels(rnd, b, d, m, hq, hk):
     act = lm.layer_swiglu(x_d, w["w_gate"], w["w_up"], layer)
     qkv = lm.layer_qkv(x_d, w["wq"], w["wk"], w["wv"], layer)
     torch.cuda.synchronize()
-    assert lm.launches == dict(H=before["H"] + 2, I=before["I"] + 1, J=before["J"] + 1)
+    assert lm.launches == dict(before, H=before["H"] + 2, I=before["I"] + 1, J=before["J"] + 1)
     f = {k: v[layer:layer + 1].float() for k, v in w.items()}
     torch.testing.assert_close(wo.float(), lm.layer_matmul_plain(x_q.float(), f["wo"], 0),
                                **TOL)
@@ -280,14 +281,149 @@ def test_gar_decode_step_takes_the_fused_form_on_the_card(rnd):
     kv = tuple(rnd(tc.num_layers, b, s, tc.num_kv_heads, tc.head_dim) for _ in range(2))
     plens = torch.tensor([s, 61], dtype=torch.int32, device="cuda")
     tok = torch.tensor([5, 7], dtype=torch.int32, device="cuda")
-    lm.launches.update(H=0, I=0, J=0)
-    dec.launches = 0
+    lm.launches.update(dict.fromkeys(lm.launches, 0))
+    dec.launches = dec.launches_q8 = 0
     logits, cache = gar_decode_step(params, cfg, tok, seed_cache_from_prefill(cfg, kv, plens, 512),
                                     s)
     torch.cuda.synchronize()
-    assert lm.launches == dict(H=2 * tc.num_layers, I=tc.num_layers, J=tc.num_layers)
+    assert lm.launches == dict(H=2 * tc.num_layers, I=tc.num_layers, J=tc.num_layers,
+                               H8=0, I8=0, J8=0)
     assert dec.launches == tc.num_layers and int(cache.write_pos) == s + 1
     ref, _ = gar_decode_step(params, cfg, tok, seed_cache_from_prefill(cfg, kv, plens, 512), s,
                              use_kernel=False)
     assert torch.isfinite(logits).all()
     assert ((logits - ref).abs().max() / ref.abs().max()).item() < 5e-2
+
+
+def _q8(rnd, n_layers, din, n):
+    """Seeded int8 (L, Din, N) weights in [-127, 127] and fp32 (L, 1, N)
+    column scales that keep the products near unit size."""
+    gen = torch.Generator(device="cuda").manual_seed(din * 7 + n)
+    q = torch.randint(-127, 128, (n_layers, din, n), generator=gen, device="cuda",
+                      dtype=torch.int8)
+    s = (torch.rand((n_layers, 1, n), generator=gen, device="cuda") + 0.5) * din ** -0.5 / 73.3
+    return q, s
+
+
+@pytest.mark.parametrize("b", [1, 5, 24])
+@pytest.mark.parametrize("d,m,hq,hk", [
+    (384, 1024, 384, 64),     # ragged: 6 column tiles of 64, one tile of kv
+    (208, 528, 144, 48),      # multiples of 16 only: partial tiles and K slabs
+    (2048, 8192, 2048, 512),  # gar_1b
+])
+def test_layer_matmul_q8_kernels(rnd, b, d, m, hq, hk):
+    """Kernels H8, I8, J8 against their plain versions on the same inputs."""
+    layer = 1
+    wq, wk, wv, wo = _q8(rnd, 3, d, hq), _q8(rnd, 3, d, hk), _q8(rnd, 3, d, hk), _q8(rnd, 3, hq, d)
+    wg, wu, wd = _q8(rnd, 3, d, m), _q8(rnd, 3, d, m), _q8(rnd, 3, m, d)
+    x_d, x_q, x_m = rnd(b, d), rnd(b, hq), rnd(b, m)
+    before = dict(lm.launches)
+    outs = dict(wo=lm.layer_matmul_q8(x_q, *wo, layer), down=lm.layer_matmul_q8(x_m, *wd, layer),
+                act=lm.layer_swiglu_q8(x_d, *wg, *wu, layer),
+                qkv=lm.layer_qkv_q8(x_d, *wq, *wk, *wv, layer))
+    torch.cuda.synchronize()
+    assert lm.launches == dict(before, H8=before["H8"] + 2, I8=before["I8"] + 1,
+                               J8=before["J8"] + 1)
+    refs = dict(wo=lm.layer_matmul_q8_plain(x_q.float(), *wo, layer),
+                down=lm.layer_matmul_q8_plain(x_m.float(), *wd, layer),
+                act=lm.layer_swiglu_q8_plain(x_d.float(), *wg, *wu, layer),
+                qkv=lm.layer_qkv_q8_plain(x_d.float(), *wq, *wk, *wv, layer))
+    for name, out in outs.items():
+        for o, r in zip(out if name == "qkv" else (out,), refs[name] if name == "qkv" else
+                        (refs[name],)):
+            assert o.dtype == torch.bfloat16 and o.shape == r.shape
+            torch.testing.assert_close(o.float(), r, **TOL, msg=name)
+
+
+def test_layer_matmul_q8_wrappers_reject_what_the_kernels_do_not_take(rnd):
+    w, s = _q8(rnd, 2, 64, 128)
+    x = rnd(3, 64)
+    with pytest.raises(TypeError):  # a bf16 weight
+        lm.layer_matmul_q8(x, w.to(torch.bfloat16), s, 0)
+    with pytest.raises(TypeError):  # bf16 scales
+        lm.layer_swiglu_q8(x, w, s.to(torch.bfloat16), w, s, 0)
+    with pytest.raises(ValueError):  # Dout not a multiple of 16
+        lm.layer_qkv_q8(x, *_q8(rnd, 2, 64, 40), w, s, w, s, 0)
+    with pytest.raises(IndexError):
+        lm.layer_matmul_q8(x, w, s, 2)
+
+
+@pytest.mark.parametrize("group", [1, 2, 4, 8])
+@pytest.mark.parametrize("b,plens,pad,wpos", [(2, (100, 37), 128, 170), (2, (128, 1), 128, 128),
+                                              (3, (500, 700, 9), 700, 1023)])
+def test_decode_attention_q8_kernel(rnd, group, b, plens, pad, wpos):
+    """Kernel C8 against its plain version: the output, and the cache, which
+    changes only at column write_pos, there within one quantization step."""
+    L, kh, s, layer = 3, 4, 1024, 1
+    gen = torch.Generator(device="cuda").manual_seed(group)
+    k_all, v_all = (torch.randint(-127, 128, (L, b, kh, s, 64), generator=gen, device="cuda",
+                                  dtype=torch.int8) for _ in range(2))
+    k_scale, v_scale = ((torch.rand((L, b, kh // 2, 1, 1), generator=gen, device="cuda") + 0.5)
+                        * 0.02 for _ in range(2))
+    q, k_new, v_new = rnd(b, kh * group, 64), rnd(b, kh, 64), rnd(b, kh, 64)
+    kw = dict(prompt_lens=torch.tensor(plens, dtype=torch.int32, device="cuda"),
+              write_pos=torch.tensor(wpos, dtype=torch.int32, device="cuda"), prompt_pad=pad,
+              k_scale=k_scale, v_scale=v_scale)
+    k_exp, v_exp = k_all.clone(), v_all.clone()
+    ref = dec.decode_attention_fused_q8_plain(q.float(), k_exp, v_exp, k_new, v_new, layer, **kw)
+    before = dec.launches_q8
+    out = dec.decode_attention_fused(q, k_all, v_all, k_new, v_new, layer, **kw)
+    torch.cuda.synchronize()
+    assert dec.launches_q8 == before + 1
+    torch.testing.assert_close(out.float(), ref, **TOL)
+    for got, want in ((k_all, k_exp), (v_all, v_exp)):
+        assert (got[layer, :, :, wpos].int() - want[layer, :, :, wpos].int()).abs().max() <= 1
+        got[layer, :, :, wpos] = want[layer, :, :, wpos]
+        assert torch.equal(got, want)
+
+
+def test_decode_attention_q8_wrapper_rejects_what_the_kernel_does_not_take(rnd):
+    k_all = torch.zeros((2, 1, 2, 128, 64), dtype=torch.int8, device="cuda")
+    scale = torch.ones((2, 1, 1, 1, 1), device="cuda")
+    kw = dict(prompt_lens=torch.tensor([3], dtype=torch.int32, device="cuda"),
+              write_pos=torch.tensor(10, dtype=torch.int32, device="cuda"), prompt_pad=8)
+    args = (rnd(1, 4, 64), k_all, k_all.clone(), rnd(1, 2, 64), rnd(1, 2, 64), 0)
+    with pytest.raises(ValueError):  # no scales
+        dec.decode_attention_fused(*args, **kw)
+    with pytest.raises(ValueError):  # one scale per head, not per pair
+        dec.decode_attention_fused(*args, k_scale=scale.expand(2, 1, 2, 1, 1).contiguous(),
+                                   v_scale=scale, **kw)
+    with pytest.raises(TypeError):  # bf16 scales
+        dec.decode_attention_fused(*args, k_scale=scale.bfloat16(), v_scale=scale, **kw)
+
+
+def test_int8_decode_step_on_the_card(rnd):
+    """An int8 gar_decode_step (int8 weights and cache) on the card runs
+    J8, C8, H8, I8, H8 a layer and no bf16 kernel, and agrees with the same
+    step's plain path on the CPU."""
+    import copy
+
+    from grasp_any_region_tpu_torch.core.config import gar_tiny
+    from grasp_any_region_tpu_torch.core.weights import init_gar_params
+    from grasp_any_region_tpu_torch.models.gar import gar_decode_step, seed_cache_from_prefill
+    from grasp_any_region_tpu_torch.models.quantize import quantize_decode_weights
+
+    base = gar_tiny()
+    cfg = dataclasses.replace(base, text=dataclasses.replace(
+        base.text, hidden_size=256, num_heads=4, num_kv_heads=2, head_dim=64, num_layers=2,
+        intermediate_size=1024))
+    tc = cfg.text
+    cpu = quantize_decode_weights(init_gar_params(cfg, torch.Generator().manual_seed(0),
+                                                  device="cpu", dtype=torch.bfloat16))
+    card = copy.deepcopy(cpu).to("cuda")
+    b, s = 2, 100
+    kv = tuple(rnd(tc.num_layers, b, s, tc.num_kv_heads, tc.head_dim) for _ in range(2))
+    plens = torch.tensor([s, 61], dtype=torch.int32)
+    tok = torch.tensor([5, 7], dtype=torch.int32)
+    lm.launches.update(dict.fromkeys(lm.launches, 0))
+    dec.launches = dec.launches_q8 = 0
+    logits, cache = gar_decode_step(card, cfg, tok.cuda(), seed_cache_from_prefill(
+        cfg, kv, plens.cuda(), 512, quantize_kv=True), s)
+    torch.cuda.synchronize()
+    n = tc.num_layers
+    assert lm.launches == dict(H=0, I=0, J=0, H8=2 * n, I8=n, J8=n)
+    assert (dec.launches, dec.launches_q8) == (0, n) and int(cache.write_pos) == s + 1
+    ref, _ = gar_decode_step(cpu, cfg, tok, seed_cache_from_prefill(
+        cfg, tuple(t.cpu() for t in kv), plens, 512, quantize_kv=True), s)
+    assert torch.isfinite(logits).all()
+    assert ((logits.cpu() - ref).abs().max() / ref.abs().max()).item() < 5e-2

@@ -33,7 +33,8 @@ def _t(a):
 
 
 def _no_launches():
-    return tlm.launches == dict(H=0, I=0, J=0) and tdec.launches == 0
+    return (not any(tlm.launches.values()) and tdec.launches == 0
+            and tdec.launches_q8 == 0)
 
 
 def _op_case(rng, op, b):

@@ -66,10 +66,10 @@ def pair(request):
         rng.standard_normal(shape).astype(np.float32) * 0.02)
     for name in ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down"):
         params["llm"]["blocks"][name] = params["llm"]["blocks"][name] * 10.0
-    tparams = load_flat_params(flatten_params(params), cfg_t)
+    tparams = load_flat_params(flatten_params(params), cfg_t, device="cpu")
 
     jb, _, jlens = jsb(cfg_j, batch=2, grid=(2, 1), seed=0)
-    tb, _, _ = tsb(cfg_t, batch=2, grid=(2, 1), seed=0)
+    tb, _, _ = tsb(cfg_t, batch=2, grid=(2, 1), seed=0, device="cpu")
     fields, lens = _ragged(jb, jlens, 12)
     jb = jb._replace(**{k: jnp.asarray(v) for k, v in fields.items()})
     tb = tb._replace(**{k: torch.from_numpy(v) for k, v in fields.items()})

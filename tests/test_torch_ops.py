@@ -215,7 +215,7 @@ def test_synthetic_batch_matches_jax():
 
     kw = dict(batch=2, grid=(2, 1), regions=2, seed=3)
     jb, jl, jp = jsb(jcfg.gar_tiny(), **kw)
-    tb, tl, tp = tsb(tcfg.gar_tiny(), **kw)
+    tb, tl, tp = tsb(tcfg.gar_tiny(), **kw, device="cpu")
     for name in jb._fields:
         if getattr(jb, name) is None:
             continue
@@ -236,7 +236,7 @@ def tiny_flat():
 def test_load_flat_params_consumes_every_key(tiny_flat):
     from grasp_any_region_tpu_torch.core.weights import load_flat_params
 
-    params = load_flat_params(tiny_flat, tcfg.gar_tiny())
+    params = load_flat_params(tiny_flat, tcfg.gar_tiny(), device="cpu")
     loaded = {n.replace(".", "/"): p for n, p in params.named_parameters()}
     assert set(loaded) == set(tiny_flat)
     for key, arr in tiny_flat.items():
@@ -251,19 +251,19 @@ def test_load_flat_params_rejects_bad_trees(tiny_flat):
     missing = dict(tiny_flat)
     del missing["llm/blocks/wq"]
     with pytest.raises(KeyError, match="llm/blocks/wq"):
-        load_flat_params(missing, cfg)
+        load_flat_params(missing, cfg, device="cpu")
     extra = dict(tiny_flat, **{"llm/blocks/extra": np.zeros(3, np.float32)})
     with pytest.raises(KeyError, match="extra"):
-        load_flat_params(extra, cfg)
+        load_flat_params(extra, cfg, device="cpu")
     bad = dict(tiny_flat, **{"vision/pos_embed": np.zeros((3, 3), np.float32)})
     with pytest.raises(ValueError, match="vision/pos_embed"):
-        load_flat_params(bad, cfg)
+        load_flat_params(bad, cfg, device="cpu")
 
 
 def test_init_gar_params_follows_jax_rules(tiny_flat):
     from grasp_any_region_tpu_torch.core.weights import init_gar_params
 
-    params = init_gar_params(tcfg.gar_tiny(), torch.Generator().manual_seed(0))
+    params = init_gar_params(tcfg.gar_tiny(), torch.Generator().manual_seed(0), device="cpu")
     got = {n.replace(".", "/"): p for n, p in params.named_parameters()}
     assert set(got) == set(tiny_flat)
     for key, ref in tiny_flat.items():
@@ -287,7 +287,7 @@ def test_lm_logits_bf16_keeps_fp32_sums(tiny_flat, rng):
     cfg_j, cfg_t = jcfg.gar_tiny(), tcfg.gar_tiny()
     jparams = {k: jnp.asarray(tiny_flat[f"llm/{k}"], jnp.bfloat16)
                for k in ("embed", "final_norm")}
-    tparams = load_flat_params(tiny_flat, cfg_t, dtype=torch.bfloat16).llm
+    tparams = load_flat_params(tiny_flat, cfg_t, device="cpu", dtype=torch.bfloat16).llm
     hidden = rng.standard_normal((3, cfg_t.text.hidden_size)).astype(np.float32) * 4
     vocab = cfg_t.extended_vocab_size
     ref = np.asarray(jlogits(jparams, cfg_j.text, jnp.asarray(hidden, jnp.bfloat16),
