@@ -52,6 +52,34 @@ the script exits non-zero (there is no CPU fallback):
    C, H, I, J, and the relative gap of the first decode step's logits to
    the bf16 path's (printed, not bounded).
 
+Training (its kernels in phase 2, its paths after phase 6):
+
+2. (train) Kernel A and B with their LSE outputs, B with segment ids at the
+   packed shape (2 rows of 4096, 5-8 documents a row, then padding), and
+   the backward kernels against their plain versions at atol = rtol =
+   2e-2: 5 at the tower's (17, 1025, 16, 64), 17 and 18 at the prefill's
+   (1, 4662, 32 / 8 heads, 64) causal, at the packed shape with segment
+   ids, and at (1, 16384) causal with the peak memory of the backward call
+   (O(S): no (S, S) buffer). Library time: the backward of
+   scaled_dot_product_attention at the same shapes (forward + backward
+   through torch.autograd.grad, minus the forward), timed only.
+7. Train cross-check on the narrow gar_1b of phase 3: one loss and backward
+   on the card (kernels A, 5, B, 17, 18) and on the CPU (plain path) from
+   the same seeded bf16 params; the losses and every gradient leaf within
+   5e-2 of that leaf's max |g|.
+8. The GAR-1B train step (bench.py:128-226): bf16 params and Adam moments,
+   one 17-tile image with one region (S = 4662), remat on, a warm-up window
+   of 8 steps through make_train_loop, then 8 steps with CUDA events
+   between them: median ms/step, supervised tok/s, TFLOP/s from gar_flops,
+   peak memory, the losses (finite, the last below the first), the time
+   split of one step (vision, decoder and CE forward and backward, the
+   optimizer) and the launches a step: A = 46, 5 = 23, B = 32, 17 = 18 =
+   16, every other kernel 0 (A and B twice a block: non-reentrant
+   checkpointing replays each block's forward in the backward).
+9. The packed text-only step (bench.py:229-277): 2 rows x 4096 tokens of
+   documents of 300-1200 tokens, every token supervised: ms/step, tok/s,
+   and B = 32, 17 = 18 = 16 a step, all with segment ids.
+
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
 """
@@ -66,6 +94,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 TOL = 2e-2  # atol = rtol for kernel vs plain at bf16
@@ -192,6 +221,7 @@ def phase_kernels():
         library_ms=cuda_ms(lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True)),
         **bound(nbytes(q, k, v, out), 4 * 32 * 64 * 4662 * 4663 // 2))
     del q, k, v, out, ref
+    results.update(train_kernels(rnd))
 
     # C: decode step over layer 7 of a (16, 2, 8, 5120, 64) cache
     layer, pad, wpos = 7, 4662, 4700
@@ -228,6 +258,144 @@ def phase_kernels():
         log(f"[kernels] {name}: max |kernel - plain| {r['max_abs_err']:.3e}, "
             f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
             f"({r['bound_by']}), library {lib}")
+    torch.cuda.empty_cache()
+    return results
+
+
+def sdpa_bwd_ms(q, k, v, g, **kw) -> float:
+    """The library's attention backward alone: scaled_dot_product_attention
+    forward + backward (torch.autograd.grad), minus its forward, on (B, S,
+    H, D) views as SDPA's (B, H, S, D)."""
+    import torch.nn.functional as F
+
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+    gt = g.transpose(1, 2)
+
+    def fwd():
+        return F.scaled_dot_product_attention(qt, kt, vt, **kw)
+
+    both = cuda_ms(lambda: torch.autograd.grad(fwd(), (qt, kt, vt), gt))
+    return both - cuda_ms(fwd)
+
+
+def packed_segments(rows: int, seq: int, gen) -> torch.Tensor:
+    """(rows, seq) int32 segment ids: documents 1, 2, ... of 400-800 tokens
+    (5-8 a row), then padding (0) to the end of the row."""
+    seg = torch.zeros((rows, seq), dtype=torch.int32)
+    for r in range(rows):
+        off, doc = 0, 1
+        while True:
+            n = int(torch.randint(400, 800, (1,), generator=gen))
+            if off + n > seq - 64:
+                break
+            seg[r, off:off + n] = doc
+            off, doc = off + n, doc + 1
+    return seg.cuda()
+
+
+def causal_pairs(seg: torch.Tensor) -> int:
+    """(query, key) pairs a causal mask with these segment ids keeps: n(n+1)/2
+    for each run of equal ids (padding included)."""
+    total = 0
+    for row in seg.cpu():
+        _, counts = torch.unique_consecutive(row, return_counts=True)
+        total += int((counts * (counts + 1) // 2).sum())
+    return total
+
+
+def train_kernels(rnd):
+    """Phase 2, training: A and B with their LSE, B with segment ids at the
+    packed shape, and the backward kernels 5, 17 and 18 against their plain
+    versions, with their times, bounds and the library's backward time."""
+    from grasp_any_region_tpu_torch.ops import flash_attention as fa
+    from grasp_any_region_tpu_torch.ops import flash_backward as fb
+    from grasp_any_region_tpu_torch.ops import vit_attention as va
+
+    results = {}
+    d = 64
+
+    # A with its LSE and kernel 5 at the tower's shape: 17 tiles x 1025, 16 heads
+    t, s, h = 17, 1025, 16
+    q, k, v, g = (rnd(t, s, h, d) for _ in range(4))
+    out, lse = va.vit_attention(q, k, v, return_lse=True)
+    torch.cuda.synchronize()
+    ref, ref_lse = va.vit_attention_plain(q.float(), k.float(), v.float(), return_lse=True)
+    err = max(max_err(out, ref, "A (with LSE)"), max_err(lse, ref_lse, "A's LSE"))
+    a_ms = cuda_ms(lambda: va.vit_attention(q, k, v, return_lse=True))
+    log(f"[kernels] A with its LSE: {a_ms:.4f} ms, max |kernel - plain| {err:.3e} "
+        "(output and LSE)")
+    delta = fb.bwd_delta(out, g)
+    got = va.vit_attention_bwd_onepass(q, k, v, g, lse, delta)
+    torch.cuda.synchronize()
+    want = va.vit_attention_bwd_plain(q.float(), k.float(), v.float(), out.float(), lse,
+                                      g.float())
+    err = max(max_err(a, b, f"5 {n}") for n, a, b in zip(("dq", "dk", "dv"), got, want))
+    del want
+    results["5"] = dict(
+        max_abs_err=err, ms=cuda_ms(lambda: va.vit_attention_bwd_onepass(q, k, v, g, lse, delta)),
+        plain_ms=cuda_ms(lambda: va.vit_attention_bwd_plain(q, k, v, out, lse, g), iters=3),
+        library_ms=sdpa_bwd_ms(q, k, v, g),
+        **bound(nbytes(q, k, v, g, lse, delta, *got), 5 * 2 * t * h * s * s * d))
+    del q, k, v, g, out, lse, delta, got
+
+    def backward_case(label, b, sq, h, kh, seg=None):
+        """B with its LSE, then 17 and 18, at one shape; returns the entries."""
+        q, g = rnd(b, sq, h, d), rnd(b, sq, h, d)
+        k, v = rnd(b, sq, kh, d), rnd(b, sq, kh, d)
+        kw = dict(causal=True, segment_ids=seg)
+        pairs = b * sq * (sq + 1) // 2 if seg is None else causal_pairs(seg)
+        out, lse = fa.flash_attention(q, k, v, return_lse=True, **kw)
+        torch.cuda.synchronize()
+        if sq <= 8192:  # the plain forward holds H x S x S fp32 logits
+            ref, ref_lse = fa.flash_attention_plain(q.float(), k.float(), v.float(),
+                                                    return_lse=True, **kw)
+            err_b = max(max_err(out, ref, f"B {label}"), max_err(lse, ref_lse, f"B's LSE {label}"))
+            del ref, ref_lse
+            b_ms = cuda_ms(lambda: fa.flash_attention(q, k, v, return_lse=True, **kw))
+            lim = bound(nbytes(q, k, v, out, lse), 4 * h * d * pairs)
+            log(f"[kernels] B with its LSE, {label}: {b_ms:.4f} ms (bound {lim['bound_ms']:.4f} "
+                f"ms of {lim['bound_by']}), max |kernel - plain| {err_b:.3e}")
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        delta = fb.bwd_delta(out, g)
+        dq = fb.flash_attention_bwd_dq(q, k, v, g, lse, delta, **kw)
+        dk, dv = fb.flash_attention_bwd_dkv(q, k, v, g, lse, delta, **kw)
+        torch.cuda.synchronize()
+        peak_mb = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+        want = fb.flash_attention_bwd_plain(q.float(), k.float(), v.float(), out.float(), lse,
+                                            g.float(), **kw)
+        err = [max_err(a, w, f"{n} {label}") for n, a, w in zip(("17", "18 dk", "18 dv"),
+                                                                  (dq, dk, dv), want)]
+        del want
+        fields = dict(plain_ms=None, library_ms=None)
+        if label == "prefill":
+            fields = dict(plain_ms=cuda_ms(lambda: fb.flash_attention_bwd_plain(
+                              q, k, v, out, lse, g, **kw), iters=3),
+                          library_ms=sdpa_bwd_ms(q, k, v, g, is_causal=True, enable_gqa=True))
+        io = nbytes(q, k, v, g, lse, delta)
+        entries = {
+            "17": dict(max_abs_err=err[0], **fields,
+                       ms=cuda_ms(lambda: fb.flash_attention_bwd_dq(q, k, v, g, lse, delta, **kw)),
+                       **bound(io + nbytes(dq), 3 * 2 * h * d * pairs)),
+            "18": dict(max_abs_err=max(err[1:]), **fields,
+                       ms=cuda_ms(lambda: fb.flash_attention_bwd_dkv(q, k, v, g, lse, delta,
+                                                                      **kw)),
+                       **bound(io + nbytes(dk, dv), 4 * 2 * h * d * pairs))}
+        lib = fields["library_ms"]
+        log(f"[kernels] 17 / 18, {label} (B = {b}, S = {sq}, {h} / {kh} heads, "
+            f"{pairs} causal pairs): {entries['17']['ms']:.4f} / {entries['18']['ms']:.4f} ms, "
+            f"sum {entries['17']['ms'] + entries['18']['ms']:.4f} ms (bound "
+            f"{entries['17']['bound_ms']:.4f} / {entries['18']['bound_ms']:.4f} ms); "
+            + (f"library backward {lib:.4f} ms; " if lib is not None else "")
+            + f"peak memory of the backward call {peak_mb:.1f} MiB over its inputs; "
+            f"max |kernel - plain| {err[0]:.3e} / {max(err[1:]):.3e}")
+        return entries
+
+    results.update(backward_case("prefill", 1, 4662, 32, 8))
+    gen = torch.Generator().manual_seed(SEED)
+    backward_case("packed", 2, 4096, 32, 8, seg=packed_segments(2, 4096, gen))
+    backward_case("16k", 1, 16384, 32, 8)
     torch.cuda.empty_cache()
     return results
 
@@ -546,23 +714,32 @@ def phase_cross_check(cfg, int8: bool = False):
 def counter_modules():
     """The wrapper modules whose launch counters the phases read."""
     from grasp_any_region_tpu_torch.ops import decode_attention, flash_attention, layer_matmul
-    from grasp_any_region_tpu_torch.ops import vit_attention, vit_block
+    from grasp_any_region_tpu_torch.ops import flash_backward, vit_attention, vit_block
 
-    return decode_attention, flash_attention, vit_attention, vit_block, layer_matmul
+    return decode_attention, flash_attention, vit_attention, vit_block, layer_matmul, flash_backward
 
 
 def reset_counts():
-    dec, fa, va, vb, lm = counter_modules()
-    va.launches = va.launches_fused = fa.launches = dec.launches = dec.launches_q8 = 0
+    dec, fa, va, vb, lm, fb = counter_modules()
+    va.launches = va.launches_fused = va.launches_bwd = 0
+    fa.launches = fa.launches_segments = dec.launches = dec.launches_q8 = 0
+    fb.launches_dq = fb.launches_dkv = fb.launches_segments = 0
     vb.launches.update(D=0, F=0, G=0)
     lm.launches.update(dict.fromkeys(lm.launches, 0))
 
 
 def read_counts():
-    dec, fa, va, vb, lm = counter_modules()
-    return dict(A=va.launches, B=fa.launches, C=dec.launches, C8=dec.launches_q8,
-                D=vb.launches["D"], E=va.launches_fused, F=vb.launches["F"], G=vb.launches["G"],
-                **lm.launches)
+    dec, fa, va, vb, lm, fb = counter_modules()
+    return {"A": va.launches, "B": fa.launches, "C": dec.launches, "C8": dec.launches_q8,
+            "D": vb.launches["D"], "E": va.launches_fused, "F": vb.launches["F"],
+            "G": vb.launches["G"], **lm.launches, "5": va.launches_bwd, "17": fb.launches_dq,
+            "18": fb.launches_dkv}
+
+
+def segmented_counts():
+    """Launches of B and of 17 / 18 that carried segment ids."""
+    _, fa, _, _, _, fb = counter_modules()
+    return {"B": fa.launches_segments, "17+18": fb.launches_segments}
 
 
 def expect(**counts):
@@ -783,6 +960,214 @@ def phase_main_path(cfg, params, params_q8=None):
     return counts
 
 
+def phase_train_cross_check(cfg):
+    """One loss and backward at the narrow gar_1b, the card's kernel path
+    (A with its LSE, 5, B, 17, 18) against the CPU's plain path, from the
+    same seeded bf16 params."""
+    from grasp_any_region_tpu_torch.core.weights import flat_grads
+    from grasp_any_region_tpu_torch.data.synthetic import synthetic_batch
+    from grasp_any_region_tpu_torch.train import loss_fn
+
+    p_cpu = random_params(cfg, "cpu")
+    runs, counts = {}, None
+    for dev, params in (("cuda", copy.deepcopy(p_cpu).to("cuda")), ("cpu", p_cpu)):
+        for p in params.parameters():
+            p.requires_grad_(True)
+        batch, labels, _ = synthetic_batch(cfg, grid=(4, 4), regions=1, seed=SEED, device=dev)
+        reset_counts()
+        loss = loss_fn(params, cfg, batch, labels, mask_compat=False)
+        loss.backward()
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            counts = read_counts()
+        runs[dev] = (loss.item(), flat_grads(params))
+    depth, layers = cfg.vision.depth, cfg.text.num_layers
+    expected = expect(**{"A": 2 * depth, "5": depth, "B": 2 * layers, "17": layers,
+                         "18": layers})
+    if counts != expected:
+        raise AssertionError(f"train cross-check: launch counts {counts}, expected {expected}")
+    (loss_card, g_card), (loss_cpu, g_cpu) = runs["cuda"], runs["cpu"]
+    if not np.isfinite(loss_card) or abs(loss_card - loss_cpu) > E2E_TOL * abs(loss_cpu):
+        raise AssertionError(f"train cross-check: loss card {loss_card}, cpu {loss_cpu}")
+    rel = {}
+    for name, ref in g_cpu.items():
+        got = g_card[name]
+        if not np.isfinite(got).all():
+            raise AssertionError(f"train cross-check: non-finite gradient {name}")
+        scale = float(np.abs(ref).max())
+        rel[name] = float(np.abs(got - ref).max()) / scale if scale else float(np.abs(got).max())
+    worst = max(rel, key=rel.get)
+    log(f"[train cross-check] loss card {loss_card:.6f}, cpu {loss_cpu:.6f}; {len(rel)} "
+        f"gradient leaves, worst {worst}: max |card - cpu| / max |cpu| = {rel[worst]:.3e}; "
+        f"launches {counts}")
+    if rel[worst] > E2E_TOL:
+        raise AssertionError(f"train cross-check: gradient {worst} differs by {rel[worst]:.3e} "
+                             f"> {E2E_TOL} of its range")
+
+
+def event_pairs(n: int):
+    return [torch.cuda.Event(enable_timing=True) for _ in range(n)]
+
+
+def train_split(cfg, params, batch, labels, tx, opt_state) -> dict:
+    """One train step composed as `loss_fn` composes it, with CUDA events at
+    the phase boundaries (the backward's via hooks on the embeddings and
+    the decoder output): ms per phase, host dispatch gaps included."""
+    from grasp_any_region_tpu_torch.models.gar import build_prefill_embeds
+    from grasp_any_region_tpu_torch.models.llama import llama_prefill
+    from grasp_any_region_tpu_torch.train.losses import chunked_cross_entropy, shift_labels
+
+    ev = dict(zip(("start", "vision", "decoder", "ce", "ce_bwd", "decoder_bwd", "vision_bwd",
+                   "optimizer"), event_pairs(8)))
+    torch.cuda.synchronize()
+    ev["start"].record()
+    embeds = build_prefill_embeds(params, cfg, batch, mask_compat=False, remat=True)
+    ev["vision"].record()
+    hidden, _ = llama_prefill(params.llm, cfg.text, embeds, batch.positions,
+                              segment_ids=batch.segment_ids, remat=True, return_kv=False)
+    ev["decoder"].record()
+    loss = chunked_cross_entropy(params.llm, cfg.text, hidden, shift_labels(labels),
+                                 valid_vocab=cfg.extended_vocab_size)
+    ev["ce"].record()
+    hidden.register_hook(lambda grad: ev["ce_bwd"].record())
+    embeds.register_hook(lambda grad: ev["decoder_bwd"].record())
+    loss.backward()
+    ev["vision_bwd"].record()
+    tx.apply(params, opt_state)
+    ev["optimizer"].record()
+    torch.cuda.synchronize()
+    for p in params.parameters():
+        p.grad = None
+    names = list(ev)
+    return {b: ev[a].elapsed_time(ev[b]) for a, b in zip(names, names[1:])}
+
+
+def phase_train_step(cfg, params):
+    """The GAR-1B train step (bench.py:128-226) on the card: the main path
+    of training. Returns (launches a step, state, optimizer)."""
+    from grasp_any_region_tpu_torch.data.synthetic import synthetic_batch
+    from grasp_any_region_tpu_torch.train import (OptimizerConfig, init_state, make_train_loop,
+                                                  make_train_step)
+    from grasp_any_region_tpu_torch.utils.flops import gar_flops
+
+    batch, labels, _ = synthetic_batch(cfg, grid=(4, 4), regions=1, seed=SEED)
+    s = batch.input_ids.shape[1]
+    state, tx = init_state(params, OptimizerConfig(lr=1e-4, total_steps=100))
+    n = 8
+    t0 = time.perf_counter()
+    state, warm = make_train_loop(cfg, tx, n, mask_compat=False)(state, batch, labels)
+    log(f"[train] B=1, S={s}, 17 tiles, bf16 params and moments, remat: warm-up window of {n} "
+        f"steps {time.perf_counter() - t0:.1f} s, losses {[round(x, 4) for x in warm.tolist()]}")
+    step = make_train_step(cfg, tx, mask_compat=False)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    events, losses = event_pairs(n + 1), []
+    reset_counts()
+    events[0].record()
+    for i in range(n):
+        state, metrics = step(state, batch, labels)
+        events[i + 1].record()
+        losses.append(metrics["loss"])
+        if i == 0:
+            per_step = read_counts()
+    torch.cuda.synchronize()
+    window = read_counts()
+    times = [a.elapsed_time(b) for a, b in zip(events, events[1:])]
+    losses = torch.stack(losses).tolist()
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+    depth, layers = cfg.vision.depth, cfg.text.num_layers
+    expected = expect(**{"A": 2 * depth, "5": depth, "B": 2 * layers, "17": layers,
+                         "18": layers})
+    if per_step != expected or window != {key: n * c for key, c in expected.items()}:
+        raise AssertionError(f"[train] launches a step {per_step} (window of {n}: {window}), "
+                             f"expected {expected}")
+    if segmented_counts() != {"B": 0, "17+18": 0}:
+        raise AssertionError(f"[train] right-padded rows launched with segment ids: "
+                             f"{segmented_counts()}")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"[train] losses {losses}: not finite or not falling")
+    ms = statistics.median(times)
+    flops = gar_flops(cfg, batch=1, seq=s, tiles=17, train=True)["total"]
+    log(f"[train] ms/step {ms:.1f} (median of {n}; steps "
+        f"{', '.join(f'{x:.1f}' for x in times)}), {s / (ms / 1e3):.0f} supervised tok/s, "
+        f"{flops / (ms / 1e3) / 1e12:.1f} TFLOP/s of {flops / 1e12:.1f} TFLOP a step "
+        f"(gar_flops), peak memory {peak_gib:.2f} GiB")
+    log(f"[train] losses {[round(x, 4) for x in losses]}; launches a step {per_step}")
+    split = train_split(cfg, params, batch, labels, tx, state.opt_state)
+    log("[train] one step split (ms, CUDA events, host gaps included): "
+        + ", ".join(f"{name} {t:.1f}" for name, t in split.items())
+        + f"; sum {sum(split.values()):.1f}")
+    profile_step(lambda: step(state, batch, labels))
+    return per_step, state, tx
+
+
+def profile_step(run, top: int = 12) -> None:
+    """torch.profiler over one call: device time by kernel (the top few),
+    and the device's busy share of the call's wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = [r for r in prof.key_averages() if r.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(r.self_device_time_total for r in rows) / 1e3
+    rows.sort(key=lambda r: r.self_device_time_total, reverse=True)
+    log(f"[train] profile of one step: wall {wall_ms:.1f} ms (profiler on), device busy "
+        f"{busy_ms:.1f} ms ({100 * busy_ms / wall_ms:.0f}%), {sum(r.count for r in rows)} "
+        f"device ops; top by device time:")
+    for r in rows[:top]:
+        log(f"[train]   {r.self_device_time_total / 1e3:8.2f} ms {r.count:6d}x  {r.key[:100]}")
+
+
+def phase_packed_step(cfg, state, tx):
+    """The packed text-only step at GAR-1B (bench.py:229-277): 2 rows of
+    4096 tokens, documents of 300-1200 tokens, every token supervised."""
+    from grasp_any_region_tpu_torch.data.builders import PackedTextBatch, pack_text_batch
+    from grasp_any_region_tpu_torch.train import make_packed_train_step
+
+    rows, seq = 2, 4096
+    rng = np.random.default_rng(SEED)
+    docs, total = [], 0
+    while total < rows * seq:
+        n = int(rng.integers(300, 1200))
+        docs.append(rng.integers(10, 1000, size=n).astype(np.int32))
+        total += n
+    packed = pack_text_batch(docs, seq_len=seq, labels=docs)
+    packed = PackedTextBatch(*(x[:rows] for x in packed))
+    n_docs = [int(r.max()) for r in packed.segment_ids.cpu()]
+    step = make_packed_train_step(cfg, tx)
+    for _ in range(2):
+        state, _ = step(state, packed)
+    n = 4
+    events, losses = event_pairs(n + 1), []
+    torch.cuda.synchronize()
+    reset_counts()
+    events[0].record()
+    for i in range(n):
+        state, metrics = step(state, packed)
+        events[i + 1].record()
+        losses.append(metrics["loss"])
+    torch.cuda.synchronize()
+    window, segs = read_counts(), segmented_counts()
+    layers = cfg.text.num_layers
+    expected = expect(**{"B": 2 * n * layers, "17": n * layers, "18": n * layers})
+    if window != expected or segs != {"B": 2 * n * layers, "17+18": 2 * n * layers}:
+        raise AssertionError(f"[packed] launches over {n} steps {window} (with segment ids "
+                             f"{segs}), expected {expected}, all with segment ids")
+    losses = torch.stack(losses).tolist()
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"[packed] non-finite losses {losses}")
+    times = [a.elapsed_time(b) for a, b in zip(events, events[1:])]
+    ms = statistics.median(times)
+    log(f"[packed] {rows} rows x {seq} tokens ({n_docs} documents a row, then padding): "
+        f"ms/step {ms:.1f} (median of {n}; steps {', '.join(f'{x:.1f}' for x in times)}), "
+        f"{rows * seq / (ms / 1e3):.0f} tok/s; losses {[round(x, 4) for x in losses]}; "
+        f"launches a step B = {2 * layers}, 17 = 18 = {layers}, all with segment ids")
+
+
 KERNELS = {
     "A": ("vit_attention", "grasp_any_region_tpu_torch/csrc/vit_attention.cu",
           "grasp_any_region_tpu/ops/vit_attention.py:350"),
@@ -812,6 +1197,12 @@ KERNELS = {
            "grasp_any_region_tpu/ops/layer_matmul.py:234"),
     "J8": ("layer_qkv_q8", "grasp_any_region_tpu_torch/csrc/layer_matmul.cu",
            "grasp_any_region_tpu/ops/layer_matmul.py:282"),
+    "5": ("vit_attention_bwd_onepass", "grasp_any_region_tpu_torch/csrc/flash_backward.cu",
+          "grasp_any_region_tpu/ops/vit_attention.py:185"),
+    "17": ("flash_attention_bwd_dq", "grasp_any_region_tpu_torch/csrc/flash_backward.cu",
+           "grasp_any_region_tpu/ops/flash_backward.py:369"),
+    "18": ("flash_attention_bwd_dkv", "grasp_any_region_tpu_torch/csrc/flash_backward.cu",
+           "grasp_any_region_tpu/ops/flash_backward.py:403"),
 }
 
 
@@ -825,6 +1216,7 @@ def main() -> int:
     kernels = phase_kernels()
     phase_cross_check(narrow_config())
     phase_cross_check(narrow_config(kv_heads=2), int8=True)
+    phase_train_cross_check(narrow_config(kv_heads=2))
     cfg = gar_1b()
     params = random_params(cfg, "cuda")
     params_q8 = quantize_decode_weights(params)
@@ -832,9 +1224,15 @@ def main() -> int:
     phase_decode_forms(cfg, params, params_q8)
     main_counts = phase_main_path(cfg, params)
     int8_counts = phase_main_path(cfg, params, params_q8)
+    del params_q8
+    torch.cuda.empty_cache()
+    train_counts, state, tx = phase_train_step(cfg, params)
+    phase_packed_step(cfg, state, tx)
     # kernel A runs on the unfused tower's path, the int8 kernels on the
-    # int8 path's generate, the others on generate's
+    # int8 path's generate, the backward kernels on the train step's, the
+    # others on generate's
     paths = {key: ("vision_forward(fused_blocks=False)", unfused_counts) if key == "A"
+             else ("train_step", train_counts) if key in ("5", "17", "18")
              else ("generate(int8)", int8_counts) if key.endswith("8")
              else ("generate", main_counts) for key in KERNELS}
     fields = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -18,6 +18,11 @@ The entry points that make the port's tensors (`load_flat_params`,
 `init_gar_params`, and `data/synthetic.synthetic_batch`,
 `models/quantize.init_gar_serving_int8`) build on the card unless the
 caller asks for the CPU, and raise where there is no card.
+
+Training (`train/step.init_state`) turns on `requires_grad` for every
+float leaf, as `jax.value_and_grad` differentiates the whole tree; the
+optimizer's mask decides which leaves move. `flat_grads` gives the
+gradients back under the flat JAX names.
 """
 
 from __future__ import annotations
@@ -61,6 +66,14 @@ class ParamGroup(nn.Module):
     def layer(self, i: int) -> dict:
         """Views of layer i of tensors stacked on a leading L axis."""
         return {name: p[i] for name, p in self.named_parameters()}
+
+    def layers(self) -> list:
+        """Every layer's views, from one `unbind` per stacked tensor. Under
+        autograd the backward of each is one `stack` of the layers'
+        gradients, where L calls of `layer(i)` would each add a zero-filled
+        (L, ...) gradient."""
+        names, tensors = zip(*self.named_parameters())
+        return [dict(zip(names, views)) for views in zip(*(p.unbind(0) for p in tensors))]
 
 
 def _int8_layout(flat: Mapping[str, np.ndarray], cfg: GARConfig) -> dict:
@@ -109,6 +122,18 @@ def load_flat_params(flat: Mapping[str, np.ndarray], cfg: GARConfig,
         with torch.no_grad():
             p.copy_(torch.from_numpy(arr))
     return params
+
+
+def flat_grads(params: nn.Module) -> dict:
+    """{'a/b/c': fp32 numpy gradient} for every float leaf, under the names
+    of the JAX package's `flatten_params`; a leaf with no gradient (unused by
+    the loss) gives zeros, as `jax.grad` does."""
+    out = {}
+    for name, p in params.named_parameters():
+        if p.dtype.is_floating_point:
+            g = p.grad if p.grad is not None else torch.zeros_like(p)
+            out[name.replace(".", "/")] = g.detach().float().cpu().numpy()
+    return out
 
 
 _ONES = {"scale", "ln1_scale", "ln2_scale", "attn_norm", "mlp_norm", "final_norm"}

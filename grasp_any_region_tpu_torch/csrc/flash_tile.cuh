@@ -19,6 +19,15 @@
 // right-aligned by q_offset = Sk - Sq, and K tiles wholly above the
 // diagonal are never loaded.
 //
+// Two outputs for the backward (flash_backward.cu): with `lse` set, each
+// row's log-sum-exp of the scaled logits, m + log(l) from the online
+// state, fp32 (batch, head, seq); with SEG, int32 segment ids (batch, seq)
+// for self-attention (Sq == Sk): a pair is kept only where the ids are
+// equal, on top of the causal and bound masks (packed rows; id 0 is
+// padding and attends only padding). seg_tiles holds each 64-row tile's
+// [min, max] id: a K tile whose range is disjoint from the query tile's
+// has no equal pair and is skipped, which is exact (its p are all 0).
+//
 // With ROPE (kernel E), Q and K rows are rotated while they are staged into
 // shared memory: rotate_half pairs element i with i +- D/2 of the same head,
 // which no mma fragment holds together, so each thread takes the 8-element
@@ -39,6 +48,11 @@ struct FlashParams {
   const float* cos;  // ROPE only: (head, seq, D) fp32 tables
   const float* sin;
   long long rope_sh;
+  float* lse = nullptr;             // optional (batch, head, seq) fp32 log-sum-exp
+  long long lse_sb = 0, lse_sh = 0;  // its batch and head strides (rows contiguous)
+  const int* seg = nullptr;         // SEG only: (batch, seq) int32 segment ids
+  long long seg_sb = 0;
+  const int* seg_tiles = nullptr;   // SEG only: (batch, ceil(seq / 64), 2) [min, max] ids
   long long q_sb, q_ss, q_sh;  // element strides: batch, sequence, head
   long long k_sb, k_ss, k_sh;
   long long v_sb, v_ss, v_sh;
@@ -51,6 +65,13 @@ struct FlashParams {
 
 constexpr int kFlashBN = 64;       // keys per tile
 constexpr int kSmemPad = 8;        // bf16 pad per smem row: conflict-free fragment loads
+constexpr int kSegTile = 64;       // rows per entry of seg_tiles
+
+// True when 64-row tiles qt and kt of one row's [min, max] segment-id table
+// share no id range, so no (query, key) pair of theirs has equal ids.
+__device__ __forceinline__ bool segments_disjoint(const int* tiles, int qt, int kt) {
+  return tiles[2 * kt + 1] < tiles[2 * qt] || tiles[2 * kt] > tiles[2 * qt + 1];
+}
 
 // Stage rows [r0, r0 + rows) of a (seq, D) operand into dst (row stride LD),
 // zeros past `limit`. With ROPE, rotate each row by its cos/sin table row
@@ -105,7 +126,7 @@ __device__ __forceinline__ void stage_rows(bf16* dst, const bf16* src, long long
 }
 
 // BM query rows per block, one warp per 16 of them.
-template <int D, bool CAUSAL, bool ROPE, int BM>
+template <int D, bool CAUSAL, bool ROPE, int BM, bool SEG>
 __global__ void __launch_bounds__(BM * 2)
 flash_fwd_kernel(const FlashParams p) {
   static_assert(D % 16 == 0, "head dim must be a multiple of 16");
@@ -114,6 +135,7 @@ flash_fwd_kernel(const FlashParams p) {
   __shared__ __align__(16) bf16 sQ[BM * LDQ];
   __shared__ __align__(16) bf16 sK[BN * LDQ];
   __shared__ __align__(16) bf16 sV[BN * LDQ];
+  __shared__ int sSeg[SEG ? BN : 1];
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
@@ -147,15 +169,25 @@ flash_fwd_kernel(const FlashParams p) {
   float l_run[2] = {0.f, 0.f};
   const int qi0 = q0 + row0 + p.q_offset;  // global positions of the two rows
   const int qi1 = qi0 + 8;
+  const int* segb = SEG ? p.seg + b * p.seg_sb : nullptr;
+  const int n_seg_tiles = (p.sk + kSegTile - 1) / kSegTile;
+  const int* tiles_b = SEG ? p.seg_tiles + 2LL * b * n_seg_tiles : nullptr;
+  int seg0 = 0, seg1 = 0;  // the two rows' segment ids (Sq == Sk under SEG)
+  if (SEG) {
+    seg0 = q0 + row0 < p.sq ? segb[q0 + row0] : -1;
+    seg1 = q0 + row0 + 8 < p.sq ? segb[q0 + row0 + 8] : -1;
+  }
 
   int n_tiles = (p.sk + BN - 1) / BN;
   if (CAUSAL) n_tiles = min(n_tiles, (p.q_offset + q0 + BM - 1) / BN + 1);
 
   for (int j = 0; j < n_tiles; ++j) {
     const int k0 = j * BN;
+    if (SEG && segments_disjoint(tiles_b, q0 / kSegTile, j)) continue;  // uniform in the block
     __syncthreads();  // every warp is done with the previous tile
     stage_rows<D, LDQ, ROPE, NT>(sK, kb, p.k_ss, k0, BN, p.sk, cos_h, sin_h, tid);
     stage_rows<D, LDQ, false, NT>(sV, vb, p.v_ss, k0, BN, p.sk, nullptr, nullptr, tid);
+    if (SEG && tid < BN) sSeg[tid] = k0 + tid < p.sk ? segb[k0 + tid] : -2;
     __syncthreads();
 
     // S = Q K^T for this warp's 16 rows x 64 keys
@@ -178,6 +210,7 @@ flash_fwd_kernel(const FlashParams p) {
         const int key = k0 + nt * 8 + 2 * t + (i & 1);
         bool ok = key < p.sk;
         if (CAUSAL) ok = ok && ((i < 2 ? qi0 : qi1) >= key);
+        if (SEG) ok = ok && (sSeg[key - k0] == (i < 2 ? seg0 : seg1));
         s[nt][i] = ok ? s[nt][i] * p.scale : kNegInf;
       }
       mx0 = fmaxf(mx0, fmaxf(s[nt][0], s[nt][1]));
@@ -237,6 +270,11 @@ flash_fwd_kernel(const FlashParams p) {
   const float l0 = fmaxf(l_run[0], 1e-30f), l1 = fmaxf(l_run[1], 1e-30f);
   bf16* ob = p.o + b * p.o_sb + h * p.o_sh;
   const int r0 = q0 + row0, r1 = r0 + 8;
+  if (p.lse != nullptr && t == 0) {  // m and l are whole-row values in every lane of the quad
+    float* lb = p.lse + b * p.lse_sb + h * p.lse_sh;
+    if (r0 < p.sq) lb[r0] = m_run[0] + logf(l0);
+    if (r1 < p.sq) lb[r1] = m_run[1] + logf(l1);
+  }
 #pragma unroll
   for (int dt = 0; dt < D / 8; ++dt) {
     const int d = dt * 8 + 2 * t;
@@ -247,15 +285,30 @@ flash_fwd_kernel(const FlashParams p) {
   }
 }
 
-// Launch on the caller's stream; returns the launch's error code.
+// Launch on the caller's stream; returns the launch's error code. Segment
+// ids (p.seg) take the SEG instantiations; the rope tile (E) has none.
 template <int D, bool ROPE = false, int BM = 64>
 inline int launch_flash_fwd(const FlashParams& p, int batch, int heads, bool causal,
                             cudaStream_t stream) {
   const dim3 grid((p.sq + BM - 1) / BM, heads, batch);
-  if (causal)
-    flash_fwd_kernel<D, true, ROPE, BM><<<grid, BM * 2, 0, stream>>>(p);
-  else
-    flash_fwd_kernel<D, false, ROPE, BM><<<grid, BM * 2, 0, stream>>>(p);
+  if constexpr (ROPE) {
+    if (p.seg != nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    if (causal)
+      flash_fwd_kernel<D, true, ROPE, BM, false><<<grid, BM * 2, 0, stream>>>(p);
+    else
+      flash_fwd_kernel<D, false, ROPE, BM, false><<<grid, BM * 2, 0, stream>>>(p);
+  } else if (p.seg != nullptr) {
+    static_assert(BM == kSegTile, "seg_tiles rows must match the query tile");
+    if (causal)
+      flash_fwd_kernel<D, true, ROPE, BM, true><<<grid, BM * 2, 0, stream>>>(p);
+    else
+      flash_fwd_kernel<D, false, ROPE, BM, true><<<grid, BM * 2, 0, stream>>>(p);
+  } else {
+    if (causal)
+      flash_fwd_kernel<D, true, ROPE, BM, false><<<grid, BM * 2, 0, stream>>>(p);
+    else
+      flash_fwd_kernel<D, false, ROPE, BM, false><<<grid, BM * 2, 0, stream>>>(p);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -7,10 +7,12 @@
 // same function with an online softmax over 64-key tiles (flash_tile.cuh):
 // fp32 scores, max and sum, p rounded to bf16 before the PV product.
 // It is the non-causal, one-head-per-kv-head case of that tile kernel.
+// lse (optional, nullptr for none): the (T, H, S) fp32 row log-sum-exp
+// that the backward (kernel 5, flash_backward.cu) reads.
 #include "flash_tile.cuh"
 
 extern "C" int gar_vit_attention(
-    const void* q, const void* k, const void* v, void* o,
+    const void* q, const void* k, const void* v, void* o, void* lse,
     int tiles, int seq, int heads, int head_dim,
     long long q_st, long long q_ss, long long q_sh,
     long long k_st, long long k_ss, long long k_sh,
@@ -23,6 +25,9 @@ extern "C" int gar_vit_attention(
   p.k = static_cast<const gar::bf16*>(k);
   p.v = static_cast<const gar::bf16*>(v);
   p.o = static_cast<gar::bf16*>(o);
+  p.lse = static_cast<float*>(lse);
+  p.lse_sb = static_cast<long long>(heads) * seq;
+  p.lse_sh = seq;
   p.q_sb = q_st; p.q_ss = q_ss; p.q_sh = q_sh;
   p.k_sb = k_st; p.k_ss = k_ss; p.k_sh = k_sh;
   p.v_sb = v_st; p.v_ss = v_ss; p.v_sh = v_sh;

@@ -96,16 +96,18 @@ def encode_images(
     mask_values: Optional[torch.Tensor] = None,
     *,
     mask_compat: bool = True,
+    remat: bool = False,
+    remat_group: int = 1,
     compute_dtype=torch.bfloat16,
 ) -> torch.Tensor:
     """-> (T, tokens_per_tile, Dt): tower with mask embeds, CLS dropped,
-    projected and pooled."""
+    projected and pooled. remat, remat_group: `vision_forward`'s."""
     mask_embeds = None
     if mask_values is not None:
         binary = decode_mask_values(cfg, mask_values, compat=mask_compat)
         mask_embeds = mask_patch_embed(params, cfg, binary.to(compute_dtype))
     hidden = vision_forward(params.vision, cfg.vision, pixel_values, mask_embeds,
-                            compute_dtype=compute_dtype)
+                            remat=remat, remat_group=remat_group, compute_dtype=compute_dtype)
     if cfg.vision_use_cls_token:
         hidden = hidden[:, 1:, :]
     return projector_forward(params.projector, cfg, hidden)
@@ -134,13 +136,19 @@ def build_prefill_embeds(
     *,
     mask_compat: bool = True,
     double_scale_compat: bool = True,
+    remat: bool = False,
+    remat_group: int = 1,
     compute_dtype=torch.bfloat16,
 ) -> torch.Tensor:
-    """Token embeds + image-feature scatter + feature replay -> (B, S, Dt)."""
+    """Token embeds + image-feature scatter + feature replay -> (B, S, Dt).
+    Every step is differentiable (gather, where, the replay's out-of-place
+    scatters, RoIAlign's gathers), so gradients reach the tower, the
+    projector and the mask embed as in JAX."""
     b, t = batch.pixel_values.shape[:2]
     pix = batch.pixel_values.reshape((b * t,) + batch.pixel_values.shape[2:])
     msk = batch.mask_values.reshape((b * t,) + batch.mask_values.shape[2:])
-    feats = encode_images(params, cfg, pix, msk, mask_compat=mask_compat,
+    feats = encode_images(params, cfg, pix, msk, mask_compat=mask_compat, remat=remat,
+                          remat_group=remat_group,
                           compute_dtype=compute_dtype)  # (B*T, tok, Dt)
     feats = feats.reshape(b, t, feats.shape[-2], feats.shape[-1])
     tok_embeds = embed_tokens(params.llm, batch.input_ids, compute_dtype)

@@ -1,7 +1,10 @@
 """Llama-3-family decoder (`grasp_any_region_tpu/models/llama.py`).
 
-  * Prefill: right-padded causal attention through `mha` (kernel B on the
-    card), returning per-layer K/V for the cache.
+  * Prefill: causal attention through `mha` (kernel B on the card; where a
+    gradient is needed kernels 17 and 18 backward), over right-padded rows
+    or packed multi-document rows (`right_padded=False`: segment ids in the
+    kernel), returning per-layer K/V for the cache; for training, each
+    layer checkpointed (`remat`) and no K/V kept (`return_kv=False`).
   * Decode: two forms of `llama_decode_step`, as in JAX. The fused form
     (the default on a CUDA tensor) runs per layer kernel J (q, k, v), rope,
     kernel C (cache write + attention), kernel H (wo), kernel I (SwiGLU)
@@ -34,6 +37,7 @@ from typing import NamedTuple, Optional, Sequence, Tuple, Union
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..core.config import TextConfig
 from ..core.weights import ParamGroup, add_param
@@ -133,27 +137,43 @@ def llama_prefill(
     positions: torch.Tensor,  # (B, S) int
     *,
     segment_ids: Optional[torch.Tensor] = None,  # (B, S), 0 = padding
-) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
-    """Full-sequence forward over right-padded rows. Returns (hidden
-    (B, S, D), (k_all, v_all)), k_all / v_all (L, B, S, K, Dh) for cache
-    seeding. Packed multi-document rows wait for the training slice."""
+    remat: bool = False,
+    right_padded: bool = True,
+    return_kv: bool = True,
+) -> Tuple[torch.Tensor, Optional[Tuple[torch.Tensor, torch.Tensor]]]:
+    """Full-sequence forward. Returns (hidden (B, S, D), (k_all, v_all)),
+    k_all / v_all (L, B, S, K, Dh) for cache seeding, or (hidden, None)
+    with return_kv=False (training: no layer's K/V stays alive).
+
+    right_padded: the GAR rows are right-padded, so the causal kernel needs
+    no segment mask; pass False for packed multi-document rows (per-document
+    positions, segment ids 1..n, 0 = padding). remat: checkpoint each layer
+    (non-reentrant), as JAX's `jax.checkpoint` scan body."""
     b, s, _ = inputs_embeds.shape
     L, kh, dh = cfg.num_layers, cfg.num_kv_heads, cfg.head_dim
     cos, sin = rope_cos_sin(positions, llama_inv_freq(cfg, inputs_embeds.device))
     eps = cfg.rms_norm_eps
-    ks = inputs_embeds.new_empty((L, b, s, kh, dh))
-    vs = inputs_embeds.new_empty((L, b, s, kh, dh))
-    x = inputs_embeds
-    for i in range(L):
-        bp = params.blocks.layer(i)
+
+    def layer(x, bp):
         y = rms_norm(x, bp["attn_norm"], eps)
         q, k, v = _qkv(cfg, bp, y, cos, sin)
-        a = mha(q, k, v, causal=True, segment_ids=segment_ids, right_padded=True)
+        a = mha(q, k, v, causal=True, segment_ids=segment_ids, right_padded=right_padded)
         x = x + _proj(bp, "wo", a.reshape(b, s, -1))
         y = rms_norm(x, bp["mlp_norm"], eps)
-        x = x + _mlp(bp, y)
-        ks[i], vs[i] = k, v
-    return x, (ks, vs)
+        return x + _mlp(bp, y), k, v
+
+    if return_kv:
+        ks = inputs_embeds.new_empty((L, b, s, kh, dh))
+        vs = inputs_embeds.new_empty((L, b, s, kh, dh))
+    x = inputs_embeds
+    for i, bp in enumerate(params.blocks.layers()):
+        if remat:
+            x, k, v = checkpoint(layer, x, bp, use_reentrant=False)
+        else:
+            x, k, v = layer(x, bp)
+        if return_kv:
+            ks[i], vs[i] = k, v
+    return x, ((ks, vs) if return_kv else None)
 
 
 def decode_kernel_choice(cfg: TextConfig, device) -> Union[bool, str]:

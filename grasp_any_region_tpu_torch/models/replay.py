@@ -133,15 +133,17 @@ def scatter_replay(
 ) -> torch.Tensor:
     """Write each valid region's 256 replay vectors at its crop-token span,
     regions in order (a later one wins an overlap). A start is clamped so
-    the span fits, like jax.lax.dynamic_update_slice."""
+    the span fits, like jax.lax.dynamic_update_slice. Each write is an
+    out-of-place scatter, so autograd sees every region's gather intact and
+    the gradient reaches both the embeddings and the replay features."""
     b, s, d = inputs_embeds.shape
     r, n = replay.shape[1], replay.shape[2]
-    out = inputs_embeds.clone()
+    out = inputs_embeds
     offs = torch.arange(n, device=out.device)
     for i in range(r):
         start = replay_pos[:, i].long().clamp(0, s - n)
         idx = (start[:, None] + offs)[:, :, None].expand(b, n, d)  # (B, n, D)
         cur = torch.gather(out, 1, idx)
         new = torch.where(replay_valid[:, i, None, None], replay[:, i].to(out.dtype), cur)
-        out.scatter_(1, idx, new)
+        out = out.scatter(1, idx, new)
     return out

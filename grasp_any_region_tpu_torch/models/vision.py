@@ -10,7 +10,15 @@ Each block runs in one of the JAX package's two forms:
     fused qkv buffer (ops/vit_attention.py), F wo + LayerScale + residual,
     G LayerNorm + fc1 + GELU + fc2 + LayerScale + residual (ops/vit_block.py);
   * unfused (`_block`): LayerNorm, rope, GELU and the qkv, wo and MLP
-    products in plain torch, as XLA runs them, around kernel A.
+    products in plain torch, as XLA runs them, around kernel A (where a
+    gradient is needed, `vit_attention_df`: A with its LSE forward, kernel 5
+    backward).
+
+Training runs the unfused form under remat: each block is checkpointed
+(`torch.utils.checkpoint`, non-reentrant), or groups of blocks each
+checkpointed around their checkpointed blocks (`remat_group`), as the JAX
+package's `jax.checkpoint` scans do. The fused kernels have no backward;
+the fused form is off under remat and raises where a gradient is needed.
 
 All tiles of the batch are one leading dim (T, S, D).
 """
@@ -22,13 +30,14 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..core.config import VisionConfig
 from ..core.weights import ParamGroup, add_param
 from ..ops.norms import layer_norm
 from ..ops.rope import (apply_rope_2d_tshd, axial_rope_angles, mixed_rope_angles,
                         rope_head_tables)
-from ..ops.vit_attention import vit_attention, vit_attention_fused_qkv
+from ..ops.vit_attention import vit_attention_df, vit_attention_fused_qkv
 from ..ops.vit_block import vit_ln_qkv, vit_mlp_residual, vit_wo_residual
 
 
@@ -89,7 +98,7 @@ def _block(cfg: VisionConfig, x: torch.Tensor, bp: dict,
     if angles is not None:
         q = apply_rope_2d_tshd(q, angles, n_prefix)
         k = apply_rope_2d_tshd(k, angles, n_prefix)
-    attn = vit_attention(q, k, v)
+    attn = vit_attention_df(q, k, v)
     attn = attn.reshape(t, s, d) @ bp["wo"].to(x.dtype) + bp["bo"].to(x.dtype)
     if "ls1" in bp:
         attn = attn * bp["ls1"].to(attn.dtype)
@@ -159,6 +168,8 @@ def vision_forward(
     pixel_values: torch.Tensor,
     mask_embeds: Optional[torch.Tensor] = None,
     *,
+    remat: bool = False,
+    remat_group: int = 1,
     compute_dtype=torch.bfloat16,
     fused_blocks: Optional[bool] = None,
 ) -> torch.Tensor:
@@ -166,21 +177,44 @@ def vision_forward(
     (T, N, D) added right after the patch embed. Returns (T, S, D) final
     hidden states, CLS still at index 0.
 
+    remat: checkpoint every block (its activations are recomputed in the
+    backward); remat_group > 1 also checkpoints groups of that many blocks
+    (the trailing depth % g blocks stay singly checkpointed), so only
+    ceil(depth / g) + g block inputs are live, for one more tower forward.
+
     fused_blocks: run each layer as the four fused kernels. None = auto, as
     the JAX package decides it with "on the TPU" read as "on a CUDA tensor":
     on for head_dim 64, an even head count and rope (so gar_1b on the card
-    is fused and gar_8b, head_dim 96, is not). True on a CPU tensor runs the
-    kernels' plain versions."""
+    is fused and gar_8b, head_dim 96, is not), and off under remat. True on
+    a CPU tensor runs the kernels' plain versions."""
     x, angles = vision_embed(params, cfg, pixel_values, mask_embeds,
                              compute_dtype=compute_dtype)
     if fused_blocks is None:
-        fused_blocks = (x.device.type == "cuda" and cfg.head_dim == 64
+        fused_blocks = (not remat and x.device.type == "cuda" and cfg.head_dim == 64
                         and cfg.num_heads % 2 == 0 and cfg.use_rope)
     if fused_blocks and angles is None:
         raise ValueError("the fused ViT block needs rope (use_rope=True)")
+    if fused_blocks and torch.is_grad_enabled() and any(
+            p.requires_grad for p in params.parameters()):
+        raise ValueError("the fused ViT block has no backward: train with remat=True or "
+                         "fused_blocks=False")
     block = _fused_block if fused_blocks else _block
-    for i in range(cfg.depth):
-        x = block(cfg, x, params.blocks.layer(i), None if angles is None else angles[i])
+    layers = params.blocks.layers()
+    angle_layers = [None] * cfg.depth if angles is None else angles.unbind(0)
+
+    def run(x, lo, hi):
+        for i in range(lo, hi):
+            if remat:
+                x = checkpoint(block, cfg, x, layers[i], angle_layers[i], use_reentrant=False)
+            else:
+                x = block(cfg, x, layers[i], angle_layers[i])
+        return x
+
+    g = remat_group if remat else 1
+    n_grouped = cfg.depth - cfg.depth % g if g > 1 else 0
+    for lo in range(0, n_grouped, g):
+        x = checkpoint(run, x, lo, lo + g, use_reentrant=False)
+    x = run(x, n_grouped, cfg.depth)
     if cfg.use_ln_post:
         x = layer_norm(x, params.ln_post.scale, params.ln_post.bias)
     return x

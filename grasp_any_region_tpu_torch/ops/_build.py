@@ -33,9 +33,13 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _F = ctypes.c_float
+_LP = ctypes.POINTER(ctypes.c_longlong)
 _SIGNATURES = {
-    "gar_vit_attention": [_P] * 4 + [_I] * 4 + [_L] * 12 + [_F, _P],
-    "gar_flash_attention": [_P] * 4 + [_I] * 7 + [_L] * 12 + [_F, _P],
+    "gar_vit_attention": [_P] * 5 + [_I] * 4 + [_L] * 12 + [_F, _P],
+    "gar_flash_attention": [_P] * 7 + [_I] * 7 + [_L] * 12 + [_F, _P],
+    "gar_flash_attention_bwd_dq": [_P] * 9 + [_I] * 7 + [_LP, _F, _P],
+    "gar_flash_attention_bwd_dkv": [_P] * 10 + [_I] * 7 + [_LP, _F, _P],
+    "gar_vit_attention_bwd": [_P] * 9 + [_I] * 4 + [_LP, _F, _P],
     "gar_decode_attention_fused": [_P] * 8 + [_I] * 7 + [_F, _P],
     "gar_decode_attention_fused_q8": [_P] * 10 + [_I] * 7 + [_F, _P],
     "gar_vit_attention_fused_qkv": [_P] * 4 + [_I] * 4 + [_F, _P],
@@ -141,6 +145,13 @@ def check_operand(x: torch.Tensor, name: str) -> None:
                          f"multiples of 8 elements, got {x.stride()}")
     if x.data_ptr() % 16:
         raise ValueError(f"{name}: data must be 16-byte aligned")
+
+
+def strides_arg(*tensors: torch.Tensor):
+    """The (batch, sequence, head) element strides of each tensor, as one
+    C array of long long for the entry points that take a stride table."""
+    vals = [s for x in tensors for s in x.stride()[:3]]
+    return (ctypes.c_longlong * len(vals))(*vals)
 
 
 def stream_handle(device: torch.device) -> int:

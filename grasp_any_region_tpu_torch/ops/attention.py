@@ -5,8 +5,9 @@ fp32. Masked logits take the large-but-finite NEG_INF, not -inf, so a fully
 masked row never yields NaN from (-inf) - (-inf).
 
 `mha` dispatches by device alone: a CUDA tensor goes to the prefill flash
-kernel (ops/flash_attention.py), a CPU tensor to `mha_reference`, which is
-what the JAX package runs off the TPU.
+kernel (ops/flash_attention.py; where a gradient is needed, its
+differentiable form with kernels 17 and 18 backward), a CPU tensor to
+`mha_reference`, which is what the JAX package runs off the TPU.
 """
 
 from __future__ import annotations
@@ -72,22 +73,26 @@ def mha(
     segment_ids: Optional[torch.Tensor] = None,
     right_padded: bool = False,
 ) -> torch.Tensor:
-    """Dispatching attention entry point.
+    """Dispatching attention entry point, by the JAX package's flash_safe
+    rule on a CUDA tensor.
 
     right_padded=True asserts that segment_ids encodes nothing but trailing
     padding: under a causal mask real tokens never see trailing pads, so the
     kernel drops the segment mask and stays exact for every real row (pad
-    rows hold garbage that the prompt lengths mask later).
+    rows hold garbage that the prompt lengths mask later). Packed rows
+    (right_padded=False, causal self-attention) take the kernel with its
+    segment mask. Segment ids in any other form have no kernel and raise.
     """
     if q.device.type == "cpu":
         return mha_reference(q, k, v, causal=causal, segment_ids=segment_ids)
-    if segment_ids is not None and not (causal and right_padded):
-        raise NotImplementedError(
-            "packed segment ids need the segment-aware flash kernel, which "
-            "is not ported yet")
-    from .flash_attention import flash_attention
+    flash_safe = segment_ids is None or (causal and (right_padded or q.shape[1] == k.shape[1]))
+    if not flash_safe:
+        raise ValueError("segment ids need causal self-attention (or right_padded=True) "
+                         "on the flash kernel")
+    from .flash_attention import flash_attention_df
 
-    return flash_attention(q, k, v, causal=causal)
+    segs = None if causal and right_padded else segment_ids
+    return flash_attention_df(q, k, v, causal=causal, segment_ids=segs)
 
 
 def decode_attention_reference(

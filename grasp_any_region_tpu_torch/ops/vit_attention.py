@@ -1,8 +1,10 @@
-"""Kernels A and E: non-causal ViT attention.
+"""Kernels A and E: non-causal ViT attention; kernel 5, its backward.
 
 A takes q, k, v as (T, S, H, D) in the JAX layout (the unfused block); E
 reads them out of the fused (T, S, 3D) qkv buffer and applies 2D rope
-itself (the fused block).
+itself (the fused block, inference only, as in JAX). A can also write the
+(T, H, S) fp32 row log-sum-exp, which kernel 5 reads, and
+`vit_attention_df` pairs the two as a `torch.autograd.Function`.
 
 Replaces `grasp_any_region_tpu/ops/vit_attention.py:vit_attention`
 (`_vit_attn_kernel`), which keeps a whole (S, S) logits block per (tile,
@@ -20,9 +22,21 @@ same tile with q/k/v as strided views of the qkv buffer and rope on q and k
 while they are staged into shared memory (csrc/vit_attention.cu). The TPU
 kernel's head-pair (128-lane) layout is not needed: E reads per head.
 
+Kernel 5 replaces `vit_attention_bwd_onepass` (`_vit_bwd_kernel`), whose
+program keeps a whole head's K, V and (S, D) fp32 dk/dv sums in VMEM, four
+times an H100 SM's 227 KB at S = 1025. The CUDA kernel (kernel 18's body
+in csrc/flash_backward.cu, non-causal, one head per kv head) keeps the
+one-pass property: one block per (tile-head, 64 keys) walks the query
+tiles, each 64 x 64 p block is computed once from the saved LSE and feeds
+dv, dp, dk and dq; dk and dv stay in fp32 registers, and each block adds
+its share of dq into an fp32 workspace with red.global.add.f32, cast to
+bf16 once at the end. It is bound by its five products, 10 S^2 D flops per
+tile-head.
+
 On a CPU tensor each wrapper runs its plain version; on a CUDA tensor it
-launches the kernel or raises. The LSE output (for the backward) waits for
-the training slice.
+launches the kernel or raises. The raw wrappers have no backward, so on a
+CUDA tensor that needs a gradient A raises: `vit_attention_df` is the
+entry point there.
 """
 
 from __future__ import annotations
@@ -30,25 +44,36 @@ from __future__ import annotations
 import torch
 
 from . import _build
+from .flash_attention import needs_grad
+from .flash_backward import bwd_delta, flash_attention_bwd_plain
 from .rope import rotate_half
 
 launches = 0  # kernel A launches since the last reset (chip_smoke.py reads it)
 launches_fused = 0  # kernel E launches
+launches_bwd = 0  # kernel 5 launches
 
 
-def vit_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """softmax(q k^T / sqrt(D)) v in fp32 over (T, S, H, D); output in q.dtype."""
+def vit_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        return_lse: bool = False):
+    """softmax(q k^T / sqrt(D)) v in fp32 over (T, S, H, D); output in
+    q.dtype, and with return_lse the (T, H, S) fp32 row log-sum-exp."""
     d = q.shape[-1]
     qf, kf, vf = (x.float().permute(0, 2, 1, 3) for x in (q, k, v))  # (T, H, S, D)
     logits = torch.matmul(qf, kf.transpose(-1, -2)) * d ** -0.5
-    probs = torch.softmax(logits, dim=-1)
-    return torch.matmul(probs, vf).permute(0, 2, 1, 3).to(q.dtype)
+    lse = torch.logsumexp(logits, dim=-1, keepdim=True)
+    out = torch.matmul(torch.exp(logits - lse), vf).permute(0, 2, 1, 3).to(q.dtype)
+    return (out, lse[..., 0]) if return_lse else out
 
 
-def vit_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """q, k, v: (T, S, H, D), no GQA. Returns (T, S, H, D) in q.dtype."""
+def vit_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  return_lse: bool = False):
+    """q, k, v: (T, S, H, D), no GQA. Returns (T, S, H, D) in q.dtype, and
+    with return_lse the (T, H, S) fp32 log-sum-exp."""
     if q.device.type == "cpu":
-        return vit_attention_plain(q, k, v)
+        return vit_attention_plain(q, k, v, return_lse=return_lse)
+    if needs_grad(q, k, v):
+        raise RuntimeError("kernel A has no backward of its own: call vit_attention_df "
+                           "where a gradient is needed")
     t, s, h, d = q.shape
     if k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"q/k/v shapes differ: {q.shape} {k.shape} {v.shape}")
@@ -59,15 +84,87 @@ def vit_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Te
             raise ValueError(f"{name} is on {x.device}, q on {q.device}")
         _build.check_operand(x, name)
     out = torch.empty((t, s, h, d), dtype=q.dtype, device=q.device)
+    lse = torch.empty((t, h, s), dtype=torch.float32, device=q.device) if return_lse else None
     lib = _build.library()
     err = lib.gar_vit_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), t, s, h, d,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        None if lse is None else lse.data_ptr(), t, s, h, d,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
         d ** -0.5, _build.stream_handle(q.device))
     _build.check(err, "gar_vit_attention")
     global launches
     launches += 1
-    return out
+    return (out, lse) if return_lse else out
+
+
+def vit_attention_bwd_plain(q, k, v, out, lse, g):
+    """Kernel 5's plain version: the FA-2 recurrences in fp32
+    (`flash_attention_bwd_plain`, non-causal, one head per kv head)."""
+    return flash_attention_bwd_plain(q, k, v, out, lse, g, causal=False)
+
+
+def vit_attention_bwd_onepass(q, k, v, g, lse, delta):
+    """Kernel 5: (dq, dk, dv), (T, S, H, D) in q.dtype, from q, k, v, the
+    cotangent g, the forward's LSE and delta = rowsum(g * out), both
+    (T, H, S) fp32."""
+    t, s, h, d = q.shape
+    if k.shape != q.shape or v.shape != q.shape or g.shape != q.shape:
+        raise ValueError(f"shapes differ: q {q.shape} k {k.shape} v {v.shape} g {g.shape}")
+    if d != 64:
+        raise ValueError(f"kernel 5 is built for head_dim 64, got {d}")
+    for x, name in ((q, "q"), (k, "k"), (v, "v"), (g, "g"), (lse, "lse"), (delta, "delta")):
+        if x.device != q.device:
+            raise ValueError(f"{name} is on {x.device}, q on {q.device}")
+    for x, name in ((q, "q"), (k, "k"), (v, "v"), (g, "g")):
+        _build.check_operand(x, name)
+    for x, name in ((lse, "lse"), (delta, "delta")):
+        if tuple(x.shape) != (t, h, s) or x.dtype != torch.float32 or not x.is_contiguous():
+            raise TypeError(f"{name}: the kernel takes a contiguous fp32 ({t}, {h}, {s}) tensor")
+    dq_acc = torch.zeros((t, s, h, d), dtype=torch.float32, device=q.device)
+    dk = torch.empty((t, s, h, d), dtype=k.dtype, device=q.device)
+    dv = torch.empty((t, s, h, d), dtype=v.dtype, device=q.device)
+    err = _build.library().gar_vit_attention_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), lse.data_ptr(),
+        delta.data_ptr(), dq_acc.data_ptr(), dk.data_ptr(), dv.data_ptr(), t, s, h, d,
+        _build.strides_arg(q, k, v, g), d ** -0.5, _build.stream_handle(q.device))
+    _build.check(err, "gar_vit_attention_bwd")
+    global launches_bwd
+    launches_bwd += 1
+    return dq_acc.to(q.dtype), dk, dv
+
+
+def vit_attention_bwd(q, k, v, out, lse, g):
+    """(dq, dk, dv) of `vit_attention` from its saved inputs, output and
+    LSE, and the output's cotangent g: kernel 5 on a CUDA tensor, the plain
+    version on a CPU one."""
+    if q.device.type == "cpu":
+        return vit_attention_bwd_plain(q, k, v, out, lse, g)
+    g = g.contiguous()
+    return vit_attention_bwd_onepass(q, k, v, g, lse, bwd_delta(out, g))
+
+
+class _VitAttention(torch.autograd.Function):
+    """Kernel A with the LSE forward, kernel 5 backward (JAX's
+    `vit_attention_df` custom_vjp pair)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v):
+        out, lse = vit_attention(q, k, v, return_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        return vit_attention_bwd(*ctx.saved_tensors, g)
+
+
+def vit_attention_df(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Differentiable ViT attention: where a gradient is needed, kernel A
+    (with its LSE) forward and kernel 5 backward (on a CPU tensor their
+    plain versions); otherwise `vit_attention`, unchanged."""
+    if not needs_grad(q, k, v):
+        return vit_attention(q, k, v)
+    return _VitAttention.apply(q, k, v)
 
 
 def vit_attention_fused_qkv_plain(qkv: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,

@@ -1,0 +1,101 @@
+"""Training loss: label-masked next-token cross-entropy with a chunked head
+(`grasp_any_region_tpu/train/losses.py`).
+
+The head product and the CE run per chunk of `chunk_size` rows, each chunk
+checkpointed (`torch.utils.checkpoint`, non-reentrant), so the (B, C, V)
+fp32 logits of one chunk are alive at a time, in the forward and again in
+the backward. Labels use -100 as the ignore index.
+
+The head product is a plain large matrix product, as the JAX package
+leaves it to XLA: operands in the working dtype, fp32 sums and fp32
+logits (`torch.mm(..., out_dtype=float32)` on the card, as `lm_logits`;
+fp32 products on the CPU). Its backward casts the fp32 logit gradient to
+the working dtype for the two products.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch.utils.checkpoint import checkpoint
+
+from ..core.config import TextConfig
+from ..ops.norms import rms_norm
+
+IGNORE_INDEX = -100
+
+
+def shift_labels(labels: torch.Tensor) -> torch.Tensor:
+    """Align labels so position t supervises token t+1 (HF shift)."""
+    pad = torch.full((labels.shape[0], 1), IGNORE_INDEX, dtype=labels.dtype,
+                     device=labels.device)
+    return torch.cat([labels[:, 1:], pad], dim=1)
+
+
+class _HeadLogits(torch.autograd.Function):
+    """fp32 logits x @ W of working-dtype operands: W is the tied (V, D)
+    embedding (used transposed) or the untied (D, V) head."""
+
+    @staticmethod
+    def forward(ctx, x, head, tied):
+        ctx.save_for_backward(x, head)
+        ctx.tied = tied
+        w = head.t() if tied else head
+        if x.device.type == "cuda":
+            return torch.mm(x, w.to(x.dtype), out_dtype=torch.float32)
+        return x.float() @ w.float()
+
+    @staticmethod
+    def backward(ctx, g):
+        x, head = ctx.saved_tensors
+        x_dtype, head_dtype = x.dtype, head.dtype
+        if x.device.type == "cuda":
+            g, w = g.to(x_dtype), head.to(x_dtype)
+        else:  # fp32 products, rounded once to the operands' dtypes
+            x, w = x.float(), head.float()
+        if ctx.tied:  # logits = x @ head^T
+            dx, dhead = g @ w, g.t() @ x
+        else:  # logits = x @ head
+            dx, dhead = g @ w.t(), x.t() @ g
+        return dx.to(x_dtype), dhead.to(head_dtype), None
+
+
+def _chunk_nll(head: torch.Tensor, x: torch.Tensor, labels: torch.Tensor, tied: bool,
+               valid_vocab: Optional[int]) -> torch.Tensor:
+    """Summed NLL of one chunk: x (B, C, D), labels (B, C)."""
+    b, c, d = x.shape
+    logits = _HeadLogits.apply(x.reshape(b * c, d), head, tied).reshape(b, c, -1)
+    if valid_vocab is not None and valid_vocab < logits.shape[-1]:
+        ok = torch.arange(logits.shape[-1], device=logits.device) < valid_vocab
+        logits = torch.where(ok, logits, -1e30)
+    mask = labels != IGNORE_INDEX
+    safe = torch.where(mask, labels, 0).long()
+    gold = torch.gather(logits, -1, safe[..., None])[..., 0]
+    nll = torch.where(mask, torch.logsumexp(logits, dim=-1) - gold, 0.0)
+    return nll.sum()
+
+
+def ce_sums(llm_params, cfg: TextConfig, hidden: torch.Tensor, labels: torch.Tensor, *,
+            chunk_size: int = 1024, valid_vocab: Optional[int] = None):
+    """(sum of NLL over supervised positions, supervised count), both 0-dim
+    device tensors. hidden (B, S, D) is the decoder output before the final
+    norm; labels (B, S) are already shifted."""
+    x = rms_norm(hidden, llm_params.final_norm, cfg.rms_norm_eps)
+    tied = cfg.tie_word_embeddings
+    head = llm_params.embed if tied else llm_params.lm_head
+    total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for lo in range(0, x.shape[1], chunk_size):
+        total = total + checkpoint(_chunk_nll, head, x[:, lo:lo + chunk_size],
+                                   labels[:, lo:lo + chunk_size], tied, valid_vocab,
+                                   use_reentrant=False)
+    return total, (labels != IGNORE_INDEX).sum()
+
+
+def chunked_cross_entropy(llm_params, cfg: TextConfig, hidden: torch.Tensor,
+                          labels: torch.Tensor, *, chunk_size: int = 1024,
+                          valid_vocab: Optional[int] = None) -> torch.Tensor:
+    """Mean CE over supervised positions. Never materializes full logits."""
+    total, count = ce_sums(llm_params, cfg, hidden, labels, chunk_size=chunk_size,
+                           valid_vocab=valid_vocab)
+    return total / count.clamp(min=1).float()

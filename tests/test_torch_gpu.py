@@ -427,3 +427,107 @@ def test_int8_decode_step_on_the_card(rnd):
         cfg, tuple(t.cpu() for t in kv), plens, 512, quantize_kv=True), s)
     assert torch.isfinite(logits).all()
     assert ((logits.cpu() - ref).abs().max() / ref.abs().max()).item() < 5e-2
+
+
+# ---- training: A and B with their LSE, B with segment ids, kernels 5, 17, 18
+
+
+def _packed_segments(b, s, gen):
+    """(B, S) int32 ids of documents 1, 2, ... of 30-300 tokens, then padding (0)."""
+    seg = torch.zeros((b, s), dtype=torch.int32)
+    for r in range(b):
+        off, doc = 0, 1
+        while True:
+            n = int(torch.randint(30, 300, (1,), generator=gen))
+            if off + n > s - 17:
+                break
+            seg[r, off:off + n] = doc
+            off, doc = off + n, doc + 1
+    return seg.cuda()
+
+
+@pytest.mark.parametrize("t,s,h", [(2, 200, 2), (3, 1025, 4), (1, 64, 1)])
+def test_vit_attention_lse_and_backward_kernels(rnd, t, s, h):
+    q, k, v, g = (rnd(t, s, h, 64) for _ in range(4))
+    out, lse = va.vit_attention(q, k, v, return_lse=True)
+    ref, ref_lse = va.vit_attention_plain(q.float(), k.float(), v.float(), return_lse=True)
+    torch.testing.assert_close(out.float(), ref, **TOL)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=1e-4)
+    before = va.launches_bwd
+    got = va.vit_attention_bwd(q, k, v, out, lse, g)
+    torch.cuda.synchronize()
+    assert va.launches_bwd == before + 1
+    want = va.vit_attention_bwd_plain(q.float(), k.float(), v.float(), out.float(), lse,
+                                      g.float())
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        torch.testing.assert_close(a.float(), b, **TOL, msg=name)
+
+
+@pytest.mark.parametrize("b,sq,sk,h,kh,causal,packed", [
+    (1, 256, 256, 4, 2, True, False),
+    (2, 130, 300, 4, 1, True, False),
+    (2, 200, 333, 8, 2, False, False),
+    (1, 300, 300, 8, 8, True, False),
+    (2, 700, 700, 8, 2, True, True),
+    (1, 450, 450, 4, 4, False, True),
+])
+def test_flash_attention_lse_segments_and_backward_kernels(rnd, b, sq, sk, h, kh, causal,
+                                                           packed):
+    from grasp_any_region_tpu_torch.ops import flash_backward as fb
+
+    q, g = rnd(b, sq, h, 64), rnd(b, sq, h, 64)
+    k, v = rnd(b, sk, kh, 64), rnd(b, sk, kh, 64)
+    seg = _packed_segments(b, sq, torch.Generator().manual_seed(sq)) if packed else None
+    kw = dict(causal=causal, segment_ids=seg)
+    out, lse = fa.flash_attention(q, k, v, return_lse=True, **kw)
+    ref, ref_lse = fa.flash_attention_plain(q.float(), k.float(), v.float(), return_lse=True,
+                                            **kw)
+    torch.testing.assert_close(out.float(), ref, **TOL)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=1e-4)
+    before = fb.launches_dq, fb.launches_dkv
+    got = fb.flash_attention_bwd(q, k, v, out, lse, g, **kw)
+    torch.cuda.synchronize()
+    assert (fb.launches_dq, fb.launches_dkv) == (before[0] + 1, before[1] + 1)
+    want = fb.flash_attention_bwd_plain(q.float(), k.float(), v.float(), out.float(), lse,
+                                        g.float(), **kw)
+    for name, a, b_ in zip(("dq", "dk", "dv"), got, want):
+        torch.testing.assert_close(a.float(), b_, **TOL, msg=name)
+
+
+def test_raw_attention_wrappers_refuse_a_gradient(rnd):
+    q = rnd(1, 64, 2, 64).requires_grad_()
+    with pytest.raises(RuntimeError, match="vit_attention_df"):
+        va.vit_attention(q, q, q)
+    with pytest.raises(RuntimeError, match="flash_attention_df"):
+        fa.flash_attention(q, q, q)
+
+
+def test_train_step_backward_runs_the_kernels_on_the_card(rnd):
+    """One loss.backward() at a narrow gar_1b (2 + 2 layers): the card's
+    gradients come through kernels A, 5, B, 17, 18 (A and B twice a block:
+    the remat recompute) and are finite."""
+    from grasp_any_region_tpu_torch.core.config import gar_1b
+    from grasp_any_region_tpu_torch.core.weights import init_gar_params
+    from grasp_any_region_tpu_torch.data.synthetic import synthetic_batch
+    from grasp_any_region_tpu_torch.ops import flash_backward as fb
+    from grasp_any_region_tpu_torch.train import loss_fn
+
+    cfg = gar_1b()
+    cfg = dataclasses.replace(
+        cfg, vision=dataclasses.replace(cfg.vision, width=256, num_heads=4, depth=2),
+        text=dataclasses.replace(cfg.text, hidden_size=256, num_heads=4, num_kv_heads=2,
+                                 head_dim=64, num_layers=2, intermediate_size=1024))
+    params = init_gar_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                             dtype=torch.bfloat16)
+    for p in params.parameters():
+        p.requires_grad_(True)
+    batch, labels, _ = synthetic_batch(cfg, grid=(2, 1), seed=0)
+    before = (va.launches, va.launches_bwd, fa.launches, fb.launches_dq, fb.launches_dkv)
+    loss = loss_fn(params, cfg, batch, labels, mask_compat=False)
+    loss.backward()
+    torch.cuda.synchronize()
+    after = (va.launches, va.launches_bwd, fa.launches, fb.launches_dq, fb.launches_dkv)
+    assert tuple(a - b for a, b in zip(after, before)) == (4, 2, 4, 2, 2)
+    assert torch.isfinite(loss)
+    assert all(torch.isfinite(p.grad).all() for p in params.parameters() if p.grad is not None)
+    assert params.vision.blocks.wqkv.grad.abs().max() > 0

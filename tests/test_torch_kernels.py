@@ -61,11 +61,15 @@ def test_flash_attention_plain_matches_pallas(rng, sq, sk, h, kh, causal):
 
 
 def test_flash_attention_rejects_unported_options(rng):
-    q = torch.zeros(1, 8, 2, 64)
-    with pytest.raises(NotImplementedError):
-        tflash.flash_attention(q, q, q, segment_ids=torch.ones(1, 8, dtype=torch.int32))
-    with pytest.raises(NotImplementedError):
-        tflash.flash_attention(q, q, q, return_lse=True)
+    """Segment ids and the LSE output are ported (tests/test_torch_train_kernels.py);
+    segment ids outside self-attention have no kernel and raise on any device."""
+    q, k = torch.zeros(1, 8, 2, 64), torch.zeros(1, 12, 2, 64)
+    with pytest.raises(ValueError, match="self-attention"):
+        tflash.flash_attention(q, k, k, segment_ids=torch.ones(1, 8, dtype=torch.int32))
+    with pytest.raises(ValueError, match="self-attention"):
+        tflash.flash_attention(q, q, q, segment_ids=torch.ones(1, 9, dtype=torch.int32))
+    out, lse = tflash.flash_attention(q, q, q, return_lse=True)
+    assert out.shape == q.shape and lse.shape == (1, 2, 8)
 
 
 def test_decode_attention_fused_plain_matches_pallas(rng):
