@@ -16,13 +16,17 @@ the script exits non-zero (there is no CPU fallback):
    bytes over 3.35 TB/s and its bf16 operations over 989 TFLOP/s, the
    H100 SXM's published peaks) and, where one PyTorch call computes the
    same function (SDPA for A and B, torch.mm for H, the W8A16 product
-   torch._weight_int8pack_mm for H8), that call's time. E
-   also at a ragged S = 200. The decode matmuls H, I, J and their int8
+   torch._weight_int8pack_mm for H8, SDPA over views of E's fused buffer,
+   torch.addmm for F), that call's time. E also at a ragged S = 200. The decode matmuls H, I, J and their int8
    forms H8, I8, J8 also at B = 24 (with their GB/s of weights, cuBLAS's
    bf16 product of the same layer and the card's copy rate on the same
    bytes) and at the narrow config's ragged widths. C8 (int8 KV) at the
    main path's cache, B = 1 and 5120 columns, and at B = 24; its written
-   column within one quantization step of the plain version's.
+   column within one quantization step of the plain version's. The mega
+   decode step's kernels 19-23 at gar_1b shapes, B = 24 and B = 1 (22 with
+   bf16 and with int8 wo, over a cache of the main path's shape, its
+   written K/V column checked, beside kernel C + kernel H on wo), with
+   their GB/s; the plain versions here take the same bf16 inputs.
 3. End-to-end cross-check on a narrow gar_1b (ViT width 256, decoder
    hidden 256, 2 layers each, head dim 64): the same seeded bf16 params on
    the card (kernel path: the fused ViT and the fused decode step) and on
@@ -30,6 +34,8 @@ the script exits non-zero (there is no CPU fallback):
    prefill logits and the first 4 decode-step logits must agree. Then once
    more with int8 decode weights and an int8 cache (2 kv heads, so the
    heads pair), the card's H8, I8, J8, C8 against their plain versions.
+   Then the mega step (use_kernel="mega", a bf16 cache) on both sides, with
+   bf16 and with int8 weights: 19, 22, 23 (20, 22, 21) once a layer.
 4. Vision forms: the gar_1b tower over 17 tiles in the fused form (kernels
    D, E, F, G) and the unfused form (kernel A) on the same params and
    inputs; their outputs must agree to 5e-2 of the output range, and each
@@ -39,8 +45,12 @@ the script exits non-zero (there is no CPU fallback):
    (cuBLAS products around C), from the same input embedding; hidden and
    written K/V must agree to 5e-2 of their range; device and host ms per
    step of each form. Then the int8 fused step (J8, C8, H8, I8, H8 a layer)
-   from the same cache seeded int8, its ms and its gap to the bf16 step,
-   and the LM head's device time, bf16 against int8.
+   from the same cache seeded int8, its ms and its gap to the bf16 step;
+   the mega step on the bf16 cache (19, 22, 23 a layer) held to the XLA
+   form, and with int8 weights (20, 22, 21) held to the XLA form of the
+   serving-only int8 tree, within 5e-2 of the range; the profiler's device
+   ops per step of the fused and the mega form; and the LM head's device
+   time, bf16 against int8.
 6. Main path: gar_1b with seeded random weights, one 17-tile image, one
    region, a 4662-token prompt and 256 greedy tokens through `generate`;
    ms per caption split into vision, prefill and decode, and the kernel
@@ -50,7 +60,11 @@ the script exits non-zero (there is no CPU fallback):
    `quantize_decode_weights(params)` and `quantize_kv=True`: the same
    split, launch counts C8 = I8 = J8 = 16 * 255, H8 = 2 * 16 * 255 and no
    C, H, I, J, and the relative gap of the first decode step's logits to
-   the bf16 path's (printed, not bounded).
+   the bf16 path's (printed, not bounded). Then generate with
+   GAR_DECODE_PATH=mega, bf16 and then int8 weights on a bf16 cache: the
+   same split, 19 = 22 = 23 = 16 * 255 (or 20 = 21 = 22) and no kernel of
+   the fused step, and the first token where the greedy output leaves the
+   fused path's (printed, not bounded).
 
 Training (its kernels in phase 2, its paths after phase 6):
 
@@ -66,14 +80,17 @@ Training (its kernels in phase 2, its paths after phase 6):
 7. Train cross-check on the narrow gar_1b of phase 3: one loss and backward
    on the card (kernels A, 5, B, 17, 18) and on the CPU (plain path) from
    the same seeded bf16 params; the losses and every gradient leaf within
-   5e-2 of that leaf's max |g|.
+   5e-2 of that leaf's max |g|; the worst leaf's gap printed beside the
+   gap with the CE head's backward in its earlier form (the logit gradient
+   rounded to bf16 before the products).
 8. The GAR-1B train step (bench.py:128-226): bf16 params and Adam moments,
    one 17-tile image with one region (S = 4662), remat on, a warm-up window
    of 8 steps through make_train_loop, then 8 steps with CUDA events
    between them: median ms/step, supervised tok/s, TFLOP/s from gar_flops,
    peak memory, the losses (finite, the last below the first), the time
    split of one step (vision, decoder and CE forward and backward, the
-   optimizer) and the launches a step: A = 46, 5 = 23, B = 32, 17 = 18 =
+   optimizer), the CE's backward alone in both head-backward forms, and
+   the launches a step: A = 46, 5 = 23, B = 32, 17 = 18 =
    16, every other kernel 0 (A and B twice a block: non-reentrant
    checkpointing replays each block's forward in the backward).
 9. The packed text-only step (bench.py:229-277): 2 rows x 4096 tokens of
@@ -89,6 +106,7 @@ from __future__ import annotations
 import copy
 import dataclasses
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -253,6 +271,7 @@ def phase_kernels():
     results["C8"] = decode_attention_q8_kernel(rnd)
     results.update(vit_block_kernels(rnd, gen))
     results.update(decode_matmul_kernels(rnd))
+    results.update(mega_kernels(rnd))
     for name, r in results.items():
         lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
         log(f"[kernels] {name}: max |kernel - plain| {r['max_abs_err']:.3e}, "
@@ -400,14 +419,18 @@ def train_kernels(rnd):
     return results
 
 
-def decode_bound(q, k_all, plens, pad, wpos):
-    """Kernel C's (C8's) bound at one layer: the valid K and V columns of
-    each row read, the new column written, q read and the output written;
-    4 operations per query head, column and dim (QK and PV)."""
+def decode_work(q, k_all, plens, pad, wpos):
+    """Kernel C's (C8's, 22's attention) work at one layer, (bytes,
+    operations): the valid K and V columns of each row read, the new column
+    written, q read and the output written; 4 operations per query head,
+    column and dim (QK and PV)."""
     _, _, kh, _, d = k_all.shape
     cols = sum(min(p, pad, wpos) + max(wpos - pad, 0) + 1 for p in plens)
-    n_bytes = 2 * cols * kh * d * k_all.element_size() + 2 * nbytes(q)
-    return bound(n_bytes, 4 * q.shape[1] * d * cols)
+    return 2 * cols * kh * d * k_all.element_size() + 2 * nbytes(q), 4 * q.shape[1] * d * cols
+
+
+def decode_bound(q, k_all, plens, pad, wpos):
+    return bound(*decode_work(q, k_all, plens, pad, wpos))
 
 
 def decode_attention_q8_kernel(rnd):
@@ -483,11 +506,15 @@ def vit_block_kernels(rnd, gen):
         torch.cuda.synchronize()
         err = max_err(out, va.vit_attention_fused_qkv_plain(qkv.float(), cos, sin, h, 64),
                       f"E (S = {seq})")
+    # library: SDPA over (B, H, S, D) views of the fused buffer (no rope)
+    heads = [qkv[..., i * d:(i + 1) * d].unflatten(-1, (h, 64)).transpose(1, 2) for i in range(3)]
     results["E"] = dict(
         max_abs_err=err, ms=cuda_ms(lambda: va.vit_attention_fused_qkv(qkv, cos, sin, h, 64)),
         plain_ms=cuda_ms(lambda: va.vit_attention_fused_qkv_plain(qkv, cos, sin, h, 64),
                          iters=5),
-        library_ms=None, **bound(nbytes(qkv, cos, sin, out), 4 * t * h * s * s * 64))
+        library_ms=cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(*heads)),
+        **bound(nbytes(qkv, cos, sin, out), 4 * t * h * s * s * 64))
+    del heads
     del qkv, cos, sin, out
 
     x, attn = rnd(t, s, d), rnd(t, s, d)
@@ -504,13 +531,16 @@ def vit_block_kernels(rnd, gen):
         "G": (vb.vit_mlp_residual, vb.vit_mlp_residual_plain,
               (x, *ln, fc1, b1, fc2, b2, ls2), dict(fast_gelu=True), 4 * rows * d * m),
     }
+    # library: F's product and residual as one torch.addmm (no bias, no LayerScale)
+    library = dict(F=lambda: torch.addmm(x.view(rows, d), attn.view(rows, d), wo))
     for name, (kernel, plain, args, kw, ops) in cases.items():
         out = kernel(*args, **kw)
         torch.cuda.synchronize()
         err = max_err(out, plain(*(a.float() for a in args), **kw), name)
         results[name] = dict(max_abs_err=err, ms=cuda_ms(lambda: kernel(*args, **kw)),
                              plain_ms=cuda_ms(lambda: plain(*args, **kw), iters=5),
-                             library_ms=None, **bound(nbytes(*args, out), ops))
+                             library_ms=cuda_ms(library[name]) if name in library else None,
+                             **bound(nbytes(*args, out), ops))
         del out
     return results
 
@@ -631,6 +661,121 @@ def decode_matmul_kernels(rnd):
     return results
 
 
+def mega_kernels(rnd):
+    """Kernels 19-23 at the gar_1b decode shapes (hidden 2048, q 2048, kv 512,
+    MLP 8192, 32 / 8 heads of 64), the weights stacked (16, Din, Dout) and
+    read at layer 7 (int8: the bf16 ones quantized), at B = 24 and B = 1
+    (the kernels line carries B = 1), against their plain versions on the
+    same bf16 inputs. 22 runs over a cache of the main path's shape, (16, B,
+    8, 5120, 64) with the 4662-token prompt, write_pos just past prompt_pad;
+    its written column must hold the new K/V and nothing else may change.
+    Beside each time: the weight (and, for 22, cache) bytes over it, and for
+    22 kernel C + kernel H (wo) on the same inputs, the fused step's pair."""
+    from grasp_any_region_tpu_torch.core.config import gar_1b
+    from grasp_any_region_tpu_torch.models.quantize import quantize_int8
+    from grasp_any_region_tpu_torch.ops import decode_attention as dec
+    from grasp_any_region_tpu_torch.ops import decode_megakernel as mk
+    from grasp_any_region_tpu_torch.ops import layer_matmul as lm
+    from grasp_any_region_tpu_torch.ops.rope import llama_inv_freq, rope_cos_sin
+
+    tc = gar_1b().text
+    d, m, hq, hk, n_layers, layer = 2048, 8192, 2048, 512, 16, 7
+    eps = tc.rms_norm_eps
+
+    def stack(din, n):
+        return (rnd(n_layers, din, n).float() * din ** -0.5).to(torch.bfloat16)
+
+    wq, wk, wv, wo = stack(d, hq), stack(d, hk), stack(d, hk), stack(hq, d)
+    wg, wu, wd = stack(d, m), stack(d, m), stack(m, d)
+    bf = dict(wq=wq, wk=wk, wv=wv, wo=wo, wg=wg, wu=wu, wd=wd)
+    q8 = {name: quantize_int8(w) for name, w in bf.items()}
+
+    def mats(*names, int8=False):  # the weights (int8: and their scales) of `names`
+        return [t for n in names for t in (q8[n] if int8 else (bf[n],))]
+
+    norm = (1.0 + 0.2 * rnd(n_layers, d).float()).to(torch.bfloat16)
+    pad, wpos = 4662, 4663
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 19)
+    results = {}
+    for b in (24, 1):
+        plens = [pad] + torch.randint(3000, pad + 1, (b - 1,), generator=gen,
+                                      device="cuda").tolist()
+        cos, sin = rope_cos_sin(torch.tensor(plens, device="cuda") + (wpos - pad),
+                                llama_inv_freq(tc, "cuda"))
+        x = rnd(b, d) * 4
+        io = 2 * nbytes(x)  # the residual in, the new residual (or q, k, v) out
+        cases = {  # key: (kernel, plain, args, kwargs, weight tensors at the layer, GEMM ops)
+            "19": (mk.layer_qkv_norm_rope, mk.layer_qkv_norm_rope_plain,
+                   (x, norm, wq, wk, wv, cos, sin, cos, sin), dict(eps=eps, head_dim=64),
+                   (wq, wk, wv), 2 * b * d * (hq + 2 * hk)),
+            "20": (mk.layer_qkv_norm_rope_q8, mk.layer_qkv_norm_rope_q8_plain,
+                   (x, norm, *mats("wq", "wk", "wv", int8=True), cos, sin, cos, sin),
+                   dict(eps=eps, head_dim=64), mats("wq", "wk", "wv", int8=True),
+                   2 * b * d * (hq + 2 * hk)),
+            "23": (mk.layer_mlp_residual, mk.layer_mlp_residual_plain, (x, norm, wg, wu, wd),
+                   dict(eps=eps), (wg, wu, wd), 6 * b * d * m),
+            "21": (mk.layer_mlp_residual_q8, mk.layer_mlp_residual_q8_plain,
+                   (x, norm, *mats("wg", "wu", "wd", int8=True)), dict(eps=eps),
+                   mats("wg", "wu", "wd", int8=True), 6 * b * d * m),
+        }
+        for key, (kernel, plain, args, kw, ws, ops) in cases.items():
+            out = kernel(*args, layer, **kw)
+            torch.cuda.synchronize()
+            ref = plain(*args, layer, **kw)
+            outs, refs = (out, ref) if isinstance(out, tuple) else ((out,), (ref,))
+            err = max(max_err(o, r, f"{key} (B = {b})") for o, r in zip(outs, refs))
+            w_bytes = nbytes(*(w[layer] for w in ws))
+            ms = cuda_ms(lambda: kernel(*args, layer, **kw))
+            plain_ms = cuda_ms(lambda: plain(*args, layer, **kw), iters=5)
+            lim = bound(w_bytes + io + nbytes(cos, sin, norm[layer]), ops)
+            log(f"[kernels] {key} ({kernel.__name__}), B = {b}: {ms:.4f} ms = "
+                f"{w_bytes / ms / 1e6:.0f} GB/s of weights ({w_bytes / 1e6:.1f} MB, bound "
+                f"{lim['bound_ms']:.4f} ms of {lim['bound_by']}); plain {plain_ms:.4f} ms; "
+                f"max |kernel - plain| {err:.3e}")
+            results[key] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None, **lim)
+
+        # 22 over the main path's cache, bf16 wo then int8 wo
+        k_all, v_all = rnd(n_layers, b, 8, 5120, 64), rnd(n_layers, b, 8, 5120, 64)
+        q, k_new, v_new = rnd(b, 32, 64), rnd(b, 8, 64), rnd(b, 8, 64)
+        kw = dict(prompt_lens=torch.tensor(plens, dtype=torch.int32, device="cuda"),
+                  write_pos=torch.tensor(wpos, dtype=torch.int32, device="cuda"), prompt_pad=pad)
+        k_ref, v_ref = k_all.clone(), v_all.clone()
+        cache_bytes, cache_ops = decode_work(q, k_all, plens, pad, wpos)
+        c_h = cuda_ms(lambda: lm.layer_matmul(dec.decode_attention_fused(
+            q, k_all, v_all, k_new, v_new, layer, **kw).reshape(b, hq), wo, layer))
+        for label, w, scale in (("bf16 wo", wo, None), ("int8 wo", *q8["wo"])):
+            args = (q, k_all, v_all, k_new, v_new, w, x, layer)
+            out = mk.decode_attention_wo(*args, wo_scale=scale, **kw)
+            torch.cuda.synchronize()
+            k_exp, v_exp = k_ref.clone(), v_ref.clone()
+            ref = mk.decode_attention_wo_plain(q, k_exp, v_exp, k_new, v_new, w, x, layer,
+                                               wo_scale=scale, **kw)
+            err = max_err(out, ref, f"22 {label} (B = {b})")
+            if not (torch.equal(k_all, k_exp) and torch.equal(v_all, v_exp)
+                    and torch.equal(k_all[layer, :, :, wpos], k_new)):
+                raise AssertionError(f"22 {label} (B = {b}): the cache differs from the plain "
+                                     "version's, or column write_pos does not hold the new K/V")
+            del k_exp, v_exp
+            ms = cuda_ms(lambda: mk.decode_attention_wo(*args, wo_scale=scale, **kw))
+            plain_ms = cuda_ms(lambda: mk.decode_attention_wo_plain(*args, wo_scale=scale, **kw),
+                               iters=5)
+            n_bytes = cache_bytes + nbytes(w[layer]) + io
+            if scale is not None:
+                n_bytes += nbytes(scale[layer])
+            lim = bound(n_bytes, cache_ops + 2 * b * hq * d)
+            if scale is None:
+                results["22"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
+                                     **lim)
+            log(f"[kernels] 22 (decode_attention_wo, {label}), B = {b}: {ms:.4f} ms = "
+                f"{n_bytes / ms / 1e6:.0f} GB/s ({cache_bytes / 1e6:.1f} MB of cache, "
+                f"{nbytes(w[layer]) / 1e6:.1f} MB of wo; bound {lim['bound_ms']:.4f} ms of "
+                f"{lim['bound_by']}); kernel C + kernel H (bf16 wo) on the same inputs "
+                f"{c_h:.4f} ms; plain {plain_ms:.4f} ms; max |kernel - plain| {err:.3e}")
+        del k_all, v_all, k_ref, v_ref
+    torch.cuda.empty_cache()
+    return results
+
+
 def narrow_config(kv_heads: int = 1):
     from grasp_any_region_tpu_torch.core.config import gar_1b
 
@@ -663,10 +808,19 @@ def bench_batch(cfg, device):
     return batch, prompt_lens
 
 
+def mega_counts(layers: int, int8: bool) -> dict:
+    """Launches of the mega step's kernels over `layers` layer calls."""
+    return {"20": layers, "21": layers, "22": layers} if int8 else \
+        {"19": layers, "22": layers, "23": layers}
+
+
 @torch.inference_mode()
-def phase_cross_check(cfg, int8: bool = False):
+def phase_cross_check(cfg, int8: bool = False, mega: bool = False):
     """The kernel path on the card against the plain path on the CPU, from
-    the same params (int8: quantized once, on the CPU, and copied)."""
+    the same params (int8: quantized once, on the CPU, and copied). The
+    default decode step (int8: with an int8 cache), or with mega the mega
+    step on a bf16 cache, on the card and on the CPU (there through its
+    plain versions), its launches counted."""
     from grasp_any_region_tpu_torch.models.gar import (
         gar_decode_step, gar_prefill, seed_cache_from_prefill)
     from grasp_any_region_tpu_torch.models.llama import lm_logits
@@ -675,7 +829,8 @@ def phase_cross_check(cfg, int8: bool = False):
     p_cpu = random_params(cfg, "cpu")
     if int8:
         p_cpu = quantize_decode_weights(p_cpu)
-    tag = "[cross-check int8]" if int8 else "[cross-check]"
+    tag = "[cross-check" + (" mega" if mega else "") + (" int8" if int8 else "") + "]"
+    use_kernel = "mega" if mega else None
     runs = []  # logits per path: prefill, then 4 decode steps
     tokens = None
     for dev, params in (("cuda", copy.deepcopy(p_cpu).to("cuda")), ("cpu", p_cpu)):
@@ -685,15 +840,21 @@ def phase_cross_check(cfg, int8: bool = False):
         logits = [lm_logits(params.llm, cfg.text, hidden[:, -1],
                             valid_vocab=cfg.extended_vocab_size).float().cpu()]
         cache = seed_cache_from_prefill(cfg, kv, plens, ((s + 4 + 511) // 512) * 512,
-                                        quantize_kv=int8)
+                                        quantize_kv=int8 and not mega)
         # both paths decode the card's greedy tokens, so the steps stay comparable
         feed = tokens if tokens is not None else [int(logits[0].argmax())]
+        reset_counts()
         for step in range(4):
             tok = torch.tensor([feed[step]], dtype=torch.int32, device=dev)
-            lg, cache = gar_decode_step(params, cfg, tok, cache, s)
+            lg, cache = gar_decode_step(params, cfg, tok, cache, s, use_kernel=use_kernel)
             logits.append(lg.float().cpu())
             if tokens is None:
                 feed.append(int(lg.argmax()))
+        if mega and dev == "cuda":
+            torch.cuda.synchronize()
+            want = expect(**mega_counts(4 * cfg.text.num_layers, int8))
+            if read_counts() != want:
+                raise AssertionError(f"{tag} launches {read_counts()}, expected {want}")
         tokens = feed
         runs.append(logits)
     worst = 0.0
@@ -714,31 +875,34 @@ def phase_cross_check(cfg, int8: bool = False):
 def counter_modules():
     """The wrapper modules whose launch counters the phases read."""
     from grasp_any_region_tpu_torch.ops import decode_attention, flash_attention, layer_matmul
-    from grasp_any_region_tpu_torch.ops import flash_backward, vit_attention, vit_block
+    from grasp_any_region_tpu_torch.ops import decode_megakernel, flash_backward, vit_attention
+    from grasp_any_region_tpu_torch.ops import vit_block
 
-    return decode_attention, flash_attention, vit_attention, vit_block, layer_matmul, flash_backward
+    return (decode_attention, flash_attention, vit_attention, vit_block, layer_matmul,
+            flash_backward, decode_megakernel)
 
 
 def reset_counts():
-    dec, fa, va, vb, lm, fb = counter_modules()
+    dec, fa, va, vb, lm, fb, mk = counter_modules()
     va.launches = va.launches_fused = va.launches_bwd = 0
     fa.launches = fa.launches_segments = dec.launches = dec.launches_q8 = 0
     fb.launches_dq = fb.launches_dkv = fb.launches_segments = 0
     vb.launches.update(D=0, F=0, G=0)
-    lm.launches.update(dict.fromkeys(lm.launches, 0))
+    for counts in (lm.launches, mk.launches):
+        counts.update(dict.fromkeys(counts, 0))
 
 
 def read_counts():
-    dec, fa, va, vb, lm, fb = counter_modules()
+    dec, fa, va, vb, lm, fb, mk = counter_modules()
     return {"A": va.launches, "B": fa.launches, "C": dec.launches, "C8": dec.launches_q8,
             "D": vb.launches["D"], "E": va.launches_fused, "F": vb.launches["F"],
             "G": vb.launches["G"], **lm.launches, "5": va.launches_bwd, "17": fb.launches_dq,
-            "18": fb.launches_dkv}
+            "18": fb.launches_dkv, **mk.launches}
 
 
 def segmented_counts():
     """Launches of B and of 17 / 18 that carried segment ids."""
-    _, fa, _, _, _, fb = counter_modules()
+    _, fa, _, _, _, fb, _ = counter_modules()
     return {"B": fa.launches_segments, "17+18": fb.launches_segments}
 
 
@@ -806,15 +970,31 @@ def step_times(step, iters: int = 5):
     return statistics.median(dev), statistics.median(host)
 
 
+def device_ops(run) -> int:
+    """Device ops (kernels, copies, fills) the profiler sees in one call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    return sum(r.count for r in prof.key_averages()
+               if r.device_type == torch.autograd.DeviceType.CUDA)
+
+
 @torch.inference_mode()
 def phase_decode_forms(cfg, params, params_q8):
     """One gar_1b decode step in each form from one seeded cache (the main
     path's: B = 1, the 4662-token prompt, 5120 columns) and the same input
-    embedding, each form on its own copy of the cache; then the int8 step
-    (params_q8: `quantize_decode_weights(params)`) from the same prefill
-    seeded into an int8 cache, and the LM head in bf16 and in int8."""
+    embedding, each form on its own copy of the cache: fused, XLA, the int8
+    step (params_q8: `quantize_decode_weights(params)`, the prefill seeded
+    into an int8 cache), the mega step on the bf16 cache with bf16 and with
+    int8 weights, and the XLA form of the serving-only int8 tree (which
+    projects through the int8 weights, the mega int8 form's reference); then
+    the LM head in bf16 and in int8."""
     from grasp_any_region_tpu_torch.models.gar import gar_prefill, seed_cache_from_prefill
     from grasp_any_region_tpu_torch.models.llama import embed_tokens, llama_decode_step, lm_logits
+    from grasp_any_region_tpu_torch.models.quantize import serving_weights
 
     batch, plens = bench_batch(cfg, "cuda")
     s = batch.input_ids.shape[1]
@@ -826,13 +1006,18 @@ def phase_decode_forms(cfg, params, params_q8):
     seeded_q8 = seed_cache_from_prefill(cfg, kv, plens, max_len, quantize_kv=True)
     del hidden, kv
     emb = embed_tokens(params.llm, first[:, None])
-    n_layers = cfg.text.num_layers
-    expected = dict(fused=expect(C=n_layers, H=2 * n_layers, I=n_layers, J=n_layers),
-                    xla=expect(C=n_layers),
-                    int8=expect(C8=n_layers, H8=2 * n_layers, I8=n_layers, J8=n_layers))
-    outs, counts, times = {}, {}, {}
-    for form, use_kernel in (("fused", "fused"), ("xla", False), ("int8", None)):
-        src, llm = (seeded_q8, params_q8.llm) if form == "int8" else (seeded, params.llm)
+    n = cfg.text.num_layers
+    serving = serving_weights(params)
+    forms = {  # form: (decoder params, cache, use_kernel, launches a step)
+        "fused": (params.llm, seeded, "fused", expect(C=n, H=2 * n, I=n, J=n)),
+        "xla": (params.llm, seeded, False, expect(C=n)),
+        "int8": (params_q8.llm, seeded_q8, None, expect(C8=n, H8=2 * n, I8=n, J8=n)),
+        "mega": (params.llm, seeded, "mega", expect(**mega_counts(n, False))),
+        "mega int8 weights": (params_q8.llm, seeded, "mega", expect(**mega_counts(n, True))),
+        "xla int8 weights": (serving.llm, seeded, False, expect(C=n)),
+    }
+    outs, counts, times, ops = {}, {}, {}, {}
+    for form, (llm, src, use_kernel, _) in forms.items():
         cache = src._replace(k=src.k.clone(), v=src.v.clone(), write_pos=src.write_pos.clone())
 
         def step():
@@ -844,17 +1029,22 @@ def phase_decode_forms(cfg, params, params_q8):
         counts[form] = read_counts()
         outs[form] = (hidden.float(), cache.k[:, :, :, s].float(), cache.v[:, :, :, s].float())
         times[form] = step_times(step)
+        if form in ("fused", "mega"):
+            ops[form] = device_ops(step)
+    del serving
+    expected = {form: f[3] for form, f in forms.items()}
     if counts != expected:
         raise AssertionError(f"decode forms: launch counts per step {counts}, "
                              f"expected {expected}")
     worst = 0.0
-    for name, fused, xla in zip(("hidden", "K column", "V column"), outs["fused"], outs["xla"]):
-        if fused.shape != xla.shape or not torch.isfinite(fused).all():
-            raise AssertionError(f"decode forms: fused {name} {tuple(fused.shape)} "
-                                 "or non-finite")
-        rel = ((fused - xla).abs().max() / xla.abs().max()).item()
-        worst = max(worst, rel)
-        log(f"[decode] max |fused - xla| / max |xla| over the {name}: {rel:.3e}")
+    for form, ref in (("fused", "xla"), ("mega", "xla"), ("mega int8 weights", "xla int8 weights")):
+        for name, got, want in zip(("hidden", "K column", "V column"), outs[form], outs[ref]):
+            if got.shape != want.shape or not torch.isfinite(got).all():
+                raise AssertionError(f"decode forms: {form} {name} {tuple(got.shape)} "
+                                     "or non-finite")
+            rel = ((got - want).abs().max() / want.abs().max()).item()
+            worst = max(worst, rel)
+            log(f"[decode] max |{form} - {ref}| / max |{ref}| over the {name}: {rel:.3e}")
     h8, h16 = outs["int8"][0], outs["fused"][0]
     if h8.shape != h16.shape or not torch.isfinite(h8).all():
         raise AssertionError(f"decode forms: int8 hidden {tuple(h8.shape)} or non-finite")
@@ -863,7 +1053,8 @@ def phase_decode_forms(cfg, params, params_q8):
         "not bounded)")
     for form, (dev_ms, host_ms) in times.items():
         log(f"[decode] {form} form: {dev_ms:.3f} ms device, {host_ms:.3f} ms host per step; "
-            f"launches per step {counts[form]}")
+            f"launches per step {dict((k, v) for k, v in counts[form].items() if v)}")
+    log(f"[decode] device ops per step (torch.profiler): fused {ops['fused']}, mega {ops['mega']}")
     x = h16[:, 0].to(torch.bfloat16)
     # the int8 head issues a few ops a chunk: sleep ~10 ms so the host has queued them
     head_ms = {name: cuda_ms(lambda: lm_logits(tree.llm, cfg.text, x), sleep_cycles=20_000_000)
@@ -874,19 +1065,24 @@ def phase_decode_forms(cfg, params, params_q8):
         raise AssertionError(f"decode forms differ by {worst:.3e} > {E2E_TOL} of the range")
 
 
-def phase_main_path(cfg, params, params_q8=None):
+def phase_main_path(cfg, params, params_q8=None, mega=False, fused_tokens=None):
     """generate at B = 1 on the bench workload: one warm-up and three timed
     runs, launch counts per caption, the vision / prefill / decode split.
     With params_q8 (`quantize_decode_weights(params)`) the int8 path:
     int8 decode weights and `quantize_kv=True`, and the gap of its first
-    decode step's logits to the bf16 path's."""
+    decode step's logits to the bf16 path's. With mega, GAR_DECODE_PATH=mega
+    (a bf16 cache, int8 weights or not), and the first token where the
+    greedy output leaves fused_tokens (printed, not bounded: random weights
+    make near-ties). Returns (launches per caption, tokens)."""
     from grasp_any_region_tpu_torch.models.gar import (
         encode_images, gar_decode_step, gar_prefill, seed_cache_from_prefill)
     from grasp_any_region_tpu_torch.models.generate import generate
     from grasp_any_region_tpu_torch.models.llama import lm_logits
 
     int8 = params_q8 is not None
-    run_params, tag = (params_q8, "[main int8]") if int8 else (params, "[main]")
+    run_params = params_q8 if int8 else params
+    tag = "[main" + (" mega" if mega else "") + (" int8" if int8 else "") + "]"
+    quantize_kv = int8 and not mega
     new_tokens = 256
     batch, plens = bench_batch(cfg, "cuda")
     b, s = batch.input_ids.shape
@@ -898,22 +1094,31 @@ def phase_main_path(cfg, params, params_q8=None):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         out = generate(run_params, cfg, batch, plens, max_new_tokens=new_tokens, eot_id=-1,
-                       mask_compat=False, quantize_kv=int8)
+                       mask_compat=False, quantize_kv=quantize_kv)
         end.record()
         torch.cuda.synchronize()
         return out, start.elapsed_time(end), read_counts()
 
     depth, steps = cfg.vision.depth, cfg.text.num_layers * (new_tokens - 1)
-    dec = (dict(C8=steps, H8=2 * steps, I8=steps, J8=steps) if int8 else
+    dec = (mega_counts(steps, int8) if mega else
+           dict(C8=steps, H8=2 * steps, I8=steps, J8=steps) if int8 else
            dict(C=steps, H=2 * steps, I=steps, J=steps))
     expected = expect(B=cfg.text.num_layers, D=depth, E=depth, F=depth, G=depth, **dec)
-    run()  # warm-up
-    times, counts, out = [], None, None
-    for _ in range(3):
-        out, ms, counts = run()
-        times.append(ms)
-        if counts != expected:
-            raise AssertionError(f"{tag} launch counts {counts}, expected {expected}")
+    path = os.environ.pop("GAR_DECODE_PATH", None)
+    if mega:
+        os.environ["GAR_DECODE_PATH"] = "mega"
+    try:
+        run()  # warm-up
+        times, counts, out = [], None, None
+        for _ in range(3):
+            out, ms, counts = run()
+            times.append(ms)
+            if counts != expected:
+                raise AssertionError(f"{tag} launch counts {counts}, expected {expected}")
+    finally:
+        os.environ.pop("GAR_DECODE_PATH", None)
+        if path is not None:
+            os.environ["GAR_DECODE_PATH"] = path
     toks = out.tokens
     if toks.shape != (b, new_tokens):
         raise AssertionError(f"{tag} tokens shape {tuple(toks.shape)}")
@@ -934,7 +1139,7 @@ def phase_main_path(cfg, params, params_q8=None):
                            valid_vocab=cfg.extended_vocab_size)
         if not torch.isfinite(logits).all():
             raise AssertionError(f"{tag} non-finite prefill logits")
-        if int8:  # the first decode step from the same prefill, int8 against bf16
+        if int8 and not mega:  # the first decode step from the same prefill, int8 against bf16
             tok = logits.argmax(-1).to(torch.int32)
             step = [gar_decode_step(p, cfg, tok, seed_cache_from_prefill(
                 cfg, kv, plens, s + 512, quantize_kv=q), s)[0] for p, q in
@@ -955,54 +1160,118 @@ def phase_main_path(cfg, params, params_q8=None):
         f"decode {decode_ms:.1f}")
     log(f"{tag} decode {b * (new_tokens - 1) / (decode_ms / 1e3):.1f} tok/s; "
         f"{b / (total_ms / 1e3):.3f} captions/s")
-    log(f"{tag} launches per caption {counts} (expected {expected}); "
-        f"first tokens {toks[0, :8].tolist()}")
-    return counts
+    log(f"{tag} launches per caption {dict((k, v) for k, v in counts.items() if v)} "
+        f"(every other kernel 0, as expected); first tokens {toks[0, :8].tolist()}")
+    if fused_tokens is not None:
+        diff = (toks[0] != fused_tokens[0]).nonzero()
+        log(f"{tag} greedy tokens leave the fused path's at index "
+            f"{int(diff[0]) if len(diff) else 'none (all 256 equal)'} (not bounded)")
+    return counts, toks
+
+
+def _head_backward_rounding_first(ctx, g):
+    """The CE head's backward in the port's earlier form: the fp32 logit
+    gradient rounded to the working dtype before both products (JAX
+    contracts it in fp32 and rounds once). Timed and compared only."""
+    x, head = ctx.saved_tensors
+    g, w = g.to(x.dtype), head.to(x.dtype)
+    dx, dhead = (g @ w, g.t() @ x) if ctx.tied else (g @ w.t(), x.t() @ g)
+    return dx, dhead.to(head.dtype), None
+
+
+class head_backward:
+    """Context: `_HeadLogits.backward` replaced by `fn` (None: as it is)."""
+
+    def __init__(self, fn):
+        from grasp_any_region_tpu_torch.train.losses import _HeadLogits
+
+        self.cls, self.fn, self.saved = _HeadLogits, fn, _HeadLogits.backward
+
+    def __enter__(self):
+        if self.fn is not None:
+            self.cls.backward = staticmethod(self.fn)
+
+    def __exit__(self, *exc):
+        self.cls.backward = staticmethod(self.saved)
 
 
 def phase_train_cross_check(cfg):
     """One loss and backward at the narrow gar_1b, the card's kernel path
     (A with its LSE, 5, B, 17, 18) against the CPU's plain path, from the
-    same seeded bf16 params."""
+    same seeded bf16 params; on the card once more with the CE head's
+    backward in its earlier form (the logit gradient rounded to bf16 first),
+    to show the gap that form left."""
     from grasp_any_region_tpu_torch.core.weights import flat_grads
     from grasp_any_region_tpu_torch.data.synthetic import synthetic_batch
     from grasp_any_region_tpu_torch.train import loss_fn
 
     p_cpu = random_params(cfg, "cpu")
     runs, counts = {}, None
-    for dev, params in (("cuda", copy.deepcopy(p_cpu).to("cuda")), ("cpu", p_cpu)):
+    for run, dev, fn in (("card, rounded first", "cuda", _head_backward_rounding_first),
+                         ("card", "cuda", None), ("cpu", "cpu", None)):
+        params = copy.deepcopy(p_cpu).to(dev) if dev == "cuda" else p_cpu
         for p in params.parameters():
             p.requires_grad_(True)
         batch, labels, _ = synthetic_batch(cfg, grid=(4, 4), regions=1, seed=SEED, device=dev)
         reset_counts()
-        loss = loss_fn(params, cfg, batch, labels, mask_compat=False)
-        loss.backward()
+        with head_backward(fn):
+            loss = loss_fn(params, cfg, batch, labels, mask_compat=False)
+            loss.backward()
         if dev == "cuda":
             torch.cuda.synchronize()
             counts = read_counts()
-        runs[dev] = (loss.item(), flat_grads(params))
+        runs[run] = (loss.item(), flat_grads(params))
     depth, layers = cfg.vision.depth, cfg.text.num_layers
     expected = expect(**{"A": 2 * depth, "5": depth, "B": 2 * layers, "17": layers,
                          "18": layers})
     if counts != expected:
         raise AssertionError(f"train cross-check: launch counts {counts}, expected {expected}")
-    (loss_card, g_card), (loss_cpu, g_cpu) = runs["cuda"], runs["cpu"]
-    if not np.isfinite(loss_card) or abs(loss_card - loss_cpu) > E2E_TOL * abs(loss_cpu):
-        raise AssertionError(f"train cross-check: loss card {loss_card}, cpu {loss_cpu}")
-    rel = {}
-    for name, ref in g_cpu.items():
-        got = g_card[name]
-        if not np.isfinite(got).all():
-            raise AssertionError(f"train cross-check: non-finite gradient {name}")
-        scale = float(np.abs(ref).max())
-        rel[name] = float(np.abs(got - ref).max()) / scale if scale else float(np.abs(got).max())
-    worst = max(rel, key=rel.get)
-    log(f"[train cross-check] loss card {loss_card:.6f}, cpu {loss_cpu:.6f}; {len(rel)} "
-        f"gradient leaves, worst {worst}: max |card - cpu| / max |cpu| = {rel[worst]:.3e}; "
-        f"launches {counts}")
-    if rel[worst] > E2E_TOL:
-        raise AssertionError(f"train cross-check: gradient {worst} differs by {rel[worst]:.3e} "
+    loss_cpu, g_cpu = runs["cpu"]
+    rel = {run: {} for run in runs if run != "cpu"}
+    for run, gaps in rel.items():
+        loss_card, g_card = runs[run]
+        if not np.isfinite(loss_card) or abs(loss_card - loss_cpu) > E2E_TOL * abs(loss_cpu):
+            raise AssertionError(f"train cross-check ({run}): loss card {loss_card}, "
+                                 f"cpu {loss_cpu}")
+        for name, ref in g_cpu.items():
+            got = g_card[name]
+            if not np.isfinite(got).all():
+                raise AssertionError(f"train cross-check ({run}): non-finite gradient {name}")
+            scale = float(np.abs(ref).max())
+            gaps[name] = float(np.abs(got - ref).max()) / scale if scale else float(
+                np.abs(got).max())
+    after, before = rel["card"], rel["card, rounded first"]
+    worst, worst_before = max(after, key=after.get), max(before, key=before.get)
+    log(f"[train cross-check] loss card {runs['card'][0]:.6f}, cpu {loss_cpu:.6f}; "
+        f"{len(after)} gradient leaves, worst {worst}: max |card - cpu| / max |cpu| = "
+        f"{after[worst]:.3e}; launches {dict((k, v) for k, v in counts.items() if v)}")
+    log(f"[train cross-check] CE head backward: worst leaf with the logit gradient rounded to "
+        f"bf16 first {worst_before} {before[worst_before]:.3e}, as JAX (fp32, one rounding) "
+        f"{worst} {after[worst]:.3e}; llm/embed {before['llm/embed']:.3e} -> "
+        f"{after['llm/embed']:.3e}")
+    if after[worst] > E2E_TOL:
+        raise AssertionError(f"train cross-check: gradient {worst} differs by {after[worst]:.3e} "
                              f"> {E2E_TOL} of its range")
+
+
+def ce_backward_ms(cfg, params, hidden, labels) -> dict:
+    """The chunked CE's backward at the train step's shape, with the head's
+    backward as it is and in its earlier form (the gradient rounded first):
+    forward + backward (torch.autograd.grad to the hidden) minus the
+    forward, CUDA events."""
+    from grasp_any_region_tpu_torch.train.losses import chunked_cross_entropy
+
+    def fwd():
+        return chunked_cross_entropy(params.llm, cfg.text, hidden, labels,
+                                     valid_vocab=cfg.extended_vocab_size)
+
+    out = {}
+    for name, fn in (("as JAX", None), ("rounded first", _head_backward_rounding_first)):
+        with head_backward(fn):
+            both = cuda_ms(lambda: torch.autograd.grad(fwd(), (hidden,)), iters=3, warmup=1,
+                           sleep_cycles=40_000_000)
+        out[name] = both - cuda_ms(fwd, iters=3, warmup=1, sleep_cycles=40_000_000)
+    return out
 
 
 def event_pairs(n: int):
@@ -1097,6 +1366,15 @@ def phase_train_step(cfg, params):
     log("[train] one step split (ms, CUDA events, host gaps included): "
         + ", ".join(f"{name} {t:.1f}" for name, t in split.items())
         + f"; sum {sum(split.values()):.1f}")
+    from grasp_any_region_tpu_torch.train.losses import shift_labels
+
+    hidden = torch.randn((1, s, cfg.text.hidden_size), device="cuda").to(torch.bfloat16)
+    ce = ce_backward_ms(cfg, params, hidden.requires_grad_(), shift_labels(labels))
+    for p in params.parameters():
+        p.grad = None
+    log(f"[train] CE backward alone (S = {s}, ms, CUDA events): head backward as JAX (two bf16 "
+        f"halves of the logit gradient) {ce['as JAX']:.2f}, gradient rounded first "
+        f"{ce['rounded first']:.2f}")
     profile_step(lambda: step(state, batch, labels))
     return per_step, state, tx
 
@@ -1203,6 +1481,16 @@ KERNELS = {
            "grasp_any_region_tpu/ops/flash_backward.py:369"),
     "18": ("flash_attention_bwd_dkv", "grasp_any_region_tpu_torch/csrc/flash_backward.cu",
            "grasp_any_region_tpu/ops/flash_backward.py:403"),
+    "19": ("layer_qkv_norm_rope", "grasp_any_region_tpu_torch/csrc/decode_megakernel.cu",
+           "grasp_any_region_tpu/ops/decode_megakernel.py:126"),
+    "20": ("layer_qkv_norm_rope_q8", "grasp_any_region_tpu_torch/csrc/decode_megakernel.cu",
+           "grasp_any_region_tpu/ops/decode_megakernel.py:194"),
+    "21": ("layer_mlp_residual_q8", "grasp_any_region_tpu_torch/csrc/decode_megakernel.cu",
+           "grasp_any_region_tpu/ops/decode_megakernel.py:272"),
+    "22": ("decode_attention_wo", "grasp_any_region_tpu_torch/csrc/decode_megakernel.cu",
+           "grasp_any_region_tpu/ops/decode_megakernel.py:478"),
+    "23": ("layer_mlp_residual", "grasp_any_region_tpu_torch/csrc/decode_megakernel.cu",
+           "grasp_any_region_tpu/ops/decode_megakernel.py:569"),
 }
 
 
@@ -1216,25 +1504,33 @@ def main() -> int:
     kernels = phase_kernels()
     phase_cross_check(narrow_config())
     phase_cross_check(narrow_config(kv_heads=2), int8=True)
+    phase_cross_check(narrow_config(), mega=True)
+    phase_cross_check(narrow_config(kv_heads=2), int8=True, mega=True)
     phase_train_cross_check(narrow_config(kv_heads=2))
     cfg = gar_1b()
     params = random_params(cfg, "cuda")
     params_q8 = quantize_decode_weights(params)
     unfused_counts = phase_vision_forms(cfg, params)
     phase_decode_forms(cfg, params, params_q8)
-    main_counts = phase_main_path(cfg, params)
-    int8_counts = phase_main_path(cfg, params, params_q8)
+    main_counts, tokens = phase_main_path(cfg, params)
+    int8_counts, tokens_q8 = phase_main_path(cfg, params, params_q8)
+    mega_caption, _ = phase_main_path(cfg, params, mega=True, fused_tokens=tokens)
+    mega_q8_caption, _ = phase_main_path(cfg, params, params_q8, mega=True,
+                                         fused_tokens=tokens_q8)
     del params_q8
     torch.cuda.empty_cache()
     train_counts, state, tx = phase_train_step(cfg, params)
     phase_packed_step(cfg, state, tx)
-    # kernel A runs on the unfused tower's path, the int8 kernels on the
-    # int8 path's generate, the backward kernels on the train step's, the
-    # others on generate's
-    paths = {key: ("vision_forward(fused_blocks=False)", unfused_counts) if key == "A"
-             else ("train_step", train_counts) if key in ("5", "17", "18")
-             else ("generate(int8)", int8_counts) if key.endswith("8")
-             else ("generate", main_counts) for key in KERNELS}
+    # the path whose run reports each kernel's launches: kernel A the
+    # unfused tower's, the backward kernels the train step's, the mega
+    # kernels their generate(GAR_DECODE_PATH=mega)'s, the int8 kernels the
+    # int8 path's generate, the others generate's
+    paths = {"A": ("vision_forward(fused_blocks=False)", unfused_counts),
+             **dict.fromkeys(("5", "17", "18"), ("train_step", train_counts)),
+             **dict.fromkeys(("19", "22", "23"), ("generate(mega)", mega_caption)),
+             **dict.fromkeys(("20", "21"), ("generate(mega, int8 weights)", mega_q8_caption)),
+             **dict.fromkeys(("C8", "H8", "I8", "J8"), ("generate(int8)", int8_counts))}
+    paths = {key: paths.get(key, ("generate", main_counts)) for key in KERNELS}
     fields = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     table = [
         dict(name=name, route="cuda", source=src, replaces=rep, path=paths[key][0],

@@ -67,13 +67,13 @@
 // Their Dout must be a multiple of 16 (rows of whole 16-byte chunks).
 #include <cooperative_groups.h>
 
-#include "gemm_tile.cuh"
+#include "weight_tile.cuh"
 
 namespace cg = cooperative_groups;
 
 namespace gar {
 
-constexpr int kLmBK = 64;        // weight rows per slab
+constexpr int kLmBK = kWBK;      // weight rows per slab
 constexpr int kLmStages = 4;     // slabs in the ring: three loads in flight
 constexpr int kLmThreads = 128;  // 4 warps, a quarter of the block's columns each
 constexpr int kLmMaxSplits = 8;  // the portable cluster size (bf16)
@@ -112,51 +112,31 @@ __device__ __forceinline__ LmSegment<W> pick_segment(const LmParams<W>& p, int& 
 
 // Output columns per block: 128-byte weight rows in either type.
 template <typename W>
-constexpr int lm_bn() { return 128 / sizeof(W); }
+constexpr int lm_bn() { return WTile<W>::BN; }
 
 template <typename W, bool SWIGLU, int MT>
 struct LmShape {
   static constexpr bool Q8 = sizeof(W) == 1;
   static constexpr int NW = SWIGLU ? 2 : 1;      // weights per tile
-  static constexpr int BN = lm_bn<W>();          // 64 bf16 or 128 int8 columns
-  static constexpr int WN = BN / 4;              // columns per warp
-  static constexpr int NT = WN / 8;              // mma n-tiles per warp: 2 bf16, 4 int8
+  static constexpr int BN = WTile<W>::BN;        // 64 bf16 or 128 int8 columns
+  static constexpr int WN = WTile<W>::WN;        // columns per warp
+  static constexpr int NT = WTile<W>::NT;        // mma n-tiles per warp: 2 bf16, 4 int8
   static constexpr int BK = kLmBK;
   static constexpr int ROWS = 16 * MT;           // x rows, zero-filled past B
-  static constexpr int CHUNK = 16 / sizeof(W);   // weight elements per 16-byte chunk
-  static constexpr int LDB = BN + CHUNK;         // weight slab pitch: 144 bytes either way
-  static constexpr int LDX = BK + kGemmPad;      // x slab pitch
-  static constexpr int W_BYTES = BK * LDB * sizeof(W);
-  static constexpr int STAGE = NW * W_BYTES + ROWS * LDX * 2;  // bytes
+  static constexpr int W_BYTES = WTile<W>::BYTES;
+  static constexpr int STAGE = NW * W_BYTES + ROWS * kXLd * 2;  // bytes
   static constexpr int SMEM_BYTES = kLmStages * STAGE;
   static_assert(NW * ROWS * BN * 4 <= SMEM_BYTES, "the partials reuse the ring");
   static_assert(STAGE % 16 == 0 && W_BYTES % 16 == 0, "16-byte aligned slabs");
 };
-
-// Four int8 weights, as ldmatrix.trans hands them to a thread: bytes
-// (W[k][n], W[k][n+1], W[k+1][n], W[k+1][n+1]). Returns the bf16 pairs
-// (W[k][n], W[k+1][n]) in `even` and (W[k][n+1], W[k+1][n+1]) in `odd`,
-// each a B-fragment register. Exact: x + 128 as the low byte of the float
-// 2^23 + (x + 128), minus 2^23 + 128, is x; and an integer of at most 8
-// significant bits is its own bf16, the top half of its float.
-__device__ __forceinline__ void widen_i8x4(uint32_t r, uint32_t& even, uint32_t& odd) {
-  const uint32_t u = r ^ 0x80808080u;
-  constexpr float kMagic = 8388736.0f;  // 2^23 + 128
-  const float f0 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7650)) - kMagic;
-  const float f1 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7651)) - kMagic;
-  const float f2 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7652)) - kMagic;
-  const float f3 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7653)) - kMagic;
-  even = __byte_perm(__float_as_uint(f0), __float_as_uint(f2), 0x7632);
-  odd = __byte_perm(__float_as_uint(f1), __float_as_uint(f3), 0x7632);
-}
 
 // Grid (S, tiles), cluster (S, 1, 1): the S blocks of a cluster share one
 // column tile and split its K.
 template <typename W, bool SWIGLU, int MT>
 __global__ void __launch_bounds__(kLmThreads) layer_mm_kernel(const LmParams<W> p) {
   using Sh = LmShape<W, SWIGLU, MT>;
-  constexpr int NW = Sh::NW, ROWS = Sh::ROWS, LDB = Sh::LDB, LDX = Sh::LDX, BK = Sh::BK;
-  constexpr int BN = Sh::BN, NT = Sh::NT, CHUNK = Sh::CHUNK;
+  constexpr int NW = Sh::NW, ROWS = Sh::ROWS, BK = Sh::BK;
+  constexpr int BN = Sh::BN, NT = Sh::NT;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   cg::cluster_group cluster = cg::this_cluster();
   const int split = blockIdx.x, splits = gridDim.x;  // the cluster spans the grid's x
@@ -174,109 +154,34 @@ __global__ void __launch_bounds__(kLmThreads) layer_mm_kernel(const LmParams<W> 
     return reinterpret_cast<bf16*>(smem_raw + stage * Sh::STAGE + NW * Sh::W_BYTES);
   };
 
-  // Slab kt: BK weight rows x BN columns of each weight, and the
-  // matching ROWS x BK block of x. Chunks past an edge read nothing and
-  // land as zeros (n is a multiple of CHUNK and Din of 8, so a chunk is in
-  // or out).
-  auto load_slab = [&](int kt) {
-    const int stage = kt % kLmStages;
-    const int kb = k_begin + kt * BK;
-    for (int c = tid; c < BK * (BN / CHUNK); c += kLmThreads) {
-      const int r = c / (BN / CHUNK), cc = (c % (BN / CHUNK)) * CHUNK;
-      const bool ok = kb + r < k_end && n0 + cc < seg.n;
-      const long long off = ok ? static_cast<long long>(kb + r) * seg.n + n0 + cc : 0;
-      cp_async16(w_slab(stage, 0) + r * LDB + cc, seg.w + off, ok ? 16 : 0);
-      if (SWIGLU) cp_async16(w_slab(stage, 1) + r * LDB + cc, seg.w2 + off, ok ? 16 : 0);
-    }
-    bf16* sx = x_slab(stage);
-    for (int c = tid; c < ROWS * (BK / 8); c += kLmThreads) {
-      const int r = c / (BK / 8), cc = (c % (BK / 8)) * 8;
-      const bool ok = r < p.rows && kb + cc < k_end;
-      const long long off = ok ? static_cast<long long>(r) * p.din + kb + cc : 0;
-      cp_async16(sx + r * LDX + cc, p.x + off, ok ? 16 : 0);
-    }
-  };
-
+  // Slab kt: BK weight rows x BN columns of each weight, and the matching
+  // ROWS x BK block of x; chunks past an edge land as zeros.
   float acc[NW][MT][NT][4];
 #pragma unroll
-  for (int w = 0; w < NW; ++w)
-#pragma unroll
-    for (int i = 0; i < MT; ++i)
-#pragma unroll
-      for (int j = 0; j < NT; ++j) acc[w][i][j][0] = acc[w][i][j][1] = acc[w][i][j][2] = acc[w][i][j][3] = 0.f;
-
+  for (int w = 0; w < NW; ++w) zero(acc[w]);
   const int wn = warp * Sh::WN;  // this warp's columns of the tile
-#pragma unroll
-  for (int s = 0; s < kLmStages - 1; ++s) {
-    if (s < nk) load_slab(s);
-    cp_async_commit();
-  }
-  for (int kt = 0; kt < nk; ++kt) {
-    cp_async_wait<kLmStages - 2>();  // slab kt has landed (this thread's part)
-    __syncthreads();                 // ... every thread's part; slab kt-1 is free
-    if (kt + kLmStages - 1 < nk) load_slab(kt + kLmStages - 1);
-    cp_async_commit();
-
+  ring<kLmStages>(nk, [&](int kt) {
+    const int stage = kt % kLmStages, kb = k_begin + kt * BK;
+    const long long at = static_cast<long long>(kb) * seg.n + n0;
+    load_weight_slab<W, kLmThreads>(w_slab(stage, 0), seg.w + at, seg.n, k_end - kb,
+                                    seg.n - n0, tid);
+    if (SWIGLU)
+      load_weight_slab<W, kLmThreads>(w_slab(stage, 1), seg.w2 + at, seg.n, k_end - kb,
+                                      seg.n - n0, tid);
+    load_x_slab<ROWS, kLmThreads>(x_slab(stage), p.x, p.rows, p.din, kb, k_end);
+  }, [&](int kt) {
     const int stage = kt % kLmStages;
-    const bf16* sx = x_slab(stage);
 #pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      uint32_t af[MT][4];
-#pragma unroll
-      for (int i = 0; i < MT; ++i)
-        ldmatrix_x4(af[i], sx + (i * 16 + (lane & 15)) * LDX + kk + (lane >> 4) * 8);
-#pragma unroll
-      for (int w = 0; w < NW; ++w) {
-        // b0, b1 of the warp's 8-column tiles, from one ldmatrix.x4.trans
-        // of its 32 bytes of rows kk..kk+15. bf16: columns wn..wn+7, then
-        // wn+8..wn+15. int8: the even columns of wn..wn+15, the odd ones,
-        // then the same of wn+16..wn+31 (the epilogue puts them in order).
-        uint32_t raw[4], bfr[NT][2];
-        ldmatrix_x4_trans(raw, reinterpret_cast<const bf16*>(
-                                   w_slab(stage, w) + (kk + (lane & 15)) * LDB + wn +
-                                   (lane >> 4) * CHUNK));
-        if constexpr (Sh::Q8) {
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            widen_i8x4(raw[2 * h], bfr[2 * h][0], bfr[2 * h + 1][0]);
-            widen_i8x4(raw[2 * h + 1], bfr[2 * h][1], bfr[2 * h + 1][1]);
-          }
-        } else {
-#pragma unroll
-          for (int j = 0; j < NT; ++j) bfr[j][0] = raw[2 * j], bfr[j][1] = raw[2 * j + 1];
-        }
-#pragma unroll
-        for (int i = 0; i < MT; ++i)
-#pragma unroll
-          for (int j = 0; j < NT; ++j) mma_bf16_16816(acc[w][i][j], af[i], bfr[j][0], bfr[j][1]);
-      }
-    }
-  }
-  cp_async_wait<0>();
-  __syncthreads();  // the ring is free: it now holds this block's partials
+    for (int w = 0; w < NW; ++w)
+      mma_slab<W, MT, false>(acc[w], x_slab(stage), nullptr, kXLd, w_slab(stage, w), wn, lane);
+  });
 
-  float* part = reinterpret_cast<float*>(smem_raw);  // [NW][ROWS][BN] fp32
-  const int g = lane >> 2, t = lane & 3;
+  // the ring is free: it now holds this block's partials, [NW][ROWS][BN] fp32
+  float* part = reinterpret_cast<float*>(smem_raw);
 #pragma unroll
   for (int w = 0; w < NW; ++w)
-#pragma unroll
-    for (int i = 0; i < MT; ++i)
-#pragma unroll
-      for (int hf = 0; hf < 2; ++hf) {
-        float* row = part + (w * ROWS + i * 16 + g + hf * 8) * BN;
-        if constexpr (Sh::Q8) {  // tile 2h holds columns wn + 16h + 4t, +2; tile 2h + 1 the odd ones
-#pragma unroll
-          for (int h = 0; h < 2; ++h)
-            *reinterpret_cast<float4*>(row + wn + 16 * h + 4 * t) =
-                make_float4(acc[w][i][2 * h][2 * hf], acc[w][i][2 * h + 1][2 * hf],
-                            acc[w][i][2 * h][2 * hf + 1], acc[w][i][2 * h + 1][2 * hf + 1]);
-        } else {
-#pragma unroll
-          for (int j = 0; j < NT; ++j)
-            *reinterpret_cast<float2*>(row + wn + j * 8 + 2 * t) =
-                make_float2(acc[w][i][j][2 * hf], acc[w][i][j][2 * hf + 1]);
-        }
-      }
+    each_sum<W, MT>(acc[w], wn, lane,
+                    [&](int row, int col, float v) { part[(w * ROWS + row) * BN + col] = v; });
   cluster.sync();  // every block's partials are in its shared memory
 
   // Block `split` finishes columns [c0, c0 + cols) of the tile: the sum of
@@ -328,34 +233,13 @@ int lm_splits(int tiles, int din, int max_splits) {
 template <typename W, bool SWIGLU, int MT>
 int launch_lm_mt(LmParams<W> p, int tiles, cudaStream_t stream) {
   using Sh = LmShape<W, SWIGLU, MT>;
-  constexpr int smem = Sh::SMEM_BYTES;
   auto kernel = layer_mm_kernel<W, SWIGLU, MT>;
-  static bool opted_in = false;  // the attribute is per kernel: set it once
-  if (!opted_in) {
-    cudaError_t err =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err == cudaSuccess && Sh::Q8)  // clusters of 16: past the portable 8, Hopper has them
-      err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    opted_in = true;
-  }
+  static bool done = false;  // the attribute is per kernel: set it once
+  // clusters of 16 for int8: past the portable 8, Hopper has them
+  if (const int err = opt_in(kernel, Sh::SMEM_BYTES, Sh::Q8, done)) return err;
   const int splits = lm_splits(tiles, p.din, Sh::Q8 ? kLmMaxSplitsQ8 : kLmMaxSplits);
   p.k_split = ((p.din + splits - 1) / splits + 15) / 16 * 16;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(splits, tiles, 1);
-  cfg.blockDim = dim3(kLmThreads, 1, 1);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = splits;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, p);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(cudaGetLastError());
+  return launch_ex(kernel, dim3(splits, tiles, 1), kLmThreads, Sh::SMEM_BYTES, splits, stream, p);
 }
 
 // Fill in the tiles, check the shapes, pick the row tile (16 or 32 rows).

@@ -5,14 +5,17 @@
     or packed multi-document rows (`right_padded=False`: segment ids in the
     kernel), returning per-layer K/V for the cache; for training, each
     layer checkpointed (`remat`) and no K/V kept (`return_kv=False`).
-  * Decode: two forms of `llama_decode_step`, as in JAX. The fused form
+  * Decode: three forms of `llama_decode_step`, as in JAX. The fused form
     (the default on a CUDA tensor) runs per layer kernel J (q, k, v), rope,
     kernel C (cache write + attention), kernel H (wo), kernel I (SwiGLU)
     and H again (w_down), the weights read in place from the stacked
     arrays (ops/layer_matmul.py); with int8 decode weights
     (models/quantize.py) it runs their int8 forms J8, H8, I8, and with an
-    int8 cache kernel C8. The XLA form (the default on the CPU) runs plain
-    projections around kernel C.
+    int8 cache kernel C8. The mega form runs three kernels a layer
+    (ops/decode_megakernel.py): 19 (norm, q, k, v, rope), 22 (cache write,
+    attention, wo, residual) and 23 (norm, MLP, residual), or 20, 22, 21
+    with int8 decode weights. The XLA form (the default on the CPU) runs
+    plain projections around kernel C.
   * KV cache: unpaired (L, B, K, S_max, D), bf16, or int8 with one static
     fp32 scale per (layer, batch row, kv-head pair), the JAX package's
     granularity. Prompt columns [0, prompt_pad)
@@ -32,6 +35,7 @@
 
 from __future__ import annotations
 
+import os
 from typing import NamedTuple, Optional, Sequence, Tuple, Union
 
 import torch
@@ -43,6 +47,9 @@ from ..core.config import TextConfig
 from ..core.weights import ParamGroup, add_param
 from ..ops.attention import NEG_INF, mha
 from ..ops.decode_attention import decode_attention_fused
+from ..ops.decode_megakernel import (decode_attention_wo, layer_mlp_residual,
+                                     layer_mlp_residual_q8, layer_qkv_norm_rope,
+                                     layer_qkv_norm_rope_q8)
 from ..ops.layer_matmul import (layer_matmul, layer_matmul_q8, layer_qkv, layer_qkv_q8,
                                 layer_swiglu, layer_swiglu_q8)
 from ..ops.norms import rms_norm
@@ -177,15 +184,17 @@ def llama_prefill(
 
 
 def decode_kernel_choice(cfg: TextConfig, device) -> Union[bool, str]:
-    """The decode form `use_kernel=None` picks: "fused" on a CUDA tensor,
-    False (the XLA form) on the CPU, as the JAX package picks "fused" on
-    the TPU and False elsewhere. JAX also falls back to XLA when one
-    layer's q/k/v weights pass 13 MB: its qkv kernel holds them whole in
-    the TPU's scoped VMEM. Kernels H-J stream column blocks and hold no
-    whole weight, so the port has no such bound (GAR-8B takes the fused
-    form too), and the rule reads the device alone; cfg stays for JAX's
-    signature."""
-    return "fused" if torch.device(device).type == "cuda" else False
+    """The decode form `use_kernel=None` picks: on a CUDA tensor the value
+    of GAR_DECODE_PATH, "fused" when it is unset ("mega" for the mega
+    form), and False (the XLA form) on the CPU, as the JAX package reads
+    GAR_DECODE_PATH on the TPU and picks False elsewhere. JAX also falls
+    back to XLA when one layer's q/k/v weights pass 13 MB: its qkv kernels
+    hold them whole in the TPU's scoped VMEM. Kernels H-J and 19-20 stream
+    column blocks and hold no whole weight, so the port has no such bound,
+    and the rule reads the device alone; cfg stays for JAX's signature."""
+    if torch.device(device).type == "cuda":
+        return os.environ.get("GAR_DECODE_PATH", "fused")
+    return False
 
 
 def llama_decode_step(
@@ -202,18 +211,18 @@ def llama_decode_step(
     the same cache).
 
     use_kernel: False = the XLA form (below); "fused" = kernels J, C, H, I,
-    H a layer (`llama_decode_step_fused`); "mega" raises until the mega
-    path is ported; None or True = `decode_kernel_choice`. An int8 cache
-    takes the fused form whatever use_kernel says, on any device, as JAX
-    sends its (paired) int8 cache there: only kernel C8 reads it (on the
-    CPU through its plain version)."""
+    H a layer (`llama_decode_step_fused`); "mega" = kernels 19, 22, 23 a
+    layer (`llama_decode_step_mega`); None or True =
+    `decode_kernel_choice`. On the CPU "fused" and "mega" run their kernels'
+    plain versions. An int8 cache takes the fused form whatever use_kernel
+    says, on any device, as JAX sends its (paired) int8 cache there: only
+    kernel C8 reads it (on the CPU through its plain version)."""
     if cache.k.dtype == torch.int8:
         return llama_decode_step_fused(params, cfg, inputs_embeds, cache, prompt_pad)
     if use_kernel is None or use_kernel is True:
         use_kernel = decode_kernel_choice(cfg, inputs_embeds.device)
     if use_kernel == "mega":
-        raise NotImplementedError("the mega decode path (three megakernels a layer) is not "
-                                  "ported yet: ROADMAP section 2, item 5")
+        return llama_decode_step_mega(params, cfg, inputs_embeds, cache, prompt_pad)
     if use_kernel:
         return llama_decode_step_fused(params, cfg, inputs_embeds, cache, prompt_pad)
     b = inputs_embeds.shape[0]
@@ -289,6 +298,56 @@ def llama_decode_step_fused(
             x = x + layer_matmul(a, blk.wo, i)
             y = rms_norm(x, blk.mlp_norm[i], eps)
             x = x + layer_matmul(layer_swiglu(y, blk.w_gate, blk.w_up, i), blk.w_down, i)
+    wp.add_(1)
+    return x[:, None], cache
+
+
+def llama_decode_step_mega(
+    params: LlamaParams,
+    cfg: TextConfig,
+    inputs_embeds: torch.Tensor,  # (B, 1, D)
+    cache: KVCache,
+    prompt_pad: int,
+) -> Tuple[torch.Tensor, KVCache]:
+    """The decode step in three kernels a layer
+    (`grasp_any_region_tpu/models/llama.py:llama_decode_step_mega`): 19
+    (RMSNorm, q, k, v, rope), 22 (cache write, attention, wo, residual), 23
+    (RMSNorm, SwiGLU, w_down, residual), or 20, 22, 21 with int8 decode
+    weights (`wq_q8` present; wo through 22's int8 form). No op runs
+    between the kernels: the rope rows are built once a token. Its
+    rounding points are the mega kernels' own (ops/decode_megakernel.py),
+    not the fused step's. It takes the bf16 (or fp32) cache, as JAX's mega
+    step; the cache contract is `llama_decode_step`'s."""
+    b = inputs_embeds.shape[0]
+    h, kh, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    wp = cache.write_pos
+    pos = cache.prompt_lens + (wp - prompt_pad)
+    cos, sin = rope_cos_sin(pos, llama_inv_freq(cfg, inputs_embeds.device))  # (B, Dh) rows
+    eps = cfg.rms_norm_eps
+    blk = params.blocks
+    q8 = hasattr(blk, "wq_q8")
+    kw = dict(prompt_lens=cache.prompt_lens, write_pos=wp, prompt_pad=prompt_pad)
+    x = inputs_embeds[:, 0]  # (B, D)
+    for i in range(cfg.num_layers):
+        if q8:
+            qf, kf, vf = layer_qkv_norm_rope_q8(
+                x, blk.attn_norm, blk.wq_q8, blk.wq_scale, blk.wk_q8, blk.wk_scale, blk.wv_q8,
+                blk.wv_scale, cos, sin, cos, sin, i, eps=eps, head_dim=dh)
+            x = decode_attention_wo(
+                qf.view(b, h, dh), cache.k, cache.v, kf.view(b, kh, dh).to(cache.k.dtype),
+                vf.view(b, kh, dh).to(cache.v.dtype), blk.wo_q8, x, i, wo_scale=blk.wo_scale,
+                **kw)
+            x = layer_mlp_residual_q8(x, blk.mlp_norm, blk.w_gate_q8, blk.w_gate_scale,
+                                      blk.w_up_q8, blk.w_up_scale, blk.w_down_q8,
+                                      blk.w_down_scale, i, eps=eps)
+        else:
+            qf, kf, vf = layer_qkv_norm_rope(x, blk.attn_norm, blk.wq, blk.wk, blk.wv, cos, sin,
+                                             cos, sin, i, eps=eps, head_dim=dh)
+            x = decode_attention_wo(
+                qf.view(b, h, dh), cache.k, cache.v, kf.view(b, kh, dh).to(cache.k.dtype),
+                vf.view(b, kh, dh).to(cache.v.dtype), blk.wo, x, i, **kw)
+            x = layer_mlp_residual(x, blk.mlp_norm, blk.w_gate, blk.w_up, blk.w_down, i,
+                                   eps=eps)
     wp.add_(1)
     return x[:, None], cache
 

@@ -1,0 +1,377 @@
+"""Kernels 19-23: the mega decode step, one token of a decoder layer in three
+launches (`grasp_any_region_tpu/ops/decode_megakernel.py`).
+
+  19  layer_qkv_norm_rope      RMSNorm(x), x @ wq/wk/wv[l], rope on q and k
+  20  layer_qkv_norm_rope_q8   19 over int8 weights with per-column scales
+  22  decode_attention_wo      KV append + attention + @ wo[l] + residual
+  23  layer_mlp_residual       x + SwiGLU(RMSNorm(x)) @ w_down[l]
+  21  layer_mlp_residual_q8    23 over int8 weights
+
+The wrappers keep JAX's names and argument order. Each plain version keeps
+its TPU kernel's rounding points, which differ from kernel to kernel and
+from the fused step's:
+
+  19  xn = RMSNorm(x) in fp32, rounded to x's dtype; q, k, v fp32 sums; rope
+      in fp32 on the sums; one rounding each.
+  20  xn stays fp32 (JAX contracts it with the fp32 `w * scale`).
+  23  xn rounded; act = SiLU(gate) * up rounded to x's dtype before w_down;
+      x + the fp32 sum over M, rounded once.
+  21  xn rounded; act stays fp32; w_down's column scale on the fp32 sum.
+  22  p rounded to the cache dtype before PV, the current token folded in
+      fp32, a rounded to x's dtype before wo; the K kv-head partials summed
+      in head order in fp32, then x + that sum, rounded once.
+
+The rope tables may be JAX's tiled (B, H * head_dim) tables or (B,
+head_dim) rows; the kernel and the plain versions read column c of a
+table of width w at c mod w, so both give the same function. The port's
+step passes the (B, head_dim) rows.
+
+The CUDA kernels (csrc/decode_megakernel.cu) stream the weights as H-J do.
+20 and 21 keep JAX's fp32 xn and act exact on the tensor cores by splitting
+each into a bf16 high and low half (two products with one weight fragment).
+22 updates the cache in place, as kernel C does, and returns only the new
+residual. 23 and 21 reduce their per-block (B, D) partials through a
+workspace: a cooperative launch (every block resident at once, or the
+launch fails: M / 64 bf16 or M / 128 int8 blocks, one an SM) lets all
+blocks meet at a grid barrier, whose arrival count is back at 0 after each
+launch, so a launch can be replayed; then each block sums its share of
+the output in a fixed order.
+
+On a CPU tensor each wrapper runs its plain version; on a CUDA tensor it
+launches the kernel or raises. The mega step calls them 48 times a step at
+GAR-1B, so their checks read attributes and nothing more. The kernels take
+bf16 activations, B <= 32 rows and head_dim 64.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from . import _build
+from .attention import NEG_INF
+from .norms import rms_norm
+from .rope import rotate_half
+
+# kernel launches since the last reset (chip_smoke.py reads them)
+launches = {"19": 0, "20": 0, "21": 0, "22": 0, "23": 0}
+
+MAX_ROWS = 32  # batch rows the kernels take
+HEAD_DIM = 64  # the only head_dim the kernels are built for
+_SYNC = {}  # device index -> the grid barrier words of kernels 21 and 23 (count, generation)
+
+
+def _rope_flat(z: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
+               head_dim: int) -> torch.Tensor:
+    """Rotate-half rope on fp32 (B, H * head_dim) sums; cos / sin (B, w),
+    w = head_dim or H * head_dim, read at column mod w."""
+    b, n = z.shape
+    reps = n // cos.shape[-1]
+    cos, sin = cos.float().repeat(1, reps), sin.float().repeat(1, reps)
+    rh = rotate_half(z.view(b, n // head_dim, head_dim)).reshape(b, n)
+    return z * cos + rh * sin
+
+
+def layer_qkv_norm_rope_plain(x, norm_all, wq_all, wk_all, wv_all, cosq, sinq, cosk, sink,
+                              layer: int, *, eps: float, head_dim: int):
+    xn = rms_norm(x, norm_all[layer], eps).float()
+    q, k, v = (xn @ w[layer].float() for w in (wq_all, wk_all, wv_all))
+    return (_rope_flat(q, cosq, sinq, head_dim).to(x.dtype),
+            _rope_flat(k, cosk, sink, head_dim).to(x.dtype), v.to(x.dtype))
+
+
+def layer_qkv_norm_rope_q8_plain(x, norm_all, wq_q8, sq, wk_q8, sk, wv_q8, sv, cosq, sinq, cosk,
+                                 sink, layer: int, *, eps: float, head_dim: int):
+    xn = rms_norm(x.float(), norm_all[layer], eps)  # fp32, not rounded
+    q, k, v = ((xn @ w[layer].float()) * s[layer] for w, s in ((wq_q8, sq), (wk_q8, sk),
+                                                               (wv_q8, sv)))
+    return (_rope_flat(q, cosq, sinq, head_dim).to(x.dtype),
+            _rope_flat(k, cosk, sink, head_dim).to(x.dtype), v.to(x.dtype))
+
+
+def layer_mlp_residual_plain(x, norm_all, wg_all, wu_all, wd_all, layer: int, *, eps: float):
+    xn = rms_norm(x, norm_all[layer], eps).float()
+    act = (F.silu(xn @ wg_all[layer].float()) * (xn @ wu_all[layer].float())).to(x.dtype)
+    return (x.float() + act.float() @ wd_all[layer].float()).to(x.dtype)
+
+
+def layer_mlp_residual_q8_plain(x, norm_all, wg_q8, sg, wu_q8, su, wd_q8, sd, layer: int, *,
+                                eps: float):
+    xn = rms_norm(x, norm_all[layer], eps).float()
+    act = F.silu((xn @ wg_q8[layer].float()) * sg[layer]) * ((xn @ wu_q8[layer].float())
+                                                             * su[layer])
+    return (x.float() + (act @ wd_q8[layer].float()) * sd[layer]).to(x.dtype)
+
+
+def decode_attention_wo_plain(q, k_all, v_all, k_new, v_new, wo_all, x, layer: int, *,
+                              prompt_lens, write_pos, prompt_pad: int,
+                              wo_scale: Optional[torch.Tensor] = None,
+                              scale: Optional[float] = None) -> torch.Tensor:
+    """The new K/V written at column write_pos of the layer slab in place
+    (`index_copy_`, no host sync); the history [0, prompt_len) and
+    [prompt_pad, write_pos) attended with p = exp(s - the history's max)
+    rounded to the cache dtype before PV; the current token folded in from
+    k_new / v_new in fp32; then x + sum over kv heads of a @ wo rows."""
+    b, h, d = q.shape
+    kh, s = k_all.shape[2], k_all.shape[3]
+    g = h // kh
+    scale = d ** -0.5 if scale is None else scale
+    idx = write_pos.reshape(1).long()
+    k_all[layer].index_copy_(2, idx, k_new.to(k_all.dtype)[:, :, None, :])
+    v_all[layer].index_copy_(2, idx, v_new.to(v_all.dtype)[:, :, None, :])
+    qf = q.float().reshape(b, kh, g, d)
+    logits = torch.einsum("bkgd,bksd->bkgs", qf, k_all[layer].float()) * scale
+    ids = torch.arange(s, device=q.device)[None, :]
+    valid = (ids < prompt_lens[:, None]) | ((ids >= prompt_pad) & (ids < write_pos))
+    logits = torch.where(valid[:, None, None, :], logits, NEG_INF)
+    m_hist = logits.amax(-1, keepdim=True)
+    p = torch.exp(logits - m_hist)
+    acc = torch.einsum("bkgs,bksd->bkgd", p.to(v_all.dtype).float(), v_all[layer].float())
+    s_cur = (qf * k_new.float()[:, :, None, :]).sum(-1, keepdim=True) * scale
+    m = torch.maximum(m_hist, s_cur)
+    alpha, p_cur = torch.exp(m_hist - m), torch.exp(s_cur - m)
+    denom = p.sum(-1, keepdim=True) * alpha + p_cur
+    a = (acc * alpha + p_cur * v_new.float()[:, :, None, :]) / torch.clamp(denom, min=1e-30)
+    a = a.to(x.dtype).float().reshape(b, kh, g * d)
+    w = wo_all[layer].float().reshape(kh, g * d, -1)
+    partial = torch.einsum("bkr,krn->bkn", a, w)
+    if wo_scale is not None:
+        partial = partial * wo_scale[layer]
+    total = partial[:, 0]
+    for i in range(1, kh):  # the kv heads' partials in head order, as the TPU grid adds them
+        total = total + partial[:, i]
+    return (x.float() + total).to(x.dtype)
+
+
+# ---------------------------------------------------------------- checks
+
+
+def _operand(t: torch.Tensor, name: str, dtype: torch.dtype, shape, device: int) -> None:
+    """Raise unless t is a contiguous, 16-byte aligned `shape` tensor of
+    `dtype` on device index `device`."""
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: the kernel takes {dtype}, got {t.dtype}")
+    if (t.shape != shape or not t.is_contiguous() or t.data_ptr() % 16
+            or t.get_device() != device):
+        raise ValueError(f"{name}: expected a contiguous, 16-byte aligned {tuple(shape)} tensor "
+                         f"on device {device}, got {tuple(t.shape)} on {t.device}")
+
+
+def _check_x(x: torch.Tensor, multiple: int) -> Tuple[int, int]:
+    """x a contiguous bf16 (B <= 32, D) matrix, D a multiple of `multiple`."""
+    if x.dtype != torch.bfloat16:
+        raise TypeError(f"x: the kernel takes bfloat16, got {x.dtype}")
+    shape = x.shape
+    if (len(shape) != 2 or not 1 <= shape[0] <= MAX_ROWS or shape[1] % multiple
+            or not x.is_contiguous() or x.data_ptr() % 16):
+        raise ValueError(f"x must be a contiguous, 16-byte aligned (B <= {MAX_ROWS}, D) matrix, "
+                         f"D a multiple of {multiple}; got {tuple(shape)}")
+    return shape[0], shape[1]
+
+
+def _check_layer(layer: int, n_layers: int) -> None:
+    if not 0 <= layer < n_layers:
+        raise IndexError(f"layer {layer} out of range for {n_layers} layers")
+
+
+def check_qkv_norm_rope(x, norm_all, weights, scales, tables, layer: int,
+                        head_dim: int) -> None:
+    """The operands of kernels 19 (scales None) and 20: x (B, D) bf16; the
+    norm (L, D) bf16; wq (L, D, Hq), wk and wv (L, D, Hk), bf16 or int8 with
+    fp32 (L, 1, N) scales; Hq and Hk multiples of head_dim = 64; fp32 rope
+    tables (B, 64) or (B, N) (cosq, sinq, cosk, sink)."""
+    if head_dim != HEAD_DIM:
+        raise ValueError(f"kernels 19 and 20 are built for head_dim {HEAD_DIM}, got {head_dim}")
+    b, d = _check_x(x, 8)
+    dev = x.get_device()
+    n_layers = norm_all.shape[0]
+    _check_layer(layer, n_layers)
+    _operand(norm_all, "norm", torch.bfloat16, (n_layers, d), dev)
+    wdtype = torch.bfloat16 if scales is None else torch.int8
+    for i, w in enumerate(weights):
+        n = w.shape[-1]
+        if n % HEAD_DIM:
+            raise ValueError(f"weight {i}: {n} columns are not whole heads of {HEAD_DIM}")
+        _operand(w, f"weight {i}", wdtype, (n_layers, d, n), dev)
+        if scales is not None:
+            _operand(scales[i], f"scale {i}", torch.float32, (n_layers, 1, n), dev)
+        for t, name in zip(tables[2 * i: 2 * i + 2] if i < 2 else (), ("cos", "sin")):
+            width = t.shape[-1]
+            _operand(t, f"rope {name} {i}", torch.float32,
+                     (b, HEAD_DIM if width == HEAD_DIM else n), dev)
+    if weights[1].shape != weights[2].shape:
+        raise ValueError(f"wk {tuple(weights[1].shape)} and wv {tuple(weights[2].shape)} differ")
+
+
+def check_mlp_residual(x, norm_all, wg, wu, wd, scales, layer: int) -> None:
+    """The operands of kernels 23 (scales None) and 21: x (B, D) bf16, D a
+    multiple of 128; the norm (L, D) bf16; gate and up (L, D, M), down (L,
+    M, D), M a multiple of 128, bf16 or int8 with fp32 scales (L, 1, M),
+    (L, 1, M), (L, 1, D)."""
+    b, d = _check_x(x, 128)
+    dev = x.get_device()
+    n_layers, m = wg.shape[0], wg.shape[-1]
+    _check_layer(layer, n_layers)
+    if m % 128:
+        raise ValueError(f"the MLP width {m} is not a multiple of 128")
+    _operand(norm_all, "norm", torch.bfloat16, (n_layers, d), dev)
+    wdtype = torch.bfloat16 if scales is None else torch.int8
+    shapes = ((n_layers, d, m), (n_layers, d, m), (n_layers, m, d))
+    for w, shape, name in zip((wg, wu, wd), shapes, ("gate", "up", "down")):
+        _operand(w, name, wdtype, shape, dev)
+    if scales is not None:
+        for s, shape, name in zip(scales, shapes, ("gate", "up", "down")):
+            _operand(s, f"{name} scale", torch.float32, (n_layers, 1, shape[2]), dev)
+
+
+def check_attention_wo(q, k_all, v_all, k_new, v_new, wo_all, x, layer: int, prompt_lens,
+                       write_pos, wo_scale) -> None:
+    """The operands of kernel 22: q (B, H, 64), k_new and v_new (B, K, 64),
+    a (L, B, K, S, 64) bf16 cache, H / K in (1, 2, 4, 8), K <= 8; wo (L, H *
+    64, Dm) bf16, or int8 with fp32 wo_scale (L, 1, Dm); x (B, Dm) bf16, Dm a
+    multiple of 16, at most 4096; int32 prompt_lens (B,) and write_pos ()."""
+    b, dm = _check_x(x, 16)
+    if dm > 4096:
+        raise ValueError(f"kernel 22 takes a residual width up to 4096, got {dm}")
+    dev = x.get_device()
+    if q.dim() != 3 or k_all.dim() != 5:
+        raise ValueError(f"q {tuple(q.shape)} must be (B, H, D), the cache (L, B, K, S, D)")
+    h, d = q.shape[1], q.shape[2]
+    n_layers, kh, s = k_all.shape[0], k_all.shape[2], k_all.shape[3]
+    if d != HEAD_DIM or h % kh or h // kh not in (1, 2, 4, 8) or kh > 8:
+        raise ValueError(f"kernel 22 is built for head_dim {HEAD_DIM}, 1, 2, 4 or 8 query "
+                         f"heads per kv head and at most 8 kv heads; got {d}, {h} / {kh}")
+    _check_layer(layer, n_layers)
+    _operand(q, "q", torch.bfloat16, (b, h, d), dev)
+    for t, name in ((k_all, "k_all"), (v_all, "v_all")):
+        _operand(t, name, torch.bfloat16, (n_layers, b, kh, s, d), dev)
+    for t, name in ((k_new, "k_new"), (v_new, "v_new")):
+        _operand(t, name, torch.bfloat16, (b, kh, d), dev)
+    _operand(wo_all, "wo", torch.bfloat16 if wo_scale is None else torch.int8,
+             (n_layers, h * d, dm), dev)
+    if wo_scale is not None:
+        _operand(wo_scale, "wo_scale", torch.float32, (n_layers, 1, dm), dev)
+    for t, name, shape in ((prompt_lens, "prompt_lens", (b,)), (write_pos, "write_pos", ())):
+        if t.dtype != torch.int32 or t.shape != shape or t.get_device() != dev:
+            raise ValueError(f"{name} must be an int32 tensor of shape {shape} on {x.device}")
+
+
+# ---------------------------------------------------------------- wrappers
+
+
+def _qkv_launch(key, fn, x, norm_all, weights, scales, cosq, sinq, cosk, sink, layer, eps,
+                head_dim):
+    tables = (cosq, sinq, cosk, sink)
+    check_qkv_norm_rope(x, norm_all, weights, scales, tables, layer, head_dim)
+    b, d = x.shape
+    hq, hk = weights[0].shape[-1], weights[1].shape[-1]
+    q, k, v = (torch.empty((b, n), dtype=x.dtype, device=x.device) for n in (hq, hk, hk))
+    mats = [t for i, w in enumerate(weights) for t in ((w,) if scales is None else (w, scales[i]))]
+    err = fn(x.data_ptr(), norm_all.data_ptr(), *(t.data_ptr() for t in mats),
+             *(t.data_ptr() for t in tables), q.data_ptr(), k.data_ptr(), v.data_ptr(),
+             layer, b, d, hq, hk, cosq.shape[-1], cosk.shape[-1], eps,
+             _build.stream_handle(x.device))
+    _build.check(err, fn.__name__)
+    launches[key] += 1
+    return q, k, v
+
+
+def layer_qkv_norm_rope(x, norm_all, wq_all, wk_all, wv_all, cosq, sinq, cosk, sink,
+                        layer: int, *, eps: float, head_dim: int):
+    """Kernel 19: RMSNorm(x) (rounded) @ wq/wk/wv[layer], rope on q and k;
+    returns flat (B, Hq), (B, Hk), (B, Hk)."""
+    if x.device.type == "cpu":
+        return layer_qkv_norm_rope_plain(x, norm_all, wq_all, wk_all, wv_all, cosq, sinq, cosk,
+                                         sink, layer, eps=eps, head_dim=head_dim)
+    return _qkv_launch("19", _build.library().gar_qkv_norm_rope, x, norm_all,
+                       (wq_all, wk_all, wv_all), None, cosq, sinq, cosk, sink, layer, eps,
+                       head_dim)
+
+
+def layer_qkv_norm_rope_q8(x, norm_all, wq_q8, sq, wk_q8, sk, wv_q8, sv, cosq, sinq, cosk, sink,
+                           layer: int, *, eps: float, head_dim: int):
+    """Kernel 20: kernel 19 over int8 (L, D, N) weights with fp32 (L, 1, N)
+    column scales; xn stays fp32."""
+    if x.device.type == "cpu":
+        return layer_qkv_norm_rope_q8_plain(x, norm_all, wq_q8, sq, wk_q8, sk, wv_q8, sv, cosq,
+                                            sinq, cosk, sink, layer, eps=eps, head_dim=head_dim)
+    return _qkv_launch("20", _build.library().gar_qkv_norm_rope_q8, x, norm_all,
+                       (wq_q8, wk_q8, wv_q8), (sq, sk, sv), cosq, sinq, cosk, sink, layer, eps,
+                       head_dim)
+
+
+def _sync(device: torch.device) -> torch.Tensor:
+    words = _SYNC.get(device.index)
+    if words is None:
+        words = _SYNC[device.index] = torch.zeros(2, dtype=torch.int32, device=device)
+    return words
+
+
+def _mlp_launch(key, fn, x, norm_all, mats, layer, eps, block_cols):
+    b, d = x.shape
+    m = mats[0].shape[-1]
+    out = torch.empty_like(x)
+    # one (B, D) fp32 partial per block of `block_cols` MLP columns
+    ws = torch.empty((m // block_cols, b, d), dtype=torch.float32, device=x.device)
+    sync = _sync(x.device)
+    err = fn(x.data_ptr(), norm_all.data_ptr(), *(t.data_ptr() for t in mats), out.data_ptr(),
+             ws.data_ptr(), sync.data_ptr(), layer, b, d, m, eps,
+             _build.stream_handle(x.device))
+    _build.check(err, fn.__name__)
+    launches[key] += 1
+    return out
+
+
+def layer_mlp_residual(x, norm_all, wg_all, wu_all, wd_all, layer: int, *, eps: float):
+    """Kernel 23: x + (SiLU(xn @ wg[layer]) * (xn @ wu[layer])) @ wd[layer],
+    xn = RMSNorm(x) and act rounded to x's dtype; one launch."""
+    if x.device.type == "cpu":
+        return layer_mlp_residual_plain(x, norm_all, wg_all, wu_all, wd_all, layer, eps=eps)
+    check_mlp_residual(x, norm_all, wg_all, wu_all, wd_all, None, layer)
+    return _mlp_launch("23", _build.library().gar_mlp_residual, x, norm_all,
+                       (wg_all, wu_all, wd_all), layer, eps, 64)
+
+
+def layer_mlp_residual_q8(x, norm_all, wg_q8, sg, wu_q8, su, wd_q8, sd, layer: int, *,
+                          eps: float):
+    """Kernel 21: kernel 23 over int8 weights with fp32 column scales; act
+    stays fp32."""
+    if x.device.type == "cpu":
+        return layer_mlp_residual_q8_plain(x, norm_all, wg_q8, sg, wu_q8, su, wd_q8, sd, layer,
+                                           eps=eps)
+    check_mlp_residual(x, norm_all, wg_q8, wu_q8, wd_q8, (sg, su, sd), layer)
+    return _mlp_launch("21", _build.library().gar_mlp_residual_q8, x, norm_all,
+                       (wg_q8, sg, wu_q8, su, wd_q8, sd), layer, eps, 128)
+
+
+def decode_attention_wo(q, k_all, v_all, k_new, v_new, wo_all, x, layer: int, *,
+                        prompt_lens, write_pos, prompt_pad: int,
+                        wo_scale: Optional[torch.Tensor] = None,
+                        scale: Optional[float] = None) -> torch.Tensor:
+    """Kernel 22: writes k_new / v_new (B, K, D) at column write_pos of
+    layer `layer` of the (L, B, K, S, D) cache in place, attends q (B, H, D)
+    over [0, prompt_len) and [prompt_pad, write_pos] and returns x (B, Dm)
+    + the attention output @ wo_all[layer] (int8 with wo_scale: the fp32
+    sums scaled per output column). Contract of the cache layout:
+    prompt_lens <= prompt_pad <= write_pos < S."""
+    kw = dict(prompt_lens=prompt_lens, write_pos=write_pos, prompt_pad=prompt_pad,
+              wo_scale=wo_scale, scale=scale)
+    if x.device.type == "cpu":
+        return decode_attention_wo_plain(q, k_all, v_all, k_new, v_new, wo_all, x, layer, **kw)
+    check_attention_wo(q, k_all, v_all, k_new, v_new, wo_all, x, layer, prompt_lens, write_pos,
+                       wo_scale)
+    b, h, d = q.shape
+    kh, s = k_all.shape[2], k_all.shape[3]
+    out = torch.empty_like(x)
+    q8 = wo_scale is not None
+    err = _build.library().gar_decode_attention_wo(
+        q.data_ptr(), k_all.data_ptr(), v_all.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
+        wo_all.data_ptr(), wo_scale.data_ptr() if q8 else None, x.data_ptr(), out.data_ptr(),
+        prompt_lens.data_ptr(), write_pos.data_ptr(), layer, b, h, kh, s, d, x.shape[1],
+        prompt_pad, int(q8), d ** -0.5 if scale is None else scale,
+        _build.stream_handle(x.device))
+    _build.check(err, "gar_decode_attention_wo")
+    launches["22"] += 1
+    return out

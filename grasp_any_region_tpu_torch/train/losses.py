@@ -9,8 +9,12 @@ the backward. Labels use -100 as the ignore index.
 The head product is a plain large matrix product, as the JAX package
 leaves it to XLA: operands in the working dtype, fp32 sums and fp32
 logits (`torch.mm(..., out_dtype=float32)` on the card, as `lm_logits`;
-fp32 products on the CPU). Its backward casts the fp32 logit gradient to
-the working dtype for the two products.
+fp32 products on the CPU). Its backward contracts the fp32 logit gradient
+with the working-dtype operands in fp32 and rounds each result once, as
+JAX's VJP does (dot_general f32 x bf16 -> f32, then one cast). On the card
+cuBLAS takes no f32 x bf16 product, so the gradient goes in as two bf16
+halves, g = hi + lo (hi = bf16(g), lo = bf16(g - hi): 16 significant
+bits), two products each with fp32 sums.
 """
 
 from __future__ import annotations
@@ -50,15 +54,32 @@ class _HeadLogits(torch.autograd.Function):
     def backward(ctx, g):
         x, head = ctx.saved_tensors
         x_dtype, head_dtype = x.dtype, head.dtype
-        if x.device.type == "cuda":
-            g, w = g.to(x_dtype), head.to(x_dtype)
+        w = head.to(x_dtype)
+        if x.device.type == "cuda" and x_dtype != torch.float32:
+            hi = g.to(x_dtype)
+            halves = (hi, (g - hi.float()).to(x_dtype))
         else:  # fp32 products, rounded once to the operands' dtypes
-            x, w = x.float(), head.float()
+            halves, x, w = (g,), x.float(), w.float()
         if ctx.tied:  # logits = x @ head^T
-            dx, dhead = g @ w, g.t() @ x
+            dx = _sum_mm([(h, w) for h in halves])
+            dhead = _sum_mm([(h.t(), x) for h in halves])
         else:  # logits = x @ head
-            dx, dhead = g @ w.t(), x.t() @ g
+            dx = _sum_mm([(h, w.t()) for h in halves])
+            dhead = _sum_mm([(x.t(), h) for h in halves])
         return dx.to(x_dtype), dhead.to(head_dtype), None
+
+
+def _sum_mm(pairs) -> torch.Tensor:
+    """The sum of the products a @ b of the pairs in fp32: on the card
+    with fp32 sums from working-dtype operands (cuBLAS), else in fp32."""
+    out = None
+    for a, b in pairs:
+        if a.is_cuda and a.dtype != torch.float32:
+            p = torch.mm(a, b, out_dtype=torch.float32)
+        else:
+            p = a @ b
+        out = p if out is None else out.add_(p)
+    return out
 
 
 def _chunk_nll(head: torch.Tensor, x: torch.Tensor, labels: torch.Tensor, tied: bool,

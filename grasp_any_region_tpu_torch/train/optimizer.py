@@ -7,13 +7,25 @@ The JAX package builds it from optax:
                    freeze: set_to_zero}), inside MultiSteps when
   accumulation > 1.
 This module computes the same updates with `torch._foreach_*` ops on the
-trainable leaves, in place:
-  * the global norm is taken over the trainable leaves' gradients; above
-    `max_grad_norm` each is scaled by max_grad_norm / norm (no epsilon);
+trainable leaves, in place, in optax's order of operations and at the
+leaves' own dtype, so bf16 parameters round where optax rounds them:
+  * the global norm: each leaf's sum of squares (fp32 sums) in the leaf's
+    dtype, added up in that dtype in the tree's (sorted) order, its square
+    root; where it reaches `max_grad_norm`, each gradient becomes
+    (g / norm) * max_grad_norm, the norm in g's dtype (no epsilon);
   * Adam's moments live in each parameter's dtype (bf16 parameters keep
-    bf16 moments, as optax does); the update is
-    mu_hat / (sqrt(nu_hat) + eps) with bias-corrected moments, plus
-    weight_decay * param (decoupled), times -lr;
+    bf16 moments, as optax does): mu = (1 - b1) g + b1 mu and nu =
+    (1 - b2) g^2 + b2 nu, each product and sum rounded on its own; the
+    update mu_hat / (sqrt(nu_hat) + eps), the bias corrections
+    1 - b^count taken in fp32 and rounded to the moment's dtype, plus
+    weight_decay * param (decoupled), times -lr rounded to the dtype;
+  * Python constants enter rounded to the leaves' dtype, as JAX rounds a
+    weak-typed float that multiplies a bf16 array (1 - b1 = 0.1 becomes
+    0.10009766, b1 = 0.9 becomes 0.8984375). One departure: b2 multiplies
+    nu unrounded, where optax's bf16 b2 = 0.999 is 1.0 (a defect of the
+    reference, ROADMAP section 3). In bf16 it changes no bit: 0.001 of nu
+    is under half a bf16 ulp, so bf16(0.999 nu) is nu, and bf16 moments
+    do not decay either way; in fp32 both are 0.999.
   * lr is the schedule at the count of updates applied so far, starting at
     0, so the first warm-up update has lr 0;
   * frozen leaves never move;
@@ -21,7 +33,12 @@ trainable leaves, in place:
     mean of the window (acc += (g - acc) / (n + 1)) and every k-th step
     applies the update to the mean.
 The count of applied updates is a host integer (it follows from the step
-count alone), so no step waits for the card.
+count alone), so no step waits for the card. At bf16 the parameters equal
+optax's under jax.jit on the CPU bit for bit after one update at the
+default betas and three clipped updates with weight decay
+(tests/test_torch_train.py); the frameworks' fp32 sums (the norm) and
+powers (the bias corrections) may differ in their last bits, which can
+move a bf16 rounding now and then.
 """
 
 from __future__ import annotations
@@ -30,6 +47,7 @@ import math
 from dataclasses import dataclass
 from typing import Callable, List, Optional
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -121,6 +139,9 @@ class Optimizer:
         mask = trainable_mask(params, cfg)
         self.cfg = cfg
         self.names = [n for n, _ in params.named_parameters() if mask[n.replace(".", "/")]]
+        # the leaves in JAX's tree order: its dicts flatten in sorted key order
+        self.order = sorted(range(len(self.names)),
+                            key=lambda i: self.names[i].replace(".", "/").split("/"))
         self.schedule = make_schedule(cfg)
 
     def _leaves(self, params: nn.Module) -> List[torch.Tensor]:
@@ -149,27 +170,69 @@ class Optimizer:
             grads = state.acc
         cfg = self.cfg
         b1, b2 = cfg.betas
-        norm = global_norm(grads)
-        clip = torch.where(norm < cfg.max_grad_norm, torch.ones_like(norm),
-                           cfg.max_grad_norm / norm)
-        g = torch._foreach_mul(grads, clip)
-        torch._foreach_lerp_(state.mu, g, 1.0 - b1)  # mu = b1 mu + (1 - b1) g
-        torch._foreach_mul_(state.nu, b2)
-        torch._foreach_addcmul_(state.nu, g, g, value=1.0 - b2)
-        del g
+        norm = self._global_norm(grads)
+        lr = -self.schedule(state.count)
         state.count += 1
-        upd = torch._foreach_div(state.mu, 1.0 - b1 ** state.count)
-        den = torch._foreach_div(state.nu, 1.0 - b2 ** state.count)
-        torch._foreach_sqrt_(den)
-        torch._foreach_add_(den, ADAM_EPS)
-        torch._foreach_div_(upd, den)
-        del den
-        if cfg.weight_decay:
-            torch._foreach_add_(upd, leaves, alpha=cfg.weight_decay)
-        torch._foreach_mul_(upd, -self.schedule(state.count - 1))
-        torch._foreach_add_(leaves, upd)
+        # optax's bias corrections: 1 - b ** count in fp32, rounded to the moments' dtype
+        bc1, bc2 = (float(np.float32(1) - np.float32(b) ** np.float32(state.count))
+                    for b in (b1, b2))
+        unclipped = norm < cfg.max_grad_norm
+        for dtype, idx in self._by_dtype(leaves).items():
+            def c(value: float) -> float:
+                return _in_dtype(value, dtype)
+
+            ps = [leaves[i] for i in idx]
+            mu, nu = [state.mu[i] for i in idx], [state.nu[i] for i in idx]
+            # clip: where the norm reaches max_norm, (g / norm) * max_norm in g's dtype
+            one = torch.ones((), dtype=dtype, device=norm.device)
+            g = torch._foreach_div([grads[i] for i in idx],
+                                   torch.where(unclipped, one, norm.to(dtype)))
+            if cfg.max_grad_norm != 1.0:
+                torch._foreach_mul_(g, torch.where(unclipped, one, one * cfg.max_grad_norm))
+            torch._foreach_mul_(mu, c(b1))  # mu = (1 - b1) g + b1 mu, each op rounded
+            torch._foreach_add_(mu, torch._foreach_mul(g, c(1.0 - b1)))
+            sq = torch._foreach_mul(g, g)  # nu = (1 - b2) g^2 + b2 nu
+            del g
+            torch._foreach_mul_(sq, c(1.0 - b2))
+            torch._foreach_mul_(nu, b2)  # b2 unrounded: the one departure
+            torch._foreach_add_(nu, sq)
+            del sq
+            upd = torch._foreach_div(mu, c(bc1))
+            den = torch._foreach_div(nu, c(bc2))
+            torch._foreach_sqrt_(den)
+            torch._foreach_add_(den, c(ADAM_EPS))
+            torch._foreach_div_(upd, den)
+            del den
+            if cfg.weight_decay:
+                torch._foreach_add_(upd, torch._foreach_mul(ps, c(cfg.weight_decay)))
+            torch._foreach_mul_(upd, c(lr))
+            torch._foreach_add_(ps, upd)
         if k > 1:
             torch._foreach_zero_(state.acc)
+
+    def _global_norm(self, grads: List[torch.Tensor]) -> torch.Tensor:
+        """optax's global norm: each leaf's sum of squares rounded to its
+        dtype, added up in the tree's order (the sorted leaf paths) in
+        that dtype, then the square root."""
+        sums = torch._foreach_norm(grads, 2, dtype=torch.float32)
+        total = None
+        for i in self.order:
+            s = (sums[i] * sums[i]).to(grads[i].dtype)
+            total = s if total is None else total + s
+        return torch.sqrt(total)
+
+    @staticmethod
+    def _by_dtype(leaves: List[torch.Tensor]) -> dict:
+        groups: dict = {}
+        for i, p in enumerate(leaves):
+            groups.setdefault(p.dtype, []).append(i)
+        return groups
+
+
+def _in_dtype(value: float, dtype: torch.dtype) -> float:
+    """value as JAX uses a Python float against an array of `dtype`:
+    rounded to that dtype."""
+    return torch.tensor(value, dtype=torch.float64).to(dtype).item()
 
 
 def make_optimizer(params: nn.Module, cfg: OptimizerConfig) -> Optimizer:

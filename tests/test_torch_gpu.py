@@ -1,5 +1,6 @@
-"""CUDA kernels A-J and the int8 kernels H8, I8, J8, C8 against their plain
-PyTorch versions, on the card.
+"""CUDA kernels A-J, the int8 kernels H8, I8, J8, C8, the training kernels
+and the mega decode step's 19-23 against their plain PyTorch versions, on
+the card.
 
 Skips without a CUDA device. Imports no jax, so it runs on a machine that
 has none; there, skip the repository's conftest (which sets up jax):
@@ -18,6 +19,7 @@ import pytest
 import torch
 
 from grasp_any_region_tpu_torch.ops import decode_attention as dec
+from grasp_any_region_tpu_torch.ops import decode_megakernel as mk
 from grasp_any_region_tpu_torch.ops import flash_attention as fa
 from grasp_any_region_tpu_torch.ops import layer_matmul as lm
 from grasp_any_region_tpu_torch.ops import vit_attention as va
@@ -531,3 +533,191 @@ def test_train_step_backward_runs_the_kernels_on_the_card(rnd):
     assert torch.isfinite(loss)
     assert all(torch.isfinite(p.grad).all() for p in params.parameters() if p.grad is not None)
     assert params.vision.blocks.wqkv.grad.abs().max() > 0
+
+
+# ---- the mega decode step: kernels 19-23
+
+
+def _rope_rows(b):
+    gen = torch.Generator(device="cuda").manual_seed(b)
+    ang = torch.rand((b, 32), generator=gen, device="cuda") * 4000.0
+    ang = torch.cat([ang, ang], -1)
+    return torch.cos(ang), torch.sin(ang)
+
+
+def _norm(rnd, n_layers, d):
+    return (1.0 + 0.2 * rnd(n_layers, d).float()).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("q8", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("b", [1, 5, 24])
+@pytest.mark.parametrize("d,hq,hk", [(256, 256, 64), (384, 256, 128), (2048, 2048, 512)])
+def test_qkv_norm_rope_kernels(rnd, q8, b, d, hq, hk):
+    """Kernels 19 and 20 against their plain versions, with (B, 64) rope
+    rows and with JAX's tiled (B, N) tables."""
+    layer = 1
+    x, norm = rnd(b, d) * 3, _norm(rnd, 3, d)
+    if q8:
+        mats = (*_q8(rnd, 3, d, hq), *_q8(rnd, 3, d, hk), *_q8(rnd, 3, d, hk))
+        kernel, plain, key = mk.layer_qkv_norm_rope_q8, mk.layer_qkv_norm_rope_q8_plain, "20"
+    else:
+        w = _decode_weights(rnd, 3, d, 256, hq, hk)
+        mats = (w["wq"], w["wk"], w["wv"])
+        kernel, plain, key = mk.layer_qkv_norm_rope, mk.layer_qkv_norm_rope_plain, "19"
+    cos, sin = _rope_rows(b)
+    for tables in ((cos, sin, cos, sin),
+                   (cos.repeat(1, hq // 64), sin.repeat(1, hq // 64), cos.repeat(1, hk // 64),
+                    sin.repeat(1, hk // 64))):
+        before = dict(mk.launches)
+        out = kernel(x, norm, *mats, *tables, layer, eps=1e-5, head_dim=64)
+        torch.cuda.synchronize()
+        assert mk.launches == dict(before, **{key: before[key] + 1})
+        ref = plain(x, norm, *mats, *tables, layer, eps=1e-5, head_dim=64)
+        for o, r in zip(out, ref):
+            assert o.dtype == torch.bfloat16 and o.shape == r.shape
+            torch.testing.assert_close(o.float(), r.float(), **TOL)
+
+
+@pytest.mark.parametrize("q8", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("b", [1, 5, 24])
+@pytest.mark.parametrize("d,m", [(256, 1024), (384, 640), (2048, 8192)])
+def test_mlp_residual_kernels(rnd, q8, b, d, m):
+    """Kernels 23 and 21 against their plain versions; a second launch on
+    the same inputs gives the same bits (the grid barrier's arrival count
+    is back at 0 after each launch)."""
+    layer = 1
+    x, norm = rnd(b, d) * 3, _norm(rnd, 3, d)
+    if q8:
+        mats = (*_q8(rnd, 3, d, m), *_q8(rnd, 3, d, m), *_q8(rnd, 3, m, d))
+        kernel, plain, key = mk.layer_mlp_residual_q8, mk.layer_mlp_residual_q8_plain, "21"
+    else:
+        w = _decode_weights(rnd, 3, d, m, 64, 64)
+        mats = (w["w_gate"], w["w_up"], w["w_down"])
+        kernel, plain, key = mk.layer_mlp_residual, mk.layer_mlp_residual_plain, "23"
+    before = dict(mk.launches)
+    out = kernel(x, norm, *mats, layer, eps=1e-5)
+    torch.cuda.synchronize()
+    assert mk.launches == dict(before, **{key: before[key] + 1})
+    assert int(mk._SYNC[x.device.index][0]) == 0
+    ref = plain(x, norm, *mats, layer, eps=1e-5)
+    assert out.dtype == torch.bfloat16 and out.shape == ref.shape
+    torch.testing.assert_close(out.float(), ref.float(), **TOL)
+    again = kernel(x, norm, *mats, layer, eps=1e-5)
+    torch.cuda.synchronize()
+    assert torch.equal(again, out)
+
+
+@pytest.mark.parametrize("q8", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("group", [1, 4, 8])
+@pytest.mark.parametrize("b,plens,pad,wpos", [(2, (100, 37), 128, 170), (1, (128,), 128, 128),
+                                              (3, (500, 700, 9), 700, 1023)])
+def test_decode_attention_wo_kernel(rnd, q8, group, b, plens, pad, wpos):
+    """Kernel 22 against its plain version: the new residual, and the cache,
+    which changes only at column write_pos, to the new K/V."""
+    L, kh, s, dm, layer = 3, 4, 1024, 512, 1
+    k_all, v_all = rnd(L, b, kh, s, 64), rnd(L, b, kh, s, 64)
+    q, k_new, v_new = rnd(b, kh * group, 64), rnd(b, kh, 64), rnd(b, kh, 64)
+    x = rnd(b, dm)
+    if q8:
+        wo, wo_scale = _q8(rnd, L, kh * group * 64, dm)
+    else:
+        wo, wo_scale = _decode_weights(rnd, L, dm, 64, kh * group * 64, 64)["wo"], None
+    kw = dict(prompt_lens=torch.tensor(plens, dtype=torch.int32, device="cuda"),
+              write_pos=torch.tensor(wpos, dtype=torch.int32, device="cuda"), prompt_pad=pad,
+              wo_scale=wo_scale)
+    k_exp, v_exp = k_all.clone(), v_all.clone()
+    ref = mk.decode_attention_wo_plain(q, k_exp, v_exp, k_new, v_new, wo, x, layer, **kw)
+    before = mk.launches["22"]
+    out = mk.decode_attention_wo(q, k_all, v_all, k_new, v_new, wo, x, layer, **kw)
+    torch.cuda.synchronize()
+    assert mk.launches["22"] == before + 1
+    torch.testing.assert_close(out.float(), ref.float(), **TOL)
+    assert torch.equal(k_all, k_exp) and torch.equal(v_all, v_exp)
+    assert torch.equal(k_all[layer, :, :, wpos], k_new)
+
+
+@pytest.mark.parametrize("q8", [False, True], ids=["bf16", "int8"])
+def test_mega_decode_step_on_the_card(rnd, q8, monkeypatch):
+    """GAR_DECODE_PATH=mega: one gar_decode_step on the card runs 19, 22, 23
+    (or 20, 22, 21) once a layer and no kernel of the fused step, and
+    agrees with the same step's plain path on the CPU."""
+    import copy
+
+    from grasp_any_region_tpu_torch.core.config import gar_tiny
+    from grasp_any_region_tpu_torch.core.weights import init_gar_params
+    from grasp_any_region_tpu_torch.models.gar import gar_decode_step, seed_cache_from_prefill
+    from grasp_any_region_tpu_torch.models.quantize import quantize_decode_weights
+
+    base = gar_tiny()
+    cfg = dataclasses.replace(base, text=dataclasses.replace(
+        base.text, hidden_size=256, num_heads=4, num_kv_heads=2, head_dim=64, num_layers=2,
+        intermediate_size=1024))
+    tc = cfg.text
+    cpu = init_gar_params(cfg, torch.Generator().manual_seed(0), device="cpu",
+                          dtype=torch.bfloat16)
+    if q8:
+        cpu = quantize_decode_weights(cpu)
+    card = copy.deepcopy(cpu).to("cuda")
+    b, s = 2, 100
+    kv = tuple(rnd(tc.num_layers, b, s, tc.num_kv_heads, tc.head_dim) for _ in range(2))
+    plens = torch.tensor([s, 61], dtype=torch.int32)
+    tok = torch.tensor([5, 7], dtype=torch.int32)
+    monkeypatch.setenv("GAR_DECODE_PATH", "mega")
+    lm.launches.update(dict.fromkeys(lm.launches, 0))
+    mk.launches.update(dict.fromkeys(mk.launches, 0))
+    dec.launches = dec.launches_q8 = 0
+    logits, cache = gar_decode_step(card, cfg, tok.cuda(),
+                                    seed_cache_from_prefill(cfg, kv, plens.cuda(), 512), s)
+    torch.cuda.synchronize()
+    n = tc.num_layers
+    want = dict(zip(("19", "20", "21", "22", "23"), (0, n, n, n, 0) if q8 else (n, 0, 0, n, n)))
+    assert mk.launches == want
+    assert not any(lm.launches.values()) and dec.launches == dec.launches_q8 == 0
+    assert int(cache.write_pos) == s + 1
+    ref, _ = gar_decode_step(cpu, cfg, tok, seed_cache_from_prefill(
+        cfg, tuple(t.cpu() for t in kv), plens, 512), s, use_kernel="mega")
+    assert torch.isfinite(logits).all()
+    assert ((logits.cpu() - ref).abs().max() / ref.abs().max()).item() < 5e-2
+
+
+def _bf16_ulp(t):
+    """One bf16 ulp at each |t| (8 significant bits)."""
+    _, e = torch.frexp(t.abs())
+    return torch.ldexp(torch.ones_like(t), e - 8)
+
+
+def test_ce_head_backward_rounds_once_on_the_card(rnd):
+    """The CE head's backward on the card contracts the fp32 logit gradient
+    with the bf16 operands in fp32 and rounds each result once, as JAX's
+    VJP and the CPU branch's fp32 formula do. Bound: at most 2% of the
+    elements differ from that formula rounded to bf16 (the two-half split
+    keeps 16 significant bits of the gradient, and the sums run in another
+    order, which moves a rounding near its boundary), every element within
+    one bf16 ulp of it plus 2^-14 of the sum of the products' magnitudes.
+    Rounding the gradient to bf16 before the products, the form before,
+    misses the rounded formula on ten times as many elements."""
+    from grasp_any_region_tpu_torch.train.losses import _HeadLogits
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    n, v, d = 512, 4096, 256
+    for tied in (True, False):
+        x = rnd(n, d).requires_grad_()
+        head = (rnd(v, d) if tied else rnd(d, v)).requires_grad_()
+        g = torch.randn((n, v), generator=gen, device="cuda") * 1e-3
+        _HeadLogits.apply(x, head, tied).backward(g)
+        xf, hf = x.detach().float(), head.detach().float()
+        w = hf if tied else hf.t()
+
+        def products(a, b):  # (a @ b, |a| @ |b|) in fp32, dx's then dhead's operand order
+            return a @ b, a.abs() @ b.abs()
+
+        refs = (products(g, w), products(g.t(), xf) if tied else products(xf.t(), g))
+        gb, wb, xb = g.bfloat16(), w.bfloat16(), x.detach()
+        before = (gb @ wb, gb.t() @ xb if tied else xb.t() @ gb)
+        for got, (ref, mag), old in zip((x.grad, head.grad), refs, before):
+            once = ref.bfloat16()
+            miss = (got != once).float().mean().item()
+            old_miss = (old != once).float().mean().item()
+            assert miss <= 0.02 and old_miss > 10 * miss, (tied, miss, old_miss)
+            gap = (got.float() - ref).abs() - _bf16_ulp(ref) - mag * 2.0 ** -14
+            assert gap.max().item() <= 0, (tied, gap.max().item())

@@ -222,13 +222,15 @@ def test_fused_decode_step(rng, reference, rope_scaling):
 
 def test_decode_auto_rule_on_cpu(rng, monkeypatch):
     """use_kernel=None takes the XLA form on a CPU tensor (no launches), as
-    JAX takes it off the TPU; "fused" on a CUDA device; "mega" raises until
-    the mega path is ported, through gar_decode_step too."""
+    JAX takes it off the TPU; GAR_DECODE_PATH (default "fused") on a CUDA
+    device; "mega" runs the mega form's plain versions on the CPU, through
+    gar_decode_step too."""
     from grasp_any_region_tpu_torch.core.config import gar_tiny
     from grasp_any_region_tpu_torch.models import gar as tg, llama as tl
 
     c = _decode_setup(rng)
     cfg, params, pad = c["cfg_t"], c["tparams"], c["prompt_pad"]
+    monkeypatch.delenv("GAR_DECODE_PATH", raising=False)
     assert tl.decode_kernel_choice(cfg, torch.device("cuda", 0)) == "fused"
     assert tl.decode_kernel_choice(cfg, "cpu") is False
     ref, _ = tl.llama_decode_step(params, cfg, _t(c["emb"]), c["tcache"](), pad,
@@ -243,10 +245,13 @@ def test_decode_auto_rule_on_cpu(rng, monkeypatch):
                                           use_kernel=auto)
         assert torch.equal(out, ref) and int(cache.write_pos) == c["wpos"] + 1
     assert _no_launches()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tl.llama_decode_step(params, cfg, _t(c["emb"]), c["tcache"](), pad, use_kernel="mega")
+    mega, cache = tl.llama_decode_step(params, cfg, _t(c["emb"]), c["tcache"](), pad,
+                                       use_kernel="mega")
+    np.testing.assert_allclose(mega.numpy(), ref.numpy(), **STEP)
+    assert int(cache.write_pos) == c["wpos"] + 1
     gcfg = dataclasses.replace(gar_tiny(), text=cfg)
     gparams = tg.GARParams(gcfg, dtype=torch.float32)
-    with pytest.raises(NotImplementedError, match="mega"):
-        tg.gar_decode_step(gparams, gcfg, torch.tensor([1, 2, 3], dtype=torch.int32),
-                           c["tcache"](), pad, use_kernel="mega")
+    logits, cache = tg.gar_decode_step(gparams, gcfg, torch.tensor([1, 2, 3], dtype=torch.int32),
+                                       c["tcache"](), pad, use_kernel="mega")
+    assert logits.shape[0] == 3 and int(cache.write_pos) == c["wpos"] + 1
+    assert _no_launches()

@@ -12,7 +12,8 @@ gradient's path untested, so both trees get the same seeded random values.
 
 Tolerances: the loss to rtol 1e-5, each gradient leaf within 1e-4 of that
 leaf's max |g| (the frameworks sum in another order over whole towers),
-and the parameters after three AdamW steps within 1e-5.
+and the parameters after three AdamW steps within 1e-5; at bf16 the AdamW
+updates alone (the same gradients on both sides) are equal bit for bit.
 """
 
 import dataclasses
@@ -207,6 +208,64 @@ def test_three_adamw_steps_match_optax(setup):
     np.testing.assert_allclose(losses_t, losses_j, rtol=1e-5)
     assert losses_t[2] < losses_t[0]
     _assert_params_close(params_t, params_j)
+
+
+@pytest.mark.parametrize("case", ["one_update_default_betas", "three_clipped_updates"])
+def test_bf16_adamw_matches_optax(setup, case):
+    """bf16 parameters and moments: the port's AdamW against optax's chain
+    (`make_optimizer`, under jax.jit) from the same seeded bf16 gradients,
+    every element of every leaf equal. Three updates use bf16-exact betas
+    (0.875, 0.9921875) and weight decay, with gradients whose global norm
+    passes max_grad_norm, so clipping runs."""
+    from grasp_any_region_tpu.train import optimizer as jopt
+    from grasp_any_region_tpu_torch.train import OptimizerConfig, make_optimizer
+    from grasp_any_region_tpu_torch.train.optimizer import global_norm
+
+    kw = dict(lr=LR, total_steps=100, warmup_ratio=0.0)
+    n, g_scale = 1, 1e-4
+    if case == "three_clipped_updates":
+        kw.update(betas=(0.875, 0.9921875), weight_decay=0.01)
+        n, g_scale = 3, 1e-1
+    rng = np.random.default_rng(3)
+    params = jax.tree_util.tree_map(lambda a: a.astype(jnp.bfloat16), setup["params"])
+    names = list(setup["flat"])
+    grads = [{name: (rng.standard_normal(setup["flat"][name].shape) * g_scale).astype(np.float32)
+              for name in names} for _ in range(n)]
+
+    tx = jopt.make_optimizer(params, jopt.OptimizerConfig(**kw))
+    opt_state = tx.init(params)
+
+    @jax.jit
+    def update(params, opt_state, grads):
+        updates, opt_state = tx.update(grads, opt_state, params)
+        return optax.apply_updates(params, updates), opt_state
+
+    def tree(flat):
+        return jax.tree_util.tree_map_with_path(
+            lambda path, a: jnp.asarray(flat["/".join(str(k.key) for k in path)], jnp.bfloat16),
+            params)
+
+    for g in grads:
+        params, opt_state = update(params, opt_state, tree(g))
+    want = flatten_params(params)
+
+    port = _port(setup, grad=False).to(torch.bfloat16)
+    opt = make_optimizer(port, OptimizerConfig(**kw))
+    state = opt.init(port)
+    named = dict(port.named_parameters())
+    norms = []
+    for g in grads:
+        for name, p in named.items():
+            p.grad = torch.from_numpy(g[name.replace(".", "/")]).to(torch.bfloat16)
+        norms.append(global_norm([p.grad for p in named.values()]).item())
+        opt.apply(port, state)
+    assert all(m.dtype == torch.bfloat16 for m in state.mu + state.nu)
+    assert (min(norms) > 1.0) == (case == "three_clipped_updates")
+    for name, p in named.items():
+        got, ref = p.detach().float().numpy(), np.asarray(want[name.replace(".", "/")], np.float32)
+        np.testing.assert_array_equal(got, ref, err_msg=name)
+    assert not np.array_equal(named["llm.blocks.wq"].detach().float().numpy(),
+                              np.asarray(setup["flat"]["llm/blocks/wq"], np.float32))
 
 
 def test_accumulation_applies_the_mean_every_second_step(setup):
