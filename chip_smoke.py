@@ -26,7 +26,16 @@ the script exits non-zero (there is no CPU fallback):
    decode step's kernels 19-23 at gar_1b shapes, B = 24 and B = 1 (22 with
    bf16 and with int8 wo, over a cache of the main path's shape, its
    written K/V column checked, beside kernel C + kernel H on wo), with
-   their GB/s; the plain versions here take the same bf16 inputs.
+   their GB/s; the plain versions here take the same bf16 inputs. The two
+   kernels that no JAX path dispatches, so that no later phase launches
+   them: 16 (read-only decode attention) over C's seeded cache at every
+   layer, the layer a device scalar, the cache unchanged, also at B = 24,
+   with SDPA under the two-interval boolean mask (enable_gqa) as its
+   library call; 24 (LayerNorm) at the tower's (17, 1025, 1024) in bf16
+   and fp32 and at a ragged (3, 37, 1024), with F.layer_norm as its
+   library call beside the port's plain `layer_norm` (the tower's form),
+   and `layer_norm_fused_df`'s forward and backward against autograd
+   through the plain `layer_norm`.
 3. End-to-end cross-check on a narrow gar_1b (ViT width 256, decoder
    hidden 256, 2 layers each, head dim 64): the same seeded bf16 params on
    the card (kernel path: the fused ViT and the fused decode step) and on
@@ -116,6 +125,9 @@ import numpy as np
 import torch
 
 TOL = 2e-2  # atol = rtol for kernel vs plain at bf16
+# Kernel 16's outputs are averages over up to 4701 columns, ~0.02 in size, so
+# it is held closer: atol a tenth of that, rtol one rounding of a bf16 output.
+TOL16 = dict(atol=2e-3, rtol=2.0 ** -8)
 E2E_TOL = 5e-2  # max |logit difference| / max |logit|, kernel path vs plain path
 SEED = 0
 HBM_BYTES_PER_MS = 3.35e9  # H100 SXM, published: 3.35 TB/s
@@ -164,15 +176,16 @@ def cuda_ms(fn, iters: int = 10, warmup: int = 2, sleep_cycles: int = 1_000_000)
     return statistics.median(times)
 
 
-def max_err(out: torch.Tensor, ref: torch.Tensor, name: str) -> float:
+def max_err(out: torch.Tensor, ref: torch.Tensor, name: str, atol: float = TOL,
+            rtol: float = TOL) -> float:
     out, ref = out.float(), ref.float()
     if out.shape != ref.shape or not torch.isfinite(out).all():
         raise AssertionError(f"{name}: shape {tuple(out.shape)} vs {tuple(ref.shape)} "
                              "or non-finite output")
     err = (out - ref).abs().max().item()
-    if not torch.allclose(out, ref, atol=TOL, rtol=TOL):
+    if not torch.allclose(out, ref, atol=atol, rtol=rtol):
         raise AssertionError(f"{name}: kernel and plain version disagree, "
-                             f"max |diff| {err:.3e} (atol = rtol = {TOL})")
+                             f"max |diff| {err:.3e} (atol {atol}, rtol {rtol})")
     return err
 
 
@@ -268,6 +281,8 @@ def phase_kernels():
             q, k_all, v_all, k_new, v_new, layer, **kw)),
         library_ms=None, **decode_bound(q, k_all, plens.tolist(), pad, wpos))
     del k_all, v_all, k_ref, v_ref
+    results["16"] = decode_attention_read_kernel(rnd)
+    results["24"] = layer_norm_kernel(rnd)
     results["C8"] = decode_attention_q8_kernel(rnd)
     results.update(vit_block_kernels(rnd, gen))
     results.update(decode_matmul_kernels(rnd))
@@ -431,6 +446,142 @@ def decode_work(q, k_all, plens, pad, wpos):
 
 def decode_bound(q, k_all, plens, pad, wpos):
     return bound(*decode_work(q, k_all, plens, pad, wpos))
+
+
+# Kernel 16's B = 24 prompt lengths: write_pos + 1, write_pos, past and at
+# prompt_pad and one short of it, the edges of 512-column blocks, down to 1.
+PLENS_24 = [4701, 4700, 4690, 4663, 4662, 4661, 4609, 4608, 4607, 4097, 4096, 4095,
+            4000, 3500, 3000, 2048, 1025, 1024, 513, 512, 511, 100, 2, 1]
+
+
+def interval_probe(v, plens, pad, wpos):
+    """A one-layer (B, K, S, D) cache on which kernel 16's answer is the
+    mean of v over each row's valid columns: k = 0 gives every column the
+    same weight, and v holds a distinct spike on each side of each interval
+    edge (prompt_len - 1, prompt_len, prompt_pad - 1, prompt_pad,
+    write_pos, write_pos + 1), the i-th of a row 0.02 i times its count of
+    valid columns. One column too many or too few, or one counted twice,
+    moves that row's outputs by 0.02 or more."""
+    v = v.clone()
+    for row, plen in enumerate(plens):
+        n = plen + max(0, wpos + 1 - max(pad, plen))
+        edges = sorted({plen - 1, plen, pad - 1, pad, wpos, wpos + 1} & set(range(v.shape[2])))
+        for i, col in enumerate(edges):
+            v[row, :, col] = 0.02 * (i + 1) * n
+    return torch.zeros_like(v), v
+
+
+def decode_attention_read_kernel(rnd):
+    """Kernel 16 over the main path's seeded (16, B, 8, 5120, 64) bf16 cache,
+    prompt_pad 4662, write_pos 4700 (the current token already in the
+    cache): at B = 24 (prompt lengths from 1 to write_pos + 1, at and on
+    both sides of prompt_pad, write_pos and block edges) at layers 0, 7 and
+    15, then at B = 2 (prompt lengths 4662 and 4000, the kernels line) at
+    all 16 layers, each layer a device int32 scalar, each against the
+    plain version at TOL16, and the cache unchanged; then at both B the
+    interval probe, at TOL16. Times at layer 7: kernel, plain, bound (C's bytes:
+    the valid columns, q and the output), and the library call, SDPA over
+    the layer slab with enable_gqa and the two-interval boolean mask
+    (timed only; its gap to the plain version printed)."""
+    import torch.nn.functional as F
+    from grasp_any_region_tpu_torch.ops import decode_attention as dec
+
+    pad, wpos, s = 4662, 4700, 5120
+    err = 0.0
+    for b in (24, 2):
+        k_all, v_all = rnd(16, b, 8, s, 64), rnd(16, b, 8, s, 64)
+        q = rnd(b, 32, 64)
+        plens = [4662, 4000] if b == 2 else PLENS_24
+        plens_t = torch.tensor(plens, dtype=torch.int32, device="cuda")
+        kw = dict(prompt_lens=plens_t, write_pos=torch.tensor(wpos, dtype=torch.int32,
+                                                              device="cuda"), prompt_pad=pad)
+        k_ref, v_ref = k_all.clone(), v_all.clone()
+        zero = torch.zeros((), dtype=torch.int32, device="cuda")
+        for layer in (range(16) if b == 2 else (0, 7, 15)):
+            lay = torch.tensor(layer, dtype=torch.int32, device="cuda")
+            out = dec.decode_attention_stacked(q, k_all, v_all, lay, **kw)
+            torch.cuda.synchronize()
+            ref = dec.decode_attention_plain(q.float(), k_all[layer:layer + 1].float(),
+                                             v_all[layer:layer + 1].float(), zero, **kw)
+            err = max(err, max_err(out, ref, f"16 (B = {b}, layer {layer})", **TOL16))
+        if not (torch.equal(k_all, k_ref) and torch.equal(v_all, v_ref)):
+            raise AssertionError(f"16 (B = {b}): the read-only kernel changed the cache")
+        del k_ref, v_ref
+        k0, vp = interval_probe(v_all[0], plens, pad, wpos)
+        out = dec.decode_attention(q, k0, vp, **kw)
+        torch.cuda.synchronize()
+        ref = dec.decode_attention_plain(q.float(), k0[None].float(), vp[None].float(), zero, **kw)
+        err = max(err, max_err(out, ref, f"16 (B = {b}) interval probe", **TOL16))
+        del k0, vp
+        lay = torch.tensor(7, dtype=torch.int32, device="cuda")
+        ms = cuda_ms(lambda: dec.decode_attention_stacked(q, k_all, v_all, lay, **kw))
+        plain_ms = cuda_ms(lambda: dec.decode_attention_plain(q, k_all, v_all, lay, **kw),
+                           iters=5)
+        lim = decode_bound(q, k_all, plens, pad, wpos)
+        ids = torch.arange(s, device="cuda")
+        mask = ((ids < plens_t[:, None]) | ((ids >= pad) & (ids <= wpos)))[:, None, None, :]
+        k7, v7, q4 = k_all[7], v_all[7], q[:, :, None, :]  # SDPA's (B, heads, S, D)
+
+        def library():
+            return F.scaled_dot_product_attention(q4, k7, v7, attn_mask=mask, scale=64 ** -0.5,
+                                                  enable_gqa=True)
+
+        lib_gap = (library()[:, :, 0].float() - dec.decode_attention_plain(
+            q.float(), k_all[7:8].float(), v_all[7:8].float(), zero, **kw)).abs().max().item()
+        lib_ms = cuda_ms(library)
+        log(f"[kernels] 16, B = {b}: {ms:.4f} ms (bound {lim['bound_ms']:.4f} ms of "
+            f"{lim['bound_by']}); plain {plain_ms:.4f} ms; library (SDPA, boolean mask, "
+            f"enable_gqa) {lib_ms:.4f} ms, max |library - plain| {lib_gap:.3e}; "
+            f"max |kernel - plain| over the layers {err:.3e}")
+        del k_all, v_all, k7, v7
+    torch.cuda.empty_cache()
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms, **lim)
+
+
+def layer_norm_kernel(rnd):
+    """Kernel 24 at a ragged (3, 37, 1024) bf16, then at the tower's (17,
+    1025, 1024) in fp32 and in bf16 (the kernels line), weights and bias in
+    x's dtype, each against its plain version at TOL; times: kernel, plain
+    (= `ops.norms.layer_norm`, the tower's form today), F.layer_norm as the
+    library call, and the bound from bytes (x read and the output written
+    once; ~8 fp32 operations an element take a tenth of that time). Then
+    `layer_norm_fused_df` at the tower's bf16 shape, forward and backward,
+    against autograd through the plain `layer_norm`: the output within TOL,
+    every gradient within TOL of its range."""
+    import torch.nn.functional as F
+    from grasp_any_region_tpu_torch.ops import norms
+
+    d = 1024
+    for shape, dtype in (((3, 37, d), torch.bfloat16), ((17, 1025, d), torch.float32),
+                         ((17, 1025, d), torch.bfloat16)):
+        x = (rnd(*shape).float() * 3 + 1).to(dtype)
+        w, b = (1 + 0.3 * rnd(d).float()).to(dtype), (0.2 * rnd(d).float()).to(dtype)
+        out = norms.layer_norm_fused(x, w, b)
+        torch.cuda.synchronize()
+        label = f"24 {tuple(shape)} {str(dtype)[6:]}"
+        err = max_err(out, norms.layer_norm_fused_plain(x.float(), w.float(), b.float()), label)
+        ms = cuda_ms(lambda: norms.layer_norm_fused(x, w, b))
+        plain_ms = cuda_ms(lambda: norms.layer_norm_fused_plain(x, w, b))
+        lib_ms = cuda_ms(lambda: F.layer_norm(x, (d,), w, b, 1e-6))
+        lim = bound(nbytes(x, w, b, out), 0)
+        log(f"[kernels] {label}: {ms:.4f} ms = {nbytes(x, out) / ms / 1e6:.0f} GB/s (bound "
+            f"{lim['bound_ms']:.4f} ms of {lim['bound_by']}); plain = ops.norms.layer_norm "
+            f"(the tower's form) {plain_ms:.4f} ms; library F.layer_norm {lib_ms:.4f} ms; "
+            f"max |kernel - plain| {err:.3e}")
+    g = rnd(*x.shape)
+    leaves, refs = ([t.clone().requires_grad_() for t in (x, w, b)] for _ in range(2))
+    got, want = norms.layer_norm_fused_df(*leaves), norms.layer_norm(*refs)
+    got.backward(g)
+    want.backward(g)
+    df_err = max_err(got, want, "24 layer_norm_fused_df forward")
+    gaps = [((a.grad.float() - r.grad.float()).abs().max() / r.grad.float().abs().max()).item()
+            for a, r in zip(leaves, refs)]
+    if max(gaps) > TOL:
+        raise AssertionError(f"24 layer_norm_fused_df: gradient gaps {gaps} > {TOL} of the "
+                             "range")
+    log(f"[kernels] 24 layer_norm_fused_df: forward max |kernel - plain| {df_err:.3e}; "
+        f"gradient gaps (x, weight, bias) {', '.join(f'{x:.3e}' for x in gaps)} of the range")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms, **lim)
 
 
 def decode_attention_q8_kernel(rnd):
@@ -876,16 +1027,17 @@ def counter_modules():
     """The wrapper modules whose launch counters the phases read."""
     from grasp_any_region_tpu_torch.ops import decode_attention, flash_attention, layer_matmul
     from grasp_any_region_tpu_torch.ops import decode_megakernel, flash_backward, vit_attention
-    from grasp_any_region_tpu_torch.ops import vit_block
+    from grasp_any_region_tpu_torch.ops import norms, vit_block
 
     return (decode_attention, flash_attention, vit_attention, vit_block, layer_matmul,
-            flash_backward, decode_megakernel)
+            flash_backward, decode_megakernel, norms)
 
 
 def reset_counts():
-    dec, fa, va, vb, lm, fb, mk = counter_modules()
+    dec, fa, va, vb, lm, fb, mk, nm = counter_modules()
     va.launches = va.launches_fused = va.launches_bwd = 0
     fa.launches = fa.launches_segments = dec.launches = dec.launches_q8 = 0
+    dec.launches_stacked = nm.launches = 0
     fb.launches_dq = fb.launches_dkv = fb.launches_segments = 0
     vb.launches.update(D=0, F=0, G=0)
     for counts in (lm.launches, mk.launches):
@@ -893,16 +1045,17 @@ def reset_counts():
 
 
 def read_counts():
-    dec, fa, va, vb, lm, fb, mk = counter_modules()
+    dec, fa, va, vb, lm, fb, mk, nm = counter_modules()
     return {"A": va.launches, "B": fa.launches, "C": dec.launches, "C8": dec.launches_q8,
             "D": vb.launches["D"], "E": va.launches_fused, "F": vb.launches["F"],
-            "G": vb.launches["G"], **lm.launches, "5": va.launches_bwd, "17": fb.launches_dq,
-            "18": fb.launches_dkv, **mk.launches}
+            "G": vb.launches["G"], **lm.launches, "5": va.launches_bwd,
+            "16": dec.launches_stacked, "17": fb.launches_dq, "18": fb.launches_dkv,
+            **mk.launches, "24": nm.launches}
 
 
 def segmented_counts():
     """Launches of B and of 17 / 18 that carried segment ids."""
-    _, fa, _, _, _, fb, _ = counter_modules()
+    _, fa, _, _, _, fb, _, _ = counter_modules()
     return {"B": fa.launches_segments, "17+18": fb.launches_segments}
 
 
@@ -1477,6 +1630,8 @@ KERNELS = {
            "grasp_any_region_tpu/ops/layer_matmul.py:282"),
     "5": ("vit_attention_bwd_onepass", "grasp_any_region_tpu_torch/csrc/flash_backward.cu",
           "grasp_any_region_tpu/ops/vit_attention.py:185"),
+    "16": ("decode_attention_stacked", "grasp_any_region_tpu_torch/csrc/decode_attention.cu",
+           "grasp_any_region_tpu/ops/decode_attention.py:598"),
     "17": ("flash_attention_bwd_dq", "grasp_any_region_tpu_torch/csrc/flash_backward.cu",
            "grasp_any_region_tpu/ops/flash_backward.py:369"),
     "18": ("flash_attention_bwd_dkv", "grasp_any_region_tpu_torch/csrc/flash_backward.cu",
@@ -1491,6 +1646,8 @@ KERNELS = {
            "grasp_any_region_tpu/ops/decode_megakernel.py:478"),
     "23": ("layer_mlp_residual", "grasp_any_region_tpu_torch/csrc/decode_megakernel.cu",
            "grasp_any_region_tpu/ops/decode_megakernel.py:569"),
+    "24": ("layer_norm_fused", "grasp_any_region_tpu_torch/csrc/layer_norm.cu",
+           "grasp_any_region_tpu/ops/norms.py:66"),
 }
 
 
@@ -1524,8 +1681,11 @@ def main() -> int:
     # the path whose run reports each kernel's launches: kernel A the
     # unfused tower's, the backward kernels the train step's, the mega
     # kernels their generate(GAR_DECODE_PATH=mega)'s, the int8 kernels the
-    # int8 path's generate, the others generate's
+    # int8 path's generate, the others generate's; 16 and 24 lie on no JAX
+    # path, so generate's run reports their 0
     paths = {"A": ("vision_forward(fused_blocks=False)", unfused_counts),
+             **dict.fromkeys(("16", "24"), ("phase 2 only: no JAX path dispatches it",
+                                            main_counts)),
              **dict.fromkeys(("5", "17", "18"), ("train_step", train_counts)),
              **dict.fromkeys(("19", "22", "23"), ("generate(mega)", mega_caption)),
              **dict.fromkeys(("20", "21"), ("generate(mega, int8 weights)", mega_q8_caption)),

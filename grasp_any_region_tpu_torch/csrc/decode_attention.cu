@@ -18,6 +18,18 @@
 // batch row, kv-head pair) loaded once per block. Half of C's bytes, the
 // same grid: at B = 1 both are held by having one block per (kv head, batch
 // row), not by the bytes (split-KV is later work).
+//
+// Kernel 16 (decode_attention_kernel) replaces
+// grasp_any_region_tpu/ops/decode_attention.py:decode_attention /
+// decode_attention_stacked (_decode_kernel via _decode_call): the same body
+// read-only (decode_attend<..., Append = false>), the current token already
+// in the cache at write_pos, over the layer that a device int32 scalar picks
+// out of the stacked bf16 cache, so a caller never waits for the host. Bound
+// by the valid columns' bytes like C, on the same grid. The TPU kernel walks
+// whole block_s blocks up to the one holding write_pos; a prompt column past
+// that block (prompt_len > write_pos + 1, outside the cache's layout) is
+// left out here as there. A layer outside [0, L) writes NaN rows instead of
+// reading outside the cache.
 #include "decode_tile.cuh"
 
 namespace gar {
@@ -50,6 +62,33 @@ decode_attention_fused_kernel(const bf16* __restrict__ q, T* k_all, T* v_all,
                          });
 }
 
+template <int D, int G>
+__global__ void __launch_bounds__(kDecodeWarps * 32)
+decode_attention_kernel(const bf16* __restrict__ q, bf16* k_all, bf16* v_all,
+                        bf16* __restrict__ out, const int* __restrict__ prompt_lens,
+                        const int* __restrict__ write_pos, const int* __restrict__ layer_index,
+                        int n_layers, int batch, int kv_heads, int seq, int prompt_pad,
+                        int block_s, float scale) {
+  __shared__ DecodeShared<G, D> sh;
+  const int kh = blockIdx.x, b = blockIdx.y;
+  const int layer = layer_index[0], wpos = write_pos[0];
+  const size_t head0 = static_cast<size_t>(b) * kv_heads * G + static_cast<size_t>(kh) * G;
+  if (layer < 0 || layer >= n_layers) {
+    const bf16 nan = __float2bfloat16(__int_as_float(0x7fc00000));
+    for (int i = threadIdx.x; i < G * D; i += blockDim.x) out[head0 * D + i] = nan;
+    return;
+  }
+  const size_t slab = ((static_cast<size_t>(layer) * batch + b) * kv_heads + kh) *
+                      static_cast<size_t>(seq) * D;
+  // the TPU kernel visits blocks 0 .. write_pos / block_s
+  const int plen = min(prompt_lens[b], (wpos / block_s + 1) * block_s);
+  decode_attend<bf16, D, G, false>(sh, q + head0 * D, k_all + slab, v_all + slab, nullptr,
+                                   nullptr, plen, wpos, seq, prompt_pad, 1.f, 1.f, scale,
+                                   [&](int gg, int d, float v) {
+                                     out[(head0 + gg) * D + d] = __float2bfloat16(v);
+                                   });
+}
+
 struct DecodeArgs {
   const void* q;
   void* k_all;
@@ -75,6 +114,18 @@ int launch_decode(const DecodeArgs& a, cudaStream_t stream) {
       static_cast<const int*>(a.write_pos), static_cast<const float*>(a.k_scale),
       static_cast<const float*>(a.v_scale), a.layer, a.batch, a.kv_heads, a.seq, a.prompt_pad,
       a.scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D, int G>
+int launch_decode_read(const DecodeArgs& a, const void* layer, int n_layers, int block_s,
+                       cudaStream_t stream) {
+  const dim3 grid(a.kv_heads, a.batch);
+  decode_attention_kernel<D, G><<<grid, kDecodeWarps * 32, 0, stream>>>(
+      static_cast<const bf16*>(a.q), static_cast<bf16*>(a.k_all), static_cast<bf16*>(a.v_all),
+      static_cast<bf16*>(a.out), static_cast<const int*>(a.prompt_lens),
+      static_cast<const int*>(a.write_pos), static_cast<const int*>(layer), n_layers, a.batch,
+      a.kv_heads, a.seq, a.prompt_pad, block_s, a.scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -112,4 +163,26 @@ extern "C" int gar_decode_attention_fused_q8(
   const gar::DecodeArgs a{q, k_all, v_all, k_new, v_new, out, prompt_lens, write_pos,
                           k_scale, v_scale, layer, batch, kv_heads, seq, prompt_pad, scale};
   return gar::dispatch_decode<int8_t>(a, heads, head_dim, static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int gar_decode_attention(const void* q, const void* k_all, const void* v_all,
+                                    void* out, const void* prompt_lens, const void* write_pos,
+                                    const void* layer, int n_layers, int batch, int heads,
+                                    int kv_heads, int seq, int head_dim, int prompt_pad,
+                                    int block_s, float scale, void* stream) {
+  if (head_dim != 64 || kv_heads <= 0 || heads % kv_heads != 0 || block_s <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  // read only: the Append = false body never writes the cache
+  const gar::DecodeArgs a{q, const_cast<void*>(k_all), const_cast<void*>(v_all), nullptr,
+                          nullptr, out, prompt_lens, write_pos, nullptr, nullptr,
+                          /*layer: read on the card*/ 0, batch, kv_heads, seq, prompt_pad,
+                          scale};
+  const auto s = static_cast<cudaStream_t>(stream);
+  switch (heads / kv_heads) {
+    case 1: return gar::launch_decode_read<64, 1>(a, layer, n_layers, block_s, s);
+    case 2: return gar::launch_decode_read<64, 2>(a, layer, n_layers, block_s, s);
+    case 4: return gar::launch_decode_read<64, 4>(a, layer, n_layers, block_s, s);
+    case 8: return gar::launch_decode_read<64, 8>(a, layer, n_layers, block_s, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

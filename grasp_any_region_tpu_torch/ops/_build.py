@@ -42,6 +42,8 @@ _SIGNATURES = {
     "gar_vit_attention_bwd": [_P] * 9 + [_I] * 4 + [_LP, _F, _P],
     "gar_decode_attention_fused": [_P] * 8 + [_I] * 7 + [_F, _P],
     "gar_decode_attention_fused_q8": [_P] * 10 + [_I] * 7 + [_F, _P],
+    "gar_decode_attention": [_P] * 7 + [_I] * 8 + [_F, _P],
+    "gar_layer_norm": [_P] * 4 + [_I] * 5 + [_F, _P],
     "gar_vit_attention_fused_qkv": [_P] * 4 + [_I] * 4 + [_F, _P],
     "gar_vit_ln_qkv": [_P] * 6 + [_I] * 3 + [_F, _P],
     "gar_vit_wo_residual": [_P] * 6 + [_I] * 2 + [_P],

@@ -103,19 +103,23 @@ def decode_attention_reference(
     prompt_lens: torch.Tensor,
     write_pos: torch.Tensor,
     prompt_pad: int,
+    scale: Optional[float] = None,
 ) -> torch.Tensor:
     """Single-step attention against the two-interval KV cache.
 
     q: (B, H, D); k_cache/v_cache: (B, K, S, D) head-major. Valid columns of
     row b: [0, prompt_lens[b]) and [prompt_pad, write_pos] (the current token
     sits at write_pos). write_pos is a () device tensor: nothing here waits
-    for the host. Probabilities are cast to the cache dtype before the PV
-    product, as in the JAX reference.
+    for the host. `scale` (default D**-0.5) is rounded to q's dtype and
+    multiplies q before the product, and probabilities are cast to the cache
+    dtype before the PV product, as in the JAX reference.
     """
     b, h, d = q.shape
     kh, s = k_cache.shape[1], k_cache.shape[2]
     g = h // kh
-    qf = (q * d ** -0.5).reshape(b, kh, g, d)
+    if scale is None:
+        scale = d ** -0.5
+    qf = (q * torch.tensor(scale, dtype=q.dtype)).reshape(b, kh, g, d)
     logits = torch.einsum("bkgd,bksd->bkgs", qf.float(), k_cache.float())
     ids = torch.arange(s, device=q.device)[None, :]
     valid = (ids < prompt_lens[:, None]) | ((ids >= prompt_pad) & (ids <= write_pos))

@@ -33,9 +33,19 @@ On a CPU tensor the wrapper runs `decode_attention_fused_plain` (or
 `decode_attention_fused_q8_plain`); on a CUDA tensor it launches the
 kernel or raises. Both update the cache in place and return only the
 attention output.
+
+Kernel 16 replaces `decode_attention` and `decode_attention_stacked`
+(`_decode_kernel` via `_decode_call`) with the same names and arguments:
+C's body read-only, over a bf16 cache that already holds the current
+token at write_pos, at the layer that a () int32 device tensor picks out
+of the stacked cache, so neither wrapper waits for the host. No JAX path
+dispatches it (the XLA decode step attends through
+`decode_attention_reference`), so none here does either.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -44,6 +54,7 @@ from .attention import NEG_INF, decode_attention_reference
 
 launches = 0  # kernel C launches since the last reset (chip_smoke.py reads it)
 launches_q8 = 0  # kernel C8 launches
+launches_stacked = 0  # kernel 16 launches
 
 
 def decode_attention_fused_plain(
@@ -186,3 +197,128 @@ def decode_attention_fused(
         _build.check(err, "gar_decode_attention_fused")
         launches += 1
     return out
+
+
+def _block_s(s: int, block_s: int) -> int:
+    """The TPU kernel's block of cache columns, and its check (on every
+    device: the block decides which columns the kernel visits)."""
+    block_s = min(block_s, s)
+    if s % block_s:
+        raise ValueError(f"cache columns {s} must be a multiple of block_s {block_s}; "
+                         "allocate the cache padded (padding would copy it every step)")
+    return block_s
+
+
+def decode_attention_plain(
+    q: torch.Tensor, k_all: torch.Tensor, v_all: torch.Tensor, layer: torch.Tensor, *,
+    prompt_lens: torch.Tensor, write_pos: torch.Tensor, prompt_pad: int,
+    scale: Optional[float] = None, block_s: int = 512,
+) -> torch.Tensor:
+    """Kernel 16's function at `_decode_kernel`'s rounding points: the
+    unscaled q meets k in fp32 and `scale` multiplies the logits; an online
+    softmax over blocks of block_s columns, blocks 0 .. write_pos // block_s
+    (masked logits NEG_INF, so a fully masked first block takes p = 1 until
+    a valid column arrives, and then weighs nothing); p = exp(s - the
+    running max) rounded to v's dtype before PV; acc / max(l, 1e-30)
+    rounded once to q's dtype. The blocks are summed at once (each block's
+    sums times exp(its running max - the last)), so nothing waits for the
+    host."""
+    b, h, d = q.shape
+    kh, s = k_all.shape[2], k_all.shape[3]
+    g = h // kh
+    bs = _block_s(s, block_s)
+    if scale is None:
+        scale = d ** -0.5
+    idx = torch.as_tensor(layer, device=k_all.device).reshape(1).long()
+    kc, vc = k_all.index_select(0, idx)[0], v_all.index_select(0, idx)[0]  # (B, K, S, D)
+    logits = torch.einsum("bkgd,bksd->bkgs", q.reshape(b, kh, g, d).float(), kc.float()) * scale
+    ids = torch.arange(s, device=q.device)
+    end = (write_pos // bs + 1) * bs  # past the blocks the TPU kernel visits
+    valid = (ids < prompt_lens[:, None]) | ((ids >= prompt_pad) & (ids <= write_pos))
+    valid &= ids < end
+    blk = torch.where(valid[:, None, None, :], logits, NEG_INF).unflatten(-1, (s // bs, bs))
+    m = blk.amax(-1).cummax(-1).values  # (B, K, G, blocks): the running max after each block
+    p = torch.exp(blk - m[..., None])
+    w = torch.exp(m - m[..., -1:])
+    pv = torch.einsum("bkgns,bknsd->bkgnd", p.to(v_all.dtype).float(),
+                      vc.float().unflatten(2, (s // bs, bs)))
+    acc = (pv * w[..., None]).sum(-2)
+    den = (p.sum(-1) * w).sum(-1, keepdim=True)
+    return (acc / torch.clamp(den, min=1e-30)).reshape(b, h, d).to(q.dtype)
+
+
+def decode_attention_stacked(
+    q: torch.Tensor,  # (B, H, D)
+    k_all: torch.Tensor,  # (L, B, K, S, D) stacked bf16 cache, read only
+    v_all: torch.Tensor,
+    layer: torch.Tensor,  # () int32, on the cache's device
+    *,
+    prompt_lens: torch.Tensor,  # (B,) int32
+    write_pos: torch.Tensor,  # () int32
+    prompt_pad: int,
+    scale: Optional[float] = None,
+    block_s: int = 512,
+) -> torch.Tensor:
+    """Returns (B, H, D) in q's dtype: one query token per row over layer
+    `layer` of the cache, valid columns [0, prompt_len) and [prompt_pad,
+    write_pos] (the current token is in the cache at write_pos). Layout
+    contract: prompt_pad <= write_pos < S. Kernel 16 takes bf16, head_dim
+    64 and 1, 2, 4 or 8 query heads per kv head; a layer outside [0, L)
+    gives NaN rows on the card."""
+    b, h, d = q.shape
+    n_layers, _, kh, s, _ = k_all.shape
+    bs = _block_s(s, block_s)
+    if scale is None:
+        scale = d ** -0.5
+    kw = dict(prompt_lens=prompt_lens, write_pos=write_pos, prompt_pad=prompt_pad, scale=scale,
+              block_s=bs)
+    if q.device.type == "cpu":
+        return decode_attention_plain(q, k_all, v_all, layer, **kw)
+    if k_all.shape[1] != b or k_all.shape[4] != d or v_all.shape != k_all.shape or h % kh:
+        raise ValueError(f"bad shapes: q {tuple(q.shape)}, cache {tuple(k_all.shape)}, "
+                         f"{tuple(v_all.shape)}")
+    if d != 64 or h // kh not in (1, 2, 4, 8):
+        raise ValueError(f"kernel 16 is built for head_dim 64 and 1, 2, 4 or 8 query heads "
+                         f"per kv head, got {d} and {h // kh}")
+    for x, name in ((q, "q"), (k_all, "k_all"), (v_all, "v_all")):
+        if x.dtype != torch.bfloat16:
+            raise TypeError(f"{name}: kernel 16 takes bfloat16 (the TPU kernel has no int8 "
+                            f"cache scales), got {x.dtype}")
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if x.device != q.device:
+            raise ValueError(f"{name} is on {x.device}, q on {q.device}")
+    for x, name, shape in ((prompt_lens, "prompt_lens", (b,)), (write_pos, "write_pos", ()),
+                           (layer, "layer", ())):
+        if (not isinstance(x, torch.Tensor) or x.dtype != torch.int32
+                or tuple(x.shape) != shape or x.device != q.device):
+            raise ValueError(f"{name} must be an int32 tensor of shape {shape} on {q.device}")
+    prompt_lens = prompt_lens.contiguous()
+    out = torch.empty_like(q)
+    err = _build.library().gar_decode_attention(
+        q.data_ptr(), k_all.data_ptr(), v_all.data_ptr(), out.data_ptr(), prompt_lens.data_ptr(),
+        write_pos.data_ptr(), layer.data_ptr(), n_layers, b, h, kh, s, d, prompt_pad, bs, scale,
+        _build.stream_handle(q.device))
+    _build.check(err, "gar_decode_attention")
+    global launches_stacked
+    launches_stacked += 1
+    return out
+
+
+def decode_attention(
+    q: torch.Tensor,  # (B, H, D)
+    k_cache: torch.Tensor,  # (B, K, S, D) head-major
+    v_cache: torch.Tensor,
+    *,
+    prompt_lens: torch.Tensor,
+    write_pos: torch.Tensor,
+    prompt_pad: int,
+    scale: Optional[float] = None,
+    block_s: int = 512,
+) -> torch.Tensor:
+    """`decode_attention_stacked` over the one-layer stack k_cache[None] at
+    layer 0, as the JAX function does it."""
+    layer = torch.zeros((), dtype=torch.int32, device=q.device)
+    return decode_attention_stacked(q, k_cache[None], v_cache[None], layer,
+                                    prompt_lens=prompt_lens, write_pos=write_pos,
+                                    prompt_pad=prompt_pad, scale=scale, block_s=block_s)

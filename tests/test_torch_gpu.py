@@ -1,6 +1,6 @@
-"""CUDA kernels A-J, the int8 kernels H8, I8, J8, C8, the training kernels
-and the mega decode step's 19-23 against their plain PyTorch versions, on
-the card.
+"""CUDA kernels A-J, the int8 kernels H8, I8, J8, C8, the training kernels,
+the mega decode step's 19-23, the read-only decode attention 16 and the
+LayerNorm 24 against their plain PyTorch versions, on the card.
 
 Skips without a CUDA device. Imports no jax, so it runs on a machine that
 has none; there, skip the repository's conftest (which sets up jax):
@@ -22,6 +22,7 @@ from grasp_any_region_tpu_torch.ops import decode_attention as dec
 from grasp_any_region_tpu_torch.ops import decode_megakernel as mk
 from grasp_any_region_tpu_torch.ops import flash_attention as fa
 from grasp_any_region_tpu_torch.ops import layer_matmul as lm
+from grasp_any_region_tpu_torch.ops import norms
 from grasp_any_region_tpu_torch.ops import vit_attention as va
 from grasp_any_region_tpu_torch.ops import vit_block as vb
 
@@ -721,3 +722,158 @@ def test_ce_head_backward_rounds_once_on_the_card(rnd):
             assert miss <= 0.02 and old_miss > 10 * miss, (tied, miss, old_miss)
             gap = (got.float() - ref).abs() - _bf16_ulp(ref) - mag * 2.0 ** -14
             assert gap.max().item() <= 0, (tied, gap.max().item())
+
+
+def _cuda_int32(x):
+    return torch.tensor(x, dtype=torch.int32, device="cuda")
+
+
+# Kernel 16's outputs are averages over hundreds of columns, ~0.05 in size: atol
+# is a tenth of that, rtol one rounding of a bf16 output.
+TOL16 = dict(atol=2e-3, rtol=2.0 ** -8)
+
+
+def _interval_probe(v, plens, pad, wpos):
+    """A one-layer (B, K, S, D) cache on which kernel 16's answer is the
+    mean of v over each row's valid columns: k = 0 weighs every column the
+    same, and v holds a distinct spike on each side of each interval edge,
+    the i-th of a row 0.02 i times its count of valid columns, so one column
+    too many, too few or counted twice moves that row by 0.02 or more."""
+    v = v.clone()
+    for row, plen in enumerate(plens):
+        n = plen + max(0, wpos + 1 - max(pad, plen))
+        edges = sorted({plen - 1, plen, pad - 1, pad, wpos, wpos + 1} & set(range(v.shape[2])))
+        for i, col in enumerate(edges):
+            v[row, :, col] = 0.02 * (i + 1) * n
+    return torch.zeros_like(v), v
+
+
+@pytest.mark.parametrize("group", [1, 2, 4, 8])
+@pytest.mark.parametrize("b,plens,pad,wpos,block_s", [
+    (2, (100, 37), 128, 170, 512),
+    (1, (128,), 128, 128, 512),
+    (2, (500, 700), 700, 1023, 256),    # write_pos at S - 1
+    (2, (300, 900), 256, 280, 128),     # prompts past prompt_pad and past write_pos
+    (24, None, 700, 800, 512),          # ragged prompt lengths on both sides of prompt_pad
+])
+def test_decode_attention_stacked_kernel(rnd, group, b, plens, pad, wpos, block_s):
+    """Kernel 16 at every layer, picked by a device scalar, against the plain
+    version; the cache stays as it was; the unstacked form is layer 0 of
+    the one-layer stack; the interval probe counts each valid column once."""
+    n_layers, kh, s = 3, 2, 1024
+    if plens is None:  # at and around write_pos, prompt_pad and block edges, then seeded
+        plens = [801, 800, 750, 701, 700, 699, 513, 512, 511, 1] + torch.randint(
+            1, 1000, (b - 10,), generator=torch.Generator().manual_seed(b)).tolist()
+    k_all, v_all = rnd(n_layers, b, kh, s, 64), rnd(n_layers, b, kh, s, 64)
+    q = rnd(b, kh * group, 64)
+    k_ref, v_ref = k_all.clone(), v_all.clone()
+    kw = dict(prompt_lens=_cuda_int32(plens), write_pos=_cuda_int32(wpos), prompt_pad=pad,
+              block_s=block_s)
+    for layer in range(n_layers):
+        lay = _cuda_int32(layer)
+        before = dec.launches_stacked
+        out = dec.decode_attention_stacked(q, k_all, v_all, lay, **kw)
+        torch.cuda.synchronize()
+        assert dec.launches_stacked == before + 1
+        ref = dec.decode_attention_plain(q.float(), k_all.float(), v_all.float(), lay, **kw)
+        torch.testing.assert_close(out.float(), ref, **TOL16)
+        one = dec.decode_attention(q, k_all[layer], v_all[layer], **kw)
+        torch.testing.assert_close(one, out, atol=0, rtol=0)
+    assert torch.equal(k_all, k_ref) and torch.equal(v_all, v_ref)
+    k0, vp = _interval_probe(v_all[0], plens, pad, wpos)
+    out = dec.decode_attention(q, k0, vp, **kw)
+    ref = dec.decode_attention_plain(q.float(), k0[None].float(), vp[None].float(),
+                                     _cuda_int32(0), **kw)
+    torch.testing.assert_close(out.float(), ref, **TOL16)
+    # scale multiplies the logits
+    out = dec.decode_attention_stacked(q, k_all, v_all, _cuda_int32(1), scale=0.3, **kw)
+    ref = dec.decode_attention_plain(q.float(), k_all.float(), v_all.float(), _cuda_int32(1),
+                                     scale=0.3, **kw)
+    torch.testing.assert_close(out.float(), ref, **TOL16)
+    # a layer outside the stack gives NaN rows, not a read outside the cache
+    out = dec.decode_attention_stacked(q, k_all, v_all, _cuda_int32(n_layers), **kw)
+    assert torch.isnan(out.float()).all()
+
+
+def test_decode_attention_stacked_rejects_what_the_kernel_does_not_take(rnd):
+    kw = dict(prompt_lens=_cuda_int32([3]), write_pos=_cuda_int32(10), prompt_pad=8)
+    lay = _cuda_int32(0)
+    k_all = rnd(2, 1, 2, 128, 64)
+    before = dec.launches_stacked
+    with pytest.raises(ValueError):  # head_dim 128 waits for GAR-8B
+        dec.decode_attention_stacked(rnd(1, 4, 128), rnd(2, 1, 2, 128, 128),
+                                     rnd(2, 1, 2, 128, 128), lay, **kw)
+    k8 = torch.zeros((2, 1, 2, 128, 64), dtype=torch.int8, device="cuda")
+    with pytest.raises(TypeError):  # _decode_kernel has no int8 cache scales
+        dec.decode_attention_stacked(rnd(1, 4, 64), k8, k8.clone(), lay, **kw)
+    with pytest.raises(ValueError):  # the layer lives on the card, as int32
+        dec.decode_attention_stacked(rnd(1, 4, 64), k_all, k_all.clone(), 0, **kw)
+    with pytest.raises(ValueError):
+        dec.decode_attention_stacked(rnd(1, 4, 64), k_all, k_all.clone(), torch.tensor(0), **kw)
+    with pytest.raises(ValueError):  # 3 query heads per kv head
+        dec.decode_attention_stacked(rnd(1, 6, 64), k_all, k_all.clone(), lay, **kw)
+    with pytest.raises(ValueError):  # block_s must divide the cache
+        dec.decode_attention_stacked(rnd(1, 4, 64), k_all, k_all.clone(), lay, block_s=96, **kw)
+    assert dec.launches_stacked == before  # nothing above launched
+
+
+@pytest.mark.parametrize("shape,x_dtype,p_dtype", [
+    ((17, 1025, 1024), torch.bfloat16, torch.bfloat16),  # the tower's LayerNorm
+    ((17, 1025, 1024), torch.float32, torch.float32),
+    ((3, 37, 1024), torch.bfloat16, torch.float32),
+    ((2, 11, 256), torch.float32, torch.bfloat16),
+    ((5, 8), torch.bfloat16, torch.bfloat16),            # D = 8, 5 rows
+    ((13, 8), torch.float32, torch.float32),
+    ((7, 8192), torch.bfloat16, torch.bfloat16),         # the widest row
+    ((3, 8192), torch.float32, torch.float32),
+    ((9, 520), torch.bfloat16, torch.bfloat16),          # D not a multiple of a warp's vectors
+])
+def test_layer_norm_kernel(rnd, shape, x_dtype, p_dtype):
+    d = shape[-1]
+    x = (rnd(*shape).float() * 3 + 1).to(x_dtype)
+    w = (1 + 0.3 * rnd(d).float()).to(p_dtype)
+    b = (0.2 * rnd(d).float()).to(p_dtype)
+    before = norms.launches
+    out = norms.layer_norm_fused(x, w, b)
+    torch.cuda.synchronize()
+    assert norms.launches == before + 1 and out.dtype == x_dtype and out.shape == x.shape
+    ref = norms.layer_norm_fused_plain(x.float(), w.float(), b.float())
+    if x_dtype == torch.float32:
+        torch.testing.assert_close(out, ref, atol=1e-4, rtol=1e-4)
+    else:
+        torch.testing.assert_close(out.float(), ref, **TOL)
+
+
+def test_layer_norm_rejects_what_the_kernel_does_not_take(rnd):
+    w = rnd(1024)
+    with pytest.raises(ValueError):  # D % 8 != 0
+        norms.layer_norm_fused(rnd(4, 100), rnd(100), rnd(100))
+    with pytest.raises(ValueError):  # D > 8192
+        norms.layer_norm_fused(rnd(2, 8200), rnd(8200), rnd(8200))
+    with pytest.raises(TypeError):
+        norms.layer_norm_fused(rnd(4, 1024).half(), w, w)
+    with pytest.raises(ValueError):  # weight of the wrong width
+        norms.layer_norm_fused(rnd(4, 1024), rnd(512), w)
+    with pytest.raises(ValueError):
+        norms.layer_norm_fused(rnd(1024, 4).t(), w, w)
+    with pytest.raises(RuntimeError):  # no backward: layer_norm_fused_df has one
+        norms.layer_norm_fused(rnd(4, 1024).requires_grad_(), w, w)
+
+
+def test_layer_norm_fused_df_on_the_card(rnd):
+    """Kernel 24 forward and autograd through the plain LayerNorm backward,
+    against autograd through the plain version, on the tower's shape."""
+    x, w, b = rnd(17, 1025, 1024), 1 + 0.3 * rnd(1024), 0.2 * rnd(1024)
+    g = rnd(17, 1025, 1024)
+    leaves = [t.clone().requires_grad_() for t in (x, w, b)]
+    refs = [t.clone().requires_grad_() for t in (x, w, b)]
+    before = norms.launches
+    out = norms.layer_norm_fused_df(*leaves)
+    out.backward(g)
+    assert norms.launches == before + 1
+    ref = norms.layer_norm(*refs)
+    ref.backward(g)
+    torch.testing.assert_close(out.float(), ref.float(), **TOL)
+    for got, want in zip(leaves, refs):
+        scale = want.grad.float().abs().max()
+        assert (got.grad.float() - want.grad.float()).abs().max() <= 2e-2 * scale
