@@ -79,13 +79,21 @@ Training (its kernels in phase 2, its paths after phase 6):
 
 2. (train) Kernel A and B with their LSE outputs, B with segment ids at the
    packed shape (2 rows of 4096, 5-8 documents a row, then padding), and
-   the backward kernels against their plain versions at atol = rtol =
-   2e-2: 5 at the tower's (17, 1025, 16, 64), 17 and 18 at the prefill's
-   (1, 4662, 32 / 8 heads, 64) causal, at the packed shape with segment
-   ids, and at (1, 16384) causal with the peak memory of the backward call
-   (O(S): no (S, S) buffer). Library time: the backward of
-   scaled_dot_product_attention at the same shapes (forward + backward
-   through torch.autograd.grad, minus the forward), timed only.
+   the backward kernels against their plain versions: 5 at the tower's
+   (17, 1025, 16, 64) at atol = rtol = 2e-2; the backward call (17's prep,
+   18, 17's cast) at the prefill's (1, 4662, 32 / 8 heads, 64) causal, at
+   the packed shape with segment ids and at (1, 16384) causal, each output
+   at atol a tenth of its RMS and rtol 2^-6 (`sized_tol`) of the plain
+   version with p and dS rounded to bf16 where the kernels round them (the
+   gap to the unrounded one is printed), 17's delta against `bwd_delta`,
+   dk and dv equal across two runs, the call's peak memory over its inputs
+   (under 256 MiB at 16k: no (S, S) buffer, one fp32 dq workspace), and
+   the call's time beside the backward of
+   scaled_dot_product_attention at the same shape (forward + backward
+   through torch.autograd.grad, minus the forward; is_causal, or at the
+   packed shape the boolean causal and equal-id mask with K/V widened to
+   the 32 query heads), timed only. 17's bound is its bytes, 18's its
+   five products.
 7. Train cross-check on the narrow gar_1b of phase 3: one loss and backward
    on the card (kernels A, 5, B, 17, 18) and on the CPU (plain path) from
    the same seeded bf16 params; the losses and every gradient leaf within
@@ -104,7 +112,7 @@ Training (its kernels in phase 2, its paths after phase 6):
    checkpointing replays each block's forward in the backward).
 9. The packed text-only step (bench.py:229-277): 2 rows x 4096 tokens of
    documents of 300-1200 tokens, every token supervised: ms/step, tok/s,
-   and B = 32, 17 = 18 = 16 a step, all with segment ids.
+   and B = 32, 17 = 18 = 16 a step, B and 18 with segment ids.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is {"ok": true, "device": {...}}.
@@ -187,6 +195,13 @@ def max_err(out: torch.Tensor, ref: torch.Tensor, name: str, atol: float = TOL,
         raise AssertionError(f"{name}: kernel and plain version disagree, "
                              f"max |diff| {err:.3e} (atol {atol}, rtol {rtol})")
     return err
+
+
+def sized_tol(ref: torch.Tensor) -> dict:
+    """Tolerance sized to an output: atol a tenth of its RMS, rtol 2^-6
+    (two bf16 ulps). Kernels 17 and 18's outputs have an RMS of 0.05-0.5,
+    where TOL would pass a missing key tile."""
+    return dict(atol=ref.float().pow(2).mean().sqrt().item() / 10, rtol=2.0 ** -6)
 
 
 def phase_environment():
@@ -389,41 +404,73 @@ def train_kernels(rnd):
             lim = bound(nbytes(q, k, v, out, lse), 4 * h * d * pairs)
             log(f"[kernels] B with its LSE, {label}: {b_ms:.4f} ms (bound {lim['bound_ms']:.4f} "
                 f"ms of {lim['bound_by']}), max |kernel - plain| {err_b:.3e}")
+        # the whole backward call (17, 18, 17): its peak over the inputs, its outputs
         torch.cuda.synchronize()
         base = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
-        delta = fb.bwd_delta(out, g)
-        dq = fb.flash_attention_bwd_dq(q, k, v, g, lse, delta, **kw)
-        dk, dv = fb.flash_attention_bwd_dkv(q, k, v, g, lse, delta, **kw)
+        dq, dk, dv = fb.flash_attention_bwd(q, k, v, out, lse, g, **kw)
         torch.cuda.synchronize()
         peak_mb = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
-        want = fb.flash_attention_bwd_plain(q.float(), k.float(), v.float(), out.float(), lse,
-                                            g.float(), **kw)
-        err = [max_err(a, w, f"{n} {label}") for n, a, w in zip(("17", "18 dk", "18 dv"),
-                                                                  (dq, dk, dv), want)]
+        if label == "16k" and peak_mb >= 256:
+            raise AssertionError(f"17 / 18 at 16k: peak {peak_mb:.1f} MiB over the inputs >= 256")
+        again = fb.flash_attention_bwd(q, k, v, out, lse, g, **kw)
+        torch.cuda.synchronize()
+        if not (torch.equal(dk, again[1]) and torch.equal(dv, again[2])):
+            raise AssertionError(f"18 {label}: dk or dv differ between two runs")
+        del again
+        # the plain version at bf16 inputs rounds p and dS to bf16 where the
+        # kernels (and the Pallas kernels at bf16) round them; at fp32 inputs
+        # it rounds nothing, for the record
+        want = fb.flash_attention_bwd_plain(q, k, v, out, lse, g, **kw)
+        err = [max_err(a, w, f"{n} {label}", **sized_tol(w))
+               for n, a, w in zip(("17 dq", "18 dk", "18 dv"), (dq, dk, dv), want)]
+        tols = ", ".join(f"{sized_tol(w)['atol']:.2e}" for w in want)
         del want
-        fields = dict(plain_ms=None, library_ms=None)
-        if label == "prefill":
-            fields = dict(plain_ms=cuda_ms(lambda: fb.flash_attention_bwd_plain(
-                              q, k, v, out, lse, g, **kw), iters=3),
-                          library_ms=sdpa_bwd_ms(q, k, v, g, is_causal=True, enable_gqa=True))
-        io = nbytes(q, k, v, g, lse, delta)
+        args = (q.float(), k.float(), v.float(), out.float(), lse, g.float())
+        unrounded = max((a.float() - w).abs().max().item() for a, w in
+                        zip((dq, dk, dv), fb.flash_attention_bwd_plain(*args, **kw)))
+        del args
+        delta, dq_acc = fb.bwd_prep(out, g)
+        err_delta = max_err(delta, fb.bwd_delta(out, g), f"17's delta {label}", atol=1e-4,
+                            rtol=1e-4)
+        scale = d ** -0.5
+        prep_ms = cuda_ms(lambda: fb.bwd_prep(out, g))
+        cast_ms = cuda_ms(lambda: fb.bwd_dq_cast(dq_acc))
+        dkv_ms = cuda_ms(lambda: fb.flash_attention_bwd_dkv(q, k, v, g, lse, delta, dq_acc, **kw))
+        call_ms = cuda_ms(lambda: fb.flash_attention_bwd(q, k, v, out, lse, g, **kw))
+        if seg is None:
+            lib = sdpa_bwd_ms(q, k, v, g, is_causal=True, enable_gqa=True)
+        else:  # causal and equal ids as SDPA's boolean mask, K/V widened to every query head
+            mask = fa.attention_mask(sq, sq, True, seg, q.device)[:, 0]
+            lib = sdpa_bwd_ms(q, k.repeat_interleave(h // kh, 2), v.repeat_interleave(h // kh, 2),
+                              g, attn_mask=mask)
+            del mask
+        # 17's function reads out and g and writes delta and dq; the fp32
+        # workspace it zeroes and reads back is the price of 18's atomic dq,
+        # so its bound leaves that out; 18's counts the workspace once, as
+        # its output. No one PyTorch call computes prep and cast: SDPA's
+        # backward stands on 18's row and beside the whole call.
+        ops = 5 * 2 * h * d * pairs
         entries = {
-            "17": dict(max_abs_err=err[0], **fields,
-                       ms=cuda_ms(lambda: fb.flash_attention_bwd_dq(q, k, v, g, lse, delta, **kw)),
-                       **bound(io + nbytes(dq), 3 * 2 * h * d * pairs)),
-            "18": dict(max_abs_err=max(err[1:]), **fields,
-                       ms=cuda_ms(lambda: fb.flash_attention_bwd_dkv(q, k, v, g, lse, delta,
-                                                                      **kw)),
-                       **bound(io + nbytes(dk, dv), 4 * 2 * h * d * pairs))}
-        lib = fields["library_ms"]
-        log(f"[kernels] 17 / 18, {label} (B = {b}, S = {sq}, {h} / {kh} heads, "
-            f"{pairs} causal pairs): {entries['17']['ms']:.4f} / {entries['18']['ms']:.4f} ms, "
-            f"sum {entries['17']['ms'] + entries['18']['ms']:.4f} ms (bound "
-            f"{entries['17']['bound_ms']:.4f} / {entries['18']['bound_ms']:.4f} ms); "
-            + (f"library backward {lib:.4f} ms; " if lib is not None else "")
-            + f"peak memory of the backward call {peak_mb:.1f} MiB over its inputs; "
-            f"max |kernel - plain| {err[0]:.3e} / {max(err[1:]):.3e}")
+            "17": dict(max_abs_err=max(err[0], err_delta), ms=prep_ms + cast_ms,
+                       plain_ms=cuda_ms(lambda: fb.bwd_delta(out, g))
+                       + cuda_ms(lambda: (dq_acc * scale).to(q.dtype)),
+                       library_ms=None, **bound(nbytes(out, g, delta, dq), 0)),
+            "18": dict(max_abs_err=max(err[1:]), ms=dkv_ms, library_ms=lib,
+                       plain_ms=cuda_ms(lambda: fb.flash_attention_bwd_plain(
+                           q, k, v, out, lse, g, **kw), iters=3) if label == "prefill" else None,
+                       **bound(nbytes(q, k, v, g, lse, delta, dk, dv, dq_acc), ops))}
+        call_bound = bound(nbytes(q, k, v, out, g, lse, dq, dk, dv), ops)["bound_ms"]
+        log(f"[kernels] 17 / 18, {label} (B = {b}, S = {sq}, {h} / {kh} heads, {pairs} causal "
+            f"pairs): 17 {prep_ms:.4f} + {cast_ms:.4f} ms (prep + cast), 18 {dkv_ms:.4f} ms; the "
+            f"backward call {call_ms:.4f} ms against SDPA's backward {lib:.4f} ms "
+            f"({call_ms / lib:.2f}x; bound of the call {call_bound:.4f} ms, 17 "
+            f"{entries['17']['bound_ms']:.4f} ms of bytes, 18 "
+            f"{entries['18']['bound_ms']:.4f} ms of operations); peak memory of the backward call "
+            f"{peak_mb:.1f} MiB over its inputs; max |kernel - plain| dq {err[0]:.3e}, dk "
+            f"{err[1]:.3e}, dv {err[2]:.3e} (atol {tols}, rtol 2^-6; p and dS rounded to bf16 "
+            f"in both; {unrounded:.3e} against the unrounded plain version), delta "
+            f"{err_delta:.3e}; dk, dv equal across two runs")
         return entries
 
     results.update(backward_case("prefill", 1, 4662, 32, 8))
@@ -1054,9 +1101,9 @@ def read_counts():
 
 
 def segmented_counts():
-    """Launches of B and of 17 / 18 that carried segment ids."""
+    """Launches of B and of 18 that carried segment ids."""
     _, fa, _, _, _, fb, _, _ = counter_modules()
-    return {"B": fa.launches_segments, "17+18": fb.launches_segments}
+    return {"B": fa.launches_segments, "18": fb.launches_segments}
 
 
 def expect(**counts):
@@ -1503,7 +1550,7 @@ def phase_train_step(cfg, params):
     if per_step != expected or window != {key: n * c for key, c in expected.items()}:
         raise AssertionError(f"[train] launches a step {per_step} (window of {n}: {window}), "
                              f"expected {expected}")
-    if segmented_counts() != {"B": 0, "17+18": 0}:
+    if segmented_counts() != {"B": 0, "18": 0}:
         raise AssertionError(f"[train] right-padded rows launched with segment ids: "
                              f"{segmented_counts()}")
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
@@ -1585,9 +1632,9 @@ def phase_packed_step(cfg, state, tx):
     window, segs = read_counts(), segmented_counts()
     layers = cfg.text.num_layers
     expected = expect(**{"B": 2 * n * layers, "17": n * layers, "18": n * layers})
-    if window != expected or segs != {"B": 2 * n * layers, "17+18": 2 * n * layers}:
+    if window != expected or segs != {"B": 2 * n * layers, "18": n * layers}:
         raise AssertionError(f"[packed] launches over {n} steps {window} (with segment ids "
-                             f"{segs}), expected {expected}, all with segment ids")
+                             f"{segs}), expected {expected}, B and 18 with segment ids")
     losses = torch.stack(losses).tolist()
     if not all(np.isfinite(losses)):
         raise AssertionError(f"[packed] non-finite losses {losses}")
@@ -1596,7 +1643,7 @@ def phase_packed_step(cfg, state, tx):
     log(f"[packed] {rows} rows x {seq} tokens ({n_docs} documents a row, then padding): "
         f"ms/step {ms:.1f} (median of {n}; steps {', '.join(f'{x:.1f}' for x in times)}), "
         f"{rows * seq / (ms / 1e3):.0f} tok/s; losses {[round(x, 4) for x in losses]}; "
-        f"launches a step B = {2 * layers}, 17 = 18 = {layers}, all with segment ids")
+        f"launches a step B = {2 * layers}, 17 = 18 = {layers}, B and 18 with segment ids")
 
 
 KERNELS = {
@@ -1632,9 +1679,10 @@ KERNELS = {
           "grasp_any_region_tpu/ops/vit_attention.py:185"),
     "16": ("decode_attention_stacked", "grasp_any_region_tpu_torch/csrc/decode_attention.cu",
            "grasp_any_region_tpu/ops/decode_attention.py:598"),
-    "17": ("flash_attention_bwd_dq", "grasp_any_region_tpu_torch/csrc/flash_backward.cu",
+    "17": ("flash_attention_bwd_prep_cast",
+           "grasp_any_region_tpu_torch/csrc/flash_backward_sm90.cu",
            "grasp_any_region_tpu/ops/flash_backward.py:369"),
-    "18": ("flash_attention_bwd_dkv", "grasp_any_region_tpu_torch/csrc/flash_backward.cu",
+    "18": ("flash_attention_bwd_dkv", "grasp_any_region_tpu_torch/csrc/flash_backward_sm90.cu",
            "grasp_any_region_tpu/ops/flash_backward.py:403"),
     "19": ("layer_qkv_norm_rope", "grasp_any_region_tpu_torch/csrc/decode_megakernel.cu",
            "grasp_any_region_tpu/ops/decode_megakernel.py:126"),

@@ -1,0 +1,544 @@
+// Kernels 17 and 18: the flash attention backward (FA-2 recurrences) for
+// Hopper. Replaces grasp_any_region_tpu/ops/flash_backward.py:
+// flash_attention_bwd, whose TPU form splits the work in two passes
+// (_dq_kernel, _dkv_kernel) because a TPU core has no atomics; each pass
+// recomputes S = Q K^T and dP = dO V^T, seven products a tile pair.
+//
+// 18 (flash_bwd_sm90_kernel): one pass, five wgmma products a pair. One CTA
+//   per (128-key tile, kv head, batch), launched heaviest first (the causal
+//   band's longest key tiles get the lowest block indices). It walks the
+//   kv head's group of query heads and, for each, the band of 64-row query
+//   tiles (from max(0, k0 - (Sk - Sq)) / 64), so dk and dv stay summed over
+//   the group in registers: deterministic, no workspace. Three warpgroups:
+//   - the producer (one warp working) loads K and V once, then keeps a
+//     two-stage ring of (Q, dO) tiles in flight with TMA (128-byte
+//     swizzle), plus each tile's LSE, delta and segment ids by plain loads;
+//     it hands its registers to the consumers (setmaxnreg);
+//   - consumer warpgroup w owns keys [64 w, 64 w + 64) of the tile. Per
+//     query tile: S^T = K Q^T and dP^T = V dO^T (shared-memory operands),
+//     p = exp2(S^T scale log2e - lse log2e) (masked on diagonal and ragged
+//     tiles only; query rows past Sq have lse = +inf, so p = 0 there),
+//     dS^T = p (dP^T - delta); P^T and dS^T are rounded to bf16 into A
+//     fragments in registers for dV += P^T dO and dK += dS^T Q (dO, Q read
+//     MN-major), and dS^T is stored transposed (stmatrix) as dS[q][key];
+//   - after a named barrier over both consumers, warpgroup w computes
+//     dQ^T = K^T dS^T for its 32 of the 64 query rows over all 128 keys,
+//     stages it in shared memory (two 128B-swizzled 32 x 32 fp32 boxes,
+//     double-buffered) and adds it into the zeroed fp32 (B, Sq, H, 64)
+//     workspace with TMA reduce-adds (the L2 does the fp32 adds; rows past
+//     Sq are skipped): one 64 x 64 partial per (query tile, key tile)
+//     pair, as FA-2 adds it (320 flops a byte). dq is not bit-reproducible
+//     (the order of the adds varies); dk and dv are.
+//   Bound: the five products, 10 D flops per kept (query, key) pair and
+//   query head.
+// 17 (flash_bwd_prep_kernel, flash_bwd_dq_cast_kernel): the launches
+//   around 18. Prep reads O and dO once and writes delta = rowsum(dO O)
+//   (fp32 (B, H, Sq)) and zeroes the dq workspace; cast writes
+//   dq = bf16(workspace * scale). Bound: bytes.
+//
+// Conventions as kernel B's: right-aligned causal offset Sk - Sq, keys
+// past Sk masked, GQA, segment ids (Sq == Sk) with (64-row query tile,
+// 128-key tile) pairs of disjoint [min, max] id ranges skipped (exact);
+// p and dS rounded to bf16 before their products; dq and dk scaled once.
+#include <cudaTypedefs.h>
+
+#include "sm90.cuh"
+
+namespace gar {
+
+constexpr int kBwdQ = 64;     // query rows per step
+constexpr int kBwdK = 128;    // keys per CTA
+constexpr int kBwdD = 64;     // head dim
+constexpr int kBwdStages = 2;
+constexpr int kBwdThreads = 384;  // consumer warpgroups 0, 1; producer warpgroup 2
+constexpr float kLog2e = 1.4426950408889634f;
+
+// Shared memory, from a 1024-byte-aligned base (128B-swizzled tiles).
+constexpr int kOffK = 0;                                 // [128 keys][64] bf16
+constexpr int kOffV = kOffK + kBwdK * kBwdD * 2;         // [128 keys][64]
+constexpr int kOffQ = kOffV + kBwdK * kBwdD * 2;         // 2 x [64 q][64]
+constexpr int kOffO = kOffQ + kBwdStages * kBwdQ * kBwdD * 2;  // 2 x [64 q][64] dO
+constexpr int kOffS = kOffO + kBwdStages * kBwdQ * kBwdD * 2;  // 2 x 2 x [64 q][64 keys] dS
+constexpr int kOffDQ = kOffS + 2 * 2 * kBwdQ * 64 * 2;  // 2 WG x 2 x [32 q][64] fp32 dQ^T
+constexpr int kDQTile = 32 * kBwdD * 4;                  // one warpgroup's, two 32-column boxes
+constexpr int kOffLse = kOffDQ + 2 * 2 * kDQTile;        // 2 x 64 fp32 (lse * log2e)
+constexpr int kOffDelta = kOffLse + kBwdStages * kBwdQ * 4;
+constexpr int kOffSeg = kOffDelta + kBwdStages * kBwdQ * 4;
+constexpr int kOffBar = kOffSeg + kBwdStages * kBwdQ * 4;  // full[2], empty[2], kv
+constexpr int kBwdSmem = kOffBar + 5 * 8 + 1024;  // + alignment slack
+constexpr uint32_t kTileBytes = kBwdQ * kBwdD * 2;
+
+struct BwdMaps {
+  CUtensorMap q, k, v, dout;  // bf16 4D (D, S, head, batch), 128B swizzle
+  CUtensorMap dq;             // fp32 workspace, boxes of 32 x 32, 128B swizzle
+};
+
+struct BwdArgs {
+  const float* lse;      // (batch, head, sq) fp32
+  const float* delta;    // (batch, head, sq) fp32
+  const int* seg;        // (batch, s) int32 or nullptr
+  const int* q_tiles;    // with seg: (batch, ceil(s / 64), 2) [min, max] ids
+  const int* k_tiles;    // with seg: (batch, ceil(s / 128), 2)
+  bf16* dk;              // (batch, sk, kv_head, 64), contiguous
+  bf16* dv;
+  int batch, sq, sk, heads, kv_heads, q_offset;  // q_offset = Sk - Sq
+  float scale;
+};
+
+// True when 64-row query tile qt and 128-key tile kt share no segment id.
+__device__ __forceinline__ bool bwd_pair_skipped(const BwdArgs& a, int b, int qt, int kt) {
+  const int* qtab = a.q_tiles + 2LL * b * ((a.sq + kBwdQ - 1) / kBwdQ);
+  const int* ktab = a.k_tiles + 2LL * b * ((a.sk + kBwdK - 1) / kBwdK);
+  return ktab[2 * kt + 1] < qtab[2 * qt] || ktab[2 * kt] > qtab[2 * qt + 1];
+}
+
+template <bool CAUSAL, bool SEG>
+__global__ void __launch_bounds__(kBwdThreads, 1)
+    flash_bwd_sm90_kernel(const __grid_constant__ BwdMaps maps, const BwdArgs a) {
+  using namespace sm90;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  bf16* sK = reinterpret_cast<bf16*>(sm + kOffK);
+  bf16* sV = reinterpret_cast<bf16*>(sm + kOffV);
+  bf16* sQ = reinterpret_cast<bf16*>(sm + kOffQ);
+  bf16* sO = reinterpret_cast<bf16*>(sm + kOffO);
+  float* sLse = reinterpret_cast<float*>(sm + kOffLse);
+  float* sDelta = reinterpret_cast<float*>(sm + kOffDelta);
+  int* sSeg = reinterpret_cast<int*>(sm + kOffSeg);
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + kOffBar);
+  uint64_t* empty = full + 2;
+  uint64_t* kv_bar = full + 4;
+
+  // heaviest first: the key tile is the slowest-varying part of the index
+  const int pairs = a.kv_heads * a.batch;
+  const int kt = blockIdx.x / pairs;
+  const int kvh = blockIdx.x % pairs % a.kv_heads, b = blockIdx.x % pairs / a.kv_heads;
+  const int k0 = kt * kBwdK;
+  const int group = a.heads / a.kv_heads;
+  const int n_qt = (a.sq + kBwdQ - 1) / kBwdQ;
+  const int qt0 = CAUSAL ? max(0, k0 - a.q_offset) / kBwdQ : 0;
+
+  if (threadIdx.x == 0) {
+    mbar_init(&full[0], 32);  // the producer warp's lanes (one with the TMA bytes)
+    mbar_init(&full[1], 32);
+    mbar_init(&empty[0], 256);  // every consumer thread
+    mbar_init(&empty[1], 256);
+    mbar_init(kv_bar, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 256) {  // producer warpgroup
+    regs_dealloc<40>();
+    if (threadIdx.x >= 288) return;
+    const int lane = threadIdx.x & 31;
+    if (lane == 0) {
+      mbar_arrive_expect_tx(kv_bar, 2 * kBwdK * kBwdD * 2);
+      tma_load_4d(sK, &maps.k, kv_bar, 0, k0, kvh, b);
+      tma_load_4d(sV, &maps.v, kv_bar, 0, k0, kvh, b);
+    }
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int hh = 0; hh < group; ++hh) {
+      const int h = kvh * group + hh;
+      const long long row_base = (static_cast<long long>(b) * a.heads + h) * a.sq;
+      for (int qt = qt0; qt < n_qt; ++qt) {
+        if (SEG && bwd_pair_skipped(a, b, qt, kt)) continue;
+        const int q0 = qt * kBwdQ;
+        float l2[2], dl[2];
+        int sg[2] = {-1, -1};
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const int q = q0 + lane + 32 * r;
+          const bool in = q < a.sq;
+          l2[r] = in ? a.lse[row_base + q] * kLog2e : __int_as_float(0x7f800000);
+          dl[r] = in ? a.delta[row_base + q] : 0.f;
+          if (SEG && in) sg[r] = a.seg[static_cast<long long>(b) * a.sq + q];
+        }
+        mbar_wait(&empty[stage], phase ^ 1);
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          sLse[stage * kBwdQ + lane + 32 * r] = l2[r];
+          sDelta[stage * kBwdQ + lane + 32 * r] = dl[r];
+          if (SEG) sSeg[stage * kBwdQ + lane + 32 * r] = sg[r];
+        }
+        if (lane == 0) {
+          mbar_arrive_expect_tx(&full[stage], 2 * kTileBytes);
+          tma_load_4d(sQ + stage * kBwdQ * kBwdD, &maps.q, &full[stage], 0, q0, h, b);
+          tma_load_4d(sO + stage * kBwdQ * kBwdD, &maps.dout, &full[stage], 0, q0, h, b);
+        } else {
+          mbar_arrive(&full[stage]);
+        }
+        if (++stage == kBwdStages) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup w owns keys k0 + 64 w + [0, 64)
+  regs_alloc<232>();
+  const int w = threadIdx.x >> 7, wi = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int key_lo = k0 + 64 * w + 16 * wi + g;  // this thread's keys: key_lo, key_lo + 8
+  const float sl2 = a.scale * kLog2e;
+  int kseg[2] = {0, 0};
+  if (SEG) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      kseg[r] = key_lo + 8 * r < a.sk ? a.seg[static_cast<long long>(b) * a.sk + key_lo + 8 * r]
+                                      : -2;
+  }
+  const bool key_edge = k0 + 64 * w + 64 > a.sk;
+  const bf16* sKw = sK + 64 * w * kBwdD;
+  const bf16* sVw = sV + 64 * w * kBwdD;
+  // stmatrix row addresses: lane (m, i) = (lane / 8, lane % 8) gives memory
+  // row i of matrix m of a k-step's four: query 16 kk + 8 (m >> 1) + i,
+  // keys 16 wi + 8 (m & 1) .. + 7 (one 16-byte chunk, swizzled by q % 8)
+  const int st_m = lane >> 3, st_i = lane & 7;
+  const uint32_t st_off = static_cast<uint32_t>(
+      (8 * (st_m >> 1) + st_i) * 128 + (((2 * wi + (st_m & 1)) ^ st_i) << 4));
+  const uint32_t sS_base = smem_addr(sm + kOffS);
+  // this thread's dQ^T values in the warpgroup's [32 q][64 d] fp32 tile
+  // (double-buffered by step), as two 128B-swizzled [32 q][32 d] boxes:
+  // d = 16 wi + g + 8 r lies in box wi / 2, chunk 4 (wi % 2) + 2 r + g / 4,
+  // word g % 4; row q = 8 j + 2 t + c
+  const uint8_t* dq_tiles = sm + kOffDQ + w * 2 * kDQTile;
+  const uint32_t dq_box = smem_addr(dq_tiles) + (wi >> 1) * (kDQTile / 2) + (g & 3) * 4;
+  const int dq_chunk = 4 * (wi & 1) + (g >> 2);
+  const bool issuer = (threadIdx.x & 127) == 0;  // issues this warpgroup's reduce-adds
+  const uint64_t dKw = desc_sw128(sKw, 16, 1024), dVw = desc_sw128(sVw, 16, 1024);
+  const uint64_t dKt = desc_sw128(sK, kBwdK * kBwdD * 2, 1024);
+  const uint64_t dQk = desc_sw128(sQ, 16, 1024), dOk = desc_sw128(sO, 16, 1024);
+  const uint64_t dQm = desc_sw128(sQ, kTileBytes, 1024), dOm = desc_sw128(sO, kTileBytes, 1024);
+  const uint64_t dS = desc_sw128(sm + kOffS + 32 * w * 128, 16, 1024);
+
+  float dk[32], dv[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) dk[i] = dv[i] = 0.f;
+
+  mbar_wait(kv_bar, 0);
+  int stage = 0, it = 0;
+  uint32_t phase = 0;
+  for (int hh = 0; hh < group; ++hh) {
+    const int h = kvh * group + hh;
+    for (int qt = qt0; qt < n_qt; ++qt) {
+      if (SEG && bwd_pair_skipped(a, b, qt, kt)) continue;
+      const int q0 = qt * kBwdQ;
+      const uint32_t su = stage * (kTileBytes >> 4);
+      mbar_wait(&full[stage], phase);
+
+      // S^T = K_w Q^T, dP^T = V_w dO^T: (64 keys x 64 queries), K-major both
+      float s[32], dp[32];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBwdD / 16; ++kk)
+        wgmma_m64n64k16_ss<0, 0>(s, dKw + 2 * kk, dQk + su + 2 * kk, kk);
+      wgmma_commit();
+#pragma unroll
+      for (int kk = 0; kk < kBwdD / 16; ++kk)
+        wgmma_m64n64k16_ss<0, 0>(dp, dVw + 2 * kk, dOk + su + 2 * kk, kk);
+      wgmma_commit();
+
+      const float* lse2 = sLse + stage * kBwdQ;
+      const float* dl = sDelta + stage * kBwdQ;
+      const int* qseg = sSeg + stage * kBwdQ;
+      const bool masked = key_edge || SEG || (CAUSAL && q0 + a.q_offset < k0 + 64 * w + 63);
+
+      wgmma_wait<1>();
+      fence_regs(s);
+      // p, then P^T as bf16 A fragments: k-step kk's fragment is the C
+      // fragment of accumulator columns 16 kk .. 16 kk + 15
+      uint32_t pa[4][4];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float2 l2 = *reinterpret_cast<const float2*>(lse2 + 8 * j + 2 * t);
+        float pv[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) pv[i] = exp2f(s[4 * j + i] * sl2 - ((i & 1) ? l2.y : l2.x));
+        if (masked) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int ql = 8 * j + 2 * t + (i & 1), key = key_lo + 8 * (i >> 1);
+            bool ok = key < a.sk;
+            if (CAUSAL) ok = ok && q0 + ql + a.q_offset >= key;
+            if (SEG) ok = ok && qseg[ql] == kseg[i >> 1];
+            pv[i] = ok ? pv[i] : 0.f;
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i) s[4 * j + i] = pv[i];  // s now holds p (fp32)
+        pa[j >> 1][(j & 1) * 2 + 0] = pack_bf16x2(pv[0], pv[1]);
+        pa[j >> 1][(j & 1) * 2 + 1] = pack_bf16x2(pv[2], pv[3]);
+      }
+      wgmma_wait<0>();
+      fence_regs(dp);
+      uint32_t da[4][4];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float2 d2 = *reinterpret_cast<const float2*>(dl + 8 * j + 2 * t);
+        float ds[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) ds[i] = s[4 * j + i] * (dp[4 * j + i] - ((i & 1) ? d2.y : d2.x));
+        da[j >> 1][(j & 1) * 2 + 0] = pack_bf16x2(ds[0], ds[1]);
+        da[j >> 1][(j & 1) * 2 + 1] = pack_bf16x2(ds[2], ds[3]);
+      }
+      // dS[q][key] for dQ (this warpgroup's 64 keys are column block w)
+      const uint32_t sS = sS_base + (it & 1) * (2 * kBwdQ * 64 * 2);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        stmatrix_x4_trans(sS + w * (kBwdQ * 64 * 2) + st_off + kk * 16 * 128, da[kk]);
+
+      // dV += P^T dO, dK += dS^T Q; B = dO, Q read MN-major, k-step = 16 rows
+      fence_regs(pa);
+      fence_regs(da);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_m64n64k16_rs<1>(dv, pa[kk], dOm + su + 128 * kk);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_m64n64k16_rs<1>(dk, da[kk], dQm + su + 128 * kk);
+      wgmma_commit();
+
+      // both halves of dS are in place: dQ^T (64 d x 32 q) = K^T dS^T
+      fence_proxy_async();
+      bar_sync(1, 256);
+      float dq[16];
+#pragma unroll
+      for (int i = 0; i < 16; ++i) dq[i] = 0.f;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBwdK / 16; ++kk) {
+        wgmma_m64n32k16_ss<1, 0>(dq, dKt + 128 * kk,
+                                 dS + (it & 1) * 1024 + (kk >> 2) * 512 + 2 * (kk & 3), kk);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dv);
+      fence_regs(dk);
+      fence_regs(dq);
+      mbar_arrive(&empty[stage]);
+
+      // dQ^T into the warpgroup's tile, then one TMA reduce-add a box into
+      // the workspace rows q0 + 32 w .. + 31 (rows past Sq are skipped)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int ql = 8 * j + 2 * t + (i & 1);
+          const uint32_t addr = dq_box + (it & 1) * kDQTile + ql * 128 +
+                                (((dq_chunk + 2 * (i >> 1)) ^ (ql & 7)) << 4);
+          asm volatile("st.shared.f32 [%0], %1;\n" ::"r"(addr), "f"(dq[4 * j + i]) : "memory");
+        }
+      fence_proxy_async();
+      bar_sync(2 + w, 128);
+      if (issuer) {
+        const uint8_t* tile = dq_tiles + (it & 1) * kDQTile;
+        tma_reduce_add_4d(&maps.dq, tile, 0, q0 + 32 * w, h, b);
+        tma_reduce_add_4d(&maps.dq, tile + kDQTile / 2, 32, q0 + 32 * w, h, b);
+        bulk_commit();
+        // the other buffer, written next step (after the next 256-thread
+        // barrier), is free once the previous step's reduce-adds have read it
+        bulk_wait_read<1>();
+      }
+      if (++stage == kBwdStages) {
+        stage = 0;
+        phase ^= 1;
+      }
+      ++it;
+    }
+  }
+
+  if (issuer) bulk_wait<0>();
+
+  // dk (scaled once) and dv: rows key_lo + 8 r, columns 8 j + 2 t + c
+  const long long kv_ss = static_cast<long long>(a.kv_heads) * kBwdD;
+  const long long base = static_cast<long long>(b) * a.sk * kv_ss + kvh * kBwdD;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int key = key_lo + 8 * r;
+    if (key >= a.sk) continue;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const long long o = base + key * kv_ss + 8 * j + 2 * t;
+      *reinterpret_cast<uint32_t*>(a.dk + o) =
+          pack_bf16x2(dk[4 * j + 2 * r] * a.scale, dk[4 * j + 2 * r + 1] * a.scale);
+      *reinterpret_cast<uint32_t*>(a.dv + o) = pack_bf16x2(dv[4 * j + 2 * r], dv[4 * j + 2 * r + 1]);
+    }
+  }
+}
+
+// 17, before 18: delta[b, h, q] = sum_d dO O (fp32) and the dq workspace
+// zeroed; one thread per 8 elements of a (b, q, h) row, 8 threads a row.
+__global__ void __launch_bounds__(256) flash_bwd_prep_kernel(
+    const bf16* __restrict__ out, const bf16* __restrict__ dout, float* __restrict__ delta,
+    float* __restrict__ dq_acc, int sq, int heads, long long rows, long long o_sb,
+    long long o_ss, long long o_sh, long long g_sb, long long g_ss, long long g_sh) {
+  const long long idx = blockIdx.x * 256LL + threadIdx.x;
+  if (idx >= rows * 8) return;  // whole 8-lane groups leave together
+  const int c = static_cast<int>(idx & 7);
+  const long long row = idx >> 3;
+  const int h = static_cast<int>(row % heads);
+  const long long bq = row / heads;
+  const int q = static_cast<int>(bq % sq);
+  const long long b = bq / sq;
+  const uint4 ov = *reinterpret_cast<const uint4*>(out + b * o_sb + q * o_ss + h * o_sh + 8 * c);
+  const uint4 gv = *reinterpret_cast<const uint4*>(dout + b * g_sb + q * g_ss + h * g_sh + 8 * c);
+  const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&ov);
+  const __nv_bfloat162* g2 = reinterpret_cast<const __nv_bfloat162*>(&gv);
+  float sum = 0.f;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 x = __bfloat1622float2(o2[i]), y = __bfloat1622float2(g2[i]);
+    sum += x.x * y.x + x.y * y.y;
+  }
+  const unsigned lanes = 0xffu << (threadIdx.x & 24);
+  sum += __shfl_xor_sync(lanes, sum, 1);
+  sum += __shfl_xor_sync(lanes, sum, 2);
+  sum += __shfl_xor_sync(lanes, sum, 4);
+  if (c == 0) delta[(b * heads + h) * sq + q] = sum;
+  float4* acc = reinterpret_cast<float4*>(dq_acc + row * kBwdD + 8 * c);
+  acc[0] = acc[1] = make_float4(0.f, 0.f, 0.f, 0.f);
+}
+
+// 17, after 18: dq = bf16(workspace * scale), 8 elements a thread.
+__global__ void __launch_bounds__(256) flash_bwd_dq_cast_kernel(const float* __restrict__ acc,
+                                                                bf16* __restrict__ dq,
+                                                                long long chunks, float scale) {
+  const long long idx = blockIdx.x * 256LL + threadIdx.x;
+  if (idx >= chunks) return;
+  const float4 x = reinterpret_cast<const float4*>(acc)[2 * idx];
+  const float4 y = reinterpret_cast<const float4*>(acc)[2 * idx + 1];
+  reinterpret_cast<uint4*>(dq)[idx] =
+      make_uint4(pack_bf16x2(x.x * scale, x.y * scale), pack_bf16x2(x.z * scale, x.w * scale),
+                 pack_bf16x2(y.x * scale, y.y * scale), pack_bf16x2(y.z * scale, y.w * scale));
+}
+
+// A (batch, rows, heads, 64) operand (bf16, or the fp32 workspace) with
+// element strides (sb, ss, sh) as a 4D TMA map (64, rows, heads, batch),
+// boxes of (box_cols, box_rows, 1, 1), 128-byte swizzle (a box row is 128
+// bytes). Returns 0, or a negative code when the driver refuses.
+inline int encode_rows(CUtensorMap* map, const void* base, bool fp32, int rows, int heads,
+                       int batch, long long sb, long long ss, long long sh, int box_rows) {
+  static PFN_cuTensorMapEncodeTiled_v12000 encode = nullptr;
+  if (encode == nullptr) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found) !=
+            cudaSuccess ||
+        found != cudaDriverEntryPointSuccess || fn == nullptr)
+      return -1;
+    encode = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(fn);
+  }
+  const cuuint64_t elem = fp32 ? 4 : 2;
+  const cuuint64_t dims[4] = {kBwdD, static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(heads), static_cast<cuuint64_t>(batch)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(ss) * elem,
+                                 static_cast<cuuint64_t>(sh) * elem,
+                                 static_cast<cuuint64_t>(sb) * elem};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(128 / elem),
+                             static_cast<cuuint32_t>(box_rows), 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult res = encode(
+      map, fp32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+      const_cast<void*>(base), dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? 0 : -1000 - static_cast<int>(res);
+}
+
+template <bool CAUSAL, bool SEG>
+inline int launch_bwd_sm90(const BwdMaps& maps, const BwdArgs& a, cudaStream_t stream) {
+  const cudaError_t err = cudaFuncSetAttribute(flash_bwd_sm90_kernel<CAUSAL, SEG>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               kBwdSmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int grid = (a.sk + kBwdK - 1) / kBwdK * a.kv_heads * a.batch;
+  flash_bwd_sm90_kernel<CAUSAL, SEG><<<grid, kBwdThreads, kBwdSmem, stream>>>(maps, a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace gar
+
+// Kernel 17's first launch. out, dout (batch, sq, heads, 64) bf16 with
+// element strides; delta (batch, heads, sq) fp32; dq_acc (batch, sq,
+// heads, 64) fp32 contiguous.
+extern "C" int gar_flash_bwd_prep(const void* out, const void* dout, void* delta, void* dq_acc,
+                                  int batch, int sq, int heads, long long o_sb, long long o_ss,
+                                  long long o_sh, long long g_sb, long long g_ss, long long g_sh,
+                                  void* stream) {
+  const long long rows = static_cast<long long>(batch) * sq * heads;
+  if (rows <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const long long blocks = (rows * 8 + 255) / 256;
+  gar::flash_bwd_prep_kernel<<<static_cast<unsigned>(blocks), 256, 0,
+                               static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const gar::bf16*>(out), static_cast<const gar::bf16*>(dout),
+      static_cast<float*>(delta), static_cast<float*>(dq_acc), sq, heads, rows, o_sb, o_ss, o_sh,
+      g_sb, g_ss, g_sh);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Kernel 17's second launch: n elements (a multiple of 8), fp32 -> bf16.
+extern "C" int gar_flash_bwd_dq_cast(const void* dq_acc, void* dq, long long n, float scale,
+                                     void* stream) {
+  if (n <= 0 || n % 8) return static_cast<int>(cudaErrorInvalidValue);
+  const long long chunks = n / 8;
+  gar::flash_bwd_dq_cast_kernel<<<static_cast<unsigned>((chunks + 255) / 256), 256, 0,
+                                  static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(dq_acc), static_cast<gar::bf16*>(dq), chunks, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Kernel 18. strides: q, k, v, dout element strides (batch, sequence,
+// head), 12 values; dk, dv contiguous (batch, sk, kv_heads, 64) bf16;
+// dq_acc the zeroed workspace (17's prep), which this launch adds into.
+extern "C" int gar_flash_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
+                                 const void* lse, const void* delta, const void* seg,
+                                 const void* q_tiles, const void* k_tiles, void* dq_acc, void* dk,
+                                 void* dv, int batch, int sq, int sk, int heads, int kv_heads,
+                                 int head_dim, int causal, const long long* strides, float scale,
+                                 void* stream) {
+  if (head_dim != gar::kBwdD || kv_heads <= 0 || heads % kv_heads != 0 || batch <= 0 ||
+      sq <= 0 || sk <= 0 || (seg && (sq != sk || !q_tiles || !k_tiles)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  gar::BwdMaps maps;
+  const long long dq_ss = static_cast<long long>(heads) * gar::kBwdD;
+  int err = gar::encode_rows(&maps.q, q, false, sq, heads, batch, strides[0], strides[1],
+                             strides[2], gar::kBwdQ);
+  if (!err)
+    err = gar::encode_rows(&maps.k, k, false, sk, kv_heads, batch, strides[3], strides[4],
+                           strides[5], gar::kBwdK);
+  if (!err)
+    err = gar::encode_rows(&maps.v, v, false, sk, kv_heads, batch, strides[6], strides[7],
+                           strides[8], gar::kBwdK);
+  if (!err)
+    err = gar::encode_rows(&maps.dout, dout, false, sq, heads, batch, strides[9], strides[10],
+                           strides[11], gar::kBwdQ);
+  if (!err)
+    err = gar::encode_rows(&maps.dq, dq_acc, true, sq, heads, batch, sq * dq_ss, dq_ss,
+                           gar::kBwdD, 32);
+  if (err) return err;
+  gar::BwdArgs a;
+  a.lse = static_cast<const float*>(lse);
+  a.delta = static_cast<const float*>(delta);
+  a.seg = static_cast<const int*>(seg);
+  a.q_tiles = static_cast<const int*>(q_tiles);
+  a.k_tiles = static_cast<const int*>(k_tiles);
+  a.dk = static_cast<gar::bf16*>(dk);
+  a.dv = static_cast<gar::bf16*>(dv);
+  a.batch = batch;
+  a.sq = sq;
+  a.sk = sk;
+  a.heads = heads;
+  a.kv_heads = kv_heads;
+  a.q_offset = sk - sq;
+  a.scale = scale;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (causal) return seg ? gar::launch_bwd_sm90<true, true>(maps, a, st)
+                         : gar::launch_bwd_sm90<true, false>(maps, a, st);
+  return seg ? gar::launch_bwd_sm90<false, true>(maps, a, st)
+             : gar::launch_bwd_sm90<false, false>(maps, a, st);
+}

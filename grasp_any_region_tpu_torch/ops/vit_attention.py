@@ -24,9 +24,9 @@ kernel's head-pair (128-lane) layout is not needed: E reads per head.
 
 Kernel 5 replaces `vit_attention_bwd_onepass` (`_vit_bwd_kernel`), whose
 program keeps a whole head's K, V and (S, D) fp32 dk/dv sums in VMEM, four
-times an H100 SM's 227 KB at S = 1025. The CUDA kernel (kernel 18's body
-in csrc/flash_backward.cu, non-causal, one head per kv head) keeps the
-one-pass property: one block per (tile-head, 64 keys) walks the query
+times an H100 SM's 227 KB at S = 1025. The CUDA kernel (the mma.sync
+backward body of csrc/flash_backward.cu, non-causal, one head per kv head)
+keeps the one-pass property: one block per (tile-head, 64 keys) walks the query
 tiles, each 64 x 64 p block is computed once from the saved LSE and feeds
 dv, dp, dk and dq; dk and dv stay in fp32 registers, and each block adds
 its share of dq into an fp32 workspace with red.global.add.f32, cast to

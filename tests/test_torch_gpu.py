@@ -466,6 +466,25 @@ def test_vit_attention_lse_and_backward_kernels(rnd, t, s, h):
         torch.testing.assert_close(a.float(), b, **TOL, msg=name)
 
 
+def _documents(b, s, ends):
+    """(B, S) int32 ids: documents 1, 2, ... ending at `ends`, then padding (0)."""
+    seg = torch.zeros((b, s), dtype=torch.int32)
+    for doc, (lo, hi) in enumerate(zip((0,) + ends[:-1], ends), start=1):
+        seg[:, lo:hi] = doc
+    return seg.cuda()
+
+
+def _sized_close(got, want, name):
+    """Kernels 17 and 18 against the plain version (p and dS rounded to
+    bf16 where the kernels round them) at a tolerance sized to the output:
+    atol a tenth of its RMS, rtol 2^-6 (two bf16 ulps). Their outputs have
+    an RMS of 0.05-0.5, where TOL would pass a missing key tile or query
+    head."""
+    atol = want.pow(2).mean().sqrt().item() / 10
+    print(f"{name}: atol {atol:.3e}, max |diff| {(got.float() - want).abs().max().item():.3e}")
+    torch.testing.assert_close(got.float(), want, atol=atol, rtol=2.0 ** -6, msg=name)
+
+
 @pytest.mark.parametrize("b,sq,sk,h,kh,causal,packed", [
     (1, 256, 256, 4, 2, True, False),
     (2, 130, 300, 4, 1, True, False),
@@ -473,6 +492,11 @@ def test_vit_attention_lse_and_backward_kernels(rnd, t, s, h):
     (1, 300, 300, 8, 8, True, False),
     (2, 700, 700, 8, 2, True, True),
     (1, 450, 450, 4, 4, False, True),
+    (1, 200, 200, 8, 1, True, False),
+    (2, 333, 333, 4, 2, True, False),
+    (1, 100, 333, 2, 1, True, False),
+    (1, 333, 333, 8, 4, True, (100, 129, 250)),
+    (2, 520, 520, 8, 1, True, (64, 127, 130, 300, 511)),
 ])
 def test_flash_attention_lse_segments_and_backward_kernels(rnd, b, sq, sk, h, kh, causal,
                                                            packed):
@@ -480,7 +504,11 @@ def test_flash_attention_lse_segments_and_backward_kernels(rnd, b, sq, sk, h, kh
 
     q, g = rnd(b, sq, h, 64), rnd(b, sq, h, 64)
     k, v = rnd(b, sk, kh, 64), rnd(b, sk, kh, 64)
-    seg = _packed_segments(b, sq, torch.Generator().manual_seed(sq)) if packed else None
+    seg = None
+    if packed is True:
+        seg = _packed_segments(b, sq, torch.Generator().manual_seed(sq))
+    elif packed:  # documents ending inside and at the edges of 128-key tiles
+        seg = _documents(b, sq, packed)
     kw = dict(causal=causal, segment_ids=seg)
     out, lse = fa.flash_attention(q, k, v, return_lse=True, **kw)
     ref, ref_lse = fa.flash_attention_plain(q.float(), k.float(), v.float(), return_lse=True,
@@ -489,12 +517,33 @@ def test_flash_attention_lse_segments_and_backward_kernels(rnd, b, sq, sk, h, kh
     torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=1e-4)
     before = fb.launches_dq, fb.launches_dkv
     got = fb.flash_attention_bwd(q, k, v, out, lse, g, **kw)
+    again = fb.flash_attention_bwd(q, k, v, out, lse, g, **kw)
     torch.cuda.synchronize()
-    assert (fb.launches_dq, fb.launches_dkv) == (before[0] + 1, before[1] + 1)
-    want = fb.flash_attention_bwd_plain(q.float(), k.float(), v.float(), out.float(), lse,
-                                        g.float(), **kw)
+    assert (fb.launches_dq, fb.launches_dkv) == tuple(x + 2 for x in before)
+    want = [w.float() for w in fb.flash_attention_bwd_plain(q, k, v, out, lse, g, **kw)]
     for name, a, b_ in zip(("dq", "dk", "dv"), got, want):
-        torch.testing.assert_close(a.float(), b_, **TOL, msg=name)
+        _sized_close(a, b_, name)
+    # dk and dv are summed in registers in a fixed order; dq by atomics
+    assert torch.equal(got[1], again[1]) and torch.equal(got[2], again[2])
+    _sized_close(again[0], want[0], "dq, second run")
+
+
+def test_flash_backward_prep_writes_delta_and_a_zeroed_workspace(rnd):
+    """Kernel 17's prep: delta = rowsum(g * out) in fp32 (its plain version
+    `bwd_delta`), out read through strides, and a zeroed fp32 workspace;
+    its cast: bf16(workspace * 64 ** -0.5)."""
+    from grasp_any_region_tpu_torch.ops import flash_backward as fb
+
+    out = rnd(2, 77, 6, 3, 64)[:, :, :, 1]  # a strided view, as of a fused buffer
+    g = rnd(2, 77, 6, 64)
+    delta, acc = fb.bwd_prep(out, g)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(delta, fb.bwd_delta(out, g), atol=1e-4, rtol=1e-5)
+    assert acc.shape == (2, 77, 6, 64) and acc.dtype == torch.float32
+    assert not acc.any()
+    acc.normal_()
+    torch.testing.assert_close(fb.bwd_dq_cast(acc).float(),
+                               (acc * 0.125).to(torch.bfloat16).float(), atol=0, rtol=0)
 
 
 def test_raw_attention_wrappers_refuse_a_gradient(rnd):
@@ -525,11 +574,11 @@ def test_train_step_backward_runs_the_kernels_on_the_card(rnd):
     for p in params.parameters():
         p.requires_grad_(True)
     batch, labels, _ = synthetic_batch(cfg, grid=(2, 1), seed=0)
-    before = (va.launches, va.launches_bwd, fa.launches, fb.launches_dq, fb.launches_dkv)
+    before = va.launches, va.launches_bwd, fa.launches, fb.launches_dq, fb.launches_dkv
     loss = loss_fn(params, cfg, batch, labels, mask_compat=False)
     loss.backward()
     torch.cuda.synchronize()
-    after = (va.launches, va.launches_bwd, fa.launches, fb.launches_dq, fb.launches_dkv)
+    after = va.launches, va.launches_bwd, fa.launches, fb.launches_dq, fb.launches_dkv
     assert tuple(a - b for a, b in zip(after, before)) == (4, 2, 4, 2, 2)
     assert torch.isfinite(loss)
     assert all(torch.isfinite(p.grad).all() for p in params.parameters() if p.grad is not None)

@@ -1,7 +1,9 @@
 """The port's attention pieces of the train step against the JAX package's
 Pallas kernels in interpret mode, in fp32 on the CPU: kernel B's LSE and
 segment-id forward (`flash_attention_plain`), kernels 17 and 18
-(`flash_attention_bwd_plain`), kernel A's LSE and kernel 5
+(`flash_attention_bwd_plain`; 17's prep `bwd_delta` against JAX's delta;
+the segment-tile skip at B's 64 and 18's 128 keys), kernel A's LSE and
+kernel 5
 (`vit_attention_bwd_plain`), and the autograd pairs `flash_attention_df`
 and `vit_attention_df` against autograd through the plain forward.
 
@@ -35,6 +37,7 @@ SHAPES = [  # b, sq, sk, h, kh, d, causal, segments
     (1, 100, 228, 2, 2, 32, True, False),
     (2, 160, 160, 4, 2, 32, True, True),
     (1, 256, 256, 2, 2, 64, True, True),
+    (1, 333, 333, 4, 2, 64, True, True),  # ragged: documents end inside 128-key tiles
 ]
 
 
@@ -139,11 +142,67 @@ def test_df_forms_take_the_plain_call_without_a_gradient():
     assert a.grad_fn is None and b.grad_fn is None
 
 
-@pytest.mark.parametrize("s", [256, 300, 1000])
-def test_segment_tile_skip_keeps_every_equal_id_pair(s):
-    """The kernels skip a (query tile, key tile) pair of 64 rows each whose
-    [min, max] segment-id ranges (`segment_tiles`) are disjoint. That is
-    exact: no skipped pair holds two equal ids; and it does prune."""
+@pytest.mark.parametrize("b,sq,sk,h,kh,d,causal,segments", [
+    (1, 192, 192, 4, 2, 64, True, False),
+    (2, 160, 160, 4, 2, 32, True, True),
+    (1, 100, 228, 2, 1, 64, True, False),
+    (1, 333, 333, 4, 2, 64, True, True),
+])
+def test_flash_backward_plain_rounds_as_pallas_at_bf16(b, sq, sk, h, kh, d, causal, segments):
+    """At bf16 the Pallas kernels round p and ds to bf16 before their dots;
+    `flash_attention_bwd_plain` at bf16 inputs, the reference the card holds
+    kernels 17 and 18 to, rounds at the same points. From the same bf16
+    inputs it lands within a fiftieth of each output's RMS of
+    JAX's (the fp32 sums run in another order; one bf16 rounding of the
+    output)."""
+    q, k, v, g, seg = _inputs(b, sq, sk, h, kh, d, segments, seed=7)
+    q, k, v, g = (jnp.asarray(x, jnp.bfloat16) for x in (q, k, v, g))
+    jseg = _j(seg)
+    out_j, lse_j = jfa.flash_attention(q, k, v, causal=causal, segment_ids=jseg, block_q=64,
+                                       block_k=64, interpret=True, return_lse=True)
+    ref = jfb.flash_attention_bwd(q, k, v, out_j, lse_j, g, causal=causal, segment_ids=jseg,
+                                  block_q=64, block_k=64, interpret=True)
+
+    def bf16(x):
+        return torch.from_numpy(np.array(x.astype(jnp.float32))).to(torch.bfloat16)
+
+    got = fb.flash_attention_bwd_plain(bf16(q), bf16(k), bf16(v), bf16(out_j), _t(lse_j),
+                                       bf16(g), causal=causal, segment_ids=_t(seg))
+    for name, a, e in zip(("dq", "dk", "dv"), got, ref):
+        e = torch.from_numpy(np.array(e.astype(jnp.float32)))
+        assert a.dtype == torch.bfloat16
+        rms = e.pow(2).mean().sqrt().item()
+        torch.testing.assert_close(a.float(), e, atol=rms / 50, rtol=2.0 ** -8, msg=name)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, "bfloat16"])
+def test_bwd_delta_matches_jax(dtype):
+    """Kernel 17's plain prep `bwd_delta` against the JAX package's delta,
+    rowsum(dO * O) in fp32 as `flash_attention_bwd` forms it
+    (grasp_any_region_tpu/ops/flash_backward.py:283-287), from fp32 or bf16
+    inputs (their products are exact in fp32; the sums run in another
+    order)."""
+    rng = np.random.default_rng(5)
+    out, g = (rng.normal(size=(2, 77, 6, 64)).astype(np.float32) for _ in range(2))
+    jdt = jnp.float32 if dtype is np.float32 else jnp.bfloat16
+    tdt = torch.float32 if dtype is np.float32 else torch.bfloat16
+    out_j, g_j = jnp.asarray(out, jdt), jnp.asarray(g, jdt)
+    ref = jnp.einsum("bshd,bshd->bhs", g_j.astype(jnp.float32), out_j.astype(jnp.float32))
+    got = fb.bwd_delta(_t(out).to(tdt), _t(g).to(tdt))
+    assert got.dtype == torch.float32 and got.is_contiguous()
+    _close(got, ref, atol=1e-5, rtol=1e-5)
+
+
+_SKIP_CASES = [pytest.param(s, 64, id=str(s)) for s in (256, 300, 1000)] + [
+    pytest.param(s, 128, id=f"{s}-k128") for s in (256, 300, 1000)]
+
+
+@pytest.mark.parametrize("s,key_tile", _SKIP_CASES)
+def test_segment_tile_skip_keeps_every_equal_id_pair(s, key_tile):
+    """The kernels skip a (64-row query tile, key tile) pair whose [min,
+    max] segment-id ranges (`segment_tiles`) are disjoint: B at 64 keys a
+    tile, 18 at 128 (`flash_backward.BWD_KEY_TILE`). That is exact: no
+    skipped pair holds two equal ids; and it does prune."""
     rng = np.random.default_rng(s)
     seg = np.zeros((2, s), np.int32)
     for row in seg:
@@ -152,14 +211,16 @@ def test_segment_tile_skip_keeps_every_equal_id_pair(s):
             n = int(rng.integers(20, 150))
             row[off:off + n], off, doc = doc, off + n, doc + 1
     seg = torch.from_numpy(seg)
-    tiles = fa.segment_tiles(seg)
-    for b in range(2):
-        for i in range(tiles.shape[1]):
-            rows = seg[b, 64 * i:64 * (i + 1)]
-            assert tiles[b, i].tolist() == [int(rows.min()), int(rows.max())]
-    lo, hi = tiles[..., 0], tiles[..., 1]
-    disjoint = (hi[:, None, :] < lo[:, :, None]) | (lo[:, None, :] > hi[:, :, None])
-    tile = torch.arange(s) // 64
-    skipped = disjoint[:, tile][:, :, tile]  # (B, S, S) per (query, key)
+    q_tiles, k_tiles = fa.segment_tiles(seg), fa.segment_tiles(seg, key_tile)
+    for tiles, size in ((q_tiles, 64), (k_tiles, key_tile)):
+        for b in range(2):
+            for i in range(tiles.shape[1]):
+                rows = seg[b, size * i:size * (i + 1)]
+                assert tiles[b, i].tolist() == [int(rows.min()), int(rows.max())]
+    lo, hi = q_tiles[..., 0], q_tiles[..., 1]
+    klo, khi = k_tiles[..., 0], k_tiles[..., 1]
+    disjoint = (khi[:, None, :] < lo[:, :, None]) | (klo[:, None, :] > hi[:, :, None])
+    qt, kt = torch.arange(s) // 64, torch.arange(s) // key_tile
+    skipped = disjoint[:, qt][:, :, kt]  # (B, S, S) per (query, key)
     assert not (skipped & (seg[:, :, None] == seg[:, None, :])).any()
     assert disjoint.any()
