@@ -1,0 +1,131 @@
+"""Mutants of kernels B and E (csrc/flash_forward_sm90.cu) that the checks
+must catch. Each mutant is built in its own copy of the package under
+build/copies/ (ops/_build.py builds a copy into its own build/), and two
+checks run there on the card:
+
+- the forward card tests of tests/test_torch_gpu.py, each case with its
+  own verdict: a case that loses the CUDA context (a trapped kernel) ends
+  its process, and the cases after it run again in a fresh one;
+- phase 2 of chip_smoke.py (every kernel against its plain version), which
+  stops at the first check that fails and names it.
+
+A mutant that no check catches means checks too weak to see that defect.
+Run from the repository root on a machine with the card:
+
+    python3 forward_mutants.py
+"""
+
+from __future__ import annotations
+
+import os
+import shutil
+import subprocess
+import sys
+import xml.etree.ElementTree as ET
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parent
+COPIES = REPO / "build" / "copies"  # gitignored
+SRC = "grasp_any_region_tpu_torch/csrc/flash_forward_sm90.cu"
+MUTANTS = {  # name: [(old, new), ...] in SRC
+    "drop_last_key_tile": [
+        # B: the causal band and the full rows lose their last key tile
+        ("const int n_kt = CAUSAL ? min(n_kt_all, (a.q_offset + q0 + kFwdM - 1) / kFwdN + 1) "
+         ": n_kt_all;",
+         "const int n_kt = max(1, (CAUSAL ? min(n_kt_all, (a.q_offset + q0 + kFwdM - 1) / kFwdN "
+         "+ 1) : n_kt_all) - 1);"),
+        # E: the last key tile (past the first) is masked whole, so no barrier changes
+        ("(s, m2, alpha, rsum, k0 + 8 * NJ > a.sk, k0, t, 0, a.sk,",
+         "(s, m2, alpha, rsum, true, k0, t, 0, kt == n_kt - 1 ? k0 : a.sk,")],
+    "no_rope_on_k": [  # E's K left unrotated
+        ("rope_rows<3>(reinterpret_cast<uint8_t*>(sK), a.sk,",
+         "rope_rows<3>(reinterpret_cast<uint8_t*>(sK), 0 * a.sk,")],
+    "every_head_on_kv_head_0": [("const int kvh = h / a.group;", "const int kvh = 0 * h;")],
+    "segment_ids_unmasked": [("if (SEG) ok = ok && kseg[key - k0] == qseg[r];", "")],
+}
+TESTS = "flash_attention_kernel or fused_qkv_kernel or lse_segments"
+CONTEXT_LOST = ("CUDA error", "AcceleratorError", "illegal instruction",
+                "unspecified launch failure")
+PHASE2 = "import chip_smoke as c; c.phase_environment(); c.phase_kernels()"
+
+
+def make_copy(name: str, edits: list[tuple[str, str]]) -> Path:
+    """The package, tests/, chip_smoke.py and pyproject.toml (so pytest's
+    root is the copy) under build/copies/<name>, with each (old, new) edit
+    applied to SRC. Raises if an old text is not in SRC exactly once."""
+    dst = COPIES / name
+    shutil.rmtree(dst, ignore_errors=True)
+    dst.mkdir(parents=True)
+    ignore = shutil.ignore_patterns("__pycache__")
+    for path in ("grasp_any_region_tpu_torch", "tests"):
+        shutil.copytree(REPO / path, dst / path, ignore=ignore)
+    for path in ("chip_smoke.py", "pyproject.toml"):
+        shutil.copy(REPO / path, dst / path)
+    text = (dst / SRC).read_text()
+    for old, new in edits:
+        if text.count(old) != 1:
+            raise ValueError(f"{name}: {old!r} is not in {SRC} exactly once")
+        text = text.replace(old, new)
+    (dst / SRC).write_text(text)
+    return dst
+
+
+def run(dst: Path, args: list[str], timeout: int) -> subprocess.CompletedProcess:
+    return subprocess.run([sys.executable, *args], cwd=dst, capture_output=True, text=True,
+                          env={**os.environ, "PYTHONPATH": str(dst)}, timeout=timeout)
+
+
+def card_tests(dst: Path) -> dict[str, str]:
+    """Each forward card case's verdict in the copy: passed, skipped,
+    failed, or trapped (it lost the CUDA context; the cases after it run
+    again)."""
+    pytest = ["-m", "pytest", "--noconftest", "-p", "no:cacheprovider", "-q"]
+    listed = run(dst, [*pytest, "--collect-only", "tests/test_torch_gpu.py", "-k", TESTS], 300)
+    todo = [line for line in listed.stdout.splitlines() if "::" in line]
+    verdicts: dict[str, str] = {}
+    while todo:
+        report = dst / "report.xml"
+        report.unlink(missing_ok=True)
+        run(dst, [*pytest, f"--junitxml={report}", *todo], 1800)
+        cases = list(ET.parse(report).getroot().iter("testcase")) if report.exists() else []
+        if not cases:
+            raise RuntimeError(f"{dst.name}: pytest reported none of {len(todo)} cases")
+        rest = list(todo)
+        for case in cases:
+            node = f"tests/test_torch_gpu.py::{case.get('name')}"
+            bad = [c for c in case if c.tag in ("failure", "error")]
+            text = " ".join((c.get("message") or "") + (c.text or "") for c in bad)
+            lost = any(s in text for s in CONTEXT_LOST)
+            skipped = any(c.tag == "skipped" for c in case)
+            verdicts[node] = ("trapped" if lost else "failed" if bad
+                              else "skipped" if skipped else "passed")
+            if node in rest:
+                rest.remove(node)
+            if lost:
+                break
+        else:
+            rest = []  # every case ran in a live context
+        todo = rest
+    return verdicts
+
+
+def main() -> int:
+    for name, edits in MUTANTS.items():
+        dst = make_copy(f"mutant_{name}", edits)
+        verdicts = card_tests(dst)
+        counts = {v: list(verdicts.values()).count(v) for v in ("failed", "trapped", "passed", "skipped")}
+        print(f"[mutant] {name}: card tests {counts}", flush=True)
+        for node, v in sorted(verdicts.items()):
+            if v != "passed":
+                print(f"    {v}: {node.split('::')[1]}")
+        phase2 = run(dst, ["-c", PHASE2], 1200)
+        lines = (phase2.stdout + phase2.stderr).strip().splitlines()
+        caught = [line for line in lines if "Error" in line][-1:] or lines[-1:]
+        print(f"[mutant] {name}: chip_smoke phase 2 "
+              f"{'passed' if phase2.returncode == 0 else 'failed: ' + ' '.join(caught)}",
+              flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -60,10 +60,8 @@ __global__ void __launch_bounds__(kBwdThreads) vit_bwd_kernel(const BwdParams p)
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
   const int k0 = blockIdx.x * BN, h = blockIdx.y, b = blockIdx.z;
-  stage_rows<D, LD, false, NT>(sK, p.k + b * p.k_sb + h * p.k_sh, p.k_ss, k0, BN, p.seq,
-                               nullptr, nullptr, tid);
-  stage_rows<D, LD, false, NT>(sV, p.v + b * p.v_sb + h * p.v_sh, p.v_ss, k0, BN, p.seq,
-                               nullptr, nullptr, tid);
+  stage_rows<D, LD, NT>(sK, p.k + b * p.k_sb + h * p.k_sh, p.k_ss, k0, BN, p.seq, tid);
+  stage_rows<D, LD, NT>(sV, p.v + b * p.v_sb + h * p.v_sh, p.v_ss, k0, BN, p.seq, tid);
 
   const int row0 = warp * 16 + g;  // this thread's keys in the tile: row0, row0 + 8
   const int key0 = k0 + row0, key1 = key0 + 8;
@@ -86,8 +84,8 @@ __global__ void __launch_bounds__(kBwdThreads) vit_bwd_kernel(const BwdParams p)
   for (int qt = 0; qt < n_qt; ++qt) {
     const int q0 = qt * BM;
     __syncthreads();  // every warp is done with the previous tile (and sdS)
-    stage_rows<D, LD, false, NT>(sQ, qb, p.q_ss, q0, BM, p.seq, nullptr, nullptr, tid);
-    stage_rows<D, LD, false, NT>(sdO, ob, p.o_ss, q0, BM, p.seq, nullptr, nullptr, tid);
+    stage_rows<D, LD, NT>(sQ, qb, p.q_ss, q0, BM, p.seq, tid);
+    stage_rows<D, LD, NT>(sdO, ob, p.o_ss, q0, BM, p.seq, tid);
     if (tid < BM) {
       const bool in = q0 + tid < p.seq;
       sLse[tid] = in ? p.lse[row_base + q0 + tid] : 0.f;

@@ -40,8 +40,6 @@
 // past Sk masked, GQA, segment ids (Sq == Sk) with (64-row query tile,
 // 128-key tile) pairs of disjoint [min, max] id ranges skipped (exact);
 // p and dS rounded to bf16 before their products; dq and dk scaled once.
-#include <cudaTypedefs.h>
-
 #include "sm90.cuh"
 
 namespace gar {
@@ -415,39 +413,6 @@ __global__ void __launch_bounds__(256) flash_bwd_dq_cast_kernel(const float* __r
   reinterpret_cast<uint4*>(dq)[idx] =
       make_uint4(pack_bf16x2(x.x * scale, x.y * scale), pack_bf16x2(x.z * scale, x.w * scale),
                  pack_bf16x2(y.x * scale, y.y * scale), pack_bf16x2(y.z * scale, y.w * scale));
-}
-
-// A (batch, rows, heads, 64) operand (bf16, or the fp32 workspace) with
-// element strides (sb, ss, sh) as a 4D TMA map (64, rows, heads, batch),
-// boxes of (box_cols, box_rows, 1, 1), 128-byte swizzle (a box row is 128
-// bytes). Returns 0, or a negative code when the driver refuses.
-inline int encode_rows(CUtensorMap* map, const void* base, bool fp32, int rows, int heads,
-                       int batch, long long sb, long long ss, long long sh, int box_rows) {
-  static PFN_cuTensorMapEncodeTiled_v12000 encode = nullptr;
-  if (encode == nullptr) {
-    void* fn = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found) !=
-            cudaSuccess ||
-        found != cudaDriverEntryPointSuccess || fn == nullptr)
-      return -1;
-    encode = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(fn);
-  }
-  const cuuint64_t elem = fp32 ? 4 : 2;
-  const cuuint64_t dims[4] = {kBwdD, static_cast<cuuint64_t>(rows),
-                              static_cast<cuuint64_t>(heads), static_cast<cuuint64_t>(batch)};
-  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(ss) * elem,
-                                 static_cast<cuuint64_t>(sh) * elem,
-                                 static_cast<cuuint64_t>(sb) * elem};
-  const cuuint32_t box[4] = {static_cast<cuuint32_t>(128 / elem),
-                             static_cast<cuuint32_t>(box_rows), 1, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  const CUresult res = encode(
-      map, fp32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-      const_cast<void*>(base), dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return res == CUDA_SUCCESS ? 0 : -1000 - static_cast<int>(res);
 }
 
 template <bool CAUSAL, bool SEG>

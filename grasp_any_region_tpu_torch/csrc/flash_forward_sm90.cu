@@ -1,0 +1,750 @@
+// Kernels B and E: the flash attention forward (FA-2 recurrences, FA-3's
+// schedule) for Hopper.
+//
+// B replaces grasp_any_region_tpu/ops/flash_attention.py:flash_attention
+// (_flash_kernel): q (B, Sq, H, 64), k/v (B, Sk, K, 64) bf16 through
+// strides, causal (right-aligned by q_offset = Sk - Sq) or full, GQA by
+// index (kv head = h / (H / K), no repeated K/V), optional fp32 (B, H, Sq)
+// log-sum-exp for the backward and (B, S) int32 segment ids for packed
+// self-attention (Sq == Sk; equal ids only).
+// E replaces grasp_any_region_tpu/ops/vit_attention.py:
+// vit_attention_fused_qkv (_fused_qkv_kernel): non-causal ViT attention
+// with q, k and v read straight out of the fused (T, S, 3D) buffer through
+// one TMA map (64, S, 3H, T) and 2D rope (fp32 (H, S, 64) cos/sin tables,
+// rotate_half pairs i and i + 32) applied on the card's tiles; the output
+// is token-major (T, S, D).
+//
+// Both run three warpgroups a CTA over 128-row query tiles:
+// - the producer: warp 0 issues the TMA loads (128-byte swizzle: a 64-wide
+//   bf16 row is one swizzle row) and hands its registers to the consumers
+//   (setmaxnreg);
+// - consumer warpgroup w owns query rows 64 w .. 64 w + 63 of the tile
+//   (the m64 of every wgmma). Per 128-key tile j it issues S(j) = Q K^T
+//   (wgmma m64n128k16, both operands in shared memory, K-major) and
+//   O += P(j-1) V(j-1) (wgmma m64n64k16, P from registers, V read
+//   MN-major), then runs the online softmax of S(j) in fp32 registers
+//   (exp2 of scale * log2e, row max across the quad) while the PV product
+//   runs, rescales O and rounds P to bf16 A fragments (the accumulator is
+//   the mma.m16n8k16 C layout, so no shuffle). The two consumers do not
+//   take turns (FA-3's ping-pong): each already runs its softmax under its
+//   own PV product, and turns measured no faster.
+// B: one CTA per (query tile, head, batch), launched heaviest first (the
+//   causal band's longest query tiles get the lowest block indices); Q is
+//   loaded once, K and V stream through a three-stage ring, with each key
+//   tile's segment ids by plain loads. Masks are applied only on diagonal,
+//   ragged (keys past Sk, which TMA zero-fills) and segment tiles; causal
+//   key tiles wholly above the diagonal are never loaded, and (query tile,
+//   key tile) pairs of disjoint [min, max] segment-id ranges (128-row
+//   table) are skipped, which is exact.
+// E: rope needs the tables' 64 KB of fp32 a 128-key tile, twice the tile's
+//   own bytes, so K is roped once a CTA and kept: one CTA per (five query
+//   tiles, head, tile) loads the head's whole K (S <= 1152: 9 tiles, 144
+//   KB), which both consumers rope in place before their first product
+//   (each thread with three rows' table loads in flight); V streams
+//   through a three-stage ring and Q through two buffers, and each
+//   consumer ropes its 64 rows of Q in place. K is roped twice a (tile,
+//   head) at S = 1025, against 9 with one query tile a CTA. S = 1025 is 8
+//   x 128 + 1: a last key tile of at most 16 keys takes an n16 S product
+//   and one PV k-step.
+// Rows past Sq are never written.
+//
+// Bound: the two products, 4 D flops per kept (query, key) pair and head;
+// K/V are re-read per query tile from L2.
+#include <type_traits>
+
+#include "sm90.cuh"
+
+namespace gar {
+
+constexpr int kFwdM = 128;  // query rows a tile, 64 per consumer warpgroup
+constexpr int kFwdN = 128;  // keys a tile
+constexpr int kFwdThreads = 384;  // consumer warpgroups 0, 1; producer warpgroup 2
+constexpr uint32_t kFwdTile = kFwdN * 64 * 2;  // bytes of a 128-row bf16 tile
+constexpr uint32_t kStageDesc = kFwdTile >> 4;  // a tile's step in descriptor units
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+// B's shared memory, from a 1024-byte-aligned base.
+constexpr int kFwdStages = 3;
+constexpr int kFOffQ = 0;
+constexpr int kFOffK = kFOffQ + kFwdTile;
+constexpr int kFOffV = kFOffK + kFwdStages * kFwdTile;
+constexpr int kFOffSeg = kFOffV + kFwdStages * kFwdTile;  // stages x 128 key ids
+constexpr int kFOffBar = kFOffSeg + kFwdStages * kFwdN * 4;
+constexpr int kFwdBars = 1 + 3 * kFwdStages;  // q, full_k, full_v, empty
+constexpr int kFwdSmem = kFOffBar + kFwdBars * 8 + 1024;  // + alignment slack
+
+// E's: the whole roped K, two Q buffers, a V ring.
+constexpr int kVitMaxKT = 9;      // key tiles kept: S <= 1152
+constexpr int kVitQPerCta = 5;    // query tiles a CTA (S = 1025: 2 CTAs a (tile, head))
+constexpr int kVitStagesV = 3;
+constexpr int kVOffK = 0;
+constexpr int kVOffQ = kVOffK + kVitMaxKT * kFwdTile;
+constexpr int kVOffV = kVOffQ + 2 * kFwdTile;
+constexpr int kVOffBar = kVOffV + kVitStagesV * kFwdTile;
+constexpr int kVitBars = kVitMaxKT + 4 + 2 * kVitStagesV;
+constexpr int kVitSmem = kVOffBar + kVitBars * 8 + 1024;
+static_assert(kVitSmem <= 232448, "over the 227 KB a Hopper block can use");
+
+struct FwdMaps {
+  CUtensorMap q, k, v;  // bf16 4D (64, rows, head, batch), boxes of 128 rows
+};
+
+struct FwdArgs {
+  const int* seg;        // B: (batch, s) int32, or nullptr
+  const int* seg_tiles;  // with seg: (batch, ceil(s / 128), 2) [min, max] ids
+  const float* cos;      // E: (heads, s, 64) fp32
+  const float* sin;
+  bf16* o;
+  float* lse;  // B: (batch, heads, sq) fp32, or nullptr
+  long long o_sb, o_ss, o_sh;
+  int batch, sq, sk, heads, group, q_offset;  // q_offset = Sk - Sq
+  float scale;
+};
+
+// Rope of one chunk pair (c, c + 4) (elements 8c .. 8c + 7 and 32 + 8c ..)
+// of a row, in two steps so a thread can have several pairs' table loads
+// in flight: rope_tables reads the tables' row `pos` (fp32) for the pair,
+// rope_apply rotates row r of a 128B-swizzled [rows][64] bf16 tile in place
+// (x cos + rotate_half(x) sin in fp32, rounded to bf16). Under the swizzle
+// chunk c of row r sits at c ^ (r % 8), so the pair stays 4 chunks apart.
+struct RopeRow {
+  float4 cos[4], sin[4];  // elements 8c + [0, 4), 8c + [4, 8), then 32 + the same
+};
+
+__device__ __forceinline__ void rope_tables(RopeRow& t, const float* cos, const float* sin,
+                                            int pos, int c) {
+  const long long off = static_cast<long long>(pos) * 64 + 8 * c;
+  const float4* c4 = reinterpret_cast<const float4*>(cos + off);
+  const float4* s4 = reinterpret_cast<const float4*>(sin + off);
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    t.cos[i] = __ldg(c4 + i);
+    t.cos[2 + i] = __ldg(c4 + 8 + i);
+    t.sin[i] = __ldg(s4 + i);
+    t.sin[2 + i] = __ldg(s4 + 8 + i);
+  }
+}
+
+__device__ __forceinline__ void rope_apply(uint8_t* tile, int r, int c, const RopeRow& t) {
+  uint4* lo = reinterpret_cast<uint4*>(tile + r * 128 + ((c ^ (r & 7)) << 4));
+  uint4* hi = reinterpret_cast<uint4*>(tile + r * 128 + (((c + 4) ^ (r & 7)) << 4));
+  const uint4 in1 = *lo, in2 = *hi;
+  const bf16* x1 = reinterpret_cast<const bf16*>(&in1);
+  const bf16* x2 = reinterpret_cast<const bf16*>(&in2);
+  const float* cl = reinterpret_cast<const float*>(&t.cos[0]);
+  const float* ch = reinterpret_cast<const float*>(&t.cos[2]);
+  const float* sl = reinterpret_cast<const float*>(&t.sin[0]);
+  const float* sh = reinterpret_cast<const float*>(&t.sin[2]);
+  uint4 out1, out2;
+  uint32_t* w1 = reinterpret_cast<uint32_t*>(&out1);
+  uint32_t* w2 = reinterpret_cast<uint32_t*>(&out2);
+#pragma unroll
+  for (int e = 0; e < 8; e += 2) {
+    const float a0 = __bfloat162float(x1[e]), a1 = __bfloat162float(x1[e + 1]);
+    const float b0 = __bfloat162float(x2[e]), b1 = __bfloat162float(x2[e + 1]);
+    // first half: x1 cos - x2 sin; second half: x2 cos + x1 sin
+    w1[e / 2] = pack_bf16x2(a0 * cl[e] - b0 * sl[e], a1 * cl[e + 1] - b1 * sl[e + 1]);
+    w2[e / 2] = pack_bf16x2(b0 * ch[e] + a0 * sh[e], b1 * ch[e + 1] + a1 * sh[e + 1]);
+  }
+  *lo = out1;
+  *hi = out2;
+}
+
+// Rope rows [0, n_rows) of tiles laid one after another (row p at tile p /
+// 128, row p % 128), table rows pos0 + p: task g = 4 p + c, tasks tid,
+// tid + threads, ..., BATCH pairs' tables in flight a thread. `ready(p)`
+// is called before row p's tile is touched (a TMA wait).
+template <int BATCH, typename Ready>
+__device__ __forceinline__ void rope_rows(uint8_t* tiles, int n_rows, int pos0, const float* cos,
+                                          const float* sin, int tid, int threads, Ready ready) {
+  for (int g0 = tid; g0 < 4 * n_rows; g0 += BATCH * threads) {
+    RopeRow t[BATCH];
+#pragma unroll
+    for (int u = 0; u < BATCH; ++u) {
+      const int g = g0 + u * threads;
+      if (g < 4 * n_rows) rope_tables(t[u], cos, sin, pos0 + (g >> 2), g & 3);
+    }
+#pragma unroll
+    for (int u = 0; u < BATCH; ++u) {
+      const int g = g0 + u * threads, p = g >> 2;
+      if (g < 4 * n_rows) {
+        ready(p);
+        rope_apply(tiles + (p >> 7) * kFwdTile, p & 127, g & 3, t[u]);
+      }
+    }
+  }
+}
+
+// True when 128-row query tile qt and 128-key tile kt share no segment id.
+__device__ __forceinline__ bool fwd_pair_skipped(const int* tiles, int qt, int kt) {
+  return tiles[2 * kt + 1] < tiles[2 * qt] || tiles[2 * kt] > tiles[2 * qt + 1];
+}
+
+// Online softmax of one (64 rows x 8 NJ keys) S tile in place: s becomes p
+// (fp32), m2 the running row max in log2 units of the scaled logits;
+// returns each row's rescale of the earlier sums in alpha and this
+// thread's share of the tile's row sums in rsum. Masked entries are -inf
+// and give p = 0; a row with no key kept so far has m2 = -inf and p = 0.
+template <bool CAUSAL, bool SEG, int NJ = 16>
+__device__ __forceinline__ void online_softmax(float (&s)[4 * NJ], float (&m2)[2],
+                                               float (&alpha)[2], float (&rsum)[2], bool masked,
+                                               int k0, int t, int pos0, int sk, const int* kseg,
+                                               const int (&qseg)[2], float sl2) {
+  if (masked) {
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int key = k0 + 8 * j + 2 * t + (i & 1), r = i >> 1;
+        bool ok = key < sk;
+        if (CAUSAL) ok = ok && pos0 + 8 * r >= key;
+        if (SEG) ok = ok && kseg[key - k0] == qseg[r];
+        if (!ok) s[4 * j + i] = -INFINITY;
+      }
+  }
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+    mx[0] = fmaxf(mx[0], fmaxf(s[4 * j], s[4 * j + 1]));
+    mx[1] = fmaxf(mx[1], fmaxf(s[4 * j + 2], s[4 * j + 3]));
+  }
+  float base[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    const float mnew = fmaxf(m2[r], mx[r] * sl2);
+    base[r] = mnew == -INFINITY ? 0.f : mnew;
+    alpha[r] = sm90::exp2_approx(m2[r] - base[r]);
+    m2[r] = mnew;
+    rsum[r] = 0.f;
+  }
+#pragma unroll
+  for (int j = 0; j < NJ; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float p = sm90::exp2_approx(fmaf(s[4 * j + i], sl2, -base[i >> 1]));
+      s[4 * j + i] = p;
+      rsum[i >> 1] += p;
+    }
+}
+
+// P (fp32, the S accumulator) as bf16 A fragments: k-step kk (keys 16 kk ..
+// 16 kk + 15) is the C fragment of accumulator columns 16 kk .. + 15.
+template <int NJ = 16>
+__device__ __forceinline__ void pack_p(const float (&s)[4 * NJ], uint32_t (&pa)[8][4]) {
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+    pa[j >> 1][(j & 1) * 2 + 0] = pack_bf16x2(s[4 * j], s[4 * j + 1]);
+    pa[j >> 1][(j & 1) * 2 + 1] = pack_bf16x2(s[4 * j + 2], s[4 * j + 3]);
+  }
+}
+
+// Issue S = Q K^T (64 x 8 NJ: a 128-key tile, or its first 16 keys) and
+// O += P V (64 x 64, over the first 16 KS keys of the tile) for one
+// warpgroup.
+template <int NJ = 16>
+__device__ __forceinline__ void issue_s(float (&s)[4 * NJ], uint64_t dq, uint64_t dk) {
+  static_assert(NJ == 16 || NJ == 2, "a full or a 16-key tile");
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    if constexpr (NJ == 16) sm90::wgmma_m64n128k16_ss<0, 0>(s, dq + 2 * kk, dk + 2 * kk, kk);
+    else sm90::wgmma_m64n16k16_ss<0, 0>(s, dq + 2 * kk, dk + 2 * kk, kk);
+  }
+}
+
+template <int KS = 8>
+__device__ __forceinline__ void issue_pv(float (&o)[32], const uint32_t (&pa)[8][4], uint64_t dv) {
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) sm90::wgmma_m64n64k16_rs<1>(o, pa[kk], dv + 128 * kk);
+}
+
+// O and l rescaled to the new row maxima, this tile's sums added.
+__device__ __forceinline__ void rescale(float (&o)[32], float (&l)[2], const float (&alpha)[2],
+                                        const float (&rsum)[2]) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) o[4 * j + i] *= alpha[i >> 1];
+  l[0] = l[0] * alpha[0] + rsum[0];
+  l[1] = l[1] * alpha[1] + rsum[1];
+}
+
+// O / l as bf16 and, with lse, each row's log-sum-exp (natural log of the
+// scaled logits), rows row_lo + 8 r < sq only; columns 8 j + 2 t + c.
+__device__ __forceinline__ void store_rows(const float (&o)[32], float (&l)[2],
+                                           const float (&m2)[2], bf16* ob, long long o_ss,
+                                           float* lse_row, int row_lo, int sq, int t) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row_lo + 8 * r;
+    if (row >= sq) continue;
+    const float inv = l[r] > 0.f ? 1.f / l[r] : 0.f;
+    bf16* orow = ob + row * o_ss + 2 * t;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      *reinterpret_cast<uint32_t*>(orow + 8 * j) =
+          pack_bf16x2(o[4 * j + 2 * r] * inv, o[4 * j + 2 * r + 1] * inv);
+    if (lse_row != nullptr && t == 0) lse_row[row] = (m2[r] + log2f(l[r])) * kLn2;
+  }
+}
+
+template <int D, bool CAUSAL, bool SEG>
+__global__ void __launch_bounds__(kFwdThreads, 1)
+    flash_fwd_sm90_kernel(const __grid_constant__ FwdMaps maps, const FwdArgs a) {
+  static_assert(D == 64, "a key row is one 128-byte swizzle row: other head dims need other tiles");
+  using namespace sm90;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  bf16* sQ = reinterpret_cast<bf16*>(sm + kFOffQ);
+  bf16* sK = reinterpret_cast<bf16*>(sm + kFOffK);
+  bf16* sV = reinterpret_cast<bf16*>(sm + kFOffV);
+  int* sSeg = reinterpret_cast<int*>(sm + kFOffSeg);
+  uint64_t* q_bar = reinterpret_cast<uint64_t*>(sm + kFOffBar);
+  uint64_t* full_k = q_bar + 1;            // K landed (and the tile's ids stored)
+  uint64_t* full_v = full_k + kFwdStages;  // V landed
+  uint64_t* empty = full_v + kFwdStages;   // both consumers done with the stage
+
+  // heaviest first: the query tile is the slowest-varying part of the index
+  const int pairs = a.heads * a.batch;
+  const int n_qt = (a.sq + kFwdM - 1) / kFwdM;
+  const int qt = n_qt - 1 - static_cast<int>(blockIdx.x) / pairs;
+  const int h = blockIdx.x % pairs % a.heads, b = blockIdx.x % pairs / a.heads;
+  const int kvh = h / a.group;
+  const int q0 = qt * kFwdM;
+  const int n_kt_all = (a.sk + kFwdN - 1) / kFwdN;
+  const int n_kt = CAUSAL ? min(n_kt_all, (a.q_offset + q0 + kFwdM - 1) / kFwdN + 1) : n_kt_all;
+  const int* tiles = SEG ? a.seg_tiles + 2LL * b * n_kt_all : nullptr;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_bar, 1);
+    for (int s = 0; s < kFwdStages; ++s) {
+      mbar_init(&full_k[s], 32);  // the producer warp's lanes (one with the TMA bytes)
+      mbar_init(&full_v[s], 1);
+      mbar_init(&empty[s], 256);  // every consumer thread
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 256) {  // producer warpgroup: warp 0 works
+    regs_dealloc<40>();
+    if (threadIdx.x >= 288) return;
+    const int lane = threadIdx.x & 31;
+    if (lane == 0) {
+      mbar_arrive_expect_tx(q_bar, kFwdTile);
+      tma_load_4d(sQ, &maps.q, q_bar, 0, q0, h, b);
+    }
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int kt = 0; kt < n_kt; ++kt) {
+      if (SEG && fwd_pair_skipped(tiles, qt, kt)) continue;
+      const int k0 = kt * kFwdN;
+      int sg[4];
+      if (SEG) {
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int key = k0 + lane + 32 * r;
+          sg[r] = key < a.sk ? a.seg[static_cast<long long>(b) * a.sk + key] : -2;
+        }
+      }
+      mbar_wait(&empty[stage], phase ^ 1);
+      if (SEG) {
+#pragma unroll
+        for (int r = 0; r < 4; ++r) sSeg[stage * kFwdN + lane + 32 * r] = sg[r];
+      }
+      if (lane == 0) {
+        mbar_arrive_expect_tx(&full_k[stage], kFwdTile);
+        tma_load_4d(sK + stage * kFwdN * D, &maps.k, &full_k[stage], 0, k0, kvh, b);
+        mbar_arrive_expect_tx(&full_v[stage], kFwdTile);
+        tma_load_4d(sV + stage * kFwdN * D, &maps.v, &full_v[stage], 0, k0, kvh, b);
+      } else {
+        mbar_arrive(&full_k[stage]);
+      }
+      if (++stage == kFwdStages) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup w owns query rows q0 + 64 w + [0, 64)
+  regs_alloc<232>();
+  const int w = threadIdx.x >> 7, wi = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int row_lo = q0 + 64 * w + 16 * wi + g;  // this thread's rows: row_lo, row_lo + 8
+  const int pos0 = row_lo + a.q_offset;
+  const float sl2 = a.scale * kLog2e;
+  int qseg[2] = {-1, -1};
+  if (SEG) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      if (row_lo + 8 * r < a.sq) qseg[r] = a.seg[static_cast<long long>(b) * a.sq + row_lo + 8 * r];
+  }
+  const uint64_t dQ = desc_sw128(sQ + 64 * w * D, 16, 1024);
+  const uint64_t dK = desc_sw128(sK, 16, 1024);
+  const uint64_t dV = desc_sw128(sV, kFwdTile, 1024);
+  const int wg_pos = q0 + 64 * w + a.q_offset;  // position of the warpgroup's first row
+  auto is_masked = [&](int k0) {  // a key of the tile lies past Sk or the diagonal, or SEG
+    return k0 + kFwdN > a.sk || SEG || (CAUSAL && k0 + kFwdN - 1 > wg_pos);
+  };
+
+  float o[32], m2[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < 32; ++i) o[i] = 0.f;
+  uint32_t pa[8][4];
+
+  // the first key tile this query tile keeps (the diagonal tile is never skipped)
+  int kt = 0;
+  if (SEG)
+    while (fwd_pair_skipped(tiles, qt, kt)) ++kt;
+  int stage = 0;
+  uint32_t phase = 0;
+
+  mbar_wait(q_bar, 0);
+  {  // prologue: S of the first tile alone
+    const int k0 = kt * kFwdN;
+    float s[64];
+    mbar_wait(&full_k[stage], phase);
+    wgmma_fence();
+    issue_s(s, dQ, dK + stage * kStageDesc);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+    float alpha[2];
+    online_softmax<CAUSAL, SEG>(s, m2, alpha, l, is_masked(k0), k0, t, pos0, a.sk,
+                                sSeg + stage * kFwdN, qseg, sl2);
+    pack_p(s, pa);
+  }
+  int prev = stage;
+  uint32_t prev_phase = phase;
+  if (++stage == kFwdStages) {
+    stage = 0;
+    phase ^= 1;
+  }
+
+  for (++kt; kt < n_kt; ++kt) {
+    if (SEG && fwd_pair_skipped(tiles, qt, kt)) continue;
+    const int k0 = kt * kFwdN;
+    float s[64];
+    mbar_wait(&full_k[stage], phase);
+    mbar_wait(&full_v[prev], prev_phase);
+    wgmma_fence();
+    issue_s(s, dQ, dK + stage * kStageDesc);
+    wgmma_commit();
+    issue_pv(o, pa, dV + prev * kStageDesc);
+    wgmma_commit();
+    wgmma_wait<1>();  // S(j) done; O += P(j-1) V(j-1) still running
+    fence_regs(s);
+    float alpha[2], rsum[2];
+    online_softmax<CAUSAL, SEG>(s, m2, alpha, rsum, is_masked(k0), k0, t, pos0, a.sk,
+                                sSeg + stage * kFwdN, qseg, sl2);
+    wgmma_wait<0>();
+    fence_regs(o);
+    fence_regs(pa);
+    mbar_arrive(&empty[prev]);
+    rescale(o, l, alpha, rsum);
+    pack_p(s, pa);
+    prev = stage;
+    prev_phase = phase;
+    if (++stage == kFwdStages) {
+      stage = 0;
+      phase ^= 1;
+    }
+  }
+
+  // epilogue: O += P V of the last tile
+  mbar_wait(&full_v[prev], prev_phase);
+  wgmma_fence();
+  issue_pv(o, pa, dV + prev * kStageDesc);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(o);
+  fence_regs(pa);
+  mbar_arrive(&empty[prev]);
+  store_rows(o, l, m2, a.o + b * a.o_sb + h * a.o_sh, a.o_ss,
+             a.lse == nullptr ? nullptr : a.lse + (static_cast<long long>(b) * a.heads + h) * a.sq,
+             row_lo, a.sq, t);
+}
+
+// E: one CTA per (up to kVitQPerCta query tiles, head, tile); the map is
+// the fused buffer's (64, S, 3H, T): q of head h at map head h, k at H + h,
+// v at 2H + h. The consumers rope all of K first (every K tile is loaded at
+// once; each thread keeps three pairs' table loads in flight), then walk
+// their query tiles. A last key tile of at most 16 keys (S = 1025 has one)
+// takes an n16 S product and one PV k-step.
+__global__ void __launch_bounds__(kFwdThreads, 1)
+    vit_fwd_rope_sm90_kernel(const __grid_constant__ CUtensorMap map, const FwdArgs a) {
+  using namespace sm90;
+  constexpr int D = 64;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  bf16* sK = reinterpret_cast<bf16*>(sm + kVOffK);
+  bf16* sQ = reinterpret_cast<bf16*>(sm + kVOffQ);
+  bf16* sV = reinterpret_cast<bf16*>(sm + kVOffV);
+  uint64_t* k_landed = reinterpret_cast<uint64_t*>(sm + kVOffBar);  // one use each
+  uint64_t* q_full = k_landed + kVitMaxKT;
+  uint64_t* q_empty = q_full + 2;
+  uint64_t* v_full = q_empty + 2;
+  uint64_t* v_empty = v_full + kVitStagesV;
+
+  // the parts of one (tile, head) are neighbours in the index: they share K in L2
+  const int n_qt = (a.sq + kFwdM - 1) / kFwdM, n_kt = (a.sk + kFwdN - 1) / kFwdN;
+  const int parts = (n_qt + kVitQPerCta - 1) / kVitQPerCta;
+  const int part = blockIdx.x % parts;
+  const int h = blockIdx.x / parts % a.heads, b = blockIdx.x / parts / a.heads;
+  const int qt0 = part * kVitQPerCta, qt1 = min(n_qt, qt0 + kVitQPerCta);
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kVitMaxKT; ++i) mbar_init(&k_landed[i], 1);
+    for (int i = 0; i < 2; ++i) {
+      mbar_init(&q_full[i], 1);
+      mbar_init(&q_empty[i], 256);
+    }
+    for (int i = 0; i < kVitStagesV; ++i) {
+      mbar_init(&v_full[i], 1);
+      mbar_init(&v_empty[i], 256);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 256) {  // producer: one thread issues every TMA load
+    regs_dealloc<40>();
+    if (threadIdx.x != 256) return;
+    for (int kt = 0; kt < n_kt; ++kt) {
+      mbar_arrive_expect_tx(&k_landed[kt], kFwdTile);
+      tma_load_4d(sK + kt * kFwdN * D, &map, &k_landed[kt], 0, kt * kFwdN, a.heads + h, b);
+    }
+    int vs = 0;
+    uint32_t vph = 0;
+    for (int qt = qt0; qt < qt1; ++qt) {
+      const int buf = (qt - qt0) & 1;
+      mbar_wait(&q_empty[buf], (((qt - qt0) >> 1) & 1) ^ 1);
+      mbar_arrive_expect_tx(&q_full[buf], kFwdTile);
+      tma_load_4d(sQ + buf * kFwdM * D, &map, &q_full[buf], 0, qt * kFwdM, h, b);
+      for (int kt = 0; kt < n_kt; ++kt) {
+        mbar_wait(&v_empty[vs], vph ^ 1);
+        mbar_arrive_expect_tx(&v_full[vs], kFwdTile);
+        tma_load_4d(sV + vs * kFwdN * D, &map, &v_full[vs], 0, kt * kFwdN, 2 * a.heads + h, b);
+        if (++vs == kVitStagesV) {
+          vs = 0;
+          vph ^= 1;
+        }
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup w owns rows 64 w + [0, 64) of each query tile
+  regs_alloc<232>();
+  const int w = threadIdx.x >> 7, wi = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const float sl2 = a.scale * kLog2e;
+  const int no_seg[2] = {0, 0};
+  const float* cos_h = a.cos + static_cast<long long>(h) * a.sq * D;
+  const float* sin_h = a.sin + static_cast<long long>(h) * a.sq * D;
+  const uint64_t dK = desc_sw128(sK, 16, 1024);
+  const uint64_t dV = desc_sw128(sV, kFwdTile, 1024);
+  bf16* ob = a.o + b * a.o_sb + h * a.o_sh;
+  const int k_last = (n_kt - 1) * kFwdN;
+  const bool narrow = n_kt > 1 && a.sk - k_last <= 16;  // the last key tile's n16 form
+
+  // rope all of K in place, both warpgroups, then meet
+  rope_rows<3>(reinterpret_cast<uint8_t*>(sK), a.sk, 0, cos_h, sin_h, threadIdx.x, 256,
+               [&](int p) { mbar_wait(&k_landed[p >> 7], 0); });
+  fence_proxy_async();
+  bar_sync(5, 256);
+
+  int vs = 0;
+  uint32_t vph = 0;
+  for (int qt = qt0; qt < qt1; ++qt) {
+    const int buf = (qt - qt0) & 1;
+    const int q0 = qt * kFwdM;
+    const int row_lo = q0 + 64 * w + 16 * wi + g;  // this thread's rows: row_lo, row_lo + 8
+    bf16* sQw = sQ + buf * kFwdM * D + 64 * w * D;
+    mbar_wait(&q_full[buf], ((qt - qt0) >> 1) & 1);
+    // rope this warpgroup's rows of Q in place
+    rope_rows<2>(reinterpret_cast<uint8_t*>(sQw), max(0, min(64, a.sq - q0 - 64 * w)),
+                 q0 + 64 * w, cos_h, sin_h, threadIdx.x & 127, 128, [](int) {});
+    fence_proxy_async();
+    bar_sync(3 + w, 128);
+    const uint64_t dQ = desc_sw128(sQw, 16, 1024);
+    float o[32], m2[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < 32; ++i) o[i] = 0.f;
+    uint32_t pa[8][4];
+
+    {  // prologue: S of key tile 0 alone
+      float s[64];
+      wgmma_fence();
+      issue_s(s, dQ, dK);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(s);
+      float alpha[2];
+      online_softmax<false, false>(s, m2, alpha, l, kFwdN > a.sk, 0, t, 0, a.sk, nullptr, no_seg,
+                                   sl2);
+      pack_p(s, pa);
+    }
+    int prev = vs;
+    uint32_t prev_ph = vph;
+    // one key tile: S(kt) of NJ column groups, O += P(kt - 1) V(kt - 1)
+    auto step = [&](auto nj, int kt) {
+      constexpr int NJ = decltype(nj)::value;
+      const int k0 = kt * kFwdN;
+      if (++vs == kVitStagesV) {
+        vs = 0;
+        vph ^= 1;
+      }
+      float s[4 * NJ];
+      mbar_wait(&v_full[prev], prev_ph);
+      wgmma_fence();
+      issue_s<NJ>(s, dQ, dK + kt * kStageDesc);
+      wgmma_commit();
+      issue_pv(o, pa, dV + prev * kStageDesc);
+      wgmma_commit();
+      wgmma_wait<1>();
+      fence_regs(s);
+      float alpha[2], rsum[2];
+      online_softmax<false, false, NJ>(s, m2, alpha, rsum, k0 + 8 * NJ > a.sk, k0, t, 0, a.sk,
+                                       nullptr, no_seg, sl2);
+      wgmma_wait<0>();
+      fence_regs(o);
+      fence_regs(pa);
+      mbar_arrive(&v_empty[prev]);
+      rescale(o, l, alpha, rsum);
+      pack_p<NJ>(s, pa);
+      prev = vs;
+      prev_ph = vph;
+    };
+    for (int kt = 1; kt + 1 < n_kt; ++kt) step(std::integral_constant<int, 16>(), kt);
+    if (narrow) step(std::integral_constant<int, 2>(), n_kt - 1);
+    else if (n_kt > 1) step(std::integral_constant<int, 16>(), n_kt - 1);
+    if (++vs == kVitStagesV) {
+      vs = 0;
+      vph ^= 1;
+    }
+
+    // epilogue: O += P V of the last key tile (one k-step for the n16 form)
+    mbar_wait(&v_full[prev], prev_ph);
+    wgmma_fence();
+    if (narrow) issue_pv<1>(o, pa, dV + prev * kStageDesc);
+    else issue_pv(o, pa, dV + prev * kStageDesc);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(o);
+    fence_regs(pa);
+    mbar_arrive(&v_empty[prev]);
+    mbar_arrive(&q_empty[buf]);
+    store_rows(o, l, m2, ob, a.o_ss, nullptr, row_lo, a.sq, t);
+  }
+}
+
+template <bool CAUSAL, bool SEG>
+inline int launch_fwd_sm90(const FwdMaps& maps, const FwdArgs& a, cudaStream_t stream) {
+  auto kernel = flash_fwd_sm90_kernel<64, CAUSAL, SEG>;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kFwdSmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int grid = (a.sq + kFwdM - 1) / kFwdM * a.heads * a.batch;
+  kernel<<<grid, kFwdThreads, kFwdSmem, stream>>>(maps, a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace gar
+
+// Kernel B. q (batch, sq, heads, 64), k/v (batch, sk, kv_heads, 64) bf16
+// through element strides (batch, sequence, head), the head dim contiguous;
+// o written through its strides; lse (batch, heads, sq) fp32 or nullptr;
+// seg (batch, s) int32 with seg_tiles, each 128-row tile's [min, max] id
+// (batch, ceil(s / 128), 2), or nullptr. Tensor maps are encoded per call.
+extern "C" int gar_flash_attention(
+    const void* q, const void* k, const void* v, void* o, void* lse, const void* seg,
+    const void* seg_tiles, int batch, int sq, int sk, int heads, int kv_heads, int head_dim,
+    int causal,
+    long long q_sb, long long q_ss, long long q_sh,
+    long long k_sb, long long k_ss, long long k_sh,
+    long long v_sb, long long v_ss, long long v_sh,
+    long long o_sb, long long o_ss, long long o_sh,
+    float scale, void* stream) {
+  if (head_dim != 64 || kv_heads <= 0 || heads % kv_heads != 0 || batch <= 0 || sq <= 0 ||
+      sk <= 0 || (causal && sk < sq) || (seg && (sq != sk || !seg_tiles)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  gar::FwdMaps maps;
+  int err = gar::encode_rows(&maps.q, q, false, sq, heads, batch, q_sb, q_ss, q_sh, gar::kFwdM);
+  if (!err)
+    err = gar::encode_rows(&maps.k, k, false, sk, kv_heads, batch, k_sb, k_ss, k_sh, gar::kFwdN);
+  if (!err)
+    err = gar::encode_rows(&maps.v, v, false, sk, kv_heads, batch, v_sb, v_ss, v_sh, gar::kFwdN);
+  if (err) return err;
+  gar::FwdArgs a;
+  a.seg = static_cast<const int*>(seg);
+  a.seg_tiles = static_cast<const int*>(seg_tiles);
+  a.cos = a.sin = nullptr;
+  a.o = static_cast<gar::bf16*>(o);
+  a.lse = static_cast<float*>(lse);
+  a.o_sb = o_sb;
+  a.o_ss = o_ss;
+  a.o_sh = o_sh;
+  a.batch = batch;
+  a.sq = sq;
+  a.sk = sk;
+  a.heads = heads;
+  a.group = heads / kv_heads;
+  a.q_offset = sk - sq;
+  a.scale = scale;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (causal) return seg ? gar::launch_fwd_sm90<true, true>(maps, a, st)
+                         : gar::launch_fwd_sm90<true, false>(maps, a, st);
+  return seg ? gar::launch_fwd_sm90<false, true>(maps, a, st)
+             : gar::launch_fwd_sm90<false, false>(maps, a, st);
+}
+
+// Kernel E. qkv (tiles, seq, 3 * heads * 64) bf16, contiguous: q of head h
+// at column 64 h, k at D + 64 h, v at 2D + 64 h (D = heads * 64), read as
+// one map (64, seq, 3 heads, tiles) with a row stride of 3D; cos/sin fp32
+// (heads, seq, 64), contiguous, identity CLS rows; o (tiles, seq, D).
+// seq <= 1152: a CTA keeps the head's whole roped K in shared memory.
+extern "C" int gar_vit_attention_fused_qkv(
+    const void* qkv, const void* cos, const void* sin, void* o,
+    int tiles, int seq, int heads, int head_dim, float scale, void* stream) {
+  if (head_dim != 64 || tiles <= 0 || seq <= 0 || heads <= 0 ||
+      seq > gar::kVitMaxKT * gar::kFwdN)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long dm = static_cast<long long>(heads) * head_dim;
+  CUtensorMap map;
+  const int err = gar::encode_rows(&map, qkv, false, seq, 3 * heads, tiles, seq * 3 * dm,
+                                   3 * dm, head_dim, gar::kFwdM);
+  if (err) return err;
+  gar::FwdArgs a;
+  a.seg = a.seg_tiles = nullptr;
+  a.cos = static_cast<const float*>(cos);
+  a.sin = static_cast<const float*>(sin);
+  a.o = static_cast<gar::bf16*>(o);
+  a.lse = nullptr;
+  a.o_sb = seq * dm;
+  a.o_ss = dm;
+  a.o_sh = head_dim;
+  a.batch = tiles;
+  a.sq = a.sk = seq;
+  a.heads = heads;
+  a.group = 1;
+  a.q_offset = 0;
+  a.scale = scale;
+  const cudaError_t attr = cudaFuncSetAttribute(
+      gar::vit_fwd_rope_sm90_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, gar::kVitSmem);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const int n_qt = (seq + gar::kFwdM - 1) / gar::kFwdM;
+  const int parts = (n_qt + gar::kVitQPerCta - 1) / gar::kVitQPerCta;
+  gar::vit_fwd_rope_sm90_kernel<<<parts * heads * tiles, gar::kFwdThreads, gar::kVitSmem,
+                                  static_cast<cudaStream_t>(stream)>>>(map, a);
+  return static_cast<int>(cudaGetLastError());
+}

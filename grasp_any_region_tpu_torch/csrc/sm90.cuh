@@ -19,6 +19,7 @@
 #pragma once
 
 #include <cuda.h>  // CUtensorMap; the driver's encoder is looked up at run time
+#include <cudaTypedefs.h>
 
 #include "common.cuh"
 
@@ -134,6 +135,13 @@ __device__ __forceinline__ void bar_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
+// 2^x by the SFU (ex2.approx.ftz: ~2 ulp; 2^-inf = 0).
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
 // Four 8x8 b16 matrices, each thread holding mma fragment (row lane / 4,
 // cols 2 (lane % 4), +1) of matrix i in r[i], stored transposed: matrix
 // i's column j becomes the 16-byte memory row whose address lane 8 i + j
@@ -236,7 +244,73 @@ __device__ __forceinline__ void wgmma_m64n32k16_ss(float (&d)[16], uint64_t a, u
       : "l"(a), "l"(b), "r"(accumulate), "n"(TA), "n"(TB));
 }
 
+// D(64 x 16, fp32) (+)= A(64 x 16) B(16 x 16), both from shared memory.
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_m64n16k16_ss(float (&d)[8], uint64_t a, uint64_t b,
+                                                   int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, %11, %12;\n}\n"
+      : GAR_ACC8(d, 0)
+      : "l"(a), "l"(b), "r"(accumulate), "n"(TA), "n"(TB));
+}
+
+// D(64 x 128, fp32) (+)= A(64 x 16) B(16 x 128), both from shared memory;
+// d[j*4 + r*2 + c] = D[16 w + g + 8 r][8 j + 2 t + c], j < 16.
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t a, uint64_t b,
+                                                    int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, %67, %68;\n}\n"
+      : GAR_ACC8(d, 0), GAR_ACC8(d, 8), GAR_ACC8(d, 16), GAR_ACC8(d, 24), GAR_ACC8(d, 32),
+        GAR_ACC8(d, 40), GAR_ACC8(d, 48), GAR_ACC8(d, 56)
+      : "l"(a), "l"(b), "r"(accumulate), "n"(TA), "n"(TB));
+}
+
 #undef GAR_ACC8
 
 }  // namespace sm90
+
+// A (batch, rows, heads, 64) operand (bf16, or an fp32 workspace) with
+// element strides (sb, ss, sh) as a 4D TMA map (64, rows, heads, batch),
+// boxes of (128 bytes of columns, box_rows, 1, 1), 128-byte swizzle.
+// Encoded on the host through the driver's entry point (no -lcuda).
+// Returns 0, or a negative code when the driver refuses (TMA needs a
+// 16-byte aligned base and strides that are multiples of 16 bytes).
+inline int encode_rows(CUtensorMap* map, const void* base, bool fp32, int rows, int heads,
+                       int batch, long long sb, long long ss, long long sh, int box_rows) {
+  static PFN_cuTensorMapEncodeTiled_v12000 encode = nullptr;
+  if (encode == nullptr) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found) !=
+            cudaSuccess ||
+        found != cudaDriverEntryPointSuccess || fn == nullptr)
+      return -1;
+    encode = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(fn);
+  }
+  const cuuint64_t elem = fp32 ? 4 : 2;
+  const cuuint64_t dims[4] = {64, static_cast<cuuint64_t>(rows), static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(batch)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(ss) * elem,
+                                 static_cast<cuuint64_t>(sh) * elem,
+                                 static_cast<cuuint64_t>(sb) * elem};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(128 / elem),
+                             static_cast<cuuint32_t>(box_rows), 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult res = encode(
+      map, fp32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+      const_cast<void*>(base), dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? 0 : -1000 - static_cast<int>(res);
+}
+
 }  // namespace gar

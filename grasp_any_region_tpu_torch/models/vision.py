@@ -37,7 +37,7 @@ from ..core.weights import ParamGroup, add_param
 from ..ops.norms import layer_norm
 from ..ops.rope import (apply_rope_2d_tshd, axial_rope_angles, mixed_rope_angles,
                         rope_head_tables)
-from ..ops.vit_attention import vit_attention_df, vit_attention_fused_qkv
+from ..ops.vit_attention import E_MAX_SEQ, vit_attention_df, vit_attention_fused_qkv
 from ..ops.vit_block import vit_ln_qkv, vit_mlp_residual, vit_wo_residual
 
 
@@ -185,13 +185,16 @@ def vision_forward(
     fused_blocks: run each layer as the four fused kernels. None = auto, as
     the JAX package decides it with "on the TPU" read as "on a CUDA tensor":
     on for head_dim 64, an even head count and rope (so gar_1b on the card
-    is fused and gar_8b, head_dim 96, is not), and off under remat. True on
-    a CPU tensor runs the kernels' plain versions."""
+    is fused and gar_8b, head_dim 96, is not), and off under remat. Off too
+    past kernel E's E_MAX_SEQ tokens a tile, which it keeps in shared memory
+    (gar_1b has 1025). True on a CPU tensor runs the kernels' plain
+    versions."""
     x, angles = vision_embed(params, cfg, pixel_values, mask_embeds,
                              compute_dtype=compute_dtype)
     if fused_blocks is None:
         fused_blocks = (not remat and x.device.type == "cuda" and cfg.head_dim == 64
-                        and cfg.num_heads % 2 == 0 and cfg.use_rope)
+                        and cfg.num_heads % 2 == 0 and cfg.use_rope
+                        and x.shape[1] <= E_MAX_SEQ)
     if fused_blocks and angles is None:
         raise ValueError("the fused ViT block needs rope (use_rope=True)")
     if fused_blocks and torch.is_grad_enabled() and any(

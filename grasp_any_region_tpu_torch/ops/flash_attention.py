@@ -4,13 +4,16 @@ and `flash_attention_df`, its differentiable form with kernels 17 and 18
 
 Replaces `grasp_any_region_tpu/ops/flash_attention.py:flash_attention`
 (`_flash_kernel`). On the TPU one program holds a whole K/V head in VMEM
-and the grid runs in order; the CUDA kernel (csrc/flash_attention.cu, body
-in csrc/flash_tile.cuh) gives each block 64 query rows and streams 64-key
-tiles through shared memory. At the prefill's ~4.7k tokens it is bound by
-the two tensor-core products (~2*2*Sq*Sk*D flops per head, halved by the
-causal mask), so it skips K tiles wholly above the diagonal, maps a query
-head to its kv head by index (no repeated K/V) and reads (B, S, H, D)
-through strides with no transpose copies.
+and the grid runs in order; the CUDA kernel (csrc/flash_forward_sm90.cu)
+gives each CTA 128 query rows and streams 128-key K/V tiles through a
+three-stage TMA ring, with both products on wgmma (S = Q K^T from shared
+memory, O += P V with P in registers); each of two consumer warpgroups
+runs its softmax of one key tile under its PV product of the last. At
+the prefill's ~4.7k tokens it is bound by the two products (~2*2*Sq*Sk*D
+flops per head, halved by the causal mask), so it skips K tiles wholly
+above the diagonal, maps a query head to its kv head by index (no
+repeated K/V) and reads (B, S, H, D) through strides (TMA tensor maps
+encoded per call) with no transpose copies.
 
 Supported: causal with the right-aligned `q_offset = Sk - Sq`, or full
 attention; keys past Sk are masked by bounds. For training, the kernel
@@ -36,6 +39,8 @@ from .attention import NEG_INF
 
 launches = 0  # kernel launches since the last reset (chip_smoke.py reads it)
 launches_segments = 0  # of those, launches with segment ids
+
+FWD_TILE = 128  # query rows and keys per tile of kernel B (its segment-skip granularity)
 
 
 def attention_mask(sq: int, sk: int, causal: bool, segment_ids: Optional[torch.Tensor],
@@ -101,6 +106,26 @@ def segment_tiles(seg: torch.Tensor, tile: int = 64) -> torch.Tensor:
     return torch.stack([rows.amin(-1), rows.amax(-1)], dim=-1).contiguous()
 
 
+def check_operands(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool) -> None:
+    """Raise unless kernel B can read q (B, Sq, H, 64) and k, v (B, Sk, K,
+    64) as they are: bf16 on one device, H % K == 0, Sk >= Sq when causal,
+    and a layout its TMA maps take (`_build.check_operand`: unit head-dim
+    stride, other strides multiples of 16 bytes, 16-byte aligned data).
+    Nothing is copied to fix a layout."""
+    b, sq, h, d = q.shape
+    _, sk, kh, _ = k.shape
+    if k.shape[0] != b or k.shape[3] != d or v.shape != k.shape or h % kh:
+        raise ValueError(f"bad shapes: q {q.shape}, k {k.shape}, v {v.shape}")
+    if d != 64:
+        raise ValueError(f"kernel B is built for head_dim 64, got {d}")
+    if causal and sk < sq:
+        raise ValueError(f"causal attention needs Sk >= Sq, got {sk} < {sq}")
+    for x, name in ((q, "q"), (k, "k"), (v, "v")):
+        if x.device != q.device:
+            raise ValueError(f"{name} is on {x.device}, q on {q.device}")
+        _build.check_operand(x, name)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True,
                     segment_ids: Optional[torch.Tensor] = None,
@@ -116,23 +141,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if needs_grad(q, k, v):
         raise RuntimeError("kernel B has no backward of its own: call flash_attention_df "
                            "where a gradient is needed")
+    check_operands(q, k, v, causal)
     b, sq, h, d = q.shape
     _, sk, kh, _ = k.shape
-    if k.shape[0] != b or k.shape[3] != d or v.shape != k.shape or h % kh:
-        raise ValueError(f"bad shapes: q {q.shape}, k {k.shape}, v {v.shape}")
-    if d != 64:
-        raise ValueError(f"kernel B is built for head_dim 64, got {d}")
-    if causal and sk < sq:
-        raise ValueError(f"causal attention needs Sk >= Sq, got {sk} < {sq}")
-    for x, name in ((q, "q"), (k, "k"), (v, "v")):
-        if x.device != q.device:
-            raise ValueError(f"{name} is on {x.device}, q on {q.device}")
-        _build.check_operand(x, name)
     seg, tiles = segment_ids, None
     if seg is not None:
         if seg.device != q.device:
             raise ValueError(f"segment ids are on {seg.device}, q on {q.device}")
-        tiles = segment_tiles(seg)
+        tiles = segment_tiles(seg, FWD_TILE)
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device) if return_lse else None
     lib = _build.library()

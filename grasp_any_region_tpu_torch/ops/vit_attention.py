@@ -17,10 +17,14 @@ tile from L2); it reads q, k and v through strides, so the views of the
 fused qkv buffer need no head-major copies, and masks keys past S by bounds
 instead of padding S to 1152.
 
-Kernel E replaces `vit_attention_fused_qkv` (`_fused_qkv_kernel`): the
-same tile with q/k/v as strided views of the qkv buffer and rope on q and k
-while they are staged into shared memory (csrc/vit_attention.cu). The TPU
-kernel's head-pair (128-lane) layout is not needed: E reads per head.
+Kernel E replaces `vit_attention_fused_qkv` (`_fused_qkv_kernel`): kernel
+B's Hopper forward (csrc/flash_forward_sm90.cu: wgmma products, TMA loads,
+two consumer warpgroups) reading q, k and v out of the qkv buffer through
+one TMA map, with rope applied on the card's tiles in shared memory. Rope
+reads fp32 tables, twice K's bytes, so a CTA keeps a head's whole roped K
+(S <= 1152) and walks five 128-row query tiles against it: both
+consumer warpgroups rope K first, each ropes its own Q rows. The TPU kernel's head-pair (128-lane) layout
+is not needed: E reads per head.
 
 Kernel 5 replaces `vit_attention_bwd_onepass` (`_vit_bwd_kernel`), whose
 program keeps a whole head's K, V and (S, D) fp32 dk/dv sums in VMEM, four
@@ -51,6 +55,8 @@ from .rope import rotate_half
 launches = 0  # kernel A launches since the last reset (chip_smoke.py reads it)
 launches_fused = 0  # kernel E launches
 launches_bwd = 0  # kernel 5 launches
+
+E_MAX_SEQ = 9 * 128  # kernel E's longest sequence (the ViT's is 1025)
 
 
 def vit_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -183,6 +189,31 @@ def vit_attention_fused_qkv_plain(qkv: torch.Tensor, cos: torch.Tensor, sin: tor
     return vit_attention_plain(rope(q), rope(k), v).reshape(t, s, num_heads * head_dim)
 
 
+def check_fused_qkv(qkv: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor, num_heads: int,
+                    head_dim: int) -> None:
+    """Raise unless kernel E can read qkv as it is: a contiguous bfloat16
+    (T, S, 3 * H * 64) buffer (one TMA map (64, S, 3H, T), row stride 3D,
+    16-byte aligned) with S <= 1152 (a CTA keeps a head's whole roped K in
+    shared memory: 9 tiles of 128 keys), and (H, S, 64) cos/sin tables on
+    its device (E reads them as contiguous fp32; other tables are copied
+    once by the wrapper)."""
+    t, s, n3 = qkv.shape
+    if n3 != 3 * num_heads * head_dim or head_dim != 64:
+        raise ValueError(f"kernel E takes (T, S, 3 * H * 64), got {tuple(qkv.shape)} with "
+                         f"{num_heads} heads of {head_dim}")
+    if s > E_MAX_SEQ:
+        raise ValueError(f"kernel E keeps a head's roped K in shared memory: S <= {E_MAX_SEQ}, "
+                         f"got {s}")
+    if qkv.dtype != torch.bfloat16 or not qkv.is_contiguous():
+        raise TypeError(f"qkv: the kernel takes a contiguous bfloat16 tensor, got {qkv.dtype}")
+    if qkv.data_ptr() % 16:
+        raise ValueError("qkv: data must be 16-byte aligned")
+    for x, name in ((cos, "cos"), (sin, "sin")):
+        if tuple(x.shape) != (num_heads, s, head_dim) or x.device != qkv.device:
+            raise ValueError(f"{name}: shape {tuple(x.shape)} on {x.device}, expected "
+                             f"({num_heads}, {s}, {head_dim}) on {qkv.device}")
+
+
 def vit_attention_fused_qkv(qkv: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
                             num_heads: int, head_dim: int) -> torch.Tensor:
     """Kernel E. qkv (T, S, 3D): q at columns [0, D), k [D, 2D), v [2D, 3D),
@@ -190,18 +221,9 @@ def vit_attention_fused_qkv(qkv: torch.Tensor, cos: torch.Tensor, sin: torch.Ten
     Returns the token-major (T, S, D) attention output."""
     if qkv.device.type == "cpu":
         return vit_attention_fused_qkv_plain(qkv, cos, sin, num_heads, head_dim)
-    t, s, n3 = qkv.shape
-    if n3 != 3 * num_heads * head_dim or head_dim != 64:
-        raise ValueError(f"kernel E takes (T, S, 3 * H * 64), got {tuple(qkv.shape)} with "
-                         f"{num_heads} heads of {head_dim}")
-    if qkv.dtype != torch.bfloat16 or not qkv.is_contiguous():
-        raise TypeError(f"qkv: the kernel takes a contiguous bfloat16 tensor, got {qkv.dtype}")
-    tables = []
-    for x, name in ((cos, "cos"), (sin, "sin")):
-        if tuple(x.shape) != (num_heads, s, head_dim) or x.device != qkv.device:
-            raise ValueError(f"{name}: shape {tuple(x.shape)} on {x.device}, expected "
-                             f"({num_heads}, {s}, {head_dim}) on {qkv.device}")
-        tables.append(x.float().contiguous())
+    check_fused_qkv(qkv, cos, sin, num_heads, head_dim)
+    t, s, _ = qkv.shape
+    tables = [x.float().contiguous() for x in (cos, sin)]  # rope_head_tables': no copy
     out = torch.empty((t, s, num_heads * head_dim), dtype=qkv.dtype, device=qkv.device)
     err = _build.library().gar_vit_attention_fused_qkv(
         qkv.data_ptr(), tables[0].data_ptr(), tables[1].data_ptr(), out.data_ptr(), t, s,

@@ -54,21 +54,62 @@ def test_vit_attention_kernel(rnd, t, s, h):
     torch.testing.assert_close(out.float(), ref, **TOL)
 
 
+def _sized_close(got, want, name):
+    """A kernel against its plain version at a tolerance sized to the
+    output: atol a tenth of its RMS, rtol 2^-6 (two bf16 ulps). Attention
+    outputs over many keys and the gradients of 17 and 18 (against the
+    plain version that rounds p and dS to bf16 where the kernels do) have an
+    RMS of 0.05-0.5, where TOL would pass a missing key tile, query head or
+    rope."""
+    atol = want.pow(2).mean().sqrt().item() / 10
+    print(f"{name}: atol {atol:.3e}, max |diff| {(got.float() - want).abs().max().item():.3e}")
+    torch.testing.assert_close(got.float(), want, atol=atol, rtol=2.0 ** -6, msg=name)
+
+
 @pytest.mark.parametrize("b,sq,sk,h,kh,causal", [
     (1, 256, 256, 4, 2, True),
     (2, 130, 300, 4, 1, True),
     (2, 200, 333, 8, 2, False),
     (1, 300, 300, 8, 8, True),
     (1, 1, 70, 4, 4, True),
+    (1, 64, 64, 2, 1, True),
+    (2, 200, 200, 4, 4, False),
+    (2, 333, 333, 8, 2, True),
+    (1, 1025, 1025, 8, 1, True),
+    (1, 1025, 1025, 16, 16, False),
+    (1, 100, 1025, 16, 2, True),
+    (1, 4662, 4662, 32, 8, True),
+    (1, 4662, 4662, 8, 1, False),
 ])
 def test_flash_attention_kernel(rnd, b, sq, sk, h, kh, causal):
+    """Kernel B (csrc/flash_forward_sm90.cu) at S = 64-4662, Sq < Sk, groups
+    1-8, causal and full, its output and LSE against the plain version."""
     q, k, v = rnd(b, sq, h, 64), rnd(b, sk, kh, 64), rnd(b, sk, kh, 64)
     before = fa.launches
     out = fa.flash_attention(q, k, v, causal=causal)
+    out2, lse = fa.flash_attention(q, k, v, causal=causal, return_lse=True)
     torch.cuda.synchronize()
-    assert fa.launches == before + 1
-    ref = fa.flash_attention_plain(q.float(), k.float(), v.float(), causal=causal)
+    assert fa.launches == before + 2
+    ref, ref_lse = fa.flash_attention_plain(q.float(), k.float(), v.float(), causal=causal,
+                                            return_lse=True)
     torch.testing.assert_close(out.float(), ref, **TOL)
+    _sized_close(out, ref, "out")
+    assert torch.equal(out, out2)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=1e-4)
+
+
+def test_flash_attention_kernel_reads_strided_views(rnd):
+    """q, k and v as views of one (B, S, H + 2K, 64) buffer and the output
+    as a view: the tensor maps take the strides, nothing is copied."""
+    b, s, h, kh = 2, 777, 8, 2
+    buf = rnd(b, s, h + 2 * kh, 64)
+    q, k, v = buf[:, :, :h], buf[:, :, h:h + kh], buf[:, :, h + kh:]
+    out, lse = fa.flash_attention(q, k, v, causal=True, return_lse=True)
+    torch.cuda.synchronize()
+    ref, ref_lse = fa.flash_attention_plain(q.float(), k.float(), v.float(), causal=True,
+                                            return_lse=True)
+    _sized_close(out, ref, "out")
+    torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=1e-4)
 
 
 @pytest.mark.parametrize("group", [1, 2, 4, 8])
@@ -113,8 +154,12 @@ def _angles(t_gen, h, n):
     return torch.rand((h, n, 32), generator=t_gen, device="cuda") * 40.0
 
 
-@pytest.mark.parametrize("t,s,h", [(2, 200, 2), (1, 65, 4), (3, 1025, 16)])
+@pytest.mark.parametrize("t,s,h", [(2, 200, 2), (1, 65, 4), (3, 1025, 16), (1, 64, 2),
+                                   (2, 333, 4), (1, 129, 3), (2, 1025, 4), (1, 257, 8),
+                                   (1, 513, 2), (1, 1152, 2)])
 def test_vit_attention_fused_qkv_kernel(rnd, t, s, h):
+    """Kernel E at ragged S with mixed per-head rope angles (identity CLS
+    row), against rope in fp32 rounded to bf16, then plain attention."""
     from grasp_any_region_tpu_torch.ops.rope import rope_head_tables
 
     gen = torch.Generator(device="cuda").manual_seed(1)
@@ -126,6 +171,7 @@ def test_vit_attention_fused_qkv_kernel(rnd, t, s, h):
     assert va.launches_fused == before + 1
     ref = va.vit_attention_fused_qkv_plain(qkv.float(), cos, sin, h, 64)
     torch.testing.assert_close(out.float(), ref, **TOL)
+    _sized_close(out, ref, "out")
 
 
 def _block_args(rnd, d, m, layer_scale=True):
@@ -474,17 +520,6 @@ def _documents(b, s, ends):
     return seg.cuda()
 
 
-def _sized_close(got, want, name):
-    """Kernels 17 and 18 against the plain version (p and dS rounded to
-    bf16 where the kernels round them) at a tolerance sized to the output:
-    atol a tenth of its RMS, rtol 2^-6 (two bf16 ulps). Their outputs have
-    an RMS of 0.05-0.5, where TOL would pass a missing key tile or query
-    head."""
-    atol = want.pow(2).mean().sqrt().item() / 10
-    print(f"{name}: atol {atol:.3e}, max |diff| {(got.float() - want).abs().max().item():.3e}")
-    torch.testing.assert_close(got.float(), want, atol=atol, rtol=2.0 ** -6, msg=name)
-
-
 @pytest.mark.parametrize("b,sq,sk,h,kh,causal,packed", [
     (1, 256, 256, 4, 2, True, False),
     (2, 130, 300, 4, 1, True, False),
@@ -497,6 +532,8 @@ def _sized_close(got, want, name):
     (1, 100, 333, 2, 1, True, False),
     (1, 333, 333, 8, 4, True, (100, 129, 250)),
     (2, 520, 520, 8, 1, True, (64, 127, 130, 300, 511)),
+    (1, 1025, 1025, 8, 2, True, (127, 128, 129, 600, 1000)),
+    (1, 700, 700, 4, 1, False, (255, 256, 257, 640)),
 ])
 def test_flash_attention_lse_segments_and_backward_kernels(rnd, b, sq, sk, h, kh, causal,
                                                            packed):

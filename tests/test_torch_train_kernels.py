@@ -2,7 +2,7 @@
 Pallas kernels in interpret mode, in fp32 on the CPU: kernel B's LSE and
 segment-id forward (`flash_attention_plain`), kernels 17 and 18
 (`flash_attention_bwd_plain`; 17's prep `bwd_delta` against JAX's delta;
-the segment-tile skip at B's 64 and 18's 128 keys), kernel A's LSE and
+the segment-tile skip at 64 and 18's 128 keys), kernel A's LSE and
 kernel 5
 (`vit_attention_bwd_plain`), and the autograd pairs `flash_attention_df`
 and `vit_attention_df` against autograd through the plain forward.
@@ -199,10 +199,11 @@ _SKIP_CASES = [pytest.param(s, 64, id=str(s)) for s in (256, 300, 1000)] + [
 
 @pytest.mark.parametrize("s,key_tile", _SKIP_CASES)
 def test_segment_tile_skip_keeps_every_equal_id_pair(s, key_tile):
-    """The kernels skip a (64-row query tile, key tile) pair whose [min,
-    max] segment-id ranges (`segment_tiles`) are disjoint: B at 64 keys a
-    tile, 18 at 128 (`flash_backward.BWD_KEY_TILE`). That is exact: no
-    skipped pair holds two equal ids; and it does prune."""
+    """The kernels skip a (query tile, key tile) pair whose [min, max]
+    segment-id ranges (`segment_tiles`) are disjoint: 18 at 64-row query
+    tiles and 128 keys (`flash_backward.BWD_KEY_TILE`), here also at 64
+    keys; B's 128 x 128 pairs are in tests/test_torch_flash_forward.py.
+    That is exact: no skipped pair holds two equal ids; and it does prune."""
     rng = np.random.default_rng(s)
     seg = np.zeros((2, s), np.int32)
     for row in seg:
