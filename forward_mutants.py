@@ -1,18 +1,22 @@
-"""Mutants of kernels B and E (csrc/flash_forward_sm90.cu) that the checks
-must catch. Each mutant is built in its own copy of the package under
-build/copies/ (ops/_build.py builds a copy into its own build/), and two
-checks run there on the card:
+"""Mutants of kernels B and E (csrc/flash_forward_sm90.cu), F
+(csrc/gemm_sm90.cu and its main loop, csrc/gemm_sm90.cuh) and 5 (kernel
+18's non-causal pass with the folded tail, csrc/flash_backward_sm90.cu)
+that the checks must catch. Each mutant names the source it edits and is
+built in its own copy of the package under build/copies/ (ops/_build.py
+builds a copy into its own build/), and two checks run there on the card:
 
-- the forward card tests of tests/test_torch_gpu.py, each case with its
-  own verdict: a case that loses the CUDA context (a trapped kernel) ends
-  its process, and the cases after it run again in a fresh one;
+- the card tests of those kernels in tests/test_torch_gpu.py, each case
+  with its own verdict: a case that loses the CUDA context (a trapped
+  kernel) ends its process, and the cases after it run again in a fresh
+  one;
 - phase 2 of chip_smoke.py (every kernel against its plain version), which
   stops at the first check that fails and names it.
 
 A mutant that no check catches means checks too weak to see that defect.
-Run from the repository root on a machine with the card:
+Run from the repository root on a machine with the card, for every mutant
+or the named ones:
 
-    python3 forward_mutants.py
+    python3 forward_mutants.py [name ...]
 """
 
 from __future__ import annotations
@@ -26,9 +30,11 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
 COPIES = REPO / "build" / "copies"  # gitignored
-SRC = "grasp_any_region_tpu_torch/csrc/flash_forward_sm90.cu"
-MUTANTS = {  # name: [(old, new), ...] in SRC
-    "drop_last_key_tile": [
+CSRC = "grasp_any_region_tpu_torch/csrc/"
+FWD, GEMM, GEMM_LOOP, BWD = (CSRC + name for name in (
+    "flash_forward_sm90.cu", "gemm_sm90.cu", "gemm_sm90.cuh", "flash_backward_sm90.cu"))
+MUTANTS = {  # name: (source, [(old, new), ...] in it)
+    "drop_last_key_tile": (FWD, [
         # B: the causal band and the full rows lose their last key tile
         ("const int n_kt = CAUSAL ? min(n_kt_all, (a.q_offset + q0 + kFwdM - 1) / kFwdN + 1) "
          ": n_kt_all;",
@@ -36,23 +42,44 @@ MUTANTS = {  # name: [(old, new), ...] in SRC
          "+ 1) : n_kt_all) - 1);"),
         # E: the last key tile (past the first) is masked whole, so no barrier changes
         ("(s, m2, alpha, rsum, k0 + 8 * NJ > a.sk, k0, t, 0, a.sk,",
-         "(s, m2, alpha, rsum, true, k0, t, 0, kt == n_kt - 1 ? k0 : a.sk,")],
-    "no_rope_on_k": [  # E's K left unrotated
+         "(s, m2, alpha, rsum, true, k0, t, 0, kt == n_kt - 1 ? k0 : a.sk,")]),
+    "no_rope_on_k": (FWD, [  # E's K left unrotated
         ("rope_rows<3>(reinterpret_cast<uint8_t*>(sK), a.sk,",
-         "rope_rows<3>(reinterpret_cast<uint8_t*>(sK), 0 * a.sk,")],
-    "every_head_on_kv_head_0": [("const int kvh = h / a.group;", "const int kvh = 0 * h;")],
-    "segment_ids_unmasked": [("if (SEG) ok = ok && kseg[key - k0] == qseg[r];", "")],
+         "rope_rows<3>(reinterpret_cast<uint8_t*>(sK), 0 * a.sk,")]),
+    "every_head_on_kv_head_0": (FWD, [("const int kvh = h / a.group;", "const int kvh = 0 * h;")]),
+    "segment_ids_unmasked": (FWD, [("if (SEG) ok = ok && kseg[key - k0] == qseg[r];", "")]),
+    # F: x + ls * (attn @ wo + bo) loses a part
+    "f_residual_dropped": (GEMM, [("const float2 x = __bfloat1622float2(*at);",
+                                   "const float2 x = make_float2(0.f, 0.f);")]),
+    "f_layer_scale_dropped": (GEMM, [
+        ("x.x + l2.x * (acc[4 * j + 2 * r] + b2.x)", "x.x + (acc[4 * j + 2 * r] + b2.x)"),
+        ("x.y + l2.y * (acc[4 * j + 2 * r + 1] + b2.y)", "x.y + (acc[4 * j + 2 * r + 1] + b2.y)")]),
+    "f_last_k_slab_skipped": (GEMM_LOOP, [  # loaded and handed back, not multiplied
+        ("wgmma_m64n128k16_ss<0, 1>(acc, a + 2 * kk, b + 128 * kk, kb > 0 || kk > 0);",
+         "if (kb < k_slabs - 1) "
+         "wgmma_m64n128k16_ss<0, 1>(acc, a + 2 * kk, b + 128 * kk, kb > 0 || kk > 0);")]),
+    "f_last_row_tile_not_stored": (GEMM, [
+        ("tma_store_4d(&maps.out, tile_buf, 0, m0, atom0, 0);",
+         "if (tile / walk.n_tiles < walk.m_tiles - 1) "
+         "tma_store_4d(&maps.out, tile_buf, 0, m0, atom0, 0);")]),
+    # 5: the keys past the last full tile (S = 1025's one key) left out; lse ignored
+    "5_tail_dropped": (BWD, [("const bool has_tail = TAIL && k0 + kBwdK + a.tail == a.sk;",
+                              "const bool has_tail = false;")]),
+    "5_lse_not_applied": (BWD, [("l2[r] = in ? a.lse[row_base + q] * kLog2e",
+                                 "l2[r] = in ? 0.f * a.lse[row_base + q]")]),
 }
-TESTS = "flash_attention_kernel or fused_qkv_kernel or lse_segments"
+TESTS = ("flash_attention_kernel or fused_qkv_kernel or lse_segments or lse_and_backward "
+         "or wo_residual or vit_block_kernels")
 CONTEXT_LOST = ("CUDA error", "AcceleratorError", "illegal instruction",
                 "unspecified launch failure")
 PHASE2 = "import chip_smoke as c; c.phase_environment(); c.phase_kernels()"
 
 
-def make_copy(name: str, edits: list[tuple[str, str]]) -> Path:
+def make_copy(name: str, src: str, edits: list[tuple[str, str]]) -> Path:
     """The package, tests/, chip_smoke.py and pyproject.toml (so pytest's
     root is the copy) under build/copies/<name>, with each (old, new) edit
-    applied to SRC. Raises if an old text is not in SRC exactly once."""
+    applied to the source src. Raises if an old text is not in src exactly
+    once."""
     dst = COPIES / name
     shutil.rmtree(dst, ignore_errors=True)
     dst.mkdir(parents=True)
@@ -61,12 +88,12 @@ def make_copy(name: str, edits: list[tuple[str, str]]) -> Path:
         shutil.copytree(REPO / path, dst / path, ignore=ignore)
     for path in ("chip_smoke.py", "pyproject.toml"):
         shutil.copy(REPO / path, dst / path)
-    text = (dst / SRC).read_text()
+    text = (dst / src).read_text()
     for old, new in edits:
         if text.count(old) != 1:
-            raise ValueError(f"{name}: {old!r} is not in {SRC} exactly once")
+            raise ValueError(f"{name}: {old!r} is not in {src} exactly once")
         text = text.replace(old, new)
-    (dst / SRC).write_text(text)
+    (dst / src).write_text(text)
     return dst
 
 
@@ -76,7 +103,7 @@ def run(dst: Path, args: list[str], timeout: int) -> subprocess.CompletedProcess
 
 
 def card_tests(dst: Path) -> dict[str, str]:
-    """Each forward card case's verdict in the copy: passed, skipped,
+    """Each card case's verdict in the copy: passed, skipped,
     failed, or trapped (it lost the CUDA context; the cases after it run
     again)."""
     pytest = ["-m", "pytest", "--noconftest", "-p", "no:cacheprovider", "-q"]
@@ -109,9 +136,14 @@ def card_tests(dst: Path) -> dict[str, str]:
     return verdicts
 
 
-def main() -> int:
-    for name, edits in MUTANTS.items():
-        dst = make_copy(f"mutant_{name}", edits)
+def main(names: list[str]) -> int:
+    unknown = set(names) - set(MUTANTS)
+    if unknown:
+        raise SystemExit(f"unknown mutants {sorted(unknown)}; known: {list(MUTANTS)}")
+    for name, (src, edits) in MUTANTS.items():
+        if names and name not in names:
+            continue
+        dst = make_copy(f"mutant_{name}", src, edits)
         verdicts = card_tests(dst)
         counts = {v: list(verdicts.values()).count(v) for v in ("failed", "trapped", "passed", "skipped")}
         print(f"[mutant] {name}: card tests {counts}", flush=True)
@@ -128,4 +160,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

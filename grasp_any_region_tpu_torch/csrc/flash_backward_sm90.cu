@@ -31,6 +31,17 @@
 //     (the order of the adds varies); dk and dv are.
 //   Bound: the five products, 10 D flops per kept (query, key) pair and
 //   query head.
+//   TAIL (non-causal, no segment ids; kernel 5, the ViT backward at S =
+//   1025 = 8 x 128 + 1): the <= 16 keys past the last full key tile are
+//   folded into that tile's CTA, which is launched first, instead of a CTA
+//   of their own that would run every query tile's five 64-key products
+//   for one key. Its warpgroup 1 takes them at the end of each step with
+//   queries as the wgmma rows: S_t = Q K_t^T and dP_t = dO V_t^T (m64n16),
+//   P_t^T and dS_t^T stored [key][q] for dV_t^T += dO^T P_t and dK_t^T +=
+//   Q^T dS_t (64 d x 16 keys, summed in shared memory between steps so
+//   that they hold no registers through the main products: more would
+//   spill, and ptxas then serialises every wgmma), and dQ_t = dS_t K_t
+//   (one RS product) added by four more TMA reduce-adds.
 // 17 (flash_bwd_prep_kernel, flash_bwd_dq_cast_kernel): the launches
 //   around 18. Prep reads O and dO once and writes delta = rowsum(dO O)
 //   (fp32 (B, H, Sq)) and zeroes the dq workspace; cast writes
@@ -65,6 +76,20 @@ constexpr int kOffSeg = kOffDelta + kBwdStages * kBwdQ * 4;
 constexpr int kOffBar = kOffSeg + kBwdStages * kBwdQ * 4;  // full[2], empty[2], kv
 constexpr int kBwdSmem = kOffBar + 5 * 8 + 1024;  // + alignment slack
 constexpr uint32_t kTileBytes = kBwdQ * kBwdD * 2;
+// The folded tail (TAIL only): the <= 16 keys past the last full key tile,
+// taken by the CTA of that tile, queries as the wgmma rows.
+constexpr int kTailMax = 16;
+constexpr int kOffKt = (kOffBar + 5 * 8 + 1023) / 1024 * 1024;  // one 128-row K box
+constexpr int kOffVt = kOffKt + kBwdK * kBwdD * 2;               // one 128-row V box
+constexpr int kOffPt = kOffVt + kBwdK * kBwdD * 2;  // [16 tail keys][64 q] P^T
+constexpr int kOffDSt = kOffPt + kTailMax * 128;     // [16 tail keys][64 q] dS^T
+// warpgroup 1's dV_t^T, dK_t^T sums, 16 fp32 a thread, kept here between
+// steps so that they hold no registers through the main products
+constexpr int kOffTailAcc = kOffDSt + kTailMax * 128;
+// the tail's dQ (64 q x 64 d fp32) as four 128B-swizzled [32 q][32 d] boxes
+// for the TMA reduce-adds
+constexpr int kOffDqt = kOffTailAcc + 128 * 16 * 4;
+constexpr int kBwdSmemTail = kOffDqt + kBwdQ * kBwdD * 4 + 1024;
 
 struct BwdMaps {
   CUtensorMap q, k, v, dout;  // bf16 4D (D, S, head, batch), 128B swizzle
@@ -80,6 +105,7 @@ struct BwdArgs {
   bf16* dk;              // (batch, sk, kv_head, 64), contiguous
   bf16* dv;
   int batch, sq, sk, heads, kv_heads, q_offset;  // q_offset = Sk - Sq
+  int tail;       // TAIL: the keys past the last full 128-key tile (1 .. kTailMax)
   float scale;
 };
 
@@ -90,9 +116,10 @@ __device__ __forceinline__ bool bwd_pair_skipped(const BwdArgs& a, int b, int qt
   return ktab[2 * kt + 1] < qtab[2 * qt] || ktab[2 * kt] > qtab[2 * qt + 1];
 }
 
-template <bool CAUSAL, bool SEG>
+template <bool CAUSAL, bool SEG, bool TAIL>
 __global__ void __launch_bounds__(kBwdThreads, 1)
     flash_bwd_sm90_kernel(const __grid_constant__ BwdMaps maps, const BwdArgs a) {
+  static_assert(!TAIL || (!CAUSAL && !SEG), "the tail is folded without masks only");
   using namespace sm90;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sm = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
@@ -109,12 +136,15 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
 
   // heaviest first: the key tile is the slowest-varying part of the index
   const int pairs = a.kv_heads * a.batch;
-  const int kt = blockIdx.x / pairs;
+  // (TAIL: the last key tile, the heavier one with the tail, first)
+  const int kt = TAIL ? gridDim.x / pairs - 1 - blockIdx.x / pairs : blockIdx.x / pairs;
   const int kvh = blockIdx.x % pairs % a.kv_heads, b = blockIdx.x % pairs / a.kv_heads;
   const int k0 = kt * kBwdK;
   const int group = a.heads / a.kv_heads;
   const int n_qt = (a.sq + kBwdQ - 1) / kBwdQ;
   const int qt0 = CAUSAL ? max(0, k0 - a.q_offset) / kBwdQ : 0;
+  // the CTA of the last full key tile also takes the a.tail keys after it
+  const bool has_tail = TAIL && k0 + kBwdK + a.tail == a.sk;
 
   if (threadIdx.x == 0) {
     mbar_init(&full[0], 32);  // the producer warp's lanes (one with the TMA bytes)
@@ -131,9 +161,13 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
     if (threadIdx.x >= 288) return;
     const int lane = threadIdx.x & 31;
     if (lane == 0) {
-      mbar_arrive_expect_tx(kv_bar, 2 * kBwdK * kBwdD * 2);
+      mbar_arrive_expect_tx(kv_bar, (has_tail ? 4 : 2) * kBwdK * kBwdD * 2);
       tma_load_4d(sK, &maps.k, kv_bar, 0, k0, kvh, b);
       tma_load_4d(sV, &maps.v, kv_bar, 0, k0, kvh, b);
+      if (has_tail) {  // rows past Sk are zero-filled
+        tma_load_4d(sm + kOffKt, &maps.k, kv_bar, 0, k0 + kBwdK, kvh, b);
+        tma_load_4d(sm + kOffVt, &maps.v, kv_bar, 0, k0 + kBwdK, kvh, b);
+      }
     }
     int stage = 0;
     uint32_t phase = 0;
@@ -216,6 +250,27 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
   float dk[32], dv[32];
 #pragma unroll
   for (int i = 0; i < 32; ++i) dk[i] = dv[i] = 0.f;
+  // warpgroup 1 of the tail's CTA: dV_t^T, dK_t^T (64 d x 16 tail keys), 8 + 8 a thread
+  float4* tail_acc = reinterpret_cast<float4*>(sm + kOffTailAcc) + 4 * (threadIdx.x & 127);
+  auto tail_load = [&](float (&v)[8], float (&k)[8]) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const float4 x = tail_acc[i], y = tail_acc[2 + i];
+      v[4 * i] = x.x, v[4 * i + 1] = x.y, v[4 * i + 2] = x.z, v[4 * i + 3] = x.w;
+      k[4 * i] = y.x, k[4 * i + 1] = y.y, k[4 * i + 2] = y.z, k[4 * i + 3] = y.w;
+    }
+  };
+  auto tail_store = [&](const float (&v)[8], const float (&k)[8]) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      tail_acc[i] = make_float4(v[4 * i], v[4 * i + 1], v[4 * i + 2], v[4 * i + 3]);
+      tail_acc[2 + i] = make_float4(k[4 * i], k[4 * i + 1], k[4 * i + 2], k[4 * i + 3]);
+    }
+  };
+  if (TAIL && has_tail && w == 1) {
+    const float zero[8] = {};
+    tail_store(zero, zero);
+  }
 
   mbar_wait(kv_bar, 0);
   int stage = 0, it = 0;
@@ -318,7 +373,7 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
       fence_regs(dv);
       fence_regs(dk);
       fence_regs(dq);
-      mbar_arrive(&empty[stage]);
+      if (!(has_tail && w == 1)) mbar_arrive(&empty[stage]);  // the tail reads Q, dO below
 
       // dQ^T into the warpgroup's tile, then one TMA reduce-add a box into
       // the workspace rows q0 + 32 w .. + 31 (rows past Sq are skipped)
@@ -341,6 +396,100 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
         // the other buffer, written next step (after the next 256-thread
         // barrier), is free once the previous step's reduce-adds have read it
         bulk_wait_read<1>();
+      }
+      if (TAIL && has_tail && w == 1) {
+        // the tail keys, queries as the wgmma rows: S_t = Q K_t^T, dP_t = dO V_t^T
+        // (64 q x 16 keys: d[4 j + 2 r + c] = q 16 wi + g + 8 r, key 8 j + 2 t + c)
+        // (made here, so that they hold no registers through the main products)
+        const uint64_t dKtl = desc_sw128(sm + kOffKt, 16, 1024);
+        const uint64_t dVtl = desc_sw128(sm + kOffVt, 16, 1024);
+        const uint64_t dKtlm = desc_sw128(sm + kOffKt, kBwdK * kBwdD * 2, 1024);
+        const uint64_t dPtl = desc_sw128(sm + kOffPt, 16, 1024);
+        const uint64_t dDStl = desc_sw128(sm + kOffDSt, 16, 1024);
+        // stmatrix row addresses of P_t^T, dS_t^T [16 keys][64 q]: lane (m, i)
+        // gives key i + 8 (m >> 1), the 16-byte chunk of queries
+        // 16 wi + 8 (m & 1) .. + 7, swizzled by key % 8
+        const uint32_t tail_st = static_cast<uint32_t>(
+            (st_i + 8 * (st_m >> 1)) * 128 + (((2 * wi + (st_m & 1)) ^ st_i) << 4));
+        float st[8], dpt[8];
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < kBwdD / 16; ++kk)
+          wgmma_m64n16k16_ss<0, 0>(st, dQk + su + 2 * kk, dKtl + 2 * kk, kk);
+#pragma unroll
+        for (int kk = 0; kk < kBwdD / 16; ++kk)
+          wgmma_m64n16k16_ss<0, 0>(dpt, dOk + su + 2 * kk, dVtl + 2 * kk, kk);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(st);
+        fence_regs(dpt);
+        uint32_t pf[4], df[4];  // A fragments of P_t, dS_t: (j, r) = (0, 0), (0, 1), (1, 0), (1, 1)
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const int ql = 16 * wi + g + 8 * r;
+            float pv[2], ds[2];
+#pragma unroll
+            for (int c = 0; c < 2; ++c) {
+              const int i = 4 * j + 2 * r + c;
+              pv[c] = 8 * j + 2 * t + c < a.tail ? exp2f(st[i] * sl2 - lse2[ql]) : 0.f;
+              ds[c] = pv[c] * (dpt[i] - dl[ql]);
+            }
+            pf[2 * j + r] = pack_bf16x2(pv[0], pv[1]);
+            df[2 * j + r] = pack_bf16x2(ds[0], ds[1]);
+          }
+        // P_t^T, dS_t^T as [16 keys][64 q], the B operands of dV_t^T and dK_t^T
+        stmatrix_x4_trans(smem_addr(sm + kOffPt) + tail_st, pf);
+        stmatrix_x4_trans(smem_addr(sm + kOffDSt) + tail_st, df);
+        fence_proxy_async();
+        bar_sync(4, 128);
+        // dV_t^T += dO^T P_t, dK_t^T += Q^T dS_t (64 d x 16 keys; dO, Q MN-major);
+        // dQ_t = dS_t K_t (64 q x 64 d; K_t MN-major)
+        float dqt[32], dvt[8], dkt[8];
+#pragma unroll
+        for (int i = 0; i < 32; ++i) dqt[i] = 0.f;
+        tail_load(dvt, dkt);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_m64n16k16_ss<1, 0>(dvt, dOm + su + 128 * kk, dPtl + 2 * kk, 1);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_m64n16k16_ss<1, 0>(dkt, dQm + su + 128 * kk, dDStl + 2 * kk, 1);
+        wgmma_m64n64k16_rs<1>(dqt, df, dKtlm);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(dvt);
+        fence_regs(dkt);
+        fence_regs(dqt);
+        mbar_arrive(&empty[stage]);
+        tail_store(dvt, dkt);
+        // dQ_t into its four boxes (q half, d half), then one TMA reduce-add
+        // a box into the workspace rows q0 .. q0 + 63 (rows past Sq skipped).
+        // The previous step's adds have read the boxes: the issuer waited
+        // for them before the barrier above.
+        const uint32_t dqt_base = smem_addr(sm + kOffDqt);
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const int ql = 16 * wi + g + 8 * r, dl = 8 * j + 2 * t;
+            const uint32_t addr = dqt_base + ((ql >> 5) * 2 + (dl >> 5)) * 4096 + (ql & 31) * 128 +
+                                  ((((dl & 31) >> 2) ^ (ql & 7)) << 4) + (dl & 3) * 4;
+            asm volatile("st.shared.v2.f32 [%0], {%1, %2};\n" ::"r"(addr),
+                         "f"(dqt[4 * j + 2 * r]), "f"(dqt[4 * j + 2 * r + 1])
+                         : "memory");
+          }
+        fence_proxy_async();
+        bar_sync(4, 128);
+        if (issuer) {
+#pragma unroll
+          for (int box = 0; box < 4; ++box)
+            tma_reduce_add_4d(&maps.dq, sm + kOffDqt + box * 4096, 32 * (box & 1),
+                              q0 + 32 * (box >> 1), h, b);
+          bulk_commit();
+        }
       }
       if (++stage == kBwdStages) {
         stage = 0;
@@ -365,6 +514,18 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
       *reinterpret_cast<uint32_t*>(a.dk + o) =
           pack_bf16x2(dk[4 * j + 2 * r] * a.scale, dk[4 * j + 2 * r + 1] * a.scale);
       *reinterpret_cast<uint32_t*>(a.dv + o) = pack_bf16x2(dv[4 * j + 2 * r], dv[4 * j + 2 * r + 1]);
+    }
+  }
+  if (TAIL && has_tail && w == 1) {  // the tail keys: dK_t^T, dV_t^T rows d, columns key
+    float dvt[8], dkt[8];
+    tail_load(dvt, dkt);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int key = k0 + kBwdK + 8 * (i >> 2) + 2 * t + (i & 1);
+      if (key >= a.sk) continue;
+      const long long o = base + key * kv_ss + 16 * wi + g + 8 * ((i >> 1) & 1);
+      a.dk[o] = __float2bfloat16(dkt[i] * a.scale);
+      a.dv[o] = __float2bfloat16(dvt[i]);
     }
   }
 }
@@ -415,14 +576,16 @@ __global__ void __launch_bounds__(256) flash_bwd_dq_cast_kernel(const float* __r
                  pack_bf16x2(y.x * scale, y.y * scale), pack_bf16x2(y.z * scale, y.w * scale));
 }
 
-template <bool CAUSAL, bool SEG>
+template <bool CAUSAL, bool SEG, bool TAIL = false>
 inline int launch_bwd_sm90(const BwdMaps& maps, const BwdArgs& a, cudaStream_t stream) {
-  const cudaError_t err = cudaFuncSetAttribute(flash_bwd_sm90_kernel<CAUSAL, SEG>,
+  constexpr int smem = TAIL ? kBwdSmemTail : kBwdSmem;
+  const cudaError_t err = cudaFuncSetAttribute(flash_bwd_sm90_kernel<CAUSAL, SEG, TAIL>,
                                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                               kBwdSmem);
+                                               smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int grid = (a.sk + kBwdK - 1) / kBwdK * a.kv_heads * a.batch;
-  flash_bwd_sm90_kernel<CAUSAL, SEG><<<grid, kBwdThreads, kBwdSmem, stream>>>(maps, a);
+  const int key_tiles = TAIL ? a.sk / kBwdK : (a.sk + kBwdK - 1) / kBwdK;
+  const int grid = key_tiles * a.kv_heads * a.batch;
+  flash_bwd_sm90_kernel<CAUSAL, SEG, TAIL><<<grid, kBwdThreads, smem, stream>>>(maps, a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -501,9 +664,15 @@ extern "C" int gar_flash_bwd_dkv(const void* q, const void* k, const void* v, co
   a.kv_heads = kv_heads;
   a.q_offset = sk - sq;
   a.scale = scale;
+  // a few keys past the last full tile (S = 1025 in the ViT) are folded into
+  // that tile's CTA, not given a CTA of their own that would walk every
+  // query tile for them
+  const int rem = sk % gar::kBwdK;
+  a.tail = !causal && !seg && sk > gar::kBwdK && rem <= gar::kTailMax ? rem : 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (causal) return seg ? gar::launch_bwd_sm90<true, true>(maps, a, st)
                          : gar::launch_bwd_sm90<true, false>(maps, a, st);
-  return seg ? gar::launch_bwd_sm90<false, true>(maps, a, st)
-             : gar::launch_bwd_sm90<false, false>(maps, a, st);
+  if (seg) return gar::launch_bwd_sm90<false, true>(maps, a, st);
+  return a.tail ? gar::launch_bwd_sm90<false, false, true>(maps, a, st)
+                : gar::launch_bwd_sm90<false, false>(maps, a, st);
 }

@@ -1,6 +1,5 @@
 // Online-softmax attention over one 64-row query tile: the body of kernel
-// A (non-causal ViT attention, vit_attention.cu); kernel 5
-// (flash_backward.cu) shares its row staging. Kernels B and E are in
+// A (non-causal ViT attention, vit_attention.cu). Kernels B and E are in
 // flash_forward_sm90.cu.
 //
 // One block owns 64 query rows of one (batch, head), one warp per 16 rows.
@@ -17,7 +16,8 @@
 // the v slice of the ViT's fused qkv buffer, need no transpose copy. Keys
 // past S are masked by bounds (nothing is padded).
 //
-// For the backward (flash_backward.cu), with `lse` set, each row's
+// For the backward (kernel 5: 17's prep, 18's pass and 17's cast in
+// flash_backward_sm90.cu), with `lse` set, each row's
 // log-sum-exp of the scaled logits, m + log(l) from the online state, fp32
 // (batch, head, seq).
 #pragma once

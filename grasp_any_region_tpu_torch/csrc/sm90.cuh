@@ -14,8 +14,10 @@
 // of 1024 (8 rows). Read K-major (the row is the reduction dim), each
 // 16-wide k-step starts 32 bytes further into the row; read MN-major (the
 // row is the M or N dim, transpose bit set), each k-step starts 16 rows
-// (2048 bytes) further down, and the leading byte offset (LBO) would step
-// to the next 64 columns, which a 64-wide operand never does.
+// (2048 bytes) further down. An MN-major operand wider than 64 is a row
+// of 64-column swizzle atoms (each its K rows x 128 bytes, as a TMA box
+// (64, K rows, atoms) lays them out), and the leading byte offset (LBO)
+// steps from one atom to the next: kernel F's (K, N) weight slabs.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap; the driver's encoder is looked up at run time
@@ -91,6 +93,17 @@ __device__ __forceinline__ void tma_reduce_add_4d(const CUtensorMap* map, const 
                                                   int c0, int c1, int c2, int c3) {
   asm volatile(
       "cp.reduce.async.bulk.tensor.4d.global.shared::cta.add.bulk_group "
+      "[%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_addr(src)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// Store a 4D tile of shared memory into global memory (elements outside
+// the tensor are skipped). Completes in this thread's bulk group.
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map, const void* src, int c0,
+                                             int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group "
       "[%0, {%2, %3, %4, %5}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
       "r"(smem_addr(src)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
       : "memory");
@@ -278,14 +291,13 @@ __device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t a, 
 
 }  // namespace sm90
 
-// A (batch, rows, heads, 64) operand (bf16, or an fp32 workspace) with
-// element strides (sb, ss, sh) as a 4D TMA map (64, rows, heads, batch),
-// boxes of (128 bytes of columns, box_rows, 1, 1), 128-byte swizzle.
-// Encoded on the host through the driver's entry point (no -lcuda).
-// Returns 0, or a negative code when the driver refuses (TMA needs a
-// 16-byte aligned base and strides that are multiples of 16 bytes).
-inline int encode_rows(CUtensorMap* map, const void* base, bool fp32, int rows, int heads,
-                       int batch, long long sb, long long ss, long long sh, int box_rows) {
+// A 4D tensor map (dims innermost first, byte strides of dims 1-3, box in
+// elements), 128-byte swizzle, encoded on the host through the driver's
+// entry point (no -lcuda). Returns 0, or a negative code when the driver
+// refuses (TMA needs a 16-byte aligned base and strides that are multiples
+// of 16 bytes; the strides need not grow with the dim).
+inline int encode_4d(CUtensorMap* map, const void* base, bool fp32, const cuuint64_t (&dims)[4],
+                     const cuuint64_t (&strides)[3], const cuuint32_t (&box)[4]) {
   static PFN_cuTensorMapEncodeTiled_v12000 encode = nullptr;
   if (encode == nullptr) {
     void* fn = nullptr;
@@ -296,6 +308,20 @@ inline int encode_rows(CUtensorMap* map, const void* base, bool fp32, int rows, 
       return -1;
     encode = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(fn);
   }
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult res = encode(
+      map, fp32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+      const_cast<void*>(base), dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? 0 : -1000 - static_cast<int>(res);
+}
+
+// A (batch, rows, heads, 64) operand (bf16, or an fp32 workspace) with
+// element strides (sb, ss, sh) as a 4D TMA map (64, rows, heads, batch),
+// boxes of (128 bytes of columns, box_rows, 1, 1).
+inline int encode_rows(CUtensorMap* map, const void* base, bool fp32, int rows, int heads,
+                       int batch, long long sb, long long ss, long long sh, int box_rows) {
   const cuuint64_t elem = fp32 ? 4 : 2;
   const cuuint64_t dims[4] = {64, static_cast<cuuint64_t>(rows), static_cast<cuuint64_t>(heads),
                               static_cast<cuuint64_t>(batch)};
@@ -304,13 +330,7 @@ inline int encode_rows(CUtensorMap* map, const void* base, bool fp32, int rows, 
                                  static_cast<cuuint64_t>(sb) * elem};
   const cuuint32_t box[4] = {static_cast<cuuint32_t>(128 / elem),
                              static_cast<cuuint32_t>(box_rows), 1, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  const CUresult res = encode(
-      map, fp32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-      const_cast<void*>(base), dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return res == CUDA_SUCCESS ? 0 : -1000 - static_cast<int>(res);
+  return encode_4d(map, base, fp32, dims, strides, box);
 }
 
 }  // namespace gar

@@ -9,7 +9,7 @@
 // Kernel E, the same attention with rope on the fused qkv buffer, is in
 // flash_forward_sm90.cu.
 // lse (optional, nullptr for none): the (T, H, S) fp32 row log-sum-exp
-// that the backward (kernel 5, flash_backward.cu) reads.
+// that the backward (kernel 5, on flash_backward_sm90.cu's pass) reads.
 #include "flash_tile.cuh"
 
 extern "C" int gar_vit_attention(

@@ -1,5 +1,6 @@
-// Kernels D, F and G: the GEMMs of the fused ViT block, on the shared tile
-// of gemm_tile.cuh. Activations are bf16 rows (T * S of them, the tiles of
+// Kernels D and G: the GEMMs of the fused ViT block that run on the shared
+// tile of gemm_tile.cuh (F, the output projection, is the Hopper GEMM of
+// gemm_sm90.cu). Activations are bf16 rows (T * S of them, the tiles of
 // the batch flattened; the ragged edge is masked, nothing is padded), every
 // sum is fp32, and the epilogues keep the JAX kernels' rounding points.
 //
@@ -11,9 +12,6 @@
 //    resident as the A operand while wqkv streams through. Each row's
 //    LayerNorm is recomputed once per column block (3D / 256 = 12 times at
 //    D = 1024), which is small next to the product.
-// F  replaces vit_block.py:vit_wo_residual (_wo_kernel): x + ls * (attn @ wo
-//    + bo), the branch and the residual add in fp32. Same tile as D, with a
-//    plain prologue.
 // G  replaces vit_block.py:vit_mlp_residual (_mlp_kernel):
 //    x + ls * (gelu(LayerNorm(x) @ fc1 + b1) @ fc2 + b2). The (rows, M)
 //    hidden never reaches device memory. A cluster of two blocks owns 64
@@ -30,12 +28,11 @@
 //    Each cluster starts its walk over M at its own chunk, so the clusters
 //    in flight read different weight slabs from L2 instead of all the same.
 //
-// At the main path's shapes all three are bound by L2 bandwidth more than
-// by the tensor cores: every 64-row block (cluster, for G) re-reads the
-// whole weight from L2, 64 FLOP per byte read for G and 52 for D and F.
-// This form uses mma.sync with a cp.async ring; wgmma, TMA with cluster
-// multicast of the weight slabs to more rows, and persistent blocks are the
-// way to the card's full rate.
+// At the main path's shapes both are bound by L2 bandwidth more than by
+// the tensor cores: every 64-row block (cluster, for G) re-reads the whole
+// weight from L2, 64 FLOP per byte read for G and 52 for D. This form uses
+// mma.sync with a cp.async ring; the TMA + wgmma main loop of
+// gemm_sm90.cuh, with their prologues, is the way to the card's rate.
 #include <cooperative_groups.h>
 
 #include "gemm_tile.cuh"
@@ -57,19 +54,17 @@ constexpr int kMlpStages = 3;
 constexpr int kMlpThreads = 256;  // 8 warps: 2 (rows, 32 each) x 4 (columns)
 
 struct ProjParams {
-  const bf16* a;      // (rows, K): x for D, attn for F
-  const float* ln_w;  // (K,) D only
+  const bf16* a;      // x, (rows, K)
+  const float* ln_w;  // (K,)
   const float* ln_b;
   const bf16* w;      // (K, N)
   const float* bias;  // (N,)
-  const float* ls;    // (N,) F only
-  const bf16* resid;  // (rows, N) F only
   bf16* out;          // (rows, N)
   int rows, K, N;
   float eps;
 };
 
-template <bool LN, bool RESIDUAL, int BN>
+template <int BN>
 __global__ void __launch_bounds__(kProjThreads) proj_kernel(const ProjParams p) {
   constexpr int WN = BN / 8;  // columns per warp
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -83,10 +78,8 @@ __global__ void __launch_bounds__(kProjThreads) proj_kernel(const ProjParams p) 
   cp_async_commit();
   cp_async_wait<0>();
   __syncthreads();
-  if (LN) {
-    layer_norm_rows<kProjThreads>(sA, lda, p.K, kProjBM, p.ln_w, p.ln_b, p.eps, warp, lane);
-    __syncthreads();
-  }
+  layer_norm_rows<kProjThreads>(sA, lda, p.K, kProjBM, p.ln_w, p.ln_b, p.eps, warp, lane);
+  __syncthreads();
 
   const int wm = (warp >> 3) * 32, wn = (warp & 7) * WN;
   float acc[2][WN / 8][4];
@@ -105,14 +98,8 @@ __global__ void __launch_bounds__(kProjThreads) proj_kernel(const ProjParams p) 
       for (int j = 0; j < WN / 8; ++j) {
         const int col = n0 + wn + j * 8 + 2 * t;
         const long long at = static_cast<long long>(row) * p.N + col;
-        float v0 = acc[i][j][2 * hf] + p.bias[col];
-        float v1 = acc[i][j][2 * hf + 1] + p.bias[col + 1];
-        if (RESIDUAL) {
-          const float2 x = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p.resid + at));
-          v0 = x.x + p.ls[col] * v0;
-          v1 = x.y + p.ls[col + 1] * v1;
-        }
-        *reinterpret_cast<uint32_t*>(p.out + at) = pack_bf16x2(v0, v1);
+        *reinterpret_cast<uint32_t*>(p.out + at) =
+            pack_bf16x2(acc[i][j][2 * hf] + p.bias[col], acc[i][j][2 * hf + 1] + p.bias[col + 1]);
       }
     }
   }
@@ -234,20 +221,19 @@ int launch_big_smem(Kernel kernel, dim3 grid, int threads, int smem, const Param
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool LN, bool RESIDUAL, int BN>
+template <int BN>
 int launch_proj_bn(const ProjParams& p, cudaStream_t stream) {
   const int smem = (kProjBM * (p.K + kGemmPad) + kProjStages * kProjBK * (BN + kGemmPad)) * 2;
   const dim3 grid(p.N / BN, (p.rows + kProjBM - 1) / kProjBM);
-  return launch_big_smem(proj_kernel<LN, RESIDUAL, BN>, grid, kProjThreads, smem, p, stream);
+  return launch_big_smem(proj_kernel<BN>, grid, kProjThreads, smem, p, stream);
 }
 
 // 256 columns a block where N allows (half the weight traffic per output
 // and half the LayerNorm recomputation of 128), else 128.
-template <bool LN, bool RESIDUAL>
 int launch_proj(const ProjParams& p, cudaStream_t stream) {
   if (p.K % kProjBK || p.N % 128) return static_cast<int>(cudaErrorInvalidValue);
-  if (p.N % 256 == 0) return launch_proj_bn<LN, RESIDUAL, 256>(p, stream);
-  return launch_proj_bn<LN, RESIDUAL, 128>(p, stream);
+  if (p.N % 256 == 0) return launch_proj_bn<256>(p, stream);
+  return launch_proj_bn<128>(p, stream);
 }
 
 template <int D>
@@ -277,23 +263,7 @@ extern "C" int gar_vit_ln_qkv(const void* x, const void* ln_w, const void* ln_b,
   p.K = d;
   p.N = n;
   p.eps = eps;
-  return gar::launch_proj<true, false>(p, static_cast<cudaStream_t>(stream));
-}
-
-extern "C" int gar_vit_wo_residual(const void* attn, const void* x, const void* w,
-                                   const void* bias, const void* ls, void* out, int rows, int d,
-                                   void* stream) {
-  gar::ProjParams p{};
-  p.a = static_cast<const bf16*>(attn);
-  p.w = static_cast<const bf16*>(w);
-  p.bias = static_cast<const float*>(bias);
-  p.ls = static_cast<const float*>(ls);
-  p.resid = static_cast<const bf16*>(x);
-  p.out = static_cast<bf16*>(out);
-  p.rows = rows;
-  p.K = d;
-  p.N = d;
-  return gar::launch_proj<false, true>(p, static_cast<cudaStream_t>(stream));
+  return gar::launch_proj(p, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int gar_vit_mlp_residual(const void* x, const void* ln_w, const void* ln_b,

@@ -17,7 +17,9 @@ wgmma products per (64 queries, 128 keys) pair:
   consumer warpgroups): dk and dv leave the CTA summed over the group
   (deterministic), and each pair's dq share is added into the workspace
   by TMA fp32 reduce-adds (so dq is not bit-reproducible). Bound by its
-  products.
+  products. Non-causal without segment ids (kernel 5, the ViT backward,
+  S = 1025) the <= 16 keys past the last full 128-key tile are folded
+  into that tile's CTA rather than given a CTA of their own.
 
 Nothing (Sq, Sk)-sized is stored, so memory is O(S), as the reference's
 16k training context needs. Conventions match `ops/flash_attention.py`:

@@ -28,14 +28,16 @@ is not needed: E reads per head.
 
 Kernel 5 replaces `vit_attention_bwd_onepass` (`_vit_bwd_kernel`), whose
 program keeps a whole head's K, V and (S, D) fp32 dk/dv sums in VMEM, four
-times an H100 SM's 227 KB at S = 1025. The CUDA kernel (the mma.sync
-backward body of csrc/flash_backward.cu, non-causal, one head per kv head)
-keeps the one-pass property: one block per (tile-head, 64 keys) walks the query
-tiles, each 64 x 64 p block is computed once from the saved LSE and feeds
-dv, dp, dk and dq; dk and dv stay in fp32 registers, and each block adds
-its share of dq into an fp32 workspace with red.global.add.f32, cast to
-bf16 once at the end. It is bound by its five products, 10 S^2 D flops per
-tile-head.
+times an H100 SM's 227 KB at S = 1025. On Hopper it is the non-causal
+case of the flash backward (ops/flash_backward.py, with one head per kv
+head): 17's prep (delta = rowsum(g * out) and the zeroed fp32 dq
+workspace), 18's one pass (csrc/flash_backward_sm90.cu: one CTA per
+(128 keys, head, tile) walks the 64-row query tiles through a TMA ring,
+five wgmma products a tile pair from the saved LSE, dk and dv summed in
+registers, dq added into the workspace by TMA reduce-adds) and 17's
+cast. It is bound by the five products, 10 S^2 D flops per tile-head.
+The launches count as 17 and 18 too; `launches_bwd` counts the ViT
+layer backwards that went through them.
 
 On a CPU tensor each wrapper runs its plain version; on a CUDA tensor it
 launches the kernel or raises. The raw wrappers have no backward, so on a
@@ -49,12 +51,12 @@ import torch
 
 from . import _build
 from .flash_attention import needs_grad
-from .flash_backward import bwd_delta, flash_attention_bwd_plain
+from .flash_backward import flash_attention_bwd, flash_attention_bwd_plain
 from .rope import rotate_half
 
 launches = 0  # kernel A launches since the last reset (chip_smoke.py reads it)
 launches_fused = 0  # kernel E launches
-launches_bwd = 0  # kernel 5 launches
+launches_bwd = 0  # kernel 5 calls (each one launch of 17's prep, 18 and 17's cast)
 
 E_MAX_SEQ = 9 * 128  # kernel E's longest sequence (the ViT's is 1025)
 
@@ -109,44 +111,22 @@ def vit_attention_bwd_plain(q, k, v, out, lse, g):
     return flash_attention_bwd_plain(q, k, v, out, lse, g, causal=False)
 
 
-def vit_attention_bwd_onepass(q, k, v, g, lse, delta):
-    """Kernel 5: (dq, dk, dv), (T, S, H, D) in q.dtype, from q, k, v, the
-    cotangent g, the forward's LSE and delta = rowsum(g * out), both
-    (T, H, S) fp32."""
-    t, s, h, d = q.shape
-    if k.shape != q.shape or v.shape != q.shape or g.shape != q.shape:
-        raise ValueError(f"shapes differ: q {q.shape} k {k.shape} v {v.shape} g {g.shape}")
-    if d != 64:
-        raise ValueError(f"kernel 5 is built for head_dim 64, got {d}")
-    for x, name in ((q, "q"), (k, "k"), (v, "v"), (g, "g"), (lse, "lse"), (delta, "delta")):
-        if x.device != q.device:
-            raise ValueError(f"{name} is on {x.device}, q on {q.device}")
-    for x, name in ((q, "q"), (k, "k"), (v, "v"), (g, "g")):
-        _build.check_operand(x, name)
-    for x, name in ((lse, "lse"), (delta, "delta")):
-        if tuple(x.shape) != (t, h, s) or x.dtype != torch.float32 or not x.is_contiguous():
-            raise TypeError(f"{name}: the kernel takes a contiguous fp32 ({t}, {h}, {s}) tensor")
-    dq_acc = torch.zeros((t, s, h, d), dtype=torch.float32, device=q.device)
-    dk = torch.empty((t, s, h, d), dtype=k.dtype, device=q.device)
-    dv = torch.empty((t, s, h, d), dtype=v.dtype, device=q.device)
-    err = _build.library().gar_vit_attention_bwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(), lse.data_ptr(),
-        delta.data_ptr(), dq_acc.data_ptr(), dk.data_ptr(), dv.data_ptr(), t, s, h, d,
-        _build.strides_arg(q, k, v, g), d ** -0.5, _build.stream_handle(q.device))
-    _build.check(err, "gar_vit_attention_bwd")
-    global launches_bwd
-    launches_bwd += 1
-    return dq_acc.to(q.dtype), dk, dv
-
-
 def vit_attention_bwd(q, k, v, out, lse, g):
     """(dq, dk, dv) of `vit_attention` from its saved inputs, output and
-    LSE, and the output's cotangent g: kernel 5 on a CUDA tensor, the plain
-    version on a CPU one."""
+    (T, H, S) LSE, and the output's cotangent g, all (T, S, H, D): kernel 5
+    (17's prep, 18's pass, 17's cast, non-causal) on a CUDA tensor, the
+    plain version on a CPU one. q, k, v may be strided views (v of the
+    tower's qkv buffer): 18's tensor maps take their strides."""
     if q.device.type == "cpu":
         return vit_attention_bwd_plain(q, k, v, out, lse, g)
-    g = g.contiguous()
-    return vit_attention_bwd_onepass(q, k, v, g, lse, bwd_delta(out, g))
+    if k.shape != q.shape or v.shape != q.shape or out.shape != q.shape \
+            or g.shape != q.shape:
+        raise ValueError(f"shapes differ: q {q.shape} k {k.shape} v {v.shape} out "
+                         f"{out.shape} g {g.shape}")
+    grads = flash_attention_bwd(q, k, v, out, lse, g, causal=False)
+    global launches_bwd
+    launches_bwd += 1
+    return grads
 
 
 class _VitAttention(torch.autograd.Function):

@@ -10,11 +10,16 @@ Pallas kernels (`grasp_any_region_tpu/ops/vit_block.py`, with
 
 so that no LayerNorm, bias, GELU, LayerScale or residual pass goes through
 device memory on its own, and G's (T, S, 4D) hidden never does. The CUDA
-kernels (csrc/vit_block.cu, on the GEMM tile of csrc/gemm_tile.cuh) keep
-the same rounding points: LayerNorm in fp32 rounded to bf16 before the
-product, fp32 sums, GELU in fp32 rounded to bf16 before fc2, the branch and
-the residual add in fp32, bf16 output. They take the (T, S) rows as they
-are: S need not be a multiple of 8 (the TPU kernels' block rule).
+kernels keep the same rounding points: LayerNorm in fp32 rounded to bf16
+before the product, fp32 sums, GELU in fp32 rounded to bf16 before fc2,
+the branch and the residual add in fp32, bf16 output. D and G
+(csrc/vit_block.cu) run on the mma.sync GEMM tile of csrc/gemm_tile.cuh;
+F (csrc/gemm_sm90.cu) on the Hopper main loop of csrc/gemm_sm90.cuh: a
+persistent CTA an SM, a TMA ring of (attn, wo) K-slabs, two consumer
+warpgroups on wgmma with wo read as stored, and the bias, LayerScale and
+residual applied on a shared-memory tile that TMA fills with x and
+stores back. They take the (T, S) rows
+as they are: S need not be a multiple of 8 (the TPU kernels' block rule).
 
 On a CPU tensor each wrapper runs its plain version (below, same rounding
 points in torch); on a CUDA tensor it launches the kernel or raises.
@@ -119,16 +124,37 @@ def vit_ln_qkv(x, ln_scale, ln_bias, wqkv, bqkv, *, eps: float = 1e-6):
     return out
 
 
+def check_wo_residual(attn: torch.Tensor, x: torch.Tensor, wo: torch.Tensor) -> None:
+    """Raise unless kernel F can read its operands by TMA as they are: attn
+    and x the same (..., D) bfloat16 rows, wo a (D, D) bfloat16 (K, N)
+    matrix, all three contiguous on one device with 16-byte aligned data,
+    and D a multiple of 128 (the tile takes 64-deep K slabs and 128 output
+    columns)."""
+    d = x.shape[-1]
+    if attn.shape != x.shape or tuple(wo.shape) != (d, d):
+        raise ValueError(f"kernel F takes attn and x alike and wo (D, D): attn "
+                         f"{tuple(attn.shape)}, x {tuple(x.shape)}, wo {tuple(wo.shape)}")
+    if d % 128:
+        raise ValueError(f"kernel F takes widths that are multiples of 128, got {d}")
+    for t, name in ((attn, "attn"), (x, "x"), (wo, "wo")):
+        if t.dtype != torch.bfloat16:
+            raise TypeError(f"{name}: the kernel takes bfloat16, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: must be contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: data must be 16-byte aligned")
+        if t.device != x.device:
+            raise ValueError(f"{name} is on {t.device}, x on {x.device}")
+
+
 def vit_wo_residual(attn, x, wo, bo, ls=None):
     """Kernel F: x + ls * (attn @ wo + bo). attn, x (T, S, D)."""
     if x.device.type == "cpu":
         return vit_wo_residual_plain(attn, x, wo, bo, ls)
     d = x.shape[-1]
-    if attn.shape != x.shape:
-        raise ValueError(f"attn {tuple(attn.shape)} and x {tuple(x.shape)} differ")
-    _check_tiles(d, d, "vit_wo_residual")
-    ar, xr = _rows(attn, "attn"), _rows(x, "x")
-    w = _weight(wo, x, (d, d), "wo")
+    w = wo.to(torch.bfloat16).contiguous()  # a no-op for the tower's bf16 weights
+    check_wo_residual(attn, x, w)
+    ar, xr = attn.reshape(-1, d), x.reshape(-1, d)
     b, g = _vector(bo, x, d, "bo"), _vector(ls, x, d, "ls")
     out = torch.empty_like(x)
     err = _build.library().gar_vit_wo_residual(

@@ -89,16 +89,30 @@ def test_flash_backward_plain_matches_pallas(b, sq, sk, h, kh, d, causal, segmen
         _close(a, e, err_msg=name, **GRAD)
 
 
-def test_vit_lse_and_onepass_backward_match_pallas():
-    t, s, h, d = 2, 160, 3, 32
+@pytest.mark.parametrize("t,s,h,d,fused_v", [
+    (2, 160, 3, 32, False),
+    # head dim 64, S on both sides of the 64-row query and 128-key tile edges
+    (1, 64, 2, 64, False),
+    (1, 128, 2, 64, False),
+    (1, 129, 2, 64, False),
+    (1, 257, 2, 64, False),
+    (2, 129, 2, 64, True),  # v a strided view of a (T, S, 3, H, 64) buffer, as the tower's
+])
+def test_vit_lse_and_onepass_backward_match_pallas(t, s, h, d, fused_v):
     q, k, v, g, _ = _inputs(t, s, s, h, h, d, False, seed=1)
+    v_t = _t(v)
+    if fused_v:
+        qkv = torch.zeros((t, s, 3, h, d))
+        qkv[:, :, 2] = v_t
+        v_t = qkv[:, :, 2]
+        assert v_t.stride(1) == 3 * h * d
     out_j, lse_j = jva.vit_attention(_j(q), _j(k), _j(v), return_lse=True, interpret=True)
-    out, lse = va.vit_attention(_t(q), _t(k), _t(v), return_lse=True)
+    out, lse = va.vit_attention(_t(q), _t(k), v_t, return_lse=True)
     _close(out, out_j, **OUT)
     _close(lse, lse_j, **LSE)
     ref = jva.vit_attention_bwd_onepass(_j(q), _j(k), _j(v), out_j, lse_j, _j(g),
                                         interpret=True)
-    got = va.vit_attention_bwd(_t(q), _t(k), _t(v), _t(out_j), _t(lse_j), _t(g))
+    got = va.vit_attention_bwd(_t(q), _t(k), v_t, _t(out_j), _t(lse_j), _t(g))
     for name, a, e in zip(("dq", "dk", "dv"), got, ref):
         _close(a, e, err_msg=name, **GRAD)
 

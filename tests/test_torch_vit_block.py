@@ -87,6 +87,57 @@ def test_block_kernel_plain_matches_pallas(rng, op, layer_scale, fast_gelu):
     assert _no_launches()  # a CPU tensor never launches a kernel
 
 
+@pytest.mark.parametrize("s", [127, 129])
+@pytest.mark.parametrize("layer_scale", [True, False])
+def test_wo_residual_plain_matches_pallas_across_row_tiles(rng, s, layer_scale):
+    """F's plain version at T * S rows on both sides of kernel F's 128-row
+    tile edge (254 = 128 + 126, 258 = 2 x 128 + 2)."""
+    from grasp_any_region_tpu.ops import vit_block as jvb
+
+    s_pad = s + (-s) % 8
+    x, attn = (rng.standard_normal((T, s, D)).astype(np.float32) for _ in range(2))
+    wo, bo = (rng.standard_normal(shape).astype(np.float32) * 0.05 for shape in ((D, D), (D,)))
+    ls = rng.standard_normal(D).astype(np.float32) * 0.5 if layer_scale else None
+    ref = jvb.vit_wo_residual(_pad(attn, s_pad), _pad(x, s_pad), jnp.asarray(wo),
+                              jnp.asarray(bo), None if ls is None else jnp.asarray(ls),
+                              interpret=True)
+    out = tvb.vit_wo_residual(_t(attn), _t(x), _t(wo), _t(bo), None if ls is None else _t(ls))
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref)[:, :s], **TOL)
+    assert _no_launches()
+
+
+def _wo_operands(case):
+    """CPU operands of kernel F, the (2, 129, 256) accepted ones or one
+    thing wrong with them."""
+    d = 192 if case == "width" else 256
+    attn, x = torch.zeros((2, 129, d), dtype=torch.bfloat16), torch.zeros((2, 129, d),
+                                                                          dtype=torch.bfloat16)
+    wo = torch.zeros((d, d), dtype=torch.bfloat16)
+    if case == "dtype":
+        attn = attn.float()
+    elif case == "strided":
+        x = torch.zeros((2, 129, 2 * d), dtype=torch.bfloat16)[..., :d]
+    elif case == "misaligned":  # contiguous, but 2 bytes past an aligned base
+        x = torch.zeros(x.numel() + 1, dtype=torch.bfloat16)[1:].view(x.shape)
+    elif case == "rows":
+        attn = attn[:, :128]
+    elif case == "weight":
+        wo = torch.zeros((d, d + 128), dtype=torch.bfloat16)
+    return attn, x, wo
+
+
+def test_check_wo_residual_accepts_the_towers_operands():
+    tvb.check_wo_residual(*_wo_operands("ok"))
+
+
+@pytest.mark.parametrize("case,error", [("dtype", TypeError), ("strided", ValueError),
+                                        ("misaligned", ValueError), ("width", ValueError),
+                                        ("rows", ValueError), ("weight", ValueError)])
+def test_check_wo_residual_refuses(case, error):
+    with pytest.raises(error):
+        tvb.check_wo_residual(*_wo_operands(case))
+
+
 def _angles(rng, mixed):
     """(H|1, N, d/2) rope angles of the 8 x 8 patch grid: per head (mixed,
     random learned frequencies) or one table for all heads (axial)."""

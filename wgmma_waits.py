@@ -1,4 +1,4 @@
-"""Which wgmma waits the compiler kept: the SASS of each Hopper attention
+"""Which wgmma waits the compiler kept: the SASS of each Hopper wgmma
 kernel in the built library (cuobjdump -sass), with the count of each
 WARPGROUP.DEPBAR form (`wgmma.wait_group N` compiles to DEPBAR.LE gsb0,
 N) and of WARPGROUP.ARRIVE (a wgmma.fence). A loop whose waits all read
@@ -20,7 +20,8 @@ from pathlib import Path
 
 from grasp_any_region_tpu_torch.ops import _build
 
-KERNELS = ("flash_fwd_sm90_kernel", "vit_fwd_rope_sm90_kernel", "flash_bwd_sm90_kernel")
+KERNELS = ("flash_fwd_sm90_kernel", "vit_fwd_rope_sm90_kernel", "flash_bwd_sm90_kernel",
+           "wo_residual_sm90_kernel")
 
 
 def main() -> int:
