@@ -261,7 +261,6 @@ def phase_environment():
 
 
 def phase_kernels():
-    from grasp_any_region_tpu_torch.ops import decode_attention as dec
     from grasp_any_region_tpu_torch.ops import flash_attention as fa
     from grasp_any_region_tpu_torch.ops import vit_attention as va
 
@@ -272,17 +271,28 @@ def phase_kernels():
 
     results = {}
 
-    # A: ViT attention, 17 tiles x 1025 tokens x 16 heads
-    q, k, v = rnd(17, 1025, 16, 64), rnd(17, 1025, 16, 64), rnd(17, 1025, 16, 64)
+    # A: ViT attention, 17 tiles x 1025 tokens x 16 heads, q/k/v views of
+    # the unfused block's (T, S, 3, H, 64) qkv buffer
+    qkv = rnd(17, 1025, 3, 16, 64)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
     out = va.vit_attention(q, k, v)
     torch.cuda.synchronize()
-    err = max_err(out, va.vit_attention_plain(q.float(), k.float(), v.float()), "A")
+    ref = va.vit_attention_plain(q.float(), k.float(), v.float())
+    err = max_err(out, ref, "A", **sized_tol(ref))
     results["A"] = dict(max_abs_err=err, ms=cuda_ms(lambda: va.vit_attention(q, k, v)),
                         plain_ms=cuda_ms(lambda: va.vit_attention_plain(q, k, v), iters=5),
                         library_ms=cuda_ms(lambda: sdpa(q, k, v)),
                         **bound(nbytes(q, k, v, out), 4 * 17 * 16 * 1025 ** 2 * 64))
     a_host_us = host_us(lambda: va.vit_attention(q, k, v))
-    del q, k, v, out
+    # S = 1025 is 8 x 128 + 1: a one-key ninth key tile (an n16 product) and
+    # a one-row ninth query tile (a whole CTA, 1/9 of the grid); S = 1024
+    # has neither
+    even = [x[:, 1:] for x in (q, k, v)]
+    ms_1024 = cuda_ms(lambda: va.vit_attention(*even))
+    log(f"[kernels] A (T = 17, S = 1025, 16 heads; library: SDPA): {share_line(results['A'])}; "
+        f"S = 1024 {ms_1024:.4f} ms (work (1025 / 1024)^2 = 1.002x; one key tile and one "
+        f"query tile fewer)")
+    del q, k, v, out, ref, qkv, even
 
     # B: causal prefill, 4662 tokens, 32 query heads over 8 kv heads
     q, k, v = rnd(1, 4662, 32, 64), rnd(1, 4662, 8, 64), rnd(1, 4662, 8, 64)
@@ -297,51 +307,12 @@ def phase_kernels():
         **bound(nbytes(q, k, v, out), 4 * 32 * 64 * 4662 * 4663 // 2))
     log(f"[kernels] B (prefill): {share_line(results['B'])}")
     log(f"[kernels] host time a call (enqueue, the card behind): A {a_host_us:.1f} us, B "
-        f"{host_us(lambda: fa.flash_attention(q, k, v, causal=True)):.1f} us (three TMA "
-        "maps encoded a call; A encodes none)")
+        f"{host_us(lambda: fa.flash_attention(q, k, v, causal=True)):.1f} us (each encodes "
+        "three TMA maps a call)")
     del q, k, v, out, ref
     results.update(train_kernels(rnd))
 
-    # C: decode step over layer 7 of a (16, 2, 8, 5120, 64) cache
-    layer, pad, wpos = 7, 4662, 4700
-    k_all, v_all = rnd(16, 2, 8, 5120, 64), rnd(16, 2, 8, 5120, 64)
-    q, k_new, v_new = rnd(2, 32, 64), rnd(2, 8, 64), rnd(2, 8, 64)
-    plens = torch.tensor([4662, 4000], dtype=torch.int32, device="cuda")
-    wp = torch.tensor(wpos, dtype=torch.int32, device="cuda")
-    k_ref, v_ref = k_all.clone(), v_all.clone()
-    kw = dict(prompt_lens=plens, write_pos=wp, prompt_pad=pad)
-    out = dec.decode_attention_fused(q, k_all, v_all, k_new, v_new, layer, **kw)
-    torch.cuda.synchronize()
-    ref = dec.decode_attention_fused_plain(
-        q.float(), k_ref[layer:layer + 1].float(), v_ref[layer:layer + 1].float(),
-        k_new.float(), v_new.float(), 0, **kw)
-    err = max_err(out, ref, "C")
-    if not (torch.equal(k_all[layer, :, :, wpos], k_new)
-            and torch.equal(v_all[layer, :, :, wpos], v_new)):
-        raise AssertionError("C: column write_pos does not hold the new K/V")
-    k_ref[layer, :, :, wpos], v_ref[layer, :, :, wpos] = k_new, v_new
-    if not (torch.equal(k_all, k_ref) and torch.equal(v_all, v_ref)):
-        raise AssertionError("C: the kernel changed cache entries other than column write_pos")
-    # library: SDPA with the two-interval boolean mask over the layer slab
-    # (which now holds the new column), as kernel 16's row times it
-    ids = torch.arange(k_all.shape[3], device="cuda")
-    mask = ((ids < plens[:, None]) | ((ids >= pad) & (ids <= wpos)))[:, None, None, :]
-    k_lay, v_lay, q4 = k_all[layer], v_all[layer], q[:, :, None, :]
-
-    def library():
-        return torch.nn.functional.scaled_dot_product_attention(
-            q4, k_lay, v_lay, attn_mask=mask, scale=64 ** -0.5, enable_gqa=True)
-
-    lib_gap = (library()[:, :, 0].float() - out.float()).abs().max().item()
-    results["C"] = dict(
-        max_abs_err=err,
-        ms=cuda_ms(lambda: dec.decode_attention_fused(q, k_all, v_all, k_new, v_new, layer, **kw)),
-        plain_ms=cuda_ms(lambda: dec.decode_attention_fused_plain(
-            q, k_all, v_all, k_new, v_new, layer, **kw)),
-        library_ms=cuda_ms(library), **decode_bound(q, k_all, plens.tolist(), pad, wpos))
-    log(f"[kernels] C (B = 2, layer {layer}; library: SDPA, boolean mask, enable_gqa, max "
-        f"|library - kernel| {lib_gap:.3e}): {share_line(results['C'])}")
-    del k_all, v_all, k_ref, v_ref, k_lay, v_lay, mask
+    results["C"] = decode_attention_split_kernel(rnd)
     results["16"] = decode_attention_read_kernel(rnd)
     results["24"] = layer_norm_kernel(rnd)
     results["C8"] = decode_attention_q8_kernel(rnd)
@@ -415,7 +386,8 @@ def train_kernels(rnd):
     out, lse = va.vit_attention(q, k, v, return_lse=True)
     torch.cuda.synchronize()
     ref, ref_lse = va.vit_attention_plain(q.float(), k.float(), v.float(), return_lse=True)
-    err = max(max_err(out, ref, "A (with LSE)"), max_err(lse, ref_lse, "A's LSE"))
+    err = max(max_err(out, ref, "A (with LSE)", **sized_tol(ref)),
+              max_err(lse, ref_lse, "A's LSE", atol=LSE_TOL, rtol=1e-4))
     a_ms = cuda_ms(lambda: va.vit_attention(q, k, v, return_lse=True))
     log(f"[kernels] A with its LSE: {a_ms:.4f} ms, max |kernel - plain| {err:.3e} "
         "(output and LSE)")
@@ -587,6 +559,89 @@ def interval_probe(v, plens, pad, wpos):
         for i, col in enumerate(edges):
             v[row, :, col] = 0.02 * (i + 1) * n
     return torch.zeros_like(v), v
+
+
+def decode_attention_split_kernel(rnd):
+    """Kernel C (split-KV over a cluster of CTAs) over layer 7 of a (16, B,
+    8, 5120, 64) cache, prompt_pad 4662, write_pos 4700: at B = 2 (prompt
+    lengths 4662 and 4000; the kernels line), B = 1 and B = 24 (prompt
+    lengths from 1 to prompt_pad, PLENS_24 cut at it). At each B: the
+    output against the plain version at TOL16, column write_pos holding the
+    new K/V and the rest of the cache bit-identical, then the interval probe
+    at TOL16; times: kernel, plain, bound (the valid columns' bytes) and the
+    library call, SDPA over the layer slab with enable_gqa and the
+    two-interval boolean mask (timed only; its gap to the kernel printed),
+    with the CTAs a (kv head, row) (`splits`, the cluster size)."""
+    import torch.nn.functional as F
+    from grasp_any_region_tpu_torch.ops import decode_attention as dec
+
+    layer, pad, wpos, s = 7, 4662, 4700, 5120
+    wp = torch.tensor(wpos, dtype=torch.int32, device="cuda")
+    line = None
+    for b in (2, 1, 24):
+        plens = {2: [4662, 4000], 1: [4662]}.get(b) or [min(x, pad) for x in PLENS_24]
+        plens_t = torch.tensor(plens, dtype=torch.int32, device="cuda")
+        kw = dict(prompt_lens=plens_t, write_pos=wp, prompt_pad=pad)
+        k_all, v_all = rnd(16, b, 8, s, 64), rnd(16, b, 8, s, 64)
+        q, k_new, v_new = rnd(b, 32, 64), rnd(b, 8, 64), rnd(b, 8, 64)
+        splits = dec.card_splits(b, 8, q.device)
+        err = 0.0
+        for probe in (False, True):
+            if probe:  # one column too many, too few or twice moves a row by >= 0.02
+                k0, vp = interval_probe(v_all[layer], plens, pad, wpos)
+                k_all[layer], v_all[layer], k_new = k0, vp, torch.zeros_like(k_new)
+                del k0, vp
+            k_ref, v_ref = k_all[layer].clone(), v_all[layer].clone()
+            out = dec.decode_attention_fused(q, k_all, v_all, k_new, v_new, layer, **kw)
+            torch.cuda.synchronize()
+            ref = dec.decode_attention_fused_plain(
+                q.float(), k_ref[None].float(), v_ref[None].float(), k_new.float(),
+                v_new.float(), 0, **kw)
+            label = f"C (B = {b}{', interval probe' if probe else ''})"
+            err = max(err, max_err(out, ref, label, **TOL16))
+            if not (torch.equal(k_all[layer, :, :, wpos], k_new)
+                    and torch.equal(v_all[layer, :, :, wpos], v_new)):
+                raise AssertionError(f"{label}: column write_pos does not hold the new K/V")
+            k_ref[:, :, wpos], v_ref[:, :, wpos] = k_new, v_new
+            if not (torch.equal(k_all[layer], k_ref) and torch.equal(v_all[layer], v_ref)):
+                raise AssertionError(f"{label}: the kernel changed cache entries other than "
+                                     "column write_pos")
+            del k_ref, v_ref, ref
+        # library: SDPA with the two-interval boolean mask over the layer slab
+        # (which holds the new column), as kernel 16's row times it
+        ids = torch.arange(s, device="cuda")
+        mask = ((ids < plens_t[:, None]) | ((ids >= pad) & (ids <= wpos)))[:, None, None, :]
+        k_lay, v_lay, q4 = k_all[layer], v_all[layer], q[:, :, None, :]
+
+        def library():
+            return F.scaled_dot_product_attention(q4, k_lay, v_lay, attn_mask=mask,
+                                                  scale=64 ** -0.5, enable_gqa=True)
+
+        lib_gap = (library()[:, :, 0].float() - out.float()).abs().max().item()
+        r = dict(max_abs_err=err,
+                 ms=cuda_ms(lambda: dec.decode_attention_fused(q, k_all, v_all, k_new, v_new,
+                                                                layer, **kw)),
+                 plain_ms=cuda_ms(lambda: dec.decode_attention_fused_plain(
+                     q, k_all, v_all, k_new, v_new, layer, **kw), iters=5),
+                 library_ms=cuda_ms(library), **decode_bound(q, k_all, plens, pad, wpos))
+        log(f"[kernels] C (B = {b}, layer {layer}, {splits} CTAs a (kv head, row) in a "
+            f"cluster of {splits}, {b * 8} clusters; library: SDPA, boolean mask, enable_gqa, "
+            f"max |library - kernel| {lib_gap:.3e}): {share_line(r)}; plain "
+            f"{r['plain_ms']:.4f} ms; max |kernel - plain| {err:.3e} (TOL16)")
+        chooser, sweep = dec.card_splits, {}
+        try:  # the chooser's alternatives: the kernel takes 1-16 CTAs
+            for n in (1, 2, 4, 8, 16):
+                dec.card_splits = lambda *_: n
+                sweep[n] = cuda_ms(lambda: dec.decode_attention_fused(
+                    q, k_all, v_all, k_new, v_new, layer, **kw))
+        finally:
+            dec.card_splits = chooser
+        log(f"[kernels] C (B = {b}) by CTAs a (kv head, row), ms: "
+            + ", ".join(f"{n}: {ms:.4f}" for n, ms in sweep.items()))
+        line = line or r
+        del k_all, v_all, k_lay, v_lay, mask, out
+    torch.cuda.empty_cache()
+    return line
 
 
 def decode_attention_read_kernel(rnd):
@@ -1733,11 +1788,11 @@ def phase_packed_step(cfg, state, tx):
 
 
 KERNELS = {
-    "A": ("vit_attention", "grasp_any_region_tpu_torch/csrc/vit_attention.cu",
+    "A": ("vit_attention", "grasp_any_region_tpu_torch/csrc/flash_forward_sm90.cu",
           "grasp_any_region_tpu/ops/vit_attention.py:350"),
     "B": ("flash_attention", "grasp_any_region_tpu_torch/csrc/flash_forward_sm90.cu",
           "grasp_any_region_tpu/ops/flash_attention.py:247"),
-    "C": ("decode_attention_fused", "grasp_any_region_tpu_torch/csrc/decode_attention.cu",
+    "C": ("decode_attention_fused", "grasp_any_region_tpu_torch/csrc/decode_split.cuh",
           "grasp_any_region_tpu/ops/decode_attention.py:373"),
     "D": ("vit_ln_qkv", "grasp_any_region_tpu_torch/csrc/vit_block.cu",
           "grasp_any_region_tpu/ops/vit_block.py:122"),

@@ -1,7 +1,8 @@
-"""Mutants of kernels B and E (csrc/flash_forward_sm90.cu), F
-(csrc/gemm_sm90.cu and its main loop, csrc/gemm_sm90.cuh) and 5 (kernel
+"""Mutants of kernels A, B and E (csrc/flash_forward_sm90.cu), F
+(csrc/gemm_sm90.cu and its main loop, csrc/gemm_sm90.cuh), 5 (kernel
 18's non-causal pass with the folded tail, csrc/flash_backward_sm90.cu)
-that the checks must catch. Each mutant names the source it edits and is
+and C (the split-KV body, csrc/decode_split.cuh) that the checks must
+catch. Each mutant names the source it edits and is
 built in its own copy of the package under build/copies/ (ops/_build.py
 builds a copy into its own build/), and two checks run there on the card:
 
@@ -31,8 +32,9 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parent
 COPIES = REPO / "build" / "copies"  # gitignored
 CSRC = "grasp_any_region_tpu_torch/csrc/"
-FWD, GEMM, GEMM_LOOP, BWD = (CSRC + name for name in (
-    "flash_forward_sm90.cu", "gemm_sm90.cu", "gemm_sm90.cuh", "flash_backward_sm90.cu"))
+FWD, GEMM, GEMM_LOOP, BWD, SPLIT = (CSRC + name for name in (
+    "flash_forward_sm90.cu", "gemm_sm90.cu", "gemm_sm90.cuh", "flash_backward_sm90.cu",
+    "decode_split.cuh"))
 MUTANTS = {  # name: (source, [(old, new), ...] in it)
     "drop_last_key_tile": (FWD, [
         # B: the causal band and the full rows lose their last key tile
@@ -67,18 +69,44 @@ MUTANTS = {  # name: (source, [(old, new), ...] in it)
                               "const bool has_tail = false;")]),
     "5_lse_not_applied": (BWD, [("l2[r] = in ? a.lse[row_base + q] * kLog2e",
                                  "l2[r] = in ? 0.f * a.lse[row_base + q]")]),
+    # A: the n16 last key tile (S = 1025's one key) masked whole; the one-row
+    # last query tile (S = 1025, 129) not stored; the LSE not written
+    "a_last_key_tile_skipped": (FWD, [
+        ("online_softmax<CAUSAL, SEG, NJ>(s, m2, alpha, rsum, is_masked(k0), k0, t, pos0, a.sk,",
+         "online_softmax<CAUSAL, SEG, NJ>(s, m2, alpha, rsum, is_masked(k0), k0, t, pos0, "
+         "NJ == 2 ? k0 : a.sk,")]),
+    "a_one_row_query_tile_not_stored": (FWD, [
+        ("             row_lo, a.sq, t);\n}\n\n// E:",
+         "             row_lo, a.sq % kFwdM == 1 && qt == n_qt - 1 ? 0 : a.sq, t);\n}\n\n// E:")]),
+    "a_lse_not_written": (FWD, [("if (lse_row != nullptr && t == 0)",
+                                 "if (false && lse_row != nullptr && t == 0)")]),
+    # C: the last CTA's chunk dropped; each chunk one column longer (the next
+    # chunk's first counted twice); the current token folded in twice;
+    # column write_pos left as it was
+    "c_last_chunk_dropped": (SPLIT, [
+        ("const int n_tiles = (f1 - f0 + kSplitRows - 1) / kSplitRows;",
+         "const int n_tiles = rank == splits - 1 ? 0 : (f1 - f0 + kSplitRows - 1) / kSplitRows;")]),
+    "c_chunk_edge_counted_twice": (SPLIT, [
+        ("f1 = min(total, f0 + chunk);", "f1 = min(total, f0 + chunk + 1);")]),
+    "c_current_token_twice": (SPLIT, [
+        ("float l = p_cur, acc = p_cur * __bfloat162float(vn[i % D]);",
+         "float l = 2.f * p_cur, acc = 2.f * p_cur * __bfloat162float(vn[i % D]);")]),
+    "c_write_pos_not_written": (SPLIT, [
+        ("if (rank == 0 && tid < D && wpos >= 0 && wpos < a.seq) {",
+         "if (false && rank == 0 && tid < D && wpos >= 0 && wpos < a.seq) {")]),
 }
 TESTS = ("flash_attention_kernel or fused_qkv_kernel or lse_segments or lse_and_backward "
-         "or wo_residual or vit_block_kernels")
+         "or wo_residual or vit_block_kernels or vit_attention_kernel "
+         "or decode_attention_kernel")
 CONTEXT_LOST = ("CUDA error", "AcceleratorError", "illegal instruction",
                 "unspecified launch failure")
 PHASE2 = "import chip_smoke as c; c.phase_environment(); c.phase_kernels()"
 
 
-def make_copy(name: str, src: str, edits: list[tuple[str, str]]) -> Path:
+def make_copy(name: str, edits: list[tuple[str, str, str]]) -> Path:
     """The package, tests/, chip_smoke.py and pyproject.toml (so pytest's
-    root is the copy) under build/copies/<name>, with each (old, new) edit
-    applied to the source src. Raises if an old text is not in src exactly
+    root is the copy) under build/copies/<name>, with each (source, old,
+    new) edit applied. Raises if an old text is not in its source exactly
     once."""
     dst = COPIES / name
     shutil.rmtree(dst, ignore_errors=True)
@@ -88,12 +116,11 @@ def make_copy(name: str, src: str, edits: list[tuple[str, str]]) -> Path:
         shutil.copytree(REPO / path, dst / path, ignore=ignore)
     for path in ("chip_smoke.py", "pyproject.toml"):
         shutil.copy(REPO / path, dst / path)
-    text = (dst / src).read_text()
-    for old, new in edits:
+    for src, old, new in edits:
+        text = (dst / src).read_text()
         if text.count(old) != 1:
             raise ValueError(f"{name}: {old!r} is not in {src} exactly once")
-        text = text.replace(old, new)
-    (dst / src).write_text(text)
+        (dst / src).write_text(text.replace(old, new))
     return dst
 
 
@@ -143,7 +170,7 @@ def main(names: list[str]) -> int:
     for name, (src, edits) in MUTANTS.items():
         if names and name not in names:
             continue
-        dst = make_copy(f"mutant_{name}", src, edits)
+        dst = make_copy(f"mutant_{name}", [(src, old, new) for old, new in edits])
         verdicts = card_tests(dst)
         counts = {v: list(verdicts.values()).count(v) for v in ("failed", "trapped", "passed", "skipped")}
         print(f"[mutant] {name}: card tests {counts}", flush=True)

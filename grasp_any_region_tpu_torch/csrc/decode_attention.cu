@@ -3,21 +3,24 @@
 // write_pos in place.
 //
 // Replaces grasp_any_region_tpu/ops/decode_attention.py:decode_attention_fused
-// (_fused_kernel, unpaired layout). One block per (kv head, batch row), whose
-// body is decode_tile.cuh's decode_attend. The step reads every valid cache
-// column once and does ~2 flops per byte, so it is bound by memory, not
-// arithmetic: each K and V row is read once for all G = H / K query heads,
-// the masked gap [prompt_len, prompt_pad) is never loaded, and no block
-// reads the column it writes (the TPU kernel's 8-row aligned write window,
-// a tiling artifact, is one row here). prompt_lens and write_pos are device
-// tensors read here: the decode loop never waits for the host.
+// (_fused_kernel, unpaired layout). Its body is decode_split.cuh's
+// decode_split_kernel: one thread-block cluster per (kv head, batch row),
+// its CTAs splitting the valid columns and merging over distributed shared
+// memory in one launch. The step reads every valid cache column once and
+// does ~2 flops per byte, so it is bound by memory, not arithmetic: each K
+// and V row is read once for all G = H / K query heads, the masked gap
+// [prompt_len, prompt_pad) is never loaded, and no CTA reads the column
+// that is written (the TPU kernel's 8-row aligned write window, a tiling
+// artifact, is one row here). prompt_lens and write_pos are device tensors
+// read there: the decode loop never waits for the host.
 //
-// Kernel C8, the second instantiation (T = int8_t), replaces the int8-KV
-// branch of the same JAX function (_fused_kernel_paired with kv_q8) on the
-// unpaired layout: 64-byte int8 K/V rows with one fp32 scale per (layer,
-// batch row, kv-head pair) loaded once per block. Half of C's bytes, the
-// same grid: at B = 1 both are held by having one block per (kv head, batch
-// row), not by the bytes (split-KV is later work).
+// Kernel C8 (decode_tile.cuh's decode_attend with T = int8_t, one block
+// per (kv head, batch row)) replaces the int8-KV branch of the same JAX
+// function (_fused_kernel_paired with kv_q8) on the unpaired layout: 64-byte
+// int8 K/V rows with one fp32 scale per (layer, batch row, kv-head pair)
+// loaded once per block. Half of C's bytes on C's first grid: at B = 1 it
+// is held by having one block per (kv head, batch row), not by the bytes
+// (its move onto the split body is later work).
 //
 // Kernel 16 (decode_attention_kernel) replaces
 // grasp_any_region_tpu/ops/decode_attention.py:decode_attention /
@@ -30,6 +33,7 @@
 // that block (prompt_len > write_pos + 1, outside the cache's layout) is
 // left out here as there. A layer outside [0, L) writes NaN rows instead of
 // reading outside the cache.
+#include "decode_split.cuh"
 #include "decode_tile.cuh"
 
 namespace gar {
@@ -144,14 +148,29 @@ int dispatch_decode(const DecodeArgs& a, int heads, int head_dim, cudaStream_t s
 
 }  // namespace gar
 
+// Kernel C over a cluster of `splits` CTAs (1-16; above 8, Hopper's
+// non-portable cluster sizes).
 extern "C" int gar_decode_attention_fused(
     const void* q, void* k_all, void* v_all, const void* k_new, const void* v_new,
     void* out, const void* prompt_lens, const void* write_pos,
     int layer, int batch, int heads, int kv_heads, int seq, int head_dim,
-    int prompt_pad, float scale, void* stream) {
-  const gar::DecodeArgs a{q, k_all, v_all, k_new, v_new, out, prompt_lens, write_pos,
-                          nullptr, nullptr, layer, batch, kv_heads, seq, prompt_pad, scale};
-  return gar::dispatch_decode<gar::bf16>(a, heads, head_dim, static_cast<cudaStream_t>(stream));
+    int prompt_pad, int splits, float scale, void* stream) {
+  if (head_dim != 64 || kv_heads <= 0 || heads % kv_heads != 0 || splits < 1 ||
+      splits > gar::kSplitMaxCluster)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const gar::SplitArgs a{static_cast<const gar::bf16*>(q), k_all, v_all,
+                         static_cast<const gar::bf16*>(k_new),
+                         static_cast<const gar::bf16*>(v_new), static_cast<gar::bf16*>(out),
+                         static_cast<const int*>(prompt_lens), static_cast<const int*>(write_pos),
+                         layer, batch, kv_heads, seq, prompt_pad, scale};
+  const auto s = static_cast<cudaStream_t>(stream);
+  switch (heads / kv_heads) {
+    case 1: return gar::launch_split<gar::bf16, 1>(a, splits, s);
+    case 2: return gar::launch_split<gar::bf16, 2>(a, splits, s);
+    case 4: return gar::launch_split<gar::bf16, 4>(a, splits, s);
+    case 8: return gar::launch_split<gar::bf16, 8>(a, splits, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 extern "C" int gar_decode_attention_fused_q8(

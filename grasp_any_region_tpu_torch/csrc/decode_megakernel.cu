@@ -42,7 +42,7 @@
 //    timing), adds the residual and rounds once. The barrier's count is
 //    back at 0 after the launch, so a launch can be replayed.
 //  * 22: a cluster of the K kv-head blocks of one batch row. Each asks the
-//    L2 to fetch its G * 64 rows of wo, runs kernel C's body
+//    L2 to fetch its G * 64 rows of wo, runs kernel C's one-block body
 //    (decode_tile.cuh) meanwhile, rounds a to bf16 and multiplies it by
 //    those rows with 16-byte loads on the CUDA cores; the K partials meet
 //    in distributed shared memory in rank order. At B = 1 the grid has K

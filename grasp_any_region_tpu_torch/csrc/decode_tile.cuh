@@ -1,7 +1,8 @@
 // One (kv head, batch row) of decode attention with the KV append: the body
-// of kernel C and C8 (decode_attention.cu) and of kernel 22's attention
-// (decode_megakernel.cu); with Append = false, the read-only body of kernel
-// 16 (decode_attention.cu), described at the end.
+// of kernel C8 (decode_attention.cu) and of kernel 22's attention
+// (decode_megakernel.cu), and kernel C's first form (C now splits the
+// columns over a cluster, decode_split.cuh); with Append = false, the
+// read-only body of kernel 16 (decode_attention.cu), described at the end.
 //
 // The block (kDecodeWarps warps) writes the new K/V row at column write_pos
 // of its cache slab, then streams 128-byte K rows one per lane and keeps the

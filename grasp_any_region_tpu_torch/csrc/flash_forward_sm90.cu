@@ -1,4 +1,4 @@
-// Kernels B and E: the flash attention forward (FA-2 recurrences, FA-3's
+// Kernels A, B and E: the flash attention forward (FA-2 recurrences, FA-3's
 // schedule) for Hopper.
 //
 // B replaces grasp_any_region_tpu/ops/flash_attention.py:flash_attention
@@ -7,6 +7,12 @@
 // index (kv head = h / (H / K), no repeated K/V), optional fp32 (B, H, Sq)
 // log-sum-exp for the backward and (B, S) int32 segment ids for packed
 // self-attention (Sq == Sk; equal ids only).
+// A replaces grasp_any_region_tpu/ops/vit_attention.py:vit_attention
+// (_vit_attn_kernel), which keeps a whole (S, S) logits block of a (tile,
+// head) in VMEM (4.2 MB of fp32 at S = 1025, far over a Hopper block's 227
+// KB): B's kernel, non-causal, one head per kv head, over (T, S, H, 64)
+// strided views of the unfused block's qkv buffer, with the (T, H, S) LSE
+// that kernel 5 reads.
 // E replaces grasp_any_region_tpu/ops/vit_attention.py:
 // vit_attention_fused_qkv (_fused_qkv_kernel): non-causal ViT attention
 // with q, k and v read straight out of the fused (T, S, 3D) buffer through
@@ -14,7 +20,7 @@
 // rotate_half pairs i and i + 32) applied on the card's tiles; the output
 // is token-major (T, S, D).
 //
-// Both run three warpgroups a CTA over 128-row query tiles:
+// All three run three warpgroups a CTA over 128-row query tiles:
 // - the producer: warp 0 issues the TMA loads (128-byte swizzle: a 64-wide
 //   bf16 row is one swizzle row) and hands its registers to the consumers
 //   (setmaxnreg);
@@ -28,14 +34,16 @@
 //   the mma.m16n8k16 C layout, so no shuffle). The two consumers do not
 //   take turns (FA-3's ping-pong): each already runs its softmax under its
 //   own PV product, and turns measured no faster.
-// B: one CTA per (query tile, head, batch), launched heaviest first (the
+// A, B: one CTA per (query tile, head, batch), launched heaviest first (the
 //   causal band's longest query tiles get the lowest block indices); Q is
 //   loaded once, K and V stream through a three-stage ring, with each key
 //   tile's segment ids by plain loads. Masks are applied only on diagonal,
 //   ragged (keys past Sk, which TMA zero-fills) and segment tiles; causal
 //   key tiles wholly above the diagonal are never loaded, and (query tile,
 //   key tile) pairs of disjoint [min, max] segment-id ranges (128-row
-//   table) are skipped, which is exact.
+//   table) are skipped, which is exact. Full attention with at most 16
+//   keys past the last full key tile (A at S = 1025 = 8 x 128 + 1) takes
+//   E's n16 S product and one PV k-step there instead of a whole tile's.
 // E: rope needs the tables' 64 KB of fp32 a 128-key tile, twice the tile's
 //   own bytes, so K is roped once a CTA and kept: one CTA per (five query
 //   tiles, head, tile) loads the head's whole K (S <= 1152: 9 tiles, 144
@@ -96,7 +104,7 @@ struct FwdArgs {
   const float* cos;      // E: (heads, s, 64) fp32
   const float* sin;
   bf16* o;
-  float* lse;  // B: (batch, heads, sq) fp32, or nullptr
+  float* lse;  // A, B: (batch, heads, sq) fp32, or nullptr
   long long o_sb, o_ss, o_sh;
   int batch, sq, sk, heads, group, q_offset;  // q_offset = Sk - Sq
   float scale;
@@ -430,40 +438,52 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
     phase ^= 1;
   }
 
-  for (++kt; kt < n_kt; ++kt) {
-    if (SEG && fwd_pair_skipped(tiles, qt, kt)) continue;
+  // one key tile: S(kt) of NJ column groups, O += P(kt - 1) V(kt - 1)
+  auto step = [&](auto nj, int kt) {
+    constexpr int NJ = decltype(nj)::value;
     const int k0 = kt * kFwdN;
-    float s[64];
+    float s[4 * NJ];
     mbar_wait(&full_k[stage], phase);
     mbar_wait(&full_v[prev], prev_phase);
     wgmma_fence();
-    issue_s(s, dQ, dK + stage * kStageDesc);
+    issue_s<NJ>(s, dQ, dK + stage * kStageDesc);
     wgmma_commit();
     issue_pv(o, pa, dV + prev * kStageDesc);
     wgmma_commit();
     wgmma_wait<1>();  // S(j) done; O += P(j-1) V(j-1) still running
     fence_regs(s);
     float alpha[2], rsum[2];
-    online_softmax<CAUSAL, SEG>(s, m2, alpha, rsum, is_masked(k0), k0, t, pos0, a.sk,
-                                sSeg + stage * kFwdN, qseg, sl2);
+    online_softmax<CAUSAL, SEG, NJ>(s, m2, alpha, rsum, is_masked(k0), k0, t, pos0, a.sk,
+                                    sSeg + stage * kFwdN, qseg, sl2);
     wgmma_wait<0>();
     fence_regs(o);
     fence_regs(pa);
     mbar_arrive(&empty[prev]);
     rescale(o, l, alpha, rsum);
-    pack_p(s, pa);
+    pack_p<NJ>(s, pa);
     prev = stage;
     prev_phase = phase;
     if (++stage == kFwdStages) {
       stage = 0;
       phase ^= 1;
     }
+  };
+  // full attention (A; B without a mask) with at most 16 keys past the last
+  // full key tile: that tile takes the n16 product and one PV k-step
+  const bool narrow = !CAUSAL && !SEG && n_kt > 1 && a.sk - (n_kt - 1) * kFwdN <= 16;
+  for (++kt; kt < n_kt - (narrow ? 1 : 0); ++kt) {
+    if (SEG && fwd_pair_skipped(tiles, qt, kt)) continue;
+    step(std::integral_constant<int, 16>(), kt);
+  }
+  if constexpr (!CAUSAL && !SEG) {
+    if (narrow) step(std::integral_constant<int, 2>(), n_kt - 1);
   }
 
-  // epilogue: O += P V of the last tile
+  // epilogue: O += P V of the last tile (one k-step for the n16 form)
   mbar_wait(&full_v[prev], prev_phase);
   wgmma_fence();
-  issue_pv(o, pa, dV + prev * kStageDesc);
+  if (narrow) issue_pv<1>(o, pa, dV + prev * kStageDesc);
+  else issue_pv(o, pa, dV + prev * kStageDesc);
   wgmma_commit();
   wgmma_wait<0>();
   fence_regs(o);
@@ -706,6 +726,24 @@ extern "C" int gar_flash_attention(
                          : gar::launch_fwd_sm90<true, false>(maps, a, st);
   return seg ? gar::launch_fwd_sm90<false, true>(maps, a, st)
              : gar::launch_fwd_sm90<false, false>(maps, a, st);
+}
+
+// Kernel A: kernel B at full attention with one head per kv head. q, k, v,
+// o (tiles, seq, heads, 64) bf16 through element strides (tile, token,
+// head), the head dim contiguous (views of the unfused block's qkv buffer:
+// TMA takes 16-byte aligned bases and strides, which the wrapper checks);
+// lse (tiles, heads, seq) fp32 or nullptr.
+extern "C" int gar_vit_attention(
+    const void* q, const void* k, const void* v, void* o, void* lse,
+    int tiles, int seq, int heads, int head_dim,
+    long long q_st, long long q_ss, long long q_sh,
+    long long k_st, long long k_ss, long long k_sh,
+    long long v_st, long long v_ss, long long v_sh,
+    long long o_st, long long o_ss, long long o_sh,
+    float scale, void* stream) {
+  return gar_flash_attention(q, k, v, o, lse, nullptr, nullptr, tiles, seq, seq, heads, heads,
+                             head_dim, /*causal*/ 0, q_st, q_ss, q_sh, k_st, k_ss, k_sh, v_st,
+                             v_ss, v_sh, o_st, o_ss, o_sh, scale, stream);
 }
 
 // Kernel E. qkv (tiles, seq, 3 * heads * 64) bf16, contiguous: q of head h

@@ -1,5 +1,5 @@
 // One bf16 tensor-core GEMM tile, shared by the fused ViT-block kernels D, F
-// and G (vit_block.cu), as A and 5 share flash_tile.cuh.
+// and G (vit_block.cu).
 //
 // The A operand (a block's rows, K wide) is resident in shared memory: the
 // kernels stage it once, and D and G rewrite it in place as LayerNorm(x) in

@@ -40,7 +40,7 @@ _SIGNATURES = {
     "gar_flash_bwd_prep": [_P] * 4 + [_I] * 3 + [_L] * 6 + [_P],
     "gar_flash_bwd_dq_cast": [_P] * 2 + [_L, _F, _P],
     "gar_flash_bwd_dkv": [_P] * 12 + [_I] * 7 + [_LP, _F, _P],
-    "gar_decode_attention_fused": [_P] * 8 + [_I] * 7 + [_F, _P],
+    "gar_decode_attention_fused": [_P] * 8 + [_I] * 8 + [_F, _P],
     "gar_decode_attention_fused_q8": [_P] * 10 + [_I] * 7 + [_F, _P],
     "gar_decode_attention": [_P] * 7 + [_I] * 8 + [_F, _P],
     "gar_layer_norm": [_P] * 4 + [_I] * 5 + [_F, _P],

@@ -9,13 +9,18 @@ from `k_new` / `v_new`, and those are written at column `write_pos` of
 (layer, b, k) in place.
 
 The step does ~2 flops per cache byte, so it is bound by how fast the valid
-cache columns stream in. The CUDA kernel (csrc/decode_attention.cu) runs one
-block per (kv head, batch row): each K and V row is read once for all
-H / K query heads, the masked gap [prompt_len, prompt_pad) is never loaded,
-and 16 warps keep loads in flight. One block per (b, k) leaves most SMs idle
-at B = 1; splitting the keys over blocks is later work. `prompt_lens` and
-`write_pos` stay on the device, read inside the kernel, so the decode loop
-needs no host sync.
+cache columns stream in. The CUDA kernel (csrc/decode_attention.cu, body in
+csrc/decode_split.cuh) runs one thread-block cluster per (kv head, batch
+row), whose `splits` CTAs each stream an equal, contiguous chunk of the
+valid columns (read as one flat index over the two intervals, so the gap
+[prompt_len, prompt_pad) is never loaded) and score all H / K query heads
+of the kv head against each K row on the tensor cores; the CTAs merge
+their partial softmax sums over distributed shared memory, in rank order,
+in the same launch. `decode_splits` picks `splits` so that the clusters
+fill up to two waves of the card's SMs (8 at B = 1-4 with 8 kv heads, 2 at
+B = 24), and `decode_attention_fused_split_plain` mirrors the split
+arithmetic on any device. `prompt_lens` and `write_pos` stay on the device,
+read inside the kernel, so the decode loop needs no host sync.
 
 C8 replaces the int8-KV branch of the same JAX function
 (`_fused_kernel_paired` with kv_q8, via `_decode_fused_paired_call`) on
@@ -26,8 +31,9 @@ the TPU kernel does it, bf16(int8 * scale); the new K/V (bf16) are
 quantized with the static scale, clip(round(x / s), -127, 127), written
 at write_pos, and the current token enters the attention as its
 dequantized fp32 value q * s, so this step sees what later steps read
-back. It streams half of C's bytes through the same one-block-per-(kv
-head, batch row) design, so at B = 1 it is held by its grid as C is.
+back. It streams half of C's bytes through C's first design, one block
+per (kv head, batch row) (csrc/decode_tile.cuh), so at B = 1 it is held
+by its grid.
 
 On a CPU tensor the wrapper runs `decode_attention_fused_plain` (or
 `decode_attention_fused_q8_plain`); on a CUDA tensor it launches the
@@ -45,6 +51,7 @@ dispatches it (the XLA decode step attends through
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -71,6 +78,95 @@ def decode_attention_fused_plain(
     return decode_attention_reference(
         q, k_all[layer], v_all[layer], prompt_lens=prompt_lens,
         write_pos=write_pos, prompt_pad=prompt_pad)
+
+
+MAX_SPLITS = 8  # the portable cluster size; 16 measured slower at B = 1, 2 on an H100 (PERF.md)
+
+
+def decode_splits(batch: int, kv_heads: int, *, sms: int = 132) -> int:
+    """Kernel C's CTAs per (kv head, batch row): the largest power of two up
+    to MAX_SPLITS such that batch * kv_heads * splits stays within two
+    waves of `sms` SMs, and at least 2. GAR-1B's 8 kv heads: 8 at B = 1-4,
+    2 at B = 24. (The kernel takes 1-16: on an H100 at B = 1 and 2, 16
+    CTAs a (kv head, row) took longer than 8.)"""
+    splits = 2
+    while splits * 2 <= MAX_SPLITS and batch * kv_heads * splits * 2 <= 2 * sms:
+        splits *= 2
+    return splits
+
+
+def valid_columns(prompt_len: int, prompt_pad: int, write_pos: int, seq: int) -> list[int]:
+    """The cache columns kernel C attends over for one row, in the order of
+    its flat index: [0, min(prompt_len, prompt_pad)), then [prompt_pad,
+    write_pos) (both cut at seq and at write_pos)."""
+    hi = min(write_pos, seq)
+    n1 = max(min(prompt_len, prompt_pad, hi), 0)
+    return list(range(n1)) + list(range(prompt_pad, max(hi, prompt_pad)))
+
+
+def split_bounds(total: int, splits: int) -> list[tuple[int, int]]:
+    """The flat-index chunk [f0, f1) of each CTA of a cluster: equal and
+    contiguous, ceil(total / splits) long, the last ones shorter or empty."""
+    chunk = -(-total // splits)
+    return [(min(total, r * chunk), min(total, (r + 1) * chunk)) for r in range(splits)]
+
+
+def decode_attention_fused_split_plain(
+    q: torch.Tensor, k_all: torch.Tensor, v_all: torch.Tensor,
+    k_new: torch.Tensor, v_new: torch.Tensor, layer: int, *,
+    prompt_lens: torch.Tensor, write_pos: torch.Tensor, prompt_pad: int, splits: int,
+) -> torch.Tensor:
+    """Kernel C's split arithmetic in torch: the new row written at write_pos
+    (in place), then for each row the valid columns cut into `splits`
+    chunks as the kernel cuts them (`valid_columns`, `split_bounds`); each
+    chunk's (m, l, acc) with p = exp(s - the chunk's max) rounded to v's
+    dtype before PV (the kernel rounds against the running max of each
+    warp's 16 keys, which only shifts where bf16 rounds); the chunks merged
+    in order with the current token from k_new / v_new. Reads write_pos
+    and prompt_lens on the host: a mirror for the tests, not a path."""
+    kc, vc = k_all[layer], v_all[layer]
+    idx = write_pos.reshape(1).long()
+    kc.index_copy_(2, idx, k_new.to(k_all.dtype)[:, :, None, :])
+    vc.index_copy_(2, idx, v_new.to(v_all.dtype)[:, :, None, :])
+    b, h, d = q.shape
+    kh, s = k_all.shape[2], k_all.shape[3]
+    scale = d ** -0.5
+    qf = q.float().reshape(b, kh, h // kh, d)
+    wpos = int(write_pos)
+    rows = []
+    for r in range(b):
+        cols = torch.tensor(valid_columns(int(prompt_lens[r]), prompt_pad, wpos, s),
+                            dtype=torch.long, device=q.device)
+        s_cur = (qf[r] * k_new[r].float()[:, None, :]).sum(-1) * scale  # (K, G)
+        parts = []
+        for f0, f1 in split_bounds(len(cols), splits):
+            if f0 == f1:  # an empty chunk (m = -inf) weighs nothing
+                continue
+            k_chunk, v_chunk = kc[r][:, cols[f0:f1]], vc[r][:, cols[f0:f1]]  # (K, n, D)
+            logits = torch.einsum("kgd,knd->kgn", qf[r], k_chunk.float()) * scale
+            m = logits.amax(-1)
+            p = torch.exp(logits - m[..., None])
+            acc = torch.einsum("kgn,knd->kgd", p.to(v_all.dtype).float(), v_chunk.float())
+            parts.append((m, p.sum(-1), acc))
+        m_all = torch.stack([s_cur] + [m for m, _, _ in parts]).amax(0)
+        p_cur = torch.exp(s_cur - m_all)
+        den, acc = p_cur, p_cur[..., None] * v_new[r].float()[:, None, :]
+        for m, l_part, acc_part in parts:
+            f = torch.exp(m - m_all)
+            den, acc = den + f * l_part, acc + f[..., None] * acc_part
+        rows.append(acc / torch.clamp(den, min=1e-30)[..., None])
+    return torch.stack(rows).reshape(b, h, d).to(q.dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def card_splits(batch: int, kv_heads: int, device: torch.device) -> int:
+    """`decode_splits` with the SM count of the card."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    return decode_splits(batch, kv_heads, sms=_sm_count(index))
 
 
 def _pair_scales(scale: torch.Tensor, layer: int) -> torch.Tensor:
@@ -185,15 +281,16 @@ def decode_attention_fused(
     lib = _build.library()
     head = (q.data_ptr(), k_all.data_ptr(), v_all.data_ptr(), k_new.data_ptr(),
             v_new.data_ptr(), out.data_ptr(), prompt_lens.data_ptr(), write_pos.data_ptr())
-    tail = (layer, b, h, kh, s, d, prompt_pad, d ** -0.5, _build.stream_handle(q.device))
+    shape = (layer, b, h, kh, s, d, prompt_pad)
+    tail = (d ** -0.5, _build.stream_handle(q.device))
     global launches, launches_q8
     if q8:
         err = lib.gar_decode_attention_fused_q8(*head, k_scale.data_ptr(), v_scale.data_ptr(),
-                                                *tail)
+                                                *shape, *tail)
         _build.check(err, "gar_decode_attention_fused_q8")
         launches_q8 += 1
     else:
-        err = lib.gar_decode_attention_fused(*head, *tail)
+        err = lib.gar_decode_attention_fused(*head, *shape, card_splits(b, kh, q.device), *tail)
         _build.check(err, "gar_decode_attention_fused")
         launches += 1
     return out

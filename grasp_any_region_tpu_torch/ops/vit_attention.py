@@ -9,13 +9,15 @@ itself (the fused block, inference only, as in JAX). A can also write the
 Replaces `grasp_any_region_tpu/ops/vit_attention.py:vit_attention`
 (`_vit_attn_kernel`), which keeps a whole (S, S) logits block per (tile,
 head) in VMEM. On Hopper that block (4.2 MB fp32 at S = 1025) is far over
-the 227 KB of shared memory, so the CUDA kernel (csrc/vit_attention.cu,
-body in csrc/flash_tile.cuh) computes the same function with an online
-softmax over 64-key tiles on the tensor cores. It is bound by the two
-products (~2*2*S^2*D flops per tile-head, with K/V re-read per 64-row query
-tile from L2); it reads q, k and v through strides, so the views of the
-fused qkv buffer need no head-major copies, and masks keys past S by bounds
-instead of padding S to 1152.
+the 227 KB of shared memory, so A is kernel B's Hopper forward
+(csrc/flash_forward_sm90.cu: TMA loads, two consumer warpgroups on wgmma,
+an online softmax over 128-key tiles), non-causal with one head per kv
+head. It is bound by the two products (~2*2*S^2*D flops per tile-head,
+with K/V re-read per 128-row query tile from L2). Its TMA maps read q, k
+and v through strides, so the views of the unfused block's qkv buffer need
+no head-major copies (TMA needs 16-byte aligned bases and strides; a view
+that breaks that raises), and the one key past 8 x 128 at S = 1025 takes
+an n16 product instead of a whole key tile.
 
 Kernel E replaces `vit_attention_fused_qkv` (`_fused_qkv_kernel`): kernel
 B's Hopper forward (csrc/flash_forward_sm90.cu: wgmma products, TMA loads,

@@ -42,16 +42,26 @@ def rnd():
     return make
 
 
-@pytest.mark.parametrize("t,s,h", [(2, 200, 2), (3, 1025, 4), (1, 64, 1)])
+@pytest.mark.parametrize("t,s,h", [(2, 200, 2), (3, 1025, 4), (1, 64, 1), (1, 129, 2),
+                                   (2, 1024, 3), (1, 77, 2), (17, 1025, 16)])
 def test_vit_attention_kernel(rnd, t, s, h):
+    """Kernel A (kernel B's Hopper forward, non-causal, one head per kv
+    head) on q/k/v views of a fused buffer, at S with a one-key last key
+    tile and a one-row last query tile (129, 1025), a multiple of 128 and
+    a non-multiple of 16; its output at the sized tolerance, its LSE at
+    atol 1e-3; B's counter untouched."""
     qkv = rnd(t, s, 3, h, 64)  # q/k/v as strided views of a fused buffer
     q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
-    before = va.launches
+    before, b_before = va.launches, fa.launches
     out = va.vit_attention(q, k, v)
+    out2, lse = va.vit_attention(q, k, v, return_lse=True)
     torch.cuda.synchronize()
-    assert va.launches == before + 1
-    ref = va.vit_attention_plain(q.float(), k.float(), v.float())
+    assert va.launches == before + 2 and fa.launches == b_before
+    ref, ref_lse = va.vit_attention_plain(q.float(), k.float(), v.float(), return_lse=True)
     torch.testing.assert_close(out.float(), ref, **TOL)
+    _sized_close(out, ref, "out")
+    assert torch.equal(out, out2)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=1e-4)
 
 
 def _sized_close(got, want, name):
@@ -112,23 +122,86 @@ def test_flash_attention_kernel_reads_strided_views(rnd):
     torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=1e-4)
 
 
+def _split_layout(kind, splits):
+    """(B, prompt lengths, prompt_pad, write_pos) on a 1024-column cache whose
+    chunks of the flat index (ops/decode_attention.split_bounds, `splits`
+    CTAs) meet the interval edges: "edges", row 0 cut at prompt_len - 1 |
+    prompt_pad (24 + 8 (splits - 3) columns in chunks of 8), row 1 with a
+    last chunk of one column, write_pos - 1; "empty", more CTAs than
+    columns (one column; prompt only, write_pos = prompt_pad)."""
+    if kind == "empty":
+        return 2, (1, splits // 2), 300, 300
+    pad = 256
+    wpos = pad + 8 * (splits - 3)
+    for p1 in range(1, pad):
+        total = p1 + wpos - pad
+        if total == -(-total // splits) * (splits - 1) + 1:
+            return 2, (24, p1), pad, wpos
+    raise AssertionError(f"no one-column last chunk for {splits} splits")
+
+
 @pytest.mark.parametrize("group", [1, 2, 4, 8])
-@pytest.mark.parametrize("plens,pad,wpos", [((100, 37), 128, 170), ((128, 1), 128, 128),
-                                            ((500, 700), 700, 1023)])
-def test_decode_attention_kernel(rnd, group, plens, pad, wpos):
-    L, b, kh, s, layer = 3, 2, 2, 1024, 1
+@pytest.mark.parametrize("b,plens,pad,wpos", [
+    (2, (100, 37), 128, 170),
+    (2, (128, 1), 128, 128),
+    (2, (500, 700), 700, 1023),
+    (1, (600,), 700, 1000),
+    (24, None, 700, 800),   # ragged prompt lengths on both sides of prompt_pad
+    (2, "edges", None, None),
+    (2, "empty", None, None),
+])
+def test_decode_attention_kernel(rnd, group, b, plens, pad, wpos):
+    """Kernel C (split-KV over a cluster) against the plain version at
+    TOL16, then the interval probe (k = 0, spikes in v on each side of each
+    edge) at TOL16; the cache bit-identical outside column write_pos."""
+    L, kh, s, layer = 3, 2, 1024, 1
+    splits = dec.card_splits(b, kh, torch.device("cuda"))
+    assert splits > 1
+    if isinstance(plens, str):
+        b, plens, pad, wpos = _split_layout(plens, splits)
+    elif plens is None:  # at and around write_pos and prompt_pad, then seeded
+        plens = [700, 699, 701, 1, 2, 64, 65] + torch.randint(
+            1, 700, (b - 7,), generator=torch.Generator().manual_seed(b)).tolist()
+        plens = [min(x, pad) for x in plens]
     k_all, v_all = rnd(L, b, kh, s, 64), rnd(L, b, kh, s, 64)
     q, k_new, v_new = rnd(b, kh * group, 64), rnd(b, kh, 64), rnd(b, kh, 64)
-    kw = dict(prompt_lens=torch.tensor(plens, dtype=torch.int32, device="cuda"),
-              write_pos=torch.tensor(wpos, dtype=torch.int32, device="cuda"), prompt_pad=pad)
+    kw = dict(prompt_lens=_cuda_int32(plens), write_pos=_cuda_int32(wpos), prompt_pad=pad)
+    for probe in (False, True):
+        if probe:  # one column too many, too few or twice moves a row by >= 0.02
+            k0, vp = _interval_probe(v_all[layer], plens, pad, wpos)
+            k_all[layer], v_all[layer], k_new = k0, vp, torch.zeros_like(k_new)
+        k_exp, v_exp = k_all.clone(), v_all.clone()
+        ref = dec.decode_attention_fused_plain(q.float(), k_exp.float(), v_exp.float(),
+                                               k_new.float(), v_new.float(), layer, **kw)
+        before = dec.launches
+        out = dec.decode_attention_fused(q, k_all, v_all, k_new, v_new, layer, **kw)
+        torch.cuda.synchronize()
+        assert dec.launches == before + 1
+        if not probe:
+            torch.testing.assert_close(out.float(), ref, **TOL)
+        torch.testing.assert_close(out.float(), ref, **TOL16, msg=f"probe {probe}")
+        k_exp[layer, :, :, wpos], v_exp[layer, :, :, wpos] = k_new, v_new
+        assert torch.equal(k_all, k_exp) and torch.equal(v_all, v_exp)
+
+
+@pytest.mark.parametrize("splits", [1, 2, 3, 5, 8, 16])
+def test_decode_attention_kernel_any_split(rnd, monkeypatch, splits):
+    """Kernel C with the CTAs a (kv head, row) forced (the chooser
+    replaced), clusters of 1 to 16, over three ragged rows (one with fewer
+    columns than CTAs), at TOL16; the cache bit-identical outside column
+    write_pos."""
+    monkeypatch.setattr(dec, "card_splits", lambda *_: splits)
+    L, b, kh, s, layer, group = 2, 3, 2, 1024, 1, 4
+    plens, pad, wpos = [300, 3, 1], 512, 515
+    k_all, v_all = rnd(L, b, kh, s, 64), rnd(L, b, kh, s, 64)
+    q, k_new, v_new = rnd(b, kh * group, 64), rnd(b, kh, 64), rnd(b, kh, 64)
+    kw = dict(prompt_lens=_cuda_int32(plens), write_pos=_cuda_int32(wpos), prompt_pad=pad)
     k_exp, v_exp = k_all.clone(), v_all.clone()
     ref = dec.decode_attention_fused_plain(q.float(), k_exp.float(), v_exp.float(),
                                            k_new.float(), v_new.float(), layer, **kw)
-    before = dec.launches
     out = dec.decode_attention_fused(q, k_all, v_all, k_new, v_new, layer, **kw)
     torch.cuda.synchronize()
-    assert dec.launches == before + 1
-    torch.testing.assert_close(out.float(), ref, **TOL)
+    torch.testing.assert_close(out.float(), ref, **TOL16)
     k_exp[layer, :, :, wpos], v_exp[layer, :, :, wpos] = k_new, v_new
     assert torch.equal(k_all, k_exp) and torch.equal(v_all, v_exp)
 
@@ -515,7 +588,7 @@ def _packed_segments(b, s, gen):
 
 
 @pytest.mark.parametrize("t,s,h", [(2, 200, 2), (3, 1025, 4), (1, 64, 1), (1, 129, 2),
-                                   (2, 1024, 3)])
+                                   (2, 1024, 3), (1, 77, 2)])
 def test_vit_attention_lse_and_backward_kernels(rnd, t, s, h):
     """Kernel A with its LSE, then kernel 5 (17's prep, 18's non-causal
     pass, 17's cast) with v a strided view of a (T, S, 3, H, 64) buffer, as
@@ -528,6 +601,7 @@ def test_vit_attention_lse_and_backward_kernels(rnd, t, s, h):
     out, lse = va.vit_attention(q, k, v, return_lse=True)
     ref, ref_lse = va.vit_attention_plain(q.float(), k.float(), v.float(), return_lse=True)
     torch.testing.assert_close(out.float(), ref, **TOL)
+    _sized_close(out, ref, "out")
     torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=1e-4)
     before = va.launches_bwd, fb.launches_dq, fb.launches_dkv
     got = va.vit_attention_bwd(q, k, v, out, lse, g)
