@@ -1,7 +1,8 @@
-"""Kernels A, B and C timed in copies of the package that differ by named
-edits of their sources, in turns on one card: the parent form, each
-variant, then the variants again in reverse and the parent last. A design
-choice is kept only when it measures faster this way, in one call.
+"""Kernels A, B and C, or kernel H, timed in copies of the package that
+differ by named edits of their sources, in turns on one card: the parent
+form, each variant, then the variants again in reverse and the parent
+last. A design choice is kept only when it measures faster this way, in
+one call.
 
 Each variant (VARIANTS: name -> [(source, old, new), ...]) is built in its
 own copy under build/copies/ (forward_mutants.make_copy). In each copy a
@@ -9,9 +10,13 @@ fresh process checks A and C against their plain versions (sized
 tolerance; TOL16) and prints their times after an L2 flush (chip_smoke.py's
 cuda_ms): A at (17, S, 16, 64) views of a qkv buffer, S = 1025 and 1024;
 B at the causal prefill; C over layer 7 of a (16, B, 8, 5120, 64) cache at
-B = 1, 2 and 24. Run from the repository root on a machine with the card:
+B = 1, 2 and 24. The variants named h_* time kernel H instead (TIMING_H:
+GAR-1B's w_down and wo at B = 1 and 24, checked against the plain version,
+one call after an L2 flush and 16 layers back to back) against the parent
+h_parent. Run from the repository root on a machine with the card:
 
     python3 ab_kernels.py [variant ...]
+    python3 ab_kernels.py h_<variant> ...
 """
 
 from __future__ import annotations
@@ -20,6 +25,9 @@ import json
 import sys
 
 from forward_mutants import FWD, SPLIT, make_copy, run
+
+H_SRC = "grasp_any_region_tpu_torch/csrc/layer_matmul_sm90.cu"
+H_PY = "grasp_any_region_tpu_torch/ops/layer_matmul.py"
 
 # A's ragged last query tile (S = 1025: one row): its idle warpgroup leaves
 # at once (so does that of B's causal last tile of <= 64 rows)
@@ -39,6 +47,83 @@ VARIANTS = {
     "a_ragged_tile_last": RAGGED_TILE_LAST,
     "a_both": IDLE_WARPGROUP_LEAVES + RAGGED_TILE_LAST,
     "c_six_stages": [(SPLIT, "constexpr int kSplitStages = 4;", "constexpr int kSplitStages = 6;")],
+}
+
+
+def h_variant(**consts) -> list:
+    """Kernel H with named constants changed in its source and its plan's
+    mirror (ops/layer_matmul.py): bk (rows a stage), stages (most in the
+    ring), ctas_per_sm (how far clusters, up to 16, grow the grid); at one
+    CTA an SM a CTA may take the SM's whole shared memory."""
+    c = {**dict(bk=128, stages=3, ctas_per_sm=2), **consts}
+    edits = [(H_PY, "STREAM_N, STREAM_MAX_SPLITS, STREAM_CTAS_PER_SM = 64, 8, 2",
+              f"STREAM_N, STREAM_MAX_SPLITS, STREAM_CTAS_PER_SM = 64, 16, {c['ctas_per_sm']}"),
+             (H_PY, "STREAM_BK = 128", f"STREAM_BK = {c['bk']}"),
+             (H_SRC, "constexpr int kWsBK = 128;", f"constexpr int kWsBK = {c['bk']};"),
+             (H_SRC, "constexpr int kWsStages = 3;", f"constexpr int kWsStages = {c['stages']};")]
+    if c["ctas_per_sm"] == 1:
+        edits.append((H_SRC, "constexpr int kWsCtaSmem = 232448 / 2 - 1024;",
+                       "constexpr int kWsCtaSmem = 232448 - 1024;"))
+    return edits
+
+
+H_VARIANTS = {  # the parent: 128 rows and at most 3 stages, 8 CTAs a tile
+    "h_parent": [],
+    "h_two_stages": h_variant(stages=2),
+    "h_four_stages": h_variant(stages=4),
+    "h_six_stages": h_variant(stages=6),
+    "h_bk64_four_stages": h_variant(bk=64, stages=4),
+    "h_bk256_two_stages": h_variant(bk=256, stages=2),
+    "h_sixteen_ctas_a_tile": h_variant(ctas_per_sm=4),
+    "h_one_cta_an_sm": h_variant(ctas_per_sm=1),
+    "h_one_cta_an_sm_six_stages": h_variant(ctas_per_sm=1, stages=6),
+    "h_no_pdl": [(H_SRC, "  cfg.numAttrs = 2;", "  cfg.numAttrs = 1;")],
+    "h_l2_promotion_256": [("grasp_any_region_tpu_torch/csrc/sm90.cuh",
+                            "CU_TENSOR_MAP_L2_PROMOTION_L2_128B", "CU_TENSOR_MAP_L2_PROMOTION_L2_256B")],
+    # the partials pulled: each CTA keeps its own, the cluster syncs, the
+    # finisher loads its columns from every CTA, and a second barrier keeps
+    # each CTA alive while peers read it
+    "h_pull_reduction": [(H_SRC, """            if (row < a.rows)
+              cluster.map_shared_rank(recv, col / cols)[((w * splits + rank) * a.rows + row) *
+                                                            cols + col % cols] = acc[w][i][j][e];""",
+                          """            if (row < a.rows) recv[(w * a.rows + row) * kWsN + col] = acc[w][i][j][e];"""),
+                         (H_SRC, """    for (int w = 0; w < NW; ++w) {
+      v[w] = 0.f;
+      for (int r = 0; r < splits; ++r) v[w] += recv[((w * splits + r) * a.rows + row) * cols + c];
+    }""", """    for (int w = 0; w < NW; ++w) v[w] = 0.f;
+    float p[NW][kWsMaxSplits];
+#pragma unroll
+    for (int r = 0; r < kWsMaxSplits; ++r)
+      if (r < splits)
+#pragma unroll
+        for (int w = 0; w < NW; ++w)
+          p[w][r] = cluster.map_shared_rank(recv, r)[(w * a.rows + row) * kWsN + rank * cols + c];
+#pragma unroll
+    for (int w = 0; w < NW; ++w)
+#pragma unroll
+      for (int r = 0; r < kWsMaxSplits; ++r)
+        if (r < splits) v[w] += p[w][r];"""),
+                         (H_SRC, """    a.out[static_cast<size_t>(row) * a.dout + n0 + rank * cols + c] = __float2bfloat16(o);
+  }
+}""", """    a.out[static_cast<size_t>(row) * a.dout + n0 + rank * cols + c] = __float2bfloat16(o);
+  }
+  cluster.sync();
+}""")],
+    # a warp hands a stage back as soon as its products are issued
+    "h_release_at_once": [(H_SRC, """      if (j > 0) {  // stage j - 1: its products are issued, so its loads are done
+        fence_proxy_async();
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&empty[(j - 1) % stages]);
+      }""", """      fence_proxy_async();
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[s]);""")],
+    # timing only (wrong results): the CTAs leave after their main loop, or
+    # skip the cluster's reduction
+    "h_no_epilogue": [(H_SRC, "  grid_dependency_wait();  // out may be memory the kernel before still reads\n",
+                       "  grid_dependency_wait();  // out may be memory the kernel before still reads\n"
+                       "  if (a.rows > 0) return;\n")],
+    "h_no_cluster_reduce": [(H_SRC, "  cluster.sync();  // every partial is in its finisher's shared "
+                             "memory; none is read remotely\n", "  if (a.rows > 0) return;\n")],
 }
 
 TIMING = r"""
@@ -79,15 +164,42 @@ for b in (1, 2, 24):
 print("AB " + json.dumps(t))
 """
 
+TIMING_H = r"""
+import json, torch, chip_smoke as c
+from grasp_any_region_tpu_torch.ops import layer_matmul as lm
+c.phase_environment()
+gen = torch.Generator(device="cuda").manual_seed(0)
+def rnd(*shape):
+    return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+t = {}
+for name, din in (("w_down", 8192), ("wo", 2048)):
+    w = (rnd(16, din, 2048).float() * din ** -0.5).to(torch.bfloat16)
+    for b in (1, 24):
+        x = rnd(b, din)
+        ref = lm.layer_matmul_plain(x.float(), w[7:8].float(), 0)
+        try:
+            c.max_err(lm.layer_matmul(x, w, 7), ref, f"H {name} B={b}")
+        except AssertionError:  # a timing-only variant
+            t["wrong results"] = 1
+        t[f"{name} B={b}"] = c.cuda_ms(lambda: lm.layer_matmul(x, w, 7))
+        t[f"{name} B={b} x16"] = c.cuda_ms(lambda: [lm.layer_matmul(x, w, i) for i in range(16)],
+                                           iters=5, sleep_cycles=20_000_000) / 16
+    del w
+print("AB " + json.dumps(t))
+"""
+
 
 def main(names: list[str]) -> int:
-    unknown = set(names) - set(VARIANTS)
+    h = bool(names) and all(n.startswith("h_") for n in names)
+    variants, parent, timing = ((H_VARIANTS, "h_parent", TIMING_H) if h
+                                else (VARIANTS, "parent", TIMING))
+    unknown = set(names) - set(variants)
     if unknown:
-        raise SystemExit(f"unknown variants {sorted(unknown)}; known: {list(VARIANTS)}")
-    chosen = ["parent"] + [n for n in VARIANTS if n != "parent" and (not names or n in names)]
-    copies = {name: make_copy(f"ab_{name}", VARIANTS[name]) for name in chosen}
+        raise SystemExit(f"unknown variants {sorted(unknown)}; known: {list(variants)}")
+    chosen = [parent] + [n for n in variants if n != parent and (not names or n in names)]
+    copies = {name: make_copy(f"ab_{name}", variants[name]) for name in chosen}
     for name in chosen + chosen[::-1]:
-        res = run(copies[name], ["-c", TIMING], 900)
+        res = run(copies[name], ["-c", timing], 900)
         lines = [x for x in res.stdout.splitlines() if x.startswith("AB ")]
         if res.returncode or not lines:
             tail = (res.stdout + res.stderr).strip().splitlines()[-3:]

@@ -18,6 +18,8 @@ the script exits non-zero (there is no CPU fallback):
    same function (SDPA for A and B, torch.mm for H, the W8A16 product
    torch._weight_int8pack_mm for H8, SDPA over views of E's fused buffer,
    torch.addmm for F, SDPA with the boolean mask for C), that call's time.
+   H (the TMA-fed weight stream) also beside its earlier form (the
+   cp.async ring that I and J still run), with both host times a call.
    E also at a ragged S = 200. The decode matmuls H, I, J and their int8
    forms H8, I8, J8 also at B = 24 (with their GB/s of weights, cuBLAS's
    bf16 product of the same layer and the card's copy rate on the same
@@ -29,8 +31,9 @@ the script exits non-zero (there is no CPU fallback):
    written K/V column checked, beside kernel C + kernel H on wo), with
    their GB/s; the plain versions here take the same bf16 inputs. The two
    kernels that no JAX path dispatches, so that no later phase launches
-   them: 16 (read-only decode attention) over C's seeded cache at every
-   layer, the layer a device scalar, the cache unchanged, also at B = 24,
+   them: 16 (read-only decode attention, C's split-KV body read only) over
+   C's seeded cache at every layer, the layer a device scalar, the cache
+   unchanged, also at B = 24, with its CTAs a (kv head, row) swept 1-16,
    with SDPA under the two-interval boolean mask (enable_gqa) as its
    library call; 24 (LayerNorm) at the tower's (17, 1025, 1024) in bf16
    and fp32 and at a ragged (3, 37, 1024), with F.layer_norm as its
@@ -652,10 +655,12 @@ def decode_attention_read_kernel(rnd):
     15, then at B = 2 (prompt lengths 4662 and 4000, the kernels line) at
     all 16 layers, each layer a device int32 scalar, each against the
     plain version at TOL16, and the cache unchanged; then at both B the
-    interval probe, at TOL16. Times at layer 7: kernel, plain, bound (C's bytes:
-    the valid columns, q and the output), and the library call, SDPA over
-    the layer slab with enable_gqa and the two-interval boolean mask
-    (timed only; its gap to the plain version printed)."""
+    interval probe, at TOL16, and at B = 2 once more with block_s 128 and a
+    prompt of 5000 (past the last block the TPU kernel visits). Times at layer 7: kernel (C's split-KV body
+    read only, `card_splits` CTAs a (kv head, row); also at 1-16), plain,
+    bound (C's bytes: the valid columns, q and the output), and the library
+    call, SDPA over the layer slab with enable_gqa and the two-interval
+    boolean mask (timed only; its gap to the plain version printed)."""
     import torch.nn.functional as F
     from grasp_any_region_tpu_torch.ops import decode_attention as dec
 
@@ -685,6 +690,16 @@ def decode_attention_read_kernel(rnd):
         torch.cuda.synchronize()
         ref = dec.decode_attention_plain(q.float(), k0[None].float(), vp[None].float(), zero, **kw)
         err = max(err, max_err(out, ref, f"16 (B = {b}) interval probe", **TOL16))
+        if b == 2:  # block_s 128: row 0's prompt runs past the last block visited (4736)
+            clip = dict(kw, prompt_lens=torch.tensor([5000, 4000], dtype=torch.int32,
+                                                     device="cuda"), block_s=128)
+            k0, vp = interval_probe(v_all[0], [5000, 4000], pad, wpos)
+            out = dec.decode_attention(q, k0, vp, **clip)
+            torch.cuda.synchronize()
+            ref = dec.decode_attention_plain(q.float(), k0[None].float(), vp[None].float(), zero,
+                                             **clip)
+            err = max(err, max_err(out, ref, "16 (B = 2, block_s 128, a prompt past the last "
+                                   "block visited) interval probe", **TOL16))
         del k0, vp
         lay = torch.tensor(7, dtype=torch.int32, device="cuda")
         ms = cuda_ms(lambda: dec.decode_attention_stacked(q, k_all, v_all, lay, **kw))
@@ -702,10 +717,19 @@ def decode_attention_read_kernel(rnd):
         lib_gap = (library()[:, :, 0].float() - dec.decode_attention_plain(
             q.float(), k_all[7:8].float(), v_all[7:8].float(), zero, **kw)).abs().max().item()
         lib_ms = cuda_ms(library)
-        log(f"[kernels] 16, B = {b}: {ms:.4f} ms (bound {lim['bound_ms']:.4f} ms of "
+        chooser, sweep = dec.card_splits, {}
+        try:  # the chooser's alternatives: the kernel takes 1-16 CTAs
+            for n in (1, 2, 4, 8, 16):
+                dec.card_splits = lambda *_: n
+                sweep[n] = cuda_ms(lambda: dec.decode_attention_stacked(q, k_all, v_all, lay, **kw))
+        finally:
+            dec.card_splits = chooser
+        log(f"[kernels] 16, B = {b} ({dec.card_splits(b, 8, q.device)} CTAs a (kv head, row) "
+            f"in a cluster): {ms:.4f} ms (bound {lim['bound_ms']:.4f} ms of "
             f"{lim['bound_by']}); plain {plain_ms:.4f} ms; library (SDPA, boolean mask, "
             f"enable_gqa) {lib_ms:.4f} ms, max |library - plain| {lib_gap:.3e}; "
-            f"max |kernel - plain| over the layers {err:.3e}")
+            f"max |kernel - plain| over the layers {err:.3e}; by CTAs a (kv head, row), ms: "
+            + ", ".join(f"{n}: {t:.4f}" for n, t in sweep.items()))
         del k_all, v_all, k7, v7
     torch.cuda.empty_cache()
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms, **lim)
@@ -882,6 +906,22 @@ def vit_block_kernels(rnd, gen):
     return results
 
 
+def layer_matmul_ring(x, w_all, layer):
+    """Kernel H's earlier form (csrc/layer_matmul.cu's cp.async ring, I and
+    J's body), behind the same operand check as `layer_matmul`: timed
+    beside the TMA-fed form; no path launches it."""
+    from grasp_any_region_tpu_torch.ops import _build
+    from grasp_any_region_tpu_torch.ops import layer_matmul as lm
+
+    lm._check(x, layer, w_all)
+    out = torch.empty((x.shape[0], w_all.shape[2]), dtype=x.dtype, device=x.device)
+    err = _build.library().gar_layer_matmul_ring(
+        x.data_ptr(), w_all.data_ptr(), out.data_ptr(), layer, x.shape[0], x.shape[1],
+        w_all.shape[2], _build.stream_handle(x.device))
+    _build.check(err, "gar_layer_matmul_ring")
+    return out
+
+
 def decode_matmul_kernels(rnd):
     """Kernels H, I, J and their int8 forms H8, I8, J8 at the gar_1b decode
     shapes (hidden 2048, q 2048, kv 512, MLP 8192), the weights stacked
@@ -893,7 +933,10 @@ def decode_matmul_kernels(rnd):
     5. Beside each time: the weight bytes over it, cuBLAS's bf16 product of
     the same layer (the XLA form's ops; torch.mm is H's library call), for
     H8 torch._weight_int8pack_mm (the library's W8A16 product, timed only),
-    and a device-to-device copy of the same bytes."""
+    and a device-to-device copy of the same bytes. H also beside its earlier
+    form (`layer_matmul_ring`, checked the same way): both times, both
+    16-layers-back-to-back times, both host times a call, and H's time by
+    its CTAs a column tile (the cluster size, 1-16) at B = 1."""
     import torch.nn.functional as F
     from grasp_any_region_tpu_torch.models.quantize import quantize_int8
     from grasp_any_region_tpu_torch.ops import layer_matmul as lm
@@ -969,6 +1012,30 @@ def decode_matmul_kernels(rnd):
             n_layers = ws[0].shape[0]
             seq_ms = cuda_ms(lambda: [kernel(x, *ws, i) for i in range(n_layers)],
                              iters=5, sleep_cycles=20_000_000) / n_layers
+            if key == "H":
+                old_err = check(f"{label} earlier form", layer_matmul_ring, plain, ws, layer, x)
+                old_ms = cuda_ms(lambda: layer_matmul_ring(x, *ws, layer))
+                old_seq = cuda_ms(lambda: [layer_matmul_ring(x, *ws, i) for i in range(n_layers)],
+                                  iters=5, sleep_cycles=20_000_000) / n_layers
+                hus, old_hus = (host_us(lambda: kernel(x, *ws, layer)),
+                                host_us(lambda: layer_matmul_ring(x, *ws, layer)))
+                sweep = ""
+                if b == 1:
+                    chooser, times = lm._card_splits, {}
+                    try:  # the chooser's alternatives: the kernel takes 1-16 CTAs a tile
+                        for n in (1, 2, 4, 8, 16):
+                            lm._card_splits = lambda *_: n
+                            times[n] = cuda_ms(lambda: kernel(x, *ws, layer))
+                    finally:
+                        lm._card_splits = chooser
+                    sweep = "; by CTAs a tile, ms: " + ", ".join(
+                        f"{n}: {t:.4f}" for n, t in times.items())
+                splits = lm._card_splits(ws[0].shape[2], din, x.device.index)
+                log(f"[kernels] {label}, B = {b}: TMA-fed {ms:.4f} ms, back to back "
+                    f"{seq_ms:.4f} ms a layer, host {hus:.1f} us a call ({splits} CTAs a "
+                    f"tile); earlier form "
+                    f"(cp.async ring) {old_ms:.4f} ms, back to back {old_seq:.4f}, host "
+                    f"{old_hus:.1f} us, max |earlier - plain| {old_err:.3e}{sweep}")
             seq8_ms = cuda_ms(lambda: [kernel8(x, *qs, i) for i in range(n_layers)],
                               iters=5, sleep_cycles=20_000_000) / n_layers
             blas_ms = cuda_ms(lambda: cublas(x, *ws, layer))
@@ -1802,7 +1869,7 @@ KERNELS = {
           "grasp_any_region_tpu/ops/vit_block.py:172"),
     "G": ("vit_mlp_residual", "grasp_any_region_tpu_torch/csrc/vit_block.cu",
           "grasp_any_region_tpu/ops/vit_block.py:245"),
-    "H": ("layer_matmul", "grasp_any_region_tpu_torch/csrc/layer_matmul.cu",
+    "H": ("layer_matmul", "grasp_any_region_tpu_torch/csrc/layer_matmul_sm90.cu",
           "grasp_any_region_tpu/ops/layer_matmul.py:58"),
     "I": ("layer_swiglu", "grasp_any_region_tpu_torch/csrc/layer_matmul.cu",
           "grasp_any_region_tpu/ops/layer_matmul.py:97"),
@@ -1818,7 +1885,7 @@ KERNELS = {
            "grasp_any_region_tpu/ops/layer_matmul.py:282"),
     "5": ("vit_attention_bwd", "grasp_any_region_tpu_torch/csrc/flash_backward_sm90.cu",
           "grasp_any_region_tpu/ops/vit_attention.py:185"),
-    "16": ("decode_attention_stacked", "grasp_any_region_tpu_torch/csrc/decode_attention.cu",
+    "16": ("decode_attention_stacked", "grasp_any_region_tpu_torch/csrc/decode_split.cuh",
            "grasp_any_region_tpu/ops/decode_attention.py:598"),
     "17": ("flash_attention_bwd_prep_cast",
            "grasp_any_region_tpu_torch/csrc/flash_backward_sm90.cu",

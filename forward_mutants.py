@@ -1,8 +1,8 @@
 """Mutants of kernels A, B and E (csrc/flash_forward_sm90.cu), F
 (csrc/gemm_sm90.cu and its main loop, csrc/gemm_sm90.cuh), 5 (kernel
-18's non-causal pass with the folded tail, csrc/flash_backward_sm90.cu)
-and C (the split-KV body, csrc/decode_split.cuh) that the checks must
-catch. Each mutant names the source it edits and is
+18's non-causal pass with the folded tail, csrc/flash_backward_sm90.cu),
+C and 16 (the split-KV body, csrc/decode_split.cuh) and H (the TMA-fed
+weight stream, csrc/layer_matmul_sm90.cu) that the checks must catch. Each mutant names the source it edits and is
 built in its own copy of the package under build/copies/ (ops/_build.py
 builds a copy into its own build/), and two checks run there on the card:
 
@@ -32,9 +32,9 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parent
 COPIES = REPO / "build" / "copies"  # gitignored
 CSRC = "grasp_any_region_tpu_torch/csrc/"
-FWD, GEMM, GEMM_LOOP, BWD, SPLIT = (CSRC + name for name in (
+FWD, GEMM, GEMM_LOOP, BWD, SPLIT, STREAM = (CSRC + name for name in (
     "flash_forward_sm90.cu", "gemm_sm90.cu", "gemm_sm90.cuh", "flash_backward_sm90.cu",
-    "decode_split.cuh"))
+    "decode_split.cuh", "layer_matmul_sm90.cu"))
 MUTANTS = {  # name: (source, [(old, new), ...] in it)
     "drop_last_key_tile": (FWD, [
         # B: the causal band and the full rows lose their last key tile
@@ -89,15 +89,38 @@ MUTANTS = {  # name: (source, [(old, new), ...] in it)
     "c_chunk_edge_counted_twice": (SPLIT, [
         ("f1 = min(total, f0 + chunk);", "f1 = min(total, f0 + chunk + 1);")]),
     "c_current_token_twice": (SPLIT, [
-        ("float l = p_cur, acc = p_cur * __bfloat162float(vn[i % D]);",
-         "float l = 2.f * p_cur, acc = 2.f * p_cur * __bfloat162float(vn[i % D]);")]),
+        ("      l = p_cur;\n      acc = p_cur * __bfloat162float(",
+         "      l = 2.f * p_cur;\n      acc = 2.f * p_cur * __bfloat162float(")]),
     "c_write_pos_not_written": (SPLIT, [
         ("if (rank == 0 && tid < D && wpos >= 0 && wpos < a.seq) {",
          "if (false && rank == 0 && tid < D && wpos >= 0 && wpos < a.seq) {")]),
+    # 16: the layer read as 0; column write_pos left out; the last CTA's
+    # chunk dropped; prompt columns past the last block_s block counted
+    "16_layer_read_as_0": (SPLIT, [("    layer = a.layer_index[0];",
+                                    "    layer = 0 * a.layer_index[0];")]),
+    "16_write_pos_left_out": (SPLIT, [("    hi = min(wpos + 1, a.seq);",
+                                       "    hi = min(wpos, a.seq);")]),
+    "16_last_chunk_dropped": (SPLIT, [
+        ("const int n_tiles = (f1 - f0 + kSplitRows - 1) / kSplitRows;",
+         "const int n_tiles = !Append && rank == splits - 1 ? 0 "
+         ": (f1 - f0 + kSplitRows - 1) / kSplitRows;")]),
+    "16_prompt_past_block_counted": (SPLIT, [
+        ("n1 = max(min(min(a.prompt_lens[b], (wpos / a.block_s + 1) * a.block_s), a.seq), 0);",
+         "n1 = max(min(a.prompt_lens[b], a.seq), 0);")]),
+    # H: the last stage of each CTA not multiplied; rank 1's partial summed
+    # twice; the last column tile not stored
+    "h_last_stage_skipped": (STREAM, [("xa[i][e] = r < a.rows && k < k_left",
+                                       "xa[i][e] = r < a.rows && k < k_left && j + 1 < n_stages")]),
+    "h_partial_summed_twice": (STREAM, [(
+        "v[w] += recv[((w * splits + r) * a.rows + row) * cols + c];",
+        "v[w] += (r == 1 ? 2.f : 1.f) * recv[((w * splits + r) * a.rows + row) * cols + c];")]),
+    "h_last_tile_not_stored": (STREAM, [("if (n0 + rank * cols + c >= a.dout) continue;",
+                                         "if (n0 + rank * cols + c >= a.dout || "
+                                         "blockIdx.y == gridDim.y - 1) continue;")]),
 }
 TESTS = ("flash_attention_kernel or fused_qkv_kernel or lse_segments or lse_and_backward "
          "or wo_residual or vit_block_kernels or vit_attention_kernel "
-         "or decode_attention_kernel")
+         "or decode_attention_kernel or decode_attention_stacked or layer_matmul")
 CONTEXT_LOST = ("CUDA error", "AcceleratorError", "illegal instruction",
                 "unspecified launch failure")
 PHASE2 = "import chip_smoke as c; c.phase_environment(); c.phase_kernels()"

@@ -22,17 +22,17 @@
 // is held by having one block per (kv head, batch row), not by the bytes
 // (its move onto the split body is later work).
 //
-// Kernel 16 (decode_attention_kernel) replaces
-// grasp_any_region_tpu/ops/decode_attention.py:decode_attention /
-// decode_attention_stacked (_decode_kernel via _decode_call): the same body
-// read-only (decode_attend<..., Append = false>), the current token already
-// in the cache at write_pos, over the layer that a device int32 scalar picks
-// out of the stacked bf16 cache, so a caller never waits for the host. Bound
-// by the valid columns' bytes like C, on the same grid. The TPU kernel walks
-// whole block_s blocks up to the one holding write_pos; a prompt column past
-// that block (prompt_len > write_pos + 1, outside the cache's layout) is
-// left out here as there. A layer outside [0, L) writes NaN rows instead of
-// reading outside the cache.
+// Kernel 16 replaces grasp_any_region_tpu/ops/decode_attention.py:
+// decode_attention / decode_attention_stacked (_decode_kernel via
+// _decode_call): C's split-KV body read only (decode_split_kernel<...,
+// Append = false>), the current token already in the cache at write_pos,
+// over the layer that a device int32 scalar picks out of the stacked bf16
+// cache, so a caller never waits for the host. Bound by the valid columns'
+// bytes like C, on C's grid of `splits` CTAs a (kv head, row). The TPU
+// kernel walks whole block_s blocks up to the one holding write_pos; a
+// prompt column past that block (prompt_len > write_pos + 1, outside the
+// cache's layout) is left out here as there. A layer outside [0, L) writes
+// NaN rows instead of reading outside the cache.
 #include "decode_split.cuh"
 #include "decode_tile.cuh"
 
@@ -66,33 +66,6 @@ decode_attention_fused_kernel(const bf16* __restrict__ q, T* k_all, T* v_all,
                          });
 }
 
-template <int D, int G>
-__global__ void __launch_bounds__(kDecodeWarps * 32)
-decode_attention_kernel(const bf16* __restrict__ q, bf16* k_all, bf16* v_all,
-                        bf16* __restrict__ out, const int* __restrict__ prompt_lens,
-                        const int* __restrict__ write_pos, const int* __restrict__ layer_index,
-                        int n_layers, int batch, int kv_heads, int seq, int prompt_pad,
-                        int block_s, float scale) {
-  __shared__ DecodeShared<G, D> sh;
-  const int kh = blockIdx.x, b = blockIdx.y;
-  const int layer = layer_index[0], wpos = write_pos[0];
-  const size_t head0 = static_cast<size_t>(b) * kv_heads * G + static_cast<size_t>(kh) * G;
-  if (layer < 0 || layer >= n_layers) {
-    const bf16 nan = __float2bfloat16(__int_as_float(0x7fc00000));
-    for (int i = threadIdx.x; i < G * D; i += blockDim.x) out[head0 * D + i] = nan;
-    return;
-  }
-  const size_t slab = ((static_cast<size_t>(layer) * batch + b) * kv_heads + kh) *
-                      static_cast<size_t>(seq) * D;
-  // the TPU kernel visits blocks 0 .. write_pos / block_s
-  const int plen = min(prompt_lens[b], (wpos / block_s + 1) * block_s);
-  decode_attend<bf16, D, G, false>(sh, q + head0 * D, k_all + slab, v_all + slab, nullptr,
-                                   nullptr, plen, wpos, seq, prompt_pad, 1.f, 1.f, scale,
-                                   [&](int gg, int d, float v) {
-                                     out[(head0 + gg) * D + d] = __float2bfloat16(v);
-                                   });
-}
-
 struct DecodeArgs {
   const void* q;
   void* k_all;
@@ -121,18 +94,6 @@ int launch_decode(const DecodeArgs& a, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D, int G>
-int launch_decode_read(const DecodeArgs& a, const void* layer, int n_layers, int block_s,
-                       cudaStream_t stream) {
-  const dim3 grid(a.kv_heads, a.batch);
-  decode_attention_kernel<D, G><<<grid, kDecodeWarps * 32, 0, stream>>>(
-      static_cast<const bf16*>(a.q), static_cast<bf16*>(a.k_all), static_cast<bf16*>(a.v_all),
-      static_cast<bf16*>(a.out), static_cast<const int*>(a.prompt_lens),
-      static_cast<const int*>(a.write_pos), static_cast<const int*>(layer), n_layers, a.batch,
-      a.kv_heads, a.seq, a.prompt_pad, block_s, a.scale);
-  return static_cast<int>(cudaGetLastError());
-}
-
 template <typename T>
 int dispatch_decode(const DecodeArgs& a, int heads, int head_dim, cudaStream_t stream) {
   if (head_dim != 64 || a.kv_heads <= 0 || heads % a.kv_heads != 0)
@@ -142,6 +103,18 @@ int dispatch_decode(const DecodeArgs& a, int heads, int head_dim, cudaStream_t s
     case 2: return launch_decode<T, 64, 2>(a, stream);
     case 4: return launch_decode<T, 64, 4>(a, stream);
     case 8: return launch_decode<T, 64, 8>(a, stream);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// C or 16 by the query heads a kv head serves.
+template <bool Append>
+int dispatch_split(const SplitArgs& a, int heads, int splits, cudaStream_t stream) {
+  switch (heads / a.kv_heads) {
+    case 1: return launch_split<bf16, 1, Append>(a, splits, stream);
+    case 2: return launch_split<bf16, 2, Append>(a, splits, stream);
+    case 4: return launch_split<bf16, 4, Append>(a, splits, stream);
+    case 8: return launch_split<bf16, 8, Append>(a, splits, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -162,15 +135,8 @@ extern "C" int gar_decode_attention_fused(
                          static_cast<const gar::bf16*>(k_new),
                          static_cast<const gar::bf16*>(v_new), static_cast<gar::bf16*>(out),
                          static_cast<const int*>(prompt_lens), static_cast<const int*>(write_pos),
-                         layer, batch, kv_heads, seq, prompt_pad, scale};
-  const auto s = static_cast<cudaStream_t>(stream);
-  switch (heads / kv_heads) {
-    case 1: return gar::launch_split<gar::bf16, 1>(a, splits, s);
-    case 2: return gar::launch_split<gar::bf16, 2>(a, splits, s);
-    case 4: return gar::launch_split<gar::bf16, 4>(a, splits, s);
-    case 8: return gar::launch_split<gar::bf16, 8>(a, splits, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+                         nullptr, layer, 0, batch, kv_heads, seq, prompt_pad, 0, scale};
+  return gar::dispatch_split<true>(a, heads, splits, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int gar_decode_attention_fused_q8(
@@ -184,24 +150,20 @@ extern "C" int gar_decode_attention_fused_q8(
   return gar::dispatch_decode<int8_t>(a, heads, head_dim, static_cast<cudaStream_t>(stream));
 }
 
+// Kernel 16 over a cluster of `splits` CTAs, as C; the layer is read on the card.
 extern "C" int gar_decode_attention(const void* q, const void* k_all, const void* v_all,
                                     void* out, const void* prompt_lens, const void* write_pos,
                                     const void* layer, int n_layers, int batch, int heads,
                                     int kv_heads, int seq, int head_dim, int prompt_pad,
-                                    int block_s, float scale, void* stream) {
-  if (head_dim != 64 || kv_heads <= 0 || heads % kv_heads != 0 || block_s <= 0)
+                                    int block_s, int splits, float scale, void* stream) {
+  if (head_dim != 64 || kv_heads <= 0 || heads % kv_heads != 0 || block_s <= 0 ||
+      splits < 1 || splits > gar::kSplitMaxCluster)
     return static_cast<int>(cudaErrorInvalidValue);
   // read only: the Append = false body never writes the cache
-  const gar::DecodeArgs a{q, const_cast<void*>(k_all), const_cast<void*>(v_all), nullptr,
-                          nullptr, out, prompt_lens, write_pos, nullptr, nullptr,
-                          /*layer: read on the card*/ 0, batch, kv_heads, seq, prompt_pad,
-                          scale};
-  const auto s = static_cast<cudaStream_t>(stream);
-  switch (heads / kv_heads) {
-    case 1: return gar::launch_decode_read<64, 1>(a, layer, n_layers, block_s, s);
-    case 2: return gar::launch_decode_read<64, 2>(a, layer, n_layers, block_s, s);
-    case 4: return gar::launch_decode_read<64, 4>(a, layer, n_layers, block_s, s);
-    case 8: return gar::launch_decode_read<64, 8>(a, layer, n_layers, block_s, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  const gar::SplitArgs a{static_cast<const gar::bf16*>(q), const_cast<void*>(k_all),
+                         const_cast<void*>(v_all), nullptr, nullptr,
+                         static_cast<gar::bf16*>(out), static_cast<const int*>(prompt_lens),
+                         static_cast<const int*>(write_pos), static_cast<const int*>(layer), 0,
+                         n_layers, batch, kv_heads, seq, prompt_pad, block_s, scale};
+  return gar::dispatch_split<false>(a, heads, splits, static_cast<cudaStream_t>(stream));
 }

@@ -1,14 +1,15 @@
-// Kernel C's body for Hopper: one query token of GQA attention over one
+// Kernels C and 16 for Hopper: one query token of GQA attention over one
 // (layer, batch row, kv head) slab of the stacked (L, B, K, S, 64) cache,
-// with the current token's K/V written at column write_pos in place, split
-// over the CTAs of a thread-block cluster (split-KV in one launch).
+// split over the CTAs of a thread-block cluster (split-KV in one launch).
+// C (Append) writes the current token's K/V at column write_pos in place;
+// 16 (read only) finds the current token already in the cache there.
 //
-// The valid columns are [0, min(prompt_len, prompt_pad)) and [prompt_pad,
+// C's valid columns are [0, min(prompt_len, prompt_pad)) and [prompt_pad,
 // write_pos), read as one flat index, so the gap [prompt_len, prompt_pad)
 // is never loaded. A cluster of `splits` CTAs serves one (kv head, batch
 // row), and CTA r takes the equal, contiguous chunk [r c, (r + 1) c) of the
 // flat index, c = ceil(total / splits); a chunk may be empty (total <
-// splits), and never holds write_pos (the history ends before it). The
+// splits), and in C never holds write_pos (the history ends before it). The
 // step reads each valid K and V row once for all G = H / K query heads and
 // does ~2 flops a byte, so it is bound by how fast the rows stream in; one
 // block per (kv head, row) gave 8-16 busy SMs at B = 1-2, and the splits
@@ -28,14 +29,27 @@
 // V (ldmatrix.trans on V). The warps merge in shared memory; the cluster
 // syncs; CTA r then finishes the outputs r, r + splits, ... of the G x 64,
 // reading every CTA's (m, l, acc) over distributed shared memory in rank
-// order and folding in the current token from k_new / v_new (so no CTA
-// reads the column that CTA 0 writes). An empty chunk's m = -inf weighs 0.
-// No workspace, no atomics, one launch, and the result does not depend on
-// timing.
+// order and, in C, folding in the current token from k_new / v_new (so no
+// CTA reads the column that CTA 0 writes). An empty chunk's m = -inf weighs
+// 0 by test, never by exp(-inf - -inf). No workspace, no atomics, one
+// launch, and the result does not depend on timing.
+//
+// Kernel 16 (read only) takes the layer from a device int32 and the same
+// flat index over [0, n1) and [max(prompt_pad, n1), write_pos]: write_pos
+// inclusive, n1 = prompt_len cut at the end of the block_s block that holds
+// write_pos (the TPU kernel visits blocks 0 .. write_pos / block_s, so a
+// prompt column past that block is left out as there), and each column
+// counted once where the prompt runs past prompt_pad. Nothing is written
+// and nothing folded in: the merge's m comes from the chunks alone, and
+// under the layout contract (prompt_pad <= write_pos < S) chunk 0 holds a
+// column; a row with no valid column gives 0, not NaN. A layer outside
+// [0, L) writes NaN rows: every CTA of a cluster reads the same layer, so
+// all of them leave before the first cluster barrier.
 //
 // The cache element type is a template parameter, as decode_attend has it,
-// so the int8 cache and the read-only form can move onto this body; only
-// the bf16 cache with the append (kernel C) is instantiated here.
+// so the int8 cache (C8) can move onto this body once its stages are
+// widened; the bf16 cache is instantiated here, with the append (C) and
+// read only (16).
 #pragma once
 
 #include <cooperative_groups.h>
@@ -56,61 +70,83 @@ static_assert(4 * 8 * 66 * 4 + 8 * 66 * 4 <= kSplitSmem, "the partials fit in th
 
 struct SplitArgs {
   const bf16* q;  // (B, H, 64)
-  void* k_all;    // (L, B, K, S, 64), updated at column write_pos
+  void* k_all;    // (L, B, K, S, 64), C: updated at column write_pos
   void* v_all;
-  const bf16* k_new;  // (B, K, 64)
+  const bf16* k_new;  // C: (B, K, 64)
   const bf16* v_new;
   bf16* out;  // (B, H, 64)
   const int* prompt_lens;  // (B,)
   const int* write_pos;    // ()
-  int layer, batch, kv_heads, seq, prompt_pad;
+  const int* layer_index;  // 16: () on the card; C takes `layer`
+  int layer, n_layers, batch, kv_heads, seq, prompt_pad;
+  int block_s;  // 16: the TPU kernel's block of columns
   float scale;
 };
 
 // Grid (splits, kv heads, batch), cluster (splits, 1, 1).
-template <typename T, int G>
+template <typename T, int G, bool Append>
 __global__ void __launch_bounds__(kSplitThreads) decode_split_kernel(const SplitArgs a) {
   static_assert(sizeof(T) == 2, "bf16 rows: an int8 cache needs its stages widened first");
   static_assert(G >= 1 && G <= 8, "the query heads of a kv head are the rows of one m16 tile");
   constexpr int D = 64;
   constexpr float kLog2e = 1.4426950408889634f;
   extern __shared__ __align__(128) uint8_t smem[];
-  __shared__ float s_cur[G];  // the current token's logit, log2 units
+  __shared__ float s_cur[G];  // C: the current token's logit, log2 units
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
   const int splits = static_cast<int>(cluster.num_blocks());
   const int kh = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
   const size_t row = static_cast<size_t>(b) * a.kv_heads + kh;
-  const size_t slab = (static_cast<size_t>(a.layer) * a.batch * a.kv_heads + row) *
+  int layer = a.layer;
+  if constexpr (!Append) {
+    layer = a.layer_index[0];
+    if (layer < 0 || layer >= a.n_layers) {  // the whole cluster leaves here
+      const bf16 nan = __float2bfloat16(__int_as_float(0x7fc00000));
+      for (int i = rank + splits * tid; i < G * D; i += splits * kSplitThreads)
+        a.out[row * G * D + i] = nan;
+      return;
+    }
+  }
+  const size_t slab = (static_cast<size_t>(layer) * a.batch * a.kv_heads + row) *
                       static_cast<size_t>(a.seq) * D;
   T* kc = static_cast<T*>(a.k_all) + slab;
   T* vc = static_cast<T*>(a.v_all) + slab;
   const bf16* qp = a.q + row * G * D;
-  const bf16* kn = a.k_new + row * D;
-  const bf16* vn = a.v_new + row * D;
   const float sl2 = a.scale * kLog2e;
 
   // the valid columns [0, n1) and [lo2, hi) as one flat index, and this CTA's chunk
   const int wpos = a.write_pos[0];
-  const int hi = min(wpos, a.seq);
-  const int n1 = max(min(min(a.prompt_lens[b], a.prompt_pad), hi), 0);
-  const int lo2 = a.prompt_pad;
+  int hi, n1, lo2;
+  if constexpr (Append) {
+    hi = min(wpos, a.seq);
+    n1 = max(min(min(a.prompt_lens[b], a.prompt_pad), hi), 0);
+    lo2 = a.prompt_pad;
+  } else {
+    hi = min(wpos + 1, a.seq);
+    n1 = max(min(min(a.prompt_lens[b], (wpos / a.block_s + 1) * a.block_s), a.seq), 0);
+    lo2 = max(a.prompt_pad, n1);
+  }
   const int total = n1 + max(hi - lo2, 0);
   const int chunk = (total + splits - 1) / splits;
   const int f0 = min(total, rank * chunk), f1 = min(total, f0 + chunk);
   const int n_tiles = (f1 - f0 + kSplitRows - 1) / kSplitRows;
 
-  if (rank == 0 && tid < D && wpos >= 0 && wpos < a.seq) {
-    kc[static_cast<size_t>(wpos) * D + tid] = kn[tid];
-    vc[static_cast<size_t>(wpos) * D + tid] = vn[tid];
-  }
-  for (int gg = warp; gg < G; gg += kSplitThreads / 32) {  // q . k_new, each head once
-    const float2 qf = __bfloat1622float2(
-        *reinterpret_cast<const __nv_bfloat162*>(qp + gg * D + 2 * lane));
-    const float2 kf = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(kn + 2 * lane));
-    const float dot = warp_sum(qf.x * kf.x + qf.y * kf.y);
-    if (lane == 0) s_cur[gg] = dot * sl2;
+  if constexpr (Append) {
+    const bf16* kn = a.k_new + row * D;
+    const bf16* vn = a.v_new + row * D;
+    if (rank == 0 && tid < D && wpos >= 0 && wpos < a.seq) {
+      kc[static_cast<size_t>(wpos) * D + tid] = kn[tid];
+      vc[static_cast<size_t>(wpos) * D + tid] = vn[tid];
+    }
+    for (int gg = warp; gg < G; gg += kSplitThreads / 32) {  // q . k_new, each head once
+      const float2 qf = __bfloat1622float2(
+          *reinterpret_cast<const __nv_bfloat162*>(qp + gg * D + 2 * lane));
+      const float2 kf =
+          __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(kn + 2 * lane));
+      const float dot = warp_sum(qf.x * kf.x + qf.y * kf.y);
+      if (lane == 0) s_cur[gg] = dot * sl2;
+    }
   }
   // Q as A fragments: a[0] = Q[g][16 kk + 2t ..], a[2] = Q[g][16 kk + 8 + 2t ..];
   // rows g + 8 (a[1], a[3]) and g >= G are zero
@@ -244,8 +280,8 @@ __global__ void __launch_bounds__(kSplitThreads) decode_split_kernel(const Split
   }
   cluster.sync();  // every CTA's partial written and visible to the cluster
 
-  // outputs rank, rank + splits, ...: the CTAs in rank order, then the current
-  // token; every remote load issued before the first is used
+  // outputs rank, rank + splits, ...: the CTAs in rank order, then (C) the
+  // current token; every remote load issued before the first is used
   for (int i = rank + splits * tid; i < G * D; i += splits * kSplitThreads) {
     const int gg = i / D;
     float m_r[kSplitMaxCluster], l_r[kSplitMaxCluster], acc_r[kSplitMaxCluster];
@@ -257,12 +293,16 @@ __global__ void __launch_bounds__(kSplitThreads) decode_split_kernel(const Split
         acc_r[r] = *cluster.map_shared_rank(cacc + i, r);
       }
     }
-    float m = s_cur[gg];
+    float m = Append ? s_cur[gg] : -INFINITY;
 #pragma unroll
     for (int r = 0; r < kSplitMaxCluster; ++r)
       if (r < splits) m = fmaxf(m, m_r[r]);
-    const float p_cur = exp2f(s_cur[gg] - m);
-    float l = p_cur, acc = p_cur * __bfloat162float(vn[i % D]);
+    float l = 0.f, acc = 0.f;
+    if constexpr (Append) {
+      const float p_cur = exp2f(s_cur[gg] - m);
+      l = p_cur;
+      acc = p_cur * __bfloat162float(a.v_new[row * D + i % D]);
+    }
 #pragma unroll
     for (int r = 0; r < kSplitMaxCluster; ++r) {
       if (r < splits) {
@@ -278,13 +318,14 @@ __global__ void __launch_bounds__(kSplitThreads) decode_split_kernel(const Split
 
 // One launch; the first opts the kernel in to its shared memory and to
 // clusters of up to 16.
-template <typename T, int G>
+template <typename T, int G, bool Append>
 int launch_split(const SplitArgs& a, int splits, cudaStream_t stream) {
   static bool opted_in = false;
-  const int err = opt_in(decode_split_kernel<T, G>, kSplitSmem, true, opted_in);
+  const auto kernel = decode_split_kernel<T, G, Append>;
+  const int err = opt_in(kernel, kSplitSmem, true, opted_in);
   if (err) return err;
-  return launch_ex(decode_split_kernel<T, G>, dim3(splits, a.kv_heads, a.batch), kSplitThreads,
-                   kSplitSmem, splits, stream, a);
+  return launch_ex(kernel, dim3(splits, a.kv_heads, a.batch), kSplitThreads, kSplitSmem, splits,
+                   stream, a);
 }
 
 }  // namespace gar

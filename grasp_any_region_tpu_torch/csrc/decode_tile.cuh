@@ -1,8 +1,7 @@
 // One (kv head, batch row) of decode attention with the KV append: the body
 // of kernel C8 (decode_attention.cu) and of kernel 22's attention
-// (decode_megakernel.cu), and kernel C's first form (C now splits the
-// columns over a cluster, decode_split.cuh); with Append = false, the
-// read-only body of kernel 16 (decode_attention.cu), described at the end.
+// (decode_megakernel.cu), and the first form of kernels C and 16 (both now
+// split the columns over a cluster, decode_split.cuh).
 //
 // The block (kDecodeWarps warps) writes the new K/V row at column write_pos
 // of its cache slab, then streams 128-byte K rows one per lane and keeps the
@@ -15,12 +14,6 @@
 // writes. The int8 cache (T = int8_t) is dequantized on load as bf16(q *
 // scale); the new K/V are quantized with the same scale, clip(rint(x /
 // scale), -127, 127), and folded in as their dequantized fp32 values.
-//
-// Append = false (kernel 16, a bf16 cache) writes nothing and folds nothing
-// in: the current token is already in the cache at write_pos. The valid
-// columns are [0, plen) and [prompt_pad, write_pos], each counted once
-// (where plen passes prompt_pad the second interval starts at plen), and
-// kn / vn are not read.
 #pragma once
 
 #include "common.cuh"
@@ -59,9 +52,9 @@ struct DecodeShared {
 
 // The attention of the G query heads at qp ((G, D) bf16) over the slabs kc,
 // vc ((seq, D) at this layer, batch row and kv head), after writing kn / vn
-// at column wpos (Append). store(gg, d, value) receives each normalized fp32
-// output once. ksc / vsc: the int8 cache's scales (1 for bf16).
-template <typename T, int D, int G, bool Append = true, typename Store>
+// at column wpos. store(gg, d, value) receives each normalized fp32 output
+// once. ksc / vsc: the int8 cache's scales (1 for bf16).
+template <typename T, int D, int G, typename Store>
 __device__ __forceinline__ void decode_attend(DecodeShared<G, D>& sh, const bf16* __restrict__ qp,
                                               T* kc, T* vc, const bf16* __restrict__ kn,
                                               const bf16* __restrict__ vn, int plen, int wpos,
@@ -75,7 +68,7 @@ __device__ __forceinline__ void decode_attend(DecodeShared<G, D>& sh, const bf16
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
 
   for (int i = tid; i < G * D; i += NW * 32) sh.sq[i / D][i % D] = __bfloat162float(qp[i]);
-  if (Append && tid < D) {
+  if (tid < D) {
     float kf = __bfloat162float(kn[tid]), vf = __bfloat162float(vn[tid]);
     T kw, vw;
     if constexpr (Q8) {
@@ -99,16 +92,9 @@ __device__ __forceinline__ void decode_attend(DecodeShared<G, D>& sh, const bf16
   __syncthreads();
 
   // columns [0, n1), then [lo2, lo2 + n2)
-  int hi, n1, lo2;
-  if constexpr (Append) {
-    hi = min(wpos, seq);
-    n1 = max(min(min(plen, prompt_pad), hi), 0);  // prompt columns
-    lo2 = prompt_pad;                              // generated columns
-  } else {
-    hi = min(wpos + 1, seq);
-    n1 = max(min(plen, seq), 0);
-    lo2 = max(prompt_pad, n1);
-  }
+  const int hi = min(wpos, seq);
+  const int n1 = max(min(min(plen, prompt_pad), hi), 0);  // prompt columns
+  const int lo2 = prompt_pad;                              // generated columns
   const int n2 = max(hi - lo2, 0);
   const int total = n1 + n2;
 
@@ -191,23 +177,17 @@ __device__ __forceinline__ void decode_attend(DecodeShared<G, D>& sh, const bf16
   }
   __syncthreads();
 
-  // merge the warps and fold in the current token (Append)
+  // merge the warps and fold in the current token
   for (int idx = tid; idx < G * D; idx += NW * 32) {
     const int gg = idx / D, d = idx % D;
-    float s_cur = 0.f, m_all = kNegInf;
-    if constexpr (Append) {
-      for (int e = 0; e < D; ++e) s_cur += sh.sq[gg][e] * sh.skn[e];
-      s_cur *= scale;
-      m_all = s_cur;
-    }
+    float s_cur = 0.f;
+    for (int e = 0; e < D; ++e) s_cur += sh.sq[gg][e] * sh.skn[e];
+    s_cur *= scale;
+    float m_all = s_cur;
 #pragma unroll
     for (int w = 0; w < NW; ++w) m_all = fmaxf(m_all, sh.sm[w][gg]);
-    float l_all = 0.f, a_all = 0.f;
-    if constexpr (Append) {
-      const float p_cur = expf(s_cur - m_all);
-      l_all = p_cur;
-      a_all = p_cur * sh.svn[d];
-    }
+    const float p_cur = expf(s_cur - m_all);
+    float l_all = p_cur, a_all = p_cur * sh.svn[d];
 #pragma unroll
     for (int w = 0; w < NW; ++w) {
       const float f = expf(sh.sm[w][gg] - m_all);

@@ -1,12 +1,14 @@
-// Kernels H, I and J: the layer-indexed decode matmuls, (B, Din) @ w_all[l]
+// Kernels I and J: the layer-indexed decode matmuls, (B, Din) @ w_all[l]
 // for a batch of B <= 32 rows, the weight read in place from the stacked
-// (L, Din, Dout) array at layer l.
+// (L, Din, Dout) array at layer l. Kernel H (layer_matmul: x @ w_all[l])
+// ran on this body until it moved to the TMA-fed weight stream of
+// layer_matmul_sm90.cu; its earlier form stays callable here as
+// gar_layer_matmul_ring, which no path launches (chip_smoke.py times the
+// two side by side).
 //
-// H  replaces grasp_any_region_tpu/ops/layer_matmul.py:layer_matmul
-//    (_mm_kernel): x @ w_all[l], fp32 sums, rounded to bf16.
-// I  replaces layer_matmul.py:layer_swiglu (_swiglu_kernel):
-//    silu(x @ wg[l]) * (x @ wu[l]), both sums fp32, SiLU and the product in
-//    fp32, one rounding to bf16.
+// I  replaces grasp_any_region_tpu/ops/layer_matmul.py:layer_swiglu
+//    (_swiglu_kernel): silu(x @ wg[l]) * (x @ wu[l]), both sums fp32, SiLU
+//    and the product in fp32, one rounding to bf16.
 // J  replaces layer_matmul.py:layer_qkv (_qkv_kernel): the q, k and v
 //    products of one x, each column tile writing to the output it belongs
 //    to. The TPU kernel's single whole-weight block (grid (1,)) is a VMEM
@@ -316,8 +318,9 @@ int qkv(const void* x, const void* wq_all, const void* sq_all, const void* wk_al
 
 using gar::bf16;
 
-extern "C" int gar_layer_matmul(const void* x, const void* w_all, void* out, int layer,
-                                int rows, int din, int dout, void* stream) {
+// H's earlier form (before layer_matmul_sm90.cu), for comparison only.
+extern "C" int gar_layer_matmul_ring(const void* x, const void* w_all, void* out, int layer,
+                                     int rows, int din, int dout, void* stream) {
   return gar::matmul<bf16>(x, w_all, nullptr, out, layer, rows, din, dout, stream);
 }
 

@@ -71,6 +71,27 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   }
 }
 
+// ---- programmatic dependent launch
+
+// Wait until the grids this one depends on have completed and their writes
+// are visible; a no-op for a grid launched without
+// cudaLaunchAttributeProgrammaticStreamSerialization. Work before it may
+// only touch memory that those grids do not write.
+__device__ __forceinline__ void grid_dependency_wait() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+
+// ---- cluster barrier, split: arrive now, wait later (every thread of
+// every CTA of the cluster, warps converged)
+
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
 // ---- TMA
 
 // A 4D tile (dims innermost first, as the map was encoded) into shared
@@ -83,6 +104,18 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
       "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_addr(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2),
       "r"(c3)
+      : "memory");
+}
+
+// `bytes` (a multiple of 16; both addresses 16-byte aligned) of global
+// memory into shared memory by the TMA unit, without a tensor map;
+// completes on `bar` with its bytes.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
+          "r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_addr(bar))
       : "memory");
 }
 

@@ -42,13 +42,14 @@ _SIGNATURES = {
     "gar_flash_bwd_dkv": [_P] * 12 + [_I] * 7 + [_LP, _F, _P],
     "gar_decode_attention_fused": [_P] * 8 + [_I] * 8 + [_F, _P],
     "gar_decode_attention_fused_q8": [_P] * 10 + [_I] * 7 + [_F, _P],
-    "gar_decode_attention": [_P] * 7 + [_I] * 8 + [_F, _P],
+    "gar_decode_attention": [_P] * 7 + [_I] * 9 + [_F, _P],
     "gar_layer_norm": [_P] * 4 + [_I] * 5 + [_F, _P],
     "gar_vit_attention_fused_qkv": [_P] * 4 + [_I] * 4 + [_F, _P],
     "gar_vit_ln_qkv": [_P] * 6 + [_I] * 3 + [_F, _P],
     "gar_vit_wo_residual": [_P] * 6 + [_I] * 2 + [_P],
     "gar_vit_mlp_residual": [_P] * 9 + [_I] * 3 + [_F, _I, _P],
-    "gar_layer_matmul": [_P] * 3 + [_I] * 4 + [_P],
+    "gar_layer_matmul": [_P] * 3 + [_I] * 6 + [_P],
+    "gar_layer_matmul_ring": [_P] * 3 + [_I] * 4 + [_P],
     "gar_layer_swiglu": [_P] * 4 + [_I] * 4 + [_P],
     "gar_layer_qkv": [_P] * 7 + [_I] * 5 + [_P],
     "gar_layer_matmul_q8": [_P] * 4 + [_I] * 4 + [_P],
@@ -135,6 +136,12 @@ def library() -> ctypes.CDLL:
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """The SM count of CUDA device `index`."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def check(err: int, name: str) -> None:

@@ -42,16 +42,17 @@ attention output.
 
 Kernel 16 replaces `decode_attention` and `decode_attention_stacked`
 (`_decode_kernel` via `_decode_call`) with the same names and arguments:
-C's body read-only, over a bf16 cache that already holds the current
-token at write_pos, at the layer that a () int32 device tensor picks out
-of the stacked cache, so neither wrapper waits for the host. No JAX path
-dispatches it (the XLA decode step attends through
+C's split-KV body read only, over a bf16 cache that already holds the
+current token at write_pos, at the layer that a () int32 device tensor
+picks out of the stacked cache, so neither wrapper waits for the host; the
+same `card_splits` CTAs a (kv head, row) as C, and
+`decode_attention_split_plain` mirrors its chunks on any device. No JAX
+path dispatches it (the XLA decode step attends through
 `decode_attention_reference`), so none here does either.
 """
 
 from __future__ import annotations
 
-import functools
 from typing import Optional
 
 import torch
@@ -158,15 +159,10 @@ def decode_attention_fused_split_plain(
     return torch.stack(rows).reshape(b, h, d).to(q.dtype)
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def card_splits(batch: int, kv_heads: int, device: torch.device) -> int:
     """`decode_splits` with the SM count of the card."""
     index = device.index if device.index is not None else torch.cuda.current_device()
-    return decode_splits(batch, kv_heads, sms=_sm_count(index))
+    return decode_splits(batch, kv_heads, sms=_build.sm_count(index))
 
 
 def _pair_scales(scale: torch.Tensor, layer: int) -> torch.Tensor:
@@ -344,6 +340,67 @@ def decode_attention_plain(
     return (acc / torch.clamp(den, min=1e-30)).reshape(b, h, d).to(q.dtype)
 
 
+def valid_columns_read(prompt_len: int, prompt_pad: int, write_pos: int, seq: int,
+                       block_s: int) -> list[int]:
+    """The cache columns kernel 16 attends over for one row, in the order of
+    its flat index: [0, n1), n1 = prompt_len cut at the end of the block_s
+    block that holds write_pos (the TPU kernel's last block), then
+    [max(prompt_pad, n1), write_pos] (write_pos inclusive); both cut at
+    seq."""
+    n1 = max(min(prompt_len, (write_pos // block_s + 1) * block_s, seq), 0)
+    return list(range(n1)) + list(range(max(prompt_pad, n1), min(write_pos + 1, seq)))
+
+
+def decode_attention_split_plain(
+    q: torch.Tensor, k_all: torch.Tensor, v_all: torch.Tensor, layer: torch.Tensor, *,
+    prompt_lens: torch.Tensor, write_pos: torch.Tensor, prompt_pad: int, splits: int,
+    scale: Optional[float] = None, block_s: int = 512,
+) -> torch.Tensor:
+    """Kernel 16's split arithmetic in torch: for each row the valid columns
+    (`valid_columns_read`) cut into `splits` chunks as the kernel cuts them
+    (`split_bounds`); each chunk's (m, l, acc) with p = exp(s - the chunk's
+    max) rounded to v's dtype before PV (the kernel rounds against the
+    running max of each warp's 16 keys, which only shifts where bf16
+    rounds); the chunks merged in rank order, an empty one weighing
+    nothing, and no current token folded in (it is in the cache). A layer
+    outside [0, L) gives NaN rows, as the kernel does. Reads the layer,
+    write_pos and prompt_lens on the host: a mirror for the tests, not a
+    path."""
+    b, h, d = q.shape
+    n_layers, _, kh, s, _ = k_all.shape
+    bs = _block_s(s, block_s)
+    if scale is None:
+        scale = d ** -0.5
+    lay, wpos = int(layer), int(write_pos)
+    if not 0 <= lay < n_layers:
+        return torch.full_like(q, float("nan"))
+    kc, vc = k_all[lay], v_all[lay]
+    qf = q.float().reshape(b, kh, h // kh, d)
+    rows = []
+    for r in range(b):
+        cols = torch.tensor(valid_columns_read(int(prompt_lens[r]), prompt_pad, wpos, s, bs),
+                            dtype=torch.long, device=q.device)
+        den = torch.zeros(qf.shape[1:3], device=q.device)
+        acc = torch.zeros(qf.shape[1:], device=q.device)
+        m_all = torch.full(qf.shape[1:3], float("-inf"), device=q.device)
+        parts = []
+        for f0, f1 in split_bounds(len(cols), splits):
+            if f0 == f1:  # an empty chunk (m = -inf) weighs nothing
+                continue
+            k_chunk, v_chunk = kc[r][:, cols[f0:f1]], vc[r][:, cols[f0:f1]]  # (K, n, D)
+            logits = torch.einsum("kgd,knd->kgn", qf[r], k_chunk.float()) * scale
+            m = logits.amax(-1)
+            p = torch.exp(logits - m[..., None])
+            parts.append((m, p.sum(-1), torch.einsum("kgn,knd->kgd", p.to(v_all.dtype).float(),
+                                                     v_chunk.float())))
+            m_all = torch.maximum(m_all, m)
+        for m, l_part, acc_part in parts:
+            f = torch.exp(m - m_all)
+            den, acc = den + f * l_part, acc + f[..., None] * acc_part
+        rows.append(acc / torch.clamp(den, min=1e-30)[..., None])
+    return torch.stack(rows).reshape(b, h, d).to(q.dtype)
+
+
 def decode_attention_stacked(
     q: torch.Tensor,  # (B, H, D)
     k_all: torch.Tensor,  # (L, B, K, S, D) stacked bf16 cache, read only
@@ -394,8 +451,8 @@ def decode_attention_stacked(
     out = torch.empty_like(q)
     err = _build.library().gar_decode_attention(
         q.data_ptr(), k_all.data_ptr(), v_all.data_ptr(), out.data_ptr(), prompt_lens.data_ptr(),
-        write_pos.data_ptr(), layer.data_ptr(), n_layers, b, h, kh, s, d, prompt_pad, bs, scale,
-        _build.stream_handle(q.device))
+        write_pos.data_ptr(), layer.data_ptr(), n_layers, b, h, kh, s, d, prompt_pad, bs,
+        card_splits(b, kh, q.device), scale, _build.stream_handle(q.device))
     _build.check(err, "gar_decode_attention")
     global launches_stacked
     launches_stacked += 1

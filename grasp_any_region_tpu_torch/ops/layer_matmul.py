@@ -15,11 +15,17 @@ SiLU and the product in fp32 from the fp32 sums (the XLA form rounds gate,
 up and the product separately), J rounds q, k and v. The layer is a Python
 int, as kernel C takes it.
 
-The CUDA kernels (csrc/layer_matmul.cu) stream the weights from HBM, which
-bounds them: split K over a thread-block cluster so the grid fills the
-card, reduce the partials through distributed shared memory in the same
-launch, tensor cores for B up to 32 rows. Din and Dout need only be
-multiples of 8; the TPU kernels' Dout % block_n rule does not apply.
+The CUDA kernels stream the weights from HBM, which bounds them: split K
+over a thread-block cluster so the grid fills the card, reduce the partials
+through distributed shared memory in the same launch, tensor cores for B
+up to 32 rows. Din and Dout need only be multiples of 8; the TPU kernels'
+Dout % block_n rule does not apply. H (csrc/layer_matmul_sm90.cu) streams
+its weight by TMA through a three-stage ring fed by one producer thread,
+and launches as a programmatic dependent of the kernel before it, so its
+weight loads may start before that kernel ends; `stream_splits` picks its
+cluster size, `stream_plan` says which (column tile, K range) each CTA
+takes, and `layer_matmul_stream_plain` sums in the kernel's order. I, J
+and the int8 forms run on csrc/layer_matmul.cu's cp.async ring.
 
 H8, I8 and J8 (`layer_matmul_q8`, `layer_swiglu_q8`, `layer_qkv_q8`,
 `grasp_any_region_tpu/ops/layer_matmul.py:165, 207, 253`, Pallas bodies
@@ -40,7 +46,8 @@ attribute reads.
 
 from __future__ import annotations
 
-from typing import Tuple
+import functools
+from typing import List, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -51,6 +58,58 @@ from . import _build
 launches = dict(H=0, I=0, J=0, H8=0, I8=0, J8=0)
 
 MAX_ROWS = 32  # batch rows the kernels take (two 16-row tensor-core tiles)
+
+# Kernel H's work plan (csrc/layer_matmul_sm90.cu): tiles of STREAM_N
+# output columns, STREAM_BK weight rows a stage, and clusters of at most
+# STREAM_MAX_SPLITS CTAs splitting K while the grid stays within
+# STREAM_CTAS_PER_SM CTAs an SM.
+STREAM_N, STREAM_MAX_SPLITS, STREAM_CTAS_PER_SM = 64, 8, 2
+STREAM_BK = 128
+
+
+def stream_splits(tiles: int, din: int, *, sms: int = 132) -> int:
+    """Kernel H's CTAs a column tile (the cluster size): doubled while the
+    grid stays within STREAM_CTAS_PER_SM CTAs an SM, the cluster within
+    STREAM_MAX_SPLITS, and a CTA keeps at least one stage of rows."""
+    s = 1
+    while (s < STREAM_MAX_SPLITS and tiles * s * 2 <= STREAM_CTAS_PER_SM * sms
+           and din >= 2 * s * STREAM_BK):
+        s *= 2
+    return s
+
+
+def stream_plan(din: int, dout: int, splits: int) -> List[Tuple[int, int, int, int]]:
+    """(column tile, rank, k0, k1) of each CTA of kernel H's grid: tile t
+    owns columns [STREAM_N t, STREAM_N (t + 1)) (cut at dout), and CTA
+    `rank` of its cluster the weight rows [k0, k1), k_split = ceil(din /
+    splits) rounded up to a whole stage; the last ranks may get none (k0 ==
+    k1)."""
+    k_split = -(-(-(-din // splits)) // STREAM_BK) * STREAM_BK
+    return [(t, r, min(din, r * k_split), min(din, (r + 1) * k_split))
+            for t in range(-(-dout // STREAM_N)) for r in range(splits)]
+
+
+def layer_matmul_stream_plain(x: torch.Tensor, w_all: torch.Tensor, layer: int,
+                              splits: int) -> torch.Tensor:
+    """Kernel H in its order of summation, in fp32: per CTA (`stream_plan`)
+    the sum over its stages in order (a consumer warp owns a column over
+    every row of a stage), then the CTAs of a tile in rank order; rounded
+    once to x's dtype. A mirror for the tests, not a path."""
+    xf, w = x.float(), w_all[layer].float()
+    din, dout = w.shape
+    out = torch.zeros((x.shape[0], dout), dtype=torch.float32, device=x.device)
+    for t, _, k0, k1 in stream_plan(din, dout, splits):
+        n0, n1 = t * STREAM_N, min(dout, (t + 1) * STREAM_N)
+        cta = torch.zeros((x.shape[0], n1 - n0), dtype=torch.float32, device=x.device)
+        for b0 in range(k0, k1, STREAM_BK):
+            cta += xf[:, b0:min(k1, b0 + STREAM_BK)] @ w[b0:min(k1, b0 + STREAM_BK), n0:n1]
+        out[:, n0:n1] += cta
+    return out.to(x.dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _card_splits(dout: int, din: int, index: int) -> int:
+    return stream_splits(-(-dout // STREAM_N), din, sms=_build.sm_count(index))
 
 
 def layer_matmul_plain(x: torch.Tensor, w_all: torch.Tensor, layer: int) -> torch.Tensor:
@@ -142,11 +201,11 @@ def layer_matmul(x: torch.Tensor, w_all: torch.Tensor, layer: int) -> torch.Tens
         return layer_matmul_plain(x, w_all, layer)
     _check(x, layer, w_all)
     b, din = x.shape
-    dout = w_all.shape[2]
+    n_layers, _, dout = w_all.shape
     out = torch.empty((b, dout), dtype=x.dtype, device=dev)
     err = _build.library().gar_layer_matmul(
-        x.data_ptr(), w_all.data_ptr(), out.data_ptr(), layer, b, din, dout,
-        _build.stream_handle(dev))
+        x.data_ptr(), w_all.data_ptr(), out.data_ptr(), layer, n_layers, b, din, dout,
+        _card_splits(dout, din, dev.index), _build.stream_handle(dev))
     _build.check(err, "gar_layer_matmul")
     launches["H"] += 1
     return out

@@ -1,8 +1,10 @@
-"""Kernel C's split-KV arithmetic on the CPU: `decode_attention_fused_split_plain`
-(the valid columns cut into `splits` chunks as the CUDA kernel cuts them,
-each chunk's softmax sums merged with the current token) against the Pallas
-kernel it replaces in interpret mode, the chunking itself over random
-layouts, and the splits chooser.
+"""Kernels C and 16's split-KV arithmetic on the CPU:
+`decode_attention_fused_split_plain` (the valid columns cut into `splits`
+chunks as the CUDA kernel cuts them, each chunk's softmax sums merged with
+the current token) and its read-only sibling `decode_attention_split_plain`
+(kernel 16: write_pos inclusive, the block_s clip, no current token folded
+in) against the Pallas kernels they replace in interpret mode, the chunking
+itself over random layouts, and the splits chooser.
 
 Tolerance 1e-5 in fp32: the split and the Pallas kernel's blocks take the
 same sums in another order. The CUDA kernel is held against the plain
@@ -111,3 +113,77 @@ def test_split_chunks_cover_the_valid_columns_once(data):
 def test_decode_splits_fills_about_two_waves(b, kh, want):
     assert tdec.decode_splits(b, kh) == want
 
+
+
+@functools.lru_cache(maxsize=None)
+def _pallas_read(seed, b, kh, g, s, layer, plens, pad, wpos, block_s):
+    """JAX's decode_attention_stacked (kernel 16's reference) in interpret mode."""
+    from grasp_any_region_tpu.ops.decode_attention import decode_attention_stacked
+
+    q, k_all, v_all, _, _ = _inputs(seed, b, kh, g, s)
+    out = decode_attention_stacked(
+        *(jnp.asarray(x) for x in (q, k_all, v_all)), jnp.asarray(layer, jnp.int32),
+        prompt_lens=jnp.asarray(plens, jnp.int32), write_pos=jnp.asarray(wpos, jnp.int32),
+        prompt_pad=pad, block_s=block_s, interpret=True)
+    return np.asarray(out)
+
+
+# three rows over a 512-column cache, block_s 128, prompt_pad 256, write_pos
+# 262 (the TPU kernel visits blocks 0-2, columns < 384): a prompt past
+# write_pos and past the last visited block (cut at 384), a short one (37 +
+# 7 columns), and one past prompt_pad inside the visited blocks (300)
+READ_LAYOUT = dict(plens=(400, 37, 300), pad=256, wpos=262, block_s=128)
+
+
+@pytest.mark.parametrize("g", [1, 4, 8])
+@pytest.mark.parametrize("splits", [1, 2, 3, 8, 16])
+def test_read_split_plain_matches_pallas(g, splits):
+    """Kernel 16's split mirror against `_decode_kernel`, the cache unchanged."""
+    lay = READ_LAYOUT
+    ref = _pallas_read(2, 3, 2, g, 512, 1, lay["plens"], lay["pad"], lay["wpos"], lay["block_s"])
+    q, k_all, v_all, _, _ = (torch.from_numpy(x) for x in _inputs(2, 3, 2, g, 512))
+    k_ref, v_ref = k_all.clone(), v_all.clone()
+    out = tdec.decode_attention_split_plain(
+        q, k_all, v_all, torch.tensor(1, dtype=torch.int32),
+        prompt_lens=torch.tensor(lay["plens"], dtype=torch.int32),
+        write_pos=torch.tensor(lay["wpos"], dtype=torch.int32), prompt_pad=lay["pad"],
+        splits=splits, block_s=lay["block_s"])
+    np.testing.assert_allclose(out.numpy(), ref, **TOL)
+    assert torch.equal(k_all, k_ref) and torch.equal(v_all, v_ref)
+    assert tdec.launches_stacked == 0  # a CPU tensor never launches a kernel
+
+
+def test_read_split_plain_gives_nan_rows_past_the_stack():
+    """A layer outside [0, L) gives NaN rows, as kernel 16 writes them."""
+    q, k_all, v_all, _, _ = (torch.from_numpy(x) for x in _inputs(0, 2, 2, 4, 128))
+    kw = dict(prompt_lens=torch.tensor([5, 9], dtype=torch.int32),
+              write_pos=torch.tensor(70, dtype=torch.int32), prompt_pad=64, splits=4)
+    for layer in (-1, 2):
+        out = tdec.decode_attention_split_plain(
+            q, k_all, v_all, torch.tensor(layer, dtype=torch.int32), **kw)
+        assert out.shape == q.shape and torch.isnan(out).all()
+
+
+@settings(max_examples=200, deadline=None, database=None)
+@given(st.data())
+def test_read_split_chunks_cover_the_valid_columns_once(data):
+    """Over B, K, block_s | S and prompt_pad <= write_pos < S, with prompt
+    lengths up to S: kernel 16's chunks cover every valid column exactly
+    once, write_pos included, nothing past the last block the TPU kernel
+    visits, and chunks past the columns are empty."""
+    b = data.draw(st.integers(1, 32), "B")
+    kh = data.draw(st.sampled_from([1, 2, 4, 8]), "K")
+    block_s = data.draw(st.sampled_from([8, 16, 64, 128]), "block_s")
+    s = block_s * data.draw(st.integers(1, 8), "blocks")
+    wpos = data.draw(st.integers(0, s - 1), "write_pos")
+    pad = data.draw(st.integers(0, wpos), "prompt_pad")
+    plen = data.draw(st.integers(0, s), "prompt_len")
+    splits = data.draw(st.sampled_from([tdec.decode_splits(b, kh), 1, 3, 16]), "splits")
+    cols = tdec.valid_columns_read(plen, pad, wpos, s, block_s)
+    end = (wpos // block_s + 1) * block_s
+    want = {c for c in range(s) if (c < plen or pad <= c <= wpos) and c < end}
+    seen = [c for f0, f1 in tdec.split_bounds(len(cols), splits) for c in cols[f0:f1]]
+    assert len(seen) == len(set(seen)) == len(cols)  # once each
+    assert set(seen) == want and wpos in want
+    assert all(f0 == f1 for f0, f1 in tdec.split_bounds(len(cols), splits)
+               if f0 >= len(cols))

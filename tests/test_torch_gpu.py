@@ -404,6 +404,48 @@ def test_layer_matmul_wrappers_reject_what_the_kernels_do_not_take(rnd):
         lm.layer_matmul(rnd(lm.MAX_ROWS + 1, 64), w, 0)
 
 
+@pytest.mark.parametrize("b", [1, 5, 17, 24, 32])
+@pytest.mark.parametrize("din,dout", [
+    (200, 136),    # one CTA a tile: a part box of rows and of columns
+    (2056, 520),   # 8 CTAs a tile, two with no rows; rows past Din and columns past Dout
+    (8192, 2048),  # gar_1b's w_down
+])
+def test_layer_matmul_stream_kernel(rnd, b, din, dout):
+    """Kernel H (the TMA-fed weight stream) at the first and the last layer
+    against the plain version, then the same with a new weight of the same
+    shape: the cached tensor map stays right for it."""
+    n_layers = 3
+    for _ in range(2):
+        w = (rnd(n_layers, din, dout).float() * din ** -0.5).to(torch.bfloat16)
+        x = rnd(b, din)
+        for layer in (0, n_layers - 1):
+            before = lm.launches["H"]
+            out = lm.layer_matmul(x, w, layer)
+            torch.cuda.synchronize()
+            assert lm.launches["H"] == before + 1
+            ref = lm.layer_matmul_plain(x.float(), w[layer:layer + 1].float(), 0)
+            torch.testing.assert_close(out.float(), ref, **TOL)
+        del w, x, out  # the next weight may take this one's address
+
+
+@pytest.mark.parametrize("splits", [1, 2, 4, 8, 16])
+def test_layer_matmul_stream_kernel_any_split(rnd, monkeypatch, splits):
+    """Kernel H with its cluster size forced (the chooser replaced), 1 to 16
+    CTAs a tile, over ragged widths, against the plain version and against
+    the mirror of its summation order."""
+    monkeypatch.setattr(lm, "_card_splits", lambda *_: splits)
+    n_layers, layer, din, dout = 2, 1, 2056, 200
+    w = (rnd(n_layers, din, dout).float() * din ** -0.5).to(torch.bfloat16)
+    for b in (1, 24):
+        x = rnd(b, din)
+        out = lm.layer_matmul(x, w, layer)
+        torch.cuda.synchronize()
+        ref = lm.layer_matmul_plain(x.float(), w[layer:layer + 1].float(), 0)
+        torch.testing.assert_close(out.float(), ref, **TOL)
+        mirror = lm.layer_matmul_stream_plain(x.float(), w[layer:layer + 1].float(), 0, splits)
+        torch.testing.assert_close(out.float(), mirror, **TOL)
+
+
 def test_gar_decode_step_takes_the_fused_form_on_the_card(rnd):
     """use_kernel=None on a CUDA tensor runs kernels J, C, H, I, H a layer,
     and agrees with the XLA form on the same cache."""
@@ -983,6 +1025,41 @@ def test_decode_attention_stacked_kernel(rnd, group, b, plens, pad, wpos, block_
     torch.testing.assert_close(out.float(), ref, **TOL16)
     # a layer outside the stack gives NaN rows, not a read outside the cache
     out = dec.decode_attention_stacked(q, k_all, v_all, _cuda_int32(n_layers), **kw)
+    assert torch.isnan(out.float()).all()
+
+
+@pytest.mark.parametrize("group", [1, 4, 8])
+@pytest.mark.parametrize("splits", list(range(1, 17)))
+def test_decode_attention_stacked_kernel_any_split(rnd, monkeypatch, splits, group):
+    """Kernel 16 with the CTAs a (kv head, row) forced (the chooser
+    replaced), clusters of 1 to 16, over three rows: a prompt past write_pos
+    and past the last block_s block the TPU kernel visits (cut there), 8
+    columns (fewer than the CTAs: empty chunks), and 207; at TOL16 against
+    the plain version and the mirror of its chunks, then the interval probe;
+    the cache unchanged; a layer outside the stack gives NaN rows."""
+    monkeypatch.setattr(dec, "card_splits", lambda *_: splits)
+    n_layers, kh, s, layer = 2, 2, 1024, 1
+    plens, pad, wpos, block_s = [900, 1, 200], 256, 262, 128
+    k_all, v_all = rnd(n_layers, 3, kh, s, 64), rnd(n_layers, 3, kh, s, 64)
+    q = rnd(3, kh * group, 64)
+    k_ref, v_ref = k_all.clone(), v_all.clone()
+    kw = dict(prompt_lens=_cuda_int32(plens), write_pos=_cuda_int32(wpos), prompt_pad=pad,
+              block_s=block_s)
+    lay = _cuda_int32(layer)
+    out = dec.decode_attention_stacked(q, k_all, v_all, lay, **kw)
+    torch.cuda.synchronize()
+    ref = dec.decode_attention_plain(q.float(), k_all.float(), v_all.float(), lay, **kw)
+    torch.testing.assert_close(out.float(), ref, **TOL16)
+    mirror = dec.decode_attention_split_plain(q.float(), k_all.float(), v_all.float(), lay,
+                                              splits=splits, **kw)
+    torch.testing.assert_close(out.float(), mirror, **TOL16)
+    assert torch.equal(k_all, k_ref) and torch.equal(v_all, v_ref)
+    k0, vp = _interval_probe(v_all[layer], plens, pad, wpos)
+    out = dec.decode_attention(q, k0, vp, **kw)
+    ref = dec.decode_attention_plain(q.float(), k0[None].float(), vp[None].float(),
+                                     _cuda_int32(0), **kw)
+    torch.testing.assert_close(out.float(), ref, **TOL16)
+    out = dec.decode_attention_stacked(q, k_all, v_all, _cuda_int32(-1), **kw)
     assert torch.isnan(out.float()).all()
 
 
