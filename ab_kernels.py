@@ -13,10 +13,16 @@ B at the causal prefill; C over layer 7 of a (16, B, 8, 5120, 64) cache at
 B = 1, 2 and 24. The variants named h_* time kernel H instead (TIMING_H:
 GAR-1B's w_down and wo at B = 1 and 24, checked against the plain version,
 one call after an L2 flush and 16 layers back to back) against the parent
-h_parent. Run from the repository root on a machine with the card:
+h_parent; those named m_* time kernels 21-23 (TIMING_M: 23 and 21 at
+GAR-1B's widths at B = 1 and 24, one call and 16 layers back to back; 22
+with bf16 and int8 wo over the main path's cache at B = 1 and 24, beside
+C alone and C + H on wo) against m_parent. Run from the repository root on
+a machine with the card:
 
     python3 ab_kernels.py [variant ...]
     python3 ab_kernels.py h_<variant> ...
+    python3 ab_kernels.py m_<variant> ...
+    python3 ab_kernels.py --against=<directory of another checkout>
 """
 
 from __future__ import annotations
@@ -24,7 +30,9 @@ from __future__ import annotations
 import json
 import sys
 
-from forward_mutants import FWD, SPLIT, make_copy, run
+from pathlib import Path
+
+from forward_mutants import FWD, REPO, SPLIT, make_copy, run
 
 H_SRC = "grasp_any_region_tpu_torch/csrc/layer_matmul_sm90.cu"
 H_PY = "grasp_any_region_tpu_torch/ops/layer_matmul.py"
@@ -126,6 +134,51 @@ H_VARIANTS = {  # the parent: 128 rows and at most 3 stages, 8 CTAs a tile
                              "memory; none is read remotely\n", "  if (a.rows > 0) return;\n")],
 }
 
+MLP_SRC = "grasp_any_region_tpu_torch/csrc/decode_mlp_sm90.cu"
+WO_SRC = "grasp_any_region_tpu_torch/csrc/decode_attn_wo_sm90.cu"
+SUM_SRC = "grasp_any_region_tpu_torch/csrc/ordered_sum.cuh"
+MK_PY = "grasp_any_region_tpu_torch/ops/decode_megakernel.py"
+MLP_SPLITS = "    return _card_mlp_splits(m // MLP_TILE, d, 16 if rows <= 16 else 32, q8, device.index)"
+M_VARIANTS = {  # kernels 21-23 (TIMING_M)
+    "m_parent": [],
+    # timing only (wrong results): no ordered sum across clusters
+    "m_no_sum": [(MLP_SRC, "      flags[j] = sum_completed(plan, block_of(j), tile, sum_arrive(plan, "
+                  "block_of(j), tile));", "      flags[j] = 0;"),
+                 (WO_SRC, "    if (tid == 0) last = sum_completed(", "    if (a.dm < 0) last = sum_completed(")],
+    # 22: wo streamed after the attention at every B; timing only: no wo, no
+    # products on the loaded boxes
+    "m_22_streamed": [(WO_SRC, "  a.resident = per * G <= kWoResidentSlots",
+                       "  a.resident = 0 && per * G <= kWoResidentSlots")],
+    "m_22_no_wo": [(WO_SRC, "  const int n_box = n_ch * G;", "  const int n_box = 0 * n_ch * G;")],
+    "m_22_no_products": [(WO_SRC, "      for (int n = 0; n < NT; ++n) mma_bf16_16816(acc[n], af, "
+                          "bfr[n][0], bfr[n][1]);\n", "")],
+    # 21 / 23: clusters of 8 CTAs a tile
+    "m_mlp_splits_8": [(MK_PY, MLP_SPLITS, "    return 8")],
+    # 22: 4 or 8 CTAs a (kv head, row) at every B (C's chooser: 2 at B = 24)
+    "m_22_splits_4": [(MK_PY, "    return dec.card_splits(batch, kv_heads, device)", "    return 4")],
+    "m_22_splits_8": [(MK_PY, "    return dec.card_splits(batch, kv_heads, device)", "    return 8")],
+    # timing only: 21 / 23 arrive but do not sum
+    "m_mlp_no_finish": [(MLP_SRC, "  if (m > 0)\n    sum_finish",
+                         "  if (a.rows < 0 && m > 0)\n    sum_finish")],
+    # timing only: the ordered sums' first level alone (no top arrivals)
+    "m_level1_only": [(SUM_SRC, "  if (groups == 1) return;\n  sync();  // every group sum is stored",
+                       "  if (groups >= 1) return;\n  sync();  // every group sum is stored")],
+    # 21 / 23 and 22: no L2 cache hints on the weight loads
+    "m_no_hints": [(MLP_SRC, "    const uint64_t policy = l2_evict_first();",
+                    "    const uint64_t policy = l2_evict_first() * 0;"),
+                   (MLP_SRC, "tma_load_4d_hint(st + bx * Sh::BOX1, &maps.gate, &full[s], m0 + bx * Sh::CPB, k,\n"
+                    "                           a.layer, 0, policy);",
+                    "tma_load_4d(st + bx * Sh::BOX1, &maps.gate, &full[s], m0 + bx * Sh::CPB, k, a.layer, 0);"),
+                   (MLP_SRC, "tma_load_4d_hint(st + kMlpStage / 2 + bx * Sh::BOX1, &maps.up, &full[s],\n"
+                    "                           m0 + bx * Sh::CPB, k, a.layer, 0, policy);",
+                    "tma_load_4d(st + kMlpStage / 2 + bx * Sh::BOX1, &maps.up, &full[s], m0 + bx * Sh::CPB, k, a.layer, 0);"),
+                   (MLP_SRC, "tma_load_4d_hint(st, &maps.down, &full[s], block_of(j - n1) * Sh::CPB, m0, a.layer, 0,\n"
+                    "                         policy);",
+                    "tma_load_4d(st, &maps.down, &full[s], block_of(j - n1) * Sh::CPB, m0, a.layer, 0);"),
+                   (WO_SRC, "row0 + (j % G) * D, a.s.layer, 0, l2_evict_last());",
+                    "row0 + (j % G) * D, a.s.layer, 0, 0 * l2_evict_last() + 0x1000000000000000ull);")],
+}
+
 TIMING = r"""
 import json, torch, chip_smoke as c
 from grasp_any_region_tpu_torch.ops import decode_attention as dec
@@ -188,10 +241,87 @@ for name, din in (("w_down", 8192), ("wo", 2048)):
 print("AB " + json.dumps(t))
 """
 
+TIMING_M = r"""
+import json, torch, chip_smoke as c
+from grasp_any_region_tpu_torch.models.quantize import quantize_int8
+from grasp_any_region_tpu_torch.ops import decode_attention as dec
+from grasp_any_region_tpu_torch.ops import decode_megakernel as mk
+from grasp_any_region_tpu_torch.ops import layer_matmul as lm
+c.phase_environment()
+gen = torch.Generator(device="cuda").manual_seed(0)
+def rnd(*shape):
+    return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+def stack(din, n):
+    return (rnd(16, din, n).float() * din ** -0.5).to(torch.bfloat16)
+t = {}
+def check(out, ref, name):
+    try:
+        c.max_err(out, ref, name)
+    except AssertionError:  # a timing-only variant
+        t["wrong results"] = 1
+d, m, layer = 2048, 8192, 7
+wg, wu, wd = stack(d, m), stack(d, m), stack(m, d)
+q8 = [u for w in (wg, wu, wd) for u in quantize_int8(w)]
+norm = (1.0 + 0.2 * rnd(16, d).float()).to(torch.bfloat16)
+for b in (1, 24):
+    x = rnd(b, d) * 4
+    for key, fn, plain, mats in (
+            ("23", mk.layer_mlp_residual, mk.layer_mlp_residual_plain, (wg, wu, wd)),
+            ("21", mk.layer_mlp_residual_q8, mk.layer_mlp_residual_q8_plain, q8)):
+        check(fn(x, norm, *mats, layer, eps=1e-5), plain(x, norm, *mats, layer, eps=1e-5),
+              f"{key} B={b}")
+        t[f"{key} B={b}"] = c.cuda_ms(lambda: fn(x, norm, *mats, layer, eps=1e-5))
+        t[f"{key} B={b} x16"] = c.cuda_ms(
+            lambda: [fn(x, norm, *mats, i, eps=1e-5) for i in range(16)], iters=5,
+            sleep_cycles=20_000_000) / 16
+del wg, wu, wd, q8
+wo = stack(2048, 2048)
+wo8 = quantize_int8(wo)
+pad, wpos = 4662, 4663
+for b in (1, 24):
+    plens = [pad] + [3000 + (97 * i) % 1663 for i in range(1, b)]
+    kw = dict(prompt_lens=torch.tensor(plens, dtype=torch.int32, device="cuda"),
+              write_pos=torch.tensor(wpos, dtype=torch.int32, device="cuda"), prompt_pad=pad)
+    k_all, v_all = rnd(16, b, 8, 5120, 64), rnd(16, b, 8, 5120, 64)
+    q, k_new, v_new, x = rnd(b, 32, 64), rnd(b, 8, 64), rnd(b, 8, 64), rnd(b, 2048)
+    for label, w, s in (("bf16", wo, None), ("int8", *wo8)):
+        k2, v2 = k_all[layer:layer + 1].clone(), v_all[layer:layer + 1].clone()
+        ref = mk.decode_attention_wo_plain(q, k2, v2, k_new, v_new, w[layer:layer + 1], x, 0,
+                                           wo_scale=None if s is None else s[layer:layer + 1],
+                                           **kw)
+        del k2, v2
+        run = lambda: mk.decode_attention_wo(q, k_all, v_all, k_new, v_new, w, x, layer,
+                                             wo_scale=s, **kw)
+        check(run(), ref, f"22 {label} B={b}")
+        t[f"22 {label} B={b}"] = c.cuda_ms(run)
+    t[f"C B={b}"] = c.cuda_ms(lambda: dec.decode_attention_fused(q, k_all, v_all, k_new, v_new,
+                                                                 layer, **kw))
+    t[f"C+H B={b}"] = c.cuda_ms(lambda: lm.layer_matmul(dec.decode_attention_fused(
+        q, k_all, v_all, k_new, v_new, layer, **kw).reshape(b, 2048), wo, layer))
+    del k_all, v_all
+print("AB " + json.dumps(t))
+"""
+
+
+def against(other: str) -> int:
+    """TIMING_M in the package checked out at `other` (e.g. `git archive` of
+    the parent commit unpacked there) and in this tree, in turns: other,
+    this, this, other."""
+    for name, d in (("other", other), ("tree", str(REPO)), ("tree", str(REPO)), ("other", other)):
+        res = run(Path(d), ["-c", TIMING_M], 900)
+        lines = [x for x in res.stdout.splitlines() if x.startswith("AB ")]
+        print(f"[cmp] {name}: {lines[-1] if lines else (res.stdout + res.stderr)[-600:]}",
+              flush=True)
+    return 0
+
 
 def main(names: list[str]) -> int:
+    if len(names) == 1 and names[0].startswith("--against="):
+        return against(names[0].split("=", 1)[1])
     h = bool(names) and all(n.startswith("h_") for n in names)
+    mega = bool(names) and all(n.startswith("m_") for n in names)
     variants, parent, timing = ((H_VARIANTS, "h_parent", TIMING_H) if h
+                                else (M_VARIANTS, "m_parent", TIMING_M) if mega
                                 else (VARIANTS, "parent", TIMING))
     unknown = set(names) - set(variants)
     if unknown:

@@ -28,8 +28,10 @@ the script exits non-zero (there is no CPU fallback):
    column within one quantization step of the plain version's. The mega
    decode step's kernels 19-23 at gar_1b shapes, B = 24 and B = 1 (22 with
    bf16 and with int8 wo, over a cache of the main path's shape, its
-   written K/V column checked, beside kernel C + kernel H on wo), with
-   their GB/s; the plain versions here take the same bf16 inputs. The two
+   written K/V column checked, beside kernel C + kernel H on wo; 21-23 also
+   give the same bits on a second launch and leave their ordered sums'
+   counters at 0), with their GB/s; the plain versions here take the same
+   bf16 inputs. The two
    kernels that no JAX path dispatches, so that no later phase launches
    them: 16 (read-only decode attention, C's split-KV body read only) over
    C's seeded cache at every layer, the layer a device scalar, the cache
@@ -1065,6 +1067,19 @@ def decode_matmul_kernels(rnd):
     return results
 
 
+def same_bits(run, out, name: str) -> None:
+    """Kernels 21-23 sum across clusters through arrival counters: a second
+    launch must give `out`'s bits and leave every counter at 0."""
+    from grasp_any_region_tpu_torch.ops import decode_megakernel as mk
+
+    again = run()
+    torch.cuda.synchronize()
+    if not torch.equal(again, out):
+        raise AssertionError(f"{name}: a second launch on the same inputs gives other bits")
+    if mk._counters(out.device).any():
+        raise AssertionError(f"{name}: an arrival counter is not back at 0 after the launch")
+
+
 def mega_kernels(rnd):
     """Kernels 19-23 at the gar_1b decode shapes (hidden 2048, q 2048, kv 512,
     MLP 8192, 32 / 8 heads of 64), the weights stacked (16, Din, Dout) and
@@ -1128,14 +1143,18 @@ def mega_kernels(rnd):
             ref = plain(*args, layer, **kw)
             outs, refs = (out, ref) if isinstance(out, tuple) else ((out,), (ref,))
             err = max(max_err(o, r, f"{key} (B = {b})") for o, r in zip(outs, refs))
+            if key in ("21", "23"):  # the ordered sum: the same bits again, the counters at 0
+                same_bits(lambda: kernel(*args, layer, **kw), out, f"{key} (B = {b})")
             w_bytes = nbytes(*(w[layer] for w in ws))
             ms = cuda_ms(lambda: kernel(*args, layer, **kw))
             plain_ms = cuda_ms(lambda: plain(*args, layer, **kw), iters=5)
             lim = bound(w_bytes + io + nbytes(cos, sin, norm[layer]), ops)
+            clusters = (f"; {m // mk.MLP_TILE} tiles x {mk.mlp_card_splits(m, d, b, key == '21', x.device)}"
+                        " CTAs" if key in ("21", "23") else "")
             log(f"[kernels] {key} ({kernel.__name__}), B = {b}: {ms:.4f} ms = "
                 f"{w_bytes / ms / 1e6:.0f} GB/s of weights ({w_bytes / 1e6:.1f} MB, bound "
                 f"{lim['bound_ms']:.4f} ms of {lim['bound_by']}); plain {plain_ms:.4f} ms; "
-                f"max |kernel - plain| {err:.3e}")
+                f"max |kernel - plain| {err:.3e}{clusters}")
             results[key] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None, **lim)
 
         # 22 over the main path's cache, bf16 wo then int8 wo
@@ -1159,6 +1178,8 @@ def mega_kernels(rnd):
                     and torch.equal(k_all[layer, :, :, wpos], k_new)):
                 raise AssertionError(f"22 {label} (B = {b}): the cache differs from the plain "
                                      "version's, or column write_pos does not hold the new K/V")
+            same_bits(lambda: mk.decode_attention_wo(*args, wo_scale=scale, **kw), out,
+                      f"22 {label} (B = {b})")
             del k_exp, v_exp
             ms = cuda_ms(lambda: mk.decode_attention_wo(*args, wo_scale=scale, **kw))
             plain_ms = cuda_ms(lambda: mk.decode_attention_wo_plain(*args, wo_scale=scale, **kw),
@@ -1170,7 +1191,8 @@ def mega_kernels(rnd):
             if scale is None:
                 results["22"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
                                      **lim)
-            log(f"[kernels] 22 (decode_attention_wo, {label}), B = {b}: {ms:.4f} ms = "
+            log(f"[kernels] 22 (decode_attention_wo, {label}), B = {b}, "
+                f"{mk.attention_wo_splits(b, 8, x.device)} CTAs a (kv head, row): {ms:.4f} ms = "
                 f"{n_bytes / ms / 1e6:.0f} GB/s ({cache_bytes / 1e6:.1f} MB of cache, "
                 f"{nbytes(w[layer]) / 1e6:.1f} MB of wo; bound {lim['bound_ms']:.4f} ms of "
                 f"{lim['bound_by']}); kernel C + kernel H (bf16 wo) on the same inputs "
@@ -1896,11 +1918,11 @@ KERNELS = {
            "grasp_any_region_tpu/ops/decode_megakernel.py:126"),
     "20": ("layer_qkv_norm_rope_q8", "grasp_any_region_tpu_torch/csrc/decode_megakernel.cu",
            "grasp_any_region_tpu/ops/decode_megakernel.py:194"),
-    "21": ("layer_mlp_residual_q8", "grasp_any_region_tpu_torch/csrc/decode_megakernel.cu",
+    "21": ("layer_mlp_residual_q8", "grasp_any_region_tpu_torch/csrc/decode_mlp_sm90.cu",
            "grasp_any_region_tpu/ops/decode_megakernel.py:272"),
-    "22": ("decode_attention_wo", "grasp_any_region_tpu_torch/csrc/decode_megakernel.cu",
+    "22": ("decode_attention_wo", "grasp_any_region_tpu_torch/csrc/decode_attn_wo_sm90.cu",
            "grasp_any_region_tpu/ops/decode_megakernel.py:478"),
-    "23": ("layer_mlp_residual", "grasp_any_region_tpu_torch/csrc/decode_megakernel.cu",
+    "23": ("layer_mlp_residual", "grasp_any_region_tpu_torch/csrc/decode_mlp_sm90.cu",
            "grasp_any_region_tpu/ops/decode_megakernel.py:569"),
     "24": ("layer_norm_fused", "grasp_any_region_tpu_torch/csrc/layer_norm.cu",
            "grasp_any_region_tpu/ops/norms.py:66"),

@@ -1,8 +1,11 @@
 """Mutants of kernels A, B and E (csrc/flash_forward_sm90.cu), F
 (csrc/gemm_sm90.cu and its main loop, csrc/gemm_sm90.cuh), 5 (kernel
 18's non-causal pass with the folded tail, csrc/flash_backward_sm90.cu),
-C and 16 (the split-KV body, csrc/decode_split.cuh) and H (the TMA-fed
-weight stream, csrc/layer_matmul_sm90.cu) that the checks must catch. Each mutant names the source it edits and is
+C and 16 (the split-KV body, csrc/decode_split.cuh), H (the TMA-fed
+weight stream, csrc/layer_matmul_sm90.cu), 21 / 23 (the MLP's weight
+stream, csrc/decode_mlp_sm90.cu), 22 (C's body with wo,
+csrc/decode_attn_wo_sm90.cu) and their ordered sum (csrc/ordered_sum.cuh)
+that the checks must catch. Each mutant names the source it edits and is
 built in its own copy of the package under build/copies/ (ops/_build.py
 builds a copy into its own build/), and two checks run there on the card:
 
@@ -11,7 +14,10 @@ builds a copy into its own build/), and two checks run there on the card:
   kernel) ends its process, and the cases after it run again in a fresh
   one;
 - phase 2 of chip_smoke.py (every kernel against its plain version), which
-  stops at the first check that fails and names it.
+  stops at the first check that fails and names it. The mega step's
+  mutants (MEGA) run the mega kernels' part of it (`mega_kernels`: 19-23
+  at B = 24 and 1, each against its plain version, a second launch's
+  bits, the counters at 0), and only the mega kernels' card tests.
 
 A mutant that no check catches means checks too weak to see that defect.
 Run from the repository root on a machine with the card, for every mutant
@@ -32,9 +38,10 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parent
 COPIES = REPO / "build" / "copies"  # gitignored
 CSRC = "grasp_any_region_tpu_torch/csrc/"
-FWD, GEMM, GEMM_LOOP, BWD, SPLIT, STREAM = (CSRC + name for name in (
+FWD, GEMM, GEMM_LOOP, BWD, SPLIT, STREAM, MLP, ATTN_WO, ORDERED = (CSRC + name for name in (
     "flash_forward_sm90.cu", "gemm_sm90.cu", "gemm_sm90.cuh", "flash_backward_sm90.cu",
-    "decode_split.cuh", "layer_matmul_sm90.cu"))
+    "decode_split.cuh", "layer_matmul_sm90.cu", "decode_mlp_sm90.cu", "decode_attn_wo_sm90.cu",
+    "ordered_sum.cuh"))
 MUTANTS = {  # name: (source, [(old, new), ...] in it)
     "drop_last_key_tile": (FWD, [
         # B: the causal band and the full rows lose their last key tile
@@ -117,13 +124,42 @@ MUTANTS = {  # name: (source, [(old, new), ...] in it)
     "h_last_tile_not_stored": (STREAM, [("if (n0 + rank * cols + c >= a.dout) continue;",
                                          "if (n0 + rank * cols + c >= a.dout || "
                                          "blockIdx.y == gridDim.y - 1) continue;")]),
+    # 21: rank 1's gate / up partial dropped from the cluster's sum; one M
+    # tile's slot counted twice; (21 / 22 / 23) the arrival counter not
+    # reset, so a second launch never finds its last arriver
+    "21_k_split_dropped": (MLP, [("if (r < splits) gs += gv[r], us += uv[r];",
+                                  "if (r < splits && !(Q8 && r == 1)) gs += gv[r], us += uv[r];")]),
+    "21_tile_slot_twice": (MLP, [("            slot[static_cast<size_t>(row) * a.d + col] = v;",
+                                  "            slot[static_cast<size_t>(row) * a.d + col] = "
+                                  "(Q8 && tile == 1 ? 2.f : 1.f) * v;")]),
+    "counter_not_reset": (ORDERED, [("  atomicExch(p.counter(slice, g), 0u);\n  return true;",
+                                     "  return true;")]),
+    # 22: the last split's chunk of the cache dropped; kv head 1's wo
+    # partial counted twice; each CTA's wo column slice read one box over
+    "22_split_chunk_dropped": (SPLIT, [
+        ("const int n_tiles = (f1 - f0 + kSplitRows - 1) / kSplitRows;",
+         "const int n_tiles = a.out == nullptr && rank == splits - 1 ? 0 "
+         ": (f1 - f0 + kSplitRows - 1) / kSplitRows;")]),
+    "22_head_partial_twice": (ATTN_WO, [
+        ("a.ws[(static_cast<size_t>(b) * kv + kh) * a.dm + col] = v;",
+         "a.ws[(static_cast<size_t>(b) * kv + kh) * a.dm + col] = (kh == 1 ? 2.f : 1.f) * v;")]),
+    "22_column_slice_shifted": (ATTN_WO, [
+        ("tma_load_4d_hint(wo_smem + slot * kWoBox, &wo_map, &full[slot], (ch0 + j / G) * CPB,",
+         "tma_load_4d_hint(wo_smem + slot * kWoBox, &wo_map, &full[slot], (ch0 + j / G + 1) * CPB,")]),
 }
+MEGA = ("21_k_split_dropped", "21_tile_slot_twice", "counter_not_reset", "22_split_chunk_dropped",
+        "22_head_partial_twice", "22_column_slice_shifted")
+MEGA_TESTS = "mlp_residual or attention_wo or mega_decode_step"
 TESTS = ("flash_attention_kernel or fused_qkv_kernel or lse_segments or lse_and_backward "
          "or wo_residual or vit_block_kernels or vit_attention_kernel "
          "or decode_attention_kernel or decode_attention_stacked or layer_matmul")
 CONTEXT_LOST = ("CUDA error", "AcceleratorError", "illegal instruction",
                 "unspecified launch failure")
 PHASE2 = "import chip_smoke as c; c.phase_environment(); c.phase_kernels()"
+PHASE2_MEGA = ("import chip_smoke as c, torch; c.phase_environment(); "
+               "g = torch.Generator(device='cuda').manual_seed(c.SEED); "
+               "c.mega_kernels(lambda *s: torch.randn(s, generator=g, device='cuda')"
+               ".to(torch.bfloat16))")
 
 
 def make_copy(name: str, edits: list[tuple[str, str, str]]) -> Path:
@@ -152,12 +188,12 @@ def run(dst: Path, args: list[str], timeout: int) -> subprocess.CompletedProcess
                           env={**os.environ, "PYTHONPATH": str(dst)}, timeout=timeout)
 
 
-def card_tests(dst: Path) -> dict[str, str]:
-    """Each card case's verdict in the copy: passed, skipped,
-    failed, or trapped (it lost the CUDA context; the cases after it run
-    again)."""
+def card_tests(dst: Path, tests: str = TESTS) -> dict[str, str]:
+    """Each card case's verdict in the copy (the cases `tests` selects):
+    passed, skipped, failed, or trapped (it lost the CUDA context; the
+    cases after it run again)."""
     pytest = ["-m", "pytest", "--noconftest", "-p", "no:cacheprovider", "-q"]
-    listed = run(dst, [*pytest, "--collect-only", "tests/test_torch_gpu.py", "-k", TESTS], 300)
+    listed = run(dst, [*pytest, "--collect-only", "tests/test_torch_gpu.py", "-k", tests], 300)
     todo = [line for line in listed.stdout.splitlines() if "::" in line]
     verdicts: dict[str, str] = {}
     while todo:
@@ -194,13 +230,14 @@ def main(names: list[str]) -> int:
         if names and name not in names:
             continue
         dst = make_copy(f"mutant_{name}", [(src, old, new) for old, new in edits])
-        verdicts = card_tests(dst)
+        mega = name in MEGA
+        verdicts = card_tests(dst, MEGA_TESTS if mega else TESTS)
         counts = {v: list(verdicts.values()).count(v) for v in ("failed", "trapped", "passed", "skipped")}
         print(f"[mutant] {name}: card tests {counts}", flush=True)
         for node, v in sorted(verdicts.items()):
             if v != "passed":
                 print(f"    {v}: {node.split('::')[1]}")
-        phase2 = run(dst, ["-c", PHASE2], 1200)
+        phase2 = run(dst, ["-c", PHASE2_MEGA if mega else PHASE2], 1200)
         lines = (phase2.stdout + phase2.stderr).strip().splitlines()
         caught = [line for line in lines if "Error" in line][-1:] or lines[-1:]
         print(f"[mutant] {name}: chip_smoke phase 2 "

@@ -48,8 +48,9 @@
 //
 // The cache element type is a template parameter, as decode_attend has it,
 // so the int8 cache (C8) can move onto this body once its stages are
-// widened; the bf16 cache is instantiated here, with the append (C) and
-// read only (16).
+// widened; the bf16 cache is instantiated, with the append (C, and kernel 22
+// in decode_attn_wo_sm90.cu, which takes the body with its own epilogue)
+// and read only (16).
 #pragma once
 
 #include <cooperative_groups.h>
@@ -83,14 +84,20 @@ struct SplitArgs {
   float scale;
 };
 
-// Grid (splits, kv heads, batch), cluster (splits, 1, 1).
-template <typename T, int G, bool Append>
-__global__ void __launch_bounds__(kSplitThreads) decode_split_kernel(const SplitArgs a) {
+// The body of a CTA of grid (splits, kv heads, batch), cluster (splits, 1,
+// 1), over kSplitSmem bytes of shared memory at `smem` (128-byte aligned):
+// out(i, v) takes output i (query head i / 64 of the kv head, dim i % 64) of
+// the (kv head, row) in fp32, once for each i, in the CTA of rank i % splits.
+// Returns after a cluster barrier that follows every out() and every remote
+// read of the cluster, so shared memory is the caller's again (kernel 22
+// stores each output into every CTA of the cluster from out()); 16's
+// cluster returns before any barrier on a layer out of range.
+template <typename T, int G, bool Append, typename Out>
+__device__ __forceinline__ void decode_split_body(const SplitArgs& a, uint8_t* smem, Out out) {
   static_assert(sizeof(T) == 2, "bf16 rows: an int8 cache needs its stages widened first");
   static_assert(G >= 1 && G <= 8, "the query heads of a kv head are the rows of one m16 tile");
   constexpr int D = 64;
   constexpr float kLog2e = 1.4426950408889634f;
-  extern __shared__ __align__(128) uint8_t smem[];
   __shared__ float s_cur[G];  // C: the current token's logit, log2 units
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = static_cast<int>(cluster.block_rank());
@@ -102,9 +109,8 @@ __global__ void __launch_bounds__(kSplitThreads) decode_split_kernel(const Split
   if constexpr (!Append) {
     layer = a.layer_index[0];
     if (layer < 0 || layer >= a.n_layers) {  // the whole cluster leaves here
-      const bf16 nan = __float2bfloat16(__int_as_float(0x7fc00000));
       for (int i = rank + splits * tid; i < G * D; i += splits * kSplitThreads)
-        a.out[row * G * D + i] = nan;
+        out(i, __int_as_float(0x7fc00000));
       return;
     }
   }
@@ -311,9 +317,17 @@ __global__ void __launch_bounds__(kSplitThreads) decode_split_kernel(const Split
         acc += f * acc_r[r];
       }
     }
-    a.out[row * G * D + i] = __float2bfloat16(acc / fmaxf(l, 1e-30f));
+    out(i, acc / fmaxf(l, 1e-30f));
   }
   cluster.sync();  // no CTA leaves while another reads its shared memory
+}
+
+// Kernels C and 16: grid (splits, kv heads, batch), cluster (splits, 1, 1).
+template <typename T, int G, bool Append>
+__global__ void __launch_bounds__(kSplitThreads) decode_split_kernel(const SplitArgs a) {
+  extern __shared__ __align__(128) uint8_t smem[];
+  bf16* out = a.out + (static_cast<size_t>(blockIdx.z) * a.kv_heads + blockIdx.y) * G * 64;
+  decode_split_body<T, G, Append>(a, smem, [&](int i, float v) { out[i] = __float2bfloat16(v); });
 }
 
 // One launch; the first opts the kernel in to its shared memory and to
@@ -325,7 +339,7 @@ int launch_split(const SplitArgs& a, int splits, cudaStream_t stream) {
   const int err = opt_in(kernel, kSplitSmem, true, opted_in);
   if (err) return err;
   return launch_ex(kernel, dim3(splits, a.kv_heads, a.batch), kSplitThreads, kSplitSmem, splits,
-                   stream, a);
+                   false, stream, a);
 }
 
 }  // namespace gar

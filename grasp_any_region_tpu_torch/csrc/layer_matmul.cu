@@ -241,7 +241,8 @@ int launch_lm_mt(LmParams<W> p, int tiles, cudaStream_t stream) {
   if (const int err = opt_in(kernel, Sh::SMEM_BYTES, Sh::Q8, done)) return err;
   const int splits = lm_splits(tiles, p.din, Sh::Q8 ? kLmMaxSplitsQ8 : kLmMaxSplits);
   p.k_split = ((p.din + splits - 1) / splits + 15) / 16 * 16;
-  return launch_ex(kernel, dim3(splits, tiles, 1), kLmThreads, Sh::SMEM_BYTES, splits, stream, p);
+  return launch_ex(kernel, dim3(splits, tiles, 1), kLmThreads, Sh::SMEM_BYTES, splits, false,
+                   stream, p);
 }
 
 // Fill in the tiles, check the shapes, pick the row tile (16 or 32 rows).

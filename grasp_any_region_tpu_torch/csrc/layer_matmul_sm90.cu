@@ -13,8 +13,9 @@
 //    view, boxes of 64 columns x 128 rows (16 KB, 128-byte swizzle), the
 //    layer a coordinate, so one map serves every layer. Rows past Din and
 //    columns past Dout are outside the map and land as zeros. The map is
-//    encoded once per weight tensor (cached by base and shape), so a call
-//    costs the host no more than the cp.async form did.
+//    encoded once per weight tensor (sm90.cuh:stacked_weight_map caches it
+//    by base and shape), so a call costs the host no more than the
+//    cp.async form did.
 //  * A CTA owns 64 output columns (a tile) and a K range of k_split rows, a
 //    multiple of the box; the S CTAs of a tile form a thread-block cluster.
 //    S (ops/layer_matmul.py:stream_splits) doubles while the grid stays
@@ -269,43 +270,6 @@ __global__ void __launch_bounds__(kWsThreads)
   }
 }
 
-// The tensor map of a stacked (layers, din, dout) bf16 weight, encoded once
-// per (base, shape): a decode step calls H 32 times with two weights, and
-// encoding costs the host microseconds. A map depends on nothing but the
-// base and the shape, so a later tensor at a reused address finds a map
-// that is right for it.
-int weight_map(CUtensorMap* map, const void* base, int layers, int din, int dout) {
-  struct Entry {
-    const void* base;
-    int layers, din, dout;
-    CUtensorMap map;
-  };
-  static Entry cache[16];
-  static int used = 0, next = 0;
-  for (int i = 0; i < used; ++i) {
-    const Entry& e = cache[i];
-    if (e.base == base && e.layers == layers && e.din == din && e.dout == dout) {
-      *map = e.map;
-      return 0;
-    }
-  }
-  const cuuint64_t row = static_cast<cuuint64_t>(dout) * 2;
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(dout), static_cast<cuuint64_t>(din),
-                              static_cast<cuuint64_t>(layers), 1};
-  const cuuint64_t strides[3] = {row, row * din, row * din * layers};
-  const cuuint32_t box[4] = {kWsN, kWsBK, 1, 1};
-  Entry& e = cache[next];
-  if (const int err = encode_4d(&e.map, base, false, dims, strides, box)) return err;
-  e.base = base;
-  e.layers = layers;
-  e.din = din;
-  e.dout = dout;
-  next = (next + 1) % 16;
-  used = used < 16 ? used + 1 : 16;
-  *map = e.map;
-  return 0;
-}
-
 // One launch with a cluster of `splits` and programmatic stream
 // serialization, the ring as deep as two CTAs an SM allow; the first opts
 // the kernel in to its shared memory and to clusters of 16.
@@ -353,7 +317,8 @@ extern "C" int gar_layer_matmul(const void* x, const void* w_all, void* out, int
       (splits & (splits - 1)) || tiles > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   StreamMaps maps;
-  if (const int err = weight_map(&maps.w[0], w_all, n_layers, din, dout)) return err;
+  if (const int err = stacked_weight_map(&maps.w[0], w_all, 2, n_layers, din, dout, kWsN, kWsBK))
+    return err;
   const int per = (din + splits - 1) / splits;
   const StreamArgs a{static_cast<const bf16*>(x), static_cast<bf16*>(out), layer, rows, din,
                      dout, (per + kWsBK - 1) / kWsBK * kWsBK, 0};

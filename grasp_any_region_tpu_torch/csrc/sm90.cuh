@@ -107,6 +107,32 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
+// An L2 cache policy for the hinted copies below: evict_first for data read
+// once (a weight stream, so it does not push out what is read again),
+// evict_last for data read again soon.
+__device__ __forceinline__ uint64_t l2_evict_first() {
+  uint64_t policy;
+  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n" : "=l"(policy));
+  return policy;
+}
+
+__device__ __forceinline__ uint64_t l2_evict_last() {
+  uint64_t policy;
+  asm volatile("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;\n" : "=l"(policy));
+  return policy;
+}
+
+// tma_load_4d with an L2 cache policy.
+__device__ __forceinline__ void tma_load_4d_hint(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                                 int c0, int c1, int c2, int c3, uint64_t policy) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes.L2::cache_hint "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2], %7;\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3), "l"(policy)
+      : "memory");
+}
+
 // `bytes` (a multiple of 16; both addresses 16-byte aligned) of global
 // memory into shared memory by the TMA unit, without a tensor map;
 // completes on `bar` with its bytes.
@@ -329,8 +355,9 @@ __device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t a, 
 // entry point (no -lcuda). Returns 0, or a negative code when the driver
 // refuses (TMA needs a 16-byte aligned base and strides that are multiples
 // of 16 bytes; the strides need not grow with the dim).
-inline int encode_4d(CUtensorMap* map, const void* base, bool fp32, const cuuint64_t (&dims)[4],
-                     const cuuint64_t (&strides)[3], const cuuint32_t (&box)[4]) {
+inline int encode_4d(CUtensorMap* map, const void* base, CUtensorMapDataType dtype,
+                     const cuuint64_t (&dims)[4], const cuuint64_t (&strides)[3],
+                     const cuuint32_t (&box)[4]) {
   static PFN_cuTensorMapEncodeTiled_v12000 encode = nullptr;
   if (encode == nullptr) {
     void* fn = nullptr;
@@ -342,12 +369,63 @@ inline int encode_4d(CUtensorMap* map, const void* base, bool fp32, const cuuint
     encode = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(fn);
   }
   const cuuint32_t unit[4] = {1, 1, 1, 1};
-  const CUresult res = encode(
-      map, fp32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-      const_cast<void*>(base), dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  const CUresult res = encode(map, dtype, 4, const_cast<void*>(base), dims, strides, box, unit,
+                              CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                              CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return res == CUDA_SUCCESS ? 0 : -1000 - static_cast<int>(res);
+}
+
+inline int encode_4d(CUtensorMap* map, const void* base, bool fp32, const cuuint64_t (&dims)[4],
+                     const cuuint64_t (&strides)[3], const cuuint32_t (&box)[4]) {
+  return encode_4d(map, base,
+                   fp32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, dims,
+                   strides, box);
+}
+
+// The map of a stacked (layers, rows, cols) weight of 1-byte (int8) or
+// 2-byte (bf16) elements as (cols, rows, layers, 1), boxes of (box_cols,
+// box_rows, 1, 1), 128-byte swizzle: the layer is a coordinate, so one map
+// serves every layer, and rows or columns past the weight land as zeros.
+// Encoded once per (base, shape, element size, box) and cached (the mega
+// step asks for its four weights' maps 16 times a step; encoding costs the
+// host microseconds); a map depends on nothing else, so a later tensor at a
+// reused address finds a map that is right for it.
+inline int stacked_weight_map(CUtensorMap* map, const void* base, int elem_bytes, int layers,
+                              int rows, int cols, int box_cols, int box_rows) {
+  struct Entry {
+    const void* base;
+    int key[6];
+    CUtensorMap map;
+  };
+  constexpr int kEntries = 32;
+  static Entry cache[kEntries];
+  static int used = 0, next = 0;
+  const int key[6] = {elem_bytes, layers, rows, cols, box_cols, box_rows};
+  for (int i = 0; i < used; ++i) {
+    const Entry& e = cache[i];
+    bool same = e.base == base;
+    for (int k = 0; k < 6 && same; ++k) same = e.key[k] == key[k];
+    if (same) {
+      *map = e.map;
+      return 0;
+    }
+  }
+  const cuuint64_t row = static_cast<cuuint64_t>(cols) * elem_bytes;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(layers), 1};
+  const cuuint64_t strides[3] = {row, row * rows, row * rows * layers};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(box_cols), static_cast<cuuint32_t>(box_rows),
+                             1, 1};
+  Entry& e = cache[next];
+  const CUtensorMapDataType dtype =
+      elem_bytes == 1 ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  if (const int err = encode_4d(&e.map, base, dtype, dims, strides, box)) return err;
+  e.base = base;
+  for (int k = 0; k < 6; ++k) e.key[k] = key[k];
+  next = (next + 1) % kEntries;
+  used = used < kEntries ? used + 1 : kEntries;
+  *map = e.map;
+  return 0;
 }
 
 // A (batch, rows, heads, 64) operand (bf16, or an fp32 workspace) with

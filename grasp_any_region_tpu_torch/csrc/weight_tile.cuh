@@ -1,6 +1,7 @@
 // The building blocks of the kernels that stream decode weights: kernels
-// H-J and H8-J8 (layer_matmul.cu) and the mega decode step's 19-23
-// (decode_megakernel.cu).
+// I, J, H8-J8 and H's earlier form (layer_matmul.cu), the mega decode step's 19 and 20
+// (decode_megakernel.cu), and the fragment helpers of the TMA-fed 21-23
+// (decode_mlp_sm90.cu, decode_attn_wo_sm90.cu).
 //
 // A slab is kWBK weight rows x WTile<W>::BN columns: 64 bf16 or 128 int8
 // columns, 128-byte rows either way, in shared memory at a pitch of 144
@@ -76,6 +77,34 @@ template <typename W>
 __device__ __forceinline__ int frag_col(int j, int e, int wn, int t) {
   if constexpr (WTile<W>::Q8) return wn + 16 * (j >> 1) + 4 * t + 2 * e + (j & 1);
   return wn + 8 * j + 2 * t + e;
+}
+
+// TMA-fed bodies (21-23, decode_mlp_sm90.cu and decode_attn_wo_sm90.cu):
+// ldmatrix.x4.trans of rows r0 .. r0 + 15 and 16-byte chunks c, c + 1 of a
+// 128-byte-swizzled box (chunk c of row r at c ^ (r % 8)): raw[0], raw[1]
+// rows 0-7 and 8-15 of chunk c, raw[2], raw[3] those of chunk c + 1.
+__device__ __forceinline__ void box_frags(uint32_t (&raw)[4], const uint8_t* box, int r0, int c,
+                                          int lane) {
+  const int r = r0 + (lane & 15), ch = c + (lane >> 4);
+  ldmatrix_x4_trans(raw, reinterpret_cast<const bf16*>(box + r * 128 + ((ch ^ (r & 7)) << 4)));
+}
+
+// B fragments of NT n-tiles from box_frags' raw: bf16 (NT 2) the two chunks'
+// 8 columns each; int8 (NT 4) the even and odd columns of each chunk's 16,
+// widened (frag_col says where each sum lands).
+template <typename W, int NT>
+__device__ __forceinline__ void b_frags(uint32_t (&bfr)[NT][2], const uint32_t (&raw)[4]) {
+  if constexpr (sizeof(W) == 1) {
+    static_assert(NT == 4, "two chunks of 16 int8 columns");
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      widen_i8x4(raw[2 * h], bfr[2 * h][0], bfr[2 * h + 1][0]);
+      widen_i8x4(raw[2 * h + 1], bfr[2 * h][1], bfr[2 * h + 1][1]);
+    }
+  } else {
+    static_assert(NT == 2, "two chunks of 8 bf16 columns");
+    bfr[0][0] = raw[0], bfr[0][1] = raw[1], bfr[1][0] = raw[2], bfr[1][1] = raw[3];
+  }
 }
 
 // cp.async slab kt's rows: rows [0, kWBK) of `src` (row pitch ld, already
@@ -179,29 +208,26 @@ __device__ __forceinline__ void each_sum(const float (&acc)[MT][WTile<W>::NT][4]
           fn(i * 16 + g + 8 * hf, frag_col<W>(j, e, wn, t), acc[i][j][2 * hf + e]);
 }
 
-// Launch with a cluster of cluster_x blocks along x, or (cluster_x 0) as a
-// cooperative launch, which keeps every block of the grid resident at once
-// or fails; returns the CUDA error.
+// Launch with a cluster of cluster_x blocks along x; with pdl, as a
+// programmatic dependent of the kernel before it on the stream (the kernel's
+// griddepcontrol.wait waits for that one to finish). Returns the CUDA error.
 template <typename... Params, typename... Args>
 int launch_ex(void (*kernel)(Params...), dim3 grid, int threads, int smem, int cluster_x,
-              cudaStream_t stream, Args... args) {
+              bool pdl, cudaStream_t stream, Args... args) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = grid;
   cfg.blockDim = dim3(threads, 1, 1);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
-  if (cluster_x > 0) {
-    attr[0].id = cudaLaunchAttributeClusterDimension;
-    attr[0].val.clusterDim.x = cluster_x;
-    attr[0].val.clusterDim.y = 1;
-    attr[0].val.clusterDim.z = 1;
-  } else {
-    attr[0].id = cudaLaunchAttributeCooperative;
-    attr[0].val.cooperative = 1;
-  }
+  cudaLaunchAttribute attr[2];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster_x;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  attr[1].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[1].val.programmaticStreamSerializationAllowed = 1;
   cfg.attrs = attr;
-  cfg.numAttrs = 1;
+  cfg.numAttrs = pdl ? 2 : 1;
   const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, args...);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());

@@ -57,9 +57,10 @@ _SIGNATURES = {
     "gar_layer_qkv_q8": [_P] * 10 + [_I] * 5 + [_P],
     "gar_qkv_norm_rope": [_P] * 12 + [_I] * 7 + [_F, _P],
     "gar_qkv_norm_rope_q8": [_P] * 15 + [_I] * 7 + [_F, _P],
-    "gar_mlp_residual": [_P] * 8 + [_I] * 4 + [_F, _P],
-    "gar_mlp_residual_q8": [_P] * 11 + [_I] * 4 + [_F, _P],
-    "gar_decode_attention_wo": [_P] * 11 + [_I] * 9 + [_F, _P],
+    "gar_mlp_residual": [_P] * 8 + [_I] * 6 + [_F, _P],
+    "gar_mlp_residual_q8": [_P] * 11 + [_I] * 6 + [_F, _P],
+    "gar_mlp_max_clusters": [_I] * 4,
+    "gar_decode_attention_wo": [_P] * 13 + [_I] * 11 + [_F, _P],
 }
 
 

@@ -33,7 +33,8 @@ at write_pos, and the current token enters the attention as its
 dequantized fp32 value q * s, so this step sees what later steps read
 back. It streams half of C's bytes through C's first design, one block
 per (kv head, batch row) (csrc/decode_tile.cuh), so at B = 1 it is held
-by its grid.
+by its grid. (Kernel 22 of the mega step, ops/decode_megakernel.py, runs
+C's split body with its own wo epilogue.)
 
 On a CPU tensor the wrapper runs `decode_attention_fused_plain` (or
 `decode_attention_fused_q8_plain`); on a CUDA tensor it launches the
@@ -116,8 +117,10 @@ def decode_attention_fused_split_plain(
     q: torch.Tensor, k_all: torch.Tensor, v_all: torch.Tensor,
     k_new: torch.Tensor, v_new: torch.Tensor, layer: int, *,
     prompt_lens: torch.Tensor, write_pos: torch.Tensor, prompt_pad: int, splits: int,
+    scale: Optional[float] = None,
 ) -> torch.Tensor:
-    """Kernel C's split arithmetic in torch: the new row written at write_pos
+    """Kernel C's split arithmetic in torch (the logits times `scale`, by
+    default D^-0.5, as kernels C and 22 take them): the new row written at write_pos
     (in place), then for each row the valid columns cut into `splits`
     chunks as the kernel cuts them (`valid_columns`, `split_bounds`); each
     chunk's (m, l, acc) with p = exp(s - the chunk's max) rounded to v's
@@ -131,7 +134,7 @@ def decode_attention_fused_split_plain(
     vc.index_copy_(2, idx, v_new.to(v_all.dtype)[:, :, None, :])
     b, h, d = q.shape
     kh, s = k_all.shape[2], k_all.shape[3]
-    scale = d ** -0.5
+    scale = d ** -0.5 if scale is None else scale
     qf = q.float().reshape(b, kh, h // kh, d)
     wpos = int(write_pos)
     rows = []

@@ -26,16 +26,25 @@ head_dim) rows; the kernel and the plain versions read column c of a
 table of width w at c mod w, so both give the same function. The port's
 step passes the (B, head_dim) rows.
 
-The CUDA kernels (csrc/decode_megakernel.cu) stream the weights as H-J do.
-20 and 21 keep JAX's fp32 xn and act exact on the tensor cores by splitting
-each into a bf16 high and low half (two products with one weight fragment).
-22 updates the cache in place, as kernel C does, and returns only the new
-residual. 23 and 21 reduce their per-block (B, D) partials through a
-workspace: a cooperative launch (every block resident at once, or the
-launch fails: M / 64 bf16 or M / 128 int8 blocks, one an SM) lets all
-blocks meet at a grid barrier, whose arrival count is back at 0 after each
-launch, so a launch can be replayed; then each block sums its share of
-the output in a fixed order.
+The CUDA kernels stream the weights as H does. 19 and 20
+(csrc/decode_megakernel.cu) are kernel J's cp.async design; 20 keeps JAX's
+fp32 xn exact on the tensor cores by splitting it into a bf16 high and low
+half (two products with one weight fragment), as 21 does its activation.
+23 and 21 (csrc/decode_mlp_sm90.cu) are one TMA-fed weight stream over
+every SM: a cluster of `mlp_splits` CTAs per 128 MLP columns splits gate
+and up over K, meets over distributed shared memory, and streams the
+tile's w_down rows for its share of the output columns (`mlp_plan`). 22
+(csrc/decode_attn_wo_sm90.cu) is kernel C's split-KV cluster body with wo
+tiled across the splits (`attention_wo_plan`); it updates the cache in
+place, as C does, and returns only the new residual. The three sum across
+clusters (M tiles, kv heads) without a grid barrier: each CTA writes its
+fp32 partial to a workspace slot and the last to arrive at a slice's
+counter sums the slots in order (`ordered_sum_plain`), adds x and rounds
+once; the counters (`_counters`, one zeroed int32 tensor a device) are 0
+again after every launch, so a launch can be replayed. The split plain
+versions (`layer_mlp_residual_split_plain`,
+`decode_attention_wo_split_plain`) follow the kernels' partition and order
+on any device, as mirrors for the tests.
 
 On a CPU tensor each wrapper runs its plain version; on a CUDA tensor it
 launches the kernel or raises. The mega step calls them 48 times a step at
@@ -45,12 +54,14 @@ bf16 activations, B <= 32 rows and head_dim 64.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import functools
+from typing import Callable, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from . import _build
+from . import decode_attention as dec
 from .attention import NEG_INF
 from .norms import rms_norm
 from .rope import rotate_half
@@ -60,7 +71,17 @@ launches = {"19": 0, "20": 0, "21": 0, "22": 0, "23": 0}
 
 MAX_ROWS = 32  # batch rows the kernels take
 HEAD_DIM = 64  # the only head_dim the kernels are built for
-_SYNC = {}  # device index -> the grid barrier words of kernels 21 and 23 (count, generation)
+_COUNTERS = {}  # device index -> the arrival counters: [0, 3072) 21 and 23, [3072, 4096) 22
+COUNTERS_22 = 3072
+
+# Kernels 21 / 23's work plan (csrc/decode_mlp_sm90.cu): tiles of MLP_TILE
+# MLP columns, 16 KB stages (a gate / up stage MLP_STAGE_BYTES / (2 MLP_TILE
+# itemsize) K rows, a w_down box 128 rows x 128 bytes of columns), clusters
+# of at most MLP_MAX_SPLITS CTAs splitting K while the grid stays within
+# MLP_CTAS_PER_SM CTAs an SM.
+MLP_TILE, MLP_STAGE_BYTES, MLP_MAX_SPLITS, MLP_CTAS_PER_SM = 128, 16384, 16, 2
+MLP_SLOT_PAD = 64  # floats past each (B, D) workspace slot (csrc/decode_mlp_sm90.cu)
+SUM_GROUP = 8  # slots the ordered sum adds in order before the groups (ordered_sum.cuh)
 
 
 def _rope_flat(z: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
@@ -143,6 +164,144 @@ def decode_attention_wo_plain(q, k_all, v_all, k_new, v_new, wo_all, x, layer: i
     for i in range(1, kh):  # the kv heads' partials in head order, as the TPU grid adds them
         total = total + partial[:, i]
     return (x.float() + total).to(x.dtype)
+
+
+# ---------------------------------------------------------------- the kernels' plans
+
+
+def box_cols(itemsize: int) -> int:
+    """Columns of a 128-byte TMA box row: 64 bf16, 128 int8."""
+    return 128 // itemsize
+
+
+def mlp_stage_rows(itemsize: int) -> int:
+    """K rows of a gate / up stage of kernels 21 / 23: 64 int8, 32 bf16."""
+    return MLP_STAGE_BYTES // (2 * MLP_TILE * itemsize)
+
+
+def mlp_splits(tiles: int, d: int, itemsize: int, *, sms: int = 132,
+               fits: Optional[Callable[[int], bool]] = None) -> int:
+    """Kernels 21 / 23's CTAs a tile (the cluster size): doubled while the
+    grid stays within MLP_CTAS_PER_SM CTAs an SM, the cluster within
+    MLP_MAX_SPLITS, a CTA keeps at least one stage of K rows, and (on the
+    card, `fits(s)`) all `tiles` clusters of s CTAs are resident at once.
+    GAR-1B (m = 8192: 64 tiles): 4 on 132 SMs."""
+    s = 1
+    while (s < MLP_MAX_SPLITS and tiles * s * 2 <= MLP_CTAS_PER_SM * sms
+           and d >= 2 * s * mlp_stage_rows(itemsize) and (fits is None or fits(2 * s))):
+        s *= 2
+    return s
+
+
+def mlp_plan(d: int, m: int, splits: int, itemsize: int) -> List[Tuple[int, int, int, int,
+                                                                       List[int]]]:
+    """(tile, rank, k0, k1, blocks) of each CTA of kernels 21 / 23: tile t
+    owns MLP columns [MLP_TILE t, MLP_TILE (t + 1)); CTA `rank` of its
+    cluster the gate / up rows [k0, k1) (k_split = ceil(d / splits) rounded
+    up to a stage; the last ranks may get none), and the w_down column
+    blocks (box_cols(itemsize) columns each) c with (c + t) % splits ==
+    rank, in order (so the CTAs that finish a block's ordered sum differ
+    from block to block)."""
+    rows = mlp_stage_rows(itemsize)
+    k_split = -(-(-(-d // splits)) // rows) * rows
+    n_blocks = d // box_cols(itemsize)
+    return [(t, r, min(d, r * k_split), min(d, (r + 1) * k_split),
+             list(range((r - t) % splits, n_blocks, splits)))
+            for t in range(m // MLP_TILE) for r in range(splits)]
+
+
+def attention_wo_plan(dm: int, splits: int, itemsize: int) -> List[Tuple[int, int, int]]:
+    """(rank, c0, c1) of each CTA of a kernel-22 cluster: the wo columns
+    [c0, c1) it multiplies, whole 128-byte chunks, ceil(chunks / splits) of
+    them (the last ranks may get fewer or none)."""
+    cpb = box_cols(itemsize)
+    chunks = -(-dm // cpb)
+    per = -(-chunks // splits)
+    return [(r, min(dm, min(chunks, r * per) * cpb), min(dm, min(chunks, (r + 1) * per) * cpb))
+            for r in range(splits)]
+
+
+def ordered_sum_plain(parts: torch.Tensor) -> torch.Tensor:
+    """Kernels 21-23's sum over the slots (dim 0) in their order: groups of
+    SUM_GROUP slots, each added in slot order, then the groups in order."""
+    total = None
+    for r0 in range(0, parts.shape[0], SUM_GROUP):
+        run = parts[r0]
+        for s in range(r0 + 1, min(parts.shape[0], r0 + SUM_GROUP)):
+            run = run + parts[s]
+        total = run if total is None else total + run
+    return total
+
+
+def layer_mlp_residual_split_plain(x, norm_all, wg_all, wu_all, wd_all, layer: int, *,
+                                   eps: float, splits: int, scales=None) -> torch.Tensor:
+    """Kernels 23 (scales None) and 21 (scales (sg, su, sd), int8 weights)
+    in their partition and order, in fp32: per tile and rank (`mlp_plan`)
+    the gate and up sums over the rank's K rows stage by stage; the ranks
+    in rank order; the int8 scales, SiLU(gate) * up (23: rounded to x's
+    dtype; 21: kept fp32); each tile's partial of every w_down column block
+    (21: times the column scale); the tiles summed by `ordered_sum_plain`;
+    x added and one rounding. xn is rounded to x's dtype, as both TPU
+    kernels round it. A mirror for the tests, not a path."""
+    itemsize = wg_all.element_size()
+    q8 = scales is not None
+    xn = rms_norm(x, norm_all[layer], eps).float()
+    wg, wu, wd = (w[layer].float() for w in (wg_all, wu_all, wd_all))
+    d, m = wg.shape
+    rows, cpb = mlp_stage_rows(itemsize), box_cols(itemsize)
+    plan = mlp_plan(d, m, splits, itemsize)
+    parts = []
+    for t in range(m // MLP_TILE):
+        n0, n1 = t * MLP_TILE, (t + 1) * MLP_TILE
+        gate = up = 0.0
+        for _, _, k0, k1, _ in plan[t * splits:(t + 1) * splits]:  # the ranks in order
+            gs = us = torch.zeros((x.shape[0], MLP_TILE), dtype=torch.float32, device=x.device)
+            for b0 in range(k0, k1, rows):
+                b1 = min(k1, b0 + rows)
+                gs = gs + xn[:, b0:b1] @ wg[b0:b1, n0:n1]
+                us = us + xn[:, b0:b1] @ wu[b0:b1, n0:n1]
+            gate, up = gate + gs, up + us
+        if q8:
+            gate, up = gate * scales[0][layer, :, n0:n1], up * scales[1][layer, :, n0:n1]
+        act = F.silu(gate) * up
+        if not q8:
+            act = act.to(x.dtype).float()
+        part = torch.empty((x.shape[0], d), dtype=torch.float32, device=x.device)
+        for _, _, _, _, blocks in plan[t * splits:(t + 1) * splits]:
+            for blk in blocks:
+                c0, c1 = blk * cpb, (blk + 1) * cpb
+                part[:, c0:c1] = act @ wd[n0:n1, c0:c1]
+        parts.append(part * scales[2][layer] if q8 else part)
+    return (x.float() + ordered_sum_plain(torch.stack(parts))).to(x.dtype)
+
+
+def decode_attention_wo_split_plain(q, k_all, v_all, k_new, v_new, wo_all, x, layer: int, *,
+                                    prompt_lens, write_pos, prompt_pad: int, splits: int,
+                                    wo_scale: Optional[torch.Tensor] = None,
+                                    scale: Optional[float] = None) -> torch.Tensor:
+    """Kernel 22 in its partition and order, in fp32: kernel C's chunked
+    attention and merge (`decode_attention_fused_split_plain`: the new row
+    written at write_pos in place, `splits` chunks of the valid columns, the
+    current token folded in), a rounded to x's dtype, each rank's wo column
+    slice (`attention_wo_plan`) of every kv head's partial (int8: times the
+    column scale), the kv heads summed by `ordered_sum_plain` in head order,
+    x added and one rounding. Reads write_pos and prompt_lens on the host: a
+    mirror for the tests, not a path."""
+    b, h, d = q.shape
+    kh = k_all.shape[2]
+    a = dec.decode_attention_fused_split_plain(
+        q, k_all, v_all, k_new, v_new, layer, prompt_lens=prompt_lens, write_pos=write_pos,
+        prompt_pad=prompt_pad, splits=splits, scale=scale)
+    a = a.to(x.dtype).float().reshape(b, kh, h // kh * d)
+    w = wo_all[layer].float().reshape(kh, h // kh * d, -1)
+    dm = w.shape[-1]
+    partial = torch.empty((kh, b, dm), dtype=torch.float32, device=x.device)
+    for _, c0, c1 in attention_wo_plan(dm, splits, wo_all.element_size()):
+        for k in range(kh):
+            partial[k, :, c0:c1] = a[:, k] @ w[k, :, c0:c1]
+    if wo_scale is not None:
+        partial = partial * wo_scale[layer]
+    return (x.float() + ordered_sum_plain(partial)).to(x.dtype)
 
 
 # ---------------------------------------------------------------- checks
@@ -302,22 +461,52 @@ def layer_qkv_norm_rope_q8(x, norm_all, wq_q8, sq, wk_q8, sk, wv_q8, sv, cosq, s
                        head_dim)
 
 
-def _sync(device: torch.device) -> torch.Tensor:
-    words = _SYNC.get(device.index)
-    if words is None:
-        words = _SYNC[device.index] = torch.zeros(2, dtype=torch.int32, device=device)
-    return words
+def _counters(device: torch.device) -> torch.Tensor:
+    """The device's arrival counters, zeroed once; every launch leaves them
+    at 0."""
+    counters = _COUNTERS.get(device.index)
+    if counters is None:
+        counters = _COUNTERS[device.index] = torch.zeros(COUNTERS_22 + 1024, dtype=torch.int32,
+                                                         device=device)
+    return counters
 
 
-def _mlp_launch(key, fn, x, norm_all, mats, layer, eps, block_cols):
+@functools.lru_cache(maxsize=None)
+def _card_mlp_splits(tiles: int, d: int, rows: int, q8: bool, index: int) -> int:
+    lib = _build.library()
+
+    def fits(s: int) -> bool:  # every cluster resident at once, as the card counts them
+        with torch.cuda.device(index):
+            n = lib.gar_mlp_max_clusters(int(q8), rows, d, s)
+        if n < 0:
+            _build.check(-n, "gar_mlp_max_clusters")
+        return n >= tiles
+
+    return mlp_splits(tiles, d, 1 if q8 else 2, sms=_build.sm_count(index), fits=fits)
+
+
+def mlp_card_splits(m: int, d: int, rows: int, q8: bool, device: torch.device) -> int:
+    """`mlp_splits` on the card: its SM count, and clusters that fit in one
+    wave for 16 or 32 rows (the kernel's two row tiles)."""
+    return _card_mlp_splits(m // MLP_TILE, d, 16 if rows <= 16 else 32, q8, device.index)
+
+
+def attention_wo_splits(batch: int, kv_heads: int, device: torch.device) -> int:
+    """Kernel 22's CTAs a (kv head, row): kernel C's `card_splits`."""
+    return dec.card_splits(batch, kv_heads, device)
+
+
+def _mlp_launch(key, fn, x, norm_all, mats, layer, eps, q8):
     b, d = x.shape
-    m = mats[0].shape[-1]
+    n_layers, m = mats[0].shape[0], mats[0].shape[-1]
     out = torch.empty_like(x)
-    # one (B, D) fp32 partial per block of `block_cols` MLP columns
-    ws = torch.empty((m // block_cols, b, d), dtype=torch.float32, device=x.device)
-    sync = _sync(x.device)
+    tiles = m // MLP_TILE  # a tile's slot, then a group's sum
+    ws = torch.empty((tiles + -(-tiles // SUM_GROUP), b * d + MLP_SLOT_PAD), dtype=torch.float32,
+                     device=x.device)
+    counters = _counters(x.device)
+    splits = mlp_card_splits(m, d, b, q8, x.device)
     err = fn(x.data_ptr(), norm_all.data_ptr(), *(t.data_ptr() for t in mats), out.data_ptr(),
-             ws.data_ptr(), sync.data_ptr(), layer, b, d, m, eps,
+             ws.data_ptr(), counters.data_ptr(), layer, n_layers, b, d, m, splits, eps,
              _build.stream_handle(x.device))
     _build.check(err, fn.__name__)
     launches[key] += 1
@@ -331,7 +520,7 @@ def layer_mlp_residual(x, norm_all, wg_all, wu_all, wd_all, layer: int, *, eps: 
         return layer_mlp_residual_plain(x, norm_all, wg_all, wu_all, wd_all, layer, eps=eps)
     check_mlp_residual(x, norm_all, wg_all, wu_all, wd_all, None, layer)
     return _mlp_launch("23", _build.library().gar_mlp_residual, x, norm_all,
-                       (wg_all, wu_all, wd_all), layer, eps, 64)
+                       (wg_all, wu_all, wd_all), layer, eps, False)
 
 
 def layer_mlp_residual_q8(x, norm_all, wg_q8, sg, wu_q8, su, wd_q8, sd, layer: int, *,
@@ -343,7 +532,7 @@ def layer_mlp_residual_q8(x, norm_all, wg_q8, sg, wu_q8, su, wd_q8, sd, layer: i
                                            eps=eps)
     check_mlp_residual(x, norm_all, wg_q8, wu_q8, wd_q8, (sg, su, sd), layer)
     return _mlp_launch("21", _build.library().gar_mlp_residual_q8, x, norm_all,
-                       (wg_q8, sg, wu_q8, su, wd_q8, sd), layer, eps, 128)
+                       (wg_q8, sg, wu_q8, su, wd_q8, sd), layer, eps, True)
 
 
 def decode_attention_wo(q, k_all, v_all, k_new, v_new, wo_all, x, layer: int, *,
@@ -363,15 +552,18 @@ def decode_attention_wo(q, k_all, v_all, k_new, v_new, wo_all, x, layer: int, *,
     check_attention_wo(q, k_all, v_all, k_new, v_new, wo_all, x, layer, prompt_lens, write_pos,
                        wo_scale)
     b, h, d = q.shape
-    kh, s = k_all.shape[2], k_all.shape[3]
+    n_layers, _, kh, s = k_all.shape[:4]
+    dm = x.shape[1]
     out = torch.empty_like(x)
+    ws = torch.empty((b, kh, dm), dtype=torch.float32, device=x.device)  # a (row, kv head)'s slot
+    counters = _counters(x.device)[COUNTERS_22:]
     q8 = wo_scale is not None
     err = _build.library().gar_decode_attention_wo(
         q.data_ptr(), k_all.data_ptr(), v_all.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
         wo_all.data_ptr(), wo_scale.data_ptr() if q8 else None, x.data_ptr(), out.data_ptr(),
-        prompt_lens.data_ptr(), write_pos.data_ptr(), layer, b, h, kh, s, d, x.shape[1],
-        prompt_pad, int(q8), d ** -0.5 if scale is None else scale,
-        _build.stream_handle(x.device))
+        ws.data_ptr(), counters.data_ptr(), prompt_lens.data_ptr(), write_pos.data_ptr(), layer,
+        n_layers, b, h, kh, s, d, dm, prompt_pad, int(q8), attention_wo_splits(b, kh, x.device),
+        d ** -0.5 if scale is None else scale, _build.stream_handle(x.device))
     _build.check(err, "gar_decode_attention_wo")
     launches["22"] += 1
     return out

@@ -812,50 +812,101 @@ def test_qkv_norm_rope_kernels(rnd, q8, b, d, hq, hk):
             torch.testing.assert_close(o.float(), r.float(), **TOL)
 
 
-@pytest.mark.parametrize("q8", [False, True], ids=["bf16", "int8"])
-@pytest.mark.parametrize("b", [1, 5, 24])
-@pytest.mark.parametrize("d,m", [(256, 1024), (384, 640), (2048, 8192)])
-def test_mlp_residual_kernels(rnd, q8, b, d, m):
-    """Kernels 23 and 21 against their plain versions; a second launch on
-    the same inputs gives the same bits (the grid barrier's arrival count
-    is back at 0 after each launch)."""
-    layer = 1
-    x, norm = rnd(b, d) * 3, _norm(rnd, 3, d)
+def _counters_at_zero(device):
+    return not mk._counters(device).any()
+
+
+def _mlp_case(rnd, q8, d, m):
+    """Kernel 21 or 23, its plain version, the split mirror's scales and the
+    (L = 3) weights."""
     if q8:
         mats = (*_q8(rnd, 3, d, m), *_q8(rnd, 3, d, m), *_q8(rnd, 3, m, d))
-        kernel, plain, key = mk.layer_mlp_residual_q8, mk.layer_mlp_residual_q8_plain, "21"
-    else:
-        w = _decode_weights(rnd, 3, d, m, 64, 64)
-        mats = (w["w_gate"], w["w_up"], w["w_down"])
-        kernel, plain, key = mk.layer_mlp_residual, mk.layer_mlp_residual_plain, "23"
+        return (mk.layer_mlp_residual_q8, mk.layer_mlp_residual_q8_plain, "21", mats,
+                (mats[0], mats[2], mats[4]), (mats[1], mats[3], mats[5]))
+    w = _decode_weights(rnd, 3, d, m, 64, 64)
+    mats = (w["w_gate"], w["w_up"], w["w_down"])
+    return mk.layer_mlp_residual, mk.layer_mlp_residual_plain, "23", mats, mats, None
+
+
+def _same_bits_twice_and_replayed(run, out):
+    """A second launch and two replays of a CUDA graph of one launch give
+    `out`'s bits, and the arrival counters stay at 0."""
+    again = run()
+    torch.cuda.synchronize()
+    assert torch.equal(again, out) and _counters_at_zero(out.device)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(stream):
+        run()  # warm on the capture stream
+        stream.synchronize()
+        with torch.cuda.graph(graph, stream=stream):
+            captured = run()
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(captured, out) and _counters_at_zero(out.device)
+
+
+@pytest.mark.parametrize("q8", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("b", [1, 2, 17, 24, 32])
+@pytest.mark.parametrize("d,m", [(256, 1024), (384, 640), (2048, 8192)])
+def test_mlp_residual_kernels(rnd, q8, b, d, m):
+    """Kernels 23 and 21 against their plain versions (at GAR-1B's (2048,
+    8192) too); a second launch and a CUDA-graph replay give the same bits,
+    and the arrival counters are 0 after each launch."""
+    layer = 1
+    x, norm = rnd(b, d) * 3, _norm(rnd, 3, d)
+    kernel, plain, key, mats, _, _ = _mlp_case(rnd, q8, d, m)
     before = dict(mk.launches)
     out = kernel(x, norm, *mats, layer, eps=1e-5)
     torch.cuda.synchronize()
     assert mk.launches == dict(before, **{key: before[key] + 1})
-    assert int(mk._SYNC[x.device.index][0]) == 0
+    assert _counters_at_zero(x.device)
     ref = plain(x, norm, *mats, layer, eps=1e-5)
     assert out.dtype == torch.bfloat16 and out.shape == ref.shape
     torch.testing.assert_close(out.float(), ref.float(), **TOL)
-    again = kernel(x, norm, *mats, layer, eps=1e-5)
-    torch.cuda.synchronize()
-    assert torch.equal(again, out)
+    _same_bits_twice_and_replayed(lambda: kernel(x, norm, *mats, layer, eps=1e-5), out)
 
 
 @pytest.mark.parametrize("q8", [False, True], ids=["bf16", "int8"])
-@pytest.mark.parametrize("group", [1, 4, 8])
-@pytest.mark.parametrize("b,plens,pad,wpos", [(2, (100, 37), 128, 170), (1, (128,), 128, 128),
-                                              (3, (500, 700, 9), 700, 1023)])
-def test_decode_attention_wo_kernel(rnd, q8, group, b, plens, pad, wpos):
-    """Kernel 22 against its plain version: the new residual, and the cache,
-    which changes only at column write_pos, to the new K/V."""
-    L, kh, s, dm, layer = 3, 4, 1024, 512, 1
-    k_all, v_all = rnd(L, b, kh, s, 64), rnd(L, b, kh, s, 64)
+@pytest.mark.parametrize("b", [1, 24])
+@pytest.mark.parametrize("splits", [1, 2, 4, 8, 16])
+def test_mlp_residual_kernel_any_split(rnd, monkeypatch, q8, b, splits):
+    """Kernels 23 and 21 at GAR-1B's (2048, 8192) over clusters of 1-16 CTAs
+    a tile (the chooser replaced): against the plain version, and against
+    the split mirror, which sums in the kernel's partition and order."""
+    d, m, layer = 2048, 8192, 2
+    monkeypatch.setattr(mk, "mlp_card_splits", lambda *_: splits)
+    x, norm = rnd(b, d) * 3, _norm(rnd, 3, d)
+    kernel, plain, _, mats, weights, scales = _mlp_case(rnd, q8, d, m)
+    out = kernel(x, norm, *mats, layer, eps=1e-5)
+    torch.cuda.synchronize()
+    assert _counters_at_zero(x.device)
+    torch.testing.assert_close(out.float(), plain(x, norm, *mats, layer, eps=1e-5).float(), **TOL)
+    mirror = mk.layer_mlp_residual_split_plain(x, norm, *weights, layer, eps=1e-5, splits=splits,
+                                               scales=scales)
+    torch.testing.assert_close(out.float(), mirror.float(), **TOL)
+    assert torch.equal(kernel(x, norm, *mats, layer, eps=1e-5), out)
+
+
+def _attention_wo_case(rnd, q8, b, kh, group, s, dm, n_layers=3):
+    k_all, v_all = rnd(n_layers, b, kh, s, 64), rnd(n_layers, b, kh, s, 64)
     q, k_new, v_new = rnd(b, kh * group, 64), rnd(b, kh, 64), rnd(b, kh, 64)
     x = rnd(b, dm)
     if q8:
-        wo, wo_scale = _q8(rnd, L, kh * group * 64, dm)
+        wo, wo_scale = _q8(rnd, n_layers, kh * group * 64, dm)
     else:
-        wo, wo_scale = _decode_weights(rnd, L, dm, 64, kh * group * 64, 64)["wo"], None
+        wo, wo_scale = _decode_weights(rnd, n_layers, dm, 64, kh * group * 64, 64)["wo"], None
+    return q, k_all, v_all, k_new, v_new, wo, x, wo_scale
+
+
+def _check_attention_wo(case, layer, plens, pad, wpos, splits=None):
+    """Kernel 22 against its plain version (and, with `splits`, the split
+    mirror): the new residual, and the cache, which changes only at column
+    write_pos, to the new K/V; then a second launch and a CUDA-graph replay
+    give the same bits."""
+    q, k_all, v_all, k_new, v_new, wo, x, wo_scale = case
     kw = dict(prompt_lens=torch.tensor(plens, dtype=torch.int32, device="cuda"),
               write_pos=torch.tensor(wpos, dtype=torch.int32, device="cuda"), prompt_pad=pad,
               wo_scale=wo_scale)
@@ -865,9 +916,63 @@ def test_decode_attention_wo_kernel(rnd, q8, group, b, plens, pad, wpos):
     out = mk.decode_attention_wo(q, k_all, v_all, k_new, v_new, wo, x, layer, **kw)
     torch.cuda.synchronize()
     assert mk.launches["22"] == before + 1
+    assert _counters_at_zero(x.device)
     torch.testing.assert_close(out.float(), ref.float(), **TOL)
     assert torch.equal(k_all, k_exp) and torch.equal(v_all, v_exp)
     assert torch.equal(k_all[layer, :, :, wpos], k_new)
+    if splits is not None:
+        mirror = mk.decode_attention_wo_split_plain(q, k_exp.clone(), v_exp.clone(), k_new, v_new,
+                                                    wo, x, layer, splits=splits, **kw)
+        torch.testing.assert_close(out.float(), mirror.float(), **TOL)
+    _same_bits_twice_and_replayed(
+        lambda: mk.decode_attention_wo(q, k_all, v_all, k_new, v_new, wo, x, layer, **kw), out)
+    assert torch.equal(k_all, k_exp) and torch.equal(v_all, v_exp)
+
+
+# (B, prompt_lens, prompt_pad, write_pos) over S = 1024: prompt only; ragged
+# rows; the history at the cache's end; 5 columns over 8 CTAs (empty chunks);
+# 16 columns over 8 (chunk edges at prompt_len | prompt_pad); B = 17, 24, 32
+# with prompts of 0 to prompt_pad columns
+WO_LAYOUTS = [(1, (128,), 128, 128), (2, (100, 37), 128, 170), (3, (500, 700, 9), 700, 1023),
+              (1, (3,), 64, 66), (2, (8, 16), 64, 72),
+              (17, tuple(range(0, 340, 20)), 320, 400),
+              (24, tuple((37 * i) % 301 for i in range(24)), 300, 555),
+              (32, tuple((53 * i) % 257 for i in range(32)), 256, 1000)]
+
+
+@pytest.mark.parametrize("q8", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("group", [1, 2, 4, 8])
+@pytest.mark.parametrize("b,plens,pad,wpos", WO_LAYOUTS)
+def test_decode_attention_wo_kernel(rnd, q8, group, b, plens, pad, wpos):
+    """Kernel 22 against its plain version at the card's splits (wo loaded
+    whole at B = 1-2 here, streamed after the attention at B >= 17): the new
+    residual, the cache changed only at write_pos, the same bits on a second
+    launch and a graph replay, the counters at 0."""
+    case = _attention_wo_case(rnd, q8, b, 4, group, 1024, 512)
+    _check_attention_wo(case, 1, plens, pad, wpos)
+
+
+@pytest.mark.parametrize("q8", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("splits", [1, 2, 3, 5, 8, 16])
+def test_decode_attention_wo_kernel_any_split(rnd, monkeypatch, q8, splits):
+    """Kernel 22 over clusters of 1-16 CTAs (the chooser replaced), G = 4, a
+    residual width of 5 chunks (some CTAs own no wo columns), against the
+    plain version and the split mirror."""
+    monkeypatch.setattr(mk, "attention_wo_splits", lambda *_: splits)
+    dm = 640 if q8 else 320
+    case = _attention_wo_case(rnd, q8, 3, 2, 4, 512, dm)
+    _check_attention_wo(case, 2, (128, 3, 64), 128, 300, splits=splits)
+
+
+@pytest.mark.parametrize("q8", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("b", [1, 24])
+def test_decode_attention_wo_kernel_gar_1b(rnd, q8, b):
+    """Kernel 22 at GAR-1B's shapes: 32 query heads over 8 kv heads, a
+    residual of 2048, a (2, B, 8, 5120, 64) cache with the 4662-token
+    prompt, write_pos just past prompt_pad."""
+    case = _attention_wo_case(rnd, q8, b, 8, 4, 5120, 2048, n_layers=2)
+    plens = (4662,) + tuple(3000 + (97 * i) % 1663 for i in range(1, b))
+    _check_attention_wo(case, 1, plens, 4662, 4663)
 
 
 @pytest.mark.parametrize("q8", [False, True], ids=["bf16", "int8"])
