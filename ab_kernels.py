@@ -16,13 +16,20 @@ one call after an L2 flush and 16 layers back to back) against the parent
 h_parent; those named m_* time kernels 21-23 (TIMING_M: 23 and 21 at
 GAR-1B's widths at B = 1 and 24, one call and 16 layers back to back; 22
 with bf16 and int8 wo over the main path's cache at B = 1 and 24, beside
-C alone and C + H on wo) against m_parent. Run from the repository root on
-a machine with the card:
+C alone and C + H on wo) against m_parent; those named c8_* and i8_*
+time kernels C8 and I8 (TIMING_Q8: C8 over layer 7 of the main path's
+int8 (16, B, 8, 5120, 64) cache, I8 at GAR-1B's gate and up, each at B = 1
+and 24 and checked against its plain version, I8 also 16 layers back to
+back) against q8_parent. `--against=` runs one timing (TIMING_Q8 unless
+another is named: abc, h, m) in the package of another checkout and in
+this tree, in turns. Run from the repository root on a machine with the
+card:
 
     python3 ab_kernels.py [variant ...]
     python3 ab_kernels.py h_<variant> ...
     python3 ab_kernels.py m_<variant> ...
-    python3 ab_kernels.py --against=<directory of another checkout>
+    python3 ab_kernels.py c8_<variant> | i8_<variant> ...
+    python3 ab_kernels.py --against=<directory of another checkout> [q8 | abc | h | m]
 """
 
 from __future__ import annotations
@@ -179,6 +186,47 @@ M_VARIANTS = {  # kernels 21-23 (TIMING_M)
                     "row0 + (j % G) * D, a.s.layer, 0, 0 * l2_evict_last() + 0x1000000000000000ull);")],
 }
 
+STREAM_SRC = H_SRC
+LM_PY = H_PY
+TILE_SRC = "grasp_any_region_tpu_torch/csrc/weight_tile.cuh"
+DEC_PY = "grasp_any_region_tpu_torch/ops/decode_attention.py"
+I8_SPLITS = "_card_splits(m, din, dev.index, stream_n(torch.int8), STREAM_CTAS_PER_SM_Q8)"
+Q8_VARIANTS = {  # kernels C8 and I8 (TIMING_Q8)
+    "q8_parent": [],
+    # C8: a deeper ring (C's too: TIMING_Q8 times C8 alone); clusters of up
+    # to 8 or 4 CTAs (the chooser's cap)
+    "c8_six_stages": VARIANTS["c_six_stages"],
+    "c8_eight_stages": [(SPLIT, "constexpr int kSplitStages = 4;",
+                         "constexpr int kSplitStages = 8;")],
+    "c8_max_splits_8": [(DEC_PY, "MAX_SPLITS_Q8 = 16  #", "MAX_SPLITS_Q8 = 8  #")],
+    "c8_max_splits_4": [(DEC_PY, "MAX_SPLITS_Q8 = 16  #", "MAX_SPLITS_Q8 = 4  #")],
+    # timing only (wrong results): the int8 rows used as they land, not widened
+    "c8_no_widen": [(SPLIT, "        widen_scaled(*reinterpret_cast<const uint4*>(qk + 16 * idx), "
+                     "ksc, lo, hi);", "        lo = hi = *reinterpret_cast<const uint4*>(qk + 16 * "
+                     "idx);"),
+                    (SPLIT, "        widen_scaled(*reinterpret_cast<const uint4*>(qv + 16 * idx), "
+                     "vsc, lo, hi);", "        lo = hi = *reinterpret_cast<const uint4*>(qv + 16 * "
+                     "idx);")],
+    # I8: a ring of 4 or 6 stages (H's too); clusters of 1 or 4 (two CTAs an
+    # SM, each with half an SM's shared memory); stages handed back at once
+    "i8_four_stages": [(STREAM_SRC, "constexpr int kWsStages = 3;", "constexpr int kWsStages = 4;")],
+    "i8_six_stages": [(STREAM_SRC, "constexpr int kWsStages = 3;", "constexpr int kWsStages = 6;")],
+    "i8_splits_1": [(LM_PY, I8_SPLITS, "1")],
+    "i8_two_ctas_an_sm": [(LM_PY, "STREAM_CTAS_PER_SM_Q8 = 1", "STREAM_CTAS_PER_SM_Q8 = 2")],
+    "i8_release_at_once": H_VARIANTS["h_release_at_once"],
+    # timing only (wrong results): the int8 boxes not widened
+    "i8_no_widen": [(TILE_SRC, """    static_assert(NT == 4, "two chunks of 16 int8 columns");
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      widen_i8x4(raw[2 * h], bfr[2 * h][0], bfr[2 * h + 1][0]);
+      widen_i8x4(raw[2 * h + 1], bfr[2 * h][1], bfr[2 * h + 1][1]);
+    }""", """#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      bfr[2 * h][0] = bfr[2 * h + 1][0] = raw[2 * h];
+      bfr[2 * h][1] = bfr[2 * h + 1][1] = raw[2 * h + 1];
+    }""")],
+}
+
 TIMING = r"""
 import json, torch, chip_smoke as c
 from grasp_any_region_tpu_torch.ops import decode_attention as dec
@@ -303,12 +351,64 @@ print("AB " + json.dumps(t))
 """
 
 
-def against(other: str) -> int:
-    """TIMING_M in the package checked out at `other` (e.g. `git archive` of
-    the parent commit unpacked there) and in this tree, in turns: other,
-    this, this, other."""
+TIMING_Q8 = r"""
+import json, torch, chip_smoke as c
+from grasp_any_region_tpu_torch.models.quantize import quantize_int8
+from grasp_any_region_tpu_torch.ops import decode_attention as dec
+from grasp_any_region_tpu_torch.ops import layer_matmul as lm
+c.phase_environment()
+gen = torch.Generator(device="cuda").manual_seed(0)
+def rnd(*shape):
+    return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+t = {}
+def check(out, ref, name, **tol):
+    try:
+        c.max_err(out, ref, name, **tol)
+    except AssertionError:  # a timing-only variant
+        t["wrong results"] = 1
+layer, pad, wpos = 7, 4662, 4662 + 128
+for b in (1, 24):
+    k_all, v_all = (torch.randint(-127, 128, (16, b, 8, 5120, 64), generator=gen, device="cuda",
+                                  dtype=torch.int8) for _ in range(2))
+    ks, vs = ((torch.rand((16, b, 4, 1, 1), generator=gen, device="cuda") + 0.5) / 73.3
+              for _ in range(2))
+    plens = [pad] + [3000 + (97 * i) % 1663 for i in range(1, b)]
+    q, kn, vn = rnd(b, 32, 64), rnd(b, 8, 64), rnd(b, 8, 64)
+    kw = dict(prompt_lens=torch.tensor(plens, dtype=torch.int32, device="cuda"),
+              write_pos=torch.tensor(wpos, dtype=torch.int32, device="cuda"), prompt_pad=pad,
+              k_scale=ks, v_scale=vs)
+    ref = dec.decode_attention_fused_q8_plain(q.float(), k_all[layer:layer + 1].clone(),
+                                              v_all[layer:layer + 1].clone(), kn, vn, 0,
+                                              **dict(kw, k_scale=ks[layer:layer + 1],
+                                                     v_scale=vs[layer:layer + 1]))
+    check(dec.decode_attention_fused(q, k_all, v_all, kn, vn, layer, **kw), ref, f"C8 B={b}",
+          **c.TOL16)
+    t[f"C8 B={b}"] = c.cuda_ms(lambda: dec.decode_attention_fused(q, k_all, v_all, kn, vn,
+                                                                  layer, **kw))
+    del k_all, v_all
+d, m = 2048, 8192
+wg, wu = ((rnd(16, d, m).float() * d ** -0.5).to(torch.bfloat16) for _ in range(2))
+mats = (*quantize_int8(wg), *quantize_int8(wu))
+del wg, wu
+for b in (1, 24):
+    x = rnd(b, d)
+    check(lm.layer_swiglu_q8(x, *mats, layer), lm.layer_swiglu_q8_plain(x.float(), *mats, layer),
+          f"I8 B={b}")
+    t[f"I8 B={b}"] = c.cuda_ms(lambda: lm.layer_swiglu_q8(x, *mats, layer))
+    t[f"I8 B={b} x16"] = c.cuda_ms(lambda: [lm.layer_swiglu_q8(x, *mats, i) for i in range(16)],
+                                   iters=5, sleep_cycles=20_000_000) / 16
+print("AB " + json.dumps(t))
+"""
+
+
+def against(other: str, timing: str = "q8") -> int:
+    """One timing (TIMING_Q8, or TIMING, TIMING_H, TIMING_M as abc, h, m) in
+    the package checked out at `other` (e.g. `git archive` of the parent
+    commit unpacked there) and in this tree, in turns: other, this, this,
+    other."""
+    code = dict(q8=TIMING_Q8, abc=TIMING, h=TIMING_H, m=TIMING_M)[timing]
     for name, d in (("other", other), ("tree", str(REPO)), ("tree", str(REPO)), ("other", other)):
-        res = run(Path(d), ["-c", TIMING_M], 900)
+        res = run(Path(d), ["-c", code], 900)
         lines = [x for x in res.stdout.splitlines() if x.startswith("AB ")]
         print(f"[cmp] {name}: {lines[-1] if lines else (res.stdout + res.stderr)[-600:]}",
               flush=True)
@@ -316,12 +416,14 @@ def against(other: str) -> int:
 
 
 def main(names: list[str]) -> int:
-    if len(names) == 1 and names[0].startswith("--against="):
-        return against(names[0].split("=", 1)[1])
+    if names and names[0].startswith("--against="):
+        return against(names[0].split("=", 1)[1], *names[1:])
     h = bool(names) and all(n.startswith("h_") for n in names)
     mega = bool(names) and all(n.startswith("m_") for n in names)
+    q8 = bool(names) and all(n.startswith(("c8_", "i8_")) for n in names)
     variants, parent, timing = ((H_VARIANTS, "h_parent", TIMING_H) if h
                                 else (M_VARIANTS, "m_parent", TIMING_M) if mega
+                                else (Q8_VARIANTS, "q8_parent", TIMING_Q8) if q8
                                 else (VARIANTS, "parent", TIMING))
     unknown = set(names) - set(variants)
     if unknown:

@@ -18,14 +18,18 @@ the script exits non-zero (there is no CPU fallback):
    same function (SDPA for A and B, torch.mm for H, the W8A16 product
    torch._weight_int8pack_mm for H8, SDPA over views of E's fused buffer,
    torch.addmm for F, SDPA with the boolean mask for C), that call's time.
-   H (the TMA-fed weight stream) also beside its earlier form (the
-   cp.async ring that I and J still run), with both host times a call.
+   H and I8 (the TMA-fed weight stream, bf16 and int8) also beside their
+   earlier forms (the cp.async ring that I, J, H8 and J8 still run), with
+   both host times a call and their times by CTAs a tile.
    E also at a ragged S = 200. The decode matmuls H, I, J and their int8
    forms H8, I8, J8 also at B = 24 (with their GB/s of weights, cuBLAS's
    bf16 product of the same layer and the card's copy rate on the same
-   bytes) and at the narrow config's ragged widths. C8 (int8 KV) at the
-   main path's cache, B = 1 and 5120 columns, and at B = 24; its written
-   column within one quantization step of the plain version's. The mega
+   bytes) and at the narrow config's ragged widths. C8 (int8 KV, C's
+   split-KV body) at the main path's cache, B = 1 and 5120 columns, and at
+   B = 24, at atol 2e-3 and rtol 2^-8 (TOL16) with the interval probe and
+   a current-token probe (`q8_probe`), beside C on a bf16 cache of the same
+   shape, its CTAs a (kv head, row) swept 1-16; its written column within
+   one quantization step of the plain version's. The mega
    decode step's kernels 19-23 at gar_1b shapes, B = 24 and B = 1 (22 with
    bf16 and with int8 wo, over a cache of the main path's shape, its
    written K/V column checked, beside kernel C + kernel H on wo; 21-23 also
@@ -783,54 +787,160 @@ def layer_norm_kernel(rnd):
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms, **lim)
 
 
+def q8_probe(kind, k_all, v_all, k_scale, v_scale, q, k_new, v_new, layer, plens, pad, wpos):
+    """C8's probes, written into `layer` of the int8 cache and its scales in
+    place; returns the (k_new, v_new) to append. "interval": k = 0 and v
+    int8 spikes on each side of each interval edge, the i-th 16 i steps of a
+    scale of the row's count of valid columns / 800, so each spike is 0.02 i
+    times that count (as `interval_probe`): one column too many, too few or
+    twice moves a row by 0.02 or more. "current": k and v = 0 in the slab,
+    and the first query head of each kv head carrying about half its weight
+    on the current token (q . k_new scaled to log of the count), k_new and
+    v_new quantized at a coarse scale of 0.5, so folding in the bf16 k_new
+    or v_new instead of their dequantized values moves those rows by a few
+    hundredths."""
+    b, kh = k_new.shape[:2]
+    counts = [p + max(0, wpos + 1 - max(pad, p)) for p in plens]
+    k_all[layer].zero_()
+    if kind == "interval":
+        gen = torch.Generator(device="cuda").manual_seed(SEED + len(plens))
+        v_all[layer] = torch.randint(-16, 17, v_all[layer].shape, generator=gen, device="cuda",
+                                     dtype=torch.int8)
+        for row, (plen, n) in enumerate(zip(plens, counts)):
+            edges = sorted({plen - 1, plen, pad - 1, pad, wpos, wpos + 1}
+                           & set(range(v_all.shape[3])))
+            for i, col in enumerate(edges):
+                v_all[layer, row, :, col] = 16 * (i + 1)
+            v_scale[layer, row] = n / 800
+        return torch.zeros_like(k_new), v_new
+    v_all[layer].zero_()
+    k_scale[layer], v_scale[layer] = 0.5, 0.5
+    q0 = q.float().reshape(b, kh, -1, 64)[:, :, 0]
+    n = torch.tensor(counts, device=q.device, dtype=torch.float32)[:, None, None]
+    k_new = (q0 * 8 * n.log() / q0.pow(2).sum(-1, keepdim=True)).to(torch.bfloat16)
+    return k_new, (v_new.float() * 2).to(torch.bfloat16)
+
+
+def widened(x, scale):
+    """An int8 (L, B, K, ...) tensor at its (L, B, K / 2, 1, 1) pair scales,
+    as bf16 (C8's widening)."""
+    sc = scale.repeat_interleave(2, dim=2)
+    return (x.float() * sc.reshape(*sc.shape[:3], *[1] * (x.dim() - 3))).to(torch.bfloat16)
+
+
+def c8_is_c_on_the_widened_cache(dec, q, k_all, v_all, layer, kw, label):
+    """With power-of-two pair scales every dequantized value is exact in
+    bf16, so C8 must give kernel C's bits (at C8's splits) on the widened
+    cache with the new K/V as C8 quantizes them. Sets the scales in kw."""
+    k_scale, v_scale = kw["k_scale"], kw["v_scale"]
+    exps = torch.arange(k_scale.numel(), device="cuda").reshape(k_scale.shape) % 3
+    k_scale.copy_(2.0 ** -(5 + exps).float())
+    v_scale.copy_(2.0 ** -(6 + exps).float())
+    b, kh = k_all.shape[1:3]
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
+    for x in (k_all, v_all):  # the layer afresh (the probes zeroed it)
+        x[layer] = torch.randint(-127, 128, x[layer].shape, generator=gen, device="cuda",
+                                 dtype=torch.int8)
+    k_new, v_new = (torch.randn((b, kh, 64), generator=gen, device="cuda").to(torch.bfloat16)
+                    for _ in range(2))
+    news = []
+    for x, sc in ((k_new, k_scale), (v_new, v_scale)):
+        step = sc[layer].repeat_interleave(2, dim=1)[..., 0]  # (B, K, 1)
+        news.append((torch.clamp(torch.round(x.float() / step), -127, 127) * step)
+                    .to(torch.bfloat16))
+    k16, v16 = widened(k_all, k_scale), widened(v_all, v_scale)
+    out8 = dec.decode_attention_fused(q, k_all, v_all, k_new, v_new, layer, **kw)
+    splits, chooser = dec.card_splits(b, kh, q.device, dec.MAX_SPLITS_Q8), dec.card_splits
+    try:
+        dec.card_splits = lambda *_: splits
+        out16 = dec.decode_attention_fused(q, k16, v16, *news, layer,
+                                           **{k: v for k, v in kw.items() if "scale" not in k})
+    finally:
+        dec.card_splits = chooser
+    torch.cuda.synchronize()
+    if not (torch.equal(out8, out16) and torch.equal(widened(k_all, k_scale), k16)
+            and torch.equal(widened(v_all, v_scale), v16)):
+        raise AssertionError(f"{label}: not kernel C's bits on the widened cache (max |diff| "
+                             f"{(out8.float() - out16.float()).abs().max().item():.3e})")
+
+
 def decode_attention_q8_kernel(rnd):
-    """Kernel C8 over layer 7 of the main path's int8 cache, (16, B, 8,
-    5120, 64) with the 4662-token prompt, mid-decode: at B = 24 (ragged
-    prompt lengths, so the (layer, row, pair) scale indexing is exercised)
-    and at B = 1, which the kernels line carries, beside kernel C on a bf16
-    cache of the same shape. The output within TOL of the plain version's,
-    the written column within one quantization step of it, the rest of the
-    cache unchanged."""
+    """Kernel C8 (C's split-KV body on the int8 cache) over layer 7 of the
+    main path's int8 cache, (16, B, 8, 5120, 64) with the 4662-token
+    prompt, mid-decode: at B = 24 (ragged prompt lengths, so the (layer,
+    row, pair) scale indexing is exercised) and at B = 1, which the
+    kernels line carries. The scales make the dequantized cache unit-size,
+    as the main path's quantized K/V and C's bf16 cache are. At each B:
+    the output against the plain version at TOL16, the written column
+    within one quantization step of the plain version's and the rest of
+    the cache unchanged; times of kernel, plain and bound, beside kernel C
+    on a bf16 cache of the same shape, and by CTAs a (kv head, row) (1-16);
+    then the interval probe and the current-token probe (`q8_probe`), each
+    held the same way; then, with power-of-two scales, C8 against kernel C
+    on the widened cache, bit for bit (`c8_is_c_on_the_widened_cache`)."""
     from grasp_any_region_tpu_torch.ops import decode_attention as dec
 
     layer, pad, wpos = 7, 4662, 4662 + 128
+    wp = torch.tensor(wpos, dtype=torch.int32, device="cuda")
     gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
     for b in (24, 1):
         k_all, v_all = (torch.randint(-127, 128, (16, b, 8, 5120, 64), generator=gen,
                                       device="cuda", dtype=torch.int8) for _ in range(2))
         k_scale, v_scale = ((torch.rand((16, b, 4, 1, 1), generator=gen, device="cuda") + 0.5)
-                            * 0.03 for _ in range(2))
+                            / 73.3 for _ in range(2))
         plens = [pad] + torch.randint(3000, pad + 1, (b - 1,), generator=gen,
-                                            device="cuda").tolist()
+                                      device="cuda").tolist()
         q, k_new, v_new = rnd(b, 32, 64), rnd(b, 8, 64), rnd(b, 8, 64)
         kw = dict(prompt_lens=torch.tensor(plens, dtype=torch.int32, device="cuda"),
-                  write_pos=torch.tensor(wpos, dtype=torch.int32, device="cuda"), prompt_pad=pad,
-                  k_scale=k_scale, v_scale=v_scale)
-        k_ref, v_ref = k_all.clone(), v_all.clone()
-        out = dec.decode_attention_fused(q, k_all, v_all, k_new, v_new, layer, **kw)
-        torch.cuda.synchronize()
-        ref = dec.decode_attention_fused_q8_plain(q.float(), k_ref, v_ref, k_new, v_new, layer,
-                                                  **kw)
-        err = max_err(out, ref, f"C8 (B = {b})")
-        for got, want in ((k_all, k_ref), (v_all, v_ref)):
-            col = (got[layer, :, :, wpos].int() - want[layer, :, :, wpos].int()).abs().max()
-            if col > 1:
-                raise AssertionError(f"C8 (B = {b}): written column off by {int(col)} steps")
-            got[layer, :, :, wpos] = want[layer, :, :, wpos]
-            if not torch.equal(got, want):
-                raise AssertionError(f"C8 (B = {b}): entries other than column write_pos changed")
-        args = (q, k_all, v_all, k_new, v_new, layer)
-        ms = cuda_ms(lambda: dec.decode_attention_fused(*args, **kw))
-        plain_ms = cuda_ms(lambda: dec.decode_attention_fused_q8_plain(*args, **kw), iters=5)
-        lim = decode_bound(q, k_all, plens, pad, wpos)
-        k16, v16 = (rnd(16, b, 8, 5120, 64) for _ in range(2))
-        kw16 = {key: val for key, val in kw.items() if not key.endswith("scale")}
-        c_ms = cuda_ms(lambda: dec.decode_attention_fused(q, k16, v16, k_new, v_new, layer,
-                                                          **kw16))
-        log(f"[kernels] C8, B = {b}: {ms:.4f} ms (bound {lim['bound_ms']:.4f} ms of "
-            f"{lim['bound_by']}); kernel C on a bf16 cache of the same shape {c_ms:.4f} ms; "
-            f"plain {plain_ms:.4f} ms; max |kernel - plain| {err:.3e}")
-        del k_all, v_all, k_ref, v_ref, k16, v16
+                  write_pos=wp, prompt_pad=pad, k_scale=k_scale, v_scale=v_scale)
+        err = 0.0
+        for probe in (None, "interval", "current"):
+            if probe:
+                k_new, v_new = q8_probe(probe, k_all, v_all, k_scale, v_scale, q, k_new, v_new,
+                                        layer, plens, pad, wpos)
+            label = f"C8 (B = {b}{f', {probe} probe' if probe else ''})"
+            k_ref, v_ref = k_all.clone(), v_all.clone()
+            out = dec.decode_attention_fused(q, k_all, v_all, k_new, v_new, layer, **kw)
+            torch.cuda.synchronize()
+            ref = dec.decode_attention_fused_q8_plain(q.float(), k_ref, v_ref, k_new, v_new,
+                                                      layer, **kw)
+            err = max(err, max_err(out, ref, label, **TOL16))
+            for got, want in ((k_all, k_ref), (v_all, v_ref)):
+                col = (got[layer, :, :, wpos].int() - want[layer, :, :, wpos].int()).abs().max()
+                if col > 1:
+                    raise AssertionError(f"{label}: written column off by {int(col)} steps")
+                got[layer, :, :, wpos] = want[layer, :, :, wpos]
+                if not torch.equal(got, want):
+                    raise AssertionError(f"{label}: entries other than column write_pos changed")
+            del k_ref, v_ref, ref
+            if probe:
+                continue
+            args = (q, k_all, v_all, k_new, v_new, layer)
+            ms = cuda_ms(lambda: dec.decode_attention_fused(*args, **kw))
+            plain_ms = cuda_ms(lambda: dec.decode_attention_fused_q8_plain(*args, **kw), iters=5)
+            lim = decode_bound(q, k_all, plens, pad, wpos)
+            k16, v16 = (rnd(16, b, 8, 5120, 64) for _ in range(2))
+            kw16 = {key: val for key, val in kw.items() if not key.endswith("scale")}
+            c_ms = cuda_ms(lambda: dec.decode_attention_fused(q, k16, v16, k_new, v_new, layer,
+                                                              **kw16))
+            del k16, v16
+            chooser, sweep = dec.card_splits, {}
+            try:  # the chooser's alternatives: the kernel takes 1-16 CTAs
+                for n in (1, 2, 4, 8, 16):
+                    dec.card_splits = lambda *_: n
+                    sweep[n] = cuda_ms(lambda: dec.decode_attention_fused(*args, **kw))
+            finally:
+                dec.card_splits = chooser
+        splits = dec.card_splits(b, 8, q.device, dec.MAX_SPLITS_Q8)
+        log(f"[kernels] C8, B = {b} ({splits} CTAs a (kv head, row) in a cluster): {ms:.4f} ms "
+            f"(bound {lim['bound_ms']:.4f} ms of {lim['bound_by']}, "
+            f"{100 * lim['bound_ms'] / ms:.1f}%); kernel C on a bf16 cache of the same shape "
+            f"{c_ms:.4f} ms; plain {plain_ms:.4f} ms; max |kernel - plain| {err:.3e} (TOL16, "
+            "with the interval and current-token probes); by CTAs a (kv head, row), ms: "
+            + ", ".join(f"{n}: {t:.4f}" for n, t in sweep.items()))
+        c8_is_c_on_the_widened_cache(dec, q, k_all, v_all, layer, kw, f"C8 (B = {b})")
+        del k_all, v_all
+    torch.cuda.empty_cache()
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None, **lim)
 
 
@@ -924,6 +1034,23 @@ def layer_matmul_ring(x, w_all, layer):
     return out
 
 
+def layer_swiglu_q8_ring(x, wg_q8, sg, wu_q8, su, layer):
+    """Kernel I8's earlier form (csrc/layer_matmul.cu's cp.async ring, H8
+    and J8's body), behind the same operand checks as `layer_swiglu_q8`:
+    timed beside the TMA-fed form; no path launches it."""
+    from grasp_any_region_tpu_torch.ops import _build
+    from grasp_any_region_tpu_torch.ops import layer_matmul as lm
+
+    lm._check_q8(x, layer, (wg_q8, sg), (wu_q8, su))
+    out = torch.empty((x.shape[0], wg_q8.shape[2]), dtype=x.dtype, device=x.device)
+    err = _build.library().gar_layer_swiglu_q8_ring(
+        x.data_ptr(), wg_q8.data_ptr(), sg.data_ptr(), wu_q8.data_ptr(), su.data_ptr(),
+        out.data_ptr(), layer, x.shape[0], x.shape[1], wg_q8.shape[2],
+        _build.stream_handle(x.device))
+    _build.check(err, "gar_layer_swiglu_q8_ring")
+    return out
+
+
 def decode_matmul_kernels(rnd):
     """Kernels H, I, J and their int8 forms H8, I8, J8 at the gar_1b decode
     shapes (hidden 2048, q 2048, kv 512, MLP 8192), the weights stacked
@@ -938,7 +1065,9 @@ def decode_matmul_kernels(rnd):
     and a device-to-device copy of the same bytes. H also beside its earlier
     form (`layer_matmul_ring`, checked the same way): both times, both
     16-layers-back-to-back times, both host times a call, and H's time by
-    its CTAs a column tile (the cluster size, 1-16) at B = 1."""
+    its CTAs a column tile (the cluster size, 1-16) at B = 1; and I8 (the
+    same stream with int8 gate and up) beside its earlier form
+    (`layer_swiglu_q8_ring`) the same way."""
     import torch.nn.functional as F
     from grasp_any_region_tpu_torch.models.quantize import quantize_int8
     from grasp_any_region_tpu_torch.ops import layer_matmul as lm
@@ -1040,6 +1169,30 @@ def decode_matmul_kernels(rnd):
                     f"{old_hus:.1f} us, max |earlier - plain| {old_err:.3e}{sweep}")
             seq8_ms = cuda_ms(lambda: [kernel8(x, *qs, i) for i in range(n_layers)],
                               iters=5, sleep_cycles=20_000_000) / n_layers
+            if key == "I":
+                ring = layer_swiglu_q8_ring
+                old_err = check(f"{label} int8 earlier form", ring, plain8, qs, layer, x)
+                old_ms = cuda_ms(lambda: ring(x, *qs, layer))
+                old_seq = cuda_ms(lambda: [ring(x, *qs, i) for i in range(n_layers)],
+                                  iters=5, sleep_cycles=20_000_000) / n_layers
+                hus, old_hus = (host_us(lambda: kernel8(x, *qs, layer)),
+                                host_us(lambda: ring(x, *qs, layer)))
+                chooser, times = lm._card_splits, {}
+                try:  # the chooser's alternatives: the kernel takes 1-16 CTAs a tile
+                    for n in (1, 2, 4, 8, 16):
+                        lm._card_splits = lambda *_: n
+                        times[n] = cuda_ms(lambda: kernel8(x, *qs, layer))
+                finally:
+                    lm._card_splits = chooser
+                splits = lm._card_splits(ws[0].shape[2], din, x.device.index,
+                                         lm.stream_n(torch.int8), lm.STREAM_CTAS_PER_SM_Q8)
+                log(f"[kernels] I8, B = {b}: TMA-fed {ms8:.4f} ms = {n8 / ms8 / 1e6:.0f} GB/s of "
+                    f"int8 weights and scales, back to back {seq8_ms:.4f} ms a layer = "
+                    f"{n8 / seq8_ms / 1e6:.0f} GB/s, host {hus:.1f} us a call ({splits} CTAs a "
+                    f"tile); earlier form (cp.async ring) {old_ms:.4f} ms = "
+                    f"{n8 / old_ms / 1e6:.0f} GB/s, back to back {old_seq:.4f}, host "
+                    f"{old_hus:.1f} us, max |earlier - plain| {old_err:.3e}; by CTAs a tile, "
+                    "ms: " + ", ".join(f"{n}: {t:.4f}" for n, t in times.items()))
             blas_ms = cuda_ms(lambda: cublas(x, *ws, layer))
             plain_ms = cuda_ms(lambda: plain(x, *ws, layer), iters=5)
             plain8_ms = cuda_ms(lambda: plain8(x, *qs, layer), iters=5)
@@ -1897,11 +2050,11 @@ KERNELS = {
           "grasp_any_region_tpu/ops/layer_matmul.py:97"),
     "J": ("layer_qkv", "grasp_any_region_tpu_torch/csrc/layer_matmul.cu",
           "grasp_any_region_tpu/ops/layer_matmul.py:142"),
-    "C8": ("decode_attention_fused_q8", "grasp_any_region_tpu_torch/csrc/decode_attention.cu",
+    "C8": ("decode_attention_fused_q8", "grasp_any_region_tpu_torch/csrc/decode_split.cuh",
            "grasp_any_region_tpu/ops/decode_attention.py:477"),
     "H8": ("layer_matmul_q8", "grasp_any_region_tpu_torch/csrc/layer_matmul.cu",
            "grasp_any_region_tpu/ops/layer_matmul.py:190"),
-    "I8": ("layer_swiglu_q8", "grasp_any_region_tpu_torch/csrc/layer_matmul.cu",
+    "I8": ("layer_swiglu_q8", "grasp_any_region_tpu_torch/csrc/layer_matmul_sm90.cu",
            "grasp_any_region_tpu/ops/layer_matmul.py:234"),
     "J8": ("layer_qkv_q8", "grasp_any_region_tpu_torch/csrc/layer_matmul.cu",
            "grasp_any_region_tpu/ops/layer_matmul.py:282"),

@@ -1,8 +1,8 @@
 """Mutants of kernels A, B and E (csrc/flash_forward_sm90.cu), F
 (csrc/gemm_sm90.cu and its main loop, csrc/gemm_sm90.cuh), 5 (kernel
 18's non-causal pass with the folded tail, csrc/flash_backward_sm90.cu),
-C and 16 (the split-KV body, csrc/decode_split.cuh), H (the TMA-fed
-weight stream, csrc/layer_matmul_sm90.cu), 21 / 23 (the MLP's weight
+C, C8 and 16 (the split-KV body, csrc/decode_split.cuh), H and I8 (the
+TMA-fed weight stream, csrc/layer_matmul_sm90.cu), 21 / 23 (the MLP's weight
 stream, csrc/decode_mlp_sm90.cu), 22 (C's body with wo,
 csrc/decode_attn_wo_sm90.cu) and their ordered sum (csrc/ordered_sum.cuh)
 that the checks must catch. Each mutant names the source it edits and is
@@ -17,7 +17,9 @@ builds a copy into its own build/), and two checks run there on the card:
   stops at the first check that fails and names it. The mega step's
   mutants (MEGA) run the mega kernels' part of it (`mega_kernels`: 19-23
   at B = 24 and 1, each against its plain version, a second launch's
-  bits, the counters at 0), and only the mega kernels' card tests.
+  bits, the counters at 0), and only the mega kernels' card tests. C8's
+  and I8's (Q8) run their kernel's part of it (`decode_attention_q8_kernel`
+  or `decode_matmul_kernels`) and the int8 card cases.
 
 A mutant that no check catches means checks too weak to see that defect.
 Run from the repository root on a machine with the card, for every mutant
@@ -96,8 +98,8 @@ MUTANTS = {  # name: (source, [(old, new), ...] in it)
     "c_chunk_edge_counted_twice": (SPLIT, [
         ("f1 = min(total, f0 + chunk);", "f1 = min(total, f0 + chunk + 1);")]),
     "c_current_token_twice": (SPLIT, [
-        ("      l = p_cur;\n      acc = p_cur * __bfloat162float(",
-         "      l = 2.f * p_cur;\n      acc = 2.f * p_cur * __bfloat162float(")]),
+        ("      l = p_cur;\n      acc = p_cur * v_cur;",
+         "      l = 2.f * p_cur;\n      acc = 2.f * p_cur * v_cur;")]),
     "c_write_pos_not_written": (SPLIT, [
         ("if (rank == 0 && tid < D && wpos >= 0 && wpos < a.seq) {",
          "if (false && rank == 0 && tid < D && wpos >= 0 && wpos < a.seq) {")]),
@@ -146,10 +148,31 @@ MUTANTS = {  # name: (source, [(old, new), ...] in it)
     "22_column_slice_shifted": (ATTN_WO, [
         ("tma_load_4d_hint(wo_smem + slot * kWoBox, &wo_map, &full[slot], (ch0 + j / G) * CPB,",
          "tma_load_4d_hint(wo_smem + slot * kWoBox, &wo_map, &full[slot], (ch0 + j / G + 1) * CPB,")]),
+    # C8: the pair scale read one pair off; the current token's logit from
+    # the bf16 k_new, not its dequantized value; the last CTA's chunk dropped
+    "c8_scale_pair_off": (SPLIT, [
+        ("* (a.kv_heads / 2) + kh / 2;", "* (a.kv_heads / 2) + (kh / 2 + 1) % (a.kv_heads / 2);")]),
+    "c8_current_token_from_bf16": (SPLIT, [
+        ("        kf = make_float2(quantize_q8(kf.x, ksc) * ksc, quantize_q8(kf.y, ksc) * ksc);",
+         "        kf = kf;")]),
+    "c8_last_chunk_dropped": (SPLIT, [
+        ("const int n_tiles = (f1 - f0 + kSplitRows - 1) / kSplitRows;",
+         "const int n_tiles = Q8 && rank == splits - 1 ? 0 "
+         ": (f1 - f0 + kSplitRows - 1) / kSplitRows;")]),
+    # I8: the up scale left off; rank 1's gate partial dropped from the sum
+    "i8_up_scale_dropped": (STREAM, [
+        ("      if (NW == 2) v[NW - 1] *= a.scale[NW - 1][n0 + rank * cols + c];\n", "")]),
+    "i8_gate_partial_dropped": (STREAM, [
+        ("v[w] += recv[((w * splits + r) * a.rows + row) * cols + c];",
+         "v[w] += (NW == 2 && w == 0 && r == 1 ? 0.f : 1.f) * "
+         "recv[((w * splits + r) * a.rows + row) * cols + c];")]),
 }
 MEGA = ("21_k_split_dropped", "21_tile_slot_twice", "counter_not_reset", "22_split_chunk_dropped",
         "22_head_partial_twice", "22_column_slice_shifted")
 MEGA_TESTS = "mlp_residual or attention_wo or mega_decode_step"
+Q8 = ("c8_scale_pair_off", "c8_current_token_from_bf16", "c8_last_chunk_dropped",
+      "i8_up_scale_dropped", "i8_gate_partial_dropped")
+Q8_TESTS = "q8 or swiglu or int8_decode_step"
 TESTS = ("flash_attention_kernel or fused_qkv_kernel or lse_segments or lse_and_backward "
          "or wo_residual or vit_block_kernels or vit_attention_kernel "
          "or decode_attention_kernel or decode_attention_stacked or layer_matmul")
@@ -160,6 +183,8 @@ PHASE2_MEGA = ("import chip_smoke as c, torch; c.phase_environment(); "
                "g = torch.Generator(device='cuda').manual_seed(c.SEED); "
                "c.mega_kernels(lambda *s: torch.randn(s, generator=g, device='cuda')"
                ".to(torch.bfloat16))")
+PHASE2_Q8 = {prefix: PHASE2_MEGA.replace("mega_kernels", part) for prefix, part in (
+    ("c8", "decode_attention_q8_kernel"), ("i8", "decode_matmul_kernels"))}
 
 
 def make_copy(name: str, edits: list[tuple[str, str, str]]) -> Path:
@@ -230,14 +255,15 @@ def main(names: list[str]) -> int:
         if names and name not in names:
             continue
         dst = make_copy(f"mutant_{name}", [(src, old, new) for old, new in edits])
-        mega = name in MEGA
-        verdicts = card_tests(dst, MEGA_TESTS if mega else TESTS)
+        mega, q8 = name in MEGA, name in Q8
+        verdicts = card_tests(dst, MEGA_TESTS if mega else Q8_TESTS if q8 else TESTS)
         counts = {v: list(verdicts.values()).count(v) for v in ("failed", "trapped", "passed", "skipped")}
         print(f"[mutant] {name}: card tests {counts}", flush=True)
         for node, v in sorted(verdicts.items()):
             if v != "passed":
                 print(f"    {v}: {node.split('::')[1]}")
-        phase2 = run(dst, ["-c", PHASE2_MEGA if mega else PHASE2], 1200)
+        phase2 = run(dst, ["-c", PHASE2_MEGA if mega else PHASE2_Q8[name[:2]] if q8
+                              else PHASE2], 1200)
         lines = (phase2.stdout + phase2.stderr).strip().splitlines()
         caught = [line for line in lines if "Error" in line][-1:] or lines[-1:]
         print(f"[mutant] {name}: chip_smoke phase 2 "

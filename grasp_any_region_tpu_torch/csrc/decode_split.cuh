@@ -1,8 +1,9 @@
-// Kernels C and 16 for Hopper: one query token of GQA attention over one
-// (layer, batch row, kv head) slab of the stacked (L, B, K, S, 64) cache,
-// split over the CTAs of a thread-block cluster (split-KV in one launch).
-// C (Append) writes the current token's K/V at column write_pos in place;
-// 16 (read only) finds the current token already in the cache there.
+// Kernels C, C8 and 16 for Hopper: one query token of GQA attention over
+// one (layer, batch row, kv head) slab of the stacked (L, B, K, S, 64)
+// cache, split over the CTAs of a thread-block cluster (split-KV in one
+// launch). C and C8 (Append) write the current token's K/V at column
+// write_pos in place, C8 into an int8 cache; 16 (read only) finds the
+// current token already in the cache there.
 //
 // C's valid columns are [0, min(prompt_len, prompt_pad)) and [prompt_pad,
 // write_pos), read as one flat index, so the gap [prompt_len, prompt_pad)
@@ -46,11 +47,23 @@
 // [0, L) writes NaN rows: every CTA of a cluster reads the same layer, so
 // all of them leave before the first cluster barrier.
 //
-// The cache element type is a template parameter, as decode_attend has it,
-// so the int8 cache (C8) can move onto this body once its stages are
-// widened; the bf16 cache is instantiated, with the append (C, and kernel 22
-// in decode_attn_wo_sm90.cu, which takes the body with its own epilogue)
-// and read only (16).
+// The cache element type is a template parameter: bf16 with the append (C,
+// and kernel 22 in decode_attn_wo_sm90.cu, which takes the body with its
+// own epilogue) and read only (16); int8 with the append (C8).
+//
+// C8's cache holds 64-byte int8 rows with one fp32 scale per (layer, batch
+// row, kv-head pair), loaded once a CTA. Its stages land as int8 through
+// the same ring and flat index, unswizzled (a warp's 16-byte reads of its
+// rows are contiguous), half of C's bytes a stage. Warp w reads only rows
+// 16 w .. 16 w + 15 of a stage, so it widens those 16 K and 16 V rows
+// itself to bf16(int8 * scale), as the TPU kernel dequantizes its blocks,
+// into its own bf16 tile with C's swizzle, and after a __syncwarp runs
+// C's ldmatrix / mma.sync code on that tile: no block barrier is added.
+// Rank 0 writes the new column quantized with the static pair scale,
+// clip(rint(x / s), -127, 127) (rint rounds half to even, as jnp.round
+// does; a division, since a multiply by 1 / s can move a tie), and the
+// current token enters as its dequantized fp32 value q * s, so this step
+// sees what later steps read back.
 #pragma once
 
 #include <cooperative_groups.h>
@@ -62,12 +75,52 @@ namespace gar {
 namespace cg = cooperative_groups;
 
 constexpr int kSplitRows = 64;     // cache rows a stage, 16 a warp
-constexpr int kSplitStages = 4;
+constexpr int kSplitStages = 4;  // for C8 too: 6 and 8 int8 stages measured slower
 constexpr int kSplitThreads = 128;
 constexpr int kSplitMaxCluster = 16;  // Hopper's largest (non-portable) cluster
-constexpr int kSplitTile = kSplitRows * 64 * 2;  // bytes of a stage's K (or V) rows
-constexpr int kSplitSmem = kSplitStages * 2 * kSplitTile;  // the ring, reused by the merge
-static_assert(4 * 8 * 66 * 4 + 8 * 66 * 4 <= kSplitSmem, "the partials fit in the ring");
+constexpr int kSplitWide = 16 * 64 * 2;  // bytes of a warp's 16 K (or V) rows widened to bf16
+
+// Bytes of a stage's K (or V) rows, and of the kernel's shared memory: the
+// ring (reused by the merge) and, for an int8 cache, each warp's widened K
+// and V rows.
+template <typename T>
+__host__ __device__ constexpr int split_tile() {
+  return kSplitRows * 64 * static_cast<int>(sizeof(T));
+}
+template <typename T>
+__host__ __device__ constexpr int split_smem() {
+  return kSplitStages * 2 * split_tile<T>() + (sizeof(T) == 1 ? 4 * 2 * kSplitWide : 0);
+}
+constexpr int kSplitSmem = split_smem<bf16>();
+static_assert(4 * 8 * 66 * 4 + 8 * 66 * 4 <= kSplitStages * 2 * split_tile<int8_t>(),
+              "the partials fit in the ring");
+
+// C8: x quantized with a pair's static scale s, as the TPU kernel does it.
+__device__ __forceinline__ float quantize_q8(float x, float s) {
+  return fminf(fmaxf(rintf(x / s), -127.f), 127.f);
+}
+
+// 16 int8 values widened to bf16(x * s), in order: the first 8 in lo, the
+// last 8 in hi. x + 128 as the low byte of the float 2^23 + (x + 128),
+// minus 2^23 + 128, is x exactly; the product rounds once, to fp32, then
+// to bf16, as bf16(float(x) * s) does.
+__device__ __forceinline__ void widen_scaled(const uint4& raw, float s, uint4& lo, uint4& hi) {
+  constexpr float kMagic = 8388736.0f;  // 2^23 + 128
+  const uint32_t in[4] = {raw.x, raw.y, raw.z, raw.w};
+  uint32_t out[8];
+#pragma unroll
+  for (int w = 0; w < 4; ++w) {
+    const uint32_t u = in[w] ^ 0x80808080u;
+    float f[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      f[e] = (__uint_as_float(__byte_perm(u, 0x4B000000u, 0x7650 + e)) - kMagic) * s;
+    out[2 * w] = pack_bf16x2(f[0], f[1]);
+    out[2 * w + 1] = pack_bf16x2(f[2], f[3]);
+  }
+  lo = make_uint4(out[0], out[1], out[2], out[3]);
+  hi = make_uint4(out[4], out[5], out[6], out[7]);
+}
 
 struct SplitArgs {
   const bf16* q;  // (B, H, 64)
@@ -82,10 +135,12 @@ struct SplitArgs {
   int layer, n_layers, batch, kv_heads, seq, prompt_pad;
   int block_s;  // 16: the TPU kernel's block of columns
   float scale;
+  const float* k_scale;  // C8: (L, B, K / 2), one per (layer, batch row, kv-head pair)
+  const float* v_scale;
 };
 
 // The body of a CTA of grid (splits, kv heads, batch), cluster (splits, 1,
-// 1), over kSplitSmem bytes of shared memory at `smem` (128-byte aligned):
+// 1), over split_smem<T>() bytes of shared memory at `smem` (128-byte aligned):
 // out(i, v) takes output i (query head i / 64 of the kv head, dim i % 64) of
 // the (kv head, row) in fp32, once for each i, in the CTA of rank i % splits.
 // Returns after a cluster barrier that follows every out() and every remote
@@ -94,9 +149,11 @@ struct SplitArgs {
 // cluster returns before any barrier on a layer out of range.
 template <typename T, int G, bool Append, typename Out>
 __device__ __forceinline__ void decode_split_body(const SplitArgs& a, uint8_t* smem, Out out) {
-  static_assert(sizeof(T) == 2, "bf16 rows: an int8 cache needs its stages widened first");
+  constexpr bool Q8 = sizeof(T) == 1;
+  static_assert(sizeof(T) == 2 || (Q8 && Append), "bf16 rows, or C8's int8 rows");
   static_assert(G >= 1 && G <= 8, "the query heads of a kv head are the rows of one m16 tile");
   constexpr int D = 64;
+  constexpr int CPR = D * static_cast<int>(sizeof(T)) / 16;  // 16-byte chunks a row: 8 or 4
   constexpr float kLog2e = 1.4426950408889634f;
   __shared__ float s_cur[G];  // C: the current token's logit, log2 units
   cg::cluster_group cluster = cg::this_cluster();
@@ -120,6 +177,12 @@ __device__ __forceinline__ void decode_split_body(const SplitArgs& a, uint8_t* s
   T* vc = static_cast<T*>(a.v_all) + slab;
   const bf16* qp = a.q + row * G * D;
   const float sl2 = a.scale * kLog2e;
+  float ksc = 1.f, vsc = 1.f;  // C8: the pair's scales
+  if constexpr (Q8) {
+    const size_t si = (static_cast<size_t>(layer) * a.batch + b) * (a.kv_heads / 2) + kh / 2;
+    ksc = a.k_scale[si];
+    vsc = a.v_scale[si];
+  }
 
   // the valid columns [0, n1) and [lo2, hi) as one flat index, and this CTA's chunk
   const int wpos = a.write_pos[0];
@@ -142,14 +205,22 @@ __device__ __forceinline__ void decode_split_body(const SplitArgs& a, uint8_t* s
     const bf16* kn = a.k_new + row * D;
     const bf16* vn = a.v_new + row * D;
     if (rank == 0 && tid < D && wpos >= 0 && wpos < a.seq) {
-      kc[static_cast<size_t>(wpos) * D + tid] = kn[tid];
-      vc[static_cast<size_t>(wpos) * D + tid] = vn[tid];
+      if constexpr (Q8) {
+        kc[static_cast<size_t>(wpos) * D + tid] =
+            static_cast<int8_t>(quantize_q8(__bfloat162float(kn[tid]), ksc));
+        vc[static_cast<size_t>(wpos) * D + tid] =
+            static_cast<int8_t>(quantize_q8(__bfloat162float(vn[tid]), vsc));
+      } else {
+        kc[static_cast<size_t>(wpos) * D + tid] = kn[tid];
+        vc[static_cast<size_t>(wpos) * D + tid] = vn[tid];
+      }
     }
     for (int gg = warp; gg < G; gg += kSplitThreads / 32) {  // q . k_new, each head once
       const float2 qf = __bfloat1622float2(
           *reinterpret_cast<const __nv_bfloat162*>(qp + gg * D + 2 * lane));
-      const float2 kf =
-          __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(kn + 2 * lane));
+      float2 kf = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(kn + 2 * lane));
+      if constexpr (Q8)  // the dequantized value, as later steps read it back
+        kf = make_float2(quantize_q8(kf.x, ksc) * ksc, quantize_q8(kf.y, ksc) * ksc);
       const float dot = warp_sum(qf.x * kf.x + qf.y * kf.y);
       if (lane == 0) s_cur[gg] = dot * sl2;
     }
@@ -163,19 +234,22 @@ __device__ __forceinline__ void decode_split_body(const SplitArgs& a, uint8_t* s
     qa[kk][1] = g < G ? ld_u32(qp + g * D + 16 * kk + 8 + 2 * t) : 0u;
   }
 
-  auto k_stage = [&](int st) { return reinterpret_cast<bf16*>(smem + st * 2 * kSplitTile); };
-  auto v_stage = [&](int st) { return k_stage(st) + kSplitRows * D; };
-  // tile j: flat rows f0 + 64 j + [0, 64) of K and V, swizzled; past f1 as zeros
+  constexpr int tile_bytes = split_tile<T>();
+  auto k_stage = [&](int st) { return smem + st * 2 * tile_bytes; };
+  auto v_stage = [&](int st) { return k_stage(st) + tile_bytes; };
+  // tile j: flat rows f0 + 64 j + [0, 64) of K and V (bf16 swizzled, int8
+  // as they are); past f1 as zeros
   auto load = [&](int j) {
-    bf16* sk = k_stage(j % kSplitStages);
-    bf16* sv = v_stage(j % kSplitStages);
+    uint8_t* sk = k_stage(j % kSplitStages);
+    uint8_t* sv = v_stage(j % kSplitStages);
 #pragma unroll
-    for (int i = 0; i < kSplitRows * 8 / kSplitThreads; ++i) {
-      const int idx = tid + kSplitThreads * i, r = idx >> 3, c = idx & 7;
+    for (int i = 0; i < kSplitRows * CPR / kSplitThreads; ++i) {
+      const int idx = tid + kSplitThreads * i, r = idx / CPR, c = idx % CPR;
       const int f = f0 + kSplitRows * j + r;
       const bool ok = f < f1;
-      const size_t off = ok ? static_cast<size_t>(f < n1 ? f : lo2 + (f - n1)) * D + 8 * c : 0;
-      const int dst = r * D + ((c ^ (r & 7)) << 3);
+      const size_t off =
+          ok ? static_cast<size_t>(f < n1 ? f : lo2 + (f - n1)) * D + c * (16 / sizeof(T)) : 0;
+      const int dst = 16 * (Q8 ? r * CPR + c : r * CPR + (c ^ (r & 7)));
       cp_async16(sk + dst, kc + off, ok ? 16 : 0);
       cp_async16(sv + dst, vc + off, ok ? 16 : 0);
     }
@@ -187,14 +261,40 @@ __device__ __forceinline__ void decode_split_body(const SplitArgs& a, uint8_t* s
   const int mi = lane >> 3, mr = lane & 7;  // ldmatrix: this lane's matrix and row in it
 
   auto use = [&](int j) {
-    const bf16* sk = k_stage(j % kSplitStages);
-    const bf16* sv = v_stage(j % kSplitStages);
+    // this warp's keys 16 w .. 16 w + 15 of K and V as bf16 rows, swizzled
+    const bf16* sk;
+    const bf16* sv;
+    if constexpr (Q8) {
+      // the warp's widened rows, K then V (16 x 64 bf16 each), past the ring
+      bf16* wide =
+          reinterpret_cast<bf16*>(smem + kSplitStages * 2 * tile_bytes + warp * 2 * kSplitWide);
+      const uint8_t* qk = k_stage(j % kSplitStages) + warp * 16 * 64;
+      const uint8_t* qv = v_stage(j % kSplitStages) + warp * 16 * 64;
+      __syncwarp();  // every lane is done reading the last stage's widened rows
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int idx = lane + 32 * h, r = idx >> 2, c = idx & 3;  // 16 dims 16 c .. of row r
+        uint4 lo, hi;
+        widen_scaled(*reinterpret_cast<const uint4*>(qk + 16 * idx), ksc, lo, hi);
+        *reinterpret_cast<uint4*>(wide + r * D + (((2 * c) ^ (r & 7)) << 3)) = lo;
+        *reinterpret_cast<uint4*>(wide + r * D + (((2 * c + 1) ^ (r & 7)) << 3)) = hi;
+        widen_scaled(*reinterpret_cast<const uint4*>(qv + 16 * idx), vsc, lo, hi);
+        *reinterpret_cast<uint4*>(wide + 16 * D + r * D + (((2 * c) ^ (r & 7)) << 3)) = lo;
+        *reinterpret_cast<uint4*>(wide + 16 * D + r * D + (((2 * c + 1) ^ (r & 7)) << 3)) = hi;
+      }
+      __syncwarp();
+      sk = wide;
+      sv = wide + 16 * D;
+    } else {
+      sk = reinterpret_cast<const bf16*>(k_stage(j % kSplitStages)) + 16 * warp * D;
+      sv = reinterpret_cast<const bf16*>(v_stage(j % kSplitStages)) + 16 * warp * D;
+    }
     // S = Q K^T over keys 16 w .. 16 w + 15: n-tiles of 8 keys
     float s[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
       // matrices: keys 0-7 dims 16 kk + [0, 8), + [8, 16); keys 8-15 the same
-      const int key = 16 * warp + mr + 8 * (mi >> 1), c = 2 * kk + (mi & 1);
+      const int key = mr + 8 * (mi >> 1), c = 2 * kk + (mi & 1);
       uint32_t kb[4];
       ldmatrix_x4(kb, sk + key * D + ((c ^ (key & 7)) << 3));
       const uint32_t af[4] = {qa[kk][0], 0u, qa[kk][1], 0u};
@@ -231,7 +331,7 @@ __device__ __forceinline__ void decode_split_body(const SplitArgs& a, uint8_t* s
 #pragma unroll
     for (int np = 0; np < 4; ++np) {
       // matrices (transposed): keys 0-7 and 8-15 of dims 16 np + [0, 8), then of + [8, 16)
-      const int key = 16 * warp + mr + 8 * (mi & 1), c = 2 * np + (mi >> 1);
+      const int key = mr + 8 * (mi & 1), c = 2 * np + (mi >> 1);
       uint32_t vb[4];
       ldmatrix_x4_trans(vb, sv + key * D + ((c ^ (key & 7)) << 3));
 #pragma unroll
@@ -306,8 +406,10 @@ __device__ __forceinline__ void decode_split_body(const SplitArgs& a, uint8_t* s
     float l = 0.f, acc = 0.f;
     if constexpr (Append) {
       const float p_cur = exp2f(s_cur[gg] - m);
+      float v_cur = __bfloat162float(a.v_new[row * D + i % D]);
+      if constexpr (Q8) v_cur = quantize_q8(v_cur, vsc) * vsc;
       l = p_cur;
-      acc = p_cur * __bfloat162float(a.v_new[row * D + i % D]);
+      acc = p_cur * v_cur;
     }
 #pragma unroll
     for (int r = 0; r < kSplitMaxCluster; ++r) {
@@ -322,7 +424,7 @@ __device__ __forceinline__ void decode_split_body(const SplitArgs& a, uint8_t* s
   cluster.sync();  // no CTA leaves while another reads its shared memory
 }
 
-// Kernels C and 16: grid (splits, kv heads, batch), cluster (splits, 1, 1).
+// Kernels C, C8 and 16: grid (splits, kv heads, batch), cluster (splits, 1, 1).
 template <typename T, int G, bool Append>
 __global__ void __launch_bounds__(kSplitThreads) decode_split_kernel(const SplitArgs a) {
   extern __shared__ __align__(128) uint8_t smem[];
@@ -336,10 +438,11 @@ template <typename T, int G, bool Append>
 int launch_split(const SplitArgs& a, int splits, cudaStream_t stream) {
   static bool opted_in = false;
   const auto kernel = decode_split_kernel<T, G, Append>;
-  const int err = opt_in(kernel, kSplitSmem, true, opted_in);
+  constexpr int smem = split_smem<T>();
+  const int err = opt_in(kernel, smem, true, opted_in);
   if (err) return err;
-  return launch_ex(kernel, dim3(splits, a.kv_heads, a.batch), kSplitThreads, kSplitSmem, splits,
-                   false, stream, a);
+  return launch_ex(kernel, dim3(splits, a.kv_heads, a.batch), kSplitThreads, smem, splits, false,
+                   stream, a);
 }
 
 }  // namespace gar

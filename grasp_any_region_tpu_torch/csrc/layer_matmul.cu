@@ -1,10 +1,10 @@
 // Kernels I and J: the layer-indexed decode matmuls, (B, Din) @ w_all[l]
 // for a batch of B <= 32 rows, the weight read in place from the stacked
-// (L, Din, Dout) array at layer l. Kernel H (layer_matmul: x @ w_all[l])
-// ran on this body until it moved to the TMA-fed weight stream of
-// layer_matmul_sm90.cu; its earlier form stays callable here as
-// gar_layer_matmul_ring, which no path launches (chip_smoke.py times the
-// two side by side).
+// (L, Din, Dout) array at layer l. Kernels H (layer_matmul: x @ w_all[l])
+// and I8 (layer_swiglu_q8) ran on this body until they moved to the
+// TMA-fed weight stream of layer_matmul_sm90.cu; their earlier forms stay
+// callable here as gar_layer_matmul_ring and gar_layer_swiglu_q8_ring,
+// which no path launches (chip_smoke.py times each beside its new form).
 //
 // I  replaces grasp_any_region_tpu/ops/layer_matmul.py:layer_swiglu
 //    (_swiglu_kernel): silu(x @ wg[l]) * (x @ wu[l]), both sums fp32, SiLU
@@ -43,11 +43,12 @@
 //    multiples of 8 (16-byte rows), not of the tile; rows, columns and K
 //    past the edge are zero-filled by cp.async's src-size operand.
 //
-// H8, I8 and J8 replace layer_matmul_q8 (_mm_q8_kernel), layer_swiglu_q8
-// (_swiglu_q8_kernel) and layer_qkv_q8 (_qkv_q8_kernel) of the same file:
-// W8A16, int8 weights with one fp32 scale per output column. They are
-// this body instantiated over the weight type W = int8_t, and they stream
-// half the bytes of H, I and J, which is the whole point: GAR-1B at B = 1
+// H8 and J8 replace layer_matmul_q8 (_mm_q8_kernel) and layer_qkv_q8
+// (_qkv_q8_kernel) of the same file, as I8's earlier form did
+// layer_swiglu_q8 (_swiglu_q8_kernel): W8A16, int8 weights with one fp32
+// scale per output column. They are this body instantiated over the
+// weight type W = int8_t, and they stream half the bytes of H, I and J,
+// which is the whole point: GAR-1B at B = 1
 // bounds them at 4.2 MB (wo), 16.8 MB (w_down), 33.6 MB (gate + up) and
 // 6.3 MB (qkv) of int8 weights. What changes with the type:
 //
@@ -211,22 +212,10 @@ __global__ void __launch_bounds__(kLmThreads) layer_mm_kernel(const LmParams<W> 
   cluster.sync();  // no block leaves while a peer may still read its partials
 }
 
-int lm_sm_count() {
-  static int sms = 0;
-  if (sms == 0) {
-    int dev = 0;
-    if (cudaGetDevice(&dev) != cudaSuccess ||
-        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess ||
-        sms <= 0)
-      sms = 132;
-  }
-  return sms;
-}
-
 // Split K in two until the grid has two blocks per SM, S reaches the
 // cluster limit, or a block would get less than one 64-row slab.
 int lm_splits(int tiles, int din, int max_splits) {
-  const int target = 2 * lm_sm_count();
+  const int target = 2 * card_sm_count();
   int s = 1;
   while (s < max_splits && tiles * s < target && din >= 2 * s * kLmBK) s *= 2;
   return s;
@@ -342,9 +331,10 @@ extern "C" int gar_layer_matmul_q8(const void* x, const void* w_all, const void*
   return gar::matmul<int8_t>(x, w_all, s_all, out, layer, rows, din, dout, stream);
 }
 
-extern "C" int gar_layer_swiglu_q8(const void* x, const void* wg_all, const void* sg_all,
-                                   const void* wu_all, const void* su_all, void* out, int layer,
-                                   int rows, int din, int m, void* stream) {
+// I8's earlier form (before layer_matmul_sm90.cu), for comparison only.
+extern "C" int gar_layer_swiglu_q8_ring(const void* x, const void* wg_all, const void* sg_all,
+                                        const void* wu_all, const void* su_all, void* out,
+                                        int layer, int rows, int din, int m, void* stream) {
   return gar::swiglu<int8_t>(x, wg_all, sg_all, wu_all, su_all, out, layer, rows, din, m, stream);
 }
 

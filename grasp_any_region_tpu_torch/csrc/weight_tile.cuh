@@ -233,6 +233,20 @@ int launch_ex(void (*kernel)(Params...), dim3 grid, int threads, int smem, int c
   return static_cast<int>(cudaGetLastError());
 }
 
+// The SM count of the current card (132, an H100's, where the query fails),
+// read once.
+inline int card_sm_count() {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess ||
+        sms <= 0)
+      sms = 132;
+  }
+  return sms;
+}
+
 // Opt a kernel in to `smem` bytes of dynamic shared memory (and, with
 // big_clusters, to Hopper's clusters of 16), once per kernel.
 template <typename K>

@@ -41,7 +41,7 @@ _SIGNATURES = {
     "gar_flash_bwd_dq_cast": [_P] * 2 + [_L, _F, _P],
     "gar_flash_bwd_dkv": [_P] * 12 + [_I] * 7 + [_LP, _F, _P],
     "gar_decode_attention_fused": [_P] * 8 + [_I] * 8 + [_F, _P],
-    "gar_decode_attention_fused_q8": [_P] * 10 + [_I] * 7 + [_F, _P],
+    "gar_decode_attention_fused_q8": [_P] * 10 + [_I] * 8 + [_F, _P],
     "gar_decode_attention": [_P] * 7 + [_I] * 9 + [_F, _P],
     "gar_layer_norm": [_P] * 4 + [_I] * 5 + [_F, _P],
     "gar_vit_attention_fused_qkv": [_P] * 4 + [_I] * 4 + [_F, _P],
@@ -53,7 +53,8 @@ _SIGNATURES = {
     "gar_layer_swiglu": [_P] * 4 + [_I] * 4 + [_P],
     "gar_layer_qkv": [_P] * 7 + [_I] * 5 + [_P],
     "gar_layer_matmul_q8": [_P] * 4 + [_I] * 4 + [_P],
-    "gar_layer_swiglu_q8": [_P] * 6 + [_I] * 4 + [_P],
+    "gar_layer_swiglu_q8": [_P] * 6 + [_I] * 6 + [_P],
+    "gar_layer_swiglu_q8_ring": [_P] * 6 + [_I] * 4 + [_P],
     "gar_layer_qkv_q8": [_P] * 10 + [_I] * 5 + [_P],
     "gar_qkv_norm_rope": [_P] * 12 + [_I] * 7 + [_F, _P],
     "gar_qkv_norm_rope_q8": [_P] * 15 + [_I] * 7 + [_F, _P],

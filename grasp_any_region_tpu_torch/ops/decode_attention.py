@@ -31,10 +31,13 @@ the TPU kernel does it, bf16(int8 * scale); the new K/V (bf16) are
 quantized with the static scale, clip(round(x / s), -127, 127), written
 at write_pos, and the current token enters the attention as its
 dequantized fp32 value q * s, so this step sees what later steps read
-back. It streams half of C's bytes through C's first design, one block
-per (kv head, batch row) (csrc/decode_tile.cuh), so at B = 1 it is held
-by its grid. (Kernel 22 of the mega step, ops/decode_megakernel.py, runs
-C's split body with its own wo epilogue.)
+back. It runs C's split-KV body on an int8 cache (its stages land as
+int8, half of C's bytes, and each warp widens its own rows to bf16 before
+C's tensor-core products), over `card_splits` CTAs a (kv head, row) as
+C, at most MAX_SPLITS_Q8 (16 at B = 1-2 with 8 kv heads);
+`decode_attention_fused_q8_split_plain` mirrors its chunks. (Kernel
+22 of the mega step, ops/decode_megakernel.py, runs C's split body with
+its own wo epilogue.)
 
 On a CPU tensor the wrapper runs `decode_attention_fused_plain` (or
 `decode_attention_fused_q8_plain`); on a CUDA tensor it launches the
@@ -83,16 +86,19 @@ def decode_attention_fused_plain(
 
 
 MAX_SPLITS = 8  # the portable cluster size; 16 measured slower at B = 1, 2 on an H100 (PERF.md)
+MAX_SPLITS_Q8 = 16  # C8 (half the bytes a column): 16 measured faster than 8 at B = 1 (PERF.md)
 
 
-def decode_splits(batch: int, kv_heads: int, *, sms: int = 132) -> int:
-    """Kernel C's CTAs per (kv head, batch row): the largest power of two up
-    to MAX_SPLITS such that batch * kv_heads * splits stays within two
-    waves of `sms` SMs, and at least 2. GAR-1B's 8 kv heads: 8 at B = 1-4,
-    2 at B = 24. (The kernel takes 1-16: on an H100 at B = 1 and 2, 16
-    CTAs a (kv head, row) took longer than 8.)"""
+def decode_splits(batch: int, kv_heads: int, *, sms: int = 132,
+                  max_splits: int = MAX_SPLITS) -> int:
+    """Kernel C's (C8's) CTAs per (kv head, batch row): the largest power of
+    two up to `max_splits` such that batch * kv_heads * splits stays within
+    two waves of `sms` SMs, and at least 2. GAR-1B's 8 kv heads: C 8 at B =
+    1-4, C8 16 at B = 1-2 and 8 at B = 3-4, both 2 at B = 24. (The kernel
+    takes 1-16: on an H100 at B = 1 and 2, 16 CTAs a (kv head, row) took
+    longer than 8 for C, and less for C8.)"""
     splits = 2
-    while splits * 2 <= MAX_SPLITS and batch * kv_heads * splits * 2 <= 2 * sms:
+    while splits * 2 <= max_splits and batch * kv_heads * splits * 2 <= 2 * sms:
         splits *= 2
     return splits
 
@@ -162,10 +168,11 @@ def decode_attention_fused_split_plain(
     return torch.stack(rows).reshape(b, h, d).to(q.dtype)
 
 
-def card_splits(batch: int, kv_heads: int, device: torch.device) -> int:
+def card_splits(batch: int, kv_heads: int, device: torch.device,
+                max_splits: int = MAX_SPLITS) -> int:
     """`decode_splits` with the SM count of the card."""
     index = device.index if device.index is not None else torch.cuda.current_device()
-    return decode_splits(batch, kv_heads, sms=_build.sm_count(index))
+    return decode_splits(batch, kv_heads, sms=_build.sm_count(index), max_splits=max_splits)
 
 
 def _pair_scales(scale: torch.Tensor, layer: int) -> torch.Tensor:
@@ -214,6 +221,60 @@ def decode_attention_fused_q8_plain(
     denom = l_hist * alpha + p_cur
     acc = acc * alpha + p_cur * v_cur
     return (acc / torch.clamp(denom, min=1e-30)).reshape(b, h, d).to(q.dtype)
+
+
+def decode_attention_fused_q8_split_plain(
+    q: torch.Tensor, k_all: torch.Tensor, v_all: torch.Tensor,
+    k_new: torch.Tensor, v_new: torch.Tensor, layer: int, *,
+    k_scale: torch.Tensor, v_scale: torch.Tensor,
+    prompt_lens: torch.Tensor, write_pos: torch.Tensor, prompt_pad: int, splits: int,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Kernel C8's split arithmetic in torch: the new column quantized
+    with the pair's scale and written at write_pos (in place); the layer's
+    history dequantized to bf16(int8 * scale) and cut into `splits` chunks
+    as kernel C cuts it (`valid_columns`, `split_bounds`), each chunk's (m,
+    l, acc) with p = exp(s - the chunk's max) rounded to bf16 before PV;
+    the chunks merged in order with the current token's dequantized fp32
+    K/V (`quantize(x) * scale`), p unrounded. Reads write_pos and
+    prompt_lens on the host: a mirror for the tests, not a path."""
+    b, h, d = q.shape
+    kh, s = k_all.shape[2], k_all.shape[3]
+    scale = d ** -0.5 if scale is None else scale
+    ks, vs = _pair_scales(k_scale, layer), _pair_scales(v_scale, layer)  # (B, K, 1, 1)
+    kq = torch.clamp(torch.round(k_new.float() / ks[..., 0]), -127, 127)  # (B, K, D)
+    vq = torch.clamp(torch.round(v_new.float() / vs[..., 0]), -127, 127)
+    idx = write_pos.reshape(1).long()
+    k_all[layer].index_copy_(2, idx, kq.to(torch.int8)[:, :, None, :])
+    v_all[layer].index_copy_(2, idx, vq.to(torch.int8)[:, :, None, :])
+    kc = (k_all[layer].float() * ks).to(torch.bfloat16).float()  # (B, K, S, D)
+    vc = (v_all[layer].float() * vs).to(torch.bfloat16).float()
+    k_cur, v_cur = kq * ks[..., 0], vq * vs[..., 0]  # (B, K, D)
+    qf = q.float().reshape(b, kh, h // kh, d)
+    wpos = int(write_pos)
+    rows = []
+    for r in range(b):
+        cols = torch.tensor(valid_columns(int(prompt_lens[r]), prompt_pad, wpos, s),
+                            dtype=torch.long, device=q.device)
+        s_cur = (qf[r] * k_cur[r][:, None, :]).sum(-1) * scale  # (K, G)
+        parts = []
+        for f0, f1 in split_bounds(len(cols), splits):
+            if f0 == f1:  # an empty chunk (m = -inf) weighs nothing
+                continue
+            logits = torch.einsum("kgd,knd->kgn", qf[r], kc[r][:, cols[f0:f1]]) * scale
+            m = logits.amax(-1)
+            p = torch.exp(logits - m[..., None])
+            acc = torch.einsum("kgn,knd->kgd", p.to(torch.bfloat16).float(),
+                               vc[r][:, cols[f0:f1]])
+            parts.append((m, p.sum(-1), acc))
+        m_all = torch.stack([s_cur] + [m for m, _, _ in parts]).amax(0)
+        p_cur = torch.exp(s_cur - m_all)
+        den, acc = p_cur, p_cur[..., None] * v_cur[r][:, None, :]
+        for m, l_part, acc_part in parts:
+            f = torch.exp(m - m_all)
+            den, acc = den + f * l_part, acc + f[..., None] * acc_part
+        rows.append(acc / torch.clamp(den, min=1e-30)[..., None])
+    return torch.stack(rows).reshape(b, h, d).to(q.dtype)
 
 
 def decode_attention_fused(
@@ -280,7 +341,8 @@ def decode_attention_fused(
     lib = _build.library()
     head = (q.data_ptr(), k_all.data_ptr(), v_all.data_ptr(), k_new.data_ptr(),
             v_new.data_ptr(), out.data_ptr(), prompt_lens.data_ptr(), write_pos.data_ptr())
-    shape = (layer, b, h, kh, s, d, prompt_pad)
+    splits = card_splits(b, kh, q.device, MAX_SPLITS_Q8 if q8 else MAX_SPLITS)
+    shape = (layer, b, h, kh, s, d, prompt_pad, splits)
     tail = (d ** -0.5, _build.stream_handle(q.device))
     global launches, launches_q8
     if q8:
@@ -289,7 +351,7 @@ def decode_attention_fused(
         _build.check(err, "gar_decode_attention_fused_q8")
         launches_q8 += 1
     else:
-        err = lib.gar_decode_attention_fused(*head, *shape, card_splits(b, kh, q.device), *tail)
+        err = lib.gar_decode_attention_fused(*head, *shape, *tail)
         _build.check(err, "gar_decode_attention_fused")
         launches += 1
     return out

@@ -19,13 +19,16 @@ The CUDA kernels stream the weights from HBM, which bounds them: split K
 over a thread-block cluster so the grid fills the card, reduce the partials
 through distributed shared memory in the same launch, tensor cores for B
 up to 32 rows. Din and Dout need only be multiples of 8; the TPU kernels'
-Dout % block_n rule does not apply. H (csrc/layer_matmul_sm90.cu) streams
-its weight by TMA through a three-stage ring fed by one producer thread,
-and launches as a programmatic dependent of the kernel before it, so its
-weight loads may start before that kernel ends; `stream_splits` picks its
+Dout % block_n rule does not apply. H and I8 (csrc/layer_matmul_sm90.cu)
+stream their weights by TMA through a ring fed by one producer thread
+(I8 the gate and up boxes side by side in a stage), and launch as a
+programmatic dependent of the kernel before them, so their weight loads
+may start before that kernel ends; a tile is one 128-byte row of the
+weight (`stream_n`: 64 bf16, 128 int8 columns), `stream_splits` picks the
 cluster size, `stream_plan` says which (column tile, K range) each CTA
-takes, and `layer_matmul_stream_plain` sums in the kernel's order. I, J
-and the int8 forms run on csrc/layer_matmul.cu's cp.async ring.
+takes, and `layer_matmul_stream_plain` / `layer_swiglu_q8_stream_plain`
+sum in the kernel's order. I, J, H8 and J8 run on csrc/layer_matmul.cu's
+cp.async ring.
 
 H8, I8 and J8 (`layer_matmul_q8`, `layer_swiglu_q8`, `layer_qkv_q8`,
 `grasp_any_region_tpu/ops/layer_matmul.py:165, 207, 253`, Pallas bodies
@@ -34,9 +37,10 @@ weights: int8 (L, Din, Dout) with one fp32 scale per output column,
 (L, 1, Dout), from models/quantize.py. The Pallas kernels scale the
 widened weight before the sum; the CUDA kernels and the plain versions
 scale the fp32 sum after it (the scale is constant along the sum), which
-differs only by fp32 rounding. They stream half the bytes of H-J: the
-same CUDA body with int8 weight slabs widened to bf16 on chip. The int8
-weights' Dout must be a multiple of 16 (16-byte rows).
+differs only by fp32 rounding. They stream half the bytes of H-J: H8 and
+J8 on the cp.async body, I8 on H's stream, each with int8 weights widened
+to bf16 on chip. The int8 weights' Dout must be a multiple of 16 (16-byte
+rows).
 
 On a CPU tensor each wrapper runs its plain version (below, same rounding
 points in torch); on a CUDA tensor it launches the kernel or raises. The
@@ -59,34 +63,46 @@ launches = dict(H=0, I=0, J=0, H8=0, I8=0, J8=0)
 
 MAX_ROWS = 32  # batch rows the kernels take (two 16-row tensor-core tiles)
 
-# Kernel H's work plan (csrc/layer_matmul_sm90.cu): tiles of STREAM_N
-# output columns, STREAM_BK weight rows a stage, and clusters of at most
-# STREAM_MAX_SPLITS CTAs splitting K while the grid stays within
-# STREAM_CTAS_PER_SM CTAs an SM.
+# Kernels H's and I8's work plan (csrc/layer_matmul_sm90.cu): tiles of
+# STREAM_N bf16 output columns (one 128-byte row; `stream_n` by type),
+# STREAM_BK weight rows a stage, and clusters of at most STREAM_MAX_SPLITS
+# CTAs splitting K while the grid stays within STREAM_CTAS_PER_SM CTAs an
+# SM (H), or within one CTA an SM (I8, STREAM_CTAS_PER_SM_Q8: two I8 CTAs
+# an SM measured slower).
 STREAM_N, STREAM_MAX_SPLITS, STREAM_CTAS_PER_SM = 64, 8, 2
+STREAM_CTAS_PER_SM_Q8 = 1
 STREAM_BK = 128
 
 
-def stream_splits(tiles: int, din: int, *, sms: int = 132) -> int:
-    """Kernel H's CTAs a column tile (the cluster size): doubled while the
-    grid stays within STREAM_CTAS_PER_SM CTAs an SM, the cluster within
-    STREAM_MAX_SPLITS, and a CTA keeps at least one stage of rows."""
+def stream_n(dtype: torch.dtype) -> int:
+    """The stream's tile width for weights of `dtype`: one 128-byte row,
+    64 bf16 (H) or 128 int8 (I8) columns."""
+    return STREAM_N * 2 // dtype.itemsize
+
+
+def stream_splits(tiles: int, din: int, *, sms: int = 132,
+                  ctas_per_sm: int = STREAM_CTAS_PER_SM) -> int:
+    """The stream's CTAs a column tile (the cluster size): doubled while the
+    grid stays within `ctas_per_sm` CTAs an SM, the cluster within
+    STREAM_MAX_SPLITS, and a CTA keeps at least one stage of rows. GAR-1B:
+    8 for H (32 tiles, two CTAs an SM), 2 for I8 (64 tiles of 128, one)."""
     s = 1
-    while (s < STREAM_MAX_SPLITS and tiles * s * 2 <= STREAM_CTAS_PER_SM * sms
+    while (s < STREAM_MAX_SPLITS and tiles * s * 2 <= ctas_per_sm * sms
            and din >= 2 * s * STREAM_BK):
         s *= 2
     return s
 
 
-def stream_plan(din: int, dout: int, splits: int) -> List[Tuple[int, int, int, int]]:
-    """(column tile, rank, k0, k1) of each CTA of kernel H's grid: tile t
-    owns columns [STREAM_N t, STREAM_N (t + 1)) (cut at dout), and CTA
-    `rank` of its cluster the weight rows [k0, k1), k_split = ceil(din /
-    splits) rounded up to a whole stage; the last ranks may get none (k0 ==
-    k1)."""
+def stream_plan(din: int, dout: int, splits: int,
+                n: int = STREAM_N) -> List[Tuple[int, int, int, int]]:
+    """(column tile, rank, k0, k1) of each CTA of the stream's grid (H, or
+    I8 with n = stream_n(torch.int8)): tile t owns columns [n t, n (t + 1))
+    (cut at dout), and CTA `rank` of its cluster the weight rows [k0, k1),
+    k_split = ceil(din / splits) rounded up to a whole stage; the last
+    ranks may get none (k0 == k1)."""
     k_split = -(-(-(-din // splits)) // STREAM_BK) * STREAM_BK
     return [(t, r, min(din, r * k_split), min(din, (r + 1) * k_split))
-            for t in range(-(-dout // STREAM_N)) for r in range(splits)]
+            for t in range(-(-dout // n)) for r in range(splits)]
 
 
 def layer_matmul_stream_plain(x: torch.Tensor, w_all: torch.Tensor, layer: int,
@@ -107,9 +123,36 @@ def layer_matmul_stream_plain(x: torch.Tensor, w_all: torch.Tensor, layer: int,
     return out.to(x.dtype)
 
 
+def layer_swiglu_q8_stream_plain(x: torch.Tensor, wg_q8: torch.Tensor, sg: torch.Tensor,
+                                 wu_q8: torch.Tensor, su: torch.Tensor, layer: int,
+                                 splits: int) -> torch.Tensor:
+    """Kernel I8 in its order of summation, in fp32: per CTA (`stream_plan`
+    at 128-column tiles) the gate and up sums over its stages in order,
+    then the CTAs of a tile in rank order; each column's scales on the
+    summed gate and up, silu(gate) * up, rounded once to x's dtype. A
+    mirror for the tests, not a path."""
+    xf, g, u = x.float(), wg_q8[layer].float(), wu_q8[layer].float()
+    din, m = g.shape
+    n = stream_n(torch.int8)
+    gate = torch.zeros((x.shape[0], m), dtype=torch.float32, device=x.device)
+    up = torch.zeros_like(gate)
+    for t, _, k0, k1 in stream_plan(din, m, splits, n):
+        n0, n1 = t * n, min(m, (t + 1) * n)
+        cta_g = torch.zeros((x.shape[0], n1 - n0), dtype=torch.float32, device=x.device)
+        cta_u = torch.zeros_like(cta_g)
+        for b0 in range(k0, k1, STREAM_BK):
+            rows = slice(b0, min(k1, b0 + STREAM_BK))
+            cta_g += xf[:, rows] @ g[rows, n0:n1]
+            cta_u += xf[:, rows] @ u[rows, n0:n1]
+        gate[:, n0:n1] += cta_g
+        up[:, n0:n1] += cta_u
+    return (F.silu(gate * sg[layer].float()) * (up * su[layer].float())).to(x.dtype)
+
+
 @functools.lru_cache(maxsize=None)
-def _card_splits(dout: int, din: int, index: int) -> int:
-    return stream_splits(-(-dout // STREAM_N), din, sms=_build.sm_count(index))
+def _card_splits(dout: int, din: int, index: int, n: int = STREAM_N,
+                 per_sm: int = STREAM_CTAS_PER_SM) -> int:
+    return stream_splits(-(-dout // n), din, sms=_build.sm_count(index), ctas_per_sm=per_sm)
 
 
 def layer_matmul_plain(x: torch.Tensor, w_all: torch.Tensor, layer: int) -> torch.Tensor:
@@ -284,11 +327,13 @@ def layer_swiglu_q8(x: torch.Tensor, wg_q8: torch.Tensor, sg: torch.Tensor,
     if wu_q8.shape != wg_q8.shape:
         raise ValueError(f"gate {tuple(wg_q8.shape)} and up {tuple(wu_q8.shape)} differ")
     b, din = x.shape
-    m = wg_q8.shape[2]
+    n_layers, _, m = wg_q8.shape
     out = torch.empty((b, m), dtype=x.dtype, device=dev)
     err = _build.library().gar_layer_swiglu_q8(
         x.data_ptr(), wg_q8.data_ptr(), sg.data_ptr(), wu_q8.data_ptr(), su.data_ptr(),
-        out.data_ptr(), layer, b, din, m, _build.stream_handle(dev))
+        out.data_ptr(), layer, n_layers, b, din, m,
+        _card_splits(m, din, dev.index, stream_n(torch.int8), STREAM_CTAS_PER_SM_Q8),
+        _build.stream_handle(dev))
     _build.check(err, "gar_layer_swiglu_q8")
     launches["I8"] += 1
     return out

@@ -518,6 +518,49 @@ def test_layer_matmul_q8_kernels(rnd, b, d, m, hq, hk):
             torch.testing.assert_close(o.float(), r, **TOL, msg=name)
 
 
+def _swiglu_q8_case(rnd, d, m, seed):
+    """Seeded int8 gate and up (L = 2) with their column scales, distinct."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    mats = []
+    for _ in range(2):
+        mats.append(torch.randint(-127, 128, (2, d, m), generator=gen, device="cuda",
+                                  dtype=torch.int8))
+        mats.append((torch.rand((2, 1, m), generator=gen, device="cuda") + 0.5)
+                    * d ** -0.5 / 73.3)
+    return mats
+
+
+@pytest.mark.parametrize("splits", [1, 2, 4, 8, 16])
+def test_layer_swiglu_q8_kernel_any_split(rnd, monkeypatch, splits):
+    """Kernel I8 (H's weight stream, int8 gate and up two boxes a stage) with
+    its cluster size forced (the chooser replaced), 1 to 16 CTAs a tile, at
+    ragged widths and GAR-1B's, B = 1, 24 and 32, against the plain version
+    and against the mirror of its summation order."""
+    monkeypatch.setattr(lm, "_card_splits", lambda *_: splits)
+    for d, m in ((200, 144), (1032, 400), (2048, 8192)):
+        mats = _swiglu_q8_case(rnd, d, m, d + splits)
+        for b in (1, 24, 32):
+            x = rnd(b, d)
+            before = lm.launches["I8"]
+            out = lm.layer_swiglu_q8(x, *mats, 1)
+            torch.cuda.synchronize()
+            assert lm.launches["I8"] == before + 1
+            torch.testing.assert_close(out.float(), lm.layer_swiglu_q8_plain(
+                x.float(), *mats, 1).float(), **TOL, msg=f"{d} x {m}, B = {b}")
+            mirror = lm.layer_swiglu_q8_stream_plain(x.float(), *mats, 1, splits)
+            torch.testing.assert_close(out.float(), mirror.float(), **TOL)
+
+
+def test_layer_swiglu_q8_kernel_same_bits(rnd):
+    """Kernel I8 gives the same bits on a second launch and on two replays of
+    a CUDA graph of one launch, at B = 1 and 24 (two row tiles)."""
+    mats = _swiglu_q8_case(rnd, 2048, 8192, 5)
+    for b in (1, 24):
+        x = rnd(b, 2048)
+        out = lm.layer_swiglu_q8(x, *mats, 1)
+        _same_bits_twice_and_replayed(lambda: lm.layer_swiglu_q8(x, *mats, 1), out)
+
+
 def test_layer_matmul_q8_wrappers_reject_what_the_kernels_do_not_take(rnd):
     w, s = _q8(rnd, 2, 64, 128)
     x = rnd(3, 64)
@@ -531,21 +574,60 @@ def test_layer_matmul_q8_wrappers_reject_what_the_kernels_do_not_take(rnd):
         lm.layer_matmul_q8(x, w, s, 2)
 
 
-@pytest.mark.parametrize("group", [1, 2, 4, 8])
-@pytest.mark.parametrize("b,plens,pad,wpos", [(2, (100, 37), 128, 170), (2, (128, 1), 128, 128),
-                                              (3, (500, 700, 9), 700, 1023)])
-def test_decode_attention_q8_kernel(rnd, group, b, plens, pad, wpos):
-    """Kernel C8 against its plain version: the output, and the cache, which
-    changes only at column write_pos, there within one quantization step."""
-    L, kh, s, layer = 3, 4, 1024, 1
-    gen = torch.Generator(device="cuda").manual_seed(group)
+def _q8_cache(L, b, kh, s, seed):
+    """A seeded int8 (L, B, K, S, 64) cache and its fp32 (L, B, K / 2) pair
+    scales, which make the dequantized cache unit-size, as C's bf16 randn
+    cache (and a quantized one: int8 spans each pair's max)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
     k_all, v_all = (torch.randint(-127, 128, (L, b, kh, s, 64), generator=gen, device="cuda",
                                   dtype=torch.int8) for _ in range(2))
     k_scale, v_scale = ((torch.rand((L, b, kh // 2, 1, 1), generator=gen, device="cuda") + 0.5)
-                        * 0.02 for _ in range(2))
-    q, k_new, v_new = rnd(b, kh * group, 64), rnd(b, kh, 64), rnd(b, kh, 64)
-    kw = dict(prompt_lens=torch.tensor(plens, dtype=torch.int32, device="cuda"),
-              write_pos=torch.tensor(wpos, dtype=torch.int32, device="cuda"), prompt_pad=pad,
+                        / 73.3 for _ in range(2))
+    return k_all, v_all, k_scale, v_scale
+
+
+def _q8_probe(kind, k_all, v_all, k_scale, v_scale, q, k_new, v_new, layer, plens, pad, wpos):
+    """C8's probes at `layer` (the other layers as they are). "interval":
+    k = 0 and v int8 spikes on each side of each interval edge, the i-th
+    16 i steps of a scale of the row's count of valid columns / 800, so
+    each spike is 0.02 i times that count (as `_interval_probe`); one
+    column too many, too few or twice moves a row by 0.02 or more.
+    "current": k and v = 0 in the cache and the first query head of each
+    kv head carrying about half its weight on the current token (q . k_new
+    scaled to log n), k_new and v_new quantized at a coarse scale of 0.5:
+    folding in the bf16 k_new or v_new instead of their dequantized values
+    moves those rows by a few hundredths."""
+    k_all, v_all, k_scale, v_scale = (t.clone() for t in (k_all, v_all, k_scale, v_scale))
+    b, kh = k_new.shape[:2]
+    k_all[layer].zero_()
+    counts = [p + max(0, wpos + 1 - max(pad, p)) for p in plens]
+    if kind == "interval":
+        k_new = torch.zeros_like(k_new)
+        gen = torch.Generator(device="cuda").manual_seed(len(plens))
+        v_all[layer] = torch.randint(-16, 17, v_all[layer].shape, generator=gen,
+                                     device="cuda", dtype=torch.int8)
+        for row, (plen, n) in enumerate(zip(plens, counts)):
+            edges = sorted({plen - 1, plen, pad - 1, pad, wpos, wpos + 1}
+                           & set(range(v_all.shape[3])))
+            for i, col in enumerate(edges):
+                v_all[layer, row, :, col] = 16 * (i + 1)
+            v_scale[layer, row] = n / 800
+    else:
+        v_all[layer].zero_()
+        k_scale[layer], v_scale[layer] = 0.5, 0.5
+        q0 = q.float().reshape(b, kh, -1, 64)[:, :, 0]  # (B, K, 64)
+        n = torch.tensor(counts, device=q.device, dtype=torch.float32)[:, None, None]
+        k_new = (q0 * 8 * n.log() / q0.pow(2).sum(-1, keepdim=True)).to(torch.bfloat16)
+        v_new = (v_new.float() * 2).to(torch.bfloat16)
+    return k_all, v_all, k_scale, v_scale, k_new, v_new
+
+
+def _check_q8(k_all, v_all, k_scale, v_scale, q, k_new, v_new, layer, plens, pad, wpos,
+              splits=None):
+    """C8 against its plain version at TOL16 (and, with `splits`, against
+    the split mirror); the cache changes only at column write_pos, there
+    within one quantization step of the plain version's."""
+    kw = dict(prompt_lens=_cuda_int32(plens), write_pos=_cuda_int32(wpos), prompt_pad=pad,
               k_scale=k_scale, v_scale=v_scale)
     k_exp, v_exp = k_all.clone(), v_all.clone()
     ref = dec.decode_attention_fused_q8_plain(q.float(), k_exp, v_exp, k_new, v_new, layer, **kw)
@@ -553,11 +635,113 @@ def test_decode_attention_q8_kernel(rnd, group, b, plens, pad, wpos):
     out = dec.decode_attention_fused(q, k_all, v_all, k_new, v_new, layer, **kw)
     torch.cuda.synchronize()
     assert dec.launches_q8 == before + 1
-    torch.testing.assert_close(out.float(), ref, **TOL)
+    torch.testing.assert_close(out.float(), ref, **TOL16)
+    if splits is not None:
+        mirror = dec.decode_attention_fused_q8_split_plain(
+            q.float(), k_all.clone(), v_all.clone(), k_new, v_new, layer, splits=splits, **kw)
+        torch.testing.assert_close(out.float(), mirror, **TOL16)
     for got, want in ((k_all, k_exp), (v_all, v_exp)):
         assert (got[layer, :, :, wpos].int() - want[layer, :, :, wpos].int()).abs().max() <= 1
         got[layer, :, :, wpos] = want[layer, :, :, wpos]
         assert torch.equal(got, want)
+    return out
+
+
+@pytest.mark.parametrize("group", [1, 2, 4, 8])
+@pytest.mark.parametrize("b,plens,pad,wpos", [
+    (2, (100, 37), 128, 170),
+    (2, (128, 1), 128, 128),
+    (3, (500, 700, 9), 700, 1023),
+    (24, None, 700, 800),   # ragged prompt lengths on both sides of prompt_pad
+    (2, "edges", None, None),
+    (2, "empty", None, None),
+])
+def test_decode_attention_q8_kernel(rnd, group, b, plens, pad, wpos):
+    """Kernel C8 (C's split-KV body on the int8 cache) against its plain
+    version at TOL16, then the interval probe and the current-token probe
+    (`_q8_probe`) at TOL16: the cache changes only at column write_pos,
+    there within one quantization step."""
+    L, kh, s, layer = 3, 4, 1024, 1
+    splits = dec.card_splits(b, kh, torch.device("cuda"), dec.MAX_SPLITS_Q8)
+    if isinstance(plens, str):
+        b, plens, pad, wpos = _split_layout(plens, splits)
+    elif plens is None:  # at and around write_pos and prompt_pad, then seeded
+        plens = [700, 699, 1, 2, 64, 65] + torch.randint(
+            1, 700, (b - 6,), generator=torch.Generator().manual_seed(b)).tolist()
+    cache = _q8_cache(L, b, kh, s, group)
+    q, k_new, v_new = rnd(b, kh * group, 64), rnd(b, kh, 64), rnd(b, kh, 64)
+    args = (layer, plens, pad, wpos)
+    _check_q8(*cache, q, k_new, v_new, *args)
+    for kind in ("interval", "current"):
+        k_all, v_all, ks, vs, kn, vn = _q8_probe(kind, *cache, q, k_new, v_new, *args)
+        _check_q8(k_all, v_all, ks, vs, q, kn, vn, *args)
+
+
+@pytest.mark.parametrize("splits", [1, 2, 3, 5, 8, 16])
+def test_decode_attention_q8_kernel_any_split(rnd, monkeypatch, splits):
+    """Kernel C8 with the CTAs a (kv head, row) forced (the chooser
+    replaced), clusters of 1 to 16, over three ragged rows (one with fewer
+    columns than CTAs), against the plain version and the split mirror at
+    TOL16, then the interval probe."""
+    monkeypatch.setattr(dec, "card_splits", lambda *_: splits)
+    L, b, kh, s, layer, group = 2, 3, 4, 1024, 1, 4
+    args = (layer, [300, 3, 1], 512, 515)
+    cache = _q8_cache(L, b, kh, s, splits)
+    q, k_new, v_new = rnd(b, kh * group, 64), rnd(b, kh, 64), rnd(b, kh, 64)
+    _check_q8(*cache, q, k_new, v_new, *args, splits=splits)
+    k_all, v_all, ks, vs, kn, vn = _q8_probe("interval", *cache, q, k_new, v_new, *args)
+    _check_q8(k_all, v_all, ks, vs, q, kn, vn, *args, splits=splits)
+
+
+@pytest.mark.parametrize("group", [1, 4, 8])
+@pytest.mark.parametrize("b,plens,pad,wpos", [(2, (100, 37), 128, 170),
+                                              (24, [700 - 29 * i for i in range(24)], 700, 800)])
+def test_decode_attention_q8_kernel_is_c_on_the_widened_cache(rnd, group, b, plens, pad, wpos):
+    """With power-of-two pair scales every dequantized value is exact in
+    bf16, so kernel C8 must give kernel C's bits on the widened cache (the
+    int8 cache times its scales, as bf16) with the new K/V as C8 quantizes
+    them, and write the same column (at the same splits)."""
+    L, kh, s, layer = 3, 4, 1024, 1
+    k_all, v_all, _, _ = _q8_cache(L, b, kh, s, group)
+    exps = torch.arange(L * b * (kh // 2), device="cuda").reshape(L, b, kh // 2, 1, 1) % 3
+    k_scale, v_scale = 2.0 ** -(5 + exps).float(), 2.0 ** -(6 + exps).float()
+    q, k_new, v_new = rnd(b, kh * group, 64), rnd(b, kh, 64), rnd(b, kh, 64)
+
+    def widen(x, sc):  # (L, B, K, ...) int8 at the pairs' scales, as bf16 (exact)
+        return (x.float() * sc.repeat_interleave(2, dim=2).reshape(
+            L, b, kh, *[1] * (x.dim() - 3))).to(torch.bfloat16)
+
+    k16, v16 = widen(k_all, k_scale), widen(v_all, v_scale)
+    kn16 = widen(torch.clamp(torch.round(k_new.float()[None] / k_scale[layer].repeat_interleave(
+        2, dim=1)[None, ..., 0]), -127, 127).to(torch.int8).expand(L, -1, -1, -1), k_scale)[layer]
+    vn16 = widen(torch.clamp(torch.round(v_new.float()[None] / v_scale[layer].repeat_interleave(
+        2, dim=1)[None, ..., 0]), -127, 127).to(torch.int8).expand(L, -1, -1, -1), v_scale)[layer]
+    kw = dict(prompt_lens=_cuda_int32(plens), write_pos=_cuda_int32(wpos), prompt_pad=pad)
+    splits = dec.card_splits(b, kh, torch.device("cuda"), dec.MAX_SPLITS_Q8)
+    out8 = dec.decode_attention_fused(q, k_all, v_all, k_new, v_new, layer, k_scale=k_scale,
+                                      v_scale=v_scale, **kw)
+    with pytest.MonkeyPatch.context() as mp:  # kernel C at C8's splits
+        mp.setattr(dec, "card_splits", lambda *_: splits)
+        out16 = dec.decode_attention_fused(q, k16, v16, kn16, vn16, layer, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(out8, out16)
+    assert torch.equal(widen(k_all, k_scale), k16) and torch.equal(widen(v_all, v_scale), v16)
+
+
+def test_decode_attention_q8_kernel_same_bits(rnd):
+    """Kernel C8 gives the same bits on a second launch and on two replays
+    of a CUDA graph of one launch (the append writes the same column)."""
+    layer, plens, pad, wpos = 1, [900, 17], 900, 1000
+    k_all, v_all, ks, vs = _q8_cache(2, 2, 4, 1024, 3)
+    q, k_new, v_new = rnd(2, 16, 64), rnd(2, 4, 64), rnd(2, 4, 64)
+    kw = dict(prompt_lens=_cuda_int32(plens), write_pos=_cuda_int32(wpos), prompt_pad=pad,
+              k_scale=ks, v_scale=vs)
+
+    def run():
+        return dec.decode_attention_fused(q, k_all, v_all, k_new, v_new, layer, **kw)
+
+    out = run()
+    _same_bits_twice_and_replayed(run, out)
 
 
 def test_decode_attention_q8_wrapper_rejects_what_the_kernel_does_not_take(rnd):
