@@ -20,16 +20,22 @@ C alone and C + H on wo) against m_parent; those named c8_* and i8_*
 time kernels C8 and I8 (TIMING_Q8: C8 over layer 7 of the main path's
 int8 (16, B, 8, 5120, 64) cache, I8 at GAR-1B's gate and up, each at B = 1
 and 24 and checked against its plain version, I8 also 16 layers back to
-back) against q8_parent. `--against=` runs one timing (TIMING_Q8 unless
-another is named: abc, h, m) in the package of another checkout and in
-this tree, in turns. Run from the repository root on a machine with the
-card:
+back) against q8_parent; those named st_*, h8_* and i_* time the four
+kernels of H's weight stream (TIMING_STREAM: H and H8 at GAR-1B's w_down
+and wo, I and I8 at its gate and up, each at B = 1 and 24, checked against
+its plain version, one call after an L2 flush and 16 layers back to back)
+against st_parent. `--against=` runs one
+timing (TIMING_Q8 unless another is named: abc, h, m, stream, or steps:
+TIMING_STEPS, the fused bf16 and int8 decode steps' device and host ms at
+GAR-1B) in the package of another checkout and in this tree, in turns.
+Run from the repository root on a machine with the card:
 
     python3 ab_kernels.py [variant ...]
     python3 ab_kernels.py h_<variant> ...
     python3 ab_kernels.py m_<variant> ...
     python3 ab_kernels.py c8_<variant> | i8_<variant> ...
-    python3 ab_kernels.py --against=<directory of another checkout> [q8 | abc | h | m]
+    python3 ab_kernels.py st_<variant> | h8_<variant> | i_<variant> ...
+    python3 ab_kernels.py --against=<directory of another checkout> [q8 | abc | h | m | stream | steps]
 """
 
 from __future__ import annotations
@@ -95,13 +101,11 @@ H_VARIANTS = {  # the parent: 128 rows and at most 3 stages, 8 CTAs a tile
     "h_no_pdl": [(H_SRC, "  cfg.numAttrs = 2;", "  cfg.numAttrs = 1;")],
     "h_l2_promotion_256": [("grasp_any_region_tpu_torch/csrc/sm90.cuh",
                             "CU_TENSOR_MAP_L2_PROMOTION_L2_128B", "CU_TENSOR_MAP_L2_PROMOTION_L2_256B")],
-    # the partials pulled: each CTA keeps its own, the cluster syncs, the
-    # finisher loads its columns from every CTA, and a second barrier keeps
-    # each CTA alive while peers read it
-    "h_pull_reduction": [(H_SRC, """            if (row < a.rows)
-              cluster.map_shared_rank(recv, col / cols)[((w * splits + rank) * a.rows + row) *
-                                                            cols + col % cols] = acc[w][i][j][e];""",
-                          """            if (row < a.rows) recv[(w * a.rows + row) * kWsN + col] = acc[w][i][j][e];"""),
+    # the partials pulled: each CTA keeps its own (staged in its ring), the
+    # cluster syncs, the finisher loads its columns from every CTA, and a
+    # second barrier keeps each CTA alive while peers read it
+    "h_pull_reduction": [(H_SRC, """  for (int e = threadIdx.x; e < splits * per_q; e += kWsThreads) {""",
+                          """  for (int e = threadIdx.x; e < 0 * splits * per_q; e += kWsThreads) {"""),
                          (H_SRC, """    for (int w = 0; w < NW; ++w) {
       v[w] = 0.f;
       for (int r = 0; r < splits; ++r) v[w] += recv[((w * splits + r) * a.rows + row) * cols + c];
@@ -112,7 +116,7 @@ H_VARIANTS = {  # the parent: 128 rows and at most 3 stages, 8 CTAs a tile
       if (r < splits)
 #pragma unroll
         for (int w = 0; w < NW; ++w)
-          p[w][r] = cluster.map_shared_rank(recv, r)[(w * a.rows + row) * kWsN + rank * cols + c];
+          p[w][r] = cluster.map_shared_rank(part, r)[(w * a.rows + row) * PP + rank * cols + c];
 #pragma unroll
     for (int w = 0; w < NW; ++w)
 #pragma unroll
@@ -225,6 +229,69 @@ Q8_VARIANTS = {  # kernels C8 and I8 (TIMING_Q8)
       bfr[2 * h][0] = bfr[2 * h + 1][0] = raw[2 * h];
       bfr[2 * h][1] = bfr[2 * h + 1][1] = raw[2 * h + 1];
     }""")],
+}
+
+# lines of the stream's source that the variants below edit
+X_WAIT = "  grid_dependency_wait();  // out may be memory the kernel before still reads\n"
+MMA_LINE = ("            for (int n = 0; n < NT; ++n) mma_bf16_16816(acc[w][i][n], xa[h & 1][i], "
+            "b[n][0], b[n][1]);\n")
+AHEAD_LINE = "      for (int j = 0; j < ahead; ++j) weights(j, j);  // the weights wait for nothing\n"
+PREFETCH_X = ('      asm volatile("prefetch.tensormap [%0];" :: "l"(reinterpret_cast<uint64_t>(&maps.x)) '
+              ': "memory");\n')
+X_ROWS = "  return (rows + 7) / 8 * 8;"
+X_ROWS_16 = "  return rows <= 16 ? 16 : (rows + 7) / 8 * 8;"
+ST_VARIANTS = {  # kernels H, H8, I and I8 (TIMING_STREAM)
+    "st_parent": [],
+    # H8: clusters of up to 16 CTAs (16 a tile at GAR-1B, 256 CTAs), not 8
+    # (128 CTAs, each of which may take a whole SM's shared memory); of the
+    # kernels timed, only H8's chooser reaches 16 at GAR-1B's widths
+    "h8_sixteen_ctas_a_tile": [(LM_PY, "STREAM_N, STREAM_MAX_SPLITS, STREAM_CTAS_PER_SM = 64, 8, 2",
+                                "STREAM_N, STREAM_MAX_SPLITS, STREAM_CTAS_PER_SM = 64, 16, 2")],
+    # I: one CTA an SM (1 a tile at GAR-1B: 128 CTAs, no cluster reduction,
+    # three stages at B = 24), not two (2 a tile, 256 CTAs, two stages)
+    "i_one_cta_an_sm": [(LM_PY, "_card_splits(m, din, dev.index)",
+                         "_card_splits(m, din, dev.index, STREAM_N, STREAM_CTAS_PER_SM_Q8)")],
+    # the stream's partials stored fragment by fragment straight into their
+    # finishers (4-byte remote stores), not staged and pushed in 16-byte
+    # pieces
+    "st_scattered_push": [(STREAM_SRC, """  float* part = reinterpret_cast<float*>(sm);
+  __syncthreads();  // every stage is read
+  if (warp < kWsConsumers) {""", """  float* part = reinterpret_cast<float*>(sm);
+  const int cols = BN / splits;
+  cluster_wait();
+  if (warp < kWsConsumers) {"""), (STREAM_SRC, """            if (row < a.rows) part[(w * a.rows + row) * PP + col] = acc[w][i][j][e];
+          }
+  }
+  __syncthreads();
+  cluster_wait();  // every CTA of the cluster has started
+  const int cols = BN / splits, quads = cols / 4, per_q = NW * a.rows * quads;
+  for (int e = threadIdx.x; e < splits * per_q; e += kWsThreads) {""", """            if (row < a.rows)
+              cluster.map_shared_rank(recv, col / cols)[((w * splits + rank) * a.rows + row) *
+                                                            cols + col % cols] = acc[w][i][j][e];
+          }
+  }
+  const int quads = cols / 4, per_q = NW * a.rows * quads;
+  for (int e = threadIdx.x; e < 0 * splits * per_q; e += kWsThreads) {  // none: in place""")],
+    # a deeper ring where the budget allows it (every stream kernel)
+    "st_four_stages": [(STREAM_SRC, "constexpr int kWsStages = 3;",
+                        "constexpr int kWsStages = 4;")],
+    # timing only (wrong results), each leaving out one part of the work:
+    # the reduction and the epilogue (CTAs leave after their main loop);
+    # the products (and so the int8 widening that feeds them); x's loads
+    # into the stages; the widening of int8 weights
+    "st_no_epilogue": [(STREAM_SRC, X_WAIT, X_WAIT + "  if (a.rows > 0) return;\n")],
+    "st_no_math": [(STREAM_SRC, MMA_LINE, "            ;\n")],
+    "st_no_x_loads": [
+        (STREAM_SRC, "        mbar_arrive_expect_tx(&full[s], NW * kWsBox + 2 * x_box);",
+         "        mbar_arrive_expect_tx(&full[s], NW * kWsBox + 0 * x_box);"),
+        (STREAM_SRC, "        for (int b = 0; b < 2; ++b)\n          tma_load_4d(xs",
+         "        for (int b = 0; b < 0; ++b)\n          tma_load_4d(xs")],
+    "st_no_widen": Q8_VARIANTS["i8_no_widen"],
+    # x's tensor map fetched into the TMA unit's cache before the wait on
+    # the kernel before (its first use is after it); x boxes of 16 rows up
+    # to 16 rows (no row past the box), not B rounded up to 8
+    "st_prefetch_x_map": [(STREAM_SRC, AHEAD_LINE, AHEAD_LINE + PREFETCH_X)],
+    "st_x_rows_16": [(STREAM_SRC, X_ROWS, X_ROWS_16)],
 }
 
 TIMING = r"""
@@ -400,13 +467,89 @@ for b in (1, 24):
 print("AB " + json.dumps(t))
 """
 
+TIMING_STREAM = r"""
+import json, torch, chip_smoke as c
+from grasp_any_region_tpu_torch.models.quantize import quantize_int8
+from grasp_any_region_tpu_torch.ops import layer_matmul as lm
+c.phase_environment()
+gen = torch.Generator(device="cuda").manual_seed(0)
+def rnd(*shape):
+    return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+def stack(din, n):
+    return (rnd(16, din, n).float() * din ** -0.5).to(torch.bfloat16)
+t = {}
+def check(out, ref, name):
+    try:
+        c.max_err(out, ref, name)
+    except AssertionError:  # a timing-only variant
+        t["wrong results"] = 1
+layer = 7
+cases = {}
+for name, din in (("w_down", 8192), ("wo", 2048)):
+    w = stack(din, 2048)
+    cases[f"H {name}"] = (lm.layer_matmul, lm.layer_matmul_plain, (w,), din)
+    cases[f"H8 {name}"] = (lm.layer_matmul_q8, lm.layer_matmul_q8_plain, quantize_int8(w), din)
+gate_up = (stack(2048, 8192), stack(2048, 8192))
+cases["I"] = (lm.layer_swiglu, lm.layer_swiglu_plain, gate_up, 2048)
+cases["I8"] = (lm.layer_swiglu_q8, lm.layer_swiglu_q8_plain,
+               (*quantize_int8(gate_up[0]), *quantize_int8(gate_up[1])), 2048)
+for name, (fn, plain, mats, din) in cases.items():
+    for b in (1, 24):
+        x = rnd(b, din)
+        check(fn(x, *mats, layer), plain(x.float(), *mats, layer), f"{name} B={b}")
+        t[f"{name} B={b}"] = c.cuda_ms(lambda: fn(x, *mats, layer))
+        t[f"{name} B={b} x16"] = c.cuda_ms(lambda: [fn(x, *mats, i) for i in range(16)],
+                                           iters=5, sleep_cycles=20_000_000) / 16
+print("AB " + json.dumps(t))
+"""
+
+TIMING_STEPS = r"""
+import json, torch, chip_smoke as c
+from grasp_any_region_tpu_torch.core.config import gar_1b
+from grasp_any_region_tpu_torch.models.gar import gar_prefill, seed_cache_from_prefill
+from grasp_any_region_tpu_torch.models.llama import embed_tokens, llama_decode_step, lm_logits
+from grasp_any_region_tpu_torch.models.quantize import quantize_decode_weights
+c.phase_environment()
+cfg = gar_1b()
+params = c.random_params(cfg, "cuda")
+params_q8 = quantize_decode_weights(params)
+t = {}
+with torch.inference_mode():
+    batch, plens = c.bench_batch(cfg, "cuda")
+    s = batch.input_ids.shape[1]
+    hidden, kv = gar_prefill(params, cfg, batch, mask_compat=False)
+    first = lm_logits(params.llm, cfg.text, hidden[:, -1],
+                      valid_vocab=cfg.extended_vocab_size).argmax(-1)
+    max_len = ((s + 256 + 511) // 512) * 512
+    seeded = {q8: seed_cache_from_prefill(cfg, kv, plens, max_len, quantize_kv=q8)
+              for q8 in (False, True)}
+    del hidden, kv
+    emb = embed_tokens(params.llm, first[:, None])
+    outs = {}
+    for form, llm, q8, use in (("xla", params.llm, False, False),
+                               ("fused", params.llm, False, "fused"),
+                               ("int8", params_q8.llm, True, None)):
+        src = seeded[q8]
+        cache = src._replace(k=src.k.clone(), v=src.v.clone(), write_pos=src.write_pos.clone())
+        step = lambda: llama_decode_step(llm, cfg.text, emb, cache, s, use_kernel=use)
+        outs[form] = step()[0].float()
+        t[f"{form} device ms"], t[f"{form} host ms"] = c.step_times(step)
+    got, want = outs["fused"], outs["xla"]
+    t["fused vs xla"] = ((got - want).abs().max() / want.abs().max()).item()
+    if t["fused vs xla"] > c.E2E_TOL or not torch.isfinite(outs["int8"]).all():
+        t["wrong results"] = 1
+print("AB " + json.dumps(t))
+"""
+
 
 def against(other: str, timing: str = "q8") -> int:
-    """One timing (TIMING_Q8, or TIMING, TIMING_H, TIMING_M as abc, h, m) in
+    """One timing (TIMING_Q8, or TIMING, TIMING_H, TIMING_M, TIMING_STREAM,
+    TIMING_STEPS as abc, h, m, stream, steps) in
     the package checked out at `other` (e.g. `git archive` of the parent
     commit unpacked there) and in this tree, in turns: other, this, this,
     other."""
-    code = dict(q8=TIMING_Q8, abc=TIMING, h=TIMING_H, m=TIMING_M)[timing]
+    code = dict(q8=TIMING_Q8, abc=TIMING, h=TIMING_H, m=TIMING_M, stream=TIMING_STREAM,
+                steps=TIMING_STEPS)[timing]
     for name, d in (("other", other), ("tree", str(REPO)), ("tree", str(REPO)), ("other", other)):
         res = run(Path(d), ["-c", code], 900)
         lines = [x for x in res.stdout.splitlines() if x.startswith("AB ")]
@@ -421,9 +564,11 @@ def main(names: list[str]) -> int:
     h = bool(names) and all(n.startswith("h_") for n in names)
     mega = bool(names) and all(n.startswith("m_") for n in names)
     q8 = bool(names) and all(n.startswith(("c8_", "i8_")) for n in names)
+    st = bool(names) and all(n.startswith(("st_", "h8_", "i_")) for n in names)
     variants, parent, timing = ((H_VARIANTS, "h_parent", TIMING_H) if h
                                 else (M_VARIANTS, "m_parent", TIMING_M) if mega
                                 else (Q8_VARIANTS, "q8_parent", TIMING_Q8) if q8
+                                else (ST_VARIANTS, "st_parent", TIMING_STREAM) if st
                                 else (VARIANTS, "parent", TIMING))
     unknown = set(names) - set(variants)
     if unknown:

@@ -18,8 +18,8 @@ the script exits non-zero (there is no CPU fallback):
    same function (SDPA for A and B, torch.mm for H, the W8A16 product
    torch._weight_int8pack_mm for H8, SDPA over views of E's fused buffer,
    torch.addmm for F, SDPA with the boolean mask for C), that call's time.
-   H and I8 (the TMA-fed weight stream, bf16 and int8) also beside their
-   earlier forms (the cp.async ring that I, J, H8 and J8 still run), with
+   H, H8, I and I8 (the TMA-fed weight stream, bf16 and int8) also beside
+   their earlier forms (the cp.async ring that J and J8 still run), with
    both host times a call and their times by CTAs a tile.
    E also at a ragged S = 200. The decode matmuls H, I, J and their int8
    forms H8, I8, J8 also at B = 24 (with their GB/s of weights, cuBLAS's
@@ -136,6 +136,7 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import functools
 import json
 import os
 import statistics
@@ -1018,37 +1019,38 @@ def vit_block_kernels(rnd, gen):
     return results
 
 
-def layer_matmul_ring(x, w_all, layer):
-    """Kernel H's earlier form (csrc/layer_matmul.cu's cp.async ring, I and
-    J's body), behind the same operand check as `layer_matmul`: timed
-    beside the TMA-fed form; no path launches it."""
+RING_ENTRIES = dict(H="gar_layer_matmul_ring", I="gar_layer_swiglu_ring",
+                    H8="gar_layer_matmul_q8_ring", I8="gar_layer_swiglu_q8_ring")
+
+
+def layer_ring(key, x, *args):
+    """Kernel `key`'s earlier form (H, I, H8 or I8 on csrc/layer_matmul.cu's
+    cp.async ring, J and J8's body), called as its wrapper is (x, the
+    weights and, for int8, each one's scales, the layer) behind the same
+    operand checks: timed beside the TMA-fed form; no path launches it."""
     from grasp_any_region_tpu_torch.ops import _build
     from grasp_any_region_tpu_torch.ops import layer_matmul as lm
 
-    lm._check(x, layer, w_all)
-    out = torch.empty((x.shape[0], w_all.shape[2]), dtype=x.dtype, device=x.device)
-    err = _build.library().gar_layer_matmul_ring(
-        x.data_ptr(), w_all.data_ptr(), out.data_ptr(), layer, x.shape[0], x.shape[1],
-        w_all.shape[2], _build.stream_handle(x.device))
-    _build.check(err, "gar_layer_matmul_ring")
+    *mats, layer = args
+    if key.endswith("8"):
+        lm._check_q8(x, layer, *zip(mats[::2], mats[1::2]))
+    else:
+        lm._check(x, layer, *mats)
+    out = torch.empty((x.shape[0], mats[0].shape[2]), dtype=x.dtype, device=x.device)
+    err = getattr(_build.library(), RING_ENTRIES[key])(
+        x.data_ptr(), *(m.data_ptr() for m in mats), out.data_ptr(), layer, x.shape[0],
+        x.shape[1], mats[0].shape[2], _build.stream_handle(x.device))
+    _build.check(err, RING_ENTRIES[key])
     return out
 
 
-def layer_swiglu_q8_ring(x, wg_q8, sg, wu_q8, su, layer):
-    """Kernel I8's earlier form (csrc/layer_matmul.cu's cp.async ring, H8
-    and J8's body), behind the same operand checks as `layer_swiglu_q8`:
-    timed beside the TMA-fed form; no path launches it."""
-    from grasp_any_region_tpu_torch.ops import _build
+def stream_splits_chosen(key, dout, din, index):
+    """The CTAs a tile that stream kernel `key`'s wrapper launches with."""
     from grasp_any_region_tpu_torch.ops import layer_matmul as lm
 
-    lm._check_q8(x, layer, (wg_q8, sg), (wu_q8, su))
-    out = torch.empty((x.shape[0], wg_q8.shape[2]), dtype=x.dtype, device=x.device)
-    err = _build.library().gar_layer_swiglu_q8_ring(
-        x.data_ptr(), wg_q8.data_ptr(), sg.data_ptr(), wu_q8.data_ptr(), su.data_ptr(),
-        out.data_ptr(), layer, x.shape[0], x.shape[1], wg_q8.shape[2],
-        _build.stream_handle(x.device))
-    _build.check(err, "gar_layer_swiglu_q8_ring")
-    return out
+    n = lm.stream_n(torch.int8) if key.endswith("8") else lm.STREAM_N
+    per_sm = lm.STREAM_CTAS_PER_SM_Q8 if key == "I8" else lm.STREAM_CTAS_PER_SM
+    return lm._card_splits(dout, din, index, n, per_sm)
 
 
 def decode_matmul_kernels(rnd):
@@ -1062,12 +1064,12 @@ def decode_matmul_kernels(rnd):
     5. Beside each time: the weight bytes over it, cuBLAS's bf16 product of
     the same layer (the XLA form's ops; torch.mm is H's library call), for
     H8 torch._weight_int8pack_mm (the library's W8A16 product, timed only),
-    and a device-to-device copy of the same bytes. H also beside its earlier
-    form (`layer_matmul_ring`, checked the same way): both times, both
-    16-layers-back-to-back times, both host times a call, and H's time by
-    its CTAs a column tile (the cluster size, 1-16) at B = 1; and I8 (the
-    same stream with int8 gate and up) beside its earlier form
-    (`layer_swiglu_q8_ring`) the same way."""
+    and a device-to-device copy of the same bytes. H, H8 (both widths), I
+    and I8 (the TMA-fed stream) also beside their earlier forms
+    (`layer_ring`, checked the same way): both times, both
+    16-layers-back-to-back times, both host times a call, and the stream's
+    time by its CTAs a column tile (the cluster size, 1-16), at B = 24 and
+    1."""
     import torch.nn.functional as F
     from grasp_any_region_tpu_torch.models.quantize import quantize_int8
     from grasp_any_region_tpu_torch.ops import layer_matmul as lm
@@ -1111,6 +1113,33 @@ def decode_matmul_kernels(rnd):
         dst = torch.empty_like(src)
         return cuda_ms(lambda: dst.copy_(src))
 
+    def beside_ring(name, key, kernel, plain, ws, x, ms, seq_ms, n_bytes):
+        """A stream kernel's time (one call, and a layer of 16 back to back,
+        measured by the caller) beside its earlier form's, both host times a
+        call, and its time by CTAs a tile (the cluster size, 1-16)."""
+        ring = functools.partial(layer_ring, key)
+        old_err = check(f"{name} earlier form", ring, plain, ws, layer, x)
+        old_ms = cuda_ms(lambda: ring(x, *ws, layer))
+        n_layers = ws[0].shape[0]
+        old_seq = cuda_ms(lambda: [ring(x, *ws, i) for i in range(n_layers)],
+                          iters=5, sleep_cycles=20_000_000) / n_layers
+        hus, old_hus = host_us(lambda: kernel(x, *ws, layer)), host_us(lambda: ring(x, *ws, layer))
+        chooser, times = lm._card_splits, {}
+        try:  # the chooser's alternatives: the kernel takes 1-16 CTAs a tile
+            for n in (1, 2, 4, 8, 16):
+                lm._card_splits = lambda *_: n
+                times[n] = cuda_ms(lambda: kernel(x, *ws, layer))
+        finally:
+            lm._card_splits = chooser
+        splits = stream_splits_chosen(key, ws[0].shape[2], x.shape[1], x.device.index)
+        log(f"[kernels] {name}, B = {x.shape[0]}: TMA-fed {ms:.4f} ms = "
+            f"{n_bytes / ms / 1e6:.0f} GB/s of weights, back to back {seq_ms:.4f} ms a layer = "
+            f"{n_bytes / seq_ms / 1e6:.0f} GB/s, host {hus:.1f} us a call ({splits} CTAs a "
+            f"tile); earlier form (cp.async ring) {old_ms:.4f} ms, back to back {old_seq:.4f}, "
+            f"host {old_hus:.1f} us, max |earlier - plain| {old_err:.3e}; back to back "
+            f"{'no slower' if seq_ms <= old_seq else 'SLOWER'} than the earlier form; "
+            "by CTAs a tile, ms: " + ", ".join(f"{n}: {t:.4f}" for n, t in times.items()))
+
     layer, results = 7, {}
     for label, (key, kernel, plain, kernel8, plain8, cublas, ws, din) in calls(
             2048, 8192, 2048, 512, 16).items():
@@ -1143,56 +1172,12 @@ def decode_matmul_kernels(rnd):
             n_layers = ws[0].shape[0]
             seq_ms = cuda_ms(lambda: [kernel(x, *ws, i) for i in range(n_layers)],
                              iters=5, sleep_cycles=20_000_000) / n_layers
-            if key == "H":
-                old_err = check(f"{label} earlier form", layer_matmul_ring, plain, ws, layer, x)
-                old_ms = cuda_ms(lambda: layer_matmul_ring(x, *ws, layer))
-                old_seq = cuda_ms(lambda: [layer_matmul_ring(x, *ws, i) for i in range(n_layers)],
-                                  iters=5, sleep_cycles=20_000_000) / n_layers
-                hus, old_hus = (host_us(lambda: kernel(x, *ws, layer)),
-                                host_us(lambda: layer_matmul_ring(x, *ws, layer)))
-                sweep = ""
-                if b == 1:
-                    chooser, times = lm._card_splits, {}
-                    try:  # the chooser's alternatives: the kernel takes 1-16 CTAs a tile
-                        for n in (1, 2, 4, 8, 16):
-                            lm._card_splits = lambda *_: n
-                            times[n] = cuda_ms(lambda: kernel(x, *ws, layer))
-                    finally:
-                        lm._card_splits = chooser
-                    sweep = "; by CTAs a tile, ms: " + ", ".join(
-                        f"{n}: {t:.4f}" for n, t in times.items())
-                splits = lm._card_splits(ws[0].shape[2], din, x.device.index)
-                log(f"[kernels] {label}, B = {b}: TMA-fed {ms:.4f} ms, back to back "
-                    f"{seq_ms:.4f} ms a layer, host {hus:.1f} us a call ({splits} CTAs a "
-                    f"tile); earlier form "
-                    f"(cp.async ring) {old_ms:.4f} ms, back to back {old_seq:.4f}, host "
-                    f"{old_hus:.1f} us, max |earlier - plain| {old_err:.3e}{sweep}")
             seq8_ms = cuda_ms(lambda: [kernel8(x, *qs, i) for i in range(n_layers)],
                               iters=5, sleep_cycles=20_000_000) / n_layers
-            if key == "I":
-                ring = layer_swiglu_q8_ring
-                old_err = check(f"{label} int8 earlier form", ring, plain8, qs, layer, x)
-                old_ms = cuda_ms(lambda: ring(x, *qs, layer))
-                old_seq = cuda_ms(lambda: [ring(x, *qs, i) for i in range(n_layers)],
-                                  iters=5, sleep_cycles=20_000_000) / n_layers
-                hus, old_hus = (host_us(lambda: kernel8(x, *qs, layer)),
-                                host_us(lambda: ring(x, *qs, layer)))
-                chooser, times = lm._card_splits, {}
-                try:  # the chooser's alternatives: the kernel takes 1-16 CTAs a tile
-                    for n in (1, 2, 4, 8, 16):
-                        lm._card_splits = lambda *_: n
-                        times[n] = cuda_ms(lambda: kernel8(x, *qs, layer))
-                finally:
-                    lm._card_splits = chooser
-                splits = lm._card_splits(ws[0].shape[2], din, x.device.index,
-                                         lm.stream_n(torch.int8), lm.STREAM_CTAS_PER_SM_Q8)
-                log(f"[kernels] I8, B = {b}: TMA-fed {ms8:.4f} ms = {n8 / ms8 / 1e6:.0f} GB/s of "
-                    f"int8 weights and scales, back to back {seq8_ms:.4f} ms a layer = "
-                    f"{n8 / seq8_ms / 1e6:.0f} GB/s, host {hus:.1f} us a call ({splits} CTAs a "
-                    f"tile); earlier form (cp.async ring) {old_ms:.4f} ms = "
-                    f"{n8 / old_ms / 1e6:.0f} GB/s, back to back {old_seq:.4f}, host "
-                    f"{old_hus:.1f} us, max |earlier - plain| {old_err:.3e}; by CTAs a tile, "
-                    "ms: " + ", ".join(f"{n}: {t:.4f}" for n, t in times.items()))
+            if key in ("H", "I"):
+                beside_ring(label, key, kernel, plain, ws, x, ms, seq_ms, n_bytes)
+                beside_ring(label.replace(key, key + "8", 1), key + "8", kernel8, plain8, qs, x,
+                            ms8, seq8_ms, n8)
             blas_ms = cuda_ms(lambda: cublas(x, *ws, layer))
             plain_ms = cuda_ms(lambda: plain(x, *ws, layer), iters=5)
             plain8_ms = cuda_ms(lambda: plain8(x, *qs, layer), iters=5)
@@ -2046,13 +2031,13 @@ KERNELS = {
           "grasp_any_region_tpu/ops/vit_block.py:245"),
     "H": ("layer_matmul", "grasp_any_region_tpu_torch/csrc/layer_matmul_sm90.cu",
           "grasp_any_region_tpu/ops/layer_matmul.py:58"),
-    "I": ("layer_swiglu", "grasp_any_region_tpu_torch/csrc/layer_matmul.cu",
+    "I": ("layer_swiglu", "grasp_any_region_tpu_torch/csrc/layer_matmul_sm90.cu",
           "grasp_any_region_tpu/ops/layer_matmul.py:97"),
     "J": ("layer_qkv", "grasp_any_region_tpu_torch/csrc/layer_matmul.cu",
           "grasp_any_region_tpu/ops/layer_matmul.py:142"),
     "C8": ("decode_attention_fused_q8", "grasp_any_region_tpu_torch/csrc/decode_split.cuh",
            "grasp_any_region_tpu/ops/decode_attention.py:477"),
-    "H8": ("layer_matmul_q8", "grasp_any_region_tpu_torch/csrc/layer_matmul.cu",
+    "H8": ("layer_matmul_q8", "grasp_any_region_tpu_torch/csrc/layer_matmul_sm90.cu",
            "grasp_any_region_tpu/ops/layer_matmul.py:190"),
     "I8": ("layer_swiglu_q8", "grasp_any_region_tpu_torch/csrc/layer_matmul_sm90.cu",
            "grasp_any_region_tpu/ops/layer_matmul.py:234"),

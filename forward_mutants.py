@@ -1,8 +1,8 @@
 """Mutants of kernels A, B and E (csrc/flash_forward_sm90.cu), F
 (csrc/gemm_sm90.cu and its main loop, csrc/gemm_sm90.cuh), 5 (kernel
 18's non-causal pass with the folded tail, csrc/flash_backward_sm90.cu),
-C, C8 and 16 (the split-KV body, csrc/decode_split.cuh), H and I8 (the
-TMA-fed weight stream, csrc/layer_matmul_sm90.cu), 21 / 23 (the MLP's weight
+C, C8 and 16 (the split-KV body, csrc/decode_split.cuh), H, H8, I and I8
+(the TMA-fed weight stream, csrc/layer_matmul_sm90.cu), 21 / 23 (the MLP's weight
 stream, csrc/decode_mlp_sm90.cu), 22 (C's body with wo,
 csrc/decode_attn_wo_sm90.cu) and their ordered sum (csrc/ordered_sum.cuh)
 that the checks must catch. Each mutant names the source it edits and is
@@ -19,7 +19,8 @@ builds a copy into its own build/), and two checks run there on the card:
   at B = 24 and 1, each against its plain version, a second launch's
   bits, the counters at 0), and only the mega kernels' card tests. C8's
   and I8's (Q8) run their kernel's part of it (`decode_attention_q8_kernel`
-  or `decode_matmul_kernels`) and the int8 card cases.
+  or `decode_matmul_kernels`) and the int8 card cases; H8's, I's and x's
+  misplaced box (ST) `decode_matmul_kernels` and the stream's card cases.
 
 A mutant that no check catches means checks too weak to see that defect.
 Run from the repository root on a machine with the card, for every mutant
@@ -116,10 +117,15 @@ MUTANTS = {  # name: (source, [(old, new), ...] in it)
     "16_prompt_past_block_counted": (SPLIT, [
         ("n1 = max(min(min(a.prompt_lens[b], (wpos / a.block_s + 1) * a.block_s), a.seq), 0);",
          "n1 = max(min(a.prompt_lens[b], a.seq), 0);")]),
-    # H: the last stage of each CTA not multiplied; rank 1's partial summed
+    # H: the last stage of each CTA not multiplied; x's second box of each
+    # stage loaded from the first box's columns; rank 1's partial summed
     # twice; the last column tile not stored
-    "h_last_stage_skipped": (STREAM, [("xa[i][e] = r < a.rows && k < k_left",
-                                       "xa[i][e] = r < a.rows && k < k_left && j + 1 < n_stages")]),
+    "h_last_stage_skipped": (STREAM, [
+        ("for (int n = 0; n < NT; ++n) mma_bf16_16816(acc[w][i][n], xa[h & 1][i], b[n][0], b[n][1]);",
+         "for (int n = 0; n < NT; ++n)\n              if (j + 1 < n_stages) "
+         "mma_bf16_16816(acc[w][i][n], xa[h & 1][i], b[n][0], b[n][1]);")]),
+    "h_x_second_box_misplaced": (STREAM, [("k_begin + j * kWsBK + kWsXBox * b, 0, 0, 0);",
+                                           "k_begin + j * kWsBK, 0, 0, 0);")]),
     "h_partial_summed_twice": (STREAM, [(
         "v[w] += recv[((w * splits + r) * a.rows + row) * cols + c];",
         "v[w] += (r == 1 ? 2.f : 1.f) * recv[((w * splits + r) * a.rows + row) * cols + c];")]),
@@ -166,6 +172,17 @@ MUTANTS = {  # name: (source, [(old, new), ...] in it)
         ("v[w] += recv[((w * splits + r) * a.rows + row) * cols + c];",
          "v[w] += (NW == 2 && w == 0 && r == 1 ? 0.f : 1.f) * "
          "recv[((w * splits + r) * a.rows + row) * cols + c];")]),
+    # H8: the column scale left off; rank 1's partial dropped from the sum.
+    # I: the up weight's map made over the gate weight
+    "h8_scale_dropped": (STREAM, [("      v[0] *= a.scale[0][n0 + rank * cols + c];\n",
+                                   "      if (NW == 2) v[0] *= a.scale[0][n0 + rank * cols + c];\n")]),
+    "h8_partial_dropped": (STREAM, [
+        ("v[w] += recv[((w * splits + r) * a.rows + row) * cols + c];",
+         "v[w] += (Q8 && NW == 1 && r == 1 ? 0.f : 1.f) * "
+         "recv[((w * splits + r) * a.rows + row) * cols + c];")]),
+    "i_up_as_gate": (STREAM, [
+        ("stacked_weight_map(&maps.w[1], wu_all, 2, n_layers, din, m, kWsN, kWsBK)",
+         "stacked_weight_map(&maps.w[1], wg_all, 2, n_layers, din, m, kWsN, kWsBK)")]),
 }
 MEGA = ("21_k_split_dropped", "21_tile_slot_twice", "counter_not_reset", "22_split_chunk_dropped",
         "22_head_partial_twice", "22_column_slice_shifted")
@@ -173,9 +190,12 @@ MEGA_TESTS = "mlp_residual or attention_wo or mega_decode_step"
 Q8 = ("c8_scale_pair_off", "c8_current_token_from_bf16", "c8_last_chunk_dropped",
       "i8_up_scale_dropped", "i8_gate_partial_dropped")
 Q8_TESTS = "q8 or swiglu or int8_decode_step"
+ST = ("h8_scale_dropped", "h8_partial_dropped", "i_up_as_gate", "h_x_second_box_misplaced")
+ST_TESTS = ("stream_nw or stream_kernels or layer_matmul_kernels or layer_matmul_q8_kernels "
+            "or decode_step")
 TESTS = ("flash_attention_kernel or fused_qkv_kernel or lse_segments or lse_and_backward "
          "or wo_residual or vit_block_kernels or vit_attention_kernel "
-         "or decode_attention_kernel or decode_attention_stacked or layer_matmul")
+         "or decode_attention_kernel or decode_attention_stacked or layer_matmul or stream_kernels")
 CONTEXT_LOST = ("CUDA error", "AcceleratorError", "illegal instruction",
                 "unspecified launch failure")
 PHASE2 = "import chip_smoke as c; c.phase_environment(); c.phase_kernels()"
@@ -184,7 +204,9 @@ PHASE2_MEGA = ("import chip_smoke as c, torch; c.phase_environment(); "
                "c.mega_kernels(lambda *s: torch.randn(s, generator=g, device='cuda')"
                ".to(torch.bfloat16))")
 PHASE2_Q8 = {prefix: PHASE2_MEGA.replace("mega_kernels", part) for prefix, part in (
-    ("c8", "decode_attention_q8_kernel"), ("i8", "decode_matmul_kernels"))}
+    ("c8", "decode_attention_q8_kernel"), ("i8", "decode_matmul_kernels"),
+    ("h8", "decode_matmul_kernels"), ("i_", "decode_matmul_kernels"),
+    ("h_", "decode_matmul_kernels"))}
 
 
 def make_copy(name: str, edits: list[tuple[str, str, str]]) -> Path:
@@ -255,14 +277,15 @@ def main(names: list[str]) -> int:
         if names and name not in names:
             continue
         dst = make_copy(f"mutant_{name}", [(src, old, new) for old, new in edits])
-        mega, q8 = name in MEGA, name in Q8
-        verdicts = card_tests(dst, MEGA_TESTS if mega else Q8_TESTS if q8 else TESTS)
+        mega, q8, st = name in MEGA, name in Q8, name in ST
+        verdicts = card_tests(dst, MEGA_TESTS if mega else Q8_TESTS if q8 else ST_TESTS if st
+                              else TESTS)
         counts = {v: list(verdicts.values()).count(v) for v in ("failed", "trapped", "passed", "skipped")}
         print(f"[mutant] {name}: card tests {counts}", flush=True)
         for node, v in sorted(verdicts.items()):
             if v != "passed":
                 print(f"    {v}: {node.split('::')[1]}")
-        phase2 = run(dst, ["-c", PHASE2_MEGA if mega else PHASE2_Q8[name[:2]] if q8
+        phase2 = run(dst, ["-c", PHASE2_MEGA if mega else PHASE2_Q8[name[:2]] if q8 or st
                               else PHASE2], 1200)
         lines = (phase2.stdout + phase2.stderr).strip().splitlines()
         caught = [line for line in lines if "Error" in line][-1:] or lines[-1:]

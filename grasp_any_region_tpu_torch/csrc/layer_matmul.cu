@@ -1,18 +1,18 @@
-// Kernels I and J: the layer-indexed decode matmuls, (B, Din) @ w_all[l]
-// for a batch of B <= 32 rows, the weight read in place from the stacked
-// (L, Din, Dout) array at layer l. Kernels H (layer_matmul: x @ w_all[l])
-// and I8 (layer_swiglu_q8) ran on this body until they moved to the
-// TMA-fed weight stream of layer_matmul_sm90.cu; their earlier forms stay
-// callable here as gar_layer_matmul_ring and gar_layer_swiglu_q8_ring,
-// which no path launches (chip_smoke.py times each beside its new form).
+// Kernel J and its int8 form J8: the layer-indexed q, k and v products of
+// the decode step, (B, Din) @ w_all[l] for a batch of B <= 32 rows, the
+// weight read in place from the stacked (L, Din, Dout) array at layer l.
+// Kernels H (layer_matmul: x @ w_all[l]), I (layer_swiglu: silu(x @ wg[l])
+// * (x @ wu[l])) and their int8 forms H8 and I8 ran on this body until they
+// moved to the TMA-fed weight stream of layer_matmul_sm90.cu; their earlier
+// forms stay callable here as gar_layer_matmul_ring, gar_layer_swiglu_ring,
+// gar_layer_matmul_q8_ring and gar_layer_swiglu_q8_ring, which no path
+// launches (chip_smoke.py times each beside its new form).
 //
-// I  replaces grasp_any_region_tpu/ops/layer_matmul.py:layer_swiglu
-//    (_swiglu_kernel): silu(x @ wg[l]) * (x @ wu[l]), both sums fp32, SiLU
-//    and the product in fp32, one rounding to bf16.
-// J  replaces layer_matmul.py:layer_qkv (_qkv_kernel): the q, k and v
-//    products of one x, each column tile writing to the output it belongs
-//    to. The TPU kernel's single whole-weight block (grid (1,)) is a VMEM
-//    artefact; here the three weights are column tiles of one grid.
+// J  replaces grasp_any_region_tpu/ops/layer_matmul.py:layer_qkv
+//    (_qkv_kernel): the q, k and v products of one x, each column tile
+//    writing to the output it belongs to. The TPU kernel's single
+//    whole-weight block (grid (1,)) is a VMEM artefact; here the three
+//    weights are column tiles of one grid.
 //
 // What bounds them: at B = 1 each weight byte feeds 1 FLOP (24 at B = 24),
 // so the time is the time to stream the weights from HBM (GAR-1B: 8.4 MB
@@ -43,14 +43,14 @@
 //    multiples of 8 (16-byte rows), not of the tile; rows, columns and K
 //    past the edge are zero-filled by cp.async's src-size operand.
 //
-// H8 and J8 replace layer_matmul_q8 (_mm_q8_kernel) and layer_qkv_q8
-// (_qkv_q8_kernel) of the same file, as I8's earlier form did
+// J8 replaces layer_qkv_q8 (_qkv_q8_kernel) of the same file, as the
+// earlier forms of H8 and I8 did layer_matmul_q8 (_mm_q8_kernel) and
 // layer_swiglu_q8 (_swiglu_q8_kernel): W8A16, int8 weights with one fp32
 // scale per output column. They are this body instantiated over the
-// weight type W = int8_t, and they stream half the bytes of H, I and J,
-// which is the whole point: GAR-1B at B = 1
-// bounds them at 4.2 MB (wo), 16.8 MB (w_down), 33.6 MB (gate + up) and
-// 6.3 MB (qkv) of int8 weights. What changes with the type:
+// weight type W = int8_t, and they stream half the bytes of the bf16
+// forms, which is the whole point: GAR-1B at B = 1 bounds them at 4.2 MB
+// (wo), 16.8 MB (w_down), 33.6 MB (gate + up) and 6.3 MB (qkv) of int8
+// weights. What changes with the type:
 //
 //  * A block owns 128 int8 columns, so weight rows stay 128 bytes and a
 //    64-row slab stays 8 KB, as in bf16: the shared-memory layout, the
@@ -308,14 +308,16 @@ int qkv(const void* x, const void* wq_all, const void* sq_all, const void* wk_al
 
 using gar::bf16;
 
-// H's earlier form (before layer_matmul_sm90.cu), for comparison only.
+// The earlier forms of H, I, H8 and I8 (before layer_matmul_sm90.cu), for
+// comparison only.
 extern "C" int gar_layer_matmul_ring(const void* x, const void* w_all, void* out, int layer,
                                      int rows, int din, int dout, void* stream) {
   return gar::matmul<bf16>(x, w_all, nullptr, out, layer, rows, din, dout, stream);
 }
 
-extern "C" int gar_layer_swiglu(const void* x, const void* wg_all, const void* wu_all, void* out,
-                                int layer, int rows, int din, int m, void* stream) {
+extern "C" int gar_layer_swiglu_ring(const void* x, const void* wg_all, const void* wu_all,
+                                     void* out, int layer, int rows, int din, int m,
+                                     void* stream) {
   return gar::swiglu<bf16>(x, wg_all, nullptr, wu_all, nullptr, out, layer, rows, din, m, stream);
 }
 
@@ -326,12 +328,12 @@ extern "C" int gar_layer_qkv(const void* x, const void* wq_all, const void* wk_a
                         rows, d, hq, hk, stream);
 }
 
-extern "C" int gar_layer_matmul_q8(const void* x, const void* w_all, const void* s_all, void* out,
-                                   int layer, int rows, int din, int dout, void* stream) {
+extern "C" int gar_layer_matmul_q8_ring(const void* x, const void* w_all, const void* s_all,
+                                        void* out, int layer, int rows, int din, int dout,
+                                        void* stream) {
   return gar::matmul<int8_t>(x, w_all, s_all, out, layer, rows, din, dout, stream);
 }
 
-// I8's earlier form (before layer_matmul_sm90.cu), for comparison only.
 extern "C" int gar_layer_swiglu_q8_ring(const void* x, const void* wg_all, const void* sg_all,
                                         const void* wu_all, const void* su_all, void* out,
                                         int layer, int rows, int din, int m, void* stream) {

@@ -1,18 +1,22 @@
-// Kernels H and I8 for Hopper: x (B <= 32, Din) @ w_all[layer] for the
-// stacked (L, Din, Dout) weights read in place, fp32 sums rounded once to
-// bf16. H replaces grasp_any_region_tpu/ops/layer_matmul.py:layer_matmul
-// (_mm_kernel), bf16, called twice a layer by the fused decode step (wo,
-// w_down). I8 replaces layer_swiglu_q8 (_swiglu_q8_kernel) of the same
-// file: silu((x wg_q8[l]) sg[l]) * ((x wu_q8[l]) su[l]), int8 gate and up
-// with one fp32 scale a column, SiLU and the product in fp32 from the fp32
-// sums, one rounding (the TPU kernel scales the widened weight before the
-// sum; the scale is constant along it, so this equals it up to fp32
-// reassociation). GAR-1B's gate and up are 2 x 2048 x 8192 int8, 33.6 MB.
+// Kernels H, H8, I and I8 for Hopper: x (B <= 32, Din) @ w_all[layer] for
+// the stacked (L, Din, Dout) weights read in place, fp32 sums rounded once
+// to bf16. They replace grasp_any_region_tpu/ops/layer_matmul.py's
+// layer_matmul (_mm_kernel, H), layer_matmul_q8 (_mm_q8_kernel, H8),
+// layer_swiglu (_swiglu_kernel, I) and layer_swiglu_q8 (_swiglu_q8_kernel,
+// I8). H and H8 are called twice a layer by the fused decode step (wo,
+// w_down), I and I8 once. H8 is (x w_q8[l]) s[l], int8 weights with one
+// fp32 scale a column; I is silu(x wg[l]) * (x wu[l]); I8 is
+// silu((x wg_q8[l]) sg[l]) * ((x wu_q8[l]) su[l]). SiLU and the product
+// are in fp32 from the fp32 sums, one rounding. The int8 kernels put the
+// scale on the summed column (the TPU kernels scale the widened weight
+// before the sum; the scale is constant along it, so this equals it up to
+// fp32 reassociation). GAR-1B streams 8.4 / 4.2 MB (wo, bf16 / int8),
+// 33.6 / 16.8 MB (w_down) and 67.1 / 33.6 MB (gate and up) a call.
 //
-// What bounds it: at B = 1 each weight byte feeds one FLOP, so the time is
-// the time to stream the weight from HBM (GAR-1B: 8.4 MB for wo, 33.6 MB
-// for w_down, 2.5 and 10 us at 3.35 TB/s). A call of 10-26 us is as much
-// fixed cost (launch, ramp, the reduction at the end) as streaming, so the
+// What bounds it: at B = 1 each weight byte feeds one or two FLOPs, so the
+// time is the time to stream the weight from HBM (2.5 us for H's wo, 10 for
+// its w_down, 20 for I, at 3.35 TB/s). A call of 10-45 us is as much fixed
+// cost (launch, ramp, the reduction at the end) as streaming, so the
 // design streams fast from the first microsecond and keeps the end short:
 //
 //  * The weight comes in by TMA: one tensor map over the (Dout, Din, L)
@@ -25,23 +29,27 @@
 //    cp.async form did.
 //  * A CTA owns a box's columns (a tile) and a K range of k_split rows, a
 //    multiple of the box; the S CTAs of a tile form a thread-block cluster.
-//    S (ops/layer_matmul.py:stream_splits) doubles while the grid stays
-//    within two CTAs an SM (w_down and wo: 32 tiles x 8 = 256 CTAs), for
-//    I8 within one (gate and up: 64 tiles x 2, 1024 rows a CTA).
-//  * One producer thread keeps a ring of three stages in flight: each stage
-//    one weight box by TMA and the matching 128 columns of every x row by
-//    1D bulk copies (no tensor map), on one mbarrier. Three stages (50-75
-//    KB a CTA) let three or four CTAs share an SM, so all 32 clusters of 8
-//    are resident at once; rings of 4-12 stages measured slower where that
-//    no longer held (ab_kernels.py). The producer issues the first weight
-//    boxes before waiting on the kernel before this one (programmatic
-//    dependent launch: the weights never depend on it); x is copied, and
-//    out written, only after griddepcontrol.wait.
+//    S (ops/layer_matmul.py:stream_splits: two CTAs an SM, one for I8)
+//    doubles while the grid stays within the kernel's CTAs an SM.
+//  * One lane of a producer warp keeps a ring of three stages in flight:
+//    each stage one weight box by TMA (two for a SwiGLU's gate and up) and
+//    the matching 128 columns of x by a second tensor map (x as (Din, B),
+//    two 64-column boxes of xr = B rounded up to 8 rows, swizzled as the
+//    weight is; rows past B and columns past Din land as zeros), on one
+//    mbarrier. (x by 1D bulk copies, one a row, cost I 8 us and H8 2 us
+//    back to back at B = 24: ab_kernels.py.) Three one-box stages (50-75 KB a CTA)
+//    let three or four CTAs share an SM, so all 32 clusters of 8 of H are
+//    resident at once; rings of 4-12 stages, or x stages of 32 rows at B =
+//    24, measured slower where that no longer held (ab_kernels.py). The
+//    producer issues the first weight boxes before waiting on the kernel
+//    before this one (programmatic dependent launch: the weights never
+//    depend on it); x is loaded, and out written, only after
+//    griddepcontrol.wait.
 //  * Four consumer warps own a quarter of the tile's columns each (16 bf16
 //    or 32 int8), over every row of a stage: mma.sync m16n8k16 with x as
-//    the A operand (rows past B zero, 16 or 32 rows) read from the stage's
-//    x rows (at a pitch of 272 bytes: no bank conflicts), and the weight as
-//    B through ldmatrix.trans of the swizzled rows (conflict-free), int8
+//    the A operand (16 or 32 rows; those past B reach only sums that are
+//    not stored) through ldmatrix of the swizzled x boxes, and the weight as B through
+//    ldmatrix.trans of the swizzled rows (both conflict-free), int8
 //    widened exactly to bf16 in registers (weight_tile.cuh:b_frags, as
 //    kernel 21 does it). At B = 1 the tensor cores idle
 //    either way; at B = 24 the CUDA cores would not keep up with HBM. (The
@@ -52,27 +60,31 @@
 //    that a warp's loads may still be reading (handed back at once without
 //    the fence, weight boxes were overwritten under their readers).
 //  * The partials meet in fixed order in the same launch: CTA r finishes
-//    columns [r 64 / S, (r + 1) 64 / S) of the tile, so each warp stores
-//    its columns of its CTA's (rows, 64) partial straight into the
-//    finishing CTA's shared memory (distributed shared memory), the
-//    cluster syncs once, and each CTA sums what it received in rank order.
-//    (Pulling the partials with remote loads took a second barrier, to
-//    keep a CTA alive while its peers read it, and measured slower at
-//    B = 24.) A cluster barrier arrived at when a CTA starts, and waited on
-//    before its first remote store, makes sure every peer has started. No
+//    columns [r BN / S, (r + 1) BN / S) of the tile, so each CTA stages its
+//    (rows, BN) partial in its own shared memory and pushes each
+//    finisher's columns into that CTA's shared memory (distributed shared
+//    memory) in 16-byte pieces, the cluster syncs once, and each CTA sums
+//    what it received in rank order. (Pulling the partials with remote
+//    loads took a second barrier, to keep a CTA alive while its peers read
+//    it, and measured slower at B = 24; the warps' fragments stored
+//    straight into the finishers, 4 bytes at a time, too.) A cluster
+//    barrier arrived at when a CTA starts, and waited on before its first
+//    remote store, makes sure every peer has started. No
 //    workspace, no atomics, and the result does not depend on timing
 //    (ops/layer_matmul.py:layer_matmul_stream_plain mirrors this order on
-//    the CPU).
+//    the CPU for all four kernels).
 //
 // The body takes the weight type and the number of weights a stage (NW = 2:
 // a SwiGLU's gate and up, two boxes a stage, silu(gate) * up in the
-// epilogue) as template parameters: H is (bf16, 1), I8 (int8, 2), whose
-// finisher puts each column's scales on its summed gate and up. I, J, H8
-// and J8 stay on layer_matmul.cu's cp.async body, where I8's earlier form
-// stays callable (gar_layer_swiglu_q8_ring) for chip_smoke.py's side-by-
-// side timing. Gate and up at GAR-1B: 2 x 16 KB a stage, three stages,
-// one CTA an SM (two, each with half an SM's shared memory, measured
-// slower: ops/layer_matmul.py:STREAM_CTAS_PER_SM_Q8).
+// epilogue) as template parameters: H is (bf16, 1), H8 (int8, 1), I (bf16,
+// 2), I8 (int8, 2); the int8 finisher puts each column's scale on its
+// summed weight. J and J8 stay on layer_matmul.cu's cp.async body, where
+// the earlier forms of H, H8, I and I8 stay callable (gar_*_ring) for
+// chip_smoke.py's side-by-side timing. A SwiGLU's stage at GAR-1B holds 2 x
+// 16 KB of boxes: at B = 24 three such stages and the partials fit only a
+// CTA alone on its SM, so a grid within one CTA an SM takes a whole SM's
+// shared memory (launch_stream); the CTAs an SM are measured
+// (ops/layer_matmul.py: STREAM_CTAS_PER_SM, STREAM_CTAS_PER_SM_Q8).
 #include <cooperative_groups.h>
 
 #include <algorithm>
@@ -92,7 +104,7 @@ constexpr int kWsThreads = 32 * (kWsConsumers + 1);  // and one producer warp
 constexpr int kWsMaxSplits = 16;  // Hopper's largest (non-portable) cluster
 constexpr int kWsMaxRows = 32;
 constexpr int kWsBox = kWsBK * 128;  // bytes of one weight's stage
-constexpr int kWsXPitch = kWsBK * 2 + 16;  // bytes between a stage's x rows: no bank conflicts
+constexpr int kWsXBox = 64;          // x columns a box: one 128-byte swizzle row
 constexpr int kWsCtaSmem = 232448 / 2 - 1024;  // two CTAs an SM, each with its 1 KB reserve
 constexpr int kWsSmemMax = 232448;  // a CTA alone on its SM
 constexpr int kWsFixed = 1024 + 2 * kWsStages * 8;  // the alignment slack and the barriers
@@ -105,6 +117,7 @@ __host__ __device__ constexpr int ws_n() {
 
 struct StreamMaps {
   CUtensorMap w[2];  // each weight as (Dout, Din, L, 1), box (ws_n, 128, 1, 1)
+  CUtensorMap x;     // x as (Din, rows, 1, 1), box (64, ws_x_rows, 1, 1)
 };
 
 struct StreamArgs {
@@ -116,10 +129,16 @@ struct StreamArgs {
   const float* scale[2];  // int8: each weight's column scales at the layer, (dout,)
 };
 
-// Bytes of one stage: NW weight boxes and `rows` x rows.
+// x rows a stage holds: B rounded up to 8, so each 128-byte-wide x box is
+// whole 1024-byte swizzle atoms (and starts on one).
+__host__ __device__ constexpr int ws_x_rows(int rows) {
+  return (rows + 7) / 8 * 8;
+}
+
+// Bytes of one stage: NW weight boxes and two x boxes of ws_x_rows rows.
 template <int NW>
 __host__ __device__ constexpr int ws_stage(int rows) {
-  return NW * kWsBox + rows * kWsXPitch;
+  return NW * kWsBox + 2 * 128 * ws_x_rows(rows);
 }
 
 // Bytes of the partials a CTA receives: NW x (rows, tile) fp32, from every
@@ -141,11 +160,11 @@ __global__ void __launch_bounds__(kWsThreads)
   static_assert(sizeof(W) == 2 || Q8, "bf16 or int8 weights");
   static_assert(NW == 1 || NW == 2, "one weight, or a SwiGLU's gate and up");
   extern __shared__ uint8_t smem_raw[];
-  // (1024-aligned) [stages][NW] weight boxes, [stages] x rows, the
+  // (1024-aligned) [stages][NW] weight boxes, [stages][2] x boxes, the
   // barriers, and the partials this CTA receives
   uint8_t* sm = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
-  const int stages = a.stages, x_stage = a.rows * kWsXPitch;
-  uint8_t* xs = sm + stages * NW * kWsBox;
+  const int stages = a.stages, xr = ws_x_rows(a.rows), x_box = 128 * xr;
+  uint8_t* xs = sm + stages * NW * kWsBox;  // [stages][2] x boxes
   uint64_t* full = reinterpret_cast<uint64_t*>(sm + stages * ws_stage<NW>(a.rows));
   uint64_t* empty = full + kWsStages;
   float* recv = reinterpret_cast<float*>(empty + kWsStages);  // [NW][splits][rows][BN / S]
@@ -179,17 +198,17 @@ __global__ void __launch_bounds__(kWsThreads)
 #pragma unroll
         for (int e = 0; e < 4; ++e) acc[w][i][j][e] = 0.f;
 
-  if (warp == kWsConsumers) {  // the producer: one thread
+  if (warp == kWsConsumers) {  // the producer warp: lane 0 issues every copy
     if (lane == 0) {
-      // stage j's bytes: NW boxes (zero-filled past Din, counted whole) and
-      // each x row's columns of the stage up to k_end
-      auto x_bytes = [&](int j) { return 2 * min(kWsBK, k_end - k_begin - j * kWsBK); };
+      // stage j's bytes: NW weight boxes and two x boxes, each counted whole
+      // (zero-filled past Din and past B); a stage never reaches past k_end
+      // but at Din, since k_split is a multiple of the stage
       auto weights = [&](int j, int s) {
-        mbar_arrive_expect_tx(&full[s], NW * kWsBox + a.rows * x_bytes(j));
+        mbar_arrive_expect_tx(&full[s], NW * kWsBox + 2 * x_box);
 #pragma unroll
         for (int w = 0; w < NW; ++w)
-          tma_load_4d(sm + (s * NW + w) * kWsBox, &maps.w[w], &full[s], n0,
-                      k_begin + j * kWsBK, a.layer, 0);
+          tma_load_4d(sm + (s * NW + w) * kWsBox, &maps.w[w], &full[s], n0, k_begin + j * kWsBK,
+                      a.layer, 0);
       };
       const int ahead = min(n_stages, stages);
       for (int j = 0; j < ahead; ++j) weights(j, j);  // the weights wait for nothing
@@ -200,15 +219,14 @@ __global__ void __launch_bounds__(kWsThreads)
           mbar_wait(&empty[s], ((j / stages) - 1) & 1);
           weights(j, s);
         }
-        for (int r = 0; r < a.rows; ++r)
-          bulk_load(xs + s * x_stage + r * kWsXPitch,
-                    a.x + static_cast<size_t>(r) * a.din + k_begin + j * kWsBK, x_bytes(j),
-                    &full[s]);
+        for (int b = 0; b < 2; ++b)
+          tma_load_4d(xs + (2 * s + b) * x_box, &maps.x, &full[s],
+                      k_begin + j * kWsBK + kWsXBox * b, 0, 0, 0);
       }
     }
-    // the warp whole again before the block barriers below: lanes 1-31
-    // reaching __syncthreads while lane 0 still issues copies let them run
-    // one barrier ahead (the CTA's sums then read partials not yet written)
+    // the warp whole again before the block barriers below: lanes reaching
+    // __syncthreads while lane 0 still issued copies ran one barrier ahead
+    // (the CTA's sums then read partials not yet written)
     __syncwarp();
   } else {
     // B fragments from ldmatrix.x4.trans of this warp's 16-byte chunks 2 w,
@@ -218,33 +236,45 @@ __global__ void __launch_bounds__(kWsThreads)
     // + 31, widened (frag_col says where each sum lands)
     for (int j = 0; j < n_stages; ++j) {
       const int s = j % stages;
-      const int k_left = k_end - k_begin - j * kWsBK;  // x columns of this stage, from 0
       mbar_wait(&full[s], (j / stages) & 1);
-      const uint8_t* xrow = xs + s * x_stage;
+      // k-step h's fragments: x as the A fragments by ldmatrix.x4 (for row
+      // tile i, a[0] = x[16 i + g][16 h + 2t ..], a[1] = row + 8, a[2] =
+      // column + 8, a[3] both; lane l gives row 16 i + l % 16 of 16-byte
+      // chunk 2 (h % 4) + l / 16 in box h / 4, chunk c of row r at c ^ (r %
+      // 8)), and each weight's raw ldmatrix.trans. A row of A reaches only
+      // its own row of the sums, and rows past B are never stored: rows past
+      // xr (xr = 16 MT - 8) read the row 8 above, which keeps the address in
+      // the box. Each k-step's loads are issued before the products of the
+      // one before (one warp a sub-partition at one CTA an SM waits on them
+      // otherwise: with each k-step's loads at its products, H8 and I8 at
+      // B = 1 took 0.55 and 0.9 us longer back to back, ab_kernels.py)
+      uint32_t xa[2][MT][4], raw[2][NW][4];
+      auto frags = [&](int h, int p) {
+        const uint8_t* xbox = xs + (2 * s + (h >> 2)) * x_box;
+#pragma unroll
+        for (int i = 0; i < MT; ++i) {
+          int r = 16 * i + (lane & 15);
+          if (r >= xr) r -= 8;
+          const int c = 2 * (h & 3) + (lane >> 4);
+          ldmatrix_x4(xa[p][i],
+                      reinterpret_cast<const bf16*>(xbox + r * 128 + ((c ^ (r & 7)) << 4)));
+        }
+#pragma unroll
+        for (int w = 0; w < NW; ++w)
+          box_frags(raw[p][w], sm + (s * NW + w) * kWsBox, 16 * h, 2 * warp, lane);
+      };
+      frags(0, 0);
 #pragma unroll
       for (int h = 0; h < kWsBK / 16; ++h) {
-        // x as the A fragments of k-step h: for row tile i, a[0] = x[16 i +
-        // g][16 h + 2t ..], a[1] = row + 8, a[2] = column + 8, a[3] both;
-        // rows past B and columns past k_end are zeros
-        uint32_t xa[MT][4];
-#pragma unroll
-        for (int i = 0; i < MT; ++i)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int r = 16 * i + g + 8 * (e & 1), k = 16 * h + 2 * t + 8 * (e >> 1);
-            xa[i][e] = r < a.rows && k < k_left
-                           ? *reinterpret_cast<const uint32_t*>(xrow + r * kWsXPitch + 2 * k)
-                           : 0u;
-          }
+        if (h + 1 < kWsBK / 16) frags(h + 1, (h + 1) & 1);
 #pragma unroll
         for (int w = 0; w < NW; ++w) {
-          uint32_t raw[4], b[NT][2];
-          box_frags(raw, sm + (s * NW + w) * kWsBox, 16 * h, 2 * warp, lane);
-          b_frags<W, NT>(b, raw);
+          uint32_t b[NT][2];
+          b_frags<W, NT>(b, raw[h & 1][w]);
 #pragma unroll
           for (int i = 0; i < MT; ++i)
 #pragma unroll
-            for (int n = 0; n < NT; ++n) mma_bf16_16816(acc[w][i][n], xa[i], b[n][0], b[n][1]);
+            for (int n = 0; n < NT; ++n) mma_bf16_16816(acc[w][i][n], xa[h & 1][i], b[n][0], b[n][1]);
         }
       }
       if (j > 0) {  // stage j - 1: its products are issued, so its loads are done
@@ -255,13 +285,17 @@ __global__ void __launch_bounds__(kWsThreads)
     }
   }
   grid_dependency_wait();  // out may be memory the kernel before still reads
-  cluster_wait();          // every CTA of the cluster has started
 
-  // CTA q finishes columns [q BN / S, (q + 1) BN / S) of the tile: each
-  // warp stores its columns of this CTA's partial into their finisher's
-  // shared memory (a partial never waits for a remote load), the cluster
-  // syncs once, and each CTA sums what it received in rank order
-  const int cols = BN / splits;
+  // CTA q finishes columns [q BN / S, (q + 1) BN / S) of the tile. This
+  // CTA's partial goes first into its own shared memory, [NW][rows][BN + 4]
+  // fp32 over the ring's first bytes (free once every warp is past its last
+  // stage), then to the finishers in 16-byte pieces, each finisher's rows
+  // contiguous (a fragment's sums stored one by one, 4 bytes at a time to
+  // scattered addresses, measured slower at B = 24: ab_kernels.py); the
+  // cluster syncs once, and each CTA sums what it received in rank order
+  constexpr int PP = BN + 4;  // the partial's row pitch in floats: 16-byte rows, fewer conflicts
+  float* part = reinterpret_cast<float*>(sm);
+  __syncthreads();  // every stage is read
   if (warp < kWsConsumers) {
 #pragma unroll
     for (int w = 0; w < NW; ++w)
@@ -272,10 +306,18 @@ __global__ void __launch_bounds__(kWsThreads)
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
             const int row = 16 * i + g + 8 * (e >> 1), col = frag_col<W>(j, e & 1, WN * warp, t);
-            if (row < a.rows)
-              cluster.map_shared_rank(recv, col / cols)[((w * splits + rank) * a.rows + row) *
-                                                            cols + col % cols] = acc[w][i][j][e];
+            if (row < a.rows) part[(w * a.rows + row) * PP + col] = acc[w][i][j][e];
           }
+  }
+  __syncthreads();
+  cluster_wait();  // every CTA of the cluster has started
+  const int cols = BN / splits, quads = cols / 4, per_q = NW * a.rows * quads;
+  for (int e = threadIdx.x; e < splits * per_q; e += kWsThreads) {
+    const int q = e / per_q, f = e % per_q;   // finisher q, its f-th piece from this CTA
+    const int wr = f / quads, c = 4 * (f % quads), w = wr / a.rows;  // wr = w rows + row
+    const float4 v = *reinterpret_cast<const float4*>(part + wr * PP + q * cols + c);
+    float* dst = cluster.map_shared_rank(recv, q) + ((w * splits + rank) * a.rows) * cols;
+    *reinterpret_cast<float4*>(dst + (wr - w * a.rows) * cols + c) = v;
   }
   cluster.sync();  // every partial is in its finisher's shared memory; none is read remotely
   for (int e = threadIdx.x; e < a.rows * cols; e += kWsThreads) {
@@ -287,7 +329,7 @@ __global__ void __launch_bounds__(kWsThreads)
       v[w] = 0.f;
       for (int r = 0; r < splits; ++r) v[w] += recv[((w * splits + r) * a.rows + row) * cols + c];
     }
-    if constexpr (Q8) {  // the column scales on the summed gate and up
+    if constexpr (Q8) {  // each weight's column scale on its summed column
       v[0] *= a.scale[0][n0 + rank * cols + c];
       if (NW == 2) v[NW - 1] *= a.scale[NW - 1][n0 + rank * cols + c];
     }
@@ -298,18 +340,20 @@ __global__ void __launch_bounds__(kWsThreads)
 }
 
 // One launch with a cluster of `splits` and programmatic stream
-// serialization, the ring as deep as the CTA's share of an SM allows: a
-// grid of at most one CTA an SM (I8 at GAR-1B) may take a whole SM's
-// shared memory (I8's three stages of gate and up at B = 24), a larger one
-// half (two stages at least: one CTA an SM where two leave less); the
-// first opts the kernel in to the most shared memory and to clusters of
-// 16.
+// serialization, x's tensor map encoded here (cached by address and shape,
+// as the weights' are), the ring as deep as the CTA's share of an SM allows: a
+// grid of at most one CTA an SM may take a whole SM's shared memory (a
+// SwiGLU's three stages of gate and up at B = 24), a larger one half (two
+// stages at least: one CTA an SM where two leave less); the first opts the
+// kernel in to the most shared memory and to clusters of 16.
 template <typename W, int NW, int MT>
-int launch_stream(const StreamMaps& maps, StreamArgs a, int tiles, int splits,
-                  cudaStream_t stream) {
+int launch_stream(StreamMaps maps, StreamArgs a, int tiles, int splits, cudaStream_t stream) {
   const auto kernel = weight_stream_kernel<W, NW, MT>;
   static bool opted_in = false;
   if (const int err = opt_in(kernel, kWsSmemMax, true, opted_in)) return err;
+  if (const int err =
+          stacked_weight_map(&maps.x, a.x, 2, 1, a.rows, a.din, kWsXBox, ws_x_rows(a.rows)))
+    return err;
   const int recv = ws_recv<W, NW>(a.rows);
   const int budget = tiles * splits <= card_sm_count() ? kWsSmemMax : kWsCtaSmem;
   a.stages = std::max(2, std::min(kWsStages, (budget - kWsFixed - recv) / ws_stage<NW>(a.rows)));
@@ -338,8 +382,7 @@ int launch_stream(const StreamMaps& maps, StreamArgs a, int tiles, int splits,
 
 // Kernel H: x (rows, din) @ w_all[layer], w_all (n_layers, din, dout), over
 // clusters of `splits` CTAs (a power of two up to 16). din and dout
-// multiples of 8, rows 1-32, bases 16-byte aligned (x's rows too: 16-byte
-// bulk copies).
+// multiples of 8, rows 1-32, bases 16-byte aligned (x's too: TMA).
 extern "C" int gar_layer_matmul(const void* x, const void* w_all, void* out, int layer,
                                 int n_layers, int rows, int din, int dout, int splits,
                                 void* stream) {
@@ -358,6 +401,57 @@ extern "C" int gar_layer_matmul(const void* x, const void* w_all, void* out, int
   const auto s = static_cast<cudaStream_t>(stream);
   if (rows <= 16) return launch_stream<bf16, 1, 1>(maps, a, tiles, splits, s);
   return launch_stream<bf16, 1, 2>(maps, a, tiles, splits, s);
+}
+
+// Kernel H8: (x @ w_all[layer]) * s_all[layer]; w_all (n_layers, din, dout)
+// int8, s_all (n_layers, 1, dout) fp32; over clusters of `splits` CTAs (a
+// power of two up to 16). din a multiple of 8, dout of 16, rows 1-32,
+// bases 16-byte aligned.
+extern "C" int gar_layer_matmul_q8(const void* x, const void* w_all, const void* s_all, void* out,
+                                   int layer, int n_layers, int rows, int din, int dout,
+                                   int splits, void* stream) {
+  using namespace gar;
+  constexpr int BN = ws_n<int8_t>();
+  const int tiles = (dout + BN - 1) / BN;
+  if (rows < 1 || rows > kWsMaxRows || din <= 0 || din % 8 || dout <= 0 || dout % 16 ||
+      layer < 0 || layer >= n_layers || splits < 1 || splits > kWsMaxSplits ||
+      (splits & (splits - 1)) || tiles > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  StreamMaps maps;
+  if (const int err = stacked_weight_map(&maps.w[0], w_all, 1, n_layers, din, dout, BN, kWsBK))
+    return err;
+  const int per = (din + splits - 1) / splits;
+  const float* scale = static_cast<const float*>(s_all) + static_cast<size_t>(layer) * dout;
+  const StreamArgs a{static_cast<const bf16*>(x), static_cast<bf16*>(out), layer, rows, din,
+                     dout, (per + kWsBK - 1) / kWsBK * kWsBK, 0, {scale, nullptr}};
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (rows <= 16) return launch_stream<int8_t, 1, 1>(maps, a, tiles, splits, s);
+  return launch_stream<int8_t, 1, 2>(maps, a, tiles, splits, s);
+}
+
+// Kernel I: silu(x @ wg_all[layer]) * (x @ wu_all[layer]); wg_all, wu_all
+// (n_layers, din, m) bf16; over clusters of `splits` CTAs (a power of two
+// up to 16). din and m multiples of 8, rows 1-32, bases 16-byte aligned.
+extern "C" int gar_layer_swiglu(const void* x, const void* wg_all, const void* wu_all, void* out,
+                                int layer, int n_layers, int rows, int din, int m, int splits,
+                                void* stream) {
+  using namespace gar;
+  const int tiles = (m + kWsN - 1) / kWsN;
+  if (rows < 1 || rows > kWsMaxRows || din <= 0 || din % 8 || m <= 0 || m % 8 || layer < 0 ||
+      layer >= n_layers || splits < 1 || splits > kWsMaxSplits || (splits & (splits - 1)) ||
+      tiles > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  StreamMaps maps;
+  if (const int err = stacked_weight_map(&maps.w[0], wg_all, 2, n_layers, din, m, kWsN, kWsBK))
+    return err;
+  if (const int err = stacked_weight_map(&maps.w[1], wu_all, 2, n_layers, din, m, kWsN, kWsBK))
+    return err;
+  const int per = (din + splits - 1) / splits;
+  const StreamArgs a{static_cast<const bf16*>(x), static_cast<bf16*>(out), layer, rows, din, m,
+                     (per + kWsBK - 1) / kWsBK * kWsBK, 0, {nullptr, nullptr}};
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (rows <= 16) return launch_stream<bf16, 2, 1>(maps, a, tiles, splits, s);
+  return launch_stream<bf16, 2, 2>(maps, a, tiles, splits, s);
 }
 
 // Kernel I8: silu((x @ wg_all[layer]) * sg_all[layer]) * ((x @ wu_all[layer])

@@ -19,16 +19,17 @@ The CUDA kernels stream the weights from HBM, which bounds them: split K
 over a thread-block cluster so the grid fills the card, reduce the partials
 through distributed shared memory in the same launch, tensor cores for B
 up to 32 rows. Din and Dout need only be multiples of 8; the TPU kernels'
-Dout % block_n rule does not apply. H and I8 (csrc/layer_matmul_sm90.cu)
-stream their weights by TMA through a ring fed by one producer thread
-(I8 the gate and up boxes side by side in a stage), and launch as a
-programmatic dependent of the kernel before them, so their weight loads
-may start before that kernel ends; a tile is one 128-byte row of the
-weight (`stream_n`: 64 bf16, 128 int8 columns), `stream_splits` picks the
-cluster size, `stream_plan` says which (column tile, K range) each CTA
-takes, and `layer_matmul_stream_plain` / `layer_swiglu_q8_stream_plain`
-sum in the kernel's order. I, J, H8 and J8 run on csrc/layer_matmul.cu's
-cp.async ring.
+Dout % block_n rule does not apply. H, H8, I and I8
+(csrc/layer_matmul_sm90.cu) stream their weights, and x beside them, by
+TMA through a ring fed by one producer thread (I and I8 the gate and up
+boxes side by side in a stage), and launch as a programmatic dependent of
+the kernel before them, so their weight loads may start before that kernel
+ends; a tile is one 128-byte row of the weight (`stream_n`: 64 bf16, 128
+int8 columns), `stream_splits` picks the cluster size,
+`stream_plan` says which (column tile, K range) each CTA takes, and
+`layer_matmul_stream_plain`, `layer_matmul_q8_stream_plain`,
+`layer_swiglu_stream_plain` and `layer_swiglu_q8_stream_plain` sum in the
+kernel's order. J and J8 run on csrc/layer_matmul.cu's cp.async ring.
 
 H8, I8 and J8 (`layer_matmul_q8`, `layer_swiglu_q8`, `layer_qkv_q8`,
 `grasp_any_region_tpu/ops/layer_matmul.py:165, 207, 253`, Pallas bodies
@@ -38,7 +39,7 @@ weights: int8 (L, Din, Dout) with one fp32 scale per output column,
 widened weight before the sum; the CUDA kernels and the plain versions
 scale the fp32 sum after it (the scale is constant along the sum), which
 differs only by fp32 rounding. They stream half the bytes of H-J: H8 and
-J8 on the cp.async body, I8 on H's stream, each with int8 weights widened
+I8 on H's stream, J8 on the cp.async body, each with int8 weights widened
 to bf16 on chip. The int8 weights' Dout must be a multiple of 16 (16-byte
 rows).
 
@@ -63,12 +64,22 @@ launches = dict(H=0, I=0, J=0, H8=0, I8=0, J8=0)
 
 MAX_ROWS = 32  # batch rows the kernels take (two 16-row tensor-core tiles)
 
-# Kernels H's and I8's work plan (csrc/layer_matmul_sm90.cu): tiles of
-# STREAM_N bf16 output columns (one 128-byte row; `stream_n` by type),
-# STREAM_BK weight rows a stage, and clusters of at most STREAM_MAX_SPLITS
-# CTAs splitting K while the grid stays within STREAM_CTAS_PER_SM CTAs an
-# SM (H), or within one CTA an SM (I8, STREAM_CTAS_PER_SM_Q8: two I8 CTAs
-# an SM measured slower).
+# The stream's work plan (csrc/layer_matmul_sm90.cu): tiles of STREAM_N
+# bf16 output columns (one 128-byte row; `stream_n` by type), STREAM_BK
+# weight rows a stage, and clusters of at most STREAM_MAX_SPLITS CTAs
+# splitting K while the grid stays within STREAM_CTAS_PER_SM CTAs an SM
+# (H, H8, I), or within one CTA an SM (I8, STREAM_CTAS_PER_SM_Q8: two I8
+# CTAs an SM measured slower). Measured against the alternatives
+# (ab_kernels.py on an H100 at 700 W, one call / 16 layers back to back,
+# ms, in one run, x then fed by 1D bulk copies): H8 at 8 CTAs a tile (GAR-1B's 16 tiles of 128 int8
+# columns), not 16: at B = 1 16 took 0.0197 / 0.0146-0.0147 at w_down and
+# 0.0116 / 0.0072-0.0073 at wo against 8's 0.0204-0.0206 / 0.0151 and
+# 0.0117-0.0119 / 0.0073, at B = 24 0.0297-0.0301 / 0.0236 and
+# 0.0179-0.0181 / 0.0132-0.0133 against 0.0261-0.0263 / 0.0206 and
+# 0.0143-0.0144 / 0.0097. I at two CTAs an SM (2 a tile, 256 CTAs, two
+# stages at B = 24), not one (1 a tile, no reduction, three stages): at
+# B = 1 0.0377-0.0380 / 0.0262-0.0263 against 0.0376-0.0381 / 0.0267, at
+# B = 24 0.0462-0.0464 / 0.0379-0.0381 against 0.0464 / 0.0355-0.0356.
 STREAM_N, STREAM_MAX_SPLITS, STREAM_CTAS_PER_SM = 64, 8, 2
 STREAM_CTAS_PER_SM_Q8 = 1
 STREAM_BK = 128
@@ -76,7 +87,7 @@ STREAM_BK = 128
 
 def stream_n(dtype: torch.dtype) -> int:
     """The stream's tile width for weights of `dtype`: one 128-byte row,
-    64 bf16 (H) or 128 int8 (I8) columns."""
+    64 bf16 (H, I) or 128 int8 (H8, I8) columns."""
     return STREAM_N * 2 // dtype.itemsize
 
 
@@ -85,7 +96,8 @@ def stream_splits(tiles: int, din: int, *, sms: int = 132,
     """The stream's CTAs a column tile (the cluster size): doubled while the
     grid stays within `ctas_per_sm` CTAs an SM, the cluster within
     STREAM_MAX_SPLITS, and a CTA keeps at least one stage of rows. GAR-1B:
-    8 for H (32 tiles, two CTAs an SM), 2 for I8 (64 tiles of 128, one)."""
+    8 for H (32 tiles, two CTAs an SM) and H8 (16 tiles of 128), 2 for I
+    (128 tiles) and I8 (64 tiles of 128, one CTA an SM)."""
     s = 1
     while (s < STREAM_MAX_SPLITS and tiles * s * 2 <= ctas_per_sm * sms
            and din >= 2 * s * STREAM_BK):
@@ -95,9 +107,9 @@ def stream_splits(tiles: int, din: int, *, sms: int = 132,
 
 def stream_plan(din: int, dout: int, splits: int,
                 n: int = STREAM_N) -> List[Tuple[int, int, int, int]]:
-    """(column tile, rank, k0, k1) of each CTA of the stream's grid (H, or
-    I8 with n = stream_n(torch.int8)): tile t owns columns [n t, n (t + 1))
-    (cut at dout), and CTA `rank` of its cluster the weight rows [k0, k1),
+    """(column tile, rank, k0, k1) of each CTA of the stream's grid (tiles
+    of n = `stream_n` columns): tile t owns columns [n t, n (t + 1)) (cut
+    at dout), and CTA `rank` of its cluster the weight rows [k0, k1),
     k_split = ceil(din / splits) rounded up to a whole stage; the last
     ranks may get none (k0 == k1)."""
     k_split = -(-(-(-din // splits)) // STREAM_BK) * STREAM_BK
@@ -105,47 +117,61 @@ def stream_plan(din: int, dout: int, splits: int,
             for t in range(-(-dout // n)) for r in range(splits)]
 
 
+def _stream_sums(x: torch.Tensor, weights: Tuple[torch.Tensor, ...], layer: int,
+                 splits: int) -> List[torch.Tensor]:
+    """Each weight's fp32 (B, Dout) sums in the stream's order: per CTA
+    (`stream_plan` at the kernel's tile width: 128 columns for int8
+    weights, else 64) the sum over its stages in order (a consumer warp owns
+    a column over every row of a stage), then the CTAs of a tile in rank
+    order."""
+    xf, ws = x.float(), [w[layer].float() for w in weights]
+    din, dout = ws[0].shape
+    n = stream_n(torch.int8) if weights[0].dtype == torch.int8 else STREAM_N
+    sums = [torch.zeros((x.shape[0], dout), dtype=torch.float32, device=x.device) for _ in ws]
+    for t, _, k0, k1 in stream_plan(din, dout, splits, n):
+        cols = slice(t * n, min(dout, (t + 1) * n))
+        for total, w in zip(sums, ws):
+            cta = torch.zeros_like(total[:, cols])
+            for b0 in range(k0, k1, STREAM_BK):
+                rows = slice(b0, min(k1, b0 + STREAM_BK))
+                cta += xf[:, rows] @ w[rows, cols]
+            total[:, cols] += cta
+    return sums
+
+
 def layer_matmul_stream_plain(x: torch.Tensor, w_all: torch.Tensor, layer: int,
                               splits: int) -> torch.Tensor:
-    """Kernel H in its order of summation, in fp32: per CTA (`stream_plan`)
-    the sum over its stages in order (a consumer warp owns a column over
-    every row of a stage), then the CTAs of a tile in rank order; rounded
-    once to x's dtype. A mirror for the tests, not a path."""
-    xf, w = x.float(), w_all[layer].float()
-    din, dout = w.shape
-    out = torch.zeros((x.shape[0], dout), dtype=torch.float32, device=x.device)
-    for t, _, k0, k1 in stream_plan(din, dout, splits):
-        n0, n1 = t * STREAM_N, min(dout, (t + 1) * STREAM_N)
-        cta = torch.zeros((x.shape[0], n1 - n0), dtype=torch.float32, device=x.device)
-        for b0 in range(k0, k1, STREAM_BK):
-            cta += xf[:, b0:min(k1, b0 + STREAM_BK)] @ w[b0:min(k1, b0 + STREAM_BK), n0:n1]
-        out[:, n0:n1] += cta
+    """Kernel H in its order of summation (`_stream_sums`), in fp32,
+    rounded once to x's dtype. A mirror for the tests, not a path."""
+    (out,) = _stream_sums(x, (w_all,), layer, splits)
     return out.to(x.dtype)
+
+
+def layer_matmul_q8_stream_plain(x: torch.Tensor, w_q8: torch.Tensor, scale: torch.Tensor,
+                                 layer: int, splits: int) -> torch.Tensor:
+    """Kernel H8 in its order of summation (`_stream_sums` at 128-column
+    tiles), each column's scale on the summed column, rounded once to x's
+    dtype. A mirror for the tests, not a path."""
+    (out,) = _stream_sums(x, (w_q8,), layer, splits)
+    return (out * scale[layer].float()).to(x.dtype)
+
+
+def layer_swiglu_stream_plain(x: torch.Tensor, wg_all: torch.Tensor, wu_all: torch.Tensor,
+                              layer: int, splits: int) -> torch.Tensor:
+    """Kernel I in its order of summation (`_stream_sums`): silu(gate) * up
+    from the fp32 sums, rounded once to x's dtype. A mirror for the tests,
+    not a path."""
+    gate, up = _stream_sums(x, (wg_all, wu_all), layer, splits)
+    return (F.silu(gate) * up).to(x.dtype)
 
 
 def layer_swiglu_q8_stream_plain(x: torch.Tensor, wg_q8: torch.Tensor, sg: torch.Tensor,
                                  wu_q8: torch.Tensor, su: torch.Tensor, layer: int,
                                  splits: int) -> torch.Tensor:
-    """Kernel I8 in its order of summation, in fp32: per CTA (`stream_plan`
-    at 128-column tiles) the gate and up sums over its stages in order,
-    then the CTAs of a tile in rank order; each column's scales on the
-    summed gate and up, silu(gate) * up, rounded once to x's dtype. A
-    mirror for the tests, not a path."""
-    xf, g, u = x.float(), wg_q8[layer].float(), wu_q8[layer].float()
-    din, m = g.shape
-    n = stream_n(torch.int8)
-    gate = torch.zeros((x.shape[0], m), dtype=torch.float32, device=x.device)
-    up = torch.zeros_like(gate)
-    for t, _, k0, k1 in stream_plan(din, m, splits, n):
-        n0, n1 = t * n, min(m, (t + 1) * n)
-        cta_g = torch.zeros((x.shape[0], n1 - n0), dtype=torch.float32, device=x.device)
-        cta_u = torch.zeros_like(cta_g)
-        for b0 in range(k0, k1, STREAM_BK):
-            rows = slice(b0, min(k1, b0 + STREAM_BK))
-            cta_g += xf[:, rows] @ g[rows, n0:n1]
-            cta_u += xf[:, rows] @ u[rows, n0:n1]
-        gate[:, n0:n1] += cta_g
-        up[:, n0:n1] += cta_u
+    """Kernel I8 in its order of summation (`_stream_sums` at 128-column
+    tiles): each column's scales on the summed gate and up, silu(gate) *
+    up, rounded once to x's dtype. A mirror for the tests, not a path."""
+    gate, up = _stream_sums(x, (wg_q8, wu_q8), layer, splits)
     return (F.silu(gate * sg[layer].float()) * (up * su[layer].float())).to(x.dtype)
 
 
@@ -264,10 +290,11 @@ def layer_swiglu(x: torch.Tensor, wg_all: torch.Tensor, wu_all: torch.Tensor,
     if wu_all.shape != wg_all.shape:
         raise ValueError(f"gate {tuple(wg_all.shape)} and up {tuple(wu_all.shape)} differ")
     b, din = x.shape
-    m = wg_all.shape[2]
+    n_layers, _, m = wg_all.shape
     out = torch.empty((b, m), dtype=x.dtype, device=dev)
     err = _build.library().gar_layer_swiglu(
-        x.data_ptr(), wg_all.data_ptr(), wu_all.data_ptr(), out.data_ptr(), layer, b, din, m,
+        x.data_ptr(), wg_all.data_ptr(), wu_all.data_ptr(), out.data_ptr(), layer, n_layers, b,
+        din, m, _card_splits(m, din, dev.index),
         _build.stream_handle(dev))
     _build.check(err, "gar_layer_swiglu")
     launches["I"] += 1
@@ -306,11 +333,11 @@ def layer_matmul_q8(x: torch.Tensor, w_q8: torch.Tensor, scale: torch.Tensor,
         return layer_matmul_q8_plain(x, w_q8, scale, layer)
     _check_q8(x, layer, (w_q8, scale))
     b, din = x.shape
-    dout = w_q8.shape[2]
+    n_layers, _, dout = w_q8.shape
     out = torch.empty((b, dout), dtype=x.dtype, device=dev)
     err = _build.library().gar_layer_matmul_q8(
-        x.data_ptr(), w_q8.data_ptr(), scale.data_ptr(), out.data_ptr(), layer, b, din, dout,
-        _build.stream_handle(dev))
+        x.data_ptr(), w_q8.data_ptr(), scale.data_ptr(), out.data_ptr(), layer, n_layers, b, din,
+        dout, _card_splits(dout, din, dev.index, stream_n(torch.int8)), _build.stream_handle(dev))
     _build.check(err, "gar_layer_matmul_q8")
     launches["H8"] += 1
     return out

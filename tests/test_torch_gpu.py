@@ -561,6 +561,140 @@ def test_layer_swiglu_q8_kernel_same_bits(rnd):
         _same_bits_twice_and_replayed(lambda: lm.layer_swiglu_q8(x, *mats, 1), out)
 
 
+def _bf16_stack(rnd, n_layers, din, n):
+    return (rnd(n_layers, din, n).float() * din ** -0.5).to(torch.bfloat16)
+
+
+# kernels H8 and I on H's weight stream: (wrapper, plain version, mirror of
+# the kernel's order of summation, seeded weights (L = 2) for (Din, N, seed))
+STREAM_NW = dict(
+    H8=(lm.layer_matmul_q8, lm.layer_matmul_q8_plain, lm.layer_matmul_q8_stream_plain,
+        lambda rnd, din, n, seed: _swiglu_q8_case(rnd, din, n, seed)[:2]),
+    I=(lm.layer_swiglu, lm.layer_swiglu_plain, lm.layer_swiglu_stream_plain,
+       lambda rnd, din, n, seed: (_bf16_stack(rnd, 2, din, n), _bf16_stack(rnd, 2, din, n))))
+STREAM_NW_WIDTHS = dict(  # ragged (a part stage, a part tile), then GAR-1B's
+    H8=((200, 144), (1032, 400), (2048, 2048), (8192, 2048)),
+    I=((200, 136), (1032, 392), (2048, 8192)))
+
+
+def _plain_of(plain, x, mats, layer):
+    """The plain version in fp32 on the same (bf16 or int8) inputs."""
+    return plain(x.float(), *(m if m.dtype == torch.int8 else m.float() for m in mats),
+                 layer).float()
+
+
+@pytest.mark.parametrize("splits", [1, 2, 4, 8, 16])
+@pytest.mark.parametrize("key", ["H8", "I"])
+def test_stream_nw_kernel_any_split(rnd, monkeypatch, key, splits):
+    """Kernels H8 (one int8 weight a stage) and I (bf16 gate and up, two
+    boxes a stage) on H's weight stream with the cluster size forced (the
+    chooser replaced), 1 to 16 CTAs a tile, at ragged widths and GAR-1B's
+    (H8: wo and w_down), B = 1, 24 and 32, against the plain version and
+    against the mirror of the kernel's order of summation."""
+    wrapper, plain, mirror, weights = STREAM_NW[key]
+    monkeypatch.setattr(lm, "_card_splits", lambda *_: splits)
+    for din, n in STREAM_NW_WIDTHS[key]:
+        mats = weights(rnd, din, n, din + splits)
+        for b in (1, 24, 32):
+            x = rnd(b, din)
+            before = lm.launches[key]
+            out = wrapper(x, *mats, 1)
+            torch.cuda.synchronize()
+            assert lm.launches[key] == before + 1
+            assert out.dtype == torch.bfloat16 and out.shape == (b, n)
+            torch.testing.assert_close(out.float(), _plain_of(plain, x, mats, 1), **TOL,
+                                       msg=f"{key} {din} x {n}, B = {b}")
+            torch.testing.assert_close(out.float(), mirror(x.float(), *mats, 1, splits).float(),
+                                       **TOL, msg=f"{key} mirror {din} x {n}, B = {b}")
+
+
+@pytest.mark.parametrize("key,din,n", [("H8", 8192, 2048), ("H8", 2048, 2048),
+                                       ("I", 2048, 8192)])
+def test_stream_nw_kernel_same_bits(rnd, key, din, n):
+    """Kernels H8 (at GAR-1B's w_down and wo) and I (gate and up) give the
+    same bits on a second launch and on two replays of a CUDA graph of one
+    launch, at B = 1 and 24 (two row tiles)."""
+    wrapper, _, _, weights = STREAM_NW[key]
+    mats = weights(rnd, din, n, 5)
+    for b in (1, 24):
+        x = rnd(b, din)
+        out = wrapper(x, *mats, 1)
+        _same_bits_twice_and_replayed(lambda: wrapper(x, *mats, 1), out)
+
+
+@pytest.mark.parametrize("b", [1, 5, 24])
+@pytest.mark.parametrize("key", ["H8", "I"])
+def test_stream_nw_kernel_fresh_weight(rnd, key, b):
+    """Kernels H8 and I at the first and the last layer against the plain
+    version, then the same with new weights of the same shape made after
+    the first are freed (they may take the same address): the cached tensor
+    maps stay right for them."""
+    wrapper, plain, _, weights = STREAM_NW[key]
+    din, n = 1032, 400
+    for seed in range(2):
+        mats = weights(rnd, din, n, seed)  # another weight each time
+        x = rnd(b, din)
+        for layer in (0, 1):
+            out = wrapper(x, *mats, layer)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(out.float(), _plain_of(plain, x, mats, layer), **TOL)
+        del mats, x, out  # the next weights may take these ones' addresses
+
+
+@pytest.mark.parametrize("key", ["H", "H8", "I", "I8"])
+def test_stream_kernels_every_row_count(rnd, key):
+    """The four kernels of H's weight stream at every B from 1 to 32 (x's
+    tensor map has boxes of B rounded up to 8 rows; one or two row tiles),
+    each x a fresh tensor that may take the last one's address with
+    another shape, against the plain version at a ragged width."""
+    din, n = 1032, 400
+    if key == "H":
+        wrapper, plain, mats = lm.layer_matmul, lm.layer_matmul_plain, (
+            _bf16_stack(rnd, 2, din, n),)
+    elif key == "I8":
+        wrapper, plain = lm.layer_swiglu_q8, lm.layer_swiglu_q8_plain
+        mats = _swiglu_q8_case(rnd, din, n, 3)
+    else:
+        wrapper, plain, _, weights = STREAM_NW[key]
+        mats = weights(rnd, din, n, 3)
+    for b in range(1, lm.MAX_ROWS + 1):
+        x = rnd(b, din)
+        out = wrapper(x, *mats, 1)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out.float(), _plain_of(plain, x, mats, 1), **TOL,
+                                   msg=f"{key} B = {b}")
+        del x, out
+
+
+@pytest.mark.parametrize("key", ["H", "I", "H8", "I8"])
+def test_ring_forms_match_their_plain_versions(rnd, key):
+    """The earlier forms of H, I, H8 and I8 (csrc/layer_matmul.cu's cp.async
+    ring, on no path; chip_smoke.py times them beside the stream) against
+    the plain versions at ragged widths and GAR-1B's, B = 1 and 24."""
+    import functools
+
+    import chip_smoke
+
+    ring = functools.partial(chip_smoke.layer_ring, key)
+    plain = dict(H=lm.layer_matmul_plain, I=lm.layer_swiglu_plain, H8=lm.layer_matmul_q8_plain,
+                 I8=lm.layer_swiglu_q8_plain)[key]
+    for din, n in ((200, 144), (2048, 8192 if key.startswith("I") else 2048)):
+        if key == "H":
+            mats = (_bf16_stack(rnd, 2, din, n),)
+        elif key == "I":
+            mats = (_bf16_stack(rnd, 2, din, n), _bf16_stack(rnd, 2, din, n))
+        else:
+            mats = _swiglu_q8_case(rnd, din, n, 7)[:2 if key == "H8" else 4]
+        for b in (1, 24):
+            x = rnd(b, din)
+            before = dict(lm.launches)
+            out = ring(x, *mats, 1)
+            torch.cuda.synchronize()
+            assert lm.launches == before  # the ring forms count in no kernel
+            torch.testing.assert_close(out.float(), _plain_of(plain, x, mats, 1), **TOL,
+                                       msg=f"{key} ring {din} x {n}, B = {b}")
+
+
 def test_layer_matmul_q8_wrappers_reject_what_the_kernels_do_not_take(rnd):
     w, s = _q8(rnd, 2, 64, 128)
     x = rnd(3, 64)
