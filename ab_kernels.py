@@ -25,9 +25,12 @@ kernels of H's weight stream (TIMING_STREAM: H and H8 at GAR-1B's w_down
 and wo, I and I8 at its gate and up, each at B = 1 and 24, checked against
 its plain version, one call after an L2 flush and 16 layers back to back)
 against st_parent. `--against=` runs one
-timing (TIMING_Q8 unless another is named: abc, h, m, stream, or steps:
+timing (TIMING_Q8 unless another is named: abc, h, m, stream, steps:
 TIMING_STEPS, the fused bf16 and int8 decode steps' device and host ms at
-GAR-1B) in the package of another checkout and in this tree, in turns.
+GAR-1B, or vit: TIMING_VIT, kernels D, F and G one call after an L2 flush
+at one GAR-1B ViT layer, each checked at the output-sized tolerance, and
+the fused GAR-1B tower over 17 tiles) in the package of another checkout
+and in this tree, in turns.
 Run from the repository root on a machine with the card:
 
     python3 ab_kernels.py [variant ...]
@@ -35,7 +38,7 @@ Run from the repository root on a machine with the card:
     python3 ab_kernels.py m_<variant> ...
     python3 ab_kernels.py c8_<variant> | i8_<variant> ...
     python3 ab_kernels.py st_<variant> | h8_<variant> | i_<variant> ...
-    python3 ab_kernels.py --against=<directory of another checkout> [q8 | abc | h | m | stream | steps]
+    python3 ab_kernels.py --against=<directory of another checkout> [q8 | abc | h | m | stream | steps | vit]
 """
 
 from __future__ import annotations
@@ -503,6 +506,52 @@ for name, (fn, plain, mats, din) in cases.items():
 print("AB " + json.dumps(t))
 """
 
+TIMING_VIT = r"""
+import json, torch, chip_smoke as c
+from grasp_any_region_tpu_torch.core.config import gar_1b
+from grasp_any_region_tpu_torch.models.gar import decode_mask_values, mask_patch_embed
+from grasp_any_region_tpu_torch.models.vision import vision_forward
+from grasp_any_region_tpu_torch.ops import vit_block as vb
+c.phase_environment()
+gen = torch.Generator(device="cuda").manual_seed(0)
+def rnd(*shape):
+    return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+def w(*shape, scale):
+    return (rnd(*shape).float() * scale).to(torch.bfloat16)
+t = {}
+T, S, d, m = 17, 1025, 1024, 4096
+x, attn = rnd(T, S, d), rnd(T, S, d)
+ln = (1.0 + w(d, scale=0.2), w(d, scale=0.2))
+cases = dict(
+    D=(vb.vit_ln_qkv, vb.vit_ln_qkv_plain,
+       (x, *ln, w(d, 3 * d, scale=d ** -0.5), w(3 * d, scale=0.1)), {}),
+    F=(vb.vit_wo_residual, vb.vit_wo_residual_plain,
+       (attn, x, w(d, d, scale=d ** -0.5), w(d, scale=0.1), w(d, scale=0.5)), {}),
+    G=(vb.vit_mlp_residual, vb.vit_mlp_residual_plain,
+       (x, *ln, w(d, m, scale=d ** -0.5), w(m, scale=0.1), w(m, d, scale=m ** -0.5),
+        w(d, scale=0.1), w(d, scale=0.5)), dict(fast_gelu=True)))
+for name, (fn, plain, args, kw) in cases.items():
+    ref = plain(*(a.float() for a in args), **kw)
+    try:
+        c.max_err(fn(*args, **kw), ref, name, **c.sized_tol(ref))
+    except AssertionError:
+        t[f"{name} outside the sized tolerance"] = 1
+    del ref
+    t[name] = c.cuda_ms(lambda: fn(*args, **kw))
+del x, attn, cases
+cfg = gar_1b()
+params = c.random_params(cfg, "cuda")
+with torch.inference_mode():
+    batch, _ = c.bench_batch(cfg, "cuda")
+    pix = batch.pixel_values.reshape((-1,) + batch.pixel_values.shape[2:])
+    msk = batch.mask_values.reshape((-1,) + batch.mask_values.shape[2:])
+    me = mask_patch_embed(params, cfg, decode_mask_values(cfg, msk, compat=False)
+                          .to(torch.bfloat16))
+    run = lambda: vision_forward(params.vision, cfg.vision, pix, me, fused_blocks=True)
+    t["fused tower"] = c.cuda_ms(run, iters=5, warmup=1)
+print("AB " + json.dumps(t))
+"""
+
 TIMING_STEPS = r"""
 import json, torch, chip_smoke as c
 from grasp_any_region_tpu_torch.core.config import gar_1b
@@ -544,12 +593,12 @@ print("AB " + json.dumps(t))
 
 def against(other: str, timing: str = "q8") -> int:
     """One timing (TIMING_Q8, or TIMING, TIMING_H, TIMING_M, TIMING_STREAM,
-    TIMING_STEPS as abc, h, m, stream, steps) in
+    TIMING_STEPS, TIMING_VIT as abc, h, m, stream, steps, vit) in
     the package checked out at `other` (e.g. `git archive` of the parent
     commit unpacked there) and in this tree, in turns: other, this, this,
     other."""
     code = dict(q8=TIMING_Q8, abc=TIMING, h=TIMING_H, m=TIMING_M, stream=TIMING_STREAM,
-                steps=TIMING_STEPS)[timing]
+                steps=TIMING_STEPS, vit=TIMING_VIT)[timing]
     for name, d in (("other", other), ("tree", str(REPO)), ("tree", str(REPO)), ("other", other)):
         res = run(Path(d), ["-c", code], 900)
         lines = [x for x in res.stdout.splitlines() if x.startswith("AB ")]

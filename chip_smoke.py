@@ -18,6 +18,10 @@ the script exits non-zero (there is no CPU fallback):
    same function (SDPA for A and B, torch.mm for H, the W8A16 product
    torch._weight_int8pack_mm for H8, SDPA over views of E's fused buffer,
    torch.addmm for F, SDPA with the boolean mask for C), that call's time.
+   D, F and G (the GEMMs of csrc/gemm_sm90.cu; D and G behind a LayerNorm
+   pass) also at a tolerance sized to the output, D's and G's parts timed
+   one by one (together they give the call's bits), the host time a call,
+   and the cuBLAS composite of each (a sequence of calls, timed only).
    H, H8, I and I8 (the TMA-fed weight stream, bf16 and int8) also beside
    their earlier forms (the cp.async ring that J and J8 still run), with
    both host times a call and their times by CTAs a tile.
@@ -1004,19 +1008,91 @@ def vit_block_kernels(rnd, gen):
     }
     # library: F's product and residual as one torch.addmm (no bias, no LayerScale)
     library = dict(F=lambda: torch.addmm(x.view(rows, d), attn.view(rows, d), wo))
+    calls = {}
     for name, (kernel, plain, args, kw, ops) in cases.items():
         out = kernel(*args, **kw)
         torch.cuda.synchronize()
         ref = plain(*(a.float() for a in args), **kw)
-        err = max_err(out, ref, name, **(sized_tol(ref) if name == "F" else {}))
+        max_err(out, ref, name)  # and at the output-sized tolerance:
+        err = max_err(out, ref, name, **sized_tol(ref))
         del ref
         results[name] = dict(max_abs_err=err, ms=cuda_ms(lambda: kernel(*args, **kw)),
                              plain_ms=cuda_ms(lambda: plain(*args, **kw), iters=5),
                              library_ms=cuda_ms(library[name]) if name in library else None,
                              **bound(nbytes(*args, out), ops))
-        del out
+        calls[name] = out
     log(f"[kernels] F (library: torch.addmm(x, attn, wo)): {share_line(results['F'])}")
+    vit_block_parts(results, calls, x, ln, wqkv, bqkv, fc1, b1, fc2, b2, ls2)
     return results
+
+
+def vit_block_parts(results, calls, x, ln, wqkv, bqkv, fc1, b1, fc2, b2, ls2):
+    """D's and G's parts on their own at the gar_1b layer (the LayerNorm
+    pass by kernel 24's entry, each GEMM by `gar_vit_gemm`, on the call's
+    operands; together they must give the call's bits), the host time a
+    call, and the cuBLAS composite of each: a sequence of library calls,
+    timed only (`library_ms` stays null: no one call computes D or G)."""
+    import torch.nn.functional as F
+    from grasp_any_region_tpu_torch.ops import _build
+    from grasp_any_region_tpu_torch.ops import vit_block as vb
+
+    lib, stream = _build.library(), _build.stream_handle(x.device)
+    rows, d = x.numel() // x.shape[-1], x.shape[-1]
+    m = fc1.shape[1]
+    xr = x.view(rows, d)
+    lw, lb, bq, v1, v2, g2 = (v.float().contiguous() for v in (*ln, bqkv, b1, b2, ls2))
+    xn, qkv = torch.empty_like(xr), torch.empty((rows, 3 * d), dtype=x.dtype, device=x.device)
+    h, out = torch.empty((rows, m), dtype=x.dtype, device=x.device), torch.empty_like(xr)
+    p = torch.Tensor.data_ptr
+    # name: (launch, GEMM operations); gar_vit_gemm's first argument is the
+    # epilogue (csrc/gemm_sm90.cuh, gemm90::Epilogue): 0 residual, 1 bias,
+    # 2 bias and tanh GELU
+    parts = {
+        "LayerNorm pass": (lambda: lib.gar_layer_norm(
+            p(xr), p(lw), p(lb), p(xn), rows, d, 0, 1, 1, 1e-6, stream), 0),
+        "qkv GEMM + bias": (lambda: lib.gar_vit_gemm(
+            1, p(xn), p(wqkv), None, p(bq), None, p(qkv), rows, 3 * d, d, stream),
+            2 * rows * d * 3 * d),
+        "fc1 GEMM + GELU": (lambda: lib.gar_vit_gemm(
+            2, p(xn), p(fc1), None, p(v1), None, p(h), rows, m, d, stream), 2 * rows * d * m),
+        "fc2 GEMM + residual": (lambda: lib.gar_vit_gemm(
+            0, p(h), p(fc2), p(xr), p(v2), p(g2), p(out), rows, d, m, stream),
+            2 * rows * m * d),
+    }
+    for name, (launch, _) in parts.items():  # in order: fc1 reads the pass's xn, fc2 fc1's h
+        _build.check(launch(), name)
+    torch.cuda.synchronize()
+    for key, got in (("D", qkv), ("G", out)):
+        if not torch.equal(got.view_as(calls[key]), calls[key]):
+            raise AssertionError(f"{key}: its parts launched one by one give other bits than "
+                                 "the call")
+    ms = {name: cuda_ms(launch) for name, (launch, _) in parts.items()}
+    tf = {name: ops / ms[name] / 1e9 for name, (_, ops) in parts.items() if ops}
+    d_args = (x, *ln, wqkv, bqkv)
+    g_args = (x, *ln, fc1, b1, fc2, b2, ls2)
+
+    def d_composite():
+        return torch.addmm(bqkv, F.layer_norm(x, (d,), *ln, 1e-6).view(rows, d), wqkv)
+
+    def g_composite():
+        hidden = F.gelu(torch.addmm(b1, F.layer_norm(x, (d,), *ln, 1e-6).view(rows, d), fc1),
+                        approximate="tanh")
+        return torch.addcmul(xr, torch.addmm(b2, hidden, fc2), ls2)
+
+    for key, kernel, part_names, args, kw, composite, sequence, host in (
+            ("D", vb.vit_ln_qkv, ("LayerNorm pass", "qkv GEMM + bias"), d_args, {},
+             d_composite, "F.layer_norm, torch.addmm", "two launches, three TMA maps"),
+            ("G", vb.vit_mlp_residual,
+             ("LayerNorm pass", "fc1 GEMM + GELU", "fc2 GEMM + residual"), g_args,
+             dict(fast_gelu=True), g_composite, "F.layer_norm, addmm, F.gelu, addmm, addcmul",
+             "three launches, seven TMA maps")):
+        split = ", ".join(f"{n} {ms[n]:.4f} ms" + (f" ({tf[n]:.0f} TFLOP/s)" if n in tf else "")
+                          for n in part_names)
+        log(f"[kernels] {key}: {share_line(results[key])}; parts: {split} (sum "
+            f"{sum(ms[n] for n in part_names):.4f}); host time a call "
+            f"{host_us(lambda: kernel(*args, **kw), n=20):.1f} us ({host}); cuBLAS composite, "
+            f"a sequence of calls ({sequence}), not one library call: "
+            f"{cuda_ms(composite):.4f} ms")
 
 
 RING_ENTRIES = dict(H="gar_layer_matmul_ring", I="gar_layer_swiglu_ring",

@@ -1,5 +1,6 @@
-"""Mutants of kernels A, B and E (csrc/flash_forward_sm90.cu), F
-(csrc/gemm_sm90.cu and its main loop, csrc/gemm_sm90.cuh), 5 (kernel
+"""Mutants of kernels A, B and E (csrc/flash_forward_sm90.cu), D, F and
+G (csrc/gemm_sm90.cu, its main loop csrc/gemm_sm90.cuh, and D's and G's
+LayerNorm pass, csrc/layer_norm.cuh), 5 (kernel
 18's non-causal pass with the folded tail, csrc/flash_backward_sm90.cu),
 C, C8 and 16 (the split-KV body, csrc/decode_split.cuh), H, H8, I and I8
 (the TMA-fed weight stream, csrc/layer_matmul_sm90.cu), 21 / 23 (the MLP's weight
@@ -20,7 +21,9 @@ builds a copy into its own build/), and two checks run there on the card:
   bits, the counters at 0), and only the mega kernels' card tests. C8's
   and I8's (Q8) run their kernel's part of it (`decode_attention_q8_kernel`
   or `decode_matmul_kernels`) and the int8 card cases; H8's, I's and x's
-  misplaced box (ST) `decode_matmul_kernels` and the stream's card cases.
+  misplaced box (ST) `decode_matmul_kernels` and the stream's card cases;
+  the ViT block's (VIT) `vit_block_kernels`, then `layer_norm_kernel`, and
+  the card cases of D, F, G, 24 and the tower's form.
 
 A mutant that no check catches means checks too weak to see that defect.
 Run from the repository root on a machine with the card, for every mutant
@@ -41,10 +44,10 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parent
 COPIES = REPO / "build" / "copies"  # gitignored
 CSRC = "grasp_any_region_tpu_torch/csrc/"
-FWD, GEMM, GEMM_LOOP, BWD, SPLIT, STREAM, MLP, ATTN_WO, ORDERED = (CSRC + name for name in (
+FWD, GEMM, GEMM_LOOP, BWD, SPLIT, STREAM, MLP, ATTN_WO, ORDERED, LN = (CSRC + name for name in (
     "flash_forward_sm90.cu", "gemm_sm90.cu", "gemm_sm90.cuh", "flash_backward_sm90.cu",
     "decode_split.cuh", "layer_matmul_sm90.cu", "decode_mlp_sm90.cu", "decode_attn_wo_sm90.cu",
-    "ordered_sum.cuh"))
+    "ordered_sum.cuh", "layer_norm.cuh"))
 MUTANTS = {  # name: (source, [(old, new), ...] in it)
     "drop_last_key_tile": (FWD, [
         # B: the causal band and the full rows lose their last key tile
@@ -64,15 +67,33 @@ MUTANTS = {  # name: (source, [(old, new), ...] in it)
     "f_residual_dropped": (GEMM, [("const float2 x = __bfloat1622float2(*at);",
                                    "const float2 x = make_float2(0.f, 0.f);")]),
     "f_layer_scale_dropped": (GEMM, [
-        ("x.x + l2.x * (acc[4 * j + 2 * r] + b2.x)", "x.x + (acc[4 * j + 2 * r] + b2.x)"),
-        ("x.y + l2.y * (acc[4 * j + 2 * r + 1] + b2.y)", "x.y + (acc[4 * j + 2 * r + 1] + b2.y)")]),
+        ("x.x + l2.x * (c[0] + b2.x), x.y + l2.y * (c[1] + b2.y)",
+         "x.x + (c[0] + b2.x), x.y + (c[1] + b2.y)")]),
     "f_last_k_slab_skipped": (GEMM_LOOP, [  # loaded and handed back, not multiplied
-        ("wgmma_m64n128k16_ss<0, 1>(acc, a + 2 * kk, b + 128 * kk, kb > 0 || kk > 0);",
-         "if (kb < k_slabs - 1) "
-         "wgmma_m64n128k16_ss<0, 1>(acc, a + 2 * kk, b + 128 * kk, kb > 0 || kk > 0);")]),
+        ("for (int kk = 0; kk < kBK / 16; ++kk)  // A: 32 bytes",
+         "for (int kk = 0; kk < (kb < k_slabs - 1 ? kBK / 16 : 0); ++kk)  // A: 32 bytes")]),
     "f_last_row_tile_not_stored": (GEMM, [
         ("tma_store_4d(&maps.out, tile_buf, 0, m0, atom0, 0);",
          "if (tile / walk.n_tiles < walk.m_tiles - 1) "
+         "tma_store_4d(&maps.out, tile_buf, 0, m0, atom0, 0);")]),
+    # D and G: D's bias dropped; the LayerNorm pass's mean not subtracted;
+    # fc1's GELU skipped (both forms); fc2's last K slab skipped (K = M > N
+    # there only); the hidden's last row tile not stored
+    "d_bias_dropped": (GEMM, [
+        ("const float2 b2 = *reinterpret_cast<const float2*>(p.bias + n0 + 8 * j);",
+         "const float2 b2 = EPI == gemm90::kBias ? make_float2(0.f, 0.f) "
+         ": *reinterpret_cast<const float2*>(p.bias + n0 + 8 * j);")]),
+    "ln_mean_not_subtracted": (LN, [
+        ("for (int e = 0; e < VEC; ++e) o[e] = (f[e] - mean) * rstd * wf[e] + bf[e];",
+         "for (int e = 0; e < VEC; ++e) o[e] = f[e] * rstd * wf[e] + bf[e];")]),
+    "g_gelu_skipped": (GEMM, [
+        ("if constexpr (EPI == gemm90::kBiasGelu) {", "if constexpr (EPI < 0) {"),
+        ("} else if constexpr (EPI == gemm90::kBiasGeluErf) {", "} else if constexpr (EPI < 0) {")]),
+    "g_fc2_last_k_slab_skipped": (GEMM, [("k / gemm90::kBK};",
+                                          "k / gemm90::kBK - (k > n ? 1 : 0)};")]),
+    "g_hidden_last_row_tile_not_stored": (GEMM, [
+        ("tma_store_4d(&maps.out, tile_buf, 0, m0, atom0, 0);",
+         "if (EPI < gemm90::kBiasGelu || tile / walk.n_tiles < walk.m_tiles - 1) "
          "tma_store_4d(&maps.out, tile_buf, 0, m0, atom0, 0);")]),
     # 5: the keys past the last full tile (S = 1025's one key) left out; lse ignored
     "5_tail_dropped": (BWD, [("const bool has_tail = TAIL && k0 + kBwdK + a.tail == a.sk;",
@@ -193,6 +214,11 @@ Q8_TESTS = "q8 or swiglu or int8_decode_step"
 ST = ("h8_scale_dropped", "h8_partial_dropped", "i_up_as_gate", "h_x_second_box_misplaced")
 ST_TESTS = ("stream_nw or stream_kernels or layer_matmul_kernels or layer_matmul_q8_kernels "
             "or decode_step")
+VIT = ("f_residual_dropped", "f_layer_scale_dropped", "f_last_k_slab_skipped",
+       "f_last_row_tile_not_stored", "d_bias_dropped", "ln_mean_not_subtracted",
+       "g_gelu_skipped", "g_fc2_last_k_slab_skipped", "g_hidden_last_row_tile_not_stored")
+VIT_TESTS = ("vit_block_kernels or wo_residual_kernel or vit_ln_qkv_kernel or vit_mlp_kernel "
+             "or test_layer_norm_kernel or vision_forward_auto_form")
 TESTS = ("flash_attention_kernel or fused_qkv_kernel or lse_segments or lse_and_backward "
          "or wo_residual or vit_block_kernels or vit_attention_kernel "
          "or decode_attention_kernel or decode_attention_stacked or layer_matmul or stream_kernels")
@@ -203,6 +229,10 @@ PHASE2_MEGA = ("import chip_smoke as c, torch; c.phase_environment(); "
                "g = torch.Generator(device='cuda').manual_seed(c.SEED); "
                "c.mega_kernels(lambda *s: torch.randn(s, generator=g, device='cuda')"
                ".to(torch.bfloat16))")
+PHASE2_VIT = ("import chip_smoke as c, torch; c.phase_environment(); "
+              "g = torch.Generator(device='cuda').manual_seed(c.SEED); "
+              "r = lambda *s: torch.randn(s, generator=g, device='cuda').to(torch.bfloat16); "
+              "c.vit_block_kernels(r, g); c.layer_norm_kernel(r)")
 PHASE2_Q8 = {prefix: PHASE2_MEGA.replace("mega_kernels", part) for prefix, part in (
     ("c8", "decode_attention_q8_kernel"), ("i8", "decode_matmul_kernels"),
     ("h8", "decode_matmul_kernels"), ("i_", "decode_matmul_kernels"),
@@ -277,16 +307,16 @@ def main(names: list[str]) -> int:
         if names and name not in names:
             continue
         dst = make_copy(f"mutant_{name}", [(src, old, new) for old, new in edits])
-        mega, q8, st = name in MEGA, name in Q8, name in ST
+        mega, q8, st, vit = name in MEGA, name in Q8, name in ST, name in VIT
         verdicts = card_tests(dst, MEGA_TESTS if mega else Q8_TESTS if q8 else ST_TESTS if st
-                              else TESTS)
+                              else VIT_TESTS if vit else TESTS)
         counts = {v: list(verdicts.values()).count(v) for v in ("failed", "trapped", "passed", "skipped")}
         print(f"[mutant] {name}: card tests {counts}", flush=True)
         for node, v in sorted(verdicts.items()):
             if v != "passed":
                 print(f"    {v}: {node.split('::')[1]}")
         phase2 = run(dst, ["-c", PHASE2_MEGA if mega else PHASE2_Q8[name[:2]] if q8 or st
-                              else PHASE2], 1200)
+                              else PHASE2_VIT if vit else PHASE2], 1200)
         lines = (phase2.stdout + phase2.stderr).strip().splitlines()
         caught = [line for line in lines if "Error" in line][-1:] or lines[-1:]
         print(f"[mutant] {name}: chip_smoke phase 2 "

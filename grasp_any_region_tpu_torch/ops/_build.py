@@ -45,9 +45,10 @@ _SIGNATURES = {
     "gar_decode_attention": [_P] * 7 + [_I] * 9 + [_F, _P],
     "gar_layer_norm": [_P] * 4 + [_I] * 5 + [_F, _P],
     "gar_vit_attention_fused_qkv": [_P] * 4 + [_I] * 4 + [_F, _P],
-    "gar_vit_ln_qkv": [_P] * 6 + [_I] * 3 + [_F, _P],
+    "gar_vit_ln_qkv": [_P] * 7 + [_I] * 3 + [_F, _P],
     "gar_vit_wo_residual": [_P] * 6 + [_I] * 2 + [_P],
-    "gar_vit_mlp_residual": [_P] * 9 + [_I] * 3 + [_F, _I, _P],
+    "gar_vit_mlp_residual": [_P] * 11 + [_I] * 3 + [_F, _I, _P],
+    "gar_vit_gemm": [_I] + [_P] * 6 + [_I] * 3 + [_P],
     "gar_layer_matmul": [_P] * 3 + [_I] * 6 + [_P],
     "gar_layer_matmul_ring": [_P] * 3 + [_I] * 4 + [_P],
     "gar_layer_swiglu": [_P] * 4 + [_I] * 6 + [_P],

@@ -12,14 +12,17 @@ so that no LayerNorm, bias, GELU, LayerScale or residual pass goes through
 device memory on its own, and G's (T, S, 4D) hidden never does. The CUDA
 kernels keep the same rounding points: LayerNorm in fp32 rounded to bf16
 before the product, fp32 sums, GELU in fp32 rounded to bf16 before fc2,
-the branch and the residual add in fp32, bf16 output. D and G
-(csrc/vit_block.cu) run on the mma.sync GEMM tile of csrc/gemm_tile.cuh;
-F (csrc/gemm_sm90.cu) on the Hopper main loop of csrc/gemm_sm90.cuh: a
-persistent CTA an SM, a TMA ring of (attn, wo) K-slabs, two consumer
-warpgroups on wgmma with wo read as stored, and the bias, LayerScale and
-residual applied on a shared-memory tile that TMA fills with x and
-stores back. They take the (T, S) rows
-as they are: S need not be a multiple of 8 (the TPU kernels' block rule).
+the branch and the residual add in fp32, bf16 output. All three run on
+the Hopper GEMM of csrc/gemm_sm90.cu (main loop in csrc/gemm_sm90.cuh): a
+persistent CTA an SM, a TMA ring of (A, B) K-slabs, two consumer
+warpgroups on wgmma with the weight read as stored, and the epilogue
+(bias; GELU; LayerScale and residual) applied on a shared-memory tile that
+TMA fills with x and stores back. D and G (csrc/vit_block.cu) first write
+LayerNorm(x) in bf16 by kernel 24's row body (csrc/layer_norm.cuh) into a
+workspace; G's fc1 writes its (T * S, M) hidden to a second one, which fc2
+reads back (one CTA cannot hold a 128-row tile's fc2 sums, as the TPU
+kernel holds the hidden in VMEM). They take the (T, S) rows as they are: S
+need not be a multiple of 8 (the TPU kernels' block rule).
 
 On a CPU tensor each wrapper runs its plain version (below, same rounding
 points in torch); on a CUDA tensor it launches the kernel or raises.
@@ -35,9 +38,7 @@ import torch
 from . import _build
 from .norms import layer_norm
 
-launches = dict(D=0, F=0, G=0)  # kernel launches since the last reset (chip_smoke.py reads it)
-
-MLP_WIDTHS = (128, 256, 1024)  # ViT widths kernel G is built for: tests, narrow, gar_1b
+launches = dict(D=0, F=0, G=0)  # wrapper calls since the last reset (chip_smoke.py reads it)
 
 
 def gelu_f32(h: torch.Tensor, fast: bool) -> torch.Tensor:
@@ -71,23 +72,6 @@ def vit_mlp_residual_plain(x, ln_scale, ln_bias, fc1, b1, fc2, b2, ls=None, *,
     return (x.float() + branch).to(x.dtype)
 
 
-def _rows(x: torch.Tensor, name: str) -> torch.Tensor:
-    """x as a contiguous bf16 (rows, width) CUDA tensor, or raise."""
-    if x.dtype != torch.bfloat16:
-        raise TypeError(f"{name}: the kernel takes bfloat16, got {x.dtype}")
-    if not x.is_contiguous():
-        raise ValueError(f"{name}: must be contiguous")
-    return x.reshape(-1, x.shape[-1])
-
-
-def _weight(w: torch.Tensor, x: torch.Tensor, shape, name: str) -> torch.Tensor:
-    if tuple(w.shape) != tuple(shape):
-        raise ValueError(f"{name}: shape {tuple(w.shape)}, expected {tuple(shape)}")
-    if w.device != x.device:
-        raise ValueError(f"{name} is on {w.device}, x on {x.device}")
-    return w.to(torch.bfloat16).contiguous()
-
-
 def _vector(v: Optional[torch.Tensor], x: torch.Tensor, n: int, name: str) -> torch.Tensor:
     """A (n,) fp32 vector for the kernel; None (no LayerScale) becomes ones."""
     if v is None:
@@ -97,46 +81,16 @@ def _vector(v: Optional[torch.Tensor], x: torch.Tensor, n: int, name: str) -> to
     return v.float().contiguous()
 
 
-def _check_tiles(k: int, n: int, name: str) -> None:
-    if k % 64 or n % 128:
-        raise ValueError(f"{name}: the kernel takes K % 64 == 0 and N % 128 == 0, got "
-                         f"K {k}, N {n}")
-
-
-def vit_ln_qkv(x, ln_scale, ln_bias, wqkv, bqkv, *, eps: float = 1e-6):
-    """Kernel D: LayerNorm(x) @ wqkv + bqkv. x (T, S, D) -> (T, S, 3D)."""
-    if x.device.type == "cpu":
-        return vit_ln_qkv_plain(x, ln_scale, ln_bias, wqkv, bqkv, eps=eps)
-    d = x.shape[-1]
-    n = wqkv.shape[-1]
-    _check_tiles(d, n, "vit_ln_qkv")
-    xr = _rows(x, "x")
-    w = _weight(wqkv, x, (d, n), "wqkv")
-    # held in locals: a temporary's memory could be reused before the launch
-    lw, lb, b = (_vector(ln_scale, x, d, "ln_scale"), _vector(ln_bias, x, d, "ln_bias"),
-                 _vector(bqkv, x, n, "bqkv"))
-    out = torch.empty(x.shape[:-1] + (n,), dtype=x.dtype, device=x.device)
-    err = _build.library().gar_vit_ln_qkv(
-        xr.data_ptr(), lw.data_ptr(), lb.data_ptr(), w.data_ptr(), b.data_ptr(),
-        out.data_ptr(), xr.shape[0], d, n, eps, _build.stream_handle(x.device))
-    _build.check(err, "gar_vit_ln_qkv")
-    launches["D"] += 1
-    return out
-
-
-def check_wo_residual(attn: torch.Tensor, x: torch.Tensor, wo: torch.Tensor) -> None:
-    """Raise unless kernel F can read its operands by TMA as they are: attn
-    and x the same (..., D) bfloat16 rows, wo a (D, D) bfloat16 (K, N)
-    matrix, all three contiguous on one device with 16-byte aligned data,
-    and D a multiple of 128 (the tile takes 64-deep K slabs and 128 output
-    columns)."""
-    d = x.shape[-1]
-    if attn.shape != x.shape or tuple(wo.shape) != (d, d):
-        raise ValueError(f"kernel F takes attn and x alike and wo (D, D): attn "
-                         f"{tuple(attn.shape)}, x {tuple(x.shape)}, wo {tuple(wo.shape)}")
-    if d % 128:
-        raise ValueError(f"kernel F takes widths that are multiples of 128, got {d}")
-    for t, name in ((attn, "attn"), (x, "x"), (wo, "wo")):
+def _check_operands(kernel: str, widths: dict, **tensors: torch.Tensor) -> None:
+    """Raise unless every width is a multiple of 128 (the GEMM's 128-column
+    tiles and 64-deep K slabs) and every tensor is bfloat16, contiguous, on
+    x's device and 16-byte aligned: what TMA reads as it is."""
+    for name, n in widths.items():
+        if n % 128:
+            raise ValueError(f"kernel {kernel} takes widths that are multiples of 128, got "
+                             f"{name} = {n}")
+    x = tensors["x"]
+    for name, t in tensors.items():
         if t.dtype != torch.bfloat16:
             raise TypeError(f"{name}: the kernel takes bfloat16, got {t.dtype}")
         if not t.is_contiguous():
@@ -145,6 +99,64 @@ def check_wo_residual(attn: torch.Tensor, x: torch.Tensor, wo: torch.Tensor) -> 
             raise ValueError(f"{name}: data must be 16-byte aligned")
         if t.device != x.device:
             raise ValueError(f"{name} is on {t.device}, x on {x.device}")
+
+
+def check_ln_qkv(x: torch.Tensor, wqkv: torch.Tensor) -> None:
+    """Raise unless kernel D can read its operands by TMA as they are: x
+    (..., D) bfloat16 rows, wqkv a (D, N) bfloat16 (K, N) matrix, both
+    contiguous on one device with 16-byte aligned data, D and N multiples
+    of 128."""
+    d = x.shape[-1]
+    if wqkv.dim() != 2 or wqkv.shape[0] != d:
+        raise ValueError(f"kernel D takes wqkv (D, N): x {tuple(x.shape)}, wqkv "
+                         f"{tuple(wqkv.shape)}")
+    _check_operands("D", dict(D=d, N=wqkv.shape[1]), x=x, wqkv=wqkv)
+
+
+def check_wo_residual(attn: torch.Tensor, x: torch.Tensor, wo: torch.Tensor) -> None:
+    """Raise unless kernel F can read its operands by TMA as they are: attn
+    and x the same (..., D) bfloat16 rows, wo a (D, D) bfloat16 (K, N)
+    matrix, all three contiguous on one device with 16-byte aligned data,
+    and D a multiple of 128."""
+    d = x.shape[-1]
+    if attn.shape != x.shape or tuple(wo.shape) != (d, d):
+        raise ValueError(f"kernel F takes attn and x alike and wo (D, D): attn "
+                         f"{tuple(attn.shape)}, x {tuple(x.shape)}, wo {tuple(wo.shape)}")
+    _check_operands("F", dict(D=d), attn=attn, x=x, wo=wo)
+
+
+def check_mlp_residual(x: torch.Tensor, fc1: torch.Tensor, fc2: torch.Tensor) -> None:
+    """Raise unless kernel G can read its operands by TMA as they are: x
+    (..., D) bfloat16 rows, fc1 a (D, M) and fc2 an (M, D) bfloat16 (K, N)
+    matrix, all three contiguous on one device with 16-byte aligned data, D
+    and M multiples of 128."""
+    d = x.shape[-1]
+    m = fc1.shape[-1]
+    if fc1.dim() != 2 or fc1.shape[0] != d or tuple(fc2.shape) != (m, d):
+        raise ValueError(f"kernel G takes fc1 (D, M) and fc2 (M, D): x {tuple(x.shape)}, fc1 "
+                         f"{tuple(fc1.shape)}, fc2 {tuple(fc2.shape)}")
+    _check_operands("G", dict(D=d, M=m), x=x, fc1=fc1, fc2=fc2)
+
+
+def vit_ln_qkv(x, ln_scale, ln_bias, wqkv, bqkv, *, eps: float = 1e-6):
+    """Kernel D: LayerNorm(x) @ wqkv + bqkv. x (T, S, D) -> (T, S, 3D)."""
+    if x.device.type == "cpu":
+        return vit_ln_qkv_plain(x, ln_scale, ln_bias, wqkv, bqkv, eps=eps)
+    w = wqkv.to(torch.bfloat16).contiguous()  # a no-op for the tower's bf16 weights
+    check_ln_qkv(x, w)
+    d, n = w.shape
+    xr = x.reshape(-1, d)
+    # held in locals: a temporary's memory could be reused before the launch
+    lw, lb, b = (_vector(ln_scale, x, d, "ln_scale"), _vector(ln_bias, x, d, "ln_bias"),
+                 _vector(bqkv, x, n, "bqkv"))
+    xn = torch.empty_like(xr)  # LayerNorm(x) in bf16, the product's A
+    out = torch.empty(x.shape[:-1] + (n,), dtype=x.dtype, device=x.device)
+    err = _build.library().gar_vit_ln_qkv(
+        xr.data_ptr(), lw.data_ptr(), lb.data_ptr(), w.data_ptr(), b.data_ptr(),
+        xn.data_ptr(), out.data_ptr(), xr.shape[0], d, n, eps, _build.stream_handle(x.device))
+    _build.check(err, "gar_vit_ln_qkv")
+    launches["D"] += 1
+    return out
 
 
 def vit_wo_residual(attn, x, wo, bo, ls=None):
@@ -167,25 +179,25 @@ def vit_wo_residual(attn, x, wo, bo, ls=None):
 
 def vit_mlp_residual(x, ln_scale, ln_bias, fc1, b1, fc2, b2, ls=None, *,
                      eps: float = 1e-6, fast_gelu: bool = False):
-    """Kernel G: x + ls * (gelu(LayerNorm(x) @ fc1 + b1) @ fc2 + b2), the
-    (T, S, M) hidden kept on chip. x (T, S, D)."""
+    """Kernel G: x + ls * (gelu(LayerNorm(x) @ fc1 + b1) @ fc2 + b2). x
+    (T, S, D); the (T * S, M) hidden goes through a workspace."""
     if x.device.type == "cpu":
         return vit_mlp_residual_plain(x, ln_scale, ln_bias, fc1, b1, fc2, b2, ls, eps=eps,
                                       fast_gelu=fast_gelu)
-    d, m = x.shape[-1], fc1.shape[-1]
-    if d not in MLP_WIDTHS or m % 256:
-        raise ValueError(f"kernel G is built for widths {MLP_WIDTHS} and hidden sizes "
-                         f"that are multiples of 256, got {d}, {m}")
-    xr = _rows(x, "x")
-    w1, w2 = _weight(fc1, x, (d, m), "fc1"), _weight(fc2, x, (m, d), "fc2")
+    w1, w2 = (w.to(torch.bfloat16).contiguous() for w in (fc1, fc2))
+    check_mlp_residual(x, w1, w2)
+    d, m = w1.shape
+    xr = x.reshape(-1, d)
     lw, lb, v1, v2, g = (_vector(ln_scale, x, d, "ln_scale"), _vector(ln_bias, x, d, "ln_bias"),
                          _vector(b1, x, m, "b1"), _vector(b2, x, d, "b2"),
                          _vector(ls, x, d, "ls"))
+    xn = torch.empty_like(xr)  # LayerNorm(x) in bf16, fc1's A
+    h = torch.empty((xr.shape[0], m), dtype=x.dtype, device=x.device)  # fc2's A
     out = torch.empty_like(x)
     err = _build.library().gar_vit_mlp_residual(
         xr.data_ptr(), lw.data_ptr(), lb.data_ptr(), w1.data_ptr(), v1.data_ptr(),
-        w2.data_ptr(), v2.data_ptr(), g.data_ptr(), out.data_ptr(), xr.shape[0], d, m, eps,
-        int(fast_gelu), _build.stream_handle(x.device))
+        w2.data_ptr(), v2.data_ptr(), g.data_ptr(), xn.data_ptr(), h.data_ptr(), out.data_ptr(),
+        xr.shape[0], d, m, eps, int(fast_gelu), _build.stream_handle(x.device))
     _build.check(err, "gar_vit_mlp_residual")
     launches["G"] += 1
     return out

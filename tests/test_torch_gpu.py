@@ -10,7 +10,8 @@ has none; there, skip the repository's conftest (which sets up jax):
 Tolerance atol = rtol = 2e-2: the kernels round p to bf16 before the PV
 product (A, B, C, E), round LayerNorm and GELU outputs to bf16 before their
 products (D, G), and write bf16; the plain versions run in fp32 from the
-same bf16 inputs.
+same bf16 inputs. Where that is about an output's size, a kernel is also
+held at a tolerance sized to its output (`_sized_close`).
 """
 
 import dataclasses
@@ -279,14 +280,16 @@ def test_vit_block_kernels(rnd, t, s, d, m, layer_scale, fast_gelu):
     torch.cuda.synchronize()
     assert vb.launches == {k: v + 1 for k, v in before.items()}
     xf = x.float()
-    torch.testing.assert_close(
-        qkv.float(), vb.vit_ln_qkv_plain(xf, *f32["ln"], f32["wqkv"], f32["bqkv"]), **TOL)
+    ref = vb.vit_ln_qkv_plain(xf, *f32["ln"], f32["wqkv"], f32["bqkv"])
+    torch.testing.assert_close(qkv.float(), ref, **TOL)
+    _sized_close(qkv, ref, "D")
     torch.testing.assert_close(
         wo.float(), vb.vit_wo_residual_plain(attn.float(), xf, f32["wo"], f32["bo"], f32["ls"]),
         **TOL)
     ref = vb.vit_mlp_residual_plain(xf, *f32["ln"], f32["fc1"], f32["b1"], f32["fc2"],
                                     f32["b2"], f32["ls"], fast_gelu=fast_gelu)
     torch.testing.assert_close(mlp.float(), ref, **TOL)
+    _sized_close(mlp, ref, "G")
 
 
 @pytest.mark.parametrize("layer_scale", [True, False])
@@ -306,6 +309,49 @@ def test_wo_residual_kernel(rnd, d, rows, layer_scale):
     ls = None if a["ls"] is None else a["ls"].float()
     want = vb.vit_wo_residual_plain(attn.float(), x.float(), a["wo"].float(), a["bo"].float(), ls)
     _sized_close(out, want, f"F at {rows} x {d}")
+
+
+@pytest.mark.parametrize("rows", [(1, 1), (1, 127), (1, 128), (1, 129), (17, 1025)])
+@pytest.mark.parametrize("d", [128, 256, 1024])
+def test_vit_ln_qkv_kernel(rnd, d, rows):
+    """Kernel D (LayerNorm pass, then the Hopper GEMM with a bias epilogue)
+    at widths of one, two and eight 128-column tiles (N = 3D), rows on both
+    sides of the 128-row tile, against the plain version in fp32 at the
+    output-sized tolerance."""
+    a = _block_args(rnd, d, 128)
+    x = rnd(*rows, d)
+    before = vb.launches["D"]
+    out = vb.vit_ln_qkv(x, *a["ln"], a["wqkv"], a["bqkv"])
+    torch.cuda.synchronize()
+    assert vb.launches["D"] == before + 1 and out.shape == rows + (3 * d,)
+    want = vb.vit_ln_qkv_plain(x.float(), *(v.float() for v in a["ln"]), a["wqkv"].float(),
+                               a["bqkv"].float())
+    _sized_close(out, want, f"D at {rows} x {d}")
+
+
+@pytest.mark.parametrize("layer_scale,fast_gelu", [(True, True), (False, False), (True, False),
+                                                   (False, True)])
+@pytest.mark.parametrize("ratio", [2, 4])
+@pytest.mark.parametrize("rows", [(1, 1), (1, 127), (1, 128), (1, 129), (17, 1025)])
+@pytest.mark.parametrize("d", [128, 256, 1024])
+def test_vit_mlp_kernel(rnd, d, rows, ratio, layer_scale, fast_gelu):
+    """Kernel G (LayerNorm pass, fc1 with its GELU epilogue into the hidden,
+    fc2 with kernel F's epilogue) at widths of one, two and eight
+    128-column tiles, M = 2D and 4D, rows on both sides of the 128-row
+    tile, with and without LayerScale, both GELU forms, against the plain
+    version in fp32 at the output-sized tolerance."""
+    a = _block_args(rnd, d, ratio * d, layer_scale)
+    x = rnd(*rows, d)
+    before = vb.launches["G"]
+    out = vb.vit_mlp_residual(x, *a["ln"], a["fc1"], a["b1"], a["fc2"], a["b2"], a["ls"],
+                              fast_gelu=fast_gelu)
+    torch.cuda.synchronize()
+    assert vb.launches["G"] == before + 1 and out.shape == x.shape
+    f32 = {k: None if a[k] is None else a[k].float() for k in ("fc1", "b1", "fc2", "b2", "ls")}
+    want = vb.vit_mlp_residual_plain(x.float(), *(v.float() for v in a["ln"]), f32["fc1"],
+                                     f32["b1"], f32["fc2"], f32["b2"], f32["ls"],
+                                     fast_gelu=fast_gelu)
+    _sized_close(out, want, f"G at {rows} x {d}, M = {ratio * d}")
 
 
 def test_vision_forward_auto_form_on_the_card(rnd):

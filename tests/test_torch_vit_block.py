@@ -138,6 +138,102 @@ def test_check_wo_residual_refuses(case, error):
         tvb.check_wo_residual(*_wo_operands(case))
 
 
+def _mlp_split_plain(x, ln_scale, ln_bias, fc1, b1, fc2, b2, ls=None, *, eps=1e-6,
+                     fast_gelu=False):
+    """G as the card runs it: the LayerNorm pass, fc1 + b1 and GELU rounded
+    to x's dtype (the hidden that leaves the chip), then fc2 as kernel F's
+    product and epilogue with K = M."""
+    from grasp_any_region_tpu_torch.ops.norms import layer_norm
+
+    xn = layer_norm(x, ln_scale, ln_bias, eps)
+    h = tvb.gelu_f32(xn.float() @ fc1.float() + b1.float(), fast_gelu).to(x.dtype)
+    return tvb.vit_wo_residual_plain(h, x, fc2, b2, ls)
+
+
+def _mlp_args(rng, layer_scale, m=2 * D):
+    def w(*shape, scale=0.05):
+        return (rng.standard_normal(shape) * scale).astype(np.float32)
+
+    x = w(T, S, D, scale=1.0) + 0.5
+    args = (1.0 + w(D, scale=0.2), w(D, scale=0.2), w(D, m), w(m), w(m, D), w(D))
+    return x, args, (w(D, scale=0.5) if layer_scale else None)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("fast_gelu", [True, False], ids=["tanh", "erf"])
+@pytest.mark.parametrize("layer_scale", [True, False], ids=["ls", "no_ls"])
+def test_mlp_split_mirror_equals_plain(rng, dtype, fast_gelu, layer_scale):
+    """G's split structure (LayerNorm, fc1 + GELU to a rounded hidden, F's
+    product and epilogue on it) computes `vit_mlp_residual_plain` bit for
+    bit: the hidden's trip through device memory moves no rounding point."""
+    x, args, ls = _mlp_args(rng, layer_scale)
+    x, args = _t(x).to(dtype), [_t(a).to(dtype) for a in args]
+    ls = None if ls is None else _t(ls).to(dtype)
+    want = tvb.vit_mlp_residual_plain(x, *args, ls, fast_gelu=fast_gelu)
+    got = _mlp_split_plain(x, *args, ls, fast_gelu=fast_gelu)
+    assert got.dtype == dtype and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("fast_gelu", [True, False], ids=["tanh", "erf"])
+@pytest.mark.parametrize("layer_scale", [True, False], ids=["ls", "no_ls"])
+def test_mlp_split_mirror_matches_pallas(rng, fast_gelu, layer_scale):
+    """The split mirror against the JAX kernel in interpret mode at M = 4D,
+    as `test_block_kernel_plain_matches_pallas` holds the plain version."""
+    from grasp_any_region_tpu.ops import vit_block as jvb
+
+    x, args, ls = _mlp_args(rng, layer_scale, m=4 * D)
+    s_pad = S + (-S) % 8
+    ref = jvb.vit_mlp_residual(_pad(x, s_pad), *map(jnp.asarray, args),
+                               None if ls is None else jnp.asarray(ls), fast_gelu=fast_gelu,
+                               interpret=True)
+    out = _mlp_split_plain(_t(x), *map(_t, args), None if ls is None else _t(ls),
+                           fast_gelu=fast_gelu)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref)[:, :S], **TOL)
+    assert _no_launches()
+
+
+def _block_operands(kernel, case):
+    """CPU operands of kernel D (x, wqkv) or G (x, fc1, fc2) at (2, 129,
+    256), hidden 512: the accepted ones, or one thing wrong with them."""
+    d = 192 if case == "width" else 256
+    n = (320 if case == "out_width" else 2 * d) if kernel == "mlp" else (
+        3 * d + 64 if case == "out_width" else 3 * d)
+    x = torch.zeros((2, 129, d), dtype=torch.bfloat16)
+    ws = [torch.zeros((d, n), dtype=torch.bfloat16)]
+    if kernel == "mlp":
+        ws.append(torch.zeros((n, d), dtype=torch.bfloat16))
+    if case == "dtype":
+        ws[0] = ws[0].float()
+    elif case == "strided":
+        x = torch.zeros((2, 129, 2 * d), dtype=torch.bfloat16)[..., :d]
+    elif case == "misaligned":  # contiguous, but 2 bytes past an aligned base
+        x = torch.zeros(x.numel() + 1, dtype=torch.bfloat16)[1:].view(x.shape)
+    elif case == "shape":  # the last weight's rows or columns do not meet x's width
+        ws[-1] = torch.zeros((ws[-1].shape[0], d + 128) if kernel == "mlp" else (d + 128, n),
+                             dtype=torch.bfloat16)
+    return x, *ws
+
+
+CHECKS = dict(ln_qkv=tvb.check_ln_qkv, mlp=tvb.check_mlp_residual)
+
+
+@pytest.mark.parametrize("kernel", ["ln_qkv", "mlp"])
+def test_block_checks_accept_the_towers_operands(kernel):
+    CHECKS[kernel](*_block_operands(kernel, "ok"))
+
+
+@pytest.mark.parametrize("case,error", [("dtype", TypeError), ("strided", ValueError),
+                                        ("misaligned", ValueError), ("width", ValueError),
+                                        ("out_width", ValueError), ("shape", ValueError)])
+@pytest.mark.parametrize("kernel", ["ln_qkv", "mlp"])
+def test_block_checks_refuse(kernel, case, error):
+    """check_ln_qkv and check_mlp_residual refuse, on CPU tensors, a weight
+    that is not bfloat16, a non-contiguous x, a misaligned base, D (and N
+    or M) not a multiple of 128, and a weight whose shape does not meet x."""
+    with pytest.raises(error):
+        CHECKS[kernel](*_block_operands(kernel, case))
+
+
 def _angles(rng, mixed):
     """(H|1, N, d/2) rope angles of the 8 x 8 patch grid: per head (mixed,
     random learned frequencies) or one table for all heads (axial)."""
