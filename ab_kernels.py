@@ -24,13 +24,20 @@ back) against q8_parent; those named st_*, h8_* and i_* time the four
 kernels of H's weight stream (TIMING_STREAM: H and H8 at GAR-1B's w_down
 and wo, I and I8 at its gate and up, each at B = 1 and 24, checked against
 its plain version, one call after an L2 flush and 16 layers back to back)
-against st_parent. `--against=` runs one
+against st_parent; those named q_* time kernels 19 and 20 (TIMING_QKV)
+against q_parent. `--against=` runs one
 timing (TIMING_Q8 unless another is named: abc, h, m, stream, steps:
-TIMING_STEPS, the fused bf16 and int8 decode steps' device and host ms at
-GAR-1B, or vit: TIMING_VIT, kernels D, F and G one call after an L2 flush
-at one GAR-1B ViT layer, each checked at the output-sized tolerance, and
-the fused GAR-1B tower over 17 tiles) in the package of another checkout
-and in this tree, in turns.
+TIMING_STEPS, the fused bf16 and int8 decode steps' and the mega step's
+(bf16 and int8 weights) device and host ms at GAR-1B, vit: TIMING_VIT,
+kernels D, F and G one call after an L2 flush at one GAR-1B ViT layer,
+each checked at the output-sized tolerance, and the fused GAR-1B tower
+over 17 tiles, or qkv: TIMING_QKV, kernels 19 and 20 at GAR-1B's widths,
+B = 1 and 24, checked against their plain versions, one call after an L2
+flush and 16 layers back to back; or bits: TIMING_BITS, a hash of the
+outputs of H, H8 (w_down and wo), I, I8, 23 and 21 at GAR-1B's widths,
+B = 1, 5, 17, 24 and 32, on seeded inputs, which two checkouts that give
+the same bits print alike) in the package of another checkout and in this
+tree, in turns.
 Run from the repository root on a machine with the card:
 
     python3 ab_kernels.py [variant ...]
@@ -38,7 +45,8 @@ Run from the repository root on a machine with the card:
     python3 ab_kernels.py m_<variant> ...
     python3 ab_kernels.py c8_<variant> | i8_<variant> ...
     python3 ab_kernels.py st_<variant> | h8_<variant> | i_<variant> ...
-    python3 ab_kernels.py --against=<directory of another checkout> [q8 | abc | h | m | stream | steps | vit]
+    python3 ab_kernels.py q_<variant> ...
+    python3 ab_kernels.py --against=<directory of another checkout> [q8 | abc | h | m | stream | steps | vit | qkv | bits]
 """
 
 from __future__ import annotations
@@ -125,9 +133,9 @@ H_VARIANTS = {  # the parent: 128 rows and at most 3 stages, 8 CTAs a tile
 #pragma unroll
       for (int r = 0; r < kWsMaxSplits; ++r)
         if (r < splits) v[w] += p[w][r];"""),
-                         (H_SRC, """    a.out[static_cast<size_t>(row) * a.dout + n0 + rank * cols + c] = __float2bfloat16(o);
+                         (H_SRC, """    sg.out[static_cast<size_t>(row) * sg.dout + col] = __float2bfloat16(o);
   }
-}""", """    a.out[static_cast<size_t>(row) * a.dout + n0 + rank * cols + c] = __float2bfloat16(o);
+}""", """    sg.out[static_cast<size_t>(row) * sg.dout + col] = __float2bfloat16(o);
   }
   cluster.sync();
 }""")],
@@ -266,7 +274,7 @@ ST_VARIANTS = {  # kernels H, H8, I and I8 (TIMING_STREAM)
           }
   }
   __syncthreads();
-  cluster_wait();  // every CTA of the cluster has started
+  if constexpr (!SHARE) cluster_wait();  // every CTA of the cluster has started
   const int cols = BN / splits, quads = cols / 4, per_q = NW * a.rows * quads;
   for (int e = threadIdx.x; e < splits * per_q; e += kWsThreads) {""", """            if (row < a.rows)
               cluster.map_shared_rank(recv, col / cols)[((w * splits + rank) * a.rows + row) *
@@ -285,16 +293,34 @@ ST_VARIANTS = {  # kernels H, H8, I and I8 (TIMING_STREAM)
     "st_no_epilogue": [(STREAM_SRC, X_WAIT, X_WAIT + "  if (a.rows > 0) return;\n")],
     "st_no_math": [(STREAM_SRC, MMA_LINE, "            ;\n")],
     "st_no_x_loads": [
-        (STREAM_SRC, "        mbar_arrive_expect_tx(&full[s], NW * kWsBox + 2 * x_box);",
-         "        mbar_arrive_expect_tx(&full[s], NW * kWsBox + 0 * x_box);"),
-        (STREAM_SRC, "        for (int b = 0; b < 2; ++b)\n          tma_load_4d(xs",
-         "        for (int b = 0; b < 0; ++b)\n          tma_load_4d(xs")],
+        (STREAM_SRC, "NW * kWsBox + (XN == kXBoxes ? 2 * x_box : 0));",
+         "NW * kWsBox + (XN == kXBoxes ? 0 * x_box : 0));"),
+        (STREAM_SRC, "          for (int b = 0; b < 2; ++b)\n            tma_load_4d(xs",
+         "          for (int b = 0; b < 0; ++b)\n            tma_load_4d(xs")],
     "st_no_widen": Q8_VARIANTS["i8_no_widen"],
     # x's tensor map fetched into the TMA unit's cache before the wait on
     # the kernel before (its first use is after it); x boxes of 16 rows up
     # to 16 rows (no row past the box), not B rounded up to 8
     "st_prefetch_x_map": [(STREAM_SRC, AHEAD_LINE, AHEAD_LINE + PREFETCH_X)],
     "st_x_rows_16": [(STREAM_SRC, X_ROWS, X_ROWS_16)],
+}
+
+QKV_PY = "grasp_any_region_tpu_torch/ops/decode_megakernel.py"
+QKV_VARIANTS = {  # kernels 19 and 20 (TIMING_QKV)
+    "q_parent": [],
+    # every CTA takes every row's rstd at every B (past 16 rows the CTAs of
+    # a cluster share the rows' rstd by distributed shared memory)
+    "q_rstd_each_cta": [(STREAM_SRC, "  constexpr bool SHARE = XN != kXBoxes && MT == 2;",
+                         "  constexpr bool SHARE = false;")],
+    # the rstd shared at every B
+    "q_rstd_shared_at_every_b": [(STREAM_SRC, "  constexpr bool SHARE = XN != kXBoxes && MT == 2;",
+                                  "  constexpr bool SHARE = XN != kXBoxes;")],
+    # clusters grown while the grid stays within four CTAs an SM, not two
+    # (19 at GAR-1B: 8 CTAs a tile, not 4; 20 stays at 8)
+    "q_four_ctas_an_sm": [(QKV_PY, "    return min(lm.stream_splits(tiles, d, sms=sms), ",
+                           "    return min(lm.stream_splits(tiles, d, sms=sms, ctas_per_sm=4), ")],
+    # a ring of four stages (19 at GAR-1B: a CTA's whole K range in flight)
+    "q_four_stages": [(STREAM_SRC, "constexpr int kWsStages = 3;", "constexpr int kWsStages = 4;")],
 }
 
 TIMING = r"""
@@ -577,7 +603,9 @@ with torch.inference_mode():
     outs = {}
     for form, llm, q8, use in (("xla", params.llm, False, False),
                                ("fused", params.llm, False, "fused"),
-                               ("int8", params_q8.llm, True, None)):
+                               ("int8", params_q8.llm, True, None),
+                               ("mega", params.llm, False, "mega"),
+                               ("mega int8 weights", params_q8.llm, False, "mega")):
         src = seeded[q8]
         cache = src._replace(k=src.k.clone(), v=src.v.clone(), write_pos=src.write_pos.clone())
         step = lambda: llama_decode_step(llm, cfg.text, emb, cache, s, use_kernel=use)
@@ -585,20 +613,94 @@ with torch.inference_mode():
         t[f"{form} device ms"], t[f"{form} host ms"] = c.step_times(step)
     got, want = outs["fused"], outs["xla"]
     t["fused vs xla"] = ((got - want).abs().max() / want.abs().max()).item()
-    if t["fused vs xla"] > c.E2E_TOL or not torch.isfinite(outs["int8"]).all():
+    t["mega vs xla"] = ((outs["mega"] - want).abs().max() / want.abs().max()).item()
+    if (max(t["fused vs xla"], t["mega vs xla"]) > c.E2E_TOL
+            or not all(torch.isfinite(outs[f]).all() for f in ("int8", "mega int8 weights"))):
         t["wrong results"] = 1
 print("AB " + json.dumps(t))
 """
 
 
+TIMING_QKV = r"""
+import json, torch, chip_smoke as c
+from grasp_any_region_tpu_torch.core.config import gar_1b
+from grasp_any_region_tpu_torch.models.quantize import quantize_int8
+from grasp_any_region_tpu_torch.ops import decode_megakernel as mk
+from grasp_any_region_tpu_torch.ops.rope import llama_inv_freq, rope_cos_sin
+c.phase_environment()
+gen = torch.Generator(device="cuda").manual_seed(0)
+def rnd(*shape):
+    return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+def stack(din, n):
+    return (rnd(16, din, n).float() * din ** -0.5).to(torch.bfloat16)
+t = {}
+d, hq, hk, layer = 2048, 2048, 512, 7
+bf = (stack(d, hq), stack(d, hk), stack(d, hk))
+q8 = [u for w in bf for u in quantize_int8(w)]
+norm = (1.0 + 0.2 * rnd(16, d).float()).to(torch.bfloat16)
+for b in (1, 24):
+    cos, sin = rope_cos_sin(torch.arange(b, device="cuda") + 4663, llama_inv_freq(gar_1b().text,
+                                                                                  "cuda"))
+    x = rnd(b, d) * 4
+    for key, fn, plain, mats in (("19", mk.layer_qkv_norm_rope, mk.layer_qkv_norm_rope_plain, bf),
+                                 ("20", mk.layer_qkv_norm_rope_q8, mk.layer_qkv_norm_rope_q8_plain,
+                                  q8)):
+        args = (x, norm, *mats, cos, sin, cos, sin)
+        run = lambda i=layer: fn(*args, i, eps=1e-5, head_dim=64)
+        try:
+            for o, r in zip(run(), plain(*args, layer, eps=1e-5, head_dim=64)):
+                c.max_err(o, r, f"{key} B={b}")
+        except AssertionError:  # a timing-only variant
+            t["wrong results"] = 1
+        t[f"{key} B={b}"] = c.cuda_ms(run)
+        t[f"{key} B={b} x16"] = c.cuda_ms(lambda: [run(i) for i in range(16)], iters=5,
+                                          sleep_cycles=20_000_000) / 16
+print("AB " + json.dumps(t))
+"""
+
+
+TIMING_BITS = r"""
+import hashlib, json, torch, chip_smoke as c
+from grasp_any_region_tpu_torch.models.quantize import quantize_int8
+from grasp_any_region_tpu_torch.ops import decode_megakernel as mk
+from grasp_any_region_tpu_torch.ops import layer_matmul as lm
+c.phase_environment()
+gen = torch.Generator(device="cuda").manual_seed(0)
+def rnd(*shape):
+    return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+def stack(din, n):
+    return (rnd(4, din, n).float() * din ** -0.5).to(torch.bfloat16)
+wd, wo, wg, wu = stack(8192, 2048), stack(2048, 2048), stack(2048, 8192), stack(2048, 8192)
+wd2 = wg.transpose(1, 2).contiguous()
+norm = (1.0 + 0.2 * rnd(4, 2048).float()).to(torch.bfloat16)
+q = {k: quantize_int8(w) for k, w in dict(wd=wd, wo=wo, wg=wg, wu=wu, wd2=wd2).items()}
+out = {}
+for b in (1, 5, 17, 24, 32):
+    x8k, x2k = rnd(b, 8192), rnd(b, 2048)
+    out[f"H wd {b}"] = lm.layer_matmul(x8k, wd, 2)
+    out[f"H wo {b}"] = lm.layer_matmul(x2k, wo, 2)
+    out[f"H8 wd {b}"] = lm.layer_matmul_q8(x8k, *q["wd"], 2)
+    out[f"H8 wo {b}"] = lm.layer_matmul_q8(x2k, *q["wo"], 2)
+    out[f"I {b}"] = lm.layer_swiglu(x2k, wg, wu, 2)
+    out[f"I8 {b}"] = lm.layer_swiglu_q8(x2k, *q["wg"], *q["wu"], 2)
+    out[f"23 {b}"] = mk.layer_mlp_residual(x2k * 3, norm, wg, wu, wd2, 1, eps=1e-5)
+    out[f"21 {b}"] = mk.layer_mlp_residual_q8(x2k * 3, norm, *q["wg"], *q["wu"], *q["wd2"], 1,
+                                              eps=1e-5)
+torch.cuda.synchronize()
+print("AB " + json.dumps({k: hashlib.sha256(v.cpu().view(torch.int16).numpy().tobytes())
+                          .hexdigest()[:12] for k, v in out.items()}))
+"""
+
+
 def against(other: str, timing: str = "q8") -> int:
     """One timing (TIMING_Q8, or TIMING, TIMING_H, TIMING_M, TIMING_STREAM,
-    TIMING_STEPS, TIMING_VIT as abc, h, m, stream, steps, vit) in
+    TIMING_STEPS, TIMING_VIT, TIMING_QKV as abc, h, m, stream, steps, vit,
+    qkv; or TIMING_BITS as bits) in
     the package checked out at `other` (e.g. `git archive` of the parent
     commit unpacked there) and in this tree, in turns: other, this, this,
     other."""
     code = dict(q8=TIMING_Q8, abc=TIMING, h=TIMING_H, m=TIMING_M, stream=TIMING_STREAM,
-                steps=TIMING_STEPS, vit=TIMING_VIT)[timing]
+                steps=TIMING_STEPS, vit=TIMING_VIT, qkv=TIMING_QKV, bits=TIMING_BITS)[timing]
     for name, d in (("other", other), ("tree", str(REPO)), ("tree", str(REPO)), ("other", other)):
         res = run(Path(d), ["-c", code], 900)
         lines = [x for x in res.stdout.splitlines() if x.startswith("AB ")]
@@ -614,7 +716,9 @@ def main(names: list[str]) -> int:
     mega = bool(names) and all(n.startswith("m_") for n in names)
     q8 = bool(names) and all(n.startswith(("c8_", "i8_")) for n in names)
     st = bool(names) and all(n.startswith(("st_", "h8_", "i_")) for n in names)
+    qkv = bool(names) and all(n.startswith("q_") for n in names)
     variants, parent, timing = ((H_VARIANTS, "h_parent", TIMING_H) if h
+                                else (QKV_VARIANTS, "q_parent", TIMING_QKV) if qkv
                                 else (M_VARIANTS, "m_parent", TIMING_M) if mega
                                 else (Q8_VARIANTS, "q8_parent", TIMING_Q8) if q8
                                 else (ST_VARIANTS, "st_parent", TIMING_STREAM) if st

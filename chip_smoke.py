@@ -22,9 +22,8 @@ the script exits non-zero (there is no CPU fallback):
    pass) also at a tolerance sized to the output, D's and G's parts timed
    one by one (together they give the call's bits), the host time a call,
    and the cuBLAS composite of each (a sequence of calls, timed only).
-   H, H8, I and I8 (the TMA-fed weight stream, bf16 and int8) also beside
-   their earlier forms (the cp.async ring that J and J8 still run), with
-   both host times a call and their times by CTAs a tile.
+   H, H8, I and I8 (the TMA-fed weight stream, bf16 and int8) also with
+   their host times a call and their times by CTAs a tile.
    E also at a ragged S = 200. The decode matmuls H, I, J and their int8
    forms H8, I8, J8 also at B = 24 (with their GB/s of weights, cuBLAS's
    bf16 product of the same layer and the card's copy rate on the same
@@ -38,8 +37,10 @@ the script exits non-zero (there is no CPU fallback):
    bf16 and with int8 wo, over a cache of the main path's shape, its
    written K/V column checked, beside kernel C + kernel H on wo; 21-23 also
    give the same bits on a second launch and leave their ordered sums'
-   counters at 0), with their GB/s; the plain versions here take the same
-   bf16 inputs. The two
+   counters at 0; 19 and 20, on the weight stream, also against their
+   stream mirrors, 16 layers back to back, their host time a call and their
+   time by CTAs a tile), with their GB/s; the plain versions here take the
+   same bf16 inputs. The two
    kernels that no JAX path dispatches, so that no later phase launches
    them: 16 (read-only decode attention, C's split-KV body read only) over
    C's seeded cache at every layer, the layer a device scalar, the cache
@@ -140,7 +141,6 @@ from __future__ import annotations
 
 import copy
 import dataclasses
-import functools
 import json
 import os
 import statistics
@@ -1095,31 +1095,6 @@ def vit_block_parts(results, calls, x, ln, wqkv, bqkv, fc1, b1, fc2, b2, ls2):
             f"{cuda_ms(composite):.4f} ms")
 
 
-RING_ENTRIES = dict(H="gar_layer_matmul_ring", I="gar_layer_swiglu_ring",
-                    H8="gar_layer_matmul_q8_ring", I8="gar_layer_swiglu_q8_ring")
-
-
-def layer_ring(key, x, *args):
-    """Kernel `key`'s earlier form (H, I, H8 or I8 on csrc/layer_matmul.cu's
-    cp.async ring, J and J8's body), called as its wrapper is (x, the
-    weights and, for int8, each one's scales, the layer) behind the same
-    operand checks: timed beside the TMA-fed form; no path launches it."""
-    from grasp_any_region_tpu_torch.ops import _build
-    from grasp_any_region_tpu_torch.ops import layer_matmul as lm
-
-    *mats, layer = args
-    if key.endswith("8"):
-        lm._check_q8(x, layer, *zip(mats[::2], mats[1::2]))
-    else:
-        lm._check(x, layer, *mats)
-    out = torch.empty((x.shape[0], mats[0].shape[2]), dtype=x.dtype, device=x.device)
-    err = getattr(_build.library(), RING_ENTRIES[key])(
-        x.data_ptr(), *(m.data_ptr() for m in mats), out.data_ptr(), layer, x.shape[0],
-        x.shape[1], mats[0].shape[2], _build.stream_handle(x.device))
-    _build.check(err, RING_ENTRIES[key])
-    return out
-
-
 def stream_splits_chosen(key, dout, din, index):
     """The CTAs a tile that stream kernel `key`'s wrapper launches with."""
     from grasp_any_region_tpu_torch.ops import layer_matmul as lm
@@ -1141,11 +1116,8 @@ def decode_matmul_kernels(rnd):
     the same layer (the XLA form's ops; torch.mm is H's library call), for
     H8 torch._weight_int8pack_mm (the library's W8A16 product, timed only),
     and a device-to-device copy of the same bytes. H, H8 (both widths), I
-    and I8 (the TMA-fed stream) also beside their earlier forms
-    (`layer_ring`, checked the same way): both times, both
-    16-layers-back-to-back times, both host times a call, and the stream's
-    time by its CTAs a column tile (the cluster size, 1-16), at B = 24 and
-    1."""
+    and I8 (the TMA-fed stream) also with their host times a call and their
+    time by CTAs a column tile (the cluster size, 1-16), at B = 24 and 1."""
     import torch.nn.functional as F
     from grasp_any_region_tpu_torch.models.quantize import quantize_int8
     from grasp_any_region_tpu_torch.ops import layer_matmul as lm
@@ -1189,17 +1161,11 @@ def decode_matmul_kernels(rnd):
         dst = torch.empty_like(src)
         return cuda_ms(lambda: dst.copy_(src))
 
-    def beside_ring(name, key, kernel, plain, ws, x, ms, seq_ms, n_bytes):
+    def stream_report(name, key, kernel, ws, x, ms, seq_ms, n_bytes):
         """A stream kernel's time (one call, and a layer of 16 back to back,
-        measured by the caller) beside its earlier form's, both host times a
-        call, and its time by CTAs a tile (the cluster size, 1-16)."""
-        ring = functools.partial(layer_ring, key)
-        old_err = check(f"{name} earlier form", ring, plain, ws, layer, x)
-        old_ms = cuda_ms(lambda: ring(x, *ws, layer))
-        n_layers = ws[0].shape[0]
-        old_seq = cuda_ms(lambda: [ring(x, *ws, i) for i in range(n_layers)],
-                          iters=5, sleep_cycles=20_000_000) / n_layers
-        hus, old_hus = host_us(lambda: kernel(x, *ws, layer)), host_us(lambda: ring(x, *ws, layer))
+        measured by the caller), its host time a call, and its time by CTAs
+        a tile (the cluster size, 1-16)."""
+        hus = host_us(lambda: kernel(x, *ws, layer))
         chooser, times = lm._card_splits, {}
         try:  # the chooser's alternatives: the kernel takes 1-16 CTAs a tile
             for n in (1, 2, 4, 8, 16):
@@ -1211,10 +1177,7 @@ def decode_matmul_kernels(rnd):
         log(f"[kernels] {name}, B = {x.shape[0]}: TMA-fed {ms:.4f} ms = "
             f"{n_bytes / ms / 1e6:.0f} GB/s of weights, back to back {seq_ms:.4f} ms a layer = "
             f"{n_bytes / seq_ms / 1e6:.0f} GB/s, host {hus:.1f} us a call ({splits} CTAs a "
-            f"tile); earlier form (cp.async ring) {old_ms:.4f} ms, back to back {old_seq:.4f}, "
-            f"host {old_hus:.1f} us, max |earlier - plain| {old_err:.3e}; back to back "
-            f"{'no slower' if seq_ms <= old_seq else 'SLOWER'} than the earlier form; "
-            "by CTAs a tile, ms: " + ", ".join(f"{n}: {t:.4f}" for n, t in times.items()))
+            "tile); by CTAs a tile, ms: " + ", ".join(f"{n}: {t:.4f}" for n, t in times.items()))
 
     layer, results = 7, {}
     for label, (key, kernel, plain, kernel8, plain8, cublas, ws, din) in calls(
@@ -1251,9 +1214,9 @@ def decode_matmul_kernels(rnd):
             seq8_ms = cuda_ms(lambda: [kernel8(x, *qs, i) for i in range(n_layers)],
                               iters=5, sleep_cycles=20_000_000) / n_layers
             if key in ("H", "I"):
-                beside_ring(label, key, kernel, plain, ws, x, ms, seq_ms, n_bytes)
-                beside_ring(label.replace(key, key + "8", 1), key + "8", kernel8, plain8, qs, x,
-                            ms8, seq8_ms, n8)
+                stream_report(label, key, kernel, ws, x, ms, seq_ms, n_bytes)
+                stream_report(label.replace(key, key + "8", 1), key + "8", kernel8, qs, x, ms8,
+                              seq8_ms, n8)
             blas_ms = cuda_ms(lambda: cublas(x, *ws, layer))
             plain_ms = cuda_ms(lambda: plain(x, *ws, layer), iters=5)
             plain8_ms = cuda_ms(lambda: plain8(x, *qs, layer), iters=5)
@@ -1294,6 +1257,68 @@ def same_bits(run, out, name: str) -> None:
         raise AssertionError(f"{name}: an arrival counter is not back at 0 after the launch")
 
 
+def xn_low_half_probe(d: int = 2048, hq: int = 2048, hk: int = 512) -> float:
+    """Kernel 20 keeps JAX's fp32 xn as a bf16 high and a low half. On
+    inputs whose two halves of K cancel but for xn's low bits (x = 1 +
+    2^-7 and norm 1 + 2^-7 over the first half, x = 1 + 2^-6 and norm 1
+    over the second; int8 weights +1 then -1 with scales 1; cos 1, sin 0)
+    every output is rstd d 2^-15, about 0.062 at d = 2048; with xn rounded
+    to bf16 it is 0 or 8. Checked against the plain version (fp32 xn) at
+    TOL; returns the largest error."""
+    from grasp_any_region_tpu_torch.ops import decode_megakernel as mk
+
+    half = d // 2
+    x = torch.cat([torch.full((1, half), 1 + 2 ** -7), torch.full((1, half), 1 + 2 ** -6)], 1)
+    norm = torch.cat([torch.full((2, half), 1 + 2 ** -7), torch.ones(2, half)], 1)
+    sign = torch.cat([torch.ones(half), -torch.ones(half)]).to(torch.int8)
+    mats = [t.cuda() for n in (hq, hk, hk)
+            for t in (sign[None, :, None].expand(2, d, n).contiguous(), torch.ones(2, 1, n))]
+    cos, sin = torch.ones(1, 64, device="cuda"), torch.zeros(1, 64, device="cuda")
+    args = (x.to("cuda", torch.bfloat16), norm.to("cuda", torch.bfloat16), *mats, cos, sin, cos,
+            sin, 1)
+    out = mk.layer_qkv_norm_rope_q8(*args, eps=1e-5, head_dim=64)
+    torch.cuda.synchronize()
+    ref = mk.layer_qkv_norm_rope_q8_plain(*args, eps=1e-5, head_dim=64)
+    return max(max_err(o, r, "20's xn low-half probe") for o, r in zip(out, ref))
+
+
+def qkv_stream_report(key, kernel, args, kw, layer, w_bytes) -> str:
+    """Kernel 19 or 20 on the weight stream: held against its stream mirror
+    (the kernel's partition and order) at the chooser's CTAs a tile; its 16
+    layers back to back (each layer's weights cold: they exceed the L2), its
+    host time a call, and its time by CTAs a tile (1-8 bf16, 1-16 int8; a
+    size whose xn does not fit a CTA is refused). The line's tail."""
+    from grasp_any_region_tpu_torch.ops import decode_megakernel as mk
+
+    x, wq, wk = args[0], args[2], args[3 if key == "19" else 4]
+    q8, (hq, hk), d = key == "20", (wq.shape[-1], wk.shape[-1]), x.shape[1]
+    mirror = mk.layer_qkv_norm_rope_q8_stream_plain if q8 else mk.layer_qkv_norm_rope_stream_plain
+    splits = mk.qkv_card_splits(hq, hk, d, q8, x.device)
+    out = kernel(*args, layer, **kw)
+    want = mirror(*args, layer, splits=splits, **kw)
+    err = max(max_err(o, m, f"{key} against its stream mirror (B = {x.shape[0]})")
+              for o, m in zip(out, want))
+    n_layers = wq.shape[0]
+    seq_ms = cuda_ms(lambda: [kernel(*args, i, **kw) for i in range(n_layers)], iters=5,
+                     sleep_cycles=20_000_000) / n_layers
+    hus = host_us(lambda: kernel(*args, layer, **kw))
+    chooser, times = mk.qkv_card_splits, {}
+    try:  # the chooser's alternatives
+        for n in (1, 2, 4, 8, 16)[:5 if q8 else 4]:
+            mk.qkv_card_splits = lambda *_: n
+            try:
+                times[n] = f"{cuda_ms(lambda: kernel(*args, layer, **kw)):.4f}"
+            except RuntimeError:
+                times[n] = "refused"
+    finally:
+        mk.qkv_card_splits = chooser
+    probe = f"; xn low-half probe max err {xn_low_half_probe():.3e}" if q8 else ""
+    return (f"; max |kernel - stream mirror| {err:.3e}{probe}; {n_layers} layers back to back "
+            f"{seq_ms:.4f} ms a layer = {w_bytes / seq_ms / 1e6:.0f} GB/s; host {hus:.1f} us a "
+            f"call ({splits} CTAs a tile); by CTAs a tile, ms: "
+            + ", ".join(f"{n}: {v}" for n, v in times.items()))
+
+
 def mega_kernels(rnd):
     """Kernels 19-23 at the gar_1b decode shapes (hidden 2048, q 2048, kv 512,
     MLP 8192, 32 / 8 heads of 64), the weights stacked (16, Din, Dout) and
@@ -1302,8 +1327,9 @@ def mega_kernels(rnd):
     same bf16 inputs. 22 runs over a cache of the main path's shape, (16, B,
     8, 5120, 64) with the 4662-token prompt, write_pos just past prompt_pad;
     its written column must hold the new K/V and nothing else may change.
-    Beside each time: the weight (and, for 22, cache) bytes over it, and for
-    22 kernel C + kernel H (wo) on the same inputs, the fused step's pair."""
+    Beside each time: the weight (and, for 22, cache) bytes over it, for 22
+    kernel C + kernel H (wo) on the same inputs, the fused step's pair, and
+    for 19 and 20 `qkv_stream_report`."""
     from grasp_any_region_tpu_torch.core.config import gar_1b
     from grasp_any_region_tpu_torch.models.quantize import quantize_int8
     from grasp_any_region_tpu_torch.ops import decode_attention as dec
@@ -1364,7 +1390,8 @@ def mega_kernels(rnd):
             plain_ms = cuda_ms(lambda: plain(*args, layer, **kw), iters=5)
             lim = bound(w_bytes + io + nbytes(cos, sin, norm[layer]), ops)
             clusters = (f"; {m // mk.MLP_TILE} tiles x {mk.mlp_card_splits(m, d, b, key == '21', x.device)}"
-                        " CTAs" if key in ("21", "23") else "")
+                        " CTAs" if key in ("21", "23")
+                        else qkv_stream_report(key, kernel, args, kw, layer, w_bytes))
             log(f"[kernels] {key} ({kernel.__name__}), B = {b}: {ms:.4f} ms = "
                 f"{w_bytes / ms / 1e6:.0f} GB/s of weights ({w_bytes / 1e6:.1f} MB, bound "
                 f"{lim['bound_ms']:.4f} ms of {lim['bound_by']}); plain {plain_ms:.4f} ms; "
@@ -2128,9 +2155,9 @@ KERNELS = {
            "grasp_any_region_tpu/ops/flash_backward.py:369"),
     "18": ("flash_attention_bwd_dkv", "grasp_any_region_tpu_torch/csrc/flash_backward_sm90.cu",
            "grasp_any_region_tpu/ops/flash_backward.py:403"),
-    "19": ("layer_qkv_norm_rope", "grasp_any_region_tpu_torch/csrc/decode_megakernel.cu",
+    "19": ("layer_qkv_norm_rope", "grasp_any_region_tpu_torch/csrc/layer_matmul_sm90.cu",
            "grasp_any_region_tpu/ops/decode_megakernel.py:126"),
-    "20": ("layer_qkv_norm_rope_q8", "grasp_any_region_tpu_torch/csrc/decode_megakernel.cu",
+    "20": ("layer_qkv_norm_rope_q8", "grasp_any_region_tpu_torch/csrc/layer_matmul_sm90.cu",
            "grasp_any_region_tpu/ops/decode_megakernel.py:194"),
     "21": ("layer_mlp_residual_q8", "grasp_any_region_tpu_torch/csrc/decode_mlp_sm90.cu",
            "grasp_any_region_tpu/ops/decode_megakernel.py:272"),

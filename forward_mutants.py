@@ -2,8 +2,8 @@
 G (csrc/gemm_sm90.cu, its main loop csrc/gemm_sm90.cuh, and D's and G's
 LayerNorm pass, csrc/layer_norm.cuh), 5 (kernel
 18's non-causal pass with the folded tail, csrc/flash_backward_sm90.cu),
-C, C8 and 16 (the split-KV body, csrc/decode_split.cuh), H, H8, I and I8
-(the TMA-fed weight stream, csrc/layer_matmul_sm90.cu), 21 / 23 (the MLP's weight
+C, C8 and 16 (the split-KV body, csrc/decode_split.cuh), H, H8, I, I8, 19
+and 20 (the TMA-fed weight stream, csrc/layer_matmul_sm90.cu), 21 / 23 (the MLP's weight
 stream, csrc/decode_mlp_sm90.cu), 22 (C's body with wo,
 csrc/decode_attn_wo_sm90.cu) and their ordered sum (csrc/ordered_sum.cuh)
 that the checks must catch. Each mutant names the source it edits and is
@@ -16,9 +16,11 @@ builds a copy into its own build/), and two checks run there on the card:
   one;
 - phase 2 of chip_smoke.py (every kernel against its plain version), which
   stops at the first check that fails and names it. The mega step's
-  mutants (MEGA) run the mega kernels' part of it (`mega_kernels`: 19-23
-  at B = 24 and 1, each against its plain version, a second launch's
-  bits, the counters at 0), and only the mega kernels' card tests. C8's
+  mutants (MEGA, and 19's and 20's, QKV) run the mega kernels' part of it
+  (`mega_kernels`: 19-23 at B = 24 and 1, each against its plain version,
+  19 and 20 also against their stream mirrors and 20 on its xn low-half
+  probe, a second launch's bits, the counters at 0), and only the mega
+  kernels' card tests (QKV: 19's and 20's and the mega step's). C8's
   and I8's (Q8) run their kernel's part of it (`decode_attention_q8_kernel`
   or `decode_matmul_kernels`) and the int8 card cases; H8's, I's and x's
   misplaced box (ST) `decode_matmul_kernels` and the stream's card cases;
@@ -150,9 +152,9 @@ MUTANTS = {  # name: (source, [(old, new), ...] in it)
     "h_partial_summed_twice": (STREAM, [(
         "v[w] += recv[((w * splits + r) * a.rows + row) * cols + c];",
         "v[w] += (r == 1 ? 2.f : 1.f) * recv[((w * splits + r) * a.rows + row) * cols + c];")]),
-    "h_last_tile_not_stored": (STREAM, [("if (n0 + rank * cols + c >= a.dout) continue;",
-                                         "if (n0 + rank * cols + c >= a.dout || "
-                                         "blockIdx.y == gridDim.y - 1) continue;")]),
+    "h_last_tile_not_stored": (STREAM, [("if (col >= sg.dout) continue;",
+                                         "if (col >= sg.dout || blockIdx.y == gridDim.y - 1) "
+                                         "continue;")]),
     # 21: rank 1's gate / up partial dropped from the cluster's sum; one M
     # tile's slot counted twice; (21 / 22 / 23) the arrival counter not
     # reset, so a second launch never finds its last arriver
@@ -187,16 +189,16 @@ MUTANTS = {  # name: (source, [(old, new), ...] in it)
          "const int n_tiles = Q8 && rank == splits - 1 ? 0 "
          ": (f1 - f0 + kSplitRows - 1) / kSplitRows;")]),
     # I8: the up scale left off; rank 1's gate partial dropped from the sum
-    "i8_up_scale_dropped": (STREAM, [
-        ("      if (NW == 2) v[NW - 1] *= a.scale[NW - 1][n0 + rank * cols + c];\n", "")]),
+    "i8_up_scale_dropped": (STREAM, [("      if (NW == 2) v[NW - 1] *= sg.scale[NW - 1][col];\n",
+                                      "")]),
     "i8_gate_partial_dropped": (STREAM, [
         ("v[w] += recv[((w * splits + r) * a.rows + row) * cols + c];",
          "v[w] += (NW == 2 && w == 0 && r == 1 ? 0.f : 1.f) * "
          "recv[((w * splits + r) * a.rows + row) * cols + c];")]),
     # H8: the column scale left off; rank 1's partial dropped from the sum.
     # I: the up weight's map made over the gate weight
-    "h8_scale_dropped": (STREAM, [("      v[0] *= a.scale[0][n0 + rank * cols + c];\n",
-                                   "      if (NW == 2) v[0] *= a.scale[0][n0 + rank * cols + c];\n")]),
+    "h8_scale_dropped": (STREAM, [("      v[0] *= sg.scale[0][col];\n",
+                                   "      if (NW == 2) v[0] *= sg.scale[0][col];\n")]),
     "h8_partial_dropped": (STREAM, [
         ("v[w] += recv[((w * splits + r) * a.rows + row) * cols + c];",
          "v[w] += (Q8 && NW == 1 && r == 1 ? 0.f : 1.f) * "
@@ -204,6 +206,22 @@ MUTANTS = {  # name: (source, [(old, new), ...] in it)
     "i_up_as_gate": (STREAM, [
         ("stacked_weight_map(&maps.w[1], wu_all, 2, n_layers, din, m, kWsN, kWsBK)",
          "stacked_weight_map(&maps.w[1], wg_all, 2, n_layers, din, m, kWsN, kWsBK)")]),
+    # 19 / 20: a rope partner read from the next pair's column; the RMSNorm
+    # weight left off xn; v's segment dropped from the table (its tiles
+    # become k's, past k's columns, and store nothing); 20's low half of xn
+    # not multiplied; the last rank's partial not pushed to its finishers
+    "qkv_rope_partner_off": (STREAM, [("const int pc = second ? c - cols / 2 : c + cols / 2;",
+                                       "const int pc = (second ? c - cols / 2 : c + cols / 2) ^ 1;")]),
+    "qkv_norm_weight_skipped": (STREAM, [
+        ("            const float2 v = rms_value(xh[p], nh[p], rs);",
+         "            const float2 v = rms_value(xh[p], __floats2bfloat162_rn(1.f, 1.f), rs);")]),
+    "qkv_v_segment_dropped": (STREAM, [("  a.segs = 3;\n", "  a.segs = 2;\n")]),
+    "qkv_low_half_dropped": (STREAM, [("                mma_bf16_16816(acc[w][i][n], xl[h & 1][i], "
+                                       "b[n][0], b[n][1]);", "                ;")]),
+    "qkv_last_rank_not_pushed": (STREAM, [
+        ("  for (int e = threadIdx.x; e < splits * per_q; e += kWsThreads) {",
+         "  for (int e = threadIdx.x; e < (rope && rank == splits - 1 ? 0 : splits * per_q);\n"
+         "       e += kWsThreads) {")]),
 }
 MEGA = ("21_k_split_dropped", "21_tile_slot_twice", "counter_not_reset", "22_split_chunk_dropped",
         "22_head_partial_twice", "22_column_slice_shifted")
@@ -211,6 +229,9 @@ MEGA_TESTS = "mlp_residual or attention_wo or mega_decode_step"
 Q8 = ("c8_scale_pair_off", "c8_current_token_from_bf16", "c8_last_chunk_dropped",
       "i8_up_scale_dropped", "i8_gate_partial_dropped")
 Q8_TESTS = "q8 or swiglu or int8_decode_step"
+QKV = ("qkv_rope_partner_off", "qkv_norm_weight_skipped", "qkv_v_segment_dropped",
+       "qkv_low_half_dropped", "qkv_last_rank_not_pushed")
+QKV_TESTS = "qkv_norm_rope or mega_decode_step"
 ST = ("h8_scale_dropped", "h8_partial_dropped", "i_up_as_gate", "h_x_second_box_misplaced")
 ST_TESTS = ("stream_nw or stream_kernels or layer_matmul_kernels or layer_matmul_q8_kernels "
             "or decode_step")
@@ -307,15 +328,16 @@ def main(names: list[str]) -> int:
         if names and name not in names:
             continue
         dst = make_copy(f"mutant_{name}", [(src, old, new) for old, new in edits])
-        mega, q8, st, vit = name in MEGA, name in Q8, name in ST, name in VIT
-        verdicts = card_tests(dst, MEGA_TESTS if mega else Q8_TESTS if q8 else ST_TESTS if st
-                              else VIT_TESTS if vit else TESTS)
+        mega, q8, st, vit, qkv = (name in MEGA, name in Q8, name in ST, name in VIT,
+                                  name in QKV)
+        verdicts = card_tests(dst, MEGA_TESTS if mega else QKV_TESTS if qkv else Q8_TESTS if q8
+                              else ST_TESTS if st else VIT_TESTS if vit else TESTS)
         counts = {v: list(verdicts.values()).count(v) for v in ("failed", "trapped", "passed", "skipped")}
         print(f"[mutant] {name}: card tests {counts}", flush=True)
         for node, v in sorted(verdicts.items()):
             if v != "passed":
                 print(f"    {v}: {node.split('::')[1]}")
-        phase2 = run(dst, ["-c", PHASE2_MEGA if mega else PHASE2_Q8[name[:2]] if q8 or st
+        phase2 = run(dst, ["-c", PHASE2_MEGA if mega or qkv else PHASE2_Q8[name[:2]] if q8 or st
                               else PHASE2_VIT if vit else PHASE2], 1200)
         lines = (phase2.stdout + phase2.stderr).strip().splitlines()
         caught = [line for line in lines if "Error" in line][-1:] or lines[-1:]

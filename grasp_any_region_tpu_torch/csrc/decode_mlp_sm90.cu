@@ -58,6 +58,7 @@
 #include <cooperative_groups.h>
 
 #include "ordered_sum.cuh"
+#include "rms_prologue.cuh"  // rms_rstd, rms_pair
 #include "sm90.cuh"
 #include "weight_tile.cuh"  // box_frags, b_frags, frag_col, opt_in, launch_ex
 
@@ -232,34 +233,14 @@ __global__ void __launch_bounds__(kMlpThreads, MT == 1 ? 3 : 2)  // the CTAs an 
   // ---- consumers: xn over [k_begin, k_begin + xpitch - 8), once
   const int tid = threadIdx.x;
   grid_dependency_wait();  // x is the kernel before's output
-  for (int r = warp; r < a.rows; r += kMlpConsumers) {  // a warp a row, its loads all in flight
-    const bf16* row = a.x + static_cast<size_t>(r) * a.d;
-    float s = 0.f;
-#pragma unroll 8
-    for (int c = lane * 8; c < a.d; c += 256) {
-      const uint4 raw = *reinterpret_cast<const uint4*>(row + c);
-      const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float2 f = __bfloat1622float2(h[e]);
-        s += f.x * f.x + f.y * f.y;
-      }
-    }
-    s = warp_sum(s);
-    if (lane == 0) rstd[r] = rsqrtf(s / static_cast<float>(a.d) + a.eps);
-  }
+  rms_rstd(rstd, a.x, a.rows, a.d, a.eps, warp, kMlpConsumers, lane);
   consumer_sync();
   const int half = (a.xpitch - 8) / 2;  // column pairs a row
 #pragma unroll 4
   for (int e = tid; e < a.rows * half; e += 32 * kMlpConsumers) {
     const int r = e / half, c = 2 * (e % half), k = k_begin + c;
     float2 v = make_float2(0.f, 0.f);
-    if (k < k_end) {  // x * rstd * w in fp32, JAX's order
-      const float2 xv =
-          __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(a.x + r * a.d + k));
-      const float2 wv = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(a.norm + k));
-      v = make_float2(xv.x * rstd[r] * wv.x, xv.y * rstd[r] * wv.y);
-    }
+    if (k < k_end) v = rms_pair(a.x + r * a.d, a.norm, rstd[r], k);
     *reinterpret_cast<__nv_bfloat162*>(xn + r * a.xpitch + c) = __floats2bfloat162_rn(v.x, v.y);
   }
   consumer_sync();

@@ -2,11 +2,9 @@
 // the decode step, (B, Din) @ w_all[l] for a batch of B <= 32 rows, the
 // weight read in place from the stacked (L, Din, Dout) array at layer l.
 // Kernels H (layer_matmul: x @ w_all[l]), I (layer_swiglu: silu(x @ wg[l])
-// * (x @ wu[l])) and their int8 forms H8 and I8 ran on this body until they
-// moved to the TMA-fed weight stream of layer_matmul_sm90.cu; their earlier
-// forms stay callable here as gar_layer_matmul_ring, gar_layer_swiglu_ring,
-// gar_layer_matmul_q8_ring and gar_layer_swiglu_q8_ring, which no path
-// launches (chip_smoke.py times each beside its new form).
+// * (x @ wu[l])), their int8 forms H8 and I8, and the mega step's 19 and 20
+// ran on this body until they moved to the TMA-fed weight stream of
+// layer_matmul_sm90.cu.
 //
 // J  replaces grasp_any_region_tpu/ops/layer_matmul.py:layer_qkv
 //    (_qkv_kernel): the q, k and v products of one x, each column tile
@@ -16,7 +14,7 @@
 //
 // What bounds them: at B = 1 each weight byte feeds 1 FLOP (24 at B = 24),
 // so the time is the time to stream the weights from HBM (GAR-1B: 8.4 MB
-// for wo, 33.6 MB for w_down, 67.1 MB for gate + up, 12.6 MB for qkv).
+// for qkv).
 // The design is about bytes in flight and enough blocks:
 //
 //  * A block owns 64 output columns (128-byte weight rows, coalesced) and a
@@ -36,27 +34,22 @@
 //    its (rows, 64) fp32 partial in shared memory, the cluster syncs, and
 //    block r sums columns [r * 64/S, (r + 1) * 64/S) over the S blocks'
 //    shared memory (distributed shared memory), in rank order, so the
-//    result does not depend on timing; then it runs the epilogue (SiLU *
-//    up for I) and stores bf16. No workspace, no atomics, no second launch
+//    result does not depend on timing; then it stores bf16. No workspace, no atomics, no second launch
 //    (decode is host-bound, and every launch costs host time).
 //  * Ragged edges are bounded and masked: Din and Dout need only be
 //    multiples of 8 (16-byte rows), not of the tile; rows, columns and K
 //    past the edge are zero-filled by cp.async's src-size operand.
 //
-// J8 replaces layer_qkv_q8 (_qkv_q8_kernel) of the same file, as the
-// earlier forms of H8 and I8 did layer_matmul_q8 (_mm_q8_kernel) and
-// layer_swiglu_q8 (_swiglu_q8_kernel): W8A16, int8 weights with one fp32
-// scale per output column. They are this body instantiated over the
-// weight type W = int8_t, and they stream half the bytes of the bf16
-// forms, which is the whole point: GAR-1B at B = 1 bounds them at 4.2 MB
-// (wo), 16.8 MB (w_down), 33.6 MB (gate + up) and 6.3 MB (qkv) of int8
-// weights. What changes with the type:
+// J8 replaces layer_qkv_q8 (_qkv_q8_kernel) of the same file: W8A16, int8
+// weights with one fp32 scale per output column. It is this body
+// instantiated over the weight type W = int8_t, and it streams half the
+// bytes of J, which is the whole point: GAR-1B at B = 1 bounds it at 6.3 MB
+// of int8 weights. What changes with the type:
 //
 //  * A block owns 128 int8 columns, so weight rows stay 128 bytes and a
 //    64-row slab stays 8 KB, as in bf16: the shared-memory layout, the
 //    cp.async loads and the bytes in flight are the same. (64 int8
-//    columns, 64-byte rows, were slower in one call on I8, J8 and w_down,
-//    faster on wo.) Twice-wide
+//    columns, 64-byte rows, were slower in one call on J8.) Twice-wide
 //    tiles halve the column tiles, so K is split over clusters of up to 16
 //    blocks (Hopper's non-portable size) to keep two blocks per SM.
 //  * One ldmatrix.x4.trans over pairs of bytes gives each thread two
@@ -86,9 +79,7 @@ constexpr int kLmMaxRows = 32;
 template <typename W>
 struct LmSegment {
   const W* w;          // (Din, n) at layer l
-  const W* w2;         // I only: the up weight, (Din, n)
   const float* s;      // int8 only: the column scales of w, (n,) at layer l
-  const float* s2;     // int8 I only: those of w2
   bf16* out;           // (rows, n)
   int n;
   int tiles;           // column tiles of LmShape::BN
@@ -97,7 +88,7 @@ struct LmSegment {
 template <typename W>
 struct LmParams {
   const bf16* x;  // (rows, Din)
-  LmSegment<W> seg[3];  // H and I use seg[0]; J q, k, v. Unused segments have 0 tiles.
+  LmSegment<W> seg[3];  // q, k, v
   int rows, din;
   int k_split;    // rows of K per block of a cluster, a multiple of 16
 };
@@ -117,28 +108,27 @@ __device__ __forceinline__ LmSegment<W> pick_segment(const LmParams<W>& p, int& 
 template <typename W>
 constexpr int lm_bn() { return WTile<W>::BN; }
 
-template <typename W, bool SWIGLU, int MT>
+template <typename W, int MT>
 struct LmShape {
   static constexpr bool Q8 = sizeof(W) == 1;
-  static constexpr int NW = SWIGLU ? 2 : 1;      // weights per tile
   static constexpr int BN = WTile<W>::BN;        // 64 bf16 or 128 int8 columns
   static constexpr int WN = WTile<W>::WN;        // columns per warp
   static constexpr int NT = WTile<W>::NT;        // mma n-tiles per warp: 2 bf16, 4 int8
   static constexpr int BK = kLmBK;
   static constexpr int ROWS = 16 * MT;           // x rows, zero-filled past B
   static constexpr int W_BYTES = WTile<W>::BYTES;
-  static constexpr int STAGE = NW * W_BYTES + ROWS * kXLd * 2;  // bytes
+  static constexpr int STAGE = W_BYTES + ROWS * kXLd * 2;  // bytes
   static constexpr int SMEM_BYTES = kLmStages * STAGE;
-  static_assert(NW * ROWS * BN * 4 <= SMEM_BYTES, "the partials reuse the ring");
+  static_assert(ROWS * BN * 4 <= SMEM_BYTES, "the partials reuse the ring");
   static_assert(STAGE % 16 == 0 && W_BYTES % 16 == 0, "16-byte aligned slabs");
 };
 
 // Grid (S, tiles), cluster (S, 1, 1): the S blocks of a cluster share one
 // column tile and split its K.
-template <typename W, bool SWIGLU, int MT>
+template <typename W, int MT>
 __global__ void __launch_bounds__(kLmThreads) layer_mm_kernel(const LmParams<W> p) {
-  using Sh = LmShape<W, SWIGLU, MT>;
-  constexpr int NW = Sh::NW, ROWS = Sh::ROWS, BK = Sh::BK;
+  using Sh = LmShape<W, MT>;
+  constexpr int ROWS = Sh::ROWS, BK = Sh::BK;
   constexpr int BN = Sh::BN, NT = Sh::NT;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   cg::cluster_group cluster = cg::this_cluster();
@@ -150,64 +140,42 @@ __global__ void __launch_bounds__(kLmThreads) layer_mm_kernel(const LmParams<W> 
   const int k_end = min(p.din, k_begin + p.k_split);
   const int nk = k_end > k_begin ? (k_end - k_begin + BK - 1) / BK : 0;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  auto w_slab = [&](int stage, int w) {
-    return reinterpret_cast<W*>(smem_raw + stage * Sh::STAGE + w * Sh::W_BYTES);
-  };
+  auto w_slab = [&](int stage) { return reinterpret_cast<W*>(smem_raw + stage * Sh::STAGE); };
   auto x_slab = [&](int stage) {
-    return reinterpret_cast<bf16*>(smem_raw + stage * Sh::STAGE + NW * Sh::W_BYTES);
+    return reinterpret_cast<bf16*>(smem_raw + stage * Sh::STAGE + Sh::W_BYTES);
   };
 
-  // Slab kt: BK weight rows x BN columns of each weight, and the matching
+  // Slab kt: BK weight rows x BN columns of the weight, and the matching
   // ROWS x BK block of x; chunks past an edge land as zeros.
-  float acc[NW][MT][NT][4];
-#pragma unroll
-  for (int w = 0; w < NW; ++w) zero(acc[w]);
+  float acc[MT][NT][4];
+  zero(acc);
   const int wn = warp * Sh::WN;  // this warp's columns of the tile
   ring<kLmStages>(nk, [&](int kt) {
     const int stage = kt % kLmStages, kb = k_begin + kt * BK;
     const long long at = static_cast<long long>(kb) * seg.n + n0;
-    load_weight_slab<W, kLmThreads>(w_slab(stage, 0), seg.w + at, seg.n, k_end - kb,
-                                    seg.n - n0, tid);
-    if (SWIGLU)
-      load_weight_slab<W, kLmThreads>(w_slab(stage, 1), seg.w2 + at, seg.n, k_end - kb,
-                                      seg.n - n0, tid);
+    load_weight_slab<W, kLmThreads>(w_slab(stage), seg.w + at, seg.n, k_end - kb, seg.n - n0,
+                                    tid);
     load_x_slab<ROWS, kLmThreads>(x_slab(stage), p.x, p.rows, p.din, kb, k_end);
   }, [&](int kt) {
     const int stage = kt % kLmStages;
-#pragma unroll
-    for (int w = 0; w < NW; ++w)
-      mma_slab<W, MT, false>(acc[w], x_slab(stage), nullptr, kXLd, w_slab(stage, w), wn, lane);
+    mma_slab<W, MT>(acc, x_slab(stage), kXLd, w_slab(stage), wn, lane);
   });
 
-  // the ring is free: it now holds this block's partials, [NW][ROWS][BN] fp32
+  // the ring is free: it now holds this block's partials, [ROWS][BN] fp32
   float* part = reinterpret_cast<float*>(smem_raw);
-#pragma unroll
-  for (int w = 0; w < NW; ++w)
-    each_sum<W, MT>(acc[w], wn, lane,
-                    [&](int row, int col, float v) { part[(w * ROWS + row) * BN + col] = v; });
+  each_sum<W, MT>(acc, wn, lane, [&](int row, int col, float v) { part[row * BN + col] = v; });
   cluster.sync();  // every block's partials are in its shared memory
 
   // Block `split` finishes columns [c0, c0 + cols) of the tile: the sum of
-  // the S partials in rank order, the int8 column scales, then the epilogue.
+  // the S partials in rank order, then the int8 column scales.
   const int cols = BN / splits, c0 = split * cols;
   for (int e = tid; e < p.rows * cols; e += kLmThreads) {
     const int row = e / cols, col = c0 + e % cols;
     if (n0 + col >= seg.n) continue;
-    float v[NW];
-#pragma unroll
-    for (int w = 0; w < NW; ++w) v[w] = 0.f;
-    for (int r = 0; r < splits; ++r) {
-      const float* peer = cluster.map_shared_rank(part, r);
-#pragma unroll
-      for (int w = 0; w < NW; ++w) v[w] += peer[(w * ROWS + row) * BN + col];
-    }
-    if constexpr (Sh::Q8) {
-      v[0] *= seg.s[n0 + col];
-      if (SWIGLU) v[NW - 1] *= seg.s2[n0 + col];
-    }
-    // I: silu(gate) * up in fp32 (silu(g) = g * sigmoid(g)), one rounding
-    const float o = SWIGLU ? v[0] / (1.f + expf(-v[0])) * v[NW - 1] : v[0];
-    seg.out[static_cast<long long>(row) * seg.n + n0 + col] = __float2bfloat16(o);
+    float v = 0.f;
+    for (int r = 0; r < splits; ++r) v += cluster.map_shared_rank(part, r)[row * BN + col];
+    if constexpr (Sh::Q8) v *= seg.s[n0 + col];
+    seg.out[static_cast<long long>(row) * seg.n + n0 + col] = __float2bfloat16(v);
   }
   cluster.sync();  // no block leaves while a peer may still read its partials
 }
@@ -221,10 +189,10 @@ int lm_splits(int tiles, int din, int max_splits) {
   return s;
 }
 
-template <typename W, bool SWIGLU, int MT>
+template <typename W, int MT>
 int launch_lm_mt(LmParams<W> p, int tiles, cudaStream_t stream) {
-  using Sh = LmShape<W, SWIGLU, MT>;
-  auto kernel = layer_mm_kernel<W, SWIGLU, MT>;
+  using Sh = LmShape<W, MT>;
+  auto kernel = layer_mm_kernel<W, MT>;
   static bool done = false;  // the attribute is per kernel: set it once
   // clusters of 16 for int8: past the portable 8, Hopper has them
   if (const int err = opt_in(kernel, Sh::SMEM_BYTES, Sh::Q8, done)) return err;
@@ -235,7 +203,7 @@ int launch_lm_mt(LmParams<W> p, int tiles, cudaStream_t stream) {
 }
 
 // Fill in the tiles, check the shapes, pick the row tile (16 or 32 rows).
-template <typename W, bool SWIGLU>
+template <typename W>
 int launch_lm(LmParams<W> p, cudaStream_t stream) {
   constexpr int chunk = 16 / sizeof(W);
   if (p.rows < 1 || p.rows > kLmMaxRows || p.din <= 0 || p.din % 8)
@@ -247,8 +215,8 @@ int launch_lm(LmParams<W> p, cudaStream_t stream) {
     tiles += s.tiles;
   }
   if (tiles == 0 || tiles > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  if (p.rows <= 16) return launch_lm_mt<W, SWIGLU, 1>(p, tiles, stream);
-  return launch_lm_mt<W, SWIGLU, 2>(p, tiles, stream);
+  if (p.rows <= 16) return launch_lm_mt<W, 1>(p, tiles, stream);
+  return launch_lm_mt<W, 2>(p, tiles, stream);
 }
 
 template <typename W>
@@ -262,32 +230,7 @@ LmSegment<W> segment(const void* w_all, const void* s_all, void* out, int layer,
                      int n) {
   const float* s = s_all ? static_cast<const float*>(s_all) + static_cast<long long>(layer) * n
                          : nullptr;
-  return {at_layer<W>(w_all, layer, din, n), nullptr, s, nullptr, static_cast<bf16*>(out), n, 0};
-}
-
-template <typename W>
-int matmul(const void* x, const void* w_all, const void* s_all, void* out, int layer, int rows,
-           int din, int dout, void* stream) {
-  LmParams<W> p{};
-  p.x = static_cast<const bf16*>(x);
-  p.seg[0] = segment<W>(w_all, s_all, out, layer, din, dout);
-  p.rows = rows;
-  p.din = din;
-  return launch_lm<W, false>(p, static_cast<cudaStream_t>(stream));
-}
-
-template <typename W>
-int swiglu(const void* x, const void* wg_all, const void* sg_all, const void* wu_all,
-           const void* su_all, void* out, int layer, int rows, int din, int m, void* stream) {
-  LmParams<W> p{};
-  p.x = static_cast<const bf16*>(x);
-  p.seg[0] = segment<W>(wg_all, sg_all, out, layer, din, m);
-  const LmSegment<W> up = segment<W>(wu_all, su_all, out, layer, din, m);
-  p.seg[0].w2 = up.w;
-  p.seg[0].s2 = up.s;
-  p.rows = rows;
-  p.din = din;
-  return launch_lm<W, true>(p, static_cast<cudaStream_t>(stream));
+  return {at_layer<W>(w_all, layer, din, n), s, static_cast<bf16*>(out), n, 0};
 }
 
 template <typename W>
@@ -301,43 +244,18 @@ int qkv(const void* x, const void* wq_all, const void* sq_all, const void* wk_al
   p.seg[2] = segment<W>(wv_all, sv_all, v, layer, d, hk);
   p.rows = rows;
   p.din = d;
-  return launch_lm<W, false>(p, static_cast<cudaStream_t>(stream));
+  return launch_lm<W>(p, static_cast<cudaStream_t>(stream));
 }
 
 }  // namespace gar
 
 using gar::bf16;
 
-// The earlier forms of H, I, H8 and I8 (before layer_matmul_sm90.cu), for
-// comparison only.
-extern "C" int gar_layer_matmul_ring(const void* x, const void* w_all, void* out, int layer,
-                                     int rows, int din, int dout, void* stream) {
-  return gar::matmul<bf16>(x, w_all, nullptr, out, layer, rows, din, dout, stream);
-}
-
-extern "C" int gar_layer_swiglu_ring(const void* x, const void* wg_all, const void* wu_all,
-                                     void* out, int layer, int rows, int din, int m,
-                                     void* stream) {
-  return gar::swiglu<bf16>(x, wg_all, nullptr, wu_all, nullptr, out, layer, rows, din, m, stream);
-}
-
 extern "C" int gar_layer_qkv(const void* x, const void* wq_all, const void* wk_all,
                              const void* wv_all, void* q, void* k, void* v, int layer, int rows,
                              int d, int hq, int hk, void* stream) {
   return gar::qkv<bf16>(x, wq_all, nullptr, wk_all, nullptr, wv_all, nullptr, q, k, v, layer,
                         rows, d, hq, hk, stream);
-}
-
-extern "C" int gar_layer_matmul_q8_ring(const void* x, const void* w_all, const void* s_all,
-                                        void* out, int layer, int rows, int din, int dout,
-                                        void* stream) {
-  return gar::matmul<int8_t>(x, w_all, s_all, out, layer, rows, din, dout, stream);
-}
-
-extern "C" int gar_layer_swiglu_q8_ring(const void* x, const void* wg_all, const void* sg_all,
-                                        const void* wu_all, const void* su_all, void* out,
-                                        int layer, int rows, int din, int m, void* stream) {
-  return gar::swiglu<int8_t>(x, wg_all, sg_all, wu_all, su_all, out, layer, rows, din, m, stream);
 }
 
 extern "C" int gar_layer_qkv_q8(const void* x, const void* wq_all, const void* sq_all,

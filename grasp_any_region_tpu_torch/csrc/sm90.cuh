@@ -88,6 +88,10 @@ __device__ __forceinline__ void cluster_arrive_relaxed() {
   asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
 }
 
+__device__ __forceinline__ void cluster_arrive() {  // release: this CTA's stores before it
+  asm volatile("barrier.cluster.arrive.aligned;\n" ::: "memory");
+}
+
 __device__ __forceinline__ void cluster_wait() {
   asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
 }

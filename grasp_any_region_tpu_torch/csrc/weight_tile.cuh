@@ -1,7 +1,6 @@
-// The building blocks of the kernels that stream decode weights: kernels
-// I, J, H8-J8 and H's earlier form (layer_matmul.cu), the mega decode step's 19 and 20
-// (decode_megakernel.cu), and the fragment helpers of the TMA-fed 21-23
-// (decode_mlp_sm90.cu, decode_attn_wo_sm90.cu).
+// The building blocks of the kernels that stream decode weights: kernels J
+// and J8 (layer_matmul.cu), and the fragment helpers of the TMA-fed H-I8,
+// 19-23 (layer_matmul_sm90.cu, decode_mlp_sm90.cu, decode_attn_wo_sm90.cu).
 //
 // A slab is kWBK weight rows x WTile<W>::BN columns: 64 bf16 or 128 int8
 // columns, 128-byte rows either way, in shared memory at a pitch of 144
@@ -159,26 +158,21 @@ __device__ __forceinline__ void ring(int n, Load load, Use use) {
 }
 
 // acc += A[0:16 MT, 0:kWBK] @ slab for this warp's columns; A bf16 at pitch
-// lda; with SPLIT also A's low half a_lo @ slab (the same weight fragments).
-template <typename W, int MT, bool SPLIT>
+// lda.
+template <typename W, int MT>
 __device__ __forceinline__ void mma_slab(float (&acc)[MT][WTile<W>::NT][4], const bf16* a,
-                                         const bf16* a_lo, int lda, const W* slab, int wn,
-                                         int lane) {
+                                         int lda, const W* slab, int wn, int lane) {
   constexpr int NT = WTile<W>::NT;
 #pragma unroll
   for (int kk = 0; kk < kWBK; kk += 16) {
     uint32_t bfr[NT][2];
     weight_frags<W>(bfr, slab, kk, wn, lane);
 #pragma unroll
-    for (int h = 0; h < (SPLIT ? 2 : 1); ++h) {
-      const bf16* src = h ? a_lo : a;
+    for (int i = 0; i < MT; ++i) {
+      uint32_t af[4];
+      ldmatrix_x4(af, a + (i * 16 + (lane & 15)) * lda + kk + (lane >> 4) * 8);
 #pragma unroll
-      for (int i = 0; i < MT; ++i) {
-        uint32_t af[4];
-        ldmatrix_x4(af, src + (i * 16 + (lane & 15)) * lda + kk + (lane >> 4) * 8);
-#pragma unroll
-        for (int j = 0; j < NT; ++j) mma_bf16_16816(acc[i][j], af, bfr[j][0], bfr[j][1]);
-      }
+      for (int j = 0; j < NT; ++j) mma_bf16_16816(acc[i][j], af, bfr[j][0], bfr[j][1]);
     }
   }
 }

@@ -26,12 +26,20 @@ head_dim) rows; the kernel and the plain versions read column c of a
 table of width w at c mod w, so both give the same function. The port's
 step passes the (B, head_dim) rows.
 
-The CUDA kernels stream the weights as H does. 19 and 20
-(csrc/decode_megakernel.cu) are kernel J's cp.async design; 20 keeps JAX's
-fp32 xn exact on the tensor cores by splitting it into a bf16 high and low
-half (two products with one weight fragment), as 21 does its activation.
-23 and 21 (csrc/decode_mlp_sm90.cu) are one TMA-fed weight stream over
-every SM: a cluster of `mlp_splits` CTAs per 128 MLP columns splits gate
+The CUDA kernels stream the weights as H does. 19 and 20 run on H's
+TMA-fed weight stream (csrc/layer_matmul_sm90.cu) over a table of three
+segments, q, k and v (`layer_matmul.segment_plan`), in clusters of
+`qkv_card_splits` CTAs a column tile. Each CTA normalises x once into
+shared memory over its K range (the RMSNorm prologue it shares with 21 /
+23, csrc/rms_prologue.cuh); 20 keeps JAX's fp32 xn on the tensor cores as a
+bf16 high and low half (two products with one weight fragment), as 21 does
+its activation. The finisher of a q or k column also sums its rotate-half
+partner (`layer_matmul.finisher_cols`) and applies rope before the one
+rounding. `layer_qkv_norm_rope_stream_plain` and
+`layer_qkv_norm_rope_q8_stream_plain` follow that partition and order on
+any device, as mirrors for the tests. 23 and 21 (csrc/decode_mlp_sm90.cu)
+are one TMA-fed weight stream over every SM: a cluster of `mlp_splits`
+CTAs per 128 MLP columns splits gate
 and up over K, meets over distributed shared memory, and streams the
 tile's w_down rows for its share of the output columns (`mlp_plan`). 22
 (csrc/decode_attn_wo_sm90.cu) is kernel C's split-KV cluster body with wo
@@ -62,6 +70,7 @@ import torch.nn.functional as F
 
 from . import _build
 from . import decode_attention as dec
+from . import layer_matmul as lm
 from .attention import NEG_INF
 from .norms import rms_norm
 from .rope import rotate_half
@@ -110,6 +119,69 @@ def layer_qkv_norm_rope_q8_plain(x, norm_all, wq_q8, sq, wk_q8, sk, wv_q8, sv, c
                                                                (wv_q8, sv)))
     return (_rope_flat(q, cosq, sinq, head_dim).to(x.dtype),
             _rope_flat(k, cosk, sink, head_dim).to(x.dtype), v.to(x.dtype))
+
+
+def _rope_pairs(z: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor, n: int,
+                splits: int) -> torch.Tensor:
+    """Rope on fp32 (B, N) sums as 19 / 20's finishers apply it to tiles of
+    n columns split `splits` ways: each column with the partner its
+    finisher holds beside it (`layer_matmul.finisher_cols`), v cos +
+    (second half ? pv : -pv) sin; the (B, w) tables read at column mod w."""
+    width = z.shape[1]
+    partner, sign = list(range(n)), [0.0] * n
+    for cols in lm.finisher_cols(n, splits, rope=True):
+        half = len(cols) // 2
+        for i, c in enumerate(cols):
+            partner[c], sign[c] = (cols[i + half], -1.0) if i < half else (cols[i - half], 1.0)
+    tile = torch.arange(width, device=z.device)
+    base = tile - tile % n
+    idx = base + torch.tensor(partner, device=z.device)[tile % n]
+    sgn = torch.tensor(sign, device=z.device)[tile % n]
+    reps = width // cos.shape[-1]
+    cos, sin = cos.float().repeat(1, reps), sin.float().repeat(1, reps)
+    return z * cos + sgn * z[:, idx] * sin
+
+
+def _qkv_stream(xn, weights, scales, tables, layer: int, splits: int, dtype):
+    """19 / 20 in the stream's partition and order (xn fp32): per segment
+    (q, k, v) `layer_matmul._stream_sums` (the tiles, each CTA's stages in
+    order, the ranks in order), each column's int8 scale, then rope on q and
+    k through the finishers' pairs; one rounding each."""
+    outs = []
+    for i, w in enumerate(weights):
+        (z,) = lm._stream_sums(xn, (w,), layer, splits)
+        if scales is not None:
+            z = z * scales[i][layer].float()
+        if i < 2:
+            n = lm.stream_n(torch.int8) if w.dtype == torch.int8 else lm.STREAM_N
+            z = _rope_pairs(z, tables[2 * i], tables[2 * i + 1], n, splits)
+        outs.append(z.to(dtype))
+    return tuple(outs)
+
+
+def layer_qkv_norm_rope_stream_plain(x, norm_all, wq_all, wk_all, wv_all, cosq, sinq, cosk,
+                                     sink, layer: int, *, eps: float, head_dim: int,
+                                     splits: int):
+    """Kernel 19 in its partition and order (`_qkv_stream`), xn rounded to
+    x's dtype. A mirror for the tests, not a path."""
+    if head_dim != HEAD_DIM:
+        raise ValueError(f"kernel 19's rope pairs are built for head_dim {HEAD_DIM}")
+    xn = rms_norm(x, norm_all[layer], eps).float()
+    return _qkv_stream(xn, (wq_all, wk_all, wv_all), None, (cosq, sinq, cosk, sink), layer,
+                       splits, x.dtype)
+
+
+def layer_qkv_norm_rope_q8_stream_plain(x, norm_all, wq_q8, sq, wk_q8, sk, wv_q8, sv, cosq, sinq,
+                                        cosk, sink, layer: int, *, eps: float, head_dim: int,
+                                        splits: int):
+    """Kernel 20 in its partition and order (`_qkv_stream` at 128-column
+    tiles), xn fp32 (the kernel carries it as two bf16 halves). A mirror for
+    the tests, not a path."""
+    if head_dim != HEAD_DIM:
+        raise ValueError(f"kernel 20's rope pairs are built for head_dim {HEAD_DIM}")
+    xn = rms_norm(x.float(), norm_all[layer], eps)
+    return _qkv_stream(xn, (wq_q8, wk_q8, wv_q8), (sq, sk, sv), (cosq, sinq, cosk, sink), layer,
+                       splits, x.dtype)
 
 
 def layer_mlp_residual_plain(x, norm_all, wg_all, wu_all, wd_all, layer: int, *, eps: float):
@@ -177,6 +249,33 @@ def box_cols(itemsize: int) -> int:
 def mlp_stage_rows(itemsize: int) -> int:
     """K rows of a gate / up stage of kernels 21 / 23: 64 int8, 32 bf16."""
     return MLP_STAGE_BYTES // (2 * MLP_TILE * itemsize)
+
+
+def qkv_splits(tiles: int, d: int, itemsize: int, *, sms: int = 132) -> int:
+    """Kernels 19 / 20's CTAs a column tile (the cluster size):
+    `layer_matmul.stream_splits` over the three segments' tiles (two CTAs
+    an SM), within the rope finishers' limit of 4 pairs at the least
+    (box_cols(itemsize) / 8: 8 bf16, 16 int8). GAR-1B: 4 for 19 (48 tiles;
+    8, four CTAs an SM, measured slower at B = 24: ab_kernels.py q_*,
+    PERF.md), 8 for 20 (24 tiles)."""
+    return min(lm.stream_splits(tiles, d, sms=sms), box_cols(itemsize) // 8)
+
+
+def qkv_tiles(hq: int, hk: int, itemsize: int) -> int:
+    """The column tiles of 19 / 20's segment table: q's, then k's and v's."""
+    n = box_cols(itemsize)
+    return -(-hq // n) + 2 * -(-hk // n)
+
+
+@functools.lru_cache(maxsize=None)
+def _card_qkv_splits(tiles: int, d: int, itemsize: int, index: int) -> int:
+    return qkv_splits(tiles, d, itemsize, sms=_build.sm_count(index))
+
+
+def qkv_card_splits(hq: int, hk: int, d: int, q8: bool, device: torch.device) -> int:
+    """`qkv_splits` on the card (its SM count)."""
+    itemsize = 1 if q8 else 2
+    return _card_qkv_splits(qkv_tiles(hq, hk, itemsize), d, itemsize, device.index)
 
 
 def mlp_splits(tiles: int, d: int, itemsize: int, *, sms: int = 132,
@@ -425,12 +524,13 @@ def _qkv_launch(key, fn, x, norm_all, weights, scales, cosq, sinq, cosk, sink, l
     tables = (cosq, sinq, cosk, sink)
     check_qkv_norm_rope(x, norm_all, weights, scales, tables, layer, head_dim)
     b, d = x.shape
-    hq, hk = weights[0].shape[-1], weights[1].shape[-1]
+    n_layers, hq, hk = norm_all.shape[0], weights[0].shape[-1], weights[1].shape[-1]
     q, k, v = (torch.empty((b, n), dtype=x.dtype, device=x.device) for n in (hq, hk, hk))
     mats = [t for i, w in enumerate(weights) for t in ((w,) if scales is None else (w, scales[i]))]
+    splits = qkv_card_splits(hq, hk, d, scales is not None, x.device)
     err = fn(x.data_ptr(), norm_all.data_ptr(), *(t.data_ptr() for t in mats),
              *(t.data_ptr() for t in tables), q.data_ptr(), k.data_ptr(), v.data_ptr(),
-             layer, b, d, hq, hk, cosq.shape[-1], cosk.shape[-1], eps,
+             layer, n_layers, b, d, hq, hk, cosq.shape[-1], cosk.shape[-1], splits, eps,
              _build.stream_handle(x.device))
     _build.check(err, fn.__name__)
     launches[key] += 1

@@ -29,7 +29,11 @@ int8 columns), `stream_splits` picks the cluster size,
 `stream_plan` says which (column tile, K range) each CTA takes, and
 `layer_matmul_stream_plain`, `layer_matmul_q8_stream_plain`,
 `layer_swiglu_stream_plain` and `layer_swiglu_q8_stream_plain` sum in the
-kernel's order. J and J8 run on csrc/layer_matmul.cu's cp.async ring.
+kernel's order. The stream's grid runs over a table of up to three
+segments (`segment_plan`); the mega step's 19 and 20
+(ops/decode_megakernel.py) take three, q, k and v, with rope in the
+finishers (`finisher_cols`). J and J8 run on csrc/layer_matmul.cu's
+cp.async ring.
 
 H8, I8 and J8 (`layer_matmul_q8`, `layer_swiglu_q8`, `layer_qkv_q8`,
 `grasp_any_region_tpu/ops/layer_matmul.py:165, 207, 253`, Pallas bodies
@@ -83,6 +87,7 @@ MAX_ROWS = 32  # batch rows the kernels take (two 16-row tensor-core tiles)
 STREAM_N, STREAM_MAX_SPLITS, STREAM_CTAS_PER_SM = 64, 8, 2
 STREAM_CTAS_PER_SM_Q8 = 1
 STREAM_BK = 128
+ROPE_HEAD = 64  # a roped segment's heads: rotate-half pairs (c, c + 32)
 
 
 def stream_n(dtype: torch.dtype) -> int:
@@ -115,6 +120,36 @@ def stream_plan(din: int, dout: int, splits: int,
     k_split = -(-(-(-din // splits)) // STREAM_BK) * STREAM_BK
     return [(t, r, min(din, r * k_split), min(din, (r + 1) * k_split))
             for t in range(-(-dout // n)) for r in range(splits)]
+
+
+def segment_plan(douts, din: int, splits: int,
+                 n: int = STREAM_N) -> List[Tuple[int, int, int, int, int]]:
+    """(segment, tile, rank, k0, k1) of each CTA of the stream's grid over a
+    segment table of widths `douts`: the segments' column tiles of n columns
+    follow each other along the grid's y (a CTA finds its segment by the
+    tiles' prefix sums), each split over `splits` CTAs as `stream_plan`
+    splits one weight (one k_split for all)."""
+    return [(s, t, r, k0, k1) for s, dout in enumerate(douts)
+            for t, r, k0, k1 in stream_plan(din, dout, splits, n)]
+
+
+def finisher_cols(n: int, splits: int, rope: bool = False) -> List[List[int]]:
+    """The tile columns each CTA of a cluster finishes (sums over the ranks,
+    scales, rounds), in the order it holds them (csrc/layer_matmul_sm90.cu:
+    ws_col): rank q the q-th contiguous n / splits; under rope (n / splits
+    >= 8) its share of the tile's first halves (the columns c with c % 64 <
+    32, in order), then their partners 32 columns on, so that its i-th and
+    (i + n / 2 splits)-th columns are a rotate-half pair."""
+    cols = n // splits
+    if not rope:
+        return [list(range(q * cols, (q + 1) * cols)) for q in range(splits)]
+    half, pair = cols // 2, ROPE_HEAD // 2
+
+    def col(q: int, i: int) -> int:
+        f = q * half + i % half
+        return f // pair * ROPE_HEAD + f % pair + (0 if i < half else pair)
+
+    return [[col(q, i) for i in range(cols)] for q in range(splits)]
 
 
 def _stream_sums(x: torch.Tensor, weights: Tuple[torch.Tensor, ...], layer: int,

@@ -712,35 +712,6 @@ def test_stream_kernels_every_row_count(rnd, key):
         del x, out
 
 
-@pytest.mark.parametrize("key", ["H", "I", "H8", "I8"])
-def test_ring_forms_match_their_plain_versions(rnd, key):
-    """The earlier forms of H, I, H8 and I8 (csrc/layer_matmul.cu's cp.async
-    ring, on no path; chip_smoke.py times them beside the stream) against
-    the plain versions at ragged widths and GAR-1B's, B = 1 and 24."""
-    import functools
-
-    import chip_smoke
-
-    ring = functools.partial(chip_smoke.layer_ring, key)
-    plain = dict(H=lm.layer_matmul_plain, I=lm.layer_swiglu_plain, H8=lm.layer_matmul_q8_plain,
-                 I8=lm.layer_swiglu_q8_plain)[key]
-    for din, n in ((200, 144), (2048, 8192 if key.startswith("I") else 2048)):
-        if key == "H":
-            mats = (_bf16_stack(rnd, 2, din, n),)
-        elif key == "I":
-            mats = (_bf16_stack(rnd, 2, din, n), _bf16_stack(rnd, 2, din, n))
-        else:
-            mats = _swiglu_q8_case(rnd, din, n, 7)[:2 if key == "H8" else 4]
-        for b in (1, 24):
-            x = rnd(b, din)
-            before = dict(lm.launches)
-            out = ring(x, *mats, 1)
-            torch.cuda.synchronize()
-            assert lm.launches == before  # the ring forms count in no kernel
-            torch.testing.assert_close(out.float(), _plain_of(plain, x, mats, 1), **TOL,
-                                       msg=f"{key} ring {din} x {n}, B = {b}")
-
-
 def test_layer_matmul_q8_wrappers_reject_what_the_kernels_do_not_take(rnd):
     w, s = _q8(rnd, 2, 64, 128)
     x = rnd(3, 64)
@@ -1147,6 +1118,26 @@ def _norm(rnd, n_layers, d):
     return (1.0 + 0.2 * rnd(n_layers, d).float()).to(torch.bfloat16)
 
 
+def _qkv_case(rnd, q8, d, hq, hk, n_layers=3):
+    """Kernel 19 or 20, its plain version, its stream mirror, its counter
+    key and seeded (L = n_layers) weights (int8: with their scales)."""
+    if q8:
+        mats = (*_q8(rnd, n_layers, d, hq), *_q8(rnd, n_layers, d, hk), *_q8(rnd, n_layers, d, hk))
+        return (mk.layer_qkv_norm_rope_q8, mk.layer_qkv_norm_rope_q8_plain,
+                mk.layer_qkv_norm_rope_q8_stream_plain, "20", mats)
+    w = _decode_weights(rnd, n_layers, d, 256, hq, hk)
+    return (mk.layer_qkv_norm_rope, mk.layer_qkv_norm_rope_plain,
+            mk.layer_qkv_norm_rope_stream_plain, "19", (w["wq"], w["wk"], w["wv"]))
+
+
+def _qkv_tables(b, hq, hk):
+    """The (B, 64) rope rows for q and k, and JAX's tiled (B, N) tables."""
+    cos, sin = _rope_rows(b)
+    return {"rows": (cos, sin, cos, sin),
+            "tiled": (cos.repeat(1, hq // 64), sin.repeat(1, hq // 64), cos.repeat(1, hk // 64),
+                      sin.repeat(1, hk // 64))}
+
+
 @pytest.mark.parametrize("q8", [False, True], ids=["bf16", "int8"])
 @pytest.mark.parametrize("b", [1, 5, 24])
 @pytest.mark.parametrize("d,hq,hk", [(256, 256, 64), (384, 256, 128), (2048, 2048, 512)])
@@ -1155,17 +1146,8 @@ def test_qkv_norm_rope_kernels(rnd, q8, b, d, hq, hk):
     rows and with JAX's tiled (B, N) tables."""
     layer = 1
     x, norm = rnd(b, d) * 3, _norm(rnd, 3, d)
-    if q8:
-        mats = (*_q8(rnd, 3, d, hq), *_q8(rnd, 3, d, hk), *_q8(rnd, 3, d, hk))
-        kernel, plain, key = mk.layer_qkv_norm_rope_q8, mk.layer_qkv_norm_rope_q8_plain, "20"
-    else:
-        w = _decode_weights(rnd, 3, d, 256, hq, hk)
-        mats = (w["wq"], w["wk"], w["wv"])
-        kernel, plain, key = mk.layer_qkv_norm_rope, mk.layer_qkv_norm_rope_plain, "19"
-    cos, sin = _rope_rows(b)
-    for tables in ((cos, sin, cos, sin),
-                   (cos.repeat(1, hq // 64), sin.repeat(1, hq // 64), cos.repeat(1, hk // 64),
-                    sin.repeat(1, hk // 64))):
+    kernel, plain, _, key, mats = _qkv_case(rnd, q8, d, hq, hk)
+    for tables in _qkv_tables(b, hq, hk).values():
         before = dict(mk.launches)
         out = kernel(x, norm, *mats, *tables, layer, eps=1e-5, head_dim=64)
         torch.cuda.synchronize()
@@ -1174,6 +1156,95 @@ def test_qkv_norm_rope_kernels(rnd, q8, b, d, hq, hk):
         for o, r in zip(out, ref):
             assert o.dtype == torch.bfloat16 and o.shape == r.shape
             torch.testing.assert_close(o.float(), r.float(), **TOL)
+
+
+@pytest.mark.parametrize("q8", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("b", [1, 2, 17, 24, 32])
+@pytest.mark.parametrize("d,hq,hk", [(200, 128, 64), (1032, 384, 128), (2048, 2048, 512)])
+def test_qkv_norm_rope_kernels_match_the_stream_mirror(rnd, q8, b, d, hq, hk):
+    """Kernels 19 and 20 on the weight stream against the mirror of their
+    partition and order (`layer_qkv_norm_rope_stream_plain`, at the
+    chooser's CTAs a tile) and the plain version, at every layer, with both
+    table widths; D = 200 and 1032 are not multiples of 128 (a part stage),
+    and 200 leaves most CTAs of a cluster no K rows."""
+    x, norm = rnd(b, d) * 3, _norm(rnd, 3, d)
+    kernel, plain, mirror, _, mats = _qkv_case(rnd, q8, d, hq, hk)
+    splits = mk.qkv_card_splits(hq, hk, d, q8, x.device)
+    for name, tables in _qkv_tables(b, hq, hk).items():
+        for layer in range(3):
+            out = kernel(x, norm, *mats, *tables, layer, eps=1e-5, head_dim=64)
+            torch.cuda.synchronize()
+            want = mirror(x, norm, *mats, *tables, layer, eps=1e-5, head_dim=64, splits=splits)
+            ref = plain(x, norm, *mats, *tables, layer, eps=1e-5, head_dim=64)
+            for o, m, r, part in zip(out, want, ref, "qkv"):
+                msg = f"{part}, {name} tables, layer {layer}, {splits} CTAs a tile"
+                torch.testing.assert_close(o.float(), m.float(), **TOL, msg=msg)
+                torch.testing.assert_close(o.float(), r.float(), **TOL, msg=msg)
+
+
+def _qkv_fits(q8, d, b, splits):
+    """Whether 19 / 20's CTA holds xn over its K range (k_split columns of
+    B rounded up to 8 rows, two bf16 halves for 20) beside two 16 KB stages,
+    its received partials and 1200 bytes of barriers and slack, within the
+    227 KB of an SM (csrc/layer_matmul_sm90.cu: launch_stream)."""
+    k_split = -(-(-(-d // splits)) // 128) * 128
+    rows = -(-b // 8) * 8
+    xn = (2 if q8 else 1) * k_split * 2 * rows
+    return xn + 2 * 16384 + b * (128 if q8 else 64) * 4 + 1200 <= 232448
+
+
+@pytest.mark.parametrize("q8", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("splits", [1, 2, 4, 8, 16])
+def test_qkv_norm_rope_kernel_any_split(rnd, monkeypatch, q8, splits):
+    """Kernels 19 and 20 at GAR-1B's widths over clusters of 1-16 CTAs a
+    tile (the chooser replaced) against the stream mirror, at B = 1 and 24;
+    a cluster whose rope finishers would hold fewer than 4 pairs of a head
+    (19 at 16), or whose CTA cannot hold xn (20 at 1, B = 24), is
+    refused."""
+    d, hq, hk, layer = 2048, 2048, 512, 2
+    monkeypatch.setattr(mk, "qkv_card_splits", lambda *_: splits)
+    kernel, _, mirror, _, mats = _qkv_case(rnd, q8, d, hq, hk)
+    norm = _norm(rnd, 3, d)
+    for b in (1, 24):
+        x = rnd(b, d) * 3
+        tables = _qkv_tables(b, hq, hk)["rows"]
+        if splits > mk.box_cols(1 if q8 else 2) // 8 or not _qkv_fits(q8, d, b, splits):
+            with pytest.raises(RuntimeError, match="gar_qkv_norm_rope"):
+                kernel(x, norm, *mats, *tables, layer, eps=1e-5, head_dim=64)
+            continue
+        out = kernel(x, norm, *mats, *tables, layer, eps=1e-5, head_dim=64)
+        torch.cuda.synchronize()
+        want = mirror(x, norm, *mats, *tables, layer, eps=1e-5, head_dim=64, splits=splits)
+        for o, m in zip(out, want):
+            torch.testing.assert_close(o.float(), m.float(), **TOL, msg=f"B = {b}")
+
+
+@pytest.mark.parametrize("d,hq,hk", [(2048, 2048, 512), (1032, 384, 128)])
+def test_qkv_norm_rope_q8_keeps_xn_low_half(rnd, d, hq, hk):
+    """Kernel 20 on `chip_smoke.xn_low_half_probe`: inputs whose two halves
+    of K cancel but for xn's low bits, so each output is rstd d 2^-15 with
+    JAX's fp32 xn and 0 or 8 with xn rounded to bf16."""
+    import chip_smoke
+
+    assert chip_smoke.xn_low_half_probe(d, hq, hk) < TOL["atol"] + TOL["rtol"] * d * 2 ** -15
+
+
+@pytest.mark.parametrize("q8", [False, True], ids=["bf16", "int8"])
+def test_qkv_norm_rope_kernel_same_bits(rnd, q8):
+    """Kernels 19 and 20 at GAR-1B's widths give the same bits on a second
+    launch and on two replays of a CUDA graph of one launch, at B = 1 and
+    24."""
+    d, hq, hk = 2048, 2048, 512
+    kernel, _, _, _, mats = _qkv_case(rnd, q8, d, hq, hk)
+    norm = _norm(rnd, 3, d)
+    for b in (1, 24):
+        x = rnd(b, d) * 3
+        tables = _qkv_tables(b, hq, hk)["rows"]
+
+        def run():
+            return torch.cat(kernel(x, norm, *mats, *tables, 1, eps=1e-5, head_dim=64), -1)
+
+        _same_bits_twice_and_replayed(run, run())
 
 
 def _counters_at_zero(device):
