@@ -33,11 +33,13 @@ kernels D, F and G one call after an L2 flush at one GAR-1B ViT layer,
 each checked at the output-sized tolerance, and the fused GAR-1B tower
 over 17 tiles, or qkv: TIMING_QKV, kernels 19 and 20 at GAR-1B's widths,
 B = 1 and 24, checked against their plain versions, one call after an L2
-flush and 16 layers back to back; or bits: TIMING_BITS, a hash of the
-outputs of H, H8 (w_down and wo), I, I8, 23 and 21 at GAR-1B's widths,
-B = 1, 5, 17, 24 and 32, on seeded inputs, which two checkouts that give
-the same bits print alike) in the package of another checkout and in this
-tree, in turns.
+flush and 16 layers back to back; or j: TIMING_J, kernels J and J8 at
+GAR-1B's widths, B = 1 and 24, checked against their plain versions, one
+call after an L2 flush, 16 layers back to back and the host time a call;
+or bits: TIMING_BITS, a hash of the outputs of H, H8 (w_down and wo), I,
+I8, J, J8, 19, 20, 23 and 21 at GAR-1B's widths, B = 1, 5, 17, 24 and 32,
+on seeded inputs, which two checkouts that give the same bits print
+alike) in the package of another checkout and in this tree, in turns.
 Run from the repository root on a machine with the card:
 
     python3 ab_kernels.py [variant ...]
@@ -46,7 +48,7 @@ Run from the repository root on a machine with the card:
     python3 ab_kernels.py c8_<variant> | i8_<variant> ...
     python3 ab_kernels.py st_<variant> | h8_<variant> | i_<variant> ...
     python3 ab_kernels.py q_<variant> ...
-    python3 ab_kernels.py --against=<directory of another checkout> [q8 | abc | h | m | stream | steps | vit | qkv | bits]
+    python3 ab_kernels.py --against=<directory of another checkout> [q8 | abc | h | m | stream | steps | vit | qkv | j | bits]
 """
 
 from __future__ import annotations
@@ -659,6 +661,37 @@ print("AB " + json.dumps(t))
 """
 
 
+TIMING_J = r"""
+import json, torch, chip_smoke as c
+from grasp_any_region_tpu_torch.models.quantize import quantize_int8
+from grasp_any_region_tpu_torch.ops import layer_matmul as lm
+c.phase_environment()
+gen = torch.Generator(device="cuda").manual_seed(0)
+def rnd(*shape):
+    return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+def stack(din, n):
+    return (rnd(16, din, n).float() * din ** -0.5).to(torch.bfloat16)
+t = {}
+d, hq, hk, layer = 2048, 2048, 512, 7
+bf = (stack(d, hq), stack(d, hk), stack(d, hk))
+q8 = [u for w in bf for u in quantize_int8(w)]
+for b in (1, 24):
+    x = rnd(b, d)
+    for key, fn, plain, mats in (("J", lm.layer_qkv, lm.layer_qkv_plain, bf),
+                                 ("J8", lm.layer_qkv_q8, lm.layer_qkv_q8_plain, q8)):
+        try:
+            for o, r in zip(fn(x, *mats, layer), plain(x.float(), *mats, layer)):
+                c.max_err(o, r, f"{key} B={b}")
+        except AssertionError:  # a timing-only variant
+            t["wrong results"] = 1
+        t[f"{key} B={b}"] = c.cuda_ms(lambda: fn(x, *mats, layer))
+        t[f"{key} B={b} x16"] = c.cuda_ms(lambda: [fn(x, *mats, i) for i in range(16)], iters=5,
+                                          sleep_cycles=20_000_000) / 16
+        t[f"{key} B={b} host us"] = c.host_us(lambda: fn(x, *mats, layer))
+print("AB " + json.dumps(t))
+"""
+
+
 TIMING_BITS = r"""
 import hashlib, json, torch, chip_smoke as c
 from grasp_any_region_tpu_torch.models.quantize import quantize_int8
@@ -674,9 +707,19 @@ wd, wo, wg, wu = stack(8192, 2048), stack(2048, 2048), stack(2048, 8192), stack(
 wd2 = wg.transpose(1, 2).contiguous()
 norm = (1.0 + 0.2 * rnd(4, 2048).float()).to(torch.bfloat16)
 q = {k: quantize_int8(w) for k, w in dict(wd=wd, wo=wo, wg=wg, wu=wu, wd2=wd2).items()}
+wqkv = (stack(2048, 2048), stack(2048, 512), stack(2048, 512))
+qkv8 = [u for w in wqkv for u in quantize_int8(w)]
 out = {}
 for b in (1, 5, 17, 24, 32):
     x8k, x2k = rnd(b, 8192), rnd(b, 2048)
+    ang = torch.arange(32 * b, device="cuda").float().reshape(b, 32) * 0.37
+    cos, sin = torch.cos(torch.cat([ang, ang], -1)), torch.sin(torch.cat([ang, ang], -1))
+    out[f"J {b}"] = torch.cat(lm.layer_qkv(x2k, *wqkv, 2), -1)
+    out[f"J8 {b}"] = torch.cat(lm.layer_qkv_q8(x2k, *qkv8, 2), -1)
+    out[f"19 {b}"] = torch.cat(mk.layer_qkv_norm_rope(x2k * 3, norm, *wqkv, cos, sin, cos, sin, 1,
+                                                      eps=1e-5, head_dim=64), -1)
+    out[f"20 {b}"] = torch.cat(mk.layer_qkv_norm_rope_q8(x2k * 3, norm, *qkv8, cos, sin, cos, sin,
+                                                         1, eps=1e-5, head_dim=64), -1)
     out[f"H wd {b}"] = lm.layer_matmul(x8k, wd, 2)
     out[f"H wo {b}"] = lm.layer_matmul(x2k, wo, 2)
     out[f"H8 wd {b}"] = lm.layer_matmul_q8(x8k, *q["wd"], 2)
@@ -694,13 +737,14 @@ print("AB " + json.dumps({k: hashlib.sha256(v.cpu().view(torch.int16).numpy().to
 
 def against(other: str, timing: str = "q8") -> int:
     """One timing (TIMING_Q8, or TIMING, TIMING_H, TIMING_M, TIMING_STREAM,
-    TIMING_STEPS, TIMING_VIT, TIMING_QKV as abc, h, m, stream, steps, vit,
-    qkv; or TIMING_BITS as bits) in
+    TIMING_STEPS, TIMING_VIT, TIMING_QKV, TIMING_J as abc, h, m, stream,
+    steps, vit, qkv, j; or TIMING_BITS as bits) in
     the package checked out at `other` (e.g. `git archive` of the parent
     commit unpacked there) and in this tree, in turns: other, this, this,
     other."""
     code = dict(q8=TIMING_Q8, abc=TIMING, h=TIMING_H, m=TIMING_M, stream=TIMING_STREAM,
-                steps=TIMING_STEPS, vit=TIMING_VIT, qkv=TIMING_QKV, bits=TIMING_BITS)[timing]
+                steps=TIMING_STEPS, vit=TIMING_VIT, qkv=TIMING_QKV, j=TIMING_J,
+                bits=TIMING_BITS)[timing]
     for name, d in (("other", other), ("tree", str(REPO)), ("tree", str(REPO)), ("other", other)):
         res = run(Path(d), ["-c", code], 900)
         lines = [x for x in res.stdout.splitlines() if x.startswith("AB ")]

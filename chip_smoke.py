@@ -22,12 +22,15 @@ the script exits non-zero (there is no CPU fallback):
    pass) also at a tolerance sized to the output, D's and G's parts timed
    one by one (together they give the call's bits), the host time a call,
    and the cuBLAS composite of each (a sequence of calls, timed only).
-   H, H8, I and I8 (the TMA-fed weight stream, bf16 and int8) also with
-   their host times a call and their times by CTAs a tile.
+   H, H8, I, I8, J and J8 (the TMA-fed weight stream, bf16 and int8) also
+   with their host times a call and their times by CTAs a tile; J and J8
+   (three segments, q, k and v) also against their stream mirrors, and
+   J8 beside its library composite (three torch._weight_int8pack_mm).
    E also at a ragged S = 200. The decode matmuls H, I, J and their int8
    forms H8, I8, J8 also at B = 24 (with their GB/s of weights, cuBLAS's
    bf16 product of the same layer and the card's copy rate on the same
-   bytes) and at the narrow config's ragged widths. C8 (int8 KV, C's
+   bytes) and at the narrow config's ragged widths, J and J8 also at
+   ragged q and kv widths. C8 (int8 KV, C's
    split-KV body) at the main path's cache, B = 1 and 5120 columns, and at
    B = 24, at atol 2e-3 and rtol 2^-8 (TOL16) with the interval probe and
    a current-token probe (`q8_probe`), beside C on a bf16 cache of the same
@@ -1095,13 +1098,36 @@ def vit_block_parts(results, calls, x, ln, wqkv, bqkv, fc1, b1, fc2, b2, ls2):
             f"{cuda_ms(composite):.4f} ms")
 
 
-def stream_splits_chosen(key, dout, din, index):
-    """The CTAs a tile that stream kernel `key`'s wrapper launches with."""
+def stream_splits_chosen(key, ws, din, index):
+    """The CTAs a tile that stream kernel `key`'s wrapper launches with, for
+    its weights `ws` (int8: each followed by its scales)."""
     from grasp_any_region_tpu_torch.ops import layer_matmul as lm
 
-    n = lm.stream_n(torch.int8) if key.endswith("8") else lm.STREAM_N
+    q8 = key.endswith("8")
+    if key.startswith("J"):
+        hq, hk = ws[0].shape[2], ws[2 if q8 else 1].shape[2]
+        return lm._card_qkv_stream_splits(hq, hk, din, 1 if q8 else 2, index)
+    n = lm.stream_n(torch.int8) if q8 else lm.STREAM_N
     per_sm = lm.STREAM_CTAS_PER_SM_Q8 if key == "I8" else lm.STREAM_CTAS_PER_SM
-    return lm._card_splits(dout, din, index, n, per_sm)
+    return lm._card_splits(ws[0].shape[2], din, index, n, per_sm)
+
+
+def qkv_mirror_err(label, key, ws, layer, x) -> float:
+    """J or J8 against the mirror of its partition and order
+    (`layer_qkv_stream_plain`, `layer_qkv_q8_stream_plain`) at the
+    chooser's CTAs a tile, at TOL; returns the largest error."""
+    from grasp_any_region_tpu_torch.ops import layer_matmul as lm
+
+    q8 = key == "J8"
+    kernel = lm.layer_qkv_q8 if q8 else lm.layer_qkv
+    mirror = lm.layer_qkv_q8_stream_plain if q8 else lm.layer_qkv_stream_plain
+    splits = stream_splits_chosen(key, ws, x.shape[1], x.device.index)
+    out = kernel(x, *ws, layer)
+    torch.cuda.synchronize()
+    at = [w[layer:layer + 1] if w.dtype == torch.int8 else w[layer:layer + 1].float() for w in ws]
+    want = mirror(x.float(), *at, 0, splits)
+    return max(max_err(o, m, f"{label} against its stream mirror (B = {x.shape[0]})")
+               for o, m in zip(out, want))
 
 
 def decode_matmul_kernels(rnd):
@@ -1113,11 +1139,16 @@ def decode_matmul_kernels(rnd):
     B = 24 and B = 1 (the kernels line carries B = 1), and at the narrow
     config's ragged widths (hidden 256, q 256, kv 64, MLP 1024) at B = 1 and
     5. Beside each time: the weight bytes over it, cuBLAS's bf16 product of
-    the same layer (the XLA form's ops; torch.mm is H's library call), for
-    H8 torch._weight_int8pack_mm (the library's W8A16 product, timed only),
-    and a device-to-device copy of the same bytes. H, H8 (both widths), I
-    and I8 (the TMA-fed stream) also with their host times a call and their
-    time by CTAs a column tile (the cluster size, 1-16), at B = 24 and 1."""
+    the same layer (the XLA form's ops; torch.mm is H's library call, J's
+    is three), for H8 torch._weight_int8pack_mm (the library's W8A16
+    product, timed only; J8's composite is three of them), and a
+    device-to-device copy of the same bytes. All six run on the TMA-fed
+    stream, and each (H and H8 at both widths) is also reported with its
+    host time a call and its time by CTAs a column tile (the cluster size,
+    1-16), at B = 24 and 1. J and J8 are also held against the mirror of
+    their partition and order at B = 24 and 1, at the narrow widths at B =
+    1 and 5, and at ragged widths (Hq 136 / 144, Hk 40 / 48 for bf16 /
+    int8: a part tile, k and v narrower than a tile) at B = 1, 5 and 24."""
     import torch.nn.functional as F
     from grasp_any_region_tpu_torch.models.quantize import quantize_int8
     from grasp_any_region_tpu_torch.ops import layer_matmul as lm
@@ -1150,11 +1181,22 @@ def decode_matmul_kernels(rnd):
     def int8(ws):  # (w, ...) -> (q, scale, ...)
         return tuple(t for w in ws for t in quantize_int8(w))
 
-    for label, (_, kernel, plain, kernel8, plain8, _, ws, din) in calls(256, 1024, 256, 64,
-                                                                         2).items():
+    for label, (key, kernel, plain, kernel8, plain8, _, ws, din) in calls(256, 1024, 256, 64,
+                                                                           2).items():
         for b in (1, 5):
             check(f"{label}, narrow", kernel, plain, ws, 1, rnd(b, din))
             check(f"{label} int8, narrow", kernel8, plain8, int8(ws), 1, rnd(b, din))
+            if key == "J":
+                qkv_mirror_err("J, narrow", "J", ws, 1, rnd(b, din))
+                qkv_mirror_err("J8, narrow", "J8", int8(ws), 1, rnd(b, din))
+    for key, d, hq, hk in (("J", 200, 136, 40), ("J8", 208, 144, 48)):
+        *_, ws, _ = calls(d, 64, hq, hk, 3)["J"]
+        kernel, plain, ws = ((lm.layer_qkv_q8, lm.layer_qkv_q8_plain, int8(ws)) if key == "J8"
+                             else (lm.layer_qkv, lm.layer_qkv_plain, ws))
+        for b in (1, 5, 24):
+            x = rnd(b, d)
+            check(f"{key}, ragged", kernel, plain, ws, 2, x)
+            qkv_mirror_err(f"{key}, ragged", key, ws, 2, x)
 
     def copy_ms(n_bytes):
         src = torch.empty(n_bytes, dtype=torch.uint8, device="cuda")
@@ -1165,16 +1207,19 @@ def decode_matmul_kernels(rnd):
         """A stream kernel's time (one call, and a layer of 16 back to back,
         measured by the caller), its host time a call, and its time by CTAs
         a tile (the cluster size, 1-16)."""
+        mirror = (f"; max |kernel - stream mirror| {qkv_mirror_err(name, key, ws, layer, x):.3e}"
+                  if key.startswith("J") else "")
         hus = host_us(lambda: kernel(x, *ws, layer))
-        chooser, times = lm._card_splits, {}
+        attr = "_card_qkv_stream_splits" if key.startswith("J") else "_card_splits"
+        chooser, times = getattr(lm, attr), {}
         try:  # the chooser's alternatives: the kernel takes 1-16 CTAs a tile
             for n in (1, 2, 4, 8, 16):
-                lm._card_splits = lambda *_: n
+                setattr(lm, attr, lambda *_: n)
                 times[n] = cuda_ms(lambda: kernel(x, *ws, layer))
         finally:
-            lm._card_splits = chooser
-        splits = stream_splits_chosen(key, ws[0].shape[2], x.shape[1], x.device.index)
-        log(f"[kernels] {name}, B = {x.shape[0]}: TMA-fed {ms:.4f} ms = "
+            setattr(lm, attr, chooser)
+        splits = stream_splits_chosen(key, ws, x.shape[1], x.device.index)
+        log(f"[kernels] {name}, B = {x.shape[0]}{mirror}: TMA-fed {ms:.4f} ms = "
             f"{n_bytes / ms / 1e6:.0f} GB/s of weights, back to back {seq_ms:.4f} ms a layer = "
             f"{n_bytes / seq_ms / 1e6:.0f} GB/s, host {hus:.1f} us a call ({splits} CTAs a "
             "tile); by CTAs a tile, ms: " + ", ".join(f"{n}: {t:.4f}" for n, t in times.items()))
@@ -1187,21 +1232,24 @@ def decode_matmul_kernels(rnd):
         n8 = nbytes(*(t[layer] for t in qs))
         copies = copy_ms(n_bytes), copy_ms(n8)
         n_out = ws[0].shape[2] if key == "I" else sum(w.shape[2] for w in ws)
-        if key == "H":  # H8's library call takes the weight as (N, K) and bf16 scales
-            w_nk, s_n = qs[0][layer].t().contiguous(), qs[1][layer].reshape(-1).to(torch.bfloat16)
+        if key in ("H", "J"):  # the library's W8A16 call takes (N, K) weights, bf16 scales
+            packs = [(qs[i][layer].t().contiguous(), qs[i + 1][layer].reshape(-1)
+                      .to(torch.bfloat16)) for i in range(0, len(qs), 2)]
         for b in (24, 1):
             x = rnd(b, din)
             err, err8 = (check(label, kernel, plain, ws, layer, x),
                          check(f"{label} int8", kernel8, plain8, qs, layer, x))
             lib8_ms = None
-            if key == "H":
+            if key in ("H", "J"):  # H8's library call; J8's composite of three
+                lib8 = lambda: [torch._weight_int8pack_mm(x, w_nk, s_n) for w_nk, s_n in packs]
                 try:
-                    lib_out = torch._weight_int8pack_mm(x, w_nk, s_n)
-                    lib8_ms = cuda_ms(lambda: torch._weight_int8pack_mm(x, w_nk, s_n))
-                    lib_err = (lib_out.float() - plain8(x.float(), *qs, layer)).abs().max().item()
-                    log(f"[kernels] {label} int8, B = {b}: library torch._weight_int8pack_mm "
-                        f"{lib8_ms:.4f} ms (bf16 scales, bf16 out; max |library - plain| "
-                        f"{lib_err:.3e})")
+                    refs8 = plain8(x.float(), *qs, layer)
+                    lib_err = max((o.float() - r).abs().max().item() for o, r in zip(
+                        lib8(), refs8 if key == "J" else (refs8,)))
+                    lib8_ms = cuda_ms(lib8)
+                    log(f"[kernels] {label} int8, B = {b}: library "
+                        f"{len(packs)} x torch._weight_int8pack_mm {lib8_ms:.4f} ms (bf16 "
+                        f"scales, bf16 out; max |library - plain| {lib_err:.3e})")
                 except RuntimeError as e:
                     log(f"[kernels] {label} int8, B = {b}: library torch._weight_int8pack_mm "
                         f"refused: {e}")
@@ -1213,10 +1261,9 @@ def decode_matmul_kernels(rnd):
                              iters=5, sleep_cycles=20_000_000) / n_layers
             seq8_ms = cuda_ms(lambda: [kernel8(x, *qs, i) for i in range(n_layers)],
                               iters=5, sleep_cycles=20_000_000) / n_layers
-            if key in ("H", "I"):
-                stream_report(label, key, kernel, ws, x, ms, seq_ms, n_bytes)
-                stream_report(label.replace(key, key + "8", 1), key + "8", kernel8, qs, x, ms8,
-                              seq8_ms, n8)
+            stream_report(label, key, kernel, ws, x, ms, seq_ms, n_bytes)
+            stream_report(label.replace(key, key + "8", 1), key + "8", kernel8, qs, x, ms8,
+                          seq8_ms, n8)
             blas_ms = cuda_ms(lambda: cublas(x, *ws, layer))
             plain_ms = cuda_ms(lambda: plain(x, *ws, layer), iters=5)
             plain8_ms = cuda_ms(lambda: plain8(x, *qs, layer), iters=5)
@@ -1240,7 +1287,7 @@ def decode_matmul_kernels(rnd):
             results[key] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                                 library_ms=blas_ms if key == "H" else None, **lim)
             results[f"{key}8"] = dict(max_abs_err=err8, ms=ms8, plain_ms=plain8_ms,
-                                      library_ms=lib8_ms, **lim8)
+                                      library_ms=lib8_ms if key == "H" else None, **lim8)
     return results
 
 
@@ -2136,7 +2183,7 @@ KERNELS = {
           "grasp_any_region_tpu/ops/layer_matmul.py:58"),
     "I": ("layer_swiglu", "grasp_any_region_tpu_torch/csrc/layer_matmul_sm90.cu",
           "grasp_any_region_tpu/ops/layer_matmul.py:97"),
-    "J": ("layer_qkv", "grasp_any_region_tpu_torch/csrc/layer_matmul.cu",
+    "J": ("layer_qkv", "grasp_any_region_tpu_torch/csrc/layer_matmul_sm90.cu",
           "grasp_any_region_tpu/ops/layer_matmul.py:142"),
     "C8": ("decode_attention_fused_q8", "grasp_any_region_tpu_torch/csrc/decode_split.cuh",
            "grasp_any_region_tpu/ops/decode_attention.py:477"),
@@ -2144,7 +2191,7 @@ KERNELS = {
            "grasp_any_region_tpu/ops/layer_matmul.py:190"),
     "I8": ("layer_swiglu_q8", "grasp_any_region_tpu_torch/csrc/layer_matmul_sm90.cu",
            "grasp_any_region_tpu/ops/layer_matmul.py:234"),
-    "J8": ("layer_qkv_q8", "grasp_any_region_tpu_torch/csrc/layer_matmul.cu",
+    "J8": ("layer_qkv_q8", "grasp_any_region_tpu_torch/csrc/layer_matmul_sm90.cu",
            "grasp_any_region_tpu/ops/layer_matmul.py:282"),
     "5": ("vit_attention_bwd", "grasp_any_region_tpu_torch/csrc/flash_backward_sm90.cu",
           "grasp_any_region_tpu/ops/vit_attention.py:185"),

@@ -2,8 +2,8 @@
 G (csrc/gemm_sm90.cu, its main loop csrc/gemm_sm90.cuh, and D's and G's
 LayerNorm pass, csrc/layer_norm.cuh), 5 (kernel
 18's non-causal pass with the folded tail, csrc/flash_backward_sm90.cu),
-C, C8 and 16 (the split-KV body, csrc/decode_split.cuh), H, H8, I, I8, 19
-and 20 (the TMA-fed weight stream, csrc/layer_matmul_sm90.cu), 21 / 23 (the MLP's weight
+C, C8 and 16 (the split-KV body, csrc/decode_split.cuh), H, H8, I, I8, J,
+J8, 19 and 20 (the TMA-fed weight stream, csrc/layer_matmul_sm90.cu), 21 / 23 (the MLP's weight
 stream, csrc/decode_mlp_sm90.cu), 22 (C's body with wo,
 csrc/decode_attn_wo_sm90.cu) and their ordered sum (csrc/ordered_sum.cuh)
 that the checks must catch. Each mutant names the source it edits and is
@@ -24,6 +24,8 @@ builds a copy into its own build/), and two checks run there on the card:
   and I8's (Q8) run their kernel's part of it (`decode_attention_q8_kernel`
   or `decode_matmul_kernels`) and the int8 card cases; H8's, I's and x's
   misplaced box (ST) `decode_matmul_kernels` and the stream's card cases;
+  J's and J8's (JQKV) `decode_matmul_kernels` and the card cases of J, J8
+  and the fused decode steps;
   the ViT block's (VIT) `vit_block_kernels`, then `layer_norm_kernel`, and
   the card cases of D, F, G, 24 and the tower's form.
 
@@ -215,13 +217,31 @@ MUTANTS = {  # name: (source, [(old, new), ...] in it)
     "qkv_norm_weight_skipped": (STREAM, [
         ("            const float2 v = rms_value(xh[p], nh[p], rs);",
          "            const float2 v = rms_value(xh[p], __floats2bfloat162_rn(1.f, 1.f), rs);")]),
-    "qkv_v_segment_dropped": (STREAM, [("  a.segs = 3;\n", "  a.segs = 2;\n")]),
+    "qkv_v_segment_dropped": (STREAM, [("  a.segs = 3;\n", "  a.segs = tables ? 2 : 3;\n")]),
     "qkv_low_half_dropped": (STREAM, [("                mma_bf16_16816(acc[w][i][n], xl[h & 1][i], "
                                        "b[n][0], b[n][1]);", "                ;")]),
     "qkv_last_rank_not_pushed": (STREAM, [
         ("  for (int e = threadIdx.x; e < splits * per_q; e += kWsThreads) {",
          "  for (int e = threadIdx.x; e < (rope && rank == splits - 1 ? 0 : splits * per_q);\n"
          "       e += kWsThreads) {")]),
+    # J / J8: v's segment dropped from the table (as 19 / 20's mutant, for
+    # the table without rope tables); the last rank's partial not pushed to
+    # its finishers; J8's k scale left off; the segment lookup off by one
+    # tile at each boundary (the grid's first k and v tiles fall into the
+    # segment before, past its columns)
+    "j_v_segment_dropped": (STREAM, [("  a.segs = 3;\n", "  a.segs = tables ? 3 : 2;\n")]),
+    "j_last_rank_not_pushed": (STREAM, [
+        ("  for (int e = threadIdx.x; e < splits * per_q; e += kWsThreads) {",
+         "  for (int e = threadIdx.x;\n"
+         "       e < (XN == kXBoxes && a.segs == 3 && rank == splits - 1 ? 0 : splits * per_q);\n"
+         "       e += kWsThreads) {")]),
+    "j8_k_scale_dropped": (STREAM, [("      v[0] *= sg.scale[0][col];\n",
+                                     "      if (XN != kXBoxes || a.segs != 3 || si != 1) "
+                                     "v[0] *= sg.scale[0][col];\n")]),
+    "j_segment_tiles_shifted": (STREAM, [
+        ("  while (si + 1 < a.segs && tile >= a.seg[si].tiles) tile -= a.seg[si++].tiles;",
+         "  while (si + 1 < a.segs && tile >= a.seg[si].tiles + (XN == kXBoxes && a.segs == 3))\n"
+         "    tile -= a.seg[si++].tiles;")]),
 }
 MEGA = ("21_k_split_dropped", "21_tile_slot_twice", "counter_not_reset", "22_split_chunk_dropped",
         "22_head_partial_twice", "22_column_slice_shifted")
@@ -232,6 +252,9 @@ Q8_TESTS = "q8 or swiglu or int8_decode_step"
 QKV = ("qkv_rope_partner_off", "qkv_norm_weight_skipped", "qkv_v_segment_dropped",
        "qkv_low_half_dropped", "qkv_last_rank_not_pushed")
 QKV_TESTS = "qkv_norm_rope or mega_decode_step"
+JQKV = ("j_v_segment_dropped", "j_last_rank_not_pushed", "j8_k_scale_dropped",
+        "j_segment_tiles_shifted")
+JQKV_TESTS = "layer_qkv or layer_matmul_kernels or layer_matmul_q8_kernels or decode_step"
 ST = ("h8_scale_dropped", "h8_partial_dropped", "i_up_as_gate", "h_x_second_box_misplaced")
 ST_TESTS = ("stream_nw or stream_kernels or layer_matmul_kernels or layer_matmul_q8_kernels "
             "or decode_step")
@@ -257,7 +280,8 @@ PHASE2_VIT = ("import chip_smoke as c, torch; c.phase_environment(); "
 PHASE2_Q8 = {prefix: PHASE2_MEGA.replace("mega_kernels", part) for prefix, part in (
     ("c8", "decode_attention_q8_kernel"), ("i8", "decode_matmul_kernels"),
     ("h8", "decode_matmul_kernels"), ("i_", "decode_matmul_kernels"),
-    ("h_", "decode_matmul_kernels"))}
+    ("h_", "decode_matmul_kernels"), ("j_", "decode_matmul_kernels"),
+    ("j8", "decode_matmul_kernels"))}
 
 
 def make_copy(name: str, edits: list[tuple[str, str, str]]) -> Path:
@@ -328,16 +352,18 @@ def main(names: list[str]) -> int:
         if names and name not in names:
             continue
         dst = make_copy(f"mutant_{name}", [(src, old, new) for old, new in edits])
-        mega, q8, st, vit, qkv = (name in MEGA, name in Q8, name in ST, name in VIT,
-                                  name in QKV)
+        mega, q8, st, vit, qkv, jqkv = (name in MEGA, name in Q8, name in ST, name in VIT,
+                                        name in QKV, name in JQKV)
         verdicts = card_tests(dst, MEGA_TESTS if mega else QKV_TESTS if qkv else Q8_TESTS if q8
-                              else ST_TESTS if st else VIT_TESTS if vit else TESTS)
+                              else ST_TESTS if st else VIT_TESTS if vit
+                              else JQKV_TESTS if jqkv else TESTS)
         counts = {v: list(verdicts.values()).count(v) for v in ("failed", "trapped", "passed", "skipped")}
         print(f"[mutant] {name}: card tests {counts}", flush=True)
         for node, v in sorted(verdicts.items()):
             if v != "passed":
                 print(f"    {v}: {node.split('::')[1]}")
-        phase2 = run(dst, ["-c", PHASE2_MEGA if mega or qkv else PHASE2_Q8[name[:2]] if q8 or st
+        phase2 = run(dst, ["-c", PHASE2_MEGA if mega or qkv
+                              else PHASE2_Q8[name[:2]] if q8 or st or jqkv
                               else PHASE2_VIT if vit else PHASE2], 1200)
         lines = (phase2.stdout + phase2.stderr).strip().splitlines()
         caught = [line for line in lines if "Error" in line][-1:] or lines[-1:]

@@ -1,16 +1,19 @@
-// Kernels H, H8, I, I8, 19 and 20 for Hopper: x (B <= 32, Din) @
+// Kernels H, H8, I, I8, J, J8, 19 and 20 for Hopper: x (B <= 32, Din) @
 // w_all[layer] for the stacked (L, Din, Dout) weights read in place, fp32
-// sums rounded once to bf16. H-I8 replace
+// sums rounded once to bf16. H-J8 replace
 // grasp_any_region_tpu/ops/layer_matmul.py's layer_matmul (_mm_kernel, H),
-// layer_matmul_q8 (_mm_q8_kernel, H8), layer_swiglu (_swiglu_kernel, I)
-// and layer_swiglu_q8 (_swiglu_q8_kernel, I8); 19 and 20 replace
+// layer_matmul_q8 (_mm_q8_kernel, H8), layer_swiglu (_swiglu_kernel, I),
+// layer_swiglu_q8 (_swiglu_q8_kernel, I8), layer_qkv (_qkv_kernel, J) and
+// layer_qkv_q8 (_qkv_q8_kernel, J8); 19 and 20 replace
 // grasp_any_region_tpu/ops/decode_megakernel.py's layer_qkv_norm_rope
 // (_qkv_kernel) and layer_qkv_norm_rope_q8 (_qkv_q8_kernel), the mega decode
 // step's RMSNorm, q, k and v products and rope. H and H8 are called twice a
-// layer by the fused decode step (wo, w_down), I and I8 once; 19 or 20
-// once a layer by the mega step. H8 is (x w_q8[l]) s[l], int8 weights with one
-// fp32 scale a column; I is silu(x wg[l]) * (x wu[l]); I8 is
-// silu((x wg_q8[l]) sg[l]) * ((x wu_q8[l]) su[l]). SiLU and the product
+// layer by the fused decode step (wo, w_down), I and I8, J and J8 once; 19
+// or 20 once a layer by the mega step. H8 is (x w_q8[l]) s[l], int8 weights
+// with one fp32 scale a column; I is silu(x wg[l]) * (x wu[l]); I8 is
+// silu((x wg_q8[l]) sg[l]) * ((x wu_q8[l]) su[l]); J is x wq[l], x wk[l],
+// x wv[l] (rope stays outside, as in JAX), J8 the same with int8 weights
+// and column scales. SiLU and the product
 // are in fp32 from the fp32 sums, one rounding. The int8 kernels put the
 // scale on the summed column (the TPU kernels scale the widened weight
 // before the sum; the scale is constant along it, so this equals it up to
@@ -82,13 +85,17 @@
 // The body takes the weight type, the number of weights a stage (NW = 2:
 // a SwiGLU's gate and up, two boxes a stage, silu(gate) * up in the
 // epilogue) and how x reaches the products (XN) as template parameters: H
-// is (bf16, 1), H8 (int8, 1), I (bf16, 2), I8 (int8, 2), x in boxes beside
-// the weights; the int8 finisher puts each column's scale on its summed
+// and J are (bf16, 1), H8 and J8 (int8, 1), I (bf16, 2), I8 (int8, 2), x
+// in boxes beside the weights; the int8 finisher puts each column's scale on its summed
 // weight. The grid's column tiles come from a table of up to three
 // segments (StreamArgs::seg), each its own weight, tensor map, width,
 // output, int8 scales and rope tables; blockIdx.y finds its segment by the
-// tiles' prefix sums. H-I8 are one segment. 19 and 20 are three (q, k, v:
-// 48 bf16 tiles or 24 int8 tiles at GAR-1B) with two more parts:
+// tiles' prefix sums. H-I8 are one segment. J and J8 are three (q, k, v:
+// 48 bf16 tiles or 24 int8 tiles at GAR-1B; qkv_segments fills the table)
+// and otherwise H's body: x in boxes, no prologue, no rope; a segment
+// narrower than a box (k and v of a narrow model) comes in as zeros past
+// its width, and the finisher stores none of it. 19 and 20 are the same
+// three segments with two more parts:
 //
 //  * An RMSNorm prologue (rms_prologue.cuh, as 21 / 23's): the producer
 //    issues the first weight boxes at once; the consumers wait for the
@@ -114,9 +121,8 @@
 //    column mod w, one rounding. That needs at least 4 pairs a finisher: S
 //    <= 8 at bf16, 16 at int8.
 //
-// J and J8 stay on layer_matmul.cu's cp.async body. A SwiGLU's stage at GAR-1B holds 2 x
-// 16 KB of boxes: at B = 24 three such stages and the partials fit only a
-// CTA alone on its SM, so a grid within one CTA an SM takes a whole SM's
+// A SwiGLU's stage at GAR-1B holds 2 x 16 KB of boxes: at B = 24 three
+// such stages and the partials fit only a CTA alone on its SM, so a grid within one CTA an SM takes a whole SM's
 // shared memory (launch_stream); the CTAs an SM are measured
 // (ops/layer_matmul.py: STREAM_CTAS_PER_SM, STREAM_CTAS_PER_SM_Q8).
 #include <cooperative_groups.h>
@@ -599,6 +605,35 @@ StreamSeg stream_seg(void* out, int dout, const float* s0 = nullptr, const float
   return {static_cast<bf16*>(out), {s0, s1}, nullptr, nullptr, dout, (dout + BN - 1) / BN, 0};
 }
 
+// The segment table of q, k and v (widths hq, hk, hk) at a.layer: each
+// segment's stacked tensor map, output and (int8, s non-null) column
+// scales; with rope tables (19 / 20) q's and k's tables, of widths cw_q
+// and cw_k. J and J8 pass no tables. The grid's column tiles go to `tiles`.
+template <typename W>
+int qkv_segments(StreamMaps& maps, StreamArgs& a, const void* const* w, const void* const* s,
+                 const void* const* tables, void* const* out, int n_layers, int d, int hq,
+                 int hk, int cw_q, int cw_k, int& tiles) {
+  constexpr int BN = ws_n<W>();
+  a.segs = 3;
+  const int ns[3] = {hq, hk, hk}, cws[3] = {cw_q, cw_k, 0};
+  tiles = 0;
+  for (int i = 0; i < 3; ++i) {
+    if (const int err =
+            stacked_weight_map(&maps.w[i], w[i], sizeof(W), n_layers, d, ns[i], BN, kWsBK))
+      return err;
+    const float* scale =
+        s ? static_cast<const float*>(s[i]) + static_cast<size_t>(a.layer) * ns[i] : nullptr;
+    a.seg[i] = stream_seg<W>(out[i], ns[i], scale);
+    if (tables && i < 2) {  // q and k: rope
+      a.seg[i].cos = static_cast<const float*>(tables[2 * i]);
+      a.seg[i].sin = static_cast<const float*>(tables[2 * i + 1]);
+      a.seg[i].cos_width = cws[i];
+    }
+    tiles += a.seg[i].tiles;
+  }
+  return tiles > 65535 ? static_cast<int>(cudaErrorInvalidValue) : 0;
+}
+
 // Kernels 19 (W bf16, xn rounded) and 20 (int8 with column scales s, xn as
 // two halves): RMSNorm(x) @ wq, wk, wv at the layer, rope on q and k.
 template <typename W>
@@ -615,26 +650,33 @@ int qkv_norm_rope(const void* x, const void* norm_all, const void* const* w,
   StreamArgs a = stream_args(x, layer, rows, d, splits);
   a.norm = static_cast<const bf16*>(norm_all) + static_cast<size_t>(layer) * d;
   a.eps = eps;
-  a.segs = 3;
-  const int ns[3] = {hq, hk, hk}, cws[3] = {cw_q, cw_k, 0};
   int tiles = 0;
-  for (int i = 0; i < 3; ++i) {
-    if (const int err =
-            stacked_weight_map(&maps.w[i], w[i], sizeof(W), n_layers, d, ns[i], BN, kWsBK))
-      return err;
-    const float* scale =
-        s ? static_cast<const float*>(s[i]) + static_cast<size_t>(layer) * ns[i] : nullptr;
-    a.seg[i] = stream_seg<W>(out[i], ns[i], scale);
-    if (i < 2) {  // q and k: rope
-      a.seg[i].cos = static_cast<const float*>(tables[2 * i]);
-      a.seg[i].sin = static_cast<const float*>(tables[2 * i + 1]);
-      a.seg[i].cos_width = cws[i];
-    }
-    tiles += a.seg[i].tiles;
-  }
-  if (tiles > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  if (const int err =
+          qkv_segments<W>(maps, a, w, s, tables, out, n_layers, d, hq, hk, cw_q, cw_k, tiles))
+    return err;
   return launch_rows<W, 1, sizeof(W) == 1 ? kXnSplit : kXnRounded>(maps, a, tiles, splits,
                                                                    stream);
+}
+
+// Kernels J (W bf16) and J8 (int8 with column scales s): x @ wq, wk, wv at
+// the layer, x in boxes beside the weights, no prologue and no rope. hq
+// and hk multiples of 8 (bf16) or 16 (int8): whole 16-byte rows.
+template <typename W>
+int layer_qkv(const void* x, const void* const* w, const void* const* s, void* const* out,
+              int layer, int n_layers, int rows, int d, int hq, int hk, int splits,
+              void* stream) {
+  constexpr int chunk = 16 / static_cast<int>(sizeof(W));
+  if (rows < 1 || rows > kWsMaxRows || d <= 0 || d % 8 || hq <= 0 || hk <= 0 || hq % chunk ||
+      hk % chunk || layer < 0 || layer >= n_layers || splits < 1 || splits > kWsMaxSplits ||
+      (splits & (splits - 1)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  StreamMaps maps{};
+  StreamArgs a = stream_args(x, layer, rows, d, splits);
+  int tiles = 0;
+  if (const int err = qkv_segments<W>(maps, a, w, s, nullptr, out, n_layers, d, hq, hk, 0, 0,
+                                      tiles))
+    return err;
+  return launch_rows<W, 1, kXBoxes>(maps, a, tiles, splits, stream);
 }
 
 }  // namespace gar
@@ -764,4 +806,28 @@ extern "C" int gar_qkv_norm_rope_q8(const void* x, const void* norm_all, const v
   void* out[3] = {q, k, v};
   return gar::qkv_norm_rope<int8_t>(x, norm_all, w, s, tables, out, layer, n_layers, rows, d, hq,
                                     hk, cw_q, cw_k, splits, eps, stream);
+}
+
+// Kernel J: x @ wq, wk, wv[layer], each (n_layers, d, hq / hk / hk) bf16,
+// over clusters of `splits` CTAs a column tile (a power of two up to 16).
+// d, hq and hk multiples of 8, rows 1-32, bases 16-byte aligned.
+extern "C" int gar_layer_qkv(const void* x, const void* wq, const void* wk, const void* wv,
+                             void* q, void* k, void* v, int layer, int n_layers, int rows, int d,
+                             int hq, int hk, int splits, void* stream) {
+  const void* w[3] = {wq, wk, wv};
+  void* out[3] = {q, k, v};
+  return gar::layer_qkv<gar::bf16>(x, w, nullptr, out, layer, n_layers, rows, d, hq, hk, splits,
+                                   stream);
+}
+
+// Kernel J8: kernel J over int8 weights with fp32 (n_layers, 1, N) column
+// scales on the summed columns; hq and hk multiples of 16.
+extern "C" int gar_layer_qkv_q8(const void* x, const void* wq, const void* sq, const void* wk,
+                                const void* sk, const void* wv, const void* sv, void* q, void* k,
+                                void* v, int layer, int n_layers, int rows, int d, int hq, int hk,
+                                int splits, void* stream) {
+  const void* w[3] = {wq, wk, wv};
+  const void* s[3] = {sq, sk, sv};
+  void* out[3] = {q, k, v};
+  return gar::layer_qkv<int8_t>(x, w, s, out, layer, n_layers, rows, d, hq, hk, splits, stream);
 }

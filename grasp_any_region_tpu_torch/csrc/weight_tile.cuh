@@ -1,33 +1,31 @@
-// The building blocks of the kernels that stream decode weights: kernels J
-// and J8 (layer_matmul.cu), and the fragment helpers of the TMA-fed H-I8,
-// 19-23 (layer_matmul_sm90.cu, decode_mlp_sm90.cu, decode_attn_wo_sm90.cu).
+// The building blocks of the decode kernels that stream weights: the
+// fragment helpers of the TMA-fed H-J8, 19-23 (layer_matmul_sm90.cu,
+// decode_mlp_sm90.cu, decode_attn_wo_sm90.cu), and the cp.async ring and
+// launch helpers of the split-KV body (decode_split.cuh).
 //
-// A slab is kWBK weight rows x WTile<W>::BN columns: 64 bf16 or 128 int8
-// columns, 128-byte rows either way, in shared memory at a pitch of 144
-// bytes. Four warps split the columns, and each takes its B fragments of
-// mma.sync m16n8k16 from the slab with one ldmatrix.x4.trans per 16 rows;
-// int8 bytes are widened to bf16 in registers (exact). Slabs stream
-// through a cp.async ring (`ring`), beside the matching x slab, and each
-// warp keeps its (16 MT, WN) tile of fp32 sums in registers (`mma_slab`).
+// A weight box is 128 weight rows of one 128-byte row each (64 bf16 or 128
+// int8 columns), 128-byte swizzled; four warps split its columns, and each
+// takes its B fragments of mma.sync m16n8k16 with one ldmatrix.x4.trans per
+// 16 rows (`box_frags`); int8 bytes are widened to bf16 in registers
+// (exact, `b_frags`).
 #pragma once
 
-#include "gemm_tile.cuh"
+#include "common.cuh"
 
 namespace gar {
 
-constexpr int kWBK = 64;  // weight rows per slab
-constexpr int kXLd = kWBK + kGemmPad;  // pitch of an x slab (ROWS x kWBK bf16)
+// 16-byte async copy global -> shared; src_bytes 0 fills the 16 bytes with zeros.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes = 16) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(src_bytes));
+}
 
-template <typename W>
-struct WTile {
-  static constexpr bool Q8 = sizeof(W) == 1;
-  static constexpr int BN = 128 / sizeof(W);   // 64 bf16 or 128 int8 columns
-  static constexpr int WN = BN / 4;            // columns per warp (four warps)
-  static constexpr int NT = WN / 8;            // mma n-tiles per warp: 2 bf16, 4 int8
-  static constexpr int CHUNK = 16 / sizeof(W);  // weight elements per 16-byte chunk
-  static constexpr int LDB = BN + CHUNK;        // slab pitch: 144 bytes either way
-  static constexpr int BYTES = kWBK * LDB * sizeof(W);
-};
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
 
 // Four int8 weights, as ldmatrix.trans hands them to a thread: bytes
 // (W[k][n], W[k][n+1], W[k+1][n], W[k+1][n+1]). Returns the bf16 pairs
@@ -46,39 +44,16 @@ __device__ __forceinline__ void widen_i8x4(uint32_t r, uint32_t& even, uint32_t&
   odd = __byte_perm(__float_as_uint(f1), __float_as_uint(f3), 0x7632);
 }
 
-// b0, b1 of the warp's NT n-tiles at rows kk..kk+15 of a slab, from one
-// ldmatrix.x4.trans of its 32 bytes. bf16: columns wn..wn+7, then
-// wn+8..wn+15. int8: the even columns of wn..wn+15, the odd ones, then the
-// same of wn+16..wn+31 (`frag_col` says where each sum lands).
-template <typename W>
-__device__ __forceinline__ void weight_frags(uint32_t (&bfr)[WTile<W>::NT][2], const W* slab,
-                                             int kk, int wn, int lane) {
-  using T = WTile<W>;
-  uint32_t raw[4];
-  ldmatrix_x4_trans(raw, reinterpret_cast<const bf16*>(slab + (kk + (lane & 15)) * T::LDB + wn +
-                                                       (lane >> 4) * T::CHUNK));
-  if constexpr (T::Q8) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      widen_i8x4(raw[2 * h], bfr[2 * h][0], bfr[2 * h + 1][0]);
-      widen_i8x4(raw[2 * h + 1], bfr[2 * h][1], bfr[2 * h + 1][1]);
-    }
-  } else {
-#pragma unroll
-    for (int j = 0; j < T::NT; ++j) bfr[j][0] = raw[2 * j], bfr[j][1] = raw[2 * j + 1];
-  }
-}
-
 // The column of the tile that the sum acc[j][2 * hf + e] (e = 0, 1) of
 // n-tile j holds, for lane t = lane % 4: bf16 wn + 8j + 2t + e; int8 (tile
 // 2h the even columns of 16, 2h + 1 the odd) wn + 16h + 4t + 2e + (j % 2).
 template <typename W>
 __device__ __forceinline__ int frag_col(int j, int e, int wn, int t) {
-  if constexpr (WTile<W>::Q8) return wn + 16 * (j >> 1) + 4 * t + 2 * e + (j & 1);
+  if constexpr (sizeof(W) == 1) return wn + 16 * (j >> 1) + 4 * t + 2 * e + (j & 1);
   return wn + 8 * j + 2 * t + e;
 }
 
-// TMA-fed bodies (21-23, decode_mlp_sm90.cu and decode_attn_wo_sm90.cu):
+// The TMA-fed bodies (H-J8, 19-23):
 // ldmatrix.x4.trans of rows r0 .. r0 + 15 and 16-byte chunks c, c + 1 of a
 // 128-byte-swizzled box (chunk c of row r at c ^ (r % 8)): raw[0], raw[1]
 // rows 0-7 and 8-15 of chunk c, raw[2], raw[3] those of chunk c + 1.
@@ -106,35 +81,6 @@ __device__ __forceinline__ void b_frags(uint32_t (&bfr)[NT][2], const uint32_t (
   }
 }
 
-// cp.async slab kt's rows: rows [0, kWBK) of `src` (row pitch ld, already
-// at the slab's first row and column) to dst; rows past `rows` and columns
-// past `cols` land as zeros (cols a multiple of CHUNK, so a chunk is in or
-// out). The caller commits.
-template <typename W, int NTHREADS>
-__device__ __forceinline__ void load_weight_slab(W* dst, const W* src, long long ld, int rows,
-                                                 int cols, int tid) {
-  using T = WTile<W>;
-  constexpr int CPR = T::BN / T::CHUNK;  // chunks a row: 8
-  for (int c = tid; c < kWBK * CPR; c += NTHREADS) {
-    const int r = c / CPR, cc = (c % CPR) * T::CHUNK;
-    const bool ok = r < rows && cc < cols;
-    cp_async16(dst + r * T::LDB + cc, src + (ok ? r * ld + cc : 0), ok ? 16 : 0);
-  }
-}
-
-// cp.async the ROWS x kWBK block of x (row pitch d) at K offset kb; rows
-// past `rows` and columns past k_end land as zeros. The caller commits.
-template <int ROWS, int NTHREADS>
-__device__ __forceinline__ void load_x_slab(bf16* sx, const bf16* x, int rows, int d, int kb,
-                                            int k_end) {
-  for (int c = threadIdx.x; c < ROWS * (kWBK / 8); c += NTHREADS) {
-    const int r = c / (kWBK / 8), cc = (c % (kWBK / 8)) * 8;
-    const bool ok = r < rows && kb + cc < k_end;
-    cp_async16(sx + r * kXLd + cc, x + (ok ? static_cast<long long>(r) * d + kb + cc : 0),
-               ok ? 16 : 0);
-  }
-}
-
 // The cp.async ring: load(kt) issues slab kt's copies into stage
 // kt % STAGES, use(kt) runs once every thread's copies of slab kt have
 // landed; STAGES - 1 loads stay in flight. Returns after a barrier, the
@@ -155,51 +101,6 @@ __device__ __forceinline__ void ring(int n, Load load, Use use) {
   }
   cp_async_wait<0>();
   __syncthreads();
-}
-
-// acc += A[0:16 MT, 0:kWBK] @ slab for this warp's columns; A bf16 at pitch
-// lda.
-template <typename W, int MT>
-__device__ __forceinline__ void mma_slab(float (&acc)[MT][WTile<W>::NT][4], const bf16* a,
-                                         int lda, const W* slab, int wn, int lane) {
-  constexpr int NT = WTile<W>::NT;
-#pragma unroll
-  for (int kk = 0; kk < kWBK; kk += 16) {
-    uint32_t bfr[NT][2];
-    weight_frags<W>(bfr, slab, kk, wn, lane);
-#pragma unroll
-    for (int i = 0; i < MT; ++i) {
-      uint32_t af[4];
-      ldmatrix_x4(af, a + (i * 16 + (lane & 15)) * lda + kk + (lane >> 4) * 8);
-#pragma unroll
-      for (int j = 0; j < NT; ++j) mma_bf16_16816(acc[i][j], af, bfr[j][0], bfr[j][1]);
-    }
-  }
-}
-
-template <int MT, int NT>
-__device__ __forceinline__ void zero(float (&acc)[MT][NT][4]) {
-#pragma unroll
-  for (int i = 0; i < MT; ++i)
-#pragma unroll
-    for (int j = 0; j < NT; ++j) acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0.f;
-}
-
-// fn(row, col, value) for each of this warp's sums: row i*16 + g + 8 hf,
-// col frag_col (the tile's column order).
-template <typename W, int MT, typename Fn>
-__device__ __forceinline__ void each_sum(const float (&acc)[MT][WTile<W>::NT][4], int wn, int lane,
-                                         Fn fn) {
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int i = 0; i < MT; ++i)
-#pragma unroll
-    for (int j = 0; j < WTile<W>::NT; ++j)
-#pragma unroll
-      for (int hf = 0; hf < 2; ++hf)
-#pragma unroll
-        for (int e = 0; e < 2; ++e)
-          fn(i * 16 + g + 8 * hf, frag_col<W>(j, e, wn, t), acc[i][j][2 * hf + e]);
 }
 
 // Launch with a cluster of cluster_x blocks along x; with pdl, as a

@@ -51,10 +51,10 @@ _SIGNATURES = {
     "gar_vit_gemm": [_I] + [_P] * 6 + [_I] * 3 + [_P],
     "gar_layer_matmul": [_P] * 3 + [_I] * 6 + [_P],
     "gar_layer_swiglu": [_P] * 4 + [_I] * 6 + [_P],
-    "gar_layer_qkv": [_P] * 7 + [_I] * 5 + [_P],
+    "gar_layer_qkv": [_P] * 7 + [_I] * 7 + [_P],
     "gar_layer_matmul_q8": [_P] * 4 + [_I] * 6 + [_P],
     "gar_layer_swiglu_q8": [_P] * 6 + [_I] * 6 + [_P],
-    "gar_layer_qkv_q8": [_P] * 10 + [_I] * 5 + [_P],
+    "gar_layer_qkv_q8": [_P] * 10 + [_I] * 7 + [_P],
     "gar_qkv_norm_rope": [_P] * 12 + [_I] * 9 + [_F, _P],
     "gar_qkv_norm_rope_q8": [_P] * 15 + [_I] * 9 + [_F, _P],
     "gar_mlp_residual": [_P] * 8 + [_I] * 6 + [_F, _P],

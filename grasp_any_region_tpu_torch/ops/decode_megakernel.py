@@ -261,12 +261,6 @@ def qkv_splits(tiles: int, d: int, itemsize: int, *, sms: int = 132) -> int:
     return min(lm.stream_splits(tiles, d, sms=sms), box_cols(itemsize) // 8)
 
 
-def qkv_tiles(hq: int, hk: int, itemsize: int) -> int:
-    """The column tiles of 19 / 20's segment table: q's, then k's and v's."""
-    n = box_cols(itemsize)
-    return -(-hq // n) + 2 * -(-hk // n)
-
-
 @functools.lru_cache(maxsize=None)
 def _card_qkv_splits(tiles: int, d: int, itemsize: int, index: int) -> int:
     return qkv_splits(tiles, d, itemsize, sms=_build.sm_count(index))
@@ -275,7 +269,7 @@ def _card_qkv_splits(tiles: int, d: int, itemsize: int, index: int) -> int:
 def qkv_card_splits(hq: int, hk: int, d: int, q8: bool, device: torch.device) -> int:
     """`qkv_splits` on the card (its SM count)."""
     itemsize = 1 if q8 else 2
-    return _card_qkv_splits(qkv_tiles(hq, hk, itemsize), d, itemsize, device.index)
+    return _card_qkv_splits(lm.qkv_tiles(hq, hk, itemsize), d, itemsize, device.index)
 
 
 def mlp_splits(tiles: int, d: int, itemsize: int, *, sms: int = 132,

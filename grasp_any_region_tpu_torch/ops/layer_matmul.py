@@ -19,21 +19,22 @@ The CUDA kernels stream the weights from HBM, which bounds them: split K
 over a thread-block cluster so the grid fills the card, reduce the partials
 through distributed shared memory in the same launch, tensor cores for B
 up to 32 rows. Din and Dout need only be multiples of 8; the TPU kernels'
-Dout % block_n rule does not apply. H, H8, I and I8
-(csrc/layer_matmul_sm90.cu) stream their weights, and x beside them, by
+Dout % block_n rule does not apply. All six run on one body
+(csrc/layer_matmul_sm90.cu): the weights, and x beside them, come in by
 TMA through a ring fed by one producer thread (I and I8 the gate and up
-boxes side by side in a stage), and launch as a programmatic dependent of
-the kernel before them, so their weight loads may start before that kernel
-ends; a tile is one 128-byte row of the weight (`stream_n`: 64 bf16, 128
-int8 columns), `stream_splits` picks the cluster size,
+boxes side by side in a stage), and each launches as a programmatic
+dependent of the kernel before it, so its weight loads may start before
+that kernel ends; a tile is one 128-byte row of the weight (`stream_n`: 64
+bf16, 128 int8 columns), `stream_splits` picks the cluster size,
 `stream_plan` says which (column tile, K range) each CTA takes, and
 `layer_matmul_stream_plain`, `layer_matmul_q8_stream_plain`,
 `layer_swiglu_stream_plain` and `layer_swiglu_q8_stream_plain` sum in the
 kernel's order. The stream's grid runs over a table of up to three
-segments (`segment_plan`); the mega step's 19 and 20
-(ops/decode_megakernel.py) take three, q, k and v, with rope in the
-finishers (`finisher_cols`). J and J8 run on csrc/layer_matmul.cu's
-cp.async ring.
+segments (`segment_plan`): J and J8 take three, q, k and v (`qkv_tiles`,
+cluster size `qkv_stream_splits`; mirrors `layer_qkv_stream_plain`,
+`layer_qkv_q8_stream_plain`), as do the mega step's 19 and 20
+(ops/decode_megakernel.py), which add an RMSNorm prologue and rope in the
+finishers (`finisher_cols`).
 
 H8, I8 and J8 (`layer_matmul_q8`, `layer_swiglu_q8`, `layer_qkv_q8`,
 `grasp_any_region_tpu/ops/layer_matmul.py:165, 207, 253`, Pallas bodies
@@ -42,10 +43,9 @@ weights: int8 (L, Din, Dout) with one fp32 scale per output column,
 (L, 1, Dout), from models/quantize.py. The Pallas kernels scale the
 widened weight before the sum; the CUDA kernels and the plain versions
 scale the fp32 sum after it (the scale is constant along the sum), which
-differs only by fp32 rounding. They stream half the bytes of H-J: H8 and
-I8 on H's stream, J8 on the cp.async body, each with int8 weights widened
-to bf16 on chip. The int8 weights' Dout must be a multiple of 16 (16-byte
-rows).
+differs only by fp32 rounding. They stream half the bytes of H-J, each
+with int8 weights widened to bf16 on chip. The int8 weights' Dout must be
+a multiple of 16 (16-byte rows).
 
 On a CPU tensor each wrapper runs its plain version (below, same rounding
 points in torch); on a CUDA tensor it launches the kernel or raises. The
@@ -108,6 +108,21 @@ def stream_splits(tiles: int, din: int, *, sms: int = 132,
            and din >= 2 * s * STREAM_BK):
         s *= 2
     return s
+
+
+def qkv_tiles(hq: int, hk: int, itemsize: int) -> int:
+    """The column tiles of a q, k, v segment table (J, J8, 19, 20): q's,
+    then k's and v's, of one 128-byte row each (64 bf16, 128 int8)."""
+    n = STREAM_N * 2 // itemsize
+    return -(-hq // n) + 2 * -(-hk // n)
+
+
+def qkv_stream_splits(hq: int, hk: int, d: int, itemsize: int, *, sms: int = 132) -> int:
+    """J and J8's CTAs a column tile (the cluster size): `stream_splits`
+    over the three segments' tiles, two CTAs an SM. GAR-1B: 4 for J (48
+    tiles), 8 for J8 (24 tiles of 128). No rope, so no cap on the finishers'
+    pairs (19 and 20 keep theirs: `decode_megakernel.qkv_splits`)."""
+    return stream_splits(qkv_tiles(hq, hk, itemsize), d, sms=sms)
 
 
 def stream_plan(din: int, dout: int, splits: int,
@@ -210,10 +225,37 @@ def layer_swiglu_q8_stream_plain(x: torch.Tensor, wg_q8: torch.Tensor, sg: torch
     return (F.silu(gate * sg[layer].float()) * (up * su[layer].float())).to(x.dtype)
 
 
+def layer_qkv_stream_plain(x: torch.Tensor, wq_all: torch.Tensor, wk_all: torch.Tensor,
+                           wv_all: torch.Tensor, layer: int,
+                           splits: int) -> Tuple[torch.Tensor, ...]:
+    """Kernel J in its partition and order: each segment (q, k, v)
+    `_stream_sums` (its tiles, each CTA's stages in order, the ranks in
+    order), rounded once to x's dtype. A mirror for the tests, not a
+    path."""
+    return tuple(_stream_sums(x, (w,), layer, splits)[0].to(x.dtype)
+                 for w in (wq_all, wk_all, wv_all))
+
+
+def layer_qkv_q8_stream_plain(x: torch.Tensor, wq_q8: torch.Tensor, sq: torch.Tensor,
+                              wk_q8: torch.Tensor, sk: torch.Tensor, wv_q8: torch.Tensor,
+                              sv: torch.Tensor, layer: int,
+                              splits: int) -> Tuple[torch.Tensor, ...]:
+    """Kernel J8 in its partition and order (`_stream_sums` per segment at
+    128-column tiles), each column's scale on the summed column, rounded
+    once to x's dtype. A mirror for the tests, not a path."""
+    return tuple((_stream_sums(x, (w,), layer, splits)[0] * s[layer].float()).to(x.dtype)
+                 for w, s in ((wq_q8, sq), (wk_q8, sk), (wv_q8, sv)))
+
+
 @functools.lru_cache(maxsize=None)
 def _card_splits(dout: int, din: int, index: int, n: int = STREAM_N,
                  per_sm: int = STREAM_CTAS_PER_SM) -> int:
     return stream_splits(-(-dout // n), din, sms=_build.sm_count(index), ctas_per_sm=per_sm)
+
+
+@functools.lru_cache(maxsize=None)
+def _card_qkv_stream_splits(hq: int, hk: int, d: int, itemsize: int, index: int) -> int:
+    return qkv_stream_splits(hq, hk, d, itemsize, sms=_build.sm_count(index))
 
 
 def layer_matmul_plain(x: torch.Tensor, w_all: torch.Tensor, layer: int) -> torch.Tensor:
@@ -344,8 +386,9 @@ def layer_qkv(x: torch.Tensor, wq_all: torch.Tensor, wk_all: torch.Tensor,
     if dev.type == "cpu":
         return layer_qkv_plain(x, wq_all, wk_all, wv_all, layer)
     _check(x, layer, wq_all, wk_all, wv_all)
-    if wv_all.shape != wk_all.shape:
-        raise ValueError(f"wk {tuple(wk_all.shape)} and wv {tuple(wv_all.shape)} differ")
+    if wv_all.shape != wk_all.shape or wq_all.shape[0] != wk_all.shape[0]:
+        raise ValueError(f"wq {tuple(wq_all.shape)}, wk {tuple(wk_all.shape)} and wv "
+                         f"{tuple(wv_all.shape)}: wk and wv differ, or the layer counts do")
     b, d = x.shape
     hq, hk = wq_all.shape[2], wk_all.shape[2]
     q = torch.empty((b, hq), dtype=x.dtype, device=dev)
@@ -353,7 +396,8 @@ def layer_qkv(x: torch.Tensor, wq_all: torch.Tensor, wk_all: torch.Tensor,
     v = torch.empty((b, hk), dtype=x.dtype, device=dev)
     err = _build.library().gar_layer_qkv(
         x.data_ptr(), wq_all.data_ptr(), wk_all.data_ptr(), wv_all.data_ptr(), q.data_ptr(),
-        k.data_ptr(), v.data_ptr(), layer, b, d, hq, hk, _build.stream_handle(dev))
+        k.data_ptr(), v.data_ptr(), layer, wq_all.shape[0], b, d, hq, hk,
+        _card_qkv_stream_splits(hq, hk, d, 2, dev.index), _build.stream_handle(dev))
     _build.check(err, "gar_layer_qkv")
     launches["J"] += 1
     return q, k, v
@@ -410,8 +454,9 @@ def layer_qkv_q8(x: torch.Tensor, wq_q8: torch.Tensor, sq: torch.Tensor,
     if dev.type == "cpu":
         return layer_qkv_q8_plain(x, wq_q8, sq, wk_q8, sk, wv_q8, sv, layer)
     _check_q8(x, layer, (wq_q8, sq), (wk_q8, sk), (wv_q8, sv))
-    if wv_q8.shape != wk_q8.shape:
-        raise ValueError(f"wk {tuple(wk_q8.shape)} and wv {tuple(wv_q8.shape)} differ")
+    if wv_q8.shape != wk_q8.shape or wq_q8.shape[0] != wk_q8.shape[0]:
+        raise ValueError(f"wq {tuple(wq_q8.shape)}, wk {tuple(wk_q8.shape)} and wv "
+                         f"{tuple(wv_q8.shape)}: wk and wv differ, or the layer counts do")
     b, d = x.shape
     hq, hk = wq_q8.shape[2], wk_q8.shape[2]
     q = torch.empty((b, hq), dtype=x.dtype, device=dev)
@@ -419,8 +464,9 @@ def layer_qkv_q8(x: torch.Tensor, wq_q8: torch.Tensor, sq: torch.Tensor,
     v = torch.empty((b, hk), dtype=x.dtype, device=dev)
     err = _build.library().gar_layer_qkv_q8(
         x.data_ptr(), wq_q8.data_ptr(), sq.data_ptr(), wk_q8.data_ptr(), sk.data_ptr(),
-        wv_q8.data_ptr(), sv.data_ptr(), q.data_ptr(), k.data_ptr(), v.data_ptr(), layer, b, d,
-        hq, hk, _build.stream_handle(dev))
+        wv_q8.data_ptr(), sv.data_ptr(), q.data_ptr(), k.data_ptr(), v.data_ptr(), layer,
+        wq_q8.shape[0], b, d, hq, hk, _card_qkv_stream_splits(hq, hk, d, 1, dev.index),
+        _build.stream_handle(dev))
     _build.check(err, "gar_layer_qkv_q8")
     launches["J8"] += 1
     return q, k, v

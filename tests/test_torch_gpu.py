@@ -446,6 +446,8 @@ def test_layer_matmul_wrappers_reject_what_the_kernels_do_not_take(rnd):
         lm.layer_swiglu(x, w, w, 2)
     with pytest.raises(ValueError):  # a non-contiguous x
         lm.layer_qkv(rnd(64, 3).t(), w, w, w, 0)
+    with pytest.raises(ValueError):  # q's stack with another layer count than k's and v's
+        lm.layer_qkv(x, rnd(3, 64, 128), w, w, 0)
     with pytest.raises(ValueError):  # more rows than the kernels take
         lm.layer_matmul(rnd(lm.MAX_ROWS + 1, 64), w, 0)
 
@@ -710,6 +712,133 @@ def test_stream_kernels_every_row_count(rnd, key):
         torch.testing.assert_close(out.float(), _plain_of(plain, x, mats, 1), **TOL,
                                    msg=f"{key} B = {b}")
         del x, out
+
+
+# kernels J and J8 on H's weight stream, three segments (q, k, v): the
+# shapes of test_layer_matmul_kernels / test_layer_matmul_q8_kernels
+# (ragged: a part tile, k and v narrower than a tile; then GAR-1B's)
+QKV_STREAM_WIDTHS = {False: ((384, 384, 64), (200, 136, 40), (2048, 2048, 512)),
+                     True: ((384, 384, 64), (208, 144, 48), (2048, 2048, 512))}
+
+
+def _layer_qkv_case(rnd, q8, d, hq, hk, n_layers=3, scale=None):
+    """J or J8, its plain version, its stream mirror, its counter key and
+    seeded (L = n_layers) weights (int8: with their column scales, by
+    default `_q8`'s, else `scale` x (0.5-1.5))."""
+    if not q8:
+        w = _decode_weights(rnd, n_layers, d, 64, hq, hk)
+        return (lm.layer_qkv, lm.layer_qkv_plain, lm.layer_qkv_stream_plain, "J",
+                (w["wq"], w["wk"], w["wv"]))
+    mats = []
+    for n in (hq, hk, hk):
+        w, s = _q8(rnd, n_layers, d, n)
+        if scale is not None:
+            gen = torch.Generator(device="cuda").manual_seed(n)
+            s = (torch.rand(s.shape, generator=gen, device="cuda") + 0.5) * scale
+        mats += [w, s]
+    return (lm.layer_qkv_q8, lm.layer_qkv_q8_plain, lm.layer_qkv_q8_stream_plain, "J8",
+            tuple(mats))
+
+
+def _at_layer(mats, layer):
+    """The layer's slice of each stacked weight and scale, bf16 widened to
+    fp32 and int8 kept (the mirror takes int8's tile width from it), for
+    the plain versions and the mirrors at layer 0."""
+    return [m[layer:layer + 1] if m.dtype == torch.int8 else m[layer:layer + 1].float()
+            for m in mats]
+
+
+def _check_layer_qkv(kernel, plain, mirror, key, mats, x, layer, splits, msg):
+    before = dict(lm.launches)
+    out = kernel(x, *mats, layer)
+    torch.cuda.synchronize()
+    assert lm.launches == dict(before, **{key: before[key] + 1}), msg
+    ref = plain(x.float(), *_at_layer(mats, layer), 0)
+    want = mirror(x.float(), *_at_layer(mats, layer), 0, splits)
+    for o, r, m, part in zip(out, ref, want, "qkv"):
+        assert o.dtype == torch.bfloat16 and o.shape == r.shape
+        torch.testing.assert_close(o.float(), r.float(), **TOL, msg=f"{msg}, {part}")
+        torch.testing.assert_close(o.float(), m.float(), **TOL, msg=f"{msg}, {part} mirror")
+
+
+@pytest.mark.parametrize("splits", list(range(1, 17)))
+@pytest.mark.parametrize("q8", [False, True], ids=["J", "J8"])
+def test_layer_qkv_stream_kernel_any_split(rnd, monkeypatch, q8, splits):
+    """Kernels J and J8 (three segments of H's weight stream) with the
+    cluster size forced (the chooser replaced), 1 to 16 CTAs a tile, at the
+    ragged widths and GAR-1B's, B = 1, 5 and 24, against the plain version
+    and the mirror of their partition and order; a cluster size that is
+    not a power of two is refused."""
+    monkeypatch.setattr(lm, "_card_qkv_stream_splits", lambda *_: splits)
+    for d, hq, hk in QKV_STREAM_WIDTHS[q8]:
+        kernel, plain, mirror, key, mats = _layer_qkv_case(rnd, q8, d, hq, hk)
+        for b in (1, 5, 24):
+            x = rnd(b, d)
+            if splits & (splits - 1):
+                with pytest.raises(RuntimeError, match="gar_layer_qkv"):
+                    kernel(x, *mats, 1)
+                continue
+            _check_layer_qkv(kernel, plain, mirror, key, mats, x, 1, splits,
+                             f"{key} {d} x ({hq}, {hk}), B = {b}, {splits} CTAs a tile")
+
+
+@pytest.mark.parametrize("q8", [False, True], ids=["J", "J8"])
+def test_layer_qkv_stream_kernels_at_the_chooser(rnd, q8):
+    """J and J8 at the chooser's CTAs a tile (4 and 8 at GAR-1B) at every
+    layer of the ragged widths and GAR-1B's, B = 1, 5, 24, against the plain
+    version and the stream mirror; then new weights of the same shapes
+    (they may take the freed ones' addresses): the cached tensor maps stay
+    right."""
+    for d, hq, hk in QKV_STREAM_WIDTHS[q8]:
+        for _ in range(2):
+            kernel, plain, mirror, key, mats = _layer_qkv_case(rnd, q8, d, hq, hk)
+            splits = lm._card_qkv_stream_splits(hq, hk, d, 1 if q8 else 2, 0)
+            for b in (1, 5, 24):
+                x = rnd(b, d)
+                for layer in range(3):
+                    _check_layer_qkv(kernel, plain, mirror, key, mats, x, layer, splits,
+                                     f"{key} {d} x ({hq}, {hk}), B = {b}, layer {layer}")
+            del mats, x
+
+
+@pytest.mark.parametrize("q8", [False, True], ids=["J", "J8"])
+def test_layer_qkv_stream_kernels_every_row_count(rnd, q8):
+    """J and J8 at every B from 1 to 32 (x's tensor map has boxes of B
+    rounded up to 8 rows; one or two row tiles), each x a fresh tensor, at
+    a ragged width, against the plain version and the stream mirror."""
+    d, hq, hk = QKV_STREAM_WIDTHS[q8][1]
+    kernel, plain, mirror, key, mats = _layer_qkv_case(rnd, q8, d, hq, hk)
+    splits = lm._card_qkv_stream_splits(hq, hk, d, 1 if q8 else 2, 0)
+    for b in range(1, lm.MAX_ROWS + 1):
+        x = rnd(b, d)
+        _check_layer_qkv(kernel, plain, mirror, key, mats, x, 1, splits, f"{key} B = {b}")
+        del x
+
+
+@pytest.mark.parametrize("q8", [False, True], ids=["J", "J8"])
+def test_layer_qkv_stream_kernel_same_bits(rnd, q8):
+    """J and J8 at GAR-1B's widths give the same bits on a second launch and
+    on two replays of a CUDA graph of one launch, at B = 1 and 24."""
+    kernel, _, _, _, mats = _layer_qkv_case(rnd, q8, 2048, 2048, 512)
+    for b in (1, 24):
+        x = rnd(b, 2048)
+
+        def run():
+            return torch.cat(kernel(x, *mats, 1), -1)
+
+        _same_bits_twice_and_replayed(run, run())
+
+
+@pytest.mark.parametrize("d,hq,hk", QKV_STREAM_WIDTHS[True])
+def test_layer_qkv_q8_kernel_at_the_old_scale(rnd, d, hq, hk):
+    """J8 with column scales 0.02 x (0.5-1.5), the int8 tests' earlier scale
+    (outputs of tens, not of one), at B = 1, 5 and 24, against the plain
+    version and the stream mirror at the chooser's CTAs a tile."""
+    kernel, plain, mirror, key, mats = _layer_qkv_case(rnd, True, d, hq, hk, scale=0.02)
+    splits = lm._card_qkv_stream_splits(hq, hk, d, 1, 0)
+    for b in (1, 5, 24):
+        _check_layer_qkv(kernel, plain, mirror, key, mats, rnd(b, d), 2, splits,
+                         f"J8 {d} x ({hq}, {hk}), B = {b}")
 
 
 def test_layer_matmul_q8_wrappers_reject_what_the_kernels_do_not_take(rnd):

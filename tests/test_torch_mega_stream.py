@@ -129,7 +129,7 @@ def test_segment_plan_covers_every_column_once_and_every_pair_has_one_finisher(d
     (128, 128, 8192, 1, 132, 8),    # the stream's cluster limit (20 could take 16)
 ])
 def test_qkv_splits(hq, hk, d, itemsize, sms, want):
-    tiles = tmk.qkv_tiles(hq, hk, itemsize)
+    tiles = tlm.qkv_tiles(hq, hk, itemsize)
     assert tmk.qkv_splits(tiles, d, itemsize, sms=sms) == want
     assert want <= tmk.box_cols(itemsize) // 8  # at least 4 pairs a finisher
 
