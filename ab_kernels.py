@@ -25,7 +25,10 @@ kernels of H's weight stream (TIMING_STREAM: H and H8 at GAR-1B's w_down
 and wo, I and I8 at its gate and up, each at B = 1 and 24, checked against
 its plain version, one call after an L2 flush and 16 layers back to back)
 against st_parent; those named q_* time kernels 19 and 20 (TIMING_QKV)
-against q_parent. `--against=` runs one
+against q_parent; those named g8_* time kernels A, B and C at GAR-8B's
+head dims (TIMING_8B: A at (9, S, 16, 96), S = 1025 and 1024, B at the
+2614-token causal prefill with 128-wide heads, C over a 128-wide cache at
+B = 1 and 24, each checked) against g8_parent. `--against=` runs one
 timing (TIMING_Q8 unless another is named: abc, h, m, stream, steps:
 TIMING_STEPS, the fused bf16 and int8 decode steps' and the mega step's
 (bf16 and int8 weights) device and host ms at GAR-1B, vit: TIMING_VIT,
@@ -39,7 +42,11 @@ call after an L2 flush, 16 layers back to back and the host time a call;
 or bits: TIMING_BITS, a hash of the outputs of H, H8 (w_down and wo), I,
 I8, J, J8, 19, 20, 23 and 21 at GAR-1B's widths, B = 1, 5, 17, 24 and 32,
 on seeded inputs, which two checkouts that give the same bits print
-alike) in the package of another checkout and in this tree, in turns.
+alike; or attn_bits: TIMING_ATTN_BITS, the same hash of kernels A (with
+its LSE), B (causal with its LSE, full, segment ids), C, C8 (and its
+written column), 16 and 22 at GAR-1B's head dim 64, B = 1, 2 and 24; or
+gar8b: TIMING_8B) in the package of another checkout and in this tree,
+in turns.
 Run from the repository root on a machine with the card:
 
     python3 ab_kernels.py [variant ...]
@@ -48,7 +55,8 @@ Run from the repository root on a machine with the card:
     python3 ab_kernels.py c8_<variant> | i8_<variant> ...
     python3 ab_kernels.py st_<variant> | h8_<variant> | i_<variant> ...
     python3 ab_kernels.py q_<variant> ...
-    python3 ab_kernels.py --against=<directory of another checkout> [q8 | abc | h | m | stream | steps | vit | qkv | j | bits]
+    python3 ab_kernels.py g8_<variant> ...
+    python3 ab_kernels.py --against=<directory of another checkout> [q8 | abc | h | m | stream | steps | vit | qkv | j | bits | attn_bits | gar8b]
 """
 
 from __future__ import annotations
@@ -308,6 +316,13 @@ ST_VARIANTS = {  # kernels H, H8, I and I8 (TIMING_STREAM)
 }
 
 QKV_PY = "grasp_any_region_tpu_torch/ops/decode_megakernel.py"
+G8_VARIANTS = {  # kernels A, B and C at GAR-8B's head dims (TIMING_8B)
+    "g8_parent": [],
+    # two K/V stages at head dims 96 and 128 (160 KB with Q), not three (224
+    # KB of the 227 a block takes)
+    "g8_two_stages": [(FWD, "  static constexpr int kStages = 3;",
+                       "  static constexpr int kStages = kAtoms == 1 ? 3 : 2;")],
+}
 QKV_VARIANTS = {  # kernels 19 and 20 (TIMING_QKV)
     "q_parent": [],
     # every CTA takes every row's rstd at every B (past 16 rows the CTAs of
@@ -735,6 +750,99 @@ print("AB " + json.dumps({k: hashlib.sha256(v.cpu().view(torch.int16).numpy().to
 """
 
 
+TIMING_ATTN_BITS = r"""
+import hashlib, json, torch, chip_smoke as c
+from grasp_any_region_tpu_torch.ops import decode_attention as dec
+from grasp_any_region_tpu_torch.ops import decode_megakernel as mk
+from grasp_any_region_tpu_torch.ops import flash_attention as fa
+from grasp_any_region_tpu_torch.ops import vit_attention as va
+c.phase_environment()
+gen = torch.Generator(device="cuda").manual_seed(0)
+def rnd(*shape):
+    return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+def i32(x):
+    return torch.tensor(x, dtype=torch.int32, device="cuda")
+out = {}
+qkv = rnd(17, 1025, 3, 16, 64)
+out["A"], out["A lse"] = va.vit_attention(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2],
+                                          return_lse=True)
+q, k, v = rnd(1, 4662, 32, 64), rnd(1, 4662, 8, 64), rnd(1, 4662, 8, 64)
+out["B"], out["B lse"] = fa.flash_attention(q, k, v, causal=True, return_lse=True)
+out["B full"] = fa.flash_attention(q[:, :1000], k, v, causal=False)
+seg = torch.zeros((2, 4096), dtype=torch.int32, device="cuda")
+seg[:, :1500], seg[:, 1500:4000] = 1, 2
+out["B seg"] = fa.flash_attention(rnd(2, 4096, 32, 64), rnd(2, 4096, 8, 64), rnd(2, 4096, 8, 64),
+                                  causal=True, segment_ids=seg)
+pad, wpos, s = 4662, 4700, 5120
+wo = (rnd(16, 2048, 2048).float() * 2048 ** -0.5).to(torch.bfloat16)
+for b in (1, 2, 24):
+    plens = [4662] if b == 1 else [4662 - 150 * i for i in range(b)]
+    kw = dict(prompt_lens=i32(plens), write_pos=i32(wpos), prompt_pad=pad)
+    k_all, v_all = rnd(16, b, 8, s, 64), rnd(16, b, 8, s, 64)
+    q, kn, vn, x = rnd(b, 32, 64), rnd(b, 8, 64), rnd(b, 8, 64), rnd(b, 2048)
+    out[f"16 B={b}"] = dec.decode_attention_stacked(q, k_all, v_all, i32(7), **kw)
+    out[f"22 B={b}"] = mk.decode_attention_wo(q, k_all, v_all, kn, vn, wo, x, 6, **kw)
+    out[f"C B={b}"] = dec.decode_attention_fused(q, k_all, v_all, kn, vn, 7, **kw)
+    g8 = torch.Generator(device="cuda").manual_seed(b)
+    k8, v8 = (torch.randint(-127, 128, (16, b, 8, s, 64), generator=g8, device="cuda",
+                            dtype=torch.int8) for _ in range(2))
+    ks, vs = (torch.rand((16, b, 4, 1, 1), generator=g8, device="cuda") / 50 + 0.01
+              for _ in range(2))
+    out[f"C8 B={b}"] = dec.decode_attention_fused(q, k8, v8, kn, vn, 7, k_scale=ks, v_scale=vs,
+                                                  **kw)
+    out[f"C8 column B={b}"] = torch.cat([k8[7, :, :, wpos], v8[7, :, :, wpos]], -1)
+    del k_all, v_all, k8, v8
+torch.cuda.synchronize()
+print("AB " + json.dumps({k: hashlib.sha256(v.contiguous().cpu().view(torch.int8).numpy()
+                                            .tobytes()).hexdigest()[:12]
+                          for k, v in out.items()}))
+"""
+
+# GAR-8B's attention shapes: A at (9, S, 16, 96) views of a qkv buffer, S =
+# 1025 and 1024; B at the 2614-token causal prefill, 32 / 8 heads of 128; C
+# over layer 7 of an (8, B, 8, 3072, 128) cache at B = 1 and 24, write_pos
+# 2650; each checked against its plain version.
+TIMING_8B = r"""
+import json, torch, chip_smoke as c
+from grasp_any_region_tpu_torch.ops import decode_attention as dec
+from grasp_any_region_tpu_torch.ops import flash_attention as fa
+from grasp_any_region_tpu_torch.ops import vit_attention as va
+c.phase_environment()
+gen = torch.Generator(device="cuda").manual_seed(0)
+def rnd(*shape):
+    return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+t = {}
+qkv = rnd(9, 1025, 3, 16, 96)
+for s in (1025, 1024):
+    q, k, v = (qkv[:, 1025 - s:, i] for i in range(3))
+    ref = va.vit_attention_plain(q.float(), k.float(), v.float())
+    c.max_err(va.vit_attention(q, k, v), ref, f"A96 S={s}", **c.sized_tol(ref))
+    t[f"A96 S={s}"] = c.cuda_ms(lambda: va.vit_attention(q, k, v))
+del qkv, q, k, v, ref
+q, k, v = rnd(1, 2614, 32, 128), rnd(1, 2614, 8, 128), rnd(1, 2614, 8, 128)
+ref = fa.flash_attention_plain(q.float(), k.float(), v.float(), causal=True)
+c.max_err(fa.flash_attention(q, k, v, causal=True), ref, "B128", **c.sized_tol(ref))
+t["B128 prefill"] = c.cuda_ms(lambda: fa.flash_attention(q, k, v, causal=True))
+del q, k, v, ref
+pad, wpos, layer = 2614, 2650, 7
+for b in (1, 24):
+    plens = [pad] if b == 1 else [pad - 100 * i for i in range(b)]
+    kw = dict(prompt_lens=torch.tensor(plens, dtype=torch.int32, device="cuda"),
+              write_pos=torch.tensor(wpos, dtype=torch.int32, device="cuda"), prompt_pad=pad)
+    k_all, v_all = rnd(8, b, 8, 3072, 128), rnd(8, b, 8, 3072, 128)
+    q, k_new, v_new = rnd(b, 32, 128), rnd(b, 8, 128), rnd(b, 8, 128)
+    k_ref, v_ref = k_all[layer:layer + 1].float(), v_all[layer:layer + 1].float()
+    out = dec.decode_attention_fused(q, k_all, v_all, k_new, v_new, layer, **kw)
+    ref = dec.decode_attention_fused_plain(q.float(), k_ref, v_ref, k_new.float(),
+                                           v_new.float(), 0, **kw)
+    c.max_err(out, ref, f"C128 B={b}", **c.TOL16)
+    t[f"C128 B={b}"] = c.cuda_ms(lambda: dec.decode_attention_fused(q, k_all, v_all, k_new,
+                                                                    v_new, layer, **kw))
+    del k_all, v_all, k_ref, v_ref
+print("AB " + json.dumps(t))
+"""
+
+
 def against(other: str, timing: str = "q8") -> int:
     """One timing (TIMING_Q8, or TIMING, TIMING_H, TIMING_M, TIMING_STREAM,
     TIMING_STEPS, TIMING_VIT, TIMING_QKV, TIMING_J as abc, h, m, stream,
@@ -744,7 +852,7 @@ def against(other: str, timing: str = "q8") -> int:
     other."""
     code = dict(q8=TIMING_Q8, abc=TIMING, h=TIMING_H, m=TIMING_M, stream=TIMING_STREAM,
                 steps=TIMING_STEPS, vit=TIMING_VIT, qkv=TIMING_QKV, j=TIMING_J,
-                bits=TIMING_BITS)[timing]
+                bits=TIMING_BITS, attn_bits=TIMING_ATTN_BITS, gar8b=TIMING_8B)[timing]
     for name, d in (("other", other), ("tree", str(REPO)), ("tree", str(REPO)), ("other", other)):
         res = run(Path(d), ["-c", code], 900)
         lines = [x for x in res.stdout.splitlines() if x.startswith("AB ")]
@@ -761,7 +869,9 @@ def main(names: list[str]) -> int:
     q8 = bool(names) and all(n.startswith(("c8_", "i8_")) for n in names)
     st = bool(names) and all(n.startswith(("st_", "h8_", "i_")) for n in names)
     qkv = bool(names) and all(n.startswith("q_") for n in names)
+    g8 = bool(names) and all(n.startswith("g8_") for n in names)
     variants, parent, timing = ((H_VARIANTS, "h_parent", TIMING_H) if h
+                                else (G8_VARIANTS, "g8_parent", TIMING_8B) if g8
                                 else (QKV_VARIANTS, "q_parent", TIMING_QKV) if qkv
                                 else (M_VARIANTS, "m_parent", TIMING_M) if mega
                                 else (Q8_VARIANTS, "q8_parent", TIMING_Q8) if q8

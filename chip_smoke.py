@@ -93,6 +93,35 @@ the script exits non-zero (there is no CPU fallback):
    the fused step, and the first token where the greedy output leaves the
    fused path's (printed, not bounded).
 
+GAR-8B (its kernels in phase 2, its paths after phase 9):
+
+2. (8B) Kernels A, B and C at GAR-8B's head dims against their plain
+   versions: A at (9, 1025, 16, 96) views of the unfused PE-G block's qkv
+   buffer (192-byte head stride) with its LSE, also at S = 1024 and 777; B
+   causal at the 2614-token prompt, 32 / 8 heads of 128, with its LSE; C
+   over layer 7 of a (32, B, 8, 3072, 128) cache at B = 1 and 24 at TOL16
+   with the interval probe and its CTAs a (kv head, row) swept 1-16; then
+   H, I, J, H8, I8, J8 at GAR-8B's widths (hidden 4096, MLP 14336, q 4096,
+   k and v 1024; 8 stacked layers), as at GAR-1B's (`decode_matmul_kernels`
+   with those widths) but without the narrow and ragged checks. Each with
+   its time after an L2 flush, plain time, bound and library time (SDPA;
+   SDPA with enable_gqa; SDPA with the boolean mask; torch.mm, cuBLAS's
+   composites, torch._weight_int8pack_mm).
+10. Cross-check on a narrow 8B-shaped config (`narrow_8b_config`: tower
+   width 192, 2 heads of 96, depth 2; decoder hidden 512, 4 heads of 128
+   over 1 kv head, 2 layers, MLP 1024; untied head, rope factor 8), as
+   phase 3: bf16 weights, then int8 weights on a bf16 cache; the prefill
+   must launch A = 2 and B = 2, and 4 decode steps C = J = I = 8, H = 16
+   (or J8, I8, H8).
+11. GAR-8B's caption at full width (`phase_gar8b`, after the GAR-1B phases
+   have freed their memory): bf16 weights, then weights born int8
+   (`init_gar_serving_int8`), one 9-tile image (thumbnail + 2 x 4), one
+   region, the 2614-token prompt, 64 greedy tokens; ms per caption (median
+   of 2) split into vision, prefill and decode, decode tok/s, the weights'
+   bytes and peak memory; launches per caption A = 47, B = 32, C = J = I =
+   32 * 63, H = 2 * 32 * 63 (int8: J8 = I8 = 32 * 63, H8 = 2 * 32 * 63, C
+   = 32 * 63), every other kernel 0.
+
 Training (its kernels in phase 2, its paths after phase 6):
 
 2. (train) Kernel A and B with their LSE outputs, B with segment ids at the
@@ -136,8 +165,10 @@ Training (its kernels in phase 2, its paths after phase 6):
    documents of 300-1200 tokens, every token supervised: ms/step, tok/s,
    and B = 32, 17 = 18 = 16 a step, B and 18 with segment ids.
 
-The line before the last is a JSON object with one entry per kernel; the
-last line is {"ok": true, "device": {...}}.
+The line before the last is a JSON object with one entry per kernel (A, B,
+C, H, I, J, H8, I8, J8 also with a "gar8b" object: their figures at
+GAR-8B's shapes and their launches per 8B caption); the last line is
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -336,6 +367,16 @@ def phase_kernels():
     results.update(vit_block_kernels(rnd, gen))
     results.update(decode_matmul_kernels(rnd))
     results.update(mega_kernels(rnd))
+    # GAR-8B's shapes: A at head dim 96, B and C at 128, the stream at its widths
+    gar8b = gar8b_attention_kernels(rnd)
+    gar8b.update(decode_matmul_kernels(rnd, GAR8B_WIDTHS, 8, "8B "))
+    torch.cuda.empty_cache()
+    for name, r in gar8b.items():
+        lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
+        log(f"[kernels 8B] {name}: max |kernel - plain| {r['max_abs_err']:.3e}, "
+            f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']}), library {lib}")
+        results[name]["gar8b"] = r
     for name, r in results.items():
         lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
         log(f"[kernels] {name}: max |kernel - plain| {r['max_abs_err']:.3e}, "
@@ -749,6 +790,132 @@ def decode_attention_read_kernel(rnd):
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms, **lim)
 
 
+GAR8B_PROMPT = 2614  # synthetic_batch(gar_8b(), grid=(2, 4), regions=1)'s prompt
+GAR8B_COLUMNS = 3072  # generate's cache for it and 64 new tokens (a multiple of 512)
+
+
+def gar8b_attention_kernels(rnd):
+    """Kernels A, B and C at GAR-8B's head dims, each against its plain
+    version: A at (9, 1025, 16, 96) views of the unfused PE-G block's (T, S,
+    3, H, 96) qkv buffer (and at S = 1024 and a ragged S = 777), with its
+    LSE; B causal at the 2614-token prompt, 32 / 8 heads of 128, with its
+    LSE; C over layer 7 of a (32, B, 8, 3072, 128) cache at B = 1 and 24,
+    prompt_pad 2614, write_pos 2650 (B = 24: prompt lengths from 1 to 2614),
+    at TOL16 with the interval probe, its CTAs a (kv head, row) swept 1-16.
+    Times after an L2 flush, the plain version's, the bound, and the
+    library's: SDPA (enable_gqa for B; with the two-interval boolean mask
+    for C). Returns each kernel's 8B entry (C's at B = 1)."""
+    import torch.nn.functional as F
+    from grasp_any_region_tpu_torch.ops import decode_attention as dec
+    from grasp_any_region_tpu_torch.ops import flash_attention as fa
+    from grasp_any_region_tpu_torch.ops import vit_attention as va
+
+    out8 = {}
+    t, s, h, d = 9, 1025, 16, 96
+    qkv = rnd(t, s, 3, h, d)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    out, lse = va.vit_attention(q, k, v, return_lse=True)
+    torch.cuda.synchronize()
+    ref, ref_lse = va.vit_attention_plain(q.float(), k.float(), v.float(), return_lse=True)
+    err = max(max_err(out, ref, "A (head dim 96)", **sized_tol(ref)),
+              max_err(lse, ref_lse, "A's LSE (head dim 96)", atol=LSE_TOL, rtol=1e-4))
+    out8["A"] = dict(max_abs_err=err, ms=cuda_ms(lambda: va.vit_attention(q, k, v)),
+                     plain_ms=cuda_ms(lambda: va.vit_attention_plain(q, k, v), iters=5),
+                     library_ms=cuda_ms(lambda: sdpa(q, k, v)),
+                     **bound(nbytes(q, k, v, out), 4 * t * h * s ** 2 * d))
+    others = {}
+    for s2 in (1024, 777):
+        q2, k2, v2 = (x[:, s - s2:] for x in (q, k, v))
+        ref2 = va.vit_attention_plain(q2.float(), k2.float(), v2.float())
+        max_err(va.vit_attention(q2, k2, v2), ref2, f"A (head dim 96, S = {s2})",
+                **sized_tol(ref2))
+        others[s2] = (cuda_ms(lambda: va.vit_attention(q2, k2, v2)),
+                      cuda_ms(lambda: sdpa(q2, k2, v2)))
+    log(f"[kernels 8B] A (T = {t}, S = {s}, {h} heads of {d}, views of the qkv buffer; library: "
+        f"SDPA): {share_line(out8['A'])}; plain {out8['A']['plain_ms']:.4f} ms; max |kernel - "
+        f"plain| {err:.3e} (output and LSE); "
+        + "; ".join(f"S = {n} {a:.4f} ms (SDPA {b:.4f})" for n, (a, b) in others.items())
+        + "; PV at n128 over V's 96 columns and 32 zero-filled: 4/3 of PV's products")
+    del q, k, v, qkv, out, lse, ref, ref_lse
+
+    sq, h, kh, d = GAR8B_PROMPT, 32, 8, 128
+    q, k, v = rnd(1, sq, h, d), rnd(1, sq, kh, d), rnd(1, sq, kh, d)
+    out, lse = fa.flash_attention(q, k, v, causal=True, return_lse=True)
+    torch.cuda.synchronize()
+    ref, ref_lse = fa.flash_attention_plain(q.float(), k.float(), v.float(), causal=True,
+                                            return_lse=True)
+    err = max(max_err(out, ref, "B (head dim 128)", **sized_tol(ref)),
+              max_err(lse, ref_lse, "B's LSE (head dim 128)", atol=LSE_TOL, rtol=1e-4))
+    out8["B"] = dict(
+        max_abs_err=err, ms=cuda_ms(lambda: fa.flash_attention(q, k, v, causal=True)),
+        plain_ms=cuda_ms(lambda: fa.flash_attention_plain(q, k, v, causal=True), iters=5),
+        library_ms=cuda_ms(lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True)),
+        **bound(nbytes(q, k, v, out), 4 * h * d * sq * (sq + 1) // 2))
+    log(f"[kernels 8B] B (causal prefill, S = {sq}, {h} / {kh} heads of {d}; library: SDPA, "
+        f"enable_gqa): {share_line(out8['B'])}; plain {out8['B']['plain_ms']:.4f} ms; max "
+        f"|kernel - plain| {err:.3e} (output and LSE)")
+    del q, k, v, out, lse, ref, ref_lse
+
+    layer, pad, wpos, s = 7, GAR8B_PROMPT, 2650, GAR8B_COLUMNS
+    wp = torch.tensor(wpos, dtype=torch.int32, device="cuda")
+    for b in (1, 24):
+        plens = [pad] if b == 1 else [max(1, pad - 113 * i) for i in range(b)]
+        plens_t = torch.tensor(plens, dtype=torch.int32, device="cuda")
+        kw = dict(prompt_lens=plens_t, write_pos=wp, prompt_pad=pad)
+        k_all, v_all = rnd(32, b, kh, s, d), rnd(32, b, kh, s, d)
+        q, k_new, v_new = rnd(b, h, d), rnd(b, kh, d), rnd(b, kh, d)
+        err = 0.0
+        for probe in (False, True):
+            if probe:  # one column too many, too few or twice moves a row by >= 0.02
+                k0, vp = interval_probe(v_all[layer], plens, pad, wpos)
+                k_all[layer], v_all[layer], k_new = k0, vp, torch.zeros_like(k_new)
+                del k0, vp
+            k_ref, v_ref = k_all[layer].clone(), v_all[layer].clone()
+            out = dec.decode_attention_fused(q, k_all, v_all, k_new, v_new, layer, **kw)
+            torch.cuda.synchronize()
+            ref = dec.decode_attention_fused_plain(
+                q.float(), k_ref[None].float(), v_ref[None].float(), k_new.float(),
+                v_new.float(), 0, **kw)
+            label = f"C (head dim 128, B = {b}{', interval probe' if probe else ''})"
+            err = max(err, max_err(out, ref, label, **TOL16))
+            k_ref[:, :, wpos], v_ref[:, :, wpos] = k_new, v_new
+            if not (torch.equal(k_all[layer], k_ref) and torch.equal(v_all[layer], v_ref)):
+                raise AssertionError(f"{label}: the cache is not the old one with column "
+                                     "write_pos holding the new K/V")
+            del k_ref, v_ref, ref
+        ids = torch.arange(s, device="cuda")
+        mask = ((ids < plens_t[:, None]) | ((ids >= pad) & (ids <= wpos)))[:, None, None, :]
+        k_lay, v_lay, q4 = k_all[layer], v_all[layer], q[:, :, None, :]
+
+        def library():
+            return F.scaled_dot_product_attention(q4, k_lay, v_lay, attn_mask=mask,
+                                                  scale=d ** -0.5, enable_gqa=True)
+
+        r = dict(max_abs_err=err,
+                 ms=cuda_ms(lambda: dec.decode_attention_fused(q, k_all, v_all, k_new, v_new,
+                                                                layer, **kw)),
+                 plain_ms=cuda_ms(lambda: dec.decode_attention_fused_plain(
+                     q, k_all, v_all, k_new, v_new, layer, **kw), iters=5),
+                 library_ms=cuda_ms(library), **decode_bound(q, k_all, plens, pad, wpos))
+        chooser, sweep = dec.card_splits, {}
+        try:  # the chooser's alternatives: the kernel takes 1-16 CTAs
+            for n in (1, 2, 4, 8, 16):
+                dec.card_splits = lambda *_: n
+                sweep[n] = cuda_ms(lambda: dec.decode_attention_fused(
+                    q, k_all, v_all, k_new, v_new, layer, **kw))
+        finally:
+            dec.card_splits = chooser
+        log(f"[kernels 8B] C (head dim 128, B = {b}, layer {layer} of a {tuple(k_all.shape)} "
+            f"cache, {dec.card_splits(b, kh, q.device)} CTAs a (kv head, row); library: SDPA, "
+            f"boolean mask, enable_gqa): {share_line(r)}; plain {r['plain_ms']:.4f} ms; max "
+            f"|kernel - plain| {err:.3e} (TOL16); by CTAs a (kv head, row), ms: "
+            + ", ".join(f"{n}: {ms:.4f}" for n, ms in sweep.items()))
+        out8.setdefault("C", r)
+        del k_all, v_all, k_lay, v_lay, mask, out
+    torch.cuda.empty_cache()
+    return out8
+
+
 def layer_norm_kernel(rnd):
     """Kernel 24 at a ragged (3, 37, 1024) bf16, then at the tower's (17,
     1025, 1024) in fp32 and in bf16 (the kernels line), weights and bias in
@@ -1130,9 +1297,15 @@ def qkv_mirror_err(label, key, ws, layer, x) -> float:
                for o, m in zip(out, want))
 
 
-def decode_matmul_kernels(rnd):
+GAR1B_WIDTHS = (2048, 8192, 2048, 512)  # decoder hidden, MLP, q, k / v
+GAR8B_WIDTHS = (4096, 14336, 4096, 1024)
+
+
+def decode_matmul_kernels(rnd, widths=GAR1B_WIDTHS, n_layers: int = 16, tag: str = ""):
     """Kernels H, I, J and their int8 forms H8, I8, J8 at the gar_1b decode
-    shapes (hidden 2048, q 2048, kv 512, MLP 8192), the weights stacked
+    shapes (hidden 2048, q 2048, kv 512, MLP 8192; or `widths`, each log
+    line led by `tag`: GAR-8B's at 8 layers, without the narrow and ragged
+    checks), the weights stacked
     (16, Din, Dout) and read at layer 7; the int8 weights are the bf16 ones
     quantized (`quantize_int8`). H runs at both the wo and the w_down
     width; its entry carries w_down. Checked against the plain version at
@@ -1183,6 +1356,8 @@ def decode_matmul_kernels(rnd):
 
     for label, (key, kernel, plain, kernel8, plain8, _, ws, din) in calls(256, 1024, 256, 64,
                                                                            2).items():
+        if widths != GAR1B_WIDTHS:
+            break
         for b in (1, 5):
             check(f"{label}, narrow", kernel, plain, ws, 1, rnd(b, din))
             check(f"{label} int8, narrow", kernel8, plain8, int8(ws), 1, rnd(b, din))
@@ -1190,6 +1365,8 @@ def decode_matmul_kernels(rnd):
                 qkv_mirror_err("J, narrow", "J", ws, 1, rnd(b, din))
                 qkv_mirror_err("J8, narrow", "J8", int8(ws), 1, rnd(b, din))
     for key, d, hq, hk in (("J", 200, 136, 40), ("J8", 208, 144, 48)):
+        if widths != GAR1B_WIDTHS:
+            break
         *_, ws, _ = calls(d, 64, hq, hk, 3)["J"]
         kernel, plain, ws = ((lm.layer_qkv_q8, lm.layer_qkv_q8_plain, int8(ws)) if key == "J8"
                              else (lm.layer_qkv, lm.layer_qkv_plain, ws))
@@ -1219,14 +1396,15 @@ def decode_matmul_kernels(rnd):
         finally:
             setattr(lm, attr, chooser)
         splits = stream_splits_chosen(key, ws, x.shape[1], x.device.index)
-        log(f"[kernels] {name}, B = {x.shape[0]}{mirror}: TMA-fed {ms:.4f} ms = "
+        log(f"[kernels] {tag}{name}, B = {x.shape[0]}{mirror}: TMA-fed {ms:.4f} ms = "
             f"{n_bytes / ms / 1e6:.0f} GB/s of weights, back to back {seq_ms:.4f} ms a layer = "
             f"{n_bytes / seq_ms / 1e6:.0f} GB/s, host {hus:.1f} us a call ({splits} CTAs a "
             "tile); by CTAs a tile, ms: " + ", ".join(f"{n}: {t:.4f}" for n, t in times.items()))
 
     layer, results = 7, {}
+    d_model, d_mlp, d_q, d_kv = widths
     for label, (key, kernel, plain, kernel8, plain8, cublas, ws, din) in calls(
-            2048, 8192, 2048, 512, 16).items():
+            d_model, d_mlp, d_q, d_kv, n_layers).items():
         qs = int8(ws)
         n_bytes = nbytes(*(w[layer] for w in ws))
         n8 = nbytes(*(t[layer] for t in qs))
@@ -1247,12 +1425,12 @@ def decode_matmul_kernels(rnd):
                     lib_err = max((o.float() - r).abs().max().item() for o, r in zip(
                         lib8(), refs8 if key == "J" else (refs8,)))
                     lib8_ms = cuda_ms(lib8)
-                    log(f"[kernels] {label} int8, B = {b}: library "
+                    log(f"[kernels] {tag}{label} int8, B = {b}: library "
                         f"{len(packs)} x torch._weight_int8pack_mm {lib8_ms:.4f} ms (bf16 "
                         f"scales, bf16 out; max |library - plain| {lib_err:.3e})")
                 except RuntimeError as e:
-                    log(f"[kernels] {label} int8, B = {b}: library torch._weight_int8pack_mm "
-                        f"refused: {e}")
+                    log(f"[kernels] {tag}{label} int8, B = {b}: library "
+                        f"torch._weight_int8pack_mm refused: {e}")
             ms, ms8 = cuda_ms(lambda: kernel(x, *ws, layer)), cuda_ms(lambda: kernel8(x, *qs, layer))
             # every layer once, back to back, as a decode step calls them (the
             # 16 layers' weights exceed the L2, so each call finds its own cold)
@@ -1270,14 +1448,14 @@ def decode_matmul_kernels(rnd):
             io = 2 * b * (din + n_out)
             ops = 2 * b * din * sum(w.shape[2] for w in ws)
             lim, lim8 = bound(n_bytes + io, ops), bound(n8 + io, ops)
-            log(f"[kernels] {label}, B = {b}: {ms:.4f} ms = {n_bytes / ms / 1e6:.0f} GB/s of "
+            log(f"[kernels] {tag}{label}, B = {b}: {ms:.4f} ms = {n_bytes / ms / 1e6:.0f} GB/s of "
                 f"weights ({n_bytes / 1e6:.1f} MB, bound {lim['bound_ms']:.4f} ms); cuBLAS bf16 "
                 f"{blas_ms:.4f} ms ({n_bytes / blas_ms / 1e6:.0f} GB/s); plain fp32 "
                 f"{plain_ms:.4f} ms; copy of the same bytes {copies[0]:.4f} ms (moves 2x: "
                 f"{2 * n_bytes / copies[0] / 1e6:.0f} GB/s); {n_layers} layers back to back "
                 f"{seq_ms:.4f} ms a layer = {n_bytes / seq_ms / 1e6:.0f} GB/s; "
                 f"max |kernel - plain| {err:.3e}")
-            log(f"[kernels] {label} int8 ({key}8), B = {b}: {ms8:.4f} ms = "
+            log(f"[kernels] {tag}{label} int8 ({key}8), B = {b}: {ms8:.4f} ms = "
                 f"{n8 / ms8 / 1e6:.0f} GB/s of int8 weights and scales ({n8 / 1e6:.1f} MB, bound "
                 f"{lim8['bound_ms']:.4f} ms); bf16 kernel {ms:.4f} ms, cuBLAS bf16 "
                 f"{blas_ms:.4f} ms; plain fp32 {plain8_ms:.4f} ms; copy of the same bytes "
@@ -1502,6 +1680,22 @@ def narrow_config(kv_heads: int = 1):
     )
 
 
+def narrow_8b_config():
+    """GAR-8B's shape at narrow widths: the PE-G tower at head dim 96
+    (width 192, 2 heads, depth 2), the decoder at head dim 128 with GQA 4:1
+    (hidden 512, 4 heads over 1 kv head, 2 layers, intermediate 1024), the
+    untied head and llama3 rope at factor 8, as gar_8b has them."""
+    from grasp_any_region_tpu_torch.core.config import gar_8b
+
+    cfg = gar_8b()
+    return dataclasses.replace(
+        cfg,
+        vision=dataclasses.replace(cfg.vision, width=192, num_heads=2, depth=2),
+        text=dataclasses.replace(cfg.text, hidden_size=512, num_heads=4, num_kv_heads=1,
+                                 head_dim=128, num_layers=2, intermediate_size=1024),
+    )
+
+
 def random_params(cfg, device):
     """Seeded random init in bf16, with a random mask_embed (it is zero at
     init, which would leave the mask path idle)."""
@@ -1515,9 +1709,13 @@ def random_params(cfg, device):
 
 
 def bench_batch(cfg, device):
+    """One row, one region: GAR-1B's 17 tiles (thumbnail + 4 x 4), or a
+    thumbnail and a 2 x 4 grid where the config takes at most 8 tiles
+    (GAR-8B, as the JAX package's 8B caption bench)."""
     from grasp_any_region_tpu_torch.data.synthetic import synthetic_batch
 
-    batch, _, prompt_lens = synthetic_batch(cfg, batch=1, grid=(4, 4), regions=1,
+    grid = (4, 4) if cfg.max_num_tiles >= 16 else (2, 4)
+    batch, _, prompt_lens = synthetic_batch(cfg, batch=1, grid=grid, regions=1,
                                             seed=SEED, device=device)
     return batch, prompt_lens
 
@@ -1529,12 +1727,13 @@ def mega_counts(layers: int, int8: bool) -> dict:
 
 
 @torch.inference_mode()
-def phase_cross_check(cfg, int8: bool = False, mega: bool = False):
+def phase_cross_check(cfg, int8: bool = False, mega: bool = False, int8_cache: bool = True):
     """The kernel path on the card against the plain path on the CPU, from
     the same params (int8: quantized once, on the CPU, and copied). The
-    default decode step (int8: with an int8 cache), or with mega the mega
-    step on a bf16 cache, on the card and on the CPU (there through its
-    plain versions), its launches counted."""
+    default decode step (int8: with an int8 cache, unless int8_cache is
+    False, as at GAR-8B's head dim, where C8 has no instance), or with mega
+    the mega step on a bf16 cache, on the card and on the CPU (there
+    through its plain versions), its launches counted."""
     from grasp_any_region_tpu_torch.models.gar import (
         gar_decode_step, gar_prefill, seed_cache_from_prefill)
     from grasp_any_region_tpu_torch.models.llama import lm_logits
@@ -1543,18 +1742,25 @@ def phase_cross_check(cfg, int8: bool = False, mega: bool = False):
     p_cpu = random_params(cfg, "cpu")
     if int8:
         p_cpu = quantize_decode_weights(p_cpu)
-    tag = "[cross-check" + (" mega" if mega else "") + (" int8" if int8 else "") + "]"
+    tag = ("[cross-check" + (" 8B-shaped" if cfg.text.head_dim == 128 else "")
+           + (" mega" if mega else "") + (" int8" if int8 else "") + "]")
     use_kernel = "mega" if mega else None
     runs = []  # logits per path: prefill, then 4 decode steps
     tokens = None
     for dev, params in (("cuda", copy.deepcopy(p_cpu).to("cuda")), ("cpu", p_cpu)):
         batch, plens = bench_batch(cfg, dev)
         s = batch.input_ids.shape[1]
+        reset_counts()
         hidden, kv = gar_prefill(params, cfg, batch, mask_compat=False)
+        if dev == "cuda" and cfg.text.head_dim == 128:  # the tower unfused at 96: A; prefill B
+            torch.cuda.synchronize()
+            want = expect(A=cfg.vision.depth, B=cfg.text.num_layers)
+            if read_counts() != want:
+                raise AssertionError(f"{tag} prefill launches {read_counts()}, expected {want}")
         logits = [lm_logits(params.llm, cfg.text, hidden[:, -1],
                             valid_vocab=cfg.extended_vocab_size).float().cpu()]
         cache = seed_cache_from_prefill(cfg, kv, plens, ((s + 4 + 511) // 512) * 512,
-                                        quantize_kv=int8 and not mega)
+                                        quantize_kv=int8 and int8_cache and not mega)
         # both paths decode the card's greedy tokens, so the steps stay comparable
         feed = tokens if tokens is not None else [int(logits[0].argmax())]
         reset_counts()
@@ -1564,9 +1770,12 @@ def phase_cross_check(cfg, int8: bool = False, mega: bool = False):
             logits.append(lg.float().cpu())
             if tokens is None:
                 feed.append(int(lg.argmax()))
-        if mega and dev == "cuda":
+        if dev == "cuda" and (mega or cfg.text.head_dim == 128):
             torch.cuda.synchronize()
-            want = expect(**mega_counts(4 * cfg.text.num_layers, int8))
+            n = 4 * cfg.text.num_layers
+            want = expect(**(mega_counts(n, int8) if mega else
+                             dict(C=n, H8=2 * n, I8=n, J8=n) if int8 else
+                             dict(C=n, H=2 * n, I=n, J=n)))
             if read_counts() != want:
                 raise AssertionError(f"{tag} launches {read_counts()}, expected {want}")
         tokens = feed
@@ -1883,6 +2092,122 @@ def phase_main_path(cfg, params, params_q8=None, mega=False, fused_tokens=None):
         log(f"{tag} greedy tokens leave the fused path's at index "
             f"{int(diff[0]) if len(diff) else 'none (all 256 equal)'} (not bounded)")
     return counts, toks
+
+
+GAR8B_NEW_TOKENS = 64
+
+
+def phase_gar8b(int8: bool):
+    """GAR-8B's caption at full width on one card (the JAX package's 8B
+    caption bench, bench.py:394-450): seeded random weights, bf16
+    (`init_gar_params`) or born in the serving-only int8 layout
+    (`init_gar_serving_int8`: int8 decoder matmuls and head, bf16 tower,
+    projector and embedding), a bf16 cache either way; one image of 9 tiles
+    (thumbnail + 2 x 4), one region, the 2614-token prompt and 64 greedy
+    tokens through `generate` on the default paths: the tower unfused at
+    head dim 96 (kernel A, 47 layers), prefill through kernel B at 128 (32
+    layers), the fused decode step (J, C, H, I, H a layer; J8, C, H8, I8,
+    H8 with int8 weights), the untied head. A warm-up, then two timed
+    captions (median), split into vision, prefill and decode; decode tok/s,
+    the weights' bytes and the peak memory of a caption; one decode step's
+    device and host ms and device ops; the launch counts of a caption, which
+    must be exactly those. Returns the launches."""
+    from grasp_any_region_tpu_torch.core.config import gar_8b
+    from grasp_any_region_tpu_torch.models.gar import (
+        encode_images, gar_decode_step, gar_prefill, seed_cache_from_prefill)
+    from grasp_any_region_tpu_torch.models.generate import generate
+    from grasp_any_region_tpu_torch.models.llama import lm_logits
+    from grasp_any_region_tpu_torch.models.quantize import init_gar_serving_int8
+
+    cfg = gar_8b()
+    tag = "[gar8b int8]" if int8 else "[gar8b]"
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    if int8:
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        params = init_gar_serving_int8(cfg, gen)
+        with torch.no_grad():  # zero at init, which would leave the mask path idle
+            params.mask_embed.kernel.normal_(0.0, 0.02, generator=gen)
+    else:
+        params = random_params(cfg, "cuda")
+    torch.cuda.synchronize()
+    weight_gb = sum(p.numel() * p.element_size() for p in params.parameters()) / 1e9
+    init_s = time.perf_counter() - t0
+    batch, plens = bench_batch(cfg, "cuda")
+    b, s = batch.input_ids.shape
+    n_new = GAR8B_NEW_TOKENS
+    steps = cfg.text.num_layers * (n_new - 1)
+    dec = (dict(C=steps, H8=2 * steps, I8=steps, J8=steps) if int8 else
+           dict(C=steps, H=2 * steps, I=steps, J=steps))
+    expected = expect(A=cfg.vision.depth, B=cfg.text.num_layers, **dec)
+    log(f"{tag} B={b}, {batch.pixel_values.shape[1]} tiles, prompt {s} tokens, {n_new} new "
+        f"tokens; weights {weight_gb:.2f} GB ({'int8 decoder and head' if int8 else 'bf16'}), "
+        f"built in {init_s:.1f} s")
+
+    def run():
+        reset_counts()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = generate(params, cfg, batch, plens, max_new_tokens=n_new, eot_id=-1,
+                       mask_compat=False)
+        end.record()
+        torch.cuda.synchronize()
+        return out, start.elapsed_time(end), read_counts()
+
+    path = os.environ.pop("GAR_DECODE_PATH", None)
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        run()  # warm-up
+        times = []
+        for _ in range(2):
+            out, ms, counts = run()
+            times.append(ms)
+            if counts != expected:
+                raise AssertionError(f"{tag} launch counts {counts}, expected {expected}")
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    finally:
+        if path is not None:
+            os.environ["GAR_DECODE_PATH"] = path
+    toks = out.tokens
+    if toks.shape != (b, n_new) or not ((toks >= 0) & (toks < cfg.extended_vocab_size)).all():
+        raise AssertionError(f"{tag} tokens {tuple(toks.shape)} or outside the valid vocab")
+    pix = batch.pixel_values.reshape((-1,) + batch.pixel_values.shape[2:])
+    msk = batch.mask_values.reshape((-1,) + batch.mask_values.shape[2:])
+    with torch.inference_mode():
+        vision_ms = cuda_ms(lambda: encode_images(params, cfg, pix, msk, mask_compat=False),
+                            iters=3, warmup=1, sleep_cycles=20_000_000)
+        prefill_total_ms = cuda_ms(lambda: gar_prefill(params, cfg, batch, mask_compat=False),
+                                   iters=3, warmup=1, sleep_cycles=20_000_000)
+        hidden, kv = gar_prefill(params, cfg, batch, mask_compat=False)
+        logits = lm_logits(params.llm, cfg.text, hidden[:, -1],
+                           valid_vocab=cfg.extended_vocab_size)
+        if logits.shape != (b, cfg.padded_vocab_size) or not torch.isfinite(logits).all():
+            raise AssertionError(f"{tag} prefill logits {tuple(logits.shape)} or non-finite")
+        # one decode step (the head included) over the seeded cache: device
+        # and host ms, and the device ops the profiler sees
+        cache = seed_cache_from_prefill(cfg, kv, plens, GAR8B_COLUMNS)
+        tok = logits.argmax(-1).to(torch.int32)
+        del hidden, kv, logits
+
+        def step():
+            return gar_decode_step(params, cfg, tok, cache, s)
+
+        step_dev_ms, step_host_ms = step_times(step)
+        ops = device_ops(step)
+        del cache
+    total_ms = statistics.median(times)
+    decode_ms = total_ms - prefill_total_ms
+    log(f"{tag} ms/caption {total_ms:.1f} (runs {', '.join(f'{t:.1f}' for t in times)}): "
+        f"vision {vision_ms:.1f}, prefill {prefill_total_ms - vision_ms:.1f}, decode "
+        f"{decode_ms:.1f}; decode {b * (n_new - 1) / (decode_ms / 1e3):.1f} tok/s; "
+        f"{b / (total_ms / 1e3):.3f} captions/s; peak memory {peak_gb:.2f} GB")
+    log(f"{tag} one decode step: {step_dev_ms:.3f} ms device, {step_host_ms:.3f} ms host, "
+        f"{ops} device ops (torch.profiler)")
+    log(f"{tag} launches per caption {dict((k, v) for k, v in counts.items() if v)} (every "
+        f"other kernel 0, as expected); first tokens {toks[0, :8].tolist()}")
+    del params, out
+    torch.cuda.empty_cache()
+    return counts
 
 
 def _head_backward_rounding_first(ctx, g):
@@ -2244,6 +2569,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     train_counts, state, tx = phase_train_step(cfg, params)
     phase_packed_step(cfg, state, tx)
+    del state, tx, params
+    torch.cuda.empty_cache()
+    # GAR-8B: the narrow cross-checks (bf16, then int8 weights on a bf16
+    # cache: C8 has no head-dim-128 instance), then the caption at full width
+    phase_cross_check(narrow_8b_config())
+    phase_cross_check(narrow_8b_config(), int8=True, int8_cache=False)
+    gar8b_counts = phase_gar8b(int8=False)
+    gar8b_q8_counts = phase_gar8b(int8=True)
     # the path whose run reports each kernel's launches: kernel A the
     # unfused tower's, the backward kernels the train step's, the mega
     # kernels their generate(GAR_DECODE_PATH=mega)'s, the int8 kernels the
@@ -2263,6 +2596,15 @@ def main() -> int:
              launches=paths[key][1][key], **{f: kernels[key][f] for f in fields})
         for key, (name, src, rep) in KERNELS.items()
     ]
+    # the kernels on GAR-8B's path also carry their figures at its shapes
+    # and their launches per 8B caption (the int8 ones on the int8 caption)
+    for row, key in zip(table, KERNELS):
+        if "gar8b" in kernels[key]:
+            g8_path, g8_counts = (("generate(gar_8b, init_gar_serving_int8)", gar8b_q8_counts)
+                                  if key.endswith("8") else ("generate(gar_8b)", gar8b_counts))
+            row["path"] += f"; gar8b: {g8_path}"
+            row["gar8b"] = dict(path=g8_path, launches=g8_counts[key],
+                                **{f: kernels[key]["gar8b"][f] for f in fields})
     print(smi)
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

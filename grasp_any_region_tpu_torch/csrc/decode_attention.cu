@@ -1,6 +1,6 @@
 // Kernel C: one query token of GQA attention over layer `layer` of the
-// stacked (L, B, K, S, D) bf16 cache, with the new K/V row written at column
-// write_pos in place.
+// stacked (L, B, K, S, D) bf16 cache, D 64 or 128, with the new K/V row
+// written at column write_pos in place.
 //
 // Replaces grasp_any_region_tpu/ops/decode_attention.py:decode_attention_fused
 // (_fused_kernel, unpaired layout). Its body is decode_split.cuh's
@@ -37,13 +37,13 @@
 namespace gar {
 
 // C, C8 or 16 by the query heads a kv head serves.
-template <typename T, bool Append>
+template <typename T, bool Append, int D = 64>
 int dispatch_split(const SplitArgs& a, int heads, int splits, cudaStream_t stream) {
   switch (heads / a.kv_heads) {
-    case 1: return launch_split<T, 1, Append>(a, splits, stream);
-    case 2: return launch_split<T, 2, Append>(a, splits, stream);
-    case 4: return launch_split<T, 4, Append>(a, splits, stream);
-    case 8: return launch_split<T, 8, Append>(a, splits, stream);
+    case 1: return launch_split<T, 1, Append, D>(a, splits, stream);
+    case 2: return launch_split<T, 2, Append, D>(a, splits, stream);
+    case 4: return launch_split<T, 4, Append, D>(a, splits, stream);
+    case 8: return launch_split<T, 8, Append, D>(a, splits, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -51,21 +51,23 @@ int dispatch_split(const SplitArgs& a, int heads, int splits, cudaStream_t strea
 }  // namespace gar
 
 // Kernel C over a cluster of `splits` CTAs (1-16; above 8, Hopper's
-// non-portable cluster sizes).
+// non-portable cluster sizes), head dim 64 or 128.
 extern "C" int gar_decode_attention_fused(
     const void* q, void* k_all, void* v_all, const void* k_new, const void* v_new,
     void* out, const void* prompt_lens, const void* write_pos,
     int layer, int batch, int heads, int kv_heads, int seq, int head_dim,
     int prompt_pad, int splits, float scale, void* stream) {
-  if (head_dim != 64 || kv_heads <= 0 || heads % kv_heads != 0 || splits < 1 ||
-      splits > gar::kSplitMaxCluster)
+  if ((head_dim != 64 && head_dim != 128) || kv_heads <= 0 || heads % kv_heads != 0 ||
+      splits < 1 || splits > gar::kSplitMaxCluster)
     return static_cast<int>(cudaErrorInvalidValue);
   const gar::SplitArgs a{static_cast<const gar::bf16*>(q), k_all, v_all,
                          static_cast<const gar::bf16*>(k_new),
                          static_cast<const gar::bf16*>(v_new), static_cast<gar::bf16*>(out),
                          static_cast<const int*>(prompt_lens), static_cast<const int*>(write_pos),
                          nullptr, layer, 0, batch, kv_heads, seq, prompt_pad, 0, scale};
-  return gar::dispatch_split<gar::bf16, true>(a, heads, splits, static_cast<cudaStream_t>(stream));
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return head_dim == 64 ? gar::dispatch_split<gar::bf16, true, 64>(a, heads, splits, st)
+                        : gar::dispatch_split<gar::bf16, true, 128>(a, heads, splits, st);
 }
 
 // Kernel C8 over a cluster of `splits` CTAs, as C; the scales (L, B, K / 2)

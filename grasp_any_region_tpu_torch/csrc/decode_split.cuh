@@ -1,5 +1,5 @@
 // Kernels C, C8 and 16 for Hopper: one query token of GQA attention over
-// one (layer, batch row, kv head) slab of the stacked (L, B, K, S, 64)
+// one (layer, batch row, kv head) slab of the stacked (L, B, K, S, D)
 // cache, split over the CTAs of a thread-block cluster (split-KV in one
 // launch). C and C8 (Append) write the current token's K/V at column
 // write_pos in place, C8 into an int8 cache; 16 (read only) finds the
@@ -51,6 +51,14 @@
 // and kernel 22 in decode_attn_wo_sm90.cu, which takes the body with its
 // own epilogue) and read only (16); int8 with the append (C8).
 //
+// So is the head dim D: 64 for all four (GAR-1B), 128 for C (GAR-8B's
+// decoder). At 128 a cache row is 256 bytes, sixteen 16-byte chunks, stored
+// with the same swizzle (chunk c of row r at c ^ (r % 8): the XOR moves
+// chunks within their 128-byte half, so ldmatrix's eight rows still hit
+// eight different bank groups); S takes 8 k-steps, O is 16 n-tiles, a
+// stage's 64 rows are 32 KB, and the partials merged over distributed
+// shared memory are twice as wide. C8, 16 and 22 stay at 64.
+//
 // C8's cache holds 64-byte int8 rows with one fp32 scale per (layer, batch
 // row, kv-head pair), loaded once a CTA. Its stages land as int8 through
 // the same ring and flat index, unswizzled (a warp's 16-byte reads of its
@@ -83,17 +91,19 @@ constexpr int kSplitWide = 16 * 64 * 2;  // bytes of a warp's 16 K (or V) rows w
 // Bytes of a stage's K (or V) rows, and of the kernel's shared memory: the
 // ring (reused by the merge) and, for an int8 cache, each warp's widened K
 // and V rows.
-template <typename T>
+template <typename T, int D = 64>
 __host__ __device__ constexpr int split_tile() {
-  return kSplitRows * 64 * static_cast<int>(sizeof(T));
+  return kSplitRows * D * static_cast<int>(sizeof(T));
 }
-template <typename T>
+template <typename T, int D = 64>
 __host__ __device__ constexpr int split_smem() {
-  return kSplitStages * 2 * split_tile<T>() + (sizeof(T) == 1 ? 4 * 2 * kSplitWide : 0);
+  return kSplitStages * 2 * split_tile<T, D>() + (sizeof(T) == 1 ? 4 * 2 * kSplitWide : 0);
 }
 constexpr int kSplitSmem = split_smem<bf16>();
 static_assert(4 * 8 * 66 * 4 + 8 * 66 * 4 <= kSplitStages * 2 * split_tile<int8_t>(),
               "the partials fit in the ring");
+static_assert(4 * 8 * 130 * 4 + 8 * 130 * 4 <= kSplitStages * 2 * split_tile<bf16, 128>(),
+              "the partials fit in the ring at D = 128");
 
 // C8: x quantized with a pair's static scale s, as the TPU kernel does it.
 __device__ __forceinline__ float quantize_q8(float x, float s) {
@@ -123,12 +133,12 @@ __device__ __forceinline__ void widen_scaled(const uint4& raw, float s, uint4& l
 }
 
 struct SplitArgs {
-  const bf16* q;  // (B, H, 64)
-  void* k_all;    // (L, B, K, S, 64), C: updated at column write_pos
+  const bf16* q;  // (B, H, D)
+  void* k_all;    // (L, B, K, S, D), C: updated at column write_pos
   void* v_all;
-  const bf16* k_new;  // C: (B, K, 64)
+  const bf16* k_new;  // C: (B, K, D)
   const bf16* v_new;
-  bf16* out;  // (B, H, 64)
+  bf16* out;  // (B, H, D)
   const int* prompt_lens;  // (B,)
   const int* write_pos;    // ()
   const int* layer_index;  // 16: () on the card; C takes `layer`
@@ -140,20 +150,20 @@ struct SplitArgs {
 };
 
 // The body of a CTA of grid (splits, kv heads, batch), cluster (splits, 1,
-// 1), over split_smem<T>() bytes of shared memory at `smem` (128-byte aligned):
-// out(i, v) takes output i (query head i / 64 of the kv head, dim i % 64) of
+// 1), over split_smem<T, D>() bytes of shared memory at `smem` (128-byte aligned):
+// out(i, v) takes output i (query head i / D of the kv head, dim i % D) of
 // the (kv head, row) in fp32, once for each i, in the CTA of rank i % splits.
 // Returns after a cluster barrier that follows every out() and every remote
 // read of the cluster, so shared memory is the caller's again (kernel 22
 // stores each output into every CTA of the cluster from out()); 16's
 // cluster returns before any barrier on a layer out of range.
-template <typename T, int G, bool Append, typename Out>
+template <typename T, int G, bool Append, int D = 64, typename Out>
 __device__ __forceinline__ void decode_split_body(const SplitArgs& a, uint8_t* smem, Out out) {
   constexpr bool Q8 = sizeof(T) == 1;
   static_assert(sizeof(T) == 2 || (Q8 && Append), "bf16 rows, or C8's int8 rows");
   static_assert(G >= 1 && G <= 8, "the query heads of a kv head are the rows of one m16 tile");
-  constexpr int D = 64;
-  constexpr int CPR = D * static_cast<int>(sizeof(T)) / 16;  // 16-byte chunks a row: 8 or 4
+  static_assert(D == 64 || (D == 128 && !Q8 && Append), "head dim 64, or 128 for C");
+  constexpr int CPR = D * static_cast<int>(sizeof(T)) / 16;  // 16-byte chunks a row: 4, 8 or 16
   constexpr float kLog2e = 1.4426950408889634f;
   __shared__ float s_cur[G];  // C: the current token's logit, log2 units
   cg::cluster_group cluster = cg::this_cluster();
@@ -216,25 +226,32 @@ __device__ __forceinline__ void decode_split_body(const SplitArgs& a, uint8_t* s
       }
     }
     for (int gg = warp; gg < G; gg += kSplitThreads / 32) {  // q . k_new, each head once
-      const float2 qf = __bfloat1622float2(
-          *reinterpret_cast<const __nv_bfloat162*>(qp + gg * D + 2 * lane));
-      float2 kf = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(kn + 2 * lane));
-      if constexpr (Q8)  // the dequantized value, as later steps read it back
-        kf = make_float2(quantize_q8(kf.x, ksc) * ksc, quantize_q8(kf.y, ksc) * ksc);
-      const float dot = warp_sum(qf.x * kf.x + qf.y * kf.y);
+      float part = 0.f;
+#pragma unroll
+      for (int c = 0; c < D / 64; ++c) {  // dims e, e + 1 of each 64
+        const int e = 64 * c + 2 * lane;
+        const float2 qf =
+            __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(qp + gg * D + e));
+        float2 kf = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(kn + e));
+        if constexpr (Q8)  // the dequantized value, as later steps read it back
+          kf = make_float2(quantize_q8(kf.x, ksc) * ksc, quantize_q8(kf.y, ksc) * ksc);
+        const float pair = qf.x * kf.x + qf.y * kf.y;
+        part = c == 0 ? pair : part + pair;
+      }
+      const float dot = warp_sum(part);
       if (lane == 0) s_cur[gg] = dot * sl2;
     }
   }
   // Q as A fragments: a[0] = Q[g][16 kk + 2t ..], a[2] = Q[g][16 kk + 8 + 2t ..];
   // rows g + 8 (a[1], a[3]) and g >= G are zero
-  uint32_t qa[4][2];
+  uint32_t qa[D / 16][2];
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
+  for (int kk = 0; kk < D / 16; ++kk) {
     qa[kk][0] = g < G ? ld_u32(qp + g * D + 16 * kk + 2 * t) : 0u;
     qa[kk][1] = g < G ? ld_u32(qp + g * D + 16 * kk + 8 + 2 * t) : 0u;
   }
 
-  constexpr int tile_bytes = split_tile<T>();
+  constexpr int tile_bytes = split_tile<T, D>();
   auto k_stage = [&](int st) { return smem + st * 2 * tile_bytes; };
   auto v_stage = [&](int st) { return k_stage(st) + tile_bytes; };
   // tile j: flat rows f0 + 64 j + [0, 64) of K and V (bf16 swizzled, int8
@@ -255,9 +272,9 @@ __device__ __forceinline__ void decode_split_body(const SplitArgs& a, uint8_t* s
     }
   };
 
-  float o[8][4], m_run = -INFINITY, l_run = 0.f;  // O's rows g (o[n][0..1]) and g + 8 (unused)
+  float o[D / 8][4], m_run = -INFINITY, l_run = 0.f;  // O's rows g (o[n][0..1]), g + 8 (unused)
 #pragma unroll
-  for (int n = 0; n < 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  for (int n = 0; n < D / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
   const int mi = lane >> 3, mr = lane & 7;  // ldmatrix: this lane's matrix and row in it
 
   auto use = [&](int j) {
@@ -292,7 +309,7 @@ __device__ __forceinline__ void decode_split_body(const SplitArgs& a, uint8_t* s
     // S = Q K^T over keys 16 w .. 16 w + 15: n-tiles of 8 keys
     float s[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
+    for (int kk = 0; kk < D / 16; ++kk) {
       // matrices: keys 0-7 dims 16 kk + [0, 8), + [8, 16); keys 8-15 the same
       const int key = mr + 8 * (mi >> 1), c = 2 * kk + (mi & 1);
       uint32_t kb[4];
@@ -329,7 +346,7 @@ __device__ __forceinline__ void decode_split_body(const SplitArgs& a, uint8_t* s
     // P (16 x 16 keys) as an A fragment, rounded to bf16: row g only
     const uint32_t pa[4] = {pack_bf16x2(p[0][0], p[0][1]), 0u, pack_bf16x2(p[1][0], p[1][1]), 0u};
 #pragma unroll
-    for (int np = 0; np < 4; ++np) {
+    for (int np = 0; np < D / 16; ++np) {
       // matrices (transposed): keys 0-7 and 8-15 of dims 16 np + [0, 8), then of + [8, 16)
       const int key = mr + 8 * (mi & 1), c = 2 * np + (mi >> 1);
       uint32_t vb[4];
@@ -347,10 +364,10 @@ __device__ __forceinline__ void decode_split_body(const SplitArgs& a, uint8_t* s
   // the warps' partials, then the CTA's (the warps merged), in the ring's memory
   float* wm = reinterpret_cast<float*>(smem);  // [4][G] row maxima, log2 units
   float* wl = wm + 4 * G;                      // [4][G] sums
-  float* wacc = wl + 4 * G;                    // [4][G][64]
+  float* wacc = wl + 4 * G;                    // [4][G][D]
   float* cm = wacc + 4 * G * D;                // [G]
   float* cl = cm + G;                          // [G]
-  float* cacc = cl + G;                        // [G][64]
+  float* cacc = cl + G;                        // [G][D]
   l_run += __shfl_xor_sync(0xffffffffu, l_run, 1);
   l_run += __shfl_xor_sync(0xffffffffu, l_run, 2);
   if (g < G) {
@@ -359,7 +376,7 @@ __device__ __forceinline__ void decode_split_body(const SplitArgs& a, uint8_t* s
       wl[warp * G + g] = l_run;
     }
 #pragma unroll
-    for (int n = 0; n < 8; ++n) {
+    for (int n = 0; n < D / 8; ++n) {
       wacc[(warp * G + g) * D + 8 * n + 2 * t] = o[n][0];
       wacc[(warp * G + g) * D + 8 * n + 2 * t + 1] = o[n][1];
     }
@@ -425,20 +442,21 @@ __device__ __forceinline__ void decode_split_body(const SplitArgs& a, uint8_t* s
 }
 
 // Kernels C, C8 and 16: grid (splits, kv heads, batch), cluster (splits, 1, 1).
-template <typename T, int G, bool Append>
+template <typename T, int G, bool Append, int D>
 __global__ void __launch_bounds__(kSplitThreads) decode_split_kernel(const SplitArgs a) {
   extern __shared__ __align__(128) uint8_t smem[];
-  bf16* out = a.out + (static_cast<size_t>(blockIdx.z) * a.kv_heads + blockIdx.y) * G * 64;
-  decode_split_body<T, G, Append>(a, smem, [&](int i, float v) { out[i] = __float2bfloat16(v); });
+  bf16* out = a.out + (static_cast<size_t>(blockIdx.z) * a.kv_heads + blockIdx.y) * G * D;
+  decode_split_body<T, G, Append, D>(a, smem,
+                                     [&](int i, float v) { out[i] = __float2bfloat16(v); });
 }
 
 // One launch; the first opts the kernel in to its shared memory and to
 // clusters of up to 16.
-template <typename T, int G, bool Append>
+template <typename T, int G, bool Append, int D>
 int launch_split(const SplitArgs& a, int splits, cudaStream_t stream) {
   static bool opted_in = false;
-  const auto kernel = decode_split_kernel<T, G, Append>;
-  constexpr int smem = split_smem<T>();
+  const auto kernel = decode_split_kernel<T, G, Append, D>;
+  constexpr int smem = split_smem<T, D>();
   const int err = opt_in(kernel, smem, true, opted_in);
   if (err) return err;
   return launch_ex(kernel, dim3(splits, a.kv_heads, a.batch), kSplitThreads, smem, splits, false,

@@ -2,7 +2,7 @@
 // schedule) for Hopper.
 //
 // B replaces grasp_any_region_tpu/ops/flash_attention.py:flash_attention
-// (_flash_kernel): q (B, Sq, H, 64), k/v (B, Sk, K, 64) bf16 through
+// (_flash_kernel): q (B, Sq, H, D), k/v (B, Sk, K, D) bf16 through
 // strides, causal (right-aligned by q_offset = Sk - Sq) or full, GQA by
 // index (kv head = h / (H / K), no repeated K/V), optional fp32 (B, H, Sq)
 // log-sum-exp for the backward and (B, S) int32 segment ids for packed
@@ -10,9 +10,25 @@
 // A replaces grasp_any_region_tpu/ops/vit_attention.py:vit_attention
 // (_vit_attn_kernel), which keeps a whole (S, S) logits block of a (tile,
 // head) in VMEM (4.2 MB of fp32 at S = 1025, far over a Hopper block's 227
-// KB): B's kernel, non-causal, one head per kv head, over (T, S, H, 64)
+// KB): B's kernel, non-causal, one head per kv head, over (T, S, H, D)
 // strided views of the unfused block's qkv buffer, with the (T, H, S) LSE
 // that kernel 5 reads.
+// Head dims: B takes 64 (GAR-1B) and 128 (GAR-8B's decoder), A 64 and 96
+// (GAR-8B's PE-G tower). A key row is D / 64, rounded up, 128-byte swizzle
+// atoms, each loaded as its own 64-column TMA box (FwdShape): S = Q K^T
+// takes D / 16 k-steps across the atoms, O += P V reads V MN-major with the
+// descriptor's LBO stepping from atom to atom (m64n128k16 at two atoms).
+// A at 96 rides on the two-atom layout of 128: the maps' inner dim is 96,
+// so TMA zero-fills columns 96-127 of every Q, K and V box, S takes 6
+// k-steps (exact), and PV runs at n128 over a V whose last 32 columns are
+// zero, 4/3 of PV's products (7/6 of the pair's), whose O columns 96-127
+// are never stored. Above 64 a consumer thread holds 64 fp32 O registers;
+// with S's 64 and P's 32 beside them, ptxas kept the kernel's 168 a thread
+// only by spilling, and then serialised every wgmma (its first build), so a
+// 128-key tile is consumed as two units of 64 keys (S m64n64, 32 fp32; P
+// 16 registers; PV four k-steps), S of one unit still issued under the PV
+// of the one before. Its 32 KB K and V tiles still take three stages
+// (FwdShape::kStages).
 // E replaces grasp_any_region_tpu/ops/vit_attention.py:
 // vit_attention_fused_qkv (_fused_qkv_kernel): non-causal ViT attention
 // with q, k and v read straight out of the fused (T, S, 3D) buffer through
@@ -67,20 +83,35 @@ namespace gar {
 constexpr int kFwdM = 128;  // query rows a tile, 64 per consumer warpgroup
 constexpr int kFwdN = 128;  // keys a tile
 constexpr int kFwdThreads = 384;  // consumer warpgroups 0, 1; producer warpgroup 2
-constexpr uint32_t kFwdTile = kFwdN * 64 * 2;  // bytes of a 128-row bf16 tile
-constexpr uint32_t kStageDesc = kFwdTile >> 4;  // a tile's step in descriptor units
+constexpr uint32_t kFwdTile = kFwdN * 64 * 2;  // bytes of a 128-row, 64-column bf16 atom
+constexpr uint32_t kStageDesc = kFwdTile >> 4;  // an atom's step in descriptor units
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
-// B's shared memory, from a 1024-byte-aligned base.
-constexpr int kFwdStages = 3;
-constexpr int kFOffQ = 0;
-constexpr int kFOffK = kFOffQ + kFwdTile;
-constexpr int kFOffV = kFOffK + kFwdStages * kFwdTile;
-constexpr int kFOffSeg = kFOffV + kFwdStages * kFwdTile;  // stages x 128 key ids
-constexpr int kFOffBar = kFOffSeg + kFwdStages * kFwdN * 4;
-constexpr int kFwdBars = 1 + 3 * kFwdStages;  // q, full_k, full_v, empty
-constexpr int kFwdSmem = kFOffBar + kFwdBars * 8 + 1024;  // + alignment slack
+// A's and B's tiles and shared memory at head dim D, from a 1024-byte-aligned
+// base: Q, then the K and V stages, each tile kAtoms 64-column atoms one
+// after another (atom a holds columns 64 a .. 64 a + 63 of its 128 rows).
+template <int D>
+struct FwdShape {
+  static_assert(D == 64 || D == 96 || D == 128, "an instance for head dims 64, 96 and 128");
+  static constexpr int kAtoms = (D + 63) / 64;
+  static constexpr int kDP = 64 * kAtoms;  // columns of a tile and of O (96 -> 128)
+  static constexpr int kKSteps = D / 16;   // of S = Q K^T
+  static constexpr uint32_t kTile = kAtoms * kFwdTile;
+  static constexpr uint32_t kTileDesc = kTile >> 4;
+  // three K/V stages at every head dim: at 96 and 128 (32 KB tiles) they
+  // take 224 KB with Q, 432 bytes under the limit; two measured 8% slower
+  // for A at 96 and the same for B at 128 (ab_kernels.py g8_two_stages)
+  static constexpr int kStages = 3;
+  static constexpr int kOffQ = 0;
+  static constexpr int kOffK = kOffQ + kTile;
+  static constexpr int kOffV = kOffK + kStages * kTile;
+  static constexpr int kOffSeg = kOffV + kStages * kTile;  // stages x 128 key ids
+  static constexpr int kOffBar = kOffSeg + kStages * kFwdN * 4;
+  static constexpr int kBars = 1 + 3 * kStages;  // q, full_k, full_v, empty
+  static constexpr int kSmem = kOffBar + kBars * 8 + 1024;  // + alignment slack
+  static_assert(kSmem <= 232448, "over the 227 KB a Hopper block can use");
+};
 
 // E's: the whole roped K, two Q buffers, a V ring.
 constexpr int kVitMaxKT = 9;      // key tiles kept: S <= 1152
@@ -240,8 +271,9 @@ __device__ __forceinline__ void online_softmax(float (&s)[4 * NJ], float (&m2)[2
 
 // P (fp32, the S accumulator) as bf16 A fragments: k-step kk (keys 16 kk ..
 // 16 kk + 15) is the C fragment of accumulator columns 16 kk .. + 15.
-template <int NJ = 16>
-__device__ __forceinline__ void pack_p(const float (&s)[4 * NJ], uint32_t (&pa)[8][4]) {
+template <int NJ = 16, int NP = 8>
+__device__ __forceinline__ void pack_p(const float (&s)[4 * NJ], uint32_t (&pa)[NP][4]) {
+  static_assert(NJ <= 2 * NP, "P's k-steps fit the fragments");
 #pragma unroll
   for (int j = 0; j < NJ; ++j) {
     pa[j >> 1][(j & 1) * 2 + 0] = pack_bf16x2(s[4 * j], s[4 * j + 1]);
@@ -249,30 +281,39 @@ __device__ __forceinline__ void pack_p(const float (&s)[4 * NJ], uint32_t (&pa)[
   }
 }
 
-// Issue S = Q K^T (64 x 8 NJ: a 128-key tile, or its first 16 keys) and
-// O += P V (64 x 64, over the first 16 KS keys of the tile) for one
-// warpgroup.
-template <int NJ = 16>
+// Issue S = Q K^T (64 x 8 NJ: a 128-key tile, a 64-key unit, or 16 keys) over
+// QK k-steps of 16 dims (k-step kk in atom kk / 4, 32 bytes a step into its
+// rows) and O += P V (64 x DP, over the first 16 KS keys of the tile) for
+// one warpgroup.
+template <int NJ = 16, int QK = 4>
 __device__ __forceinline__ void issue_s(float (&s)[4 * NJ], uint64_t dq, uint64_t dk) {
-  static_assert(NJ == 16 || NJ == 2, "a full or a 16-key tile");
+  static_assert(NJ == 16 || NJ == 8 || NJ == 2, "128, 64 or 16 keys");
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    if constexpr (NJ == 16) sm90::wgmma_m64n128k16_ss<0, 0>(s, dq + 2 * kk, dk + 2 * kk, kk);
-    else sm90::wgmma_m64n16k16_ss<0, 0>(s, dq + 2 * kk, dk + 2 * kk, kk);
+  for (int kk = 0; kk < QK; ++kk) {
+    const uint64_t off = (kk >> 2) * kStageDesc + 2 * (kk & 3);
+    if constexpr (NJ == 16) sm90::wgmma_m64n128k16_ss<0, 0>(s, dq + off, dk + off, kk);
+    else if constexpr (NJ == 8) sm90::wgmma_m64n64k16_ss<0, 0>(s, dq + off, dk + off, kk);
+    else sm90::wgmma_m64n16k16_ss<0, 0>(s, dq + off, dk + off, kk);
   }
 }
 
-template <int KS = 8>
-__device__ __forceinline__ void issue_pv(float (&o)[32], const uint32_t (&pa)[8][4], uint64_t dv) {
+template <int KS = 8, int DP = 64, int NP = 8>
+__device__ __forceinline__ void issue_pv(float (&o)[DP / 2], const uint32_t (&pa)[NP][4],
+                                         uint64_t dv) {
+  static_assert(KS <= NP, "P's k-steps");
 #pragma unroll
-  for (int kk = 0; kk < KS; ++kk) sm90::wgmma_m64n64k16_rs<1>(o, pa[kk], dv + 128 * kk);
+  for (int kk = 0; kk < KS; ++kk) {
+    if constexpr (DP == 64) sm90::wgmma_m64n64k16_rs<1>(o, pa[kk], dv + 128 * kk);
+    else sm90::wgmma_m64n128k16_rs<1>(o, pa[kk], dv + 128 * kk);
+  }
 }
 
 // O and l rescaled to the new row maxima, this tile's sums added.
-__device__ __forceinline__ void rescale(float (&o)[32], float (&l)[2], const float (&alpha)[2],
-                                        const float (&rsum)[2]) {
+template <int DP = 64>
+__device__ __forceinline__ void rescale(float (&o)[DP / 2], float (&l)[2],
+                                        const float (&alpha)[2], const float (&rsum)[2]) {
 #pragma unroll
-  for (int j = 0; j < 8; ++j)
+  for (int j = 0; j < DP / 8; ++j)
 #pragma unroll
     for (int i = 0; i < 4; ++i) o[4 * j + i] *= alpha[i >> 1];
   l[0] = l[0] * alpha[0] + rsum[0];
@@ -280,8 +321,9 @@ __device__ __forceinline__ void rescale(float (&o)[32], float (&l)[2], const flo
 }
 
 // O / l as bf16 and, with lse, each row's log-sum-exp (natural log of the
-// scaled logits), rows row_lo + 8 r < sq only; columns 8 j + 2 t + c.
-__device__ __forceinline__ void store_rows(const float (&o)[32], float (&l)[2],
+// scaled logits), rows row_lo + 8 r < sq only; columns 8 j + 2 t + c < D.
+template <int D = 64, int DP = 64>
+__device__ __forceinline__ void store_rows(const float (&o)[DP / 2], float (&l)[2],
                                            const float (&m2)[2], bf16* ob, long long o_ss,
                                            float* lse_row, int row_lo, int sq, int t) {
 #pragma unroll
@@ -296,7 +338,7 @@ __device__ __forceinline__ void store_rows(const float (&o)[32], float (&l)[2],
     const float inv = l[r] > 0.f ? 1.f / l[r] : 0.f;
     bf16* orow = ob + row * o_ss + 2 * t;
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
+    for (int j = 0; j < D / 8; ++j)
       *reinterpret_cast<uint32_t*>(orow + 8 * j) =
           pack_bf16x2(o[4 * j + 2 * r] * inv, o[4 * j + 2 * r + 1] * inv);
     if (lse_row != nullptr && t == 0) lse_row[row] = (m2[r] + log2f(l[r])) * kLn2;
@@ -306,18 +348,19 @@ __device__ __forceinline__ void store_rows(const float (&o)[32], float (&l)[2],
 template <int D, bool CAUSAL, bool SEG>
 __global__ void __launch_bounds__(kFwdThreads, 1)
     flash_fwd_sm90_kernel(const __grid_constant__ FwdMaps maps, const FwdArgs a) {
-  static_assert(D == 64, "a key row is one 128-byte swizzle row: other head dims need other tiles");
   using namespace sm90;
+  using Sh = FwdShape<D>;
+  constexpr int kStages = Sh::kStages, kAtoms = Sh::kAtoms, DP = Sh::kDP;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* sm = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
-  bf16* sQ = reinterpret_cast<bf16*>(sm + kFOffQ);
-  bf16* sK = reinterpret_cast<bf16*>(sm + kFOffK);
-  bf16* sV = reinterpret_cast<bf16*>(sm + kFOffV);
-  int* sSeg = reinterpret_cast<int*>(sm + kFOffSeg);
-  uint64_t* q_bar = reinterpret_cast<uint64_t*>(sm + kFOffBar);
-  uint64_t* full_k = q_bar + 1;            // K landed (and the tile's ids stored)
-  uint64_t* full_v = full_k + kFwdStages;  // V landed
-  uint64_t* empty = full_v + kFwdStages;   // both consumers done with the stage
+  uint8_t* sQ = sm + Sh::kOffQ;
+  uint8_t* sK = sm + Sh::kOffK;
+  uint8_t* sV = sm + Sh::kOffV;
+  int* sSeg = reinterpret_cast<int*>(sm + Sh::kOffSeg);
+  uint64_t* q_bar = reinterpret_cast<uint64_t*>(sm + Sh::kOffBar);
+  uint64_t* full_k = q_bar + 1;         // K landed (and the tile's ids stored)
+  uint64_t* full_v = full_k + kStages;  // V landed
+  uint64_t* empty = full_v + kStages;   // both consumers done with the stage
 
   // heaviest first: the query tile is the slowest-varying part of the index
   const int pairs = a.heads * a.batch;
@@ -332,7 +375,7 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
 
   if (threadIdx.x == 0) {
     mbar_init(q_bar, 1);
-    for (int s = 0; s < kFwdStages; ++s) {
+    for (int s = 0; s < kStages; ++s) {
       mbar_init(&full_k[s], 32);  // the producer warp's lanes (one with the TMA bytes)
       mbar_init(&full_v[s], 1);
       mbar_init(&empty[s], 256);  // every consumer thread
@@ -345,9 +388,11 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
     regs_dealloc<40>();
     if (threadIdx.x >= 288) return;
     const int lane = threadIdx.x & 31;
-    if (lane == 0) {
-      mbar_arrive_expect_tx(q_bar, kFwdTile);
-      tma_load_4d(sQ, &maps.q, q_bar, 0, q0, h, b);
+    if (lane == 0) {  // one 64-column box an atom (zero-filled past D)
+      mbar_arrive_expect_tx(q_bar, Sh::kTile);
+#pragma unroll
+      for (int at = 0; at < kAtoms; ++at)
+        tma_load_4d(sQ + at * kFwdTile, &maps.q, q_bar, 64 * at, q0, h, b);
     }
     int stage = 0;
     uint32_t phase = 0;
@@ -368,14 +413,20 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
         for (int r = 0; r < 4; ++r) sSeg[stage * kFwdN + lane + 32 * r] = sg[r];
       }
       if (lane == 0) {
-        mbar_arrive_expect_tx(&full_k[stage], kFwdTile);
-        tma_load_4d(sK + stage * kFwdN * D, &maps.k, &full_k[stage], 0, k0, kvh, b);
-        mbar_arrive_expect_tx(&full_v[stage], kFwdTile);
-        tma_load_4d(sV + stage * kFwdN * D, &maps.v, &full_v[stage], 0, k0, kvh, b);
+        mbar_arrive_expect_tx(&full_k[stage], Sh::kTile);
+#pragma unroll
+        for (int at = 0; at < kAtoms; ++at)
+          tma_load_4d(sK + stage * Sh::kTile + at * kFwdTile, &maps.k, &full_k[stage], 64 * at,
+                      k0, kvh, b);
+        mbar_arrive_expect_tx(&full_v[stage], Sh::kTile);
+#pragma unroll
+        for (int at = 0; at < kAtoms; ++at)
+          tma_load_4d(sV + stage * Sh::kTile + at * kFwdTile, &maps.v, &full_v[stage], 64 * at,
+                      k0, kvh, b);
       } else {
         mbar_arrive(&full_k[stage]);
       }
-      if (++stage == kFwdStages) {
+      if (++stage == kStages) {
         stage = 0;
         phase ^= 1;
       }
@@ -396,18 +447,27 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
     for (int r = 0; r < 2; ++r)
       if (row_lo + 8 * r < a.sq) qseg[r] = a.seg[static_cast<long long>(b) * a.sq + row_lo + 8 * r];
   }
-  const uint64_t dQ = desc_sw128(sQ + 64 * w * D, 16, 1024);
+  // Q's rows 64 w .. in each atom; V MN-major, its atoms LBO = one atom apart
+  const uint64_t dQ = desc_sw128(sQ + 64 * w * 128, 16, 1024);
   const uint64_t dK = desc_sw128(sK, 16, 1024);
   const uint64_t dV = desc_sw128(sV, kFwdTile, 1024);
   const int wg_pos = q0 + 64 * w + a.q_offset;  // position of the warpgroup's first row
-  auto is_masked = [&](int k0) {  // a key of the tile lies past Sk or the diagonal, or SEG
-    return k0 + kFwdN > a.sk || SEG || (CAUSAL && k0 + kFwdN - 1 > wg_pos);
+  // A 128-key tile is consumed in kUnits units of kUnitN keys: one at head
+  // dim 64; two of 64 above it, so S (32 fp32) and P (16) fit beside O's 64
+  // registers with S(unit) still issued under PV(unit - 1).
+  constexpr int kUnits = kAtoms == 1 ? 1 : 2;
+  constexpr int kUnitN = kFwdN / kUnits;
+  constexpr int NJ = kUnitN / 8;  // S's 8-key column groups a unit
+  constexpr int KS = kUnitN / 16;  // PV's k-steps a unit
+  constexpr uint32_t kUnitDesc = kUnitN * 128 >> 4;  // a unit's rows of an atom
+  auto is_masked = [&](int k0) {  // a key of the unit lies past Sk or the diagonal, or SEG
+    return k0 + kUnitN > a.sk || SEG || (CAUSAL && k0 + kUnitN - 1 > wg_pos);
   };
 
-  float o[32], m2[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  float o[DP / 2], m2[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
 #pragma unroll
-  for (int i = 0; i < 32; ++i) o[i] = 0.f;
-  uint32_t pa[8][4];
+  for (int i = 0; i < DP / 2; ++i) o[i] = 0.f;
+  uint32_t pa[KS][4];
 
   // the first key tile this query tile keeps (the diagonal tile is never skipped)
   int kt = 0;
@@ -415,81 +475,91 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
     while (fwd_pair_skipped(tiles, qt, kt)) ++kt;
   int stage = 0;
   uint32_t phase = 0;
-
-  mbar_wait(q_bar, 0);
-  {  // prologue: S of the first tile alone
-    const int k0 = kt * kFwdN;
-    float s[64];
-    mbar_wait(&full_k[stage], phase);
-    wgmma_fence();
-    issue_s(s, dQ, dK + stage * kStageDesc);
-    wgmma_commit();
-    wgmma_wait<0>();
-    fence_regs(s);
-    float alpha[2];
-    online_softmax<CAUSAL, SEG>(s, m2, alpha, l, is_masked(k0), k0, t, pos0, a.sk,
-                                sSeg + stage * kFwdN, qseg, sl2);
-    pack_p(s, pa);
-  }
-  int prev = stage;
-  uint32_t prev_phase = phase;
-  if (++stage == kFwdStages) {
-    stage = 0;
-    phase ^= 1;
-  }
-
-  // one key tile: S(kt) of NJ column groups, O += P(kt - 1) V(kt - 1)
-  auto step = [&](auto nj, int kt) {
-    constexpr int NJ = decltype(nj)::value;
-    const int k0 = kt * kFwdN;
-    float s[4 * NJ];
-    mbar_wait(&full_k[stage], phase);
-    mbar_wait(&full_v[prev], prev_phase);
-    wgmma_fence();
-    issue_s<NJ>(s, dQ, dK + stage * kStageDesc);
-    wgmma_commit();
-    issue_pv(o, pa, dV + prev * kStageDesc);
-    wgmma_commit();
-    wgmma_wait<1>();  // S(j) done; O += P(j-1) V(j-1) still running
-    fence_regs(s);
-    float alpha[2], rsum[2];
-    online_softmax<CAUSAL, SEG, NJ>(s, m2, alpha, rsum, is_masked(k0), k0, t, pos0, a.sk,
-                                    sSeg + stage * kFwdN, qseg, sl2);
-    wgmma_wait<0>();
-    fence_regs(o);
-    fence_regs(pa);
-    mbar_arrive(&empty[prev]);
-    rescale(o, l, alpha, rsum);
-    pack_p<NJ>(s, pa);
-    prev = stage;
-    prev_phase = phase;
-    if (++stage == kFwdStages) {
+  auto advance = [&]() {
+    if (++stage == kStages) {
       stage = 0;
       phase ^= 1;
     }
   };
-  // full attention (A; B without a mask) with at most 16 keys past the last
-  // full key tile: that tile takes the n16 product and one PV k-step
+
+  mbar_wait(q_bar, 0);
+  {  // prologue: S of the first unit alone
+    const int k0 = kt * kFwdN;
+    float s[4 * NJ];
+    mbar_wait(&full_k[stage], phase);
+    wgmma_fence();
+    issue_s<NJ, Sh::kKSteps>(s, dQ, dK + stage * Sh::kTileDesc);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+    float alpha[2];
+    online_softmax<CAUSAL, SEG, NJ>(s, m2, alpha, l, is_masked(k0), k0, t, pos0, a.sk,
+                                    sSeg + stage * kFwdN, qseg, sl2);
+    pack_p<NJ>(s, pa);
+  }
+  // the unit before: its stage and phase, its unit of the tile, and whether
+  // it ends its tile (then its PV hands the stage back)
+  int prev = stage, prev_u = 0;
+  uint32_t prev_phase = phase;
+  bool prev_last = kUnits == 1;
+  if (prev_last) advance();
+
+  // one unit u of key tile kt: S of NJX column groups, O += P V of the unit before
+  auto step = [&](auto nj, int kt, int u) {
+    constexpr int NJX = decltype(nj)::value;
+    const int k0 = kt * kFwdN + u * kUnitN;
+    float s[4 * NJX];
+    if (u == 0) mbar_wait(&full_k[stage], phase);
+    mbar_wait(&full_v[prev], prev_phase);
+    wgmma_fence();
+    issue_s<NJX, Sh::kKSteps>(s, dQ,
+                              dK + stage * Sh::kTileDesc + (kUnits == 1 ? 0 : u * kUnitDesc));
+    wgmma_commit();
+    issue_pv<KS, DP>(o, pa, dV + prev * Sh::kTileDesc + (kUnits == 1 ? 0 : prev_u * kUnitDesc));
+    wgmma_commit();
+    wgmma_wait<1>();  // S done; O += P V of the unit before still running
+    fence_regs(s);
+    float alpha[2], rsum[2];
+    online_softmax<CAUSAL, SEG, NJX>(s, m2, alpha, rsum, is_masked(k0), k0, t, pos0, a.sk,
+                                     sSeg + stage * kFwdN + u * kUnitN, qseg, sl2);
+    wgmma_wait<0>();
+    fence_regs(o);
+    fence_regs(pa);
+    if (prev_last) mbar_arrive(&empty[prev]);
+    rescale<DP>(o, l, alpha, rsum);
+    pack_p<NJX>(s, pa);
+    prev = stage;
+    prev_phase = phase;
+    prev_u = u;
+    prev_last = u == kUnits - 1 || NJX != NJ;  // the narrow unit ends the last tile
+    if (prev_last) advance();
+  };
+  // the first tile's other units, then the rest; full attention (A; B
+  // without a mask) with at most 16 keys past the last full key tile: that
+  // tile is one unit of the n16 product and one PV k-step
+  for (int u = 1; u < kUnits; ++u) step(std::integral_constant<int, NJ>(), kt, u);
   const bool narrow = !CAUSAL && !SEG && n_kt > 1 && a.sk - (n_kt - 1) * kFwdN <= 16;
   for (++kt; kt < n_kt - (narrow ? 1 : 0); ++kt) {
     if (SEG && fwd_pair_skipped(tiles, qt, kt)) continue;
-    step(std::integral_constant<int, 16>(), kt);
+#pragma unroll
+    for (int u = 0; u < kUnits; ++u) step(std::integral_constant<int, NJ>(), kt, u);
   }
   if constexpr (!CAUSAL && !SEG) {
-    if (narrow) step(std::integral_constant<int, 2>(), n_kt - 1);
+    if (narrow) step(std::integral_constant<int, 2>(), n_kt - 1, 0);
   }
 
-  // epilogue: O += P V of the last tile (one k-step for the n16 form)
+  // epilogue: O += P V of the last unit (one k-step for the n16 form)
   mbar_wait(&full_v[prev], prev_phase);
   wgmma_fence();
-  if (narrow) issue_pv<1>(o, pa, dV + prev * kStageDesc);
-  else issue_pv(o, pa, dV + prev * kStageDesc);
+  const uint64_t dv_last = dV + prev * Sh::kTileDesc + (kUnits == 1 ? 0 : prev_u * kUnitDesc);
+  if (narrow) issue_pv<1, DP>(o, pa, dv_last);
+  else issue_pv<KS, DP>(o, pa, dv_last);
   wgmma_commit();
   wgmma_wait<0>();
   fence_regs(o);
   fence_regs(pa);
   mbar_arrive(&empty[prev]);
-  store_rows(o, l, m2, a.o + b * a.o_sb + h * a.o_sh, a.o_ss,
+  store_rows<D, DP>(o, l, m2, a.o + b * a.o_sb + h * a.o_sh, a.o_ss,
              a.lse == nullptr ? nullptr : a.lse + (static_cast<long long>(b) * a.heads + h) * a.sq,
              row_lo, a.sq, t);
 }
@@ -668,21 +738,33 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
   }
 }
 
-template <bool CAUSAL, bool SEG>
+template <int D, bool CAUSAL, bool SEG>
 inline int launch_fwd_sm90(const FwdMaps& maps, const FwdArgs& a, cudaStream_t stream) {
-  auto kernel = flash_fwd_sm90_kernel<64, CAUSAL, SEG>;
+  auto kernel = flash_fwd_sm90_kernel<D, CAUSAL, SEG>;
+  constexpr int smem = FwdShape<D>::kSmem;
   const cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kFwdSmem);
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int grid = (a.sq + kFwdM - 1) / kFwdM * a.heads * a.batch;
-  kernel<<<grid, kFwdThreads, kFwdSmem, stream>>>(maps, a);
+  kernel<<<grid, kFwdThreads, smem, stream>>>(maps, a);
   return static_cast<int>(cudaGetLastError());
+}
+
+// B's four masks at head dim D.
+template <int D>
+inline int launch_masks(const FwdMaps& maps, const FwdArgs& a, bool causal, bool seg,
+                        cudaStream_t st) {
+  if (causal) return seg ? launch_fwd_sm90<D, true, true>(maps, a, st)
+                         : launch_fwd_sm90<D, true, false>(maps, a, st);
+  return seg ? launch_fwd_sm90<D, false, true>(maps, a, st)
+             : launch_fwd_sm90<D, false, false>(maps, a, st);
 }
 
 }  // namespace gar
 
-// Kernel B. q (batch, sq, heads, 64), k/v (batch, sk, kv_heads, 64) bf16
-// through element strides (batch, sequence, head), the head dim contiguous;
+// Kernel B. q (batch, sq, heads, D), k/v (batch, sk, kv_heads, D) bf16
+// through element strides (batch, sequence, head), the head dim contiguous,
+// D 64 or 128 (96 for kernel A: full attention, no segment ids);
 // o written through its strides; lse (batch, heads, sq) fp32 or nullptr;
 // seg (batch, s) int32 with seg_tiles, each 128-row tile's [min, max] id
 // (batch, ceil(s / 128), 2), or nullptr. Tensor maps are encoded per call.
@@ -695,15 +777,19 @@ extern "C" int gar_flash_attention(
     long long v_sb, long long v_ss, long long v_sh,
     long long o_sb, long long o_ss, long long o_sh,
     float scale, void* stream) {
-  if (head_dim != 64 || kv_heads <= 0 || heads % kv_heads != 0 || batch <= 0 || sq <= 0 ||
+  const bool known = head_dim == 64 || head_dim == 128 || (head_dim == 96 && !causal && !seg);
+  if (!known || kv_heads <= 0 || heads % kv_heads != 0 || batch <= 0 || sq <= 0 ||
       sk <= 0 || (causal && sk < sq) || (seg && (sq != sk || !seg_tiles)))
     return static_cast<int>(cudaErrorInvalidValue);
-  gar::FwdMaps maps;
-  int err = gar::encode_rows(&maps.q, q, false, sq, heads, batch, q_sb, q_ss, q_sh, gar::kFwdM);
+  gar::FwdMaps maps;  // inner dim head_dim: a box's columns past it land as zeros
+  int err = gar::encode_rows(&maps.q, q, false, sq, heads, batch, q_sb, q_ss, q_sh, gar::kFwdM,
+                             head_dim);
   if (!err)
-    err = gar::encode_rows(&maps.k, k, false, sk, kv_heads, batch, k_sb, k_ss, k_sh, gar::kFwdN);
+    err = gar::encode_rows(&maps.k, k, false, sk, kv_heads, batch, k_sb, k_ss, k_sh, gar::kFwdN,
+                           head_dim);
   if (!err)
-    err = gar::encode_rows(&maps.v, v, false, sk, kv_heads, batch, v_sb, v_ss, v_sh, gar::kFwdN);
+    err = gar::encode_rows(&maps.v, v, false, sk, kv_heads, batch, v_sb, v_ss, v_sh, gar::kFwdN,
+                           head_dim);
   if (err) return err;
   gar::FwdArgs a;
   a.seg = static_cast<const int*>(seg);
@@ -722,15 +808,14 @@ extern "C" int gar_flash_attention(
   a.q_offset = sk - sq;
   a.scale = scale;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (causal) return seg ? gar::launch_fwd_sm90<true, true>(maps, a, st)
-                         : gar::launch_fwd_sm90<true, false>(maps, a, st);
-  return seg ? gar::launch_fwd_sm90<false, true>(maps, a, st)
-             : gar::launch_fwd_sm90<false, false>(maps, a, st);
+  if (head_dim == 96) return gar::launch_fwd_sm90<96, false, false>(maps, a, st);
+  return head_dim == 64 ? gar::launch_masks<64>(maps, a, causal, seg, st)
+                        : gar::launch_masks<128>(maps, a, causal, seg, st);
 }
 
 // Kernel A: kernel B at full attention with one head per kv head. q, k, v,
-// o (tiles, seq, heads, 64) bf16 through element strides (tile, token,
-// head), the head dim contiguous (views of the unfused block's qkv buffer:
+// o (tiles, seq, heads, D) bf16, D 64 or 96, through element strides (tile,
+// token, head), the head dim contiguous (views of the unfused block's qkv buffer:
 // TMA takes 16-byte aligned bases and strides, which the wrapper checks);
 // lse (tiles, heads, seq) fp32 or nullptr.
 extern "C" int gar_vit_attention(

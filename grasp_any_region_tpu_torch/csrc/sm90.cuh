@@ -307,6 +307,24 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32], const uint32_
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1), "n"(TB));
 }
 
+// D(64 x 128) += A(64 x 16, registers) B(16 x 128, shared memory), A as
+// wgmma_m64n64k16_rs takes it; d[j*4 + r*2 + c] = D[16 w + g + 8 r][8 j + 2 t + c].
+template <int TB>
+__device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64], const uint32_t (&a)[4],
+                                                    uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
+      : GAR_ACC8(d, 0), GAR_ACC8(d, 8), GAR_ACC8(d, 16), GAR_ACC8(d, 24), GAR_ACC8(d, 32),
+        GAR_ACC8(d, 40), GAR_ACC8(d, 48), GAR_ACC8(d, 56)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1), "n"(TB));
+}
+
 // D(64 x 32, fp32) (+)= A(64 x 16) B(16 x 32), both from shared memory.
 template <int TA, int TB>
 __device__ __forceinline__ void wgmma_m64n32k16_ss(float (&d)[16], uint64_t a, uint64_t b,
@@ -432,13 +450,17 @@ inline int stacked_weight_map(CUtensorMap* map, const void* base, int elem_bytes
   return 0;
 }
 
-// A (batch, rows, heads, 64) operand (bf16, or an fp32 workspace) with
-// element strides (sb, ss, sh) as a 4D TMA map (64, rows, heads, batch),
-// boxes of (128 bytes of columns, box_rows, 1, 1).
+// A (batch, rows, heads, cols) operand (bf16, or an fp32 workspace) with
+// element strides (sb, ss, sh) as a 4D TMA map (cols, rows, heads, batch),
+// boxes of (128 bytes of columns, box_rows, 1, 1): a row wider than 128
+// bytes takes one box per 128 bytes, and a box's columns past `cols` land
+// as zeros.
 inline int encode_rows(CUtensorMap* map, const void* base, bool fp32, int rows, int heads,
-                       int batch, long long sb, long long ss, long long sh, int box_rows) {
+                       int batch, long long sb, long long ss, long long sh, int box_rows,
+                       int cols = 64) {
   const cuuint64_t elem = fp32 ? 4 : 2;
-  const cuuint64_t dims[4] = {64, static_cast<cuuint64_t>(rows), static_cast<cuuint64_t>(heads),
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(heads),
                               static_cast<cuuint64_t>(batch)};
   const cuuint64_t strides[3] = {static_cast<cuuint64_t>(ss) * elem,
                                  static_cast<cuuint64_t>(sh) * elem,

@@ -2,7 +2,8 @@
 cache, bf16 (C) or int8 (C8).
 
 Replaces `grasp_any_region_tpu/ops/decode_attention.py:decode_attention_fused`
-(`_fused_kernel`, the unpaired (L, B, K, S, D) layout). One query token per
+(`_fused_kernel`, the unpaired (L, B, K, S, D) layout; D 64 at GAR-1B, 128
+at GAR-8B, where a cache row is 256 bytes). One query token per
 row attends over layer `layer` of the cache with the mask
 [0, prompt_len) ∪ [prompt_pad, write_pos), the current token is folded in
 from `k_new` / `v_new`, and those are written at column `write_pos` of
@@ -34,7 +35,8 @@ dequantized fp32 value q * s, so this step sees what later steps read
 back. It runs C's split-KV body on an int8 cache (its stages land as
 int8, half of C's bytes, and each warp widens its own rows to bf16 before
 C's tensor-core products), over `card_splits` CTAs a (kv head, row) as
-C, at most MAX_SPLITS_Q8 (16 at B = 1-2 with 8 kv heads);
+C, at most MAX_SPLITS_Q8 (16 at B = 1-2 with 8 kv heads), at head dim 64
+only (GAR-8B's int8 cache waits for its instance);
 `decode_attention_fused_q8_split_plain` mirrors its chunks. (Kernel
 22 of the mega step, ops/decode_megakernel.py, runs C's split body with
 its own wo epilogue.)
@@ -85,6 +87,8 @@ def decode_attention_fused_plain(
         write_pos=write_pos, prompt_pad=prompt_pad)
 
 
+HEAD_DIMS = (64, 128)  # kernel C's instances: GAR-1B's decoder, GAR-8B's
+HEAD_DIMS_Q8 = (64,)  # kernel C8's instance
 MAX_SPLITS = 8  # the portable cluster size; 16 measured slower at B = 1, 2 on an H100 (PERF.md)
 MAX_SPLITS_Q8 = 16  # C8 (half the bytes a column): 16 measured faster than 8 at B = 1 (PERF.md)
 
@@ -277,42 +281,30 @@ def decode_attention_fused_q8_split_plain(
     return torch.stack(rows).reshape(b, h, d).to(q.dtype)
 
 
-def decode_attention_fused(
-    q: torch.Tensor,  # (B, H, D)
-    k_all: torch.Tensor,  # (L, B, K, S, D) stacked cache, bf16 or int8, updated in place
-    v_all: torch.Tensor,
-    k_new: torch.Tensor,  # (B, K, D) current token
-    v_new: torch.Tensor,
-    layer: int,
-    *,
-    prompt_lens: torch.Tensor,  # (B,) int32, on the cache's device
-    write_pos: torch.Tensor,  # () int32, on the cache's device
-    prompt_pad: int,
-    k_scale: torch.Tensor | None = None,  # int8 caches: (L, B, K/2, 1, 1) fp32
-    v_scale: torch.Tensor | None = None,
-) -> torch.Tensor:
-    """Returns (B, H, D). Contract of the cache layout:
-    prompt_lens <= prompt_pad <= write_pos < S. An int8 cache (kernel C8)
-    needs its scales, and an even K."""
+def check_fused(q: torch.Tensor, k_all: torch.Tensor, v_all: torch.Tensor,
+                k_new: torch.Tensor, v_new: torch.Tensor, layer: int,
+                prompt_lens: torch.Tensor, write_pos: torch.Tensor,
+                k_scale: Optional[torch.Tensor], v_scale: Optional[torch.Tensor]) -> None:
+    """Raise unless kernel C (a bf16 cache) or C8 (an int8 one) takes these
+    operands as they are: the shapes of the cache contract, head dim in
+    HEAD_DIMS (C) or HEAD_DIMS_Q8 (C8), 1, 2, 4 or 8 query heads a kv head,
+    the layer in range, contiguous tensors of the kernels' dtypes on q's
+    device, one fp32 scale per (layer, batch row, kv-head pair) for C8, and
+    prompt_lens and write_pos as int32 tensors there. Reads attributes
+    only: it runs on any device, so the CPU tests reach it."""
     q8 = k_all.dtype == torch.int8
-    if q8 and (k_scale is None or v_scale is None):
-        raise ValueError("an int8 cache needs its k_scale and v_scale")
-    if q8 and k_all.shape[2] % 2:
-        raise ValueError(f"an int8 cache pairs kv heads; {k_all.shape[2]} kv heads is odd")
-    kw = dict(prompt_lens=prompt_lens, write_pos=write_pos, prompt_pad=prompt_pad)
-    if q.device.type == "cpu":
-        if q8:
-            return decode_attention_fused_q8_plain(q, k_all, v_all, k_new, v_new, layer,
-                                                   k_scale=k_scale, v_scale=v_scale, **kw)
-        return decode_attention_fused_plain(q, k_all, v_all, k_new, v_new, layer, **kw)
     b, h, d = q.shape
     n_layers, _, kh, s, _ = k_all.shape
     if (k_all.shape[1] != b or k_all.shape[4] != d or v_all.shape != k_all.shape
             or k_new.shape != (b, kh, d) or v_new.shape != (b, kh, d) or h % kh):
         raise ValueError(f"bad shapes: q {q.shape}, cache {k_all.shape}, "
                          f"k_new {k_new.shape}, v_new {v_new.shape}")
-    if d != 64 or h // kh not in (1, 2, 4, 8):
-        raise ValueError(f"kernels C and C8 are built for head_dim 64 and 1, 2, 4 or 8 "
+    if q8 and d not in HEAD_DIMS_Q8:
+        raise ValueError(f"kernel C8 (the int8 KV cache) is built for head dims "
+                         f"{HEAD_DIMS_Q8}, got {d}: an int8 cache at this head dim waits "
+                         "for its instance")
+    if d not in HEAD_DIMS or h // kh not in (1, 2, 4, 8):
+        raise ValueError(f"kernel C is built for head dims {HEAD_DIMS} and 1, 2, 4 or 8 "
                          f"query heads per kv head, got {d} and {h // kh}")
     if not 0 <= layer < n_layers:
         raise IndexError(f"layer {layer} out of range for {n_layers} layers")
@@ -336,6 +328,40 @@ def decode_attention_fused(
         if x.dtype != torch.int32 or tuple(x.shape) != shape or x.device != q.device:
             raise ValueError(f"{name} must be an int32 tensor of shape {shape} "
                              f"on {q.device}")
+
+
+def decode_attention_fused(
+    q: torch.Tensor,  # (B, H, D)
+    k_all: torch.Tensor,  # (L, B, K, S, D) stacked cache, bf16 or int8, updated in place
+    v_all: torch.Tensor,
+    k_new: torch.Tensor,  # (B, K, D) current token
+    v_new: torch.Tensor,
+    layer: int,
+    *,
+    prompt_lens: torch.Tensor,  # (B,) int32, on the cache's device
+    write_pos: torch.Tensor,  # () int32, on the cache's device
+    prompt_pad: int,
+    k_scale: torch.Tensor | None = None,  # int8 caches: (L, B, K/2, 1, 1) fp32
+    v_scale: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Returns (B, H, D). Contract of the cache layout:
+    prompt_lens <= prompt_pad <= write_pos < S. An int8 cache (kernel C8)
+    needs its scales, and an even K. On the card `check_fused` says what
+    the kernels take."""
+    q8 = k_all.dtype == torch.int8
+    if q8 and (k_scale is None or v_scale is None):
+        raise ValueError("an int8 cache needs its k_scale and v_scale")
+    if q8 and k_all.shape[2] % 2:
+        raise ValueError(f"an int8 cache pairs kv heads; {k_all.shape[2]} kv heads is odd")
+    kw = dict(prompt_lens=prompt_lens, write_pos=write_pos, prompt_pad=prompt_pad)
+    if q.device.type == "cpu":
+        if q8:
+            return decode_attention_fused_q8_plain(q, k_all, v_all, k_new, v_new, layer,
+                                                   k_scale=k_scale, v_scale=v_scale, **kw)
+        return decode_attention_fused_plain(q, k_all, v_all, k_new, v_new, layer, **kw)
+    check_fused(q, k_all, v_all, k_new, v_new, layer, prompt_lens, write_pos, k_scale, v_scale)
+    b, h, d = q.shape
+    kh, s = k_all.shape[2], k_all.shape[3]
     prompt_lens = prompt_lens.contiguous()
     out = torch.empty_like(q)
     lib = _build.library()

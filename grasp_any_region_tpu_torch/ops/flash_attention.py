@@ -3,10 +3,12 @@ and `flash_attention_df`, its differentiable form with kernels 17 and 18
 (ops/flash_backward.py) as the backward.
 
 Replaces `grasp_any_region_tpu/ops/flash_attention.py:flash_attention`
-(`_flash_kernel`). On the TPU one program holds a whole K/V head in VMEM
-and the grid runs in order; the CUDA kernel (csrc/flash_forward_sm90.cu)
-gives each CTA 128 query rows and streams 128-key K/V tiles through a
-three-stage TMA ring, with both products on wgmma (S = Q K^T from shared
+(`_flash_kernel`), at head dim 64 (GAR-1B) and 128 (GAR-8B). On the TPU
+one program holds a whole K/V head in VMEM and the grid runs in order;
+the CUDA kernel (csrc/flash_forward_sm90.cu) gives each CTA 128 query
+rows and streams 128-key K/V tiles through a three-stage TMA ring (at
+head dim 128 each 128-key tile is consumed as two 64-key units), with
+both products on wgmma (S = Q K^T from shared
 memory, O += P V with P in registers); each of two consumer warpgroups
 runs its softmax of one key tile under its PV product of the last. At
 the prefill's ~4.7k tokens it is bound by the two products (~2*2*Sq*Sk*D
@@ -41,6 +43,7 @@ launches = 0  # kernel launches since the last reset (chip_smoke.py reads it)
 launches_segments = 0  # of those, launches with segment ids
 
 FWD_TILE = 128  # query rows and keys per tile of kernel B (its segment-skip granularity)
+HEAD_DIMS = (64, 128)  # kernel B's instances: GAR-1B's decoder, GAR-8B's
 
 
 def attention_mask(sq: int, sk: int, causal: bool, segment_ids: Optional[torch.Tensor],
@@ -107,17 +110,17 @@ def segment_tiles(seg: torch.Tensor, tile: int = 64) -> torch.Tensor:
 
 
 def check_operands(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool) -> None:
-    """Raise unless kernel B can read q (B, Sq, H, 64) and k, v (B, Sk, K,
-    64) as they are: bf16 on one device, H % K == 0, Sk >= Sq when causal,
-    and a layout its TMA maps take (`_build.check_operand`: unit head-dim
-    stride, other strides multiples of 16 bytes, 16-byte aligned data).
-    Nothing is copied to fix a layout."""
+    """Raise unless kernel B can read q (B, Sq, H, D) and k, v (B, Sk, K,
+    D) as they are: D in HEAD_DIMS, bf16 on one device, H % K == 0, Sk >=
+    Sq when causal, and a layout its TMA maps take (`_build.check_operand`:
+    unit head-dim stride, other strides multiples of 16 bytes, 16-byte
+    aligned data). Nothing is copied to fix a layout."""
     b, sq, h, d = q.shape
     _, sk, kh, _ = k.shape
     if k.shape[0] != b or k.shape[3] != d or v.shape != k.shape or h % kh:
         raise ValueError(f"bad shapes: q {q.shape}, k {k.shape}, v {v.shape}")
-    if d != 64:
-        raise ValueError(f"kernel B is built for head_dim 64, got {d}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"kernel B is built for head dims {HEAD_DIMS}, got {d}")
     if causal and sk < sq:
         raise ValueError(f"causal attention needs Sk >= Sq, got {sk} < {sq}")
     for x, name in ((q, "q"), (k, "k"), (v, "v")):
@@ -171,6 +174,10 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal, segment_ids):
+        if q.device.type == "cuda":  # before the forward: its backward must exist
+            from .flash_backward import check_backward_head_dim
+
+            check_backward_head_dim(q.shape[-1], "kernels 17 and 18 (the flash backward)")
         out, lse = flash_attention(q, k, v, causal=causal, segment_ids=segment_ids,
                                    return_lse=True)
         ctx.causal = causal

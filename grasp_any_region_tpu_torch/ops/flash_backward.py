@@ -87,6 +87,18 @@ def flash_attention_bwd_plain(q, k, v, out, lse, g, *, causal: bool = True,
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+BWD_HEAD_DIMS = (64,)  # the backward kernels' instances (GAR-1B)
+
+
+def check_backward_head_dim(d: int, kernels: str) -> None:
+    """Raise unless the backward kernels (5, or 17 and 18) have an instance
+    for head dim d: GAR-8B's 96 (tower) and 128 (decoder) wait for theirs,
+    so a train step there raises here rather than falling back."""
+    if d not in BWD_HEAD_DIMS:
+        raise ValueError(f"{kernels} is built for head_dim {BWD_HEAD_DIMS[0]}, got {d}: "
+                         "training at this head dim waits for its instance")
+
+
 def bwd_delta(out: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     """delta = rowsum(g * out) in fp32, (B, S, H, D) -> (B, H, S) contiguous:
     kernel 17's plain prep."""
@@ -135,8 +147,7 @@ def flash_attention_bwd_dkv(q, k, v, g, lse, delta, dq_acc, *, causal: bool = Tr
         raise ValueError(f"bad shapes: q {q.shape}, k {k.shape}, v {v.shape}")
     if g.shape != q.shape or tuple(lse.shape) != (b, h, sq) or tuple(delta.shape) != (b, h, sq):
         raise ValueError(f"bad shapes: g {g.shape}, lse {lse.shape}, delta {delta.shape}")
-    if d != 64:
-        raise ValueError(f"kernels 17 and 18 are built for head_dim 64, got {d}")
+    check_backward_head_dim(d, "kernels 17 and 18 (the flash backward)")
     if causal and sk < sq:
         raise ValueError(f"causal attention needs Sk >= Sq, got {sk} < {sq}")
     for x, name in ((q, "q"), (k, "k"), (v, "v"), (g, "g"), (lse, "lse"), (delta, "delta")):

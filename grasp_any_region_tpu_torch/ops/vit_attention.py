@@ -1,6 +1,7 @@
 """Kernels A and E: non-causal ViT attention; kernel 5, its backward.
 
-A takes q, k, v as (T, S, H, D) in the JAX layout (the unfused block); E
+A takes q, k, v as (T, S, H, D) in the JAX layout (the unfused block, D 64
+at GAR-1B, 96 at GAR-8B, whose tower the JAX package keeps unfused); E
 reads them out of the fused (T, S, 3D) qkv buffer and applies 2D rope
 itself (the fused block, inference only, as in JAX). A can also write the
 (T, H, S) fp32 row log-sum-exp, which kernel 5 reads, and
@@ -17,7 +18,9 @@ with K/V re-read per 128-row query tile from L2). Its TMA maps read q, k
 and v through strides, so the views of the unfused block's qkv buffer need
 no head-major copies (TMA needs 16-byte aligned bases and strides; a view
 that breaks that raises), and the one key past 8 x 128 at S = 1025 takes
-an n16 product instead of a whole key tile.
+an n16 product instead of a whole key tile. At D = 96 A rides on B's
+two-atom (D = 128) layout: TMA zero-fills columns 96-127 of each tile, S
+takes 6 k-steps and PV runs at n128, 4/3 of PV's products.
 
 Kernel E replaces `vit_attention_fused_qkv` (`_fused_qkv_kernel`): kernel
 B's Hopper forward (csrc/flash_forward_sm90.cu: wgmma products, TMA loads,
@@ -53,7 +56,8 @@ import torch
 
 from . import _build
 from .flash_attention import needs_grad
-from .flash_backward import flash_attention_bwd, flash_attention_bwd_plain
+from .flash_backward import (check_backward_head_dim, flash_attention_bwd,
+                             flash_attention_bwd_plain)
 from .rope import rotate_half
 
 launches = 0  # kernel A launches since the last reset (chip_smoke.py reads it)
@@ -61,6 +65,7 @@ launches_fused = 0  # kernel E launches
 launches_bwd = 0  # kernel 5 calls (each one launch of 17's prep, 18 and 17's cast)
 
 E_MAX_SEQ = 9 * 128  # kernel E's longest sequence (the ViT's is 1025)
+HEAD_DIMS = (64, 96)  # kernel A's instances: GAR-1B's tower, GAR-8B's
 
 
 def vit_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -75,6 +80,21 @@ def vit_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return (out, lse[..., 0]) if return_lse else out
 
 
+def check_operands(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    """Raise unless kernel A can read q, k, v (T, S, H, D) as they are:
+    equal shapes, D in HEAD_DIMS, bf16 on one device, and a layout its TMA
+    maps take (`_build.check_operand`). Nothing is copied to fix a layout."""
+    d = q.shape[-1]
+    if k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f"q/k/v shapes differ: {q.shape} {k.shape} {v.shape}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"kernel A is built for head dims {HEAD_DIMS}, got {d}")
+    for x, name in ((q, "q"), (k, "k"), (v, "v")):
+        if x.device != q.device:
+            raise ValueError(f"{name} is on {x.device}, q on {q.device}")
+        _build.check_operand(x, name)
+
+
 def vit_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   return_lse: bool = False):
     """q, k, v: (T, S, H, D), no GQA. Returns (T, S, H, D) in q.dtype, and
@@ -84,15 +104,8 @@ def vit_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if needs_grad(q, k, v):
         raise RuntimeError("kernel A has no backward of its own: call vit_attention_df "
                            "where a gradient is needed")
+    check_operands(q, k, v)
     t, s, h, d = q.shape
-    if k.shape != q.shape or v.shape != q.shape:
-        raise ValueError(f"q/k/v shapes differ: {q.shape} {k.shape} {v.shape}")
-    if d != 64:
-        raise ValueError(f"kernel A is built for head_dim 64, got {d}")
-    for x, name in ((q, "q"), (k, "k"), (v, "v")):
-        if x.device != q.device:
-            raise ValueError(f"{name} is on {x.device}, q on {q.device}")
-        _build.check_operand(x, name)
     out = torch.empty((t, s, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((t, h, s), dtype=torch.float32, device=q.device) if return_lse else None
     lib = _build.library()
@@ -121,6 +134,7 @@ def vit_attention_bwd(q, k, v, out, lse, g):
     tower's qkv buffer): 18's tensor maps take their strides."""
     if q.device.type == "cpu":
         return vit_attention_bwd_plain(q, k, v, out, lse, g)
+    check_backward_head_dim(q.shape[-1], "kernel 5 (the ViT attention backward)")
     if k.shape != q.shape or v.shape != q.shape or out.shape != q.shape \
             or g.shape != q.shape:
         raise ValueError(f"shapes differ: q {q.shape} k {k.shape} v {v.shape} out "
@@ -137,6 +151,8 @@ class _VitAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v):
+        if q.device.type == "cuda":  # before the forward: its backward must exist
+            check_backward_head_dim(q.shape[-1], "kernel 5 (the ViT attention backward)")
         out, lse = vit_attention(q, k, v, return_lse=True)
         ctx.save_for_backward(q, k, v, out, lse)
         return out

@@ -95,8 +95,11 @@ def test_check_operands_b():
     fa.check_operands(q, k[:, :50], k[:, :50], causal=False)
     with pytest.raises(ValueError, match="bad shapes"):
         fa.check_operands(q, _bf16(1, 100, 3, 64), _bf16(1, 100, 3, 64), causal=True)
-    with pytest.raises(ValueError, match="head_dim 64"):
+    with pytest.raises(ValueError, match=r"head dims \(64, 128\)"):
         fa.check_operands(_bf16(1, 9, 2, 32), _bf16(1, 9, 2, 32), _bf16(1, 9, 2, 32), True)
+    with pytest.raises(ValueError, match=r"head dims \(64, 128\)"):  # no instance at 80
+        fa.check_operands(_bf16(1, 9, 2, 80), _bf16(1, 9, 2, 80), _bf16(1, 9, 2, 80), True)
+    fa.check_operands(_bf16(1, 9, 8, 128), _bf16(1, 9, 2, 128), _bf16(1, 9, 2, 128), True)
     with pytest.raises(ValueError, match="contiguous"):
         fa.check_operands(q, k.transpose(-1, -2).contiguous().transpose(-1, -2), k, True)
 

@@ -1737,7 +1737,7 @@ def test_decode_attention_stacked_rejects_what_the_kernel_does_not_take(rnd):
     lay = _cuda_int32(0)
     k_all = rnd(2, 1, 2, 128, 64)
     before = dec.launches_stacked
-    with pytest.raises(ValueError):  # head_dim 128 waits for GAR-8B
+    with pytest.raises(ValueError):  # 16 keeps head_dim 64 (C took 128 for GAR-8B)
         dec.decode_attention_stacked(rnd(1, 4, 128), rnd(2, 1, 2, 128, 128),
                                      rnd(2, 1, 2, 128, 128), lay, **kw)
     k8 = torch.zeros((2, 1, 2, 128, 64), dtype=torch.int8, device="cuda")
@@ -1814,3 +1814,268 @@ def test_layer_norm_fused_df_on_the_card(rnd):
     for got, want in zip(leaves, refs):
         scale = want.grad.float().abs().max()
         assert (got.grad.float() - want.grad.float()).abs().max() <= 2e-2 * scale
+
+
+# ---------------------------------------------------------------- GAR-8B: head dims 96 and 128
+
+
+@pytest.mark.parametrize("t,s,h", [(2, 1025, 4), (1, 1024, 3), (9, 1025, 16), (1, 129, 2),
+                                   (2, 200, 2)])
+def test_vit_attention_kernel_head_dim_96(rnd, t, s, h):
+    """Kernel A at GAR-8B's head dim 96 (B's two-atom instance, columns
+    96-127 zero-filled by TMA) on q/k/v views of a (T, S, 3, H, 96) qkv
+    buffer, as the unfused PE-G block passes them (192-byte head stride),
+    at S = 1025 (a one-key last key tile, a one-row last query tile) and
+    1024; output at the sized tolerance, LSE at atol 1e-3."""
+    qkv = rnd(t, s, 3, h, 96)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    before = va.launches
+    out, lse = va.vit_attention(q, k, v, return_lse=True)
+    out2 = va.vit_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert va.launches == before + 2 and out.shape == (t, s, h, 96)
+    ref, ref_lse = va.vit_attention_plain(q.float(), k.float(), v.float(), return_lse=True)
+    torch.testing.assert_close(out.float(), ref, **TOL)
+    _sized_close(out, ref, "out")
+    assert torch.equal(out, out2)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=1e-4)
+
+
+@pytest.mark.parametrize("b,sq,sk,h,kh,causal", [
+    (1, 2614, 2614, 32, 8, True),   # GAR-8B's prefill
+    (2, 130, 300, 4, 1, True),      # Sq < Sk, right-aligned
+    (2, 200, 333, 8, 2, False),
+    (1, 1, 70, 4, 4, True),
+    (1, 1025, 1025, 16, 16, False),  # a one-key last key tile
+    (1, 300, 300, 8, 8, True),
+])
+def test_flash_attention_kernel_head_dim_128(rnd, b, sq, sk, h, kh, causal):
+    """Kernel B at GAR-8B's head dim 128 (two 64-key units a 128-key stage,
+    two stages), causal and full, GQA, Sq < Sk, its output and LSE against
+    the plain version."""
+    q, k, v = rnd(b, sq, h, 128), rnd(b, sk, kh, 128), rnd(b, sk, kh, 128)
+    before = fa.launches
+    out, lse = fa.flash_attention(q, k, v, causal=causal, return_lse=True)
+    out2 = fa.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert fa.launches == before + 2
+    ref, ref_lse = fa.flash_attention_plain(q.float(), k.float(), v.float(), causal=causal,
+                                            return_lse=True)
+    torch.testing.assert_close(out.float(), ref, **TOL)
+    _sized_close(out, ref, "out")
+    assert torch.equal(out, out2)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=1e-4)
+
+
+def test_flash_attention_kernel_head_dim_128_segments_and_views(rnd):
+    """Kernel B at head dim 128 with segment ids (packed rows, padding at
+    the end) and with q, k, v as views of one (B, S, H + 2K, 128) buffer."""
+    b, s, h, kh = 2, 777, 8, 2
+    buf = rnd(b, s, h + 2 * kh, 128)
+    q, k, v = buf[:, :, :h], buf[:, :, h:h + kh], buf[:, :, h + kh:]
+    seg = torch.zeros((b, s), dtype=torch.int32, device="cuda")
+    seg[:, :300], seg[:, 300:700] = 1, 2
+    for ids in (None, seg):
+        out, lse = fa.flash_attention(q, k, v, causal=True, segment_ids=ids, return_lse=True)
+        torch.cuda.synchronize()
+        ref, ref_lse = fa.flash_attention_plain(q.float(), k.float(), v.float(), causal=True,
+                                                segment_ids=ids, return_lse=True)
+        _sized_close(out, ref, f"out, segments {ids is not None}")
+        torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=1e-4)
+
+
+@pytest.mark.parametrize("group", [1, 4, 8])
+@pytest.mark.parametrize("b", [1, 2, 24])
+def test_decode_attention_kernel_head_dim_128(rnd, group, b):
+    """Kernel C at GAR-8B's head dim 128 (256-byte cache rows) over layer 3
+    of a (4, B, 8, 3072, 128) cache, prompt_pad 2614, write_pos 2650 (B = 24:
+    prompt lengths from 1 to prompt_pad), against the plain version at
+    TOL16, then the interval probe at TOL16; column write_pos holds the new
+    K/V bit for bit and the rest of the cache is unchanged."""
+    L, kh, s, layer, pad, wpos = 4, 8, 3072, 3, 2614, 2650
+    plens = [pad] if b == 1 else [pad, 2000] if b == 2 else \
+        [pad, pad - 1, 1, 2, 64, 65, 128, 129] + list(range(100, 2600, 160))
+    k_all, v_all = rnd(L, b, kh, s, 128), rnd(L, b, kh, s, 128)
+    q, k_new, v_new = rnd(b, kh * group, 128), rnd(b, kh, 128), rnd(b, kh, 128)
+    kw = dict(prompt_lens=_cuda_int32(plens), write_pos=_cuda_int32(wpos), prompt_pad=pad)
+    for probe in (False, True):
+        if probe:  # one column too many, too few or twice moves a row by >= 0.02
+            k0, vp = _interval_probe(v_all[layer], plens, pad, wpos)
+            k_all[layer], v_all[layer], k_new = k0, vp, torch.zeros_like(k_new)
+        k_exp, v_exp = k_all.clone(), v_all.clone()
+        ref = dec.decode_attention_fused_plain(q.float(), k_exp.float(), v_exp.float(),
+                                               k_new.float(), v_new.float(), layer, **kw)
+        before = dec.launches
+        out = dec.decode_attention_fused(q, k_all, v_all, k_new, v_new, layer, **kw)
+        torch.cuda.synchronize()
+        assert dec.launches == before + 1 and out.shape == (b, kh * group, 128)
+        torch.testing.assert_close(out.float(), ref, **TOL16, msg=f"probe {probe}")
+        k_exp[layer, :, :, wpos], v_exp[layer, :, :, wpos] = k_new, v_new
+        assert torch.equal(k_all, k_exp) and torch.equal(v_all, v_exp)
+
+
+@pytest.mark.parametrize("splits", [1, 3, 8, 16])
+def test_decode_attention_kernel_head_dim_128_any_split(rnd, monkeypatch, splits):
+    """Kernel C at head dim 128 with the CTAs a (kv head, row) forced,
+    clusters of 1 to 16, over three ragged rows (one with fewer columns
+    than CTAs), at TOL16."""
+    monkeypatch.setattr(dec, "card_splits", lambda *_: splits)
+    L, b, kh, s, layer = 2, 3, 2, 1024, 1
+    plens, pad, wpos = [300, 3, 1], 512, 515
+    k_all, v_all = rnd(L, b, kh, s, 128), rnd(L, b, kh, s, 128)
+    q, k_new, v_new = rnd(b, kh * 4, 128), rnd(b, kh, 128), rnd(b, kh, 128)
+    kw = dict(prompt_lens=_cuda_int32(plens), write_pos=_cuda_int32(wpos), prompt_pad=pad)
+    ref = dec.decode_attention_fused_plain(q.float(), k_all.float(), v_all.float(),
+                                           k_new.float(), v_new.float(), layer, **kw)
+    out = dec.decode_attention_fused(q, k_all, v_all, k_new, v_new, layer, **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), ref, **TOL16)
+
+
+def test_wrappers_refuse_gar8b_head_dims_without_an_instance(rnd):
+    """On the card, what has no instance at GAR-8B's head dims raises with
+    the missing kernel's name and launches nothing: an int8 cache at 128
+    (C8), kernel 16 at 128, A at 80, B at 96 (A's instance is full
+    attention only), the backward of A at 96 and of B at 128 (5, 17, 18:
+    the autograd functions raise before their forward)."""
+    kw = dict(prompt_lens=_cuda_int32([3]), write_pos=_cuda_int32(10), prompt_pad=8)
+    k8 = torch.zeros((2, 1, 2, 128, 128), dtype=torch.int8, device="cuda")
+    scale = torch.ones((2, 1, 1, 1, 1), device="cuda")
+    before = (va.launches, fa.launches, dec.launches, dec.launches_q8, dec.launches_stacked)
+    with pytest.raises(ValueError, match="kernel C8"):
+        dec.decode_attention_fused(rnd(1, 8, 128), k8, k8.clone(), rnd(1, 2, 128),
+                                   rnd(1, 2, 128), 0, k_scale=scale, v_scale=scale, **kw)
+    with pytest.raises(ValueError, match="kernel 16"):
+        dec.decode_attention_stacked(rnd(1, 8, 128), rnd(2, 1, 2, 128, 128),
+                                     rnd(2, 1, 2, 128, 128), _cuda_int32(0), **kw)
+    with pytest.raises(ValueError, match="kernel A"):
+        va.vit_attention(*(rnd(1, 64, 2, 80),) * 3)
+    with pytest.raises(ValueError, match="kernel B"):
+        fa.flash_attention(*(rnd(1, 64, 2, 96),) * 3)
+    with pytest.raises(ValueError, match="kernel 5"):
+        va.vit_attention_df(*(rnd(1, 64, 2, 96).requires_grad_() for _ in range(3)))
+    with pytest.raises(ValueError, match="kernels 17 and 18"):
+        fa.flash_attention_df(*(rnd(1, 64, 2, 128).requires_grad_() for _ in range(3)))
+    assert (va.launches, fa.launches, dec.launches, dec.launches_q8,
+            dec.launches_stacked) == before
+
+
+@pytest.mark.parametrize("b", [1, 24])
+def test_layer_matmul_kernels_at_gar8b_widths(rnd, b):
+    """H (wo 4096 -> 4096, w_down 14336 -> 4096), I (4096 -> 14336) and J
+    (q 4096, k and v 1024) and their int8 forms on the weight stream at
+    GAR-8B's widths (2 layers, layer 1), against their plain versions."""
+    d, m, hq, hk, layer = 4096, 14336, 4096, 1024, 1
+    w = _decode_weights(rnd, 2, d, m, hq, hk)
+    x_d, x_m = rnd(b, d), rnd(b, m)
+    f = {k: v[layer:layer + 1].float() for k, v in w.items()}
+    outs = dict(wo=lm.layer_matmul(x_d, w["wo"], layer),
+                down=lm.layer_matmul(x_m, w["w_down"], layer),
+                act=lm.layer_swiglu(x_d, w["w_gate"], w["w_up"], layer))
+    refs = dict(wo=lm.layer_matmul_plain(x_d.float(), f["wo"], 0),
+                down=lm.layer_matmul_plain(x_m.float(), f["w_down"], 0),
+                act=lm.layer_swiglu_plain(x_d.float(), f["w_gate"], f["w_up"], 0))
+    qkv = lm.layer_qkv(x_d, w["wq"], w["wk"], w["wv"], layer)
+    torch.cuda.synchronize()
+    for name, out in outs.items():
+        torch.testing.assert_close(out.float(), refs[name], **TOL, msg=name)
+    for out, ref in zip(qkv, lm.layer_qkv_plain(x_d.float(), f["wq"], f["wk"], f["wv"], 0)):
+        torch.testing.assert_close(out.float(), ref, **TOL)
+    del w, f
+    q8 = {name: _q8(rnd, 2, *shape) for name, shape in dict(
+        wq=(d, hq), wk=(d, hk), wv=(d, hk), wo=(hq, d), wg=(d, m), wu=(d, m), wd=(m, d)).items()}
+    outs = dict(wo=lm.layer_matmul_q8(x_d, *q8["wo"], layer),
+                down=lm.layer_matmul_q8(x_m, *q8["wd"], layer),
+                act=lm.layer_swiglu_q8(x_d, *q8["wg"], *q8["wu"], layer),
+                qkv=torch.cat(lm.layer_qkv_q8(x_d, *q8["wq"], *q8["wk"], *q8["wv"], layer), -1))
+    refs = dict(wo=lm.layer_matmul_q8_plain(x_d.float(), *q8["wo"], layer),
+                down=lm.layer_matmul_q8_plain(x_m.float(), *q8["wd"], layer),
+                act=lm.layer_swiglu_q8_plain(x_d.float(), *q8["wg"], *q8["wu"], layer),
+                qkv=torch.cat(lm.layer_qkv_q8_plain(x_d.float(), *q8["wq"], *q8["wk"], *q8["wv"],
+                                                    layer), -1))
+    torch.cuda.synchronize()
+    for name, out in outs.items():
+        torch.testing.assert_close(out.float(), refs[name], **TOL, msg=f"{name} int8")
+
+
+def _gar8b_step_case(rnd, q8):
+    """GAR-8B's decoder at full width and 2 layers (hidden 4096, 32 / 8
+    heads of 128, MLP 14336), bf16 or int8 decode weights, and a seeded bf16
+    cache of 2 rows (prompts 2614 and 2000, 3072 columns)."""
+    from grasp_any_region_tpu_torch.core.config import gar_8b
+    from grasp_any_region_tpu_torch.models.gar import seed_cache_from_prefill
+    from grasp_any_region_tpu_torch.models.llama import DECODE_MATMULS, LlamaParams
+    from grasp_any_region_tpu_torch.models.quantize import quantize_int8
+
+    base = gar_8b()
+    cfg = dataclasses.replace(base, text=dataclasses.replace(base.text, num_layers=2))
+    tc = cfg.text
+    llm = LlamaParams(tc, vocab_rows=256, device="cuda", dtype=torch.bfloat16,
+                      q8=DECODE_MATMULS if q8 else None, drop_bf16=q8)
+    w = _decode_weights(rnd, 2, tc.hidden_size, tc.intermediate_size, 4096, 1024)
+    with torch.no_grad():
+        for name in DECODE_MATMULS:
+            if q8:
+                qv, sc = quantize_int8(w[name])
+                getattr(llm.blocks, f"{name}_q8").copy_(qv)
+                getattr(llm.blocks, f"{name}_scale").copy_(sc)
+            else:
+                getattr(llm.blocks, name).copy_(w[name])
+        for name in ("attn_norm", "mlp_norm"):
+            getattr(llm.blocks, name).copy_(_norm(rnd, 2, tc.hidden_size))
+    b, s = 2, 2614
+    kv = tuple(rnd(tc.num_layers, b, s, tc.num_kv_heads, tc.head_dim) for _ in range(2))
+    cache = seed_cache_from_prefill(cfg, kv, _cuda_int32([s, 2000]), 3072)
+    return tc, llm, cache, s
+
+
+@pytest.mark.parametrize("q8", [False, True], ids=["bf16", "int8"])
+def test_gar8b_fused_decode_step_graph_replay(rnd, q8):
+    """GAR-8B's fused decode step (J, C, H, I, H a layer; J8, C, H8, I8, H8
+    with int8 weights) at full width: its launches, its hidden against the
+    XLA form within 5e-2 of the range (bf16 weights), and one CUDA-graph
+    replay of the step from the same cache giving the eager step's bits,
+    hidden and cache."""
+    from grasp_any_region_tpu_torch.models.llama import llama_decode_step
+
+    tc, llm, cache0, s = _gar8b_step_case(rnd, q8)
+    emb = rnd(2, 1, tc.hidden_size)
+
+    def fresh():
+        return cache0._replace(k=cache0.k.clone(), v=cache0.v.clone(),
+                               write_pos=cache0.write_pos.clone())
+
+    eager = fresh()
+    lm.launches.update(dict.fromkeys(lm.launches, 0))
+    dec.launches = dec.launches_q8 = 0
+    h_eager, _ = llama_decode_step(llm, tc, emb, eager, s, use_kernel="fused")
+    torch.cuda.synchronize()
+    n = tc.num_layers
+    want = dict(H8=2 * n, I8=n, J8=n) if q8 else dict(H=2 * n, I=n, J=n)
+    assert {k: v for k, v in lm.launches.items() if v} == want and dec.launches == n
+    assert dec.launches_q8 == 0 and int(eager.write_pos) == s + 1
+    if not q8:
+        ref, _ = llama_decode_step(llm, tc, emb, fresh(), s, use_kernel=False)
+        rel = ((h_eager.float() - ref.float()).abs().max() / ref.float().abs().max()).item()
+        assert rel < 5e-2, rel
+
+    graphed = fresh()
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(stream):
+        llama_decode_step(llm, tc, emb, graphed, s, use_kernel="fused")  # warm
+        stream.synchronize()
+        for dst, src in zip((graphed.k, graphed.v, graphed.write_pos),
+                            (cache0.k, cache0.v, cache0.write_pos)):
+            dst.copy_(src)
+        with torch.cuda.graph(graph, stream=stream):
+            h_graph, _ = llama_decode_step(llm, tc, emb, graphed, s, use_kernel="fused")
+    for dst, src in zip((graphed.k, graphed.v, graphed.write_pos),
+                        (cache0.k, cache0.v, cache0.write_pos)):
+        dst.copy_(src)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(h_graph, h_eager)
+    assert torch.equal(graphed.k, eager.k) and torch.equal(graphed.v, eager.v)
+    assert int(graphed.write_pos) == s + 1
