@@ -93,6 +93,41 @@ the script exits non-zero (there is no CPU fallback):
    the fused step, and the first token where the greedy output leaves the
    fused path's (printed, not bounded).
 
+Serving (its kernels in phase 2, its cross-check after phase 7, its runs
+after phase 6):
+
+2. (serving) Kernel B at two prefill-chunk shapes, right-aligned causal
+   (Sq = 1024 against Sk = 3072, Sq = 566 against Sk = 4662) with its
+   LSE, SDPA with the boolean mask as library; C and C8 over a window's
+   dense cache at B = 8 slots (prompt_lens 4662 - 64 r, prompt_pad the
+   window base 4864, write_pos base + 17) at TOL16 with the interval
+   probe, and C8 also at B = 16; J, I, H (wo, w_down) and J8, I8, H8 at
+   B = 8 and 16; the shapes of an admission group: B over 8 and 16 rows
+   of the 4662-token prompt, causal, and D, E, F, G over 136 and 272
+   tiles (8 and 16 requests of 17), held against their plain versions
+   block by block (rows are independent) at TOL and sized_tol. Each with
+   its time after an L2 flush, plain time, bound and library time.
+3. (serving) On the narrow config with 2 kv heads and 3 slots: the
+   weight-stream paged step against the plain paged step, one window step
+   on the gathered pages against the paged step, `llama_prefill_chunk` in
+   three chunks against one prefill (each within 5e-2 of the range); the
+   bf16 engine's burst window against its gather path, tokens bit for bit;
+   the host syncs of a windowed run under set_sync_debug_mode("warn"): one
+   fetch a window plus its eot looks.
+6. (serving) The continuous-batching engine at GAR-1B's full width on
+   bench.py:run_serving's workload (17-tile requests, the 4662-token
+   prompt, 256 greedy tokens, eot -1; random bf16 params, serving_weights
+   for int8): serving bf16 (8 requests, 8 slots, window 256), serving int8
+   16-slot (quantize_kv), serving int8 low-TTFT (window 32), staggered
+   (bf16, 4 requests up front and 4 at the first fetch, prefill_chunk
+   1024, window 32) and per-token steps (use_fused, 4 steps). Each run a
+   warm-up and a timed run of the same requests (the same tokens): requests/s,
+   tok/s, TTFT and latency p50 / p95, peak memory, the host time of a window
+   outside its steps; 256 valid tokens a request, every page free at the
+   end, the launches derived from the engine's schedule (D-G a tower pass,
+   B a layer per admission group and per prefill chunk, the fused step a
+   window step) and the schedule the workload implies.
+
 GAR-8B (its kernels in phase 2, its paths after phase 9):
 
 2. (8B) Kernels A, B and C at GAR-8B's head dims against their plain
@@ -167,7 +202,9 @@ Training (its kernels in phase 2, its paths after phase 6):
 
 The line before the last is a JSON object with one entry per kernel (A, B,
 C, H, I, J, H8, I8, J8 also with a "gar8b" object: their figures at
-GAR-8B's shapes and their launches per 8B caption); the last line is
+GAR-8B's shapes and their launches per 8B caption; B, C, C8, D-G, H-J and
+H8-J8 also with a "serving" object: the serving run, its launches and
+their figures at the serving shapes); the last line is
 {"ok": true, "device": {...}}.
 """
 
@@ -367,6 +404,14 @@ def phase_kernels():
     results.update(vit_block_kernels(rnd, gen))
     results.update(decode_matmul_kernels(rnd))
     results.update(mega_kernels(rnd))
+    # the serving engine's shapes: B's prefill chunks and batched prefill, C
+    # and C8 over a window cache, the weight stream at 8 and 16 slots, the
+    # tower's kernels over an admission group's tiles
+    serving = serving_attention_rows(rnd)
+    serving.update(serving_stream_rows(rnd))
+    serving.update(serving_tower_rows(rnd, gen))
+    for key, shapes in serving.items():
+        results[key]["serving"] = shapes
     # GAR-8B's shapes: A at head dim 96, B and C at 128, the stream at its widths
     gar8b = gar8b_attention_kernels(rnd)
     gar8b.update(decode_matmul_kernels(rnd, GAR8B_WIDTHS, 8, "8B "))
@@ -2094,6 +2139,663 @@ def phase_main_path(cfg, params, params_q8=None, mega=False, fused_tokens=None):
     return counts, toks
 
 
+SERVING_NEW_TOKENS = 256
+SERVING_S_BASE = 4864  # a window's column budget at the 4662-token prompt: 4662 rounded up to 256
+SERVING_KEYS = ("B", "C", "C8", "D", "E", "F", "G", "H", "I", "J", "H8", "I8", "J8")
+
+
+def serving_attention_rows(rnd) -> dict:
+    """Kernels B, C and C8 at the serving engine's shapes. B: a chunk of
+    the prompt against its prefix, right-aligned causal (Sq = 1024 at Sk =
+    3072: the third chunk of `prefill_chunk=1024`; Sq = 566 at Sk = 4662:
+    the ragged last chunk), 32 query heads over 8 kv heads, its output at
+    `sized_tol` and its LSE at LSE_TOL; library: SDPA with the right-aligned
+    boolean mask (enable_gqa). C and C8: layer 7 of a window's dense cache
+    at B = 8 slots, (16, 8, 8, 5120, 64), each row's own prompt_lens
+    4662 - 64 r (its cached tokens), prompt_pad = the window base 4864 and
+    write_pos = base + 17 (the window's 18th step), at TOL16 with the
+    interval probe (C8's `q8_probe`), the written column and the rest of
+    the cache checked; C8's scales one per (layer, slot, kv-head pair), as
+    the int8 window quantizes them; C8 also at B = 16 (prompt_lens down to
+    3702), the int8 16-slot run's. B also at an admission group's prefill:
+    8 and 16 rows of the 4662-token prompt, causal, held row by row against
+    the plain version at `sized_tol` (a row's fp32 scores are 2.8 GB);
+    library SDPA with is_causal. Returns {key: {shape: figures}}."""
+    import torch.nn.functional as F
+    from grasp_any_region_tpu_torch.ops import decode_attention as dec
+    from grasp_any_region_tpu_torch.ops import flash_attention as fa
+
+    rows = {"B": {}, "C": {}, "C8": {}}
+    for sq, sk in ((1024, 3072), (566, 4662)):
+        q, k, v = rnd(1, sq, 32, 64), rnd(1, sk, 8, 64), rnd(1, sk, 8, 64)
+        out, lse = fa.flash_attention(q, k, v, causal=True, return_lse=True)
+        torch.cuda.synchronize()
+        ref, ref_lse = fa.flash_attention_plain(q.float(), k.float(), v.float(), causal=True,
+                                                return_lse=True)
+        label = f"B (chunk Sq = {sq} against Sk = {sk})"
+        err = max_err(out, ref, label, **sized_tol(ref))
+        max_err(lse, ref_lse, f"{label} LSE", atol=LSE_TOL, rtol=1e-4)
+        mask = fa.attention_mask(sq, sk, True, None, q.device)[0, 0]  # (1, Sq, Sk)
+        pairs = sq * (sk - sq) + sq * (sq + 1) // 2
+        r = dict(max_abs_err=err, ms=cuda_ms(lambda: fa.flash_attention(q, k, v, causal=True)),
+                 plain_ms=cuda_ms(lambda: fa.flash_attention_plain(q, k, v, causal=True),
+                                  iters=3),
+                 library_ms=cuda_ms(lambda: sdpa(q, k, v, attn_mask=mask, enable_gqa=True)),
+                 **bound(nbytes(q, k, v, out), 4 * 32 * 64 * pairs))
+        rows["B"][f"Sq {sq}, Sk {sk}"] = r
+        log(f"[kernels serving] {label}, causal right-aligned (library: SDPA, boolean mask): "
+            f"{share_line(r)}; plain {r['plain_ms']:.4f} ms; max |kernel - plain| {err:.3e}")
+        del q, k, v, out, ref, lse, ref_lse
+    for b in (8, 16):  # an admission group's batched prefill
+        s = 4662
+        q, k, v = rnd(b, s, 32, 64), rnd(b, s, 8, 64), rnd(b, s, 8, 64)
+        out = fa.flash_attention(q, k, v, causal=True)
+        torch.cuda.synchronize()
+        label = f"B (admission group, {b} rows of {s})"
+        err = 0.0
+        for row in range(b):  # one row at a time: (32, S, S) fp32 scores a row
+            one = slice(row, row + 1)
+            ref = fa.flash_attention_plain(q[one].float(), k[one].float(), v[one].float(),
+                                           causal=True)
+            err = max(err, max_err(out[one], ref, f"{label}, row {row}", **sized_tol(ref)))
+            del ref
+
+        def plain_rows():
+            for row in range(b):
+                one = slice(row, row + 1)
+                fa.flash_attention_plain(q[one], k[one], v[one], causal=True)
+
+        r = dict(max_abs_err=err, ms=cuda_ms(lambda: fa.flash_attention(q, k, v, causal=True)),
+                 plain_ms=cuda_ms(plain_rows, iters=2, warmup=1),
+                 library_ms=cuda_ms(lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True)),
+                 **bound(nbytes(q, k, v, out), 4 * b * 32 * 64 * s * (s + 1) // 2))
+        rows["B"][f"B = {b}, S {s}"] = r
+        log(f"[kernels serving] {label}, causal (library: SDPA, is_causal): {share_line(r)}; "
+            f"plain {r['plain_ms']:.4f} ms (row by row); max |kernel - plain| {err:.3e}")
+        del q, k, v, out
+    torch.cuda.empty_cache()
+
+    layer, pad, s = 7, SERVING_S_BASE, 5120
+    wpos = pad + 17
+    wp = torch.tensor(wpos, dtype=torch.int32, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 20)
+    # C at the bf16 run's 8 slots; C8 at the int8 runs' 8 and 16
+    for key, b in (("C", 8), ("C8", 8), ("C8", 16)):
+        q8 = key == "C8"
+        plens = [4662 - 64 * r for r in range(b)]
+        kw = dict(prompt_lens=torch.tensor(plens, dtype=torch.int32, device="cuda"),
+                  write_pos=wp, prompt_pad=pad)
+        q, k_new, v_new = rnd(b, 32, 64), rnd(b, 8, 64), rnd(b, 8, 64)
+        if q8:
+            k_all, v_all = (torch.randint(-127, 128, (16, b, 8, s, 64), generator=gen,
+                                          device="cuda", dtype=torch.int8) for _ in range(2))
+            scales = dict(zip(("k_scale", "v_scale"), (
+                (torch.rand((16, b, 4, 1, 1), generator=gen, device="cuda") + 0.5) / 73.3
+                for _ in range(2))))
+        else:
+            k_all, v_all, scales = rnd(16, b, 8, s, 64), rnd(16, b, 8, s, 64), {}
+        kwk = {**kw, **scales}
+        err = 0.0
+        for probe in (False, True):
+            if probe and q8:
+                k_new, v_new = q8_probe("interval", k_all, v_all, scales["k_scale"],
+                                        scales["v_scale"], q, k_new, v_new, layer, plens, pad,
+                                        wpos)
+            elif probe:
+                k0, vp = interval_probe(v_all[layer], plens, pad, wpos)
+                k_all[layer], v_all[layer], k_new = k0, vp, torch.zeros_like(k_new)
+                del k0, vp
+            label = f"{key} (window, B = {b}{', interval probe' if probe else ''})"
+            k_ref, v_ref = k_all[layer].clone(), v_all[layer].clone()
+            out = dec.decode_attention_fused(q, k_all, v_all, k_new, v_new, layer, **kwk)
+            torch.cuda.synchronize()
+            if q8:
+                ref = dec.decode_attention_fused_q8_plain(
+                    q.float(), k_ref[None], v_ref[None], k_new, v_new, 0,
+                    **{**kw, **{n: t[layer:layer + 1] for n, t in scales.items()}})
+            else:
+                ref = dec.decode_attention_fused_plain(
+                    q.float(), k_ref[None].float(), v_ref[None].float(), k_new.float(),
+                    v_new.float(), 0, **kw)
+            err = max(err, max_err(out, ref, label, **TOL16))
+            for got, want, new in ((k_all[layer], k_ref, k_new), (v_all[layer], v_ref, v_new)):
+                if not q8:  # C writes the new K/V as they are; C8's plain version wrote want's
+                    want[:, :, wpos] = new
+                col = (got[:, :, wpos].float() - want[:, :, wpos].float()).abs().max().item()
+                if col > (1 if q8 else 0) or not (
+                        torch.equal(got[:, :, :wpos], want[:, :, :wpos])
+                        and torch.equal(got[:, :, wpos + 1:], want[:, :, wpos + 1:])):
+                    raise AssertionError(f"{label}: the written column is off by {col} "
+                                         f"{'steps' if q8 else ''} or other cache entries changed")
+            del k_ref, v_ref, ref
+        args = (q, k_all, v_all, k_new, v_new, layer)
+        plain = dec.decode_attention_fused_q8_plain if q8 else dec.decode_attention_fused_plain
+        lib_ms = None
+        if not q8:
+            ids = torch.arange(s, device="cuda")
+            mask = ((ids < kw["prompt_lens"][:, None]) | ((ids >= pad) & (ids <= wpos)))
+            k_lay, v_lay, q4 = k_all[layer], v_all[layer], q[:, :, None, :]
+            lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+                q4, k_lay, v_lay, attn_mask=mask[:, None, None, :], scale=64 ** -0.5,
+                enable_gqa=True))
+        r = dict(max_abs_err=err, ms=cuda_ms(lambda: dec.decode_attention_fused(*args, **kwk)),
+                 plain_ms=cuda_ms(lambda: plain(*args, **kwk), iters=5), library_ms=lib_ms,
+                 **decode_bound(q, k_all, plens, pad, wpos))
+        rows[key][f"window B = {b}"] = r
+        log(f"[kernels serving] {key} over a window cache, B = {b}, prompt_lens "
+            f"{plens[0]}..{plens[-1]}, prompt_pad {pad}, write_pos {wpos}: {share_line(r)}; "
+            f"plain {r['plain_ms']:.4f} ms; max |kernel - plain| {err:.3e} (TOL16, interval "
+            "probe)")
+        del k_all, v_all
+    torch.cuda.empty_cache()
+    return rows
+
+
+def serving_tower_rows(rnd, gen) -> dict:
+    """Kernels D, E, F and G over an admission group's tiles: 8 and 16
+    requests of 17 tiles in one tower pass, T = 136 and 272 tiles of 1025
+    tokens at gar_1b's widths (at 272, G's (T x 1025, 4096) hidden is 2.28
+    GB and D's output 1.71 GB: byte offsets past 2^31). Each is held
+    against its plain version on the same inputs, 34 tiles at a time (its
+    rows are independent; a whole fp32 reference would take tens of GB), at
+    TOL (not E: its outputs are small, as in vit_block_kernels) and at
+    `sized_tol` of each block; plain ms times the same blocks in turn.
+    Library: SDPA without rope for E, torch.addmm for F, none for D and G.
+    Returns {key: {shape: figures}}."""
+    from grasp_any_region_tpu_torch.ops import vit_attention as va
+    from grasp_any_region_tpu_torch.ops import vit_block as vb
+    from grasp_any_region_tpu_torch.ops.rope import rope_head_tables
+
+    s, d, m, h, block = 1025, 1024, 4096, 16, 34
+
+    def w(*shape, scale):
+        return (rnd(*shape).float() * scale).to(torch.bfloat16)
+
+    ln = (1.0 + w(d, scale=0.2), w(d, scale=0.2))
+    wqkv, bqkv = w(d, 3 * d, scale=d ** -0.5), w(3 * d, scale=0.1)
+    wo, bo, ls1 = w(d, d, scale=d ** -0.5), w(d, scale=0.1), w(d, scale=0.5)
+    fc1, b1 = w(d, m, scale=d ** -0.5), w(m, scale=0.1)
+    fc2, b2, ls2 = w(m, d, scale=m ** -0.5), w(d, scale=0.1), w(d, scale=0.5)
+    ang = torch.rand((h, s - 1, 32), generator=gen, device="cuda") * 40.0
+    cos, sin = rope_head_tables(ang, h, 1)
+    rows = {}
+    for t in (136, 272):
+        n = t * s
+        x, attn, qkv = rnd(t, s, d), rnd(t, s, d), rnd(t, s, 3 * d)
+        heads = [qkv[..., i * d:(i + 1) * d].unflatten(-1, (h, 64)).transpose(1, 2)
+                 for i in range(3)]
+        cases = {  # name: (kernel, plain, tiled args, other args, kwargs, operations, library)
+            "D": (vb.vit_ln_qkv, vb.vit_ln_qkv_plain, (x,), (*ln, wqkv, bqkv), {},
+                  2 * n * d * 3 * d, None),
+            "E": (va.vit_attention_fused_qkv, va.vit_attention_fused_qkv_plain, (qkv,),
+                  (cos, sin, h, 64), {}, 4 * t * h * s * s * 64,
+                  lambda: torch.nn.functional.scaled_dot_product_attention(*heads)),
+            "F": (vb.vit_wo_residual, vb.vit_wo_residual_plain, (attn, x), (wo, bo, ls1), {},
+                  2 * n * d * d, lambda: torch.addmm(x.view(n, d), attn.view(n, d), wo)),
+            "G": (vb.vit_mlp_residual, vb.vit_mlp_residual_plain, (x,),
+                  (*ln, fc1, b1, fc2, b2, ls2), dict(fast_gelu=True), 4 * n * d * m, None),
+        }
+        for name, (kernel, plain, tiled, rest, kw, ops, library) in cases.items():
+            out = kernel(*tiled, *rest, **kw)
+            torch.cuda.synchronize()
+            label = f"{name} ({t} tiles, an admission group of {t // 17})"
+            err = 0.0
+            for i in range(0, t, block):
+                part = f"{label}, tiles {i}-{i + block - 1}"
+                ref = plain(*(a[i:i + block].float() for a in tiled),
+                            *(a.float() if name != "E" else a for a in rest), **kw)
+                got = out[i:i + block]
+                if name != "E":
+                    max_err(got, ref, part)
+                err = max(err, max_err(got, ref, part, **sized_tol(ref)))
+                del ref
+
+            def plain_blocks():
+                for i in range(0, t, block):
+                    plain(*(a[i:i + block] for a in tiled), *rest, **kw)
+
+            r = dict(max_abs_err=err, ms=cuda_ms(lambda: kernel(*tiled, *rest, **kw)),
+                     plain_ms=cuda_ms(plain_blocks, iters=2, warmup=1),
+                     library_ms=cuda_ms(library) if library else None,
+                     **bound(nbytes(*tiled, *(a for a in rest if torch.is_tensor(a)), out), ops))
+            rows.setdefault(name, {})[f"T = {t}"] = r
+            log(f"[kernels serving] {label}: {share_line(r)}; plain {r['plain_ms']:.4f} ms "
+                f"({block} tiles at a time); max |kernel - plain| {err:.3e}")
+            del out
+        del x, attn, qkv, heads
+        torch.cuda.empty_cache()
+    return rows
+
+
+def serving_stream_rows(rnd) -> dict:
+    """The weight stream at the engine's slot counts: J, I, H (at wo and at
+    w_down) and J8, I8, H8 at B = 8 and 16, GAR-1B's widths, layer 7 of 16
+    stacked layers (int8: the same weights quantized), against their plain
+    versions at TOL; the bound is the layer's weights read once plus x and
+    the output; library: torch.mm for H, torch._weight_int8pack_mm for H8
+    (None where it refuses), None for the products that no one call gives.
+    Returns {key: {shape: figures}}."""
+    from grasp_any_region_tpu_torch.models.quantize import quantize_int8
+    from grasp_any_region_tpu_torch.ops import layer_matmul as lm
+
+    d, m, hq, hk = GAR1B_WIDTHS
+    layer = 7
+
+    def stack(din, n):
+        return (rnd(16, din, n).float() * din ** -0.5).to(torch.bfloat16)
+
+    w = dict(wq=stack(d, hq), wk=stack(d, hk), wv=stack(d, hk), wo=stack(hq, d), wg=stack(d, m),
+             wu=stack(d, m), wd=stack(m, d))
+    q8 = {name: quantize_int8(t) for name, t in w.items()}
+    specs = {  # label: (key, kernel, plain, weights, Din)
+        "J": ("J", lm.layer_qkv, lm.layer_qkv_plain, (w["wq"], w["wk"], w["wv"]), d),
+        "I": ("I", lm.layer_swiglu, lm.layer_swiglu_plain, (w["wg"], w["wu"]), d),
+        "H wo": ("H", lm.layer_matmul, lm.layer_matmul_plain, (w["wo"],), hq),
+        "H w_down": ("H", lm.layer_matmul, lm.layer_matmul_plain, (w["wd"],), m),
+        "J8": ("J8", lm.layer_qkv_q8, lm.layer_qkv_q8_plain, (*q8["wq"], *q8["wk"], *q8["wv"]), d),
+        "I8": ("I8", lm.layer_swiglu_q8, lm.layer_swiglu_q8_plain, (*q8["wg"], *q8["wu"]), d),
+        "H8 wo": ("H8", lm.layer_matmul_q8, lm.layer_matmul_q8_plain, q8["wo"], hq),
+        "H8 w_down": ("H8", lm.layer_matmul_q8, lm.layer_matmul_q8_plain, q8["wd"], m),
+    }
+    rows = {}
+    for b in (8, 16):
+        for label, (key, kernel, plain, ws, din) in specs.items():
+            x = rnd(b, din)
+            out = kernel(x, *ws, layer)
+            torch.cuda.synchronize()
+            ref = plain(x.float(), *(t[layer:layer + 1].float() for t in ws), 0)
+            outs, refs = (out, ref) if isinstance(out, tuple) else ((out,), (ref,))
+            err = max(max_err(o, r, f"{label} (B = {b})") for o, r in zip(outs, refs))
+            douts = [t.shape[2] for t in ws if t.dtype != torch.float32]
+            n_out = douts[0] if key.startswith("I") else sum(douts)
+            lib_ms = None
+            if key == "H":
+                lib_ms = cuda_ms(lambda: torch.mm(x, ws[0][layer]))
+            elif key == "H8":
+                w_nk, s_n = ws[0][layer].t().contiguous(), ws[1][layer].reshape(-1).to(x.dtype)
+                try:
+                    lib_ms = cuda_ms(lambda: torch._weight_int8pack_mm(x, w_nk, s_n))
+                except RuntimeError as e:
+                    log(f"[kernels serving] {label} (B = {b}): torch._weight_int8pack_mm "
+                        f"refused: {e}")
+            r = dict(max_abs_err=err, ms=cuda_ms(lambda: kernel(x, *ws, layer)),
+                     plain_ms=cuda_ms(lambda: plain(x, *ws, layer), iters=5), library_ms=lib_ms,
+                     **bound(nbytes(*(t[layer] for t in ws)) + 2 * b * (din + n_out),
+                             2 * b * din * sum(douts)))
+            rows.setdefault(key, {})[f"{label.split(' ', 1)[1] + ', ' if ' ' in label else ''}"
+                                     f"B = {b}"] = r
+            log(f"[kernels serving] {label}, B = {b}: {share_line(r)}; plain "
+                f"{r['plain_ms']:.4f} ms; max |kernel - plain| {err:.3e}")
+    del w, q8
+    torch.cuda.empty_cache()
+    return rows
+
+
+def serving_requests(cfg, n: int, seed0: int = 0):
+    """n one-region requests of the bench workload (17 tiles, the
+    4662-token prompt), each from its own seed: (batch, prompt length)."""
+    from grasp_any_region_tpu_torch.data.synthetic import synthetic_batch
+
+    reqs = []
+    for i in range(n):
+        batch, _, plens = synthetic_batch(cfg, batch=1, grid=(4, 4), regions=1, seed=seed0 + i,
+                                          device="cuda")
+        reqs.append((batch, int(plens[0])))
+    return reqs
+
+
+def serving_syncs(run) -> tuple:
+    """Run `run()` under torch.cuda.set_sync_debug_mode("warn") and return
+    (the host syncs the port made, where each was made: the innermost frame
+    in the port's package and, after it, the innermost frame of all). A
+    sync with no frame of the port on its stack is the harness's own (the
+    mode switch back makes one) and is listed apart, not counted."""
+    import traceback
+    import warnings
+
+    import grasp_any_region_tpu_torch
+
+    where, port = {}, os.path.dirname(os.path.abspath(grasp_any_region_tpu_torch.__file__))
+
+    def record(message, category, filename, lineno, file=None, line=None):
+        if "synchroniz" not in str(message):
+            return
+        ours = [f for f in traceback.extract_stack()[:-1] if f.filename.startswith(port)]
+        key = (f"{os.path.basename(ours[-1].filename)}:{ours[-1].lineno}" if ours
+               else "outside the port") + f" -> {os.path.basename(filename)}:{lineno}"
+        where[key] = where.get(key, 0) + 1
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = record
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            run()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return sum(n for key, n in where.items() if not key.startswith("outside")), where
+
+
+@torch.inference_mode()
+def phase_serving_cross_check():
+    """The serving path's pieces on the card, on the narrow config with 2 kv
+    heads and 3 slots (slots != kv heads), bf16: each within E2E_TOL of its
+    range. (1) `llama_decode_step_paged_fused` (J, H, I, H a layer, plain
+    paged attention) against `llama_decode_step_paged` (cuBLAS products) on
+    the same pools: hidden and the written page entries; (2) one window
+    step (the fused `llama_decode_step` on the pages gathered dense: J, C,
+    H, I, H) against the paged XLA step over the same pages, hidden and
+    written K/V of the active slots; (3) `llama_prefill_chunk` over 1500
+    tokens in chunks of 512 (a ragged last 476; kernel B at Sq < Sk) against
+    one `llama_prefill`: the last chunk's hidden and all K/V; (4) the bf16
+    engine's burst window against its gather path: the same tokens bit for
+    bit, and a run of the gather path under set_sync_debug_mode("warn"):
+    one host sync a window (its fetch) plus its eot looks."""
+    from grasp_any_region_tpu_torch.models.llama import (
+        KVCache, llama_decode_step, llama_decode_step_paged, llama_decode_step_paged_fused,
+        llama_prefill, llama_prefill_chunk)
+    from grasp_any_region_tpu_torch.serve import ContinuousBatchingEngine, EngineConfig
+    from grasp_any_region_tpu_torch.serve.paged_cache import gather_pages_dense
+
+    cfg = narrow_config(kv_heads=2)
+    tc = cfg.text
+    L, kh, dh = tc.num_layers, tc.num_kv_heads, tc.head_dim
+    params = random_params(cfg, "cuda")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 30)
+    slots, ps, n_pages, mp = 3, 64, 64, 16
+    pools = [torch.randn((L, kh, n_pages, ps, dh), generator=gen, device="cuda")
+             .to(torch.bfloat16) for _ in range(2)]
+    bt = (torch.randperm(n_pages - 1, generator=gen, device="cuda")[: slots * mp] + 1) \
+        .reshape(slots, mp).to(torch.int32)
+    seq_lens = torch.tensor([900, 517, 64], dtype=torch.int32, device="cuda")
+    active = torch.tensor([True, True, False], device="cuda")
+    emb = torch.randn((slots, 1, tc.hidden_size), generator=gen, device="cuda").to(torch.bfloat16)
+    worst = 0.0
+
+    def rel(label, got, want):
+        nonlocal worst
+        got, want = got.float(), want.float()
+        if got.shape != want.shape or not torch.isfinite(got).all():
+            raise AssertionError(f"[serving cross-check] {label}: {tuple(got.shape)} against "
+                                 f"{tuple(want.shape)} or non-finite")
+        r = ((got - want).abs().max() / want.abs().max()).item()
+        worst = max(worst, r)
+        log(f"[serving cross-check] {label}: max |diff| / max |ref| = {r:.3e}")
+        if r > E2E_TOL:
+            raise AssertionError(f"[serving cross-check] {label} differs by {r:.3e} > {E2E_TOL}")
+
+    runs = {}
+    for form, step in (("xla", llama_decode_step_paged), ("fused", llama_decode_step_paged_fused)):
+        kp, vp = (p.clone() for p in pools)
+        reset_counts()
+        hidden, kp, vp = step(params.llm, tc, emb, kp, vp, bt, seq_lens, active)
+        torch.cuda.synchronize()
+        want = expect(**({} if form == "xla" else dict(J=L, I=L, H=2 * L)))
+        if read_counts() != want:
+            raise AssertionError(f"[serving cross-check] paged {form} launches {read_counts()}, "
+                                 f"expected {want}")
+        runs[form] = (hidden, kp, vp)
+    rows = torch.arange(2, device="cuda")
+    pid = bt[rows, (seq_lens[:2] // ps).long()].long()
+    off = (seq_lens[:2] % ps).long()
+    rel("paged fused step against the paged XLA step, hidden", runs["fused"][0][:2],
+        runs["xla"][0][:2])
+    for i, name in ((1, "K"), (2, "V")):
+        rel(f"paged fused step against the paged XLA step, written {name}",
+            runs["fused"][i][:, :, pid, off], runs["xla"][i][:, :, pid, off])
+
+    # (2) the window's first step on the same pages, gathered dense
+    s_base = 1024
+    kd, vd = gather_pages_dense(pools[0], pools[1], bt, s_base, 8)
+    cache = KVCache(k=kd, v=vd, prompt_lens=seq_lens,
+                    write_pos=torch.full((), s_base, dtype=torch.int32, device="cuda"))
+    reset_counts()
+    hidden, cache = llama_decode_step(params.llm, tc, emb, cache, s_base)
+    torch.cuda.synchronize()
+    want = expect(C=L, J=L, I=L, H=2 * L)
+    if read_counts() != want:
+        raise AssertionError(f"[serving cross-check] window step launches {read_counts()}, "
+                             f"expected {want}")
+    rel("window step (fused, dense) against the paged XLA step, hidden", hidden[:2],
+        runs["xla"][0][:2])
+    for i, name, dense in ((1, "K", cache.k), (2, "V", cache.v)):
+        rel(f"window step against the paged XLA step, written {name}",
+            dense[:, :2, :, s_base].transpose(0, 1), runs["xla"][i][:, :, pid, off].permute(2, 0, 1, 3))
+    del runs, pools, kd, vd, cache
+
+    # (3) chunked prefill against one prefill
+    s, chunk = 1500, 512
+    embeds = torch.randn((1, s, tc.hidden_size), generator=gen, device="cuda").to(torch.bfloat16)
+    pos = torch.arange(s, device="cuda", dtype=torch.int32)[None]
+    whole, (k_whole, v_whole) = llama_prefill(params.llm, tc, embeds, pos)
+    kv, n_chunks = None, 0
+    reset_counts()
+    for c0 in range(0, s, chunk):
+        hidden, kv = llama_prefill_chunk(params.llm, tc, embeds[:, c0:c0 + chunk],
+                                         pos[:, c0:c0 + chunk], kv)
+        n_chunks += 1
+    torch.cuda.synchronize()
+    if read_counts() != expect(B=L * n_chunks):
+        raise AssertionError(f"[serving cross-check] chunked prefill launches {read_counts()}, "
+                             f"expected B = {L * n_chunks}")
+    rel(f"llama_prefill_chunk ({n_chunks} chunks, the last {s - chunk * (n_chunks - 1)}) "
+        "against llama_prefill, last chunk's hidden", hidden, whole[:, chunk * (n_chunks - 1):])
+    rel("llama_prefill_chunk against llama_prefill, K", kv[0], k_whole)
+    rel("llama_prefill_chunk against llama_prefill, V", kv[1], v_whole)
+    del embeds, whole, k_whole, v_whole, kv
+
+    # (4) the engine's burst window against its gather path, bit for bit; then
+    # the host syncs of a run of the gather path
+    reqs = serving_requests(cfg, 2)
+    ecfg = EngineConfig(slots=slots, page_size=64, num_pages=slots * 80 + 1,
+                        max_pages_per_slot=80, max_new_tokens=24, eot_id=-1, mask_compat=False, decode_chunk=8)
+    tokens, counts = [], []
+    for burst in (True, False):
+        eng = ContinuousBatchingEngine(params, cfg, ecfg)
+        if not burst:
+            eng._burst = lambda live: False
+        ids = [eng.submit(*r) for r in reqs]
+        out = eng.run()
+        tokens.append([out[i] for i in ids])
+        counts.append(dict(eng.counts))
+    if tokens[0] != tokens[1] or counts[0].get("fresh_windows") != 1 \
+            or counts[1].get("fresh_windows"):
+        raise AssertionError(f"[serving cross-check] burst path tokens {tokens[0]} and gather "
+                             f"path tokens {tokens[1]} differ, or the paths were not taken "
+                             f"({counts})")
+    log(f"[serving cross-check] engine burst path = gather path, bit for bit: 2 requests x "
+        f"24 tokens over windows of 8 (burst: {counts[0]}; gather: {counts[1]}); first tokens "
+        f"{tokens[0][0][:8]}")
+    eot = cfg.extended_vocab_size - 1  # an id the looks watch for
+    eng = ContinuousBatchingEngine(params, cfg, dataclasses.replace(
+        ecfg, eot_id=eot, decode_chunk=40, max_new_tokens=80))
+    for r in reqs:
+        eng.submit(*r)
+    eng.run()  # warm-up
+    eng.counts = {}
+    for r in reqs:
+        eng.submit(*r)
+    n_syncs, where = serving_syncs(eng.run)
+    want = eng.counts["windows"] + eng.counts.get("eot_looks", 0)
+    log(f"[serving cross-check] host syncs of a windowed run (2 requests x 80 tokens, windows "
+        f"of 40, eot watched): {n_syncs} = {eng.counts['windows']} window fetches + "
+        f"{eng.counts.get('eot_looks', 0)} eot looks? at {where}")
+    if n_syncs != want:
+        raise AssertionError(f"[serving cross-check] {n_syncs} host syncs, expected {want} "
+                             f"(one fetch a window and the eot looks): {where}")
+    log(f"[serving cross-check] worst relative error {worst:.3e} <= {E2E_TOL}")
+
+
+def serving_launches(eng, cfg, int8: bool) -> dict:
+    """The launches a run of `eng` must make, from its own schedule: D-G a
+    tower pass, B a layer per admission group and per prefill chunk; the
+    window steps the fused step (J, C, H, I, H a layer; with an int8
+    window cache and int8 weights J8, C8, H8, I8, H8), the per-token steps
+    the weight-stream paged step (J, H, I, H a layer; no C: paged
+    attention is plain torch, as in JAX)."""
+    c, L, depth = eng.counts, cfg.text.num_layers, cfg.vision.depth
+    steps, tokens = c.get("window_steps", 0), c.get("token_steps", 0)
+    sfx = "8" if int8 else ""
+    want = dict(B=L * (c.get("prefill_groups", 0) + c.get("prefill_chunks", 0)),
+                **dict.fromkeys("DEFG", depth * c.get("tower_passes", 0)))
+    want[f"C{sfx}"] = L * steps
+    want[f"J{sfx}"] = want[f"I{sfx}"] = L * (steps + tokens)
+    want[f"H{sfx}"] = 2 * L * (steps + tokens)
+    return expect(**{k: v for k, v in want.items() if v})
+
+
+@torch.inference_mode()
+def run_serving(cfg, params, label, n_requests=8, slots=8, window=SERVING_NEW_TOKENS,
+                int8=False, staggered=False, prefill_chunk=None, schedule=None) -> dict:
+    """One serving run at full width, as bench.py:run_serving: the engine
+    over `slots` slots (80 pages of 64 tokens each, num_pages = slots * 80
+    + 1), n_requests 17-tile requests, 256 greedy tokens each (eot -1); a
+    warm-up run of the same requests, then the timed run. staggered: half
+    the requests up front, the rest submitted at the first window's fetch.
+    Asserts 256 tokens a request in the valid vocab, every page back at the
+    end, and the launches of the timed run (`serving_launches`), with
+    `schedule` (the engine's counts the table predicts) where given; the
+    warm-up and the timed run must give the same tokens. Returns the timed
+    run's launches and figures."""
+    from grasp_any_region_tpu_torch.serve import ContinuousBatchingEngine, EngineConfig
+
+    ecfg = EngineConfig(slots=slots, page_size=64, num_pages=slots * 80 + 1,
+                        max_pages_per_slot=80, max_new_tokens=SERVING_NEW_TOKENS, eot_id=-1,
+                        mask_compat=False, decode_chunk=window, quantize_kv=int8,
+                        prefill_chunk=prefill_chunk)
+    eng = ContinuousBatchingEngine(params, cfg, ecfg)
+    reqs = serving_requests(cfg, n_requests)
+    first = n_requests // 2 if staggered else n_requests
+    tag = f"[serving {label}]"
+
+    def serve():
+        ids = [eng.submit(*r) for r in reqs[:first]]
+
+        def on_event(ev):
+            if len(ids) < n_requests:
+                ids.extend(eng.submit(*r) for r in reqs[first:])
+
+        out = eng.run(on_event if staggered else None)
+        torch.cuda.synchronize()
+        return [out[i] for i in ids]
+
+    warm = serve()
+    eng.latency_stats()  # drops the warm-up's requests
+    eng.counts, eng.timing = {}, {}
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    toks = serve()
+    dt = time.perf_counter() - t0
+    counts = read_counts()
+    stats = eng.latency_stats()
+    vocab = cfg.extended_vocab_size
+    if len(toks) != n_requests or any(len(t) != SERVING_NEW_TOKENS for t in toks) or \
+            not all(0 <= x < vocab for t in toks for x in t):
+        raise AssertionError(f"{tag} not {SERVING_NEW_TOKENS} valid tokens for each of "
+                             f"{n_requests} requests: {[len(t) for t in toks]}")
+    if eng.allocator.free_pages != ecfg.num_pages - 1:
+        raise AssertionError(f"{tag} {eng.allocator.free_pages} free pages at the end, "
+                             f"expected {ecfg.num_pages - 1}")
+    if toks != warm:
+        diff = [i for i, (a, b) in enumerate(zip(toks, warm)) if a != b]
+        raise AssertionError(f"{tag} the timed run's tokens differ from the warm-up's on the "
+                             f"same requests (requests {diff})")
+    if schedule is not None and any(eng.counts.get(k, 0) != v for k, v in schedule.items()):
+        raise AssertionError(f"{tag} schedule {eng.counts}, expected {schedule}")
+    want = serving_launches(eng, cfg, int8)
+    if counts != want:
+        raise AssertionError(f"{tag} launch counts {counts}, expected {want} from the "
+                             f"schedule {eng.counts}")
+    t, windows = eng.timing, eng.counts["windows"]
+    outside = sum(t.get(k, 0.0) for k in ("window_setup", "window_gather", "window_flush",
+                                          "window_host"))
+    steps = eng.counts["window_steps"]
+    n_tok = n_requests * SERVING_NEW_TOKENS
+    log(f"{tag} {slots} slots, {n_requests} requests x {SERVING_NEW_TOKENS} tokens, window "
+        f"{window}{', prefill_chunk ' + str(prefill_chunk) if prefill_chunk else ''}"
+        f"{', int8 weights and window cache' if int8 else ''}: {dt:.3f} s -> "
+        f"{n_requests / dt:.3f} requests/s, {n_tok / dt:.1f} tok/s; TTFT p50 "
+        f"{stats['ttft_p50_s']:.3f} s p95 {stats['ttft_p95_s']:.3f} s; latency p50 "
+        f"{stats['latency_p50_s']:.3f} s p95 {stats['latency_p95_s']:.3f} s; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    log(f"{tag} schedule {eng.counts}; host ms: "
+        + ", ".join(f"{k} {v * 1e3:.1f}" for k, v in sorted(t.items()))
+        + f"; a window outside its steps {outside / windows * 1e3:.1f} ms (setup, gather, "
+        f"flush, bookkeeping), its steps {t.get('window_steps', 0.0) / max(steps, 1) * 1e3:.2f} "
+        f"ms of host a step; launches {dict((k, v) for k, v in counts.items() if v)}; "
+        f"the warm-up's tokens equal the timed run's")
+    del eng
+    torch.cuda.empty_cache()
+    return {**stats, "counts": counts, "requests_per_s": n_requests / dt, "tok_per_s": n_tok / dt}
+
+
+@torch.inference_mode()
+def run_serving_per_token(cfg, params, n_steps: int = 4) -> dict:
+    """decode_chunk = 1 with use_fused: 8 requests, 8 slots, n_steps
+    `step()`s (the first admits all 8 in one group and fetches their tok0):
+    J, H, I a layer a step and no C (paged attention is plain, as in JAX);
+    the host ms of a step (synchronized) after the first."""
+    from grasp_any_region_tpu_torch.serve import ContinuousBatchingEngine, EngineConfig
+
+    ecfg = EngineConfig(slots=8, page_size=64, num_pages=8 * 80 + 1, max_pages_per_slot=80,
+                        max_new_tokens=SERVING_NEW_TOKENS, eot_id=-1, mask_compat=False,
+                        use_fused=True)
+    eng = ContinuousBatchingEngine(params, cfg, ecfg)
+    for r in serving_requests(cfg, 8):
+        eng.submit(*r)
+    reset_counts()
+    times = []
+    for _ in range(n_steps):
+        t0 = time.perf_counter()
+        events = eng.step()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    counts = read_counts()
+    want = serving_launches(eng, cfg, int8=False)
+    if counts != want or eng.counts["token_steps"] != n_steps or counts["C"]:
+        raise AssertionError(f"[serving per-token] launches {counts}, expected {want}")
+    if len(events) != 8 or not all(0 <= e.token < cfg.extended_vocab_size for e in events):
+        raise AssertionError(f"[serving per-token] events of the last step {events}")
+    log(f"[serving per-token] 8 slots, use_fused, {n_steps} steps: host ms a step (synchronized) "
+        f"{', '.join(f'{x:.1f}' for x in times)} (the first admits 8 requests and prefills "
+        f"them); launches {dict((k, v) for k, v in counts.items() if v)}")
+    del eng
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_serving(cfg, params) -> dict:
+    """The continuous-batching engine at GAR-1B's full width (bench.py's
+    serving lines): bf16 8 slots one window of 256; int8 (serving_weights,
+    quantize_kv) 16 slots; int8 low-TTFT windows of 32; staggered bf16
+    arrivals with chunked prefill; per-token steps. Returns each run's
+    figures."""
+    from grasp_any_region_tpu_torch.models.quantize import serving_weights
+
+    runs = {"bf16": run_serving(cfg, params, "bf16", schedule=dict(
+        prefill_groups=1, tower_passes=1, windows=1, fresh_windows=1, window_steps=255))}
+    serving = serving_weights(params)
+    runs["int8 16-slot"] = run_serving(cfg, serving, "int8 16-slot", n_requests=16, slots=16,
+                                       int8=True, schedule=dict(
+        prefill_groups=1, tower_passes=1, windows=1, fresh_windows=1, window_steps=255))
+    # 255 steps in windows of 32: the first a burst, seven through the pages
+    # (gather and flush), the burst's survivors flushed after its fetch
+    runs["int8 low-TTFT"] = run_serving(cfg, serving, "int8 low-TTFT", window=32, int8=True,
+                                        schedule=dict(prefill_groups=1, windows=8,
+                                                      fresh_windows=1, gathers=7, flushes=8,
+                                                      window_steps=255))
+    del serving
+    torch.cuda.empty_cache()
+    # 4 requests up front (one group), 4 more at the first fetch: each of
+    # those a tower pass and ceil(4662 / 1024) = 5 chunks of kernel B
+    runs["staggered"] = run_serving(cfg, params, "staggered", window=32, staggered=True,
+                                    prefill_chunk=1024, schedule=dict(
+        prefill_groups=1, tower_passes=5, prefill_chunks=20, fresh_windows=1))
+    runs["per-token"] = dict(counts=run_serving_per_token(cfg, params))
+    return runs
+
+
 GAR8B_NEW_TOKENS = 64
 
 
@@ -2555,6 +3257,7 @@ def main() -> int:
     phase_cross_check(narrow_config(), mega=True)
     phase_cross_check(narrow_config(kv_heads=2), int8=True, mega=True)
     phase_train_cross_check(narrow_config(kv_heads=2))
+    phase_serving_cross_check()
     cfg = gar_1b()
     params = random_params(cfg, "cuda")
     params_q8 = quantize_decode_weights(params)
@@ -2566,6 +3269,8 @@ def main() -> int:
     mega_q8_caption, _ = phase_main_path(cfg, params, params_q8, mega=True,
                                          fused_tokens=tokens_q8)
     del params_q8
+    torch.cuda.empty_cache()
+    serving_runs = phase_serving(cfg, params)
     torch.cuda.empty_cache()
     train_counts, state, tx = phase_train_step(cfg, params)
     phase_packed_step(cfg, state, tx)
@@ -2605,6 +3310,16 @@ def main() -> int:
             row["path"] += f"; gar8b: {g8_path}"
             row["gar8b"] = dict(path=g8_path, launches=g8_counts[key],
                                 **{f: kernels[key]["gar8b"][f] for f in fields})
+    # the kernels on the serving path also name it, with their launches per
+    # served batch (the bf16 run's; the int8 kernels the int8 16-slot run's)
+    # and their figures at its shapes (phase 2)
+    for row, key in zip(table, KERNELS):
+        if key in SERVING_KEYS:
+            run = "int8 16-slot" if key.endswith("8") else "bf16"
+            s_path = f"ContinuousBatchingEngine (serving {run})"
+            row["path"] += f"; serving: {s_path}"
+            row["serving"] = dict(path=s_path, launches=serving_runs[run]["counts"][key],
+                                  shapes=kernels[key].get("serving", {}))
     print(smi)
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

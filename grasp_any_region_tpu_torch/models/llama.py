@@ -53,6 +53,7 @@ from ..ops.decode_megakernel import (decode_attention_wo, layer_mlp_residual,
 from ..ops.layer_matmul import (layer_matmul, layer_matmul_q8, layer_qkv, layer_qkv_q8,
                                 layer_swiglu, layer_swiglu_q8)
 from ..ops.norms import rms_norm
+from ..ops.paged_attention import paged_attention_reference
 from ..ops.rope import apply_rope, llama_inv_freq, rope_cos_sin
 
 
@@ -137,6 +138,20 @@ def _mlp(bp: dict, x: torch.Tensor) -> torch.Tensor:
     return _proj(bp, "w_down", F.silu(_proj(bp, "w_gate", x)) * _proj(bp, "w_up", x))
 
 
+def _layer(cfg: TextConfig, bp: dict, x: torch.Tensor, cos, sin, attend):
+    """One decoder layer of the plain form, x (B, S, D). attend(q, k, v)
+    (q (B, S, H, Dh), k / v (B, S, K, Dh) roped) writes whatever cache the
+    caller keeps and returns the attention output, reshapeable to (B, S,
+    H * Dh). Returns (x, k, v)."""
+    b, s, _ = x.shape
+    eps = cfg.rms_norm_eps
+    y = rms_norm(x, bp["attn_norm"], eps)
+    q, k, v = _qkv(cfg, bp, y, cos, sin)
+    x = x + _proj(bp, "wo", attend(q, k, v).reshape(b, s, -1))
+    y = rms_norm(x, bp["mlp_norm"], eps)
+    return x + _mlp(bp, y), k, v
+
+
 def llama_prefill(
     params: LlamaParams,
     cfg: TextConfig,
@@ -159,15 +174,12 @@ def llama_prefill(
     b, s, _ = inputs_embeds.shape
     L, kh, dh = cfg.num_layers, cfg.num_kv_heads, cfg.head_dim
     cos, sin = rope_cos_sin(positions, llama_inv_freq(cfg, inputs_embeds.device))
-    eps = cfg.rms_norm_eps
+
+    def attend(q, k, v):
+        return mha(q, k, v, causal=True, segment_ids=segment_ids, right_padded=right_padded)
 
     def layer(x, bp):
-        y = rms_norm(x, bp["attn_norm"], eps)
-        q, k, v = _qkv(cfg, bp, y, cos, sin)
-        a = mha(q, k, v, causal=True, segment_ids=segment_ids, right_padded=right_padded)
-        x = x + _proj(bp, "wo", a.reshape(b, s, -1))
-        y = rms_norm(x, bp["mlp_norm"], eps)
-        return x + _mlp(bp, y), k, v
+        return _layer(cfg, bp, x, cos, sin, attend)
 
     if return_kv:
         ks = inputs_embeds.new_empty((L, b, s, kh, dh))
@@ -181,6 +193,41 @@ def llama_prefill(
         if return_kv:
             ks[i], vs[i] = k, v
     return x, ((ks, vs) if return_kv else None)
+
+
+def llama_prefill_chunk(
+    params: LlamaParams,
+    cfg: TextConfig,
+    embeds: torch.Tensor,  # (B, C, D) one chunk of the prompt
+    positions: torch.Tensor,  # (B, C) absolute positions
+    kv_prefix: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+    """Incremental prefill (`grasp_any_region_tpu/models/llama.py:
+    llama_prefill_chunk`): one chunk of the prompt against the K/V of the
+    chunks before it, so a serving engine can advance a new request's
+    prompt a chunk at a time while its other slots decode.
+
+    kv_prefix: (L, B, P, K, Dh) K and V of the earlier chunks, None for the
+    first. The chunk's queries attend causally over prefix ++ chunk, the
+    mask right-aligned by P (kernel B at Sq = C < Sk = P + C on the card).
+    Returns (hidden (B, C, D), (k_all, v_all) (L, B, P + C, K, Dh))."""
+    b, c, _ = embeds.shape
+    L, kh, dh = cfg.num_layers, cfg.num_kv_heads, cfg.head_dim
+    p = 0 if kv_prefix is None else kv_prefix[0].shape[2]
+    cos, sin = rope_cos_sin(positions, llama_inv_freq(cfg, embeds.device))
+    ks = embeds.new_empty((L, b, p + c, kh, dh))
+    vs = embeds.new_empty((L, b, p + c, kh, dh))
+    if kv_prefix is not None:
+        ks[:, :, :p] = kv_prefix[0]
+        vs[:, :, :p] = kv_prefix[1]
+    x = embeds
+    for i, bp in enumerate(params.blocks.layers()):
+        def attend(q, k, v, i=i):
+            ks[i, :, p:], vs[i, :, p:] = k, v
+            return mha(q, ks[i], vs[i], causal=True)
+
+        x, _, _ = _layer(cfg, bp, x, cos, sin, attend)
+    return x, (ks, vs)
 
 
 def decode_kernel_choice(cfg: TextConfig, device) -> Union[bool, str]:
@@ -225,26 +272,52 @@ def llama_decode_step(
         return llama_decode_step_mega(params, cfg, inputs_embeds, cache, prompt_pad)
     if use_kernel:
         return llama_decode_step_fused(params, cfg, inputs_embeds, cache, prompt_pad)
-    b = inputs_embeds.shape[0]
     wp = cache.write_pos
     # rope position of the new token per row: prompt_len + tokens generated
     pos = cache.prompt_lens + (wp - prompt_pad)
     cos, sin = rope_cos_sin(pos[:, None], llama_inv_freq(cfg, inputs_embeds.device))
-    eps = cfg.rms_norm_eps
     x = inputs_embeds
-    for i in range(cfg.num_layers):
-        bp = params.blocks.layer(i)
-        y = rms_norm(x, bp["attn_norm"], eps)
-        q, k, v = _qkv(cfg, bp, y, cos, sin)  # q (B,1,H,Dh), k/v (B,1,K,Dh)
-        a = decode_attention_fused(
-            q[:, 0], cache.k, cache.v, k[:, 0].to(cache.k.dtype),
-            v[:, 0].to(cache.v.dtype), i, prompt_lens=cache.prompt_lens,
-            write_pos=wp, prompt_pad=prompt_pad)  # (B, H, Dh)
-        x = x + _proj(bp, "wo", a.reshape(b, 1, -1))
-        y = rms_norm(x, bp["mlp_norm"], eps)
-        x = x + _mlp(bp, y)
+    for i, bp in enumerate(params.blocks.layers()):
+        def attend(q, k, v, i=i):  # q (B, 1, H, Dh), k / v (B, 1, K, Dh)
+            return decode_attention_fused(
+                q[:, 0], cache.k, cache.v, k[:, 0].to(cache.k.dtype),
+                v[:, 0].to(cache.v.dtype), i, prompt_lens=cache.prompt_lens,
+                write_pos=wp, prompt_pad=prompt_pad)  # (B, H, Dh)
+
+        x, _, _ = _layer(cfg, bp, x, cos, sin, attend)
     wp.add_(1)
     return x, cache
+
+
+def _fused_layer(cfg: TextConfig, blk, i: int, x: torch.Tensor, cos, sin, attend):
+    """Layer i of the fused decode form, x (B, D): kernel J (q, k, v), rope,
+    attend(q (B, H, Dh), k, v (B, K, Dh)) -> (B, H, Dh), then H (wo), I
+    (SwiGLU) and H (w_down), or J8, H8, I8, H8 with int8 decode weights
+    (`wq_q8` present). Its rounding points are JAX's fused ones: q, k, v
+    rounded by J before rope; SiLU * up from fp32 sums with one rounding;
+    the residual adds outside the kernels. Returns the new x."""
+    b = x.shape[0]
+    h, kh, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    eps = cfg.rms_norm_eps
+    q8 = hasattr(blk, "wq_q8")
+    y = rms_norm(x, blk.attn_norm[i], eps)
+    if q8:
+        qf, kf, vf = layer_qkv_q8(y, blk.wq_q8, blk.wq_scale, blk.wk_q8, blk.wk_scale,
+                                  blk.wv_q8, blk.wv_scale, i)
+    else:
+        qf, kf, vf = layer_qkv(y, blk.wq, blk.wk, blk.wv, i)
+    q = apply_rope(qf.reshape(b, 1, h, dh), cos, sin)[:, 0]
+    k = apply_rope(kf.reshape(b, 1, kh, dh), cos, sin)[:, 0]
+    a = attend(q, k, vf.reshape(b, kh, dh)).reshape(b, h * dh)
+    if q8:
+        x = x + layer_matmul_q8(a, blk.wo_q8, blk.wo_scale, i)
+        y = rms_norm(x, blk.mlp_norm[i], eps)
+        act = layer_swiglu_q8(y, blk.w_gate_q8, blk.w_gate_scale, blk.w_up_q8,
+                              blk.w_up_scale, i)
+        return x + layer_matmul_q8(act, blk.w_down_q8, blk.w_down_scale, i)
+    x = x + layer_matmul(a, blk.wo, i)
+    y = rms_norm(x, blk.mlp_norm[i], eps)
+    return x + layer_matmul(layer_swiglu(y, blk.w_gate, blk.w_up, i), blk.w_down, i)
 
 
 def llama_decode_step_fused(
@@ -265,39 +338,19 @@ def llama_decode_step_fused(
     matmuls are J8, H8, I8, H8; with an int8 cache the attention is C8,
     which takes the new K/V in bf16 whatever the compute dtype (JAX's
     kv_io_dtype) and quantizes the appended column itself."""
-    b = inputs_embeds.shape[0]
-    h, kh, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     wp = cache.write_pos
     pos = cache.prompt_lens + (wp - prompt_pad)
     cos, sin = rope_cos_sin(pos[:, None], llama_inv_freq(cfg, inputs_embeds.device))
-    eps = cfg.rms_norm_eps
-    blk = params.blocks
-    q8 = hasattr(blk, "wq_q8")
     kv_io = torch.bfloat16 if cache.k.dtype == torch.int8 else cache.k.dtype
     x = inputs_embeds[:, 0]  # (B, D)
     for i in range(cfg.num_layers):
-        y = rms_norm(x, blk.attn_norm[i], eps)
-        if q8:
-            qf, kf, vf = layer_qkv_q8(y, blk.wq_q8, blk.wq_scale, blk.wk_q8, blk.wk_scale,
-                                      blk.wv_q8, blk.wv_scale, i)
-        else:
-            qf, kf, vf = layer_qkv(y, blk.wq, blk.wk, blk.wv, i)
-        q = apply_rope(qf.reshape(b, 1, h, dh), cos, sin)[:, 0]
-        k = apply_rope(kf.reshape(b, 1, kh, dh), cos, sin)[:, 0]
-        a = decode_attention_fused(
-            q, cache.k, cache.v, k.to(kv_io), vf.reshape(b, kh, dh).to(kv_io), i,
-            prompt_lens=cache.prompt_lens, write_pos=wp, prompt_pad=prompt_pad,
-            k_scale=cache.k_scale, v_scale=cache.v_scale).reshape(b, h * dh)
-        if q8:
-            x = x + layer_matmul_q8(a, blk.wo_q8, blk.wo_scale, i)
-            y = rms_norm(x, blk.mlp_norm[i], eps)
-            act = layer_swiglu_q8(y, blk.w_gate_q8, blk.w_gate_scale, blk.w_up_q8,
-                                  blk.w_up_scale, i)
-            x = x + layer_matmul_q8(act, blk.w_down_q8, blk.w_down_scale, i)
-        else:
-            x = x + layer_matmul(a, blk.wo, i)
-            y = rms_norm(x, blk.mlp_norm[i], eps)
-            x = x + layer_matmul(layer_swiglu(y, blk.w_gate, blk.w_up, i), blk.w_down, i)
+        def attend(q, k, v, i=i):
+            return decode_attention_fused(
+                q, cache.k, cache.v, k.to(kv_io), v.to(kv_io), i,
+                prompt_lens=cache.prompt_lens, write_pos=wp, prompt_pad=prompt_pad,
+                k_scale=cache.k_scale, v_scale=cache.v_scale)
+
+        x = _fused_layer(cfg, params.blocks, i, x, cos, sin, attend)
     wp.add_(1)
     return x[:, None], cache
 
@@ -350,6 +403,84 @@ def llama_decode_step_mega(
                                    eps=eps)
     wp.add_(1)
     return x[:, None], cache
+
+
+def _paged_writer(k_pool: torch.Tensor, v_pool: torch.Tensor, block_table: torch.Tensor,
+                  seq_lens: torch.Tensor, active: torch.Tensor):
+    """write(i, k, v): one step's k, v (B, K, Dh) into layer i of the pools
+    at each slot's position seq_lens[b], as serve/paged_cache
+    .append_token_pages writes all layers (inactive slots on the trash
+    page); the slots are found once a step."""
+    from ..serve.paged_cache import token_slots  # serve/ imports this module
+
+    pid, off = token_slots(block_table, seq_lens, active, k_pool.shape[3])
+
+    def write(i, k, v):
+        # the integer index goes first, so the target is (K, B, Dh)
+        k_pool[i][:, pid, off] = k.transpose(0, 1).to(k_pool.dtype)
+        v_pool[i][:, pid, off] = v.transpose(0, 1).to(v_pool.dtype)
+    return write
+
+
+def llama_decode_step_paged(
+    params: LlamaParams,
+    cfg: TextConfig,
+    inputs_embeds: torch.Tensor,  # (B, 1, D), B = engine slots
+    k_pool: torch.Tensor,  # (L, K, N, PS, Dh) page pools (serve/paged_cache.py)
+    v_pool: torch.Tensor,
+    block_table: torch.Tensor,  # (B, MP) int
+    seq_lens: torch.Tensor,  # (B,) int cached tokens per slot, before the step
+    active: torch.Tensor,  # (B,) bool
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One decode step against the paged pools, every slot at its own
+    length (`grasp_any_region_tpu/models/llama.py:llama_decode_step_paged`).
+    The new token's K/V land at position seq_lens[b] (page
+    block_table[b, seq_lens // PS], offset seq_lens % PS), inactive slots'
+    on the trash page, in place; attention is `paged_attention_reference`
+    over seq_lens + 1 tokens. Plain projections on every device, as the
+    JAX form is XLA. Returns (hidden (B, 1, D), k_pool, v_pool); the caller
+    advances seq_lens."""
+    cos, sin = rope_cos_sin(seq_lens[:, None], llama_inv_freq(cfg, inputs_embeds.device))
+    write = _paged_writer(k_pool, v_pool, block_table, seq_lens, active)
+    post_lens = seq_lens + 1  # attention covers the token being written
+    x = inputs_embeds
+    for i, bp in enumerate(params.blocks.layers()):
+        def attend(q, k, v, i=i):  # (B, 1, H, Dh), (B, 1, K, Dh)
+            write(i, k[:, 0], v[:, 0])
+            return paged_attention_reference(q[:, 0], k_pool[i], v_pool[i], block_table,
+                                             post_lens)
+
+        x, _, _ = _layer(cfg, bp, x, cos, sin, attend)
+    return x, k_pool, v_pool
+
+
+def llama_decode_step_paged_fused(
+    params: LlamaParams,
+    cfg: TextConfig,
+    inputs_embeds: torch.Tensor,  # (B, 1, D), B = engine slots
+    k_pool: torch.Tensor,  # (L, K, N, PS, Dh)
+    v_pool: torch.Tensor,
+    block_table: torch.Tensor,  # (B, MP) int
+    seq_lens: torch.Tensor,  # (B,) int
+    active: torch.Tensor,  # (B,) bool
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """`llama_decode_step_paged` with the layer-indexed weight stream
+    (`grasp_any_region_tpu/models/llama.py:llama_decode_step_paged_fused`):
+    the fused step's layer (`_fused_layer`: J, H, I, H or J8, H8, I8, H8)
+    around the plain paged attention. JAX pads the rows to at least 8 for
+    the TPU's sublanes; the stream kernels take any row count up to
+    layer_matmul.MAX_ROWS, so the rows go in as they are."""
+    cos, sin = rope_cos_sin(seq_lens[:, None], llama_inv_freq(cfg, inputs_embeds.device))
+    write = _paged_writer(k_pool, v_pool, block_table, seq_lens, active)
+    post_lens = seq_lens + 1
+    x = inputs_embeds[:, 0]  # (B, D)
+    for i in range(cfg.num_layers):
+        def attend(q, k, v, i=i):  # (B, H, Dh), (B, K, Dh)
+            write(i, k, v)
+            return paged_attention_reference(q, k_pool[i], v_pool[i], block_table, post_lens)
+
+        x = _fused_layer(cfg, params.blocks, i, x, cos, sin, attend)
+    return x[:, None], k_pool, v_pool
 
 
 def embed_tokens(params: LlamaParams, input_ids: torch.Tensor,

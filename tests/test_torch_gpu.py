@@ -354,6 +354,46 @@ def test_vit_mlp_kernel(rnd, d, rows, ratio, layer_scale, fast_gelu):
     _sized_close(out, want, f"G at {rows} x {d}, M = {ratio * d}")
 
 
+@pytest.mark.parametrize("t", [136, 272])
+def test_vit_block_kernels_at_an_admission_group(rnd, t):
+    """Kernels D, E, F and G over the tiles of one serving admission group,
+    8 and 16 requests of 17 tiles at gar_1b's widths: at 272 tiles G's
+    hidden is 2.28 GB and D's output 1.71 GB, so byte offsets pass 2^31.
+    Rows are independent, so each output is held against its plain version
+    in fp32 block by block of 34 tiles, at TOL and at the output-sized
+    tolerance."""
+    from grasp_any_region_tpu_torch.ops.rope import rope_head_tables
+
+    s, d, m, h, block = 1025, 1024, 4096, 16, 34
+    a = _block_args(rnd, d, m)
+    x, attn, qkv = rnd(t, s, d), rnd(t, s, d), rnd(t, s, 3 * d)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    cos, sin = rope_head_tables(_angles(gen, h, s - 1), h, 1)
+    f32 = {k: (tuple(v.float() for v in a[k]) if k == "ln" else a[k].float()) for k in a}
+    cases = {
+        "D": (vb.vit_ln_qkv(x, *a["ln"], a["wqkv"], a["bqkv"]),
+              lambda i: vb.vit_ln_qkv_plain(x[i].float(), *f32["ln"], f32["wqkv"], f32["bqkv"])),
+        "E": (va.vit_attention_fused_qkv(qkv, cos, sin, h, 64),
+              lambda i: va.vit_attention_fused_qkv_plain(qkv[i].float(), cos, sin, h, 64)),
+        "F": (vb.vit_wo_residual(attn, x, a["wo"], a["bo"], a["ls"]),
+              lambda i: vb.vit_wo_residual_plain(attn[i].float(), x[i].float(), f32["wo"],
+                                                 f32["bo"], f32["ls"])),
+        "G": (vb.vit_mlp_residual(x, *a["ln"], a["fc1"], a["b1"], a["fc2"], a["b2"], a["ls"],
+                                  fast_gelu=True),
+              lambda i: vb.vit_mlp_residual_plain(x[i].float(), *f32["ln"], f32["fc1"],
+                                                  f32["b1"], f32["fc2"], f32["b2"], f32["ls"],
+                                                  fast_gelu=True)),
+    }
+    torch.cuda.synchronize()
+    for name, (out, plain) in cases.items():
+        for i in range(0, t, block):
+            tiles = slice(i, i + block)
+            want = plain(tiles)
+            torch.testing.assert_close(out[tiles].float(), want, **TOL)
+            _sized_close(out[tiles], want, f"{name} at {t} tiles, tiles {i}-{i + block - 1}")
+            del want
+
+
 def test_vision_forward_auto_form_on_the_card(rnd):
     """fused_blocks=None on a CUDA tensor takes the fused form at head_dim
     64 and an even head count (kernels D-G, no A), and the unfused form
@@ -2079,3 +2119,219 @@ def test_gar8b_fused_decode_step_graph_replay(rnd, q8):
     assert torch.equal(h_graph, h_eager)
     assert torch.equal(graphed.k, eager.k) and torch.equal(graphed.v, eager.v)
     assert int(graphed.write_pos) == s + 1
+
+
+# ---- serving: kernels at the engine's shapes, the paged steps, the engine
+
+
+@pytest.mark.parametrize("sq,sk", [(1024, 3072), (566, 4662), (512, 1500), (476, 1500)])
+def test_flash_attention_prefill_chunk_kernel(rnd, sq, sk):
+    """Kernel B on a prompt chunk against its prefix (llama_prefill_chunk's
+    shapes: Sq = the chunk, Sk = prefix + chunk, the causal mask
+    right-aligned by Sk - Sq), 32 query heads over 8 kv heads: output at
+    the sized tolerance, LSE at atol 1e-3."""
+    q, k, v = rnd(1, sq, 32, 64), rnd(1, sk, 8, 64), rnd(1, sk, 8, 64)
+    before = fa.launches
+    out, lse = fa.flash_attention(q, k, v, causal=True, return_lse=True)
+    torch.cuda.synchronize()
+    assert fa.launches == before + 1
+    ref, ref_lse = fa.flash_attention_plain(q.float(), k.float(), v.float(), causal=True,
+                                            return_lse=True)
+    torch.testing.assert_close(out.float(), ref, **TOL)
+    _sized_close(out, ref, "out")
+    torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=1e-4)
+
+
+def _window_layout(b):
+    """A serving window's dense cache: each slot's own cached tokens
+    4662 - 64 r (prompt_lens), the window base 4864 (prompt_pad) and the
+    window's 18th step (write_pos), 5120 columns."""
+    return [4662 - 64 * r for r in range(b)], 4864, 4864 + 17, 5120
+
+
+@pytest.mark.parametrize("b", [8, 16])
+def test_decode_attention_kernel_over_a_window_cache(rnd, b):
+    """Kernel C over a window cache of 8 and 16 slots with distinct
+    prompt_lens: against the plain version at TOL16, then the interval
+    probe at TOL16; the cache changes only at column write_pos."""
+    plens, pad, wpos, s = _window_layout(b)
+    L, kh, layer = 2, 8, 1
+    k_all, v_all = rnd(L, b, kh, s, 64), rnd(L, b, kh, s, 64)
+    q, k_new, v_new = rnd(b, 32, 64), rnd(b, kh, 64), rnd(b, kh, 64)
+    kw = dict(prompt_lens=_cuda_int32(plens), write_pos=_cuda_int32(wpos), prompt_pad=pad)
+    for probe in (False, True):
+        if probe:
+            k0, vp = _interval_probe(v_all[layer], plens, pad, wpos)
+            k_all[layer], v_all[layer], k_new = k0, vp, torch.zeros_like(k_new)
+        k_exp, v_exp = k_all.clone(), v_all.clone()
+        ref = dec.decode_attention_fused_plain(q.float(), k_exp.float(), v_exp.float(),
+                                               k_new.float(), v_new.float(), layer, **kw)
+        out = dec.decode_attention_fused(q, k_all, v_all, k_new, v_new, layer, **kw)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out.float(), ref, **TOL16, msg=f"probe {probe}")
+        k_exp[layer, :, :, wpos], v_exp[layer, :, :, wpos] = k_new, v_new
+        assert torch.equal(k_all, k_exp) and torch.equal(v_all, v_exp)
+
+
+@pytest.mark.parametrize("b", [8, 16])
+def test_decode_attention_q8_kernel_over_a_window_cache(rnd, b):
+    """Kernel C8 over an int8 window cache of 8 and 16 slots (scales one
+    per (layer, slot, kv-head pair), as the int8 window quantizes them):
+    against the plain version at TOL16, then the interval and current-token
+    probes."""
+    plens, pad, wpos, s = _window_layout(b)
+    cache = _q8_cache(2, b, 8, s, b)
+    q, k_new, v_new = rnd(b, 32, 64), rnd(b, 8, 64), rnd(b, 8, 64)
+    args = (1, plens, pad, wpos)
+    _check_q8(*cache, q, k_new, v_new, *args)
+    for kind in ("interval", "current"):
+        k_all, v_all, ks, vs, kn, vn = _q8_probe(kind, *cache, q, k_new, v_new, *args)
+        _check_q8(k_all, v_all, ks, vs, q, kn, vn, *args)
+
+
+@pytest.mark.parametrize("b", [8, 16])
+def test_stream_kernels_at_the_serving_slot_counts(rnd, b):
+    """J, I, H (wo, w_down) and J8, I8, H8 at GAR-1B's widths with 8 and 16
+    rows, the engine's slot counts, against their plain versions at TOL."""
+    from grasp_any_region_tpu_torch.models.quantize import quantize_int8
+
+    layer = 1
+    w = _decode_weights(rnd, 3, 2048, 8192, 2048, 512)
+    q8 = {k: quantize_int8(v) for k, v in w.items()}
+    x_d, x_q, x_m = rnd(b, 2048), rnd(b, 2048), rnd(b, 8192)
+    cases = [
+        (lm.layer_qkv, lm.layer_qkv_plain, x_d, (w["wq"], w["wk"], w["wv"])),
+        (lm.layer_swiglu, lm.layer_swiglu_plain, x_d, (w["w_gate"], w["w_up"])),
+        (lm.layer_matmul, lm.layer_matmul_plain, x_q, (w["wo"],)),
+        (lm.layer_matmul, lm.layer_matmul_plain, x_m, (w["w_down"],)),
+        (lm.layer_qkv_q8, lm.layer_qkv_q8_plain, x_d, (*q8["wq"], *q8["wk"], *q8["wv"])),
+        (lm.layer_swiglu_q8, lm.layer_swiglu_q8_plain, x_d, (*q8["w_gate"], *q8["w_up"])),
+        (lm.layer_matmul_q8, lm.layer_matmul_q8_plain, x_q, q8["wo"]),
+        (lm.layer_matmul_q8, lm.layer_matmul_q8_plain, x_m, q8["w_down"]),
+    ]
+    before = dict(lm.launches)
+    for kernel, plain, x, mats in cases:
+        out = kernel(x, *mats, layer)
+        torch.cuda.synchronize()
+        ref = plain(x.float(), *(t[layer:layer + 1].float() for t in mats), 0)
+        outs, refs = (out, ref) if isinstance(out, tuple) else ((out,), (ref,))
+        for o, r in zip(outs, refs):
+            assert o.shape[0] == b
+            torch.testing.assert_close(o.float(), r, **TOL)
+    assert lm.launches == {k: v + (2 if k.startswith("H") else 1) for k, v in before.items()}
+
+
+def _serving_config():
+    """gar_1b narrowed to what the kernels take at small widths (chip_smoke's
+    narrow config): the tower at width 256, 4 heads of 64, depth 2; the
+    decoder at hidden 256, 4 heads over 2 kv heads of 64, 2 layers, MLP
+    1024. The engine tests run 3 slots != 2 kv heads."""
+    from grasp_any_region_tpu_torch.core.config import gar_1b
+
+    base = gar_1b()
+    return dataclasses.replace(
+        base, vision=dataclasses.replace(base.vision, width=256, num_heads=4, depth=2),
+        text=dataclasses.replace(base.text, hidden_size=256, num_heads=4, num_kv_heads=2,
+                                 head_dim=64, num_layers=2, intermediate_size=1024))
+
+
+def _serving_params(cfg):
+    from grasp_any_region_tpu_torch.core.weights import init_gar_params
+
+    params = init_gar_params(cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda",
+                             dtype=torch.bfloat16)
+    with torch.no_grad():
+        params.mask_embed.kernel.normal_(0.0, 0.02)
+    return params
+
+
+def test_paged_fused_step_matches_the_paged_step(rnd):
+    """llama_decode_step_paged_fused (J, H, I, H a layer) against
+    llama_decode_step_paged (cuBLAS products) on the same pools: hidden and
+    the written entries within 5e-2 of their range, no other entry
+    changed outside the trash page, no kernel C."""
+    from grasp_any_region_tpu_torch.models.llama import (llama_decode_step_paged,
+                                                         llama_decode_step_paged_fused)
+
+    cfg = _serving_config()
+    tc = cfg.text
+    params = _serving_params(cfg)
+    n_pages, ps = 40, 64
+    pools = [rnd(2, 2, n_pages, ps, 64) for _ in range(2)]
+    bt = (torch.randperm(n_pages - 1, generator=torch.Generator().manual_seed(1))[:12] + 1) \
+        .reshape(3, 4).to(torch.int32).cuda()
+    seq_lens = _cuda_int32([200, 63, 5])
+    active = torch.tensor([True, True, False], device="cuda")
+    emb = rnd(3, 1, tc.hidden_size)
+    outs = []
+    for step in (llama_decode_step_paged, llama_decode_step_paged_fused):
+        kp, vp = (p.clone() for p in pools)
+        before, c_before = dict(lm.launches), dec.launches
+        hidden, kp, vp = step(params.llm, tc, emb, kp, vp, bt, seq_lens, active)
+        torch.cuda.synchronize()
+        assert dec.launches == c_before
+        outs.append((hidden, kp, vp))
+    assert lm.launches == {k: v + {"J": 2, "I": 2, "H": 4}.get(k, 0) for k, v in before.items()}
+    (h1, k1, v1), (h2, k2, v2) = outs
+    assert ((h2[:2].float() - h1[:2].float()).abs().max() / h1[:2].float().abs().max()) < 5e-2
+    pid, off = bt[[0, 1], [200 // ps, 63 // ps]].long(), torch.tensor([200 % ps, 63], device="cuda")
+    for a, c, pool in ((k1, k2, pools[0]), (v1, v2, pools[1])):
+        rel = (c[:, :, pid, off].float() - a[:, :, pid, off].float()).abs().max() \
+            / a[:, :, pid, off].float().abs().max()
+        assert rel < 5e-2
+        c[:, :, pid, off] = pool[:, :, pid, off]
+        c[:, :, 0] = pool[:, :, 0]
+        assert torch.equal(c, pool)
+
+
+def _engine_run(params, cfg, reqs, burst=True, **kw):
+    from grasp_any_region_tpu_torch.serve import ContinuousBatchingEngine, EngineConfig
+
+    ecfg = EngineConfig(**{**dict(slots=3, page_size=64, num_pages=100, max_pages_per_slot=32,
+                                  max_new_tokens=20, eot_id=-1, mask_compat=False,
+                                  decode_chunk=8), **kw})
+    eng = ContinuousBatchingEngine(params, cfg, ecfg)
+    if not burst:
+        eng._burst = lambda live: False
+    ids = [eng.submit(*r) for r in reqs]
+    out = eng.run()
+    assert eng.allocator.free_pages == ecfg.num_pages - 1
+    return [out[i] for i in ids], eng
+
+
+def _serving_requests(cfg, n):
+    from grasp_any_region_tpu_torch.data.synthetic import synthetic_batch
+
+    reqs = []
+    for seed in range(n):
+        batch, _, plens = synthetic_batch(cfg, grid=(1, 1), seed=seed, device="cuda")
+        reqs.append((batch, int(plens[0])))
+    return reqs
+
+
+def test_engine_burst_path_equals_gather_path(rnd):
+    """The bf16 engine on the card: its burst window (prefill K/V straight
+    into the window cache) and its gather path (pages seeded and gathered)
+    give the same tokens bit for bit (masked columns are never read), and
+    the burst run took the burst path."""
+    cfg = _serving_config()
+    params = _serving_params(cfg)
+    reqs = _serving_requests(cfg, 3)
+    (burst, eng_b), (gather, eng_g) = (_engine_run(params, cfg, reqs, burst=b) for b in (True, False))
+    assert eng_b.counts["fresh_windows"] >= 1 and "fresh_windows" not in eng_g.counts
+    assert burst == gather and all(len(t) == 20 for t in burst)
+
+
+@pytest.mark.parametrize("quantize_kv", [False, True], ids=["bf16", "int8"])
+def test_engine_window_run_twice_gives_the_same_tokens(rnd, quantize_kv):
+    """The same requests through the same engine twice: the second run
+    finds stale pages and a trash page written in another order, and gives
+    the same tokens (the int8 window's scales skip the masked columns)."""
+    cfg = _serving_config()
+    params = _serving_params(cfg)
+    reqs = _serving_requests(cfg, 3)
+    first, eng = _engine_run(params, cfg, reqs, quantize_kv=quantize_kv, decode_chunk=4)
+    ids = [eng.submit(*r) for r in reqs]
+    out = eng.run()
+    assert [out[i] for i in ids] == first
+    assert eng.counts["gathers"] >= 2
