@@ -138,10 +138,15 @@ GAR-8B (its kernels in phase 2, its paths after phase 9):
    with the interval probe and its CTAs a (kv head, row) swept 1-16; then
    H, I, J, H8, I8, J8 at GAR-8B's widths (hidden 4096, MLP 14336, q 4096,
    k and v 1024; 8 stacked layers), as at GAR-1B's (`decode_matmul_kernels`
-   with those widths) but without the narrow and ragged checks. Each with
-   its time after an L2 flush, plain time, bound and library time (SDPA;
-   SDPA with enable_gqa; SDPA with the boolean mask; torch.mm, cuBLAS's
-   composites, torch._weight_int8pack_mm).
+   with those widths) but without the narrow and ragged checks; the
+   backward kernels of the 8B train step (`gar8b_train_kernels`): 5 at (9,
+   1025, 16, 96), v a view of the qkv buffer, also at S = 1024, and the
+   backward call (17's prep, 18, 17's cast) at the 2614-token prompt, 32 /
+   8 heads of 128, causal, without and with segment ids, as the GAR-1B
+   rows (`backward_case`). Each with its time after an L2 flush, plain
+   time, bound and library time (SDPA; SDPA with enable_gqa; SDPA with the
+   boolean mask; torch.mm, cuBLAS's composites, torch._weight_int8pack_mm;
+   SDPA's backward).
 10. Cross-check on a narrow 8B-shaped config (`narrow_8b_config`: tower
    width 192, 2 heads of 96, depth 2; decoder hidden 512, 4 heads of 128
    over 1 kv head, 2 layers, MLP 1024; untied head, rope factor 8), as
@@ -156,6 +161,14 @@ GAR-8B (its kernels in phase 2, its paths after phase 9):
    bytes and peak memory; launches per caption A = 47, B = 32, C = J = I =
    32 * 63, H = 2 * 32 * 63 (int8: J8 = I8 = 32 * 63, H8 = 2 * 32 * 63, C
    = 32 * 63), every other kernel 0.
+12. GAR-8B's train step at full width (`phase_gar8b_train`), the
+   reference's single-card regime: LoRA (rank 16, alpha 32 on wq, wk, wv,
+   wo) over seeded random bf16 weights, `OptimizerConfig(lora_only=True)`,
+   the 8B caption's batch (9 tiles, 2614 tokens); two warm-up steps, three
+   timed: losses, ms a step, tok/s, peak memory, grad_norm and the launches
+   a step, exactly A = 94, 5 = 47, B = 64, 17 = 18 = 32 + 47; then
+   `merge_lora` and the merged tree's prefill logits against the unmerged
+   tree's within 5e-2 of their range.
 
 Training (its kernels in phase 2, its paths after phase 6):
 
@@ -202,7 +215,8 @@ Training (its kernels in phase 2, its paths after phase 6):
 
 The line before the last is a JSON object with one entry per kernel (A, B,
 C, H, I, J, H8, I8, J8 also with a "gar8b" object: their figures at
-GAR-8B's shapes and their launches per 8B caption; B, C, C8, D-G, H-J and
+GAR-8B's shapes and their launches per 8B caption; 5, 17 and 18 with
+theirs per 8B LoRA train step; B, C, C8, D-G, H-J and
 H8-J8 also with a "serving" object: the serving run, its launches and
 their figures at the serving shapes); the last line is
 {"ok": true, "device": {...}}.
@@ -414,6 +428,7 @@ def phase_kernels():
         results[key]["serving"] = shapes
     # GAR-8B's shapes: A at head dim 96, B and C at 128, the stream at its widths
     gar8b = gar8b_attention_kernels(rnd)
+    gar8b.update(gar8b_train_kernels(rnd))
     gar8b.update(decode_matmul_kernels(rnd, GAR8B_WIDTHS, 8, "8B "))
     torch.cuda.empty_cache()
     for name, r in gar8b.items():
@@ -523,108 +538,113 @@ def train_kernels(rnd):
         f"(1025 / 1024)^2 = 1.002x; the one-key tail folded into the eighth key tile's CTA)")
     del q, k, v, g, out, lse, got, even, lse_even
 
-    def backward_case(label, b, sq, h, kh, seg=None):
-        """B with its LSE, then 17 and 18, at one shape; returns the entries."""
-        q, g = rnd(b, sq, h, d), rnd(b, sq, h, d)
-        k, v = rnd(b, sq, kh, d), rnd(b, sq, kh, d)
-        kw = dict(causal=True, segment_ids=seg)
-        pairs = b * sq * (sq + 1) // 2 if seg is None else causal_pairs(seg)
-        out, lse = fa.flash_attention(q, k, v, return_lse=True, **kw)
-        torch.cuda.synchronize()
-        if sq <= 8192:  # the plain forward holds H x S x S fp32 logits
-            ref, ref_lse = fa.flash_attention_plain(q.float(), k.float(), v.float(),
-                                                    return_lse=True, **kw)
-            err_b = max(max_err(out, ref, f"B {label}", **sized_tol(ref)),
-                        max_err(lse, ref_lse, f"B's LSE {label}", atol=LSE_TOL, rtol=1e-4))
-            del ref, ref_lse
-            b_ms = cuda_ms(lambda: fa.flash_attention(q, k, v, return_lse=True, **kw))
-            lim = bound(nbytes(q, k, v, out, lse), 4 * h * d * pairs)
-            if seg is None:
-                lib_fwd = cuda_ms(lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True))
-            else:  # causal and equal ids as SDPA's boolean mask, K/V widened to every head
-                mask = fa.attention_mask(sq, sq, True, seg, q.device)[:, 0]
-                kw_, vw_ = k.repeat_interleave(h // kh, 2), v.repeat_interleave(h // kh, 2)
-                lib_fwd = cuda_ms(lambda: sdpa(q, kw_, vw_, attn_mask=mask))
-                del mask, kw_, vw_
-            log(f"[kernels] B with its LSE, {label}: "
-                f"{share_line(dict(ms=b_ms, library_ms=lib_fwd, **lim))} (SDPA"
-                f"{' with the boolean mask' if seg is not None else ''}, no LSE), "
-                f"max |kernel - plain| {err_b:.3e}")
-        # the whole backward call (17, 18, 17): its peak over the inputs, its outputs
-        torch.cuda.synchronize()
-        base = torch.cuda.memory_allocated()
-        torch.cuda.reset_peak_memory_stats()
-        dq, dk, dv = fb.flash_attention_bwd(q, k, v, out, lse, g, **kw)
-        torch.cuda.synchronize()
-        peak_mb = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
-        if label == "16k" and peak_mb >= 256:
-            raise AssertionError(f"17 / 18 at 16k: peak {peak_mb:.1f} MiB over the inputs >= 256")
-        again = fb.flash_attention_bwd(q, k, v, out, lse, g, **kw)
-        torch.cuda.synchronize()
-        if not (torch.equal(dk, again[1]) and torch.equal(dv, again[2])):
-            raise AssertionError(f"18 {label}: dk or dv differ between two runs")
-        del again
-        # the plain version at bf16 inputs rounds p and dS to bf16 where the
-        # kernels (and the Pallas kernels at bf16) round them; at fp32 inputs
-        # it rounds nothing, for the record
-        want = fb.flash_attention_bwd_plain(q, k, v, out, lse, g, **kw)
-        err = [max_err(a, w, f"{n} {label}", **sized_tol(w))
-               for n, a, w in zip(("17 dq", "18 dk", "18 dv"), (dq, dk, dv), want)]
-        tols = ", ".join(f"{sized_tol(w)['atol']:.2e}" for w in want)
-        del want
-        args = (q.float(), k.float(), v.float(), out.float(), lse, g.float())
-        unrounded = max((a.float() - w).abs().max().item() for a, w in
-                        zip((dq, dk, dv), fb.flash_attention_bwd_plain(*args, **kw)))
-        del args
-        delta, dq_acc = fb.bwd_prep(out, g)
-        err_delta = max_err(delta, fb.bwd_delta(out, g), f"17's delta {label}", atol=1e-4,
-                            rtol=1e-4)
-        scale = d ** -0.5
-        prep_ms = cuda_ms(lambda: fb.bwd_prep(out, g))
-        cast_ms = cuda_ms(lambda: fb.bwd_dq_cast(dq_acc))
-        dkv_ms = cuda_ms(lambda: fb.flash_attention_bwd_dkv(q, k, v, g, lse, delta, dq_acc, **kw))
-        call_ms = cuda_ms(lambda: fb.flash_attention_bwd(q, k, v, out, lse, g, **kw))
-        if seg is None:
-            lib = sdpa_bwd_ms(q, k, v, g, is_causal=True, enable_gqa=True)
-        else:  # causal and equal ids as SDPA's boolean mask, K/V widened to every query head
-            mask = fa.attention_mask(sq, sq, True, seg, q.device)[:, 0]
-            lib = sdpa_bwd_ms(q, k.repeat_interleave(h // kh, 2), v.repeat_interleave(h // kh, 2),
-                              g, attn_mask=mask)
-            del mask
-        # 17's function reads out and g and writes delta and dq; the fp32
-        # workspace it zeroes and reads back is the price of 18's atomic dq,
-        # so its bound leaves that out; 18's counts the workspace once, as
-        # its output. No one PyTorch call computes prep and cast: SDPA's
-        # backward stands on 18's row and beside the whole call.
-        ops = 5 * 2 * h * d * pairs
-        entries = {
-            "17": dict(max_abs_err=max(err[0], err_delta), ms=prep_ms + cast_ms,
-                       plain_ms=cuda_ms(lambda: fb.bwd_delta(out, g))
-                       + cuda_ms(lambda: (dq_acc * scale).to(q.dtype)),
-                       library_ms=None, **bound(nbytes(out, g, delta, dq), 0)),
-            "18": dict(max_abs_err=max(err[1:]), ms=dkv_ms, library_ms=lib,
-                       plain_ms=cuda_ms(lambda: fb.flash_attention_bwd_plain(
-                           q, k, v, out, lse, g, **kw), iters=3) if label == "prefill" else None,
-                       **bound(nbytes(q, k, v, g, lse, delta, dk, dv, dq_acc), ops))}
-        call_bound = bound(nbytes(q, k, v, out, g, lse, dq, dk, dv), ops)["bound_ms"]
-        log(f"[kernels] 17 / 18, {label} (B = {b}, S = {sq}, {h} / {kh} heads, {pairs} causal "
-            f"pairs): 17 {prep_ms:.4f} + {cast_ms:.4f} ms (prep + cast), 18 {dkv_ms:.4f} ms; the "
-            f"backward call {call_ms:.4f} ms against SDPA's backward {lib:.4f} ms "
-            f"({call_ms / lib:.2f}x; bound of the call {call_bound:.4f} ms, 17 "
-            f"{entries['17']['bound_ms']:.4f} ms of bytes, 18 "
-            f"{entries['18']['bound_ms']:.4f} ms of operations); peak memory of the backward call "
-            f"{peak_mb:.1f} MiB over its inputs; max |kernel - plain| dq {err[0]:.3e}, dk "
-            f"{err[1]:.3e}, dv {err[2]:.3e} (atol {tols}, rtol 2^-6; p and dS rounded to bf16 "
-            f"in both; {unrounded:.3e} against the unrounded plain version), delta "
-            f"{err_delta:.3e}; dk, dv equal across two runs")
-        return entries
-
-    results.update(backward_case("prefill", 1, 4662, 32, 8))
+    results.update(backward_case(rnd, "prefill", 1, 4662, 32, 8, time_plain=True))
     gen = torch.Generator().manual_seed(SEED)
-    backward_case("packed", 2, 4096, 32, 8, seg=packed_segments(2, 4096, gen))
-    backward_case("16k", 1, 16384, 32, 8)
+    backward_case(rnd, "packed", 2, 4096, 32, 8, seg=packed_segments(2, 4096, gen))
+    backward_case(rnd, "16k", 1, 16384, 32, 8)
     torch.cuda.empty_cache()
     return results
+
+
+def backward_case(rnd, label, b, sq, h, kh, d=64, seg=None, time_plain=False):
+    """B with its LSE, then 17 and 18, at one shape, head dim d; returns the
+    entries (the plain backward timed where time_plain)."""
+    from grasp_any_region_tpu_torch.ops import flash_attention as fa
+    from grasp_any_region_tpu_torch.ops import flash_backward as fb
+
+    q, g = rnd(b, sq, h, d), rnd(b, sq, h, d)
+    k, v = rnd(b, sq, kh, d), rnd(b, sq, kh, d)
+    kw = dict(causal=True, segment_ids=seg)
+    pairs = b * sq * (sq + 1) // 2 if seg is None else causal_pairs(seg)
+    out, lse = fa.flash_attention(q, k, v, return_lse=True, **kw)
+    torch.cuda.synchronize()
+    if sq <= 8192:  # the plain forward holds H x S x S fp32 logits
+        ref, ref_lse = fa.flash_attention_plain(q.float(), k.float(), v.float(),
+                                                return_lse=True, **kw)
+        err_b = max(max_err(out, ref, f"B {label}", **sized_tol(ref)),
+                    max_err(lse, ref_lse, f"B's LSE {label}", atol=LSE_TOL, rtol=1e-4))
+        del ref, ref_lse
+        b_ms = cuda_ms(lambda: fa.flash_attention(q, k, v, return_lse=True, **kw))
+        lim = bound(nbytes(q, k, v, out, lse), 4 * h * d * pairs)
+        if seg is None:
+            lib_fwd = cuda_ms(lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True))
+        else:  # causal and equal ids as SDPA's boolean mask, K/V widened to every head
+            mask = fa.attention_mask(sq, sq, True, seg, q.device)[:, 0]
+            kw_, vw_ = k.repeat_interleave(h // kh, 2), v.repeat_interleave(h // kh, 2)
+            lib_fwd = cuda_ms(lambda: sdpa(q, kw_, vw_, attn_mask=mask))
+            del mask, kw_, vw_
+        log(f"[kernels] B with its LSE, {label}: "
+            f"{share_line(dict(ms=b_ms, library_ms=lib_fwd, **lim))} (SDPA"
+            f"{' with the boolean mask' if seg is not None else ''}, no LSE), "
+            f"max |kernel - plain| {err_b:.3e}")
+    # the whole backward call (17, 18, 17): its peak over the inputs, its outputs
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    dq, dk, dv = fb.flash_attention_bwd(q, k, v, out, lse, g, **kw)
+    torch.cuda.synchronize()
+    peak_mb = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+    if label == "16k" and peak_mb >= 256:
+        raise AssertionError(f"17 / 18 at 16k: peak {peak_mb:.1f} MiB over the inputs >= 256")
+    again = fb.flash_attention_bwd(q, k, v, out, lse, g, **kw)
+    torch.cuda.synchronize()
+    if not (torch.equal(dk, again[1]) and torch.equal(dv, again[2])):
+        raise AssertionError(f"18 {label}: dk or dv differ between two runs")
+    del again
+    # the plain version at bf16 inputs rounds p and dS to bf16 where the
+    # kernels (and the Pallas kernels at bf16) round them; at fp32 inputs
+    # it rounds nothing, for the record
+    want = fb.flash_attention_bwd_plain(q, k, v, out, lse, g, **kw)
+    err = [max_err(a, w, f"{n} {label}", **sized_tol(w))
+           for n, a, w in zip(("17 dq", "18 dk", "18 dv"), (dq, dk, dv), want)]
+    tols = ", ".join(f"{sized_tol(w)['atol']:.2e}" for w in want)
+    del want
+    args = (q.float(), k.float(), v.float(), out.float(), lse, g.float())
+    unrounded = max((a.float() - w).abs().max().item() for a, w in
+                    zip((dq, dk, dv), fb.flash_attention_bwd_plain(*args, **kw)))
+    del args
+    delta, dq_acc = fb.bwd_prep(out, g)
+    err_delta = max_err(delta, fb.bwd_delta(out, g), f"17's delta {label}", atol=1e-4,
+                        rtol=1e-4)
+    scale = d ** -0.5
+    prep_ms = cuda_ms(lambda: fb.bwd_prep(out, g))
+    cast_ms = cuda_ms(lambda: fb.bwd_dq_cast(dq_acc))
+    dkv_ms = cuda_ms(lambda: fb.flash_attention_bwd_dkv(q, k, v, g, lse, delta, dq_acc, **kw))
+    call_ms = cuda_ms(lambda: fb.flash_attention_bwd(q, k, v, out, lse, g, **kw))
+    if seg is None:
+        lib = sdpa_bwd_ms(q, k, v, g, is_causal=True, enable_gqa=True)
+    else:  # causal and equal ids as SDPA's boolean mask, K/V widened to every query head
+        mask = fa.attention_mask(sq, sq, True, seg, q.device)[:, 0]
+        lib = sdpa_bwd_ms(q, k.repeat_interleave(h // kh, 2), v.repeat_interleave(h // kh, 2),
+                          g, attn_mask=mask)
+        del mask
+    # 17's function reads out and g and writes delta and dq; the fp32
+    # workspace it zeroes and reads back is the price of 18's atomic dq,
+    # so its bound leaves that out; 18's counts the workspace once, as
+    # its output. No one PyTorch call computes prep and cast: SDPA's
+    # backward stands on 18's row and beside the whole call.
+    ops = 5 * 2 * h * d * pairs
+    entries = {
+        "17": dict(max_abs_err=max(err[0], err_delta), ms=prep_ms + cast_ms,
+                   plain_ms=cuda_ms(lambda: fb.bwd_delta(out, g))
+                   + cuda_ms(lambda: (dq_acc * scale).to(q.dtype)),
+                   library_ms=None, **bound(nbytes(out, g, delta, dq), 0)),
+        "18": dict(max_abs_err=max(err[1:]), ms=dkv_ms, library_ms=lib,
+                   plain_ms=cuda_ms(lambda: fb.flash_attention_bwd_plain(
+                       q, k, v, out, lse, g, **kw), iters=3) if time_plain else None,
+                   **bound(nbytes(q, k, v, g, lse, delta, dk, dv, dq_acc), ops))}
+    call_bound = bound(nbytes(q, k, v, out, g, lse, dq, dk, dv), ops)["bound_ms"]
+    log(f"[kernels] 17 / 18, {label} (B = {b}, S = {sq}, {h} / {kh} heads, {pairs} causal "
+        f"pairs): 17 {prep_ms:.4f} + {cast_ms:.4f} ms (prep + cast), 18 {dkv_ms:.4f} ms; the "
+        f"backward call {call_ms:.4f} ms against SDPA's backward {lib:.4f} ms "
+        f"({call_ms / lib:.2f}x; bound of the call {call_bound:.4f} ms, 17 "
+        f"{entries['17']['bound_ms']:.4f} ms of bytes, 18 "
+        f"{entries['18']['bound_ms']:.4f} ms of operations); peak memory of the backward call "
+        f"{peak_mb:.1f} MiB over its inputs; max |kernel - plain| dq {err[0]:.3e}, dk "
+        f"{err[1]:.3e}, dv {err[2]:.3e} (atol {tols}, rtol 2^-6; p and dS rounded to bf16 "
+        f"in both; {unrounded:.3e} against the unrounded plain version), delta "
+        f"{err_delta:.3e}; dk, dv equal across two runs")
+    return entries
 
 
 def decode_work(q, k_all, plens, pad, wpos):
@@ -957,6 +977,56 @@ def gar8b_attention_kernels(rnd):
             + ", ".join(f"{n}: {ms:.4f}" for n, ms in sweep.items()))
         out8.setdefault("C", r)
         del k_all, v_all, k_lay, v_lay, mask, out
+    torch.cuda.empty_cache()
+    return out8
+
+
+def gar8b_train_kernels(rnd):
+    """Kernels 5, 17 and 18 at GAR-8B's head dims against their plain
+    versions (p and dS rounded to bf16 where the kernels round them), at
+    `sized_tol`: 5 (17's prep, 18's wide pass, 17's cast) at (9, 1025, 16,
+    96), v a view of the PE-G block's (T, S, 3, H, 96) qkv buffer, also
+    timed at S = 1024 (the price of the one-key tile's own CTA); the
+    backward call at the 2614-token prompt, 32 / 8 heads of 128, causal,
+    without segment ids (the train step's right-padded rows: its figures
+    fill the 8B rows of 17 and 18) and with two documents and padding
+    (`backward_case`). SDPA's backward at the same shape is the library
+    time. Returns the 8B entries of 5, 17 and 18."""
+    from grasp_any_region_tpu_torch.ops import vit_attention as va
+
+    out8 = {}
+    t, s, h, d = 9, 1025, 16, 96
+    q, k, g = (rnd(t, s, h, d) for _ in range(3))
+    v = rnd(t, s, 3, h, d)[:, :, 2]
+    out, lse = va.vit_attention(q, k, v, return_lse=True)
+    got = va.vit_attention_bwd(q, k, v, out, lse, g)
+    torch.cuda.synchronize()
+    want = va.vit_attention_bwd_plain(q, k, v, out, lse, g)
+    err = max(max_err(a, w, f"5 {n} (head dim 96)", **sized_tol(w))
+              for n, a, w in zip(("dq", "dk", "dv"), got, want))
+    tols = ", ".join(f"{sized_tol(w)['atol']:.2e}" for w in want)
+    del want
+    out8["5"] = dict(
+        max_abs_err=err, ms=cuda_ms(lambda: va.vit_attention_bwd(q, k, v, out, lse, g)),
+        plain_ms=cuda_ms(lambda: va.vit_attention_bwd_plain(q, k, v, out, lse, g), iters=3),
+        library_ms=sdpa_bwd_ms(q, k, v, g),
+        **bound(nbytes(q, k, v, out, g, lse, *got), 5 * 2 * t * h * s * s * d))
+    even = [x[:, 1:] if x is v else x[:, 1:].contiguous() for x in (q, k, v, out, g)]
+    lse_even = lse[:, :, 1:].contiguous()
+    ms_even = cuda_ms(lambda: va.vit_attention_bwd(*even[:4], lse_even, even[4]))
+    log(f"[kernels 8B] 5 (17's prep, 18's wide pass, 17's cast; T = {t}, S = {s}, {h} heads of "
+        f"{d}, v a view of the qkv buffer; library: SDPA's backward): {share_line(out8['5'])}; "
+        f"plain {out8['5']['plain_ms']:.4f} ms; max |kernel - plain| {err:.3e} (atol {tols}, "
+        f"rtol 2^-6); at S = 1024 {ms_even:.4f} ms (work (1025 / 1024)^2 = 1.002x; at 96 the "
+        f"one key past the eighth key tile takes a ninth tile's CTAs, 1/8 more)")
+    del q, k, v, g, out, lse, got, even, lse_even
+    entries = backward_case(rnd, "8B prefill", 1, GAR8B_PROMPT, 32, 8, d=128, time_plain=True)
+    for key in ("17", "18"):
+        out8[key] = entries[key]
+    seg = torch.zeros((1, GAR8B_PROMPT), dtype=torch.int32)
+    seg[0, :1900], seg[0, 1900:2500] = 1, 2  # two documents, then padding
+    backward_case(rnd, "8B prefill, segment ids", 1, GAR8B_PROMPT, 32, 8, d=128,
+                  seg=seg.to("cuda"))
     torch.cuda.empty_cache()
     return out8
 
@@ -2912,6 +2982,126 @@ def phase_gar8b(int8: bool):
     return counts
 
 
+def phase_gar8b_train():
+    """GAR-8B's train step at full width on one card, in the reference's
+    single-device regime, LoRA (`train/lora.py`: rank 16, alpha 32 on wq,
+    wk, wv, wo; A from a seeded generator, B = 0): seeded random bf16 base
+    weights (`random_params`), fp32 adapters, `OptimizerConfig(lora_only=
+    True)` (the adapters, the mask embed, llm/embed, llm/lm_head and
+    vision/pos_embed train; every float leaf is differentiated and
+    grad_norm covers every gradient, as in JAX); the 8B caption's batch
+    (9 tiles, one region, the 2614-token prompt). The tower runs unfused
+    (kernel A with its LSE, kernel 5 at head dim 96), the decoder through
+    B, 17 and 18 at 128. Two warm-up steps, then three timed by CUDA
+    events: the losses (finite), ms a step, tok/s, peak memory, grad_norm,
+    and the launches of each step, which must be exactly A = 2 x 47, 5 =
+    47, B = 2 x 32, 17 = 18 = 32 + 47 (kernel 5 is one call of 17's prep,
+    18 and 17's cast), every other kernel 0. Then `merge_lora`: the merged
+    tree's last-64-position prefill logits against the unmerged tree's on
+    the card, within E2E_TOL of their range. Returns the launches a step."""
+    from grasp_any_region_tpu_torch.core.config import gar_8b
+    from grasp_any_region_tpu_torch.data.synthetic import synthetic_batch
+    from grasp_any_region_tpu_torch.models.gar import gar_prefill
+    from grasp_any_region_tpu_torch.models.llama import lm_logits
+    from grasp_any_region_tpu_torch.train import OptimizerConfig, init_state, make_train_step
+    from grasp_any_region_tpu_torch.train.lora import LoRAConfig, add_lora_params, merge_lora
+    from grasp_any_region_tpu_torch.utils.flops import gar_flops
+
+    cfg, lora = gar_8b(), LoRAConfig()
+    tag = "[gar8b train]"
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    base = random_params(cfg, "cuda")
+    params = add_lora_params(base, cfg.text, lora, torch.Generator().manual_seed(SEED))
+    del base
+    state, tx = init_state(params, OptimizerConfig(lr=1e-4, total_steps=100, lora_only=True))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    named = dict(state.params.named_parameters())
+    n_all = sum(p.numel() for p in named.values())
+    n_train = sum(named[n].numel() for n in tx.names)
+    batch, labels, _ = synthetic_batch(cfg, grid=(2, 4), regions=1, seed=SEED)
+    b, s = batch.input_ids.shape
+    tiles = batch.pixel_values.shape[1]
+    supervised = int((labels != -100).sum())
+    depth, layers = cfg.vision.depth, cfg.text.num_layers
+    expected = expect(**{"A": 2 * depth, "5": depth, "B": 2 * layers, "17": layers + depth,
+                         "18": layers + depth})
+    log(f"{tag} B={b}, {tiles} tiles, prompt {s} tokens ({supervised} supervised); "
+        f"{n_all / 1e9:.3f} B parameters, {n_train / 1e9:.4f} B trained "
+        f"({len(tx.names)} leaves: {', '.join(sorted(tx.names)[:4])}, ...); LoRA rank "
+        f"{lora.rank}, alpha {lora.alpha} on {', '.join(lora.targets)}; built in {init_s:.1f} s")
+    step = make_train_step(cfg, tx, mask_compat=False)
+    for _ in range(2):  # warm-up
+        state, metrics = step(state, batch, labels)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    n = 3
+    events, losses, norms, per_step = event_pairs(n + 1), [], [], []
+    events[0].record()
+    for i in range(n):
+        reset_counts()
+        state, metrics = step(state, batch, labels)
+        events[i + 1].record()
+        losses.append(metrics["loss"])
+        norms.append(metrics["grad_norm"])
+        per_step.append(read_counts())
+    torch.cuda.synchronize()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    times = [x.elapsed_time(y) for x, y in zip(events, events[1:])]
+    losses, norms = torch.stack(losses).tolist(), torch.stack(norms).tolist()
+    if any(c != expected for c in per_step):
+        raise AssertionError(f"{tag} launches a step {per_step}, expected {expected}")
+    if segmented_counts() != {"B": 0, "18": 0}:
+        raise AssertionError(f"{tag} right-padded rows launched with segment ids: "
+                             f"{segmented_counts()}")
+    if not all(np.isfinite(losses + norms)):
+        raise AssertionError(f"{tag} losses {losses}, grad norms {norms}: not finite")
+    if any(p.grad is not None for p in state.params.parameters()):
+        raise AssertionError(f"{tag} a gradient outlived its step")
+    ms = statistics.median(times)
+    flops = gar_flops(cfg, batch=1, seq=s, tiles=tiles, train=True)["total"]
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True).stdout.strip()
+    log(f"{tag} ms/step {ms:.1f} (median of {n}; steps {', '.join(f'{x:.1f}' for x in times)}), "
+        f"{s / (ms / 1e3):.0f} tok/s ({supervised / (ms / 1e3):.0f} supervised labels/s), "
+        f"{flops / (ms / 1e3) / 1e12:.1f} TFLOP/s of {flops / 1e12:.1f} TFLOP a step (gar_flops, "
+        f"full fine-tuning's count), peak memory {peak_gb:.2f} GB; {smi}")
+    log(f"{tag} losses {[round(x, 4) for x in losses]}, grad_norm (every gradient) "
+        f"{[round(x, 4) for x in norms]}; launches a step "
+        f"{dict((k, v) for k, v in per_step[0].items() if v)} (every other kernel 0, as expected)")
+
+    # merge the adapters (B moved by the five steps) and hold the merged
+    # tree's prefill against the unmerged one's
+    for p in state.params.parameters():
+        p.requires_grad_(False)
+    del state.opt_state.mu[:], state.opt_state.nu[:]
+    torch.cuda.empty_cache()
+    merged = merge_lora(state.params, lora)
+    with torch.inference_mode():
+        def last_logits(p):
+            hidden, _ = gar_prefill(p, cfg, batch, mask_compat=False)
+            return lm_logits(p.llm, cfg.text, hidden[:, -64:],
+                             valid_vocab=cfg.extended_vocab_size)[..., :cfg.extended_vocab_size]
+
+        adapted, folded = last_logits(state.params), last_logits(merged)
+    if not (torch.isfinite(adapted).all() and torch.isfinite(folded).all()):
+        raise AssertionError(f"{tag} non-finite prefill logits")
+    span = (adapted.max() - adapted.min()).item()
+    gap = (folded - adapted).abs().max().item() / span
+    b_norm = max(getattr(state.params.llm.blocks, f"{t}_lora_b").abs().max().item()
+                 for t in lora.targets)
+    log(f"{tag} merge_lora: the merged tree's prefill logits (last 64 positions) against the "
+        f"unmerged tree's: max |merged - unmerged| / range {gap:.3e} (bound {E2E_TOL}); the "
+        f"adapters' max |B| after {n + 2} steps {b_norm:.3e}")
+    if gap > E2E_TOL or b_norm == 0:
+        raise AssertionError(f"{tag} merged logits differ by {gap:.3e} of the range, or the "
+                             f"adapters never moved (max |B| {b_norm})")
+    del merged, state, tx, params, adapted, folded
+    torch.cuda.empty_cache()
+    return per_step[0]
+
+
 def _head_backward_rounding_first(ctx, g):
     """The CE head's backward in the port's earlier form: the fp32 logit
     gradient rounded to the working dtype before both products (JAX
@@ -3282,6 +3472,7 @@ def main() -> int:
     phase_cross_check(narrow_8b_config(), int8=True, int8_cache=False)
     gar8b_counts = phase_gar8b(int8=False)
     gar8b_q8_counts = phase_gar8b(int8=True)
+    gar8b_train_counts = phase_gar8b_train()
     # the path whose run reports each kernel's launches: kernel A the
     # unfused tower's, the backward kernels the train step's, the mega
     # kernels their generate(GAR_DECODE_PATH=mega)'s, the int8 kernels the
@@ -3301,12 +3492,17 @@ def main() -> int:
              launches=paths[key][1][key], **{f: kernels[key][f] for f in fields})
         for key, (name, src, rep) in KERNELS.items()
     ]
-    # the kernels on GAR-8B's path also carry their figures at its shapes
-    # and their launches per 8B caption (the int8 ones on the int8 caption)
+    # the kernels on GAR-8B's paths also carry their figures at its shapes
+    # and their launches per 8B caption (the int8 ones on the int8 caption;
+    # 5, 17 and 18 per 8B LoRA train step)
     for row, key in zip(table, KERNELS):
         if "gar8b" in kernels[key]:
-            g8_path, g8_counts = (("generate(gar_8b, init_gar_serving_int8)", gar8b_q8_counts)
-                                  if key.endswith("8") else ("generate(gar_8b)", gar8b_counts))
+            if key in ("5", "17", "18"):  # per 8B LoRA train step
+                g8_path, g8_counts = "train_step(gar_8b, lora_only)", gar8b_train_counts
+            elif key.endswith("8"):
+                g8_path, g8_counts = "generate(gar_8b, init_gar_serving_int8)", gar8b_q8_counts
+            else:
+                g8_path, g8_counts = "generate(gar_8b)", gar8b_counts
             row["path"] += f"; gar8b: {g8_path}"
             row["gar8b"] = dict(path=g8_path, launches=g8_counts[key],
                                 **{f: kernels[key]["gar8b"][f] for f in fields})

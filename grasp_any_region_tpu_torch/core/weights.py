@@ -90,20 +90,33 @@ def _int8_layout(flat: Mapping[str, np.ndarray], cfg: GARConfig) -> dict:
                 drop_bf16=head not in flat)
 
 
+def _lora_layout(flat: Mapping[str, np.ndarray]):
+    """The `GARParams` lora argument a flat tree's names call for: None, or
+    (targets, rank) read from its `llm/blocks/{target}_lora_a` leaves (JAX
+    `train/lora.add_lora_params`)."""
+    from ..models.llama import DECODE_MATMULS
+
+    targets = tuple(n for n in DECODE_MATMULS if f"llm/blocks/{n}_lora_a" in flat)
+    if not targets:
+        return None
+    return targets, int(np.shape(flat[f"llm/blocks/{targets[0]}_lora_a"])[-1])
+
+
 def load_flat_params(flat: Mapping[str, np.ndarray], cfg: GARConfig,
                      device="cuda", dtype=torch.float32):
     """Build `GARParams` from a flat {'a/b/c': array} dict, bf16 or int8
-    (`_int8_layout` reads which from the names).
+    (`_int8_layout` reads which from the names), with or without LoRA
+    adapters (`_lora_layout`).
 
     Raises KeyError on a missing or unused name, ValueError on a shape
     mismatch and TypeError on a float array for an int8 leaf. The learned
-    rope frequencies and the int8 scales stay fp32 and the `*_q8` leaves
-    int8, as in the JAX tree.
+    rope frequencies, the int8 scales, the adapters and `llm/lora_scaling`
+    stay fp32 and the `*_q8` leaves int8, as in the JAX tree.
     """
     from ..models.gar import GARParams
 
     params = GARParams(cfg, device=require_device(device), dtype=dtype,
-                       **_int8_layout(flat, cfg))
+                       **_int8_layout(flat, cfg), lora=_lora_layout(flat))
     expected = {name.replace(".", "/"): p for name, p in params.named_parameters()}
     missing = sorted(set(expected) - set(flat))
     unused = sorted(set(flat) - set(expected))

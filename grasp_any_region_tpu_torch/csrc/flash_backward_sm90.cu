@@ -47,6 +47,9 @@
 //   (fp32 (B, H, Sq)) and zeroes the dq workspace; cast writes
 //   dq = bf16(workspace * scale). Bound: bytes.
 //
+// Head dims: 64 here (GAR-1B); 96 and 128 (GAR-8B) in the wide instance
+// below (flash_bwd_wide_sm90_kernel), which says how it differs.
+//
 // Conventions as kernel B's: right-aligned causal offset Sk - Sq, keys
 // past Sk masked, GQA, segment ids (Sq == Sk) with (64-row query tile,
 // 128-key tile) pairs of disjoint [min, max] id ranges skipped (exact);
@@ -100,20 +103,27 @@ struct BwdArgs {
   const float* lse;      // (batch, head, sq) fp32
   const float* delta;    // (batch, head, sq) fp32
   const int* seg;        // (batch, s) int32 or nullptr
-  const int* q_tiles;    // with seg: (batch, ceil(s / 64), 2) [min, max] ids
+  const int* q_tiles;    // with seg: (batch, ceil(s / query tile rows), 2) [min, max] ids
   const int* k_tiles;    // with seg: (batch, ceil(s / 128), 2)
-  bf16* dk;              // (batch, sk, kv_head, 64), contiguous
+  bf16* dk;              // (batch, sk, kv_head, head dim), contiguous
   bf16* dv;
   int batch, sq, sk, heads, kv_heads, q_offset;  // q_offset = Sk - Sq
-  int tail;       // TAIL: the keys past the last full 128-key tile (1 .. kTailMax)
+  int tail;       // TAIL (head dim 64): the keys past the last full 128-key tile (1 .. kTailMax)
   float scale;
 };
 
-// True when 64-row query tile qt and 128-key tile kt share no segment id.
-__device__ __forceinline__ bool bwd_pair_skipped(const BwdArgs& a, int b, int qt, int kt) {
-  const int* qtab = a.q_tiles + 2LL * b * ((a.sq + kBwdQ - 1) / kBwdQ);
+// True when query tile qt (of `rows` rows, the q_tiles table's) and 128-key
+// tile kt share no segment id.
+__device__ __forceinline__ bool bwd_pair_skipped_rows(const BwdArgs& a, int b, int qt, int kt,
+                                                      int rows) {
+  const int* qtab = a.q_tiles + 2LL * b * ((a.sq + rows - 1) / rows);
   const int* ktab = a.k_tiles + 2LL * b * ((a.sk + kBwdK - 1) / kBwdK);
   return ktab[2 * kt + 1] < qtab[2 * qt] || ktab[2 * kt] > qtab[2 * qt + 1];
+}
+
+// The same for kernel 18's 64-row query tiles at head dim 64.
+__device__ __forceinline__ bool bwd_pair_skipped(const BwdArgs& a, int b, int qt, int kt) {
+  return bwd_pair_skipped_rows(a, b, qt, kt, kBwdQ);
 }
 
 template <bool CAUSAL, bool SEG, bool TAIL>
@@ -530,37 +540,363 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
   }
 }
 
+// Kernel 18 above head dim 64 (flash_bwd_wide_sm90_kernel): 128 (GAR-8B's
+// decoder, every mask) and 96 (GAR-8B's PE-G tower, kernel 5: full
+// attention, no segment ids). A key row is two 128-byte swizzle atoms,
+// each its own 64-column TMA box; 96 rides on 128's layout (the maps' inner
+// dim is 96, TMA zero-fills columns 96-127 of every box; S^T and dP^T take
+// D / 16 k-steps, exact; the dV / dK products run at n128 over zero columns
+// that are never stored; the dq workspace's 32-column boxes past D are not
+// added). A consumer thread holds dK and dV for 64 keys x 128 columns, 128
+// fp32 registers, and ptxas holds a 384-thread block at 168 registers a
+// thread whatever setmaxnreg hands over (the first build of this kernel in
+// that form spilled 250-400 bytes and serialised every wgmma), so:
+//   - the CTA is the two consumer warpgroups alone, 256 threads (255
+//     registers a thread); thread 0 also issues the TMA loads: K and V
+//     once, then a four-stage ring of (Q, dO) tiles whose stage is refilled
+//     once both warpgroups have passed the next step's named barrier (they
+//     have then finished the step that read it), and each thread reads its
+//     queries' LSE, delta and segment ids from memory itself;
+//   - a step takes 32 query rows (S^T and dP^T m64n32, 16 registers each;
+//     their bf16 A fragments 8; dV += P^T dO and dK += dS^T Q at m64n128k16
+//     over two k-steps, dO and Q read MN-major with LBO = one atom);
+//   - warpgroup w computes dQ^T for its head-dim atom (rows 64 w .. 64 w +
+//     63) over all 32 queries: the same m64n32 product and staged [32 q][64
+//     d] fp32 tile (two boxes) as at 64, where it takes queries 32 w .. 32
+//     w + 31 over the one atom.
+// Keys past the last full 128-key tile (S = 1025) get a CTA of their own,
+// masked as any ragged tile: the folded tail's two more 128-row K / V boxes
+// do not fit beside the 32 KB tiles.
+template <int D>
+struct WideShape {
+  static_assert(D == 96 || D == 128, "the wide instances: head dims 96 and 128");
+  static constexpr int kQ = 32;  // query rows a step
+  static constexpr int kStages = 4;
+  static constexpr int kKSteps = D / 16;  // of S^T and dP^T
+  static constexpr int kKAtom = kBwdK * 128;  // bytes of a 128-row K or V atom
+  static constexpr int kQAtom = kQ * 128;     // bytes of a Q or dO atom
+  static constexpr uint32_t kTileBytes = 2 * kQAtom;
+  static constexpr int kSHalf = kQ * 128;  // dS [32 q][64 keys] of one warpgroup
+  static constexpr int kOffK = 0;
+  static constexpr int kOffV = kOffK + 2 * kKAtom;
+  static constexpr int kOffQ = kOffV + 2 * kKAtom;             // stages x Q tile
+  static constexpr int kOffO = kOffQ + kStages * kTileBytes;     // stages x dO tile
+  static constexpr int kOffS = kOffO + kStages * kTileBytes;     // 2 steps x 2 halves of dS
+  static constexpr int kOffDQ = kOffS + 2 * 2 * kSHalf;          // 2 WG x 2 staged dQ tiles
+  static constexpr int kOffBar = kOffDQ + 2 * 2 * kDQTile;       // full[stages], kv
+  static constexpr int kSmem = kOffBar + (kStages + 1) * 8 + 1024;  // + alignment slack
+  static_assert(kSmem <= 232448, "over the 227 KB a Hopper block can use");
+};
+
+template <int D, bool CAUSAL, bool SEG>
+__global__ void __launch_bounds__(256, 1)
+    flash_bwd_wide_sm90_kernel(const __grid_constant__ BwdMaps maps, const BwdArgs a) {
+  using namespace sm90;
+  using Sh = WideShape<D>;
+  constexpr int NQ = Sh::kQ, kStages = Sh::kStages;
+  constexpr uint32_t kTileBytes = Sh::kTileBytes;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  uint8_t* sK = sm + Sh::kOffK;
+  uint8_t* sV = sm + Sh::kOffV;
+  uint8_t* sQ = sm + Sh::kOffQ;
+  uint8_t* sO = sm + Sh::kOffO;
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + Sh::kOffBar);
+  uint64_t* kv_bar = full + kStages;
+
+  // heaviest first: the key tile is the slowest-varying part of the index
+  const int pairs = a.kv_heads * a.batch;
+  const int kt = blockIdx.x / pairs;
+  const int kvh = blockIdx.x % pairs % a.kv_heads, b = blockIdx.x % pairs / a.kv_heads;
+  const int k0 = kt * kBwdK;
+  const int group = a.heads / a.kv_heads;
+  const int n_qt = (a.sq + NQ - 1) / NQ;
+  const int qt0 = CAUSAL ? max(0, k0 - a.q_offset) / NQ : 0;
+  // the walk: every query head of the group, each over its kept query tiles;
+  // settle moves (hh, qt) to the first kept pair at or after it
+  auto settle = [&](int& hh, int& qt) {
+    while (hh < group) {
+      if (qt >= n_qt) {
+        ++hh;
+        qt = qt0;
+      } else if (SEG && bwd_pair_skipped_rows(a, b, qt, kt, NQ)) {
+        ++qt;
+      } else {
+        return;
+      }
+    }
+  };
+  const bool loader = threadIdx.x == 0;
+  int lh = 0, lq = qt0;  // the loader's next pair
+  auto load_next = [&](int stage) {  // (Q, dO) of the loader's next pair into `stage`
+    settle(lh, lq);
+    if (lh >= group) return;
+    const int h = kvh * group + lh;
+    mbar_arrive_expect_tx(&full[stage], 2 * kTileBytes);
+#pragma unroll
+    for (int at = 0; at < 2; ++at) {
+      tma_load_4d(sQ + stage * kTileBytes + at * Sh::kQAtom, &maps.q, &full[stage], 64 * at,
+                  lq * NQ, h, b);
+      tma_load_4d(sO + stage * kTileBytes + at * Sh::kQAtom, &maps.dout, &full[stage], 64 * at,
+                  lq * NQ, h, b);
+    }
+    ++lq;
+  };
+
+  if (loader) {
+    for (int s = 0; s < kStages; ++s) mbar_init(&full[s], 1);  // the loader's arrival + bytes
+    mbar_init(kv_bar, 1);
+    mbar_fence_init();
+    mbar_arrive_expect_tx(kv_bar, 4 * Sh::kKAtom);  // zero-filled past D and Sk
+#pragma unroll
+    for (int at = 0; at < 2; ++at) {
+      tma_load_4d(sK + at * Sh::kKAtom, &maps.k, kv_bar, 64 * at, k0, kvh, b);
+      tma_load_4d(sV + at * Sh::kKAtom, &maps.v, kv_bar, 64 * at, k0, kvh, b);
+    }
+    for (int s = 0; s < kStages; ++s) load_next(s);
+  }
+  __syncthreads();
+
+  // warpgroup w owns keys k0 + 64 w + [0, 64)
+  const int w = threadIdx.x >> 7, wi = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int key_lo = k0 + 64 * w + 16 * wi + g;  // this thread's keys: key_lo, key_lo + 8
+  const float sl2 = a.scale * kLog2e;
+  int kseg[2] = {0, 0};
+  if (SEG) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      kseg[r] = key_lo + 8 * r < a.sk ? a.seg[static_cast<long long>(b) * a.sk + key_lo + 8 * r]
+                                      : -2;
+  }
+  const bool key_edge = k0 + 64 * w + 64 > a.sk;
+  // stmatrix row addresses: lane (m, i) = (lane / 8, lane % 8) gives memory
+  // row i of matrix m of a k-step's four: query 16 kk + 8 (m >> 1) + i,
+  // keys 16 wi + 8 (m & 1) .. + 7 (one 16-byte chunk, swizzled by q % 8)
+  const int st_m = lane >> 3, st_i = lane & 7;
+  const uint32_t st_off = static_cast<uint32_t>(
+      (8 * (st_m >> 1) + st_i) * 128 + (((2 * wi + (st_m & 1)) ^ st_i) << 4));
+  const uint32_t sS_base = smem_addr(sm + Sh::kOffS);
+  // this thread's dQ^T values in the warpgroup's [32 q][64 d] fp32 tile, as
+  // at head dim 64: d = 16 wi + g + 8 r of atom w lies in box wi / 2, chunk
+  // 4 (wi % 2) + 2 r + g / 4, word g % 4; row q = 8 j + 2 t + c
+  const uint8_t* dq_tiles = sm + Sh::kOffDQ + w * 2 * kDQTile;
+  const uint32_t dq_box = smem_addr(dq_tiles) + (wi >> 1) * (kDQTile / 2) + (g & 3) * 4;
+  const int dq_chunk = 4 * (wi & 1) + (g >> 2);
+  const bool issuer = (threadIdx.x & 127) == 0;  // issues this warpgroup's reduce-adds
+  // K-major K_w, V_w, Q, dO: k-step kk lies in atom kk / 4, 32 bytes a step into it
+  const uint64_t dKw = desc_sw128(sK + 64 * w * 128, 16, 1024);
+  const uint64_t dVw = desc_sw128(sV + 64 * w * 128, 16, 1024);
+  const uint64_t dQk = desc_sw128(sQ, 16, 1024), dOk = desc_sw128(sO, 16, 1024);
+  // MN-major: atom w of K^T for dQ^T; Q and dO (N = 128 columns, LBO = one atom)
+  const uint64_t dKt = desc_sw128(sK + w * Sh::kKAtom, Sh::kKAtom, 1024);
+  const uint64_t dQm = desc_sw128(sQ, Sh::kQAtom, 1024), dOm = desc_sw128(sO, Sh::kQAtom, 1024);
+  const uint64_t dS = desc_sw128(sm + Sh::kOffS, 16, 1024);  // dS^T as dQ^T's B
+
+  float dk[64], dv[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) dk[i] = dv[i] = 0.f;
+
+  mbar_wait(kv_bar, 0);
+  int ch = 0, cq = qt0;  // the consumers' pair
+  settle(ch, cq);
+  for (int it = 0; ch < group; ++it) {
+    const int h = kvh * group + ch;
+    const int q0 = cq * NQ;
+    const int stage = it % kStages;
+    const uint32_t su = stage * (kTileBytes >> 4);
+    // this thread's queries q0 + 8 j + 2 t + c: LSE (log2 units), delta, ids
+    const long long row_base = (static_cast<long long>(b) * a.heads + h) * a.sq;
+    float l2[8], dl[8];
+    int qseg[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int q = q0 + 8 * (i >> 1) + 2 * t + (i & 1);
+      const bool in = q < a.sq;
+      l2[i] = in ? a.lse[row_base + q] * kLog2e : __int_as_float(0x7f800000);
+      dl[i] = in ? a.delta[row_base + q] : 0.f;
+      qseg[i] = SEG && in ? a.seg[static_cast<long long>(b) * a.sq + q] : -1;
+    }
+    mbar_wait(&full[stage], (it / kStages) & 1);
+
+    // S^T = K_w Q^T, dP^T = V_w dO^T: (64 keys x 32 queries), K-major both
+    float s[16], dp[16];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < Sh::kKSteps; ++kk)
+      wgmma_m64n32k16_ss<0, 0>(s, dKw + (kk >> 2) * (Sh::kKAtom >> 4) + 2 * (kk & 3),
+                               dQk + su + (kk >> 2) * (Sh::kQAtom >> 4) + 2 * (kk & 3), kk);
+    wgmma_commit();
+#pragma unroll
+    for (int kk = 0; kk < Sh::kKSteps; ++kk)
+      wgmma_m64n32k16_ss<0, 0>(dp, dVw + (kk >> 2) * (Sh::kKAtom >> 4) + 2 * (kk & 3),
+                               dOk + su + (kk >> 2) * (Sh::kQAtom >> 4) + 2 * (kk & 3), kk);
+    wgmma_commit();
+
+    const bool masked = key_edge || SEG || (CAUSAL && q0 + a.q_offset < k0 + 64 * w + 63);
+    wgmma_wait<1>();
+    fence_regs(s);
+    // p, then P^T as bf16 A fragments: k-step kk's fragment is the C
+    // fragment of accumulator columns 16 kk .. 16 kk + 15
+    uint32_t pa[2][4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      float pv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) pv[i] = exp2f(s[4 * j + i] * sl2 - l2[2 * j + (i & 1)]);
+      if (masked) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int ql = 8 * j + 2 * t + (i & 1), key = key_lo + 8 * (i >> 1);
+          bool ok = key < a.sk;
+          if (CAUSAL) ok = ok && q0 + ql + a.q_offset >= key;
+          if (SEG) ok = ok && qseg[2 * j + (i & 1)] == kseg[i >> 1];
+          pv[i] = ok ? pv[i] : 0.f;
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) s[4 * j + i] = pv[i];  // s now holds p (fp32)
+      pa[j >> 1][(j & 1) * 2 + 0] = pack_bf16x2(pv[0], pv[1]);
+      pa[j >> 1][(j & 1) * 2 + 1] = pack_bf16x2(pv[2], pv[3]);
+    }
+    wgmma_wait<0>();
+    fence_regs(dp);
+    uint32_t da[2][4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      float ds[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) ds[i] = s[4 * j + i] * (dp[4 * j + i] - dl[2 * j + (i & 1)]);
+      da[j >> 1][(j & 1) * 2 + 0] = pack_bf16x2(ds[0], ds[1]);
+      da[j >> 1][(j & 1) * 2 + 1] = pack_bf16x2(ds[2], ds[3]);
+    }
+    // dS[q][key] for dQ (this warpgroup's 64 keys are column block w)
+    const uint32_t sS = sS_base + (it & 1) * (2 * Sh::kSHalf);
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk)
+      stmatrix_x4_trans(sS + w * Sh::kSHalf + st_off + kk * 16 * 128, da[kk]);
+
+    // dV += P^T dO, dK += dS^T Q (64 keys x 128 columns); dO, Q MN-major
+    fence_regs(pa);
+    fence_regs(da);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk) wgmma_m64n128k16_rs<1>(dv, pa[kk], dOm + su + 128 * kk);
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk) wgmma_m64n128k16_rs<1>(dk, da[kk], dQm + su + 128 * kk);
+    wgmma_commit();
+
+    // both halves of dS are in place, and both warpgroups are done with the
+    // previous step (its products waited for): its stage takes a new pair
+    fence_proxy_async();
+    bar_sync(1, 256);
+    if (loader && it > 0) load_next((it - 1) % kStages);
+    // dQ^T (64 d of atom w x 32 q) = K^T dS^T
+    float dq[16];
+#pragma unroll
+    for (int i = 0; i < 16; ++i) dq[i] = 0.f;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kBwdK / 16; ++kk) {
+      wgmma_m64n32k16_ss<1, 0>(dq, dKt + 128 * kk,
+                               dS + (it & 1) * (2 * Sh::kSHalf >> 4) +
+                                   (kk >> 2) * (Sh::kSHalf >> 4) + 2 * (kk & 3),
+                               kk);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dv);
+    fence_regs(dk);
+    fence_regs(dq);
+
+    // dQ^T into the warpgroup's tile, then one TMA reduce-add a box into
+    // the workspace rows q0 .. q0 + 31, columns 64 w + 32 x below D (rows
+    // past Sq are skipped)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int ql = 8 * j + 2 * t + (i & 1);
+        const uint32_t addr = dq_box + (it & 1) * kDQTile + ql * 128 +
+                              (((dq_chunk + 2 * (i >> 1)) ^ (ql & 7)) << 4);
+        asm volatile("st.shared.f32 [%0], %1;\n" ::"r"(addr), "f"(dq[4 * j + i]) : "memory");
+      }
+    fence_proxy_async();
+    bar_sync(2 + w, 128);
+    if (issuer) {
+      const uint8_t* tile = dq_tiles + (it & 1) * kDQTile;
+      tma_reduce_add_4d(&maps.dq, tile, 64 * w, q0, h, b);
+      if (64 * w + 32 < D) tma_reduce_add_4d(&maps.dq, tile + kDQTile / 2, 64 * w + 32, q0, h, b);
+      bulk_commit();
+      // the other buffer, written next step (after the next 256-thread
+      // barrier), is free once the previous step's reduce-adds have read it
+      bulk_wait_read<1>();
+    }
+    ++cq;
+    settle(ch, cq);
+  }
+
+  if (issuer) bulk_wait<0>();
+
+  // dk (scaled once) and dv: rows key_lo + 8 r, columns 8 j + 2 t + c < D
+  const long long kv_ss = static_cast<long long>(a.kv_heads) * D;
+  const long long base = static_cast<long long>(b) * a.sk * kv_ss + kvh * D;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int key = key_lo + 8 * r;
+    if (key >= a.sk) continue;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      const long long o = base + key * kv_ss + 8 * j + 2 * t;
+      *reinterpret_cast<uint32_t*>(a.dk + o) =
+          pack_bf16x2(dk[4 * j + 2 * r] * a.scale, dk[4 * j + 2 * r + 1] * a.scale);
+      *reinterpret_cast<uint32_t*>(a.dv + o) = pack_bf16x2(dv[4 * j + 2 * r], dv[4 * j + 2 * r + 1]);
+    }
+  }
+}
+
 // 17, before 18: delta[b, h, q] = sum_d dO O (fp32) and the dq workspace
-// zeroed; one thread per 8 elements of a (b, q, h) row, 8 threads a row.
+// zeroed; kLanes threads a (b, q, h) row, each kChunks 8-element chunks
+// (64: 8 x 1, 96: 4 x 3, 128: 8 x 2).
+template <int D>
 __global__ void __launch_bounds__(256) flash_bwd_prep_kernel(
     const bf16* __restrict__ out, const bf16* __restrict__ dout, float* __restrict__ delta,
     float* __restrict__ dq_acc, int sq, int heads, long long rows, long long o_sb,
     long long o_ss, long long o_sh, long long g_sb, long long g_ss, long long g_sh) {
+  constexpr int kLanes = D % 64 == 0 ? 8 : 4;
+  constexpr int kChunks = D / 8 / kLanes;
   const long long idx = blockIdx.x * 256LL + threadIdx.x;
-  if (idx >= rows * 8) return;  // whole 8-lane groups leave together
-  const int c = static_cast<int>(idx & 7);
-  const long long row = idx >> 3;
+  if (idx >= rows * kLanes) return;  // whole lane groups leave together
+  const int c = static_cast<int>(idx % kLanes);
+  const long long row = idx / kLanes;
   const int h = static_cast<int>(row % heads);
   const long long bq = row / heads;
   const int q = static_cast<int>(bq % sq);
   const long long b = bq / sq;
-  const uint4 ov = *reinterpret_cast<const uint4*>(out + b * o_sb + q * o_ss + h * o_sh + 8 * c);
-  const uint4 gv = *reinterpret_cast<const uint4*>(dout + b * g_sb + q * g_ss + h * g_sh + 8 * c);
-  const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&ov);
-  const __nv_bfloat162* g2 = reinterpret_cast<const __nv_bfloat162*>(&gv);
   float sum = 0.f;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 x = __bfloat1622float2(o2[i]), y = __bfloat1622float2(g2[i]);
-    sum += x.x * y.x + x.y * y.y;
+  for (int ch = 0; ch < kChunks; ++ch) {
+    const int col = 8 * (c + kLanes * ch);
+    const uint4 ov = *reinterpret_cast<const uint4*>(out + b * o_sb + q * o_ss + h * o_sh + col);
+    const uint4 gv =
+        *reinterpret_cast<const uint4*>(dout + b * g_sb + q * g_ss + h * g_sh + col);
+    const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&ov);
+    const __nv_bfloat162* g2 = reinterpret_cast<const __nv_bfloat162*>(&gv);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float2 x = __bfloat1622float2(o2[i]), y = __bfloat1622float2(g2[i]);
+      sum += x.x * y.x + x.y * y.y;
+    }
   }
-  const unsigned lanes = 0xffu << (threadIdx.x & 24);
-  sum += __shfl_xor_sync(lanes, sum, 1);
-  sum += __shfl_xor_sync(lanes, sum, 2);
-  sum += __shfl_xor_sync(lanes, sum, 4);
+  const unsigned lanes = ((1u << kLanes) - 1) << (threadIdx.x & (32 - kLanes));
+#pragma unroll
+  for (int m = 1; m < kLanes; m <<= 1) sum += __shfl_xor_sync(lanes, sum, m);
   if (c == 0) delta[(b * heads + h) * sq + q] = sum;
-  float4* acc = reinterpret_cast<float4*>(dq_acc + row * kBwdD + 8 * c);
-  acc[0] = acc[1] = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+  for (int ch = 0; ch < kChunks; ++ch) {
+    float4* acc = reinterpret_cast<float4*>(dq_acc + row * D + 8 * (c + kLanes * ch));
+    acc[0] = acc[1] = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
 }
 
 // 17, after 18: dq = bf16(workspace * scale), 8 elements a thread.
@@ -576,6 +912,17 @@ __global__ void __launch_bounds__(256) flash_bwd_dq_cast_kernel(const float* __r
                  pack_bf16x2(y.x * scale, y.y * scale), pack_bf16x2(y.z * scale, y.w * scale));
 }
 
+template <int D>
+inline int launch_prep(const void* out, const void* dout, void* delta, void* dq_acc, int sq,
+                       int heads, long long rows, const long long (&st)[6], cudaStream_t stream) {
+  constexpr int kLanes = D % 64 == 0 ? 8 : 4;
+  const long long blocks = (rows * kLanes + 255) / 256;
+  flash_bwd_prep_kernel<D><<<static_cast<unsigned>(blocks), 256, 0, stream>>>(
+      static_cast<const bf16*>(out), static_cast<const bf16*>(dout), static_cast<float*>(delta),
+      static_cast<float*>(dq_acc), sq, heads, rows, st[0], st[1], st[2], st[3], st[4], st[5]);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <bool CAUSAL, bool SEG, bool TAIL = false>
 inline int launch_bwd_sm90(const BwdMaps& maps, const BwdArgs& a, cudaStream_t stream) {
   constexpr int smem = TAIL ? kBwdSmemTail : kBwdSmem;
@@ -589,24 +936,37 @@ inline int launch_bwd_sm90(const BwdMaps& maps, const BwdArgs& a, cudaStream_t s
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int D, bool CAUSAL, bool SEG>
+inline int launch_bwd_wide(const BwdMaps& maps, const BwdArgs& a, cudaStream_t stream) {
+  constexpr int smem = WideShape<D>::kSmem;
+  const cudaError_t err = cudaFuncSetAttribute(flash_bwd_wide_sm90_kernel<D, CAUSAL, SEG>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int grid = (a.sk + kBwdK - 1) / kBwdK * a.kv_heads * a.batch;
+  flash_bwd_wide_sm90_kernel<D, CAUSAL, SEG><<<grid, 256, smem, stream>>>(maps, a);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace gar
 
-// Kernel 17's first launch. out, dout (batch, sq, heads, 64) bf16 with
+// Kernel 17's first launch. out, dout (batch, sq, heads, head_dim) bf16 with
 // element strides; delta (batch, heads, sq) fp32; dq_acc (batch, sq,
-// heads, 64) fp32 contiguous.
+// heads, head_dim) fp32 contiguous. head_dim 64, 96 or 128.
 extern "C" int gar_flash_bwd_prep(const void* out, const void* dout, void* delta, void* dq_acc,
-                                  int batch, int sq, int heads, long long o_sb, long long o_ss,
-                                  long long o_sh, long long g_sb, long long g_ss, long long g_sh,
-                                  void* stream) {
+                                  int batch, int sq, int heads, int head_dim, long long o_sb,
+                                  long long o_ss, long long o_sh, long long g_sb, long long g_ss,
+                                  long long g_sh, void* stream) {
   const long long rows = static_cast<long long>(batch) * sq * heads;
   if (rows <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const long long blocks = (rows * 8 + 255) / 256;
-  gar::flash_bwd_prep_kernel<<<static_cast<unsigned>(blocks), 256, 0,
-                               static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const gar::bf16*>(out), static_cast<const gar::bf16*>(dout),
-      static_cast<float*>(delta), static_cast<float*>(dq_acc), sq, heads, rows, o_sb, o_ss, o_sh,
-      g_sb, g_ss, g_sh);
-  return static_cast<int>(cudaGetLastError());
+  const long long st[6] = {o_sb, o_ss, o_sh, g_sb, g_ss, g_sh};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (head_dim) {
+    case 64: return gar::launch_prep<64>(out, dout, delta, dq_acc, sq, heads, rows, st, s);
+    case 96: return gar::launch_prep<96>(out, dout, delta, dq_acc, sq, heads, rows, st, s);
+    case 128: return gar::launch_prep<128>(out, dout, delta, dq_acc, sq, heads, rows, st, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 // Kernel 17's second launch: n elements (a multiple of 8), fp32 -> bf16.
@@ -621,33 +981,36 @@ extern "C" int gar_flash_bwd_dq_cast(const void* dq_acc, void* dq, long long n, 
 }
 
 // Kernel 18. strides: q, k, v, dout element strides (batch, sequence,
-// head), 12 values; dk, dv contiguous (batch, sk, kv_heads, 64) bf16;
+// head), 12 values; dk, dv contiguous (batch, sk, kv_heads, head_dim) bf16;
 // dq_acc the zeroed workspace (17's prep), which this launch adds into.
+// head_dim 64 or 128 (every mask), or 96 (full attention, no segment ids).
 extern "C" int gar_flash_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
                                  const void* lse, const void* delta, const void* seg,
                                  const void* q_tiles, const void* k_tiles, void* dq_acc, void* dk,
                                  void* dv, int batch, int sq, int sk, int heads, int kv_heads,
                                  int head_dim, int causal, const long long* strides, float scale,
                                  void* stream) {
-  if (head_dim != gar::kBwdD || kv_heads <= 0 || heads % kv_heads != 0 || batch <= 0 ||
-      sq <= 0 || sk <= 0 || (seg && (sq != sk || !q_tiles || !k_tiles)))
+  const bool known = head_dim == 64 || head_dim == 128 || (head_dim == 96 && !causal && !seg);
+  if (!known || kv_heads <= 0 || heads % kv_heads != 0 || batch <= 0 || sq <= 0 || sk <= 0 ||
+      (seg && (sq != sk || !q_tiles || !k_tiles)))
     return static_cast<int>(cudaErrorInvalidValue);
-  gar::BwdMaps maps;
-  const long long dq_ss = static_cast<long long>(heads) * gar::kBwdD;
+  gar::BwdMaps maps;  // inner dim head_dim: a box's columns past it land as zeros
+  const int q_rows = head_dim == 64 ? gar::kBwdQ : gar::WideShape<128>::kQ;
+  const long long dq_ss = static_cast<long long>(heads) * head_dim;
   int err = gar::encode_rows(&maps.q, q, false, sq, heads, batch, strides[0], strides[1],
-                             strides[2], gar::kBwdQ);
+                             strides[2], q_rows, head_dim);
   if (!err)
     err = gar::encode_rows(&maps.k, k, false, sk, kv_heads, batch, strides[3], strides[4],
-                           strides[5], gar::kBwdK);
+                           strides[5], gar::kBwdK, head_dim);
   if (!err)
     err = gar::encode_rows(&maps.v, v, false, sk, kv_heads, batch, strides[6], strides[7],
-                           strides[8], gar::kBwdK);
+                           strides[8], gar::kBwdK, head_dim);
   if (!err)
     err = gar::encode_rows(&maps.dout, dout, false, sq, heads, batch, strides[9], strides[10],
-                           strides[11], gar::kBwdQ);
+                           strides[11], q_rows, head_dim);
   if (!err)
     err = gar::encode_rows(&maps.dq, dq_acc, true, sq, heads, batch, sq * dq_ss, dq_ss,
-                           gar::kBwdD, 32);
+                           head_dim, 32, head_dim);
   if (err) return err;
   gar::BwdArgs a;
   a.lse = static_cast<const float*>(lse);
@@ -664,12 +1027,19 @@ extern "C" int gar_flash_bwd_dkv(const void* q, const void* k, const void* v, co
   a.kv_heads = kv_heads;
   a.q_offset = sk - sq;
   a.scale = scale;
-  // a few keys past the last full tile (S = 1025 in the ViT) are folded into
-  // that tile's CTA, not given a CTA of their own that would walk every
-  // query tile for them
+  // at head dim 64 a few keys past the last full tile (S = 1025 in the
+  // ViT) are folded into that tile's CTA, not given a CTA of their own that
+  // would walk every query tile for them
   const int rem = sk % gar::kBwdK;
-  a.tail = !causal && !seg && sk > gar::kBwdK && rem <= gar::kTailMax ? rem : 0;
+  a.tail = head_dim == 64 && !causal && !seg && sk > gar::kBwdK && rem <= gar::kTailMax ? rem : 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (head_dim == 96) return gar::launch_bwd_wide<96, false, false>(maps, a, st);
+  if (head_dim == 128) {
+    if (causal) return seg ? gar::launch_bwd_wide<128, true, true>(maps, a, st)
+                           : gar::launch_bwd_wide<128, true, false>(maps, a, st);
+    return seg ? gar::launch_bwd_wide<128, false, true>(maps, a, st)
+               : gar::launch_bwd_wide<128, false, false>(maps, a, st);
+  }
   if (causal) return seg ? gar::launch_bwd_sm90<true, true>(maps, a, st)
                          : gar::launch_bwd_sm90<true, false>(maps, a, st);
   if (seg) return gar::launch_bwd_sm90<false, true>(maps, a, st);

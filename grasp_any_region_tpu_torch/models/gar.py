@@ -56,16 +56,18 @@ class GARBatch(NamedTuple):
 
 class GARParams(nn.Module):
     """The JAX `init_gar_params` tree: vision, projector, llm, mask_embed.
-    q8 / drop_bf16: the int8 decoder tree (`LlamaParams`)."""
+    q8 / drop_bf16: the int8 decoder tree; lora: (targets, rank) of an
+    unmerged LoRA tree (`LlamaParams`)."""
 
     def __init__(self, cfg: GARConfig, device=None, dtype=None, *,
-                 q8: Optional[Sequence[str]] = None, drop_bf16: bool = False):
+                 q8: Optional[Sequence[str]] = None, drop_bf16: bool = False,
+                 lora: Optional[Tuple[Sequence[str], int]] = None):
         super().__init__()
         kh, kw = cfg.mask_patch_kernel
         self.vision = VisionParams(cfg.vision, device, dtype)
         self.projector = ProjectorParams(cfg, device, dtype)
         self.llm = LlamaParams(cfg.text, cfg.padded_vocab_size, device, dtype, q8=q8,
-                               drop_bf16=drop_bf16)
+                               drop_bf16=drop_bf16, lora=lora)
         self.mask_embed = ParamGroup(
             {"kernel": (kh * kw * cfg.mask_in_channels, cfg.vision.width)}, device, dtype)
 

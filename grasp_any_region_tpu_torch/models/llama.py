@@ -81,11 +81,15 @@ class LlamaParams(nn.Module):
     target, and the int8 head `lm_head_q8` with fp32 `lm_head_scale`,
     (V, D) and (V, 1) when tied, (D, V) and (1, V) when not. drop_bf16
     leaves out the bf16 copies of the targets and of the head (the tied
-    `embed` or `lm_head`)."""
+    `embed` or `lm_head`).
+
+    lora: None, or (targets, rank) for the tree of JAX `add_lora_params`:
+    fp32 `{name}_lora_a` (L, Din, r) and `{name}_lora_b` (L, r, Dout) beside
+    each target and the fp32 scalar `lora_scaling` (train/lora.py)."""
 
     def __init__(self, cfg: TextConfig, vocab_rows: Optional[int] = None,
                  device=None, dtype=None, *, q8: Optional[Sequence[str]] = None,
-                 drop_bf16: bool = False):
+                 drop_bf16: bool = False, lora: Optional[Tuple[Sequence[str], int]] = None):
         super().__init__()
         v = vocab_rows or cfg.vocab_size
         d, m, L = cfg.hidden_size, cfg.intermediate_size, cfg.num_layers
@@ -106,6 +110,13 @@ class LlamaParams(nn.Module):
         for name in q8 or ():
             add_param(self.blocks, f"{name}_q8", mats[name], device, torch.int8)
             add_param(self.blocks, f"{name}_scale", (L, 1, mats[name][2]), device, torch.float32)
+        if lora is not None:
+            targets, rank = lora
+            for name in targets:
+                _, din, dout = mats[name]
+                add_param(self.blocks, f"{name}_lora_a", (L, din, rank), device, torch.float32)
+                add_param(self.blocks, f"{name}_lora_b", (L, rank, dout), device, torch.float32)
+            add_param(self, "lora_scaling", (), device, torch.float32)
         add_param(self, "final_norm", (d,), device, dtype)
         if not tied and not (drop_bf16 and q8 is not None):
             add_param(self, "lm_head", (d, v), device, dtype)
@@ -114,42 +125,60 @@ class LlamaParams(nn.Module):
             add_param(self, "lm_head_scale", (v, 1) if tied else (1, v), device, torch.float32)
 
 
-def _proj(bp: dict, name: str, x: torch.Tensor) -> torch.Tensor:
+def _proj(bp: dict, name: str, x: torch.Tensor, lora_scaling=None) -> torch.Tensor:
     """x @ the weight `name` of one layer. A serving-only tree (the bf16
     copy dropped) projects through the int8 copy, widened to x's dtype, and
     scales the product per output column (the scale commutes with the sum),
-    in x's dtype, as JAX `_proj` does."""
+    in x's dtype, as JAX `_proj` does. With lora_scaling (the fp32 leaf of
+    an unmerged LoRA tree) a target with adapters adds its fp32 low-rank
+    term cast to the product's dtype (`train/lora.lora_delta`)."""
     w = bp.get(name)
     if w is None:
-        return (x @ bp[f"{name}_q8"].to(x.dtype)) * bp[f"{name}_scale"].to(x.dtype)
-    return x @ w.to(x.dtype)
+        out = (x @ bp[f"{name}_q8"].to(x.dtype)) * bp[f"{name}_scale"].to(x.dtype)
+    else:
+        out = x @ w.to(x.dtype)
+    if lora_scaling is not None and f"{name}_lora_a" in bp:
+        from ..train.lora import lora_delta
+
+        out = out + lora_delta(bp, name, x, lora_scaling).to(out.dtype)
+    return out
 
 
-def _qkv(cfg: TextConfig, bp: dict, x: torch.Tensor, cos, sin):
+def _qkv(cfg: TextConfig, bp: dict, x: torch.Tensor, cos, sin, lora_scaling=None):
     b, s, _ = x.shape
     h, k, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    q = _proj(bp, "wq", x).reshape(b, s, h, dh)
-    kk = _proj(bp, "wk", x).reshape(b, s, k, dh)
-    vv = _proj(bp, "wv", x).reshape(b, s, k, dh)
+    q = _proj(bp, "wq", x, lora_scaling).reshape(b, s, h, dh)
+    kk = _proj(bp, "wk", x, lora_scaling).reshape(b, s, k, dh)
+    vv = _proj(bp, "wv", x, lora_scaling).reshape(b, s, k, dh)
     return apply_rope(q, cos, sin), apply_rope(kk, cos, sin), vv
 
 
-def _mlp(bp: dict, x: torch.Tensor) -> torch.Tensor:
-    return _proj(bp, "w_down", F.silu(_proj(bp, "w_gate", x)) * _proj(bp, "w_up", x))
+def _mlp(bp: dict, x: torch.Tensor, lora_scaling=None) -> torch.Tensor:
+    gate, up = _proj(bp, "w_gate", x, lora_scaling), _proj(bp, "w_up", x, lora_scaling)
+    return _proj(bp, "w_down", F.silu(gate) * up, lora_scaling)
 
 
-def _layer(cfg: TextConfig, bp: dict, x: torch.Tensor, cos, sin, attend):
+def _layer(cfg: TextConfig, bp: dict, x: torch.Tensor, cos, sin, attend, lora_scaling=None):
     """One decoder layer of the plain form, x (B, S, D). attend(q, k, v)
     (q (B, S, H, Dh), k / v (B, S, K, Dh) roped) writes whatever cache the
     caller keeps and returns the attention output, reshapeable to (B, S,
-    H * Dh). Returns (x, k, v)."""
+    H * Dh). lora_scaling: an unmerged LoRA tree's scaling leaf (prefill).
+    Returns (x, k, v)."""
     b, s, _ = x.shape
     eps = cfg.rms_norm_eps
     y = rms_norm(x, bp["attn_norm"], eps)
-    q, k, v = _qkv(cfg, bp, y, cos, sin)
-    x = x + _proj(bp, "wo", attend(q, k, v).reshape(b, s, -1))
+    q, k, v = _qkv(cfg, bp, y, cos, sin, lora_scaling)
+    x = x + _proj(bp, "wo", attend(q, k, v).reshape(b, s, -1), lora_scaling)
     y = rms_norm(x, bp["mlp_norm"], eps)
-    return x + _mlp(bp, y), k, v
+    return x + _mlp(bp, y, lora_scaling), k, v
+
+
+def refuse_adapters(params: LlamaParams, entry: str) -> None:
+    """Raise on an unmerged LoRA tree: the decode and serving steps read the
+    base weights alone, as in JAX, which merges the adapters first."""
+    if hasattr(params, "lora_scaling"):
+        raise ValueError(f"{entry} got an unmerged LoRA tree (llm/lora_scaling and adapters "
+                         "present): fold them in with train.lora.merge_lora first")
 
 
 def llama_prefill(
@@ -170,16 +199,19 @@ def llama_prefill(
     right_padded: the GAR rows are right-padded, so the causal kernel needs
     no segment mask; pass False for packed multi-document rows (per-document
     positions, segment ids 1..n, 0 = padding). remat: checkpoint each layer
-    (non-reentrant), as JAX's `jax.checkpoint` scan body."""
+    (non-reentrant), as JAX's `jax.checkpoint` scan body. An unmerged LoRA
+    tree (`llm/lora_scaling` present) adds its adapters' terms, under remat
+    as well."""
     b, s, _ = inputs_embeds.shape
     L, kh, dh = cfg.num_layers, cfg.num_kv_heads, cfg.head_dim
     cos, sin = rope_cos_sin(positions, llama_inv_freq(cfg, inputs_embeds.device))
+    lora_scaling = getattr(params, "lora_scaling", None)
 
     def attend(q, k, v):
         return mha(q, k, v, causal=True, segment_ids=segment_ids, right_padded=right_padded)
 
     def layer(x, bp):
-        return _layer(cfg, bp, x, cos, sin, attend)
+        return _layer(cfg, bp, x, cos, sin, attend, lora_scaling)
 
     if return_kv:
         ks = inputs_embeds.new_empty((L, b, s, kh, dh))
@@ -211,6 +243,7 @@ def llama_prefill_chunk(
     first. The chunk's queries attend causally over prefix ++ chunk, the
     mask right-aligned by P (kernel B at Sq = C < Sk = P + C on the card).
     Returns (hidden (B, C, D), (k_all, v_all) (L, B, P + C, K, Dh))."""
+    refuse_adapters(params, "llama_prefill_chunk")
     b, c, _ = embeds.shape
     L, kh, dh = cfg.num_layers, cfg.num_kv_heads, cfg.head_dim
     p = 0 if kv_prefix is None else kv_prefix[0].shape[2]
@@ -264,6 +297,7 @@ def llama_decode_step(
     plain versions. An int8 cache takes the fused form whatever use_kernel
     says, on any device, as JAX sends its (paired) int8 cache there: only
     kernel C8 reads it (on the CPU through its plain version)."""
+    refuse_adapters(params, "llama_decode_step")
     if cache.k.dtype == torch.int8:
         return llama_decode_step_fused(params, cfg, inputs_embeds, cache, prompt_pad)
     if use_kernel is None or use_kernel is True:
@@ -338,6 +372,7 @@ def llama_decode_step_fused(
     matmuls are J8, H8, I8, H8; with an int8 cache the attention is C8,
     which takes the new K/V in bf16 whatever the compute dtype (JAX's
     kv_io_dtype) and quantizes the appended column itself."""
+    refuse_adapters(params, "llama_decode_step_fused")
     wp = cache.write_pos
     pos = cache.prompt_lens + (wp - prompt_pad)
     cos, sin = rope_cos_sin(pos[:, None], llama_inv_freq(cfg, inputs_embeds.device))
@@ -371,6 +406,7 @@ def llama_decode_step_mega(
     rounding points are the mega kernels' own (ops/decode_megakernel.py),
     not the fused step's. It takes the bf16 (or fp32) cache, as JAX's mega
     step; the cache contract is `llama_decode_step`'s."""
+    refuse_adapters(params, "llama_decode_step_mega")
     b = inputs_embeds.shape[0]
     h, kh, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     wp = cache.write_pos
@@ -440,6 +476,7 @@ def llama_decode_step_paged(
     over seq_lens + 1 tokens. Plain projections on every device, as the
     JAX form is XLA. Returns (hidden (B, 1, D), k_pool, v_pool); the caller
     advances seq_lens."""
+    refuse_adapters(params, "llama_decode_step_paged")
     cos, sin = rope_cos_sin(seq_lens[:, None], llama_inv_freq(cfg, inputs_embeds.device))
     write = _paged_writer(k_pool, v_pool, block_table, seq_lens, active)
     post_lens = seq_lens + 1  # attention covers the token being written
@@ -470,6 +507,7 @@ def llama_decode_step_paged_fused(
     around the plain paged attention. JAX pads the rows to at least 8 for
     the TPU's sublanes; the stream kernels take any row count up to
     layer_matmul.MAX_ROWS, so the rows go in as they are."""
+    refuse_adapters(params, "llama_decode_step_paged_fused")
     cos, sin = rope_cos_sin(seq_lens[:, None], llama_inv_freq(cfg, inputs_embeds.device))
     write = _paged_writer(k_pool, v_pool, block_table, seq_lens, active)
     post_lens = seq_lens + 1

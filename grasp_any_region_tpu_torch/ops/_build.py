@@ -37,7 +37,7 @@ _LP = ctypes.POINTER(ctypes.c_longlong)
 _SIGNATURES = {
     "gar_vit_attention": [_P] * 5 + [_I] * 4 + [_L] * 12 + [_F, _P],
     "gar_flash_attention": [_P] * 7 + [_I] * 7 + [_L] * 12 + [_F, _P],
-    "gar_flash_bwd_prep": [_P] * 4 + [_I] * 3 + [_L] * 6 + [_P],
+    "gar_flash_bwd_prep": [_P] * 4 + [_I] * 4 + [_L] * 6 + [_P],
     "gar_flash_bwd_dq_cast": [_P] * 2 + [_L, _F, _P],
     "gar_flash_bwd_dkv": [_P] * 12 + [_I] * 7 + [_LP, _F, _P],
     "gar_decode_attention_fused": [_P] * 8 + [_I] * 8 + [_F, _P],

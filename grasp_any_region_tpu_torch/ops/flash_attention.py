@@ -177,7 +177,8 @@ class _FlashAttention(torch.autograd.Function):
         if q.device.type == "cuda":  # before the forward: its backward must exist
             from .flash_backward import check_backward_head_dim
 
-            check_backward_head_dim(q.shape[-1], "kernels 17 and 18 (the flash backward)")
+            check_backward_head_dim(q.shape[-1], "kernels 17 and 18 (the flash backward)",
+                                    causal=causal, segments=segment_ids is not None)
         out, lse = flash_attention(q, k, v, causal=causal, segment_ids=segment_ids,
                                    return_lse=True)
         ctx.causal = causal

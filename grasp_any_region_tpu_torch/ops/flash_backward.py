@@ -28,6 +28,12 @@ ids (Sq == Sk; a 64-row query tile and a 128-key tile whose [min, max] id
 ranges are disjoint are skipped). On a CPU tensor `flash_attention_bwd`
 runs `flash_attention_bwd_plain`; on a CUDA tensor it launches 17, 18, 17
 on the current stream or raises.
+
+Head dims: 64 (GAR-1B) and 128 (GAR-8B's decoder) with every mask, 96
+(GAR-8B's PE-G tower) for kernel 5 only, full attention without segment
+ids; any other raises before a launch. Above 64 a key row is two 128-byte
+swizzle atoms (96 rides on 128's, TMA zero-filling columns 96-127), a
+step of 18 takes 32 query rows (`bwd_query_tile`), and no tail is folded.
 """
 
 from __future__ import annotations
@@ -87,16 +93,26 @@ def flash_attention_bwd_plain(q, k, v, out, lse, g, *, causal: bool = True,
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-BWD_HEAD_DIMS = (64,)  # the backward kernels' instances (GAR-1B)
+BWD_HEAD_DIMS = (64, 96, 128)  # the backward kernels' instances (GAR-1B, GAR-8B)
+FULL_ONLY_HEAD_DIMS = (96,)  # kernel 5's alone (GAR-8B's tower): no mask, no segment ids
 
 
-def check_backward_head_dim(d: int, kernels: str) -> None:
+def check_backward_head_dim(d: int, kernels: str, *, causal: bool = False,
+                            segments: bool = False) -> None:
     """Raise unless the backward kernels (5, or 17 and 18) have an instance
-    for head dim d: GAR-8B's 96 (tower) and 128 (decoder) wait for theirs,
-    so a train step there raises here rather than falling back."""
-    if d not in BWD_HEAD_DIMS:
-        raise ValueError(f"{kernels} is built for head_dim {BWD_HEAD_DIMS[0]}, got {d}: "
-                         "training at this head dim waits for its instance")
+    for head dim d with this mask, so that a train step without one raises
+    here rather than falling back."""
+    if d not in BWD_HEAD_DIMS or (d in FULL_ONLY_HEAD_DIMS and (causal or segments)):
+        raise ValueError(f"{kernels} is built for head dims {BWD_HEAD_DIMS} ({d} without a "
+                         f"mask or segment ids only for {FULL_ONLY_HEAD_DIMS}), got {d} with "
+                         f"causal={causal}, segment ids={segments}")
+
+
+def bwd_query_tile(d: int) -> int:
+    """Query rows a step of kernel 18 (its segment-skip granularity for
+    queries): 64 at head dim 64; 32 above it, where dK and dV take 128
+    registers a thread."""
+    return 64 if d == 64 else 32
 
 
 def bwd_delta(out: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
@@ -107,17 +123,18 @@ def bwd_delta(out: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
 
 def bwd_prep(out: torch.Tensor, g: torch.Tensor):
     """Kernel 17, first launch: (delta, dq workspace) from the forward's
-    output and its cotangent, both (B, Sq, H, 64) bf16: delta (B, H, Sq)
-    fp32 and a zeroed fp32 (B, Sq, H, 64) workspace for kernel 18."""
-    if out.shape != g.shape or out.shape[-1] != 64 or out.device != g.device:
-        raise ValueError(f"bad shapes: out {out.shape}, g {g.shape} (head_dim 64)")
+    output and its cotangent, both (B, Sq, H, D) bf16, D in BWD_HEAD_DIMS:
+    delta (B, H, Sq) fp32 and a zeroed fp32 (B, Sq, H, D) workspace for
+    kernel 18."""
+    if out.shape != g.shape or out.shape[-1] not in BWD_HEAD_DIMS or out.device != g.device:
+        raise ValueError(f"bad shapes: out {out.shape}, g {g.shape} (head dims {BWD_HEAD_DIMS})")
     for x, name in ((out, "out"), (g, "g")):
         _build.check_operand(x, name)
     b, sq, h, d = out.shape
     delta = torch.empty((b, h, sq), dtype=torch.float32, device=out.device)
     dq_acc = torch.empty((b, sq, h, d), dtype=torch.float32, device=out.device)
     _build.check(_build.library().gar_flash_bwd_prep(
-        out.data_ptr(), g.data_ptr(), delta.data_ptr(), dq_acc.data_ptr(), b, sq, h,
+        out.data_ptr(), g.data_ptr(), delta.data_ptr(), dq_acc.data_ptr(), b, sq, h, d,
         *out.stride()[:3], *g.stride()[:3], _build.stream_handle(out.device)),
         "gar_flash_bwd_prep")
     return delta, dq_acc
@@ -147,7 +164,8 @@ def flash_attention_bwd_dkv(q, k, v, g, lse, delta, dq_acc, *, causal: bool = Tr
         raise ValueError(f"bad shapes: q {q.shape}, k {k.shape}, v {v.shape}")
     if g.shape != q.shape or tuple(lse.shape) != (b, h, sq) or tuple(delta.shape) != (b, h, sq):
         raise ValueError(f"bad shapes: g {g.shape}, lse {lse.shape}, delta {delta.shape}")
-    check_backward_head_dim(d, "kernels 17 and 18 (the flash backward)")
+    check_backward_head_dim(d, "kernels 17 and 18 (the flash backward)", causal=causal,
+                            segments=segment_ids is not None)
     if causal and sk < sq:
         raise ValueError(f"causal attention needs Sk >= Sq, got {sk} < {sq}")
     for x, name in ((q, "q"), (k, "k"), (v, "v"), (g, "g"), (lse, "lse"), (delta, "delta")):
@@ -167,7 +185,7 @@ def flash_attention_bwd_dkv(q, k, v, g, lse, delta, dq_acc, *, causal: bool = Tr
         seg = check_segments(segment_ids, b, sq, sk)
         if seg.device != q.device:
             raise ValueError(f"segment ids are on {seg.device}, q on {q.device}")
-        q_tiles, k_tiles = segment_tiles(seg), segment_tiles(seg, BWD_KEY_TILE)
+        q_tiles, k_tiles = segment_tiles(seg, bwd_query_tile(d)), segment_tiles(seg, BWD_KEY_TILE)
     dk = torch.empty(k.shape, dtype=k.dtype, device=q.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=q.device)
     ptr = [None if x is None else x.data_ptr() for x in (seg, q_tiles, k_tiles)]

@@ -25,6 +25,7 @@ from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
+from ..core.weights import require_device
 
 class PagedKV(NamedTuple):
     k: torch.Tensor  # (L, K, N, page_size, D)
@@ -43,8 +44,11 @@ def init_paged_kv(
     slots: int,
     max_pages_per_slot: int,
     dtype=torch.bfloat16,
-    device="cpu",
+    device="cuda",
 ) -> PagedKV:
+    """Zeroed page pools, block tables and lengths on `device`: the card
+    unless the caller asks for the CPU (no card raises)."""
+    device = require_device(device)
     shape = (num_layers, kv_heads, num_pages, page_size, head_dim)
     return PagedKV(
         k=torch.zeros(shape, dtype=dtype, device=device),

@@ -68,6 +68,8 @@ class OptimizerConfig:
     freeze_connector: bool = False
     unfreeze_vocab: bool = True
     unfreeze_lm_head: bool = True
+    lora_only: bool = False  # train only the LoRA adapters (+ embeds, lm_head,
+    # mask_embed: `train/lora.lora_trainable_mask`), the reference's llm_lora regime
 
 
 def trainable_mask(params: nn.Module, cfg: OptimizerConfig) -> dict:
@@ -129,14 +131,20 @@ class Optimizer:
     """The trainable leaves' AdamW with clipping and accumulation. `init`
     makes the state, `apply` updates the parameters in place from their
     `.grad` (a trainable leaf without one counts as a zero gradient, as in
-    `jax.grad`)."""
+    `jax.grad`) and frees each `.grad` once its clipped copy is made;
+    `free_frozen_grads` frees the others' (a step's metric has read them)."""
 
     def __init__(self, params: nn.Module, cfg: OptimizerConfig):
         int8 = [n for n, p in params.named_parameters() if not p.dtype.is_floating_point]
         if int8:
             raise ValueError(f"an int8 tree does not train (int8 leaves {int8[:3]}...); "
                              "train the bf16 tree and quantize it after")
-        mask = trainable_mask(params, cfg)
+        if cfg.lora_only:  # embeddings follow unfreeze_vocab, lm_head too, as in JAX
+            from .lora import lora_trainable_mask
+
+            mask = lora_trainable_mask(params, train_embeddings=cfg.unfreeze_vocab)
+        else:
+            mask = trainable_mask(params, cfg)
         self.cfg = cfg
         self.names = [n for n, _ in params.named_parameters() if mask[n.replace(".", "/")]]
         # the leaves in JAX's tree order: its dicts flatten in sorted key order
@@ -147,6 +155,12 @@ class Optimizer:
     def _leaves(self, params: nn.Module) -> List[torch.Tensor]:
         named = dict(params.named_parameters())
         return [named[n] for n in self.names]
+
+    def free_frozen_grads(self, params: nn.Module) -> None:
+        trained = set(self.names)
+        for name, p in params.named_parameters():
+            if name not in trained:
+                p.grad = None
 
     def init(self, params: nn.Module) -> OptState:
         leaves = self._leaves(params)
@@ -167,7 +181,7 @@ class Optimizer:
             state.mini_step = (state.mini_step + 1) % k
             if state.mini_step:
                 return
-            grads = state.acc
+            grads = list(state.acc)
         cfg = self.cfg
         b1, b2 = cfg.betas
         norm = self._global_norm(grads)
@@ -187,6 +201,8 @@ class Optimizer:
             one = torch.ones((), dtype=dtype, device=norm.device)
             g = torch._foreach_div([grads[i] for i in idx],
                                    torch.where(unclipped, one, norm.to(dtype)))
+            for i in idx:  # the clipped copies are made: free each gradient now
+                grads[i] = leaves[i].grad = None
             if cfg.max_grad_norm != 1.0:
                 torch._foreach_mul_(g, torch.where(unclipped, one, one * cfg.max_grad_norm))
             torch._foreach_mul_(mu, c(b1))  # mu = (1 - b1) g + b1 mu, each op rounded

@@ -6,8 +6,12 @@ Where the JAX step is one jitted function returning a new state, the port
 runs eagerly and updates the parameters and the optimizer state in place,
 so one copy of each lives on the card. `init_state` turns on
 `requires_grad` for every float leaf (`jax.value_and_grad` differentiates
-the whole tree; the optimizer's mask decides which leaves move), and the
-step frees the gradients after the update.
+the whole tree, and `grad_norm` covers every gradient; the optimizer's
+mask decides which leaves move). The step frees the frozen leaves'
+gradients once `grad_norm` has read them, and each trainable one once the
+update has its clipped copy: under LoRA (`OptimizerConfig.lora_only`,
+`train/lora.py`) at GAR-8B the frozen base's bf16 gradients are as large as
+the base itself.
 
 On the card, attention runs the hand kernels both ways: the ViT's kernel A
 with its LSE and kernel 5, the decoder's kernel B and kernels 17 and 18
@@ -87,6 +91,8 @@ def _step_with(loss_of: Callable, tx: Optimizer, device) -> Callable:
         loss.backward()
         grads = [p.grad for p in params.parameters() if p.grad is not None]
         metrics = {"loss": loss.detach(), "grad_norm": global_norm(grads)}
+        del grads
+        tx.free_frozen_grads(params)  # they served the metric alone
         tx.apply(params, state.opt_state)
         for p in params.parameters():
             p.grad = None

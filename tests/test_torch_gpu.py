@@ -1976,8 +1976,10 @@ def test_wrappers_refuse_gar8b_head_dims_without_an_instance(rnd):
     """On the card, what has no instance at GAR-8B's head dims raises with
     the missing kernel's name and launches nothing: an int8 cache at 128
     (C8), kernel 16 at 128, A at 80, B at 96 (A's instance is full
-    attention only), the backward of A at 96 and of B at 128 (5, 17, 18:
-    the autograd functions raise before their forward)."""
+    attention only), the backward of A at 80 (5) and of causal attention
+    at 96 (17 and 18 take 96 for kernel 5's full attention only): the
+    autograd functions raise before their forward. 5 at 96 and 17, 18 at
+    128 have their instances (the tests below)."""
     kw = dict(prompt_lens=_cuda_int32([3]), write_pos=_cuda_int32(10), prompt_pad=8)
     k8 = torch.zeros((2, 1, 2, 128, 128), dtype=torch.int8, device="cuda")
     scale = torch.ones((2, 1, 1, 1, 1), device="cuda")
@@ -1993,9 +1995,10 @@ def test_wrappers_refuse_gar8b_head_dims_without_an_instance(rnd):
     with pytest.raises(ValueError, match="kernel B"):
         fa.flash_attention(*(rnd(1, 64, 2, 96),) * 3)
     with pytest.raises(ValueError, match="kernel 5"):
-        va.vit_attention_df(*(rnd(1, 64, 2, 96).requires_grad_() for _ in range(3)))
+        va.vit_attention_df(*(rnd(1, 64, 2, 80).requires_grad_() for _ in range(3)))
     with pytest.raises(ValueError, match="kernels 17 and 18"):
-        fa.flash_attention_df(*(rnd(1, 64, 2, 128).requires_grad_() for _ in range(3)))
+        fa.flash_attention_df(*(rnd(1, 64, 2, 96).requires_grad_() for _ in range(3)),
+                              causal=True)
     assert (va.launches, fa.launches, dec.launches, dec.launches_q8,
             dec.launches_stacked) == before
 
@@ -2335,3 +2338,165 @@ def test_engine_window_run_twice_gives_the_same_tokens(rnd, quantize_kv):
     out = eng.run()
     assert [out[i] for i in ids] == first
     assert eng.counts["gathers"] >= 2
+
+
+# ---------------------------------------------------------------- GAR-8B training: 5 at 96, 17 / 18 at 128
+
+
+@pytest.mark.parametrize("t,s,h", [(9, 1025, 16), (2, 129, 2), (1, 257, 3), (2, 1024, 2),
+                                   (1, 77, 1), (3, 1040, 2)])
+def test_vit_attention_backward_kernel_head_dim_96(rnd, t, s, h):
+    """Kernel 5 at GAR-8B's head dim 96 (17's prep, 18's wide pass at 128's
+    two-atom layout with columns 96-127 zero-filled, 17's cast), v a view of
+    a (T, S, 3, H, 96) buffer as the unfused PE-G block passes it, at the 8B
+    tower's shape and at ragged S (a one-key ninth key tile, a 77-row one,
+    a 32-row query tile's edge), against the plain backward at the sized
+    tolerance; dk and dv bit-equal across two runs."""
+    from grasp_any_region_tpu_torch.ops import flash_backward as fb
+
+    q, k, g = (rnd(t, s, h, 96) for _ in range(3))
+    v = rnd(t, s, 3, h, 96)[:, :, 2]
+    out, lse = va.vit_attention(q, k, v, return_lse=True)
+    before = va.launches_bwd, fb.launches_dq, fb.launches_dkv
+    got = va.vit_attention_bwd(q, k, v, out, lse, g)
+    again = va.vit_attention_bwd(q, k, v, out, lse, g)
+    torch.cuda.synchronize()
+    assert (va.launches_bwd, fb.launches_dq, fb.launches_dkv) == tuple(x + 2 for x in before)
+    want = [w.float() for w in va.vit_attention_bwd_plain(q, k, v, out, lse, g)]
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.shape == (t, s, h, 96)
+        _sized_close(a, b, name)
+    assert torch.equal(got[1], again[1]) and torch.equal(got[2], again[2])
+
+
+@pytest.mark.parametrize("b,sq,sk,h,kh,causal,packed", [
+    (1, 2614, 2614, 32, 8, True, False),  # the 8B train step's prefill
+    (1, 2614, 2614, 32, 8, True, (1900, 2500)),  # with two documents and padding
+    (2, 333, 333, 8, 2, True, False),
+    (1, 130, 300, 4, 1, True, False),
+    (1, 200, 333, 8, 2, False, False),
+    (1, 333, 333, 8, 4, True, (100, 129, 250)),
+    (2, 520, 520, 8, 1, True, (64, 127, 130, 300, 511)),
+    (2, 700, 700, 8, 2, True, True),
+    (1, 1040, 1040, 8, 2, False, False),
+    (2, 31, 31, 4, 4, True, False),
+])
+def test_flash_backward_kernels_head_dim_128(rnd, b, sq, sk, h, kh, causal, packed):
+    """Kernels 17 and 18 at GAR-8B's decoder head dim 128 (18's wide
+    instance: 32-row query steps, two consumer warpgroups, thread 0 the TMA
+    loader) from B's forward with its LSE, at the 8B prefill (with and
+    without segment ids) and at ragged shapes: Sq < Sk, GQA 1-8, documents
+    ending inside and at the edges of the 32-row and 128-key tiles, full
+    attention; against the plain backward at the sized tolerance; dk and dv
+    bit-equal across two runs, the counters one each a call."""
+    from grasp_any_region_tpu_torch.ops import flash_backward as fb
+
+    q, g = rnd(b, sq, h, 128), rnd(b, sq, h, 128)
+    k, v = rnd(b, sk, kh, 128), rnd(b, sk, kh, 128)
+    seg = None
+    if packed is True:
+        seg = _packed_segments(b, sq, torch.Generator().manual_seed(sq))
+    elif packed:
+        seg = _documents(b, sq, packed)
+    kw = dict(causal=causal, segment_ids=seg)
+    out, lse = fa.flash_attention(q, k, v, return_lse=True, **kw)
+    before = fb.launches_dq, fb.launches_dkv, fb.launches_segments
+    got = fb.flash_attention_bwd(q, k, v, out, lse, g, **kw)
+    again = fb.flash_attention_bwd(q, k, v, out, lse, g, **kw)
+    torch.cuda.synchronize()
+    assert (fb.launches_dq, fb.launches_dkv, fb.launches_segments) == (
+        before[0] + 2, before[1] + 2, before[2] + 2 * (seg is not None))
+    want = [w.float() for w in fb.flash_attention_bwd_plain(q, k, v, out, lse, g, **kw)]
+    for name, a, b_ in zip(("dq", "dk", "dv"), got, want):
+        _sized_close(a, b_, name)
+    assert torch.equal(got[1], again[1]) and torch.equal(got[2], again[2])
+    _sized_close(again[0], want[0], "dq, second run")
+
+
+@pytest.mark.parametrize("d", [96, 128])
+def test_flash_backward_prep_at_gar8b_head_dims(rnd, d):
+    """Kernel 17's prep at 96 (four threads a row, three 8-column chunks
+    each) and 128 (eight threads, two chunks): delta against `bwd_delta`,
+    out a strided view, the workspace zeroed; its cast at d ** -0.5."""
+    from grasp_any_region_tpu_torch.ops import flash_backward as fb
+
+    out = rnd(2, 77, 6, 3, d)[:, :, :, 1]
+    g = rnd(2, 77, 6, d)
+    delta, acc = fb.bwd_prep(out, g)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(delta, fb.bwd_delta(out, g), atol=1e-4, rtol=1e-5)
+    assert acc.shape == (2, 77, 6, d) and not acc.any()
+    acc.normal_()
+    torch.testing.assert_close(fb.bwd_dq_cast(acc).float(),
+                               (acc * d ** -0.5).to(torch.bfloat16).float(), atol=0, rtol=0)
+
+
+def test_lora_train_step_at_a_narrow_8b_config_matches_the_cpu(rnd):
+    """One LoRA loss and backward at a narrow GAR-8B-shaped config (the
+    PE-G tower at head dim 96, 2 heads, depth 2; the decoder at head dim
+    128, 4 / 1 heads, 2 layers; untied head): the card's kernel path (A, 5
+    at 96; B, 17, 18 at 128) against the CPU's plain path from the same
+    seeded bf16 base and fp32 adapters (B random, so A's gradient flows);
+    the loss and every gradient leaf, `llm/lora_scaling` and the frozen
+    ones included, within 5e-2 of that leaf's max |g| (as chip_smoke.py's
+    train cross-check); then two lora_only steps on the card: finite, the
+    frozen base unchanged, the adapters moved, every gradient freed."""
+    import copy
+
+    from grasp_any_region_tpu_torch.core.config import gar_8b
+    from grasp_any_region_tpu_torch.core.weights import flat_grads, init_gar_params
+    from grasp_any_region_tpu_torch.data.synthetic import synthetic_batch
+    from grasp_any_region_tpu_torch.ops import flash_backward as fb
+    from grasp_any_region_tpu_torch.train import (OptimizerConfig, init_state, loss_fn,
+                                                  make_train_step)
+    from grasp_any_region_tpu_torch.train.lora import LoRAConfig, add_lora_params
+
+    cfg = gar_8b()
+    cfg = dataclasses.replace(
+        cfg, vision=dataclasses.replace(cfg.vision, width=192, num_heads=2, depth=2),
+        text=dataclasses.replace(cfg.text, hidden_size=512, num_heads=4, num_kv_heads=1,
+                                 head_dim=128, num_layers=2, intermediate_size=1024))
+    gen = torch.Generator().manual_seed(0)
+    base = init_gar_params(cfg, gen, device="cpu", dtype=torch.bfloat16)
+    with torch.no_grad():
+        base.mask_embed.kernel.normal_(0.0, 0.02, generator=gen)
+    p_cpu = add_lora_params(base, cfg.text, LoRAConfig(), gen)
+    with torch.no_grad():
+        for t in LoRAConfig().targets:
+            getattr(p_cpu.llm.blocks, f"{t}_lora_b").normal_(0.0, 0.02, generator=gen)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        params = copy.deepcopy(p_cpu).to(dev)
+        for p in params.parameters():
+            p.requires_grad_(True)
+        batch, labels, _ = synthetic_batch(cfg, grid=(2, 1), seed=0, device=dev)
+        before = va.launches, va.launches_bwd, fa.launches, fb.launches_dq, fb.launches_dkv
+        loss = loss_fn(params, cfg, batch, labels, mask_compat=False)
+        loss.backward()
+        after = va.launches, va.launches_bwd, fa.launches, fb.launches_dq, fb.launches_dkv
+        runs[dev] = loss.item(), flat_grads(params), tuple(a - b for a, b in zip(after, before))
+    (loss_card, g_card, launched), (loss_cpu, g_cpu, _) = runs["cuda"], runs["cpu"]
+    assert launched == (4, 2, 4, 4, 4)  # A, 5, B (twice a block: remat), 17, 18
+    assert abs(loss_card - loss_cpu) <= 5e-2 * abs(loss_cpu)
+    assert set(g_card) == set(g_cpu) and "llm/lora_scaling" in g_card
+    for name, ref in g_cpu.items():
+        scale = float(abs(ref).max())
+        err = float(abs(g_card[name] - ref).max())
+        assert err <= 5e-2 * scale + 1e-6, (name, err, scale)
+    assert float(abs(g_cpu["llm/blocks/wq_lora_a"]).max()) > 0
+
+    state, tx = init_state(copy.deepcopy(p_cpu), OptimizerConfig(lr=1e-3, total_steps=10,
+                                                                  warmup_ratio=0.0,
+                                                                  lora_only=True))
+    start = {n: p.detach().clone() for n, p in state.params.named_parameters()}
+    step = make_train_step(cfg, tx, mask_compat=False)
+    batch, labels, _ = synthetic_batch(cfg, grid=(2, 1), seed=0)
+    for _ in range(2):
+        state, metrics = step(state, batch, labels)
+        assert torch.isfinite(metrics["loss"]) and torch.isfinite(metrics["grad_norm"])
+    for n, p in state.params.named_parameters():
+        assert p.grad is None
+        if n not in tx.names:
+            assert torch.equal(p, start[n]), n  # the frozen base never moves
+    for n in ("llm.blocks.wq_lora_a", "llm.blocks.wo_lora_b", "mask_embed.kernel"):
+        assert not torch.equal(state.params.get_parameter(n), start[n]), n

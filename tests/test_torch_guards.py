@@ -57,6 +57,34 @@ def test_port_module_list_covers_serving():
             "grasp_any_region_tpu_torch.ops.paged_attention"} <= names
 
 
+def test_serve_factories_default_to_the_card():
+    """Every factory that `serve/` exports with a `device` argument builds
+    on the card unless asked for the CPU, and raises where there is none
+    (the rule the model and data factories keep)."""
+    import inspect
+
+    import torch
+
+    from grasp_any_region_tpu_torch import serve
+
+    defaults = {}
+    for name in dir(serve):
+        obj = getattr(serve, name)
+        if name.startswith("_") or not callable(obj):
+            continue
+        params = inspect.signature(obj).parameters
+        if "device" in params:
+            defaults[name] = params["device"].default
+    assert defaults == {"ContinuousBatchingEngine": "cuda", "init_paged_kv": "cuda"}
+    args = (2, 4, 16, 2, 8)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
+            serve.init_paged_kv(*args, slots=2, max_pages_per_slot=3)
+    paged = serve.init_paged_kv(*args, slots=2, max_pages_per_slot=3, device="cpu")
+    assert {t.device.type for t in paged} == {"cpu"}
+    assert paged.k.shape == (2, 2, 4, 16, 8) and paged.block_table.shape == (2, 3)
+
+
 def _tiny_engine_parts():
     import torch
 

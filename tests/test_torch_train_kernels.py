@@ -9,7 +9,9 @@ and `vit_attention_df` against autograd through the plain forward.
 
 The shapes are `tests/test_flash_backward.py`'s: plain causal, GQA at a
 length off the block multiple, non-causal MQA, a q suffix (right-aligned
-causal offset), and packed segments with padding. Tolerances: gradients
+causal offset), and packed segments with padding; then head dims 128
+(GAR-8B's decoder: GQA, segment ids, Sq != Sk) and 96 (its PE-G tower,
+kernel 5). Tolerances: gradients
 atol 2e-4, rtol 2e-3 (the kernels' tolerance against XLA autodiff in that
 file: the sums run in another order); LSE 1e-5.
 """
@@ -38,6 +40,10 @@ SHAPES = [  # b, sq, sk, h, kh, d, causal, segments
     (2, 160, 160, 4, 2, 32, True, True),
     (1, 256, 256, 2, 2, 64, True, True),
     (1, 333, 333, 4, 2, 64, True, True),  # ragged: documents end inside 128-key tiles
+    # GAR-8B's decoder head dim, GQA 4:1 and 2:1, with and without segment ids, Sq != Sk
+    (1, 128, 128, 4, 1, 128, True, False),
+    (1, 100, 228, 4, 2, 128, True, False),
+    (1, 200, 200, 4, 1, 128, True, True),
 ]
 
 
@@ -97,6 +103,10 @@ def test_flash_backward_plain_matches_pallas(b, sq, sk, h, kh, d, causal, segmen
     (1, 129, 2, 64, False),
     (1, 257, 2, 64, False),
     (2, 129, 2, 64, True),  # v a strided view of a (T, S, 3, H, 64) buffer, as the tower's
+    # GAR-8B's PE-G head dim 96, S past the 32-row query and 128-key tile edges
+    (1, 129, 2, 96, False),
+    (1, 257, 2, 96, False),
+    (2, 129, 2, 96, True),
 ])
 def test_vit_lse_and_onepass_backward_match_pallas(t, s, h, d, fused_v):
     q, k, v, g, _ = _inputs(t, s, s, h, h, d, False, seed=1)

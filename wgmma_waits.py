@@ -21,7 +21,7 @@ from pathlib import Path
 from grasp_any_region_tpu_torch.ops import _build
 
 KERNELS = ("flash_fwd_sm90_kernel", "vit_fwd_rope_sm90_kernel", "flash_bwd_sm90_kernel",
-           "gemm_sm90_kernel")
+           "flash_bwd_wide_sm90_kernel", "gemm_sm90_kernel")
 
 
 def main() -> int:
