@@ -93,6 +93,27 @@ the script exits non-zero (there is no CPU fallback):
    the fused step, and the first token where the greedy output leaves the
    fused path's (printed, not bounded).
 
+Runtime (after phase 6, before serving; `phase_runtime`): the front door,
+`GARRuntime` and the host data path (image processor, prompt rasterizer,
+chat template, synthetic tokenizer, builders), inputs from seeded numpy
+arrays (no image files, so neither PIL nor any other image reader is needed):
+
+R1. On the narrow gar_1b of phase 3, the kernel path against the CPU plain
+   path on builder batches (one region and two regions on a 672^2 image,
+   8 frames of 320 x 180 in video_mode), within 5e-2 of the logit range;
+   then a checkpoint through the port's writer and reader (every leaf
+   bit-equal, the same 8 greedy tokens from both trees).
+R2. GAR-1B at full width through `GARRuntime.load(random_init=True)` in
+   bf16, 48 greedy tokens (eot 128009): one region on a 1792^2 image (17
+   tiles, a 4705-token prompt), two regions and a <Prompt0> / <Prompt1>
+   question (4969 tokens), 8 frames of 1280 x 720 with masks on frames 0
+   and 4 (2622 tokens, video_mode); each with its host preprocessing ms
+   (builder and collate), caption ms split into prefill (`gar_prefill`
+   timed alone) and decode, decode steps, text length, and its launches:
+   D = E = F = G = 23, B = 16, C = I = J = 16 x steps, H = 2 x 16 x steps,
+   every other kernel 0. Then the one-region case with int8_serving:
+   J8 = I8 = C = 16 x steps, H8 = 2 x 16 x steps, J = I = H = 0.
+
 Serving (its kernels in phase 2, its cross-check after phase 7, its runs
 after phase 6):
 
@@ -426,6 +447,9 @@ def phase_kernels():
     serving.update(serving_tower_rows(rnd, gen))
     for key, shapes in serving.items():
         results[key]["serving"] = shapes
+    # the runtime cases' shapes: B over each padded prompt, C over each cache
+    for key, shapes in runtime_attention_rows(rnd).items():
+        results[key]["runtime"] = shapes
     # GAR-8B's shapes: A at head dim 96, B and C at 128, the stream at its widths
     gar8b = gar8b_attention_kernels(rnd)
     gar8b.update(gar8b_train_kernels(rnd))
@@ -684,85 +708,95 @@ def interval_probe(v, plens, pad, wpos):
     return torch.zeros_like(v), v
 
 
-def decode_attention_split_kernel(rnd):
-    """Kernel C (split-KV over a cluster of CTAs) over layer 7 of a (16, B,
-    8, 5120, 64) cache, prompt_pad 4662, write_pos 4700: at B = 2 (prompt
-    lengths 4662 and 4000; the kernels line), B = 1 and B = 24 (prompt
-    lengths from 1 to prompt_pad, PLENS_24 cut at it). At each B: the
-    output against the plain version at TOL16, column write_pos holding the
-    new K/V and the rest of the cache bit-identical, then the interval probe
-    at TOL16; times: kernel, plain, bound (the valid columns' bytes) and the
-    library call, SDPA over the layer slab with enable_gqa and the
-    two-interval boolean mask (timed only; its gap to the kernel printed),
-    with the CTAs a (kv head, row) (`splits`, the cluster size)."""
+def c_row(rnd, plens, pad, wpos, s, layer: int = 7):
+    """Kernel C over layer `layer` of a (16, B, 8, s, 64) cache, B =
+    len(plens): the output against the plain version at TOL16, column
+    write_pos holding the new K/V and the rest of the cache bit-identical,
+    then the interval probe at TOL16; times: kernel, plain, bound (the
+    valid columns' bytes) and the library call, SDPA over the layer slab
+    with enable_gqa and the two-interval boolean mask (timed only; its gap
+    to the kernel returned). Returns (figures, library gap, the kernel's
+    arguments and keywords)."""
     import torch.nn.functional as F
     from grasp_any_region_tpu_torch.ops import decode_attention as dec
 
-    layer, pad, wpos, s = 7, 4662, 4700, 5120
+    b = len(plens)
     wp = torch.tensor(wpos, dtype=torch.int32, device="cuda")
+    plens_t = torch.tensor(plens, dtype=torch.int32, device="cuda")
+    kw = dict(prompt_lens=plens_t, write_pos=wp, prompt_pad=pad)
+    k_all, v_all = rnd(16, b, 8, s, 64), rnd(16, b, 8, s, 64)
+    q, k_new, v_new = rnd(b, 32, 64), rnd(b, 8, 64), rnd(b, 8, 64)
+    err = 0.0
+    for probe in (False, True):
+        if probe:  # one column too many, too few or twice moves a row by >= 0.02
+            k0, vp = interval_probe(v_all[layer], plens, pad, wpos)
+            k_all[layer], v_all[layer], k_new = k0, vp, torch.zeros_like(k_new)
+            del k0, vp
+        k_ref, v_ref = k_all[layer].clone(), v_all[layer].clone()
+        out = dec.decode_attention_fused(q, k_all, v_all, k_new, v_new, layer, **kw)
+        torch.cuda.synchronize()
+        ref = dec.decode_attention_fused_plain(
+            q.float(), k_ref[None].float(), v_ref[None].float(), k_new.float(),
+            v_new.float(), 0, **kw)
+        label = f"C (B = {b}, S = {s}, prompt_pad {pad}, write_pos {wpos}" \
+                f"{', interval probe' if probe else ''})"
+        err = max(err, max_err(out, ref, label, **TOL16))
+        if not (torch.equal(k_all[layer, :, :, wpos], k_new)
+                and torch.equal(v_all[layer, :, :, wpos], v_new)):
+            raise AssertionError(f"{label}: column write_pos does not hold the new K/V")
+        k_ref[:, :, wpos], v_ref[:, :, wpos] = k_new, v_new
+        if not (torch.equal(k_all[layer], k_ref) and torch.equal(v_all[layer], v_ref)):
+            raise AssertionError(f"{label}: the kernel changed cache entries other than "
+                                 "column write_pos")
+        del k_ref, v_ref, ref
+    # library: SDPA with the two-interval boolean mask over the layer slab
+    # (which holds the new column), as kernel 16's row times it
+    ids = torch.arange(s, device="cuda")
+    mask = ((ids < plens_t[:, None]) | ((ids >= pad) & (ids <= wpos)))[:, None, None, :]
+    k_lay, v_lay, q4 = k_all[layer], v_all[layer], q[:, :, None, :]
+
+    def library():
+        return F.scaled_dot_product_attention(q4, k_lay, v_lay, attn_mask=mask,
+                                              scale=64 ** -0.5, enable_gqa=True)
+
+    lib_gap = (library()[:, :, 0].float() - out.float()).abs().max().item()
+    args = (q, k_all, v_all, k_new, v_new, layer)
+    r = dict(max_abs_err=err,
+             ms=cuda_ms(lambda: dec.decode_attention_fused(*args, **kw)),
+             plain_ms=cuda_ms(lambda: dec.decode_attention_fused_plain(*args, **kw), iters=5),
+             library_ms=cuda_ms(library), **decode_bound(q, k_all, plens, pad, wpos))
+    return r, lib_gap, args, kw
+
+
+def decode_attention_split_kernel(rnd):
+    """Kernel C (split-KV over a cluster of CTAs) over layer 7 of a (16, B,
+    8, 5120, 64) cache, prompt_pad 4662, write_pos 4700, through `c_row`: at
+    B = 2 (prompt lengths 4662 and 4000; the kernels line), B = 1 and B = 24
+    (prompt lengths from 1 to prompt_pad, PLENS_24 cut at it), with the
+    CTAs a (kv head, row) (`splits`, the cluster size) swept."""
+    from grasp_any_region_tpu_torch.ops import decode_attention as dec
+
+    layer, pad, wpos, s = 7, 4662, 4700, 5120
     line = None
     for b in (2, 1, 24):
         plens = {2: [4662, 4000], 1: [4662]}.get(b) or [min(x, pad) for x in PLENS_24]
-        plens_t = torch.tensor(plens, dtype=torch.int32, device="cuda")
-        kw = dict(prompt_lens=plens_t, write_pos=wp, prompt_pad=pad)
-        k_all, v_all = rnd(16, b, 8, s, 64), rnd(16, b, 8, s, 64)
-        q, k_new, v_new = rnd(b, 32, 64), rnd(b, 8, 64), rnd(b, 8, 64)
-        splits = dec.card_splits(b, 8, q.device)
-        err = 0.0
-        for probe in (False, True):
-            if probe:  # one column too many, too few or twice moves a row by >= 0.02
-                k0, vp = interval_probe(v_all[layer], plens, pad, wpos)
-                k_all[layer], v_all[layer], k_new = k0, vp, torch.zeros_like(k_new)
-                del k0, vp
-            k_ref, v_ref = k_all[layer].clone(), v_all[layer].clone()
-            out = dec.decode_attention_fused(q, k_all, v_all, k_new, v_new, layer, **kw)
-            torch.cuda.synchronize()
-            ref = dec.decode_attention_fused_plain(
-                q.float(), k_ref[None].float(), v_ref[None].float(), k_new.float(),
-                v_new.float(), 0, **kw)
-            label = f"C (B = {b}{', interval probe' if probe else ''})"
-            err = max(err, max_err(out, ref, label, **TOL16))
-            if not (torch.equal(k_all[layer, :, :, wpos], k_new)
-                    and torch.equal(v_all[layer, :, :, wpos], v_new)):
-                raise AssertionError(f"{label}: column write_pos does not hold the new K/V")
-            k_ref[:, :, wpos], v_ref[:, :, wpos] = k_new, v_new
-            if not (torch.equal(k_all[layer], k_ref) and torch.equal(v_all[layer], v_ref)):
-                raise AssertionError(f"{label}: the kernel changed cache entries other than "
-                                     "column write_pos")
-            del k_ref, v_ref, ref
-        # library: SDPA with the two-interval boolean mask over the layer slab
-        # (which holds the new column), as kernel 16's row times it
-        ids = torch.arange(s, device="cuda")
-        mask = ((ids < plens_t[:, None]) | ((ids >= pad) & (ids <= wpos)))[:, None, None, :]
-        k_lay, v_lay, q4 = k_all[layer], v_all[layer], q[:, :, None, :]
-
-        def library():
-            return F.scaled_dot_product_attention(q4, k_lay, v_lay, attn_mask=mask,
-                                                  scale=64 ** -0.5, enable_gqa=True)
-
-        lib_gap = (library()[:, :, 0].float() - out.float()).abs().max().item()
-        r = dict(max_abs_err=err,
-                 ms=cuda_ms(lambda: dec.decode_attention_fused(q, k_all, v_all, k_new, v_new,
-                                                                layer, **kw)),
-                 plain_ms=cuda_ms(lambda: dec.decode_attention_fused_plain(
-                     q, k_all, v_all, k_new, v_new, layer, **kw), iters=5),
-                 library_ms=cuda_ms(library), **decode_bound(q, k_all, plens, pad, wpos))
+        r, lib_gap, args, kw = c_row(rnd, plens, pad, wpos, s, layer)
+        splits = dec.card_splits(b, 8, args[0].device)
         log(f"[kernels] C (B = {b}, layer {layer}, {splits} CTAs a (kv head, row) in a "
             f"cluster of {splits}, {b * 8} clusters; library: SDPA, boolean mask, enable_gqa, "
             f"max |library - kernel| {lib_gap:.3e}): {share_line(r)}; plain "
-            f"{r['plain_ms']:.4f} ms; max |kernel - plain| {err:.3e} (TOL16)")
+            f"{r['plain_ms']:.4f} ms; max |kernel - plain| {r['max_abs_err']:.3e} (TOL16)")
         chooser, sweep = dec.card_splits, {}
         try:  # the chooser's alternatives: the kernel takes 1-16 CTAs
             for n in (1, 2, 4, 8, 16):
                 dec.card_splits = lambda *_: n
-                sweep[n] = cuda_ms(lambda: dec.decode_attention_fused(
-                    q, k_all, v_all, k_new, v_new, layer, **kw))
+                sweep[n] = cuda_ms(lambda: dec.decode_attention_fused(*args, **kw))
         finally:
             dec.card_splits = chooser
         log(f"[kernels] C (B = {b}) by CTAs a (kv head, row), ms: "
             + ", ".join(f"{n}: {ms:.4f}" for n, ms in sweep.items()))
         line = line or r
-        del k_all, v_all, k_lay, v_lay, mask, out
+        del args, kw
     torch.cuda.empty_cache()
     return line
 
@@ -1842,13 +1876,18 @@ def mega_counts(layers: int, int8: bool) -> dict:
 
 
 @torch.inference_mode()
-def phase_cross_check(cfg, int8: bool = False, mega: bool = False, int8_cache: bool = True):
+def phase_cross_check(cfg, int8: bool = False, mega: bool = False, int8_cache: bool = True,
+                      batches=bench_batch, mask_compat: bool = False, video_mode: bool = False,
+                      label: str = ""):
     """The kernel path on the card against the plain path on the CPU, from
     the same params (int8: quantized once, on the CPU, and copied). The
     default decode step (int8: with an int8 cache, unless int8_cache is
     False, as at GAR-8B's head dim, where C8 has no instance), or with mega
     the mega step on a bf16 cache, on the card and on the CPU (there
-    through its plain versions), its launches counted."""
+    through its plain versions), its launches counted. batches(cfg, device)
+    gives the (batch, prompt_lens) of both sides (default the synthetic
+    bench batch, whose mask plane is binary: mask_compat False); the
+    prefill's logits are read at each row's last prompt token."""
     from grasp_any_region_tpu_torch.models.gar import (
         gar_decode_step, gar_prefill, seed_cache_from_prefill)
     from grasp_any_region_tpu_torch.models.llama import lm_logits
@@ -1858,21 +1897,23 @@ def phase_cross_check(cfg, int8: bool = False, mega: bool = False, int8_cache: b
     if int8:
         p_cpu = quantize_decode_weights(p_cpu)
     tag = ("[cross-check" + (" 8B-shaped" if cfg.text.head_dim == 128 else "")
-           + (" mega" if mega else "") + (" int8" if int8 else "") + "]")
+           + (" mega" if mega else "") + (" int8" if int8 else "") + label + "]")
     use_kernel = "mega" if mega else None
     runs = []  # logits per path: prefill, then 4 decode steps
     tokens = None
     for dev, params in (("cuda", copy.deepcopy(p_cpu).to("cuda")), ("cpu", p_cpu)):
-        batch, plens = bench_batch(cfg, dev)
+        batch, plens = batches(cfg, dev)
         s = batch.input_ids.shape[1]
         reset_counts()
-        hidden, kv = gar_prefill(params, cfg, batch, mask_compat=False)
+        hidden, kv = gar_prefill(params, cfg, batch, mask_compat=mask_compat,
+                                 video_mode=video_mode)
         if dev == "cuda" and cfg.text.head_dim == 128:  # the tower unfused at 96: A; prefill B
             torch.cuda.synchronize()
             want = expect(A=cfg.vision.depth, B=cfg.text.num_layers)
             if read_counts() != want:
                 raise AssertionError(f"{tag} prefill launches {read_counts()}, expected {want}")
-        logits = [lm_logits(params.llm, cfg.text, hidden[:, -1],
+        last = hidden[torch.arange(hidden.shape[0], device=dev), plens.long() - 1]
+        logits = [lm_logits(params.llm, cfg.text, last,
                             valid_vocab=cfg.extended_vocab_size).float().cpu()]
         cache = seed_cache_from_prefill(cfg, kv, plens, ((s + 4 + 511) // 512) * 512,
                                         quantize_kv=int8 and int8_cache and not mega)
@@ -2207,6 +2248,241 @@ def phase_main_path(cfg, params, params_q8=None, mega=False, fused_tokens=None):
         log(f"{tag} greedy tokens leave the fused path's at index "
             f"{int(diff[0]) if len(diff) else 'none (all 256 equal)'} (not bounded)")
     return counts, toks
+
+
+RUNTIME_NEW_TOKENS = 48
+RUNTIME_PAIR_Q = "What is the relation between <Prompt0> and <Prompt1>?"
+RUNTIME_VIDEO_Q = "What is the masked object doing?"
+# (tile rows after the collate, prompt tokens) of each runtime case at GAR-1B
+RUNTIME_SHAPES = {"one region": (17, 4705), "two regions": (17, 4969), "video": (17, 2622)}
+
+
+def runtime_shapes(name: str) -> tuple:
+    """(prompt length, padded prompt length, cache columns) of a runtime
+    case: the collate pads the prompt to a multiple of SEQ_BUCKET, and
+    generate rounds the cache up to a multiple of 512 columns."""
+    from grasp_any_region_tpu_torch.data.builders import SEQ_BUCKET
+
+    plen = RUNTIME_SHAPES[name][1]
+    pad = -(-plen // SEQ_BUCKET) * SEQ_BUCKET
+    return plen, pad, (pad + RUNTIME_NEW_TOKENS + 511) // 512 * 512
+
+
+def runtime_attention_rows(rnd) -> dict:
+    """Kernels B and C at the runtime cases' shapes (`phase_runtime`), B = 1.
+    B: causal over the padded prompt, (1, Sq, 32, 8, 64) with Sq = 4736,
+    4992 and 2688 (prompts of 4705, 4969 and 2622 tokens), its output at
+    `sized_tol`; library SDPA with is_causal. C (`c_row`): layer 7 of the
+    case's (16, 1, 8, S, 64) cache (S = 5120, 5120, 3072), prompt_pad the
+    padded prompt, write_pos at the last decode step, at TOL16 with the
+    interval probe. Returns {key: {case: figures}}."""
+    from grasp_any_region_tpu_torch.ops import flash_attention as fa
+
+    rows = {"B": {}, "C": {}}
+    for name in RUNTIME_SHAPES:
+        plen, sq, cols = runtime_shapes(name)
+        q, k, v = rnd(1, sq, 32, 64), rnd(1, sq, 8, 64), rnd(1, sq, 8, 64)
+        out = fa.flash_attention(q, k, v, causal=True)
+        torch.cuda.synchronize()
+        ref = fa.flash_attention_plain(q.float(), k.float(), v.float(), causal=True)
+        label = f"B (runtime {name}, Sq = {sq})"
+        err = max_err(out, ref, label, **sized_tol(ref))
+        r = dict(max_abs_err=err, ms=cuda_ms(lambda: fa.flash_attention(q, k, v, causal=True)),
+                 plain_ms=cuda_ms(lambda: fa.flash_attention_plain(q, k, v, causal=True),
+                                  iters=3),
+                 library_ms=cuda_ms(lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True)),
+                 **bound(nbytes(q, k, v, out), 4 * 32 * 64 * sq * (sq + 1) // 2))
+        rows["B"][name] = r
+        log(f"[kernels runtime] {label}, causal (library: SDPA, is_causal): {share_line(r)}; "
+            f"plain {r['plain_ms']:.4f} ms; max |kernel - plain| {err:.3e}")
+        del q, k, v, out, ref
+        wpos = sq + RUNTIME_NEW_TOKENS - 2  # the last decode step's column
+        r, lib_gap, args, _ = c_row(rnd, [plen], sq, wpos, cols)
+        rows["C"][name] = r
+        log(f"[kernels runtime] C ({name}: cache (16, 1, 8, {cols}, 64), prompt_len {plen}, "
+            f"prompt_pad {sq}, write_pos {wpos}; library: SDPA, boolean mask, max |library - "
+            f"kernel| {lib_gap:.3e}): {share_line(r)}; plain {r['plain_ms']:.4f} ms; max "
+            f"|kernel - plain| {r['max_abs_err']:.3e} (TOL16, interval probe)")
+        del args
+    torch.cuda.empty_cache()
+    return rows
+
+
+def box_mask(h: int, w: int, y0: int, y1: int, x0: int, x1: int) -> np.ndarray:
+    m = np.zeros((h, w), np.uint8)
+    m[y0:y1, x0:x1] = 1
+    return m
+
+
+def runtime_samples(side: int = 1792, frame_hw=(720, 1280)) -> dict:
+    """The runtime phase's requests, from seeded numpy arrays (no image
+    files, so no PIL): a side x side RGB image with one mask; the same image
+    with two masks and a <Prompt0> / <Prompt1> question; 8 frames with
+    masks on frames 0 and 4."""
+    from grasp_any_region_tpu_torch.data.builders import RegionSample, VideoRegionSample
+
+    rng = np.random.default_rng(SEED)
+    img = rng.integers(0, 256, (side, side, 3), dtype=np.uint8)
+    m0 = box_mask(side, side, side // 8, side // 2, side // 6, 2 * side // 3)
+    m1 = box_mask(side, side, 9 * side // 16, 15 * side // 16, side // 16, side // 2)
+    fh, fw = frame_hw
+    frames = [rng.integers(0, 256, (fh, fw, 3), dtype=np.uint8) for _ in range(8)]
+    fmasks = {0: box_mask(fh, fw, fh // 8, fh // 2, fw // 8, fw // 2),
+              4: box_mask(fh, fw, fh // 4, 3 * fh // 4, fw // 3, 5 * fw // 6)}
+    return {"one region": [RegionSample(img, {1: m0})],
+            "two regions": [RegionSample(img, {0: m0, 1: m1}, question=RUNTIME_PAIR_Q)],
+            "video": [VideoRegionSample(frames, fmasks, RUNTIME_VIDEO_Q)]}
+
+
+def build_case(cfg, samples, device):
+    """(batch, prompt_lens) of a runtime case through the port's builders,
+    with the synthetic tokenizer, as GARRuntime builds them."""
+    from grasp_any_region_tpu_torch.data.builders import (VideoRegionSample, build_region_batch,
+                                                          build_video_batch)
+    from grasp_any_region_tpu_torch.data.image_processor import (GARImageProcessor,
+                                                                 ImageProcessorConfig)
+    from grasp_any_region_tpu_torch.data.tokenizer import GARTokenizer
+
+    tok = GARTokenizer.synthetic(cfg.prompt_numbers)
+    proc = GARImageProcessor(ImageProcessorConfig(max_num_tiles=cfg.max_num_tiles))
+    video = isinstance(samples[0], VideoRegionSample)
+    return (build_video_batch if video else build_region_batch)(cfg, tok, proc, samples,
+                                                                device=device)
+
+
+def narrow_case(kind: str):
+    """A `phase_cross_check` batch factory: the runtime case `kind` on a
+    672 x 672 image (8 frames of 180 x 320) through the builders."""
+    return lambda cfg, device: build_case(cfg, runtime_samples(672, (180, 320))[kind], device)
+
+
+@torch.inference_mode()
+def phase_checkpoint_round_trip(cfg):
+    """The port's checkpoint writer and reader at the narrow config: every
+    leaf back bit for bit, and the same greedy tokens from both trees on a
+    builder batch."""
+    import tempfile
+
+    from grasp_any_region_tpu_torch.core.weights import load_checkpoint, save_checkpoint
+    from grasp_any_region_tpu_torch.models.generate import generate
+
+    params = random_params(cfg, "cuda")
+    with torch.no_grad():  # larger projections, so greedy decoding does not repeat one token
+        for name in ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down"):
+            getattr(params.llm.blocks, name).mul_(10.0)
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        save_checkpoint(d, cfg, params)
+        t1 = time.perf_counter()
+        cfg_back, back = load_checkpoint(d, device="cuda", dtype=torch.bfloat16)
+        t2 = time.perf_counter()
+        size = os.path.getsize(os.path.join(d, "model.safetensors"))
+    if cfg_back != cfg:
+        raise AssertionError("[checkpoint] the config read back differs")
+    leaves = 0
+    for (name, p), (name_b, q) in zip(params.named_parameters(), back.named_parameters()):
+        if name != name_b or p.dtype != q.dtype or not torch.equal(p, q):
+            raise AssertionError(f"[checkpoint] leaf {name} differs after the round trip")
+        leaves += 1
+    batch, plens = narrow_case("two regions")(cfg, "cuda")
+    toks = [generate(tree, cfg, batch, plens, max_new_tokens=8, eot_id=-1).tokens
+            for tree in (params, back)]
+    if not torch.equal(*toks):
+        raise AssertionError(f"[checkpoint] greedy tokens differ: {toks[0].tolist()} against "
+                             f"{toks[1].tolist()}")
+    log(f"[checkpoint] narrow config: {leaves} leaves bit-equal after save ({t1 - t0:.2f} s) "
+        f"and load ({t2 - t1:.2f} s) of {size / 2**20:.1f} MiB; greedy tokens equal "
+        f"{toks[0][0].tolist()}")
+
+
+@torch.inference_mode()
+def phase_runtime(smi: str):
+    """The front door: GARRuntime and the host data path. At the narrow
+    config, the kernel path against the CPU plain path on builder batches
+    (one region, two regions, video with video_mode) and the checkpoint
+    round trip; then GAR-1B at full width through
+    `GARRuntime.load(random_init=True)` in bf16: one region on a 1792^2
+    image, two regions, 8 frames of 1280 x 720 (video), each with its host
+    preprocessing ms, caption ms split into prefill and decode, decode
+    steps, text length and launches (D = E = F = G = 23, B = 16,
+    C = I = J = 16 x steps, H = 2 x 16 x steps, every other kernel 0);
+    then the one-region case with int8_serving (J8 = I8 = C = 16 x steps,
+    H8 = 2 x 16 x steps). Phase 2 holds B and C at these cases' shapes
+    (`runtime_attention_rows`). Returns the figures by case."""
+    from grasp_any_region_tpu_torch.cli.runtime import GARRuntime
+    from grasp_any_region_tpu_torch.data.builders import VideoRegionSample
+    from grasp_any_region_tpu_torch.models.gar import gar_prefill
+
+    for kind in ("one region", "two regions", "video"):
+        phase_cross_check(narrow_config(), batches=narrow_case(kind), mask_compat=True,
+                          video_mode=kind == "video", label=f" builder {kind}")
+    phase_checkpoint_round_trip(narrow_config())
+
+    cases = runtime_samples()
+    figures = {}
+    for int8 in (False, True):
+        t0 = time.perf_counter()
+        rt = GARRuntime.load(None, "gar_1b", random_init=True, seed=SEED, int8_serving=int8,
+                             device="cuda")
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        L, depth = rt.cfg.text.num_layers, rt.cfg.vision.depth
+        names = ("one region",) if int8 else tuple(cases)
+        for i, name in enumerate(names):
+            samples = cases[name]
+            video = isinstance(samples[0], VideoRegionSample)
+            if i == 0:  # warm-up, through the user's entry point
+                (rt.caption_video if video else rt.caption)(samples,
+                                                            max_new_tokens=RUNTIME_NEW_TOKENS)
+            # caption / caption_video is batch (the host) then answer
+            t0 = time.perf_counter()
+            batch, plens = rt.batch(samples)
+            torch.cuda.synchronize()
+            host_ms = (time.perf_counter() - t0) * 1e3
+            reset_counts()
+            t0 = time.perf_counter()
+            texts, out = rt.answer(batch, plens, max_new_tokens=RUNTIME_NEW_TOKENS,
+                                   video_mode=video)
+            torch.cuda.synchronize()
+            caption_ms = (time.perf_counter() - t0) * 1e3
+            counts = read_counts()
+            tag = f"[runtime {name}{' int8' if int8 else ''}]"
+            steps = out.steps
+            n = L * steps
+            dec = dict(C=n, H8=2 * n, I8=n, J8=n) if int8 else dict(C=n, H=2 * n, I=n, J=n)
+            want = expect(B=L, D=depth, E=depth, F=depth, G=depth, **dec)
+            if counts != want:
+                raise AssertionError(f"{tag} launch counts {counts}, expected {want}")
+            shape = (batch.pixel_values.shape[1], int(plens[0]))
+            padded = runtime_shapes(name)[1]  # the shape phase 2 holds B and C at
+            if shape != RUNTIME_SHAPES[name] or batch.input_ids.shape[1] != padded:
+                raise AssertionError(f"{tag} {shape[0]} tile rows and a {shape[1]}-token prompt "
+                                     f"padded to {batch.input_ids.shape[1]}, expected "
+                                     f"{RUNTIME_SHAPES[name]} padded to {padded}")
+            ids = out.tokens
+            if ids.shape != (1, RUNTIME_NEW_TOKENS) or not (
+                    (ids >= 0) & (ids < rt.cfg.extended_vocab_size)).all():
+                raise AssertionError(f"{tag} tokens {ids.shape} or outside the valid vocab")
+            if len(texts) != 1 or not isinstance(texts[0], str):
+                raise AssertionError(f"{tag} no text")
+            prefill_ms = cuda_ms(lambda: gar_prefill(rt.params, rt.cfg, batch, video_mode=video),
+                                 iters=3, warmup=1)
+            del batch
+            figures[tag] = dict(host_ms=host_ms, caption_ms=caption_ms, prefill_ms=prefill_ms,
+                                decode_ms=caption_ms - prefill_ms, steps=steps,
+                                text_len=len(texts[0]), prompt=shape[1], tiles=shape[0])
+            f = figures[tag]
+            log(f"{tag} {smi}: {f['tiles']} tile rows, prompt {f['prompt']} tokens; host "
+                f"preprocessing {host_ms:.1f} ms (builder and collate); caption "
+                f"{caption_ms:.1f} ms = prefill {prefill_ms:.1f} + decode {f['decode_ms']:.1f} "
+                f"({steps} decode steps, {f['decode_ms'] / max(steps, 1):.2f} ms a step); "
+                f"text {f['text_len']} characters; launches "
+                f"{dict((k, v) for k, v in counts.items() if v)} (every other kernel 0)")
+        log(f"[runtime{' int8' if int8 else ''}] GARRuntime.load(gar_1b, random_init) "
+            f"{load_s:.1f} s")
+        del rt
+        torch.cuda.empty_cache()
+    return figures
 
 
 SERVING_NEW_TOKENS = 256
@@ -3460,6 +3736,7 @@ def main() -> int:
                                          fused_tokens=tokens_q8)
     del params_q8
     torch.cuda.empty_cache()
+    phase_runtime(smi)
     serving_runs = phase_serving(cfg, params)
     torch.cuda.empty_cache()
     train_counts, state, tx = phase_train_step(cfg, params)

@@ -1,15 +1,19 @@
 """Model configuration: the dataclasses, presets and token-id constants of
 the JAX package (`grasp_any_region_tpu/core/config.py`), restated here in
-pure Python so that this package never imports jax.
+pure Python so that this package never imports jax, with the same dict /
+JSON round trip, dotted overrides and HF `config.json` mapping, so that a
+`config.json` written by either package loads in the other.
 
 tests/test_torch_ops.py holds every preset equal, field for field, to the
-JAX one.
+JAX one; tests/test_torch_checkpoint.py the I/O.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import json
 from dataclasses import dataclass, field
-from typing import Optional, Tuple
+from typing import Any, Optional, Tuple
 
 # Token-id invariants shared with the reference checkpoints.
 IMAGE_TOKEN_ID = 128002
@@ -237,3 +241,121 @@ def gar_tiny() -> GARConfig:
 
 
 PRESETS = {"gar_1b": gar_1b, "gar_8b": gar_8b, "gar_tiny": gar_tiny}
+
+
+# ---------------------------------------------------------------------------
+# dict / JSON round trip and dotted overrides
+# ---------------------------------------------------------------------------
+
+def to_dict(cfg: Any) -> Any:
+    if dataclasses.is_dataclass(cfg):
+        return {f.name: to_dict(getattr(cfg, f.name)) for f in dataclasses.fields(cfg)}
+    if isinstance(cfg, (list, tuple)):
+        return [to_dict(v) for v in cfg]
+    return cfg
+
+
+def _from_dict(cls, d):
+    if not dataclasses.is_dataclass(cls):
+        return d
+    kwargs = {}
+    hints = {f.name: f for f in dataclasses.fields(cls)}
+    for k, v in d.items():
+        if k not in hints:
+            raise KeyError(f"unknown config key {k!r} for {cls.__name__}")
+        f = hints[k]
+        if f.name == "vision":
+            v = _from_dict(VisionConfig, v)
+        elif f.name == "text":
+            v = _from_dict(TextConfig, v)
+        elif isinstance(v, list) and f.type and "Tuple" in str(f.type):
+            v = tuple(v)
+        kwargs[k] = v
+    return cls(**kwargs)
+
+
+def gar_config_from_dict(d: dict) -> GARConfig:
+    return _from_dict(GARConfig, d)
+
+
+def save_config(cfg: GARConfig, path: str) -> None:
+    with open(path, "w") as f:
+        json.dump(to_dict(cfg), f, indent=2)
+
+
+def load_config(path: str) -> GARConfig:
+    with open(path) as f:
+        return gar_config_from_dict(json.load(f))
+
+
+def apply_overrides(cfg: GARConfig, overrides: dict[str, Any]) -> GARConfig:
+    """Apply dotted-key overrides, e.g. {"text.num_layers": 4}."""
+    d = to_dict(cfg)
+    for key, value in overrides.items():
+        parts = key.split(".")
+        node = d
+        for p in parts[:-1]:
+            node = node[p]
+        if parts[-1] not in node:
+            raise KeyError(f"unknown override key: {key}")
+        node[parts[-1]] = value
+    return gar_config_from_dict(d)
+
+
+def from_hf_config(hf: dict) -> GARConfig:
+    """Map an HF Perception-LM / GAR `config.json` dict onto GARConfig: the
+    bare PLM layout (vision_config / text_config at the top level) or the
+    GAR export layout (nested under "mllm_config")."""
+    if "mllm_config" in hf:
+        prompt_numbers = hf.get("prompt_numbers", 5)
+        hf = hf["mllm_config"]
+    else:
+        prompt_numbers = 5
+    vc = hf.get("vision_config", {})
+    margs = vc.get("model_args", {}) or {}
+    tc = hf.get("text_config", {})
+
+    img_size = tuple(margs.get("img_size", (448, 448)))
+    ref_feat = tuple(margs.get("ref_feat_shape", (32, 32)))
+    width = margs.get("embed_dim", vc.get("num_features", 1024))
+    vision = VisionConfig(
+        width=width,
+        depth=margs.get("depth", 23),
+        num_heads=margs.get("num_heads", 16),
+        mlp_ratio=margs.get("mlp_ratio", 4.0),
+        patch_size=margs.get("patch_size", 14),
+        img_size=img_size,
+        ref_feat_shape=ref_feat,
+        class_token=margs.get("class_token", True),
+        use_rope=margs.get("use_rot_pos_emb", True),
+        rope_mixed=margs.get("rope_mixed", True),
+        rope_temperature=margs.get("rope_temperature", 100.0),
+        init_values=margs.get("init_values", 0.1),
+    )
+    rs = tc.get("rope_scaling") or {}
+    text = TextConfig(
+        vocab_size=tc.get("vocab_size", BASE_VOCAB_SIZE),
+        hidden_size=tc.get("hidden_size", 2048),
+        intermediate_size=tc.get("intermediate_size", 8192),
+        num_layers=tc.get("num_hidden_layers", 16),
+        num_heads=tc.get("num_attention_heads", 32),
+        num_kv_heads=tc.get("num_key_value_heads", 8),
+        head_dim=tc.get("head_dim", tc.get("hidden_size", 2048) // tc.get("num_attention_heads", 32)),
+        rope_theta=tc.get("rope_theta", 500000.0),
+        rms_norm_eps=tc.get("rms_norm_eps", 1e-5),
+        max_position_embeddings=tc.get("max_position_embeddings", 131072),
+        tie_word_embeddings=tc.get("tie_word_embeddings", True),
+        rope_scaling_factor=rs.get("factor"),
+        rope_low_freq_factor=rs.get("low_freq_factor", 1.0),
+        rope_high_freq_factor=rs.get("high_freq_factor", 4.0),
+        rope_original_max_position=rs.get("original_max_position_embeddings", 8192),
+    )
+    return GARConfig(
+        vision=vision,
+        text=text,
+        projector_pooling_ratio=hf.get("projector_pooling_ratio", 2),
+        vision_use_cls_token=hf.get("vision_use_cls_token", True),
+        image_token_id=hf.get("image_token_id", IMAGE_TOKEN_ID),
+        video_token_id=hf.get("video_token_id", VIDEO_TOKEN_ID),
+        prompt_numbers=prompt_numbers,
+    )

@@ -23,18 +23,29 @@ Training (`train/step.init_state`) turns on `requires_grad` for every
 float leaf, as `jax.value_and_grad` differentiates the whole tree; the
 optimizer's mask decides which leaves move. `flat_grads` gives the
 gradients back under the flat JAX names.
+
+Checkpoints keep the JAX package's native layout (`core/weights.py`
+there): `config.json` holding {"gar_tpu_config": the config dict} and
+`model.safetensors` keyed by the '/'-joined names, bf16 leaves stored as
+fp32, so either package reads the other's files. HF-exported GAR and
+Perception-LM checkpoints convert onto the same names
+(`convert_hf_state_dict`). The safetensors format is read and written here
+with numpy (`read_safetensors`, `write_safetensors`), so checkpoints need
+no package beyond numpy.
 """
 
 from __future__ import annotations
 
+import json
 import math
-from typing import Mapping
+import os
+from typing import Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
-from .config import GARConfig
+from .config import GARConfig, from_hf_config, gar_config_from_dict, to_dict
 
 
 def require_device(device) -> torch.device:
@@ -196,4 +207,304 @@ def init_gar_params(cfg: GARConfig, generator: torch.Generator, device="cuda",
     params = GARParams(cfg, device=require_device(device), dtype=dtype)
     for name, p in params.named_parameters():
         init_leaf(name, p, cfg, generator)
+    return params
+
+
+# ---------------------------------------------------------------------------
+# the safetensors format: an 8-byte little-endian header length, a JSON
+# header {name: {dtype, shape, data_offsets}}, then the raw little-endian
+# bytes, each tensor at its offsets from the end of the header
+# ---------------------------------------------------------------------------
+
+_ST_DTYPES = {"F64": "<f8", "F32": "<f4", "F16": "<f2", "I64": "<i8", "I32": "<i4",
+              "I16": "<i2", "I8": "i1", "U8": "u1", "BOOL": "?"}
+_ST_NAMES = {np.dtype(v): k for k, v in _ST_DTYPES.items()}
+
+
+def write_safetensors(tensors: Mapping[str, np.ndarray], path: str) -> None:
+    """Write {name: array} as one safetensors file, names in sorted order.
+    Raises TypeError for a dtype the format's reader here would not give
+    back (bf16 has no numpy dtype: store it as fp32, as save_checkpoint does)."""
+    arrays = {k: np.asarray(tensors[k]) for k in sorted(tensors)}
+    header, offset = {}, 0
+    for name, a in arrays.items():
+        if a.dtype.newbyteorder("<") not in _ST_NAMES:
+            raise TypeError(f"{name}: dtype {a.dtype} has no safetensors name here")
+        header[name] = {"dtype": _ST_NAMES[a.dtype.newbyteorder("<")], "shape": list(a.shape),
+                        "data_offsets": [offset, offset + a.nbytes]}
+        offset += a.nbytes
+    raw = json.dumps(header, separators=(",", ":")).encode()
+    raw += b" " * (-len(raw) % 8)  # the data starts 8-byte aligned
+    with open(path, "wb") as f:
+        f.write(len(raw).to_bytes(8, "little"))
+        f.write(raw)
+        for a in arrays.values():
+            f.write(a.astype(a.dtype.newbyteorder("<"), copy=False).tobytes(order="C"))
+
+
+def read_safetensors(path: str) -> Dict[str, np.ndarray]:
+    """{name: array} of one safetensors file, each tensor read straight
+    from its offsets. BF16 tensors widen to fp32 (exactly: a bf16 value is
+    the high half of its fp32 bits)."""
+    out = {}
+    with open(path, "rb") as f:
+        n = int.from_bytes(f.read(8), "little")
+        header = json.loads(f.read(n))
+        for name, meta in header.items():
+            if name == "__metadata__":
+                continue
+            begin, end = meta["data_offsets"]
+            shape, dt = tuple(meta["shape"]), meta["dtype"]
+            if dt != "BF16" and dt not in _ST_DTYPES:
+                raise TypeError(f"{path}: tensor {name} has dtype {dt}, which is not read here")
+            raw = np.dtype("<u2" if dt == "BF16" else _ST_DTYPES[dt])
+            f.seek(8 + n + begin)
+            a = np.fromfile(f, raw, (end - begin) // raw.itemsize)
+            if dt == "BF16":
+                a = (a.astype(np.uint32) << 16).view(np.float32)
+            out[name] = a.astype(a.dtype.newbyteorder("="), copy=False).reshape(shape)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the native checkpoint
+# ---------------------------------------------------------------------------
+
+def _host(x) -> np.ndarray:
+    """A leaf as a numpy array: torch tensors leave the device, bf16 widens
+    to fp32 (numpy has no bf16)."""
+    if isinstance(x, torch.Tensor):
+        x = x.detach()
+        if x.dtype == torch.bfloat16:
+            x = x.float()
+        return x.cpu().numpy()
+    x = np.asarray(x)
+    return x.astype(np.float32) if str(x.dtype) == "bfloat16" else x
+
+
+def flatten_params(params, prefix: str = "") -> Dict[str, np.ndarray]:
+    """{'a/b/c': numpy array} of a `GARParams` (its parameter names,
+    '.' -> '/') or of a nested dict of arrays (the JAX tree's form); None
+    leaves are dropped, as in JAX."""
+    if isinstance(params, nn.Module):
+        return {prefix + name.replace(".", "/"): _host(p) for name, p in params.named_parameters()}
+    out = {}
+    if isinstance(params, dict):
+        for k, v in params.items():
+            if v is not None:
+                out.update(flatten_params(v, f"{prefix}{k}/"))
+        return out
+    out[prefix[:-1]] = _host(params)
+    return out
+
+
+def unflatten_params(flat: Mapping[str, np.ndarray]) -> dict:
+    tree: dict = {}
+    for key, val in flat.items():
+        parts = key.split("/")
+        node = tree
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = val
+    return tree
+
+
+def save_checkpoint(path: str, cfg: GARConfig, params) -> None:
+    """Write `path/config.json` and `path/model.safetensors` (JAX
+    `save_checkpoint`'s layout: float leaves fp32, int8 leaves int8)."""
+    os.makedirs(path, exist_ok=True)
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump({"gar_tpu_config": to_dict(cfg)}, f, indent=2)
+    write_safetensors(flatten_params(params), os.path.join(path, "model.safetensors"))
+
+
+def read_checkpoint(path: str) -> Tuple[GARConfig, Dict[str, np.ndarray]]:
+    """(config, flat numpy tree) of a checkpoint directory, native or
+    HF-exported (converted onto the native names), on the host."""
+    with open(os.path.join(path, "config.json")) as f:
+        raw = json.load(f)
+    tensors: Dict[str, np.ndarray] = {}
+    for name in sorted(os.listdir(path)):
+        if name.endswith(".safetensors"):
+            tensors.update(read_safetensors(os.path.join(path, name)))
+    if "gar_tpu_config" in raw:
+        return gar_config_from_dict(raw["gar_tpu_config"]), tensors
+    cfg = from_hf_config(raw)
+    return cfg, flatten_params(convert_hf_state_dict(cfg, tensors))
+
+
+def load_checkpoint(path: str, device="cuda", dtype=torch.float32):
+    """(config, `GARParams`) of a checkpoint directory (`read_checkpoint`,
+    then `load_flat_params` on `device`: the card unless the caller asks
+    for the CPU)."""
+    device = require_device(device)
+    cfg, flat = read_checkpoint(path)
+    return cfg, load_flat_params(flat, cfg, device=device, dtype=dtype)
+
+
+# ---------------------------------------------------------------------------
+# HF / torch names -> native (JAX `core/weights.py`): torch Linear stores
+# (out, in), the native matmuls (in, out); per-layer tensors stack on a
+# leading L axis; the ViT patch conv (D, C, p, p) flattens channel-major to
+# (C*p*p, D); embedding rows pad up to cfg.padded_vocab_size
+# ---------------------------------------------------------------------------
+
+def _strip_prefixes(name: str) -> str:
+    """Drop the wrapper prefixes of the GAR export, PLM and train-time
+    state dicts."""
+    for p in ("mllm.model.", "mllm.", "model.model.", "model."):
+        if name.startswith(p):
+            name = name[len(p):]
+    return name
+
+
+def _taker(t: Mapping[str, np.ndarray]):
+    def take(name: str, transpose: bool = False) -> Optional[np.ndarray]:
+        if name not in t:
+            return None
+        x = np.asarray(t[name])
+        return x.T if transpose else x
+
+    def stack(fmt: str, n: int, transpose: bool = False) -> Optional[np.ndarray]:
+        xs = []
+        for i in range(n):
+            x = take(fmt.format(i), transpose)
+            if x is None:
+                return None
+            xs.append(x)
+        return np.stack(xs)
+
+    return take, stack
+
+
+def convert_hf_llama(text_cfg, tensors: Mapping[str, np.ndarray],
+                     vocab_rows: Optional[int] = None,
+                     already_stripped: bool = False) -> Optional[dict]:
+    """An HF Llama(-3) decoder state dict (bare `LlamaForCausalLM` names, or
+    `language_model.`-prefixed inside a GAR / PLM export) as the native
+    `llm` tree; None when it holds no decoder weights."""
+    L = text_cfg.num_layers
+    t = tensors if already_stripped else {_strip_prefixes(k): v for k, v in tensors.items()}
+    take, stack = _taker(t)
+
+    lm = None
+    for prefix in ("language_model.", "language_model.model.", ""):
+        if take(prefix + "embed_tokens.weight") is not None:
+            lm = prefix
+            break
+    if lm is None:
+        return None
+    embed = take(lm + "embed_tokens.weight")
+    rows = vocab_rows or embed.shape[0]
+    if embed.shape[0] < rows:
+        embed = np.concatenate(
+            [embed, np.zeros((rows - embed.shape[0], embed.shape[1]), embed.dtype)])
+    llm = {
+        "embed": embed,
+        "blocks": {
+            "attn_norm": stack(lm + "layers.{}.input_layernorm.weight", L),
+            "wq": stack(lm + "layers.{}.self_attn.q_proj.weight", L, transpose=True),
+            "wk": stack(lm + "layers.{}.self_attn.k_proj.weight", L, transpose=True),
+            "wv": stack(lm + "layers.{}.self_attn.v_proj.weight", L, transpose=True),
+            "wo": stack(lm + "layers.{}.self_attn.o_proj.weight", L, transpose=True),
+            "mlp_norm": stack(lm + "layers.{}.post_attention_layernorm.weight", L),
+            "w_gate": stack(lm + "layers.{}.mlp.gate_proj.weight", L, transpose=True),
+            "w_up": stack(lm + "layers.{}.mlp.up_proj.weight", L, transpose=True),
+            "w_down": stack(lm + "layers.{}.mlp.down_proj.weight", L, transpose=True),
+        },
+        "final_norm": take(lm + "norm.weight"),
+    }
+    head = take("lm_head.weight")
+    if head is None:
+        head = take("language_model.lm_head.weight")
+    if head is not None and not text_cfg.tie_word_embeddings:
+        h = head.T  # (D, V)
+        if h.shape[1] < rows:
+            h = np.concatenate([h, np.zeros((h.shape[0], rows - h.shape[1]), h.dtype)], axis=1)
+        llm["lm_head"] = h
+    return llm
+
+
+def convert_hf_state_dict(cfg: GARConfig, tensors: Mapping[str, np.ndarray]) -> dict:
+    """An HF-exported GAR (or Perception-LM) state dict as the native nested
+    tree. Raises ValueError when the tower, projector or decoder is missing;
+    a missing mask embed is zero, as at init."""
+    VL = cfg.vision.depth
+    t = {_strip_prefixes(k): v for k, v in tensors.items()}
+    take, stack = _taker(t)
+    params: dict = {}
+
+    vt = "vision_tower.timm_model."
+    pe = take(vt + "patch_embed.proj.weight")
+    if pe is not None:
+        d = pe.shape[0]
+        vision = {
+            "patch_embed": {
+                "kernel": pe.reshape(d, -1).T,  # (C*p*p, D) channel-major
+                "bias": take(vt + "patch_embed.proj.bias"),
+            },
+            "blocks": {
+                "ln1_scale": stack(vt + "blocks.{}.norm1.weight", VL),
+                "ln1_bias": stack(vt + "blocks.{}.norm1.bias", VL),
+                "wqkv": stack(vt + "blocks.{}.attn.qkv.weight", VL, transpose=True),
+                "bqkv": stack(vt + "blocks.{}.attn.qkv.bias", VL),
+                "wo": stack(vt + "blocks.{}.attn.proj.weight", VL, transpose=True),
+                "bo": stack(vt + "blocks.{}.attn.proj.bias", VL),
+                "ln2_scale": stack(vt + "blocks.{}.norm2.weight", VL),
+                "ln2_bias": stack(vt + "blocks.{}.norm2.bias", VL),
+                "fc1": stack(vt + "blocks.{}.mlp.fc1.weight", VL, transpose=True),
+                "b1": stack(vt + "blocks.{}.mlp.fc1.bias", VL),
+                "fc2": stack(vt + "blocks.{}.mlp.fc2.weight", VL, transpose=True),
+                "b2": stack(vt + "blocks.{}.mlp.fc2.bias", VL),
+            },
+        }
+        ls1 = stack(vt + "blocks.{}.ls1.gamma", VL)
+        if ls1 is not None:
+            vision["blocks"]["ls1"] = ls1
+            vision["blocks"]["ls2"] = stack(vt + "blocks.{}.ls2.gamma", VL)
+        cls = take(vt + "cls_token")
+        if cls is not None:
+            vision["cls_token"] = cls.reshape(1, 1, -1)
+        pos = take(vt + "pos_embed")
+        if pos is not None:
+            vision["pos_embed"] = pos.reshape(pos.shape[-2], pos.shape[-1])
+        npre = take(vt + "norm_pre.weight")
+        if npre is not None:
+            vision["ln_pre"] = {"scale": npre, "bias": take(vt + "norm_pre.bias")}
+        npost = take(vt + "norm.weight")
+        if npost is not None:
+            vision["ln_post"] = {"scale": npost, "bias": take(vt + "norm.bias")}
+        rope = take(vt + "rope.freqs")
+        if rope is not None:  # timm's mixed rope: (depth, heads, head_dim / 2, 2)
+            vision["rope_freqs"] = rope.reshape(VL, cfg.vision.num_heads,
+                                                cfg.vision.head_dim // 2, 2)
+        params["vision"] = vision
+
+    fc1 = take("multi_modal_projector.linear_1.weight", transpose=True)
+    if fc1 is not None:
+        params["projector"] = {
+            "fc1": fc1,
+            "b1": take("multi_modal_projector.linear_1.bias"),
+            "fc2": take("multi_modal_projector.linear_2.weight", transpose=True),
+            "b2": take("multi_modal_projector.linear_2.bias"),
+        }
+
+    llm = convert_hf_llama(cfg.text, t, vocab_rows=cfg.padded_vocab_size, already_stripped=True)
+    if llm is not None:
+        params["llm"] = llm
+
+    mpe = take("mask_patch_embedding.weight")
+    if mpe is None:
+        mpe = take("mask_conv.weight")
+    if mpe is not None:
+        params["mask_embed"] = {"kernel": mpe.reshape(mpe.shape[0], -1).T}
+
+    missing = [k for k in ("vision", "projector", "llm") if k not in params]
+    if missing:
+        raise ValueError(f"HF checkpoint missing components {missing}; found keys like "
+                         f"{list(t)[:8]}")
+    if "mask_embed" not in params:
+        kh, kw = cfg.mask_patch_kernel
+        params["mask_embed"] = {
+            "kernel": np.zeros((kh * kw * cfg.mask_in_channels, cfg.vision.width), np.float32)}
     return params

@@ -22,7 +22,7 @@ from ..core.config import GARConfig
 from ..core.weights import ParamGroup
 from .llama import KVCache, LlamaParams, embed_tokens, llama_decode_step, llama_prefill, lm_logits
 from .projector import ProjectorParams, projector_forward
-from .replay import replay_features, scatter_replay
+from .replay import replay_features, replay_features_video, scatter_replay
 from .vision import VisionParams, patchify, vision_forward
 
 
@@ -40,6 +40,8 @@ class GARBatch(NamedTuple):
     replay_pos:   (B, R) int32 start of each region's 256-crop-token run
     replay_valid: (B, R) bool
     num_tiles:    (B,) int32, 1 + ncw*nch valid entries of pixel_values
+    replay_tile:  (B, R) int32 frame of each region's crop run (video mode
+                  only; None in image mode). `map_batch` passes None through.
     """
 
     input_ids: torch.Tensor
@@ -52,6 +54,21 @@ class GARBatch(NamedTuple):
     replay_pos: torch.Tensor
     replay_valid: torch.Tensor
     num_tiles: torch.Tensor
+    replay_tile: Optional[torch.Tensor] = None
+
+
+def map_batch(fn, *batches: GARBatch) -> GARBatch:
+    """GARBatch of fn over the batches' fields, field by field. A field that
+    is None in every batch stays None; batches that differ there raise."""
+    fields = []
+    for xs in zip(*batches):
+        if any(x is None for x in xs):
+            if not all(x is None for x in xs):
+                raise ValueError("batches differ in which fields are None")
+            fields.append(None)
+        else:
+            fields.append(fn(*xs))
+    return GARBatch(*fields)
 
 
 class GARParams(nn.Module):
@@ -141,11 +158,16 @@ def build_prefill_embeds(
     remat: bool = False,
     remat_group: int = 1,
     compute_dtype=torch.bfloat16,
+    video_mode: bool = False,
 ) -> torch.Tensor:
     """Token embeds + image-feature scatter + feature replay -> (B, S, Dt).
     Every step is differentiable (gather, where, the replay's out-of-place
     scatters, RoIAlign's gathers), so gradients reach the tower, the
-    projector and the mask embed as in JAX."""
+    projector and the mask embed as in JAX.
+
+    video_mode: the pixel_values rows are FRAMES (no thumbnail), the
+    placeholders are video_token_id, and each region's replay samples its
+    own frame (batch.replay_tile) instead of the merged tile grid."""
     b, t = batch.pixel_values.shape[:2]
     pix = batch.pixel_values.reshape((b * t,) + batch.pixel_values.shape[2:])
     msk = batch.mask_values.reshape((b * t,) + batch.mask_values.shape[2:])
@@ -154,12 +176,22 @@ def build_prefill_embeds(
                           compute_dtype=compute_dtype)  # (B*T, tok, Dt)
     feats = feats.reshape(b, t, feats.shape[-2], feats.shape[-1])
     tok_embeds = embed_tokens(params.llm, batch.input_ids, compute_dtype)
-    embeds = scatter_image_features(batch.input_ids, tok_embeds, feats, cfg.image_token_id)
-    replay = torch.stack([
-        replay_features(cfg, feats[i], batch.aspect_ratio[i], batch.bboxes[i],
-                        double_scale_compat=double_scale_compat)
-        for i in range(b)
-    ])  # (B, R, 256, Dt)
+    media_id = cfg.video_token_id if video_mode else cfg.image_token_id
+    embeds = scatter_image_features(batch.input_ids, tok_embeds, feats, media_id)
+    if video_mode:
+        if batch.replay_tile is None:
+            raise ValueError("video_mode needs batch.replay_tile (build_video_batch sets it)")
+        replay = torch.stack([
+            replay_features_video(cfg, feats[i], batch.replay_tile[i], batch.bboxes[i],
+                                  double_scale_compat=double_scale_compat)
+            for i in range(b)
+        ])
+    else:
+        replay = torch.stack([
+            replay_features(cfg, feats[i], batch.aspect_ratio[i], batch.bboxes[i],
+                            double_scale_compat=double_scale_compat)
+            for i in range(b)
+        ])  # (B, R, 256, Dt)
     return scatter_replay(embeds, replay, batch.replay_pos, batch.replay_valid)
 
 
@@ -171,12 +203,13 @@ def gar_prefill(
     mask_compat: bool = True,
     double_scale_compat: bool = True,
     compute_dtype=torch.bfloat16,
+    video_mode: bool = False,
 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """Full multimodal prefill. Returns (hidden (B, S, D), (k, v)) with k/v
-    (L, B, S, K, Dh)."""
+    (L, B, S, K, Dh). video_mode: `build_prefill_embeds`'."""
     embeds = build_prefill_embeds(params, cfg, batch, mask_compat=mask_compat,
                                   double_scale_compat=double_scale_compat,
-                                  compute_dtype=compute_dtype)
+                                  compute_dtype=compute_dtype, video_mode=video_mode)
     return llama_prefill(params.llm, cfg.text, embeds, batch.positions,
                          segment_ids=batch.segment_ids)
 

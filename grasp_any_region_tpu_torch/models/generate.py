@@ -23,6 +23,7 @@ EOT_CHECK_EVERY = 32  # decode steps between host looks at the done flags
 class GenerationResult(NamedTuple):
     tokens: torch.Tensor  # (B, max_new_tokens) generated ids, pad after eot
     num_generated: torch.Tensor  # (B,) count including the eot token
+    steps: int  # decode steps run (max_new_tokens - 1, fewer after an early stop)
 
 
 def _sample(logits: torch.Tensor, generator: Optional[torch.Generator],
@@ -49,6 +50,7 @@ def generate(
     double_scale_compat: bool = True,
     compute_dtype=torch.bfloat16,
     quantize_kv: bool = False,
+    video_mode: bool = False,
 ) -> GenerationResult:
     """Prefill, seed the cache, then up to max_new_tokens - 1 decode steps.
 
@@ -56,13 +58,14 @@ def generate(
     decode steps run through the fused form and kernel C8 on any device.
     JAX `generate` honours the flag only where its head-paired cache exists
     (the TPU); the port keeps no paired layout and honours it everywhere.
-    Int8 decode weights are the params' own (models/quantize.py)."""
+    Int8 decode weights are the params' own (models/quantize.py).
+    video_mode: the batch is frames (`gar_prefill`'s)."""
     b, s = batch.input_ids.shape
     dev = batch.input_ids.device
     prompt_lens = prompt_lens.to(device=dev, dtype=torch.int32)
     hidden, kv = gar_prefill(params, cfg, batch, mask_compat=mask_compat,
                              double_scale_compat=double_scale_compat,
-                             compute_dtype=compute_dtype)
+                             compute_dtype=compute_dtype, video_mode=video_mode)
     last_hidden = hidden[torch.arange(b, device=dev), prompt_lens.long() - 1]
     logits0 = lm_logits(params.llm, cfg.text, last_hidden,
                         valid_vocab=cfg.extended_vocab_size)
@@ -76,6 +79,7 @@ def generate(
     out = torch.full((b, max_new_tokens), pad_id, dtype=torch.int32, device=dev)
     out[:, 0] = cur
     done = cur == eot_id
+    steps = 0
     for step in range(1, max_new_tokens):
         logits, cache = gar_decode_step(params, cfg, cur, cache, s,
                                         compute_dtype=compute_dtype)
@@ -84,6 +88,7 @@ def generate(
         out[:, step] = nxt
         done = done | (nxt == eot_id)
         cur = nxt
+        steps = step
         if eot_id >= 0 and step % EOT_CHECK_EVERY == 0 and bool(done.all()):
             break
 
@@ -91,4 +96,5 @@ def generate(
     is_eot = out == eot_id
     first_eot = torch.argmax(is_eot.to(torch.int32), dim=-1)
     num = torch.where(is_eot.any(dim=-1), first_eot + 1, max_new_tokens)
-    return GenerationResult(tokens=out, num_generated=num.to(torch.int32))
+    return GenerationResult(tokens=out, num_generated=num.to(torch.int32), steps=steps)
+

@@ -1,15 +1,16 @@
-"""RoI-aligned feature replay, image mode (`grasp_any_region_tpu/models/replay.py`).
+"""RoI-aligned feature replay (`grasp_any_region_tpu/models/replay.py`).
 
-For each region, RoIAlign (torchvision `aligned=True`, sampling ratio 2,
-written here in plain torch) samples a 16x16 crop of the region's box
-straight off the tile array: global feature coordinates map to (tile, local)
-indices, so bilinear taps that cross a tile border read the neighbouring
-tile and the merged feature map is never built. The 256 crop vectors then
-replace the embeddings of the region's crop-token run.
+Image mode: for each region, RoIAlign (torchvision `aligned=True`,
+sampling ratio 2, written here in plain torch) samples a 16x16 crop of the
+region's box straight off the tile array: global feature coordinates map
+to (tile, local) indices, so bilinear taps that cross a tile border read
+the neighbouring tile and the merged feature map is never built. Video
+mode: each region samples its own frame's 16x16 map
+(`replay_features_video`). The 256 crop vectors then replace the
+embeddings of the region's crop-token run.
 
 double_scale_compat=True reproduces the released checkpoints' double
 scaling of the boxes (to feature coords, then by 1/28 once more).
-Video mode waits for a later slice.
 """
 
 from __future__ import annotations
@@ -71,31 +72,82 @@ def roi_align_tiled(
         for ix in range(sampling_ratio):
             y = ys[:, :, iy][:, :, None].expand(r, pooled, pooled)
             x = xs[:, :, ix][:, None, :].expand(r, pooled, pooled)
-            oob = (y < -1.0) | (y > feat_h) | (x < -1.0) | (x > feat_w)
-            yc = y.clamp(min=0.0)
-            xc = x.clamp(min=0.0)
-            y_low = torch.floor(yc).long()
-            x_low = torch.floor(xc).long()
-            y_clamp = y_low >= h_i - 1
-            x_clamp = x_low >= w_i - 1
-            y_low = torch.where(y_clamp, h_i - 1, y_low)
-            x_low = torch.where(x_clamp, w_i - 1, x_low)
-            y_high = torch.where(y_clamp, h_i - 1, y_low + 1)
-            x_high = torch.where(x_clamp, w_i - 1, x_low + 1)
-            yc = torch.where(y_clamp, y_low.float(), yc)
-            xc = torch.where(x_clamp, x_low.float(), xc)
-            ly, lx = yc - y_low, xc - x_low
-            hy, hx = 1.0 - ly, 1.0 - lx
-            zero = torch.zeros((), device=tiles.device)
-            w1 = torch.where(oob, zero, hy * hx) * inv_count
-            w2 = torch.where(oob, zero, hy * lx) * inv_count
-            w3 = torch.where(oob, zero, ly * hx) * inv_count
-            w4 = torch.where(oob, zero, ly * lx) * inv_count
-            out = out + w1[..., None] * gather_global(y_low, x_low)
-            out = out + w2[..., None] * gather_global(y_low, x_high)
-            out = out + w3[..., None] * gather_global(y_high, x_low)
-            out = out + w4[..., None] * gather_global(y_high, x_high)
+            for yy, xx, w in _bilinear_taps(y, x, h_i, w_i, feat_h, feat_w, inv_count):
+                out = out + w[..., None] * gather_global(yy, xx)
     return out
+
+
+def _bilinear_taps(y: torch.Tensor, x: torch.Tensor, h_i, w_i, feat_h, feat_w, inv_count: float):
+    """torchvision's bilinear taps of RoIAlign sample points y, x (R, pooled,
+    pooled) on an h_i x w_i map: ((y_low, x_low, weight), ...) four times,
+    weights 0 outside [-1, feat]."""
+    oob = (y < -1.0) | (y > feat_h) | (x < -1.0) | (x > feat_w)
+    yc = y.clamp(min=0.0)
+    xc = x.clamp(min=0.0)
+    y_low = torch.floor(yc).long()
+    x_low = torch.floor(xc).long()
+    y_clamp = y_low >= h_i - 1
+    x_clamp = x_low >= w_i - 1
+    y_low = torch.where(y_clamp, h_i - 1, y_low)
+    x_low = torch.where(x_clamp, w_i - 1, x_low)
+    y_high = torch.where(y_clamp, h_i - 1, y_low + 1)
+    x_high = torch.where(x_clamp, w_i - 1, x_low + 1)
+    yc = torch.where(y_clamp, y_low.float(), yc)
+    xc = torch.where(x_clamp, x_low.float(), xc)
+    ly, lx = yc - y_low, xc - x_low
+    hy, hx = 1.0 - ly, 1.0 - lx
+    zero = torch.zeros((), device=y.device)
+    return ((y_low, x_low, torch.where(oob, zero, hy * hx) * inv_count),
+            (y_low, x_high, torch.where(oob, zero, hy * lx) * inv_count),
+            (y_high, x_low, torch.where(oob, zero, ly * hx) * inv_count),
+            (y_high, x_high, torch.where(oob, zero, ly * lx) * inv_count))
+
+
+def roi_align_per_region(
+    maps: torch.Tensor,  # (R, side, side, D): one feature map per region
+    boxes: torch.Tensor,  # (R, 4) in feature coords
+    *,
+    pooled: int = REPLAY_SIDE,
+    sampling_ratio: int = 2,
+) -> torch.Tensor:
+    """RoIAlign(aligned=True) where each region samples its OWN map (the
+    video path: one 16x16 map per frame). Returns (R, pooled, pooled, D) fp32."""
+    r, side, _, d = maps.shape
+    flat = maps.reshape(r, side * side, d).float()
+    ys, xs = _roi_sample_coords(boxes.float(), pooled, sampling_ratio)
+    out = torch.zeros((r, pooled, pooled, d), dtype=torch.float32, device=maps.device)
+    ridx = torch.arange(r, device=maps.device)[:, None, None]
+    for iy in range(sampling_ratio):
+        for ix in range(sampling_ratio):
+            y = ys[:, :, iy][:, :, None].expand(r, pooled, pooled)
+            x = xs[:, :, ix][:, None, :].expand(r, pooled, pooled)
+            for yy, xx, w in _bilinear_taps(y, x, side, side, float(side), float(side),
+                                            1.0 / (sampling_ratio * sampling_ratio)):
+                idx = (yy * side + xx).clamp(0, side * side - 1)
+                out = out + w[..., None] * flat[ridx, idx]
+    return out
+
+
+def replay_features_video(
+    cfg: GARConfig,
+    frame_features: torch.Tensor,  # (F, 256, Dt): one entry per frame
+    frame_idx: torch.Tensor,  # (R,) int frame of each region's crop run
+    bboxes: torch.Tensor,  # (R, 4) normalized
+    *,
+    double_scale_compat: bool = True,
+) -> torch.Tensor:
+    """Video feature replay: region r samples frame frame_idx[r]'s 16x16
+    map (the feature map is always 16x16). Returns (R, 256, Dt) fp32."""
+    side = REPLAY_SIDE
+    f, n, dt = frame_features.shape
+    assert n == side * side
+    grid = frame_features.reshape(f, side, side, dt)
+    maps = grid[frame_idx.long().clamp(0, f - 1)]  # (R, side, side, Dt)
+    boxes_feat = bboxes.float() * float(side)
+    if double_scale_compat:
+        boxes_feat = boxes_feat / PIXELS_PER_POOLED_TOKEN
+    rois = roi_align_per_region(maps, boxes_feat)
+    return rois.reshape(-1, side * side, dt)
 
 
 def replay_features(

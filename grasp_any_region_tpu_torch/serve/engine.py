@@ -42,7 +42,8 @@ import torch
 
 from ..core.config import EOT_TOKEN_ID, GARConfig
 from ..core.weights import require_device
-from ..models.gar import GARBatch, GARParams, _quantize_pairs, build_prefill_embeds, gar_prefill
+from ..models.gar import (GARBatch, GARParams, _quantize_pairs, build_prefill_embeds, gar_prefill,
+                          map_batch)
 from ..models.generate import EOT_CHECK_EVERY
 from ..models.llama import (KVCache, embed_tokens, llama_decode_step, llama_decode_step_paged,
                             llama_decode_step_paged_fused, llama_prefill_chunk, lm_logits)
@@ -332,13 +333,17 @@ class ContinuousBatchingEngine:
 
     def submit(self, batch: GARBatch, prompt_len: int) -> int:
         """Queue one request (batch dim 1, on the engine's device). Returns
-        its id. Raises, before anything runs, for a request on another
-        device or one whose prompt and budget need more pages than a slot's
-        block table or the whole pool holds."""
+        its id. Raises, before anything runs, for a video request, for a
+        request on another device, or for one whose prompt and budget need
+        more pages than a slot's block table or the whole pool holds."""
         if batch.input_ids.shape[0] != 1:
             raise ValueError(f"submit one request at a time, got a batch of "
                              f"{batch.input_ids.shape[0]}")
-        off = sorted({str(x.device) for x in batch if not _on(x.device, self.device)})
+        if batch.replay_tile is not None:
+            raise ValueError("video requests (a batch with replay_tile) are not served: the "
+                             "engine prefills in image mode; use generate(video_mode=True)")
+        off = sorted({str(x.device) for x in batch
+                      if x is not None and not _on(x.device, self.device)})
         if off:
             raise ValueError(f"the engine runs on {self.device}, but the request is on {off}")
         self._budget_pages(int(prompt_len))
@@ -452,7 +457,7 @@ class ContinuousBatchingEngine:
                     break
                 # bucket on every leaf's shape: tiles, regions and length vary
                 # per request and concatenate only when equal
-                shape = tuple(tuple(x.shape) for x in batch)
+                shape = tuple(None if x is None else tuple(x.shape) for x in batch)
                 if shape0 is None:
                     shape0 = shape
                 elif shape != shape0:
@@ -464,7 +469,7 @@ class ContinuousBatchingEngine:
             for _ in group:
                 self.queue.popleft()
             batch = (group[0][1] if len(group) == 1 else
-                     GARBatch(*(torch.cat(xs, dim=0) for xs in zip(*(g[1] for g in group)))))
+                     map_batch(lambda *xs: torch.cat(xs, dim=0), *(g[1] for g in group)))
             try:
                 tok0s, (ks, vs) = self._prefill(batch, self._dev([g[2] for g in group]))
             except Exception:

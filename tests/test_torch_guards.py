@@ -109,7 +109,7 @@ def test_engine_refuses_tensors_of_another_device():
 
     import torch
 
-    from grasp_any_region_tpu_torch.models.gar import GARParams
+    from grasp_any_region_tpu_torch.models.gar import GARParams, map_batch
     from grasp_any_region_tpu_torch.serve import ContinuousBatchingEngine
 
     cfg, params, batch, plen, ecfg = _tiny_engine_parts()
@@ -119,13 +119,41 @@ def test_engine_refuses_tensors_of_another_device():
         with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
             ContinuousBatchingEngine(params, cfg, ecfg)
     eng = ContinuousBatchingEngine(params, cfg, ecfg, dtype=torch.float32, device="cpu")
-    elsewhere = type(batch)(*(x.to("meta") for x in batch))
+    elsewhere = map_batch(lambda x: x.to("meta"), batch)
     with pytest.raises(ValueError, match=r"runs on cpu, but the request is on \['meta'\]"):
         eng.submit(elsewhere, plen)
     assert not eng.queue and not eng.req_stats
-    two = type(batch)(*(torch.cat([x, x]) for x in batch))
+    two = map_batch(lambda x: torch.cat([x, x]), batch)
     with pytest.raises(ValueError, match="one request at a time"):
         eng.submit(two, plen)
+
+
+def test_engine_refuses_a_video_request():
+    """A video batch (replay_tile set) raises at submit, naming video
+    serving, and queues nothing: the engine prefills in image mode, which
+    would neither scatter the frame features nor replay each region's own
+    frame."""
+    import numpy as np
+    import torch
+
+    from grasp_any_region_tpu_torch.data.builders import VideoRegionSample, build_video_batch
+    from grasp_any_region_tpu_torch.data.image_processor import GARImageProcessor
+    from grasp_any_region_tpu_torch.data.tokenizer import GARTokenizer
+    from grasp_any_region_tpu_torch.serve import ContinuousBatchingEngine
+
+    cfg, params, _, _, ecfg = _tiny_engine_parts()
+    rng = np.random.default_rng(0)
+    frames = [rng.integers(0, 256, (60, 80, 3), dtype=np.uint8) for _ in range(2)]
+    mask = np.zeros((60, 80), np.uint8)
+    mask[10:40, 20:60] = 1
+    batch, plens = build_video_batch(cfg, GARTokenizer.synthetic(), GARImageProcessor(),
+                                     [VideoRegionSample(frames, {1: mask}, "What moves?")],
+                                     device="cpu")
+    assert batch.replay_tile is not None
+    eng = ContinuousBatchingEngine(params, cfg, ecfg, dtype=torch.float32, device="cpu")
+    with pytest.raises(ValueError, match="video requests .* are not served"):
+        eng.submit(batch, int(plens[0]))
+    assert not eng.queue and not eng.req_stats
 
 
 def test_engine_refuses_a_request_past_the_block_table():
@@ -183,3 +211,93 @@ def test_engine_refuses_quantize_kv_at_an_odd_kv_head_count():
     with pytest.raises(ValueError, match="1 kv heads is odd"):
         ContinuousBatchingEngine(params, odd, dataclasses.replace(ecfg, quantize_kv=True),
                                  dtype=torch.float32, device="cpu")
+
+
+def test_port_module_list_covers_the_front_door():
+    """The no-jax walk above imports the CLIs and the host data path too."""
+    names = {m.name for m in pkgutil.walk_packages(grasp_any_region_tpu_torch.__path__,
+                                                  "grasp_any_region_tpu_torch.")}
+    prefix = "grasp_any_region_tpu_torch."
+    assert {prefix + n for n in (
+        "cli.runtime", "cli.gar_with_mask", "cli.gar_relationship", "cli.gar_video",
+        "data.builders", "data.chat", "data.image_processor", "data.prompts", "data.resize",
+        "data.tokenizer", "data.video")} <= names
+
+
+def test_front_door_factories_default_to_the_card(tmp_path):
+    """GARRuntime.load, collate_samples (and the batch builders through it)
+    and load_checkpoint build on the card unless asked for the CPU, and
+    raise where there is none, before reading anything."""
+    import inspect
+
+    import numpy as np
+    import torch
+
+    from grasp_any_region_tpu_torch.cli.runtime import GARRuntime
+    from grasp_any_region_tpu_torch.core.config import gar_tiny
+    from grasp_any_region_tpu_torch.core.weights import load_checkpoint
+    from grasp_any_region_tpu_torch.data.builders import (RegionSample, build_region_batch,
+                                                          build_sample, collate_samples)
+    from grasp_any_region_tpu_torch.data.image_processor import GARImageProcessor
+    from grasp_any_region_tpu_torch.data.tokenizer import GARTokenizer
+
+    for fn in (GARRuntime.load, collate_samples, load_checkpoint):
+        assert inspect.signature(fn).parameters["device"].default == "cuda", fn
+    cfg, tok, proc = gar_tiny(), GARTokenizer.synthetic(), GARImageProcessor()
+    mask = np.zeros((40, 60), np.uint8)
+    mask[5:20, 10:30] = 1
+    sample = RegionSample(np.zeros((40, 60, 3), np.uint8), {1: mask})
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
+            GARRuntime.load(None, "gar_tiny", random_init=True)
+        with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
+            build_region_batch(cfg, tok, proc, [sample])
+        with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
+            collate_samples(cfg, [build_sample(cfg, tok, proc, sample)])
+        with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
+            load_checkpoint(str(tmp_path / "nowhere"))
+    batch, plens = build_region_batch(cfg, tok, proc, [sample], device="cpu")
+    assert {x.device.type for x in batch if x is not None} == {"cpu"}
+    assert batch.replay_tile is None and plens.device.type == "cpu"
+
+
+def test_engine_admits_builder_batches_without_replay_tile():
+    """Two requests from build_region_batch (replay_tile None) share one
+    admission group, concatenated field by field with None passed through,
+    and the engine's tokens equal generate's for each request alone."""
+    import dataclasses
+    import functools
+
+    import numpy as np
+    import torch
+
+    from grasp_any_region_tpu_torch.data.builders import RegionSample, build_region_batch
+    from grasp_any_region_tpu_torch.data.image_processor import GARImageProcessor
+    from grasp_any_region_tpu_torch.data.tokenizer import GARTokenizer
+    from grasp_any_region_tpu_torch.models import generate as gen_mod
+    from grasp_any_region_tpu_torch.serve import ContinuousBatchingEngine
+
+    cfg, params, _, _, ecfg = _tiny_engine_parts()
+    rng = np.random.default_rng(0)
+    tok, proc = GARTokenizer.synthetic(), GARImageProcessor()
+    reqs = []
+    for i in range(2):
+        mask = np.zeros((100, 150), np.uint8)
+        mask[10 + 20 * i:60 + 20 * i, 20:100] = 1
+        sample = RegionSample(rng.integers(0, 256, (100, 150, 3), dtype=np.uint8), {1: mask})
+        batch, plens = build_region_batch(cfg, tok, proc, [sample], device="cpu")
+        assert batch.replay_tile is None
+        reqs.append((batch, int(plens[0])))
+    ecfg = dataclasses.replace(ecfg, num_pages=256, max_pages_per_slot=128)
+    eng = ContinuousBatchingEngine(params, cfg, ecfg, dtype=torch.float32, device="cpu")
+    ids = [eng.submit(b, n) for b, n in reqs]
+    out = eng.run()
+    assert eng.counts["prefill_groups"] == 1 and eng.counts["prefill_rows"] == 2
+    with pytest.MonkeyPatch.context() as mp:  # the engine's fp32 pools: an fp32 cache here too
+        mp.setattr(gen_mod, "seed_cache_from_prefill",
+                   functools.partial(gen_mod.seed_cache_from_prefill, dtype=torch.float32))
+        for rid, (batch, n) in zip(ids, reqs):
+            want = gen_mod.generate(params, cfg, batch, torch.tensor([n]), eot_id=-1,
+                                    max_new_tokens=ecfg.max_new_tokens,
+                                    compute_dtype=torch.float32)
+            assert out[rid] == want.tokens[0].tolist()

@@ -200,6 +200,7 @@ def test_generate_sampling_and_early_exit(pair, monkeypatch):
     near-greedy at a tiny temperature; once every row is done the loop stops
     at the next eot check, and the output is what the full loop would give."""
     from grasp_any_region_tpu_torch.models import generate as tgen_mod
+    from grasp_any_region_tpu_torch.models.gar import map_batch
 
     cfg, params, batch, lens = pair["cfg_t"], pair["tparams"], pair["tb"], pair["tlens"]
     kw = dict(max_new_tokens=8, eot_id=-1, compute_dtype=F32)
@@ -216,7 +217,7 @@ def test_generate_sampling_and_early_exit(pair, monkeypatch):
     # two copies of row 0, so one eot (its token at step 1) ends both rows
     n_new = tgen_mod.EOT_CHECK_EVERY + 8
     eot = int(greedy[0, 1])
-    batch = type(batch)(*(x[[0, 0]] for x in batch))
+    batch = map_batch(lambda x: x[[0, 0]], batch)
     lens = lens[[0, 0]]
     steps = []
     real_step = tgen_mod.gar_decode_step

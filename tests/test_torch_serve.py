@@ -24,7 +24,7 @@ from grasp_any_region_tpu.core.weights import flatten_params
 from grasp_any_region_tpu_torch.core import config as tcfg
 from grasp_any_region_tpu_torch.core.weights import load_flat_params
 from grasp_any_region_tpu_torch.data.synthetic import synthetic_batch
-from grasp_any_region_tpu_torch.models.gar import GARBatch
+from grasp_any_region_tpu_torch.models.gar import map_batch
 from grasp_any_region_tpu_torch.models import generate as tgen
 from grasp_any_region_tpu_torch.serve import ContinuousBatchingEngine, EngineConfig
 from grasp_any_region_tpu_torch.serve import paged_cache as tpc
@@ -125,7 +125,7 @@ def test_engine_matches_jax_generate(tiny):
     from grasp_any_region_tpu.models import gar as jg
 
     jmod = sys.modules["grasp_any_region_tpu.models.generate"]
-    batch = GARBatch(*(jnp.asarray(torch.cat(xs).numpy()) for xs in zip(*(b for b, _ in tiny["reqs"]))))
+    batch = map_batch(lambda *xs: jnp.asarray(torch.cat(xs).numpy()), *(b for b, _ in tiny["reqs"]))
     plens = jnp.asarray([n for _, n in tiny["reqs"]], jnp.int32)
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(jmod, "gar_prefill", functools.partial(jg.gar_prefill, compute_dtype=jnp.float32))
