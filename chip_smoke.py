@@ -114,6 +114,36 @@ R2. GAR-1B at full width through `GARRuntime.load(random_init=True)` in
    every other kernel 0. Then the one-region case with int8_serving:
    J8 = I8 = C = 16 x steps, H8 = 2 x 16 x steps, J = I = H = 0.
 
+SAM and speculative decoding (after the runtime, before serving;
+`phase_sam_speculative`), no kernel of their own (JAX's are XLA):
+
+S1. SAM at the CPU tests' small config (grid 16, window 14), fp32: the
+   card's `encode_image` and `decode_masks` against the CPU's, within 1e-4
+   of the output's range (SAM_TOL; products in fp32, no TF32).
+S2. SAM ViT-H at full width, seeded fp32 weights, one 1792² image: blocks 0
+   (windowed) and 7 (global) against the same block on the CPU from the
+   card's input (SAM_TOL); preprocess_sam and postprocess_mask host ms,
+   encoder ms, prompt encoder + mask decoder ms, peak memory; a point and a
+   box prompt through `SamPredictor` give non-empty masks (areas printed);
+   every launch counter stays 0.
+S3. The point prompt's mask captioned through `GARServer.describe_array`
+   over `GARRuntime.load(gar_1b, random_init)` (bf16, 48 tokens): SAM
+   predict, host preprocessing, prefill and decode ms, the steps, and
+   launches D = E = F = G = 23, B = 16, C = I = J = 16 x steps,
+   H = 32 x steps.
+S4. `GARRuntime.caption(speculative=(4, 4))` on the one-region case of the
+   runtime phase: rounds, accepted / drafted, tokens a verify pass, ms a
+   caption against generate's (in turns), the host syncs (those in
+   models/speculative.py must be rounds + 1), the first verify row's logits
+   within 5e-2 of the range of one XLA-form decode step from the same
+   seeded cache, the first token index leaving generate's fused and XLA
+   forms (printed, not bounded: bf16); launches D-G = 23, B = 16, no
+   decode kernel. Then the bound: wo and w_down zeroed past the draft
+   depth, the draft is the whole model (at least half the drafts kept),
+   timed against generate on the same weights. Last, at the narrow config
+   in fp32 (prefill on the CPU, plain decode attention: the kernels take
+   bf16 only), the speculative tokens equal generate's XLA form.
+
 Serving (its kernels in phase 2, its cross-check after phase 7, its runs
 after phase 6):
 
@@ -245,8 +275,10 @@ their figures at the serving shapes); the last line is
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
+import functools
 import json
 import os
 import statistics
@@ -2485,6 +2517,432 @@ def phase_runtime(smi: str):
     return figures
 
 
+SAM_SMALL = dict(img_size=256, patch_size=16, embed_dim=64, depth=2, num_heads=2, window_size=14,
+                 global_attn_indexes=(1,), out_chans=64, decoder_mlp_dim=128)
+SAM_TOL = 1e-4  # rtol, and atol as a share of the output's range: fp32 on both sides
+SAM_SIDE = 1792  # the seeded image's side (phase_runtime's one-region image)
+SPEC = (4, 4)  # (gamma, draft_layers): JAX's defaults
+
+
+def sam_close(got: torch.Tensor, ref: torch.Tensor, name: str) -> float:
+    """got (the card) within SAM_TOL of ref (the CPU): rtol SAM_TOL and atol
+    SAM_TOL x max |ref|; returns max |got - ref| / max |ref|."""
+    got, ref = got.float().cpu(), ref.float().cpu()
+    scale = ref.abs().max().item()
+    rel = (got - ref).abs().max().item() / scale
+    if got.shape != ref.shape or not torch.isfinite(got).all() or not torch.allclose(
+            got, ref, rtol=SAM_TOL, atol=SAM_TOL * scale):
+        raise AssertionError(f"[sam] {name}: card and CPU differ, max |diff| / max |cpu| "
+                             f"{rel:.3e} (rtol {SAM_TOL}, atol {SAM_TOL} x {scale:.3e})")
+    return rel
+
+
+def sam_prompts(side: int) -> dict:
+    """A point prompt and a box prompt on a side x side image (pixels)."""
+    return {"point": dict(points=[(side / 2, side / 2)], point_labels=[1]),
+            "box": dict(box=(side / 6, side / 8, 2 * side / 3, side / 2))}
+
+
+@torch.inference_mode()
+def phase_sam_cross_check():
+    """The small SAM config of tests/test_torch_sam.py (grid 16, window 14)
+    on the card against the CPU, the same seeded fp32 weights and inputs:
+    `encode_image` and `decode_masks` within SAM_TOL."""
+    from grasp_any_region_tpu_torch.sam import model as sm
+
+    cfg = sm.SAMConfig(**SAM_SMALL)
+    p_cpu = sm.init_sam_params(cfg, torch.Generator().manual_seed(SEED), device="cpu")
+    p_gpu = copy.deepcopy(p_cpu).to("cuda")
+    rng = np.random.default_rng(SEED)
+    pix = torch.from_numpy(rng.standard_normal((2, 3, 256, 256)).astype(np.float32))
+    pts = torch.tensor([[[0.3, 0.4], [0.8, 0.1], [0.2, 0.3], [0.7, 0.6]]] * 2)
+    labs = torch.tensor([[1, 0, 2, 3]] * 2, dtype=torch.int32)
+    out = {}
+    for dev, p in (("cuda", p_gpu), ("cpu", p_cpu)):
+        emb = sm.encode_image(p, cfg, pix.to(dev))
+        masks, iou = sm.decode_masks(p, cfg, emb, sm.encode_points(p, pts.to(dev), labs.to(dev)))
+        out[dev] = (emb, masks, iou)
+    errs = [sam_close(a, b, name) for a, b, name in zip(
+        out["cuda"], out["cpu"], ("encode_image", "decode_masks masks", "decode_masks iou"))]
+    log(f"[sam cross-check] small config (grid 16, window 14, 2 blocks, 1 global), fp32: "
+        f"encode_image {errs[0]:.3e}, decode_masks masks {errs[1]:.3e}, iou {errs[2]:.3e} of "
+        f"the CPU's range (<= {SAM_TOL}); matmul precision "
+        f"{torch.get_float32_matmul_precision()}, allow_tf32 "
+        f"{torch.backends.cuda.matmul.allow_tf32}")
+
+
+@torch.inference_mode()
+def phase_sam_vit_h(smi: str):
+    """SAM ViT-H at full width on the card: seeded fp32 weights, one
+    SAM_SIDE² image. Blocks 0 (windowed) and 7 (global) held against the
+    same block on the CPU from the card's input; the stages timed; a point
+    and a box prompt give non-empty masks; no port kernel launches.
+    Returns (the predictor, the image, its figures)."""
+    from grasp_any_region_tpu_torch.sam import model as sm
+    from grasp_any_region_tpu_torch.sam import pipeline as sp
+
+    cfg = sm.sam_vit_h()
+    t0 = time.perf_counter()
+    params = sm.init_sam_params(cfg, torch.Generator(device="cuda").manual_seed(SEED))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    pred = sp.SamPredictor(params=params, cfg=cfg)
+    if not pred.has_model:
+        raise AssertionError("[sam] the ViT-H predictor has no model")
+    n_params = sum(p.numel() for p in params.parameters())
+    image = np.random.default_rng(SEED).integers(0, 256, (SAM_SIDE, SAM_SIDE, 3), dtype=np.uint8)
+    reset_counts()
+    t0 = time.perf_counter()
+    pix, scale, shp = sp.preprocess_sam(image, cfg.img_size)
+    pre_ms = (time.perf_counter() - t0) * 1e3
+    pixels = torch.from_numpy(pix).cuda()
+
+    # blocks 0 and 7 against the CPU, on the card's inputs
+    enc = params["encoder"]
+    b, p, g = 1, cfg.patch_size, cfg.grid
+    x = pixels.reshape(b, 3, g, p, g, p).permute(0, 2, 4, 1, 3, 5).reshape(b, g, g, 3 * p * p)
+    x = x @ enc["patch_embed"]["kernel"] + enc["patch_embed"]["bias"] + enc["pos_embed"]
+    errs = {}
+    for i in range(8):
+        glob = i in cfg.global_attn_indexes
+        y = sm.encoder_block(enc["blocks"][i], cfg, x, glob)
+        if i in (0, 7):
+            bp_cpu = copy.deepcopy(enc["blocks"][i]).to("cpu")
+            t1 = time.perf_counter()
+            ref = sm.encoder_block(bp_cpu, cfg, x.cpu(), glob)
+            cpu_s = time.perf_counter() - t1
+            errs[i] = (sam_close(y, ref, f"block {i}"), cpu_s)
+            del bp_cpu, ref
+        x = y
+    del x, y
+
+    # the stages: encoder, prompt + decoder, postprocess
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    enc_ms = cuda_ms(lambda: sm.encode_image(params, cfg, pixels), iters=3, warmup=1)
+    peak = torch.cuda.max_memory_allocated()
+    emb = sm.encode_image(params, cfg, pixels)
+    prompt = sam_prompts(SAM_SIDE)["point"]
+    pts = torch.tensor([[[x * scale / cfg.img_size, y * scale / cfg.img_size]
+                         for x, y in prompt["points"]]], device="cuda")
+    labs = torch.tensor([prompt["point_labels"]], dtype=torch.int32, device="cuda")
+    dec_ms = cuda_ms(lambda: sm.decode_masks(params, cfg, emb, sm.encode_points(params, pts, labs)),
+                     iters=5, warmup=1)
+    masks, iou = sm.decode_masks(params, cfg, emb, sm.encode_points(params, pts, labs))
+    best = int(torch.argmax(iou[0, 1:])) + 1
+    logits = masks[0, best].float().cpu().numpy()
+    t0 = time.perf_counter()
+    sp.postprocess_mask(logits, shp, image.shape[:2], cfg.img_size)
+    post_ms = (time.perf_counter() - t0) * 1e3
+    if not torch.isfinite(emb).all() or emb.shape != (1, 256, 64, 64):
+        raise AssertionError(f"[sam] embedding {tuple(emb.shape)} or not finite")
+    t0 = time.perf_counter()
+    pred._embedding(image)  # the predictor's first look: preprocess_sam and the encoder
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t0) * 1e3
+    areas = {}
+    for name, kw in sam_prompts(SAM_SIDE).items():
+        t0 = time.perf_counter()
+        mask = pred.predict(image, **kw)
+        ms = (time.perf_counter() - t0) * 1e3
+        if mask.shape != image.shape[:2] or mask.sum() == 0:
+            raise AssertionError(f"[sam] the {name} prompt gave an empty mask")
+        areas[name] = (int(mask.sum()), ms)
+    torch.cuda.synchronize()
+    if read_counts() != expect():
+        raise AssertionError(f"[sam] SAM launched port kernels: {read_counts()}")
+    figures = dict(preprocess_ms=pre_ms, encoder_ms=enc_ms, decoder_ms=dec_ms,
+                   postprocess_ms=post_ms, peak_gib=peak / 2**30,
+                   encoder_extra_gib=(peak - base) / 2**30, embedding_ms=first_ms, areas=areas,
+                   block_errs=errs)
+    log(f"[sam vit-h] {smi}: {n_params / 1e6:.1f} M fp32 parameters (init {init_s:.1f} s), one "
+        f"{SAM_SIDE}² image; preprocess_sam {pre_ms:.1f} ms (host), encoder {enc_ms:.2f} ms, "
+        f"prompt encoder + mask decoder {dec_ms:.3f} ms, postprocess_mask {post_ms:.1f} ms (host); "
+        f"peak {peak / 2**30:.2f} GiB ({(peak - base) / 2**30:.2f} GiB over the weights and "
+        f"inputs); block 0 (windowed) {errs[0][0]:.3e}, block 7 (global) {errs[7][0]:.3e} of "
+        f"the CPU's range (<= {SAM_TOL}; CPU {errs[0][1]:.1f} / {errs[7][1]:.1f} s); the "
+        f"predictor's embedding (preprocess_sam + encoder) {first_ms:.1f} ms, then on it: "
+        + ", ".join(f"{k} prompt {a} px ({a / image.shape[0] / image.shape[1]:.1%}), predict "
+                    f"{ms:.1f} ms" for k, (a, ms) in areas.items())
+        + "; launches: none (every counter 0)")
+    return pred, image, figures
+
+
+@contextlib.contextmanager
+def patched(*triples):
+    """Set (object, attribute, value) for the block, then restore."""
+    saved = [(obj, name, getattr(obj, name)) for obj, name, _ in triples]
+    for obj, name, value in triples:
+        setattr(obj, name, value)
+    try:
+        yield
+    finally:
+        for obj, name, value in saved:
+            setattr(obj, name, value)
+
+
+def first_difference(a, b) -> str:
+    a, b = list(a), list(b)
+    i = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+    return "none" if i is None else str(i)
+
+
+@torch.inference_mode()
+def phase_spec_narrow_fp32():
+    """The narrow gar_1b at fp32 on the card: `generate_speculative` against
+    `generate`'s XLA form, token for token. The prefill's kernels (B, D-G)
+    and the decode step's attention (C) take bf16 only, so here the prefill
+    runs on the CPU (the plain path, the same weights) and the decode
+    attention is the plain version on the card; the products are cuBLAS
+    fp32 on both paths."""
+    from grasp_any_region_tpu_torch.core.weights import init_gar_params
+    from grasp_any_region_tpu_torch.models import gar, generate as gen_mod, llama
+    from grasp_any_region_tpu_torch.models import speculative as spec_mod
+    from grasp_any_region_tpu_torch.ops.decode_attention import decode_attention_fused_plain
+
+    cfg = narrow_config()
+    p_cpu = init_gar_params(cfg, torch.Generator().manual_seed(SEED), device="cpu",
+                            dtype=torch.float32)
+    with torch.no_grad():
+        p_cpu.mask_embed.kernel.normal_(0.0, 0.02, generator=torch.Generator().manual_seed(1))
+        for name in ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down"):
+            getattr(p_cpu.llm.blocks, name).mul_(10.0)
+    p_gpu = copy.deepcopy(p_cpu).to("cuda")
+    batch, plens = narrow_case("one region")(cfg, "cuda")
+
+    def cpu_prefill(params, cfg_, batch_, **kw):
+        hidden, (k, v) = gar.gar_prefill(p_cpu, cfg_, gar.map_batch(lambda t: t.cpu(), batch_),
+                                         **kw)
+        return hidden.cuda(), (k.cuda(), v.cuda())
+
+    xla_step = functools.partial(gar.gar_decode_step, use_kernel=False)
+    reset_counts()
+    with patched((gen_mod, "gar_prefill", cpu_prefill), (spec_mod, "gar_prefill", cpu_prefill),
+                 (gen_mod, "gar_decode_step", xla_step),
+                 (llama, "decode_attention_fused", decode_attention_fused_plain)):
+        ref = gen_mod.generate(p_gpu, cfg, batch, plens, max_new_tokens=24, eot_id=-1,
+                               compute_dtype=torch.float32)
+        outs = {gk: spec_mod.generate_speculative(
+                    p_gpu, cfg, batch, plens, max_new_tokens=24, gamma=gk[0], draft_layers=gk[1],
+                    eot_id=-1, compute_dtype=torch.float32) for gk in ((4, 1), (3, 2))}
+    torch.cuda.synchronize()
+    if read_counts() != expect():
+        raise AssertionError(f"[spec narrow fp32] kernels launched: {read_counts()}")
+    for gk, out in outs.items():
+        if not torch.equal(out.tokens, ref.tokens):
+            raise AssertionError(f"[spec narrow fp32] gamma, draft_layers {gk}: tokens "
+                                 f"{out.tokens.tolist()} against generate's XLA form "
+                                 f"{ref.tokens.tolist()}")
+    log("[spec narrow fp32] narrow gar_1b, fp32 on the card (prefill on the CPU, plain decode "
+        "attention): generate_speculative's 24 tokens equal generate's XLA form at (gamma, "
+        "draft_layers) " + ", ".join(f"{gk}: {o.stats.rounds} rounds, {o.stats.accepted} / "
+                                      f"{o.stats.drafted} accepted" for gk, o in outs.items())
+        + f"; tokens {ref.tokens[0].tolist()}")
+
+
+@torch.inference_mode()
+def phase_sam_speculative(smi: str) -> dict:
+    """Point and box prompts to captions, and self-speculative decoding, at
+    full width (SAM ViT-H, GAR-1B): the SAM cross-check at the small
+    config; ViT-H (`phase_sam_vit_h`); the caption of the point prompt's
+    mask through `GARServer.describe_array` over `GARRuntime.load(gar_1b,
+    random_init)` and the ViT-H predictor (launches D = E = F = G = 23,
+    B = 16, C = I = J = 16 x steps, H = 32 x steps); then
+    `GARRuntime.caption(speculative=(4, 4))` on phase_runtime's one-region
+    case (launches D-G = 23, B = 16, no decode kernel), its first round's
+    verify logits at row 0 held to one XLA-form decode step, its host syncs
+    counted, its tokens' first departure from generate's fused and XLA
+    forms printed; then the mechanism's bound (wo and w_down zeroed past the
+    draft depth: the draft is the whole model), timed against generate on
+    the same weights; last the narrow fp32 token check
+    (`phase_spec_narrow_fp32`). Returns the figures."""
+    from grasp_any_region_tpu_torch.cli.runtime import GARRuntime
+    from grasp_any_region_tpu_torch.models import generate as gen_mod
+    from grasp_any_region_tpu_torch.models.gar import (gar_decode_step, gar_prefill,
+                                                       seed_cache_from_prefill)
+    from grasp_any_region_tpu_torch.models.llama import lm_logits
+    from grasp_any_region_tpu_torch.models.speculative import _forward_chunk
+    from grasp_any_region_tpu_torch.serve.server import GARServer
+
+    t_phase = time.perf_counter()
+    phase_sam_cross_check()
+    pred, image, figures = phase_sam_vit_h(smi)
+
+    # the caption of the point prompt's mask, through the server's body
+    rt = GARRuntime.load(None, "gar_1b", random_init=True, seed=SEED, device="cuda")
+    L, depth = rt.cfg.text.num_layers, rt.cfg.vision.depth
+    srv = GARServer(rt, pred, max_new_tokens=RUNTIME_NEW_TOKENS)
+    req = {"points": [list(sam_prompts(SAM_SIDE)["point"]["points"][0])]}
+    srv.describe_array(image, req)  # warm-up
+    seen = {}
+    batch_fn, answer_fn = rt.batch, rt.answer
+
+    def timed_batch(samples):
+        t0 = time.perf_counter()
+        out = batch_fn(samples)
+        torch.cuda.synchronize()
+        seen["host_ms"] = (time.perf_counter() - t0) * 1e3
+        seen["batch"] = out
+        return out
+
+    def timed_answer(*a, **k):
+        t0 = time.perf_counter()
+        out = answer_fn(*a, **k)
+        torch.cuda.synchronize()
+        seen["caption_ms"] = (time.perf_counter() - t0) * 1e3
+        seen["result"] = out[1]
+        return out
+
+    reset_counts()
+    t0 = time.perf_counter()
+    with patched((rt, "batch", timed_batch), (rt, "answer", timed_answer)):
+        reply = srv.describe_array(image, req)
+    torch.cuda.synchronize()
+    describe_ms = (time.perf_counter() - t0) * 1e3
+    counts = read_counts()
+    steps = seen["result"].steps
+    n = L * steps
+    want = expect(B=L, D=depth, E=depth, F=depth, G=depth, C=n, H=2 * n, I=n, J=n)
+    if counts != want:
+        raise AssertionError(f"[sam caption] launch counts {counts}, expected {want}")
+    if not isinstance(reply.get("text"), str) or seen["result"].tokens.shape != (
+            1, RUNTIME_NEW_TOKENS):
+        raise AssertionError(f"[sam caption] reply {reply}")
+    batch, plens = seen["batch"]
+    prefill_ms = cuda_ms(lambda: gar_prefill(rt.params, rt.cfg, batch), iters=3, warmup=1)
+    sam_ms = describe_ms - seen["host_ms"] - seen["caption_ms"]
+    figures["caption"] = dict(describe_ms=describe_ms, sam_ms=sam_ms, host_ms=seen["host_ms"],
+                              caption_ms=seen["caption_ms"], prefill_ms=prefill_ms,
+                              decode_ms=seen["caption_ms"] - prefill_ms, steps=steps,
+                              prompt=int(plens[0]), tiles=batch.pixel_values.shape[1])
+    f = figures["caption"]
+    log(f"[sam caption] {smi}: GARServer.describe_array (point prompt, ViT-H embedding cached) "
+        f"{describe_ms:.1f} ms = SAM predict {sam_ms:.1f} + host preprocessing {f['host_ms']:.1f} "
+        f"(builder and collate) + caption {f['caption_ms']:.1f} = prefill {prefill_ms:.1f} + "
+        f"decode {f['decode_ms']:.1f} ({steps} decode steps, {f['decode_ms'] / max(steps, 1):.2f} "
+        f"ms a step); {f['tiles']} tile rows, prompt {f['prompt']} tokens; launches "
+        f"{dict((k, v) for k, v in counts.items() if v)} (every other kernel 0)")
+    del batch, seen
+
+    # self-speculative decoding at GAR-1B on phase_runtime's one-region case
+    batch, plens = rt.batch(runtime_samples()["one region"])
+    s = batch.input_ids.shape[1]
+    gamma, k = SPEC
+    kw = dict(max_new_tokens=RUNTIME_NEW_TOKENS)
+    # first round's verify logits at row 0 against one XLA-form decode step
+    hidden, kv = gar_prefill(rt.params, rt.cfg, batch)
+    last = hidden[:, int(plens[0]) - 1]
+    tok0 = torch.argmax(lm_logits(rt.params.llm, rt.cfg.text, last,
+                                  valid_vocab=rt.cfg.extended_vocab_size), -1).to(torch.int32)
+    cols = ((s + RUNTIME_NEW_TOKENS + gamma + 511) // 512) * 512
+    caches = [seed_cache_from_prefill(rt.cfg, kv, plens, cols) for _ in range(2)]
+    del hidden, kv
+    llm, tc = rt.params.llm, rt.cfg.text
+    ckw = dict(prompt_lens=caches[0].prompt_lens, prompt_pad=s)
+    tok, chunk = tok0, [tok0]
+    for j in range(gamma):
+        h, _, _ = _forward_chunk(llm, tc, tok[:, None], caches[0].k, caches[0].v, write_pos=s + j,
+                                 num_layers=k, **ckw)
+        tok = torch.argmax(lm_logits(llm, tc, h[:, 0], valid_vocab=rt.cfg.extended_vocab_size),
+                           -1).to(torch.int32)
+        chunk.append(tok)
+    h, _, _ = _forward_chunk(llm, tc, torch.stack(chunk, 1), caches[0].k, caches[0].v,
+                             write_pos=s, num_layers=tc.num_layers, **ckw)
+    verify = lm_logits(llm, tc, h[:, 0], valid_vocab=rt.cfg.extended_vocab_size).float()
+    step, _ = gar_decode_step(rt.params, rt.cfg, tok0, caches[1], s, use_kernel=False)
+    valid = slice(0, rt.cfg.extended_vocab_size)
+    gap = ((verify[:, valid] - step[:, valid].float()).abs().max()
+           / step[:, valid].float().abs().max()).item()
+    if not gap <= E2E_TOL:
+        raise AssertionError(f"[spec] first verify row and the XLA-form step differ by {gap:.3e} "
+                             f"> {E2E_TOL} of the logit range")
+    del caches, h
+
+    times = {"generate": [], "speculative": []}
+    results = {}
+    for _ in range(2):  # in turns: generate (fused), then speculative
+        for name, extra in (("generate", {}), ("speculative", {"speculative": SPEC})):
+            reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            texts, out = rt.answer(batch, plens, **kw, **extra)
+            torch.cuda.synchronize()
+            times[name].append((time.perf_counter() - t0) * 1e3)
+            results[name] = (out, read_counts())
+    spec_out, spec_counts = results["speculative"]
+    want = expect(B=L, D=depth, E=depth, F=depth, G=depth)
+    if spec_counts != want:
+        raise AssertionError(f"[spec] launch counts {spec_counts}, expected {want}")
+    st = spec_out.stats
+    ids = spec_out.tokens
+    if ids.shape != (1, RUNTIME_NEW_TOKENS) or not ((ids >= 0) & (
+            ids < rt.cfg.extended_vocab_size)).all() or st.rounds < 1:
+        raise AssertionError(f"[spec] tokens {ids.shape} outside the vocab, or {st.rounds} rounds")
+    n_syncs, where = serving_syncs(lambda: rt.answer(batch, plens, **kw, speculative=SPEC))
+    in_spec = sum(v for key, v in where.items() if key.startswith("speculative.py"))
+    if in_spec != st.rounds + 1:
+        raise AssertionError(f"[spec] {in_spec} host syncs in models/speculative.py, expected "
+                             f"rounds + 1 = {st.rounds + 1}: {where}")
+    with patched((gen_mod, "gar_decode_step",
+                  functools.partial(gar_decode_step, use_kernel=False))):
+        xla_out = rt.answer(batch, plens, **kw)[1]
+    fused_tokens = results["generate"][0].tokens[0].tolist()
+    spec_tokens = ids[0].tolist()
+    emitted = int(spec_out.num_generated[0])
+    figures["speculative"] = dict(
+        rounds=st.rounds, drafted=st.drafted, accepted=st.accepted,
+        accept_rate=st.accepted / max(st.drafted, 1),
+        tokens_per_verify=(emitted - 1) / st.rounds,
+        spec_ms=times["speculative"], generate_ms=times["generate"], syncs=n_syncs,
+        spec_syncs=in_spec, verify_gap=gap)
+    f = figures["speculative"]
+    log(f"[spec] {smi}: GARRuntime.caption(speculative=(gamma {gamma}, draft_layers {k})), one "
+        f"region, prompt {int(plens[0])} tokens, {RUNTIME_NEW_TOKENS} new: {st.rounds} rounds, "
+        f"{st.accepted} / {st.drafted} drafts accepted ({f['accept_rate']:.1%}), "
+        f"{f['tokens_per_verify']:.2f} tokens a verify pass; ms a caption "
+        + ", ".join(f"{v:.1f}" for v in times["speculative"]) + " against generate's (fused) "
+        + ", ".join(f"{v:.1f}" for v in times["generate"]) + f" in turns; host syncs "
+        f"{n_syncs} ({in_spec} in models/speculative.py = rounds + 1; where: {where}); first "
+        f"verify row against one XLA-form decode step {gap:.3e} of the logit range (<= "
+        f"{E2E_TOL}); first token index leaving generate's fused tokens: "
+        f"{first_difference(spec_tokens, fused_tokens)}, its XLA-form tokens: "
+        f"{first_difference(spec_tokens, xla_out.tokens[0].tolist())} (bf16: not bounded); "
+        f"launches {dict((k, v) for k, v in spec_counts.items() if v)} (every other kernel 0)")
+    # the mechanism's upper bound at full width: wo and w_down zeroed past
+    # the draft depth make those layers residual passthroughs, so the draft
+    # is the whole model (up to the rounding of one row against a chunk)
+    with torch.no_grad():
+        llm.blocks.wo[k:] = 0
+        llm.blocks.w_down[k:] = 0
+    bound = {}
+    for name, extra in (("generate", {}), ("speculative", {"speculative": SPEC})):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        bound[name] = rt.answer(batch, plens, **kw, **extra)[1]
+        torch.cuda.synchronize()
+        bound[name + "_ms"] = (time.perf_counter() - t0) * 1e3
+    ub = bound["speculative"].stats
+    if ub.accepted < ub.drafted / 2:
+        raise AssertionError(f"[spec bound] the whole-model draft kept {ub.accepted} of "
+                             f"{ub.drafted} drafts")
+    figures["speculative"].update(bound_ms=bound["speculative_ms"],
+                                  bound_generate_ms=bound["generate_ms"], bound_rounds=ub.rounds,
+                                  bound_accepted=ub.accepted, bound_drafted=ub.drafted)
+    log(f"[spec bound] {smi}: wo and w_down zeroed in layers {k}-{L - 1} (the draft is the "
+        f"whole model): {ub.rounds} rounds, {ub.accepted} / {ub.drafted} drafts accepted, "
+        f"{(int(bound['speculative'].num_generated[0]) - 1) / max(ub.rounds, 1):.2f} tokens a "
+        f"verify pass; ms a caption {bound['speculative_ms']:.1f} against generate's (fused) "
+        f"{bound['generate_ms']:.1f}; first token index leaving generate's: "
+        + first_difference(bound["speculative"].tokens[0].tolist(),
+                           bound["generate"].tokens[0].tolist()))
+    del rt, srv, pred, batch, bound
+    torch.cuda.empty_cache()
+    phase_spec_narrow_fp32()
+    log(f"[sam + spec] phase {time.perf_counter() - t_phase:.1f} s")
+    return figures
+
+
 SERVING_NEW_TOKENS = 256
 SERVING_S_BASE = 4864  # a window's column budget at the 4662-token prompt: 4662 rounded up to 256
 SERVING_KEYS = ("B", "C", "C8", "D", "E", "F", "G", "H", "I", "J", "H8", "I8", "J8")
@@ -3737,6 +4195,7 @@ def main() -> int:
     del params_q8
     torch.cuda.empty_cache()
     phase_runtime(smi)
+    phase_sam_speculative(smi)
     serving_runs = phase_serving(cfg, params)
     torch.cuda.empty_cache()
     train_counts, state, tx = phase_train_step(cfg, params)

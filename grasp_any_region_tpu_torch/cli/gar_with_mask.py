@@ -15,7 +15,7 @@ from __future__ import annotations
 import argparse
 
 from ..data.builders import RegionSample
-from .runtime import GARRuntime, load_image, load_mask, refuse_speculative
+from .runtime import GARRuntime, load_image, load_mask
 
 
 def main(argv=None):
@@ -31,7 +31,10 @@ def main(argv=None):
     p.add_argument("--random-init", action="store_true",
                    help="allow random weights (smoke tests)")
     p.add_argument("--speculative", default=None, metavar="GAMMA,K",
-                   help="self-speculative draft/verify decoding (not ported yet: refused)")
+                   help="self-speculative draft/verify decoding (single image, temperature 0); "
+                        "the same greedy tokens, but on the card each round is bound by host "
+                        "dispatch, so it is slower than the default decode unless the draft "
+                        "accepts nearly every token (PERF.md sections 5-6)")
     p.add_argument("--device", default="cuda",
                    help="torch device (default cuda; cpu runs the plain versions)")
     args = p.parse_args(argv)
@@ -48,7 +51,6 @@ def main(argv=None):
         spec = (gamma, k)
         if len(args.image) != 1 or args.temperature != 0.0:
             p.error("--speculative needs exactly one image and temperature 0")
-    refuse_speculative(spec)
 
     rt = GARRuntime.load(args.model_path, args.preset, args.random_init, device=args.device)
     samples = [
@@ -57,7 +59,8 @@ def main(argv=None):
         for img, msk in zip(args.image, args.mask)
     ]
     for img, text in zip(args.image, rt.caption(
-            samples, max_new_tokens=args.max_new_tokens, temperature=args.temperature)):
+            samples, max_new_tokens=args.max_new_tokens, temperature=args.temperature,
+            speculative=spec)):
         print(f"=== {img} ===")
         print(text)
 

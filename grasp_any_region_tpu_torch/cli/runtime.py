@@ -5,7 +5,8 @@ and the image -> caption pipeline.
 `core/weights.load_checkpoint`) or makes seeded random weights, on the
 card unless the caller asks for the CPU. `caption` is `batch` (the
 builder and the collate on the host, `data/builders.build_region_batch`)
-then `answer` (`models/generate.generate` and the decoded text). One
+then `answer` (`models/generate.generate`, or with `speculative=(gamma,
+k)` `models/speculative.generate_speculative`, and the decoded text). One
 `torch.Generator` seeded from `seed` draws the random init and the
 sampling.
 """
@@ -16,7 +17,7 @@ import os
 import sys
 import time
 from dataclasses import dataclass
-from typing import List, Optional, Tuple
+from typing import List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -29,14 +30,7 @@ from ..data.image_processor import GARImageProcessor, ImageProcessorConfig
 from ..data.tokenizer import GARTokenizer
 from ..models.gar import GARBatch, GARParams
 from ..models.generate import GenerationResult, generate
-
-
-def refuse_speculative(speculative) -> None:
-    """Self-speculative decoding is not ported: raise for any request of it."""
-    if speculative is not None:
-        raise NotImplementedError(
-            "speculative decoding (models/speculative.py) is not ported to the PyTorch package "
-            "yet; see ROADMAP.md item 1.8")
+from ..models.speculative import SpecResult, generate_speculative
 
 
 @dataclass
@@ -106,11 +100,15 @@ class GARRuntime:
         speculative: Optional[tuple] = None,  # (gamma, draft_layers)
     ) -> List[str]:
         """The decoded text of each sample (single-region captions, or
-        answers to questions over <PromptK> regions)."""
-        refuse_speculative(speculative)
+        answers to questions over <PromptK> regions).
+
+        speculative: (gamma, draft_layers) decodes one sample greedily by
+        self-speculative draft / verify (`models/speculative.py`): the
+        same tokens, fewer weight streams a token when the shallow draft
+        guesses well."""
         batch, plens = self.batch(samples)
         return self.answer(batch, plens, max_new_tokens=max_new_tokens,
-                           temperature=temperature)[0]
+                           temperature=temperature, speculative=speculative)[0]
 
     def caption_video(
         self,
@@ -134,15 +132,28 @@ class GARRuntime:
         return build(self.cfg, self.tok, self.proc, samples, device=self.device)
 
     def answer(self, batch: GARBatch, plens: torch.Tensor, *, max_new_tokens: int = 1024,
-               temperature: float = 0.0,
-               video_mode: bool = False) -> Tuple[List[str], GenerationResult]:
-        """`generate` on a collated batch, then the decoded text of each
-        row (up to its eot): (texts, the generation result)."""
+               temperature: float = 0.0, video_mode: bool = False,
+               speculative: Optional[tuple] = None,
+               ) -> Tuple[List[str], Union[GenerationResult, SpecResult]]:
+        """`generate` on a collated batch (or `generate_speculative` with
+        speculative=(gamma, draft_layers): one image row, greedy), then the
+        decoded text of each row (up to its eot): (texts, the result)."""
         t0 = time.perf_counter()
-        out = generate(self.params, self.cfg, batch, plens, max_new_tokens=max_new_tokens,
-                       eot_id=self.tok.eot_id, temperature=temperature,
-                       generator=self.generator, compute_dtype=self.compute_dtype,
-                       video_mode=video_mode)
+        if speculative is not None:
+            if len(plens) != 1 or temperature != 0.0 or video_mode:
+                raise ValueError("speculative decode is single-stream greedy: one image "
+                                 f"sample at temperature 0 (got {len(plens)} rows, temperature "
+                                 f"{temperature}, video_mode {video_mode})")
+            gamma, k = speculative
+            out = generate_speculative(self.params, self.cfg, batch, plens,
+                                       max_new_tokens=max_new_tokens, gamma=gamma,
+                                       draft_layers=k, eot_id=self.tok.eot_id,
+                                       compute_dtype=self.compute_dtype)
+        else:
+            out = generate(self.params, self.cfg, batch, plens, max_new_tokens=max_new_tokens,
+                           eot_id=self.tok.eot_id, temperature=temperature,
+                           generator=self.generator, compute_dtype=self.compute_dtype,
+                           video_mode=video_mode)
         toks = out.tokens.cpu().numpy()  # waits for the card
         nums = out.num_generated.cpu().numpy()
         dt = time.perf_counter() - t0

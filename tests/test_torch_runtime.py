@@ -73,8 +73,10 @@ def test_load_random_init(capsys):
     other = trt.GARRuntime.load(None, "gar_tiny", random_init=True, seed=4, device="cpu")
     assert not torch.equal(rt.params.llm.embed, other.params.llm.embed)
     assert rt.proc.config.max_num_tiles == rt.cfg.max_num_tiles == 4
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item 1.8"):
-        rt.caption(_samples("one_region"), max_new_tokens=2, speculative=(2, 1))
+    # self-speculative decoding runs and gives generate's greedy text
+    samples = _samples("one_region")
+    assert rt.caption(samples, max_new_tokens=6, speculative=(2, 1)) == \
+        rt.caption(samples, max_new_tokens=6)
 
 
 def _fp32_runtime(path):
@@ -203,9 +205,11 @@ def test_cli_output_equals_caption(tmp_path, capsys, cli):
     assert out == want
 
 
-@pytest.mark.parametrize("case", ["count", "spec_format", "spec_range", "spec_refused",
+@pytest.mark.parametrize("case", ["count", "spec_format", "spec_range", "spec_runs",
                                   "video_sources", "video_mask_spec"])
 def test_cli_argument_errors(tmp_path, case, capsys):
+    """The CLIs' argument checks; `--speculative 4,1` on one image runs
+    and prints `caption(speculative=(4, 1))`'s text."""
     from grasp_any_region_tpu_torch.cli import gar_video, gar_with_mask
 
     imgs, masks = _cli_inputs(tmp_path)
@@ -214,22 +218,27 @@ def test_cli_argument_errors(tmp_path, case, capsys):
         "count": (one + ["--image", imgs[1]], SystemExit),
         "spec_format": (one + ["--speculative", "2"], SystemExit),
         "spec_range": (one + ["--speculative", "0,1"], SystemExit),
-        "spec_refused": (one + ["--speculative", "4,1"], NotImplementedError),
+        "spec_runs": (one + ["--speculative", "4,1"], None),
         "video_sources": (["--mask", f"0:{masks[0]}"], SystemExit),
         "video_mask_spec": (["--frame", imgs[0], "--mask", masks[0]], SystemExit),
     }[case]
     main = gar_video.main if case.startswith("video") else gar_with_mask.main
+    if error is None:
+        main(BASE + argv)
+        rt = trt.GARRuntime.load(None, "gar_tiny", True, device="cpu")
+        sample = RegionSample(trt.load_image(imgs[0]), {1: trt.load_mask(masks[0])})
+        text = rt.caption([sample], max_new_tokens=4, speculative=(4, 1))[0]
+        assert text == rt.caption([sample], max_new_tokens=4)[0]
+        assert capsys.readouterr().out == f"=== {imgs[0]} ===\n{text}\n"
+        return
     with pytest.raises(error) as info:
         main(BASE + argv)
-    if error is SystemExit:
-        assert info.value.code == 2
-        assert {"count": "--image given 2 times but --mask 1",
-                "spec_format": "expects GAMMA,K integers",
-                "spec_range": "must be >= 1",
-                "video_sources": "exactly one of --frame",
-                "video_mask_spec": "frame_idx:path"}[case] in capsys.readouterr().err
-    else:
-        assert "ROADMAP.md item 1.8" in str(info.value)
+    assert info.value.code == 2
+    assert {"count": "--image given 2 times but --mask 1",
+            "spec_format": "expects GAMMA,K integers",
+            "spec_range": "must be >= 1",
+            "video_sources": "exactly one of --frame",
+            "video_mask_spec": "frame_idx:path"}[case] in capsys.readouterr().err
 
 
 @pytest.mark.parametrize("eot_step", [None, 1, 33])
