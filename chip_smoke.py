@@ -263,6 +263,17 @@ Training (its kernels in phase 2, its paths after phase 6):
 9. The packed text-only step (bench.py:229-277): 2 rows x 4096 tokens of
    documents of 300-1200 tokens, every token supervised: ms/step, tok/s,
    and B = 32, 17 = 18 = 16 a step, B and 18 with segment ids.
+10. Training from an annotation file (`phase_trainer`): `cli.train.main`
+   at gar_1b, bf16, batch 1, accumulation 2, on 8 synthetic items of 1344
+   x 1008 (base64 PNGs, RLE masks; 13 tiles, about 3.9k tokens): 4 steps,
+   then a second `main` in the same work dir resumes at step 4 (its state
+   held bit for bit to the one the first run saved) and runs to 6, then
+   exports HF safetensors, read back through `convert_hf_state_dict` to
+   the trained params. Every step launches A = 46, 5 = 23, B = 32, 17 =
+   18 = 39 and no other kernel; each step's loss, host and device ms and
+   host wait on the loader, each checkpoint's bytes and seconds, the
+   export's seconds, peak memory, and native against numpy resize at
+   1792^2. The phase checks the free disk first and removes its directory.
 
 The line before the last is a JSON object with one entry per kernel (A, B,
 C, H, I, J, H8, I8, J8 also with a "gar8b" object: their figures at
@@ -407,6 +418,12 @@ def phase_environment():
     _build.library()
     log(f"[env] kernels built in {compile_s:.1f} s (compile; 0 = up to date), "
         f"ready in {time.perf_counter() - t0:.1f} s: {lib}")
+    from grasp_any_region_tpu_torch.data import native
+
+    t0 = time.perf_counter()
+    native.library()
+    log(f"[env] native host library (RLE codec, bicubic resize; g++) ready in "
+        f"{time.perf_counter() - t0:.1f} s: {native.library_path()}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     return smi
@@ -4115,6 +4132,209 @@ def phase_packed_step(cfg, state, tx):
         f"launches a step B = {2 * layers}, 17 = 18 = {layers}, B and 18 with segment ids")
 
 
+def resize_native_vs_numpy(side: int = 1792) -> dict:
+    """Host ms of the image processor's two bicubic resizes of a side^2
+    uint8 image (the 448^2 thumbnail and the side^2 canvas), native (the
+    default) against the numpy body; the outputs within 1e-9."""
+    from grasp_any_region_tpu_torch.data.resize import resize_bicubic
+
+    img = np.random.default_rng(SEED).integers(0, 256, (side, side, 3), dtype=np.uint8)
+    out = {}
+    for name, native in (("native", True), ("numpy", False)):
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            got = [resize_bicubic(img, n, n, use_native=native) for n in (448, side)]
+            times.append((time.perf_counter() - t0) * 1e3)
+        out[name] = (statistics.median(times), got)
+    gap = max(float(np.abs(a - b).max()) for a, b in zip(out["native"][1], out["numpy"][1]))
+    if gap > 1e-9:
+        raise AssertionError(f"[trainer] native resize leaves the numpy one by {gap:.3e}")
+    return {"native_ms": out["native"][0], "numpy_ms": out["numpy"][0], "max_gap": gap}
+
+
+def state_bits_equal(a, b, label: str) -> None:
+    """Two TrainStates hold the same bits: every parameter, Adam moment and
+    accumulated gradient, the update count, window position and step."""
+    oa, ob = a.opt_state, b.opt_state
+    if (a.step, oa.count, oa.mini_step) != (b.step, ob.count, ob.mini_step):
+        raise AssertionError(f"{label}: step / count / mini_step {(a.step, oa.count, oa.mini_step)}"
+                             f" vs {(b.step, ob.count, ob.mini_step)}")
+    pairs = [(n, p, q) for (n, p), q in zip(a.params.named_parameters(), b.params.parameters())]
+    pairs += [(f"{kind}/{i}", x, y) for kind in ("mu", "nu", "acc")
+              for i, (x, y) in enumerate(zip(getattr(oa, kind), getattr(ob, kind)))]
+    bad = [n for n, x, y in pairs if not torch.equal(x, y)]
+    if bad:
+        raise AssertionError(f"{label}: {len(bad)} tensors differ, first {bad[:3]}")
+
+
+def phase_trainer(smi: str) -> dict:
+    """Training from an annotation file at GAR-1B: `cli.train.main` on 8
+    synthetic items of 1344 x 1008 (base64 PNGs, RLE masks, the three item
+    styles), bf16 params and moments, batch 1, accumulation 2: 4 steps,
+    then a second `main` in the same work dir resumes at step 4 and runs to
+    6, exports HF safetensors, and the export is read back through
+    `convert_hf_state_dict`. Asserts the launches of every step (A = 46,
+    5 = 23, B = 32, 17 = 18 = 39, every other kernel 0, no segment ids),
+    finite losses, the restored state equal bit for bit to the state the
+    first run saved, and the export equal to the trained params. Prints
+    each step's loss, host ms, device ms (CUDA events) and host wait on the
+    loader, tokens, peak memory, each checkpoint's bytes and seconds, the
+    export's seconds, and native against numpy resize at 1792^2."""
+    import shutil
+    import tempfile
+
+    from grasp_any_region_tpu_torch.cli import train as cli_train
+    from grasp_any_region_tpu_torch.core.weights import (convert_hf_state_dict, flatten_params,
+                                                         read_safetensors)
+    from grasp_any_region_tpu_torch.data.dataset import DatasetConfig, GraspAnyRegionDataset
+    from grasp_any_region_tpu_torch.data.synthetic import write_synthetic_annotations
+    from grasp_any_region_tpu_torch.data.tokenizer import GARTokenizer
+    from grasp_any_region_tpu_torch.train import export as export_mod
+    from grasp_any_region_tpu_torch.train import trainer as trainer_mod
+
+    from grasp_any_region_tpu_torch.core.config import gar_1b
+    from grasp_any_region_tpu_torch.models.gar import GARParams
+
+    cfg = gar_1b()
+    n_params = sum(p.numel() for p in GARParams(cfg, device="meta").parameters())
+    ckpt_bytes = 3 * 2 * n_params  # bf16 params and two moments
+    root = tempfile.mkdtemp(prefix="gar_trainer_")
+    free = shutil.disk_usage(root).free
+    # steps 1 (mid-window: the accumulated gradient too), 4 and 6 on disk at
+    # once, the fp32 export and the data
+    need = ckpt_bytes * 10 // 3 + 4 * n_params + (1 << 30)
+    log(f"[trainer] on {smi}: {n_params / 1e9:.3f} B params: a checkpoint is {ckpt_bytes / 2 ** 30:.2f} GiB; "
+        f"{free / 2 ** 30:.1f} GiB free under {root}, {need / 2 ** 30:.1f} GiB needed")
+    if free < need:
+        shutil.rmtree(root)
+        raise AssertionError(f"[trainer] {free / 2 ** 30:.1f} GiB free, "
+                             f"{need / 2 ** 30:.1f} needed")
+    try:
+        rs = resize_native_vs_numpy()
+        log(f"[trainer] resize of a 1792^2 uint8 image to 448^2 and 1792^2 (host ms, median of 3): "
+            f"native {rs['native_ms']:.1f}, numpy {rs['numpy_ms']:.1f} "
+            f"({rs['numpy_ms'] / rs['native_ms']:.1f}x); max gap {rs['max_gap']:.2e}")
+        t0 = time.perf_counter()
+        ann = write_synthetic_annotations(os.path.join(root, "ann.json"), n_items=8,
+                                          image_size=(1344, 1008), seed=SEED)
+        write_s = time.perf_counter() - t0
+        ds = GraspAnyRegionDataset(cfg, GARTokenizer.synthetic(cfg.prompt_numbers),
+                                   DatasetConfig(annotation_paths=[ann]))
+        t0 = time.perf_counter()
+        items = [ds.build_item(i) for i in range(len(ds))]
+        build_ms = (time.perf_counter() - t0) * 1e3 / len(items)
+        tiles = [int(it["num_tiles"]) for it in items]
+        tokens = [len(it["input_ids"]) for it in items]
+        log(f"[trainer] {len(items)} items of 1344 x 1008 written in {write_s:.1f} s "
+            f"({os.path.getsize(ann) / 2 ** 20:.1f} MiB); tiles {tiles}, tokens {tokens}, "
+            f"regions {[len(it['replay_pos']) for it in items]}; {build_ms:.0f} host ms an item "
+            "(PNG decode, RLE decode, tiling, template)")
+        del items, ds
+
+        records = []
+        real_make_step = trainer_mod.make_train_step
+        real_export = export_mod.export_hf_checkpoint
+        check_first = {}
+
+        def make_step(*a, **k):
+            step = real_make_step(*a, **k)
+
+            def counted(state, batch, labels):
+                if "saved" in check_first:  # the resumed state, before its first step
+                    state_bits_equal(state, check_first.pop("saved"), "[trainer] restored state")
+                    log(f"[trainer] the restored step-{state.step} state equals the saved one "
+                        "bit for bit (params, mu, nu, acc, count, mini_step)")
+                start, end = event_pairs(2)
+                reset_counts()
+                start.record()
+                out = step(state, batch, labels)
+                end.record()
+                records.append(dict(counts=read_counts(), segs=segmented_counts(),
+                                    events=(start, end), tokens=int(batch.segment_ids.sum()),
+                                    padded=batch.input_ids.shape[1],
+                                    tiles=int(batch.num_tiles.sum())))
+                return out
+
+            return counted
+
+        export_s = []
+
+        def timed_export(*a, **k):
+            t0 = time.perf_counter()
+            real_export(*a, **k)
+            export_s.append(time.perf_counter() - t0)
+
+        work, export = os.path.join(root, "work"), os.path.join(root, "hf")
+        args = ["--preset", "gar_1b", "--data", ann, "--work-dir", work, "--dtype", "bfloat16",
+                "--batch-size", "1", "--accumulation", "2", "--log-interval", "1"]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with patched((trainer_mod, "make_train_step", make_step),
+                     (export_mod, "export_hf_checkpoint", timed_export)):
+            t0 = time.perf_counter()
+            first = cli_train.main(args + ["--max-steps", "4"])
+            first_s = time.perf_counter() - t0
+            check_first["saved"] = first.state
+            t0 = time.perf_counter()
+            second = cli_train.main(args + ["--max-steps", "6", "--export-hf", export])
+            second_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+        if "saved" in check_first or [h["step"] for h in second.history] != [5, 6]:
+            raise AssertionError(f"[trainer] the second run did not resume at step 4: steps "
+                                 f"{[h['step'] for h in second.history]}")
+        history = first.history + second.history
+        depth, layers = cfg.vision.depth, cfg.text.num_layers
+        want = expect(**{"A": 2 * depth, "5": depth, "B": 2 * layers, "17": layers + depth,
+                         "18": layers + depth})
+        for h, r in zip(history, records):
+            if r["counts"] != want or r["segs"] != {"B": 0, "18": 0}:
+                raise AssertionError(f"[trainer] step {h['step']} launched {r['counts']} "
+                                     f"(segment ids {r['segs']}), expected {want}")
+        losses = [h["loss"].item() for h in history]
+        if len(records) != 6 or not all(np.isfinite(losses)):
+            raise AssertionError(f"[trainer] {len(records)} steps, losses {losses}")
+        for h, r in zip(history, records):
+            dev_ms = r["events"][0].elapsed_time(r["events"][1])
+            log(f"[trainer] step {h['step']}: loss {h['loss'].item():.4f}, iteration "
+                f"{h['iter_s'] * 1e3:.0f} host ms, device step {dev_ms:.0f} ms (CUDA events), "
+                f"host wait on the loader {h['wait_s'] * 1e3:.1f} ms; {r['tiles']} tiles, "
+                f"{r['tokens']} tokens ({r['padded']} padded)")
+        log(f"[trainer] launches a step {want}; peak memory {peak_gib:.2f} GiB; runs "
+            f"{first_s:.1f} s (init, 4 steps, 2 checkpoints) and {second_s:.1f} s (init, "
+            f"restore, 2 steps, 1 checkpoint, export)")
+        for run, tr in (("first", first), ("second", second)):
+            for rec in tr.ckpt.saves:
+                log(f"[trainer] {run} run's checkpoint of step {rec['step']}: "
+                    f"{rec['bytes'] / 2 ** 30:.2f} GiB, host copy {rec['copy_s']:.2f} s, "
+                    f"write {rec['write_s']:.2f} s (a background thread)")
+        t0 = time.perf_counter()
+        back = flatten_params(convert_hf_state_dict(cfg, read_safetensors(
+            os.path.join(export, "model.safetensors"))))
+        read_s = time.perf_counter() - t0
+        vocab = cfg.extended_vocab_size
+        named = dict(second.state.params.named_parameters())
+        if sorted(back) != sorted(n.replace(".", "/") for n in named):
+            raise AssertionError("[trainer] the export holds other names than the params")
+        for name, p in named.items():
+            got = torch.from_numpy(back[name.replace(".", "/")]).to(p.device)
+            want_p = p.detach().float()
+            if name == "llm.embed":  # the export holds the vocabulary's rows only
+                if got[vocab:].any():
+                    raise AssertionError("[trainer] the export's padding rows read back non-zero")
+                got, want_p = got[:vocab], want_p[:vocab]
+            if not torch.equal(got, want_p):
+                raise AssertionError(f"[trainer] {name}: the export does not read back to it")
+        export_gib = os.path.getsize(os.path.join(export, "model.safetensors")) / 2 ** 30
+        log(f"[trainer] export {export_s[0]:.2f} s ({export_gib:.2f} GiB fp32), read back "
+            f"through convert_hf_state_dict in {read_s:.2f} s: every tensor equals the trained "
+            "params")
+        return dict(losses=losses, resize=rs, peak_gib=peak_gib)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 KERNELS = {
     "A": ("vit_attention", "grasp_any_region_tpu_torch/csrc/flash_forward_sm90.cu",
           "grasp_any_region_tpu/ops/vit_attention.py:350"),
@@ -4201,6 +4421,8 @@ def main() -> int:
     train_counts, state, tx = phase_train_step(cfg, params)
     phase_packed_step(cfg, state, tx)
     del state, tx, params
+    torch.cuda.empty_cache()
+    phase_trainer(smi)
     torch.cuda.empty_cache()
     # GAR-8B: the narrow cross-checks (bf16, then int8 weights on a bf16
     # cache: C8 has no head-dim-128 instance), then the caption at full width

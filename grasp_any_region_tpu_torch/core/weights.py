@@ -221,32 +221,52 @@ _ST_DTYPES = {"F64": "<f8", "F32": "<f4", "F16": "<f2", "I64": "<i8", "I32": "<i
 _ST_NAMES = {np.dtype(v): k for k, v in _ST_DTYPES.items()}
 
 
-def write_safetensors(tensors: Mapping[str, np.ndarray], path: str) -> None:
-    """Write {name: array} as one safetensors file, names in sorted order.
-    Raises TypeError for a dtype the format's reader here would not give
-    back (bf16 has no numpy dtype: store it as fp32, as save_checkpoint does)."""
-    arrays = {k: np.asarray(tensors[k]) for k in sorted(tensors)}
-    header, offset = {}, 0
-    for name, a in arrays.items():
-        if a.dtype.newbyteorder("<") not in _ST_NAMES:
-            raise TypeError(f"{name}: dtype {a.dtype} has no safetensors name here")
-        header[name] = {"dtype": _ST_NAMES[a.dtype.newbyteorder("<")], "shape": list(a.shape),
+def _st_array(x) -> Tuple[str, np.ndarray]:
+    """(safetensors dtype name, little-endian numpy array of the stored
+    bytes) of a numpy array or a torch tensor; a bf16 tensor is stored as
+    BF16, its bits as uint16."""
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu()
+        if x.dtype == torch.bfloat16:
+            return "BF16", x.contiguous().view(torch.int16).numpy().view("<u2")
+        x = x.numpy()
+    a = np.asarray(x)
+    le = a.dtype.newbyteorder("<")
+    if le not in _ST_NAMES:
+        raise TypeError(f"dtype {a.dtype} has no safetensors name here")
+    return _ST_NAMES[le], a.astype(le, copy=False)
+
+
+def write_safetensors(tensors: Mapping[str, object], path: str) -> int:
+    """Write {name: numpy array or torch tensor} as one safetensors file,
+    names in sorted order; returns the bytes written. A bf16 tensor is
+    written as BF16 (numpy has no bf16: store a numpy bf16 array as fp32,
+    as save_checkpoint does). Raises TypeError for a dtype the reader here
+    would not give back."""
+    header, arrays, offset = {}, [], 0
+    for name in sorted(tensors):
+        try:
+            dt, a = _st_array(tensors[name])
+        except TypeError as e:
+            raise TypeError(f"{name}: {e}") from None
+        header[name] = {"dtype": dt, "shape": list(a.shape),
                         "data_offsets": [offset, offset + a.nbytes]}
+        arrays.append(a)
         offset += a.nbytes
     raw = json.dumps(header, separators=(",", ":")).encode()
     raw += b" " * (-len(raw) % 8)  # the data starts 8-byte aligned
     with open(path, "wb") as f:
         f.write(len(raw).to_bytes(8, "little"))
         f.write(raw)
-        for a in arrays.values():
-            f.write(a.astype(a.dtype.newbyteorder("<"), copy=False).tobytes(order="C"))
+        for a in arrays:
+            f.write(np.ascontiguousarray(a).reshape(-1).view(np.uint8).data)
+    return 8 + len(raw) + offset
 
 
-def read_safetensors(path: str) -> Dict[str, np.ndarray]:
-    """{name: array} of one safetensors file, each tensor read straight
-    from its offsets. BF16 tensors widen to fp32 (exactly: a bf16 value is
-    the high half of its fp32 bits)."""
-    out = {}
+def _st_entries(path: str):
+    """(name, dtype name, numpy array of the stored elements) of each tensor
+    of one safetensors file, read straight from its offsets (BF16 as uint16
+    bits)."""
     with open(path, "rb") as f:
         n = int.from_bytes(f.read(8), "little")
         header = json.loads(f.read(n))
@@ -260,9 +280,25 @@ def read_safetensors(path: str) -> Dict[str, np.ndarray]:
             raw = np.dtype("<u2" if dt == "BF16" else _ST_DTYPES[dt])
             f.seek(8 + n + begin)
             a = np.fromfile(f, raw, (end - begin) // raw.itemsize)
-            if dt == "BF16":
-                a = (a.astype(np.uint32) << 16).view(np.float32)
-            out[name] = a.astype(a.dtype.newbyteorder("="), copy=False).reshape(shape)
+            yield name, dt, a.astype(a.dtype.newbyteorder("="), copy=False).reshape(shape)
+
+
+def read_safetensors(path: str) -> Dict[str, np.ndarray]:
+    """{name: array} of one safetensors file. BF16 tensors widen to fp32
+    (exactly: a bf16 value is the high half of its fp32 bits)."""
+    out = {}
+    for name, dt, a in _st_entries(path):
+        out[name] = (a.astype(np.uint32) << 16).view(np.float32) if dt == "BF16" else a
+    return out
+
+
+def read_safetensors_torch(path: str) -> Dict[str, torch.Tensor]:
+    """{name: CPU tensor} of one safetensors file, each in its stored dtype
+    (BF16 as torch.bfloat16, bit for bit)."""
+    out = {}
+    for name, dt, a in _st_entries(path):
+        t = torch.from_numpy(np.array(a))  # writable, as torch.from_numpy wants
+        out[name] = t.view(torch.bfloat16) if dt == "BF16" else t
     return out
 
 

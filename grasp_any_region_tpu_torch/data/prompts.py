@@ -1,6 +1,6 @@
-"""Region-prompt construction: rasterization, bboxes and the questions
-(`grasp_any_region_tpu/data/prompts.py`; its training-time instruction
-augmentation is not ported yet)."""
+"""Region-prompt construction: rasterization, bboxes, the questions and
+the training-time instruction augmentation
+(`grasp_any_region_tpu/data/prompts.py`)."""
 
 from __future__ import annotations
 
@@ -81,3 +81,66 @@ def multi_region_question(
         objects_desc += f"{pt}; "
         sub_desc += f"{pt}: {reserved_special_token(idx) * replay_tokens}\n"
     return objects_desc + "\n" + sub_desc + "\n" + question_str, seen
+
+
+# training-time prompt augmentation: varied caption instructions, some with
+# a word- or sentence-count constraint read from the target
+
+CAPTION_INSTRUCTIONS: Tuple[str, ...] = (
+    "Describe this masked region in detail.",
+    "Give a detailed description of the highlighted region.",
+    "What is in the masked area? Describe it thoroughly.",
+    "Provide a comprehensive description of the selected region.",
+    "Explain what the marked region shows.",
+    "Describe the contents of the outlined area in depth.",
+    "Write a detailed caption for the masked region.",
+    "Tell me everything you can about the highlighted area.",
+    "Characterize the selected region in detail.",
+    "Offer a rich description of the masked object.",
+    "What does the marked region depict? Be specific.",
+    "Summarize the appearance of the highlighted region.",
+    "Describe the masked region's appearance and context.",
+    "Give a fine-grained description of the selected area.",
+    "Detail the visual features of the masked region.",
+    "Describe the object or area under the mask.",
+    "Provide an in-depth account of the highlighted region.",
+    "What can you see in the masked portion of the image?",
+    "Describe the region of interest in detail.",
+    "Elaborate on what the masked region contains.",
+    "Paint a verbal picture of the highlighted area.",
+    "Describe the masked segment of this image.",
+    "What is shown in the selected region? Describe fully.",
+    "Give an exhaustive description of the marked area.",
+    "Describe the appearance of the region under the mask.",
+    "Report the contents of the highlighted region in detail.",
+    "Provide a thorough visual description of the masked zone.",
+    "Describe in detail what the selected mask covers.",
+    "What details can you provide about the masked region?",
+    "Fully describe the area indicated by the mask.",
+)
+
+
+def augment_instruction(
+    rng: np.random.Generator,
+    answer: str,
+    word_suffix_prob: float = 0.25,
+    sentence_suffix_prob: float = 0.25,
+) -> str:
+    """Pick a caption instruction; sometimes append a length constraint
+    derived from the target answer (word or sentence count). Draws from
+    `rng` in JAX's order: one integer, then one float."""
+    ins = CAPTION_INSTRUCTIONS[int(rng.integers(len(CAPTION_INSTRUCTIONS)))]
+    r = rng.random()
+    if r < word_suffix_prob:
+        n_words = len(answer.split())
+        ins += f" Answer in around {n_words} words."
+    elif r < word_suffix_prob + sentence_suffix_prob:
+        n_sents = max(1, answer.count(".") + answer.count("!") + answer.count("?"))
+        ins += f" Answer in around {n_sents} sentences."
+    return ins
+
+
+def negative_prompt_answer(prompt_idx: int) -> str:
+    """The answer of a training sample's negative turn: a prompt slot that
+    holds no mask is 'not in the image'."""
+    return f"<Prompt{prompt_idx}> is not in the image."

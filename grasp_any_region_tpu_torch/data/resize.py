@@ -4,8 +4,11 @@
 RGB is resized bicubic with antialiasing, the prompt-id matrix nearest.
 The bicubic is the classic separable algorithm of PIL and torchvision's
 antialias: the Keys kernel (a = -0.5), its support scaled by the
-downsampling factor, weights normalized per output pixel. The same
-arithmetic as the JAX package's numpy path, so the outputs are bit-equal.
+downsampling factor, weights normalized per output pixel. The numpy body
+is the JAX package's numpy path, so its outputs are bit-equal to it; as in
+JAX, `resize_bicubic` dispatches to the multithreaded C++ form of the same
+arithmetic (`native/resize.cc` through `data/native.py`) unless the caller
+passes use_native=False. The numpy body stays as the reference.
 """
 
 from __future__ import annotations
@@ -54,9 +57,15 @@ def _axis_weights(in_size: int, out_size: int, antialias: bool = True):
     return idx_c, w.astype(np.float64)
 
 
-def resize_bicubic(img: np.ndarray, out_h: int, out_w: int, antialias: bool = True) -> np.ndarray:
+def resize_bicubic(img: np.ndarray, out_h: int, out_w: int, antialias: bool = True,
+                   use_native: bool = True) -> np.ndarray:
     """img (H, W, C) or (H, W) float / uint8 -> (out_h, out_w[, C]) float64.
-    The caller clamps and casts."""
+    The caller clamps and casts. use_native: the C++ resampler, built at
+    first use (a failed build raises); else the numpy body."""
+    if use_native:
+        from . import native
+
+        return native.resize_bicubic_native(img, out_h, out_w, antialias)
     squeeze = img.ndim == 2
     if squeeze:
         img = img[:, :, None]

@@ -1,15 +1,19 @@
-"""Synthetic GARBatch builder for tests and benchmarks
-(`grasp_any_region_tpu/data/synthetic.py:synthetic_batch`).
+"""Synthetic data for tests, benchmarks and dry runs
+(`grasp_any_region_tpu/data/synthetic.py`).
 
-A structurally valid region-captioning sample without a real image or
-tokenizer: image placeholder runs sized to the tile grid, one 256
-crop-token run per region, trailing answer tokens. The arrays come from
-numpy with the same seed and draws as the JAX builder, so both packages
-see the same batch.
+`synthetic_batch`: a structurally valid region-captioning sample without a
+real image or tokenizer: image placeholder runs sized to the tile grid,
+one 256 crop-token run per region, trailing answer tokens.
+`write_synthetic_annotations`: an annotation file of synthetic items that
+the training dataset reads. Both draw from numpy with the same seed and in
+the same order as the JAX builders, so both packages see the same batch
+and the same images, masks and conversations.
 """
 
 from __future__ import annotations
 
+import base64
+import json
 from typing import Tuple
 
 import numpy as np
@@ -18,8 +22,81 @@ import torch
 from ..core.config import GARConfig
 from ..core.weights import require_device
 from ..models.gar import GARBatch
+from .png import write_png
+from .rle import encode_rle
 
 IGNORE_INDEX = -100
+
+
+def write_synthetic_annotations(
+    path: str,
+    *,
+    n_items: int = 64,
+    image_size: Tuple[int, int] = (448, 336),  # (w, h)
+    seed: int = 0,
+) -> str:
+    """Write a `GraspAnyRegionDataset` annotation JSON of synthetic
+    region-captioning items (base64 PNG images, compressed-RLE masks,
+    human / gpt conversations), so `cli/train.py --data` runs with no
+    external asset. Items cycle through the three styles the dataset
+    reads: per-region caption lists, a two-region <PromptK> conversation,
+    and a whole-image caption. The PNGs come from `data/png.py` (JAX's from
+    PIL: other bytes, the same pixels)."""
+    rng = np.random.default_rng(seed)
+    w, h = image_size
+
+    def b64_image():
+        pixels = (rng.random((h, w, 3)) * 255).astype(np.uint8)
+        return "data:base64," + base64.b64encode(write_png(pixels)).decode()
+
+    def rand_masks(n):
+        out = []
+        for _ in range(n):
+            m = np.zeros((h, w), np.uint8)
+            x1, y1 = rng.integers(0, w // 2), rng.integers(0, h // 2)
+            bw, bh = rng.integers(w // 8, w // 2), rng.integers(h // 8, h // 2)
+            m[y1: min(y1 + bh, h), x1: min(x1 + bw, w)] = 1
+            rle = encode_rle(m)
+            out.append({"size": rle["size"], "counts": rle["counts"].decode()})
+        return out
+
+    nouns = ["box", "region", "patch", "area", "object", "shape"]
+    adjs = ["red", "blue", "small", "large", "bright", "dark"]
+
+    def caption():
+        return f"a {rng.choice(adjs)} {rng.choice(nouns)}. It is {rng.choice(adjs)}."
+
+    items = []
+    for i in range(n_items):
+        style = i % 3
+        if style == 0:  # single-region captions (one Q/A pair per mask)
+            k = int(rng.integers(1, 3))
+            conv = []
+            for _ in range(k):
+                conv += [{"from": "human", "value": "placeholder"},
+                         {"from": "gpt", "value": caption()}]
+            items.append({"image": b64_image(), "mask_rle": rand_masks(k),
+                          "conversations": conv})
+        elif style == 1:  # multi-region relationship conversation
+            items.append({
+                "image": b64_image(),
+                "mask_rle": rand_masks(2),
+                "conversations": [
+                    {"from": "human", "value": "Is <Prompt0> above <Prompt1>?"},
+                    {"from": "gpt", "value": str(rng.choice(["Yes.", "No."]))},
+                ],
+            })
+        else:  # whole-image caption (no masks)
+            items.append({
+                "image": b64_image(),
+                "conversations": [
+                    {"from": "human", "value": "placeholder"},
+                    {"from": "gpt", "value": caption()},
+                ],
+            })
+    with open(path, "w") as f:
+        json.dump(items, f)
+    return path
 
 
 def synthetic_batch(

@@ -521,6 +521,19 @@ def llama_decode_step_paged_fused(
     return x[:, None], k_pool, v_pool
 
 
+def take_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """table[idx]: the rows of a (N, D) table at an integer index of any
+    shape. On the CPU through index_select: the backward of advanced
+    indexing (index_put_ with accumulate) adds repeated rows in parallel
+    there, in an order that changes from run to run, where index_select's
+    (index_add_) adds them in order, so a CPU train step is reproducible bit
+    for bit. On the card advanced indexing's backward sorts the indices and
+    is reproducible as it is."""
+    if table.device.type != "cpu":
+        return table[idx]
+    return table.index_select(0, idx.reshape(-1)).reshape(*idx.shape, table.shape[-1])
+
+
 def embed_tokens(params: LlamaParams, input_ids: torch.Tensor,
                  dtype=torch.bfloat16) -> torch.Tensor:
     """Token embedding lookup. A serving-only tied tree has no `embed`: its
@@ -533,7 +546,7 @@ def embed_tokens(params: LlamaParams, input_ids: torch.Tensor,
         if scale.shape[-1] != 1:
             raise ValueError("the int8 embedding lookup needs the tied (V, D) head layout")
         return params.lm_head_q8[ids].to(dtype) * scale[ids].to(dtype)
-    return table[ids].to(dtype)
+    return take_rows(table, ids).to(dtype)
 
 
 def _int8_head(x: torch.Tensor, q8: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:

@@ -18,6 +18,7 @@ from __future__ import annotations
 import torch
 
 from ..core.config import GARConfig, PIXELS_PER_POOLED_TOKEN, REPLAY_SIDE
+from .llama import take_rows
 
 
 def _roi_sample_coords(boxes: torch.Tensor, pooled: int, sampling_ratio: int):
@@ -66,7 +67,7 @@ def roi_align_tiled(
         tile_idx = (yy // side) * ncw + (xx // side)
         local = (yy % side) * side + (xx % side)
         gidx = (tile_idx * (side * side) + local).clamp(0, t * side * side - 1)
-        return flat[gidx.reshape(-1)].reshape(r, pooled, pooled, d)
+        return take_rows(flat, gidx)
 
     for iy in range(sampling_ratio):
         for ix in range(sampling_ratio):
@@ -113,7 +114,7 @@ def roi_align_per_region(
     """RoIAlign(aligned=True) where each region samples its OWN map (the
     video path: one 16x16 map per frame). Returns (R, pooled, pooled, D) fp32."""
     r, side, _, d = maps.shape
-    flat = maps.reshape(r, side * side, d).float()
+    flat = maps.reshape(r * side * side, d).float()
     ys, xs = _roi_sample_coords(boxes.float(), pooled, sampling_ratio)
     out = torch.zeros((r, pooled, pooled, d), dtype=torch.float32, device=maps.device)
     ridx = torch.arange(r, device=maps.device)[:, None, None]
@@ -123,8 +124,8 @@ def roi_align_per_region(
             x = xs[:, :, ix][:, None, :].expand(r, pooled, pooled)
             for yy, xx, w in _bilinear_taps(y, x, side, side, float(side), float(side),
                                             1.0 / (sampling_ratio * sampling_ratio)):
-                idx = (yy * side + xx).clamp(0, side * side - 1)
-                out = out + w[..., None] * flat[ridx, idx]
+                idx = ridx * (side * side) + (yy * side + xx).clamp(0, side * side - 1)
+                out = out + w[..., None] * take_rows(flat, idx)
     return out
 
 

@@ -4,9 +4,12 @@ rasterization and questions, the chat template, the tokenizer and the
 builders. Everything before the collate is numpy on both sides, so the
 arrays must be equal bit for bit.
 
-JAX's `resize_bicubic` dispatches to the native C++ resize when its shared
-library is built; the port keeps only the numpy form, so every comparison
-runs JAX's numpy form (`use_native=False`, or the native call patched off).
+Both packages' `resize_bicubic` dispatch to the native C++ resize (JAX's
+when its shared library is built, the port's always, built at first use),
+which sums in another order than the numpy form. So every comparison runs
+both numpy forms (`use_native=False`, or the native call patched to the
+numpy body), and the port's native resize is held to JAX's numpy form at
+JAX's own bound for native against numpy (1e-9, `tests/test_loader.py`).
 """
 
 import dataclasses
@@ -29,15 +32,22 @@ from grasp_any_region_tpu_torch.data import image_processor as tip
 from grasp_any_region_tpu_torch.data import prompts as tprompts
 from grasp_any_region_tpu_torch.data import resize as tresize
 from grasp_any_region_tpu_torch.data import tokenizer as ttok
+from grasp_any_region_tpu_torch.data.native import resize_bicubic_native as native_resize
 
 BATCH_FIELDS = ("input_ids", "positions", "segment_ids", "pixel_values", "mask_values",
                 "aspect_ratio", "bboxes", "replay_pos", "replay_valid", "num_tiles", "replay_tile")
+
+
+def numpy_resize(img, out_h, out_w, antialias=True, n_threads=0):
+    return tresize.resize_bicubic(img, out_h, out_w, antialias, use_native=False)
 
 
 @pytest.fixture(autouse=True)
 def jax_numpy_resize(monkeypatch):
     monkeypatch.setattr("grasp_any_region_tpu.data.resize_native.resize_bicubic_native",
                         lambda *a, **k: None)
+    monkeypatch.setattr("grasp_any_region_tpu_torch.data.native.resize_bicubic_native",
+                        numpy_resize)
 
 
 def _image(rng, h, w):
@@ -60,10 +70,13 @@ def test_bicubic_and_nearest_equal_jax(rng, src, dst, kind):
     img = (rng.integers(0, 256, src).astype(np.uint8) if kind != "float"
            else (rng.random(src) * 255).astype(np.float32))
     aa = kind != "noaa"
-    got = tresize.resize_bicubic(img, *dst, antialias=aa)
+    got = tresize.resize_bicubic(img, *dst, antialias=aa, use_native=False)
     want = jresize.resize_bicubic(img, *dst, antialias=aa, use_native=False)
     assert got.dtype == want.dtype == np.float64
     np.testing.assert_array_equal(got, want)
+    native = native_resize(img, *dst, antialias=aa)
+    assert native.dtype == np.float64 and native.shape == want.shape
+    np.testing.assert_allclose(native, want, rtol=0, atol=1e-9)
     np.testing.assert_array_equal(tresize.resize_nearest(img, *dst),
                                   jresize.resize_nearest(img, *dst))
 

@@ -1048,6 +1048,47 @@ def test_decode_attention_q8_kernel_is_c_on_the_widened_cache(rnd, group, b, ple
     assert torch.equal(widen(k_all, k_scale), k16) and torch.equal(widen(v_all, v_scale), v16)
 
 
+@pytest.mark.parametrize("group", [1, 4, 8])
+@pytest.mark.parametrize("b,plens,pad,wpos", [
+    (2, (100, 37), 128, 170),
+    (3, (500, 700, 9), 700, 1023),
+    (24, [700, 699, 1, 2, 64, 65] + [700 - 37 * i for i in range(18)], 700, 800),
+])
+def test_decode_attention_q8_kernel_at_the_old_scale(rnd, group, b, plens, pad, wpos):
+    """C8 with pair scales 0.02 x (0.5-1.5), the int8 tests' scale before
+    the unit-size cache of `_q8_cache` (dequantized values up to 3.8),
+    against the split mirror at the chooser's CTAs (it rounds p to bf16
+    where the kernel does) at TOL16, and against the plain version at TOL;
+    the cache changes only at column write_pos, there within one
+    quantization step."""
+    L, kh, s, layer = 3, 4, 1024, 1
+    k_all, v_all, _, _ = _q8_cache(L, b, kh, s, group)
+    gen = torch.Generator(device="cuda").manual_seed(group + b)
+    k_scale, v_scale = ((torch.rand((L, b, kh // 2, 1, 1), generator=gen, device="cuda") + 0.5)
+                        * 0.02 for _ in range(2))
+    q, k_new, v_new = rnd(b, kh * group, 64), rnd(b, kh, 64), rnd(b, kh, 64)
+    splits = dec.card_splits(b, kh, torch.device("cuda"), dec.MAX_SPLITS_Q8)
+    kw = dict(prompt_lens=_cuda_int32(plens), write_pos=_cuda_int32(wpos), prompt_pad=pad,
+              k_scale=k_scale, v_scale=v_scale)
+    k_exp, v_exp = k_all.clone(), v_all.clone()
+    ref = dec.decode_attention_fused_q8_plain(q.float(), k_exp, v_exp, k_new, v_new, layer, **kw)
+    mirror = dec.decode_attention_fused_q8_split_plain(q.float(), k_all.clone(), v_all.clone(),
+                                                       k_new, v_new, layer, splits=splits, **kw)
+    before = dec.launches_q8
+    out = dec.decode_attention_fused(q, k_all, v_all, k_new, v_new, layer, **kw)
+    torch.cuda.synchronize()
+    assert dec.launches_q8 == before + 1
+    print(f"splits {splits}: max |out - mirror| {(out.float() - mirror).abs().max().item():.3e}, "
+          f"|out - plain| {(out.float() - ref).abs().max().item():.3e}, "
+          f"max |out| {out.float().abs().max().item():.3f}")
+    torch.testing.assert_close(out.float(), mirror, **TOL16)
+    torch.testing.assert_close(out.float(), ref, **TOL)
+    for got, want in ((k_all, k_exp), (v_all, v_exp)):
+        assert (got[layer, :, :, wpos].int() - want[layer, :, :, wpos].int()).abs().max() <= 1
+        got[layer, :, :, wpos] = want[layer, :, :, wpos]
+        assert torch.equal(got, want)
+
+
 def test_decode_attention_q8_kernel_same_bits(rnd):
     """Kernel C8 gives the same bits on a second launch and on two replays
     of a CUDA graph of one launch (the append writes the same column)."""

@@ -224,6 +224,44 @@ def test_port_module_list_covers_the_front_door():
         "data.tokenizer", "data.video")} <= names
 
 
+def test_port_module_list_covers_training_from_a_file():
+    """The no-jax walk above imports the trainer's modules too."""
+    names = {m.name for m in pkgutil.walk_packages(grasp_any_region_tpu_torch.__path__,
+                                                  "grasp_any_region_tpu_torch.")}
+    prefix = "grasp_any_region_tpu_torch."
+    assert {prefix + n for n in (
+        "cli.train", "data.dataset", "data.loader", "data.native", "data.png", "data.rle",
+        "train.checkpoints", "train.export", "train.trainer")} <= names
+
+
+def test_training_entry_points_default_to_the_card(tmp_path):
+    """The Trainer and `cli.train` run on the card unless asked for the CPU
+    and raise where there is none, before they build or read anything; a
+    mesh axis above 1 raises, naming the roadmap item it waits for."""
+    import torch
+
+    from grasp_any_region_tpu_torch.cli.train import main
+    from grasp_any_region_tpu_torch.train import OptimizerConfig
+    from grasp_any_region_tpu_torch.train.trainer import MeshSpec, Trainer, TrainerConfig
+
+    assert TrainerConfig().device == "cuda"
+    missing = str(tmp_path / "nowhere.json")
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
+            Trainer(None, None, None, OptimizerConfig(), TrainerConfig())
+        with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
+            main(["--preset", "gar_tiny", "--data", missing])
+    for axis in ("data", "fsdp", "tensor", "seq", "pipe"):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md item 1.10"):
+            Trainer(None, None, None, OptimizerConfig(),
+                    TrainerConfig(device="cpu", mesh=MeshSpec(**{axis: 2})))
+    flag = {"data": "--data-axis"}
+    for axis in ("data", "fsdp", "tensor", "seq", "pipe"):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md item 1.10"):
+            main(["--preset", "gar_tiny", "--data", missing, "--device", "cpu",
+                  flag.get(axis, f"--{axis}"), "2"])
+
+
 def test_front_door_factories_default_to_the_card(tmp_path):
     """GARRuntime.load, collate_samples (and the batch builders through it)
     and load_checkpoint build on the card unless asked for the CPU, and

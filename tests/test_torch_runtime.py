@@ -23,6 +23,14 @@ import torch
 from grasp_any_region_tpu_torch.cli import runtime as trt
 from grasp_any_region_tpu_torch.data.builders import RegionSample, VideoRegionSample
 
+
+def port_numpy_resize(img, out_h, out_w, antialias=True, n_threads=0):
+    """The port's numpy resize in place of its native one: JAX's numpy form bit for bit."""
+    from grasp_any_region_tpu_torch.data.resize import resize_bicubic
+
+    return resize_bicubic(img, out_h, out_w, antialias, use_native=False)
+
+
 F32 = torch.float32
 NEW = 6
 
@@ -130,6 +138,8 @@ def test_caption_tokens_equal_jax_runtime(ckpt, kind, monkeypatch):
                         lambda *a, **k: None)
     monkeypatch.setattr("grasp_any_region_tpu.data.resize_native.resize_bicubic_native",
                         lambda *a, **k: None)
+    monkeypatch.setattr("grasp_any_region_tpu_torch.data.native.resize_bicubic_native",
+                        port_numpy_resize)
     jmod = sys.modules["grasp_any_region_tpu.models.generate"]
     outs = {"jax": [], "torch": []}
     monkeypatch.setattr(jmod, "gar_prefill",

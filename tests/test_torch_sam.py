@@ -26,6 +26,14 @@ from grasp_any_region_tpu_torch.sam import model as tm
 from grasp_any_region_tpu_torch.sam import pipeline as tp
 from grasp_any_region_tpu_torch.sam.weights import sam_params_from_numpy
 
+
+def port_numpy_resize(img, out_h, out_w, antialias=True, n_threads=0):
+    """The port's numpy resize in place of its native one: JAX's numpy form bit for bit."""
+    from grasp_any_region_tpu_torch.data.resize import resize_bicubic
+
+    return resize_bicubic(img, out_h, out_w, antialias, use_native=False)
+
+
 SMALL = dict(img_size=256, patch_size=16, embed_dim=64, depth=2, num_heads=2, window_size=14,
              global_attn_indexes=(1,), out_chans=64, decoder_mlp_dim=128)
 CFG_J, CFG_T = jm.SAMConfig(**SMALL), tm.SAMConfig(**SMALL)
@@ -74,6 +82,8 @@ def numpy_resize(monkeypatch):
     the port has the numpy one only."""
     monkeypatch.setattr("grasp_any_region_tpu.data.resize_native.resize_bicubic_native",
                         lambda *a, **k: None)
+    monkeypatch.setattr("grasp_any_region_tpu_torch.data.native.resize_bicubic_native",
+                        port_numpy_resize)
 
 
 PROMPTS = {

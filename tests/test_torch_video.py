@@ -19,6 +19,14 @@ import torch
 from grasp_any_region_tpu.core import config as jcfg
 from grasp_any_region_tpu_torch.core import config as tcfg
 
+
+def port_numpy_resize(img, out_h, out_w, antialias=True, n_threads=0):
+    """The port's numpy resize in place of its native one: JAX's numpy form bit for bit."""
+    from grasp_any_region_tpu_torch.data.resize import resize_bicubic
+
+    return resize_bicubic(img, out_h, out_w, antialias, use_native=False)
+
+
 F32 = torch.float32
 CLOSE = dict(rtol=1e-4, atol=1e-4)
 
@@ -58,10 +66,13 @@ def video():
     with pytest.MonkeyPatch.context() as mp:  # JAX's numpy resize, as the port's
         mp.setattr("grasp_any_region_tpu.data.resize_native.resize_bicubic_native",
                    lambda *a, **k: None)
+        mp.setattr("grasp_any_region_tpu_torch.data.native.resize_bicubic_native",
+                   port_numpy_resize)
         jbatch, jlens = jb.build_video_batch(cfg_j, JTok.synthetic(), JProc(),
                                              [jb.VideoRegionSample(frames, masks, q)])
-    tbatch, tlens = tb.build_video_batch(cfg_t, TTok.synthetic(), TProc(),
-                                         [tb.VideoRegionSample(frames, masks, q)], device="cpu")
+        tbatch, tlens = tb.build_video_batch(cfg_t, TTok.synthetic(), TProc(),
+                                             [tb.VideoRegionSample(frames, masks, q)],
+                                             device="cpu")
     return dict(cfg_j=cfg_j, cfg_t=cfg_t, params=params, tparams=tparams, jb=jbatch, tb=tbatch,
                 jlens=jlens, tlens=tlens)
 
