@@ -114,6 +114,32 @@ R2. GAR-1B at full width through `GARRuntime.load(random_init=True)` in
    every other kernel 0. Then the one-region case with int8_serving:
    J8 = I8 = C = 16 x steps, H8 = 2 x 16 x steps, J = I = H = 0.
 
+Evaluation (after the runtime, before SAM; `phase_eval`), on benchmark
+files written from the seed (`evaluation/synthetic.py`: PNG images of 1344
+x 1008 and 1792^2, the four annotation formats), GAR-1B bf16 random init:
+
+E1. `cli.eval.main` for garbench-vqa (9 items: the second chunk, one item,
+   padded to 8), garbench-detailed, dlc, ferret and mdvp at batch 8 and 32
+   tokens: items/s, host preprocessing ms an item, generate ms a batch and
+   each run's launches, exactly D = E = F = G = 23 and B = 16 a batch, C =
+   I = J = 16 x steps, H = 2 x 16 x steps; the VQA output through
+   `score_vqa`; one batch of 8 VQA items split into prefill (timed alone)
+   and decode, its tokens against the same items captioned one at a time
+   (printed, not bounded).
+E2. `cli.parity.main` on those weights written by `save_checkpoint` and a
+   PNG demo pair, --speculative 4,4: rc 1 (the demo caption differs at
+   random weights), the speculative check exact, the int8 repeat run, the
+   taps finite at their shapes; launches exactly A = 23, B = 80, D-G =
+   138, C = 3 x 16 x 31, I = J = 2 x 16 x 31, H = 4 x 16 x 31, J8 = I8 =
+   16 x 31, H8 = 2 x 16 x 31 (`parity_launches`).
+E3. One 16-token caption under `utils.profiling.trace`: the ten kernels
+   with the most device time, the kernels and device time of the tower,
+   the rest of the prefill and a decode step, a decode step's kernels by
+   launches, B's 16 events in the prefill range and C's 16 a step in the
+   decode range; `device_memory_stats()`.
+E4. `cli.warmup.main` (--grids 4x4, 32 tokens): build and first-caption
+   seconds; `gar_with_mask.main` on the PNG pair (PIL never imported).
+
 SAM and speculative decoding (after the runtime, before serving;
 `phase_sam_speculative`), no kernel of their own (JAX's are XLA):
 
@@ -280,7 +306,11 @@ C, H, I, J, H8, I8, J8 also with a "gar8b" object: their figures at
 GAR-8B's shapes and their launches per 8B caption; 5, 17 and 18 with
 theirs per 8B LoRA train step; B, C, C8, D-G, H-J and
 H8-J8 also with a "serving" object: the serving run, its launches and
-their figures at the serving shapes); the last line is
+their figures at the serving shapes; B, C, D-G and H-J also with an "eval"
+object: their launches over all eval batches, the number of batches and
+each batch's decode steps, B and C also their figures at an eval batch's
+shapes; H8, I8, J8 also with a "parity" object: their launches in
+parity's int8 repeat); the last line is
 {"ok": true, "device": {...}}.
 """
 
@@ -2357,6 +2387,72 @@ def runtime_attention_rows(rnd) -> dict:
     return rows
 
 
+def eval_attention_rows(rnd, segment_ids, plens, steps: int) -> dict:
+    """Kernels B and C at one eval batch's shapes (`phase_eval`), from its
+    segment ids and prompt lengths. B: (B, Sq, 32, 8, 64), every row
+    right-padded to Sq with its own prompt length, through `mha`'s
+    right-padded dispatch (the causal kernel without the segment mask), one
+    launch for the batch; its whole output against the plain causal
+    version, and each row's real tokens against the plain version with the
+    batch's segment ids, both at `sized_tol`; the plain version runs a row
+    at a time (one fp32 (32, Sq, Sq) logit block) and is timed so; the bound
+    counts the causal work over the padded rows, the kernel's; library SDPA
+    with is_causal. C (`c_row`): layer 7 of the batch's (16, B, 8, S, 64)
+    cache, its prompt lengths, prompt_pad Sq, write_pos at the last decode
+    step, at TOL16 with the interval probe. Returns {key: figures}."""
+    from grasp_any_region_tpu_torch.ops import flash_attention as fa
+    from grasp_any_region_tpu_torch.ops.attention import mha
+
+    b, sq = segment_ids.shape
+    plens = [int(p) for p in plens]
+    seg = segment_ids.to("cuda")
+    if [int(n) for n in (seg != 0).sum(1)] != plens or len(set(plens)) < 2:
+        raise AssertionError(f"[kernels eval] segment ids {seg.shape} and prompt lengths "
+                             f"{plens}: expected right padding, rows of differing lengths")
+    q, k, v = rnd(b, sq, 32, 64), rnd(b, sq, 8, 64), rnd(b, sq, 8, 64)
+    before = fa.launches
+    out = mha(q, k, v, causal=True, segment_ids=seg, right_padded=True)
+    torch.cuda.synchronize()
+    if fa.launches != before + 1:
+        raise AssertionError("[kernels eval] the right-padded batch did not take kernel B")
+    label = f"B (eval, B = {b}, Sq = {sq}, prompt lengths {plens})"
+    err = 0.0
+    for i, plen in enumerate(plens):
+        row = [x[i:i + 1].float() for x in (q, k, v)]
+        ref = fa.flash_attention_plain(*row, causal=True)
+        err = max(err, max_err(out[i:i + 1], ref, f"{label} row {i}", **sized_tol(ref)))
+        ref = fa.flash_attention_plain(*row, causal=True, segment_ids=seg[i:i + 1])[:, :plen]
+        err = max(err, max_err(out[i:i + 1, :plen], ref,
+                               f"{label} row {i}, its {plen} real tokens against the "
+                               "segment-masked plain version", **sized_tol(ref)))
+        del row, ref
+
+    def plain_rows():
+        for i in range(b):
+            fa.flash_attention_plain(q[i:i + 1], k[i:i + 1], v[i:i + 1], causal=True)
+
+    r = dict(max_abs_err=err, ms=cuda_ms(lambda: fa.flash_attention(q, k, v, causal=True)),
+             plain_ms=cuda_ms(plain_rows, iters=2, warmup=1),
+             library_ms=cuda_ms(lambda: sdpa(q, k, v, is_causal=True, enable_gqa=True)),
+             **bound(nbytes(q, k, v, out), 4 * 32 * 64 * b * sq * (sq + 1) // 2))
+    rows = {"B": r}
+    log(f"[kernels eval] {label}, causal (library: SDPA, is_causal): {share_line(r)}; plain "
+        f"{r['plain_ms']:.4f} ms (a row at a time); max |kernel - plain| {err:.3e} (sized_tol, "
+        "the whole rows and each row's real tokens)")
+    del q, k, v, out
+    cols = (sq + EVAL_NEW_TOKENS + 511) // 512 * 512
+    wpos = sq + steps - 1  # the last decode step's column
+    r, lib_gap, args, _ = c_row(rnd, plens, sq, wpos, cols)
+    rows["C"] = r
+    log(f"[kernels eval] C (cache (16, {b}, 8, {cols}, 64), prompt lengths {plens}, prompt_pad "
+        f"{sq}, write_pos {wpos}; library: SDPA, boolean mask, max |library - kernel| "
+        f"{lib_gap:.3e}): {share_line(r)}; plain {r['plain_ms']:.4f} ms; max |kernel - plain| "
+        f"{r['max_abs_err']:.3e} (TOL16, interval probe)")
+    del args
+    torch.cuda.empty_cache()
+    return rows
+
+
 def box_mask(h: int, w: int, y0: int, y1: int, x0: int, x1: int) -> np.ndarray:
     m = np.zeros((h, w), np.uint8)
     m[y0:y1, x0:x1] = 1
@@ -2531,6 +2627,346 @@ def phase_runtime(smi: str):
             f"{load_s:.1f} s")
         del rt
         torch.cuda.empty_cache()
+    return figures
+
+
+EVAL_NEW_TOKENS = 32
+EVAL_BATCH = 8
+# 16 items: VQA's 9 make two batches of 8, the second a padded chunk of one
+EVAL_ITEMS = dict(n_vqa=9, n_detailed=2, n_dlc=2, n_ferret=1, n_mdvp=2)
+EVAL_TASKS = (("garbench-vqa", "garbench_vqa", "images", "n_vqa"),  # (task, annotations,
+              ("garbench-detailed", "garbench_detailed", "images", "n_detailed"),  # images, items)
+              ("dlc", "dlc", "dlc_root", "n_dlc"), ("ferret", "ferret", "images", "n_ferret"),
+              ("mdvp", "mdvp", "images", "n_mdvp"))
+EVAL_KEYS = ("B", "C", "D", "E", "F", "G", "H", "I", "J")
+EVAL_PATH = f"cli.eval (BatchedCaptioner, batch {EVAL_BATCH}, {EVAL_NEW_TOKENS} tokens)"
+PARITY_KEYS = ("H8", "I8", "J8")
+PARITY_PATH = "cli.parity check (c): the int8 repeat (serving_weights)"
+KERNEL_SYMBOLS = {"flash_fwd_sm90_kernel": "B", "decode_split_kernel": "C"}
+
+
+def eval_launches(cfg, batches) -> dict:
+    """Launches of an eval run: each batch one fused tower pass (D-G a
+    block), one prefill (B a layer) and its decode steps (C, I, J a layer,
+    H twice a layer)."""
+    L, depth, n = cfg.text.num_layers, cfg.vision.depth, len(batches)
+    steps = sum(b["steps"] for b in batches)
+    return expect(B=L * n, D=depth * n, E=depth * n, F=depth * n, G=depth * n,
+                  C=L * steps, I=L * steps, J=L * steps, H=2 * L * steps)
+
+
+def parity_launches(cfg, steps: int) -> dict:
+    """Launches of `cli.parity.main` with a demo pair, the int8 repeat and
+    the speculative probe, every caption of `steps` decode steps: (a) the
+    bf16 caption, (c) the int8 caption (J8, I8, H8 with C on the bf16
+    cache), (e) generate and generate_speculative (no decode kernel), (d)
+    the taps: kernel A a block (the unfused `_block` loop), the fused tower
+    twice (`vision_forward`, `build_prefill_embeds`) and one prefill."""
+    L, depth = cfg.text.num_layers, cfg.vision.depth
+    n = L * steps
+    return expect(A=depth, B=5 * L, D=6 * depth, E=6 * depth, F=6 * depth, G=6 * depth,
+                  C=3 * n, I=2 * n, J=2 * n, H=4 * n, J8=n, I8=n, H8=2 * n)
+
+
+def tap_shapes(cfg, tiles: int, seq: int) -> dict:
+    """The shapes of `cli.parity.activation_checksums`' taps."""
+    v, t = cfg.vision, cfg.text
+    shapes = {"mask_patch_embed": [tiles, v.num_patches, v.width],
+              "vision_patch_embed": [tiles, v.seq_len, v.width]}
+    for i in sorted({0, v.depth // 2, v.depth - 1}):
+        shapes[f"vision_block{i}"] = [tiles, v.seq_len, v.width]
+    shapes.update(vision_final=[tiles, v.seq_len, v.width],
+                  projector=[tiles, cfg.tokens_per_tile, t.hidden_size],
+                  prefill_embeds=[1, seq, t.hidden_size], decoder_final=[1, seq, t.hidden_size])
+    return shapes
+
+
+def kernel_profile(path: str, steps: int, top: int = 10) -> dict:
+    """The kernels of a traced caption (`utils.profiling.trace_kernels`): the
+    `top` that took the most device time, the kernels and device time of the
+    tower ("vision"), the rest of the prefill and a decode step, and the
+    `top` kernels of a decode step by launches."""
+    from grasp_any_region_tpu_torch.utils.profiling import trace_kernels
+
+    kernels = trace_kernels(path)
+    if not kernels:
+        raise AssertionError("[profile] the trace holds no device kernel (CUPTI saw nothing)")
+    by_name = {}
+    for k in kernels:
+        n, us = by_name.get(k["name"], (0, 0.0))
+        by_name[k["name"]] = (n + 1, us + k["us"])
+    parts = {"vision": [k for k in kernels if "vision" in k["ranges"]],
+             "prefill": [k for k in kernels if "prefill" in k["ranges"]
+                         and "vision" not in k["ranges"]],
+             "decode": [k for k in kernels if "decode" in k["ranges"]]}
+    named = {key: {part: sum(sym in k["name"] for k in ks) for part, ks in parts.items()}
+             for sym, key in KERNEL_SYMBOLS.items()}
+    step = {}
+    for k in parts["decode"]:
+        n, us = step.get(k["name"], (0, 0.0))
+        step[k["name"]] = (n + 1, us + k["us"])
+    step = {name: (n / max(steps, 1), us / max(steps, 1)) for name, (n, us) in step.items()}
+    return dict(top=sorted(by_name.items(), key=lambda kv: -kv[1][1])[:top],
+                step_top=sorted(step.items(), key=lambda kv: -kv[1][0])[:top],
+                total_ms=sum(k["us"] for k in kernels) / 1e3, count=len(kernels),
+                parts={part: (len(ks), sum(k["us"] for k in ks) / 1e3)
+                       for part, ks in parts.items()},
+                per_step=len(parts["decode"]) / max(steps, 1),
+                step_ms=sum(k["us"] for k in parts["decode"]) / 1e3 / max(steps, 1),
+                named=named)
+
+
+@torch.inference_mode()
+def phase_eval(smi: str) -> dict:
+    """Benchmarks and the parity check at GAR-1B (bf16, random init) on
+    synthetic benchmark files (`evaluation/synthetic.py`: PNG images of 1344
+    x 1008 and 1792^2, the four annotation formats): `cli.eval.main` for
+    garbench-vqa, garbench-detailed, dlc, ferret and mdvp at batch 8 and 32
+    tokens (16 items; VQA's second chunk padded), each with items/s, host
+    preprocessing ms an item, generate ms a batch and its launches (exactly
+    `eval_launches`); the VQA output scored with `score_vqa`; the eval's
+    weights with a random mask_embed written as parity's checkpoint; then,
+    on decoder projections x10 (so greedy tokens vary), one batch's prefill
+    (timed alone) and decode ms, and its tokens against the same items
+    captioned one at a time (printed, not bounded: greedy bf16 across batch
+    buckets), and against the same items in reverse order (the same
+    shapes: rows equal unless they leak into each other); kernels B and C
+    at that batch's shapes against their plain versions
+    (`eval_attention_rows`); `cli.parity.main` on the checkpoint and a PNG
+    demo pair (rc 1: the demo caption differs at random weights; the
+    speculative check exact; the int8 repeat ran; taps finite, non-zero and
+    at their shapes; launches exactly `parity_launches`); one 16-token
+    caption under `utils.profiling.trace` (the top kernels, the kernels of
+    a decode step, B in the prefill and C in the decode ranges, the memory
+    stats);
+    `cli.warmup.main` (build and first-caption seconds); `gar_with_mask.main`
+    on PNG files (read with `data/png.py`: PIL stays unimported). Returns the
+    figures, with the launches over all eval batches, each batch's decode
+    steps, the B and C rows and parity's launches."""
+    import contextlib
+    import io
+    import tempfile
+
+    from grasp_any_region_tpu_torch.cli import eval as eval_cli
+    from grasp_any_region_tpu_torch.cli import gar_with_mask, parity, warmup
+    from grasp_any_region_tpu_torch.cli.runtime import GARRuntime
+    from grasp_any_region_tpu_torch.data.builders import RegionSample
+    from grasp_any_region_tpu_torch.core.weights import save_checkpoint
+    from grasp_any_region_tpu_torch.data.png import write_png
+    from grasp_any_region_tpu_torch.evaluation.garbench import item_to_sample, score_vqa
+    from grasp_any_region_tpu_torch.evaluation.synthetic import write_benchmark_files
+    from grasp_any_region_tpu_torch.models.gar import gar_prefill
+    from grasp_any_region_tpu_torch.utils.profiling import device_memory_stats, trace
+
+    figures = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        files = write_benchmark_files(os.path.join(tmp, "bench"), seed=SEED, **EVAL_ITEMS)
+        log(f"[eval] synthetic benchmark files ({sum(EVAL_ITEMS.values())} items, PNG images of "
+            f"1344 x 1008 and 1792^2) written in {time.perf_counter() - t0:.1f} s")
+        total, steps = dict.fromkeys(KERNELS, 0), []
+        for task, anno, img, n_items in EVAL_TASKS:
+            out = os.path.join(tmp, "out", f"{task}.json")
+            reset_counts()
+            t0 = time.perf_counter()
+            cap = eval_cli.main([task, "--anno", files[anno], "--images", files[img], "--out", out,
+                                 "--random-init", "--batch-size", str(EVAL_BATCH),
+                                 "--max-new-tokens", str(EVAL_NEW_TOKENS)])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts, want = read_counts(), eval_launches(cap.rt.cfg, cap.batches)
+            tag = f"[eval {task}]"
+            if counts != want:
+                raise AssertionError(f"{tag} launch counts {counts}, expected {want}")
+            with open(out) as f:
+                results = json.load(f)
+            items = sum(b["items"] for b in cap.batches)
+            built = items + sum(b["pad"] for b in cap.batches)
+            if len(results) != items or items != EVAL_ITEMS[n_items]:
+                raise AssertionError(f"{tag} {len(results)} records for {items} items")
+            summ = cap.timer.summary()
+            host_s, gen_s = summ["batch"]["total_s"], summ["answer"]["total_s"]
+            f = dict(items=items, batches=len(cap.batches), pads=built - items,
+                     items_per_s=items / (host_s + gen_s), wall_s=wall,
+                     host_ms_per_item=host_s * 1e3 / built,
+                     generate_ms_per_batch=gen_s * 1e3 / len(cap.batches),
+                     steps=[b["steps"] for b in cap.batches])
+            figures[task] = f
+            for key in KERNELS:
+                total[key] += counts[key]
+            steps += f["steps"]
+            log(f"{tag} {smi}: {items} items in {f['batches']} batch(es) of {EVAL_BATCH} "
+                f"({f['pads']} padded rows): {f['items_per_s']:.3f} items/s (host + generate; "
+                f"{wall:.1f} s with GARRuntime.load); host preprocessing {f['host_ms_per_item']:.1f} "
+                f"ms an item; generate {f['generate_ms_per_batch']:.1f} ms a batch, decode steps "
+                f"{f['steps']}; launches {dict((k, v) for k, v in counts.items() if v)} (every "
+                f"other kernel 0)")
+            if task == "garbench-vqa":
+                log(f"{tag} score_vqa: {json.dumps(score_vqa(results))}")
+        log(f"[eval] launches over the {len(steps)} eval batches (decode steps {steps}): "
+            f"{dict((k, v) for k, v in total.items() if v)}")
+
+        # the parity checkpoint: the eval's weights with a random mask_embed
+        # (zero at init, which would leave the mask path and its tap idle)
+        rt, cfg = cap.rt, cap.rt.cfg
+        with torch.no_grad():
+            rt.params.mask_embed.kernel.normal_(0.0, 0.02, generator=torch.Generator(
+                device="cuda").manual_seed(SEED))
+        ckpt = os.path.join(tmp, "ckpt")
+        t0 = time.perf_counter()
+        save_checkpoint(ckpt, cfg, rt.params)
+        save_s = time.perf_counter() - t0
+
+        # one eval batch split into prefill and decode, and against one at a
+        # time, on larger decoder projections (greedy decoding at random init
+        # repeats one token, which agrees whatever the batching)
+        with torch.no_grad():
+            for name in ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down"):
+                getattr(rt.params.llm.blocks, name).mul_(10.0)
+        with open(files["garbench_vqa"]) as f:
+            items = json.load(f)[:EVAL_BATCH]
+        samples = [item_to_sample(it, files["images"], "vqa") for it in items]
+        t0 = time.perf_counter()
+        batch, plens = rt.batch(samples)
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        _, res = rt.answer(batch, plens, max_new_tokens=EVAL_NEW_TOKENS)
+        torch.cuda.synchronize()
+        batch_ms = (time.perf_counter() - t0) * 1e3
+        prefill_ms = cuda_ms(lambda: gar_prefill(rt.params, rt.cfg, batch), iters=3, warmup=1)
+        agree = []
+        for i, sample in enumerate(samples):
+            _, one = rt.answer(*rt.batch([sample]), max_new_tokens=EVAL_NEW_TOKENS)
+            a, b = res.tokens[i].cpu(), one.tokens[0].cpu()
+            agree.append((int((a == b).sum()), first_difference(a.tolist(), b.tolist())))
+        distinct = [len(set(t.tolist())) for t in res.tokens.cpu()]
+        # the same 8 items in reverse order: the same kernels at the same
+        # shapes, so a row's tokens move with it unless rows leak into each other
+        _, rev = rt.answer(*rt.batch(samples[::-1]), max_new_tokens=EVAL_NEW_TOKENS)
+        reordered = sum(bool(torch.equal(a, b)) for a, b in zip(res.tokens, rev.tokens.flip(0)))
+        figures["batch"] = dict(host_ms=host_ms, batch_ms=batch_ms, prefill_ms=prefill_ms,
+                                decode_ms=batch_ms - prefill_ms, steps=res.steps,
+                                distinct=distinct, agree=agree, reordered=reordered)
+        log(f"[eval batch] {smi}: {len(samples)} VQA items, {batch.pixel_values.shape[1]} tile "
+            f"rows, prompts padded to {batch.input_ids.shape[1]} tokens: host {host_ms:.1f} ms; "
+            f"generate {batch_ms:.1f} ms = prefill {prefill_ms:.1f} (timed alone) + decode "
+            f"{batch_ms - prefill_ms:.1f} ({res.steps} steps, "
+            f"{(batch_ms - prefill_ms) / max(res.steps, 1):.2f} ms a step); decoder "
+            f"projections x10: distinct tokens a row {distinct}; tokens that agree with the "
+            f"same item captioned alone (of {EVAL_NEW_TOKENS}; first difference): {agree}; rows "
+            f"equal to their tokens in the reversed batch: {reordered} of {len(samples)} "
+            "(printed, not bounded)")
+        # kernels B and C at this batch's shapes against their plain versions
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        figures["rows"] = eval_attention_rows(
+            lambda *shape: torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16),
+            batch.segment_ids, plens.tolist(), res.steps)
+        del batch, res
+
+        # parity on the written checkpoint and a PNG demo pair
+        demo = np.asarray(samples[0].image)
+        demo_mask = next(iter(samples[0].masks.values()))
+        with open(os.path.join(tmp, "demo.png"), "wb") as f:
+            f.write(write_png(demo))
+        with open(os.path.join(tmp, "demo_mask.png"), "wb") as f:
+            f.write(write_png(demo_mask.astype(np.uint8) * 255))
+        demo_batch, _ = rt.batch([RegionSample(demo, {1: demo_mask},
+                                                instruction=parity.DEMO_INSTRUCTION)])
+        tiles, seq = demo_batch.pixel_values.shape[1], demo_batch.input_ids.shape[1]
+        del rt, cap, demo_batch
+        torch.cuda.empty_cache()
+        dump = os.path.join(tmp, "taps.json")
+        buf = io.StringIO()
+        reset_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = parity.main(["--model-path", ckpt, "--reference-root", os.path.join(tmp, "none"),
+                              "--demo-image", os.path.join(tmp, "demo.png"),
+                              "--demo-mask", os.path.join(tmp, "demo_mask.png"),
+                              "--max-new-tokens", str(EVAL_NEW_TOKENS), "--speculative", "4,4",
+                              "--dump-checksums", dump])
+        torch.cuda.synchronize()
+        parity_s = time.perf_counter() - t0
+        parity_counts = read_counts()
+        results = {r["check"]: r for r in json.loads(buf.getvalue())["results"]}
+        if rc != 1 or list(results) != ["demo_caption", "demo_caption_int8", "speculative"]:
+            raise AssertionError(f"[parity] rc {rc}, checks {list(results)}: expected rc 1 from "
+                                 "demo_caption, demo_caption_int8 and speculative")
+        if results["demo_caption"]["ok"] or not results["speculative"]["ok"]:
+            raise AssertionError(f"[parity] {results}: the random-weight demo caption must "
+                                 "differ and the speculative check must be exact")
+        want = parity_launches(cfg, EVAL_NEW_TOKENS - 1)
+        if parity_counts != want:
+            raise AssertionError(f"[parity] launch counts {parity_counts}, expected {want}")
+        with open(dump) as f:
+            taps = json.load(f)
+        shapes = tap_shapes(cfg, tiles, seq)
+        got_shapes = {k: v["shape"] for k, v in taps.items()}
+        if got_shapes != shapes or not all(
+                np.isfinite([v["mean"], v["std"], v["abs_sum"]]).all() and v["abs_sum"] > 0
+                for v in taps.values()):
+            raise AssertionError(f"[parity] taps {got_shapes} (expected {shapes}), not finite "
+                                 "or all zero")
+        spec = results["speculative"]
+        figures["parity"] = dict(rc=rc, seconds=parity_s, save_s=save_s,
+                                 counts={k: parity_counts[k] for k in PARITY_KEYS})
+        log(f"[parity] {smi}: save_checkpoint {save_s:.1f} s; cli.parity.main {parity_s:.1f} s, "
+            f"rc {rc} (the demo caption differs at random weights; the int8 repeat ran, its "
+            f"caption matches: {results['demo_caption_int8']['ok']}); speculative gamma "
+            f"{spec['gamma']}, K {spec['draft_layers']} exact, accept {spec['accept_rate']:.3f} "
+            f"against break-even {spec['break_even']:.3f}; taps "
+            + ", ".join(f"{k} {v['shape']} std {v['std']:.4g}" for k, v in taps.items())
+            + f"; launches {dict((k, v) for k, v in parity_counts.items() if v)}")
+
+        # one 16-token caption under the profiler
+        rt = GARRuntime.load(None, "gar_1b", random_init=True, seed=SEED, device="cuda")
+        sample = samples[0]
+        rt.caption([sample], max_new_tokens=16)
+        with trace(os.path.join(tmp, "trace")) as prof:
+            _, out = rt.answer(*rt.batch([sample]), max_new_tokens=16)
+            torch.cuda.synchronize()
+        prof_fig = kernel_profile(prof.trace_file, out.steps)
+        L = rt.cfg.text.num_layers
+        named = prof_fig["named"]
+        if named["B"]["prefill"] != L or named["C"]["decode"] != L * out.steps:
+            raise AssertionError(f"[profile] kernel events {named}: expected B = {L} in the "
+                                 f"prefill and C = {L} x {out.steps} in the decode range")
+        figures["profile"] = dict(prof_fig, mem=device_memory_stats())
+        log(f"[profile] {smi}: one caption of 16 tokens ({out.steps} decode steps): "
+            f"{prof_fig['count']} kernel events, {prof_fig['total_ms']:.2f} ms of device time; "
+            + "; ".join(f"{part} {n} kernels {ms:.2f} ms" for part, (n, ms)
+                        in prof_fig["parts"].items())
+            + f"; a decode step {prof_fig['per_step']:.1f} kernels, {prof_fig['step_ms']:.3f} ms "
+            f"of device; B, C by range {named}")
+        for name, (n, us) in prof_fig["top"]:
+            log(f"[profile top] {us / 1e3:9.3f} ms {n:6d} x  {name[:110]}")
+        for name, (n, us) in prof_fig["step_top"]:
+            log(f"[profile step] {n:6.1f} x {us:9.2f} us a decode step  {name[:110]}")
+        log(f"[profile] device_memory_stats: {device_memory_stats()}")
+        del rt
+        torch.cuda.empty_cache()
+
+        # the warmup CLI and the PNG CLI
+        err = io.StringIO()
+        with contextlib.redirect_stderr(err):
+            figures["warmup"] = warmup.main(["--grids", "4x4", "--max-new-tokens",
+                                             str(EVAL_NEW_TOKENS)])
+        log(f"[warmup] {smi}: {figures['warmup']} ({err.getvalue().count('[warmup]')} lines)")
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            gar_with_mask.main(["--preset", "gar_1b", "--random-init", "--max-new-tokens", "16",
+                                "--image", os.path.join(tmp, "demo.png"),
+                                "--mask", os.path.join(tmp, "demo_mask.png")])
+        lines = buf.getvalue().splitlines()
+        if not lines or lines[0] != f"=== {os.path.join(tmp, 'demo.png')} ===" \
+                or "PIL" in sys.modules:
+            raise AssertionError(f"[png cli] output {lines[:2]} or PIL imported")
+        log(f"[png cli] gar_with_mask.main on PNG files ({demo.shape[1]} x {demo.shape[0]}): "
+            f"{time.perf_counter() - t0:.1f} s, {len(lines)} lines, PIL never imported")
+    torch.cuda.empty_cache()
+    figures.update(launches=total, steps=steps, parity_counts=figures["parity"]["counts"])
     return figures
 
 
@@ -4415,6 +4851,7 @@ def main() -> int:
     del params_q8
     torch.cuda.empty_cache()
     phase_runtime(smi)
+    eval_fig = phase_eval(smi)
     phase_sam_speculative(smi)
     serving_runs = phase_serving(cfg, params)
     torch.cuda.empty_cache()
@@ -4474,6 +4911,19 @@ def main() -> int:
             row["path"] += f"; serving: {s_path}"
             row["serving"] = dict(path=s_path, launches=serving_runs[run]["counts"][key],
                                   shapes=kernels[key].get("serving", {}))
+    # the eval path's kernels name it with their launches over all eval
+    # batches (B and C also their rows at an eval batch's shapes), the int8
+    # kernels parity's int8 repeat with its launches
+    for row, key in zip(table, KERNELS):
+        if key in EVAL_KEYS:
+            row["path"] += f"; eval: {EVAL_PATH}"
+            row["eval"] = dict(path=EVAL_PATH, launches=eval_fig["launches"][key],
+                               batches=len(eval_fig["steps"]), decode_steps=eval_fig["steps"])
+            if key in eval_fig["rows"]:
+                row["eval"]["shapes"] = eval_fig["rows"][key]
+        if key in PARITY_KEYS:
+            row["path"] += f"; parity: {PARITY_PATH}"
+            row["parity"] = dict(path=PARITY_PATH, launches=eval_fig["parity_counts"][key])
     print(smi)
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

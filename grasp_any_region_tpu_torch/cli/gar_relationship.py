@@ -2,7 +2,7 @@
 (`grasp_any_region_tpu/cli/gar_relationship.py`'s arguments, and
 --device): several masks and a question that refers to them as <Prompt0>,
 <Prompt1>, ... --mcq appends the multiple-choice answer instruction.
-Reading the files needs PIL.
+PNG files need no image package (`data/png.py`); other formats need PIL.
 
 Usage:
   python -m grasp_any_region_tpu_torch.cli.gar_relationship \

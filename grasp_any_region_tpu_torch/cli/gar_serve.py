@@ -7,7 +7,8 @@ Drives `serve/engine.ContinuousBatchingEngine` (paged KV cache, slot ring,
 windows of decode steps): requests are admitted as slots and pages free
 up, decode runs for all active requests together, and each caption prints
 the moment its request finishes (not in submission order). The
-requests/s line goes to stderr. Reading the files needs PIL.
+requests/s line goes to stderr. PNG files need no image package
+(`data/png.py`); other formats need PIL.
 
 Usage:
   python -m grasp_any_region_tpu_torch.cli.gar_serve \\

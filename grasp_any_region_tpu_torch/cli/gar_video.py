@@ -2,7 +2,8 @@
 per-frame region masks (`grasp_any_region_tpu/cli/gar_video.py`'s
 arguments, and --device). Frames are an ordered list of images, or are
 sampled uniformly from a video file (needs cv2); masks mark the region in
-some of those frames. Reading the images needs PIL.
+some of those frames. PNG images need no image package (`data/png.py`);
+other formats need PIL.
 
 Usage:
   python -m grasp_any_region_tpu_torch.cli.gar_video \

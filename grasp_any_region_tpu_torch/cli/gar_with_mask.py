@@ -1,7 +1,7 @@
 """CLI: image + binary mask -> region caption, with the PyTorch package
 (`grasp_any_region_tpu/cli/gar_with_mask.py`'s arguments, and --device).
-Several image / mask pairs are captioned in one batch. Reading the files
-needs PIL.
+Several image / mask pairs are captioned in one batch. PNG files need no
+image package (`data/png.py`); other formats need PIL.
 
 Usage:
   python -m grasp_any_region_tpu_torch.cli.gar_with_mask \

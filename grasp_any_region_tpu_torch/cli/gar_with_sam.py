@@ -1,8 +1,8 @@
 """CLI: points / box -> SAM mask -> GAR region caption, with the PyTorch
 package (`grasp_any_region_tpu/cli/gar_with_sam.py`'s arguments, and
 --device): SAM's best-IoU mask, the single-region caption, and with --viz
-the mask's overlay and contour. Reading the image and writing the overlay
-need PIL.
+the mask's overlay and contour, written as a PNG. PNG images need no
+image package (`data/png.py`); other formats need PIL.
 
 Usage:
   python -m grasp_any_region_tpu_torch.cli.gar_with_sam --image img.png \\
@@ -17,6 +17,7 @@ from __future__ import annotations
 import argparse
 
 from ..data.builders import RegionSample
+from ..data.png import write_png
 from ..sam.pipeline import SamPredictor, draw_mask_overlay
 from .runtime import GARRuntime, load_image
 
@@ -64,9 +65,8 @@ def main(argv=None):
         raise SystemExit("prompt produced an empty mask")
 
     if args.viz:
-        from PIL import Image
-
-        Image.fromarray(draw_mask_overlay(image, mask)).save(args.viz)
+        with open(args.viz, "wb") as f:
+            f.write(write_png(draw_mask_overlay(image, mask)))
         print(f"[sam] wrote visualization to {args.viz}")
 
     rt = GARRuntime.load(args.model_path, args.preset, args.random_init, device=args.device)

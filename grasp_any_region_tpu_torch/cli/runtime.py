@@ -27,6 +27,7 @@ from ..core.weights import init_gar_params, load_checkpoint, require_device
 from ..data.builders import (RegionSample, VideoRegionSample, build_region_batch,
                              build_video_batch)
 from ..data.image_processor import GARImageProcessor, ImageProcessorConfig
+from ..data.png import read_image
 from ..data.tokenizer import GARTokenizer
 from ..models.gar import GARBatch, GARParams
 from ..models.generate import GenerationResult, generate
@@ -169,13 +170,11 @@ class GARRuntime:
 
 
 def load_image(path: str) -> np.ndarray:
-    from PIL import Image
-
-    return np.asarray(Image.open(path).convert("RGB"))
+    """An image file as (H, W, 3) uint8 RGB (PIL's convert("RGB")): PNGs
+    through `data/png.py`, other formats through PIL."""
+    return read_image(path, "RGB")
 
 
 def load_mask(path: str) -> np.ndarray:
-    from PIL import Image
-
-    m = np.asarray(Image.open(path).convert("L"))
-    return (m > 127).astype(np.uint8)
+    """A mask image as a binary (H, W) uint8 mask: PIL's convert("L") > 127."""
+    return (read_image(path, "L") > 127).astype(np.uint8)

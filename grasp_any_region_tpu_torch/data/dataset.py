@@ -26,7 +26,6 @@ Samples feed `data/builders.collate_samples(with_labels=True)`.
 from __future__ import annotations
 
 import base64
-import io
 import json
 import random
 import re
@@ -38,7 +37,7 @@ import numpy as np
 from ..core.config import GARConfig
 from .chat import ChatMessage, apply_chat_template, find_crop_runs
 from .image_processor import GARImageProcessor, ImageProcessorConfig
-from .png import is_png, read_png, to_rgb
+from .png import decode_image
 from .prompts import augment_instruction, bbox_from_mask, negative_prompt_answer, rasterize_prompts
 from .resize import resize_nearest
 from .rle import decode_any
@@ -58,15 +57,6 @@ class DatasetConfig:
     max_refetch: int = 1000
 
 
-def _pil_rgb(raw: bytes) -> np.ndarray:
-    try:
-        from PIL import Image
-    except ImportError as e:
-        raise ImportError("this image is not a PNG: reading other formats needs PIL (the "
-                          "pillow package), which is not installed") from e
-    return np.asarray(Image.open(io.BytesIO(raw)).convert("RGB"))
-
-
 def load_image(entry) -> np.ndarray:
     """An item's `image` as (H, W, 3) uint8 RGB: a PIL image, a
     `data:base64,` string or a file path."""
@@ -77,7 +67,7 @@ def load_image(entry) -> np.ndarray:
     else:
         with open(entry, "rb") as f:
             raw = f.read()
-    return to_rgb(read_png(raw)) if is_png(raw) else _pil_rgb(raw)
+    return decode_image(raw)
 
 
 class GraspAnyRegionDataset:

@@ -28,6 +28,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 from typing import Dict, Optional
 
@@ -69,14 +70,16 @@ def library_path() -> Path:
     return BUILD_ROOT / h.hexdigest()[:16] / "libgar_native.so"
 
 
-def build() -> Path:
+def build() -> tuple[Path, float]:
     """Compile the library unless an up-to-date one exists; raise with the
-    compiler's output when the build fails."""
+    compiler's output when the build fails. Returns (library path, seconds
+    spent compiling: 0.0 when cached), as `ops/_build.build()` does."""
     lib = library_path()
     if lib.is_file():
-        return lib
+        return lib, 0.0
     lib.parent.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_name(f"libgar_native.{os.getpid()}.tmp.so")
+    t0 = time.perf_counter()
     res = subprocess.run([_compiler(), *FLAGS, "-o", str(tmp), *map(str, SOURCES)],
                          capture_output=True, text=True)
     if res.returncode != 0:
@@ -84,7 +87,7 @@ def build() -> Path:
         raise RuntimeError(f"building the native host library failed ({res.returncode}):\n"
                            f"{res.stderr[-8000:]}")
     os.replace(tmp, lib)  # atomic: a concurrent loader sees all or nothing
-    return lib
+    return lib, time.perf_counter() - t0
 
 
 _LOCK = threading.Lock()
@@ -99,7 +102,7 @@ def library() -> ctypes.CDLL:
 
 @functools.lru_cache(maxsize=None)
 def _loaded() -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(build()))
+    lib = ctypes.CDLL(str(build()[0]))
     for name, (restype, argtypes) in _SIGNATURES.items():
         fn = getattr(lib, name)
         fn.restype, fn.argtypes = restype, argtypes

@@ -20,6 +20,7 @@ from torch import nn
 
 from ..core.config import GARConfig
 from ..core.weights import ParamGroup
+from ..utils.profiling import annotate
 from .llama import KVCache, LlamaParams, embed_tokens, llama_decode_step, llama_prefill, lm_logits
 from .projector import ProjectorParams, projector_forward
 from .replay import replay_features, replay_features_video, scatter_replay
@@ -120,16 +121,19 @@ def encode_images(
     compute_dtype=torch.bfloat16,
 ) -> torch.Tensor:
     """-> (T, tokens_per_tile, Dt): tower with mask embeds, CLS dropped,
-    projected and pooled. remat, remat_group: `vision_forward`'s."""
-    mask_embeds = None
-    if mask_values is not None:
-        binary = decode_mask_values(cfg, mask_values, compat=mask_compat)
-        mask_embeds = mask_patch_embed(params, cfg, binary.to(compute_dtype))
-    hidden = vision_forward(params.vision, cfg.vision, pixel_values, mask_embeds,
-                            remat=remat, remat_group=remat_group, compute_dtype=compute_dtype)
-    if cfg.vision_use_cls_token:
-        hidden = hidden[:, 1:, :]
-    return projector_forward(params.projector, cfg, hidden)
+    projected and pooled (the range "vision" under `utils/profiling.trace`).
+    remat, remat_group: `vision_forward`'s."""
+    with annotate("vision"):
+        mask_embeds = None
+        if mask_values is not None:
+            binary = decode_mask_values(cfg, mask_values, compat=mask_compat)
+            mask_embeds = mask_patch_embed(params, cfg, binary.to(compute_dtype))
+        hidden = vision_forward(params.vision, cfg.vision, pixel_values, mask_embeds,
+                                remat=remat, remat_group=remat_group,
+                                compute_dtype=compute_dtype)
+        if cfg.vision_use_cls_token:
+            hidden = hidden[:, 1:, :]
+        return projector_forward(params.projector, cfg, hidden)
 
 
 def scatter_image_features(

@@ -5,6 +5,10 @@ write position and done flags all stay on the device. The host looks at
 the done flags only every EOT_CHECK_EVERY steps, to stop early once every row
 has emitted eot, and never when `eot_id < 0`. Stopping early changes no
 output: rows that are done only ever append `pad_id`.
+
+Under `utils/profiling.trace` a caption shows as the ranges "prefill"
+(with the tower's "vision" inside it, `models/gar.encode_images`) and
+"decode".
 """
 
 from __future__ import annotations
@@ -14,6 +18,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from ..core.config import EOT_TOKEN_ID, GARConfig
+from ..utils.profiling import annotate
 from .gar import GARBatch, GARParams, gar_decode_step, gar_prefill, seed_cache_from_prefill
 from .llama import lm_logits
 
@@ -63,34 +68,36 @@ def generate(
     b, s = batch.input_ids.shape
     dev = batch.input_ids.device
     prompt_lens = prompt_lens.to(device=dev, dtype=torch.int32)
-    hidden, kv = gar_prefill(params, cfg, batch, mask_compat=mask_compat,
-                             double_scale_compat=double_scale_compat,
-                             compute_dtype=compute_dtype, video_mode=video_mode)
-    last_hidden = hidden[torch.arange(b, device=dev), prompt_lens.long() - 1]
-    logits0 = lm_logits(params.llm, cfg.text, last_hidden,
-                        valid_vocab=cfg.extended_vocab_size)
-    cur = _sample(logits0, generator, temperature)
+    with annotate("prefill"):
+        hidden, kv = gar_prefill(params, cfg, batch, mask_compat=mask_compat,
+                                 double_scale_compat=double_scale_compat,
+                                 compute_dtype=compute_dtype, video_mode=video_mode)
+        last_hidden = hidden[torch.arange(b, device=dev), prompt_lens.long() - 1]
+        logits0 = lm_logits(params.llm, cfg.text, last_hidden,
+                            valid_vocab=cfg.extended_vocab_size)
+        cur = _sample(logits0, generator, temperature)
 
-    # cache columns rounded up to a multiple of 512
-    max_len = ((s + max_new_tokens + 511) // 512) * 512
-    cache = seed_cache_from_prefill(cfg, kv, prompt_lens, max_len, quantize_kv=quantize_kv)
-    del hidden, kv
+        # cache columns rounded up to a multiple of 512
+        max_len = ((s + max_new_tokens + 511) // 512) * 512
+        cache = seed_cache_from_prefill(cfg, kv, prompt_lens, max_len, quantize_kv=quantize_kv)
+        del hidden, kv
 
     out = torch.full((b, max_new_tokens), pad_id, dtype=torch.int32, device=dev)
     out[:, 0] = cur
     done = cur == eot_id
     steps = 0
-    for step in range(1, max_new_tokens):
-        logits, cache = gar_decode_step(params, cfg, cur, cache, s,
-                                        compute_dtype=compute_dtype)
-        nxt = _sample(logits, generator, temperature)
-        nxt = torch.where(done, pad_id, nxt)
-        out[:, step] = nxt
-        done = done | (nxt == eot_id)
-        cur = nxt
-        steps = step
-        if eot_id >= 0 and step % EOT_CHECK_EVERY == 0 and bool(done.all()):
-            break
+    with annotate("decode"):
+        for step in range(1, max_new_tokens):
+            logits, cache = gar_decode_step(params, cfg, cur, cache, s,
+                                            compute_dtype=compute_dtype)
+            nxt = _sample(logits, generator, temperature)
+            nxt = torch.where(done, pad_id, nxt)
+            out[:, step] = nxt
+            done = done | (nxt == eot_id)
+            cur = nxt
+            steps = step
+            if eot_id >= 0 and step % EOT_CHECK_EVERY == 0 and bool(done.all()):
+                break
 
     # count tokens up to and including the first eot (or max_new_tokens)
     is_eot = out == eot_id

@@ -25,8 +25,8 @@ Requests reach the card one at a time: `describe`, `point_to_mask` and
 `sam_embedding` hold one lock around each model call (JAX's lock, which
 `describe` here also holds around SAM; batching across clients is the
 serving engine's job, serve/engine.py). The base64 -> image
-decode (PIL) is `decode_image`, apart from `describe_array`, the body of
-`describe` on arrays, which needs no PIL.
+decode is `decode_image` (PNG through `data/png.py`, other formats through
+PIL), apart from `describe_array`, the body of `describe` on arrays.
 
 Run: python -m grasp_any_region_tpu_torch.serve.server --preset gar_1b --random-init
   [--sam-path /path/to/hf-sam] [--port 8000] [--device cpu]
@@ -35,7 +35,6 @@ Run: python -m grasp_any_region_tpu_torch.serve.server --preset gar_1b --random-
 from __future__ import annotations
 
 import base64
-import io
 import json
 import threading
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
@@ -43,6 +42,8 @@ from typing import Optional
 
 import numpy as np
 import torch
+
+from ..data import png
 
 INDEX_HTML = """<!doctype html>
 <html><head><title>Grasp Any Region (TPU)</title>
@@ -284,10 +285,9 @@ async function describe(){
 </script></body></html>"""
 
 def decode_image(b64: str, mode: str = "RGB") -> np.ndarray:
-    """A base64 PNG / JPEG as an (H, W, 3) uint8 array ("L": (H, W)); PIL."""
-    from PIL import Image
-
-    return np.asarray(Image.open(io.BytesIO(base64.b64decode(b64))).convert(mode))
+    """A base64 PNG / JPEG as an (H, W, 3) uint8 array ("L": (H, W)): PNGs
+    through `data/png.py`, other formats through PIL."""
+    return png.decode_image(base64.b64decode(b64), mode)
 
 
 def decode_mask(b64: str) -> np.ndarray:
@@ -296,11 +296,12 @@ def decode_mask(b64: str) -> np.ndarray:
 
 
 def png_b64(arr: np.ndarray, mode: str) -> str:
-    from PIL import Image
-
-    buf = io.BytesIO()
-    Image.fromarray(arr, mode).save(buf, format="PNG")
-    return base64.b64encode(buf.getvalue()).decode()
+    """An "L" (H, W), "RGB" (H, W, 3) or "RGBA" (H, W, 4) uint8 array as a
+    base64 PNG (`data/png.write_png`)."""
+    channels = {"L": 2, "RGB": 3, "RGBA": 4}[mode]
+    if (arr.ndim == 2) != (channels == 2) or (arr.ndim == 3 and arr.shape[2] != channels):
+        raise ValueError(f"a {mode} PNG of an array of shape {arr.shape}")
+    return base64.b64encode(png.write_png(np.ascontiguousarray(arr, np.uint8))).decode()
 
 
 class GARServer:

@@ -2541,3 +2541,144 @@ def test_lora_train_step_at_a_narrow_8b_config_matches_the_cpu(rnd):
             assert torch.equal(p, start[n]), n  # the frozen base never moves
     for n in ("llm.blocks.wq_lora_a", "llm.blocks.wo_lora_b", "mask_embed.kernel"):
         assert not torch.equal(state.params.get_parameter(n), start[n]), n
+
+
+# ---- evaluation, RoIAlign and the profiler on the card
+
+
+def _eval_narrow_config():
+    from grasp_any_region_tpu_torch.core.config import gar_1b
+
+    cfg = gar_1b()
+    return dataclasses.replace(
+        cfg, vision=dataclasses.replace(cfg.vision, width=256, num_heads=4, depth=2),
+        text=dataclasses.replace(cfg.text, hidden_size=256, num_heads=4, num_kv_heads=1,
+                                 head_dim=64, num_layers=2, intermediate_size=1024))
+
+
+def _eval_samples(n):
+    import numpy as np
+
+    from grasp_any_region_tpu_torch.data.builders import RegionSample
+
+    rng = np.random.default_rng(0)
+    out = []
+    for i in range(n):
+        img = rng.integers(0, 256, (300 + 40 * i, 420, 3), dtype=np.uint8)
+        mask = np.zeros(img.shape[:2], np.uint8)
+        mask[20 + 10 * i:200, 40:300 - 20 * i] = 1
+        out.append(RegionSample(img, {1: mask}))
+    return out
+
+
+def test_batched_captioner_batch_on_the_card_equals_the_cpu(rnd, monkeypatch):
+    """`BatchedCaptioner` at a narrow gar_1b in fp32: three items in batches
+    of two (the second padded) on the card give the CPU plain path's tokens.
+    The prefill's kernels and kernel C take bf16 only, so the card's prefill
+    runs on the CPU (the same weights) and its decode attention is the plain
+    version; the decode step's products are cuBLAS fp32."""
+    import copy
+    import functools
+
+    from grasp_any_region_tpu_torch.cli import runtime as rtm
+    from grasp_any_region_tpu_torch.core.weights import init_gar_params
+    from grasp_any_region_tpu_torch.data.image_processor import (GARImageProcessor,
+                                                                 ImageProcessorConfig)
+    from grasp_any_region_tpu_torch.data.tokenizer import GARTokenizer
+    from grasp_any_region_tpu_torch.evaluation.engine import BatchedCaptioner
+    from grasp_any_region_tpu_torch.models import gar, generate as gen_mod, llama
+
+    cfg = _eval_narrow_config()
+    p_cpu = init_gar_params(cfg, torch.Generator().manual_seed(0), device="cpu",
+                            dtype=torch.float32)
+    with torch.no_grad():
+        p_cpu.mask_embed.kernel.normal_(0.0, 0.02, generator=torch.Generator().manual_seed(1))
+        for name in ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down"):
+            getattr(p_cpu.llm.blocks, name).mul_(10.0)
+    p_gpu = copy.deepcopy(p_cpu).to("cuda")
+
+    def runtime(params, device):
+        return rtm.GARRuntime(cfg, params, GARTokenizer.synthetic(cfg.prompt_numbers),
+                              GARImageProcessor(ImageProcessorConfig(max_num_tiles=cfg.max_num_tiles)),
+                              torch.device(device), torch.float32,
+                              torch.Generator(device=device).manual_seed(0))
+
+    def cpu_prefill(params, cfg_, batch_, **kw):
+        if params is p_gpu:
+            hidden, (k, v) = gar.gar_prefill(p_cpu, cfg_, gar.map_batch(lambda t: t.cpu(), batch_),
+                                             **kw)
+            return hidden.cuda(), (k.cuda(), v.cuda())
+        return gar.gar_prefill(params, cfg_, batch_, **kw)
+
+    toks = {"cpu": [], "cuda": []}
+    real = rtm.generate
+
+    def recording(*a, **k):
+        out = real(*a, **k)
+        toks[out.tokens.device.type].append(out.tokens.cpu())
+        return out
+
+    monkeypatch.setattr(gen_mod, "gar_prefill", cpu_prefill)
+    monkeypatch.setattr(gen_mod, "gar_decode_step",
+                        functools.partial(gar.gar_decode_step, use_kernel=False))
+    monkeypatch.setattr(llama, "decode_attention_fused", dec.decode_attention_fused_plain)
+    monkeypatch.setattr(rtm, "generate", recording)
+    samples = _eval_samples(3)
+    caps = {d: BatchedCaptioner(runtime(p, d), batch_size=2, max_new_tokens=12)
+            for d, p in (("cpu", p_cpu), ("cuda", p_gpu))}
+    texts = {d: cap.run(samples) for d, cap in caps.items()}
+    assert texts["cuda"] == texts["cpu"] and len(texts["cuda"]) == 3
+    assert [b["pad"] for b in caps["cuda"].batches] == [0, 1]
+    for got, want in zip(toks["cuda"], toks["cpu"]):
+        assert torch.equal(got, want), (got, want)
+    assert len(toks["cuda"]) == 2 and len(set(toks["cuda"][0][0].tolist())) > 1
+
+
+def test_roi_align_on_the_card_equals_the_cpu(rnd):
+    from grasp_any_region_tpu_torch.ops.roi_align import roi_align
+
+    gen = torch.Generator().manual_seed(3)
+    feat = torch.randn((64, 48, 80), generator=gen)
+    boxes = torch.tensor([[2.0, 3.0, 61.5, 40.0], [0.0, 0.0, 79.0, 47.0], [10.2, 5.7, 11.9, 8.1],
+                          [-3.0, -3.0, 5.0, 5.0], [70.0, 40.0, 90.0, 60.0]])
+    for kw in (dict(output_size=(16, 16)), dict(output_size=(7, 9), spatial_scale=0.5,
+                                                aligned=False)):
+        got = roi_align(feat.cuda(), boxes.cuda(), **kw)
+        assert got.device.type == "cuda"
+        torch.testing.assert_close(got.cpu(), roi_align(feat, boxes, **kw), rtol=1e-5, atol=1e-5)
+
+
+def test_trace_records_kernels_b_and_c_on_the_card(rnd, tmp_path):
+    """A narrow bf16 caption on the card inside `utils.profiling.trace`:
+    the trace holds kernel B's launches in the prefill range and kernel C's
+    in the decode range, and the memory stats name the card."""
+    import numpy as np
+
+    from grasp_any_region_tpu_torch.cli.runtime import GARRuntime
+    from grasp_any_region_tpu_torch.core.weights import init_gar_params
+    from grasp_any_region_tpu_torch.data.image_processor import (GARImageProcessor,
+                                                                 ImageProcessorConfig)
+    from grasp_any_region_tpu_torch.data.tokenizer import GARTokenizer
+    from grasp_any_region_tpu_torch.utils.profiling import (device_memory_stats, trace,
+                                                            trace_kernels)
+
+    cfg = _eval_narrow_config()
+    params = init_gar_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                             dtype=torch.bfloat16)
+    rt = GARRuntime(cfg, params, GARTokenizer.synthetic(cfg.prompt_numbers),
+                    GARImageProcessor(ImageProcessorConfig(max_num_tiles=cfg.max_num_tiles)),
+                    torch.device("cuda"), torch.bfloat16,
+                    torch.Generator(device="cuda").manual_seed(0))
+    samples = _eval_samples(1)
+    rt.caption(samples, max_new_tokens=4)  # warm-up: the kernel library is built
+    with trace(str(tmp_path)) as prof:
+        rt.caption(samples, max_new_tokens=6)
+    kernels = trace_kernels(prof.trace_file)
+    b = [k for k in kernels if "flash_fwd_sm90_kernel" in k["name"]]
+    c = [k for k in kernels if "decode_split_kernel" in k["name"]]
+    assert len(b) >= 1 and all("prefill" in k["ranges"] for k in b), b[:3]
+    assert len(c) >= 1 and all("decode" in k["ranges"] for k in c), c[:3]
+    assert len(c) == cfg.text.num_layers * 5  # one a layer a decode step
+    stats = device_memory_stats()
+    assert len(stats) == torch.cuda.device_count() and stats[0]["peak_bytes_in_use"] > 0
+    assert np.isfinite(sum(k["us"] for k in kernels))

@@ -339,3 +339,42 @@ def test_engine_admits_builder_batches_without_replay_tile():
                                     max_new_tokens=ecfg.max_new_tokens,
                                     compute_dtype=torch.float32)
             assert out[rid] == want.tokens[0].tolist()
+
+
+def test_port_module_list_covers_evaluation():
+    """The no-jax walk above imports the evaluation package, its judges, the
+    eval, parity and warmup CLIs, the profiler and the leftover ops too."""
+    names = {m.name for m in pkgutil.walk_packages(grasp_any_region_tpu_torch.__path__,
+                                                  "grasp_any_region_tpu_torch.")}
+    prefix = "grasp_any_region_tpu_torch."
+    assert {prefix + n for n in (
+        "evaluation.engine", "evaluation.coco", "evaluation.dlc", "evaluation.ferret",
+        "evaluation.garbench", "evaluation.mdvp", "evaluation.synthetic",
+        "evaluation.judges.client", "evaluation.judges.dlc_judge",
+        "evaluation.judges.garbench_judge", "evaluation.judges.pairwise_judge",
+        "evaluation.judges.paint", "cli.eval", "cli.parity", "cli.warmup", "utils.profiling",
+        "ops.roi_align", "ops.tiles")} <= names
+
+
+@pytest.mark.parametrize("cli", ["eval", "parity", "warmup"])
+def test_eval_parity_warmup_default_to_the_card(tmp_path, cli):
+    """The inference entry points of the eval, parity and warmup CLIs run
+    on the card unless asked for the CPU, and raise where there is none
+    before they read anything."""
+    import inspect
+
+    import torch
+
+    from grasp_any_region_tpu_torch.cli import eval as ev
+    from grasp_any_region_tpu_torch.cli import parity, warmup
+
+    missing = str(tmp_path / "nowhere")
+    argv = {"eval": ["dlc", "--anno", missing, "--preset", "gar_tiny", "--random-init"],
+            "parity": ["--model-path", missing, "--preset", "gar_tiny"],
+            "warmup": ["--preset", "gar_tiny"]}[cli]
+    main = {"eval": ev.main, "parity": parity.main, "warmup": warmup.main}[cli]
+    if cli == "warmup":
+        assert inspect.signature(warmup.main).parameters["device"].default == "cuda"
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
+            main(argv)
