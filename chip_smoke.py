@@ -2042,6 +2042,8 @@ def counter_modules():
 
 def reset_counts():
     dec, fa, va, vb, lm, fb, mk, nm = counter_modules()
+    for tally in SHAPES.values():
+        tally.clear()
     va.launches = va.launches_fused = va.launches_bwd = 0
     fa.launches = fa.launches_segments = dec.launches = dec.launches_q8 = 0
     dec.launches_stacked = nm.launches = 0
@@ -4824,6 +4826,608 @@ KERNELS = {
 }
 
 
+# ---------------------------------------------------------------------------
+# phase_parallel: two gloo ranks on the one card
+# ---------------------------------------------------------------------------
+
+PARALLEL_TIMING = "gloo through the host, two ranks on one card"
+PARALLEL_OPT = dict(lr=1e-4, total_steps=100, warmup_ratio=0.0)  # the first update moves
+PARALLEL_KEYS = ("A", "5", "B", "17", "18")
+PARALLEL_PATH = ("phase_parallel (2 gloo ranks on cuda:0): fsdp=2 train_step, tensor=2 "
+                 "generate, seq=2 Ulysses prefill")
+# step 1's gradients held against one process: replicated leaves (reduced
+# over fsdp by `reduce_gradients`) and fsdp-sharded ones (reduce-scattered
+# by the gathers' backward)
+PARALLEL_GRAD_LEAVES = ("llm.final_norm", "llm.blocks.attn_norm", "vision.blocks.bqkv",
+                        "mask_embed.kernel", "projector.fc1", "llm.blocks.wo")
+PARALLEL_GRAD_TOL = 2e-2  # max |diff| / max |one process| of a bf16 gradient leaf
+PARALLEL_NORM_TOL = 1e-2  # |diff| / one process of step 1's grad_norm
+# {key: Counter of call shapes} of A, 5, B and the decoder's backward (17,
+# 18) in a rank process (`record_shapes`), cleared with the launch counts
+SHAPES: dict = {}
+
+
+def record_shapes() -> None:
+    """Tally in SHAPES, in this process, the shapes of each call of A, 5, B
+    and the decoder's backward (17 and 18, one call each): their wrappers
+    are wrapped in their modules, where the model's code looks them up (a
+    caller that bound one itself would escape; `check_shapes` holds the
+    tallies to the launch counts)."""
+    import collections
+
+    from grasp_any_region_tpu_torch.ops import flash_attention as fa
+    from grasp_any_region_tpu_torch.ops import flash_backward as fb
+    from grasp_any_region_tpu_torch.ops import vit_attention as va
+
+    SHAPES.update({k: collections.Counter() for k in ("A", "5", "B", "17/18")})
+
+    def wrap(mod, name, key, sig):
+        fn = getattr(mod, name)
+
+        def call(*args, **kw):
+            SHAPES[key][sig(*args, **kw)] += 1
+            return fn(*args, **kw)
+
+        setattr(mod, name, call)
+
+    def attention(q, k, *args, causal=True, segment_ids=None, **kw):
+        return (*q.shape, k.shape[2], bool(causal), segment_ids is not None)
+
+    wrap(va, "vit_attention", "A", lambda q, *args, **kw: tuple(q.shape))
+    wrap(va, "vit_attention_bwd", "5", lambda q, *args: tuple(q.shape))
+    wrap(fa, "flash_attention", "B", attention)
+    wrap(fb, "flash_attention_bwd", "17/18", attention)
+
+
+def check_shapes(tag: str, shapes: dict, counts: dict) -> None:
+    """The tallied calls against the launch counts of the same window: A, 5
+    and B one each, the decoder's backward one 18 each (5 launches the
+    other 18s)."""
+    got = {k: sum(c.values()) for k, c in shapes.items()}
+    want = {"A": counts["A"], "5": counts["5"], "B": counts["B"],
+            "17/18": counts["18"] - counts["5"]}
+    if got != want:
+        raise AssertionError(f"[parallel] {tag}: tallied calls {got}, launch counts {want}")
+
+
+def scale_projections(llm) -> None:
+    """Decoder projections x10, so that greedy decoding at random init does
+    not repeat one token (a sharded tree's shards scale as the whole)."""
+    with torch.no_grad():
+        for name in ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down"):
+            getattr(llm.blocks, name).mul_(10.0)
+
+
+def capture_grads(tx, out: dict, mesh=None) -> None:
+    """Make the next tx.apply first copy the whole gradients of
+    PARALLEL_GRAD_LEAVES to the host (gathered from the shards under a
+    mesh), then apply as before."""
+    from grasp_any_region_tpu_torch.parallel.sharding import full_tensor
+
+    apply = tx.apply
+
+    def first(params, opt_state, sq=None):
+        named = dict(params.named_parameters())
+        for n in PARALLEL_GRAD_LEAVES:
+            g = named[n].grad
+            out[n] = (g if mesh is None else full_tensor(g, named[n].spec, mesh)).float().cpu()
+        tx.apply = apply
+        apply(params, opt_state, sq)
+
+    tx.apply = first
+
+
+def parallel_train_batch(cfg, device):
+    """Two rows of 13 tiles (thumbnail + 4 x 3), one region each."""
+    from grasp_any_region_tpu_torch.data.synthetic import synthetic_batch
+
+    batch, labels, _ = synthetic_batch(cfg, batch=2, grid=(4, 3), regions=1, seed=SEED,
+                                       device=device)
+    return batch, labels
+
+
+def state_bytes(state) -> int:
+    """Parameter + AdamW moment bytes of a train state."""
+    return sum(t.numel() * t.element_size() for t in (*state.params.parameters(),
+                                                      *state.opt_state.mu, *state.opt_state.nu))
+
+
+def parallel_train_steps(cfg, state, tx, batch, labels, mesh=None, n: int = 2) -> dict:
+    """n steps of `make_train_step(mesh=)`: losses, grad norms, host ms a
+    step (ending in a synchronize), launches a step, bytes, peak memory,
+    and step 1's gradients of PARALLEL_GRAD_LEAVES (`capture_grads`)."""
+    from grasp_any_region_tpu_torch.train import make_train_step
+
+    step = make_train_step(cfg, tx, mask_compat=False, mesh=mesh)
+    nbytes = state_bytes(state)
+    grads = {}
+    capture_grads(tx, grads, mesh)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, norms, ms, counts = [], [], [], []
+    for _ in range(n):
+        reset_counts()
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch, labels)
+        losses.append(metrics["loss"].item())
+        norms.append(metrics["grad_norm"].item())
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        counts.append(read_counts())
+    return dict(losses=losses, grad_norms=norms, grads=grads, ms=ms, counts=counts,
+                bytes=nbytes, peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+
+
+def parallel_fsdp_train(rank: int, cfg) -> dict:
+    from grasp_any_region_tpu_torch.core.mesh import MeshSpec, make_mesh
+    from grasp_any_region_tpu_torch.train import OptimizerConfig, init_state
+    from grasp_any_region_tpu_torch.train.step import shard_batch
+
+    mesh = make_mesh(MeshSpec(fsdp=2), device="cuda:0")
+    batch, labels = shard_batch(*parallel_train_batch(cfg, "cuda"), mesh)
+    state, tx = init_state(random_params(cfg, "cuda"), OptimizerConfig(**PARALLEL_OPT),
+                           mesh=mesh)
+    torch.cuda.empty_cache()
+    res = parallel_train_steps(cfg, state, tx, batch, labels, mesh)
+    if rank:  # rank 0 returns the gathered gradients
+        res["grads"] = None
+    return res
+
+
+@torch.inference_mode()
+def first_decode_logits(params, cfg, batch, plens, token=None, mesh=None):
+    """(prefill's last-position logits, the first decode step's logits on
+    `token`, the token) of one row, as `generate` computes them (whole
+    vocab); token None takes the prefill's greedy one."""
+    from grasp_any_region_tpu_torch.models.gar import (gar_decode_step, gar_prefill,
+                                                       seed_cache_from_prefill)
+    from grasp_any_region_tpu_torch.models.llama import lm_logits
+
+    hidden, kv = gar_prefill(params, cfg, batch, mask_compat=False, mesh=mesh)
+    plen = int(plens[0])
+    logits0 = lm_logits(params.llm, cfg.text, hidden[:, plen - 1], mesh=mesh,
+                        valid_vocab=cfg.extended_vocab_size)
+    del hidden
+    s = batch.input_ids.shape[1]
+    cache = seed_cache_from_prefill(cfg, kv, plens.to(batch.input_ids.device, torch.int32),
+                                    (s + 32 + 511) // 512 * 512)
+    del kv
+    if token is None:
+        token = int(logits0[0].argmax())
+    tok = torch.full((1,), token, dtype=torch.int32, device=batch.input_ids.device)
+    logits1, _ = gar_decode_step(params, cfg, tok, cache, s, mesh=mesh)
+    return logits0[0].float().cpu(), logits1[0].float().cpu(), token
+
+
+@torch.inference_mode()
+def parallel_tensor_generate(rank: int, cfg, token: int) -> dict:
+    """tensor = 2: the prefill's last-position logits and the first decode
+    step's on `token` (one process's greedy first token), then, on decoder
+    projections x10, the prefill's logits again and `generate` of 32 tokens
+    (launches, host ms)."""
+    from grasp_any_region_tpu_torch.core.mesh import MeshSpec, make_mesh
+    from grasp_any_region_tpu_torch.models.generate import generate
+    from grasp_any_region_tpu_torch.parallel.sharding import shard_params
+
+    mesh = make_mesh(MeshSpec(tensor=2), device="cuda:0")
+    params = shard_params(random_params(cfg, "cuda"), mesh)
+    torch.cuda.empty_cache()
+    batch, plens = bench_batch(cfg, "cuda")
+    logits0, logits1, _ = first_decode_logits(params, cfg, batch, plens, token, mesh)
+    scale_projections(params.llm)
+    logits_x10 = first_decode_logits(params, cfg, batch, plens, token, mesh)[0]
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = generate(params, cfg, batch, plens, max_new_tokens=32, eot_id=-1, mask_compat=False,
+                   mesh=mesh)
+    torch.cuda.synchronize()
+    return dict(logits=logits0, decode_logits=logits1, logits_x10=logits_x10,
+                tokens=out.tokens.cpu(),
+                counts=read_counts(), ms=(time.perf_counter() - t0) * 1e3)
+
+
+@torch.inference_mode()
+def parallel_seq_prefill(rank: int, cfg) -> dict:
+    """seq = 2: the Ulysses prefill's hidden, gathered whole (launches, host ms)."""
+    from grasp_any_region_tpu_torch.core.mesh import MeshSpec, make_mesh
+    from grasp_any_region_tpu_torch.models.gar import gar_prefill
+    from grasp_any_region_tpu_torch.parallel.sharding import seq_gather, shard_params
+
+    mesh = make_mesh(MeshSpec(seq=2), device="cuda:0")
+    params = shard_params(random_params(cfg, "cuda"), mesh)
+    batch, _ = bench_batch(cfg, "cuda")
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    hidden, _ = gar_prefill(params, cfg, batch, mask_compat=False, mesh=mesh)
+    hidden = seq_gather(hidden, mesh)
+    torch.cuda.synchronize()
+    return dict(hidden=hidden.float().cpu(), counts=read_counts(),
+                ms=(time.perf_counter() - t0) * 1e3)
+
+
+def ring_case(cfg, device):
+    """fp32 params of the narrow config (one kv head) and two text rows of
+    2048 random tokens, as a `PackedTextBatch` with no segment ids."""
+    from grasp_any_region_tpu_torch.core.weights import init_gar_params
+    from grasp_any_region_tpu_torch.data.builders import PackedTextBatch
+
+    gen = torch.Generator(device=device).manual_seed(SEED)
+    params = init_gar_params(cfg, gen, device=device, dtype=torch.float32)
+    ids = torch.randint(10, 1000, (2, 2048), generator=gen, device=device, dtype=torch.int32)
+    pos = torch.arange(2048, device=device, dtype=torch.int32).expand(2, -1).contiguous()
+    for p in params.parameters():
+        p.requires_grad_(True)
+    return params, PackedTextBatch(input_ids=ids, positions=pos, segment_ids=None, labels=ids)
+
+
+def parallel_ring(rank: int, cfg) -> dict:
+    """seq = 2 at one kv head (ring attention), fp32: the text loss and its
+    gathered gradients (rank 0 returns them)."""
+    from grasp_any_region_tpu_torch.core.mesh import MeshSpec, make_mesh
+    from grasp_any_region_tpu_torch.parallel.sharding import full_grads, shard_params
+    from grasp_any_region_tpu_torch.train.step import packed_loss_fn, reduce_gradients
+
+    mesh = make_mesh(MeshSpec(seq=2), device="cuda:0")
+    params, packed = ring_case(cfg, "cuda")
+    params = shard_params(params, mesh)
+    reset_counts()
+    t0 = time.perf_counter()
+    loss = packed_loss_fn(params, cfg, packed, torch.float32, mesh)
+    loss.backward()
+    reduce_gradients(params, mesh)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    grads = {k: v.cpu() for k, v in full_grads(params, mesh).items()}
+    return dict(loss=loss.item(), grads=grads if rank == 0 else None, counts=read_counts(), ms=ms)
+
+
+PARALLEL_TASKS = {"fsdp_train": parallel_fsdp_train, "tensor_generate": parallel_tensor_generate,
+                  "seq_prefill": parallel_seq_prefill, "ring": parallel_ring}
+
+
+def parallel_rank(rank: int, task: str, cfg, args: tuple, port: int, out_dir: str) -> None:
+    """One rank of a two-rank gloo job on cuda:0 (a spawned process); its
+    result also holds the shapes of the kernels' calls (`record_shapes`)
+    since the task's last `reset_counts`."""
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    record_shapes()
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
+                            world_size=2)
+    try:
+        res = PARALLEL_TASKS[task](rank, cfg, *args)
+        res["shapes"] = {k: dict(c) for k, c in SHAPES.items()}
+        torch.save(res, os.path.join(out_dir, f"{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def run_parallel(task: str, cfg, *args, timeout: float = 600.0) -> list:
+    """[rank 0's result, rank 1's] of a task on two spawned gloo ranks; a
+    rank that fails or outlives the timeout fails the phase."""
+    import socket
+    import tempfile
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    ctx = torch.multiprocessing.get_context("spawn")
+    with tempfile.TemporaryDirectory() as out:
+        procs = [ctx.Process(target=parallel_rank, args=(r, task, cfg, args, port, out))
+                 for r in range(2)]
+        for proc in procs:
+            proc.start()
+        deadline = time.monotonic() + timeout
+        for proc in procs:
+            proc.join(max(1.0, deadline - time.monotonic()))
+        for proc in procs:
+            if proc.is_alive():
+                proc.kill()
+                proc.join()
+        codes = [proc.exitcode for proc in procs]
+        if any(codes):
+            raise AssertionError(f"[parallel] {task}: rank exit codes {codes}")
+        return [torch.load(os.path.join(out, f"{r}.pt"), weights_only=False) for r in range(2)]
+
+
+def parallel_attention_rows(shapes: dict) -> dict:
+    """Kernels A, 5, B, 17 and 18 at every shape a rank of `phase_parallel`
+    gave them (`record_shapes`: {key: {call shape: tasks}}), on seeded bf16
+    inputs, against their plain versions at `sized_tol`: A on views of a
+    (T, S, 3, H, 64) qkv buffer, library SDPA; 5 (the whole call) with v
+    such a view, library SDPA's backward; B causal over (B, S, H, K, 64),
+    library SDPA with is_causal; 17 and 18 (`backward_case`, which also
+    holds B with its LSE) where the decoder's backward ran at that shape.
+    Returns {key: {shape label: figures and the tasks}}."""
+    from grasp_any_region_tpu_torch.ops import flash_attention as fa
+    from grasp_any_region_tpu_torch.ops import vit_attention as va
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+
+    rows = {key: {} for key in PARALLEL_KEYS}
+    for (t, s, h, d), tasks in sorted(shapes["A"].items()):
+        label = f"T = {t}, S = {s}, {h} heads"
+        qkv = rnd(t, s, 3, h, d)
+        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+        out = va.vit_attention(q, k, v)
+        torch.cuda.synchronize()
+        ref = va.vit_attention_plain(q.float(), k.float(), v.float())
+        err = max_err(out, ref, f"A (parallel, {label})", **sized_tol(ref))
+        r = rows["A"][label] = dict(
+            max_abs_err=err, ms=cuda_ms(lambda: va.vit_attention(q, k, v)),
+            plain_ms=cuda_ms(lambda: va.vit_attention_plain(q, k, v), iters=5),
+            library_ms=cuda_ms(lambda: sdpa(q, k, v)),
+            **bound(nbytes(q, k, v, out), 4 * t * h * s * s * d), tasks=sorted(tasks))
+        log(f"[kernels parallel] A ({label}; library: SDPA; {', '.join(r['tasks'])}): "
+            f"{share_line(r)}; plain {r['plain_ms']:.4f} ms; max |kernel - plain| {err:.3e} "
+            "(sized_tol)")
+        del qkv, q, k, v, out, ref
+    for (t, s, h, d), tasks in sorted(shapes["5"].items()):
+        label = f"T = {t}, S = {s}, {h} heads"
+        q, k, g = rnd(t, s, h, d), rnd(t, s, h, d), rnd(t, s, h, d)
+        v = rnd(t, s, 3, h, d)[:, :, 2]
+        out, lse = va.vit_attention(q, k, v, return_lse=True)
+        got = va.vit_attention_bwd(q, k, v, out, lse, g)
+        torch.cuda.synchronize()
+        want = va.vit_attention_bwd_plain(q, k, v, out, lse, g)
+        err = max(max_err(a, w, f"5 {n} (parallel, {label})", **sized_tol(w))
+                  for n, a, w in zip(("dq", "dk", "dv"), got, want))
+        del want
+        r = rows["5"][label] = dict(
+            max_abs_err=err, ms=cuda_ms(lambda: va.vit_attention_bwd(q, k, v, out, lse, g)),
+            plain_ms=cuda_ms(lambda: va.vit_attention_bwd_plain(q, k, v, out, lse, g), iters=3),
+            library_ms=sdpa_bwd_ms(q, k, v, g),
+            **bound(nbytes(q, k, v, out, g, lse, *got), 5 * 2 * t * h * s * s * d),
+            tasks=sorted(tasks))
+        log(f"[kernels parallel] 5 ({label}; library: SDPA's backward; "
+            f"{', '.join(r['tasks'])}): {share_line(r)}; plain {r['plain_ms']:.4f} ms; max "
+            f"|kernel - plain| {err:.3e} (sized_tol; p and dS rounded to bf16 in both)")
+        del q, k, v, g, out, lse, got
+    for sig in sorted(set(shapes["B"]) | set(shapes["17/18"])):
+        b, sq, h, d, kh, causal, has_seg = sig
+        tasks = sorted(set(shapes["B"].get(sig, ())) | set(shapes["17/18"].get(sig, ())))
+        label = (f"B = {b}, S = {sq}, {h} / {kh} heads, {'causal' if causal else 'full'}"
+                 f"{', segment ids' if has_seg else ''}")
+        seg = packed_segments(b, sq, torch.Generator().manual_seed(SEED)).to("cuda") \
+            if has_seg else None
+        q, k, v = rnd(b, sq, h, d), rnd(b, sq, kh, d), rnd(b, sq, kh, d)
+        kw = dict(causal=causal, segment_ids=seg)
+        out = fa.flash_attention(q, k, v, **kw)
+        torch.cuda.synchronize()
+        ref = fa.flash_attention_plain(q.float(), k.float(), v.float(), **kw)
+        err = max_err(out, ref, f"B (parallel, {label})", **sized_tol(ref))
+        del ref
+        pairs = (b * sq * (sq + 1) // 2 if causal else b * sq * sq) if seg is None \
+            else causal_pairs(seg)
+        if seg is None:
+            lib = cuda_ms(lambda: sdpa(q, k, v, is_causal=causal, enable_gqa=True))
+        else:
+            mask = fa.attention_mask(sq, sq, causal, seg, q.device)[:, 0]
+            kw_, vw_ = k.repeat_interleave(h // kh, 2), v.repeat_interleave(h // kh, 2)
+            lib = cuda_ms(lambda: sdpa(q, kw_, vw_, attn_mask=mask))
+            del mask, kw_, vw_
+        r = rows["B"][label] = dict(
+            max_abs_err=err, ms=cuda_ms(lambda: fa.flash_attention(q, k, v, **kw)),
+            plain_ms=cuda_ms(lambda: fa.flash_attention_plain(q, k, v, **kw), iters=3),
+            library_ms=lib, **bound(nbytes(q, k, v, out), 4 * h * d * pairs), tasks=tasks)
+        log(f"[kernels parallel] B ({label}; library: SDPA; {', '.join(tasks)}): "
+            f"{share_line(r)}; plain {r['plain_ms']:.4f} ms; max |kernel - plain| {err:.3e} "
+            "(sized_tol)")
+        del q, k, v, out
+        if sig in shapes["17/18"]:
+            if not causal:
+                raise AssertionError(f"[kernels parallel] a decoder backward that is not causal: "
+                                     f"{label}")
+            entries = backward_case(rnd, f"parallel, {label}", b, sq, h, kh, d, seg=seg,
+                                    time_plain=True)
+            for key in ("17", "18"):
+                rows[key][label] = dict(entries[key], tasks=sorted(shapes["17/18"][sig]))
+    torch.cuda.empty_cache()
+    return rows
+
+
+def check_parallel_counts(tag: str, got: dict, **want) -> None:
+    if got != expect(**want):
+        raise AssertionError(f"[parallel] {tag}: launches {got}, expected {expect(**want)}")
+
+
+def phase_parallel(smi: str) -> dict:
+    """Two ranks over gloo on cuda:0 from one seed, each phase against one
+    process on the same card: the fsdp = 2 train step at GAR-1B (B = 2 rows
+    of 13 tiles, bf16, two steps: losses, step 1's grad norm and gathered
+    gradients), tensor = 2 (17 tiles: the prefill's and the first decode
+    step's logits, then generate of 32 new tokens on decoder projections
+    x10), the seq = 2 Ulysses prefill, and the ring (seq = 2 at the narrow
+    config with one kv head, fp32). Then kernels A, 5, B, 17 and 18 at every
+    per-rank shape the ranks gave them, against their plain versions.
+    Returns {"launches": each rank's launches of A, 5, B, 17 and 18 by
+    task, "rows": those kernels' figures by shape}."""
+    import grasp_any_region_tpu_torch.models.llama as llama_mod
+    from grasp_any_region_tpu_torch.core.config import gar_1b
+    from grasp_any_region_tpu_torch.core.weights import flat_grads
+    from grasp_any_region_tpu_torch.models.gar import gar_prefill
+    from grasp_any_region_tpu_torch.models.generate import generate
+    from grasp_any_region_tpu_torch.ops.attention import mha_reference
+    from grasp_any_region_tpu_torch.train import OptimizerConfig, init_state
+    from grasp_any_region_tpu_torch.train.step import packed_loss_fn
+
+    cfg = gar_1b()
+    t_phase = time.perf_counter()
+    log(f"[parallel] two ranks, gloo, both on cuda:0 ({smi}); times: {PARALLEL_TIMING}, "
+        "not multi-card figures")
+    launches = {}
+    shapes = {key: {} for key in ("A", "5", "B", "17/18")}
+
+    def tally(task, ranks, counts_of):
+        for r, res in enumerate(ranks):
+            check_shapes(f"{task}, rank {r}", res["shapes"], counts_of(res))
+            for key, seen in res["shapes"].items():
+                for sig in seen:
+                    shapes[key].setdefault(sig, set()).add(task)
+
+    def rel_gap(got, want):
+        return float((got - want).abs().max() / want.abs().max())
+
+    # 1. fsdp = 2 train step against one process
+    batch, labels = parallel_train_batch(cfg, "cuda")
+    state, tx = init_state(random_params(cfg, "cuda"), OptimizerConfig(**PARALLEL_OPT))
+    one = parallel_train_steps(cfg, state, tx, batch, labels)
+    del state, tx, batch, labels
+    torch.cuda.empty_cache()
+    ranks = run_parallel("fsdp_train", cfg)
+    depth, layers = cfg.vision.depth, cfg.text.num_layers
+    for r, res in enumerate(ranks):
+        for i, (got, want) in enumerate(zip(res["losses"], one["losses"])):
+            if not np.isfinite(got) or abs(got - want) > 2e-2 * abs(want):
+                raise AssertionError(f"[parallel] fsdp=2 step {i + 1} loss {got} (rank {r}), "
+                                     f"one process {want}: past 2e-2 relative")
+        got, want = res["grad_norms"][0], one["grad_norms"][0]
+        if not abs(got - want) <= PARALLEL_NORM_TOL * abs(want):
+            raise AssertionError(f"[parallel] fsdp=2 step 1 grad_norm {got} (rank {r}), one "
+                                 f"process {want}: past {PARALLEL_NORM_TOL} relative")
+        for c in res["counts"]:
+            check_parallel_counts(f"fsdp=2 step, rank {r}", c, A=2 * depth, **{
+                "5": depth, "B": 2 * layers, "17": layers + depth, "18": layers + depth})
+        log(f"[parallel] fsdp=2 train step, rank {r}: losses {res['losses']} (one process "
+            f"{one['losses']}); step 1 grad_norm {got:.6f} (one process {want:.6f}, "
+            f"{abs(got - want) / want:.3e} relative, bound {PARALLEL_NORM_TOL}); param + moment "
+            f"bytes {res['bytes'] / 2 ** 30:.3f} GiB against one process's "
+            f"{one['bytes'] / 2 ** 30:.3f} GiB ({res['bytes'] / one['bytes']:.3f}x); peak memory "
+            f"{res['peak_gib']:.2f} GiB (one process {one['peak_gib']:.2f}); host ms a step "
+            f"{[round(x, 1) for x in res['ms']]} ({PARALLEL_TIMING}; one process "
+            f"{[round(x, 1) for x in one['ms']]}); launches a step "
+            f"{ {k: res['counts'][0][k] for k in PARALLEL_KEYS} }")
+    gaps = {}
+    for name in PARALLEL_GRAD_LEAVES:
+        got, want = ranks[0]["grads"][name], one["grads"][name]
+        if got.shape != want.shape or not torch.isfinite(got).all():
+            raise AssertionError(f"[parallel] fsdp=2 gradient {name}: shape {tuple(got.shape)} "
+                                 f"vs {tuple(want.shape)} or not finite")
+        gaps[name] = rel_gap(got, want)
+        if not gaps[name] <= PARALLEL_GRAD_TOL:
+            raise AssertionError(f"[parallel] fsdp=2 step 1 gradient {name}: max |diff| / max "
+                                 f"|one process| = {gaps[name]:.3e} > {PARALLEL_GRAD_TOL}")
+    log(f"[parallel] fsdp=2 step 1 gathered gradients against one process, max |diff| / max "
+        f"(bound {PARALLEL_GRAD_TOL}; replicated: final_norm, attn_norm, bqkv; fsdp-sharded: "
+        f"mask_embed, projector.fc1, llm wo): "
+        f"{ {k: float(f'{v:.3e}') for k, v in gaps.items()} }")
+    if max(res["bytes"] for res in ranks) > 0.55 * one["bytes"]:
+        raise AssertionError("[parallel] fsdp=2: a rank holds more than 0.55 of the state")
+    tally("fsdp_train", ranks, lambda res: res["counts"][-1])
+    launches["fsdp_train"] = [res["counts"][0] for res in ranks]
+    del one, ranks
+
+    # 2. tensor = 2 against one process: the prefill's and the first decode
+    # step's logits, then generate on decoder projections x10
+    params = random_params(cfg, "cuda")
+    gbatch, plens = bench_batch(cfg, "cuda")
+    with torch.inference_mode():
+        hidden, _ = gar_prefill(params, cfg, gbatch, mask_compat=False)
+        ref_hidden = hidden.float().cpu()
+        del hidden
+        ref_logits, ref_decode, token = first_decode_logits(params, cfg, gbatch, plens)
+        scale_projections(params.llm)
+        ref_x10 = first_decode_logits(params, cfg, gbatch, plens, token)[0]
+        ref_tokens = generate(params, cfg, gbatch, plens, max_new_tokens=32, eot_id=-1,
+                              mask_compat=False).tokens.cpu()
+    del params
+    torch.cuda.empty_cache()
+    ranks = run_parallel("tensor_generate", cfg, token)
+    valid = slice(0, cfg.extended_vocab_size)
+    for r, res in enumerate(ranks):
+        gap = rel_gap(res["logits"][valid], ref_logits[valid])
+        gap1 = rel_gap(res["decode_logits"][valid], ref_decode[valid])
+        if not (gap <= E2E_TOL and gap1 <= E2E_TOL):
+            raise AssertionError(f"[parallel] tensor=2 (rank {r}): max |diff| / max |one "
+                                 f"process| of the prefill's logits {gap:.3e}, of the first "
+                                 f"decode step's {gap1:.3e}; bound {E2E_TOL}")
+        check_parallel_counts(f"tensor=2 generate, rank {r}", res["counts"], A=depth, B=layers)
+        agree = int((res["tokens"] == ref_tokens).sum())
+        gap_x10 = rel_gap(res["logits_x10"][valid], ref_x10[valid])
+        top = int(ref_x10[valid].argmax())
+        log(f"[parallel] tensor=2, rank {r}: max |diff| / max of the prefill's last-position "
+            f"logits {gap:.3e}, of the first decode step's on token {token} {gap1:.3e} (bound "
+            f"{E2E_TOL}); on decoder projections x10 (not bounded): the prefill's logits "
+            f"{gap_x10:.3e}, one process's greedy token {top} at {float(ref_x10[top]):.3f} and "
+            f"the rank's {int(res['logits_x10'][valid].argmax())} at "
+            f"{float(res['logits_x10'][valid].max()):.3f} (its logit for {top} "
+            f"{float(res['logits_x10'][top]):.3f}); generate: {agree} / 32 tokens equal to one "
+            f"process's (bf16; the mesh decodes in the XLA form), "
+            f"{len(set(ref_tokens[0].tolist()))} distinct; tokens {res['tokens'][0].tolist()} vs "
+            f"{ref_tokens[0].tolist()}; generate {res['ms']:.1f} ms ({PARALLEL_TIMING}); "
+            f"launches { {k: res['counts'][k] for k in PARALLEL_KEYS} }")
+    if not torch.equal(ranks[0]["tokens"], ranks[1]["tokens"]):
+        raise AssertionError("[parallel] tensor=2: the ranks returned other tokens")
+    tally("tensor_generate", ranks, lambda res: res["counts"])
+    launches["tensor_generate"] = [res["counts"] for res in ranks]
+
+    # 3. seq = 2 Ulysses prefill against one process
+    ranks = run_parallel("seq_prefill", cfg)
+    for r, res in enumerate(ranks):
+        gap = rel_gap(res["hidden"], ref_hidden)
+        if not gap <= E2E_TOL:
+            raise AssertionError(f"[parallel] seq=2 Ulysses hidden (rank {r}): {gap:.3e} > "
+                                 f"{E2E_TOL}")
+        check_parallel_counts(f"seq=2 prefill, rank {r}", res["counts"], A=depth, B=layers)
+        log(f"[parallel] seq=2 Ulysses prefill, rank {r}: hidden max |diff| / max = {gap:.3e} "
+            f"(bound {E2E_TOL}); {res['ms']:.1f} ms ({PARALLEL_TIMING}); launches "
+            f"{ {k: res['counts'][k] for k in PARALLEL_KEYS} }")
+    tally("seq_prefill", ranks, lambda res: res["counts"])
+    launches["seq_prefill"] = [res["counts"] for res in ranks]
+    del ref_hidden
+
+    # 4. the ring: seq = 2 with one kv head, fp32, against one process (its
+    # attention through the plain version: kernel B takes bf16 only)
+    ncfg = narrow_config(kv_heads=1)
+    params, packed = ring_case(ncfg, "cuda")
+
+    def plain(q, k, v, causal=False, segment_ids=None, right_padded=False):
+        return mha_reference(q, k, v, causal=causal, segment_ids=segment_ids)
+
+    with patched((llama_mod, "mha", plain)):
+        loss = packed_loss_fn(params, ncfg, packed, torch.float32)
+        loss.backward()
+    ref_loss, ref_grads = loss.item(), flat_grads(params)
+    del params, packed, loss
+    torch.cuda.empty_cache()
+    ranks = run_parallel("ring", ncfg)
+    worst = (0.0, "")
+    for r, res in enumerate(ranks):
+        if abs(res["loss"] - ref_loss) > 1e-4 * abs(ref_loss):
+            raise AssertionError(f"[parallel] ring loss {res['loss']} (rank {r}), one process "
+                                 f"{ref_loss}: past 1e-4 relative")
+        check_parallel_counts(f"ring, rank {r}", res["counts"])
+    tally("ring", ranks, lambda res: res["counts"])
+    for name, want in ref_grads.items():
+        got = ranks[0]["grads"][name].numpy()
+        scale = float(np.abs(want).max())
+        err = float(np.abs(got - want).max())
+        if err > 1e-3 * scale + 1e-12:
+            raise AssertionError(f"[parallel] ring gradient {name}: {err:.3e} > 1e-3 of {scale:.3e}")
+        worst = max(worst, (err / scale if scale else err, name))
+    log(f"[parallel] ring (seq=2, 1 kv head, fp32, 2 x 2048 tokens): loss {ranks[0]['loss']:.6f} "
+        f"/ {ranks[1]['loss']:.6f}, one process {ref_loss:.6f}; {len(ref_grads)} gathered "
+        f"gradient leaves, worst {worst[1]} at {worst[0]:.3e} of its largest (bound 1e-3); "
+        f"loss + backward {ranks[0]['ms']:.1f} ms ({PARALLEL_TIMING}); no kernel launched")
+    del ranks, ref_grads
+    torch.cuda.empty_cache()
+
+    # 5. the kernels at the ranks' shapes against their plain versions
+    log(f"[parallel] per-rank call shapes (B, S, H, D, K, causal, segment ids; A and 5: T, S, "
+        f"H, D): { {k: {str(sig): sorted(t) for sig, t in v.items()} for k, v in shapes.items()} }")
+    rows = parallel_attention_rows(shapes)
+    log(f"[parallel] phase {time.perf_counter() - t_phase:.1f} s")
+    return dict(launches=launches, rows=rows)
+
+
 def main() -> int:
     smi = phase_environment()
     log(smi)
@@ -4868,6 +5472,8 @@ def main() -> int:
     gar8b_counts = phase_gar8b(int8=False)
     gar8b_q8_counts = phase_gar8b(int8=True)
     gar8b_train_counts = phase_gar8b_train()
+    torch.cuda.empty_cache()
+    parallel = phase_parallel(smi)
     # the path whose run reports each kernel's launches: kernel A the
     # unfused tower's, the backward kernels the train step's, the mega
     # kernels their generate(GAR_DECODE_PATH=mega)'s, the int8 kernels the
@@ -4924,6 +5530,16 @@ def main() -> int:
         if key in PARITY_KEYS:
             row["path"] += f"; parity: {PARITY_PATH}"
             row["parity"] = dict(path=PARITY_PATH, launches=eval_fig["parity_counts"][key])
+    # the parallel path's kernels name it with each rank's launches by task
+    # (two gloo ranks on the one card; the train step's a step) and their
+    # figures at each per-rank shape the ranks gave them
+    for row, key in zip(table, KERNELS):
+        if key in PARALLEL_KEYS:
+            row["path"] += f"; parallel: {PARALLEL_PATH}"
+            row["parallel"] = dict(path=PARALLEL_PATH, launches={
+                task: [counts[key] for counts in per_rank]
+                for task, per_rank in parallel["launches"].items()},
+                shapes=parallel["rows"][key])
     print(smi)
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

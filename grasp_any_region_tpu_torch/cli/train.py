@@ -1,13 +1,17 @@
 """Train CLI: an annotation file in, checkpoints and an HF export out
 (`grasp_any_region_tpu/cli/train.py`'s arguments, and --device).
 
-One process on one card. The parallel axes (--data-axis, --fsdp, --tensor,
---seq, --pipe) take 0 or 1; more waits for ROADMAP.md item 1.10. The
+One process on one card, or one process a rank of a mesh (--data-axis,
+--fsdp, --tensor, --seq; --fsdp 0 puts every rank the other axes leave on
+fsdp), launched by `torch.distributed.run`: NCCL with a card a rank, gloo
+with --device cpu. --pipe above 1 waits for ROADMAP.md item 1.10 (d). The
 kernels' build cache (`build/torch_kernels/`) stands where JAX enables its
 compilation cache.
 
   python -m grasp_any_region_tpu_torch.cli.train --preset gar_1b \
       --data data/Seed-Dataset.json --work-dir work_dirs/gar_1b --dtype bfloat16
+  python -m torch.distributed.run --nproc-per-node 8 -m grasp_any_region_tpu_torch.cli.train \
+      --preset gar_8b --fsdp 8 --data data/Seed-Dataset.json --dtype bfloat16
   python -m grasp_any_region_tpu_torch.cli.train --preset gar_tiny --device cpu \
       --data ann.json --max-steps 2 --export-hf hf_out
 """
@@ -38,7 +42,7 @@ def main(argv=None):
     p.add_argument("--freeze-llm", action="store_true")
     p.add_argument("--freeze-vision", action="store_true")
     p.add_argument("--data-axis", type=int, default=1)
-    p.add_argument("--fsdp", type=int, default=0, help="0 or 1: one card (ROADMAP.md item 1.10)")
+    p.add_argument("--fsdp", type=int, default=0, help="0 = every rank the other axes leave")
     p.add_argument("--tensor", type=int, default=1)
     p.add_argument("--seq", type=int, default=1)
     p.add_argument("--pipe", type=int, default=1)
@@ -57,14 +61,25 @@ def main(argv=None):
     from ..data.dataset import DatasetConfig, GraspAnyRegionDataset
     from ..data.tokenizer import GARTokenizer
     from ..train.optimizer import OptimizerConfig
-    from ..train.trainer import MeshSpec, Trainer, TrainerConfig, require_one_card
+    from ..core.mesh import MeshSpec, initialize_distributed
+    from ..train.trainer import Trainer, TrainerConfig, refuse_pipeline
 
-    axes = dict(data=args.data_axis, fsdp=args.fsdp or 1, tensor=args.tensor, seq=args.seq,
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    axes = dict(data=args.data_axis, fsdp=args.fsdp, tensor=args.tensor, seq=args.seq,
                 pipe=args.pipe)
+    if axes["fsdp"] == 0:  # every rank the other axes leave
+        axes["fsdp"] = max(1, world // (args.data_axis * args.tensor * args.seq * args.pipe))
     if min(axes.values()) < 1:
-        p.error(f"mesh axes must be at least 1 (--fsdp 0: all devices, here 1), got {axes}")
-    require_one_card(MeshSpec(**axes))
+        p.error(f"mesh axes must be at least 1 (--fsdp 0: every rank), got {axes}")
+    spec = MeshSpec(**axes)
+    refuse_pipeline(spec)
+    if spec.size > 1 and spec.size != world:
+        raise ValueError(f"mesh {spec} needs {spec.size} processes, WORLD_SIZE is {world}: "
+                         f"python -m torch.distributed.run --nproc-per-node {spec.size} -m "
+                         "grasp_any_region_tpu_torch.cli.train ...")
     device = require_device(args.device)
+    if spec.size > 1:
+        device = initialize_distributed(device=None if device.type == "cuda" else device)
     dtype = getattr(torch, args.dtype)
     if args.init_from:
         cfg, params = load_checkpoint(args.init_from, device=device, dtype=dtype)
@@ -85,15 +100,21 @@ def main(argv=None):
     tcfg = TrainerConfig(work_dir=args.work_dir, max_steps=args.max_steps,
                          batch_size=args.batch_size, save_optimizer=not args.no_save_optimizer,
                          log_interval=args.log_interval, pipe_schedule=args.pipe_schedule,
-                         device=str(device))
+                         device=str(device), mesh=spec if spec.size > 1 else None)
     trainer = Trainer(cfg, params, dataset, opt_cfg, tcfg)
     state = trainer.train()
 
     if args.export_hf:
         from ..train.export import export_hf_checkpoint
 
-        export_hf_checkpoint(args.export_hf, cfg, state.params)
-        print(f"[trainer] exported HF checkpoint to {args.export_hf}")
+        params = state.params
+        if trainer.mesh is not None:  # the whole tree on every rank, rank 0 writes it
+            from ..parallel.sharding import unshard_params
+
+            params = unshard_params(params, trainer.mesh)
+        if trainer.mesh is None or trainer.mesh.rank == 0:
+            export_hf_checkpoint(args.export_hf, cfg, params)
+            print(f"[trainer] exported HF checkpoint to {args.export_hf}")
     return trainer
 
 

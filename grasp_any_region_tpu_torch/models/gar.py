@@ -9,6 +9,11 @@
 
 Shapes are static: tiles are padded to a bucket, regions to R_max, and
 validity masks make padding inert. Batch is a first-class axis.
+
+Under a multi-rank mesh (`mesh=`) the batch given is this rank's rows; the
+tower, the projector and the mask embed run on them with their weights
+gathered from the shards (the tower's layers one at a time), and the
+decoder prefill returns this rank's sequence shard (models/llama.py).
 """
 
 from __future__ import annotations
@@ -119,10 +124,12 @@ def encode_images(
     remat: bool = False,
     remat_group: int = 1,
     compute_dtype=torch.bfloat16,
+    mesh=None,
 ) -> torch.Tensor:
     """-> (T, tokens_per_tile, Dt): tower with mask embeds, CLS dropped,
     projected and pooled (the range "vision" under `utils/profiling.trace`).
-    remat, remat_group: `vision_forward`'s."""
+    remat, remat_group, mesh: `vision_forward`'s (under a multi-rank mesh
+    params is `parallel/sharding.full_tree` of the sharded tree)."""
     with annotate("vision"):
         mask_embeds = None
         if mask_values is not None:
@@ -130,7 +137,7 @@ def encode_images(
             mask_embeds = mask_patch_embed(params, cfg, binary.to(compute_dtype))
         hidden = vision_forward(params.vision, cfg.vision, pixel_values, mask_embeds,
                                 remat=remat, remat_group=remat_group,
-                                compute_dtype=compute_dtype)
+                                compute_dtype=compute_dtype, mesh=mesh)
         if cfg.vision_use_cls_token:
             hidden = hidden[:, 1:, :]
         return projector_forward(params.projector, cfg, hidden)
@@ -163,6 +170,7 @@ def build_prefill_embeds(
     remat_group: int = 1,
     compute_dtype=torch.bfloat16,
     video_mode: bool = False,
+    mesh=None,
 ) -> torch.Tensor:
     """Token embeds + image-feature scatter + feature replay -> (B, S, Dt).
     Every step is differentiable (gather, where, the replay's out-of-place
@@ -171,15 +179,23 @@ def build_prefill_embeds(
 
     video_mode: the pixel_values rows are FRAMES (no thumbnail), the
     placeholders are video_token_id, and each region's replay samples its
-    own frame (batch.replay_tile) instead of the merged tile grid."""
+    own frame (batch.replay_tile) instead of the merged tile grid.
+
+    mesh: a multi-rank mesh; batch is this rank's rows and params the
+    sharded tree. The embeds are whole sequences."""
     b, t = batch.pixel_values.shape[:2]
     pix = batch.pixel_values.reshape((b * t,) + batch.pixel_values.shape[2:])
     msk = batch.mask_values.reshape((b * t,) + batch.mask_values.shape[2:])
-    feats = encode_images(params, cfg, pix, msk, mask_compat=mask_compat, remat=remat,
-                          remat_group=remat_group,
-                          compute_dtype=compute_dtype)  # (B*T, tok, Dt)
+    front = params
+    if mesh is not None and mesh.size > 1:
+        from ..parallel.sharding import full_tree
+
+        front = full_tree(params, mesh, skip=("blocks", "llm"))
+    feats = encode_images(front, cfg, pix, msk, mask_compat=mask_compat, remat=remat,
+                          remat_group=remat_group, compute_dtype=compute_dtype,
+                          mesh=mesh)  # (B*T, tok, Dt)
     feats = feats.reshape(b, t, feats.shape[-2], feats.shape[-1])
-    tok_embeds = embed_tokens(params.llm, batch.input_ids, compute_dtype)
+    tok_embeds = embed_tokens(params.llm, batch.input_ids, compute_dtype, mesh=mesh)
     media_id = cfg.video_token_id if video_mode else cfg.image_token_id
     embeds = scatter_image_features(batch.input_ids, tok_embeds, feats, media_id)
     if video_mode:
@@ -208,14 +224,17 @@ def gar_prefill(
     double_scale_compat: bool = True,
     compute_dtype=torch.bfloat16,
     video_mode: bool = False,
+    mesh=None,
 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """Full multimodal prefill. Returns (hidden (B, S, D), (k, v)) with k/v
-    (L, B, S, K, Dh). video_mode: `build_prefill_embeds`'."""
+    (L, B, S, K, Dh). video_mode: `build_prefill_embeds`'. mesh: a
+    multi-rank mesh, batch this rank's rows; the hidden and k / v are this
+    rank's sequence shard and kv heads (`llama_prefill`)."""
     embeds = build_prefill_embeds(params, cfg, batch, mask_compat=mask_compat,
                                   double_scale_compat=double_scale_compat,
-                                  compute_dtype=compute_dtype, video_mode=video_mode)
+                                  compute_dtype=compute_dtype, video_mode=video_mode, mesh=mesh)
     return llama_prefill(params.llm, cfg.text, embeds, batch.positions,
-                         segment_ids=batch.segment_ids)
+                         segment_ids=batch.segment_ids, mesh=mesh)
 
 
 def gar_decode_step(
@@ -227,15 +246,17 @@ def gar_decode_step(
     *,
     compute_dtype=torch.bfloat16,
     use_kernel: Union[bool, str, None] = None,
+    mesh=None,
 ) -> Tuple[torch.Tensor, KVCache]:
     """One decode step. Returns (logits (B, V) fp32, the cache advanced in
     place). use_kernel picks the decode form (`llama_decode_step`): None
-    is the fused form on a CUDA tensor and the XLA form on the CPU."""
-    embeds = embed_tokens(params.llm, token_ids[:, None], compute_dtype)
+    is the fused form on a CUDA tensor and the XLA form on the CPU. mesh:
+    the sharded step (`llama_decode_step`), the logits whole on every rank."""
+    embeds = embed_tokens(params.llm, token_ids[:, None], compute_dtype, mesh=mesh)
     hidden, cache = llama_decode_step(params.llm, cfg.text, embeds, cache, prompt_pad,
-                                      use_kernel=use_kernel)
+                                      use_kernel=use_kernel, mesh=mesh)
     logits = lm_logits(params.llm, cfg.text, hidden[:, 0],
-                       valid_vocab=cfg.extended_vocab_size)
+                       valid_vocab=cfg.extended_vocab_size, mesh=mesh)
     return logits, cache
 
 

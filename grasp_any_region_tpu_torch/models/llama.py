@@ -28,6 +28,15 @@
     (preferred_element_type=float32); padded vocab rows masked to NEG_INF.
     The int8 head widens int8 to the working dtype and scales the fp32
     sums per vocab row.
+  * Under a multi-rank mesh (`mesh=`, core/mesh.py) each layer's weights
+    are gathered from their fsdp shards just before the layer (again in
+    the backward under remat); with a tensor axis that divides the heads
+    and the MLP width, each rank runs its q / kv heads and MLP columns
+    (megatron-style: one all-reduce after wo, one after w_down); with a
+    seq axis the prefill runs on this rank's sequence shard with Ulysses
+    (heads divide the axis) or ring attention (parallel/). The embedding
+    and the head are vocab-sharded over 'tensor'. The decode step under a
+    mesh is the XLA form with the plain attention, as JAX takes it.
   * Serving-only int8 trees (the bf16 decoder matmuls dropped) project
     through the int8 leaves in prefill too (`_proj`), and a tied tree
     without `embed` gathers its embedding rows from the int8 head.
@@ -35,6 +44,7 @@
 
 from __future__ import annotations
 
+import dataclasses
 import os
 from typing import NamedTuple, Optional, Sequence, Tuple, Union
 
@@ -55,6 +65,7 @@ from ..ops.layer_matmul import (layer_matmul, layer_matmul_q8, layer_qkv, layer_
 from ..ops.norms import rms_norm
 from ..ops.paged_attention import paged_attention_reference
 from ..ops.rope import apply_rope, llama_inv_freq, rope_cos_sin
+from ..parallel.collectives import all_gather_split, copy_to, own_chunk, reduce_from
 
 
 DECODE_MATMULS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
@@ -158,19 +169,49 @@ def _mlp(bp: dict, x: torch.Tensor, lora_scaling=None) -> torch.Tensor:
     return _proj(bp, "w_down", F.silu(gate) * up, lora_scaling)
 
 
-def _layer(cfg: TextConfig, bp: dict, x: torch.Tensor, cos, sin, attend, lora_scaling=None):
+def _layer(cfg: TextConfig, bp: dict, x: torch.Tensor, cos, sin, attend, lora_scaling=None,
+           tp=None):
     """One decoder layer of the plain form, x (B, S, D). attend(q, k, v)
     (q (B, S, H, Dh), k / v (B, S, K, Dh) roped) writes whatever cache the
     caller keeps and returns the attention output, reshapeable to (B, S,
     H * Dh). lora_scaling: an unmerged LoRA tree's scaling leaf (prefill).
-    Returns (x, k, v)."""
+    tp: the tensor group of a tensor-parallel layer (bp and cfg this rank's
+    heads and MLP columns), None on one rank. Returns (x, k, v)."""
     b, s, _ = x.shape
     eps = cfg.rms_norm_eps
     y = rms_norm(x, bp["attn_norm"], eps)
+    if tp is not None:
+        y = copy_to(y, tp)
     q, k, v = _qkv(cfg, bp, y, cos, sin, lora_scaling)
-    x = x + _proj(bp, "wo", attend(q, k, v).reshape(b, s, -1), lora_scaling)
+    a = _proj(bp, "wo", attend(q, k, v).reshape(b, s, -1), lora_scaling)
+    x = x + (a if tp is None else reduce_from(a, tp))
     y = rms_norm(x, bp["mlp_norm"], eps)
-    return x + _mlp(bp, y, lora_scaling), k, v
+    if tp is not None:
+        y = copy_to(y, tp)
+    m = _mlp(bp, y, lora_scaling)
+    return x + (m if tp is None else reduce_from(m, tp)), k, v
+
+
+def _sharded_layers(params: LlamaParams, cfg: TextConfig, mesh):
+    """(cfg of this rank, tensor group or None, gather(bp) -> the layer's
+    weights for this rank) under a multi-rank mesh. Tensor parallel when
+    the tensor axis divides the q and kv heads and the MLP width (cfg then
+    counts this rank's heads); else the layer's weights are gathered whole
+    and every tensor rank runs it."""
+    from ..parallel.sharding import KEEP, gather_layer, layer_specs
+
+    t, tp = mesh.shape["tensor"], None
+    if t > 1 and not (cfg.num_heads % t or cfg.num_kv_heads % t or cfg.intermediate_size % t):
+        if hasattr(params, "lora_scaling"):
+            raise NotImplementedError("LoRA adapters under a tensor axis: they are replicated "
+                                      "and their products would need this rank's columns")
+        cfg = dataclasses.replace(cfg, num_heads=cfg.num_heads // t,
+                                  num_kv_heads=cfg.num_kv_heads // t,
+                                  intermediate_size=cfg.intermediate_size // t)
+        tp = mesh.group("tensor")
+    specs = layer_specs(params.blocks)
+    modes = dict.fromkeys(DECODE_MATMULS, KEEP) if tp is not None else {}
+    return cfg, tp, lambda bp: gather_layer(bp, specs, mesh, modes)
 
 
 def refuse_adapters(params: LlamaParams, entry: str) -> None:
@@ -191,6 +232,7 @@ def llama_prefill(
     remat: bool = False,
     right_padded: bool = True,
     return_kv: bool = True,
+    mesh=None,
 ) -> Tuple[torch.Tensor, Optional[Tuple[torch.Tensor, torch.Tensor]]]:
     """Full-sequence forward. Returns (hidden (B, S, D), (k_all, v_all)),
     k_all / v_all (L, B, S, K, Dh) for cache seeding, or (hidden, None)
@@ -201,18 +243,27 @@ def llama_prefill(
     positions, segment ids 1..n, 0 = padding). remat: checkpoint each layer
     (non-reentrant), as JAX's `jax.checkpoint` scan body. An unmerged LoRA
     tree (`llm/lora_scaling` present) adds its adapters' terms, under remat
-    as well."""
-    b, s, _ = inputs_embeds.shape
+    as well.
+
+    mesh: a multi-rank mesh (`_sharded_prefill`): the inputs are this rank's
+    rows, whole sequences; the hidden and the K/V returned are this rank's
+    sequence shard (all of it without a seq axis) and, under tensor
+    parallelism, its kv heads."""
     L, kh, dh = cfg.num_layers, cfg.num_kv_heads, cfg.head_dim
-    cos, sin = rope_cos_sin(positions, llama_inv_freq(cfg, inputs_embeds.device))
     lora_scaling = getattr(params, "lora_scaling", None)
+    if mesh is not None and mesh.size > 1:
+        inputs_embeds, layer, kh = _sharded_prefill(params, cfg, inputs_embeds, positions,
+                                                    segment_ids, right_padded, mesh)
+    else:
+        cos, sin = rope_cos_sin(positions, llama_inv_freq(cfg, inputs_embeds.device))
 
-    def attend(q, k, v):
-        return mha(q, k, v, causal=True, segment_ids=segment_ids, right_padded=right_padded)
+        def attend(q, k, v):
+            return mha(q, k, v, causal=True, segment_ids=segment_ids, right_padded=right_padded)
 
-    def layer(x, bp):
-        return _layer(cfg, bp, x, cos, sin, attend, lora_scaling)
+        def layer(x, bp):
+            return _layer(cfg, bp, x, cos, sin, attend, lora_scaling)
 
+    b, s, _ = inputs_embeds.shape
     if return_kv:
         ks = inputs_embeds.new_empty((L, b, s, kh, dh))
         vs = inputs_embeds.new_empty((L, b, s, kh, dh))
@@ -225,6 +276,52 @@ def llama_prefill(
         if return_kv:
             ks[i], vs[i] = k, v
     return x, ((ks, vs) if return_kv else None)
+
+
+def _sharded_prefill(params: LlamaParams, cfg: TextConfig, embeds: torch.Tensor,
+                     positions: torch.Tensor, segment_ids: Optional[torch.Tensor],
+                     right_padded: bool, mesh):
+    """(this rank's sequence shard of the embeds, layer(x, bp), kv heads of
+    this rank) for `llama_prefill` under a multi-rank mesh. RoPE takes the
+    shard's global positions. With a seq axis, attention is Ulysses when the
+    q and kv head counts divide it (under tensor parallelism the ranks'
+    heads are gathered for it and this rank's taken back after), else ring
+    attention, which takes right-padded causal rows only."""
+    from ..parallel.ring import ring_attention
+    from ..parallel.sharding import constrain_seq
+    from ..parallel.ulysses import ulysses_attention
+
+    lcfg, tp, gather = _sharded_layers(params, cfg, mesh)
+    lora_scaling = getattr(params, "lora_scaling", None)
+    p = mesh.shape["seq"]
+    ulysses = cfg.num_heads % p == 0 and cfg.num_kv_heads % p == 0
+    if p > 1:
+        if embeds.shape[1] % p:
+            raise ValueError(f"sequence length {embeds.shape[1]} does not divide the seq axis "
+                             f"{p} (collate_samples pads to seq_multiple)")
+        if not ulysses and not right_padded and segment_ids is not None:
+            raise ValueError("ring attention (kv heads < the seq axis) takes right-padded "
+                             "causal rows only")
+        embeds, positions = constrain_seq(embeds, mesh), constrain_seq(positions, mesh)
+        if segment_ids is not None:
+            segment_ids = constrain_seq(segment_ids, mesh)
+    cos, sin = rope_cos_sin(positions, llama_inv_freq(cfg, embeds.device))
+
+    def attend(q, k, v):
+        if p == 1:
+            return mha(q, k, v, causal=True, segment_ids=segment_ids, right_padded=right_padded)
+        if not ulysses:
+            return ring_attention(q, k, v, mesh, causal=True)
+        if tp is not None:
+            q, k, v = (all_gather_split(x, tp, 2) for x in (q, k, v))
+        out = ulysses_attention(q, k, v, mesh, causal=True, right_padded=right_padded,
+                                segment_ids=None if right_padded else segment_ids)
+        return out if tp is None else own_chunk(out, tp, 2)
+
+    def layer(x, bp):
+        return _layer(lcfg, gather(bp), x, cos, sin, attend, lora_scaling, tp)
+
+    return embeds, layer, lcfg.num_kv_heads
 
 
 def llama_prefill_chunk(
@@ -285,6 +382,7 @@ def llama_decode_step(
     prompt_pad: int,
     *,
     use_kernel: Union[bool, str, None] = None,
+    mesh=None,
 ) -> Tuple[torch.Tensor, KVCache]:
     """One token step. Writes the token's K/V at column write_pos of every
     layer and advances write_pos, both in place; returns (hidden (B, 1, D),
@@ -296,8 +394,15 @@ def llama_decode_step(
     `decode_kernel_choice`. On the CPU "fused" and "mega" run their kernels'
     plain versions. An int8 cache takes the fused form whatever use_kernel
     says, on any device, as JAX sends its (paired) int8 cache there: only
-    kernel C8 reads it (on the CPU through its plain version)."""
+    kernel C8 reads it (on the CPU through its plain version).
+
+    mesh: a multi-rank mesh runs the XLA form with the plain attention
+    (`decode_attention_fused_plain`), as JAX's step under a mesh, each
+    layer's weights gathered from their shards and, under tensor
+    parallelism, this rank's heads (the cache holds its kv heads)."""
     refuse_adapters(params, "llama_decode_step")
+    if mesh is not None and mesh.size > 1:
+        return _sharded_decode_step(params, cfg, inputs_embeds, cache, prompt_pad, mesh)
     if cache.k.dtype == torch.int8:
         return llama_decode_step_fused(params, cfg, inputs_embeds, cache, prompt_pad)
     if use_kernel is None or use_kernel is True:
@@ -319,6 +424,28 @@ def llama_decode_step(
                 write_pos=wp, prompt_pad=prompt_pad)  # (B, H, Dh)
 
         x, _, _ = _layer(cfg, bp, x, cos, sin, attend)
+    wp.add_(1)
+    return x, cache
+
+
+def _sharded_decode_step(params: LlamaParams, cfg: TextConfig, inputs_embeds: torch.Tensor,
+                         cache: KVCache, prompt_pad: int, mesh) -> Tuple[torch.Tensor, KVCache]:
+    if cache.k.dtype == torch.int8:
+        raise NotImplementedError("an int8 cache runs on one card")
+    from ..ops.decode_attention import decode_attention_fused_plain
+
+    lcfg, tp, gather = _sharded_layers(params, cfg, mesh)
+    wp = cache.write_pos
+    pos = cache.prompt_lens + (wp - prompt_pad)
+    cos, sin = rope_cos_sin(pos[:, None], llama_inv_freq(cfg, inputs_embeds.device))
+    x = inputs_embeds
+    for i, bp in enumerate(params.blocks.layers()):
+        def attend(q, k, v, i=i):
+            return decode_attention_fused_plain(
+                q[:, 0], cache.k, cache.v, k[:, 0].to(cache.k.dtype), v[:, 0].to(cache.v.dtype),
+                i, prompt_lens=cache.prompt_lens, write_pos=wp, prompt_pad=prompt_pad)
+
+        x, _, _ = _layer(lcfg, gather(bp), x, cos, sin, attend, tp=tp)
     wp.add_(1)
     return x, cache
 
@@ -535,18 +662,55 @@ def take_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 
 def embed_tokens(params: LlamaParams, input_ids: torch.Tensor,
-                 dtype=torch.bfloat16) -> torch.Tensor:
+                 dtype=torch.bfloat16, mesh=None) -> torch.Tensor:
     """Token embedding lookup. A serving-only tied tree has no `embed`: its
     (V, D) int8 head, with one scale per vocab row, doubles as the table
-    (the int8 rows gathered, widened and scaled in `dtype`, as in JAX)."""
+    (the int8 rows gathered, widened and scaled in `dtype`, as in JAX).
+
+    mesh: a sharded tree's (V, D) table is gathered over fsdp; where its
+    vocab rows are sharded over 'tensor' each rank looks up the ids in its
+    rows (zeros for the others) and the ranks' rows are summed."""
     ids = input_ids.long()
     table = getattr(params, "embed", None)
+    if mesh is not None and mesh.size > 1:
+        return _sharded_lookup(table, ids, mesh).to(dtype)
     if table is None:
         scale = params.lm_head_scale
         if scale.shape[-1] != 1:
             raise ValueError("the int8 embedding lookup needs the tied (V, D) head layout")
         return params.lm_head_q8[ids].to(dtype) * scale[ids].to(dtype)
     return take_rows(table, ids).to(dtype)
+
+
+def _vocab_sharded(w: torch.Tensor, dim: int) -> bool:
+    return getattr(w, "spec", ())[dim:dim + 1] == ("tensor",)
+
+
+def _sharded_lookup(table: torch.Tensor, ids: torch.Tensor, mesh) -> torch.Tensor:
+    from ..parallel.sharding import KEEP, gather_leaf
+
+    if table is None:
+        raise NotImplementedError("int8 trees run on one card")
+    rows = gather_leaf(table, table.spec, mesh, KEEP)
+    if not _vocab_sharded(table, 0):
+        return take_rows(rows, ids)
+    lo = mesh.coords["tensor"] * rows.shape[0]
+    local = ids - lo
+    mine = (local >= 0) & (local < rows.shape[0])
+    out = take_rows(rows, torch.where(mine, local, 0))
+    return reduce_from(torch.where(mine[..., None], out, 0.0), mesh.group("tensor"))
+
+
+def sharded_head(params: LlamaParams, cfg: TextConfig, mesh):
+    """(the head for this rank, whether it holds this rank's vocab columns)
+    of a sharded tree: gathered over fsdp, and kept vocab-sharded where the
+    vocab is sharded over 'tensor'."""
+    from ..parallel.sharding import KEEP, SPLIT, gather_leaf
+
+    tied = cfg.tie_word_embeddings
+    w = params.embed if tied else params.lm_head
+    sharded = _vocab_sharded(w, 0 if tied else 1)
+    return gather_leaf(w, w.spec, mesh, KEEP if sharded else SPLIT), sharded
 
 
 def _int8_head(x: torch.Tensor, q8: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
@@ -575,11 +739,23 @@ def lm_logits(
     hidden: torch.Tensor,
     *,
     valid_vocab: Optional[int] = None,
+    mesh=None,
 ) -> torch.Tensor:
     """hidden (..., D) -> fp32 logits (..., V_rows), padded rows masked.
-    A tree with the int8 head (models/quantize.py) uses it."""
+    A tree with the int8 head (models/quantize.py) uses it. mesh: a sharded
+    tree's vocab-sharded head (`sharded_head`), the logits whole on
+    every rank."""
     x = rms_norm(hidden, params.final_norm, cfg.rms_norm_eps)
-    if hasattr(params, "lm_head_q8"):
+    if mesh is not None and mesh.size > 1:
+        head, sharded = sharded_head(params, cfg, mesh)
+        x2d, tp = x.reshape(-1, x.shape[-1]), mesh.group("tensor")
+        if sharded:  # this rank's vocab columns, then every rank's
+            x2d = copy_to(x2d, tp)
+        logits = _head_product(x2d, head, cfg.tie_word_embeddings)
+        if sharded:
+            logits = all_gather_split(logits, tp, -1)
+        logits = logits.reshape(*x.shape[:-1], logits.shape[-1])
+    elif hasattr(params, "lm_head_q8"):
         logits = _int8_head(x.reshape(-1, x.shape[-1]), params.lm_head_q8, params.lm_head_scale)
         logits = logits.reshape(*x.shape[:-1], logits.shape[-1])
     elif x.device.type == "cuda":
@@ -595,3 +771,12 @@ def lm_logits(
     if valid_vocab is not None and valid_vocab < v_rows:
         logits[..., valid_vocab:] = NEG_INF
     return logits
+
+
+def _head_product(x: torch.Tensor, head: torch.Tensor, tied: bool) -> torch.Tensor:
+    """fp32 logits x (N, D) @ the head ((V, D) tied, (D, V) not), operands in
+    x's dtype, as `lm_logits` takes them on one rank."""
+    w = head.t() if tied else head
+    if x.device.type == "cuda":
+        return torch.mm(x, w.to(x.dtype), out_dtype=torch.float32)
+    return x.float() @ w.float()

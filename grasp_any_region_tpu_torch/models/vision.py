@@ -14,6 +14,12 @@ Each block runs in one of the JAX package's two forms:
     gradient is needed, `vit_attention_df`: A with its LSE forward, kernel 5
     backward).
 
+Under a multi-rank mesh (`vision_forward(mesh=)`) the tower runs unfused,
+each layer's weights gathered from their fsdp shards just before it; with
+a tensor axis that divides the heads and the MLP width, each rank runs
+kernel A (and kernel 5 backward) on its own heads and its own MLP columns,
+megatron-style (`_sharded_block`).
+
 Training runs the unfused form under remat: each block is checkpointed
 (`torch.utils.checkpoint`, non-reentrant), or groups of blocks each
 checkpointed around their checkpointed blocks (`remat_group`), as the JAX
@@ -25,6 +31,7 @@ All tiles of the batch are one leading dim (T, S, D).
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import torch
@@ -39,6 +46,7 @@ from ..ops.rope import (apply_rope_2d_tshd, axial_rope_angles, mixed_rope_angles
                         rope_head_tables)
 from ..ops.vit_attention import E_MAX_SEQ, vit_attention_df, vit_attention_fused_qkv
 from ..ops.vit_block import vit_ln_qkv, vit_mlp_residual, vit_wo_residual
+from ..parallel.collectives import copy_to, reduce_from
 
 
 class VisionParams(nn.Module):
@@ -86,31 +94,80 @@ def patchify(pixel_values: torch.Tensor, cfg: VisionConfig) -> torch.Tensor:
 
 
 def _block(cfg: VisionConfig, x: torch.Tensor, bp: dict,
-           angles: Optional[torch.Tensor]) -> torch.Tensor:
-    """One transformer block. x: (T, S, D); angles: (H|1, N, d/2) or None."""
+           angles: Optional[torch.Tensor], tp=None) -> torch.Tensor:
+    """One transformer block. x: (T, S, D); angles: (H|1, N, d/2) or None.
+    tp: the tensor group of a tensor-parallel block, whose bp holds this
+    rank's heads' q, k, v columns and wo rows and its MLP columns (cfg
+    giving its heads); None on one rank."""
     t, s, d = x.shape
     h, dh = cfg.num_heads, cfg.head_dim
     n_prefix = 1 if cfg.class_token else 0
 
     y = layer_norm(x, bp["ln1_scale"], bp["ln1_bias"])
+    if tp is not None:
+        y = copy_to(y, tp)
     qkv = (y @ bp["wqkv"].to(y.dtype) + bp["bqkv"].to(y.dtype)).reshape(t, s, 3, h, dh)
     q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
     if angles is not None:
         q = apply_rope_2d_tshd(q, angles, n_prefix)
         k = apply_rope_2d_tshd(k, angles, n_prefix)
     attn = vit_attention_df(q, k, v)
-    attn = attn.reshape(t, s, d) @ bp["wo"].to(x.dtype) + bp["bo"].to(x.dtype)
+    attn = attn.reshape(t, s, -1) @ bp["wo"].to(x.dtype)
+    if tp is not None:
+        attn = reduce_from(attn, tp)
+    attn = attn + bp["bo"].to(x.dtype)
     if "ls1" in bp:
         attn = attn * bp["ls1"].to(attn.dtype)
     x = x + attn
 
     y = layer_norm(x, bp["ln2_scale"], bp["ln2_bias"])
+    if tp is not None:
+        y = copy_to(y, tp)
     y = y @ bp["fc1"].to(y.dtype) + bp["b1"].to(y.dtype)
     y = F.gelu(y, approximate="tanh" if cfg.fast_gelu else "none")
-    y = y @ bp["fc2"].to(y.dtype) + bp["b2"].to(y.dtype)
+    y = y @ bp["fc2"].to(y.dtype)
+    if tp is not None:
+        y = reduce_from(y, tp)
+    y = y + bp["b2"].to(y.dtype)
     if "ls2" in bp:
         y = y * bp["ls2"].to(y.dtype)
     return x + y
+
+
+def _sharded_block(cfg: VisionConfig, blocks: nn.Module, mesh):
+    """block(cfg, x, views, angles) of a multi-rank mesh: gathers the
+    layer's weights from their shards' views (inside the caller's
+    checkpoint, so again in the backward), then `_block`. With a tensor
+    axis that divides the heads and the MLP width, the rank keeps its own
+    heads and MLP columns: wqkv is gathered whole (its tensor shards split
+    [q | k | v] and not the heads) and this rank's q, k, v columns taken,
+    the replicated biases and per-head rope angles enter the region through
+    `copy_to`; wo and fc2 sum their parts over the tensor ranks."""
+    from ..parallel.sharding import KEEP, SUM, gather_layer, layer_specs, tensor_rows
+
+    specs = layer_specs(blocks)
+    t, h, m = mesh.shape["tensor"], cfg.num_heads, cfg.mlp_hidden
+    if t == 1 or h % t or m % t:
+        return lambda cfg, x, views, angles: _block(cfg, x, gather_layer(views, specs, mesh),
+                                                    angles)
+    tp = mesh.group("tensor")
+    d, (h0, h1), (m0, m1) = cfg.width, tensor_rows(h, mesh), tensor_rows(m, mesh)
+    dh = cfg.head_dim
+    cols = torch.cat([torch.arange(j * d + h0 * dh, j * d + h1 * dh) for j in range(3)])
+    lcfg = dataclasses.replace(cfg, width=(h1 - h0) * dh, num_heads=h1 - h0)
+    modes = {"wqkv": SUM, "wo": KEEP, "fc1": KEEP, "fc2": KEEP}
+
+    def block(cfg, x, views, angles):
+        bp = gather_layer(views, specs, mesh, modes)
+        idx = cols.to(x.device)
+        bp["wqkv"] = bp["wqkv"].index_select(1, idx)
+        bp["bqkv"] = copy_to(bp["bqkv"], tp).index_select(0, idx)
+        bp["b1"] = copy_to(bp["b1"], tp)[m0:m1]
+        if angles is not None and angles.shape[0] > 1:
+            angles = copy_to(angles, tp)[h0:h1]
+        return _block(lcfg, x, bp, angles, tp)
+
+    return block
 
 
 def _fused_block(cfg: VisionConfig, x: torch.Tensor, bp: dict,
@@ -172,6 +229,7 @@ def vision_forward(
     remat_group: int = 1,
     compute_dtype=torch.bfloat16,
     fused_blocks: Optional[bool] = None,
+    mesh=None,
 ) -> torch.Tensor:
     """pixel_values: (T, 3, H, W), all tiles of the batch; mask_embeds:
     (T, N, D) added right after the patch embed. Returns (T, S, D) final
@@ -188,9 +246,18 @@ def vision_forward(
     is fused and gar_8b, head_dim 96, is not), and off under remat. Off too
     past kernel E's E_MAX_SEQ tokens a tile, which it keeps in shared memory
     (gar_1b has 1025). True on a CPU tensor runs the kernels' plain
-    versions."""
+    versions.
+
+    mesh: a multi-rank mesh runs `_sharded_block` (unfused) over this rank's
+    tiles, params then being `parallel/sharding.full_tree` of the sharded
+    tree (its `blocks` still the shards)."""
+    multi = mesh is not None and mesh.size > 1
+    if multi and fused_blocks:
+        raise ValueError("the fused ViT block has no sharded form: a mesh runs it unfused")
     x, angles = vision_embed(params, cfg, pixel_values, mask_embeds,
                              compute_dtype=compute_dtype)
+    if multi:
+        fused_blocks = False
     if fused_blocks is None:
         fused_blocks = (not remat and x.device.type == "cuda" and cfg.head_dim == 64
                         and cfg.num_heads % 2 == 0 and cfg.use_rope
@@ -202,6 +269,8 @@ def vision_forward(
         raise ValueError("the fused ViT block has no backward: train with remat=True or "
                          "fused_blocks=False")
     block = _fused_block if fused_blocks else _block
+    if multi:
+        block = _sharded_block(cfg, params.blocks, mesh)
     layers = params.blocks.layers()
     angle_layers = [None] * cfg.depth if angles is None else angles.unbind(0)
 

@@ -76,6 +76,10 @@ def mha(
     """Dispatching attention entry point, by the JAX package's flash_safe
     rule on a CUDA tensor.
 
+    Under a multi-rank mesh the callers (models/vision, models/llama,
+    parallel/ulysses) hold their rank's rows and heads already, JAX's
+    `_flash_sharded` layout, and call it on those.
+
     right_padded=True asserts that segment_ids encodes nothing but trailing
     padding: under a causal mask real tokens never see trailing pads, so the
     kernel drops the segment mask and stays exact for every real row (pad

@@ -15,6 +15,13 @@ JAX's VJP does (dot_general f32 x bf16 -> f32, then one cast). On the card
 cuBLAS takes no f32 x bf16 product, so the gradient goes in as two bf16
 halves, g = hi + lo (hi = bf16(g), lo = bf16(g - hi): 16 significant
 bits), two products each with fp32 sums.
+
+Under a multi-rank mesh (`mesh=`) the head is gathered over fsdp and, where
+its vocab is sharded over 'tensor', each rank computes the logits of its
+vocab columns alone and the CE takes the max, the sum of exponentials and
+the gold logit over the tensor ranks (three all-reduces of one value a
+row: no rank holds a whole row of logits); `global_mean` makes the mean
+one over every supervised token of the global batch.
 """
 
 from __future__ import annotations
@@ -97,20 +104,66 @@ def _chunk_nll(head: torch.Tensor, x: torch.Tensor, labels: torch.Tensor, tied: 
     return nll.sum()
 
 
+def _chunk_nll_vocab_sharded(head: torch.Tensor, x: torch.Tensor, labels: torch.Tensor,
+                             tied: bool, valid_vocab: Optional[int], tp,
+                             lo: int) -> torch.Tensor:
+    """`_chunk_nll` with this rank's vocab columns [lo, lo + V_t) of the head
+    (`models/llama.sharded_head`): the logsumexp and the gold logit summed
+    over the tensor ranks (Megatron's vocab-parallel CE). x enters the
+    region through `copy_to`; the sums' gradients pass as they are, each
+    rank back-propagating its own columns."""
+    from ..parallel.collectives import all_reduce, copy_to, reduce_from
+
+    b, c, d = x.shape
+    logits = _HeadLogits.apply(copy_to(x.reshape(b * c, d), tp), head, tied).reshape(b, c, -1)
+    cols = lo + torch.arange(logits.shape[-1], device=logits.device)
+    if valid_vocab is not None:
+        logits = torch.where(cols < valid_vocab, logits, -1e30)
+    m = all_reduce(logits.detach().amax(-1), tp, op=torch.distributed.ReduceOp.MAX)
+    lse = m + torch.log(reduce_from(torch.exp(logits - m[..., None]).sum(-1), tp))
+    mask = labels != IGNORE_INDEX
+    local = labels.long() - lo
+    mine = mask & (local >= 0) & (local < logits.shape[-1])
+    gold = torch.gather(logits, -1, torch.where(mine, local, 0)[..., None])[..., 0]
+    gold = reduce_from(torch.where(mine, gold, 0.0), tp)
+    return torch.where(mask, lse - gold, 0.0).sum()
+
+
 def ce_sums(llm_params, cfg: TextConfig, hidden: torch.Tensor, labels: torch.Tensor, *,
-            chunk_size: int = 1024, valid_vocab: Optional[int] = None):
+            chunk_size: int = 1024, valid_vocab: Optional[int] = None, mesh=None):
     """(sum of NLL over supervised positions, supervised count), both 0-dim
     device tensors. hidden (B, S, D) is the decoder output before the final
-    norm; labels (B, S) are already shifted."""
+    norm; labels (B, S) are already shifted. mesh: a sharded tree's
+    vocab-sharded head (`models/llama.sharded_head`); the sums are this
+    rank's."""
     x = rms_norm(hidden, llm_params.final_norm, cfg.rms_norm_eps)
     tied = cfg.tie_word_embeddings
     head = llm_params.embed if tied else llm_params.lm_head
+    nll, extra = _chunk_nll, ()
+    if mesh is not None and mesh.size > 1:  # the head gathered once, outside the chunks
+        from ..models.llama import sharded_head
+
+        head, sharded = sharded_head(llm_params, cfg, mesh)
+        if sharded:
+            nll = _chunk_nll_vocab_sharded
+            extra = (mesh.group("tensor"), mesh.coords["tensor"] * head.shape[0 if tied else 1])
     total = torch.zeros((), dtype=torch.float32, device=hidden.device)
     for lo in range(0, x.shape[1], chunk_size):
-        total = total + checkpoint(_chunk_nll, head, x[:, lo:lo + chunk_size],
-                                   labels[:, lo:lo + chunk_size], tied, valid_vocab,
+        total = total + checkpoint(nll, head, x[:, lo:lo + chunk_size],
+                                   labels[:, lo:lo + chunk_size], tied, valid_vocab, *extra,
                                    use_reentrant=False)
     return total, (labels != IGNORE_INDEX).sum()
+
+
+def global_mean(total: torch.Tensor, count: torch.Tensor, mesh) -> torch.Tensor:
+    """The mean over the global batch of a rank's (NLL sum, count): both
+    summed over the data, fsdp and seq ranks (each holds other tokens),
+    the sum's gradient passed as it is, so each rank back-propagates its
+    own tokens' part of the global mean."""
+    from ..parallel.collectives import all_reduce, reduce_from
+
+    group = mesh.group(("data", "fsdp", "seq"))
+    return reduce_from(total, group) / all_reduce(count, group).clamp(min=1).float()
 
 
 def chunked_cross_entropy(llm_params, cfg: TextConfig, hidden: torch.Tensor,

@@ -45,7 +45,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Callable, List, Optional
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -134,7 +134,7 @@ class Optimizer:
     `jax.grad`) and frees each `.grad` once its clipped copy is made;
     `free_frozen_grads` frees the others' (a step's metric has read them)."""
 
-    def __init__(self, params: nn.Module, cfg: OptimizerConfig):
+    def __init__(self, params: nn.Module, cfg: OptimizerConfig, mesh=None):
         int8 = [n for n, p in params.named_parameters() if not p.dtype.is_floating_point]
         if int8:
             raise ValueError(f"an int8 tree does not train (int8 leaves {int8[:3]}...); "
@@ -151,6 +151,18 @@ class Optimizer:
         self.order = sorted(range(len(self.names)),
                             key=lambda i: self.names[i].replace(".", "/").split("/"))
         self.schedule = make_schedule(cfg)
+        # under a multi-rank mesh the leaves are shards (parallel/sharding):
+        # a sum over a whole leaf counts each shard once, on the first rank
+        # along every axis its spec does not shard over (`sq_sums`)
+        self.mesh = mesh if mesh is not None and mesh.size > 1 else None
+        self._owned: Dict[str, float] = {}
+        self._owned_rows: Dict[Tuple[str, ...], torch.Tensor] = {}
+        if self.mesh is not None:
+            from ..parallel.sharding import spec_axes
+
+            self._owned = {n: float(all(mesh.coords[a] == 0 for a in mesh.axis_names
+                                        if a not in spec_axes(p.spec)))
+                           for n, p in params.named_parameters()}
 
     def _leaves(self, params: nn.Module) -> List[torch.Tensor]:
         named = dict(params.named_parameters())
@@ -169,8 +181,29 @@ class Optimizer:
                         acc=[torch.zeros_like(p) for p in leaves]
                         if self.cfg.accumulation > 1 else None)
 
+    def sq_sums(self, names: List[str], tensors: List[torch.Tensor]) -> List[torch.Tensor]:
+        """Per-leaf fp32 sums of squares of `tensors` (of the leaves `names`);
+        under a multi-rank mesh the sums over the whole leaves, each shard
+        counted once (a replicated leaf once, not once a rank): one
+        all-reduce over every rank."""
+        sq = [s * s for s in torch._foreach_norm(tensors, 2, dtype=torch.float32)]
+        if self.mesh is None:
+            return sq
+        from ..parallel.collectives import all_reduce
+
+        key = tuple(names)
+        if key not in self._owned_rows:
+            self._owned_rows[key] = torch.tensor([self._owned[n] for n in names],
+                                                 device=tensors[0].device)
+        return list(all_reduce(torch.stack(sq) * self._owned_rows[key],
+                               self.mesh.group(self.mesh.axis_names)).unbind())
+
     @torch.no_grad()
-    def apply(self, params: nn.Module, state: OptState) -> None:
+    def apply(self, params: nn.Module, state: OptState,
+              sq: Optional[Dict[str, torch.Tensor]] = None) -> None:
+        """sq: {name: `sq_sums` of its gradient} where the step has them
+        (a sharded step, for its metric); without an accumulation window
+        the clipping norm takes them instead of reducing again."""
         leaves = self._leaves(params)
         grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in leaves]
         k = self.cfg.accumulation
@@ -184,7 +217,12 @@ class Optimizer:
             grads = list(state.acc)
         cfg = self.cfg
         b1, b2 = cfg.betas
-        norm = self._global_norm(grads)
+        if sq is not None and k == 1:
+            zero = torch.zeros((), device=grads[0].device)
+            sq = [sq.get(n, zero) for n in self.names]
+        else:
+            sq = None
+        norm = self._global_norm(grads, sq)
         lr = -self.schedule(state.count)
         state.count += 1
         # optax's bias corrections: 1 - b ** count in fp32, rounded to the moments' dtype
@@ -226,14 +264,16 @@ class Optimizer:
         if k > 1:
             torch._foreach_zero_(state.acc)
 
-    def _global_norm(self, grads: List[torch.Tensor]) -> torch.Tensor:
-        """optax's global norm: each leaf's sum of squares rounded to its
-        dtype, added up in the tree's order (the sorted leaf paths) in
-        that dtype, then the square root."""
-        sums = torch._foreach_norm(grads, 2, dtype=torch.float32)
+    def _global_norm(self, grads: List[torch.Tensor],
+                     sq: Optional[List[torch.Tensor]] = None) -> torch.Tensor:
+        """optax's global norm: each leaf's sum of squares (`sq_sums`, or
+        sq given) rounded to its dtype, added up in the tree's order (the
+        sorted leaf paths) in that dtype, then the square root."""
+        if sq is None:
+            sq = self.sq_sums(self.names, grads)
         total = None
         for i in self.order:
-            s = (sums[i] * sums[i]).to(grads[i].dtype)
+            s = sq[i].to(grads[i].dtype)
             total = s if total is None else total + s
         return torch.sqrt(total)
 
@@ -251,5 +291,5 @@ def _in_dtype(value: float, dtype: torch.dtype) -> float:
     return torch.tensor(value, dtype=torch.float64).to(dtype).item()
 
 
-def make_optimizer(params: nn.Module, cfg: OptimizerConfig) -> Optimizer:
-    return Optimizer(params, cfg)
+def make_optimizer(params: nn.Module, cfg: OptimizerConfig, mesh=None) -> Optimizer:
+    return Optimizer(params, cfg, mesh)

@@ -1,6 +1,6 @@
-"""The single-card training step (`grasp_any_region_tpu/train/step.py`,
-its `mesh=None` case): forward under remat, chunked CE, backward, clip,
-AdamW.
+"""The training step (`grasp_any_region_tpu/train/step.py`): forward under
+remat, chunked CE, backward, clip, AdamW, on one card or sharded over a
+multi-rank mesh (data, fsdp, tensor, seq).
 
 Where the JAX step is one jitted function returning a new state, the port
 runs eagerly and updates the parameters and the optimizer state in place,
@@ -18,6 +18,21 @@ with its LSE and kernel 5, the decoder's kernel B and kernels 17 and 18
 (with segment ids on the packed path). Under non-reentrant checkpointing
 each block's forward runs again in the backward, so A and B launch twice a
 block a step.
+
+Under a multi-rank mesh (`init_state(mesh=)`, `make_train_step(mesh=)`)
+each rank holds its shards of the parameters (`parallel/sharding.
+shard_params`) and AdamW's moments are `zeros_like` of the shards, so both
+live only on their fsdp shards (JAX pins its moments to the parameters'
+shardings, `opt_state_shardings`). Each layer's weights are gathered just
+before the layer, and again in the backward under remat; the gathers'
+backward reduce-scatters the gradients onto the shards. Each rank takes
+its rows of the batch (`shard_batch`) and, with a seq axis, its part of
+the sequence; the loss is the mean over every supervised token of the
+global batch (`losses.global_mean`). After the backward the gradients are
+summed over the ranks that hold other rows or tokens of the same shard
+(`reduce_gradients`); one all-reduce sums each shard's squares once
+(`Optimizer.sq_sums`, the optimizer made with the mesh), for `grad_norm`
+and for the clipping norm. The optimizer updates the local shards.
 """
 
 from __future__ import annotations
@@ -30,7 +45,7 @@ from ..core.config import GARConfig
 from ..core.weights import require_device
 from ..models.gar import GARBatch, GARParams, build_prefill_embeds
 from ..models.llama import embed_tokens, llama_prefill
-from .losses import chunked_cross_entropy, shift_labels
+from .losses import ce_sums, chunked_cross_entropy, global_mean, shift_labels
 from .optimizer import OptimizerConfig, OptState, Optimizer, global_norm, make_optimizer
 
 
@@ -40,45 +55,110 @@ class TrainState(NamedTuple):
     step: int
 
 
+def _mean_ce(params: GARParams, cfg: GARConfig, hidden: torch.Tensor, labels: torch.Tensor,
+             ce_chunk: int, mesh) -> torch.Tensor:
+    """The mean CE of the decoder output against the shifted labels; under
+    a multi-rank mesh hidden is this rank's sequence shard and the labels,
+    shifted over the whole sequence, are sliced to it."""
+    if mesh is None or mesh.size == 1:
+        return chunked_cross_entropy(params.llm, cfg.text, hidden, labels,
+                                     valid_vocab=cfg.extended_vocab_size, chunk_size=ce_chunk)
+    from ..parallel.sharding import constrain_seq
+
+    total, count = ce_sums(params.llm, cfg.text, hidden, constrain_seq(labels, mesh),
+                           chunk_size=ce_chunk, valid_vocab=cfg.extended_vocab_size, mesh=mesh)
+    return global_mean(total, count, mesh)
+
+
 def loss_fn(params: GARParams, cfg: GARConfig, batch: GARBatch, labels: torch.Tensor, *,
             mask_compat: bool = True, ce_chunk: int = 1024, vit_remat_group: int = 1,
-            compute_dtype=torch.bfloat16) -> torch.Tensor:
+            compute_dtype=torch.bfloat16, mesh=None) -> torch.Tensor:
     """Mean next-token CE of one multimodal batch, everything under remat.
-    compute_dtype is bf16 as in JAX; the fp32 parity tests pass float32."""
+    compute_dtype is bf16 as in JAX; the fp32 parity tests pass float32.
+    mesh: a multi-rank mesh, params the sharded tree, batch and labels this
+    rank's rows (`shard_batch`); the value is the global mean on every
+    rank, its gradient this rank's part."""
     embeds = build_prefill_embeds(params, cfg, batch, mask_compat=mask_compat, remat=True,
-                                  remat_group=vit_remat_group, compute_dtype=compute_dtype)
+                                  remat_group=vit_remat_group, compute_dtype=compute_dtype,
+                                  mesh=mesh)
     hidden, _ = llama_prefill(params.llm, cfg.text, embeds, batch.positions,
-                              segment_ids=batch.segment_ids, remat=True, return_kv=False)
-    return chunked_cross_entropy(params.llm, cfg.text, hidden, shift_labels(labels),
-                                 valid_vocab=cfg.extended_vocab_size, chunk_size=ce_chunk)
+                              segment_ids=batch.segment_ids, remat=True, return_kv=False,
+                              mesh=mesh)
+    return _mean_ce(params, cfg, hidden, shift_labels(labels), ce_chunk, mesh)
 
 
 def packed_loss_fn(params: GARParams, cfg: GARConfig, packed,
-                   compute_dtype=torch.bfloat16) -> torch.Tensor:
+                   compute_dtype=torch.bfloat16, mesh=None) -> torch.Tensor:
     """Mean CE over packed text-only rows (`data/builders.PackedTextBatch`):
     the decoder alone, with the block-diagonal segment mask in the kernel
-    (right_padded=False) and per-document positions."""
-    embeds = embed_tokens(params.llm, packed.input_ids, compute_dtype)
+    (right_padded=False) and per-document positions. mesh: `loss_fn`'s."""
+    embeds = embed_tokens(params.llm, packed.input_ids, compute_dtype, mesh=mesh)
     hidden, _ = llama_prefill(params.llm, cfg.text, embeds, packed.positions,
                               segment_ids=packed.segment_ids, remat=True, right_padded=False,
-                              return_kv=False)
-    return chunked_cross_entropy(params.llm, cfg.text, hidden, shift_labels(packed.labels),
-                                 valid_vocab=cfg.extended_vocab_size)
+                              return_kv=False, mesh=mesh)
+    return _mean_ce(params, cfg, hidden, shift_labels(packed.labels), 1024, mesh)
 
 
-def init_state(params: GARParams, opt_cfg: OptimizerConfig, *, device="cuda"):
+def init_state(params: GARParams, opt_cfg: OptimizerConfig, *, device="cuda", mesh=None):
     """(TrainState, optimizer) for `params`, moved to `device` (the card
     unless the caller asks for the CPU; no card raises) and made
-    differentiable in place. Raises on an int8 tree."""
-    params = params.to(require_device(device))
-    tx = make_optimizer(params, opt_cfg)
+    differentiable in place. Raises on an int8 tree.
+
+    mesh: a multi-rank mesh (JAX's `init_sharded_state`): the state holds
+    this rank's shards on `mesh.device` (`params` is left as it is), the
+    moments shards of the same shapes, and the optimizer, made with the
+    mesh, sums the shards' squares over the ranks."""
+    if mesh is not None and mesh.size > 1:
+        from ..parallel.sharding import shard_params
+
+        params = shard_params(params, mesh)
+    else:
+        params = params.to(require_device(device))
+    tx = make_optimizer(params, opt_cfg, mesh)
     for p in params.parameters():
         p.requires_grad_(True)
     return TrainState(params=params, opt_state=tx.init(params), step=0), tx
 
 
-def _step_with(loss_of: Callable, tx: Optimizer, device) -> Callable:
-    device = require_device(device)
+def shard_batch(batch: GARBatch, labels: torch.Tensor, mesh):
+    """This rank's rows of a whole batch and its labels: the batch axis over
+    (data, fsdp), as JAX's `shard_batch` places it (a multi-process trainer
+    loads only its rows instead)."""
+    from ..models.gar import map_batch
+    from ..parallel.sharding import shard_rows
+
+    dp = mesh.axis_size(("data", "fsdp"))
+    if labels.shape[0] % dp:
+        raise ValueError(f"batch {labels.shape[0]} does not divide data * fsdp = {dp}")
+    return (map_batch(lambda x: shard_rows(x, ("data", "fsdp"), mesh), batch),
+            shard_rows(labels, ("data", "fsdp"), mesh))
+
+
+@torch.no_grad()
+def reduce_gradients(params: GARParams, mesh) -> None:
+    """Sum each shard's gradient over the ranks holding the same shard of
+    other rows or tokens: over (data, seq) for fsdp-sharded leaves (their
+    gathers' backward summed over fsdp already), over (data, fsdp, seq) for
+    the rest; one flat all-reduce a group and dtype."""
+    from ..parallel.collectives import all_reduce
+    from ..parallel.sharding import spec_axes
+
+    buckets = {}
+    for p in params.parameters():
+        if p.grad is None:
+            continue
+        axes = ("data", "seq") if "fsdp" in spec_axes(p.spec) else ("data", "fsdp", "seq")
+        if mesh.group(axes) is not None:
+            buckets.setdefault((axes, p.grad.dtype), []).append(p)
+    for (axes, _), ps in buckets.items():
+        flat = all_reduce(torch.cat([p.grad.reshape(-1) for p in ps]), mesh.group(axes))
+        for p, g in zip(ps, flat.split([p.numel() for p in ps])):
+            p.grad.copy_(g.view_as(p.grad))
+
+
+def _step_with(loss_of: Callable, tx: Optimizer, device, mesh=None) -> Callable:
+    multi = mesh is not None and mesh.size > 1
+    device = mesh.device if multi else require_device(device)
 
     def step(state: TrainState, *inputs):
         params = state.params
@@ -89,11 +169,20 @@ def _step_with(loss_of: Callable, tx: Optimizer, device) -> Callable:
             p.grad = None
         loss = loss_of(params, *inputs)
         loss.backward()
+        if multi:
+            reduce_gradients(params, mesh)
         grads = [p.grad for p in params.parameters() if p.grad is not None]
-        metrics = {"loss": loss.detach(), "grad_norm": global_norm(grads)}
+        sq = None
+        if multi:  # one reduction serves the metric and the clipping norm
+            names = [n for n, p in params.named_parameters() if p.grad is not None]
+            sq = dict(zip(names, tx.sq_sums(names, grads)))
+            gnorm = torch.sqrt(torch.stack(list(sq.values())).sum())
+        else:
+            gnorm = global_norm(grads)
+        metrics = {"loss": loss.detach(), "grad_norm": gnorm}
         del grads
         tx.free_frozen_grads(params)  # they served the metric alone
-        tx.apply(params, state.opt_state)
+        tx.apply(params, state.opt_state, sq)
         for p in params.parameters():
             p.grad = None
         return state._replace(step=state.step + 1), metrics
@@ -103,23 +192,25 @@ def _step_with(loss_of: Callable, tx: Optimizer, device) -> Callable:
 
 def make_train_step(cfg: GARConfig, tx: Optimizer, *, mask_compat: bool = True,
                     ce_chunk: int = 1024, vit_remat_group: int = 1, device="cuda",
-                    compute_dtype=torch.bfloat16):
+                    compute_dtype=torch.bfloat16, mesh=None):
     """step(state, batch, labels) -> (state, {"loss", "grad_norm"}), both
     metrics 0-dim tensors on the device; grad_norm is over all gradients.
-    compute_dtype: `loss_fn`'s (bf16, as in JAX)."""
+    compute_dtype: `loss_fn`'s (bf16, as in JAX). mesh: the sharded step
+    (the state from `init_state(mesh=)`, this rank's rows of the batch);
+    the metrics are global."""
     return _step_with(
         lambda p, batch, labels: loss_fn(p, cfg, batch, labels, mask_compat=mask_compat,
                                          ce_chunk=ce_chunk, vit_remat_group=vit_remat_group,
-                                         compute_dtype=compute_dtype),
-        tx, device)
+                                         compute_dtype=compute_dtype, mesh=mesh),
+        tx, device, mesh)
 
 
 def make_packed_train_step(cfg: GARConfig, tx: Optimizer, *, device="cuda",
-                           compute_dtype=torch.bfloat16):
+                           compute_dtype=torch.bfloat16, mesh=None):
     """step(state, packed) -> (state, metrics) over `PackedTextBatch` rows.
     The packed path never touches the vision tower: its gradients are zero."""
-    return _step_with(lambda p, packed: packed_loss_fn(p, cfg, packed, compute_dtype), tx,
-                      device)
+    return _step_with(lambda p, packed: packed_loss_fn(p, cfg, packed, compute_dtype, mesh), tx,
+                      device, mesh)
 
 
 def make_train_loop(cfg: GARConfig, tx: Optimizer, n_steps: int, *, mask_compat: bool = True,

@@ -1,6 +1,5 @@
 """Training orchestration: the loop over an annotation dataset
-(`grasp_any_region_tpu/train/trainer.py`, its single-process, single-card
-case).
+(`grasp_any_region_tpu/train/trainer.py`).
 
   * one epoch, or `max_steps`, over `GraspAnyRegionDataset`, each epoch
     in a fresh length-grouped order from `np.random.default_rng([seed,
@@ -14,13 +13,20 @@ case).
     forced one at the end (`train/checkpoints.py`), and resume from the
     newest checkpoint in `work_dir` when the trainer is made.
 
-The mesh of JAX's trainer (data, fsdp, tensor, seq and pipeline axes) is
-kept in the config; any axis above 1 raises: the port trains on one card
-(ROADMAP.md item 1.10).
+With a mesh of data, fsdp, tensor and seq axes above 1 (`TrainerConfig.
+mesh`, one process a rank, the process group initialised by the caller:
+`core/mesh.initialize_distributed`, as `cli/train.py` does) the state is
+sharded and the step is the sharded one (train/step.py); each process
+loads only its rows of a step's batch (`n_procs` row groups over data and
+fsdp, `proc_id` its own), padded to a multiple of the seq axis
+(`seq_multiple`); each rank keeps its checkpoints under `work_dir/rank<r>`
+and only rank 0 prints. Pipeline stages (pipe > 1) wait for ROADMAP.md
+item 1.10 (d).
 """
 
 from __future__ import annotations
 
+import os
 import time
 from dataclasses import dataclass
 from typing import List, Optional
@@ -28,6 +34,7 @@ from typing import List, Optional
 import numpy as np
 
 from ..core.config import GARConfig
+from ..core.mesh import MeshSpec, make_mesh
 from ..core.weights import require_device
 from ..data.builders import collate_samples
 from ..data.dataset import GraspAnyRegionDataset, length_grouped_indices
@@ -37,26 +44,12 @@ from .optimizer import OptimizerConfig
 from .step import init_state, make_train_step
 
 
-@dataclass(frozen=True)
-class MeshSpec:
-    """JAX's mesh axes (`core/mesh.MeshSpec`); the port runs them at 1."""
-    data: int = 1
-    fsdp: int = 1
-    tensor: int = 1
-    seq: int = 1
-    pipe: int = 1
-
-    @property
-    def size(self) -> int:
-        return self.data * self.fsdp * self.tensor * self.seq * self.pipe
-
-
-def require_one_card(mesh: Optional[MeshSpec]) -> None:
-    """Raise unless every axis of `mesh` is 1 (or there is no mesh)."""
-    if mesh is not None and mesh.size > 1:
+def refuse_pipeline(mesh: Optional[MeshSpec]) -> None:
+    """Raise where `mesh` asks for pipeline stages, which the port does not run."""
+    if mesh is not None and mesh.pipe > 1:
         raise NotImplementedError(
-            f"the port trains on one card: mesh {mesh} asks for {mesh.size}; data, fsdp, "
-            "tensor, sequence and pipeline parallelism wait for ROADMAP.md item 1.10")
+            f"mesh {mesh} asks for {mesh.pipe} pipeline stages; the GPipe and 1F1B schedules "
+            "wait for ROADMAP.md item 1.10 (d)")
 
 
 @dataclass
@@ -80,16 +73,29 @@ class TrainerConfig:
 class Trainer:
     def __init__(self, cfg: GARConfig, params, dataset: GraspAnyRegionDataset,
                  opt_cfg: OptimizerConfig, tcfg: TrainerConfig):
-        require_one_card(tcfg.mesh)
+        refuse_pipeline(tcfg.mesh)
         if tcfg.pipe_schedule not in ("gpipe", "1f1b"):
             raise ValueError(f"unknown pipe_schedule {tcfg.pipe_schedule!r}")
         self.cfg = cfg
         self.dataset = dataset
         self.tcfg = tcfg
         self.device = require_device(tcfg.device)
-        self.state, self.tx = init_state(params, opt_cfg, device=self.device)
-        self.step_fn = make_train_step(cfg, self.tx, device=self.device)  # bf16 loss, as JAX's
-        self.ckpt = CheckpointManager(tcfg.work_dir, save_interval=tcfg.save_interval,
+        self.mesh = None
+        self.n_procs, self.proc_id, work_dir = 1, 0, tcfg.work_dir
+        if tcfg.mesh is not None and tcfg.mesh.size > 1:
+            self.mesh = make_mesh(tcfg.mesh, device=self.device)
+            self.n_procs = self.mesh.axis_size(("data", "fsdp"))
+            self.proc_id = self.mesh.index(("data", "fsdp"))
+            if tcfg.batch_size % self.n_procs:
+                raise ValueError(f"batch_size {tcfg.batch_size} must be divisible by data * "
+                                 f"fsdp = {self.n_procs} (the batch axis shards over both)")
+            work_dir = os.path.join(work_dir, f"rank{self.mesh.rank}")
+        # sequence parallelism: collate pads S to a multiple of the seq axis
+        self.seq_multiple = tcfg.mesh.seq if tcfg.mesh else 1
+        self.state, self.tx = init_state(params, opt_cfg, device=self.device, mesh=self.mesh)
+        self.step_fn = make_train_step(cfg, self.tx, device=self.device,
+                                       mesh=self.mesh)  # bf16 loss, as JAX's
+        self.ckpt = CheckpointManager(work_dir, save_interval=tcfg.save_interval,
                                       max_to_keep=tcfg.max_keep_ckpts,
                                       save_optimizer=tcfg.save_optimizer)
         self.history: List[dict] = []  # a record a step: loss tensor, host seconds
@@ -97,7 +103,11 @@ class Trainer:
             restored = self.ckpt.restore(self.state)
             if restored is not None:
                 self.state = restored
-                print(f"[trainer] resumed from step {self.state.step}")
+                self.log(f"[trainer] resumed from step {self.state.step}")
+
+    def log(self, line: str) -> None:
+        if self.mesh is None or self.mesh.rank == 0:
+            print(line)
 
     def _epoch_indices(self, rng: np.random.Generator) -> np.ndarray:
         return length_grouped_indices(self.dataset.modality_lengths(), self.tcfg.batch_size, rng)
@@ -106,11 +116,14 @@ class Trainer:
         return self.tcfg.max_steps or max(1, len(self.dataset) // self.tcfg.batch_size)
 
     def step_indices(self, start_step: int, max_steps: int) -> List[int]:
-        """The dataset indices of steps start_step .. max_steps - 1, batch
-        after batch: each epoch a whole permutation keyed by (seed, epoch),
-        so a resume past an epoch boundary reshuffles."""
+        """The dataset indices of this process's rows of steps start_step ..
+        max_steps - 1, batch after batch: each epoch a whole permutation
+        keyed by (seed, epoch), so a resume past an epoch boundary
+        reshuffles; process proc_id takes rows [proc_id * local, (proc_id +
+        1) * local) of each step's batch."""
         t = self.tcfg
         steps_per_epoch = max(1, len(self.dataset) // t.batch_size)
+        local_bs = t.batch_size // self.n_procs
         order, order_epoch = None, None
         out = []
         for step in range(start_step, max_steps):
@@ -118,20 +131,21 @@ class Trainer:
             if epoch != order_epoch:
                 order = self._epoch_indices(np.random.default_rng([t.seed, epoch]))
                 order_epoch = epoch
-            lo = pos * t.batch_size
+            lo = pos * t.batch_size + self.proc_id * local_bs
             # the modulo bites only when n_items < batch_size
-            out.extend(int(order[(lo + k) % len(order)]) for k in range(t.batch_size))
+            out.extend(int(order[(lo + k) % len(order)]) for k in range(local_bs))
         return out
 
     def collate(self, samples):
-        return collate_samples(self.cfg, samples, with_labels=True, device=self.device)
+        return collate_samples(self.cfg, samples, with_labels=True, device=self.device,
+                               seq_multiple=self.seq_multiple)
 
     def train(self):
         t = self.tcfg
         max_steps = self.max_steps()
         start_step = self.state.step
         loader = PrefetchLoader(self.dataset, self.step_indices(start_step, max_steps),
-                                batch_size=t.batch_size, collate_fn=self.collate,
+                                batch_size=t.batch_size // self.n_procs, collate_fn=self.collate,
                                 num_workers=max(1, t.num_workers),
                                 prefetch_batches=max(1, t.prefetch_batches))
         batches = iter(loader)
@@ -146,7 +160,7 @@ class Trainer:
                 loss, gnorm = float(metrics["loss"]), float(metrics["grad_norm"])
             it_times.append(time.perf_counter() - t_last)
             if log:
-                print(f"[trainer] step {step + 1}/{max_steps} loss {loss:.4f} grad_norm "
+                self.log(f"[trainer] step {step + 1}/{max_steps} loss {loss:.4f} grad_norm "
                       f"{gnorm:.3f} iter {np.mean(it_times[-t.log_interval:]):.2f}s "
                       f"(loader wait {wait_s:.3f}s)")
             self.history.append(dict(step=step + 1, loss=metrics["loss"], wait_s=wait_s,

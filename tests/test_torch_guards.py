@@ -237,7 +237,10 @@ def test_port_module_list_covers_training_from_a_file():
 def test_training_entry_points_default_to_the_card(tmp_path):
     """The Trainer and `cli.train` run on the card unless asked for the CPU
     and raise where there is none, before they build or read anything; a
-    mesh axis above 1 raises, naming the roadmap item it waits for."""
+    pipeline axis above 1 raises, naming the roadmap item it waits for;
+    data, fsdp, tensor and seq above 1 pass both, which then want as many
+    ranks as the mesh (one process here: the ranks' run is
+    `test_trainer_takes_a_mesh_on_gloo_ranks`)."""
     import torch
 
     from grasp_any_region_tpu_torch.cli.train import main
@@ -251,15 +254,53 @@ def test_training_entry_points_default_to_the_card(tmp_path):
             Trainer(None, None, None, OptimizerConfig(), TrainerConfig())
         with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
             main(["--preset", "gar_tiny", "--data", missing])
-    for axis in ("data", "fsdp", "tensor", "seq", "pipe"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md item 1.10"):
+    with pytest.raises(NotImplementedError, match=r"ROADMAP.md item 1.10 \(d\)"):
+        Trainer(None, None, None, OptimizerConfig(),
+                TrainerConfig(device="cpu", mesh=MeshSpec(pipe=2)))
+    with pytest.raises(NotImplementedError, match=r"ROADMAP.md item 1.10 \(d\)"):
+        main(["--preset", "gar_tiny", "--data", missing, "--device", "cpu", "--pipe", "2"])
+    flag = {"data": "--data-axis"}
+    for axis in ("data", "fsdp", "tensor", "seq"):
+        with pytest.raises(ValueError, match="needs 2 ranks"):
             Trainer(None, None, None, OptimizerConfig(),
                     TrainerConfig(device="cpu", mesh=MeshSpec(**{axis: 2})))
-    flag = {"data": "--data-axis"}
-    for axis in ("data", "fsdp", "tensor", "seq", "pipe"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md item 1.10"):
+        with pytest.raises(ValueError, match="needs 2 processes"):
             main(["--preset", "gar_tiny", "--data", missing, "--device", "cpu",
                   flag.get(axis, f"--{axis}"), "2"])
+
+
+def test_trainer_takes_a_mesh_on_gloo_ranks(tmp_path):
+    """On two gloo ranks a Trainer is made for data, fsdp, tensor and seq at
+    2: the data and fsdp ranks load one row each of a batch of two (the
+    other rank's row), the tensor and seq ranks both rows, and the seq
+    axis pads the sequence to a multiple of 2."""
+    import dataclasses
+
+    from grasp_any_region_tpu_torch.core.config import gar_tiny
+    from grasp_any_region_tpu_torch.data.synthetic import write_synthetic_annotations
+    from torch_ranks import run_ranks, trainer_job
+
+    ann = write_synthetic_annotations(str(tmp_path / "ann.json"), n_items=4,
+                                      image_size=(96, 80), seed=3)
+    cfg = dataclasses.replace(gar_tiny(), max_num_tiles=1)
+    r0, r1 = run_ranks(2, trainer_job, cfg, ann, str(tmp_path / "work"))
+    for axis in ("data", "fsdp"):
+        assert r0[axis][:3] == (2, 0, 1) and r1[axis][:3] == (2, 1, 1)
+        assert len(r0[axis][3]) == 1 and r0[axis][3] != r1[axis][3]
+    for axis, multiple in (("tensor", 1), ("seq", 2)):
+        assert r0[axis][:3] == r1[axis][:3] == (1, 0, multiple)
+        assert len(r0[axis][3]) == 2 and r0[axis][3] == r1[axis][3]
+    assert sorted(r0["data"][3] + r1["data"][3]) == sorted(r0["tensor"][3])
+
+
+def test_port_module_list_covers_parallelism():
+    """The no-jax walk above imports the mesh and the parallel modules too."""
+    names = {m.name for m in pkgutil.walk_packages(grasp_any_region_tpu_torch.__path__,
+                                                  "grasp_any_region_tpu_torch.")}
+    prefix = "grasp_any_region_tpu_torch."
+    assert {prefix + n for n in (
+        "core.mesh", "parallel", "parallel.collectives", "parallel.sharding",
+        "parallel.ulysses", "parallel.ring")} <= names
 
 
 def test_front_door_factories_default_to_the_card(tmp_path):

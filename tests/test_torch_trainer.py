@@ -336,8 +336,9 @@ def test_export_equals_jax(world, tmp_path):
 def test_cli_train_end_to_end_and_refuses_a_mesh(world, tmp_path):
     """`cli.train.main` on a six-item synthetic file at gar_tiny on the
     CPU, two steps: its checkpoint restores to the trained state, its HF
-    export reads back to the trained parameters; --fsdp 2 is refused
-    before anything is built."""
+    export reads back to the trained parameters; in one process a mesh is
+    refused before anything is built: --fsdp 2 wants two launched
+    processes, --pipe 2 waits for ROADMAP.md item 1.10 (d)."""
     from grasp_any_region_tpu_torch.cli.train import main
 
     work, export = tmp_path / "run", tmp_path / "hf"
@@ -360,5 +361,7 @@ def test_cli_train_end_to_end_and_refuses_a_mesh(world, tmp_path):
     back = flatten_params(convert_hf_state_dict(cfg, read_safetensors(
         str(export / "model.safetensors"))))
     _equal_to_export(back, flatten_params(state.params), cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md item 1.10"):
+    with pytest.raises(ValueError, match="needs 2 processes"):
         main(args[:-2] + ["--fsdp", "2"])
+    with pytest.raises(NotImplementedError, match=r"ROADMAP.md item 1.10 \(d\)"):
+        main(args[:-2] + ["--pipe", "2"])
