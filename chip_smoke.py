@@ -4524,13 +4524,11 @@ def profile_step(run, top: int = 12) -> None:
         log(f"[train]   {r.self_device_time_total / 1e3:8.2f} ms {r.count:6d}x  {r.key[:100]}")
 
 
-def phase_packed_step(cfg, state, tx):
-    """The packed text-only step at GAR-1B (bench.py:229-277): 2 rows of
-    4096 tokens, documents of 300-1200 tokens, every token supervised."""
+def packed_text_rows(rows: int, seq: int):
+    """`rows` packed text rows of `seq` tokens on the card: seeded documents
+    of 300-1200 tokens, every token supervised, then padding."""
     from grasp_any_region_tpu_torch.data.builders import PackedTextBatch, pack_text_batch
-    from grasp_any_region_tpu_torch.train import make_packed_train_step
 
-    rows, seq = 2, 4096
     rng = np.random.default_rng(SEED)
     docs, total = [], 0
     while total < rows * seq:
@@ -4538,7 +4536,16 @@ def phase_packed_step(cfg, state, tx):
         docs.append(rng.integers(10, 1000, size=n).astype(np.int32))
         total += n
     packed = pack_text_batch(docs, seq_len=seq, labels=docs)
-    packed = PackedTextBatch(*(x[:rows] for x in packed))
+    return PackedTextBatch(*(x[:rows] for x in packed))
+
+
+def phase_packed_step(cfg, state, tx):
+    """The packed text-only step at GAR-1B (bench.py:229-277): 2 rows of
+    4096 tokens, documents of 300-1200 tokens, every token supervised."""
+    from grasp_any_region_tpu_torch.train import make_packed_train_step
+
+    rows, seq = 2, 4096
+    packed = packed_text_rows(rows, seq)
     n_docs = [int(r.max()) for r in packed.segment_ids.cpu()]
     step = make_packed_train_step(cfg, tx)
     for _ in range(2):
@@ -4833,14 +4840,22 @@ KERNELS = {
 PARALLEL_TIMING = "gloo through the host, two ranks on one card"
 PARALLEL_OPT = dict(lr=1e-4, total_steps=100, warmup_ratio=0.0)  # the first update moves
 PARALLEL_KEYS = ("A", "5", "B", "17", "18")
-PARALLEL_PATH = ("phase_parallel (2 gloo ranks on cuda:0): fsdp=2 train_step, tensor=2 "
-                 "generate, seq=2 Ulysses prefill")
+PARALLEL_PATH = ("phase_parallel (2 gloo ranks on cuda:0, 4 for fsdp=2 x pipe=2): fsdp=2 "
+                 "train_step, tensor=2 generate, seq=2 Ulysses prefill, pipe=2 train_step "
+                 "(gpipe, 1f1b) and packed loss + gradients at n_micro 8, fsdp=2 x pipe=2 "
+                 "train_step (1f1b)")
 # step 1's gradients held against one process: replicated leaves (reduced
 # over fsdp by `reduce_gradients`) and fsdp-sharded ones (reduce-scattered
 # by the gathers' backward)
 PARALLEL_GRAD_LEAVES = ("llm.final_norm", "llm.blocks.attn_norm", "vision.blocks.bqkv",
                         "mask_embed.kernel", "projector.fc1", "llm.blocks.wo")
 PARALLEL_GRAD_TOL = 2e-2  # max |diff| / max |one process| of a bf16 gradient leaf
+# the pipe = 2 steps: PARALLEL_GRAD_LEAVES gathered over the stages, and
+# the tied embedding (its lookup's gradient on stage 0, its head's on stage 1)
+PIPE_GRAD_LEAVES = PARALLEL_GRAD_LEAVES + ("llm.embed",)
+PIPE_SCHEDULES = ("gpipe", "1f1b")
+PIPE_MICRO = (2, 8)  # the packed memory runs' microbatches, one row of PIPE_SEQ tokens each
+PIPE_SEQ = 4096
 PARALLEL_NORM_TOL = 1e-2  # |diff| / one process of step 1's grad_norm
 # {key: Counter of call shapes} of A, 5, B and the decoder's backward (17,
 # 18) in a rank process (`record_shapes`), cleared with the launch counts
@@ -4898,19 +4913,19 @@ def scale_projections(llm) -> None:
             getattr(llm.blocks, name).mul_(10.0)
 
 
-def capture_grads(tx, out: dict, mesh=None) -> None:
-    """Make the next tx.apply first copy the whole gradients of
-    PARALLEL_GRAD_LEAVES to the host (gathered from the shards under a
-    mesh), then apply as before."""
+def capture_grads(tx, out: dict, mesh=None, leaves=PARALLEL_GRAD_LEAVES) -> None:
+    """Make the next tx.apply first copy the whole gradients of `leaves`
+    to the host, in their dtype (gathered from the shards under a mesh),
+    then apply as before."""
     from grasp_any_region_tpu_torch.parallel.sharding import full_tensor
 
     apply = tx.apply
 
     def first(params, opt_state, sq=None):
         named = dict(params.named_parameters())
-        for n in PARALLEL_GRAD_LEAVES:
+        for n in leaves:
             g = named[n].grad
-            out[n] = (g if mesh is None else full_tensor(g, named[n].spec, mesh)).float().cpu()
+            out[n] = (g if mesh is None else full_tensor(g, named[n].spec, mesh)).cpu()
         tx.apply = apply
         apply(params, opt_state, sq)
 
@@ -4932,16 +4947,17 @@ def state_bytes(state) -> int:
                                                       *state.opt_state.mu, *state.opt_state.nu))
 
 
-def parallel_train_steps(cfg, state, tx, batch, labels, mesh=None, n: int = 2) -> dict:
-    """n steps of `make_train_step(mesh=)`: losses, grad norms, host ms a
-    step (ending in a synchronize), launches a step, bytes, peak memory,
-    and step 1's gradients of PARALLEL_GRAD_LEAVES (`capture_grads`)."""
+def parallel_train_steps(cfg, state, tx, batch, labels, mesh=None, n: int = 2,
+                         pipe_schedule: str = "gpipe", leaves=PARALLEL_GRAD_LEAVES) -> dict:
+    """n steps of `make_train_step(mesh=, pipe_schedule=)`: losses, grad
+    norms, host ms a step (ending in a synchronize), launches a step,
+    bytes, peak memory, and step 1's gradients of `leaves` (`capture_grads`)."""
     from grasp_any_region_tpu_torch.train import make_train_step
 
-    step = make_train_step(cfg, tx, mask_compat=False, mesh=mesh)
+    step = make_train_step(cfg, tx, mask_compat=False, mesh=mesh, pipe_schedule=pipe_schedule)
     nbytes = state_bytes(state)
     grads = {}
-    capture_grads(tx, grads, mesh)
+    capture_grads(tx, grads, mesh, leaves)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     losses, norms, ms, counts = [], [], [], []
@@ -4955,7 +4971,8 @@ def parallel_train_steps(cfg, state, tx, batch, labels, mesh=None, n: int = 2) -
         ms.append((time.perf_counter() - t0) * 1e3)
         counts.append(read_counts())
     return dict(losses=losses, grad_norms=norms, grads=grads, ms=ms, counts=counts,
-                bytes=nbytes, peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+                bytes=nbytes, peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30,
+                state=state)
 
 
 def parallel_fsdp_train(rank: int, cfg) -> dict:
@@ -4969,6 +4986,7 @@ def parallel_fsdp_train(rank: int, cfg) -> dict:
                            mesh=mesh)
     torch.cuda.empty_cache()
     res = parallel_train_steps(cfg, state, tx, batch, labels, mesh)
+    del res["state"]
     if rank:  # rank 0 returns the gathered gradients
         res["grads"] = None
     return res
@@ -5083,12 +5101,113 @@ def parallel_ring(rank: int, cfg) -> dict:
     return dict(loss=loss.item(), grads=grads if rank == 0 else None, counts=read_counts(), ms=ms)
 
 
+def blocks_bytes(params) -> int:
+    return sum(p.numel() * p.element_size() for p in params.llm.blocks.parameters())
+
+
+def replicated_digests(params) -> dict:
+    """{leaf: sha256 of its bytes} of every leaf the pipe axis does not shard."""
+    import hashlib
+
+    from grasp_any_region_tpu_torch.parallel.sharding import spec_axes
+
+    return {n: hashlib.sha256(p.detach().reshape(-1).view(torch.uint8).cpu().numpy()).hexdigest()
+            for n, p in params.named_parameters() if "pipe" not in spec_axes(p.spec)}
+
+
+def shapes_window() -> dict:
+    """The kernels' call shapes tallied since the last `reset_counts`."""
+    return {k: dict(c) for k, c in SHAPES.items()}
+
+
+def parallel_pipe(rank: int, cfg) -> dict:
+    """pipe = 2 at GAR-1B. Under each schedule, from the seeded parameters:
+    two `make_train_step` steps on phase_parallel's batch (2 rows of 13
+    tiles, n_micro 2), with step 1's gradients of PIPE_GRAD_LEAVES (rank 0
+    returns them gathered), the digests of the replicated leaves after the
+    steps and this stage's block bytes; then the packed text-only
+    loss-and-gradients (`packed_pipe_loss_and_grads`, no optimizer) at
+    n_micro 2 and 8 (rows of PIPE_SEQ tokens, one a microbatch): this
+    rank's peak memory and its rise over the memory before, host ms,
+    launches. Each window's launches and call shapes."""
+    from grasp_any_region_tpu_torch.core.mesh import MeshSpec, make_mesh
+    from grasp_any_region_tpu_torch.train import OptimizerConfig, init_state
+    from grasp_any_region_tpu_torch.train.step import packed_pipe_loss_and_grads, shard_batch
+
+    mesh = make_mesh(MeshSpec(pipe=2), device="cuda:0")
+    batch, labels = shard_batch(*parallel_train_batch(cfg, "cuda"), mesh)
+    out, windows = {}, []
+    for schedule in PIPE_SCHEDULES:
+        state, tx = init_state(random_params(cfg, "cuda"), OptimizerConfig(**PARALLEL_OPT),
+                               mesh=mesh)
+        torch.cuda.empty_cache()
+        res = parallel_train_steps(cfg, state, tx, batch, labels, mesh,
+                                   pipe_schedule=schedule, leaves=PIPE_GRAD_LEAVES)
+        windows.append((f"pipe {schedule} step", shapes_window(), res["counts"][-1]))
+        params = res.pop("state").params
+        res.update(digests=replicated_digests(params), blocks_bytes=blocks_bytes(params))
+        if rank:
+            res["grads"] = None
+        out[schedule] = res
+        del state, tx
+    memory = {}
+    for n_micro in PIPE_MICRO:
+        packed = packed_text_rows(n_micro, PIPE_SEQ)
+        for schedule in PIPE_SCHEDULES:
+            for p in params.parameters():
+                p.grad = None
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            reset_counts()
+            t0 = time.perf_counter()
+            loss = packed_pipe_loss_and_grads(params, cfg, packed, mesh=mesh, schedule=schedule,
+                                              n_micro=n_micro)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            peak = torch.cuda.max_memory_allocated()
+            counts = read_counts()
+            windows.append((f"pipe packed {schedule} M={n_micro}", shapes_window(), counts))
+            memory[(schedule, n_micro)] = dict(peak_gib=peak / 2 ** 30,
+                                               rise_gib=(peak - base) / 2 ** 30, ms=ms,
+                                               loss=loss.item(), counts=counts)
+    out["memory"] = memory
+    out["windows"] = windows
+    return out
+
+
+def parallel_fsdp_pipe(rank: int, cfg) -> dict:
+    """fsdp = 2 x pipe = 2 at GAR-1B on four ranks: one `make_train_step`
+    step (1F1B, the default) on phase_parallel's batch, a row a rank; its
+    loss, grad norm, launches, step 1's gradients of PIPE_GRAD_LEAVES
+    (rank 0 returns them gathered over fsdp and the stages), the digests of
+    the leaves the pipe axis does not shard, and this rank's coordinates."""
+    from grasp_any_region_tpu_torch.core.mesh import MeshSpec, make_mesh
+    from grasp_any_region_tpu_torch.train import OptimizerConfig, init_state
+    from grasp_any_region_tpu_torch.train.step import shard_batch
+
+    mesh = make_mesh(MeshSpec(fsdp=2, pipe=2), device="cuda:0")
+    batch, labels = shard_batch(*parallel_train_batch(cfg, "cuda"), mesh)
+    state, tx = init_state(random_params(cfg, "cuda"), OptimizerConfig(**PARALLEL_OPT),
+                           mesh=mesh)
+    torch.cuda.empty_cache()
+    res = parallel_train_steps(cfg, state, tx, batch, labels, mesh, n=1,
+                               pipe_schedule="1f1b", leaves=PIPE_GRAD_LEAVES)
+    res.update(digests=replicated_digests(res.pop("state").params), coords=dict(mesh.coords))
+    if rank:
+        res["grads"] = None
+    return res
+
+
 PARALLEL_TASKS = {"fsdp_train": parallel_fsdp_train, "tensor_generate": parallel_tensor_generate,
-                  "seq_prefill": parallel_seq_prefill, "ring": parallel_ring}
+                  "seq_prefill": parallel_seq_prefill, "ring": parallel_ring,
+                  "pipe": parallel_pipe, "fsdp_pipe": parallel_fsdp_pipe}
 
 
-def parallel_rank(rank: int, task: str, cfg, args: tuple, port: int, out_dir: str) -> None:
-    """One rank of a two-rank gloo job on cuda:0 (a spawned process); its
+def parallel_rank(rank: int, task: str, cfg, args: tuple, port: int, out_dir: str,
+                  world: int) -> None:
+    """One rank of a `world`-rank gloo job on cuda:0 (a spawned process); its
     result also holds the shapes of the kernels' calls (`record_shapes`)
     since the task's last `reset_counts`."""
     import torch.distributed as dist
@@ -5098,7 +5217,7 @@ def parallel_rank(rank: int, task: str, cfg, args: tuple, port: int, out_dir: st
     torch.backends.cudnn.allow_tf32 = False
     record_shapes()
     dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=rank,
-                            world_size=2)
+                            world_size=world)
     try:
         res = PARALLEL_TASKS[task](rank, cfg, *args)
         res["shapes"] = {k: dict(c) for k, c in SHAPES.items()}
@@ -5107,9 +5226,10 @@ def parallel_rank(rank: int, task: str, cfg, args: tuple, port: int, out_dir: st
         dist.destroy_process_group()
 
 
-def run_parallel(task: str, cfg, *args, timeout: float = 600.0) -> list:
-    """[rank 0's result, rank 1's] of a task on two spawned gloo ranks; a
-    rank that fails or outlives the timeout fails the phase."""
+def run_parallel(task: str, cfg, *args, timeout: float = 600.0, world: int = 2) -> list:
+    """[each rank's result] of a task on `world` spawned gloo ranks (two
+    unless asked); a rank that fails or outlives the timeout fails the
+    phase."""
     import socket
     import tempfile
 
@@ -5118,8 +5238,8 @@ def run_parallel(task: str, cfg, *args, timeout: float = 600.0) -> list:
         port = sock.getsockname()[1]
     ctx = torch.multiprocessing.get_context("spawn")
     with tempfile.TemporaryDirectory() as out:
-        procs = [ctx.Process(target=parallel_rank, args=(r, task, cfg, args, port, out))
-                 for r in range(2)]
+        procs = [ctx.Process(target=parallel_rank, args=(r, task, cfg, args, port, out, world))
+                 for r in range(world)]
         for proc in procs:
             proc.start()
         deadline = time.monotonic() + timeout
@@ -5132,7 +5252,8 @@ def run_parallel(task: str, cfg, *args, timeout: float = 600.0) -> list:
         codes = [proc.exitcode for proc in procs]
         if any(codes):
             raise AssertionError(f"[parallel] {task}: rank exit codes {codes}")
-        return [torch.load(os.path.join(out, f"{r}.pt"), weights_only=False) for r in range(2)]
+        return [torch.load(os.path.join(out, f"{r}.pt"), weights_only=False)
+                for r in range(world)]
 
 
 def parallel_attention_rows(shapes: dict) -> dict:
@@ -5234,6 +5355,168 @@ def parallel_attention_rows(shapes: dict) -> dict:
     return rows
 
 
+def rel_gap(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max |got - want| / max |want|, in fp32."""
+    got, want = got.float(), want.float()
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def phase_pipe(cfg, one: dict, tally_window) -> dict:
+    """pipe = 2 at GAR-1B on two gloo ranks of cuda:0 (`parallel_pipe`),
+    against phase_parallel's one process `one` (same seed, batch and
+    optimizer): under GPipe and 1F1B the two steps' losses within 2e-2
+    relative, step 1's grad norm within PARALLEL_NORM_TOL, step 1's
+    gradients of PIPE_GRAD_LEAVES (the blocks gathered over the stages,
+    the tied embedding summed over them) within PARALLEL_GRAD_TOL, the
+    replicated leaves bit-equal on both ranks after the steps, a stage
+    half of the blocks' bytes, each stage's launches a step. Then the
+    packed loss-and-gradients' per-rank peak memory under both schedules
+    at n_micro 2 and 8 (1F1B's peak at 8 below GPipe's on each rank), and
+    `fsdp_pipe_check`. Returns {task: each rank's launches}, every window's call shapes
+    tallied through tally_window."""
+    depth, layers = cfg.vision.depth, cfg.text.num_layers
+    t0 = time.perf_counter()
+    ranks = run_parallel("pipe", cfg)
+    stage = layers // 2
+    micro = 2  # phase_parallel's 2 rows, one a microbatch
+    launches = {}
+    for schedule in PIPE_SCHEDULES:
+        for r, res in enumerate(ranks):
+            run = res[schedule]
+            for i, (got, want) in enumerate(zip(run["losses"], one["losses"])):
+                if not np.isfinite(got) or abs(got - want) > 2e-2 * abs(want):
+                    raise AssertionError(f"[pipe] {schedule} step {i + 1} loss {got} (rank {r}), "
+                                         f"one process {want}: past 2e-2 relative")
+            got, want = run["grad_norms"][0], one["grad_norms"][0]
+            if not abs(got - want) <= PARALLEL_NORM_TOL * abs(want):
+                raise AssertionError(f"[pipe] {schedule} step 1 grad_norm {got} (rank {r}), one "
+                                     f"process {want}: past {PARALLEL_NORM_TOL} relative")
+            front = dict(A=2 * depth, **{"5": depth}) if r == 0 else {}
+            for c in run["counts"]:
+                check_parallel_counts(f"pipe=2 {schedule} step, rank {r}", c, **front, **{
+                    "B": 2 * stage * micro, "17": stage * micro + front.get("5", 0),
+                    "18": stage * micro + front.get("5", 0)})
+            share = run["blocks_bytes"] / one["blocks_bytes"]
+            if not 0.45 <= share <= 0.55:
+                raise AssertionError(f"[pipe] rank {r} holds {share:.3f} of the blocks' bytes")
+            log(f"[pipe] pipe=2 {schedule} train step, rank {r} (stage {r}): losses "
+                f"{run['losses']} (one process {one['losses']}); step 1 grad_norm {got:.6f} (one "
+                f"process {want:.6f}, {abs(got - want) / want:.3e} relative, bound "
+                f"{PARALLEL_NORM_TOL}); blocks' bytes {share:.3f}x one process's; param + moment "
+                f"bytes {run['bytes'] / 2 ** 30:.3f} GiB (one process {one['bytes'] / 2 ** 30:.3f});"
+                f" peak memory {run['peak_gib']:.2f} GiB (one process {one['peak_gib']:.2f}); host "
+                f"ms a step {[round(x, 1) for x in run['ms']]} ({PARALLEL_TIMING}; one process "
+                f"{[round(x, 1) for x in one['ms']]}); launches a step "
+                f"{ {k: run['counts'][0][k] for k in PARALLEL_KEYS} }")
+        gaps = {}
+        for name in PIPE_GRAD_LEAVES:
+            got, want = ranks[0][schedule]["grads"][name], one["grads"][name]
+            if got.shape != want.shape or not torch.isfinite(got).all():
+                raise AssertionError(f"[pipe] {schedule} gradient {name}: shape "
+                                     f"{tuple(got.shape)} vs {tuple(want.shape)} or not finite")
+            gaps[name] = rel_gap(got, want)
+            if not gaps[name] <= PARALLEL_GRAD_TOL:
+                raise AssertionError(f"[pipe] {schedule} step 1 gradient {name}: max |diff| / "
+                                     f"max |one process| = {gaps[name]:.3e} > {PARALLEL_GRAD_TOL}")
+        digests = [res[schedule]["digests"] for res in ranks]
+        if digests[0] != digests[1]:
+            differ = sorted(n for n in digests[0] if digests[0][n] != digests[1].get(n))
+            raise AssertionError(f"[pipe] {schedule}: replicated leaves differ across the "
+                                 f"stages after the steps: {differ[:5]}")
+        log(f"[pipe] {schedule} step 1 gathered gradients against one process, max |diff| / max "
+            f"(bound {PARALLEL_GRAD_TOL}; blocks gathered over the stages; llm.embed its lookup's "
+            f"part from stage 0 plus its head's from stage 1): "
+            f"{ {k: float(f'{v:.3e}') for k, v in gaps.items()} }; {len(digests[0])} replicated "
+            "leaves bit-equal on both stages after 2 steps")
+        launches[f"pipe_{schedule}"] = [res[schedule]["counts"][0] for res in ranks]
+    for r, res in enumerate(ranks):
+        mem = res["memory"]
+        for (schedule, n_micro), m in mem.items():
+            check_parallel_counts(f"pipe packed {schedule} M={n_micro}, rank {r}", m["counts"], **{
+                "B": 2 * stage * n_micro, "17": stage * n_micro, "18": stage * n_micro})
+        top = max(PIPE_MICRO)
+        if not mem[("1f1b", top)]["peak_gib"] < mem[("gpipe", top)]["peak_gib"]:
+            raise AssertionError(f"[pipe] rank {r}: 1F1B's peak at n_micro {top} "
+                                 f"{mem[('1f1b', top)]['peak_gib']:.3f} GiB is not below GPipe's "
+                                 f"{mem[('gpipe', top)]['peak_gib']:.3f}")
+        for schedule in PIPE_SCHEDULES:
+            lo, hi = (mem[(schedule, m)] for m in PIPE_MICRO)
+            log(f"[pipe] packed loss + gradients, {schedule}, rank {r} (stage {r}), rows of "
+                f"{PIPE_SEQ} tokens: peak memory at n_micro {PIPE_MICRO[0]} / {top} "
+                f"{lo['peak_gib']:.3f} / {hi['peak_gib']:.3f} GiB, over the resting memory "
+                f"{lo['rise_gib']:.3f} / {hi['rise_gib']:.3f} GiB (grew "
+                f"{hi['rise_gib'] - lo['rise_gib']:+.3f} GiB, {hi['rise_gib'] / lo['rise_gib']:.2f}x);"
+                f" host ms {lo['ms']:.1f} / {hi['ms']:.1f} ({PARALLEL_TIMING}); losses "
+                f"{lo['loss']:.4f} / {hi['loss']:.4f}; launches at {top} "
+                f"{ {k: hi['counts'][k] for k in ('B', '17', '18')} }")
+        for tag, seen, counts in res["windows"]:
+            tally_window("pipe", r, tag, seen, counts)
+    for schedule in PIPE_SCHEDULES:
+        launches[f"pipe_packed_{schedule}"] = [res["memory"][(schedule, max(PIPE_MICRO))]["counts"]
+                                               for res in ranks]
+    del ranks
+    launches["fsdp_pipe"] = fsdp_pipe_check(cfg, one, tally_window)
+    log(f"[pipe] {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+def fsdp_pipe_check(cfg, one: dict, tally_window) -> list:
+    """fsdp = 2 x pipe = 2 on four gloo ranks of cuda:0
+    (`parallel_fsdp_pipe`): step 1's loss within 2e-2 relative of one
+    process's `one`, its grad norm within PARALLEL_NORM_TOL, its gathered
+    gradients of PIPE_GRAD_LEAVES within PARALLEL_GRAD_TOL, the leaves the
+    pipe axis does not shard bit-equal on the two stages of each fsdp
+    coordinate, each rank's launches. Returns each rank's launches."""
+    depth, stage = cfg.vision.depth, cfg.text.num_layers // 2
+    t0 = time.perf_counter()
+    ranks = run_parallel("fsdp_pipe", cfg, world=4)
+    for r, res in enumerate(ranks):
+        got, want = res["losses"][0], one["losses"][0]
+        if not np.isfinite(got) or abs(got - want) > 2e-2 * abs(want):
+            raise AssertionError(f"[pipe] fsdp=2 x pipe=2 loss {got} (rank {r}), one process "
+                                 f"{want}: past 2e-2 relative")
+        norm, want_norm = res["grad_norms"][0], one["grad_norms"][0]
+        if not abs(norm - want_norm) <= PARALLEL_NORM_TOL * abs(want_norm):
+            raise AssertionError(f"[pipe] fsdp=2 x pipe=2 grad_norm {norm} (rank {r}), one "
+                                 f"process {want_norm}: past {PARALLEL_NORM_TOL} relative")
+        # one microbatch of a row a rank: the front on stage 0, 8 layers a stage
+        front = dict(A=2 * depth, **{"5": depth}) if res["coords"]["pipe"] == 0 else {}
+        check_parallel_counts(f"fsdp=2 x pipe=2 step, rank {r}", res["counts"][0], **front, **{
+            "B": 2 * stage, "17": stage + front.get("5", 0), "18": stage + front.get("5", 0)})
+        tally_window("fsdp_pipe", r, "fsdp=2 x pipe=2 step", res["shapes"], res["counts"][-1])
+        log(f"[pipe] fsdp=2 x pipe=2 1f1b train step, rank {r} ({res['coords']}): loss {got} "
+            f"(one process {want}); grad_norm {norm:.6f} (one process {want_norm:.6f}, "
+            f"{abs(norm - want_norm) / want_norm:.3e} relative, bound {PARALLEL_NORM_TOL}); "
+            f"param + moment bytes {res['bytes'] / 2 ** 30:.3f} GiB (one process "
+            f"{one['bytes'] / 2 ** 30:.3f}); peak memory {res['peak_gib']:.2f} GiB; host ms "
+            f"{res['ms'][0]:.1f} ({PARALLEL_TIMING.replace('two', 'four')}); launches "
+            f"{ {k: res['counts'][0][k] for k in PARALLEL_KEYS} }")
+    gaps = {}
+    for name in PIPE_GRAD_LEAVES:
+        got, want = ranks[0]["grads"][name], one["grads"][name]
+        if got.shape != want.shape or not torch.isfinite(got).all():
+            raise AssertionError(f"[pipe] fsdp=2 x pipe=2 gradient {name}: shape "
+                                 f"{tuple(got.shape)} vs {tuple(want.shape)} or not finite")
+        gaps[name] = rel_gap(got, want)
+        if not gaps[name] <= PARALLEL_GRAD_TOL:
+            raise AssertionError(f"[pipe] fsdp=2 x pipe=2 step 1 gradient {name}: max |diff| / "
+                                 f"max |one process| = {gaps[name]:.3e} > {PARALLEL_GRAD_TOL}")
+    pairs = {}
+    for res in ranks:
+        pairs.setdefault(res["coords"]["fsdp"], []).append(res["digests"])
+    for f, (a, b) in sorted(pairs.items()):
+        if a != b:
+            differ = sorted(n for n in a if a[n] != b.get(n))
+            raise AssertionError(f"[pipe] fsdp=2 x pipe=2: the stages of fsdp rank {f} differ "
+                                 f"after the step: {differ[:5]}")
+    log(f"[pipe] fsdp=2 x pipe=2 step 1 gathered gradients against one process, max |diff| / "
+        f"max (bound {PARALLEL_GRAD_TOL}; gathered over fsdp and the stages): "
+        f"{ {k: float(f'{v:.3e}') for k, v in gaps.items()} }; {len(pairs[0][0])} leaves the "
+        f"pipe axis does not shard bit-equal on both stages of each fsdp rank; "
+        f"{time.perf_counter() - t0:.1f} s")
+    return [res["counts"][0] for res in ranks]
+
+
 def check_parallel_counts(tag: str, got: dict, **want) -> None:
     if got != expect(**want):
         raise AssertionError(f"[parallel] {tag}: launches {got}, expected {expect(**want)}")
@@ -5245,9 +5528,12 @@ def phase_parallel(smi: str) -> dict:
     of 13 tiles, bf16, two steps: losses, step 1's grad norm and gathered
     gradients), tensor = 2 (17 tiles: the prefill's and the first decode
     step's logits, then generate of 32 new tokens on decoder projections
-    x10), the seq = 2 Ulysses prefill, and the ring (seq = 2 at the narrow
-    config with one kv head, fp32). Then kernels A, 5, B, 17 and 18 at every
-    per-rank shape the ranks gave them, against their plain versions.
+    x10), pipe = 2 (`phase_pipe`: both schedules' steps against the same
+    one process, the schedules' peak memory, then fsdp = 2 x pipe = 2 on
+    four ranks against it too), the seq = 2 Ulysses prefill,
+    and the ring (seq = 2 at the narrow config with one kv head, fp32).
+    Then kernels A, 5, B, 17 and 18 at every per-rank shape the ranks gave
+    them, against their plain versions.
     Returns {"launches": each rank's launches of A, 5, B, 17 and 18 by
     task, "rows": those kernels' figures by shape}."""
     import grasp_any_region_tpu_torch.models.llama as llama_mod
@@ -5273,13 +5559,17 @@ def phase_parallel(smi: str) -> dict:
                 for sig in seen:
                     shapes[key].setdefault(sig, set()).add(task)
 
-    def rel_gap(got, want):
-        return float((got - want).abs().max() / want.abs().max())
+    def tally_window(task, rank, tag, seen, counts):
+        check_shapes(f"{task}, rank {rank}, {tag}", seen, counts)
+        for key, sigs in seen.items():
+            for sig in sigs:
+                shapes[key].setdefault(sig, set()).add(task)
 
     # 1. fsdp = 2 train step against one process
     batch, labels = parallel_train_batch(cfg, "cuda")
     state, tx = init_state(random_params(cfg, "cuda"), OptimizerConfig(**PARALLEL_OPT))
-    one = parallel_train_steps(cfg, state, tx, batch, labels)
+    one = parallel_train_steps(cfg, state, tx, batch, labels, leaves=PIPE_GRAD_LEAVES)
+    one["blocks_bytes"] = blocks_bytes(one.pop("state").params)
     del state, tx, batch, labels
     torch.cuda.empty_cache()
     ranks = run_parallel("fsdp_train", cfg)
@@ -5323,7 +5613,10 @@ def phase_parallel(smi: str) -> dict:
         raise AssertionError("[parallel] fsdp=2: a rank holds more than 0.55 of the state")
     tally("fsdp_train", ranks, lambda res: res["counts"][-1])
     launches["fsdp_train"] = [res["counts"][0] for res in ranks]
-    del one, ranks
+    del ranks
+    torch.cuda.empty_cache()
+    launches.update(phase_pipe(cfg, one, tally_window))
+    del one
 
     # 2. tensor = 2 against one process: the prefill's and the first decode
     # step's logits, then generate on decoder projections x10
@@ -5428,20 +5721,53 @@ def phase_parallel(smi: str) -> dict:
     return dict(launches=launches, rows=rows)
 
 
+def phase_ceiling(smi: str) -> dict:
+    """The card's reachable bf16 product rate and copy bandwidth
+    (`utils/ceiling.py`: 64 dependent 4096^2 products, 20 copies of 1 GiB;
+    the best of 5 runs each), beside the published 989 TFLOP/s and 3.35
+    TB/s."""
+    from grasp_any_region_tpu_torch.utils.ceiling import copy_rate, matmul_rate
+
+    mm, cp = matmul_rate(device="cuda"), copy_rate(device="cuda")
+    if not (mm["tflops"] > 0 and cp["gbps"] > 0):
+        raise AssertionError(f"[ceiling] rates {mm}, {cp}")
+    log(f"[ceiling] {smi}: bf16 products {mm['steps']} x {mm['dim']}^3 in {mm['ms']:.3f} ms -> "
+        f"{mm['tflops']:.1f} TFLOP/s ({mm['tflops'] / 989:.3f} of the published 989); copies "
+        f"{cp['steps']} x {cp['mib']} MiB in {cp['ms']:.3f} ms -> {cp['gbps']:.1f} GB/s read + "
+        f"write ({cp['gbps'] / 3350:.3f} of the published 3350)")
+    return dict(matmul=mm, copy=cp)
+
+
+def lapper():
+    """lap(name): log the seconds since the last lap and since the start."""
+    marks = [time.perf_counter()] * 2
+
+    def lap(name: str) -> None:
+        now = time.perf_counter()
+        log(f"[time] {name} {now - marks[1]:.1f} s (script {now - marks[0]:.1f} s)")
+        marks[1] = now
+
+    return lap
+
+
 def main() -> int:
+    lap = lapper()
     smi = phase_environment()
     log(smi)
+    lap("environment")
     from grasp_any_region_tpu_torch.core.config import gar_1b
 
     from grasp_any_region_tpu_torch.models.quantize import quantize_decode_weights
 
     kernels = phase_kernels()
+    lap("kernels")
     phase_cross_check(narrow_config())
     phase_cross_check(narrow_config(kv_heads=2), int8=True)
     phase_cross_check(narrow_config(), mega=True)
     phase_cross_check(narrow_config(kv_heads=2), int8=True, mega=True)
     phase_train_cross_check(narrow_config(kv_heads=2))
     phase_serving_cross_check()
+    lap("cross checks")
     cfg = gar_1b()
     params = random_params(cfg, "cuda")
     params_q8 = quantize_decode_weights(params)
@@ -5454,17 +5780,24 @@ def main() -> int:
                                          fused_tokens=tokens_q8)
     del params_q8
     torch.cuda.empty_cache()
+    lap("vision forms, decode forms, main paths")
     phase_runtime(smi)
+    lap("runtime")
     eval_fig = phase_eval(smi)
+    lap("eval")
     phase_sam_speculative(smi)
+    lap("sam + speculative")
     serving_runs = phase_serving(cfg, params)
     torch.cuda.empty_cache()
+    lap("serving")
     train_counts, state, tx = phase_train_step(cfg, params)
     phase_packed_step(cfg, state, tx)
     del state, tx, params
     torch.cuda.empty_cache()
+    lap("train step, packed step")
     phase_trainer(smi)
     torch.cuda.empty_cache()
+    lap("trainer")
     # GAR-8B: the narrow cross-checks (bf16, then int8 weights on a bf16
     # cache: C8 has no head-dim-128 instance), then the caption at full width
     phase_cross_check(narrow_8b_config())
@@ -5473,7 +5806,11 @@ def main() -> int:
     gar8b_q8_counts = phase_gar8b(int8=True)
     gar8b_train_counts = phase_gar8b_train()
     torch.cuda.empty_cache()
+    lap("gar8b")
     parallel = phase_parallel(smi)
+    lap("parallel")
+    phase_ceiling(smi)
+    lap("ceiling")
     # the path whose run reports each kernel's launches: kernel A the
     # unfused tower's, the backward kernels the train step's, the mega
     # kernels their generate(GAR_DECODE_PATH=mega)'s, the int8 kernels the
@@ -5531,7 +5868,7 @@ def main() -> int:
             row["path"] += f"; parity: {PARITY_PATH}"
             row["parity"] = dict(path=PARITY_PATH, launches=eval_fig["parity_counts"][key])
     # the parallel path's kernels name it with each rank's launches by task
-    # (two gloo ranks on the one card; the train step's a step) and their
+    # (two or four gloo ranks on the one card; the train step's a step) and their
     # figures at each per-rank shape the ranks gave them
     for row, key in zip(table, KERNELS):
         if key in PARALLEL_KEYS:

@@ -2,11 +2,13 @@
 (`grasp_any_region_tpu/cli/train.py`'s arguments, and --device).
 
 One process on one card, or one process a rank of a mesh (--data-axis,
---fsdp, --tensor, --seq; --fsdp 0 puts every rank the other axes leave on
-fsdp), launched by `torch.distributed.run`: NCCL with a card a rank, gloo
-with --device cpu. --pipe above 1 waits for ROADMAP.md item 1.10 (d). The
-kernels' build cache (`build/torch_kernels/`) stands where JAX enables its
-compilation cache.
+--fsdp, --tensor, --seq, --pipe; --fsdp 0 puts every rank the other axes
+leave on fsdp), launched by `torch.distributed.run`: NCCL with a card a
+rank, gloo with --device cpu. --pipe N splits the decoder's layers over N
+stages under --pipe-schedule (1f1b, O(pipe) activations; or gpipe,
+O(microbatches), the same bubble; parallel/pipeline.py), composed with
+--data-axis and --fsdp alone. The kernels' build cache
+(`build/torch_kernels/`) stands where JAX enables its compilation cache.
 
   python -m grasp_any_region_tpu_torch.cli.train --preset gar_1b \
       --data data/Seed-Dataset.json --work-dir work_dirs/gar_1b --dtype bfloat16
@@ -14,6 +16,8 @@ compilation cache.
       --preset gar_8b --fsdp 8 --data data/Seed-Dataset.json --dtype bfloat16
   python -m grasp_any_region_tpu_torch.cli.train --preset gar_tiny --device cpu \
       --data ann.json --max-steps 2 --export-hf hf_out
+  python -m torch.distributed.run --nproc-per-node 2 -m grasp_any_region_tpu_torch.cli.train \
+      --preset gar_1b --pipe 2 --pipe-schedule 1f1b --batch-size 2 --data ann.json
 """
 
 from __future__ import annotations
@@ -45,8 +49,12 @@ def main(argv=None):
     p.add_argument("--fsdp", type=int, default=0, help="0 = every rank the other axes leave")
     p.add_argument("--tensor", type=int, default=1)
     p.add_argument("--seq", type=int, default=1)
-    p.add_argument("--pipe", type=int, default=1)
-    p.add_argument("--pipe-schedule", default="gpipe", choices=["gpipe", "1f1b"])
+    p.add_argument("--pipe", type=int, default=1,
+                   help="pipeline stages (the decoder's layers partition over them)")
+    p.add_argument("--pipe-schedule", default="1f1b", choices=["gpipe", "1f1b"],
+                   help="1f1b: each microbatch's backward as soon as its forward retires; "
+                        "gpipe: all forwards, then all backwards, at a higher peak memory "
+                        "(parallel/pipeline.py)")
     p.add_argument("--dtype", default="float32", choices=["float32", "bfloat16"],
                    help="param + Adam-moment dtype; bfloat16 is the one-card recipe at GAR-1B")
     p.add_argument("--export-hf", default=None, help="export dir after training")
@@ -62,8 +70,10 @@ def main(argv=None):
     from ..data.tokenizer import GARTokenizer
     from ..train.optimizer import OptimizerConfig
     from ..core.mesh import MeshSpec, initialize_distributed
-    from ..train.trainer import Trainer, TrainerConfig, refuse_pipeline
+    from ..train.trainer import Trainer, TrainerConfig
 
+    if args.pipe > 1 and (args.tensor > 1 or args.seq > 1):
+        p.error("--pipe composes with data/fsdp only (use --tensor 1 --seq 1)")
     world = int(os.environ.get("WORLD_SIZE", "1"))
     axes = dict(data=args.data_axis, fsdp=args.fsdp, tensor=args.tensor, seq=args.seq,
                 pipe=args.pipe)
@@ -72,7 +82,6 @@ def main(argv=None):
     if min(axes.values()) < 1:
         p.error(f"mesh axes must be at least 1 (--fsdp 0: every rank), got {axes}")
     spec = MeshSpec(**axes)
-    refuse_pipeline(spec)
     if spec.size > 1 and spec.size != world:
         raise ValueError(f"mesh {spec} needs {spec.size} processes, WORLD_SIZE is {world}: "
                          f"python -m torch.distributed.run --nproc-per-node {spec.size} -m "

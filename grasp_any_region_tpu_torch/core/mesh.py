@@ -8,7 +8,7 @@ ranks are laid out over the same named axes, in JAX's order,
   fsdp   - ZeRO-3-style parameter and optimizer-state shards (and more rows)
   tensor - tensor parallel (heads and MLP columns)
   seq    - sequence parallel (Ulysses / ring attention), innermost with tensor
-  pipe   - pipeline stages (not run by the port yet: ROADMAP.md item 1.10 (d))
+  pipe   - pipeline stages: the decoder's layers (parallel/pipeline.py), innermost
 
 so rank = row-major index of its coordinates over (data, fsdp, tensor, seq,
 pipe). `Mesh` holds one process group for every set of live axes (an axis
@@ -41,7 +41,7 @@ class MeshSpec:
     fsdp: int = 1
     tensor: int = 1
     seq: int = 1
-    pipe: int = 1  # pipeline stages: ROADMAP.md item 1.10 (d)
+    pipe: int = 1  # pipeline stages; composes with data and fsdp alone
 
     @property
     def size(self) -> int:

@@ -222,6 +222,25 @@ def refuse_adapters(params: LlamaParams, entry: str) -> None:
                          "present): fold them in with train.lora.merge_lora first")
 
 
+def prefill_layer(cfg: TextConfig, positions: torch.Tensor, *,
+                  segment_ids: Optional[torch.Tensor] = None, right_padded: bool = True,
+                  lora_scaling=None):
+    """layer(x, bp) -> (x, k, v): one decoder layer of the one-rank prefill
+    over rows at `positions`, causal attention through `mha` with the rows'
+    segment ids; lora_scaling: an unmerged LoRA tree's scaling leaf.
+    `llama_prefill` runs it over every layer, a pipeline stage
+    (parallel/pipeline.py) over its own layers."""
+    cos, sin = rope_cos_sin(positions, llama_inv_freq(cfg, positions.device))
+
+    def attend(q, k, v):
+        return mha(q, k, v, causal=True, segment_ids=segment_ids, right_padded=right_padded)
+
+    def layer(x, bp):
+        return _layer(cfg, bp, x, cos, sin, attend, lora_scaling)
+
+    return layer
+
+
 def llama_prefill(
     params: LlamaParams,
     cfg: TextConfig,
@@ -255,13 +274,8 @@ def llama_prefill(
         inputs_embeds, layer, kh = _sharded_prefill(params, cfg, inputs_embeds, positions,
                                                     segment_ids, right_padded, mesh)
     else:
-        cos, sin = rope_cos_sin(positions, llama_inv_freq(cfg, inputs_embeds.device))
-
-        def attend(q, k, v):
-            return mha(q, k, v, causal=True, segment_ids=segment_ids, right_padded=right_padded)
-
-        def layer(x, bp):
-            return _layer(cfg, bp, x, cos, sin, attend, lora_scaling)
+        layer = prefill_layer(cfg, positions, segment_ids=segment_ids,
+                              right_padded=right_padded, lora_scaling=lora_scaling)
 
     b, s, _ = inputs_embeds.shape
     if return_kv:
@@ -291,6 +305,9 @@ def _sharded_prefill(params: LlamaParams, cfg: TextConfig, embeds: torch.Tensor,
     from ..parallel.sharding import constrain_seq
     from ..parallel.ulysses import ulysses_attention
 
+    if mesh.shape["pipe"] > 1:
+        raise ValueError("a mesh with pipeline stages runs the decoder through "
+                         "parallel/pipeline.py (pipeline_prefill, pipeline_train)")
     lcfg, tp, gather = _sharded_layers(params, cfg, mesh)
     lora_scaling = getattr(params, "lora_scaling", None)
     p = mesh.shape["seq"]

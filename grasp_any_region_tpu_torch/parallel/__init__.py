@@ -1,6 +1,5 @@
-"""Data, fsdp, tensor and sequence parallelism over torch.distributed ranks
-(`grasp_any_region_tpu/parallel/`; its pipeline schedules are ROADMAP.md
-item 1.10 (d))."""
+"""Data, fsdp, tensor, sequence and pipeline parallelism over
+torch.distributed ranks (`grasp_any_region_tpu/parallel/`)."""
 
 from .sharding import (  # noqa: F401
     batch_pspecs,

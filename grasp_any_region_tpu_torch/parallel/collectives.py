@@ -17,14 +17,15 @@ one rank) makes it the identity. NCCL groups, and gloo groups for the
 collectives, take CUDA tensors as they are; gloo's point-to-point sends do
 not (on the H100 machine's torch 2.11 its all_reduce, all_gather,
 reduce_scatter and all_to_all_single take them, batch_isend_irecv fails
-writing a device address to its socket), so `ring_shift` on a gloo group
-stages CUDA tensors through pinned host memory, and only there: the path
-of several ranks on one card.
+writing a device address to its socket), so the point-to-point
+`send_recv` (the ring's shift, the pipeline's ticks) and `broadcast` on a
+gloo group stage CUDA tensors through pinned host memory, and only there:
+the path of several ranks on one card.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -89,22 +90,52 @@ def all_to_all(x: torch.Tensor, group: Group, split_dim: int, concat_dim: int) -
     return torch.cat(recv.unbind(0), dim=concat_dim)
 
 
+def _staged(x: torch.Tensor, group) -> bool:
+    return x.is_cuda and dist.get_backend(group) == "gloo"
+
+
+def send_recv(sends: List[Tuple[int, torch.Tensor]], recvs: List[Tuple[int, torch.Tensor]],
+              group: Group) -> List[torch.Tensor]:
+    """One step's point-to-point traffic, posted as one `batch_isend_irecv`
+    on each rank, so that two ranks that both send first cannot deadlock.
+    sends: [(group rank of the peer, tensor)]; recvs: [(group rank of the
+    peer, a tensor whose shape, dtype and device the received one takes)].
+    Returns the received tensors in the order of recvs. Messages between
+    one pair of ranks match in the order they are posted. Under NCCL the
+    first call over a group must include every rank of it."""
+    if not sends and not recvs:
+        return []
+    staged = _staged((sends or recvs)[0][1], group)
+    bufs = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True) if staged
+            else torch.empty(t.shape, dtype=t.dtype, device=t.device) for _, t in recvs]
+    ops = [dist.P2POp(dist.isend, _host(t) if staged else t.contiguous(),
+                      dist.get_global_rank(group, peer), group) for peer, t in sends]
+    ops += [dist.P2POp(dist.irecv, buf, dist.get_global_rank(group, peer), group)
+            for (peer, _), buf in zip(recvs, bufs)]
+    for work in dist.batch_isend_irecv(ops):
+        work.wait()
+    return [buf.to(t.device) for buf, (_, t) in zip(bufs, recvs)] if staged else bufs
+
+
 def ring_shift(tensors: List[torch.Tensor], group: Group) -> List[torch.Tensor]:
     """Each tensor sent to the next rank of the group and received from the
     previous one (JAX's `ppermute` with perm j -> j + 1 mod n)."""
     if group is None:
         return list(tensors)
     n, r = group_size(group), group_rank(group)
-    nxt, prv = dist.get_global_rank(group, (r + 1) % n), dist.get_global_rank(group, (r - 1) % n)
-    staged = tensors[0].is_cuda and dist.get_backend(group) == "gloo"
-    send = [_host(t) if staged else t.contiguous() for t in tensors]
-    recv = [torch.empty_like(t) for t in send]
-    ops = []
-    for s, d in zip(send, recv):
-        ops += [dist.P2POp(dist.isend, s, nxt, group), dist.P2POp(dist.irecv, d, prv, group)]
-    for work in dist.batch_isend_irecv(ops):
-        work.wait()
-    return [d.to(t.device) for d, t in zip(recv, tensors)] if staged else recv
+    return send_recv([((r + 1) % n, t) for t in tensors], [((r - 1) % n, t) for t in tensors],
+                     group)
+
+
+def broadcast(x: torch.Tensor, group: Group, src: int) -> torch.Tensor:
+    """x of the group's rank src on every rank of the group (in place on x,
+    which the other ranks pass as the buffer of its shape and dtype)."""
+    if group is None:
+        return x
+    staged = _staged(x, group)
+    buf = _host(x) if staged else x
+    dist.broadcast(buf, dist.get_global_rank(group, src), group=group)
+    return x.copy_(buf) if staged else x
 
 
 def own_chunk(x: torch.Tensor, group: Group, dim: int) -> torch.Tensor:

@@ -1,6 +1,6 @@
 """The training step (`grasp_any_region_tpu/train/step.py`): forward under
 remat, chunked CE, backward, clip, AdamW, on one card or sharded over a
-multi-rank mesh (data, fsdp, tensor, seq).
+multi-rank mesh (data, fsdp, tensor, seq, pipe).
 
 Where the JAX step is one jitted function returning a new state, the port
 runs eagerly and updates the parameters and the optimizer state in place,
@@ -33,11 +33,27 @@ summed over the ranks that hold other rows or tokens of the same shard
 (`reduce_gradients`); one all-reduce sums each shard's squares once
 (`Optimizer.sq_sums`, the optimizer made with the mesh), for `grad_norm`
 and for the clipping norm. The optimizer updates the local shards.
+
+With pipeline stages (pipe > 1, composed with data and fsdp alone) each
+stage holds L / P of the decoder's layers and the rest of the tree
+whole. The step runs `pipe_loss_and_grads` (JAX's `loss_and_grads_1f1b`,
+and `jax.value_and_grad` of its GPipe `loss_fn`): stage 0 runs the front
+(the tower, the projector, the mask embed and the lookup: the others do
+not), the schedule (`pipe_schedule`, "1f1b" or "gpipe",
+parallel/pipeline.py) runs the decoder and the loss head on the last
+stage, and stage 0 back-propagates the embeds' gradient through the front
+once. `reduce_gradients` then sums each leaf outside the blocks over the
+stages as well (JAX's `_merge_pipe_grads` and shard_map's sum over the
+replicated axes): the front's gradients from stage 0 and the head's from
+the last stage, so that the tied embedding's gradient is its lookup's plus
+its head's, and every stage's copy takes the one-process update. Which
+leaves some stage holds a gradient for is read once, on the step's first
+call (`pipe_grad_leaves`).
 """
 
 from __future__ import annotations
 
-from typing import Callable, NamedTuple
+from typing import Callable, List, NamedTuple, Optional
 
 import torch
 
@@ -70,6 +86,33 @@ def _mean_ce(params: GARParams, cfg: GARConfig, hidden: torch.Tensor, labels: to
     return global_mean(total, count, mesh)
 
 
+def _pipe(mesh) -> bool:
+    return mesh is not None and mesh.shape["pipe"] > 1
+
+
+def _pipe_loss_value(params: GARParams, cfg: GARConfig, front: Callable, positions, labels,
+                     segment_ids, right_padded: bool, ce_chunk: int, dtype, mesh):
+    """The loss under a pipe mesh, the value alone: `pipeline_prefill`'s
+    hidden, broadcast to every stage, through the CE (stage 0 runs the
+    front); no gradient crosses the stages (the step takes
+    `pipe_loss_and_grads`)."""
+    from ..parallel.pipeline import pipeline_prefill
+
+    with torch.no_grad():
+        embeds = front(params) if mesh.coords["pipe"] == 0 else None
+        hidden = pipeline_prefill(params.llm, cfg.text, embeds, positions, mesh,
+                                  segment_ids=segment_ids, right_padded=right_padded,
+                                  dtype=dtype)
+        return _mean_ce(params, cfg, hidden, shift_labels(labels), ce_chunk, mesh)
+
+
+def _front(params: GARParams, cfg: GARConfig, batch: GARBatch, mask_compat: bool,
+           vit_remat_group: int, compute_dtype, mesh) -> torch.Tensor:
+    return build_prefill_embeds(params, cfg, batch, mask_compat=mask_compat, remat=True,
+                                remat_group=vit_remat_group, compute_dtype=compute_dtype,
+                                mesh=mesh)
+
+
 def loss_fn(params: GARParams, cfg: GARConfig, batch: GARBatch, labels: torch.Tensor, *,
             mask_compat: bool = True, ce_chunk: int = 1024, vit_remat_group: int = 1,
             compute_dtype=torch.bfloat16, mesh=None) -> torch.Tensor:
@@ -77,11 +120,15 @@ def loss_fn(params: GARParams, cfg: GARConfig, batch: GARBatch, labels: torch.Te
     compute_dtype is bf16 as in JAX; the fp32 parity tests pass float32.
     mesh: a multi-rank mesh, params the sharded tree, batch and labels this
     rank's rows (`shard_batch`); the value is the global mean on every
-    rank, its gradient this rank's part."""
-    embeds = build_prefill_embeds(params, cfg, batch, mask_compat=mask_compat, remat=True,
-                                  remat_group=vit_remat_group, compute_dtype=compute_dtype,
-                                  mesh=mesh)
-    hidden, _ = llama_prefill(params.llm, cfg.text, embeds, batch.positions,
+    rank, its gradient this rank's part. Under pipeline stages the value
+    alone (`pipe_loss_and_grads` gives the gradients)."""
+    def front(p):
+        return _front(p, cfg, batch, mask_compat, vit_remat_group, compute_dtype, mesh)
+
+    if _pipe(mesh):
+        return _pipe_loss_value(params, cfg, front, batch.positions, labels, batch.segment_ids,
+                                True, ce_chunk, compute_dtype, mesh)
+    hidden, _ = llama_prefill(params.llm, cfg.text, front(params), batch.positions,
                               segment_ids=batch.segment_ids, remat=True, return_kv=False,
                               mesh=mesh)
     return _mean_ce(params, cfg, hidden, shift_labels(labels), ce_chunk, mesh)
@@ -92,11 +139,63 @@ def packed_loss_fn(params: GARParams, cfg: GARConfig, packed,
     """Mean CE over packed text-only rows (`data/builders.PackedTextBatch`):
     the decoder alone, with the block-diagonal segment mask in the kernel
     (right_padded=False) and per-document positions. mesh: `loss_fn`'s."""
-    embeds = embed_tokens(params.llm, packed.input_ids, compute_dtype, mesh=mesh)
-    hidden, _ = llama_prefill(params.llm, cfg.text, embeds, packed.positions,
+    def front(p):
+        return embed_tokens(p.llm, packed.input_ids, compute_dtype, mesh=mesh)
+
+    if _pipe(mesh):
+        return _pipe_loss_value(params, cfg, front, packed.positions, packed.labels,
+                                packed.segment_ids, False, 1024, compute_dtype, mesh)
+    hidden, _ = llama_prefill(params.llm, cfg.text, front(params), packed.positions,
                               segment_ids=packed.segment_ids, remat=True, right_padded=False,
                               return_kv=False, mesh=mesh)
     return _mean_ce(params, cfg, hidden, shift_labels(packed.labels), 1024, mesh)
+
+
+def _pipe_backward(params: GARParams, cfg: GARConfig, front: Callable, positions, labels,
+                   segment_ids, right_padded: bool, *, schedule: str, n_micro, ce_chunk: int,
+                   dtype, mesh) -> torch.Tensor:
+    from ..parallel.pipeline import pipeline_train
+
+    embeds = front(params) if mesh.coords["pipe"] == 0 else None
+    loss, _, d_embeds = pipeline_train(
+        params.llm, cfg.text, None if embeds is None else embeds.detach(), positions, labels,
+        mesh, schedule=schedule, n_micro=n_micro, segment_ids=segment_ids,
+        right_padded=right_padded, valid_vocab=cfg.extended_vocab_size, ce_chunk=ce_chunk,
+        dtype=dtype)
+    if embeds is not None and embeds.requires_grad:
+        embeds.backward(d_embeds)
+    return loss
+
+
+def pipe_loss_and_grads(params: GARParams, cfg: GARConfig, batch: GARBatch,
+                        labels: torch.Tensor, *, mesh, schedule: str = "1f1b",
+                        mask_compat: bool = True, ce_chunk: int = 1024,
+                        vit_remat_group: int = 1, compute_dtype=torch.bfloat16) -> torch.Tensor:
+    """`loss_fn`'s value with its backward done, under pipeline stages
+    (JAX's `loss_and_grads_1f1b` with schedule "1f1b", its GPipe
+    `value_and_grad(loss_fn)` with "gpipe"): the loss on every rank, this
+    rank's gradients in `.grad` (before `reduce_gradients`); one row of the
+    global batch a microbatch, as JAX's default."""
+    def front(p):
+        return _front(p, cfg, batch, mask_compat, vit_remat_group, compute_dtype, mesh)
+
+    return _pipe_backward(params, cfg, front, batch.positions, labels, batch.segment_ids, True,
+                          schedule=schedule, n_micro=None, ce_chunk=ce_chunk,
+                          dtype=compute_dtype, mesh=mesh)
+
+
+def packed_pipe_loss_and_grads(params: GARParams, cfg: GARConfig, packed, *, mesh,
+                               schedule: str = "1f1b", n_micro=None,
+                               compute_dtype=torch.bfloat16) -> torch.Tensor:
+    """`pipe_loss_and_grads` of `packed_loss_fn` (JAX's
+    `packed_loss_and_grads_1f1b`); n_micro: microbatches of the global
+    batch (default one row each)."""
+    def front(p):
+        return embed_tokens(p.llm, packed.input_ids, compute_dtype, mesh=mesh)
+
+    return _pipe_backward(params, cfg, front, packed.positions, packed.labels,
+                          packed.segment_ids, False, schedule=schedule, n_micro=n_micro,
+                          ce_chunk=1024, dtype=compute_dtype, mesh=mesh)
 
 
 def init_state(params: GARParams, opt_cfg: OptimizerConfig, *, device="cuda", mesh=None):
@@ -135,19 +234,48 @@ def shard_batch(batch: GARBatch, labels: torch.Tensor, mesh):
 
 
 @torch.no_grad()
-def reduce_gradients(params: GARParams, mesh) -> None:
+def pipe_grad_leaves(params: GARParams, mesh) -> List[bool]:
+    """[whether some stage holds a gradient for the leaf] for each leaf of
+    `params`, over the pipe group (one all-reduce and a host read). Fixed for
+    a step function: the front's leaves on stage 0, the final norm and the
+    head on the last stage, the blocks on every stage; so the step takes it
+    once, on its first call."""
+    from ..parallel.collectives import all_reduce
+
+    has = torch.tensor([float(p.grad is not None) for p in params.parameters()],
+                       device=mesh.device)
+    has = all_reduce(has, mesh.group("pipe"), torch.distributed.ReduceOp.MAX)
+    return [h > 0 for h in has.tolist()]
+
+
+@torch.no_grad()
+def reduce_gradients(params: GARParams, mesh, shared: Optional[List[bool]] = None) -> None:
     """Sum each shard's gradient over the ranks holding the same shard of
     other rows or tokens: over (data, seq) for fsdp-sharded leaves (their
     gathers' backward summed over fsdp already), over (data, fsdp, seq) for
-    the rest; one flat all-reduce a group and dtype."""
+    the rest; and, under pipeline stages, each leaf outside the blocks over
+    the stages too: a leaf with a gradient on some stage (`shared`, from
+    `pipe_grad_leaves` where not given) gets zeros where it has none. One
+    flat all-reduce a group and dtype."""
     from ..parallel.collectives import all_reduce
     from ..parallel.sharding import spec_axes
 
+    if mesh.group("pipe") is not None:
+        if shared is None:
+            shared = pipe_grad_leaves(params, mesh)
+        for (name, p), h in zip(params.named_parameters(), shared):
+            if h and p.grad is None:
+                p.grad = torch.zeros_like(p)
+            elif p.grad is not None and not h:
+                raise RuntimeError(f"{name} has a gradient that no stage had on the step "
+                                   "function's first call")
     buckets = {}
     for p in params.parameters():
         if p.grad is None:
             continue
         axes = ("data", "seq") if "fsdp" in spec_axes(p.spec) else ("data", "fsdp", "seq")
+        if "pipe" not in spec_axes(p.spec):
+            axes += ("pipe",)
         if mesh.group(axes) is not None:
             buckets.setdefault((axes, p.grad.dtype), []).append(p)
     for (axes, _), ps in buckets.items():
@@ -156,9 +284,15 @@ def reduce_gradients(params: GARParams, mesh) -> None:
             p.grad.copy_(g.view_as(p.grad))
 
 
-def _step_with(loss_of: Callable, tx: Optimizer, device, mesh=None) -> Callable:
+def _backward(loss: torch.Tensor) -> torch.Tensor:
+    loss.backward()
+    return loss
+
+
+def _step_with(loss_and_grads: Callable, tx: Optimizer, device, mesh=None) -> Callable:
     multi = mesh is not None and mesh.size > 1
     device = mesh.device if multi else require_device(device)
+    shared = []  # under pipeline stages: `pipe_grad_leaves`, taken on the first call
 
     def step(state: TrainState, *inputs):
         params = state.params
@@ -167,10 +301,11 @@ def _step_with(loss_of: Callable, tx: Optimizer, device, mesh=None) -> Callable:
                              f"was made for {device}")
         for p in params.parameters():
             p.grad = None
-        loss = loss_of(params, *inputs)
-        loss.backward()
+        loss = loss_and_grads(params, *inputs)
         if multi:
-            reduce_gradients(params, mesh)
+            if _pipe(mesh) and not shared:
+                shared.append(pipe_grad_leaves(params, mesh))
+            reduce_gradients(params, mesh, shared[0] if shared else None)
         grads = [p.grad for p in params.parameters() if p.grad is not None]
         sq = None
         if multi:  # one reduction serves the metric and the clipping norm
@@ -192,25 +327,42 @@ def _step_with(loss_of: Callable, tx: Optimizer, device, mesh=None) -> Callable:
 
 def make_train_step(cfg: GARConfig, tx: Optimizer, *, mask_compat: bool = True,
                     ce_chunk: int = 1024, vit_remat_group: int = 1, device="cuda",
-                    compute_dtype=torch.bfloat16, mesh=None):
+                    compute_dtype=torch.bfloat16, mesh=None, pipe_schedule: str = "1f1b"):
     """step(state, batch, labels) -> (state, {"loss", "grad_norm"}), both
     metrics 0-dim tensors on the device; grad_norm is over all gradients.
     compute_dtype: `loss_fn`'s (bf16, as in JAX). mesh: the sharded step
     (the state from `init_state(mesh=)`, this rank's rows of the batch);
-    the metrics are global."""
-    return _step_with(
-        lambda p, batch, labels: loss_fn(p, cfg, batch, labels, mask_compat=mask_compat,
-                                         ce_chunk=ce_chunk, vit_remat_group=vit_remat_group,
-                                         compute_dtype=compute_dtype, mesh=mesh),
-        tx, device, mesh)
+    the metrics are global. pipe_schedule ("1f1b", or "gpipe", which keeps
+    every microbatch's graph across the turn: the same launches and bubble
+    at a higher peak): the pipeline's, where the mesh has pipeline stages;
+    `pipeline_train` checks the name."""
+    if _pipe(mesh):
+        def loss_and_grads(p, batch, labels):
+            return pipe_loss_and_grads(p, cfg, batch, labels, mesh=mesh, schedule=pipe_schedule,
+                                       mask_compat=mask_compat, ce_chunk=ce_chunk,
+                                       vit_remat_group=vit_remat_group,
+                                       compute_dtype=compute_dtype)
+    else:
+        def loss_and_grads(p, batch, labels):
+            return _backward(loss_fn(p, cfg, batch, labels, mask_compat=mask_compat,
+                                     ce_chunk=ce_chunk, vit_remat_group=vit_remat_group,
+                                     compute_dtype=compute_dtype, mesh=mesh))
+    return _step_with(loss_and_grads, tx, device, mesh)
 
 
 def make_packed_train_step(cfg: GARConfig, tx: Optimizer, *, device="cuda",
-                           compute_dtype=torch.bfloat16, mesh=None):
+                           compute_dtype=torch.bfloat16, mesh=None, pipe_schedule: str = "1f1b"):
     """step(state, packed) -> (state, metrics) over `PackedTextBatch` rows.
-    The packed path never touches the vision tower: its gradients are zero."""
-    return _step_with(lambda p, packed: packed_loss_fn(p, cfg, packed, compute_dtype, mesh), tx,
-                      device, mesh)
+    The packed path never touches the vision tower: its gradients are zero.
+    pipe_schedule: `make_train_step`'s."""
+    if _pipe(mesh):
+        def loss_and_grads(p, packed):
+            return packed_pipe_loss_and_grads(p, cfg, packed, mesh=mesh, schedule=pipe_schedule,
+                                              compute_dtype=compute_dtype)
+    else:
+        def loss_and_grads(p, packed):
+            return _backward(packed_loss_fn(p, cfg, packed, compute_dtype, mesh))
+    return _step_with(loss_and_grads, tx, device, mesh)
 
 
 def make_train_loop(cfg: GARConfig, tx: Optimizer, n_steps: int, *, mask_compat: bool = True,

@@ -13,15 +13,17 @@
     forced one at the end (`train/checkpoints.py`), and resume from the
     newest checkpoint in `work_dir` when the trainer is made.
 
-With a mesh of data, fsdp, tensor and seq axes above 1 (`TrainerConfig.
-mesh`, one process a rank, the process group initialised by the caller:
-`core/mesh.initialize_distributed`, as `cli/train.py` does) the state is
-sharded and the step is the sharded one (train/step.py); each process
-loads only its rows of a step's batch (`n_procs` row groups over data and
-fsdp, `proc_id` its own), padded to a multiple of the seq axis
+With a mesh of data, fsdp, tensor, seq or pipe axes above 1
+(`TrainerConfig.mesh`, one process a rank, the process group initialised
+by the caller: `core/mesh.initialize_distributed`, as `cli/train.py`
+does) the state is sharded and the step is the sharded one
+(train/step.py); each process loads only its rows of a step's batch
+(`n_procs` row groups over data and fsdp, `proc_id` its own: the stages of
+one row group load the same rows), padded to a multiple of the seq axis
 (`seq_multiple`); each rank keeps its checkpoints under `work_dir/rank<r>`
-and only rank 0 prints. Pipeline stages (pipe > 1) wait for ROADMAP.md
-item 1.10 (d).
+and only rank 0 prints. Pipeline stages run `pipe_schedule` ("1f1b" or
+"gpipe", parallel/pipeline.py), composed with data and fsdp alone; the loss
+the last stage computes reaches every rank, rank 0's log line too.
 """
 
 from __future__ import annotations
@@ -39,17 +41,10 @@ from ..core.weights import require_device
 from ..data.builders import collate_samples
 from ..data.dataset import GraspAnyRegionDataset, length_grouped_indices
 from ..data.loader import PrefetchLoader
+from ..parallel.pipeline import _pipe_layout
 from .checkpoints import CheckpointManager
 from .optimizer import OptimizerConfig
 from .step import init_state, make_train_step
-
-
-def refuse_pipeline(mesh: Optional[MeshSpec]) -> None:
-    """Raise where `mesh` asks for pipeline stages, which the port does not run."""
-    if mesh is not None and mesh.pipe > 1:
-        raise NotImplementedError(
-            f"mesh {mesh} asks for {mesh.pipe} pipeline stages; the GPipe and 1F1B schedules "
-            "wait for ROADMAP.md item 1.10 (d)")
 
 
 @dataclass
@@ -66,16 +61,15 @@ class TrainerConfig:
     resume: bool = True
     num_workers: int = 4  # the loader's threads
     prefetch_batches: int = 2
-    pipe_schedule: str = "gpipe"
+    pipe_schedule: str = "1f1b"  # "gpipe": O(n_micro) activations, the same bubble
     device: str = "cuda"  # the card unless the caller asks for the CPU
 
 
 class Trainer:
     def __init__(self, cfg: GARConfig, params, dataset: GraspAnyRegionDataset,
                  opt_cfg: OptimizerConfig, tcfg: TrainerConfig):
-        refuse_pipeline(tcfg.mesh)
-        if tcfg.pipe_schedule not in ("gpipe", "1f1b"):
-            raise ValueError(f"unknown pipe_schedule {tcfg.pipe_schedule!r}")
+        if tcfg.mesh is not None and tcfg.mesh.pipe > 1:  # its checks before anything is built
+            _pipe_layout(tcfg.mesh, cfg.text, tcfg.batch_size, None)
         self.cfg = cfg
         self.dataset = dataset
         self.tcfg = tcfg
@@ -93,8 +87,8 @@ class Trainer:
         # sequence parallelism: collate pads S to a multiple of the seq axis
         self.seq_multiple = tcfg.mesh.seq if tcfg.mesh else 1
         self.state, self.tx = init_state(params, opt_cfg, device=self.device, mesh=self.mesh)
-        self.step_fn = make_train_step(cfg, self.tx, device=self.device,
-                                       mesh=self.mesh)  # bf16 loss, as JAX's
+        self.step_fn = make_train_step(cfg, self.tx, device=self.device, mesh=self.mesh,
+                                       pipe_schedule=tcfg.pipe_schedule)  # bf16 loss, as JAX's
         self.ckpt = CheckpointManager(work_dir, save_interval=tcfg.save_interval,
                                       max_to_keep=tcfg.max_keep_ckpts,
                                       save_optimizer=tcfg.save_optimizer)

@@ -236,14 +236,16 @@ def test_port_module_list_covers_training_from_a_file():
 
 def test_training_entry_points_default_to_the_card(tmp_path):
     """The Trainer and `cli.train` run on the card unless asked for the CPU
-    and raise where there is none, before they build or read anything; a
-    pipeline axis above 1 raises, naming the roadmap item it waits for;
-    data, fsdp, tensor and seq above 1 pass both, which then want as many
-    ranks as the mesh (one process here: the ranks' run is
-    `test_trainer_takes_a_mesh_on_gloo_ranks`)."""
+    and raise where there is none, before they build or read anything;
+    data, fsdp, tensor, seq and pipe above 1 pass both, which then want as
+    many ranks as the mesh (one process here: the ranks' runs are
+    `test_trainer_takes_a_mesh_on_gloo_ranks` and
+    tests/test_torch_pipeline.py); pipe with tensor or seq above 1 is
+    refused, as JAX's CLI refuses it."""
     import torch
 
     from grasp_any_region_tpu_torch.cli.train import main
+    from grasp_any_region_tpu_torch.core.config import gar_tiny
     from grasp_any_region_tpu_torch.train import OptimizerConfig
     from grasp_any_region_tpu_torch.train.trainer import MeshSpec, Trainer, TrainerConfig
 
@@ -254,15 +256,16 @@ def test_training_entry_points_default_to_the_card(tmp_path):
             Trainer(None, None, None, OptimizerConfig(), TrainerConfig())
         with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
             main(["--preset", "gar_tiny", "--data", missing])
-    with pytest.raises(NotImplementedError, match=r"ROADMAP.md item 1.10 \(d\)"):
-        Trainer(None, None, None, OptimizerConfig(),
-                TrainerConfig(device="cpu", mesh=MeshSpec(pipe=2)))
-    with pytest.raises(NotImplementedError, match=r"ROADMAP.md item 1.10 \(d\)"):
-        main(["--preset", "gar_tiny", "--data", missing, "--device", "cpu", "--pipe", "2"])
+    with pytest.raises(SystemExit):
+        main(["--preset", "gar_tiny", "--data", missing, "--device", "cpu", "--pipe", "2",
+              "--tensor", "2"])
+    with pytest.raises(ValueError, match="pipeline composes with data/fsdp only"):
+        Trainer(gar_tiny(), None, None, OptimizerConfig(),
+                TrainerConfig(device="cpu", mesh=MeshSpec(pipe=2, seq=2)))
     flag = {"data": "--data-axis"}
-    for axis in ("data", "fsdp", "tensor", "seq"):
+    for axis in ("data", "fsdp", "tensor", "seq", "pipe"):
         with pytest.raises(ValueError, match="needs 2 ranks"):
-            Trainer(None, None, None, OptimizerConfig(),
+            Trainer(gar_tiny(), None, None, OptimizerConfig(),
                     TrainerConfig(device="cpu", mesh=MeshSpec(**{axis: 2})))
         with pytest.raises(ValueError, match="needs 2 processes"):
             main(["--preset", "gar_tiny", "--data", missing, "--device", "cpu",
@@ -300,7 +303,7 @@ def test_port_module_list_covers_parallelism():
     prefix = "grasp_any_region_tpu_torch."
     assert {prefix + n for n in (
         "core.mesh", "parallel", "parallel.collectives", "parallel.sharding",
-        "parallel.ulysses", "parallel.ring")} <= names
+        "parallel.ulysses", "parallel.ring", "parallel.pipeline")} <= names
 
 
 def test_front_door_factories_default_to_the_card(tmp_path):

@@ -337,8 +337,8 @@ def test_cli_train_end_to_end_and_refuses_a_mesh(world, tmp_path):
     """`cli.train.main` on a six-item synthetic file at gar_tiny on the
     CPU, two steps: its checkpoint restores to the trained state, its HF
     export reads back to the trained parameters; in one process a mesh is
-    refused before anything is built: --fsdp 2 wants two launched
-    processes, --pipe 2 waits for ROADMAP.md item 1.10 (d)."""
+    refused before anything is built: --fsdp 2 and --pipe 2 want two
+    launched processes."""
     from grasp_any_region_tpu_torch.cli.train import main
 
     work, export = tmp_path / "run", tmp_path / "hf"
@@ -363,5 +363,5 @@ def test_cli_train_end_to_end_and_refuses_a_mesh(world, tmp_path):
     _equal_to_export(back, flatten_params(state.params), cfg)
     with pytest.raises(ValueError, match="needs 2 processes"):
         main(args[:-2] + ["--fsdp", "2"])
-    with pytest.raises(NotImplementedError, match=r"ROADMAP.md item 1.10 \(d\)"):
+    with pytest.raises(ValueError, match="needs 2 processes"):
         main(args[:-2] + ["--pipe", "2"])
