@@ -28,7 +28,12 @@ against st_parent; those named q_* time kernels 19 and 20 (TIMING_QKV)
 against q_parent; those named g8_* time kernels A, B and C at GAR-8B's
 head dims (TIMING_8B: A at (9, S, 16, 96), S = 1025 and 1024, B at the
 2614-token causal prefill with 128-wide heads, C over a 128-wide cache at
-B = 1 and 24, each checked) against g8_parent. `--against=` runs one
+B = 1 and 24, each checked) against g8_parent; those named w_* time kernel
+18's wide instance (TIMING_W: kernel 5 at (9, S, 16, 96), v a view of a
+(T, S, 3, H, 96) buffer, S = 1025 and 1024; 18 alone and the 18 call at
+the 2614-token prompt, causal, 32 / 8 heads of 128, without and with two
+documents; each checked at the output-sized tolerance, SDPA's backward
+beside them) against w_parent. `--against=` runs one
 timing (TIMING_Q8 unless another is named: abc, h, m, stream, steps:
 TIMING_STEPS, the fused bf16 and int8 decode steps' and the mega step's
 (bf16 and int8 weights) device and host ms at GAR-1B, vit: TIMING_VIT,
@@ -39,14 +44,15 @@ B = 1 and 24, checked against their plain versions, one call after an L2
 flush and 16 layers back to back; or j: TIMING_J, kernels J and J8 at
 GAR-1B's widths, B = 1 and 24, checked against their plain versions, one
 call after an L2 flush, 16 layers back to back and the host time a call;
-or bits: TIMING_BITS, a hash of the outputs of H, H8 (w_down and wo), I,
+or wide: TIMING_W; or bits: TIMING_BITS, a hash of the outputs of H, H8 (w_down and wo), I,
 I8, J, J8, 19, 20, 23 and 21 at GAR-1B's widths, B = 1, 5, 17, 24 and 32,
 on seeded inputs, which two checkouts that give the same bits print
 alike; or attn_bits: TIMING_ATTN_BITS, the same hash of kernels A (with
 its LSE), B (causal with its LSE, full, segment ids), C, C8 (and its
 written column), 16 and 22 at GAR-1B's head dim 64, B = 1, 2 and 24; or
-gar8b: TIMING_8B) in the package of another checkout and in this tree,
-in turns.
+gar8b: TIMING_8B; or lora_step: TIMING_LORA, `chip_smoke.phase_gar8b_train`'s
+GAR-8B LoRA step, two warm-up and three timed steps) in the package of
+another checkout and in this tree, in turns.
 Run from the repository root on a machine with the card:
 
     python3 ab_kernels.py [variant ...]
@@ -56,7 +62,8 @@ Run from the repository root on a machine with the card:
     python3 ab_kernels.py st_<variant> | h8_<variant> | i_<variant> ...
     python3 ab_kernels.py q_<variant> ...
     python3 ab_kernels.py g8_<variant> ...
-    python3 ab_kernels.py --against=<directory of another checkout> [q8 | abc | h | m | stream | steps | vit | qkv | j | bits | attn_bits | gar8b]
+    python3 ab_kernels.py w_<variant> ...
+    python3 ab_kernels.py --against=<directory of another checkout> [q8 | abc | h | m | stream | steps | vit | qkv | j | wide | bits | attn_bits | gar8b | lora_step]
 """
 
 from __future__ import annotations
@@ -322,6 +329,28 @@ G8_VARIANTS = {  # kernels A, B and C at GAR-8B's head dims (TIMING_8B)
     # KB of the 227 a block takes)
     "g8_two_stages": [(FWD, "  static constexpr int kStages = 3;",
                        "  static constexpr int kStages = kAtoms == 1 ? 3 : 2;")],
+}
+BWD = "grasp_any_region_tpu_torch/csrc/flash_backward_sm90.cu"
+W_VARIANTS = {  # kernel 18's wide instance: 5 at 96, the 18 call at 128 (TIMING_W)
+    "w_parent": [],
+    # a causal walk in one CTA, not split between the two of a cluster
+    "w_unsplit": [(BWD, "  a.parts = head_dim > 64 && causal ? 2 : 1;", "  a.parts = 1;")],
+    # a ring of two (Q, dO) stages, not three
+    "w_two_stages": [(BWD, "  static constexpr int kStages = 3;",
+                      "  static constexpr int kStages = 2;")],
+    # at 96 dV and dK over 128 columns (TMA's zero-filled 96-127), not 96
+    "w_n128_at_96": [(BWD, "  float dk[D / 2], dv[D / 2];", "  float dk[64], dv[64];"),
+                     (BWD, """      if constexpr (D == 96) wgmma_m64n96k16_rs<1>(dv, pa[kk], dOm + su + 128 * kk);
+      else wgmma_m64n128k16_rs<1>(dv, pa[kk], dOm + su + 128 * kk);""",
+                      "      wgmma_m64n128k16_rs<1>(dv, pa[kk], dOm + su + 128 * kk);"),
+                     (BWD, """      if constexpr (D == 96) wgmma_m64n96k16_rs<1>(dk, da[kk], dQm + su + 128 * kk);
+      else wgmma_m64n128k16_rs<1>(dk, da[kk], dQm + su + 128 * kk);""",
+                      "      wgmma_m64n128k16_rs<1>(dk, da[kk], dQm + su + 128 * kk);")],
+    # full attention launched as causal is, key tile slowest (heaviest first)
+    "w_key_tile_slowest": [(BWD, "  const int kt = CAUSAL ? item / (a.kv_heads * a.batch) : item % n_kt;",
+                            "  const int kt = item / (a.kv_heads * a.batch);"),
+                           (BWD, "  const int kvb = CAUSAL ? item % (a.kv_heads * a.batch) : item / n_kt;",
+                            "  const int kvb = item % (a.kv_heads * a.batch);")],
 }
 QKV_VARIANTS = {  # kernels 19 and 20 (TIMING_QKV)
     "q_parent": [],
@@ -842,6 +871,64 @@ for b in (1, 24):
 print("AB " + json.dumps(t))
 """
 
+# Kernel 18's wide instance at GAR-8B's shapes: kernel 5 (17's prep, 18 at
+# head dim 96, 17's cast) at (9, S, 16, 96), v a view of a (T, S, 3, H, 96)
+# buffer, S = 1025 and 1024; 18 alone and the 18 call (17, 18, 17) at the
+# 2614-token prompt, causal, 32 / 8 heads of 128, without and with two
+# documents and padding; each checked against its plain version at the
+# output-sized tolerance; SDPA's backward at both shapes as the yardstick.
+TIMING_W = r"""
+import json, torch, chip_smoke as c
+from grasp_any_region_tpu_torch.ops import flash_attention as fa
+from grasp_any_region_tpu_torch.ops import flash_backward as fb
+from grasp_any_region_tpu_torch.ops import vit_attention as va
+c.phase_environment()
+gen = torch.Generator(device="cuda").manual_seed(0)
+def rnd(*shape):
+    return torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+def check(got, want, name):
+    for n, a, w in zip(("dq", "dk", "dv"), got, want):
+        c.max_err(a, w, f"{name} {n}", **c.sized_tol(w))
+t = {}
+q, k, g = (rnd(9, 1025, 16, 96) for _ in range(3))
+v = rnd(9, 1025, 3, 16, 96)[:, :, 2]
+for s in (1025, 1024):
+    x = [y[:, 1025 - s:] if y is v else y[:, 1025 - s:].contiguous() for y in (q, k, v, g)]
+    out, lse = va.vit_attention(*x[:3], return_lse=True)
+    args = (*x[:3], out, lse, x[3])
+    check(va.vit_attention_bwd(*args), va.vit_attention_bwd_plain(*args), f"5 S={s}")
+    t[f"5 S={s}"] = c.cuda_ms(lambda: va.vit_attention_bwd(*args))
+t["5 SDPA bwd"] = c.sdpa_bwd_ms(q, k, v, g)
+del q, k, v, g, x, out, lse, args
+n = c.GAR8B_PROMPT
+q, g = rnd(1, n, 32, 128), rnd(1, n, 32, 128)
+k, v = rnd(1, n, 8, 128), rnd(1, n, 8, 128)
+seg = torch.zeros((1, n), dtype=torch.int32)
+seg[0, :1900], seg[0, 1900:2500] = 1, 2
+for name, sg in (("18 causal", None), ("18 documents", seg.cuda())):
+    kw = dict(causal=True, segment_ids=sg)
+    out, lse = fa.flash_attention(q, k, v, return_lse=True, **kw)
+    check(fb.flash_attention_bwd(q, k, v, out, lse, g, **kw),
+          fb.flash_attention_bwd_plain(q, k, v, out, lse, g, **kw), name)
+    delta, acc = fb.bwd_prep(out, g)
+    t[name] = c.cuda_ms(lambda: fb.flash_attention_bwd_dkv(q, k, v, g, lse, delta, acc, **kw))
+    t[name + " call"] = c.cuda_ms(lambda: fb.flash_attention_bwd(q, k, v, out, lse, g, **kw))
+t["18 SDPA bwd"] = c.sdpa_bwd_ms(q, k, v, g, is_causal=True, enable_gqa=True)
+print("AB " + json.dumps(t))
+"""
+
+# The GAR-8B LoRA step as chip_smoke.py's phase runs it: its median and its
+# three timed steps.
+TIMING_LORA = r"""
+import contextlib, io, json, re, chip_smoke as c
+c.phase_environment()
+buf = io.StringIO()
+with contextlib.redirect_stdout(buf):
+    c.phase_gar8b_train()
+m = re.search(r"ms/step ([0-9.]+) \(median of [0-9]+; steps ([^)]*)\)", buf.getvalue())
+print("AB " + json.dumps({"8B LoRA step": float(m.group(1)), "steps": m.group(2)}))
+"""
+
 
 def against(other: str, timing: str = "q8") -> int:
     """One timing (TIMING_Q8, or TIMING, TIMING_H, TIMING_M, TIMING_STREAM,
@@ -852,7 +939,8 @@ def against(other: str, timing: str = "q8") -> int:
     other."""
     code = dict(q8=TIMING_Q8, abc=TIMING, h=TIMING_H, m=TIMING_M, stream=TIMING_STREAM,
                 steps=TIMING_STEPS, vit=TIMING_VIT, qkv=TIMING_QKV, j=TIMING_J,
-                bits=TIMING_BITS, attn_bits=TIMING_ATTN_BITS, gar8b=TIMING_8B)[timing]
+                bits=TIMING_BITS, attn_bits=TIMING_ATTN_BITS, gar8b=TIMING_8B,
+                wide=TIMING_W, lora_step=TIMING_LORA)[timing]
     for name, d in (("other", other), ("tree", str(REPO)), ("tree", str(REPO)), ("other", other)):
         res = run(Path(d), ["-c", code], 900)
         lines = [x for x in res.stdout.splitlines() if x.startswith("AB ")]
@@ -870,8 +958,10 @@ def main(names: list[str]) -> int:
     st = bool(names) and all(n.startswith(("st_", "h8_", "i_")) for n in names)
     qkv = bool(names) and all(n.startswith("q_") for n in names)
     g8 = bool(names) and all(n.startswith("g8_") for n in names)
+    wide = bool(names) and all(n.startswith("w_") for n in names)
     variants, parent, timing = ((H_VARIANTS, "h_parent", TIMING_H) if h
                                 else (G8_VARIANTS, "g8_parent", TIMING_8B) if g8
+                                else (W_VARIANTS, "w_parent", TIMING_W) if wide
                                 else (QKV_VARIANTS, "q_parent", TIMING_QKV) if qkv
                                 else (M_VARIANTS, "m_parent", TIMING_M) if mega
                                 else (Q8_VARIANTS, "q8_parent", TIMING_Q8) if q8

@@ -1099,11 +1099,11 @@ def gar8b_train_kernels(rnd):
     versions (p and dS rounded to bf16 where the kernels round them), at
     `sized_tol`: 5 (17's prep, 18's wide pass, 17's cast) at (9, 1025, 16,
     96), v a view of the PE-G block's (T, S, 3, H, 96) qkv buffer, also
-    timed at S = 1024 (the price of the one-key tile's own CTA); the
-    backward call at the 2614-token prompt, 32 / 8 heads of 128, causal,
-    without segment ids (the train step's right-padded rows: its figures
-    fill the 8B rows of 17 and 18) and with two documents and padding
-    (`backward_case`). SDPA's backward at the same shape is the library
+    timed at S = 1024 (the price of the one key past the eighth key tile,
+    which takes CTAs of its own); the backward call at the 2614-token
+    prompt, 32 / 8 heads of 128, causal, without segment ids (the train
+    step's right-padded rows: its figures fill the 8B rows of 17 and 18)
+    and with two documents and padding (`backward_case`). SDPA's backward at the same shape is the library
     time. Returns the 8B entries of 5, 17 and 18."""
     from grasp_any_region_tpu_torch.ops import vit_attention as va
 
@@ -1130,8 +1130,9 @@ def gar8b_train_kernels(rnd):
     log(f"[kernels 8B] 5 (17's prep, 18's wide pass, 17's cast; T = {t}, S = {s}, {h} heads of "
         f"{d}, v a view of the qkv buffer; library: SDPA's backward): {share_line(out8['5'])}; "
         f"plain {out8['5']['plain_ms']:.4f} ms; max |kernel - plain| {err:.3e} (atol {tols}, "
-        f"rtol 2^-6); at S = 1024 {ms_even:.4f} ms (work (1025 / 1024)^2 = 1.002x; at 96 the "
-        f"one key past the eighth key tile takes a ninth tile's CTAs, 1/8 more)")
+        f"rtol 2^-6); at S = 1024 {ms_even:.4f} ms (work (1025 / 1024)^2 = 1.002x; S = 1025 "
+        f"{out8['5']['ms'] / ms_even:.3f}x: at 96 the one key past the eighth key tile "
+        f"takes CTAs of its own)")
     del q, k, v, g, out, lse, got, even, lse_even
     entries = backward_case(rnd, "8B prefill", 1, GAR8B_PROMPT, 32, 8, d=128, time_plain=True)
     for key in ("17", "18"):

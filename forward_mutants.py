@@ -285,15 +285,15 @@ PHASE2_Q8 = {prefix: PHASE2_MEGA.replace("mega_kernels", part) for prefix, part 
 
 
 def make_copy(name: str, edits: list[tuple[str, str, str]]) -> Path:
-    """The package, tests/, chip_smoke.py and pyproject.toml (so pytest's
-    root is the copy) under build/copies/<name>, with each (source, old,
+    """The package, tests/, native/, chip_smoke.py and pyproject.toml (so
+    pytest's root is the copy) under build/copies/<name>, with each (source, old,
     new) edit applied. Raises if an old text is not in its source exactly
     once."""
     dst = COPIES / name
     shutil.rmtree(dst, ignore_errors=True)
     dst.mkdir(parents=True)
     ignore = shutil.ignore_patterns("__pycache__")
-    for path in ("grasp_any_region_tpu_torch", "tests"):
+    for path in ("grasp_any_region_tpu_torch", "tests", "native"):  # native: chip_smoke's host library
         shutil.copytree(REPO / path, dst / path, ignore=ignore)
     for path in ("chip_smoke.py", "pyproject.toml"):
         shutil.copy(REPO / path, dst / path)

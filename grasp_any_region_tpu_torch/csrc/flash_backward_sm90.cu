@@ -54,9 +54,13 @@
 // past Sk masked, GQA, segment ids (Sq == Sk) with (64-row query tile,
 // 128-key tile) pairs of disjoint [min, max] id ranges skipped (exact);
 // p and dS rounded to bf16 before their products; dq and dk scaled once.
+#include <cooperative_groups.h>
+
 #include "sm90.cuh"
 
 namespace gar {
+
+namespace cg = cooperative_groups;
 
 constexpr int kBwdQ = 64;     // query rows per step
 constexpr int kBwdK = 128;    // keys per CTA
@@ -96,7 +100,7 @@ constexpr int kBwdSmemTail = kOffDqt + kBwdQ * kBwdD * 4 + 1024;
 
 struct BwdMaps {
   CUtensorMap q, k, v, dout;  // bf16 4D (D, S, head, batch), 128B swizzle
-  CUtensorMap dq;             // fp32 workspace, boxes of 32 x 32, 128B swizzle
+  CUtensorMap dq;             // fp32 workspace, boxes of 32 (wide: 64) rows x 32, 128B swizzle
 };
 
 struct BwdArgs {
@@ -109,6 +113,7 @@ struct BwdArgs {
   bf16* dv;
   int batch, sq, sk, heads, kv_heads, q_offset;  // q_offset = Sk - Sq
   int tail;       // TAIL (head dim 64): the keys past the last full 128-key tile (1 .. kTailMax)
+  int parts;      // the wide instance: CTAs (a cluster) that share a key tile's walk, 1 or 2
   float scale;
 };
 
@@ -545,47 +550,61 @@ __global__ void __launch_bounds__(kBwdThreads, 1)
 // attention, no segment ids). A key row is two 128-byte swizzle atoms,
 // each its own 64-column TMA box; 96 rides on 128's layout (the maps' inner
 // dim is 96, TMA zero-fills columns 96-127 of every box; S^T and dP^T take
-// D / 16 k-steps, exact; the dV / dK products run at n128 over zero columns
-// that are never stored; the dq workspace's 32-column boxes past D are not
-// added). A consumer thread holds dK and dV for 64 keys x 128 columns, 128
-// fp32 registers, and ptxas holds a 384-thread block at 168 registers a
-// thread whatever setmaxnreg hands over (the first build of this kernel in
-// that form spilled 250-400 bytes and serialised every wgmma), so:
-//   - the CTA is the two consumer warpgroups alone, 256 threads (255
-//     registers a thread); thread 0 also issues the TMA loads: K and V
-//     once, then a four-stage ring of (Q, dO) tiles whose stage is refilled
-//     once both warpgroups have passed the next step's named barrier (they
-//     have then finished the step that read it), and each thread reads its
-//     queries' LSE, delta and segment ids from memory itself;
-//   - a step takes 32 query rows (S^T and dP^T m64n32, 16 registers each;
-//     their bf16 A fragments 8; dV += P^T dO and dK += dS^T Q at m64n128k16
-//     over two k-steps, dO and Q read MN-major with LBO = one atom);
-//   - warpgroup w computes dQ^T for its head-dim atom (rows 64 w .. 64 w +
-//     63) over all 32 queries: the same m64n32 product and staged [32 q][64
-//     d] fp32 tile (two boxes) as at 64, where it takes queries 32 w .. 32
-//     w + 31 over the one atom.
-// Keys past the last full 128-key tile (S = 1025) get a CTA of their own,
-// masked as any ragged tile: the folded tail's two more 128-row K / V boxes
-// do not fit beside the 32 KB tiles.
+// D / 16 k-steps, exact; the dq workspace's 32-column boxes past D are not
+// added), but dV and dK are products of D columns (m64n96 at 96: the second
+// atom read half), 2 x D / 2 fp32 registers a thread. The CTA is the two
+// consumer warpgroups alone, 256 threads (254 registers a thread at 128,
+// 202 at 96, no spill), and thread 0 also issues the TMA loads: K and V
+// once, then a three-stage ring of (Q, dO) tiles whose stage is refilled
+// once both warpgroups have finished the step that read it.
+//   - A step is 64 query rows, as at head dim 64: S^T = K_w Q^T and dP^T =
+//     V_w dO^T at m64n64 (D / 16 k-steps), dV += P^T dO and dK += dS^T Q
+//     over four k-steps (dO, Q read MN-major, LBO = one atom), and
+//     warpgroup w computes dQ^T for its head-dim atom (rows 64 w .. 64 w +
+//     63) over all 64 queries and 128 keys (m64n64, eight k-steps), staged
+//     as two 128B-swizzled [64 q][32 d] fp32 boxes and added into the
+//     workspace by TMA reduce-adds. One 256-thread barrier a step (both
+//     halves of dS written) and one a warpgroup (its dQ^T staged). Steps of
+//     32 rows re-read each 64 x 16 A tile of S^T and dP^T for 32 columns
+//     and met two barriers every 32 rows.
+//   - Each query's LSE, delta and segment id reach shared memory one step
+//     ahead by cp.async, one word a thread, into a double-buffered table
+//     (held in registers they took 16 + 16 a thread).
+//   - Causal launches split each (key tile, kv head, batch) between the two
+//     CTAs of a cluster, each walking half of the group's (query head,
+//     query tile) pairs: at the 8B prompt the first key tile's CTA had 1.5x
+//     the mean work of an SM, and the grid is 168 CTAs on 132 SMs. Part 1
+//     leaves its fp32 dK and dV in its shared memory and part 0 adds them to
+//     its own through distributed shared memory: a sum of two, the same
+//     bits in either order, so dk and dv stay reproducible. Full attention
+//     launches a (kv head, batch)'s key tiles side by side instead, so that
+//     they share its Q and dO tiles and its dq rows in the L2.
+// Keys past the last full 128-key tile (S = 1025) get CTAs of their own,
+// masked as any ragged tile: folding them into the last tile's CTA (queries
+// as the wgmma rows, m64n16 products, two (Q, dO) stages to make room)
+// measured no faster (`ab_kernels.py`).
 template <int D>
 struct WideShape {
   static_assert(D == 96 || D == 128, "the wide instances: head dims 96 and 128");
-  static constexpr int kQ = 32;  // query rows a step
-  static constexpr int kStages = 4;
+  static constexpr int kQ = 64;  // query rows a step
+  static constexpr int kStages = 3;
   static constexpr int kKSteps = D / 16;  // of S^T and dP^T
   static constexpr int kKAtom = kBwdK * 128;  // bytes of a 128-row K or V atom
   static constexpr int kQAtom = kQ * 128;     // bytes of a Q or dO atom
   static constexpr uint32_t kTileBytes = 2 * kQAtom;
-  static constexpr int kSHalf = kQ * 128;  // dS [32 q][64 keys] of one warpgroup
+  static constexpr int kSHalf = kQ * 128;  // dS [64 q][64 keys] of one warpgroup
+  static constexpr int kDQ = kQ * 64 * 4;  // a warpgroup's staged dQ^T: two [64 q][32 d] fp32 boxes
   static constexpr int kOffK = 0;
   static constexpr int kOffV = kOffK + 2 * kKAtom;
-  static constexpr int kOffQ = kOffV + 2 * kKAtom;             // stages x Q tile
-  static constexpr int kOffO = kOffQ + kStages * kTileBytes;     // stages x dO tile
-  static constexpr int kOffS = kOffO + kStages * kTileBytes;     // 2 steps x 2 halves of dS
-  static constexpr int kOffDQ = kOffS + 2 * 2 * kSHalf;          // 2 WG x 2 staged dQ tiles
-  static constexpr int kOffBar = kOffDQ + 2 * 2 * kDQTile;       // full[stages], kv
-  static constexpr int kSmem = kOffBar + (kStages + 1) * 8 + 1024;  // + alignment slack
+  static constexpr int kOffQ = kOffV + 2 * kKAtom;          // stages x Q tile
+  static constexpr int kOffO = kOffQ + kStages * kTileBytes;  // stages x dO tile
+  static constexpr int kOffS = kOffO + kStages * kTileBytes;  // 2 steps x 2 halves of dS
+  static constexpr int kOffDQ = kOffS + 2 * 2 * kSHalf;       // a staged dQ^T tile a warpgroup
+  static constexpr int kOffRow = kOffDQ + 2 * kDQ;   // 2 steps x 192 words: lse, delta, ids
+  static constexpr int kOffBar = kOffRow + 2 * 192 * 4;  // full[stages], kv, the loader's pair
+  static constexpr int kSmem = kOffBar + (kStages + 2) * 8 + 1024;  // bars, loader; + alignment
   static_assert(kSmem <= 232448, "over the 227 KB a Hopper block can use");
+  static_assert(256 * D * 4 <= kOffDQ, "a split's exchange of dK, dV fits below the dQ^T tiles");
 };
 
 template <int D, bool CAUSAL, bool SEG>
@@ -601,47 +620,77 @@ __global__ void __launch_bounds__(256, 1)
   uint8_t* sV = sm + Sh::kOffV;
   uint8_t* sQ = sm + Sh::kOffQ;
   uint8_t* sO = sm + Sh::kOffO;
+  uint32_t* sRow = reinterpret_cast<uint32_t*>(sm + Sh::kOffRow);
   uint64_t* full = reinterpret_cast<uint64_t*>(sm + Sh::kOffBar);
   uint64_t* kv_bar = full + kStages;
+  int* s_lr = reinterpret_cast<int*>(kv_bar + 1);  // the loader's next pair
+  const int tid = threadIdx.x;
+  // the thread's index read anew where it is used after the loop or only
+  // once a step (the loader, the issuers): nothing derived from it then
+  // holds a register across the loop, which keeps the 128 instances at 254
+  // registers a thread with no spill
+  auto tid_now = [] {
+    int r;
+    asm volatile("mov.u32 %0, %%tid.x;\n" : "=r"(r));
+    return r;
+  };
 
-  // heaviest first: the key tile is the slowest-varying part of the index
-  const int pairs = a.kv_heads * a.batch;
-  const int kt = blockIdx.x / pairs;
-  const int kvh = blockIdx.x % pairs % a.kv_heads, b = blockIdx.x % pairs / a.kv_heads;
+  // causal: heaviest first, the key tile the slowest-varying part of the
+  // index, and the a.parts CTAs of a cluster share one (key tile, kv head,
+  // batch); full attention: a (kv head, batch)'s key tiles side by side
+  const int part = blockIdx.x % a.parts, item = blockIdx.x / a.parts;
+  const int n_kt = (a.sk + kBwdK - 1) / kBwdK;
+  const int kt = CAUSAL ? item / (a.kv_heads * a.batch) : item % n_kt;
+  const int kvb = CAUSAL ? item % (a.kv_heads * a.batch) : item / n_kt;
+  const int kvh = kvb % a.kv_heads, b = kvb / a.kv_heads;
   const int k0 = kt * kBwdK;
   const int group = a.heads / a.kv_heads;
   const int n_qt = (a.sq + NQ - 1) / NQ;
   const int qt0 = CAUSAL ? max(0, k0 - a.q_offset) / NQ : 0;
-  // the walk: every query head of the group, each over its kept query tiles;
-  // settle moves (hh, qt) to the first kept pair at or after it
-  auto settle = [&](int& hh, int& qt) {
-    while (hh < group) {
-      if (qt >= n_qt) {
-        ++hh;
-        qt = qt0;
-      } else if (SEG && bwd_pair_skipped_rows(a, b, qt, kt, NQ)) {
-        ++qt;
-      } else {
-        return;
-      }
-    }
+  const int band = n_qt - qt0;
+  // the walk: pair r is query head kvh * group + r / band, query tile
+  // qt0 + r % band; this part walks [r_lo, r_hi) of the group's pairs
+  const int n_pairs = group * band, per = (n_pairs + a.parts - 1) / a.parts;
+  const int r_lo = min(n_pairs, part * per), r_hi = min(n_pairs, r_lo + per);
+  auto settle = [&](int r) {  // the first kept pair at or after r (r_hi: none left)
+    if (SEG)
+      while (r < r_hi && bwd_pair_skipped_rows(a, b, qt0 + r % band, kt, NQ)) ++r;
+    return r;
   };
-  const bool loader = threadIdx.x == 0;
-  int lh = 0, lq = qt0;  // the loader's next pair
-  auto load_next = [&](int stage) {  // (Q, dO) of the loader's next pair into `stage`
-    settle(lh, lq);
-    if (lh >= group) return;
-    const int h = kvh * group + lh;
+  // pair r's row data into table `buf`, word `slot` of 192 a thread (threads
+  // 192-255 none, 128-191 only with segment ids): lse, delta, segment ids
+  // (zero past Sq, where Q and dO are zero-filled, so such rows add nothing)
+  const int slot = tid;
+  auto load_rows = [&](int r, int buf) {
+    if (slot >= (SEG ? 192 : 128)) return;
+    const int h = kvh * group + r / band, q = (qt0 + r % band) * NQ + (slot & 63);
+    const bool in = q < a.sq;
+    const long long o = in ? (static_cast<long long>(b) * a.heads + h) * a.sq + q : 0;
+    const void* src = slot < 64    ? static_cast<const void*>(a.lse + o)
+                      : slot < 128 ? static_cast<const void*>(a.delta + o)
+                                   : static_cast<const void*>(
+                                         a.seg + (in ? static_cast<long long>(b) * a.sq + q : 0));
+    cp_async_4(sRow + buf * 192 + slot, src, in);
+    cp_async_commit();
+  };
+  // the loader: (Q, dO) of its next pair into `stage`, then the pair after
+  // it (kept in shared memory, not in a register of every thread)
+  auto load_next = [&](int stage) {
+    const int r = *s_lr;
+    if (r >= r_hi) return;
+    const int h = kvh * group + r / band, q0 = (qt0 + r % band) * NQ;
     mbar_arrive_expect_tx(&full[stage], 2 * kTileBytes);
 #pragma unroll
     for (int at = 0; at < 2; ++at) {
-      tma_load_4d(sQ + stage * kTileBytes + at * Sh::kQAtom, &maps.q, &full[stage], 64 * at,
-                  lq * NQ, h, b);
+      tma_load_4d(sQ + stage * kTileBytes + at * Sh::kQAtom, &maps.q, &full[stage], 64 * at, q0,
+                  h, b);
       tma_load_4d(sO + stage * kTileBytes + at * Sh::kQAtom, &maps.dout, &full[stage], 64 * at,
-                  lq * NQ, h, b);
+                  q0, h, b);
     }
-    ++lq;
+    *s_lr = settle(r + 1);
   };
+  auto loader_now = [&] { return tid_now() == 0; };
+  const bool loader = tid == 0;
 
   if (loader) {
     for (int s = 0; s < kStages; ++s) mbar_init(&full[s], 1);  // the loader's arrival + bytes
@@ -653,12 +702,16 @@ __global__ void __launch_bounds__(256, 1)
       tma_load_4d(sK + at * Sh::kKAtom, &maps.k, kv_bar, 64 * at, k0, kvh, b);
       tma_load_4d(sV + at * Sh::kKAtom, &maps.v, kv_bar, 64 * at, k0, kvh, b);
     }
+    *s_lr = settle(r_lo);
     for (int s = 0; s < kStages; ++s) load_next(s);
   }
+  int cr = settle(r_lo);  // the consumers' pair
+  if (cr < r_hi) load_rows(cr, 0);
+  cp_async_wait_all();
   __syncthreads();
 
   // warpgroup w owns keys k0 + 64 w + [0, 64)
-  const int w = threadIdx.x >> 7, wi = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  const int w = tid >> 7, wi = (tid >> 5) & 3, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
   const int key_lo = k0 + 64 * w + 16 * wi + g;  // this thread's keys: key_lo, key_lo + 8
   const float sl2 = a.scale * kLog2e;
@@ -677,80 +730,74 @@ __global__ void __launch_bounds__(256, 1)
   const uint32_t st_off = static_cast<uint32_t>(
       (8 * (st_m >> 1) + st_i) * 128 + (((2 * wi + (st_m & 1)) ^ st_i) << 4));
   const uint32_t sS_base = smem_addr(sm + Sh::kOffS);
-  // this thread's dQ^T values in the warpgroup's [32 q][64 d] fp32 tile, as
-  // at head dim 64: d = 16 wi + g + 8 r of atom w lies in box wi / 2, chunk
-  // 4 (wi % 2) + 2 r + g / 4, word g % 4; row q = 8 j + 2 t + c
-  const uint8_t* dq_tiles = sm + Sh::kOffDQ + w * 2 * kDQTile;
-  const uint32_t dq_box = smem_addr(dq_tiles) + (wi >> 1) * (kDQTile / 2) + (g & 3) * 4;
+  // this thread's dQ^T values (d = 64 w + 16 wi + g + 8 r, q = 8 j + 2 t + c)
+  // in the warpgroup's [64 q][64 d] fp32 tile, two 128B-swizzled [64 q][32 d]
+  // boxes: box wi / 2, chunk 4 (wi % 2) + 2 r + g / 4, word g % 4
+  const uint8_t* dq_tile = sm + Sh::kOffDQ + w * Sh::kDQ;
+  const uint32_t dq_box = smem_addr(dq_tile) + (wi >> 1) * (Sh::kDQ / 2) + (g & 3) * 4;
   const int dq_chunk = 4 * (wi & 1) + (g >> 2);
-  const bool issuer = (threadIdx.x & 127) == 0;  // issues this warpgroup's reduce-adds
+  auto issuer_now = [&] { return (tid_now() & 127) == 0; };  // issues the warpgroup's reduce-adds
   // K-major K_w, V_w, Q, dO: k-step kk lies in atom kk / 4, 32 bytes a step into it
   const uint64_t dKw = desc_sw128(sK + 64 * w * 128, 16, 1024);
   const uint64_t dVw = desc_sw128(sV + 64 * w * 128, 16, 1024);
   const uint64_t dQk = desc_sw128(sQ, 16, 1024), dOk = desc_sw128(sO, 16, 1024);
-  // MN-major: atom w of K^T for dQ^T; Q and dO (N = 128 columns, LBO = one atom)
+  // MN-major: atom w of K^T for dQ^T; Q and dO (N = D columns, LBO = one atom)
   const uint64_t dKt = desc_sw128(sK + w * Sh::kKAtom, Sh::kKAtom, 1024);
   const uint64_t dQm = desc_sw128(sQ, Sh::kQAtom, 1024), dOm = desc_sw128(sO, Sh::kQAtom, 1024);
   const uint64_t dS = desc_sw128(sm + Sh::kOffS, 16, 1024);  // dS^T as dQ^T's B
 
-  float dk[64], dv[64];
+  float dk[D / 2], dv[D / 2];
 #pragma unroll
-  for (int i = 0; i < 64; ++i) dk[i] = dv[i] = 0.f;
-
+  for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
   mbar_wait(kv_bar, 0);
-  int ch = 0, cq = qt0;  // the consumers' pair
-  settle(ch, cq);
-  for (int it = 0; ch < group; ++it) {
-    const int h = kvh * group + ch;
-    const int q0 = cq * NQ;
+  for (int it = 0; cr < r_hi; ++it) {
+    const int h = kvh * group + cr / band, q0 = (qt0 + cr % band) * NQ;
     const int stage = it % kStages;
     const uint32_t su = stage * (kTileBytes >> 4);
-    // this thread's queries q0 + 8 j + 2 t + c: LSE (log2 units), delta, ids
-    const long long row_base = (static_cast<long long>(b) * a.heads + h) * a.sq;
-    float l2[8], dl[8];
-    int qseg[8];
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int q = q0 + 8 * (i >> 1) + 2 * t + (i & 1);
-      const bool in = q < a.sq;
-      l2[i] = in ? a.lse[row_base + q] * kLog2e : __int_as_float(0x7f800000);
-      dl[i] = in ? a.delta[row_base + q] : 0.f;
-      qseg[i] = SEG && in ? a.seg[static_cast<long long>(b) * a.sq + q] : -1;
-    }
+    // the next pair's row data, waited for before this step's 256-thread barrier
+    const int nr = settle(cr + 1);
+    if (nr < r_hi) load_rows(nr, (it + 1) & 1);
+    // the last step's staged dQ^T has been read by its reduce-adds
+    if (issuer_now()) bulk_wait_read<0>();
     mbar_wait(&full[stage], (it / kStages) & 1);
 
-    // S^T = K_w Q^T, dP^T = V_w dO^T: (64 keys x 32 queries), K-major both
-    float s[16], dp[16];
+    // S^T = K_w Q^T, dP^T = V_w dO^T: (64 keys x 64 queries), K-major both
+    float s[32], dp[32];
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < Sh::kKSteps; ++kk)
-      wgmma_m64n32k16_ss<0, 0>(s, dKw + (kk >> 2) * (Sh::kKAtom >> 4) + 2 * (kk & 3),
+      wgmma_m64n64k16_ss<0, 0>(s, dKw + (kk >> 2) * (Sh::kKAtom >> 4) + 2 * (kk & 3),
                                dQk + su + (kk >> 2) * (Sh::kQAtom >> 4) + 2 * (kk & 3), kk);
     wgmma_commit();
 #pragma unroll
     for (int kk = 0; kk < Sh::kKSteps; ++kk)
-      wgmma_m64n32k16_ss<0, 0>(dp, dVw + (kk >> 2) * (Sh::kKAtom >> 4) + 2 * (kk & 3),
+      wgmma_m64n64k16_ss<0, 0>(dp, dVw + (kk >> 2) * (Sh::kKAtom >> 4) + 2 * (kk & 3),
                                dOk + su + (kk >> 2) * (Sh::kQAtom >> 4) + 2 * (kk & 3), kk);
     wgmma_commit();
 
+    const float* lse = reinterpret_cast<const float*>(sRow + (it & 1) * 192);
+    const float* dl = lse + 64;
+    const int* qseg = reinterpret_cast<const int*>(lse + 128);
     const bool masked = key_edge || SEG || (CAUSAL && q0 + a.q_offset < k0 + 64 * w + 63);
     wgmma_wait<1>();
     fence_regs(s);
     // p, then P^T as bf16 A fragments: k-step kk's fragment is the C
     // fragment of accumulator columns 16 kk .. 16 kk + 15
-    uint32_t pa[2][4];
+    uint32_t pa[4][4];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
+    for (int j = 0; j < 8; ++j) {
+      const float2 l = *reinterpret_cast<const float2*>(lse + 8 * j + 2 * t);
+      const float l2[2] = {l.x * kLog2e, l.y * kLog2e};
       float pv[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) pv[i] = exp2f(s[4 * j + i] * sl2 - l2[2 * j + (i & 1)]);
+      for (int i = 0; i < 4; ++i) pv[i] = exp2f(s[4 * j + i] * sl2 - l2[i & 1]);
       if (masked) {
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           const int ql = 8 * j + 2 * t + (i & 1), key = key_lo + 8 * (i >> 1);
           bool ok = key < a.sk;
           if (CAUSAL) ok = ok && q0 + ql + a.q_offset >= key;
-          if (SEG) ok = ok && qseg[2 * j + (i & 1)] == kseg[i >> 1];
+          if (SEG) ok = ok && qseg[ql] == kseg[i >> 1];
           pv[i] = ok ? pv[i] : 0.f;
         }
       }
@@ -761,44 +808,50 @@ __global__ void __launch_bounds__(256, 1)
     }
     wgmma_wait<0>();
     fence_regs(dp);
-    uint32_t da[2][4];
+    uint32_t da[4][4];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
+    for (int j = 0; j < 8; ++j) {
+      const float2 d2 = *reinterpret_cast<const float2*>(dl + 8 * j + 2 * t);
       float ds[4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) ds[i] = s[4 * j + i] * (dp[4 * j + i] - dl[2 * j + (i & 1)]);
+      for (int i = 0; i < 4; ++i) ds[i] = s[4 * j + i] * (dp[4 * j + i] - ((i & 1) ? d2.y : d2.x));
       da[j >> 1][(j & 1) * 2 + 0] = pack_bf16x2(ds[0], ds[1]);
       da[j >> 1][(j & 1) * 2 + 1] = pack_bf16x2(ds[2], ds[3]);
     }
-    // dS[q][key] for dQ (this warpgroup's 64 keys are column block w)
+    // dS[q][key] for dQ^T (this warpgroup's 64 keys are column block w)
     const uint32_t sS = sS_base + (it & 1) * (2 * Sh::kSHalf);
 #pragma unroll
-    for (int kk = 0; kk < 2; ++kk)
+    for (int kk = 0; kk < 4; ++kk)
       stmatrix_x4_trans(sS + w * Sh::kSHalf + st_off + kk * 16 * 128, da[kk]);
 
-    // dV += P^T dO, dK += dS^T Q (64 keys x 128 columns); dO, Q MN-major
+    // dV += P^T dO, dK += dS^T Q (64 keys x D columns); dO, Q MN-major
     fence_regs(pa);
     fence_regs(da);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < 2; ++kk) wgmma_m64n128k16_rs<1>(dv, pa[kk], dOm + su + 128 * kk);
+    for (int kk = 0; kk < 4; ++kk) {
+      if constexpr (D == 96) wgmma_m64n96k16_rs<1>(dv, pa[kk], dOm + su + 128 * kk);
+      else wgmma_m64n128k16_rs<1>(dv, pa[kk], dOm + su + 128 * kk);
+    }
 #pragma unroll
-    for (int kk = 0; kk < 2; ++kk) wgmma_m64n128k16_rs<1>(dk, da[kk], dQm + su + 128 * kk);
+    for (int kk = 0; kk < 4; ++kk) {
+      if constexpr (D == 96) wgmma_m64n96k16_rs<1>(dk, da[kk], dQm + su + 128 * kk);
+      else wgmma_m64n128k16_rs<1>(dk, da[kk], dQm + su + 128 * kk);
+    }
     wgmma_commit();
 
-    // both halves of dS are in place, and both warpgroups are done with the
-    // previous step (its products waited for): its stage takes a new pair
+    // both halves of dS are in place, and the next step's row data
+    cp_async_wait_all();
     fence_proxy_async();
     bar_sync(1, 256);
-    if (loader && it > 0) load_next((it - 1) % kStages);
-    // dQ^T (64 d of atom w x 32 q) = K^T dS^T
-    float dq[16];
+    // dQ^T (64 d of atom w x 64 q) = K^T dS^T over the 128 keys
+    float dq[32];
 #pragma unroll
-    for (int i = 0; i < 16; ++i) dq[i] = 0.f;
+    for (int i = 0; i < 32; ++i) dq[i] = 0.f;
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kBwdK / 16; ++kk) {
-      wgmma_m64n32k16_ss<1, 0>(dq, dKt + 128 * kk,
+      wgmma_m64n64k16_ss<1, 0>(dq, dKt + 128 * kk,
                                dS + (it & 1) * (2 * Sh::kSHalf >> 4) +
                                    (kk >> 2) * (Sh::kSHalf >> 4) + 2 * (kk & 3),
                                kk);
@@ -808,46 +861,86 @@ __global__ void __launch_bounds__(256, 1)
     fence_regs(dv);
     fence_regs(dk);
     fence_regs(dq);
+    // both warpgroups have finished the last step: its stage takes a new pair
+    if (it > 0 && loader_now()) load_next((it - 1) % kStages);
 
     // dQ^T into the warpgroup's tile, then one TMA reduce-add a box into
-    // the workspace rows q0 .. q0 + 31, columns 64 w + 32 x below D (rows
+    // the workspace rows q0 .. q0 + 63, columns 64 w + 32 x below D (rows
     // past Sq are skipped)
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
+    for (int j = 0; j < 8; ++j)
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const int ql = 8 * j + 2 * t + (i & 1);
-        const uint32_t addr = dq_box + (it & 1) * kDQTile + ql * 128 +
-                              (((dq_chunk + 2 * (i >> 1)) ^ (ql & 7)) << 4);
+        const uint32_t addr = dq_box + ql * 128 + (((dq_chunk + 2 * (i >> 1)) ^ (ql & 7)) << 4);
         asm volatile("st.shared.f32 [%0], %1;\n" ::"r"(addr), "f"(dq[4 * j + i]) : "memory");
       }
     fence_proxy_async();
     bar_sync(2 + w, 128);
-    if (issuer) {
-      const uint8_t* tile = dq_tiles + (it & 1) * kDQTile;
-      tma_reduce_add_4d(&maps.dq, tile, 64 * w, q0, h, b);
-      if (64 * w + 32 < D) tma_reduce_add_4d(&maps.dq, tile + kDQTile / 2, 64 * w + 32, q0, h, b);
+    if (issuer_now()) {
+      tma_reduce_add_4d(&maps.dq, dq_tile, 64 * w, q0, h, b);
+      if (64 * w + 32 < D) tma_reduce_add_4d(&maps.dq, dq_tile + Sh::kDQ / 2, 64 * w + 32, q0, h, b);
       bulk_commit();
-      // the other buffer, written next step (after the next 256-thread
-      // barrier), is free once the previous step's reduce-adds have read it
-      bulk_wait_read<1>();
     }
-    ++cq;
-    settle(ch, cq);
+    cr = nr;
   }
 
-  if (issuer) bulk_wait<0>();
+  if (issuer_now()) bulk_wait<0>();
 
-  // dk (scaled once) and dv: rows key_lo + 8 r, columns 8 j + 2 t + c < D
+  if (a.parts == 2) {
+    // part 1 leaves its sums in its own shared memory and part 0 adds them
+    // to its own. A warpgroup has waited only for its own products: the
+    // barrier holds each one's stores until the other's last dQ^T (K) and
+    // dV, dK (the last stage's Q, dO) are done with what they overwrite.
+    constexpr int kVec = D / 8;  // float4s of dk (and of dv) a thread
+    float4* xch = reinterpret_cast<float4*>(sm);
+    const int tx = tid_now();  // this thread's float4s: tx, tx + 256, ...
+    if (part == 1) {
+      bar_sync(1, 256);
+#pragma unroll
+      for (int i = 0; i < kVec; ++i) {
+        xch[i * 256 + tx] = make_float4(dk[4 * i], dk[4 * i + 1], dk[4 * i + 2], dk[4 * i + 3]);
+        xch[(kVec + i) * 256 + tx] =
+            make_float4(dv[4 * i], dv[4 * i + 1], dv[4 * i + 2], dv[4 * i + 3]);
+      }
+    }
+    cluster_arrive();  // release: part 1's stores
+    cluster_wait();
+    if (part == 0) {
+      const float4* peer = cg::this_cluster().map_shared_rank(xch, 1);
+#pragma unroll
+      for (int i0 = 0; i0 < kVec; i0 += 4) {  // four float4s of each in flight at a time
+        float4 x[4], y[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          x[i] = peer[(i0 + i) * 256 + tx];
+          y[i] = peer[(kVec + i0 + i) * 256 + tx];
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int e = 4 * (i0 + i);
+          dk[e] += x[i].x, dk[e + 1] += x[i].y, dk[e + 2] += x[i].z, dk[e + 3] += x[i].w;
+          dv[e] += y[i].x, dv[e + 1] += y[i].y, dv[e + 2] += y[i].z, dv[e + 3] += y[i].w;
+        }
+        asm volatile("" ::: "memory");
+      }
+    }
+    cluster_arrive();  // part 1 stays until part 0 has read its shared memory
+    cluster_wait();
+    if (part == 1) return;
+  }
+
+  // dk (scaled once) and dv: rows key_e + 8 r (key_lo's), columns 8 j + 2 t + c
   const long long kv_ss = static_cast<long long>(a.kv_heads) * D;
   const long long base = static_cast<long long>(b) * a.sk * kv_ss + kvh * D;
+  const int te = tid_now(), key_e = k0 + 64 * (te >> 7) + 16 * ((te >> 5) & 3) + ((te & 31) >> 2);
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const int key = key_lo + 8 * r;
+    const int key = key_e + 8 * r;
     if (key >= a.sk) continue;
 #pragma unroll
     for (int j = 0; j < D / 8; ++j) {
-      const long long o = base + key * kv_ss + 8 * j + 2 * t;
+      const long long o = base + key * kv_ss + 8 * j + 2 * (te & 3);
       *reinterpret_cast<uint32_t*>(a.dk + o) =
           pack_bf16x2(dk[4 * j + 2 * r] * a.scale, dk[4 * j + 2 * r + 1] * a.scale);
       *reinterpret_cast<uint32_t*>(a.dv + o) = pack_bf16x2(dv[4 * j + 2 * r], dv[4 * j + 2 * r + 1]);
@@ -939,12 +1032,24 @@ inline int launch_bwd_sm90(const BwdMaps& maps, const BwdArgs& a, cudaStream_t s
 template <int D, bool CAUSAL, bool SEG>
 inline int launch_bwd_wide(const BwdMaps& maps, const BwdArgs& a, cudaStream_t stream) {
   constexpr int smem = WideShape<D>::kSmem;
-  const cudaError_t err = cudaFuncSetAttribute(flash_bwd_wide_sm90_kernel<D, CAUSAL, SEG>,
-                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                               smem);
+  auto kernel = flash_bwd_wide_sm90_kernel<D, CAUSAL, SEG>;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int grid = (a.sk + kBwdK - 1) / kBwdK * a.kv_heads * a.batch;
-  flash_bwd_wide_sm90_kernel<D, CAUSAL, SEG><<<grid, 256, smem, stream>>>(maps, a);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((a.sk + kBwdK - 1) / kBwdK * a.kv_heads * a.batch * a.parts, 1, 1);
+  cfg.blockDim = dim3(256, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = a.parts;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t launched = cudaLaunchKernelEx(&cfg, kernel, maps, a);
+  if (launched != cudaSuccess) return static_cast<int>(launched);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -995,10 +1100,9 @@ extern "C" int gar_flash_bwd_dkv(const void* q, const void* k, const void* v, co
       (seg && (sq != sk || !q_tiles || !k_tiles)))
     return static_cast<int>(cudaErrorInvalidValue);
   gar::BwdMaps maps;  // inner dim head_dim: a box's columns past it land as zeros
-  const int q_rows = head_dim == 64 ? gar::kBwdQ : gar::WideShape<128>::kQ;
   const long long dq_ss = static_cast<long long>(heads) * head_dim;
   int err = gar::encode_rows(&maps.q, q, false, sq, heads, batch, strides[0], strides[1],
-                             strides[2], q_rows, head_dim);
+                             strides[2], gar::kBwdQ, head_dim);
   if (!err)
     err = gar::encode_rows(&maps.k, k, false, sk, kv_heads, batch, strides[3], strides[4],
                            strides[5], gar::kBwdK, head_dim);
@@ -1007,10 +1111,10 @@ extern "C" int gar_flash_bwd_dkv(const void* q, const void* k, const void* v, co
                            strides[8], gar::kBwdK, head_dim);
   if (!err)
     err = gar::encode_rows(&maps.dout, dout, false, sq, heads, batch, strides[9], strides[10],
-                           strides[11], q_rows, head_dim);
+                           strides[11], gar::kBwdQ, head_dim);
   if (!err)
     err = gar::encode_rows(&maps.dq, dq_acc, true, sq, heads, batch, sq * dq_ss, dq_ss,
-                           head_dim, 32, head_dim);
+                           head_dim, head_dim == 64 ? 32 : 64, head_dim);
   if (err) return err;
   gar::BwdArgs a;
   a.lse = static_cast<const float*>(lse);
@@ -1032,6 +1136,9 @@ extern "C" int gar_flash_bwd_dkv(const void* q, const void* k, const void* v, co
   // would walk every query tile for them
   const int rem = sk % gar::kBwdK;
   a.tail = head_dim == 64 && !causal && !seg && sk > gar::kBwdK && rem <= gar::kTailMax ? rem : 0;
+  // above 64 a causal walk is split between the two CTAs of a cluster (the
+  // band's first key tiles hold most of the work)
+  a.parts = head_dim > 64 && causal ? 2 : 1;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (head_dim == 96) return gar::launch_bwd_wide<96, false, false>(maps, a, st);
   if (head_dim == 128) {

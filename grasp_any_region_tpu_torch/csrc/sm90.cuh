@@ -71,6 +71,24 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   }
 }
 
+// ---- cp.async: 4 bytes of global memory into shared memory without a
+// register (zero-filled where !valid); commit, then wait before a barrier
+// hands them over
+
+__device__ __forceinline__ void cp_async_4(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
 // ---- programmatic dependent launch
 
 // Wait until the grids this one depends on have completed and their writes
@@ -322,6 +340,23 @@ __device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64], const uint32
       "{%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
       : GAR_ACC8(d, 0), GAR_ACC8(d, 8), GAR_ACC8(d, 16), GAR_ACC8(d, 24), GAR_ACC8(d, 32),
         GAR_ACC8(d, 40), GAR_ACC8(d, 48), GAR_ACC8(d, 56)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1), "n"(TB));
+}
+
+// D(64 x 96) += A(64 x 16, registers) B(16 x 96, shared memory), A as
+// wgmma_m64n64k16_rs takes it; d[j*4 + r*2 + c] = D[16 w + g + 8 r][8 j + 2 t + c].
+template <int TB>
+__device__ __forceinline__ void wgmma_m64n96k16_rs(float (&d)[48], const uint32_t (&a)[4],
+                                                   uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47}, "
+      "{%48, %49, %50, %51}, %52, p, 1, 1, %54;\n}\n"
+      : GAR_ACC8(d, 0), GAR_ACC8(d, 8), GAR_ACC8(d, 16), GAR_ACC8(d, 24), GAR_ACC8(d, 32),
+        GAR_ACC8(d, 40)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1), "n"(TB));
 }
 

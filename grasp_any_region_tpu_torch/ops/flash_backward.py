@@ -31,9 +31,13 @@ on the current stream or raises.
 
 Head dims: 64 (GAR-1B) and 128 (GAR-8B's decoder) with every mask, 96
 (GAR-8B's PE-G tower) for kernel 5 only, full attention without segment
-ids; any other raises before a launch. Above 64 a key row is two 128-byte
-swizzle atoms (96 rides on 128's, TMA zero-filling columns 96-127), a
-step of 18 takes 32 query rows (`bwd_query_tile`), and no tail is folded.
+ids; any other raises before a launch. Above 64 (18's wide instance) a
+key row is two 128-byte swizzle atoms (96 rides on 128's, TMA
+zero-filling columns 96-127), the CTA is two consumer warpgroups with
+thread 0 as the TMA loader, a step takes 64 query rows as at 64
+(`bwd_query_tile`), no tail is folded, and a causal walk is split between
+the two CTAs of a cluster, which sum their dk and dv through distributed
+shared memory (a sum of two: reproducible).
 """
 
 from __future__ import annotations
@@ -109,10 +113,10 @@ def check_backward_head_dim(d: int, kernels: str, *, causal: bool = False,
 
 
 def bwd_query_tile(d: int) -> int:
-    """Query rows a step of kernel 18 (its segment-skip granularity for
-    queries): 64 at head dim 64; 32 above it, where dK and dV take 128
-    registers a thread."""
-    return 64 if d == 64 else 32
+    """Query rows a step of kernel 18 at head dim d (its segment-skip
+    granularity for queries): 64 in both instances, the head-dim-64 one
+    and the wide one above it."""
+    return 64
 
 
 def bwd_delta(out: torch.Tensor, g: torch.Tensor) -> torch.Tensor:

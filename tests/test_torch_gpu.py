@@ -2385,14 +2385,16 @@ def test_engine_window_run_twice_gives_the_same_tokens(rnd, quantize_kv):
 
 
 @pytest.mark.parametrize("t,s,h", [(9, 1025, 16), (2, 129, 2), (1, 257, 3), (2, 1024, 2),
-                                   (1, 77, 1), (3, 1040, 2)])
+                                   (1, 77, 1), (3, 1040, 2), (2, 63, 2), (1, 64, 3), (2, 65, 1),
+                                   (1, 1026, 2), (2, 1032, 1), (1, 1039, 2)])
 def test_vit_attention_backward_kernel_head_dim_96(rnd, t, s, h):
     """Kernel 5 at GAR-8B's head dim 96 (17's prep, 18's wide pass at 128's
     two-atom layout with columns 96-127 zero-filled, 17's cast), v a view of
     a (T, S, 3, H, 96) buffer as the unfused PE-G block passes it, at the 8B
-    tower's shape and at ragged S (a one-key ninth key tile, a 77-row one,
-    a 32-row query tile's edge), against the plain backward at the sized
-    tolerance; dk and dv bit-equal across two runs."""
+    tower's shape and at ragged S (one to sixteen keys past the last full
+    key tile, a 77-row tile, S just below, at and above the 64-row query
+    step's edges), against the plain backward at the sized tolerance; dk and
+    dv bit-equal across two runs, the counters one each a call."""
     from grasp_any_region_tpu_torch.ops import flash_backward as fb
 
     q, k, g = (rnd(t, s, h, 96) for _ in range(3))
@@ -2421,15 +2423,25 @@ def test_vit_attention_backward_kernel_head_dim_96(rnd, t, s, h):
     (2, 700, 700, 8, 2, True, True),
     (1, 1040, 1040, 8, 2, False, False),
     (2, 31, 31, 4, 4, True, False),
+    (1, 63, 63, 4, 2, True, False),  # the 64-row query step's edges
+    (2, 64, 64, 8, 8, True, False),
+    (1, 65, 65, 4, 1, False, False),
+    (1, 129, 129, 8, 2, True, False),
+    (1, 65, 200, 4, 4, True, False),
+    (1, 129, 300, 8, 1, True, False),
+    (1, 320, 320, 8, 2, True, (64, 128, 192, 256)),  # documents ending on query-tile edges
+    (2, 257, 257, 4, 1, True, (63, 65, 129, 191, 193)),
 ])
 def test_flash_backward_kernels_head_dim_128(rnd, b, sq, sk, h, kh, causal, packed):
     """Kernels 17 and 18 at GAR-8B's decoder head dim 128 (18's wide
-    instance: 32-row query steps, two consumer warpgroups, thread 0 the TMA
-    loader) from B's forward with its LSE, at the 8B prefill (with and
-    without segment ids) and at ragged shapes: Sq < Sk, GQA 1-8, documents
-    ending inside and at the edges of the 32-row and 128-key tiles, full
-    attention; against the plain backward at the sized tolerance; dk and dv
-    bit-equal across two runs, the counters one each a call."""
+    instance: 64-row query steps, two consumer warpgroups, thread 0 the TMA
+    loader, a causal walk split between the two CTAs of a cluster) from B's
+    forward with its LSE, at the 8B prefill (with and without segment ids)
+    and at ragged shapes: Sq < Sk, Sq just below, at and above the 64-row
+    step's edges, GQA 1-8, documents ending inside and on the edges of the
+    64-row and 128-key tiles, full attention; against the plain backward at
+    the sized tolerance; dk and dv bit-equal across two runs, the counters
+    one each a call."""
     from grasp_any_region_tpu_torch.ops import flash_backward as fb
 
     q, g = rnd(b, sq, h, 128), rnd(b, sq, h, 128)

@@ -103,7 +103,7 @@ def test_flash_backward_plain_matches_pallas(b, sq, sk, h, kh, d, causal, segmen
     (1, 129, 2, 64, False),
     (1, 257, 2, 64, False),
     (2, 129, 2, 64, True),  # v a strided view of a (T, S, 3, H, 64) buffer, as the tower's
-    # GAR-8B's PE-G head dim 96, S past the 32-row query and 128-key tile edges
+    # GAR-8B's PE-G head dim 96, S past the 64-row query and 128-key tile edges
     (1, 129, 2, 96, False),
     (1, 257, 2, 96, False),
     (2, 129, 2, 96, True),
@@ -217,17 +217,20 @@ def test_bwd_delta_matches_jax(dtype):
     _close(got, ref, atol=1e-5, rtol=1e-5)
 
 
-_SKIP_CASES = [pytest.param(s, 64, id=str(s)) for s in (256, 300, 1000)] + [
-    pytest.param(s, 128, id=f"{s}-k128") for s in (256, 300, 1000)]
+_SKIP_CASES = [pytest.param(s, kt, d, id=f"{s}{'-k128' if kt == 128 else ''}"
+                             f"{'' if d == 64 else f'-d{d}'}")
+               for d in (64, 96, 128) for kt in (64, 128) for s in (256, 300, 1000)]
 
 
-@pytest.mark.parametrize("s,key_tile", _SKIP_CASES)
-def test_segment_tile_skip_keeps_every_equal_id_pair(s, key_tile):
+@pytest.mark.parametrize("s,key_tile,d", _SKIP_CASES)
+def test_segment_tile_skip_keeps_every_equal_id_pair(s, key_tile, d):
     """The kernels skip a (query tile, key tile) pair whose [min, max]
-    segment-id ranges (`segment_tiles`) are disjoint: 18 at 64-row query
-    tiles and 128 keys (`flash_backward.BWD_KEY_TILE`), here also at 64
-    keys; B's 128 x 128 pairs are in tests/test_torch_flash_forward.py.
-    That is exact: no skipped pair holds two equal ids; and it does prune."""
+    segment-id ranges (`segment_tiles`) are disjoint: 18 at its query tile
+    for head dim d (`flash_backward.bwd_query_tile`, both instances) and 128
+    keys (`flash_backward.BWD_KEY_TILE`), here also at 64 keys; B's 128 x
+    128 pairs are in tests/test_torch_flash_forward.py. That is exact: no
+    skipped pair holds two equal ids; and it does prune."""
+    rows_q = fb.bwd_query_tile(d)
     rng = np.random.default_rng(s)
     seg = np.zeros((2, s), np.int32)
     for row in seg:
@@ -236,8 +239,8 @@ def test_segment_tile_skip_keeps_every_equal_id_pair(s, key_tile):
             n = int(rng.integers(20, 150))
             row[off:off + n], off, doc = doc, off + n, doc + 1
     seg = torch.from_numpy(seg)
-    q_tiles, k_tiles = fa.segment_tiles(seg), fa.segment_tiles(seg, key_tile)
-    for tiles, size in ((q_tiles, 64), (k_tiles, key_tile)):
+    q_tiles, k_tiles = fa.segment_tiles(seg, rows_q), fa.segment_tiles(seg, key_tile)
+    for tiles, size in ((q_tiles, rows_q), (k_tiles, key_tile)):
         for b in range(2):
             for i in range(tiles.shape[1]):
                 rows = seg[b, size * i:size * (i + 1)]
@@ -245,7 +248,7 @@ def test_segment_tile_skip_keeps_every_equal_id_pair(s, key_tile):
     lo, hi = q_tiles[..., 0], q_tiles[..., 1]
     klo, khi = k_tiles[..., 0], k_tiles[..., 1]
     disjoint = (khi[:, None, :] < lo[:, :, None]) | (klo[:, None, :] > hi[:, :, None])
-    qt, kt = torch.arange(s) // 64, torch.arange(s) // key_tile
+    qt, kt = torch.arange(s) // rows_q, torch.arange(s) // key_tile
     skipped = disjoint[:, qt][:, :, kt]  # (B, S, S) per (query, key)
     assert not (skipped & (seg[:, :, None] == seg[:, None, :])).any()
     assert disjoint.any()
